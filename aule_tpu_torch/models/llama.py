@@ -1,0 +1,260 @@
+"""Llama-style decoder (counterpart of aule_tpu/models/llama.py:42-256,
+387-492).
+
+Parameters are a plain dict with the JAX package's keys and its `[in, out]`
+weight orientation (`x @ w`), so JAX params cross over as a plain copy
+(`load_jax_params`).  Dtype placement follows the JAX model exactly: norm
+weights are f32 and `rms_norm` computes in f32 and casts back; the SiLU
+gate is computed in f32; logits are f32.
+
+  * `forward` is the prefill path: attention through the port's flash
+    forward (the CUDA kernel on the card, its plain version on the CPU).
+    It is inference only: training is a later slice, so a parameter that
+    requires grad raises.
+  * `decode_step_fused` is one decode step over the fused paged pools:
+    append (in place) then paged attention.
+
+Entry points run on the card by default (`device="cuda"`) and raise
+without CUDA; pass `device="cpu"` for the plain versions.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ..config import resolve_device
+from ..ops.flash import flash_attention_fwd
+from ..ops.paged_fused import (kv_cache_append_decode_fused,
+                               paged_attention_fused)
+from ..ops.rope import apply_rope, precompute_rope_frequencies
+
+Params = Dict[str, Any]
+
+
+@dataclasses.dataclass(frozen=True)
+class LlamaConfig:
+    vocab_size: int = 32000
+    dim: int = 4096
+    n_layers: int = 32
+    n_heads: int = 32
+    n_kv_heads: int = 8
+    hidden_dim: int = 14336
+    rope_base: float = 500000.0
+    norm_eps: float = 1e-5
+    dtype: torch.dtype = torch.bfloat16
+    # sliding window; -1 = full attention (prefill: q - k <= W; decode:
+    # trailing W + 1 tokens, see decode_step_fused)
+    window_size: int = -1
+
+    @property
+    def head_dim(self) -> int:
+        return self.dim // self.n_heads
+
+    @classmethod
+    def llama3_8b(cls) -> "LlamaConfig":
+        return cls(vocab_size=128256, dim=4096, n_layers=32, n_heads=32,
+                   n_kv_heads=8, hidden_dim=14336)
+
+    @classmethod
+    def tiny(cls, **kw) -> "LlamaConfig":
+        """Test-sized config (the JAX package's LlamaConfig.tiny())."""
+        defaults = dict(vocab_size=256, dim=128, n_layers=2, n_heads=4,
+                        n_kv_heads=2, hidden_dim=256, rope_base=10000.0,
+                        dtype=torch.float32)
+        defaults.update(kw)
+        return cls(**defaults)
+
+
+def init_params(cfg: LlamaConfig, generator: torch.Generator,
+                device="cuda") -> Params:
+    """Random parameters, N(0, 1/fan_in) in f32 cast to cfg.dtype (the JAX
+    init's scale), norms one.  `generator` must live on `device`."""
+    dev = resolve_device(device)
+
+    def dense(fan_in, shape):
+        w = torch.randn(shape, generator=generator, device=dev,
+                        dtype=torch.float32)
+        return w.mul_(1.0 / math.sqrt(fan_in)).to(cfg.dtype)
+
+    d, h = cfg.dim, cfg.hidden_dim
+    qkv_dim = cfg.n_heads * cfg.head_dim
+    kv_dim = cfg.n_kv_heads * cfg.head_dim
+    layers = []
+    for _ in range(cfg.n_layers):
+        layers.append({
+            "wq": dense(d, (d, qkv_dim)),
+            "wk": dense(d, (d, kv_dim)),
+            "wv": dense(d, (d, kv_dim)),
+            "wo": dense(qkv_dim, (qkv_dim, d)),
+            "w_gate": dense(d, (d, h)),
+            "w_up": dense(d, (d, h)),
+            "w_down": dense(h, (h, d)),
+            "attn_norm": torch.ones((d,), dtype=torch.float32, device=dev),
+            "mlp_norm": torch.ones((d,), dtype=torch.float32, device=dev),
+        })
+    return {
+        "embed": dense(1, (cfg.vocab_size, d)),
+        "layers": layers,
+        "final_norm": torch.ones((d,), dtype=torch.float32, device=dev),
+        "lm_head": dense(d, (d, cfg.vocab_size)),
+    }
+
+
+def _to_torch(a: np.ndarray, dev, dtype) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":  # ml_dtypes: no numpy-native bf16
+        t = torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.array(a))  # a writable copy
+    t = t.to(dev)
+    return t if dtype is None else t.to(dtype)
+
+
+def load_jax_params(np_tree: Params, device="cuda",
+                    dtype: Optional[torch.dtype] = None) -> Params:
+    """The JAX package's params, converted by the caller with
+    `jax.tree.map(np.asarray, params)`, as the port's params on `device`.
+    `dtype` recasts the weight matrices; norms stay f32 as in JAX."""
+    dev = resolve_device(device)
+
+    def conv(name, a):
+        return _to_torch(a, dev, None if name.endswith("norm") else dtype)
+
+    return {
+        "embed": conv("embed", np_tree["embed"]),
+        "layers": [{k: conv(k, v) for k, v in layer.items()}
+                   for layer in np_tree["layers"]],
+        "final_norm": conv("final_norm", np_tree["final_norm"]),
+        "lm_head": conv("lm_head", np_tree["lm_head"]),
+    }
+
+
+def _tensors(params: Params):
+    yield params["embed"]
+    yield params["final_norm"]
+    yield params["lm_head"]
+    for layer in params["layers"]:
+        yield from layer.values()
+
+
+def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float):
+    xf = x.float()
+    var = (xf * xf).mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * weight).to(x.dtype)
+
+
+def _split_heads(x, n_heads, head_dim):
+    b, s, _ = x.shape
+    return x.reshape(b, s, n_heads, head_dim).transpose(1, 2)
+
+
+def _merge_heads(x):
+    b, h, s, dh = x.shape
+    return x.transpose(1, 2).reshape(b, s, h * dh)
+
+
+def _mlp(x, layer, cfg):
+    h = rms_norm(x, layer["mlp_norm"], cfg.norm_eps)
+    gate = F.silu((h @ layer["w_gate"]).float())
+    up = (h @ layer["w_up"]).float()
+    return x + (gate * up).to(x.dtype) @ layer["w_down"]
+
+
+def forward(
+    params: Params,
+    tokens: torch.Tensor,          # [B, S] int
+    cfg: LlamaConfig,
+    *,
+    rope_cos: Optional[torch.Tensor] = None,
+    rope_sin: Optional[torch.Tensor] = None,
+    return_kv: bool = False,
+    attention: Callable = flash_attention_fwd,
+):
+    """Causal-LM forward (prefill).  Returns logits [B, S, V] f32; with
+    return_kv also the per-layer ROTATED k and unrotated v [B, Hkv, S, Dh]
+    for filling the decode pools.  `attention` is the flash forward; a
+    reference run passes its plain version (ops.flash's
+    flash_attention_fwd_plain) to hold the kernel path against it."""
+    if any(t.requires_grad for t in _tensors(params)):
+        raise NotImplementedError(
+            "training is a later slice: forward is inference only (call it "
+            "under torch.no_grad() or on params without requires_grad)")
+    b, s = tokens.shape
+    dev = params["embed"].device
+    if rope_cos is None:
+        rope_cos, rope_sin = precompute_rope_frequencies(
+            s, cfg.head_dim, cfg.rope_base, device=dev)
+    x = params["embed"][tokens.to(dev)]
+    kv_out: List[Tuple[torch.Tensor, torch.Tensor]] = []
+    for layer in params["layers"]:
+        h = rms_norm(x, layer["attn_norm"], cfg.norm_eps)
+        q = _split_heads(h @ layer["wq"], cfg.n_heads, cfg.head_dim)
+        k = _split_heads(h @ layer["wk"], cfg.n_kv_heads, cfg.head_dim)
+        v = _split_heads(h @ layer["wv"], cfg.n_kv_heads, cfg.head_dim)
+        q = apply_rope(q, rope_cos, rope_sin)
+        k = apply_rope(k, rope_cos, rope_sin)
+        if return_kv:
+            kv_out.append((k, v))
+        attn = attention(q, k, v, causal=True, window_size=cfg.window_size,
+                         return_lse=False)
+        x = x + _merge_heads(attn) @ layer["wo"]
+        x = _mlp(x, layer, cfg)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    logits = (x @ params["lm_head"]).float()
+    if return_kv:
+        return logits, kv_out
+    return logits
+
+
+def _rotate(x, c, sn, half):
+    return torch.cat([x[..., :half] * c - x[..., half:] * sn,
+                      x[..., :half] * sn + x[..., half:] * c],
+                     dim=-1).to(x.dtype)
+
+
+def decode_step_fused(
+    params: Params,
+    token: torch.Tensor,                 # [B] int
+    positions: torch.Tensor,             # [B] int
+    kv_pages: Sequence[torch.Tensor],    # per-layer fused pools
+    block_tables: torch.Tensor,          # [B, max_pages] int32
+    context_lens: torch.Tensor,          # [B] int32, BEFORE this token
+    cfg: LlamaConfig,
+    rope_cos: torch.Tensor,
+    rope_sin: torch.Tensor,
+):
+    """One decode step: appends this token's K/V to each layer's fused pool
+    (in place) and attends over it with the paged decode.  Returns
+    (logits [B, V] f32, kv_pages, context_lens + 1).  A stacked
+    [L, P, 2, Hkv, page, D] tensor works as `kv_pages`: its per-layer
+    views are written in place."""
+    # decode windows are trailing-W (k >= pos-W+1) while prefill's mask is
+    # q-k <= W: W+1 on the decode side makes them identical
+    dec_window = cfg.window_size + 1 if cfg.window_size > 0 else -1
+    x = params["embed"][token]
+    c = rope_cos[positions][:, None, :]
+    sn = rope_sin[positions][:, None, :]
+    half = cfg.head_dim // 2
+    lens_out = context_lens
+    for li, layer in enumerate(params["layers"]):
+        h = rms_norm(x, layer["attn_norm"], cfg.norm_eps)
+        q = (h @ layer["wq"]).reshape(-1, cfg.n_heads, cfg.head_dim)
+        k = (h @ layer["wk"]).reshape(-1, cfg.n_kv_heads, cfg.head_dim)
+        v = (h @ layer["wv"]).reshape(-1, cfg.n_kv_heads, cfg.head_dim)
+        q = _rotate(q, c, sn, half)
+        k = _rotate(k, c, sn, half)
+        _, lens_out = kv_cache_append_decode_fused(
+            kv_pages[li], k, v, block_tables, context_lens)
+        attn = paged_attention_fused(q, kv_pages[li], block_tables, lens_out,
+                                     window_size=dec_window)
+        x = x + attn.reshape(-1, cfg.n_heads * cfg.head_dim) @ layer["wo"]
+        x = _mlp(x, layer, cfg)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    logits = (x @ params["lm_head"]).float()
+    return logits, kv_pages, lens_out

@@ -1,0 +1,159 @@
+"""Build and load the port's CUDA kernels (aule_tpu_torch/csrc/*.cu).
+
+Route: nvcc by hand into one shared library with a plain C interface,
+loaded with ctypes (no PyTorch headers, so a build takes seconds, not
+minutes).  Each source compiles to an object in its own nvcc process, all
+started together, then one link makes the library.  The library lands in
+`build/aule_tpu_torch/` at the repository root (listed in .gitignore),
+named by a hash of the sources and flags, and is built at first use.
+
+Every C entry point returns `cudaGetLastError()` after its launch;
+`check` raises when that is not 0.  Nothing here runs at import time.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+from typing import Optional
+
+import torch
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "aule_tpu_torch"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_VOID = ctypes.c_void_p
+_INT = ctypes.c_int
+_FLOAT = ctypes.c_float
+
+# C signatures: every pointer and the stream are c_void_p, every int c_int
+SIGNATURES = {
+    "aule_flash_fwd": [_VOID, _VOID, _VOID, _VOID, _VOID, _INT, _INT, _INT,
+                       _INT, _INT, _FLOAT, _INT, _INT, _INT, _VOID],
+    "aule_paged_decode": [_VOID, _VOID, _VOID, _VOID, _VOID, _VOID, _INT,
+                          _INT, _INT, _INT, _INT, _FLOAT, _INT, _INT, _VOID],
+}
+
+
+class _State:
+    lib: Optional[ctypes.CDLL] = None
+    build_seconds: Optional[float] = None   # None until built or loaded
+    log: str = ""                           # nvcc / ptxas output
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    fallback = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(fallback):
+        return fallback
+    raise RuntimeError("nvcc not found: the CUDA kernels build on a machine "
+                       "with the CUDA toolkit")
+
+
+def _sources():
+    return sorted(CSRC.glob("*.cu")), sorted(CSRC.glob("*.cuh"))
+
+
+def library_path() -> Path:
+    cus, headers = _sources()
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in cus + headers:
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return BUILD_DIR / f"libaule_tpu_torch_{h.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile csrc/*.cu (one nvcc per source, in parallel) and link the
+    library, unless the library for these exact sources exists."""
+    so = library_path()
+    if so.exists():
+        return so
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    cus, _ = _sources()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        procs = []
+        for cu in cus:
+            obj = Path(tmp) / (cu.stem + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, "-c", str(cu), "-o", str(obj)]
+            procs.append((cu, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        logs, failed = [], []
+        for cu, _, proc in procs:
+            out, _ = proc.communicate()
+            logs.append(f"== {cu.name}\n{out}")
+            if proc.returncode != 0:
+                failed.append(cu.name)
+        _State.log = "\n".join(logs)
+        if failed:
+            raise RuntimeError(f"nvcc failed on {failed}:\n{_State.log}")
+        tmp_so = Path(tmp) / so.name
+        link = subprocess.run(
+            [nvcc, "-shared", *[str(o) for _, o, _ in procs], "-o",
+             str(tmp_so)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
+        os.replace(tmp_so, so)  # atomic: a reader never sees half a file
+    _State.build_seconds = time.perf_counter() - t0
+    so.with_suffix(".log").write_text(_State.log)
+    return so
+
+
+def library() -> ctypes.CDLL:
+    """The kernels' shared library, built at first use."""
+    if _State.lib is None:
+        so = build()
+        if _State.build_seconds is None:
+            _State.build_seconds = 0.0
+        lib = ctypes.CDLL(str(so))
+        for name, argtypes in SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = _INT
+        lib.aule_error_string.argtypes = [_INT]
+        lib.aule_error_string.restype = ctypes.c_char_p
+        _State.lib = lib
+    return _State.lib
+
+
+def build_seconds() -> Optional[float]:
+    """Seconds the last build in this process took (0.0 when the library
+    was already built; None before first use)."""
+    return _State.build_seconds
+
+
+def build_log() -> str:
+    return _State.log
+
+
+def check(err: int, name: str) -> None:
+    if err != 0:
+        msg = library().aule_error_string(err).decode()
+        raise RuntimeError(f"{name}: CUDA error {err} ({msg})")
+
+
+def stream_handle(device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def dtype_code(dtype) -> int:
+    """0 = bfloat16, 1 = float16 (the kernels' storage types)."""
+    if dtype == torch.bfloat16:
+        return 0
+    if dtype == torch.float16:
+        return 1
+    raise TypeError(f"the CUDA kernels take bfloat16 or float16, got {dtype}")

@@ -1,0 +1,391 @@
+"""Continuous-batching serving engine (counterpart of
+aule_tpu/serving/engine.py) for the fused, unquantized, single-device case.
+
+A host loop drives eager PyTorch steps on the card:
+  * admission: a request joins when a batch slot and all the pages its
+    prompt plus max_new_tokens need are free;
+  * prefill: one `llama.forward` (the flash kernel) over the prompt, whose
+    rotated K and V are then written into the request's pages;
+  * decode: every running sequence advances through
+    `llama.decode_step_fused` (the paged-decode kernel); when nothing waits
+    and every request has at least `decode_steps` tokens to go, K steps
+    run back to back with the tokens kept on the device and ONE host copy
+    per dispatch (the JAX scheduling rule, engine.py:1664-1666).
+
+Page 0 is the reserved scratch page: empty slots carry block-table -1,
+which clamps to page 0, so their dummy appends never touch a live page.
+The JAX engine pads prompts to power-of-two buckets and group rows to 8;
+those are TPU compile and tile artifacts and the port runs exact shapes.
+
+Options of the JAX engine outside this slice raise NotImplementedError
+naming the slice that brings them; none is silently ignored.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Any, Callable, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from ..config import PAGE_SIZE, resolve_device
+from ..models import llama
+from ..ops.paged_fused import (fused_pool_shape,
+                               kv_cache_append_prefill_fused)
+from ..ops.rope import precompute_rope_frequencies
+from . import sampling
+from .kv_cache import PythonPageAllocator
+
+_CHUNKED = "the chunked-prefill slice (next)"
+_QUANT = "the quantized fused-decode slice (next)"
+_EDGES = "the serving-edges slice"
+
+# engine arguments of the JAX engine outside this slice: (default, slice)
+_LATER_ENGINE_ARGS = {
+    "quantized": (False, _QUANT),
+    "quant_dtype": (None, _QUANT),
+    "prefill_chunk": (None, _CHUNKED),
+    "enable_prefix_cache": (False, _EDGES),
+    "mesh": (None, "the parallel-layer slice"),
+    "model_axis": ("model", "the parallel-layer slice"),
+    "model": (None, "the other-model-families slice"),
+    "sample": (None, _EDGES),
+    "sampler": (None, _EDGES),
+    "draft_params": (None, _EDGES),
+    "draft_cfg": (None, _EDGES),
+    "draft_model": (None, _EDGES),
+    "spec_tokens": (0, _EDGES),
+    "spec_min_acceptance": (0.0, _EDGES),
+    "ngram_spec": (0, _EDGES),
+    "ngram_max": (3, _EDGES),
+    "lora_params": (None, _EDGES),
+}
+
+# submit() options of the JAX engine outside this slice
+_LATER_SUBMIT_ARGS = {
+    "top_k": (0, _EDGES),
+    "top_p": (0.0, _EDGES),
+    "logprobs": (False, _EDGES),
+    "stop": (None, _EDGES),
+    "logit_bias": (None, _EDGES),
+    "lora": (None, _EDGES),
+}
+
+
+def _refuse_later(given: Dict[str, Any], table, where: str) -> None:
+    for name, value in given.items():
+        if name not in table:
+            raise TypeError(f"{where} got an unexpected argument {name!r}")
+        default, later = table[name]
+        if value != default and value is not None:
+            raise NotImplementedError(
+                f"{where}: {name}={value!r} is not ported yet; it comes "
+                f"with {later}")
+
+
+@dataclasses.dataclass
+class Request:
+    req_id: int
+    prompt: np.ndarray                 # [S] int32
+    max_new_tokens: int
+    eos_id: Optional[int] = None
+    output: List[int] = dataclasses.field(default_factory=list)
+    # streaming: on_token(req_id, token) for every generated token
+    on_token: Optional[Callable[[int, int], None]] = None
+    # temperature 0 = greedy (the default)
+    temperature: float = 0.0
+    # set by ServingEngine.cancel(): retired early with a partial output
+    cancelled: bool = False
+
+    def _emit(self, tok: int) -> None:
+        self.output.append(tok)
+        if self.on_token is not None:
+            self.on_token(self.req_id, tok)
+
+    @property
+    def done(self) -> bool:
+        if len(self.output) >= self.max_new_tokens:
+            return True
+        return (bool(self.output) and self.eos_id is not None
+                and self.output[-1] == self.eos_id)
+
+
+class ServingEngine:
+    """Continuous batching over a Llama-style model (models/llama.py) with
+    fused paged KV pools on one device (the card unless device='cpu')."""
+
+    def __init__(
+        self,
+        params: Dict[str, Any],
+        cfg: llama.LlamaConfig,
+        *,
+        max_batch: int = 8,
+        page_size: int = PAGE_SIZE,
+        num_pages: int = 512,
+        max_pages_per_seq: int = 64,
+        max_seq_len: int = 2048,
+        sample_seed: int = 0,
+        layout: str = "fused",
+        decode_steps: int = 8,
+        device="cuda",
+        **later,
+    ):
+        self.device = resolve_device(device)
+        if layout == "split":
+            raise NotImplementedError(
+                "layout='split' is not ported yet; it comes with the "
+                "split-layout paged slice")
+        if layout != "fused":
+            raise ValueError(f"unknown layout {layout!r}")
+        if later.get("model") is llama:
+            later.pop("model")  # the one family this slice ports
+        _refuse_later(later, _LATER_ENGINE_ARGS, "ServingEngine")
+        self.params = params
+        self.cfg = cfg
+        self.max_batch = max_batch
+        self.page_size = page_size
+        self.max_pages_per_seq = max_pages_per_seq
+        self.max_seq_len = max_seq_len
+        self.rope_cos, self.rope_sin = precompute_rope_frequencies(
+            max_seq_len, cfg.head_dim, cfg.rope_base, device=self.device)
+        self.generator = torch.Generator(device=self.device)
+        self.generator.manual_seed(sample_seed)
+        # one stacked pool; layer li is the view kv_pages[li]
+        self.kv_pages = torch.zeros(
+            (cfg.n_layers,) + fused_pool_shape(
+                num_pages, cfg.n_kv_heads, page_size, cfg.head_dim),
+            dtype=cfg.dtype, device=self.device)
+        self.allocator = PythonPageAllocator(num_pages)
+        # page 0 is the scratch sink for -1 table entries (empty slots)
+        scratch = self.allocator.allocate(1)
+        if scratch != [0]:
+            raise RuntimeError("page 0 must be the scratch page")
+
+        self.slots: List[Optional[Request]] = [None] * max_batch
+        self.slot_pages: List[List[int]] = [[] for _ in range(max_batch)]
+        self.slot_lens = np.zeros((max_batch,), np.int32)
+        self.waiting: List[Request] = []
+        self.finished: List[Request] = []
+        self._next_id = 0
+        self.decode_steps = max(1, int(decode_steps))
+
+        # observability counters (see stats())
+        self.tokens_generated = 0
+        self.prefill_dispatches = 0
+        self.decode_dispatches = 0
+        self.decode_steps_run = 0
+        # host seconds in prefill and in decode dispatches; each dispatch
+        # ends in a host copy of its tokens, so these include device time
+        self.prefill_seconds = 0.0
+        self.decode_seconds = 0.0
+
+    # -- public API ------------------------------------------------------
+
+    def submit(self, prompt, max_new_tokens: int,
+               eos_id: Optional[int] = None,
+               on_token: Optional[Callable[[int, int], None]] = None,
+               temperature: float = 0.0, **later) -> int:
+        _refuse_later(later, _LATER_SUBMIT_ARGS, "submit")
+        prompt = np.asarray(prompt, np.int32)
+        if prompt.size == 0:
+            raise ValueError("empty prompt: nothing to prefill")
+        # admission is all-or-nothing: a request that cannot fit its page
+        # budget would overrun into scratch page 0, so reject it here
+        total = prompt.size + max_new_tokens
+        capacity = min(self.max_pages_per_seq * self.page_size,
+                       self.max_seq_len)
+        if total > capacity:
+            raise ValueError(
+                f"request needs {total} tokens (prompt {prompt.size} + "
+                f"max_new_tokens {max_new_tokens}) but the engine caps a "
+                f"sequence at {capacity} "
+                f"(min(max_pages_per_seq*page_size, max_seq_len))")
+        if temperature < 0:
+            raise ValueError("temperature must be >= 0")
+        req = Request(self._next_id, prompt, max_new_tokens, eos_id,
+                      on_token=on_token, temperature=float(temperature))
+        self._next_id += 1
+        self.waiting.append(req)
+        return req.req_id
+
+    def cancel(self, req_id: int) -> bool:
+        """Abort a request: a waiting one leaves the queue, a running one
+        retires at once and frees its pages.  It lands in `finished` with
+        cancelled=True.  False when the id is unknown or finished."""
+        for i, r in enumerate(self.waiting):
+            if r.req_id == req_id:
+                self.waiting.pop(i)
+                r.cancelled = True
+                self.finished.append(r)
+                return True
+        for s, r in enumerate(self.slots):
+            if r is not None and r.req_id == req_id:
+                r.cancelled = True
+                self._retire(s)
+                return True
+        return False
+
+    def stats(self) -> Dict[str, Any]:
+        return {
+            "running": self.num_running,
+            "waiting": len(self.waiting),
+            "finished": len(self.finished),
+            "free_pages": self.allocator.num_free,
+            "tokens_generated": self.tokens_generated,
+            "prefill_dispatches": self.prefill_dispatches,
+            "decode_dispatches": self.decode_dispatches,
+            "decode_steps": self.decode_steps_run,
+            "prefill_seconds": self.prefill_seconds,
+            "decode_seconds": self.decode_seconds,
+        }
+
+    @property
+    def num_running(self) -> int:
+        return sum(r is not None for r in self.slots)
+
+    def has_work(self) -> bool:
+        return bool(self.waiting) or self.num_running > 0
+
+    def run(self, max_steps: int = 10**9) -> List[Request]:
+        """Drive until all submitted requests complete; returns them."""
+        steps = 0
+        while self.has_work() and steps < max_steps:
+            self.step()
+            steps += 1
+        out, self.finished = self.finished, []
+        return sorted(out, key=lambda r: r.req_id)
+
+    # -- engine internals -------------------------------------------------
+
+    @torch.no_grad()
+    def step(self) -> None:
+        self._admit()
+        if self.num_running:
+            self._decode_all()
+
+    def _admit(self) -> None:
+        for slot in range(self.max_batch):
+            if self.slots[slot] is not None or not self.waiting:
+                continue
+            req = self.waiting[0]
+            need = -(-(len(req.prompt) + req.max_new_tokens)
+                     // self.page_size)
+            if need > self.allocator.num_free:
+                break  # wait for running sequences to retire
+            self.waiting.pop(0)
+            pages = self.allocator.allocate(need)
+            if 0 in pages:
+                raise RuntimeError("scratch page 0 was handed out")
+            self.slots[slot] = req
+            self.slot_pages[slot] = pages
+            self.slot_lens[slot] = 0
+            self._run_prefill(slot, req)
+
+    def _block_table(self) -> torch.Tensor:
+        bt = np.full((self.max_batch, self.max_pages_per_seq), -1, np.int32)
+        for s, pages in enumerate(self.slot_pages):
+            bt[s, :len(pages)] = pages
+        return torch.from_numpy(bt).to(self.device)
+
+    def _prefill(self, tokens: torch.Tensor, bt_row: torch.Tensor):
+        """Forward over one prompt [1, n] and write its K/V into the pages
+        of `bt_row`; returns the logits of the last prompt position."""
+        n = tokens.shape[1]
+        logits, kv = llama.forward(
+            self.params, tokens, self.cfg, rope_cos=self.rope_cos,
+            rope_sin=self.rope_sin, return_kv=True)
+        zero = torch.zeros((1,), dtype=torch.int32, device=self.device)
+        true_len = torch.full((1,), n, dtype=torch.int32, device=self.device)
+        for li, (k, v) in enumerate(kv):
+            kv_cache_append_prefill_fused(self.kv_pages[li], k, v,
+                                          bt_row[None], zero, true_len)
+        return logits[0, n - 1]
+
+    def _run_prefill(self, slot: int, req: Request) -> None:
+        t0 = time.perf_counter()
+        n = len(req.prompt)
+        tokens = torch.from_numpy(req.prompt.astype(np.int64))[None].to(
+            self.device)
+        bt = np.full((self.max_pages_per_seq,), -1, np.int32)
+        pages = self.slot_pages[slot]
+        bt[:len(pages)] = pages
+        logits = self._prefill(tokens, torch.from_numpy(bt).to(self.device))
+        self.prefill_dispatches += 1
+        self.slot_lens[slot] = n
+        if req.temperature > 0.0:
+            tok = sampling.temperature(req.temperature)(logits,
+                                                        self.generator)
+        else:
+            tok = torch.argmax(logits, dim=-1)
+        tok = int(tok)
+        self.prefill_seconds += time.perf_counter() - t0
+        self.tokens_generated += 1
+        req._emit(tok)
+        if self.slots[slot] is not req:
+            return  # cancel() from the callback already retired it
+        if req.done:
+            self._retire(slot)
+
+    def _sample(self, logits: torch.Tensor,
+                temps: Optional[torch.Tensor]) -> torch.Tensor:
+        if temps is None:
+            return torch.argmax(logits, dim=-1)
+        return sampling.sample_rows(logits, temps, self.generator)
+
+    def _decode_all(self) -> None:
+        t0 = time.perf_counter()
+        tokens = np.zeros((self.max_batch,), np.int64)
+        remaining = []
+        for s, req in enumerate(self.slots):
+            if req is not None:
+                tokens[s] = req.output[-1]
+                remaining.append(req.max_new_tokens - len(req.output))
+        temps = None
+        if any(r is not None and r.temperature > 0.0 for r in self.slots):
+            temps = torch.tensor(
+                [r.temperature if r is not None else 0.0
+                 for r in self.slots], dtype=torch.float32,
+                device=self.device)
+        k = self.decode_steps
+        n_steps = (k if k > 1 and not self.waiting and remaining
+                   and min(remaining) >= k else 1)
+        tok = torch.from_numpy(tokens).to(self.device)
+        lens = torch.from_numpy(self.slot_lens.copy()).to(self.device)
+        bt = self._block_table()
+        steps = []
+        for _ in range(n_steps):
+            # positions are the lengths before this token
+            logits, _, new_lens = llama.decode_step_fused(
+                self.params, tok, lens, self.kv_pages, bt, lens, self.cfg,
+                self.rope_cos, self.rope_sin)
+            tok = self._sample(logits, temps)
+            steps.append(tok)
+            lens = new_lens
+        next_np = torch.stack(steps).cpu().numpy()  # one host copy
+        self.decode_seconds += time.perf_counter() - t0
+        self.decode_dispatches += 1
+        self.decode_steps_run += n_steps
+        self.slot_lens = self.slot_lens + n_steps
+        for s, req in enumerate(self.slots):
+            if req is None:
+                self.slot_lens[s] = 0
+                continue
+            for step in range(n_steps):
+                self.tokens_generated += 1
+                req._emit(int(next_np[step, s]))
+                if self.slots[s] is not req:
+                    break  # cancel() from the on_token callback retired it
+                if req.done:
+                    # eos overshoot: the pages hold a few tokens past eos,
+                    # but the request retires and frees them
+                    self._retire(s)
+                    break
+
+    def _retire(self, slot: int) -> None:
+        self.finished.append(self.slots[slot])
+        self.allocator.free(self.slot_pages[slot])
+        self.slots[slot] = None
+        self.slot_pages[slot] = []
+        self.slot_lens[slot] = 0

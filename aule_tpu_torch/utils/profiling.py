@@ -1,0 +1,98 @@
+"""Timing and roofline helpers on the card (counterpart of
+aule_tpu/utils/profiling.py).
+
+Kernel times come from CUDA events around each launch after a warm-up:
+the median of the timed repeats with its spread (min, max).  FLOPs follow
+the JAX package's convention, 4*B*H*Sq*Sk*D, halved for causal.  Bounds
+use the published peaks of one NVIDIA H100 SXM at its full 700 W power
+limit (NVIDIA's data sheet, dense rates).  There is no CPU fallback: a
+measurement without a card raises.
+"""
+
+from __future__ import annotations
+
+import statistics
+import time
+from typing import Callable, Dict, Sequence, Tuple
+
+import torch
+
+H100_BF16_FLOPS = 989e12     # dense tensor-core bf16 / fp16, FLOP/s
+H100_HBM_BYTES = 3.35e12     # HBM3 bytes/s
+
+
+def attention_flops(batch: int, heads: int, seq_q: int, seq_k: int,
+                    head_dim: int, causal: bool = False) -> float:
+    """4*B*H*Sq*Sk*D, halved for causal."""
+    flops = 4.0 * batch * heads * seq_q * seq_k * head_dim
+    return flops * 0.5 if causal else flops
+
+
+def bound_ms(bytes_moved: float, flops: float,
+             flop_rate: float = H100_BF16_FLOPS,
+             byte_rate: float = H100_HBM_BYTES) -> Tuple[float, str]:
+    """(least time in ms, "bytes" or "operations"): the larger of the
+    bytes over the memory rate and the operations over the peak rate."""
+    t_bytes = bytes_moved / byte_rate * 1e3
+    t_ops = flops / flop_rate * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def cuda_time_ms(fn: Callable[[], object], *, warmup: int = 3,
+                 iters: int = 20) -> Tuple[float, float, float]:
+    """(median, min, max) ms of `fn()` over `iters` launches, each timed
+    with its own pair of CUDA events on the current stream."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("cuda_time_ms measures on a CUDA device")
+    for _ in range(warmup):
+        fn()
+    pairs = []
+    for _ in range(iters):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    times = [s.elapsed_time(e) for s, e in pairs]
+    return statistics.median(times), min(times), max(times)
+
+
+def device_breakdown(fn: Callable[[], object],
+                     categories: Dict[str, Sequence[str]]) -> dict:
+    """Run `fn()` once under torch.profiler (CPU and CUDA activity) and
+    read the card's timeline: the wall time under the profiler, the device
+    busy time (union of kernel intervals), and kernel time summed by
+    category (the first category with a substring of the lower-cased
+    kernel name; the rest is "other").  All times in ms."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("device_breakdown measures on a CUDA device")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                   for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+    busy_us, end = 0.0, float("-inf")
+    by_cat = {name: 0.0 for name in categories}
+    by_cat["other"] = 0.0
+    by_kernel: Dict[str, float] = {}
+    for start, stop, name in spans:
+        busy_us += max(0.0, stop - max(start, end))
+        end = max(end, stop)
+        low = name.lower()
+        cat = next((c for c, keys in categories.items()
+                    if any(k in low for k in keys)), "other")
+        by_cat[cat] += (stop - start) / 1e3
+        by_kernel[name] = by_kernel.get(name, 0.0) + (stop - start) / 1e3
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
+    return {"wall_ms": wall_ms, "busy_ms": busy_us / 1e3,
+            "kernels": len(spans), "by_category_ms": by_cat, "top": top}

@@ -1,0 +1,150 @@
+"""Serving engine of the PyTorch port against the JAX package's engine.
+
+On the same tiny f32 params (carried across with `load_jax_params`), greedy
+decoding through the port's engine (device='cpu': the kernels' plain
+versions) is token-identical to aule_tpu's engine, with admission waiting
+for retirements and multi-step decode on.
+"""
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from aule_tpu.models import llama as jllama
+from aule_tpu.serving.engine import ServingEngine as JaxEngine
+from aule_tpu_torch.models import llama as tllama
+from aule_tpu_torch.serving import sampling
+from aule_tpu_torch.serving.engine import ServingEngine
+
+JCFG = jllama.LlamaConfig.tiny()
+TCFG = tllama.LlamaConfig.tiny()
+KW = dict(max_batch=2, page_size=16, num_pages=64, max_pages_per_seq=8,
+          max_seq_len=256, decode_steps=4)
+
+
+@pytest.fixture(scope="module")
+def params():
+    jp = jllama.init_params(JCFG, jax.random.key(0))
+    return jp, tllama.load_jax_params(jax.tree.map(np.asarray, jp),
+                                      device="cpu")
+
+
+def _prompts():
+    rng = np.random.default_rng(0)
+    return [rng.integers(0, 256, size=n).astype(np.int32)
+            for n in (5, 21, 9)]
+
+
+def test_greedy_token_identical_to_jax(params):
+    jp, tp = params
+    news = (6, 11, 7)
+    jeng = JaxEngine(jp, JCFG, **KW)
+    teng = ServingEngine(tp, TCFG, device="cpu", **KW)
+    for p, n in zip(_prompts(), news):
+        jeng.submit(p, n)
+        teng.submit(p, n)
+    jout = [r.output for r in jeng.run()]
+    tout = [r.output for r in teng.run()]
+    assert [len(o) for o in tout] == list(news)
+    assert tout == jout
+    st = teng.stats()
+    assert st["prefill_dispatches"] == 3
+    assert st["tokens_generated"] == sum(news)
+    # 3 requests on 2 slots: the third was admitted after a retirement
+    assert st["decode_steps"] >= max(news) - 1
+
+
+def test_pages_return_after_run(params):
+    _, tp = params
+    eng = ServingEngine(tp, TCFG, device="cpu", **KW)
+    free0 = eng.allocator.num_free
+    assert free0 == KW["num_pages"] - 1  # page 0 is the scratch page
+    for p in _prompts():
+        eng.submit(p, 20)
+    eng.run()
+    assert eng.allocator.num_free == free0
+    assert eng.slot_pages == [[], []]
+    # a second round on the reused pages gives the same tokens
+    again = ServingEngine(tp, TCFG, device="cpu", **KW)
+    first = [again.submit(p, 5) for p in _prompts()]
+    a = [r.output for r in again.run()]
+    for p in _prompts():
+        again.submit(p, 5)
+    b = [r.output for r in again.run()]
+    assert a == b and len(first) == 3
+
+
+def test_oversized_request_rejected(params):
+    _, tp = params
+    eng = ServingEngine(tp, TCFG, device="cpu", **KW)
+    with pytest.raises(ValueError):
+        eng.submit(np.arange(120, dtype=np.int32), 10)  # 130 > 8 * 16
+    with pytest.raises(ValueError):
+        eng.submit(np.zeros(0, np.int32), 4)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(quantized=True), dict(prefill_chunk=8),
+    dict(enable_prefix_cache=True), dict(mesh=object()),
+    dict(spec_tokens=2), dict(ngram_spec=2), dict(lora_params={"a": {}}),
+    dict(sampler=sampling.greedy()), dict(layout="split"),
+    dict(model=jllama)])
+def test_unported_engine_options_raise(params, kw):
+    _, tp = params
+    with pytest.raises(NotImplementedError):
+        ServingEngine(tp, TCFG, device="cpu", **dict(KW, **kw))
+
+
+@pytest.mark.parametrize("kw", [
+    dict(top_k=5), dict(top_p=0.9), dict(logit_bias={1: 2.0}),
+    dict(lora="a"), dict(logprobs=True), dict(stop=[[1]])])
+def test_unported_submit_options_raise(params, kw):
+    _, tp = params
+    eng = ServingEngine(tp, TCFG, device="cpu", **KW)
+    with pytest.raises(NotImplementedError):
+        eng.submit(np.arange(4, dtype=np.int32), 2, **kw)
+
+
+def test_seeded_temperature_sampling_reproducible(params):
+    _, tp = params
+
+    def run(seed, temperature):
+        eng = ServingEngine(tp, TCFG, device="cpu", sample_seed=seed, **KW)
+        for p in _prompts():
+            eng.submit(p, 8, temperature=temperature)
+        return [r.output for r in eng.run()]
+
+    assert run(1, 1.5) == run(1, 1.5)
+    assert run(1, 1.5) != run(2, 1.5)
+    assert run(1, 1e-7) == run(2, 0.0)  # temperature -> 0 is greedy
+
+
+def test_samplers():
+    g = torch.Generator().manual_seed(0)
+    logits = torch.randn(4, 50, generator=g)
+    assert torch.equal(sampling.temperature(0.0)(logits, g),
+                       logits.argmax(-1))
+    a = sampling.temperature(1.0)(logits, torch.Generator().manual_seed(5))
+    b = sampling.temperature(1.0)(logits, torch.Generator().manual_seed(5))
+    assert torch.equal(a, b)
+    rows = sampling.sample_rows(logits, torch.tensor([0.0, 1.0, 0.0, 2.0]),
+                                torch.Generator().manual_seed(1))
+    assert rows[0] == logits[0].argmax() and rows[2] == logits[2].argmax()
+
+
+def test_cancel_frees_pages(params):
+    _, tp = params
+    eng = ServingEngine(tp, TCFG, device="cpu", **KW)
+    seen = []
+
+    def cb(rid, tok):
+        seen.append(tok)
+        if len(seen) == 3:
+            assert eng.cancel(rid)
+
+    rid = eng.submit(_prompts()[0], 16, on_token=cb)
+    done = eng.run()
+    assert done[0].req_id == rid and done[0].cancelled
+    assert len(done[0].output) == 3
+    assert eng.allocator.num_free == KW["num_pages"] - 1

@@ -1,0 +1,142 @@
+"""Flash forward of the PyTorch port against the JAX package.
+
+The same seeded numpy inputs go through aule_tpu's Pallas
+`flash_attention_fwd` (interpret mode on the CPU) and the port's
+`flash_attention_fwd`, which on CPU tensors runs its plain version
+(`flash_attention_fwd_plain`, the CUDA kernel's stand-in).  f32 is held to
+2e-5 (the algorithm), bf16 to 2e-2 (rounding falls at different places).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from aule_tpu.ops.flash import flash_attention_fwd as jax_flash
+from aule_tpu.ops.reference import attention_reference as jax_reference
+from aule_tpu_torch.ops import flash as tflash
+from aule_tpu_torch.utils.testing import assert_close
+
+F32_ATOL = 2e-5
+BF16_ATOL = 2e-2
+
+
+def _inputs(b, hq, hkv, sq, sk, d, seed=0):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((b, hq, sq, d)).astype(np.float32)
+    k = rng.standard_normal((b, hkv, sk, d)).astype(np.float32)
+    v = rng.standard_normal((b, hkv, sk, d)).astype(np.float32)
+    return q, k, v
+
+
+def _both(q, k, v, dtype, **kw):
+    jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
+    tdt = torch.float32 if dtype == "float32" else torch.bfloat16
+    jo, jl = jax_flash(*(jnp.asarray(x, jdt) for x in (q, k, v)),
+                       return_lse=True, **kw)
+    to, tl = tflash.flash_attention_fwd(
+        *(torch.from_numpy(x).to(tdt) for x in (q, k, v)),
+        return_lse=True, **kw)
+    assert to.dtype == tdt and tl.dtype == torch.float32
+    return (np.asarray(jo.astype(jnp.float32)), np.asarray(jl),
+            to.float().numpy(), tl.numpy())
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("heads", [(4, 2), (8, 2)])
+def test_f32_gqa(causal, heads):
+    hq, hkv = heads
+    q, k, v = _inputs(1, hq, hkv, 128, 128, 64, seed=hq + causal)
+    jo, jl, to, tl = _both(q, k, v, "float32", causal=causal)
+    assert_close(to, jo, 0, F32_ATOL, "out")
+    assert_close(tl, jl, 0, F32_ATOL, "lse")
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_f32_ragged_sq(causal):
+    """Sq not a multiple of any block; batch 2."""
+    q, k, v = _inputs(2, 4, 2, 100, 100, 64, seed=3)
+    jo, jl, to, tl = _both(q, k, v, "float32", causal=causal)
+    assert_close(to, jo, 0, F32_ATOL, "out")
+    assert_close(tl, jl, 0, F32_ATOL, "lse")
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("sq,sk", [(48, 130), (130, 48)])
+def test_f32_cross_lengths(causal, sq, sk):
+    """Sq != Sk; the causal mask is top-left aligned (q >= k)."""
+    q, k, v = _inputs(1, 4, 2, sq, sk, 64, seed=sq)
+    jo, jl, to, tl = _both(q, k, v, "float32", causal=causal)
+    assert_close(to, jo, 0, F32_ATOL, "out")
+    assert_close(tl, jl, 0, F32_ATOL, "lse")
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_f32_window(causal):
+    q, k, v = _inputs(1, 4, 2, 160, 160, 64, seed=7)
+    jo, jl, to, tl = _both(q, k, v, "float32", causal=causal,
+                           window_size=24)
+    assert_close(to, jo, 0, F32_ATOL, "out")
+    assert_close(tl, jl, 0, F32_ATOL, "lse")
+
+
+def test_f32_scale_and_no_lse():
+    q, k, v = _inputs(1, 4, 4, 64, 64, 64, seed=9)
+    jo = jax_flash(*(jnp.asarray(x) for x in (q, k, v)), causal=True,
+                   scale=0.3, return_lse=False)
+    to = tflash.flash_attention_fwd(
+        *(torch.from_numpy(x) for x in (q, k, v)), causal=True, scale=0.3,
+        return_lse=False)
+    assert isinstance(to, torch.Tensor)
+    assert_close(to, np.asarray(jo), 0, F32_ATOL, "out")
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_bf16(causal):
+    q, k, v = _inputs(1, 4, 2, 96, 96, 128, seed=11)
+    jo, jl, to, tl = _both(q, k, v, "bfloat16", causal=causal)
+    assert_close(to, jo, 0, BF16_ATOL, "out")
+    assert_close(tl, jl, 0, BF16_ATOL, "lse")
+
+
+def test_bf16_mono_class():
+    """B1 H2/1 S1024 D128 bf16 causal: the `_mono_kernel` shape class,
+    held against JAX's dense `attention_reference` (interpret mode is too
+    slow at this size)."""
+    q, k, v = _inputs(1, 2, 1, 1024, 1024, 128, seed=13)
+    jq, jk, jv = (jnp.asarray(x, jnp.bfloat16) for x in (q, k, v))
+    jo, jl = jax_reference(jq, jk, jv, causal=True, return_lse=True)
+    to, tl = tflash.flash_attention_fwd(
+        *(torch.from_numpy(x).to(torch.bfloat16) for x in (q, k, v)),
+        causal=True, return_lse=True)
+    assert_close(to.float(), np.asarray(jo.astype(jnp.float32)), 0,
+                 BF16_ATOL, "out")
+    assert_close(tl, np.asarray(jl), 0, BF16_ATOL, "lse")
+
+
+def test_fully_masked_rows_are_zero():
+    """Non-causal window with Sq > Sk + W leaves rows that see nothing:
+    output 0 and LSE -0.7*f32max, no NaN."""
+    q, k, v = _inputs(1, 2, 2, 40, 8, 64, seed=17)
+    to, tl = tflash.flash_attention_fwd(
+        *(torch.from_numpy(x) for x in (q, k, v)), window_size=4)
+    assert torch.isfinite(to).all()
+    assert (to[:, :, 13:] == 0).all()
+    assert np.allclose(tl[:, :, 13:].numpy(),
+                       -0.7 * np.finfo(np.float32).max)
+
+
+def test_cpu_route_does_not_count_launches():
+    before = tflash.flash_attention_fwd.launches
+    q, k, v = _inputs(1, 2, 2, 16, 16, 64)
+    tflash.flash_attention_fwd(*(torch.from_numpy(x) for x in (q, k, v)))
+    assert tflash.flash_attention_fwd.launches == before
+
+
+def test_later_features_raise():
+    q = torch.zeros(1, 2, 8, 64)
+    with pytest.raises(NotImplementedError):
+        tflash.flash_attention_fwd(q, q, q, rope_cos=torch.ones(8, 32),
+                                   rope_sin=torch.zeros(8, 32))
+    with pytest.raises(NotImplementedError):
+        tflash.flash_attention_fwd(q, q, q, kv_len=torch.tensor(4))

@@ -1,0 +1,63 @@
+"""The PyTorch port stands alone: no JAX anywhere in it, and its entry
+points refuse to run on the CPU unless asked to."""
+
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+FORBIDDEN = ("jax", "jaxlib", "flax", "aule_tpu")
+
+
+def _port_files():
+    files = sorted((ROOT / "aule_tpu_torch").rglob("*.py"))
+    files.append(ROOT / "chip_smoke.py")
+    return files
+
+
+def _imported_roots(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+
+
+@pytest.mark.parametrize("path", _port_files(),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_imports(path):
+    bad = sorted(set(_imported_roots(path)) & set(FORBIDDEN))
+    assert not bad, f"{path.name} imports {bad}"
+
+
+def test_engine_import_leaves_jax_out():
+    code = ("import sys, aule_tpu_torch.serving.engine, "
+            "aule_tpu_torch.ops.flash, aule_tpu_torch.ops.paged_fused; "
+            "print(sorted(m for m in sys.modules "
+            "if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'aule_tpu')))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+def test_default_device_entry_points_raise_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    from aule_tpu_torch.models import llama
+    from aule_tpu_torch.serving.engine import ServingEngine
+
+    cfg = llama.LlamaConfig.tiny()
+    with pytest.raises(RuntimeError):
+        llama.init_params(cfg, torch.Generator())
+    params = llama.init_params(cfg, torch.Generator(), device="cpu")
+    with pytest.raises(RuntimeError):
+        ServingEngine(params, cfg)
+    with pytest.raises(RuntimeError):
+        llama.load_jax_params({})
