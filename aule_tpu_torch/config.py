@@ -3,10 +3,13 @@
 The TPU tile tables and the `AULE_FLASH_*` schedule knobs have no
 counterpart here: the Hopper kernels pick their tiles in the CUDA source.
 What remains is the mask convention shared with the JAX kernels, the
-serving page size and the device rule of the entry points.
+serving page size, the int8 decode setting and the device rule of the
+entry points.
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
@@ -17,6 +20,14 @@ DEFAULT_MASK_VALUE = -0.7 * float(np.finfo(np.float32).max)
 
 # serving defaults (aule_tpu/config.py:196-199)
 PAGE_SIZE = 16
+
+
+def int8_exact() -> bool:
+    """AULE_TPU_INT8_EXACT, as the JAX package's `config.int8_exact`
+    (default False): int8 pools decode on the int8 dot-product path unless
+    it is set; a call's `int8_matmul=` overrides it.  Read at each call."""
+    v = os.environ.get("AULE_TPU_INT8_EXACT")
+    return v is not None and v.lower() in ("1", "true", "yes", "on")
 
 
 def resolve_device(device) -> torch.device:

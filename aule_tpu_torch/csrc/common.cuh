@@ -5,6 +5,7 @@
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -19,8 +20,86 @@ constexpr float kLn2 = 0.6931471805599453f;
 constexpr int kBF16 = 0;
 constexpr int kF16 = 1;
 
+// pool modes passed from Python (ops/_build.py POOL_*): what the paged
+// pools hold and how the kernels read it
+constexpr int kPoolNative = 0;  // the q/out type (bf16 or f16)
+constexpr int kPoolInt8 = 1;    // int8 payload + scales, converted exactly
+constexpr int kPoolE4M3 = 2;    // e4m3 payload + scales, converted exactly
+constexpr int kPoolInt8Dot = 3; // int8 payload + scales, int8 q, int8 dot
+                                // products (paged decode only)
+
+// Packed scale tile [P, page, 128]: row = slot, lane = kv * 64 + h.
+constexpr int kScaleLanes = 128;
+constexpr int kScaleKVStride = 64;
+
+// The flash and paged-prefill tiles: D = 128 16-bit values per row.
+constexpr int kTileD = 128;
+constexpr int kRowBytes = kTileD * 2;
+
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Byte offset of 16-byte chunk `c` of row `r` in a tile of 256-byte rows:
+// chunks are XOR-swizzled by the row's low 3 bits so 8 consecutive rows at
+// one logical chunk hit 8 different bank groups.
+__device__ __forceinline__ uint32_t swz(int r, int c) {
+  return r * kRowBytes + ((c ^ (r & 7)) << 4);
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t& r0,
+                                        uint32_t& r1, uint32_t& r2,
+                                        uint32_t& r3) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
+      : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t addr, uint32_t& r0,
+                                          uint32_t& r1, uint32_t& r2,
+                                          uint32_t& r3) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
+      : "r"(addr));
+}
+
+// Four payload bytes (little-endian in `w`) to four floats, exactly.
+__device__ __forceinline__ void int8x4_to_float(uint32_t w, float* f) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    f[i] = static_cast<float>(static_cast<int8_t>(w >> (8 * i)));
+}
+
+// e4m3 -> f16 with the card's cvt.rn.f16x2.e4m3x2 (exact: every e4m3 value
+// is an f16 value), then f16 -> f32 (exact).
+__device__ __forceinline__ void e4m3x4_to_float(uint32_t w, float* f) {
+  const __half2_raw lo = __nv_cvt_fp8x2_to_halfraw2(
+      static_cast<__nv_fp8x2_storage_t>(w & 0xFFFFu), __NV_E4M3);
+  const __half2_raw hi = __nv_cvt_fp8x2_to_halfraw2(
+      static_cast<__nv_fp8x2_storage_t>(w >> 16), __NV_E4M3);
+  const float2 a = __half22float2(__half2(lo));
+  const float2 b = __half22float2(__half2(hi));
+  f[0] = a.x;
+  f[1] = a.y;
+  f[2] = b.x;
+  f[3] = b.y;
+}
+
+template <int POOL>
+__device__ __forceinline__ void payload4_to_float(uint32_t w, float* f) {
+  if constexpr (POOL == kPoolE4M3)
+    e4m3x4_to_float(w, f);
+  else
+    int8x4_to_float(w, f);
+}
+
+// One scale of the packed tile, bf16 (sc_f32 = 0) or f32 (sc_f32 = 1).
+__device__ __forceinline__ float load_scale(const void* sc, size_t i,
+                                            int sc_f32) {
+  return sc_f32 ? __ldg(static_cast<const float*>(sc) + i)
+                : __bfloat162float(static_cast<const __nv_bfloat16*>(sc)[i]);
 }
 
 // 16-byte global->shared async copy; src_bytes = 0 zero-fills the slot.
@@ -100,5 +179,167 @@ struct Elem<__half> {
         : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
   }
 };
+
+// ---- The flash block's per-warp work, shared by flash_fwd.cu and
+// paged_prefill.cu.  A warp owns 16 rows of the block's Q tile and runs
+// mma.sync m16n8k16 against 64-key K/V tiles, all in shared memory as
+// swizzled 256-byte rows (`swz`); the thread holds rows g = lane / 4 ("a")
+// and g + 8 ("b") of the warp's 16, and key columns 2 * (lane % 4) + {0, 1}
+// of each 8-key n-tile.
+constexpr int kTileN = 64;  // keys per K/V tile
+
+struct WarpRows {
+  float acc[kTileD / 8][4];  // O, unnormalised
+  float m_a, m_b;            // running max of the raw scores
+  float l_a, l_b;            // this thread's part of the row sums
+
+  __device__ __forceinline__ void init() {
+#pragma unroll
+    for (int i = 0; i < kTileD / 8; ++i)
+      acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+    m_a = m_b = -INFINITY;
+    l_a = l_b = 0.f;
+  }
+};
+
+// One K/V tile: S = Q K^T; with SCALED, S times each key's K scale
+// k_sc[col]; where `need_mask`, scores of columns `keep(col, row_b)`
+// rejects become -inf (row_b: row "b", else "a"); the online softmax in
+// exp2 (sl2 = scale * log2 e folded into one FFMA); with SCALED, p times
+// each key's V scale v_sc[col] while l sums the unscaled p
+// (aule_tpu/ops/paged_fused.py:876-907); then O += P V with P in registers.
+template <typename T, bool SCALED, typename Keep>
+__device__ __forceinline__ void flash_tile(WarpRows& w, uint32_t sQ,
+                                           uint32_t tK, uint32_t tV,
+                                           int wrow0, int lane, float sl2,
+                                           const float* k_sc,
+                                           const float* v_sc, bool need_mask,
+                                           Keep keep) {
+  constexpr int D = kTileD, BN = kTileN;
+  const int t = lane & 3, lrow = lane & 7, mat = lane >> 3;
+
+  // S for the warp's 16 rows x 64 keys (8 n-tiles of 8 keys)
+  float s[BN / 8][4];
+#pragma unroll
+  for (int i = 0; i < BN / 8; ++i) s[i][0] = s[i][1] = s[i][2] = s[i][3] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    uint32_t a0, a1, a2, a3;
+    ldsm_x4(sQ + swz(wrow0 + lrow + (mat & 1) * 8, kk * 2 + (mat >> 1)), a0,
+            a1, a2, a3);
+#pragma unroll
+    for (int nn = 0; nn < BN / 16; ++nn) {
+      uint32_t b0, b1, b2, b3;
+      ldsm_x4(tK + swz(nn * 16 + lrow + (mat >> 1) * 8, kk * 2 + (mat & 1)),
+              b0, b1, b2, b3);
+      Elem<T>::mma(s[2 * nn], a0, a1, a2, a3, b0, b1);
+      Elem<T>::mma(s[2 * nn + 1], a0, a1, a2, a3, b2, b3);
+    }
+  }
+  if constexpr (SCALED) {
+#pragma unroll
+    for (int nt = 0; nt < BN / 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[nt][e] *= k_sc[nt * 8 + 2 * t + (e & 1)];
+  }
+  if (need_mask) {
+#pragma unroll
+    for (int nt = 0; nt < BN / 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (!keep(nt * 8 + 2 * t + (e & 1), e >= 2)) s[nt][e] = -INFINITY;
+  }
+
+  // online softmax (scores in raw units; exp2 of s*sl2 - m*sl2)
+  float mx_a = w.m_a, mx_b = w.m_b;
+#pragma unroll
+  for (int nt = 0; nt < BN / 8; ++nt) {
+    mx_a = fmaxf(mx_a, fmaxf(s[nt][0], s[nt][1]));
+    mx_b = fmaxf(mx_b, fmaxf(s[nt][2], s[nt][3]));
+  }
+  mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, 1));
+  mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, 2));
+  mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, 1));
+  mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, 2));
+  // a row that has seen nothing yet keeps m = -inf: no NaN from -inf+inf
+  const float alpha_a =
+      (mx_a == -INFINITY) ? 1.f : exp2f((w.m_a - mx_a) * sl2);
+  const float alpha_b =
+      (mx_b == -INFINITY) ? 1.f : exp2f((w.m_b - mx_b) * sl2);
+  const float nb_a = (mx_a == -INFINITY) ? 0.f : -mx_a * sl2;
+  const float nb_b = (mx_b == -INFINITY) ? 0.f : -mx_b * sl2;
+  float ls_a = 0.f, ls_b = 0.f;
+#pragma unroll
+  for (int nt = 0; nt < BN / 8; ++nt) {
+    s[nt][0] = exp2f(fmaf(s[nt][0], sl2, nb_a));
+    s[nt][1] = exp2f(fmaf(s[nt][1], sl2, nb_a));
+    s[nt][2] = exp2f(fmaf(s[nt][2], sl2, nb_b));
+    s[nt][3] = exp2f(fmaf(s[nt][3], sl2, nb_b));
+    ls_a += s[nt][0] + s[nt][1];
+    ls_b += s[nt][2] + s[nt][3];
+  }
+  w.l_a = w.l_a * alpha_a + ls_a;
+  w.l_b = w.l_b * alpha_b + ls_b;
+  w.m_a = mx_a;
+  w.m_b = mx_b;
+#pragma unroll
+  for (int i = 0; i < D / 8; ++i) {
+    w.acc[i][0] *= alpha_a;
+    w.acc[i][1] *= alpha_a;
+    w.acc[i][2] *= alpha_b;
+    w.acc[i][3] *= alpha_b;
+  }
+  if constexpr (SCALED) {
+#pragma unroll
+    for (int nt = 0; nt < BN / 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[nt][e] *= v_sc[nt * 8 + 2 * t + (e & 1)];
+  }
+
+  // O += P V: the S accumulators re-packed as A fragments
+#pragma unroll
+  for (int kk = 0; kk < BN / 16; ++kk) {
+    const uint32_t p0 = Elem<T>::pack(s[2 * kk][0], s[2 * kk][1]);
+    const uint32_t p1 = Elem<T>::pack(s[2 * kk][2], s[2 * kk][3]);
+    const uint32_t p2 = Elem<T>::pack(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+    const uint32_t p3 = Elem<T>::pack(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+#pragma unroll
+    for (int nd = 0; nd < D / 16; ++nd) {
+      uint32_t b0, b1, b2, b3;
+      ldsm_x4_t(tV + swz(kk * 16 + lrow + (mat & 1) * 8, nd * 2 + (mat >> 1)),
+                b0, b1, b2, b3);
+      Elem<T>::mma(w.acc[2 * nd], p0, p1, p2, p3, b0, b1);
+      Elem<T>::mma(w.acc[2 * nd + 1], p0, p1, p2, p3, b2, b3);
+    }
+  }
+}
+
+// The epilogue: reduce the row sums over the row's 4 threads, then write
+// rows ra and rb (those below Sq) of o [.., Sq, D] at row_base normalised,
+// and their natural-log LSE m * scale + ln l, or kMaskValue with zeros for
+// a row that saw nothing.
+template <typename T>
+__device__ __forceinline__ void flash_store(WarpRows& w, T* o, float* lse,
+                                            size_t row_base, int ra, int rb,
+                                            int Sq, int lane, float scale) {
+  const int t = lane & 3;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    float l = half ? w.l_b : w.l_a;
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    const int r = half ? rb : ra;
+    if (r >= Sq) continue;
+    const float inv = l > 0.f ? 1.f / l : 0.f;
+    uint32_t* orow = reinterpret_cast<uint32_t*>(o + (row_base + r) * kTileD);
+#pragma unroll
+    for (int i = 0; i < kTileD / 8; ++i)
+      orow[i * 4 + t] = Elem<T>::pack(w.acc[i][2 * half] * inv,
+                                      w.acc[i][2 * half + 1] * inv);
+    if (lse != nullptr && t == 0)
+      lse[row_base + r] =
+          l > 0.f ? (half ? w.m_b : w.m_a) * scale + logf(l) : kMaskValue;
+  }
+}
 
 }  // namespace aule

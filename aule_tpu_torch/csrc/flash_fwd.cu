@@ -18,7 +18,9 @@
 //   * K/V tiles of 64 keys are double-buffered in shared memory with
 //     cp.async (XOR-swizzled rows, so ldmatrix is bank-conflict free);
 //   * QK^T and PV run on mma.sync m16n8k16 (bf16 or f16 in, f32
-//     accumulate); P stays in registers between the two products;
+//     accumulate); P stays in registers between the two products (the
+//     per-tile code is common.cuh `flash_tile`, shared with the paged
+//     prefill kernel);
 //   * online softmax in exp2: scale*log2(e) is folded into the exp2
 //     argument as one FFMA (folding it into the bf16 Q tile would round
 //     it), the row sum is kept per thread and reduced once at the end;
@@ -33,39 +35,14 @@ namespace {
 
 using namespace aule;
 
-constexpr int D = 128;             // head dim (the only one in this slice)
-constexpr int BN = 64;             // keys per K/V tile
+constexpr int D = kTileD;          // head dim (the only one in this slice)
+constexpr int BN = kTileN;         // keys per K/V tile
 constexpr int ROWS = 128;          // q rows per block: heads x positions
 constexpr int NWARPS = 8;          // 16 rows per warp
 constexpr int NTHREADS = NWARPS * 32;
-constexpr int ROW_BYTES = D * 2;   // one 16-bit row
+constexpr int ROW_BYTES = kRowBytes;  // one 16-bit row
 constexpr int CHUNKS = D / 8;      // 16-byte chunks per row
 constexpr int SMEM_BYTES = (ROWS + 4 * BN) * ROW_BYTES;  // Q + 2x(K,V)
-
-// Byte offset of 16-byte chunk `c` of row `r`: chunks are XOR-swizzled by
-// the row's low 3 bits so 8 consecutive rows at one logical chunk hit 8
-// different bank groups.
-__device__ __forceinline__ uint32_t swz(int r, int c) {
-  return r * ROW_BYTES + ((c ^ (r & 7)) << 4);
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t& r0,
-                                        uint32_t& r1, uint32_t& r2,
-                                        uint32_t& r3) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
-      : "r"(addr));
-}
-
-__device__ __forceinline__ void ldsm_x4_t(uint32_t addr, uint32_t& r0,
-                                          uint32_t& r1, uint32_t& r2,
-                                          uint32_t& r3) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
-      : "r"(addr));
-}
 
 // q, o: [B, Hq, Sq, D]; k, v: [B, Hkv, Sk, D]; lse: [B, Hq, Sq] or null.
 // Grid: (q tiles, Hkv * group / hpb, B); hpb q heads per block.
@@ -134,15 +111,10 @@ __global__ void __launch_bounds__(NTHREADS)
   const int wrow0 = warp * 16;
   const int hw = wrow0 / bq;
   const int pos0 = q_lo + wrow0 % bq;
-  const int g = lane >> 2, t = lane & 3;
-  const int qpos_a = pos0 + g, qpos_b = pos0 + g + 8;
-  const int lrow = lane & 7, mat = lane >> 3;
+  const int qpos_a = pos0 + (lane >> 2), qpos_b = qpos_a + 8;
 
-  float acc[D / 8][4];
-#pragma unroll
-  for (int i = 0; i < D / 8; ++i)
-    acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
-  float m_a = -INFINITY, m_b = -INFINITY, l_a = 0.f, l_b = 0.f;
+  WarpRows w;
+  w.init();
   const float sl2 = scale * kLog2e;
 
   for (int j = j_lo; j <= j_hi; ++j) {
@@ -152,135 +124,31 @@ __global__ void __launch_bounds__(NTHREADS)
     cp_async_wait<1>();  // everything but the prefetch just issued
     __syncthreads();
 
-    const uint32_t tK = sK + stage * BN * ROW_BYTES;
-    const uint32_t tV = sV + stage * BN * ROW_BYTES;
     const int kv0 = j * BN;
-
-    // S = Q K^T for this warp's 16 rows x 64 keys (8 n-tiles of 8 keys)
-    float s[BN / 8][4];
-#pragma unroll
-    for (int i = 0; i < BN / 8; ++i) s[i][0] = s[i][1] = s[i][2] = s[i][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t a0, a1, a2, a3;
-      ldsm_x4(sQ + swz(wrow0 + lrow + (mat & 1) * 8, kk * 2 + (mat >> 1)), a0,
-              a1, a2, a3);
-#pragma unroll
-      for (int nn = 0; nn < BN / 16; ++nn) {
-        uint32_t b0, b1, b2, b3;
-        ldsm_x4(tK + swz(nn * 16 + lrow + (mat >> 1) * 8, kk * 2 + (mat & 1)),
-                b0, b1, b2, b3);
-        Elem<T>::mma(s[2 * nn], a0, a1, a2, a3, b0, b1);
-        Elem<T>::mma(s[2 * nn + 1], a0, a1, a2, a3, b2, b3);
-      }
-    }
-
     // element mask only on tiles that straddle an edge
     const bool need_mask =
         (kv0 + BN > Sk) || (causal && kv0 + BN - 1 > q_lo) ||
         (window > 0 &&
          (q_hi - kv0 > window || (!causal && kv0 + BN - 1 - q_lo > window)));
-    if (need_mask) {
-#pragma unroll
-      for (int nt = 0; nt < BN / 8; ++nt) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int kpos = kv0 + nt * 8 + 2 * t + (e & 1);
-          const int qpos = (e < 2) ? qpos_a : qpos_b;
-          bool ok = kpos < Sk;
-          if (causal) ok = ok && qpos >= kpos;
-          if (window > 0) {
-            ok = ok && qpos - kpos <= window;
-            if (!causal) ok = ok && kpos - qpos <= window;
-          }
-          if (!ok) s[nt][e] = -INFINITY;
-        }
+    auto keep = [&](int col, bool row_b) {
+      const int kpos = kv0 + col, qpos = row_b ? qpos_b : qpos_a;
+      bool ok = kpos < Sk;
+      if (causal) ok = ok && qpos >= kpos;
+      if (window > 0) {
+        ok = ok && qpos - kpos <= window;
+        if (!causal) ok = ok && kpos - qpos <= window;
       }
-    }
-
-    // online softmax (scores in raw units; exp2 of s*sl2 - m*sl2)
-    float mx_a = m_a, mx_b = m_b;
-#pragma unroll
-    for (int nt = 0; nt < BN / 8; ++nt) {
-      mx_a = fmaxf(mx_a, fmaxf(s[nt][0], s[nt][1]));
-      mx_b = fmaxf(mx_b, fmaxf(s[nt][2], s[nt][3]));
-    }
-    mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, 1));
-    mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, 2));
-    mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, 1));
-    mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, 2));
-    // a row that has seen nothing yet keeps m = -inf: no NaN from -inf+inf
-    const float alpha_a = (mx_a == -INFINITY) ? 1.f : exp2f((m_a - mx_a) * sl2);
-    const float alpha_b = (mx_b == -INFINITY) ? 1.f : exp2f((m_b - mx_b) * sl2);
-    const float nb_a = (mx_a == -INFINITY) ? 0.f : -mx_a * sl2;
-    const float nb_b = (mx_b == -INFINITY) ? 0.f : -mx_b * sl2;
-    float ls_a = 0.f, ls_b = 0.f;
-#pragma unroll
-    for (int nt = 0; nt < BN / 8; ++nt) {
-      s[nt][0] = exp2f(fmaf(s[nt][0], sl2, nb_a));
-      s[nt][1] = exp2f(fmaf(s[nt][1], sl2, nb_a));
-      s[nt][2] = exp2f(fmaf(s[nt][2], sl2, nb_b));
-      s[nt][3] = exp2f(fmaf(s[nt][3], sl2, nb_b));
-      ls_a += s[nt][0] + s[nt][1];
-      ls_b += s[nt][2] + s[nt][3];
-    }
-    l_a = l_a * alpha_a + ls_a;
-    l_b = l_b * alpha_b + ls_b;
-    m_a = mx_a;
-    m_b = mx_b;
-#pragma unroll
-    for (int i = 0; i < D / 8; ++i) {
-      acc[i][0] *= alpha_a;
-      acc[i][1] *= alpha_a;
-      acc[i][2] *= alpha_b;
-      acc[i][3] *= alpha_b;
-    }
-
-    // O += P V: the S accumulators re-packed as A fragments
-#pragma unroll
-    for (int kk = 0; kk < BN / 16; ++kk) {
-      const uint32_t p0 = Elem<T>::pack(s[2 * kk][0], s[2 * kk][1]);
-      const uint32_t p1 = Elem<T>::pack(s[2 * kk][2], s[2 * kk][3]);
-      const uint32_t p2 = Elem<T>::pack(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      const uint32_t p3 = Elem<T>::pack(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-#pragma unroll
-      for (int nd = 0; nd < D / 16; ++nd) {
-        uint32_t b0, b1, b2, b3;
-        ldsm_x4_t(tV + swz(kk * 16 + lrow + (mat & 1) * 8, nd * 2 + (mat >> 1)),
-                  b0, b1, b2, b3);
-        Elem<T>::mma(acc[2 * nd], p0, p1, p2, p3, b0, b1);
-        Elem<T>::mma(acc[2 * nd + 1], p0, p1, p2, p3, b2, b3);
-      }
-    }
+      return ok;
+    };
+    flash_tile<T, false>(w, sQ, sK + stage * BN * ROW_BYTES,
+                         sV + stage * BN * ROW_BYTES, wrow0, lane, sl2,
+                         nullptr, nullptr, need_mask, keep);
     __syncthreads();  // this stage is refilled two iterations on
   }
   cp_async_wait<0>();
 
-  l_a += __shfl_xor_sync(0xffffffffu, l_a, 1);
-  l_a += __shfl_xor_sync(0xffffffffu, l_a, 2);
-  l_b += __shfl_xor_sync(0xffffffffu, l_b, 1);
-  l_b += __shfl_xor_sync(0xffffffffu, l_b, 2);
-  const float inv_a = l_a > 0.f ? 1.f / l_a : 0.f;
-  const float inv_b = l_b > 0.f ? 1.f / l_b : 0.f;
-  const size_t row_base = ((size_t)b * Hq + h0 + hw) * Sq;
-  if (qpos_a < Sq) {
-    uint32_t* orow = reinterpret_cast<uint32_t*>(o + (row_base + qpos_a) * D);
-#pragma unroll
-    for (int i = 0; i < D / 8; ++i)
-      orow[i * 4 + t] = Elem<T>::pack(acc[i][0] * inv_a, acc[i][1] * inv_a);
-    if (lse != nullptr && t == 0)
-      lse[row_base + qpos_a] =
-          l_a > 0.f ? m_a * scale + logf(l_a) : kMaskValue;
-  }
-  if (qpos_b < Sq) {
-    uint32_t* orow = reinterpret_cast<uint32_t*>(o + (row_base + qpos_b) * D);
-#pragma unroll
-    for (int i = 0; i < D / 8; ++i)
-      orow[i * 4 + t] = Elem<T>::pack(acc[i][2] * inv_b, acc[i][3] * inv_b);
-    if (lse != nullptr && t == 0)
-      lse[row_base + qpos_b] =
-          l_b > 0.f ? m_b * scale + logf(l_b) : kMaskValue;
-  }
+  flash_store<T>(w, o, lse, ((size_t)b * Hq + h0 + hw) * Sq, qpos_a, qpos_b,
+                 Sq, lane, scale);
 }
 
 template <typename T>

@@ -1,31 +1,51 @@
 // Fused-layout paged decode for Hopper (sm_90a), hand-written CUDA C++.
 //
 // Replaces the TPU kernel aule_tpu/ops/paged_fused.py::_fused_decode_kernel
-// in its bf16/f16 pool mode: one query token per sequence attends over its
+// in every pool mode: one query token per sequence attends over its
 // sequence's pages of the fused pool kv_pages [P, 2, Hkv, page, D] (axis 1:
 // 0 = K, 1 = V), through block_tables [B, max_pages] (-1 clamps to the
 // scratch page 0), over the first context_lens[b] tokens, optionally only
 // the trailing `window` of them ((len - 1 - pos) < W).  A sequence with
 // context 0 gives zeros and LSE -0.7 * f32max.
 //
+// Pool modes (common.cuh kPool*):
+//   * native: the pool holds bf16 / f16, the q/out type;
+//   * int8 and e4m3 with a packed scale tile sc [P, page, 128] (row = slot,
+//     lane = kv * 64 + h; bf16 or f32): the payload converts exactly to f32
+//     in registers (e4m3 through cvt.rn.f16x2.e4m3x2), the K scale
+//     multiplies the score, the V scale multiplies p before the PV sum, and
+//     l sums the unscaled p (paged_fused.py:349-447);
+//   * int8 dot products (int8 pools, the JAX package's int8_matmul default):
+//     q arrives quantized per row (int8 plus qf = q scale x softmax scale,
+//     from the wrapper, as paged_fused.py:549-560); the score is __dp4a over
+//     int8 K with exact int32 sums, times qf * K scale; p * V scale is
+//     quantized per row to int8 over SPAN = 4 consecutive tokens (each
+//     half-warp's step below: tokens t_lo + 4j .. t_lo + 4j + 3) and the PV
+//     sum is __dp4a over int8 V, exact in int32, times span max / 127.  The
+//     JAX kernel quantizes p over ppcb * page tokens instead; the plain
+//     version (ops/paged_fused.py) mirrors this kernel's span.
+//
 // What bounds it on the H100: every live K and V byte is read once and
-// used for a handful of FLOPs, so it is memory bound.  At B8 ctx4096
-// Hkv8 D128 bf16 the live KV is 134 MB per layer, 40 us at 3.35 TB/s.
+// used for a handful of operations, so it is memory bound.  At B8 ctx4096
+// Hkv8 D128 the live KV is 134 MB per layer in bf16 (40 us at 3.35 TB/s),
+// 67 MB of int8 or e4m3 payload plus 8.4 MB of bf16 scales (22.5 us).
 // What the design does about it:
 //   * one block per (sequence, kv head) reads that head's K/V slabs of
 //     each page once and serves all Hq/Hkv q rows of the GQA group from
 //     them (the group's q rows sit pre-scaled in registers);
-//   * each half-warp reads one 256-byte token row with 16-byte loads
-//     (neighbouring lanes on neighbouring addresses) and keeps four
-//     tokens of K and four of V in flight; 8 warps per block keep 16
-//     independent streams going;
+//   * each half-warp reads one token row per load (16 bytes a lane of a
+//     16-bit row, 8 bytes a lane of a 1-byte payload row; neighbouring
+//     lanes on neighbouring addresses) and keeps four tokens of K and four
+//     of V in flight; 8 warps per block keep 16 independent streams going;
 //   * each half-warp runs its own f32 online softmax over the tokens it
 //     owns, and the 16 partial states merge once at the end;
 //   * the trailing window skips the dead front of the sequence entirely.
 // At B8 x Hkv8 this is only 64 blocks for 132 SMs, so one block per SM and
 // half the card idle: a split-KV (flash-decoding) pass that spreads one
 // sequence over several blocks and merges their (m, l, acc) is the later
-// performance PR's work.
+// performance PR's work.  The scale of each token is read by all 16 lanes
+// of the half-warp (one broadcast load); the 8-byte payload loads reach
+// half the bytes per instruction of the 16-bit path.
 
 #include "common.cuh"
 
@@ -37,14 +57,30 @@ constexpr int D = 128;          // head dim: 16 lanes x 8 elements
 constexpr int NWARPS = 8;
 constexpr int NTHREADS = NWARPS * 32;
 constexpr int NWORKERS = NWARPS * 2;  // half-warps
-constexpr int TPW = 4;                // tokens per half-warp per step
+constexpr int TPW = 4;                // tokens per half-warp per step (SPAN)
 
-template <typename T>
-__device__ __forceinline__ void to_float8(const uint4& u, float* f) {
-  float2 a = Elem<T>::to_float2(u.x), b = Elem<T>::to_float2(u.y);
-  float2 c = Elem<T>::to_float2(u.z), d = Elem<T>::to_float2(u.w);
-  f[0] = a.x; f[1] = a.y; f[2] = b.x; f[3] = b.y;
-  f[4] = c.x; f[5] = c.y; f[6] = d.x; f[7] = d.y;
+// A lane's 8 elements of one token row: 16 bytes of a 16-bit pool, 8 bytes
+// of a 1-byte payload.
+template <int POOL>
+struct Raw {
+  using type = uint2;
+};
+template <>
+struct Raw<kPoolNative> {
+  using type = uint4;
+};
+
+template <typename T, int POOL, typename R>
+__device__ __forceinline__ void to_float8(const R& u, float* f) {
+  if constexpr (POOL == kPoolNative) {
+    float2 a = Elem<T>::to_float2(u.x), b = Elem<T>::to_float2(u.y);
+    float2 c = Elem<T>::to_float2(u.z), d = Elem<T>::to_float2(u.w);
+    f[0] = a.x; f[1] = a.y; f[2] = b.x; f[3] = b.y;
+    f[4] = c.x; f[5] = c.y; f[6] = d.x; f[7] = d.y;
+  } else {
+    payload4_to_float<POOL>(u.x, f);
+    payload4_to_float<POOL>(u.y, f + 4);
+  }
 }
 
 // shared floats for group size n: per-worker acc, q, per-worker m and l
@@ -52,16 +88,24 @@ constexpr size_t smem_floats(int n) {
   return (size_t)n * D * (NWORKERS + 1) + 2 * NWORKERS * n;
 }
 
-// q, out: [B, Hq, D]; kv: [P, 2, Hkv, page, D]; lse: [B, Hq] or null.
-// Grid: (Hkv, B).  G = Hq / Hkv.
-template <typename T, int G>
+// q, out: [B, Hq, D] (q int8 in the int8-dot mode, with qf [B, Hq]);
+// kv: [P, 2, Hkv, page, D] bytes; sc: [P, page, 128] or null;
+// lse: [B, Hq] or null.  Grid: (Hkv, B).  G = Hq / Hkv.
+template <typename T, int POOL, int G>
 __global__ void __launch_bounds__(NTHREADS)
-    paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kv,
+    paged_decode_kernel(const void* __restrict__ q,
+                        const float* __restrict__ qf,
+                        const uint8_t* __restrict__ kv,
+                        const void* __restrict__ sc, int sc_f32,
                         const int* __restrict__ block_tables,
                         const int* __restrict__ context_lens,
                         T* __restrict__ out, float* __restrict__ lse, int Hkv,
                         int page_size, int max_pages, float scale,
                         int window) {
+  using R = typename Raw<POOL>::type;
+  constexpr int ESZ = (POOL == kPoolNative) ? 2 : 1;  // bytes per element
+  constexpr bool QUANT = POOL != kPoolNative;
+  constexpr bool DOT = POOL == kPoolInt8Dot;
   extern __shared__ float sm[];
   float* s_acc = sm;                        // [NWORKERS][G][D]
   float* s_q = s_acc + NWORKERS * G * D;    // [G][D]
@@ -74,16 +118,32 @@ __global__ void __launch_bounds__(NTHREADS)
   const int half = lane >> 4, d0 = (lane & 15) * 8;
   const int worker = warp * 2 + half;
   const float sl2 = scale * kLog2e;
+  const size_t row0 = (size_t)b * Hq + (size_t)hk * G;
 
-  const T* qb = q + ((size_t)b * Hq + (size_t)hk * G) * D;
-  for (int i = tid; i < G * D; i += NTHREADS)
-    s_q[i] = Elem<T>::to_float(qb[i]) * sl2;
-  __syncthreads();
+  // q rows of the group: f32 pre-scaled by scale*log2(e), or int8 codes
+  // with their factor qf*log2(e)
   float qr[G][8];
+  int qi[G][2];
+  float qs[G];
+  if constexpr (DOT) {
+    const int8_t* qb = static_cast<const int8_t*>(q) + row0 * D + d0;
 #pragma unroll
-  for (int g = 0; g < G; ++g)
+    for (int g = 0; g < G; ++g) {
+      const uint2 w = *reinterpret_cast<const uint2*>(qb + g * D);
+      qi[g][0] = static_cast<int>(w.x);
+      qi[g][1] = static_cast<int>(w.y);
+      qs[g] = qf[row0 + g] * kLog2e;
+    }
+  } else {
+    const T* qb = static_cast<const T*>(q) + row0 * D;
+    for (int i = tid; i < G * D; i += NTHREADS)
+      s_q[i] = Elem<T>::to_float(qb[i]) * sl2;
+    __syncthreads();
 #pragma unroll
-    for (int e = 0; e < 8; ++e) qr[g][e] = s_q[g * D + d0 + e];
+    for (int g = 0; g < G; ++g)
+#pragma unroll
+      for (int e = 0; e < 8; ++e) qr[g][e] = s_q[g * D + d0 + e];
+  }
 
   const int len =
       max(0, min(context_lens[b], max_pages * page_size));
@@ -106,48 +166,106 @@ __global__ void __launch_bounds__(NTHREADS)
   for (int wbase = t_lo + warp * 2 * TPW; wbase < len;
        wbase += NWARPS * 2 * TPW) {
     const int base = wbase + half * TPW;
-    uint4 kr[TPW], vr[TPW];
+    R kr[TPW], vr[TPW];
+    float ksc[TPW], vsc[TPW];
     bool ok[TPW];
 #pragma unroll
     for (int i = 0; i < TPW; ++i) {
       const int tok = base + i;
       ok[i] = tok < len;
+      kr[i] = R{};
+      vr[i] = R{};
+      ksc[i] = vsc[i] = 0.f;
       if (ok[i]) {
         const int page = max(bt[tok / page_size], 0);
-        const T* p = kv + (size_t)page * page_elems + head_off +
-                     (size_t)(tok % page_size) * D;
-        kr[i] = __ldg(reinterpret_cast<const uint4*>(p));
-        vr[i] = __ldg(reinterpret_cast<const uint4*>(p + v_off));
-      } else {
-        kr[i] = make_uint4(0, 0, 0, 0);
-        vr[i] = make_uint4(0, 0, 0, 0);
+        const int slot = tok % page_size;
+        const uint8_t* p =
+            kv + ((size_t)page * page_elems + head_off + (size_t)slot * D) *
+                     ESZ;
+        kr[i] = __ldg(reinterpret_cast<const R*>(p));
+        vr[i] = __ldg(reinterpret_cast<const R*>(p + v_off * ESZ));
+        if constexpr (QUANT) {
+          const size_t si =
+              ((size_t)page * page_size + slot) * kScaleLanes + hk;
+          ksc[i] = load_scale(sc, si, sc_f32);
+          vsc[i] = load_scale(sc, si + kScaleKVStride, sc_f32);
+        }
       }
     }
+
+    // scores in log2 units, summed over the 16 lanes of each half-warp
+    // (xor offsets stay inside it)
     float s[TPW][G];
-#pragma unroll
-    for (int i = 0; i < TPW; ++i) {
-      float kf[8];
-      to_float8<T>(kr[i], kf);
-#pragma unroll
-      for (int g = 0; g < G; ++g) {
-        float dot = 0.f;
-#pragma unroll
-        for (int e = 0; e < 8; ++e) dot = fmaf(qr[g][e], kf[e], dot);
-        s[i][g] = dot;
-      }
-    }
-    // sum over the 16 lanes of each half-warp (offsets stay inside it)
-#pragma unroll
-    for (int off = 8; off >= 1; off >>= 1)
+    if constexpr (DOT) {
+      int si[TPW][G];
 #pragma unroll
       for (int i = 0; i < TPW; ++i)
 #pragma unroll
         for (int g = 0; g < G; ++g)
-          s[i][g] += __shfl_xor_sync(0xffffffffu, s[i][g], off);
-
-    float vf[TPW][8];
+          si[i][g] = __dp4a(qi[g][0], static_cast<int>(kr[i].x),
+                            __dp4a(qi[g][1], static_cast<int>(kr[i].y), 0));
 #pragma unroll
-    for (int i = 0; i < TPW; ++i) to_float8<T>(vr[i], vf[i]);
+      for (int off = 8; off >= 1; off >>= 1)
+#pragma unroll
+        for (int i = 0; i < TPW; ++i)
+#pragma unroll
+          for (int g = 0; g < G; ++g)
+            si[i][g] += __shfl_xor_sync(0xffffffffu, si[i][g], off);
+#pragma unroll
+      for (int i = 0; i < TPW; ++i)
+#pragma unroll
+        for (int g = 0; g < G; ++g)
+          s[i][g] = static_cast<float>(si[i][g]) * qs[g] * ksc[i];
+    } else {
+#pragma unroll
+      for (int i = 0; i < TPW; ++i) {
+        float kf[8];
+        to_float8<T, POOL>(kr[i], kf);
+#pragma unroll
+        for (int g = 0; g < G; ++g) {
+          float dot = 0.f;
+#pragma unroll
+          for (int e = 0; e < 8; ++e) dot = fmaf(qr[g][e], kf[e], dot);
+          s[i][g] = dot;
+        }
+      }
+#pragma unroll
+      for (int off = 8; off >= 1; off >>= 1)
+#pragma unroll
+        for (int i = 0; i < TPW; ++i)
+#pragma unroll
+          for (int g = 0; g < G; ++g)
+            s[i][g] += __shfl_xor_sync(0xffffffffu, s[i][g], off);
+      if constexpr (QUANT) {
+#pragma unroll
+        for (int i = 0; i < TPW; ++i)
+#pragma unroll
+          for (int g = 0; g < G; ++g) s[i][g] *= ksc[i];
+      }
+    }
+
+    // V of the TPW tokens: f32 values, or (int8 dot) the four tokens'
+    // bytes of element e gathered into one word for __dp4a
+    float vf[TPW][8];
+    int vt[8];
+    if constexpr (DOT) {
+#pragma unroll
+      for (int w = 0; w < 2; ++w) {
+        const uint32_t w0 = w ? vr[0].y : vr[0].x, w1 = w ? vr[1].y : vr[1].x;
+        const uint32_t w2 = w ? vr[2].y : vr[2].x, w3 = w ? vr[3].y : vr[3].x;
+        const uint32_t t01lo = __byte_perm(w0, w1, 0x5140);  // e0, e1
+        const uint32_t t23lo = __byte_perm(w2, w3, 0x5140);
+        const uint32_t t01hi = __byte_perm(w0, w1, 0x7362);  // e2, e3
+        const uint32_t t23hi = __byte_perm(w2, w3, 0x7362);
+        vt[4 * w + 0] = static_cast<int>(__byte_perm(t01lo, t23lo, 0x5410));
+        vt[4 * w + 1] = static_cast<int>(__byte_perm(t01lo, t23lo, 0x7632));
+        vt[4 * w + 2] = static_cast<int>(__byte_perm(t01hi, t23hi, 0x5410));
+        vt[4 * w + 3] = static_cast<int>(__byte_perm(t01hi, t23hi, 0x7632));
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < TPW; ++i) to_float8<T, POOL>(vr[i], vf[i]);
+    }
 #pragma unroll
     for (int g = 0; g < G; ++g) {
       float mx = m[g];
@@ -161,14 +279,44 @@ __global__ void __launch_bounds__(NTHREADS)
         p[i] = ok[i] ? exp2f(s[i][g] - mx) : 0.f;
         psum += p[i];
       }
-      l[g] = l[g] * alpha + psum;
+      l[g] = l[g] * alpha + psum;  // l sums the unscaled p
       m[g] = mx;
+      if constexpr (DOT) {
+        // p * V scale, quantized per row over this span of TPW tokens
+        float pm = 0.f;
 #pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        float a = acc[g][e] * alpha;
+        for (int i = 0; i < TPW; ++i) {
+          p[i] *= vsc[i];
+          pm = fmaxf(pm, p[i]);
+        }
+        const float r = pm > 0.f ? 127.f / pm : 0.f;
+        uint32_t pk = 0;
+        // floor(p * r + 0.5) with two roundings, as the plain version
+        // (no fused multiply-add)
 #pragma unroll
-        for (int i = 0; i < TPW; ++i) a = fmaf(p[i], vf[i][e], a);
-        acc[g][e] = a;
+        for (int i = 0; i < TPW; ++i)
+          pk |= (static_cast<uint32_t>(
+                     floorf(__fadd_rn(__fmul_rn(p[i], r), 0.5f))) &
+                 0xFFu)
+                << (8 * i);
+        const float deq = pm * (1.f / 127.f);
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          acc[g][e] = acc[g][e] * alpha +
+                      static_cast<float>(__dp4a(static_cast<int>(pk), vt[e],
+                                                0)) * deq;
+      } else {
+        if constexpr (QUANT) {
+#pragma unroll
+          for (int i = 0; i < TPW; ++i) p[i] *= vsc[i];
+        }
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          float a = acc[g][e] * alpha;
+#pragma unroll
+          for (int i = 0; i < TPW; ++i) a = fmaf(p[i], vf[i][e], a);
+          acc[g][e] = a;
+        }
       }
     }
   }
@@ -200,69 +348,85 @@ __global__ void __launch_bounds__(NTHREADS)
         O += s_acc[(w * G + g) * D + d] * c;
       }
     }
-    const size_t row = (size_t)b * Hq + (size_t)hk * G + g;
+    const size_t row = row0 + g;
     out[row * D + d] = Elem<T>::from_float(L > 0.f ? O / L : 0.f);
     if (lse != nullptr && d == 0)
       lse[row] = L > 0.f ? (M + log2f(L)) * kLn2 : kMaskValue;
   }
 }
 
-template <typename T, int G>
-int launch(const void* q, const void* kv, const void* bt, const void* lens,
-           void* out, void* lse, int B, int Hkv, int page_size, int max_pages,
-           float scale, int window, cudaStream_t stream) {
+struct Args {
+  const void* q;
+  const float* qf;
+  const uint8_t* kv;
+  const void* sc;
+  int sc_f32;
+  const int* bt;
+  const int* lens;
+  void* out;
+  float* lse;
+  int B, Hkv, page_size, max_pages;
+  float scale;
+  int window;
+  cudaStream_t stream;
+};
+
+template <typename T, int POOL, int G>
+int launch(const Args& a) {
   const size_t smem = smem_floats(G) * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      paged_decode_kernel<T, G>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      paged_decode_kernel<T, POOL, G>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  dim3 grid(Hkv, B);
-  paged_decode_kernel<T, G><<<grid, NTHREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(kv),
-      static_cast<const int*>(bt), static_cast<const int*>(lens),
-      static_cast<T*>(out), static_cast<float*>(lse), Hkv, page_size,
-      max_pages, scale, window);
+  dim3 grid(a.Hkv, a.B);
+  paged_decode_kernel<T, POOL, G><<<grid, NTHREADS, smem, a.stream>>>(
+      a.q, a.qf, a.kv, a.sc, a.sc_f32, a.bt, a.lens, static_cast<T*>(a.out),
+      a.lse, a.Hkv, a.page_size, a.max_pages, a.scale, a.window);
   return cudaGetLastError();
 }
 
-template <typename T>
-int dispatch(int group, const void* q, const void* kv, const void* bt,
-             const void* lens, void* out, void* lse, int B, int Hkv,
-             int page_size, int max_pages, float scale, int window,
-             cudaStream_t s) {
+template <typename T, int POOL>
+int by_group(int group, const Args& a) {
   switch (group) {
-    case 1:
-      return launch<T, 1>(q, kv, bt, lens, out, lse, B, Hkv, page_size,
-                          max_pages, scale, window, s);
-    case 2:
-      return launch<T, 2>(q, kv, bt, lens, out, lse, B, Hkv, page_size,
-                          max_pages, scale, window, s);
-    case 4:
-      return launch<T, 4>(q, kv, bt, lens, out, lse, B, Hkv, page_size,
-                          max_pages, scale, window, s);
-    case 8:
-      return launch<T, 8>(q, kv, bt, lens, out, lse, B, Hkv, page_size,
-                          max_pages, scale, window, s);
+    case 1: return launch<T, POOL, 1>(a);
+    case 2: return launch<T, POOL, 2>(a);
+    case 4: return launch<T, POOL, 4>(a);
+    case 8: return launch<T, POOL, 8>(a);
+  }
+  return cudaErrorInvalidValue;
+}
+
+template <typename T>
+int by_pool(int pool, int group, const Args& a) {
+  switch (pool) {
+    case kPoolNative: return by_group<T, kPoolNative>(group, a);
+    case kPoolInt8: return by_group<T, kPoolInt8>(group, a);
+    case kPoolE4M3: return by_group<T, kPoolE4M3>(group, a);
+    case kPoolInt8Dot: return by_group<T, kPoolInt8Dot>(group, a);
   }
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-extern "C" int aule_paged_decode(const void* q, const void* kv_pages,
+// q: [B, Hq, D] in the out type (int8 codes in the int8-dot mode, with
+// qf [B, Hq] f32 = per-row q scale x softmax scale; qf null otherwise).
+extern "C" int aule_paged_decode(const void* q, const void* qf,
+                                 const void* kv_pages, const void* kv_scales,
                                  const void* block_tables,
                                  const void* context_lens, void* out,
                                  void* lse, int B, int Hq, int Hkv,
                                  int page_size, int max_pages, float scale,
-                                 int window, int dtype, void* stream) {
+                                 int window, int dtype, int pool, int sc_f32,
+                                 void* stream) {
   if (B <= 0) return cudaSuccess;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Args a{q, static_cast<const float*>(qf),
+               static_cast<const uint8_t*>(kv_pages), kv_scales, sc_f32,
+               static_cast<const int*>(block_tables),
+               static_cast<const int*>(context_lens), out,
+               static_cast<float*>(lse), B, Hkv, page_size, max_pages, scale,
+               window, static_cast<cudaStream_t>(stream)};
   const int group = Hq / Hkv;
-  if (dtype == aule::kF16)
-    return dispatch<__half>(group, q, kv_pages, block_tables, context_lens,
-                            out, lse, B, Hkv, page_size, max_pages, scale,
-                            window, s);
-  return dispatch<__nv_bfloat16>(group, q, kv_pages, block_tables,
-                                 context_lens, out, lse, B, Hkv, page_size,
-                                 max_pages, scale, window, s);
+  if (dtype == aule::kF16) return by_pool<__half>(pool, group, a);
+  return by_pool<__nv_bfloat16>(pool, group, a);
 }

@@ -1,5 +1,5 @@
 """Llama-style decoder (counterpart of aule_tpu/models/llama.py:42-256,
-387-492).
+387-603).
 
 Parameters are a plain dict with the JAX package's keys and its `[in, out]`
 weight orientation (`x @ w`), so JAX params cross over as a plain copy
@@ -12,7 +12,13 @@ gate is computed in f32; logits are f32.
     It is inference only: training is a later slice, so a parameter that
     requires grad raises.
   * `decode_step_fused` is one decode step over the fused paged pools:
-    append (in place) then paged attention.
+    append (in place) then paged attention (the paged-decode kernel);
+  * `prefill_step_fused` is one chunk of chunked prefill: append the chunk
+    (in place) then attend over history plus chunk (the paged-prefill
+    kernel).
+  Both quantize what they append when scale pools are passed, and take
+  the paged attention function as an argument (default: the kernel's
+  wrapper), as `forward` takes `attention`.
 
 Entry points run on the card by default (`device="cuda"`) and raise
 without CUDA; pass `device="cpu"` for the plain versions.
@@ -31,7 +37,9 @@ import torch.nn.functional as F
 from ..config import resolve_device
 from ..ops.flash import flash_attention_fwd
 from ..ops.paged_fused import (kv_cache_append_decode_fused,
+                               kv_cache_append_prefill_fused,
                                paged_attention_fused)
+from ..ops.paged_prefill import paged_attention_prefill
 from ..ops.rope import apply_rope, precompute_rope_frequencies
 
 Params = Dict[str, Any]
@@ -228,12 +236,18 @@ def decode_step_fused(
     cfg: LlamaConfig,
     rope_cos: torch.Tensor,
     rope_sin: torch.Tensor,
+    kv_scales: Optional[Sequence[torch.Tensor]] = None,
+    *,
+    attention: Callable = paged_attention_fused,
 ):
     """One decode step: appends this token's K/V to each layer's fused pool
-    (in place) and attends over it with the paged decode.  Returns
-    (logits [B, V] f32, kv_pages, context_lens + 1).  A stacked
-    [L, P, 2, Hkv, page, D] tensor works as `kv_pages`: its per-layer
-    views are written in place."""
+    (in place, quantized when per-layer packed scale pools `kv_scales` are
+    given) and attends over it with the paged decode.  Returns (logits
+    [B, V] f32, kv_pages, context_lens + 1), and kv_scales fourth when
+    quantized.  Stacked [L, ...] tensors work as `kv_pages` / `kv_scales`:
+    their per-layer views are written in place.  `attention` is the paged
+    decode; a reference run passes its plain version
+    (ops.paged_fused.paged_attention_fused_plain)."""
     # decode windows are trailing-W (k >= pos-W+1) while prefill's mask is
     # q-k <= W: W+1 on the decode side makes them identical
     dec_window = cfg.window_size + 1 if cfg.window_size > 0 else -1
@@ -243,18 +257,81 @@ def decode_step_fused(
     half = cfg.head_dim // 2
     lens_out = context_lens
     for li, layer in enumerate(params["layers"]):
+        sc = None if kv_scales is None else kv_scales[li]
         h = rms_norm(x, layer["attn_norm"], cfg.norm_eps)
         q = (h @ layer["wq"]).reshape(-1, cfg.n_heads, cfg.head_dim)
         k = (h @ layer["wk"]).reshape(-1, cfg.n_kv_heads, cfg.head_dim)
         v = (h @ layer["wv"]).reshape(-1, cfg.n_kv_heads, cfg.head_dim)
         q = _rotate(q, c, sn, half)
         k = _rotate(k, c, sn, half)
-        _, lens_out = kv_cache_append_decode_fused(
-            kv_pages[li], k, v, block_tables, context_lens)
-        attn = paged_attention_fused(q, kv_pages[li], block_tables, lens_out,
-                                     window_size=dec_window)
+        lens_out = kv_cache_append_decode_fused(
+            kv_pages[li], k, v, block_tables, context_lens, kv_scales=sc)[-1]
+        attn = attention(q, kv_pages[li], block_tables, lens_out,
+                         kv_scales=sc, window_size=dec_window)
         x = x + attn.reshape(-1, cfg.n_heads * cfg.head_dim) @ layer["wo"]
         x = _mlp(x, layer, cfg)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = (x @ params["lm_head"]).float()
+    if kv_scales is not None:
+        return logits, kv_pages, lens_out, kv_scales
+    return logits, kv_pages, lens_out
+
+
+def prefill_step_fused(
+    params: Params,
+    tokens: torch.Tensor,                # [B, S_chunk] int
+    q_offsets: torch.Tensor,             # [B] position of tokens[:, 0]
+    seq_lens: torch.Tensor,              # [B] valid tokens of the chunk
+    kv_pages: Sequence[torch.Tensor],    # per-layer fused pools
+    block_tables: torch.Tensor,          # [B, max_pages] int32
+    cfg: LlamaConfig,
+    rope_cos: torch.Tensor,
+    rope_sin: torch.Tensor,
+    kv_scales: Optional[Sequence[torch.Tensor]] = None,
+    *,
+    all_logits: bool = False,
+    attention: Callable = paged_attention_prefill,
+):
+    """One chunk of chunked prefill over the fused pools: append the
+    chunk's K/V (in place, quantized when `kv_scales` are given), then
+    attend to cache history plus chunk.  Returns (logits, kv_pages,
+    q_offsets + seq_lens), and kv_scales fourth when quantized.  Logits are
+    [B, V] f32 for each sequence's last valid chunk token, or [B, S, V] for
+    every position with all_logits=True.  `attention` is the paged prefill;
+    a reference run passes its plain version
+    (ops.paged_prefill.paged_attention_prefill_plain)."""
+    _, s_chunk = tokens.shape
+    dev = params["embed"].device
+    q_offsets = q_offsets.to(dev)
+    seq_lens = seq_lens.to(dev)
+    # positions past the tables (padding) clamp, as JAX's gather does
+    positions = (q_offsets.long()[:, None]
+                 + torch.arange(s_chunk, device=dev)[None, :]).clamp(
+                     max=rope_cos.shape[0] - 1)
+    x = params["embed"][tokens.to(dev)]
+    lens_out = q_offsets + seq_lens
+    for li, layer in enumerate(params["layers"]):
+        sc = None if kv_scales is None else kv_scales[li]
+        h = rms_norm(x, layer["attn_norm"], cfg.norm_eps)
+        q = _split_heads(h @ layer["wq"], cfg.n_heads, cfg.head_dim)
+        k = _split_heads(h @ layer["wk"], cfg.n_kv_heads, cfg.head_dim)
+        v = _split_heads(h @ layer["wv"], cfg.n_kv_heads, cfg.head_dim)
+        q = apply_rope(q, rope_cos, rope_sin, positions[:, None])
+        k = apply_rope(k, rope_cos, rope_sin, positions[:, None])
+        lens_out = kv_cache_append_prefill_fused(
+            kv_pages[li], k, v, block_tables, q_offsets, seq_lens,
+            kv_scales=sc)[-1]
+        attn = attention(q, kv_pages[li], block_tables, lens_out,
+                         q_offsets=q_offsets, kv_scales=sc, causal=True,
+                         window_size=cfg.window_size)
+        x = x + _merge_heads(attn) @ layer["wo"]
+        x = _mlp(x, layer, cfg)
+    if not all_logits:
+        # only the last valid row of each sequence is ever sampled
+        last = (seq_lens.long() - 1).clamp_min(0)
+        x = x[torch.arange(x.shape[0], device=dev), last]
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    logits = (x @ params["lm_head"]).float()
+    if kv_scales is not None:
+        return logits, kv_pages, lens_out, kv_scales
     return logits, kv_pages, lens_out

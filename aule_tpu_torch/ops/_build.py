@@ -38,9 +38,21 @@ _FLOAT = ctypes.c_float
 SIGNATURES = {
     "aule_flash_fwd": [_VOID, _VOID, _VOID, _VOID, _VOID, _INT, _INT, _INT,
                        _INT, _INT, _FLOAT, _INT, _INT, _INT, _VOID],
-    "aule_paged_decode": [_VOID, _VOID, _VOID, _VOID, _VOID, _VOID, _INT,
-                          _INT, _INT, _INT, _INT, _FLOAT, _INT, _INT, _VOID],
+    # q, qf, kv, scales, tables, lens, out, lse, B, Hq, Hkv, page,
+    # max_pages, scale, window, dtype, pool, sc_f32, stream
+    "aule_paged_decode": [_VOID] * 8 + [_INT] * 5 + [_FLOAT] +
+                         [_INT] * 4 + [_VOID],
+    # q, kv, scales, tables, lens, q_offsets, out, lse, B, Hq, Hkv, Sq,
+    # page, max_pages, scale, causal, window, dtype, pool, sc_f32, stream
+    "aule_paged_prefill": [_VOID] * 8 + [_INT] * 6 + [_FLOAT] +
+                          [_INT] * 5 + [_VOID],
 }
+
+# pool codes (csrc/common.cuh kPool*): what a paged pool holds
+POOL_NATIVE = 0    # the q/out type, bf16 or f16
+POOL_INT8 = 1      # int8 payload + scales, converted exactly
+POOL_E4M3 = 2      # e4m3 payload + scales, converted exactly
+POOL_INT8_DOT = 3  # int8 payload + scales, int8 q, int8 dot products
 
 
 class _State:
@@ -157,3 +169,22 @@ def dtype_code(dtype) -> int:
     if dtype == torch.float16:
         return 1
     raise TypeError(f"the CUDA kernels take bfloat16 or float16, got {dtype}")
+
+
+def pool_code(dtype) -> int:
+    """POOL_INT8 or POOL_E4M3 for a quantized pool's payload dtype."""
+    if dtype == torch.int8:
+        return POOL_INT8
+    if dtype == torch.float8_e4m3fn:
+        return POOL_E4M3
+    raise TypeError(f"quantized pools hold int8 or float8_e4m3fn, got "
+                    f"{dtype}")
+
+
+def scale_code(dtype) -> int:
+    """0 = bfloat16, 1 = float32 (the packed scale tile's types)."""
+    if dtype == torch.bfloat16:
+        return 0
+    if dtype == torch.float32:
+        return 1
+    raise TypeError(f"kv_scales must be bfloat16 or float32, got {dtype}")

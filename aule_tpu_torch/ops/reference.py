@@ -99,21 +99,13 @@ def paged_attention_reference(
     context_lens[b] tokens are visible; with a window only the trailing
     `window_size` (k position p attends iff len - 1 - p < W).  -1 table
     entries clamp to page 0 (their tokens are masked by context_lens)."""
-    batch, hq, head_dim = q.shape
-    num_kv_heads, _, page_size, _ = k_pages.shape
-    max_pages = block_tables.shape[1]
+    hq, head_dim = q.shape[1], q.shape[2]
     if scale is None:
         scale = 1.0 / math.sqrt(head_dim)
-    bt = block_tables.long().clamp_min(0)
-    # [Hkv, B, maxp, page, D] -> [B, Hkv, maxp*page, D]
-    kg = k_pages[:, bt].transpose(0, 1).reshape(
-        batch, num_kv_heads, max_pages * page_size, head_dim)
-    vg = v_pages[:, bt].transpose(0, 1).reshape(
-        batch, num_kv_heads, max_pages * page_size, head_dim)
-    kg = _expand_kv(kg.float(), hq)
-    vg = _expand_kv(vg.float(), hq)
+    kg = _expand_kv(_gather_pages(k_pages, block_tables).float(), hq)
+    vg = _expand_kv(_gather_pages(v_pages, block_tables).float(), hq)
     scores = torch.einsum("bhd,bhkd->bhk", q.float(), kg) * scale
-    pos = torch.arange(max_pages * page_size, device=q.device)[None, :]
+    pos = torch.arange(kg.shape[2], device=q.device)[None, :]
     lens = context_lens.long().to(q.device)[:, None]
     valid = pos < lens
     if window_size is not None and window_size > 0:
@@ -122,3 +114,53 @@ def paged_attention_reference(
                                   valid[:, None, None, :], vg)
     out = out[:, :, 0].to(q.dtype)
     return (out, lse[:, :, 0]) if return_lse else out
+
+
+def _gather_pages(pages, block_tables):
+    """[Hkv, P, page, D] pages of each sequence's table -> [B, Hkv,
+    max_pages*page, D]; -1 entries clamp to page 0."""
+    hkv, _, page_size, d = pages.shape
+    batch, max_pages = block_tables.shape
+    bt = block_tables.long().clamp_min(0).to(pages.device)
+    return pages[:, bt].transpose(0, 1).reshape(
+        batch, hkv, max_pages * page_size, d)
+
+
+def paged_prefill_reference(
+    q: torch.Tensor,             # [B, Hq, S, D]
+    k_pages: torch.Tensor,       # [Hkv, P, page, D]
+    v_pages: torch.Tensor,
+    block_tables: torch.Tensor,  # [B, max_pages], -1 = unused
+    context_lens: torch.Tensor,  # [B] visible cache length
+    q_offsets: torch.Tensor,     # [B] absolute position of query 0
+    *,
+    scale: Optional[float] = None,
+    causal: bool = True,
+    window_size: int = -1,
+    return_lse: bool = False,
+):
+    """Dense oracle for a chunk of queries over a paged cache.  Query s of
+    sequence b sits at q_offsets[b] + s and sees cache positions k <
+    context_lens[b], k <= its own when causal, and q - k <= W with a
+    window (one-sided also when not causal, as the JAX prefill kernel).
+    Rows at or past context_lens[b] see nothing: output 0, LSE
+    -0.7 * f32max."""
+    hq, seq_q, head_dim = q.shape[1], q.shape[2], q.shape[3]
+    if scale is None:
+        scale = 1.0 / math.sqrt(head_dim)
+    kg = _expand_kv(_gather_pages(k_pages, block_tables).float(), hq)
+    vg = _expand_kv(_gather_pages(v_pages, block_tables).float(), hq)
+    scores = torch.matmul(q.float(), kg.transpose(-1, -2)) * scale
+    seq_k = kg.shape[2]
+    lens = context_lens.long().to(q.device)[:, None, None]
+    qpos = (q_offsets.long().to(q.device)[:, None, None]
+            + torch.arange(seq_q, device=q.device)[None, :, None])
+    kpos = torch.arange(seq_k, device=q.device)[None, None, :]
+    valid = (kpos < lens) & (qpos < lens)
+    if causal:
+        valid = valid & (kpos <= qpos)
+    if window_size is not None and window_size > 0:
+        valid = valid & ((qpos - kpos) <= window_size)
+    out, lse = _masked_softmax_av(scores, valid[:, None], vg)
+    out = out.to(q.dtype)
+    return (out, lse) if return_lse else out

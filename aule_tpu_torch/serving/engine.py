@@ -1,11 +1,17 @@
 """Continuous-batching serving engine (counterpart of
-aule_tpu/serving/engine.py) for the fused, unquantized, single-device case.
+aule_tpu/serving/engine.py) for the fused-layout, single-device case, with
+bf16 / f16 pools or quantized (int8, e4m3) pools and whole-prompt or
+chunked prefill.
 
 A host loop drives eager PyTorch steps on the card:
   * admission: a request joins when a batch slot and all the pages its
     prompt plus max_new_tokens need are free;
-  * prefill: one `llama.forward` (the flash kernel) over the prompt, whose
-    rotated K and V are then written into the request's pages;
+  * prefill, whole prompt: one `llama.forward` (the flash kernel) over the
+    prompt, whose rotated K and V are then written into the request's
+    pages (quantized with `quantized=True`);
+  * prefill, chunked (`prefill_chunk=c`): `llama.prefill_step_fused` (the
+    paged-prefill kernel) over chunks at offsets 0, c, 2c, ..., each
+    attending to the pages the earlier chunks wrote;
   * decode: every running sequence advances through
     `llama.decode_step_fused` (the paged-decode kernel); when nothing waits
     and every request has at least `decode_steps` tokens to go, K steps
@@ -14,8 +20,10 @@ A host loop drives eager PyTorch steps on the card:
 
 Page 0 is the reserved scratch page: empty slots carry block-table -1,
 which clamps to page 0, so their dummy appends never touch a live page.
-The JAX engine pads prompts to power-of-two buckets and group rows to 8;
-those are TPU compile and tile artifacts and the port runs exact shapes.
+The JAX engine pads prompts to power-of-two buckets, chunks to
+`prefill_chunk` tokens and group rows to 8; those are TPU compile and tile
+artifacts and the port runs exact shapes (the last chunk of a prompt is
+its remainder).
 
 Options of the JAX engine outside this slice raise NotImplementedError
 naming the slice that brings them; none is silently ignored.
@@ -32,21 +40,18 @@ import torch
 
 from ..config import PAGE_SIZE, resolve_device
 from ..models import llama
-from ..ops.paged_fused import (fused_pool_shape,
+from ..ops.paged_fused import (SCALE_DTYPE, fused_pool_shape,
+                               fused_scales_shape,
                                kv_cache_append_prefill_fused)
+from ..ops.quant import QUANT_DTYPES
 from ..ops.rope import precompute_rope_frequencies
 from . import sampling
 from .kv_cache import PythonPageAllocator
 
-_CHUNKED = "the chunked-prefill slice (next)"
-_QUANT = "the quantized fused-decode slice (next)"
 _EDGES = "the serving-edges slice"
 
 # engine arguments of the JAX engine outside this slice: (default, slice)
 _LATER_ENGINE_ARGS = {
-    "quantized": (False, _QUANT),
-    "quant_dtype": (None, _QUANT),
-    "prefill_chunk": (None, _CHUNKED),
     "enable_prefix_cache": (False, _EDGES),
     "mesh": (None, "the parallel-layer slice"),
     "model_axis": ("model", "the parallel-layer slice"),
@@ -114,7 +119,13 @@ class Request:
 
 class ServingEngine:
     """Continuous batching over a Llama-style model (models/llama.py) with
-    fused paged KV pools on one device (the card unless device='cpu')."""
+    fused paged KV pools on one device (the card unless device='cpu').
+
+    quantized=True stores K/V as `quant_dtype` payloads (torch.int8, the
+    default, or torch.float8_e4m3fn) with one stacked packed scale pool
+    [L, P, page, 128] bf16; int8 pools decode on the int8 dot-product path
+    unless AULE_TPU_INT8_EXACT is set.  prefill_chunk=c prefills prompts in
+    chunks of c tokens through the paged-prefill kernel."""
 
     def __init__(
         self,
@@ -129,10 +140,19 @@ class ServingEngine:
         sample_seed: int = 0,
         layout: str = "fused",
         decode_steps: int = 8,
+        quantized: bool = False,
+        quant_dtype=torch.int8,
+        prefill_chunk: Optional[int] = None,
         device="cuda",
         **later,
     ):
         self.device = resolve_device(device)
+        if quantized and quant_dtype not in QUANT_DTYPES:
+            raise ValueError(f"quant_dtype must be torch.int8 or "
+                             f"torch.float8_e4m3fn, got {quant_dtype}")
+        if prefill_chunk is not None and prefill_chunk <= 0:
+            raise ValueError(f"prefill_chunk must be positive, got "
+                             f"{prefill_chunk}")
         if layout == "split":
             raise NotImplementedError(
                 "layout='split' is not ported yet; it comes with the "
@@ -152,11 +172,17 @@ class ServingEngine:
             max_seq_len, cfg.head_dim, cfg.rope_base, device=self.device)
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(sample_seed)
-        # one stacked pool; layer li is the view kv_pages[li]
+        self.prefill_chunk = prefill_chunk
+        # one stacked pool (and scale pool); layer li is the view [li]
         self.kv_pages = torch.zeros(
             (cfg.n_layers,) + fused_pool_shape(
                 num_pages, cfg.n_kv_heads, page_size, cfg.head_dim),
-            dtype=cfg.dtype, device=self.device)
+            dtype=quant_dtype if quantized else cfg.dtype,
+            device=self.device)
+        self.kv_scales = (torch.zeros(
+            (cfg.n_layers,) + fused_scales_shape(
+                num_pages, cfg.n_kv_heads, page_size),
+            dtype=SCALE_DTYPE, device=self.device) if quantized else None)
         self.allocator = PythonPageAllocator(num_pages)
         # page 0 is the scratch sink for -1 table entries (empty slots)
         scratch = self.allocator.allocate(1)
@@ -291,7 +317,9 @@ class ServingEngine:
 
     def _prefill(self, tokens: torch.Tensor, bt_row: torch.Tensor):
         """Forward over one prompt [1, n] and write its K/V into the pages
-        of `bt_row`; returns the logits of the last prompt position."""
+        of `bt_row` (quantized when the pools are, as the JAX fused path,
+        engine.py:947-973); returns the logits of the last prompt
+        position."""
         n = tokens.shape[1]
         logits, kv = llama.forward(
             self.params, tokens, self.cfg, rope_cos=self.rope_cos,
@@ -299,9 +327,32 @@ class ServingEngine:
         zero = torch.zeros((1,), dtype=torch.int32, device=self.device)
         true_len = torch.full((1,), n, dtype=torch.int32, device=self.device)
         for li, (k, v) in enumerate(kv):
-            kv_cache_append_prefill_fused(self.kv_pages[li], k, v,
-                                          bt_row[None], zero, true_len)
+            kv_cache_append_prefill_fused(
+                self.kv_pages[li], k, v, bt_row[None], zero, true_len,
+                kv_scales=None if self.kv_scales is None
+                else self.kv_scales[li])
+        self.prefill_dispatches += 1
         return logits[0, n - 1]
+
+    def _prefill_chunked(self, tokens: torch.Tensor, bt_row: torch.Tensor):
+        """Chunks of `prefill_chunk` tokens at offsets 0, c, 2c, ... through
+        `llama.prefill_step_fused` (engine.py:1329-1381); each chunk
+        appends its K/V and attends to everything before it.  Returns the
+        logits of the last prompt position."""
+        n, c = tokens.shape[1], self.prefill_chunk
+        logits = None
+        for off in range(0, n, c):
+            chunk = tokens[:, off:off + c]
+            out = llama.prefill_step_fused(
+                self.params, chunk,
+                torch.full((1,), off, dtype=torch.int32, device=self.device),
+                torch.full((1,), chunk.shape[1], dtype=torch.int32,
+                           device=self.device),
+                self.kv_pages, bt_row[None], self.cfg, self.rope_cos,
+                self.rope_sin, self.kv_scales)
+            logits = out[0]
+            self.prefill_dispatches += 1
+        return logits[0]
 
     def _run_prefill(self, slot: int, req: Request) -> None:
         t0 = time.perf_counter()
@@ -311,8 +362,11 @@ class ServingEngine:
         bt = np.full((self.max_pages_per_seq,), -1, np.int32)
         pages = self.slot_pages[slot]
         bt[:len(pages)] = pages
-        logits = self._prefill(tokens, torch.from_numpy(bt).to(self.device))
-        self.prefill_dispatches += 1
+        bt_row = torch.from_numpy(bt).to(self.device)
+        if self.prefill_chunk is not None:
+            logits = self._prefill_chunked(tokens, bt_row)
+        else:
+            logits = self._prefill(tokens, bt_row)
         self.slot_lens[slot] = n
         if req.temperature > 0.0:
             tok = sampling.temperature(req.temperature)(logits,
@@ -357,9 +411,9 @@ class ServingEngine:
         steps = []
         for _ in range(n_steps):
             # positions are the lengths before this token
-            logits, _, new_lens = llama.decode_step_fused(
+            logits, _, new_lens, *_ = llama.decode_step_fused(
                 self.params, tok, lens, self.kv_pages, bt, lens, self.cfg,
-                self.rope_cos, self.rope_sin)
+                self.rope_cos, self.rope_sin, self.kv_scales)
             tok = self._sample(logits, temps)
             steps.append(tok)
             lens = new_lens

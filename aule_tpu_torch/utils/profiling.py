@@ -3,7 +3,8 @@ aule_tpu/utils/profiling.py).
 
 Kernel times come from CUDA events around each launch after a warm-up:
 the median of the timed repeats with its spread (min, max).  FLOPs follow
-the JAX package's convention, 4*B*H*Sq*Sk*D, halved for causal.  Bounds
+the JAX package's convention, 4*B*H*Sq*Sk*D, halved for causal; a paged
+prefill chunk counts the keys its rows see.  Bounds
 use the published peaks of one NVIDIA H100 SXM at its full 700 W power
 limit (NVIDIA's data sheet, dense rates).  There is no CPU fallback: a
 measurement without a card raises.
@@ -26,6 +27,29 @@ def attention_flops(batch: int, heads: int, seq_q: int, seq_k: int,
     """4*B*H*Sq*Sk*D, halved for causal."""
     flops = 4.0 * batch * heads * seq_q * seq_k * head_dim
     return flops * 0.5 if causal else flops
+
+
+def paged_kv_bytes(tokens: int, hkv: int, head_dim: int,
+                   payload_bytes: int, scale_bytes: int = 0) -> float:
+    """Bytes of the K and V of `tokens` cached tokens in a fused pool that
+    attention must read: the payload of both, plus, for a quantized pool
+    (`scale_bytes` per scale), each token's K and V scale of every kv head
+    (lanes h and 64 + h of its packed scale row; the unused lanes are not
+    needed)."""
+    return float(tokens * 2 * hkv * (head_dim * payload_bytes + scale_bytes))
+
+
+def paged_prefill_flops(q_offsets: Sequence[int], chunk_lens: Sequence[int],
+                        heads: int, head_dim: int,
+                        window: int = -1) -> float:
+    """4 * H * D * (visible keys summed over the live rows) of a causal
+    chunk over its history: the row at absolute position p sees p + 1
+    cache positions, or W + 1 with a window W."""
+    keys = 0
+    for off, n in zip(q_offsets, chunk_lens):
+        for p in range(off, off + n):
+            keys += min(p + 1, window + 1) if window > 0 else p + 1
+    return 4.0 * heads * head_dim * keys
 
 
 def bound_ms(bytes_moved: float, flops: float,

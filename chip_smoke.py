@@ -5,24 +5,39 @@
 Phases, each printing a line of its own:
   1. device: exits non-zero without CUDA (there is no CPU fallback);
      prints the card's name and power limit (nvidia-smi);
-  2. build: compiles aule_tpu_torch/csrc/*.cu with nvcc for sm_90a;
+  2. build: compiles aule_tpu_torch/csrc/*.cu with nvcc for sm_90a, one
+     nvcc per source, all started together;
   3. kernels: each hand-written kernel against its plain PyTorch version
-     on the card in bf16 (max-abs error <= 2e-2 on unit-normal inputs),
+     on the card (each output row within ROW_TOL of its size, LSE within
+     LSE_TOL; see below): flash forward; paged decode over bf16, int8 (dot-product and exact
+     paths) and fp8 pools; paged prefill over bf16, f16, int8 and fp8
+     pools (a 512-token chunk at q_offset 3488 over 4000 cached tokens,
+     with and without a 256 window; a ragged batch of 4 whose padding
+     rows must be exact zeros; shuffled page ids and -1 entries); both
+     paged kernels at GQA groups 1, 2 and 8 and with f16 q.  Each
      with its time at the engine's shapes (median of 20 CUDA-event timed
      runs), its bound, the plain version's time and a library yardstick's
-     time (F.scaled_dot_product_attention; timed only, the port never
-     calls it);
+     time (F.scaled_dot_product_attention on the gathered, dequantized
+     K/V; timed only, the port never calls it);
   4. engine: a full-width, full-depth Llama-3-8B (random bf16 weights from
-     a seeded generator on the card) serves 12 greedy requests through
-     `ServingEngine`; launch counts are checked against the dispatches, and
-     every emitted token is held against a teacher-forced forward with the
-     plain attention versions;
+     a seeded generator on the card) serves the same 12 greedy requests
+     five times through `ServingEngine`: bf16 pools with whole-prompt
+     prefill, (a) bf16 with prefill_chunk=512, (b) int8 pools with
+     prefill_chunk=512, (c) fp8 pools with whole-prompt prefill, (d) fp8
+     pools with prefill_chunk=512.  Each run checks its launch counts
+     against its dispatches and that every page comes back.  The bf16 runs
+     hold every token against a teacher-forced plain forward; (b)-(d)
+     against a teacher-forced replay of the same steps with the plain
+     attention versions;
   5. breakdown: one prefill step and one 8-step decode dispatch of the
      engine under torch.profiler (device busy share, kernel time by
-     category);
-  6. a `kernels` JSON line;
+     category) for bf16, int8 chunked and fp8 chunked pools;
+  6. a `kernels` JSON line, one entry per kernel mode the engine runs
+     launched;
   7. last line: {"ok": true, "device": {...}}, printed only when every
      phase passed.  Any failure raises and the exit code is non-zero.
+
+About 2 minutes on an H100, the build included.
 """
 
 from __future__ import annotations
@@ -36,7 +51,22 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-TOL = 2e-2            # bf16 kernels vs their f32-internal plain versions
+# Kernel checks hold every output row to the plain version's row relative
+# to that row's size, so a fault in a row over 4000 keys (outputs ~0.03) is
+# as visible as one in a row over 1 key (outputs ~1):
+#     max |out - plain| over the row <= ROW_TOL * max |plain| over the row.
+# Both sides round to the output type once, and the kernel rounds p to it
+# before the PV product: under 2 rounding steps of the row's largest
+# element, 2^-6 of it for bf16 (8 significant bits), allowed 4 steps for
+# f16.  The int8 dot-product decode may also move one p code of a span by
+# 1/127 of the span's weight against its plain version (f32 rounding of
+# p * 127 / max), so it gets 2^-6 more.  A wrong V tile or scale moves whole
+# rows by tens of % of their size.  LSE is f32 on both sides and agrees to
+# a few f32 steps; a dropped or extra 64-key tile of 4000 keys moves it by
+# ~64/4000, over 100x LSE_TOL.
+ROW_TOL = {torch.bfloat16: 2.0 ** -6, torch.float16: 2.0 ** -8}
+INT8_DOT_EXTRA = 2.0 ** -6
+LSE_TOL = 1e-4
 # Teacher-forced agreement: the engine's token is the plain argmax, or its
 # logit is within NEAR_TIE of the plain max.  Logits are bf16 products
 # (lm_head in bf16, then f32): at |logit| in [4, 8) one bf16 step is
@@ -44,6 +74,7 @@ TOL = 2e-2            # bf16 kernels vs their f32-internal plain versions
 # 4 steps is the allowance for a bf16 near-tie.
 NEAR_TIE = 0.125
 SEED = 0
+DEV = "cuda"  # the engine phase's device
 
 
 def log(msg: str) -> None:
@@ -93,12 +124,38 @@ def _err(a, b) -> float:
     return (a.float() - b.float()).abs().max().item()
 
 
+def hold(what, out, plain, lse, plse, tol, worst=None, key=None):
+    """Hold a kernel's (out, lse) to its plain version's: every row within
+    `tol` of its size, LSE within LSE_TOL, all finite.  Logs the max-abs,
+    row-relative and LSE errors, raises on a failure, and merges them into
+    worst[key] (a dict of per-kernel worst errors) when given."""
+    o, p = out.float(), plain.float()
+    diff = (o - p).abs().amax(dim=-1)
+    size = p.abs().amax(dim=-1)
+    # a row the plain version gives as zeros must be zeros
+    rel = torch.where(diff == 0, torch.zeros_like(diff),
+                      diff / size.clamp_min(1e-30))
+    errs = (float(diff.max()), float(rel.max()), _err(lse, plse))
+    ok = (errs[1] <= tol and errs[2] <= LSE_TOL
+          and bool(torch.isfinite(o).all()))
+    log(f"{what}: max|out-plain| {errs[0]:.3e}, row-relative {errs[1]:.3e} "
+        f"(<= {tol:.3e}), max|lse-plain| {errs[2]:.3e} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"kernel disagrees with its plain version: "
+                             f"{what}")
+    if worst is not None:
+        worst[key] = tuple(max(a, b) for a, b in
+                           zip(worst.get(key, (0.0, 0.0, 0.0)), errs))
+    return errs
+
+
 def check_flash(gen):
     from aule_tpu_torch.ops.flash import (flash_attention_fwd,
                                           flash_attention_fwd_plain)
     from aule_tpu_torch.utils import profiling
 
-    worst = 0.0
+    worst = {}
     cases = [  # (label, Sq, Sk, causal, window, dtype)
         ("S512 causal (_fwd_kernel class)", 512, 512, True, -1,
          torch.bfloat16),
@@ -121,14 +178,7 @@ def check_flash(gen):
         po, plse = flash_attention_fwd_plain(q, k, v, causal=causal,
                                              window_size=window,
                                              return_lse=True)
-        torch.cuda.synchronize()
-        e_o, e_l = _err(o, po), _err(lse, plse)
-        ok = e_o <= TOL and e_l <= TOL and bool(torch.isfinite(o).all())
-        log(f"flash {label}: max|out-plain| {e_o:.3e} "
-            f"max|lse-plain| {e_l:.3e} {'ok' if ok else 'FAIL'}")
-        if not ok:
-            raise AssertionError(f"flash kernel disagrees: {label}")
-        worst = max(worst, e_o, e_l)
+        hold(f"flash {label}", o, po, lse, plse, ROW_TOL[dt], worst, "flash")
 
     timings = {}
     for s in (512, 2048):
@@ -153,10 +203,11 @@ def check_flash(gen):
             f"{flops / ms[0] / 1e9:.1f} TFLOP/s; plain {plain[0]:.4f} ms; "
             f"sdpa {lib[0]:.4f} ms; bound {bound:.4f} ms ({by})")
     flash_attention_fwd.launches = 0
-    return worst, timings
+    return worst["flash"], timings
 
 
-def _decode_inputs(gen, lens, max_pages, page=16, shuffle=False):
+def _decode_inputs(gen, lens, max_pages, page=16, shuffle=False, hq=32,
+                   dtype=torch.bfloat16):
     """A fused pool holding len_b tokens per sequence; tables -1 past the
     used pages; page 0 scratch filled with garbage."""
     from aule_tpu_torch.ops.paged_fused import fused_pool_shape
@@ -164,7 +215,7 @@ def _decode_inputs(gen, lens, max_pages, page=16, shuffle=False):
     batch = len(lens)
     used = [-(-n // page) for n in lens]
     num_pages = 1 + sum(used)
-    pool = _randn(fused_pool_shape(num_pages, 8, page, 128), gen)
+    pool = _randn(fused_pool_shape(num_pages, 8, page, 128), gen, dtype)
     pool[0] = 1e4
     ids = np.arange(1, num_pages)
     if shuffle:
@@ -174,17 +225,41 @@ def _decode_inputs(gen, lens, max_pages, page=16, shuffle=False):
     for b, n in enumerate(used):
         bt[b, :n] = ids[at:at + n]
         at += n
-    q = _randn((batch, 32, 128), gen)
+    q = _randn((batch, hq, 128), gen, dtype)
     return (q, pool, torch.from_numpy(bt).cuda(),
             torch.tensor(lens, dtype=torch.int32, device="cuda"))
 
 
+def quantize_pool(pool, dtype, scale_dtype=torch.bfloat16):
+    """A bf16 fused pool as (payload pool, packed scale tile), quantized
+    per token by the port's quantize_kv."""
+    from aule_tpu_torch.ops.paged_fused import pack_fused_scales
+    from aule_tpu_torch.ops.quant import quantize_kv
+
+    payload, sc = quantize_kv(pool, dtype)          # sc [P, 2, Hkv, page]
+    return payload, pack_fused_scales(sc[:, 0].transpose(0, 1),
+                                      sc[:, 1].transpose(0, 1),
+                                      dtype=scale_dtype)
+
+
+def _tol(dtype, int8_dot=False):
+    return ROW_TOL[dtype] + (INT8_DOT_EXTRA if int8_dot else 0.0)
+
+
 def check_decode(gen):
-    from aule_tpu_torch.ops.paged_fused import (paged_attention_fused,
+    """The paged-decode kernel over bf16, int8 (dot-product and exact
+    paths) and fp8 pools on four cases, each against its plain version;
+    times of the bf16, int8 (dot products) and fp8 modes at B8 ctx4096.
+    Returns the worst errors per mode and the times."""
+    from aule_tpu_torch.ops.paged_fused import (dequantize_pool,
+                                                paged_attention_fused,
                                                 paged_attention_fused_plain)
     from aule_tpu_torch.utils import profiling
 
-    worst = 0.0
+    modes = [  # (mode, payload dtype or None for bf16, int8_matmul)
+        ("bf16", None, None), ("int8 dot", torch.int8, True),
+        ("int8 exact", torch.int8, False),
+        ("fp8", torch.float8_e4m3fn, None)]
     cases = [  # (label, lens, shuffle, window)
         ("B8 ctx4096 contiguous", [4096] * 8, False, -1),
         ("mixed 0/1/17/4096 with -1 entries",
@@ -194,47 +269,221 @@ def check_decode(gen):
         ("trailing window 1001", [0, 1, 17, 4096, 4095, 100, 2000, 3000],
          True, 1001),
     ]
+    worst = {}
     for label, lens, shuffle, window in cases:
         q, pool, bt, ln = _decode_inputs(gen, lens, 272, shuffle=shuffle)
-        o, lse = paged_attention_fused(q, pool, bt, ln, window_size=window,
-                                       return_lse=True)
-        po, plse = paged_attention_fused_plain(q, pool, bt, ln,
-                                               window_size=window,
-                                               return_lse=True)
-        torch.cuda.synchronize()
-        e_o, e_l = _err(o, po), _err(lse, plse)
-        ok = e_o <= TOL and e_l <= TOL and bool(torch.isfinite(o).all())
-        log(f"paged decode {label}: max|out-plain| {e_o:.3e} "
-            f"max|lse-plain| {e_l:.3e} {'ok' if ok else 'FAIL'}")
-        if not ok:
-            raise AssertionError(f"paged decode kernel disagrees: {label}")
-        worst = max(worst, e_o, e_l)
+        for mode, dt, dot in modes:
+            pl, sc = (pool, None) if dt is None else quantize_pool(pool, dt)
+            kw = dict(kv_scales=sc, window_size=window, int8_matmul=dot,
+                      return_lse=True)
+            o, lse = paged_attention_fused(q, pl, bt, ln, **kw)
+            po, plse = paged_attention_fused_plain(q, pl, bt, ln, **kw)
+            hold(f"paged decode {mode} {label}", o, po, lse, plse,
+                 _tol(q.dtype, bool(dot)), worst, mode)
 
     lens = [4096] * 8
     q, pool, bt, ln = _decode_inputs(gen, lens, 272)
-    # the dense yardstick: the same K/V gathered, GQA expanded, one SDPA
-    kd = pool[1:, 0].reshape(8, 256, 8, 16, 128).permute(0, 2, 1, 3, 4)
-    vd = pool[1:, 1].reshape(8, 256, 8, 16, 128).permute(0, 2, 1, 3, 4)
-    kd = kd.reshape(8, 8, 4096, 128).repeat_interleave(4, dim=1)
-    vd = vd.reshape(8, 8, 4096, 128).repeat_interleave(4, dim=1)
-    ms = profiling.cuda_time_ms(
-        lambda: paged_attention_fused(q, pool, bt, ln), iters=20)
-    plain = profiling.cuda_time_ms(
-        lambda: paged_attention_fused_plain(q, pool, bt, ln), iters=20)
-    lib = profiling.cuda_time_ms(lambda: F.scaled_dot_product_attention(
-        q[:, :, None], kd, vd), iters=20)
-    kv_bytes = sum(lens) * 8 * 128 * 2 * 2
-    nbytes = kv_bytes + 2 * q.numel() * 2 + 8 * 272 * 4 + 8 * 4
     flops = 4.0 * 8 * 32 * 4096 * 128
-    bound, by = profiling.bound_ms(nbytes, flops)
-    log(f"paged decode time B8 ctx4096 page16 Hq32/Hkv8 bf16: kernel "
-        f"{ms[0]:.4f} ms (min {ms[1]:.4f} max {ms[2]:.4f}), "
-        f"{kv_bytes / ms[0] / 1e6:.1f} GB/s of live KV; plain "
-        f"{plain[0]:.4f} ms; sdpa on gathered K/V {lib[0]:.4f} ms; bound "
-        f"{bound:.4f} ms ({by})")
+    timings = {}
+    for name, dt in (("bf16", None), ("int8 dot", torch.int8),
+                     ("fp8", torch.float8_e4m3fn)):
+        if dt is None:
+            pl, sc = pool, None
+            kh, vh = pool[1:, 0].transpose(0, 1), pool[1:, 1].transpose(0, 1)
+            kv_bytes = profiling.paged_kv_bytes(sum(lens), 8, 128, 2)
+        else:
+            pl, sc = quantize_pool(pool, dt)
+            kh, vh = dequantize_pool(pl[1:], sc[1:])
+            kv_bytes = profiling.paged_kv_bytes(sum(lens), 8, 128, 1,
+                                                scale_bytes=2)
+        # the dense yardstick: the same K/V gathered (dequantized) to bf16
+        # [Hkv, P, page, D] -> [B, Hq, 4096, D], GQA expanded, one SDPA
+        kd, vd = (x.reshape(8, 8, 4096, 128).transpose(0, 1).to(
+            torch.bfloat16).repeat_interleave(4, dim=1) for x in (kh, vh))
+        ms = profiling.cuda_time_ms(lambda: paged_attention_fused(
+            q, pl, bt, ln, kv_scales=sc), iters=20)
+        plain = profiling.cuda_time_ms(lambda: paged_attention_fused_plain(
+            q, pl, bt, ln, kv_scales=sc), iters=20)
+        lib = profiling.cuda_time_ms(lambda: F.scaled_dot_product_attention(
+            q[:, :, None], kd, vd), iters=20)
+        nbytes = kv_bytes + 2 * q.numel() * 2 + 8 * 272 * 4 + 8 * 4
+        bound, by = profiling.bound_ms(nbytes, flops)
+        timings[name] = dict(ms=ms[0], plain_ms=plain[0], library_ms=lib[0],
+                             bound_ms=bound, bound_by=by)
+        log(f"paged decode time {name} B8 ctx4096 page16 Hq32/Hkv8"
+            f"{'' if dt is None else ' (bf16 scales)'}: kernel {ms[0]:.4f} "
+            f"ms (min {ms[1]:.4f} max {ms[2]:.4f}), "
+            f"{kv_bytes / ms[0] / 1e6:.1f} GB/s of live KV; plain "
+            f"{plain[0]:.4f} ms; sdpa on the gathered K/V {lib[0]:.4f} ms; "
+            f"bound {bound:.4f} ms ({by})")
+        del kd, vd, kh, vh
     paged_attention_fused.launches = 0
-    return worst, dict(ms=ms[0], plain_ms=plain[0], library_ms=lib[0],
-                       bound_ms=bound, bound_by=by)
+    return worst, timings
+
+
+def _prefill_inputs(gen, hist, chunk, s_pad, max_pages=272, shuffle=True,
+                    dtype=torch.bfloat16, hq=32):
+    """A bf16 fused pool holding hist[b] + chunk[b] tokens per sequence
+    (random K/V), chunk queries [B, 32, s_pad, 128], tables with shuffled
+    page ids and -1 tails, page 0 scratch filled with garbage."""
+    from aule_tpu_torch.ops.paged_fused import fused_pool_shape
+
+    total = [h + c for h, c in zip(hist, chunk)]
+    used = [-(-n // 16) for n in total]
+    num_pages = 1 + sum(used)
+    pool = _randn(fused_pool_shape(num_pages, 8, 16, 128), gen, dtype)
+    pool[0] = 1e4
+    ids = np.arange(1, num_pages)
+    if shuffle:
+        ids = np.random.default_rng(SEED).permutation(ids)
+    bt = np.full((len(hist), max_pages), -1, np.int32)
+    at = 0
+    for b, n in enumerate(used):
+        bt[b, :n] = ids[at:at + n]
+        at += n
+    q = _randn((len(hist), hq, s_pad, 128), gen, dtype)
+    dev = "cuda"
+    return (q, pool, torch.from_numpy(bt).to(dev),
+            torch.tensor(total, dtype=torch.int32, device=dev),
+            torch.tensor(hist, dtype=torch.int32, device=dev))
+
+
+def check_prefill(gen):
+    """The paged-prefill kernel against its plain version on bf16, f16,
+    int8 and fp8 pools; its time in each pool mode at the engine's chunk
+    case.  Returns the worst errors per mode and the times."""
+    from aule_tpu_torch.config import DEFAULT_MASK_VALUE
+    from aule_tpu_torch.ops.paged_fused import dequantize_pool
+    from aule_tpu_torch.ops.paged_prefill import (
+        paged_attention_prefill, paged_attention_prefill_plain)
+    from aule_tpu_torch.utils import profiling
+
+    cases = [  # (label, hist, chunk, s_pad, window, pool kinds)
+        ("chunk 512 at q_offset 3488 over 4000", [3488], [512], 512, -1,
+         ("bf16", "int8", "fp8")),
+        ("chunk 512 at 3488, window 256", [3488], [512], 512, 256,
+         ("bf16", "int8", "fp8")),
+        ("ragged B4 with rows past context_lens", [1000, 0, 2500, 63],
+         [200, 130, 1, 77], 200, -1, ("bf16", "int8", "fp8", "f16",
+                                      "int8 f32-scales")),
+        ("first chunk, S 300", [0], [300], 300, -1, ("bf16",)),
+    ]
+    worst = {}
+    for label, hist, chunk, s_pad, window, kinds in cases:
+        for kind in kinds:
+            dt = torch.float16 if kind == "f16" else torch.bfloat16
+            q, pool, bt, ln, qoff = _prefill_inputs(gen, hist, chunk, s_pad,
+                                                    dtype=dt)
+            sc = None
+            if kind.startswith("int8") or kind == "fp8":
+                qdt = torch.int8 if kind.startswith("int8") \
+                    else torch.float8_e4m3fn
+                sdt = torch.float32 if "f32" in kind else torch.bfloat16
+                pool, sc = quantize_pool(pool, qdt, sdt)
+            kw = dict(q_offsets=qoff, kv_scales=sc, window_size=window,
+                      return_lse=True)
+            o, lse = paged_attention_prefill(q, pool, bt, ln, **kw)
+            po, plse = paged_attention_prefill_plain(q, pool, bt, ln, **kw)
+            what = f"paged prefill {kind} {label}"
+            for b, n in enumerate(chunk):  # padding rows: exact zeros
+                if not (bool((o[b, :, n:] == 0).all()) and bool(
+                        (lse[b, :, n:] == DEFAULT_MASK_VALUE).all())):
+                    raise AssertionError(f"{what}: padding rows of sequence "
+                                         f"{b} are not zeros")
+            hold(what, o, po, lse, plse, ROW_TOL[dt], worst,
+                 "bf16" if kind == "f16" else kind.split()[0])
+
+    q, pool, bt, ln, qoff = _prefill_inputs(gen, [3488], [512], 512,
+                                            shuffle=False)
+    mask = (torch.arange(4000, device="cuda")[None, :]
+            <= 3488 + torch.arange(512, device="cuda")[:, None])
+    flops = profiling.paged_prefill_flops([3488], [512], 32, 128)
+    timings = {}
+    for name, dt in (("bf16", None), ("int8", torch.int8),
+                     ("fp8", torch.float8_e4m3fn)):
+        # the sequence's 4000 tokens sit on pages 1..250 in order
+        if dt is None:
+            pl, sc = pool, None
+            kh, vh = (pool[1:251, i].transpose(0, 1) for i in (0, 1))
+            kv_bytes = profiling.paged_kv_bytes(4000, 8, 128, 2)
+        else:
+            pl, sc = quantize_pool(pool, dt)
+            kh, vh = dequantize_pool(pl[1:251], sc[1:251])
+            kv_bytes = profiling.paged_kv_bytes(4000, 8, 128, 1,
+                                                scale_bytes=2)
+        # the dense yardstick: the sequence's K/V gathered (dequantized) to
+        # one dense bf16 tensor, GQA expanded, one SDPA with an explicit
+        # positional causal mask
+        kd, vd = (x.reshape(1, 8, 4000, 128).to(
+            torch.bfloat16).repeat_interleave(4, dim=1) for x in (kh, vh))
+        kw = dict(q_offsets=qoff, kv_scales=sc)
+        ms = profiling.cuda_time_ms(lambda: paged_attention_prefill(
+            q, pl, bt, ln, **kw), iters=20)
+        plain = profiling.cuda_time_ms(
+            lambda: paged_attention_prefill_plain(q, pl, bt, ln, **kw),
+            iters=20)
+        lib = profiling.cuda_time_ms(lambda: F.scaled_dot_product_attention(
+            q, kd, vd, attn_mask=mask), iters=20)
+        nbytes = 2 * q.numel() * 2 + kv_bytes + 272 * 4 + 3 * 4
+        bound, by = profiling.bound_ms(nbytes, flops)
+        timings[name] = dict(ms=ms[0], plain_ms=plain[0], library_ms=lib[0],
+                             bound_ms=bound, bound_by=by)
+        log(f"paged prefill time {name} pool, chunk 512 at 3488 over 4000, "
+            f"Hq32/Hkv8 D128 page16: kernel {ms[0]:.4f} ms (min "
+            f"{ms[1]:.4f} max {ms[2]:.4f}), {flops / ms[0] / 1e9:.1f} "
+            f"TFLOP/s; plain {plain[0]:.4f} ms; sdpa on the gathered K/V "
+            f"with a positional mask {lib[0]:.4f} ms; bound {bound:.4f} ms "
+            f"({by})")
+        del kd, vd, kh, vh
+    paged_attention_prefill.launches = 0
+    return worst, timings
+
+
+def check_groups(gen, decode_worst, prefill_worst):
+    """Both paged kernels at GQA groups 1, 2 and 8 (Hkv 8; the main path's
+    group is 4) in every pool mode, and with f16 q, against their plain
+    versions; the errors join each mode's worst."""
+    from aule_tpu_torch.ops.paged_fused import (paged_attention_fused,
+                                                paged_attention_fused_plain)
+    from aule_tpu_torch.ops.paged_prefill import (
+        paged_attention_prefill, paged_attention_prefill_plain)
+
+    kinds = [  # (label, q and pool dtype, payload dtype, int8_matmul,
+        #         decode mode, prefill mode)
+        ("bf16", torch.bfloat16, None, None, "bf16", "bf16"),
+        ("int8 dot", torch.bfloat16, torch.int8, True, "int8 dot", "int8"),
+        ("int8 exact", torch.bfloat16, torch.int8, False, "int8 exact",
+         "int8"),
+        ("fp8", torch.bfloat16, torch.float8_e4m3fn, None, "fp8", "fp8"),
+        ("f16 q, f16 pool", torch.float16, None, None, "bf16", "bf16"),
+        ("f16 q, int8 dot", torch.float16, torch.int8, True, "int8 dot",
+         "int8"),
+        ("f16 q, fp8", torch.float16, torch.float8_e4m3fn, None, "fp8",
+         "fp8")]
+    for hq in (8, 16, 64):
+        for label, dt, qdt, dot, dmode, pmode in kinds:
+            q, pool, bt, ln = _decode_inputs(gen, [0, 1, 17, 600, 333], 48,
+                                             shuffle=True, hq=hq, dtype=dt)
+            q2, pool2, bt2, ln2, qoff = _prefill_inputs(
+                gen, [300, 0], [100, 37], 100, max_pages=48, dtype=dt, hq=hq)
+            sc = sc2 = None
+            if qdt is not None:
+                pool, sc = quantize_pool(pool, qdt)
+                pool2, sc2 = quantize_pool(pool2, qdt)
+            kw = dict(kv_scales=sc, int8_matmul=dot, return_lse=True)
+            o, lse = paged_attention_fused(q, pool, bt, ln, **kw)
+            po, plse = paged_attention_fused_plain(q, pool, bt, ln, **kw)
+            hold(f"group {hq // 8} {label}: decode", o, po, lse, plse,
+                 _tol(dt, bool(dot)), decode_worst, dmode)
+            kw = dict(q_offsets=qoff, kv_scales=sc2, window_size=64,
+                      return_lse=True)
+            o, lse = paged_attention_prefill(q2, pool2, bt2, ln2, **kw)
+            po, plse = paged_attention_prefill_plain(q2, pool2, bt2, ln2,
+                                                     **kw)
+            hold(f"group {hq // 8} {label}: prefill (window 64)", o, po, lse,
+                 plse, ROW_TOL[dt], prefill_worst, pmode)
+    paged_attention_fused.launches = 0
+    paged_attention_prefill.launches = 0
 
 
 PROMPT_LENS = [7, 64, 129, 300, 511, 700, 1000, 1024, 1500, 2048, 3000,
@@ -242,102 +491,250 @@ PROMPT_LENS = [7, 64, 129, 300, 511, 700, 1000, 1024, 1500, 2048, 3000,
 NEW_TOKENS = 24
 
 
-def phase_engine():
-    from aule_tpu_torch.models import llama
-    from aule_tpu_torch.ops.flash import (flash_attention_fwd,
-                                          flash_attention_fwd_plain)
+ENGINE_KW = dict(max_batch=8, page_size=16, num_pages=2100,
+                 max_pages_per_seq=272, max_seq_len=4352, decode_steps=8)
+CHUNK = 512
+
+
+def _launch_counters():
+    from aule_tpu_torch.ops.flash import flash_attention_fwd
     from aule_tpu_torch.ops.paged_fused import paged_attention_fused
+    from aule_tpu_torch.ops.paged_prefill import paged_attention_prefill
+
+    return {"flash_fwd": flash_attention_fwd,
+            "paged_decode": paged_attention_fused,
+            "paged_prefill": paged_attention_prefill}
+
+
+def run_engine(params, cfg, prompts, label, **kw):
+    """Serve the prompts through a fresh ServingEngine; the launch counts
+    are set to 0 just before the run and read just after.  Checks that
+    every request finished, that the launches match the dispatches
+    (chunked prefill launches the paged-prefill kernel once per layer per
+    chunk and the flash kernel never) and that every page came back."""
     from aule_tpu_torch.serving.engine import ServingEngine
 
-    cfg = llama.LlamaConfig.llama3_8b()
-    t0 = time.perf_counter()
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(SEED)
-    params = llama.init_params(cfg, gen)
-    torch.cuda.synchronize()
-    n_params = sum(t.numel() for t in llama._tensors(params))
-    log(f"engine: Llama-3-8B dim {cfg.dim} layers {cfg.n_layers} heads "
-        f"{cfg.n_heads}/{cfg.n_kv_heads} hidden {cfg.hidden_dim} vocab "
-        f"{cfg.vocab_size} bf16: {n_params / 1e9:.3f} B params, init "
-        f"{time.perf_counter() - t0:.1f} s")
-    eng = ServingEngine(params, cfg, max_batch=8, page_size=16,
-                        num_pages=2100, max_pages_per_seq=272,
-                        max_seq_len=4352, decode_steps=8)
-    log(f"engine: pool {tuple(eng.kv_pages.shape)} "
-        f"{eng.kv_pages.numel() * 2 / 2**30:.2f} GiB; memory allocated "
-        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
-    rng = np.random.default_rng(SEED)
-    prompts = [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32)
-               for n in PROMPT_LENS]
+    eng = ServingEngine(params, cfg, device=DEV, **ENGINE_KW, **kw)
+    pool_gib = (eng.kv_pages.numel() * eng.kv_pages.element_size()
+                + (0 if eng.kv_scales is None else
+                   eng.kv_scales.numel() * 2)) / 2**30
     for p in prompts:
         eng.submit(p, NEW_TOKENS)
-
-    flash_attention_fwd.launches = 0
-    paged_attention_fused.launches = 0
+    counters = _launch_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
     t0 = time.perf_counter()
     done = eng.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"flash_fwd": flash_attention_fwd.launches,
-                "paged_decode": paged_attention_fused.launches}
+    launches = {name: fn.launches for name, fn in counters.items()}
     st = eng.stats()
-    decode_tokens = st["tokens_generated"] - st["prefill_dispatches"]
-    log(f"engine: {len(done)} requests in {wall:.2f} s; prefill "
+    n_req = len(prompts)
+    decode_tokens = st["tokens_generated"] - n_req
+    log(f"engine {label}: pool {eng.kv_pages.dtype} {pool_gib:.2f} GiB "
+        f"with scales; {len(done)} requests in {wall:.2f} s; prefill "
         f"{st['prefill_seconds']:.3f} s over {st['prefill_dispatches']} "
         f"dispatches ({sum(PROMPT_LENS)} prompt tokens, "
         f"{sum(PROMPT_LENS) / st['prefill_seconds']:.0f} tok/s); decode "
         f"{st['decode_seconds']:.3f} s, {st['decode_steps']} steps in "
         f"{st['decode_dispatches']} dispatches, {decode_tokens} tokens, "
         f"{decode_tokens / st['decode_seconds']:.1f} tok/s")
-    log(f"engine: launches {launches}")
-    if len(done) != len(prompts) or any(
-            len(r.output) != NEW_TOKENS for r in done):
-        raise AssertionError("not every request finished with "
+    log(f"engine {label}: launches {launches}")
+    if len(done) != n_req or any(len(r.output) != NEW_TOKENS for r in done):
+        raise AssertionError(f"{label}: not every request finished with "
                              f"{NEW_TOKENS} tokens")
-    if launches["flash_fwd"] != st["prefill_dispatches"] * cfg.n_layers:
-        raise AssertionError(f"flash launches {launches['flash_fwd']} != "
-                             f"prefill dispatches x {cfg.n_layers}")
-    if launches["paged_decode"] != st["decode_steps"] * cfg.n_layers:
-        raise AssertionError(f"paged-decode launches "
-                             f"{launches['paged_decode']} != decode steps "
-                             f"x {cfg.n_layers}")
-    if st["free_pages"] != 2100 - 1:
-        raise AssertionError(f"pages leaked: {st['free_pages']} free")
+    layers = cfg.n_layers
+    chunked = kw.get("prefill_chunk") is not None
+    want = {"flash_fwd": 0 if chunked else st["prefill_dispatches"] * layers,
+            "paged_prefill": (st["prefill_dispatches"] * layers if chunked
+                              else 0),
+            "paged_decode": st["decode_steps"] * layers}
+    if chunked and st["prefill_dispatches"] != sum(
+            -(-n // kw["prefill_chunk"]) for n in PROMPT_LENS):
+        raise AssertionError(f"{label}: {st['prefill_dispatches']} prefill "
+                             f"dispatches for chunks of "
+                             f"{kw['prefill_chunk']}")
+    if launches != want:
+        raise AssertionError(f"{label}: launches {launches} != dispatches "
+                             f"x {layers} layers {want}")
+    if st["free_pages"] != ENGINE_KW["num_pages"] - 1:
+        raise AssertionError(f"{label}: pages leaked: {st['free_pages']} "
+                             f"free")
+    outputs = [list(r.output) for r in done]
+    del eng, done
+    torch.cuda.empty_cache()
+    return outputs, launches
 
-    # teacher-forced plain forward over prompt + output
-    exact = ties = 0
-    worst_gap = 0.0
+
+class _Agreement:
+    """Teacher-forced agreement of emitted tokens with reference logits:
+    each token is the reference argmax, or within NEAR_TIE of its max."""
+
+    def __init__(self, label):
+        self.label, self.exact, self.ties, self.gap = label, 0, 0, 0.0
+
+    def add(self, rows, chosen, where):
+        best = rows.max(dim=-1)
+        gap = best.values - rows.gather(1, chosen[:, None])[:, 0]
+        is_exact = best.indices == chosen
+        self.exact += int(is_exact.sum())
+        self.ties += int(((~is_exact) & (gap <= NEAR_TIE)).sum())
+        self.gap = max(self.gap, float(gap.max()))
+        if bool(((~is_exact) & (gap > NEAR_TIE)).any()):
+            raise AssertionError(
+                f"{self.label} {where}: engine token is "
+                f"{float(gap.max()):.4f} below the reference max, over the "
+                f"near-tie allowance {NEAR_TIE}")
+
+    def report(self, what):
+        log(f"engine {self.label}: {what} agrees on "
+            f"{self.exact + self.ties} tokens: {self.exact} exact argmax, "
+            f"{self.ties} near-ties (largest gap {self.gap:.4f} <= "
+            f"{NEAR_TIE})")
+
+
+def check_plain_forward(params, cfg, prompts, outputs, label):
+    """Teacher-forced plain forward (flash's plain version) over prompt +
+    output: the check of the bf16 runs."""
+    from aule_tpu_torch.models import llama
+    from aule_tpu_torch.ops.flash import flash_attention_fwd_plain
+
+    agree = _Agreement(label)
     with torch.no_grad():
-        for p, r in zip(prompts, done):
-            seq = np.concatenate([p, np.asarray(r.output[:-1], np.int32)])
-            tokens = torch.from_numpy(seq.astype(np.int64))[None].cuda()
+        for i, (p, out) in enumerate(zip(prompts, outputs)):
+            seq = np.concatenate([p, np.asarray(out[:-1], np.int32)])
+            tokens = torch.from_numpy(seq.astype(np.int64))[None].to(DEV)
             logits = llama.forward(params, tokens, cfg,
                                    attention=flash_attention_fwd_plain)[0]
-            rows = logits[len(p) - 1:]
-            chosen = torch.tensor(r.output, device="cuda")
-            best = rows.max(dim=-1)
-            got = rows.gather(1, chosen[:, None])[:, 0]
-            gap = (best.values - got)
-            is_exact = best.indices == chosen
-            exact += int(is_exact.sum())
-            near = (~is_exact) & (gap <= NEAR_TIE)
-            ties += int(near.sum())
-            worst_gap = max(worst_gap, float(gap.max()))
-            if bool(((~is_exact) & (gap > NEAR_TIE)).any()):
-                raise AssertionError(
-                    f"request {r.req_id} (prompt {len(p)}): engine token "
-                    f"is {float(gap.max()):.4f} below the plain max, over "
-                    f"the near-tie allowance {NEAR_TIE}")
+            agree.add(logits[len(p) - 1:], torch.tensor(out, device=DEV),
+                      f"request {i} (prompt {len(p)})")
             del logits
-    total = len(done) * NEW_TOKENS
-    log(f"engine: teacher-forced plain forward agrees on {total} tokens: "
-        f"{exact} exact argmax, {ties} bf16 near-ties (largest gap "
-        f"{worst_gap:.4f} <= {NEAR_TIE})")
-    return launches, params, cfg
+    agree.report("teacher-forced plain forward")
+
+
+def check_replay(params, cfg, prompts, outputs, label, quant_dtype, chunk):
+    """Teacher-forced replay of a quantized run's steps with the plain
+    attention versions: each prompt is prefilled alone into fresh pools
+    written the same way (chunked through prefill_step_fused, or a whole
+    forward plus the quantized append), then all requests decode together
+    through decode_step_fused, fed the engine's tokens."""
+    from aule_tpu_torch.models import llama
+    from aule_tpu_torch.ops.flash import flash_attention_fwd_plain
+    from aule_tpu_torch.ops.paged_fused import (
+        fused_pool_shape, fused_scales_shape, kv_cache_append_prefill_fused,
+        paged_attention_fused_plain)
+    from aule_tpu_torch.ops.paged_prefill import (
+        paged_attention_prefill_plain)
+    from aule_tpu_torch.ops.rope import precompute_rope_frequencies
+
+    dev = DEV
+    page = ENGINE_KW["page_size"]
+    need = [-(-(len(p) + NEW_TOKENS) // page) for p in prompts]
+    num_pages = 1 + sum(need)
+    pools = torch.zeros((cfg.n_layers,) + fused_pool_shape(
+        num_pages, cfg.n_kv_heads, page, cfg.head_dim), dtype=quant_dtype,
+        device=dev)
+    scales = torch.zeros((cfg.n_layers,) + fused_scales_shape(
+        num_pages, cfg.n_kv_heads, page), dtype=torch.bfloat16, device=dev)
+    bt_np = np.full((len(prompts), ENGINE_KW["max_pages_per_seq"]), -1,
+                    np.int32)
+    at = 1
+    for i, n in enumerate(need):
+        bt_np[i, :n] = np.arange(at, at + n)
+        at += n
+    bt = torch.from_numpy(bt_np).to(dev)
+    cos, sin = precompute_rope_frequencies(
+        ENGINE_KW["max_seq_len"], cfg.head_dim, cfg.rope_base, device=dev)
+    out_t = torch.tensor(outputs, device=dev)          # [R, NEW_TOKENS]
+    agree = _Agreement(label)
+
+    def one(x):
+        return torch.tensor([x], dtype=torch.int32, device=dev)
+
+    with torch.no_grad():
+        for i, p in enumerate(prompts):
+            tokens = torch.from_numpy(p.astype(np.int64))[None].to(dev)
+            n = len(p)
+            if chunk:
+                for off in range(0, n, chunk):
+                    part = tokens[:, off:off + chunk]
+                    logits = llama.prefill_step_fused(
+                        params, part, one(off), one(part.shape[1]), pools,
+                        bt[i:i + 1], cfg, cos, sin, scales,
+                        attention=paged_attention_prefill_plain)[0][0]
+            else:
+                full, kv = llama.forward(
+                    params, tokens, cfg, rope_cos=cos, rope_sin=sin,
+                    return_kv=True, attention=flash_attention_fwd_plain)
+                for li, (k, v) in enumerate(kv):
+                    kv_cache_append_prefill_fused(
+                        pools[li], k, v, bt[i:i + 1], one(0), one(n),
+                        kv_scales=scales[li])
+                logits = full[0, n - 1]
+                del full, kv
+            agree.add(logits[None], out_t[i, :1], f"request {i} prefill")
+        lens = torch.tensor([len(p) for p in prompts], dtype=torch.int32,
+                            device=dev)
+        for t in range(NEW_TOKENS - 1):
+            logits = llama.decode_step_fused(
+                params, out_t[:, t], lens, pools, bt, lens, cfg, cos, sin,
+                scales, attention=paged_attention_fused_plain)[0]
+            agree.add(logits, out_t[:, t + 1], f"decode step {t}")
+            lens = lens + 1
+    agree.report("teacher-forced replay with the plain attention versions")
+    del pools, scales
+    torch.cuda.empty_cache()
+
+
+def phase_engine():
+    """Five engine runs of the 12 prompts on a full-width, full-depth
+    Llama-3-8B: bf16 whole-prompt, (a) bf16 chunked, (b) int8
+    chunked, (c) fp8 whole-prompt, (d) fp8 chunked."""
+    from aule_tpu_torch.models import llama
+
+    cfg = llama.LlamaConfig.llama3_8b()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(SEED)
+    params = llama.init_params(cfg, gen, device=DEV)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in llama._tensors(params))
+    log(f"engine: Llama-3-8B dim {cfg.dim} layers {cfg.n_layers} heads "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} hidden {cfg.hidden_dim} vocab "
+        f"{cfg.vocab_size} bf16: {n_params / 1e9:.3f} B params, init "
+        f"{time.perf_counter() - t0:.1f} s; memory allocated "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32)
+               for n in PROMPT_LENS]
+    runs = {}
+
+    out, runs["whole bf16"] = run_engine(params, cfg, prompts, "whole bf16")
+    check_plain_forward(params, cfg, prompts, out, "whole bf16")
+
+    out_a, runs["a"] = run_engine(params, cfg, prompts,
+                                  "(a) bf16 chunk 512", prefill_chunk=CHUNK)
+    check_plain_forward(params, cfg, prompts, out_a, "(a) bf16 chunk 512")
+
+    for key, label, dt, chunk in (
+            ("b", "(b) int8 chunk 512", torch.int8, CHUNK),
+            ("c", "(c) fp8 whole-prompt", torch.float8_e4m3fn, None),
+            ("d", "(d) fp8 chunk 512", torch.float8_e4m3fn, CHUNK)):
+        out_q, runs[key] = run_engine(params, cfg, prompts, label,
+                                      quantized=True, quant_dtype=dt,
+                                      prefill_chunk=chunk)
+        check_replay(params, cfg, prompts, out_q, label, dt, chunk)
+        same = sum(x == y for o, oa in zip(out_q, out_a)
+                   for x, y in zip(o, oa))
+        log(f"engine {label}: {same} of {len(prompts) * NEW_TOKENS} tokens "
+            f"equal run (a)'s (for information)")
+    return runs, params, cfg
 
 
 CATEGORIES = {"flash_fwd": ["flash_fwd_kernel"],
               "paged_decode": ["paged_decode_kernel"],
+              "paged_prefill": ["paged_prefill_kernel"],
               "gemm": ["gemm", "nvjet", "cutlass", "xmma"],
               "copy": ["memcpy", "memset"]}
 
@@ -357,24 +754,42 @@ def _log_breakdown(label: str, bd: dict) -> None:
 
 
 def phase_breakdown(params, cfg) -> None:
-    """Where the engine's time goes on the card: one prefill step and one
-    8-step decode dispatch at B8, each under torch.profiler."""
+    """Where the engine's time goes on the card: a prefill step of one
+    2048-token prompt and one 8-step decode dispatch at B8, each under
+    torch.profiler, for bf16 pools with whole-prompt prefill and for int8
+    and fp8 pools with prefill_chunk=512 (that step is four chunks)."""
     from aule_tpu_torch.serving.engine import ServingEngine
     from aule_tpu_torch.utils import profiling
 
-    eng = ServingEngine(params, cfg, max_batch=8, page_size=16,
-                        num_pages=1200, max_pages_per_seq=272,
-                        max_seq_len=4352, decode_steps=8)
-    rng = np.random.default_rng(SEED + 1)
-    eng.submit(rng.integers(0, cfg.vocab_size, size=2048), 1)
-    _log_breakdown("prefill S2048 (one engine step)",
-                   profiling.device_breakdown(eng.step, CATEGORIES))
-    eng.run()
-    for _ in range(8):
-        eng.submit(rng.integers(0, cfg.vocab_size, size=1024), 17)
-    eng.step()  # admits and prefills all 8, then a first 8-step dispatch
-    _log_breakdown("decode B8 ctx~1040, 8 steps (one dispatch)",
-                   profiling.device_breakdown(eng.run, CATEGORIES))
+    for label, kw in (("bf16", {}),
+                      ("int8 chunk 512", dict(quantized=True,
+                                              prefill_chunk=CHUNK)),
+                      ("fp8 chunk 512", dict(
+                          quantized=True, quant_dtype=torch.float8_e4m3fn,
+                          prefill_chunk=CHUNK))):
+        eng = ServingEngine(params, cfg, max_batch=8, page_size=16,
+                            num_pages=1200, max_pages_per_seq=272,
+                            max_seq_len=4352, decode_steps=8, **kw)
+        rng = np.random.default_rng(SEED + 1)
+        eng.submit(rng.integers(0, cfg.vocab_size, size=2048), 1)
+        _log_breakdown(f"{label} prefill S2048 (one engine step)",
+                       profiling.device_breakdown(eng.step, CATEGORIES))
+        eng.run()
+        for _ in range(8):
+            eng.submit(rng.integers(0, cfg.vocab_size, size=1024), 17)
+        eng.step()  # admits and prefills all 8, then a first 8-step dispatch
+        _log_breakdown(f"{label} decode B8 ctx~1040, 8 steps (one dispatch)",
+                       profiling.device_breakdown(eng.run, CATEGORIES))
+        del eng
+        torch.cuda.empty_cache()
+
+
+def _entry(name, source, replaces, launches, err, t, shape, **extra):
+    return dict(name=name, route="cuda", source=source, replaces=replaces,
+                launches=launches, max_abs_err=err[0], max_row_rel_err=err[1],
+                max_lse_err=err[2], ms=t["ms"], plain_ms=t["plain_ms"],
+                bound_ms=t["bound_ms"], bound_by=t["bound_by"],
+                library_ms=t["library_ms"], shape=shape, **extra)
 
 
 def main() -> None:
@@ -384,31 +799,68 @@ def main() -> None:
     gen.manual_seed(SEED)
     flash_err, flash_t = check_flash(gen)
     decode_err, decode_t = check_decode(gen)
-    launches, params, cfg = phase_engine()
+    prefill_err, prefill_t = check_prefill(gen)
+    check_groups(gen, decode_err, prefill_err)
+    runs, params, cfg = phase_engine()
     phase_breakdown(params, cfg)
     del params
     log(card_line())
-    f = flash_t[2048]
-    kernels = [
-        dict(name="flash_fwd", route="cuda",
-             source="aule_tpu_torch/csrc/flash_fwd.cu",
-             replaces="aule_tpu/ops/flash.py:92 (_fwd_kernel); "
-                      "aule_tpu/ops/flash.py:638 (_mono_kernel)",
-             launches=launches["flash_fwd"], max_abs_err=flash_err,
-             ms=f["ms"], plain_ms=f["plain_ms"], bound_ms=f["bound_ms"],
-             bound_by=f["bound_by"], library_ms=f["library_ms"],
-             shape="B1 Hq32/Hkv8 S2048 D128 bf16 causal"),
-        dict(name="paged_decode", route="cuda",
-             source="aule_tpu_torch/csrc/paged_decode.cu",
-             replaces="aule_tpu/ops/paged_fused.py:213 "
-                      "(_fused_decode_kernel)",
-             launches=launches["paged_decode"], max_abs_err=decode_err,
-             ms=decode_t["ms"], plain_ms=decode_t["plain_ms"],
-             bound_ms=decode_t["bound_ms"], bound_by=decode_t["bound_by"],
-             library_ms=decode_t["library_ms"],
-             shape="B8 ctx4096 page16 Hq32/Hkv8 D128 bf16"),
-    ]
-    print(json.dumps({"kernels": kernels}), flush=True)
+
+    def launched(kernel, *keys):
+        n = {k: runs[k][kernel] for k in keys}
+        for k, count in n.items():
+            if count == 0:
+                raise AssertionError(f"{kernel} was not launched in engine "
+                                     f"run {k}")
+        return sum(n.values()), n
+
+    # One entry per kernel mode.  Each engine run uses one mode of each
+    # paged kernel (its pool's), so a mode's launches are its wrapper's
+    # counts in the runs over that pool.
+    decode_src = "aule_tpu_torch/csrc/paged_decode.cu"
+    decode_row = "aule_tpu/ops/paged_fused.py:213 (_fused_decode_kernel)"
+    prefill_src = "aule_tpu_torch/csrc/paged_prefill.cu"
+    prefill_row = "aule_tpu/ops/paged_fused.py:770 (_fused_prefill_kernel)"
+    decode_shape = "B8 ctx4096 page16 Hq32/Hkv8 D128"
+    prefill_shape = ("B1 Hq32/Hkv8 D128 page16, chunk 512 at q_offset 3488 "
+                     "over 4000")
+    entries = []
+    for name, kernel, keys, err, t, shape, src, row, extra in (
+            ("flash_fwd", "flash_fwd", ("whole bf16", "c"), flash_err,
+             flash_t[2048], "B1 Hq32/Hkv8 S2048 D128 bf16 causal",
+             "aule_tpu_torch/csrc/flash_fwd.cu",
+             "aule_tpu/ops/flash.py:92 (_fwd_kernel); "
+             "aule_tpu/ops/flash.py:638 (_mono_kernel)", {}),
+            ("paged_decode", "paged_decode", ("whole bf16", "a"),
+             decode_err["bf16"], decode_t["bf16"],
+             decode_shape + " bf16 (f16 checked too)", decode_src,
+             decode_row, {}),
+            ("paged_decode_int8", "paged_decode", ("b",),
+             decode_err["int8 dot"], decode_t["int8 dot"],
+             decode_shape + " int8 dot-product path, bf16 scales",
+             decode_src, decode_row + " int8 mode; "
+             "scripts/probe_int8_mxu.py:16 (kern)",
+             # the int8 exact path (int8_matmul=False) is checked, not
+             # launched on the main path
+             {"int8_exact_errs": decode_err["int8 exact"]}),
+            ("paged_decode_fp8", "paged_decode", ("c", "d"),
+             decode_err["fp8"], decode_t["fp8"],
+             decode_shape + " e4m3, bf16 scales", decode_src,
+             decode_row + " fp8 mode", {}),
+            ("paged_prefill", "paged_prefill", ("a",), prefill_err["bf16"],
+             prefill_t["bf16"], prefill_shape + ", bf16 pool (f16 checked "
+             "too)", prefill_src, prefill_row, {}),
+            ("paged_prefill_int8", "paged_prefill", ("b",),
+             prefill_err["int8"], prefill_t["int8"], prefill_shape +
+             ", int8 pool, bf16 scales (f32 scales checked too)",
+             prefill_src, prefill_row + " int8 mode", {}),
+            ("paged_prefill_fp8", "paged_prefill", ("d",), prefill_err["fp8"],
+             prefill_t["fp8"], prefill_shape + ", e4m3 pool, bf16 scales",
+             prefill_src, prefill_row + " fp8 mode", {})):
+        total, by_run = launched(kernel, *keys)
+        entries.append(_entry(name, src, row, total, err, t, shape,
+                              launches_by_run=by_run, **extra))
+    print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

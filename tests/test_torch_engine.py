@@ -3,10 +3,12 @@
 On the same tiny f32 params (carried across with `load_jax_params`), greedy
 decoding through the port's engine (device='cpu': the kernels' plain
 versions) is token-identical to aule_tpu's engine, with admission waiting
-for retirements and multi-step decode on.
+for retirements and multi-step decode on, with bf16/f32, int8 and fp8 pools
+and whole-prompt or chunked prefill.
 """
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -55,6 +57,75 @@ def test_greedy_token_identical_to_jax(params):
     assert st["decode_steps"] >= max(news) - 1
 
 
+QDT = {"int8": (jnp.int8, torch.int8),
+       "fp8": (jnp.float8_e4m3fn, torch.float8_e4m3fn)}
+
+
+def _engines(params, qname, chunk):
+    jp, tp = params
+    jkw = dict(KW, prefill_chunk=chunk)
+    tkw = dict(KW, prefill_chunk=chunk)
+    if qname is not None:
+        jkw.update(quantized=True, quant_dtype=QDT[qname][0])
+        tkw.update(quantized=True, quant_dtype=QDT[qname][1])
+    return JaxEngine(jp, JCFG, **jkw), ServingEngine(tp, TCFG, device="cpu",
+                                                     **tkw)
+
+
+def _chunk_prompts():
+    rng = np.random.default_rng(6)
+    return [rng.integers(0, 256, size=n).astype(np.int32)
+            for n in (23, 8, 40)]
+
+
+@pytest.mark.parametrize("qname", [None, "int8", "fp8"])
+def test_chunked_quantized_token_identical_to_jax(params, qname):
+    """prefill_chunk=8 with f32, int8 (int8 dot-product decode, the
+    default) and fp8 pools: greedy tokens identical to aule_tpu's engine
+    with the same options.  (The int8 path quantizes p over other token
+    spans than the JAX kernel; on these inputs no token differs, so no
+    near-tie allowance is used.)"""
+    jeng, teng = _engines(params, qname, 8)
+    news = (6, 9, 5)
+    for p, n in zip(_chunk_prompts(), news):
+        jeng.submit(p, n)
+        teng.submit(p, n)
+    jout = [r.output for r in jeng.run()]
+    tout = [r.output for r in teng.run()]
+    assert tout == jout
+    st = teng.stats()
+    # 23, 8 and 40 prompt tokens in chunks of 8: 3 + 1 + 5 dispatches
+    assert st["prefill_dispatches"] == 9
+    assert teng.allocator.num_free == KW["num_pages"] - 1
+    if qname is not None:
+        assert teng.kv_pages.dtype == QDT[qname][1]
+        assert tuple(teng.kv_scales.shape) == (TCFG.n_layers, 64, 16, 128)
+        assert teng.kv_scales.dtype == torch.bfloat16
+
+
+@pytest.mark.parametrize("qname", [None, "int8", "fp8"])
+def test_chunked_matches_whole_prompt(params, qname):
+    """The port's engine with prefill_chunk=8 generates the tokens it
+    generates with whole-prompt prefill (tests/test_engine_quantized.py:
+    96-117's check, on the port alone)."""
+    outs = {}
+    for chunk in (None, 8):
+        _, eng = _engines(params, qname, chunk)
+        for p in _chunk_prompts():
+            eng.submit(p, 6)
+        outs[chunk] = [r.output for r in eng.run()]
+    assert outs[None] == outs[8]
+
+
+def test_quantized_engine_bad_options(params):
+    _, tp = params
+    with pytest.raises(ValueError):
+        ServingEngine(tp, TCFG, device="cpu", quantized=True,
+                      quant_dtype=torch.float16, **KW)
+    with pytest.raises(ValueError):
+        ServingEngine(tp, TCFG, device="cpu", prefill_chunk=0, **KW)
+
+
 def test_pages_return_after_run(params):
     _, tp = params
     eng = ServingEngine(tp, TCFG, device="cpu", **KW)
@@ -85,7 +156,8 @@ def test_oversized_request_rejected(params):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(quantized=True), dict(prefill_chunk=8),
+    dict(enable_prefix_cache=True, prefill_chunk=8),
+    dict(quantized=True, spec_tokens=2),
     dict(enable_prefix_cache=True), dict(mesh=object()),
     dict(spec_tokens=2), dict(ngram_spec=2), dict(lora_params={"a": {}}),
     dict(sampler=sampling.greedy()), dict(layout="split"),

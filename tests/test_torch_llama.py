@@ -1,8 +1,10 @@
 """Llama model of the PyTorch port against the JAX package.
 
 `LlamaConfig.tiny()` in f32: the JAX params cross over with
-`load_jax_params`, and `forward` (logits and the returned rotated K / V)
-and `decode_step_fused` (logits and pools) agree with aule_tpu's at 1e-4.
+`load_jax_params`, and `forward` (logits and the returned rotated K / V),
+`decode_step_fused` and `prefill_step_fused` (logits; pools at 1e-4, or
+bytewise for quantized pools and their scale tiles) agree with aule_tpu's
+at 1e-4.
 """
 
 import jax
@@ -12,10 +14,12 @@ import pytest
 import torch
 
 from aule_tpu.models import llama as jllama
-from aule_tpu.ops.paged_fused import fused_pool_shape
+from aule_tpu.ops.paged_fused import fused_pool_shape, fused_scales_shape
 from aule_tpu.ops.rope import precompute_rope_frequencies as jrope
 from aule_tpu_torch.models import llama as tllama
 from aule_tpu_torch.ops.flash import flash_attention_fwd_plain
+from aule_tpu_torch.ops.paged_fused import paged_attention_fused_plain
+from aule_tpu_torch.ops.paged_prefill import paged_attention_prefill_plain
 from aule_tpu_torch.ops.rope import precompute_rope_frequencies as trope
 from aule_tpu_torch.utils.testing import assert_close
 
@@ -97,6 +101,162 @@ def test_decode_step_fused(params):
     for li in range(JCFG.n_layers):
         assert_close(tpools[li], np.asarray(jkv[li]), 0, ATOL, f"pool{li}")
     assert tlens.tolist() == np.asarray(jlens).tolist()
+
+
+QDTYPES = {"int8": (jnp.int8, torch.int8),
+           "fp8": (jnp.float8_e4m3fn, torch.float8_e4m3fn)}
+
+
+def _tbits(x, dtype):
+    """A JAX array as a torch tensor of `dtype`, bit for bit."""
+    a = np.asarray(x)
+    if dtype == torch.float8_e4m3fn:
+        return torch.from_numpy(a.view(np.uint8).copy()).view(dtype)
+    if dtype == torch.bfloat16:
+        return torch.from_numpy(a.view(np.uint16).copy()).view(dtype)
+    return torch.from_numpy(a.copy())
+
+
+def _same_bits(t, j):
+    a = t.contiguous().view(torch.uint8).numpy()
+    return a.tobytes() == np.asarray(j).view(np.uint8).tobytes()
+
+
+def _quant_pools(qname, num_pages=16, page=16, seed=2):
+    """Per-layer quantized pools and bf16 scale tiles with random history,
+    written by JAX's prefill append; the port gets the same bytes."""
+    from aule_tpu.ops.paged_fused import kv_cache_append_prefill_fused
+
+    jqd, tqd = QDTYPES[qname]
+    rng = np.random.default_rng(seed)
+    bt = np.array([[1, 2, -1, -1], [3, 4, 5, -1]], np.int32)
+    hist = np.array([20, 33], np.int32)
+    jk, js = [], []
+    for _ in range(JCFG.n_layers):
+        kv = jnp.zeros(fused_pool_shape(num_pages, JCFG.n_kv_heads, page,
+                                        JCFG.head_dim), jqd)
+        sc = jnp.zeros(fused_scales_shape(num_pages, JCFG.n_kv_heads, page),
+                       jnp.bfloat16)
+        k = rng.standard_normal((2, JCFG.n_kv_heads, 33, JCFG.head_dim))
+        v = rng.standard_normal(k.shape)
+        kv, sc, _ = kv_cache_append_prefill_fused(
+            kv, jnp.asarray(k, jnp.float32), jnp.asarray(v, jnp.float32),
+            jnp.asarray(bt), jnp.zeros((2,), jnp.int32), jnp.asarray(hist),
+            kv_scales=sc)
+        jk.append(kv)
+        js.append(sc)
+    tk = torch.stack([_tbits(a, tqd) for a in jk])
+    ts = torch.stack([_tbits(a, torch.bfloat16) for a in js])
+    return jk, js, tk, ts, bt, hist
+
+
+@pytest.mark.parametrize("mode", ["int8_exact", "int8_dot", "fp8"])
+def test_decode_step_fused_quantized(params, mode, monkeypatch):
+    """int8 pools on both decode paths (AULE_TPU_INT8_EXACT set in both
+    packages for the exact one) and fp8 pools.  Exact paths: logits at 1e-4
+    and every layer's appended payload and scale bytes identical.  The int8
+    dot-product path quantizes q and p per row over different token spans
+    in the two packages (ops/paged_fused.py DECODE_SPAN), so its logits
+    hold at the JAX suite's 4e-2 and only layer 0's appends (made before
+    any attention) are bytewise; later layers' inputs carry that
+    difference."""
+    import dataclasses
+
+    from aule_tpu import config as jconfig
+
+    if mode == "int8_exact":
+        monkeypatch.setenv("AULE_TPU_INT8_EXACT", "1")
+        monkeypatch.setattr(jconfig, "_config", dataclasses.replace(
+            jconfig.get_config(), int8_exact=True))
+    else:
+        monkeypatch.delenv("AULE_TPU_INT8_EXACT", raising=False)
+    jp, tp = params
+    jk, js, tk, ts, bt, lens = _quant_pools(
+        "fp8" if mode == "fp8" else "int8")
+    tok = np.array([5, 77], np.int32)
+    jc, jsn = jrope(64, JCFG.head_dim, JCFG.rope_base)
+    tc, tsn = trope(64, TCFG.head_dim, TCFG.rope_base)
+    jl, jkv, jlens, jsc = jllama.decode_step_fused(
+        jp, jnp.asarray(tok), jnp.asarray(lens), jk, jnp.asarray(bt),
+        jnp.asarray(lens), JCFG, jc, jsn, kv_scales=js)
+    tl, _, tlens, _ = tllama.decode_step_fused(
+        tp, torch.from_numpy(tok).long(), torch.from_numpy(lens).long(), tk,
+        torch.from_numpy(bt), torch.from_numpy(lens), TCFG, tc, tsn, ts)
+    dot = mode == "int8_dot"
+    assert_close(tl, np.asarray(jl), 0, 4e-2 if dot else ATOL, "logits")
+    for li in range(1 if dot else JCFG.n_layers):
+        assert _same_bits(tk[li], jkv[li]), f"pool{li}"
+        assert _same_bits(ts[li], jsc[li]), f"scales{li}"
+    assert tlens.tolist() == np.asarray(jlens).tolist()
+
+
+@pytest.mark.parametrize("qname", [None, "int8", "fp8"])
+def test_prefill_step_fused(params, qname):
+    """A ragged chunk (padding rows in sequence 1) over history: logits of
+    each sequence's last valid token, and all_logits for every row."""
+    jp, tp = params
+    if qname is None:
+        rng = np.random.default_rng(3)
+        shape = fused_pool_shape(16, JCFG.n_kv_heads, 16, JCFG.head_dim)
+        jk = [jnp.asarray(rng.standard_normal(shape) * 0.1, jnp.float32)
+              for _ in range(JCFG.n_layers)]
+        tk = torch.stack([torch.from_numpy(np.array(a)) for a in jk])
+        js = ts = None
+        bt = np.array([[1, 2, -1, -1], [3, 4, 5, -1]], np.int32)
+        hist = np.array([20, 33], np.int32)
+    else:
+        jk, js, tk, ts, bt, hist = _quant_pools(qname, seed=4)
+    tokens = np.random.default_rng(5).integers(
+        0, JCFG.vocab_size, size=(2, 12)).astype(np.int32)
+    slens = np.array([12, 7], np.int32)
+    jc, jsn = jrope(64, JCFG.head_dim, JCFG.rope_base)
+    tc, tsn = trope(64, TCFG.head_dim, TCFG.rope_base)
+    jout = jllama.prefill_step_fused(
+        jp, jnp.asarray(tokens), jnp.asarray(hist), jnp.asarray(slens), jk,
+        jnp.asarray(bt), JCFG, jc, jsn, kv_scales=js)
+    tout = tllama.prefill_step_fused(
+        tp, torch.from_numpy(tokens).long(), torch.from_numpy(hist),
+        torch.from_numpy(slens), tk, torch.from_numpy(bt), TCFG, tc, tsn, ts)
+    assert_close(tout[0], np.asarray(jout[0]), 0, ATOL, "last logits")
+    assert tout[2].tolist() == np.asarray(jout[2]).tolist()
+    for li in range(JCFG.n_layers):
+        if qname is None:
+            assert_close(tk[li], np.asarray(jout[1][li]), 0, ATOL,
+                         f"pool{li}")
+        else:
+            assert _same_bits(tk[li], jout[1][li]), f"pool{li}"
+            assert _same_bits(ts[li], jout[3][li]), f"scales{li}"
+    # all_logits, and the attention hook taking the plain version, over a
+    # fresh copy of the pools the first call started from
+    if qname is None:
+        tk2 = torch.stack([torch.from_numpy(np.array(a)) for a in jk])
+        ts2 = None
+    else:
+        _, _, tk2, ts2, _, _ = _quant_pools(qname, seed=4)
+    every = tllama.prefill_step_fused(
+        tp, torch.from_numpy(tokens).long(), torch.from_numpy(hist),
+        torch.from_numpy(slens), tk2, torch.from_numpy(bt), TCFG, tc, tsn,
+        ts2, all_logits=True, attention=paged_attention_prefill_plain)[0]
+    assert every.shape == (2, 12, TCFG.vocab_size)
+    assert torch.equal(every[0, 11], tout[0][0])
+    assert torch.equal(every[1, 6], tout[0][1])
+
+
+def test_decode_attention_hook_is_the_plain_version(params):
+    _, tp = params
+    rng = np.random.default_rng(6)
+    shape = fused_pool_shape(8, TCFG.n_kv_heads, 16, TCFG.head_dim)
+    pools = torch.from_numpy(
+        rng.standard_normal((TCFG.n_layers,) + shape).astype(np.float32))
+    bt = torch.tensor([[1, 2]], dtype=torch.int32)
+    lens = torch.tensor([20])
+    tc, tsn = trope(64, TCFG.head_dim, TCFG.rope_base)
+    a = tllama.decode_step_fused(tp, torch.tensor([3]), lens, pools.clone(),
+                                 bt, lens, TCFG, tc, tsn)[0]
+    b = tllama.decode_step_fused(tp, torch.tensor([3]), lens, pools.clone(),
+                                 bt, lens, TCFG, tc, tsn,
+                                 attention=paged_attention_fused_plain)[0]
+    assert torch.equal(a, b)
 
 
 def test_init_params_shapes_and_seed():

@@ -1,9 +1,12 @@
 """Fused paged KV pool of the PyTorch port against the JAX package.
 
-Layout helpers round-trip; the appends leave pools bytewise equal to JAX's;
-`paged_attention_fused` on CPU tensors (its plain version, the CUDA
-kernel's stand-in) matches aule_tpu's Pallas kernel in interpret mode at
-f32 2e-5 and bf16 2e-2.
+Layout helpers round-trip; the appends (plain and quantized) leave pools and
+packed scale tiles bytewise equal to JAX's; `paged_attention_fused` on CPU
+tensors (its plain version, the CUDA kernel's stand-in) matches aule_tpu's
+Pallas kernel in interpret mode at f32 2e-5 and bf16 2e-2, and on quantized
+pools at 2e-5 for the exact int8 and fp8 paths (f32 q) and 4e-2 for the
+int8 dot-product path (the JAX suite's own bound, tests/test_paged_fused.py:
+99; the two quantize p over different token spans).
 """
 
 import jax.numpy as jnp
@@ -12,7 +15,9 @@ import pytest
 import torch
 
 from aule_tpu.ops import paged_fused as jpf
+from aule_tpu.ops import quant as jq
 from aule_tpu_torch.ops import paged_fused as tpf
+from aule_tpu_torch.ops import quant as tq
 from aule_tpu_torch.utils.testing import assert_close
 
 HKV, PAGE, NUM_PAGES = 2, 16, 24
@@ -168,13 +173,225 @@ def test_pool_built_by_jax_feeds_the_port():
     assert_close(to, np.asarray(jo), 0, 2e-5, "out")
 
 
+QDTYPES = {"int8": (jnp.int8, torch.int8),
+           "fp8": (jnp.float8_e4m3fn, torch.float8_e4m3fn)}
+SDTYPES = {"bf16": (jnp.bfloat16, torch.bfloat16),
+           "f32": (jnp.float32, torch.float32)}
+
+
+def _tq(x, dtype):
+    """A JAX / numpy array of a 1- or 2-byte dtype as a torch tensor of
+    `dtype`, bit for bit."""
+    a = np.asarray(x)
+    if dtype == torch.bfloat16:
+        return torch.from_numpy(a.view(np.uint16).copy()).view(dtype)
+    if dtype == torch.float8_e4m3fn:
+        return torch.from_numpy(a.view(np.uint8).copy()).view(dtype)
+    return torch.from_numpy(a.copy())
+
+
+@pytest.mark.parametrize("sname", sorted(SDTYPES))
+def test_scale_pack_round_trip_and_bytes(sname):
+    jsd, tsd = SDTYPES[sname]
+    rng = np.random.default_rng(20)
+    ks = rng.uniform(0.01, 2.0, (HKV, NUM_PAGES, PAGE)).astype(np.float32)
+    vs = rng.uniform(0.01, 2.0, (HKV, NUM_PAGES, PAGE)).astype(np.float32)
+    tp = tpf.pack_fused_scales(_t(ks), _t(vs), dtype=tsd)
+    jp = jpf.pack_fused_scales(_j(ks), _j(vs), dtype=jsd)
+    assert tuple(tp.shape) == tpf.fused_scales_shape(NUM_PAGES, HKV, PAGE)
+    assert _bytes(tp) == _bytes(jp)
+    k2, v2 = tpf.unpack_fused_scales(tp, HKV)
+    jk2, jv2 = jpf.unpack_fused_scales(jp, HKV, PAGE)
+    assert np.array_equal(k2.numpy(), np.asarray(jk2))
+    assert np.array_equal(v2.numpy(), np.asarray(jv2))
+    if tsd == torch.float32:
+        assert torch.equal(k2, _t(ks)) and torch.equal(v2, _t(vs))
+    with pytest.raises(ValueError):
+        tpf.fused_scales_shape(4, 65, PAGE)
+
+
+def _qpools(qname, sname, d=64):
+    jqd, tqd = QDTYPES[qname]
+    jsd, tsd = SDTYPES[sname]
+    rng = np.random.default_rng(21)
+    pool = rng.standard_normal(
+        tpf.fused_pool_shape(NUM_PAGES, HKV, PAGE, d)).astype(np.float32)
+    payload, _ = jq.quantize_kv(jnp.asarray(pool), jqd)
+    sc = rng.uniform(0.01, 1.0, tpf.fused_scales_shape(
+        NUM_PAGES, HKV, PAGE)).astype(np.float32)
+    return (payload, jnp.asarray(sc, jsd), _tq(payload, tqd),
+            _tq(jnp.asarray(sc, jsd), tsd))
+
+
+@pytest.mark.parametrize("sname", sorted(SDTYPES))
+@pytest.mark.parametrize("qname", sorted(QDTYPES))
+def test_quantized_append_decode_bytewise(qname, sname):
+    rng = np.random.default_rng(22)
+    d = 64
+    jpool, jsc, tpool, tsc = _qpools(qname, sname, d)
+    kn = rng.standard_normal((3, HKV, d)).astype(np.float32)
+    vn = rng.standard_normal((3, HKV, d)).astype(np.float32)
+    kn[1, 0] = 0.0  # a zero row takes scale 1
+    bt = np.array([[1, 2, -1], [3, -1, -1], [-1, -1, -1]], np.int32)
+    lens = np.array([17, 5, 0], np.int32)
+    jp, js, jl = jpf.kv_cache_append_decode_fused(
+        jpool, _j(kn), _j(vn), jnp.asarray(bt), jnp.asarray(lens),
+        kv_scales=jsc)
+    out = tpf.kv_cache_append_decode_fused(
+        tpool, _t(kn), _t(vn), torch.from_numpy(bt), torch.from_numpy(lens),
+        kv_scales=tsc)
+    assert out[0] is tpool and out[1] is tsc  # written in place
+    assert tpool.view(torch.uint8).numpy().tobytes() \
+        == np.asarray(jp).view(np.uint8).tobytes()
+    assert _bytes(tsc) == _bytes(js)
+    assert out[2].tolist() == np.asarray(jl).tolist()
+
+
+@pytest.mark.parametrize("sname", sorted(SDTYPES))
+@pytest.mark.parametrize("qname", sorted(QDTYPES))
+def test_quantized_append_prefill_bytewise(qname, sname):
+    """Padding tokens keep the old payload and scales."""
+    rng = np.random.default_rng(23)
+    d, seq = 64, 40
+    jpool, jsc, tpool, tsc = _qpools(qname, sname, d)
+    kn = rng.standard_normal((2, HKV, seq, d)).astype(np.float32)
+    vn = rng.standard_normal((2, HKV, seq, d)).astype(np.float32)
+    bt = np.array([[4, 5, 6, -1], [7, 8, -1, -1]], np.int32)
+    ctx = np.array([0, 3], np.int32)
+    slens = np.array([37, 20], np.int32)
+    jp, js, jl = jpf.kv_cache_append_prefill_fused(
+        jpool, _j(kn), _j(vn), jnp.asarray(bt), jnp.asarray(ctx),
+        jnp.asarray(slens), kv_scales=jsc)
+    _, _, tl = tpf.kv_cache_append_prefill_fused(
+        tpool, _t(kn), _t(vn), torch.from_numpy(bt), torch.from_numpy(ctx),
+        torch.from_numpy(slens), kv_scales=tsc)
+    assert tpool.view(torch.uint8).numpy().tobytes() \
+        == np.asarray(jp).view(np.uint8).tobytes()
+    assert _bytes(tsc) == _bytes(js)
+    assert tl.tolist() == np.asarray(jl).tolist()
+
+
+def _quant_case(qname, lens, hq=8, d=64, seed=24):
+    """Head-major f32 K/V, quantized by JAX and packed (f32 scales, so the
+    exact paths compare at f32 tolerance); the same bytes for the port."""
+    jqd, tqd = QDTYPES[qname]
+    rng = np.random.default_rng(seed)
+    k = rng.standard_normal((HKV, NUM_PAGES, PAGE, d)).astype(np.float32)
+    v = rng.standard_normal((HKV, NUM_PAGES, PAGE, d)).astype(np.float32)
+    kq, ks = jq.quantize_kv(jnp.asarray(k), jqd)
+    vq, vs = jq.quantize_kv(jnp.asarray(v), jqd)
+    jpool, jsc = jpf.to_fused_layout(kq, vq, ks, vs, scale_dtype=jnp.float32)
+    q, _, bt, ln = _decode_case(rng, d, len(lens), lens, hq=hq)
+    return (k, v, q, bt, ln, jpool, jsc, _tq(jpool, tqd), _tq(jsc,
+                                                             torch.float32))
+
+
+@pytest.mark.parametrize("window", [-1, 21])
+@pytest.mark.parametrize("mode", ["int8_exact", "fp8", "int8_dot"])
+def test_quantized_decode_against_jax(mode, window):
+    qname = "fp8" if mode == "fp8" else "int8"
+    int8_matmul = mode == "int8_dot"
+    lens = (37, 0, 64, 5)
+    k, v, q, bt, ln, jpool, jsc, tpool, tsc = _quant_case(qname, lens)
+    jo, jl = jpf.paged_attention_fused(
+        _j(q), jpool, jnp.asarray(bt), jnp.asarray(ln), kv_scales=jsc,
+        window_size=window, int8_matmul=int8_matmul, return_lse=True)
+    to, tl = tpf.paged_attention_fused(
+        _t(q), tpool, torch.from_numpy(bt), torch.from_numpy(ln),
+        kv_scales=tsc, window_size=window, int8_matmul=int8_matmul,
+        return_lse=True)
+    tol = 4e-2 if int8_matmul else 2e-5
+    assert_close(to, np.asarray(jo), 0, tol, f"{mode} out")
+    assert_close(tl, np.asarray(jl), 0, 2e-5 if not int8_matmul else 2e-2,
+                 f"{mode} lse")
+    assert (to[1] == 0).all()  # context 0
+    if int8_matmul:
+        # and the whole int8 pipeline stays within the JAX suite's bound
+        # of the unquantized f32 oracle
+        want = tpf.paged_attention_fused(
+            _t(q), tpf.to_fused_layout(_t(k), _t(v)), torch.from_numpy(bt),
+            torch.from_numpy(ln), window_size=window)
+        assert_close(to, want, 0, 4e-2, "int8 dot vs f32")
+
+
+def test_int8_default_follows_setting(monkeypatch):
+    """int8 pools take the dot-product path unless AULE_TPU_INT8_EXACT."""
+    k, v, q, bt, ln, jpool, jsc, tpool, tsc = _quant_case("int8", (40, 9))
+    args = (_t(q), tpool, torch.from_numpy(bt), torch.from_numpy(ln))
+    dot = tpf.paged_attention_fused(*args, kv_scales=tsc, int8_matmul=True)
+    exact = tpf.paged_attention_fused(*args, kv_scales=tsc,
+                                      int8_matmul=False)
+    assert not torch.equal(dot, exact)
+    monkeypatch.delenv("AULE_TPU_INT8_EXACT", raising=False)
+    assert torch.equal(tpf.paged_attention_fused(*args, kv_scales=tsc), dot)
+    monkeypatch.setenv("AULE_TPU_INT8_EXACT", "1")
+    assert torch.equal(tpf.paged_attention_fused(*args, kv_scales=tsc),
+                       exact)
+
+
+def test_quantized_bf16_q_keeps_its_dtype():
+    k, v, q, bt, ln, jpool, jsc, tpool, tsc = _quant_case("fp8", (30, 50))
+    jo = jpf.paged_attention_fused(
+        _j(q, jnp.bfloat16), jpool, jnp.asarray(bt), jnp.asarray(ln),
+        kv_scales=jsc)
+    to = tpf.paged_attention_fused(
+        _t(q, torch.bfloat16), tpool, torch.from_numpy(bt),
+        torch.from_numpy(ln), kv_scales=tsc)
+    assert to.dtype == torch.bfloat16
+    assert_close(to.float(), np.asarray(jo.astype(jnp.float32)), 0, 2e-2,
+                 "fp8 bf16 q")
+
+
+@pytest.mark.parametrize("qname", sorted(QDTYPES))
+def test_quantized_pool_built_by_jax_feeds_the_port(qname):
+    """aule_tpu.to_fused_layout with scales (bf16 packing, the engine's)
+    builds a pool the port reads unchanged."""
+    jqd, tqd = QDTYPES[qname]
+    rng = np.random.default_rng(25)
+    d = 64
+    k = rng.standard_normal((HKV, NUM_PAGES, PAGE, d)).astype(np.float32)
+    v = rng.standard_normal((HKV, NUM_PAGES, PAGE, d)).astype(np.float32)
+    kq, ks = jq.quantize_kv(jnp.asarray(k), jqd)
+    vq, vs = jq.quantize_kv(jnp.asarray(v), jqd)
+    jpool, jsc = jpf.to_fused_layout(kq, vq, ks, vs)
+    tpool, tsc = tpf.to_fused_layout(_tq(kq, tqd), _tq(vq, tqd), _t(ks),
+                                     _t(vs))
+    assert tpool.view(torch.uint8).numpy().tobytes() \
+        == np.asarray(jpool).view(np.uint8).tobytes()
+    assert _bytes(tsc) == _bytes(jsc)
+    q = rng.standard_normal((2, 4, d)).astype(np.float32)
+    bt = np.array([[3, 9, 1], [5, -1, -1]], np.int32)
+    ln = np.array([40, 12], np.int32)
+    jo = jpf.paged_attention_fused(_j(q), jpool, jnp.asarray(bt),
+                                   jnp.asarray(ln), kv_scales=jsc,
+                                   int8_matmul=False)
+    to = tpf.paged_attention_fused(_t(q), _tq(jpool, tqd),
+                                   torch.from_numpy(bt),
+                                   torch.from_numpy(ln),
+                                   kv_scales=_tq(jsc, torch.bfloat16),
+                                   int8_matmul=False)
+    assert_close(to, np.asarray(jo), 0, 2e-5, "out")
+
+
 def test_quantized_pools_raise():
+    """An integer pool without scales, scales for a float pool, a bad
+    payload dtype or a mis-shaped scale tile raise ValueError."""
     pool = torch.zeros(tpf.fused_pool_shape(4, HKV, PAGE, 128))
     q = torch.zeros(1, 4, 128)
     bt = torch.zeros(1, 1, dtype=torch.int32)
     ln = torch.ones(1, dtype=torch.int32)
-    with pytest.raises(NotImplementedError):
-        tpf.paged_attention_fused(q, pool, bt, ln,
-                                  kv_scales=torch.zeros(4, PAGE, 128))
+    sc = torch.ones(tpf.fused_scales_shape(4, HKV, PAGE))
+    for bad in (dict(kv_pages=pool.to(torch.int8)),
+                dict(kv_pages=pool.to(torch.float8_e4m3fn)),
+                dict(kv_pages=pool, kv_scales=sc),
+                dict(kv_pages=pool.to(torch.int16), kv_scales=sc),
+                dict(kv_pages=pool.to(torch.int8), kv_scales=sc[:, :8])):
+        kv = bad.pop("kv_pages")
+        with pytest.raises(ValueError):
+            tpf.paged_attention_fused(q, kv, bt, ln, **bad)
     with pytest.raises(ValueError):
-        tpf.paged_attention_fused(q, pool.to(torch.int8), bt, ln)
+        tpf.kv_cache_append_decode_fused(
+            pool, torch.zeros(1, HKV, 128), torch.zeros(1, HKV, 128), bt,
+            ln, kv_scales=sc)
+    with pytest.raises(ValueError):
+        tq.quantize_kv(torch.zeros(2, 8), torch.float16)
