@@ -114,6 +114,15 @@ __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
+// 4-byte global->shared async copy (one f32 row statistic); zero-fills
+// when !pred.
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          bool pred) {
+  const int src_bytes = pred ? 4 : 0;
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(src_bytes));
+}
+
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
@@ -180,6 +189,103 @@ struct Elem<__half> {
   }
 };
 
+// ---- mma.sync m16n8k16 fragments of swizzled tiles (256-byte rows of
+// D = 128 16-bit values in shared memory, `swz`).  The thread holds rows
+// g = lane / 4 ("a") and g + 8 ("b") of an accumulator's 16, and columns
+// 2 * (lane % 4) + {0, 1} of each 8-column n-tile.
+constexpr int kChunks = kTileD / 8;  // 16-byte chunks per row
+
+// A fragment: rows row0 .. row0 + 15 of the tile, values kk*16 .. +15.
+__device__ __forceinline__ void ldsm_a(uint32_t tile, int row0, int kk,
+                                       int lane, uint32_t (&a)[4]) {
+  const int lrow = lane & 7, mat = lane >> 3;
+  ldsm_x4(tile + swz(row0 + lrow + (mat & 1) * 8, kk * 2 + (mat >> 1)),
+          a[0], a[1], a[2], a[3]);
+}
+
+// B fragments of two 8-column n-tiles whose columns are rows n0 .. n0 + 15
+// of the tile (a product with the tile transposed, as Q K^T takes K),
+// contracted over values kk*16 .. +15: b[0..1] n-tile n0, b[2..3] n0 + 8.
+__device__ __forceinline__ void ldsm_b(uint32_t tile, int n0, int kk,
+                                       int lane, uint32_t (&b)[4]) {
+  const int lrow = lane & 7, mat = lane >> 3;
+  ldsm_x4(tile + swz(n0 + lrow + (mat >> 1) * 8, kk * 2 + (mat & 1)),
+          b[0], b[1], b[2], b[3]);
+}
+
+// B fragments of the tile as it stands (as P V takes V): contracted over
+// rows k0 .. k0 + 15, columns nd*16 .. +15 in two n-tiles.
+__device__ __forceinline__ void ldsm_bt(uint32_t tile, int k0, int nd,
+                                        int lane, uint32_t (&b)[4]) {
+  const int lrow = lane & 7, mat = lane >> 3;
+  ldsm_x4_t(tile + swz(k0 + lrow + (mat & 1) * 8, nd * 2 + (mat >> 1)),
+            b[0], b[1], b[2], b[3]);
+}
+
+// d0 += A B[0..1], d1 += A B[2..3]: the two n-tiles of one x4 B load.
+template <typename T>
+__device__ __forceinline__ void mma_pair(float (&d0)[4], float (&d1)[4],
+                                         const uint32_t (&a)[4],
+                                         const uint32_t (&b)[4]) {
+  Elem<T>::mma(d0, a[0], a[1], a[2], a[3], b[0], b[1]);
+  Elem<T>::mma(d1, a[0], a[1], a[2], a[3], b[2], b[3]);
+}
+
+// Two 8-column accumulator n-tiles re-packed (rounded to T) as the A
+// fragment of a product over those 16 columns.
+template <typename T>
+__device__ __forceinline__ void pack_a(const float (&lo)[4],
+                                       const float (&hi)[4],
+                                       uint32_t (&a)[4]) {
+  a[0] = Elem<T>::pack(lo[0], lo[1]);
+  a[1] = Elem<T>::pack(lo[2], lo[3]);
+  a[2] = Elem<T>::pack(hi[0], hi[1]);
+  a[3] = Elem<T>::pack(hi[2], hi[3]);
+}
+
+// Rows row0 .. row0 + NROWS - 1 of two [*, 128] 16-bit matrices that are
+// read together (K and V, or Q and dO) at `src0` and `src1` into swizzled
+// tiles at `dst0` and `dst1` with cp.async; rows at or past `limit` are
+// zero-filled.  One pass issues both copies of a chunk, as flash_fwd.cu's
+// own loop does: on an H100 80GB HBM3 at 700 W a pass per matrix made the
+// dK/dV kernel ~5 % and the flash forward ~10 % slower (chip_smoke.py's
+// S2048 times).  All NT threads of the block take part.
+template <int NT, int NROWS>
+__device__ __forceinline__ void load_rows_async(uint32_t dst0, uint32_t dst1,
+                                                const void* src0,
+                                                const void* src1, int row0,
+                                                int limit, int tid) {
+  const uint8_t* a = static_cast<const uint8_t*>(src0);
+  const uint8_t* b = static_cast<const uint8_t*>(src1);
+  for (int c = tid; c < NROWS * kChunks; c += NT) {
+    const int r = c / kChunks, ch = c % kChunks;
+    const int pos = row0 + r;
+    const bool ok = pos < limit;
+    const size_t off = (size_t)(ok ? pos : 0) * kRowBytes + ch * 16;
+    cp_async16(dst0 + swz(r, ch), a + off, ok);
+    cp_async16(dst1 + swz(r, ch), b + off, ok);
+  }
+}
+
+// A warp's 16 x 128 f32 accumulator rows ra and rb (those below `limit`)
+// to rows of a [*, 128] matrix of T.
+template <typename T>
+__device__ __forceinline__ void store_rows(const float (&acc)[kTileD / 8][4],
+                                           T* dst, int ra, int rb,
+                                           int limit, int lane) {
+  const int t = lane & 3;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = half ? rb : ra;
+    if (r >= limit) continue;
+    uint32_t* row = reinterpret_cast<uint32_t*>(dst + (size_t)r * kTileD);
+#pragma unroll
+    for (int i = 0; i < kTileD / 8; ++i)
+      row[i * 4 + t] =
+          Elem<T>::pack(acc[i][2 * half], acc[i][2 * half + 1]);
+  }
+}
+
 // ---- The flash block's per-warp work, shared by flash_fwd.cu and
 // paged_prefill.cu.  A warp owns 16 rows of the block's Q tile and runs
 // mma.sync m16n8k16 against 64-key K/V tiles, all in shared memory as
@@ -216,7 +322,7 @@ __device__ __forceinline__ void flash_tile(WarpRows& w, uint32_t sQ,
                                            const float* v_sc, bool need_mask,
                                            Keep keep) {
   constexpr int D = kTileD, BN = kTileN;
-  const int t = lane & 3, lrow = lane & 7, mat = lane >> 3;
+  const int t = lane & 3;
 
   // S for the warp's 16 rows x 64 keys (8 n-tiles of 8 keys)
   float s[BN / 8][4];
@@ -224,16 +330,13 @@ __device__ __forceinline__ void flash_tile(WarpRows& w, uint32_t sQ,
   for (int i = 0; i < BN / 8; ++i) s[i][0] = s[i][1] = s[i][2] = s[i][3] = 0.f;
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
-    uint32_t a0, a1, a2, a3;
-    ldsm_x4(sQ + swz(wrow0 + lrow + (mat & 1) * 8, kk * 2 + (mat >> 1)), a0,
-            a1, a2, a3);
+    uint32_t a[4];
+    ldsm_a(sQ, wrow0, kk, lane, a);
 #pragma unroll
     for (int nn = 0; nn < BN / 16; ++nn) {
-      uint32_t b0, b1, b2, b3;
-      ldsm_x4(tK + swz(nn * 16 + lrow + (mat >> 1) * 8, kk * 2 + (mat & 1)),
-              b0, b1, b2, b3);
-      Elem<T>::mma(s[2 * nn], a0, a1, a2, a3, b0, b1);
-      Elem<T>::mma(s[2 * nn + 1], a0, a1, a2, a3, b2, b3);
+      uint32_t b[4];
+      ldsm_b(tK, nn * 16, kk, lane, b);
+      mma_pair<T>(s[2 * nn], s[2 * nn + 1], a, b);
     }
   }
   if constexpr (SCALED) {
@@ -299,17 +402,13 @@ __device__ __forceinline__ void flash_tile(WarpRows& w, uint32_t sQ,
   // O += P V: the S accumulators re-packed as A fragments
 #pragma unroll
   for (int kk = 0; kk < BN / 16; ++kk) {
-    const uint32_t p0 = Elem<T>::pack(s[2 * kk][0], s[2 * kk][1]);
-    const uint32_t p1 = Elem<T>::pack(s[2 * kk][2], s[2 * kk][3]);
-    const uint32_t p2 = Elem<T>::pack(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-    const uint32_t p3 = Elem<T>::pack(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+    uint32_t p[4];
+    pack_a<T>(s[2 * kk], s[2 * kk + 1], p);
 #pragma unroll
     for (int nd = 0; nd < D / 16; ++nd) {
-      uint32_t b0, b1, b2, b3;
-      ldsm_x4_t(tV + swz(kk * 16 + lrow + (mat & 1) * 8, nd * 2 + (mat >> 1)),
-                b0, b1, b2, b3);
-      Elem<T>::mma(w.acc[2 * nd], p0, p1, p2, p3, b0, b1);
-      Elem<T>::mma(w.acc[2 * nd + 1], p0, p1, p2, p3, b2, b3);
+      uint32_t b[4];
+      ldsm_bt(tV, kk * 16, nd, lane, b);
+      mma_pair<T>(w.acc[2 * nd], w.acc[2 * nd + 1], p, b);
     }
   }
 }

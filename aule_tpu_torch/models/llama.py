@@ -1,5 +1,5 @@
 """Llama-style decoder (counterpart of aule_tpu/models/llama.py:42-256,
-387-603).
+367-603).
 
 Parameters are a plain dict with the JAX package's keys and its `[in, out]`
 weight orientation (`x @ w`), so JAX params cross over as a plain copy
@@ -7,10 +7,12 @@ weight orientation (`x @ w`), so JAX params cross over as a plain copy
 weights are f32 and `rms_norm` computes in f32 and casts back; the SiLU
 gate is computed in f32; logits are f32.
 
-  * `forward` is the prefill path: attention through the port's flash
-    forward (the CUDA kernel on the card, its plain version on the CPU).
-    It is inference only: training is a later slice, so a parameter that
-    requires grad raises.
+  * `forward` is the prefill and training path: attention through the
+    port's differentiable flash attention (`ops.flash_vjp`: the forward
+    and backward CUDA kernels on the card, their plain versions on the
+    CPU; with grad off, the forward kernel alone without its LSE write).
+  * `loss_fn` is the mean next-token NLL and `train_step` one SGD step,
+    as JAX's (l.367-384).
   * `decode_step_fused` is one decode step over the fused paged pools:
     append (in place) then paged attention (the paged-decode kernel);
   * `prefill_step_fused` is one chunk of chunked prefill: append the chunk
@@ -35,7 +37,7 @@ import torch
 import torch.nn.functional as F
 
 from ..config import resolve_device
-from ..ops.flash import flash_attention_fwd
+from ..ops.flash_vjp import flash_attention_vjp
 from ..ops.paged_fused import (kv_cache_append_decode_fused,
                                kv_cache_append_prefill_fused,
                                paged_attention_fused)
@@ -182,17 +184,14 @@ def forward(
     rope_cos: Optional[torch.Tensor] = None,
     rope_sin: Optional[torch.Tensor] = None,
     return_kv: bool = False,
-    attention: Callable = flash_attention_fwd,
+    attention: Callable = flash_attention_vjp,
 ):
-    """Causal-LM forward (prefill).  Returns logits [B, S, V] f32; with
-    return_kv also the per-layer ROTATED k and unrotated v [B, Hkv, S, Dh]
-    for filling the decode pools.  `attention` is the flash forward; a
-    reference run passes its plain version (ops.flash's
-    flash_attention_fwd_plain) to hold the kernel path against it."""
-    if any(t.requires_grad for t in _tensors(params)):
-        raise NotImplementedError(
-            "training is a later slice: forward is inference only (call it "
-            "under torch.no_grad() or on params without requires_grad)")
+    """Causal-LM forward (prefill and training).  Returns logits [B, S, V]
+    f32; with return_kv also the per-layer ROTATED k and unrotated v
+    [B, Hkv, S, Dh] for filling the decode pools.  `attention` is the
+    differentiable flash attention; a reference run passes its plain
+    version (ops.flash_vjp's flash_attention_vjp_plain) to hold the kernel
+    path against it."""
     b, s = tokens.shape
     dev = params["embed"].device
     if rope_cos is None:
@@ -209,8 +208,7 @@ def forward(
         k = apply_rope(k, rope_cos, rope_sin)
         if return_kv:
             kv_out.append((k, v))
-        attn = attention(q, k, v, causal=True, window_size=cfg.window_size,
-                         return_lse=False)
+        attn = attention(q, k, v, causal=True, window_size=cfg.window_size)
         x = x + _merge_heads(attn) @ layer["wo"]
         x = _mlp(x, layer, cfg)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
@@ -218,6 +216,42 @@ def forward(
     if return_kv:
         return logits, kv_out
     return logits
+
+
+def loss_fn(params: Params, tokens: torch.Tensor, cfg: LlamaConfig, *,
+            attention: Callable = flash_attention_vjp) -> torch.Tensor:
+    """Mean next-token negative log-likelihood of `tokens` [B, S] under
+    `forward(tokens[:, :-1])` (JAX l.367-373), a 0-d f32 tensor."""
+    logits = forward(params, tokens[:, :-1], cfg, attention=attention)
+    targets = tokens[:, 1:].to(logits.device)
+    return F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                           targets.reshape(-1))
+
+
+def train_step(params: Params, tokens: torch.Tensor, cfg: LlamaConfig,
+               lr: float = 1e-4):
+    """One SGD step, p <- p - lr * grad, computed in f32 and cast back to
+    each parameter's dtype (JAX l.376-384): `add_` with `alpha=-lr`, which
+    PyTorch computes for bf16 and f16 in f32 (its opmath type) and rounds
+    once.  Returns (params, loss).
+
+    Two departures from JAX, whose step is pure: every parameter tensor is
+    made to require grad and is updated IN PLACE under torch.no_grad(),
+    and each `.grad` is freed right after its update, so the step needs no
+    memory beyond the weights and their gradients.  The returned params are
+    the same dict; `loss` (0-d f32) is the loss before the update, as
+    JAX's."""
+    tensors = list(_tensors(params))
+    for t in tensors:
+        t.requires_grad_(True)
+        t.grad = None
+    loss = loss_fn(params, tokens, cfg)
+    loss.backward()
+    with torch.no_grad():
+        for t in tensors:
+            t.add_(t.grad, alpha=-lr)
+            t.grad = None
+    return params, loss.detach()
 
 
 def _rotate(x, c, sn, half):

@@ -46,6 +46,14 @@ SIGNATURES = {
     # page, max_pages, scale, causal, window, dtype, pool, sc_f32, stream
     "aule_paged_prefill": [_VOID] * 8 + [_INT] * 6 + [_FLOAT] +
                           [_INT] * 5 + [_VOID],
+    # q, k, v, do, lse, di, dq, B, Hq, Hkv, Sq, Sk, scale, causal, window,
+    # dtype, stream
+    "aule_flash_bwd_dq": [_VOID] * 7 + [_INT] * 5 + [_FLOAT] + [_INT] * 3 +
+                         [_VOID],
+    # q, k, v, do, lse, di, dk, dv, B, Hq, Hkv, Sq, Sk, scale, causal,
+    # window, dtype, stream
+    "aule_flash_bwd_dkv": [_VOID] * 8 + [_INT] * 5 + [_FLOAT] + [_INT] * 3 +
+                          [_VOID],
 }
 
 # pool codes (csrc/common.cuh kPool*): what a paged pool holds

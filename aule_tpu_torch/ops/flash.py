@@ -9,7 +9,9 @@ its tensors:
     source note there), or raise for what the kernel does not take.
 The kernel takes bf16/f16 with D=128; f32 on the card, D other than 128,
 fused RoPE (`rope_cos`/`rope_sin`, i.e. `flash_attention_rope`) and a
-traced `kv_len` come with later slices and raise here.
+traced `kv_len` come with later slices and raise here.  Training goes
+through `ops/flash_vjp.py`, whose autograd Function calls this forward
+(with its LSE) and the backward kernels.
 """
 
 from __future__ import annotations
@@ -33,6 +35,14 @@ def flash_attention_fwd_plain(q, k, v, *, causal: bool = False,
     return attention_reference(q, k, v, causal=causal, scale=scale,
                                window_size=window_size,
                                return_lse=return_lse)
+
+
+def _scale_window(q, scale, window_size):
+    """(softmax scale, 1/sqrt(D) when None; window, -1 when none)."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    window = int(window_size) if window_size and window_size > 0 else -1
+    return float(scale), window
 
 
 def _check_shapes(q, k, v):
@@ -73,9 +83,7 @@ def flash_attention_fwd(
         raise NotImplementedError(
             "a traced kv_len (bucket-padded varlen) is not ported yet: it "
             "comes with the integration slice")
-    window = int(window_size) if window_size and window_size > 0 else -1
-    if scale is None:
-        scale = 1.0 / math.sqrt(q.shape[-1])
+    scale, window = _scale_window(q, scale, window_size)
     if q.device.type == "cpu":
         return flash_attention_fwd_plain(
             q, k, v, causal=causal, scale=scale, window_size=window,
@@ -106,7 +114,7 @@ def flash_attention_fwd(
     err = lib.aule_flash_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lse.data_ptr() if lse is not None else None,
-        batch, hq, hkv, seq_q, seq_k, float(scale), int(bool(causal)),
+        batch, hq, hkv, seq_q, seq_k, scale, int(bool(causal)),
         window, code, _build.stream_handle(q.device))
     _build.check(err, "aule_flash_fwd")
     flash_attention_fwd.launches += 1

@@ -1,0 +1,271 @@
+"""Trainable flash attention (counterpart of aule_tpu/ops/flash_vjp.py).
+
+The forward is the flash forward of `ops/flash.py`; the backward is two
+kernels, as in the JAX package (flash_vjp.py:1-20):
+  * dQ, q-parallel, reducing over the live kv tiles (`flash_bwd_dq`);
+  * dK/dV, kv-parallel, reducing over the live q tiles and the GQA group's
+    q heads inside one block, so it needs no atomics (`flash_bwd_dkv`).
+Both recompute P from the saved LSE.  The residuals are (q, k, v, o, lse)
+and delta = rowsum(o * do) - dlse is one PyTorch reduction shared by both
+kernels (in JAX a fused XLA reduction, not a Pallas kernel).  The wrappers
+follow their tensors: CPU tensors take the plain PyTorch versions, CUDA
+tensors launch the hand-written kernels in csrc/flash_bwd.cu (replacing
+`_dq_kernel` and `_dkv_kernel`, and with a window `_win_dq_kernel` and
+`_win_dkv_kernel`) or raise for what they do not take (bf16/f16, D=128).
+
+RoPE composes outside the op through `ops.rope.apply_rope`, whose
+autograd gives its exact gradient.  With grad off (no input that requires
+grad, or under `torch.no_grad()`), `flash_attention_vjp` launches the
+forward without the LSE write, as JAX's primal `_flash_core` does.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from . import _build
+from .flash import (KERNEL_HEAD_DIM, _check_shapes, _scale_window,
+                    flash_attention_fwd, flash_attention_fwd_plain)
+from .reference import _expand_kv, build_mask
+from .rope import apply_rope
+
+
+def attention_delta(o: torch.Tensor, do: torch.Tensor,
+                    dlse: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """di = rowsum(o * do) - dlse, f32 [B, Hq, Sq] (flash_vjp.py:746-750):
+    the lse cotangent folds into delta because d lse / d s = p."""
+    di = (o.float() * do.float()).sum(-1)
+    return di if dlse is None else di - dlse.float()
+
+
+# ---- plain versions: dense f32, the same recompute as the kernels
+
+def _plain_p_ds(q, k, v, do, lse, di, causal, scale, window):
+    """(p, ds, k f32 expanded to the q heads) for dense [B, Hq, Sq, Sk]:
+    p = exp(scale q k^T - lse) under the mask (0 elsewhere),
+    ds = p (do v^T - di) scale."""
+    hq, seq_q, seq_k = q.shape[1], q.shape[2], k.shape[2]
+    kf = _expand_kv(k.float(), hq)
+    vf = _expand_kv(v.float(), hq)
+    s = torch.matmul(q.float(), kf.transpose(-1, -2)) * scale
+    mask = build_mask(seq_q, seq_k, causal, window, device=q.device)
+    p = torch.where(mask, torch.exp(s - lse.float()[..., None]),
+                    torch.zeros((), device=q.device))
+    del s
+    dp = torch.matmul(do.float(), vf.transpose(-1, -2))
+    ds = p * (dp - di.float()[..., None]) * scale
+    return p, ds, kf
+
+
+def _group_sum(x, hkv):
+    """[B, Hq, S, D] -> [B, Hkv, S, D], summed over each kv head's group."""
+    b, hq, s, d = x.shape
+    return x.reshape(b, hkv, hq // hkv, s, d).sum(2)
+
+
+def flash_bwd_dq_plain(q, k, v, do, lse, di, *, causal=False, scale=None,
+                       window=-1):
+    """The dQ kernel's plain version: dq = ds k, in f32, cast to q's
+    dtype."""
+    scale, window = _scale_window(q, scale, window)
+    _, ds, kf = _plain_p_ds(q, k, v, do, lse, di, causal, scale, window)
+    return torch.matmul(ds, kf).to(q.dtype)
+
+
+def flash_bwd_dkv_plain(q, k, v, do, lse, di, *, causal=False, scale=None,
+                        window=-1):
+    """The dK/dV kernel's plain version: dk = ds^T q and dv = p^T do,
+    summed over the GQA group in f32, cast to k's and v's dtypes."""
+    scale, window = _scale_window(q, scale, window)
+    p, ds, _ = _plain_p_ds(q, k, v, do, lse, di, causal, scale, window)
+    hkv = k.shape[1]
+    dk = _group_sum(torch.matmul(ds.transpose(-1, -2), q.float()), hkv)
+    dv = _group_sum(torch.matmul(p.transpose(-1, -2), do.float()), hkv)
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal=False,
+                              scale=None, window=-1, dlse=None):
+    """The plain version of `flash_attention_bwd`: (dq, dk, dv) from delta
+    and the two kernels' plain versions, in f32 by the kernels' recompute
+    (not autograd through a reference)."""
+    di = attention_delta(o, do, dlse)
+    kw = dict(causal=causal, scale=scale, window=window)
+    return (flash_bwd_dq_plain(q, k, v, do, lse, di, **kw),
+            *flash_bwd_dkv_plain(q, k, v, do, lse, di, **kw))
+
+
+# ---- the kernels' wrappers
+
+def _cuda_inputs(q, k, v, do, lse, di):
+    """Check what the CUDA kernels take; return the tensors contiguous."""
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    if any(t.device != q.device for t in (k, v, do, lse, di)):
+        raise ValueError("q, k, v, do, lse, di must be on one device")
+    if q.shape[-1] != KERNEL_HEAD_DIM:
+        raise NotImplementedError(
+            f"the CUDA flash backward takes D={KERNEL_HEAD_DIM} (got "
+            f"D={q.shape[-1]})")
+    if not (q.dtype == k.dtype == v.dtype == do.dtype):
+        raise TypeError(f"q/k/v/do dtypes differ: {q.dtype}, {k.dtype}, "
+                        f"{v.dtype}, {do.dtype}")
+    if do.shape != q.shape:
+        raise ValueError(f"do {tuple(do.shape)} is not q's {tuple(q.shape)}")
+    rows = q.shape[:3]
+    for name, t in (("lse", lse), ("di", di)):
+        if t.dtype != torch.float32 or t.shape != rows:
+            raise ValueError(f"{name} must be f32 {tuple(rows)}, got "
+                             f"{t.dtype} {tuple(t.shape)}")
+    return tuple(t.contiguous() for t in (q, k, v, do, lse, di))
+
+
+def flash_bwd_dq(q, k, v, do, lse, di, *, causal=False, scale=None,
+                 window=-1):
+    """dQ [B, Hq, Sq, D] from q, k, v, do, the forward's lse and delta
+    `di` (f32 [B, Hq, Sq]).  CPU tensors: the plain version; CUDA tensors:
+    the dQ kernel of csrc/flash_bwd.cu (replaces flash_vjp.py::
+    _dq_kernel)."""
+    _check_shapes(q, k, v)
+    scale, window = _scale_window(q, scale, window)
+    if q.device.type == "cpu":
+        return flash_bwd_dq_plain(q, k, v, do, lse, di, causal=causal,
+                                  scale=scale, window=window)
+    q, k, v, do, lse, di = _cuda_inputs(q, k, v, do, lse, di)
+    code = _build.dtype_code(q.dtype)
+    lib = _build.library()
+    batch, hq, seq_q, _ = q.shape
+    dq = torch.empty_like(q)
+    err = lib.aule_flash_bwd_dq(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), di.data_ptr(), dq.data_ptr(), batch, hq, k.shape[1],
+        seq_q, k.shape[2], scale, int(bool(causal)), window, code,
+        _build.stream_handle(q.device))
+    _build.check(err, "aule_flash_bwd_dq")
+    flash_bwd_dq.launches += 1
+    return dq
+
+
+def flash_bwd_dkv(q, k, v, do, lse, di, *, causal=False, scale=None,
+                  window=-1):
+    """(dK, dV) [B, Hkv, Sk, D], summed over each kv head's q-head group.
+    CPU tensors: the plain version; CUDA tensors: the dK/dV kernel of
+    csrc/flash_bwd.cu (replaces flash_vjp.py::_dkv_kernel)."""
+    _check_shapes(q, k, v)
+    scale, window = _scale_window(q, scale, window)
+    if q.device.type == "cpu":
+        return flash_bwd_dkv_plain(q, k, v, do, lse, di, causal=causal,
+                                   scale=scale, window=window)
+    q, k, v, do, lse, di = _cuda_inputs(q, k, v, do, lse, di)
+    code = _build.dtype_code(q.dtype)
+    lib = _build.library()
+    batch, hq, seq_q, _ = q.shape
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    err = lib.aule_flash_bwd_dkv(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), di.data_ptr(), dk.data_ptr(), dv.data_ptr(), batch,
+        hq, k.shape[1], seq_q, k.shape[2], scale, int(bool(causal)), window,
+        code, _build.stream_handle(q.device))
+    _build.check(err, "aule_flash_bwd_dkv")
+    flash_bwd_dkv.launches += 1
+    return dk, dv
+
+
+# kernel launches since the last reset (the CPU route does not count)
+flash_bwd_dq.launches = 0
+flash_bwd_dkv.launches = 0
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, *, causal=False, scale=None,
+                        window=-1, dlse=None):
+    """(dq, dk, dv) of flash attention from its residuals and the output
+    cotangent `do` (and the lse cotangent `dlse`, None = zero): delta, then
+    the dQ and dK/dV kernels (for CPU tensors their plain versions, which
+    makes this `flash_attention_bwd_plain`)."""
+    do = do.contiguous()  # arrives transposed from the heads merge
+    di = attention_delta(o, do, dlse)
+    kw = dict(causal=causal, scale=scale, window=window)
+    return (flash_bwd_dq(q, k, v, do, lse, di, **kw),
+            *flash_bwd_dkv(q, k, v, do, lse, di, **kw))
+
+
+# ---- autograd
+
+class _FlashAttention(torch.autograd.Function):
+    """(out, lse) of flash attention; saves (q, k, v, out, lse), with q, k
+    and v as the contiguous tensors the forward kernel read, and
+    differentiates through the backward kernels (`plain`: through both
+    plain versions)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale, window, plain):
+        ctx.set_materialize_grads(False)
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        fwd = flash_attention_fwd_plain if plain else flash_attention_fwd
+        out, lse = fwd(q, k, v, causal=causal, scale=scale,
+                       window_size=window, return_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.args = (causal, scale, window, plain)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, do, dlse):
+        q, k, v, o, lse = ctx.saved_tensors
+        causal, scale, window, plain = ctx.args
+        if do is None:  # only the lse was used
+            do = torch.zeros_like(o)
+        bwd = flash_attention_bwd_plain if plain else flash_attention_bwd
+        dq, dk, dv = bwd(q, k, v, o, lse, do, causal=causal, scale=scale,
+                         window=window, dlse=dlse)
+        return dq, dk, dv, None, None, None, None
+
+
+def _flash(q, k, v, causal, scale, window_size, plain, with_lse,
+           rope_cos=None, rope_sin=None):
+    if rope_cos is not None:  # rotation outside the op: exact gradients
+        q = apply_rope(q, rope_cos, rope_sin)
+        k = apply_rope(k, rope_cos, rope_sin)
+    _check_shapes(q, k, v)
+    scale, window = _scale_window(q, scale, window_size)
+    if not (torch.is_grad_enabled()
+            and (q.requires_grad or k.requires_grad or v.requires_grad)):
+        fwd = flash_attention_fwd_plain if plain else flash_attention_fwd
+        return fwd(q, k, v, causal=bool(causal), scale=scale,
+                   window_size=window, return_lse=with_lse)
+    out, lse = _FlashAttention.apply(q, k, v, bool(causal), scale, window,
+                                     plain)
+    return (out, lse) if with_lse else out
+
+
+def flash_attention_lse(q, k, v, causal: bool = False,
+                        scale: Optional[float] = None,
+                        window_size: int = -1):
+    """Differentiable (out, lse [B, Hq, Sq] f32) pair; the lse cotangent is
+    honoured (folded into delta)."""
+    return _flash(q, k, v, causal, scale, window_size, False, True)
+
+
+def flash_attention_vjp(q, k, v, causal: bool = False,
+                        scale: Optional[float] = None,
+                        window_size: int = -1,
+                        rope_cos: Optional[torch.Tensor] = None,
+                        rope_sin: Optional[torch.Tensor] = None):
+    """Differentiable flash attention over [B, H, S, D] (GQA, causal and
+    window masks, Sq != Sk); RoPE, when given, rotates q and k first,
+    outside the op."""
+    return _flash(q, k, v, causal, scale, window_size, False, False,
+                  rope_cos, rope_sin)
+
+
+def flash_attention_vjp_plain(q, k, v, causal: bool = False,
+                              scale: Optional[float] = None,
+                              window_size: int = -1,
+                              rope_cos: Optional[torch.Tensor] = None,
+                              rope_sin: Optional[torch.Tensor] = None):
+    """`flash_attention_vjp` through the plain versions of the forward and
+    of the backward on any device: the reference a kernel run is held
+    against."""
+    return _flash(q, k, v, causal, scale, window_size, True, False,
+                  rope_cos, rope_sin)

@@ -3,8 +3,9 @@ aule_tpu/utils/profiling.py).
 
 Kernel times come from CUDA events around each launch after a warm-up:
 the median of the timed repeats with its spread (min, max).  FLOPs follow
-the JAX package's convention, 4*B*H*Sq*Sk*D, halved for causal; a paged
-prefill chunk counts the keys its rows see.  Bounds
+the JAX package's convention, 4*B*H*Sq*Sk*D, halved for causal, and 2.5x
+that for the backward (bench.py:136); a paged prefill chunk or a window
+counts the keys its rows see; a train step adds 6*N*tokens.  Bounds
 use the published peaks of one NVIDIA H100 SXM at its full 700 W power
 limit (NVIDIA's data sheet, dense rates).  There is no CPU fallback: a
 measurement without a card raises.
@@ -27,6 +28,36 @@ def attention_flops(batch: int, heads: int, seq_q: int, seq_k: int,
     """4*B*H*Sq*Sk*D, halved for causal."""
     flops = 4.0 * batch * heads * seq_q * seq_k * head_dim
     return flops * 0.5 if causal else flops
+
+
+def attention_bwd_flops(fwd_flops: float, products: int = 5) -> float:
+    """Backward FLOPs from the forward's (its 2 products over the live
+    keys): the whole backward is 5 products (S, dP, dV, dK, dQ), 2.5x the
+    forward (bench.py:136); the dQ kernel alone needs 3 (S, dP, dQ) and the
+    dK/dV kernel 4 (S, dP, dV, dK), since each recomputes S and dP."""
+    return products / 2 * fwd_flops
+
+
+def window_attention_flops(batch: int, heads: int, seq: int, head_dim: int,
+                           window: int, causal: bool = True) -> float:
+    """4 * B * H * D * (live (q, k) pairs) of self-attention over `seq`
+    tokens with a window W: q - W <= k <= q causal, |q - k| <= W
+    otherwise."""
+    pairs = 0
+    for q in range(seq):
+        lo = max(0, q - window)
+        hi = q if causal else min(seq - 1, q + window)
+        pairs += hi - lo + 1
+    return 4.0 * batch * heads * head_dim * pairs
+
+
+def train_step_flops(matmul_params: int, tokens: int,
+                     attention_fwd_flops: float) -> float:
+    """One training step: 6 * N * tokens for the dense layers (N = the
+    parameters of the matrix products: forward 2, backward 4 per
+    parameter and token), plus the attention forward and its backward
+    (2.5x): 3.5x the forward attention FLOPs."""
+    return 6.0 * matmul_params * tokens + 3.5 * attention_fwd_flops
 
 
 def paged_kv_bytes(tokens: int, hkv: int, head_dim: int,

@@ -9,8 +9,9 @@ Phases, each printing a line of its own:
      nvcc per source, all started together;
   3. kernels: each hand-written kernel against its plain PyTorch version
      on the card (each output row within ROW_TOL of its size, LSE within
-     LSE_TOL; see below): flash forward; paged decode over bf16, int8 (dot-product and exact
-     paths) and fp8 pools; paged prefill over bf16, f16, int8 and fp8
+     LSE_TOL; see below): flash forward (also at the shape classes of the
+     TPU's _causal_kernel and _win_kernel); paged decode over bf16, int8
+     (dot-product and exact paths) and fp8 pools; paged prefill over bf16, f16, int8 and fp8
      pools (a 512-token chunk at q_offset 3488 over 4000 cached tokens,
      with and without a 256 window; a ragged batch of 4 whose padding
      rows must be exact zeros; shuffled page ids and -1 entries); both
@@ -32,17 +33,34 @@ Phases, each printing a line of its own:
   5. breakdown: one prefill step and one 8-step decode dispatch of the
      engine under torch.profiler (device busy share, kernel time by
      category) for bf16, int8 chunked and fp8 chunked pools;
-  6. a `kernels` JSON line, one entry per kernel mode the engine runs
-     launched;
-  7. last line: {"ok": true, "device": {...}}, printed only when every
+  6. backward kernels: dQ and dK/dV against their plain versions (every
+     row within ROW_TOL) at the Llama-3-8B layer, bench.py's B4 row, ragged
+     S, Sq != Sk, GQA groups 1, 2 and 8, f16, non-causal, a non-zero lse
+     cotangent, causal and bidirectional windows of 256 at S4096 and rows
+     that see nothing; two runs bitwise equal; times beside their bounds,
+     the plain versions and the backward of F.scaled_dot_product_attention
+     (timed only);
+  7. train: the same full-width, full-depth Llama-3-8B weights, made to
+     require grad: first every parameter's gradient of loss_fn through the
+     kernels against the plain attention path's on the weights cut to 2
+     layers (GRAD_TOL), then 3 SGD `train_step`s on one batch of B1 x 2049
+     tokens: each launches the forward, dQ and dK/dV kernels once per
+     layer, step 1 checks every gradient finite, step 2 is timed (tokens/s,
+     share of the bf16 peak, peak memory), step 3 runs under
+     torch.profiler; the loss falls at every step.  Last, as it rewrites
+     the weights;
+  8. a `kernels` JSON line, one entry per kernel mode the main path
+     launched (the engine runs, or the train steps for the backward);
+  9. last line: {"ok": true, "device": {...}}, printed only when every
      phase passed.  Any failure raises and the exit code is non-zero.
 
-About 2 minutes on an H100, the build included.
+About 3 minutes on an H100, the build included.
 """
 
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -73,8 +91,34 @@ LSE_TOL = 1e-4
 # 0.03125, and the two paths round their matmuls in different orders, so
 # 4 steps is the allowance for a bf16 near-tie.
 NEAR_TIE = 0.125
+# The backward kernels round p and ds to the input type before their
+# products, as the JAX kernels do (flash_vjp.py:212, 350), and sum in f32;
+# the plain version computes in f32 and rounds only its outputs.  Each dQ,
+# dK or dV element is a sum of such terms, so it is off by a few roundings
+# of the row's larger terms: held, as the forward, to ROW_TOL of each
+# output row's max.  A wrong mask, tile or group sum moves whole rows by
+# tens of % of their size.
+# A gradient row whose exact value cancels to zero (causal row 0 sees one
+# key: p = 1 and dp = di) holds only the f32 noise of dp - di in either
+# version, so a backward row is measured against at least BWD_FLOOR of the
+# tensor's largest |value|; rows 1000x below the largest stay relative.
+BWD_FLOOR = 2.0 ** -12
+# The 2-layer gradient check holds each parameter's gradient to the plain
+# attention path's in relative Frobenius norm: the two paths' attention
+# outputs and gradients differ by one or two bf16 roundings (2^-9 each)
+# per element, re-rounded through the bf16 products of two layers; over
+# millions of elements that is a few 1e-3.  A dropped tile or a wrong mask
+# moves a gradient by tens of %.
+GRAD_TOL = 2e-2
 SEED = 0
 DEV = "cuda"  # the engine phase's device
+LAYER = (1, 32, 8)  # Llama-3-8B attention: B1, Hq32, Hkv8 (D128)
+TRAIN_S = 2048      # the train batch: B1 x (TRAIN_S + 1) tokens
+# SGD learning rate of the train phase: random N(0, 1/fan_in) bf16 weights
+# need updates above half a bf16 step (~3e-5 at |w| ~ 1/64) to move at all;
+# lm_head's gradient entries are ~1/TRAIN_S ~ 5e-4, so 0.2 moves them by
+# ~1e-4 and raises each target logit by ~0.4 a step
+TRAIN_LR = 0.2
 
 
 def log(msg: str) -> None:
@@ -111,7 +155,8 @@ def phase_build():
     log(f"build: {time.perf_counter() - t0:.2f} s "
         f"(nvcc {_build.build_seconds():.2f} s) -> {_build.library_path()}")
     for line in _build.build_log().splitlines():
-        if "registers" in line or "spill" in line or line.startswith("=="):
+        if ("registers" in line or "spill" in line or line.startswith("==")
+                or "Function properties" in line):
             log(f"  ptxas {line.strip()}")
 
 
@@ -124,23 +169,26 @@ def _err(a, b) -> float:
     return (a.float() - b.float()).abs().max().item()
 
 
-def hold(what, out, plain, lse, plse, tol, worst=None, key=None):
+def hold(what, out, plain, lse, plse, tol, worst=None, key=None,
+         floor=0.0):
     """Hold a kernel's (out, lse) to its plain version's: every row within
-    `tol` of its size, LSE within LSE_TOL, all finite.  Logs the max-abs,
+    `tol` of its size (at least `floor` times the largest |plain|), LSE
+    within LSE_TOL (lse None: no LSE), all finite.  Logs the max-abs,
     row-relative and LSE errors, raises on a failure, and merges them into
     worst[key] (a dict of per-kernel worst errors) when given."""
     o, p = out.float(), plain.float()
     diff = (o - p).abs().amax(dim=-1)
-    size = p.abs().amax(dim=-1)
+    size = p.abs().amax(dim=-1).clamp_min(floor * float(p.abs().max()))
     # a row the plain version gives as zeros must be zeros
     rel = torch.where(diff == 0, torch.zeros_like(diff),
                       diff / size.clamp_min(1e-30))
-    errs = (float(diff.max()), float(rel.max()), _err(lse, plse))
+    errs = (float(diff.max()), float(rel.max()),
+            0.0 if lse is None else _err(lse, plse))
     ok = (errs[1] <= tol and errs[2] <= LSE_TOL
           and bool(torch.isfinite(o).all()))
+    lse_part = "" if lse is None else f", max|lse-plain| {errs[2]:.3e}"
     log(f"{what}: max|out-plain| {errs[0]:.3e}, row-relative {errs[1]:.3e} "
-        f"(<= {tol:.3e}), max|lse-plain| {errs[2]:.3e} "
-        f"{'ok' if ok else 'FAIL'}")
+        f"(<= {tol:.3e}){lse_part} {'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"kernel disagrees with its plain version: "
                              f"{what}")
@@ -151,59 +199,239 @@ def hold(what, out, plain, lse, plse, tol, worst=None, key=None):
 
 
 def check_flash(gen):
+    """The flash forward against its plain version at every mask and at
+    the shape classes of the TPU's _fwd_kernel, _mono_kernel,
+    _causal_kernel and _win_kernel; its times at S512, S2048, the
+    _causal_kernel shape and the S4096 window."""
     from aule_tpu_torch.ops.flash import (flash_attention_fwd,
                                           flash_attention_fwd_plain)
+    from aule_tpu_torch.ops.reference import build_mask
     from aule_tpu_torch.utils import profiling
 
     worst = {}
-    cases = [  # (label, Sq, Sk, causal, window, dtype)
-        ("S512 causal (_fwd_kernel class)", 512, 512, True, -1,
-         torch.bfloat16),
-        ("S2048 causal (_mono_kernel class)", 2048, 2048, True, -1,
-         torch.bfloat16),
-        ("S777 non-causal", 777, 777, False, -1, torch.bfloat16),
-        ("Sq300 Sk900 causal", 300, 900, True, -1, torch.bfloat16),
-        ("Sq300 Sk900 non-causal", 300, 900, False, -1, torch.bfloat16),
-        ("S1024 causal window 256", 1024, 1024, True, 256, torch.bfloat16),
-        ("S1024 non-causal window 256", 1024, 1024, False, 256,
-         torch.bfloat16),
-        ("S512 causal f16", 512, 512, True, -1, torch.float16),
+    bf, fp = torch.bfloat16, torch.float16
+    cases = [  # (label, (B, Hq, Hkv), Sq, Sk, causal, window, dtype)
+        ("S512 causal (_fwd_kernel class)", LAYER, 512, 512, True, -1, bf),
+        ("S2048 causal (_mono_kernel class)", LAYER, 2048, 2048, True, -1,
+         bf),
+        ("B2 Hq16/Hkv4 S2048 causal (_causal_kernel class)", (2, 16, 4),
+         2048, 2048, True, -1, bf),
+        ("S777 non-causal", LAYER, 777, 777, False, -1, bf),
+        ("Sq300 Sk900 causal", LAYER, 300, 900, True, -1, bf),
+        ("Sq300 Sk900 non-causal", LAYER, 300, 900, False, -1, bf),
+        ("S1024 causal window 256", LAYER, 1024, 1024, True, 256, bf),
+        ("S1024 non-causal window 256", LAYER, 1024, 1024, False, 256, bf),
+        ("S4096 causal window 256 (_win_kernel class)", LAYER, 4096, 4096,
+         True, 256, bf),
+        ("S4096 bidirectional window 256 (_win_kernel class)", LAYER, 4096,
+         4096, False, 256, bf),
+        ("S512 causal f16", LAYER, 512, 512, True, -1, fp),
     ]
-    for label, sq, sk, causal, window, dt in cases:
-        q = _randn((1, 32, sq, 128), gen, dt)
-        k = _randn((1, 8, sk, 128), gen, dt)
-        v = _randn((1, 8, sk, 128), gen, dt)
+    for label, (b, hq, hkv), sq, sk, causal, window, dt in cases:
+        q = _randn((b, hq, sq, 128), gen, dt)
+        k = _randn((b, hkv, sk, 128), gen, dt)
+        v = _randn((b, hkv, sk, 128), gen, dt)
         o, lse = flash_attention_fwd(q, k, v, causal=causal,
                                      window_size=window, return_lse=True)
         po, plse = flash_attention_fwd_plain(q, k, v, causal=causal,
                                              window_size=window,
                                              return_lse=True)
         hold(f"flash {label}", o, po, lse, plse, ROW_TOL[dt], worst, "flash")
+        del q, k, v, o, lse, po, plse
 
     timings = {}
-    for s in (512, 2048):
-        q = _randn((1, 32, s, 128), gen)
-        k = _randn((1, 8, s, 128), gen)
-        v = _randn((1, 8, s, 128), gen)
-        kx = k.repeat_interleave(4, dim=1)
-        vx = v.repeat_interleave(4, dim=1)
-        ms = profiling.cuda_time_ms(lambda: flash_attention_fwd(
-            q, k, v, causal=True, return_lse=False), iters=20)
-        plain = profiling.cuda_time_ms(lambda: flash_attention_fwd_plain(
-            q, k, v, causal=True, return_lse=False), iters=20)
-        lib = profiling.cuda_time_ms(lambda: F.scaled_dot_product_attention(
-            q, kx, vx, is_causal=True), iters=20)
-        flops = profiling.attention_flops(1, 32, s, s, 128, causal=True)
+    for key, (b, hq, hkv), s, window in (
+            (512, LAYER, 512, -1), (2048, LAYER, 2048, -1),
+            ("causal class", (2, 16, 4), 2048, -1),
+            ("window", LAYER, 4096, 256)):
+        q = _randn((b, hq, s, 128), gen)
+        k = _randn((b, hkv, s, 128), gen)
+        v = _randn((b, hkv, s, 128), gen)
+        kx = k.repeat_interleave(hq // hkv, dim=1)
+        vx = v.repeat_interleave(hq // hkv, dim=1)
+        kw = dict(causal=True, window_size=window, return_lse=False)
+        ms = profiling.cuda_time_ms(lambda: flash_attention_fwd(q, k, v, **kw),
+                                    iters=20)
+        plain = profiling.cuda_time_ms(
+            lambda: flash_attention_fwd_plain(q, k, v, **kw), iters=20)
+        if window > 0:
+            mask = build_mask(s, s, True, window, device="cuda")
+            lib = profiling.cuda_time_ms(
+                lambda: F.scaled_dot_product_attention(q, kx, vx,
+                                                       attn_mask=mask),
+                iters=20)
+            flops = profiling.window_attention_flops(b, hq, s, 128, window)
+        else:
+            lib = profiling.cuda_time_ms(
+                lambda: F.scaled_dot_product_attention(q, kx, vx,
+                                                       is_causal=True),
+                iters=20)
+            flops = profiling.attention_flops(b, hq, s, s, 128, causal=True)
         nbytes = 2 * (q.numel() * 2 + k.numel() + v.numel())
         bound, by = profiling.bound_ms(nbytes, flops)
-        timings[s] = dict(ms=ms[0], plain_ms=plain[0], library_ms=lib[0],
-                          bound_ms=bound, bound_by=by)
-        log(f"flash time B1 Hq32/Hkv8 S{s} D128 bf16 causal: kernel "
+        timings[key] = dict(ms=ms[0], plain_ms=plain[0], library_ms=lib[0],
+                            bound_ms=bound, bound_by=by)
+        log(f"flash time B{b} Hq{hq}/Hkv{hkv} S{s} D128 bf16 causal"
+            f"{f' window {window}' if window > 0 else ''}: kernel "
             f"{ms[0]:.4f} ms (min {ms[1]:.4f} max {ms[2]:.4f}), "
             f"{flops / ms[0] / 1e9:.1f} TFLOP/s; plain {plain[0]:.4f} ms; "
-            f"sdpa {lib[0]:.4f} ms; bound {bound:.4f} ms ({by})")
+            f"sdpa{' with the window mask' if window > 0 else ''} "
+            f"{lib[0]:.4f} ms; bound {bound:.4f} ms ({by})")
     flash_attention_fwd.launches = 0
     return worst["flash"], timings
+
+
+def _bwd_inputs(gen, shape, sq, sk, causal, window, dt, with_dlse):
+    """q, k, v, do (and dlse) from the generator; o and lse from the
+    forward kernel, as training has them."""
+    from aule_tpu_torch.ops.flash import flash_attention_fwd
+
+    b, hq, hkv = shape
+    q = _randn((b, hq, sq, 128), gen, dt)
+    k = _randn((b, hkv, sk, 128), gen, dt)
+    v = _randn((b, hkv, sk, 128), gen, dt)
+    do = _randn((b, hq, sq, 128), gen, dt)
+    dlse = _randn((b, hq, sq), gen, torch.float32) if with_dlse else None
+    o, lse = flash_attention_fwd(q, k, v, causal=causal, window_size=window,
+                                 return_lse=True)
+    return q, k, v, o, lse, do, dlse
+
+
+def _bwd_timings(gen, shape, s, window):
+    """dQ, dK/dV and the whole backward (delta included) at one causal
+    shape: kernel, plain and bound; the library yardstick is the backward
+    of F.scaled_dot_product_attention on the same tensors (K/V expanded to
+    the q heads; dq, dk, dv in one call), timed only."""
+    from aule_tpu_torch.ops import flash_vjp as fv
+    from aule_tpu_torch.ops.reference import build_mask
+    from aule_tpu_torch.utils import profiling
+
+    b, hq, hkv = shape
+    q, k, v, o, lse, do, _ = _bwd_inputs(gen, shape, s, s, True, window,
+                                         torch.bfloat16, False)
+    di = fv.attention_delta(o, do)
+    kw = dict(causal=True, window=window)
+    if window > 0:
+        fwd_flops = profiling.window_attention_flops(b, hq, s, 128, window)
+        mask = dict(attn_mask=build_mask(s, s, True, window, device="cuda"))
+    else:
+        fwd_flops = profiling.attention_flops(b, hq, s, s, 128, causal=True)
+        mask = dict(is_causal=True)
+    qx = q.detach().requires_grad_(True)
+    kx = k.repeat_interleave(hq // hkv, dim=1).requires_grad_(True)
+    vx = v.repeat_interleave(hq // hkv, dim=1).requires_grad_(True)
+    ref = F.scaled_dot_product_attention(qx, kx, vx, **mask)
+    lib = profiling.cuda_time_ms(lambda: torch.autograd.grad(
+        ref, (qx, kx, vx), do, retain_graph=True), iters=20)
+    qkvdo = 2 * (2 * q.numel() + k.numel() + v.numel())  # bytes
+    stats = 4 * lse.numel()
+    out = {}
+    for name, fn, plain, flops, nbytes in (
+            ("dq", lambda: fv.flash_bwd_dq(q, k, v, do, lse, di, **kw),
+             lambda: fv.flash_bwd_dq_plain(q, k, v, do, lse, di, **kw),
+             profiling.attention_bwd_flops(fwd_flops, 3),
+             qkvdo + 2 * q.numel() + 2 * stats),
+            ("dkv", lambda: fv.flash_bwd_dkv(q, k, v, do, lse, di, **kw),
+             lambda: fv.flash_bwd_dkv_plain(q, k, v, do, lse, di, **kw),
+             profiling.attention_bwd_flops(fwd_flops, 4),
+             qkvdo + 2 * (k.numel() + v.numel()) + 2 * stats),
+            ("both", lambda: fv.flash_attention_bwd(q, k, v, o, lse, do,
+                                                    **kw),
+             lambda: fv.flash_attention_bwd_plain(q, k, v, o, lse, do, **kw),
+             profiling.attention_bwd_flops(fwd_flops),
+             qkvdo + 2 * o.numel() + 2 * q.numel()
+             + 2 * (k.numel() + v.numel()) + stats)):
+        ms = profiling.cuda_time_ms(fn, iters=20)
+        plain_ms = profiling.cuda_time_ms(plain, iters=20)
+        bound, by = profiling.bound_ms(nbytes, flops)
+        out[name] = dict(ms=ms[0], plain_ms=plain_ms[0], library_ms=lib[0],
+                         bound_ms=bound, bound_by=by, gflop=flops / 1e9,
+                         mbytes=nbytes / 1e6)
+        log(f"flash bwd time {name} B{b} Hq{hq}/Hkv{hkv} S{s} D128 bf16 "
+            f"causal{f' window {window}' if window > 0 else ''}: kernel "
+            f"{ms[0]:.4f} ms (min {ms[1]:.4f} max {ms[2]:.4f}), "
+            f"{flops / ms[0] / 1e9:.1f} TFLOP/s of {flops / 1e9:.1f} GFLOP; "
+            f"plain {plain_ms[0]:.4f} ms; sdpa backward {lib[0]:.4f} ms; "
+            f"bound {bound:.4f} ms ({by}; {nbytes / 1e6:.1f} MB)")
+    del ref, qx, kx, vx
+    return out
+
+
+def check_flash_bwd(gen):
+    """The dQ and dK/dV kernels against their plain versions at every mask
+    the forward takes (every output row within ROW_TOL of its size), two
+    runs bitwise equal, `flash_attention_bwd` on a non-contiguous do equal
+    to the two kernels; times at the Llama-3-8B layer, bench.py's B4 row
+    and the S4096 window.  Returns the worst errors and the times."""
+    from aule_tpu_torch.ops import flash_vjp as fv
+
+    bf, fp = torch.bfloat16, torch.float16
+    cases = [  # (label, (B, Hq, Hkv), Sq, Sk, causal, window, dtype, dlse)
+        ("Llama-3-8B layer S2048 causal", LAYER, 2048, 2048, True, -1, bf,
+         False),
+        ("bench.py fwd+bwd row B4 Hq32/Hkv8 S2048 causal", (4, 32, 8), 2048,
+         2048, True, -1, bf, False),
+        ("ragged S1000 causal", LAYER, 1000, 1000, True, -1, bf, False),
+        ("Sq300 Sk900 causal", LAYER, 300, 900, True, -1, bf, False),
+        ("Sq900 Sk300 causal", LAYER, 900, 300, True, -1, bf, False),
+        ("Sq300 Sk900 non-causal", LAYER, 300, 900, False, -1, bf, False),
+        ("S777 non-causal", LAYER, 777, 777, False, -1, bf, False),
+        ("group 1 Hq8/Hkv8 S777 causal", (1, 8, 8), 777, 777, True, -1, bf,
+         False),
+        ("group 2 Hq16/Hkv8 S1000 causal", (1, 16, 8), 1000, 1000, True, -1,
+         bf, False),
+        ("group 8 Hq64/Hkv8 S1000 causal", (1, 64, 8), 1000, 1000, True, -1,
+         bf, False),
+        ("f16 S1000 causal", LAYER, 1000, 1000, True, -1, fp, False),
+        ("non-zero dlse S1000 causal", LAYER, 1000, 1000, True, -1, bf,
+         True),
+        ("S4096 causal window 256 (_win_dq/_win_dkv class)", LAYER, 4096,
+         4096, True, 256, bf, False),
+        ("S4096 bidirectional window 256", LAYER, 4096, 4096, False, 256, bf,
+         False),
+        ("Sq700 Sk300 non-causal window 100 (rows that see nothing)", LAYER,
+         700, 300, False, 100, bf, True),
+    ]
+    worst = {}
+    for label, shape, sq, sk, causal, window, dt, with_dlse in cases:
+        q, k, v, o, lse, do, dlse = _bwd_inputs(gen, shape, sq, sk, causal,
+                                                window, dt, with_dlse)
+        di = fv.attention_delta(o, do, dlse)
+        kw = dict(causal=causal, window=window)
+        dq = fv.flash_bwd_dq(q, k, v, do, lse, di, **kw)
+        dk, dv = fv.flash_bwd_dkv(q, k, v, do, lse, di, **kw)
+        pdq = fv.flash_bwd_dq_plain(q, k, v, do, lse, di, **kw)
+        hold(f"flash bwd dQ {label}", dq, pdq, None, None, ROW_TOL[dt],
+             worst, "dq", BWD_FLOOR)
+        del pdq
+        pdk, pdv = fv.flash_bwd_dkv_plain(q, k, v, do, lse, di, **kw)
+        hold(f"flash bwd dK {label}", dk, pdk, None, None, ROW_TOL[dt],
+             worst, "dkv", BWD_FLOOR)
+        hold(f"flash bwd dV {label}", dv, pdv, None, None, ROW_TOL[dt],
+             worst, "dkv", BWD_FLOOR)
+        del pdk, pdv
+        # deterministic: no atomics, a fixed order of every sum
+        dq2 = fv.flash_bwd_dq(q, k, v, do, lse, di, **kw)
+        dk2, dv2 = fv.flash_bwd_dkv(q, k, v, do, lse, di, **kw)
+        if not (torch.equal(dq, dq2) and torch.equal(dk, dk2)
+                and torch.equal(dv, dv2)):
+            raise AssertionError(f"flash bwd {label}: two runs differ")
+        # the whole backward from a transposed (non-contiguous) do, as the
+        # heads merge hands it over, gives the kernels' bits
+        do_t = do.transpose(1, 2).contiguous().transpose(1, 2)
+        got = fv.flash_attention_bwd(q, k, v, o, lse, do_t, dlse=dlse, **kw)
+        if not all(torch.equal(a, b) for a, b in zip(got, (dq, dk, dv))):
+            raise AssertionError(f"flash bwd {label}: flash_attention_bwd "
+                                 f"differs from its two kernels")
+        del q, k, v, o, lse, do, dlse, di, dq, dk, dv, dq2, dk2, dv2, got
+    log("flash bwd: every case bitwise equal over two runs and through "
+        "flash_attention_bwd")
+    timings = {"layer": _bwd_timings(gen, LAYER, 2048, -1),
+               "B4": _bwd_timings(gen, (4, 32, 8), 2048, -1),
+               "window": _bwd_timings(gen, LAYER, 4096, 256)}
+    fv.flash_bwd_dq.launches = fv.flash_bwd_dkv.launches = 0
+    torch.cuda.empty_cache()
+    return worst, timings
 
 
 def _decode_inputs(gen, lens, max_pages, page=16, shuffle=False, hq=32,
@@ -598,7 +826,7 @@ def check_plain_forward(params, cfg, prompts, outputs, label):
     """Teacher-forced plain forward (flash's plain version) over prompt +
     output: the check of the bf16 runs."""
     from aule_tpu_torch.models import llama
-    from aule_tpu_torch.ops.flash import flash_attention_fwd_plain
+    from aule_tpu_torch.ops.flash_vjp import flash_attention_vjp_plain
 
     agree = _Agreement(label)
     with torch.no_grad():
@@ -606,7 +834,7 @@ def check_plain_forward(params, cfg, prompts, outputs, label):
             seq = np.concatenate([p, np.asarray(out[:-1], np.int32)])
             tokens = torch.from_numpy(seq.astype(np.int64))[None].to(DEV)
             logits = llama.forward(params, tokens, cfg,
-                                   attention=flash_attention_fwd_plain)[0]
+                                   attention=flash_attention_vjp_plain)[0]
             agree.add(logits[len(p) - 1:], torch.tensor(out, device=DEV),
                       f"request {i} (prompt {len(p)})")
             del logits
@@ -620,7 +848,7 @@ def check_replay(params, cfg, prompts, outputs, label, quant_dtype, chunk):
     forward plus the quantized append), then all requests decode together
     through decode_step_fused, fed the engine's tokens."""
     from aule_tpu_torch.models import llama
-    from aule_tpu_torch.ops.flash import flash_attention_fwd_plain
+    from aule_tpu_torch.ops.flash_vjp import flash_attention_vjp_plain
     from aule_tpu_torch.ops.paged_fused import (
         fused_pool_shape, fused_scales_shape, kv_cache_append_prefill_fused,
         paged_attention_fused_plain)
@@ -666,7 +894,7 @@ def check_replay(params, cfg, prompts, outputs, label, quant_dtype, chunk):
             else:
                 full, kv = llama.forward(
                     params, tokens, cfg, rope_cos=cos, rope_sin=sin,
-                    return_kv=True, attention=flash_attention_fwd_plain)
+                    return_kv=True, attention=flash_attention_vjp_plain)
                 for li, (k, v) in enumerate(kv):
                     kv_cache_append_prefill_fused(
                         pools[li], k, v, bt[i:i + 1], one(0), one(n),
@@ -733,6 +961,8 @@ def phase_engine():
 
 
 CATEGORIES = {"flash_fwd": ["flash_fwd_kernel"],
+              "flash_bwd_dq": ["flash_bwd_dq_kernel"],
+              "flash_bwd_dkv": ["flash_bwd_dkv_kernel"],
               "paged_decode": ["paged_decode_kernel"],
               "paged_prefill": ["paged_prefill_kernel"],
               "gemm": ["gemm", "nvjet", "cutlass", "xmma"],
@@ -784,6 +1014,134 @@ def phase_breakdown(params, cfg) -> None:
         torch.cuda.empty_cache()
 
 
+def check_grads(params, cfg, tokens) -> None:
+    """Every parameter's gradient of loss_fn through the kernels against
+    the plain path's (flash_attention_fwd_plain + flash_attention_bwd_plain
+    on the card), on the same weights cut to 2 layers (views, full width);
+    relative Frobenius error within GRAD_TOL, all finite."""
+    import dataclasses
+
+    from aule_tpu_torch.models import llama
+    from aule_tpu_torch.ops.flash_vjp import (flash_attention_vjp,
+                                              flash_attention_vjp_plain)
+
+    small = dict(params, layers=params["layers"][:2])
+    cfg2 = dataclasses.replace(cfg, n_layers=2)
+    tensors = list(llama._tensors(small))
+    names = ["embed", "final_norm", "lm_head"] + [  # llama._tensors' order
+        f"layers.{li}.{key}" for li, layer in enumerate(small["layers"])
+        for key in layer]
+    got = {}
+    for name, attention in (("kernel", flash_attention_vjp),
+                            ("plain", flash_attention_vjp_plain)):
+        loss = llama.loss_fn(small, tokens, cfg2, attention=attention)
+        got[name] = (float(loss.detach()),
+                     torch.autograd.grad(loss, tensors))
+        del loss
+    worst, worst_name = 0.0, ""
+    for name, g, r in zip(names, got["kernel"][1], got["plain"][1]):
+        rel = float((g.float() - r.float()).norm() / r.float().norm())
+        if not (bool(torch.isfinite(g).all()) and rel <= GRAD_TOL):
+            raise AssertionError(f"gradient check: {name} relative error "
+                                 f"{rel:.3e} (<= {GRAD_TOL}) or not finite")
+        if rel >= worst:
+            worst, worst_name = rel, name
+    log(f"train gradient check, 2 layers full width S{TRAIN_S}: loss kernel "
+        f"{got['kernel'][0]:.6f} plain {got['plain'][0]:.6f}; "
+        f"{len(tensors)} gradients, largest relative Frobenius error "
+        f"{worst:.3e} ({worst_name}) <= {GRAD_TOL} ok")
+    del got
+    torch.cuda.empty_cache()
+
+
+def phase_train(params, cfg) -> dict:
+    """Three SGD steps of the full-width, full-depth model on one batch of
+    B1 x (TRAIN_S + 1) tokens (after the 2-layer gradient check): step 1
+    warms up and checks every gradient finite, step 2 is timed with CUDA
+    events, step 3 runs under torch.profiler; every step launches the
+    forward, dQ and dK/dV kernels once per layer, and the loss falls.
+    Returns the backward kernels' launches per step."""
+    from aule_tpu_torch.models import llama
+    from aule_tpu_torch.ops.flash import flash_attention_fwd
+    from aule_tpu_torch.ops.flash_vjp import flash_bwd_dkv, flash_bwd_dq
+    from aule_tpu_torch.utils import profiling
+
+    rng = np.random.default_rng(SEED + 2)
+    tokens = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, size=(1, TRAIN_S + 1))).to(DEV)
+    tensors = list(llama._tensors(params))
+    for t in tensors:
+        t.requires_grad_(True)
+    check_grads(params, cfg, tokens)
+
+    counters = {"flash_fwd": flash_attention_fwd,
+                "flash_bwd_dq": flash_bwd_dq, "flash_bwd_dkv": flash_bwd_dkv}
+    matmul_params = sum(t.numel() for t in tensors if t.dim() == 2) \
+        - params["embed"].numel()  # the embedding is a gather
+    flops = profiling.train_step_flops(
+        matmul_params, TRAIN_S, cfg.n_layers * profiling.attention_flops(
+            1, cfg.n_heads, TRAIN_S, TRAIN_S, cfg.head_dim, causal=True))
+    losses, launches = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for step in range(3):
+        bad, hooks = [], []
+        if step == 0:  # every gradient finite, read before its update
+            hooks = [t.register_post_accumulate_grad_hook(
+                lambda t: bad.append(~torch.isfinite(t.grad).all()))
+                for t in tensors]
+        for fn in counters.values():
+            fn.launches = 0
+        out = []
+        if step == 2:  # its time: the wall under the profiler
+            bd = profiling.device_breakdown(lambda: out.append(
+                llama.train_step(params, tokens, cfg, lr=TRAIN_LR)),
+                CATEGORIES)
+            ms = bd["wall_ms"]
+        else:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out.append(llama.train_step(params, tokens, cfg, lr=TRAIN_LR))
+            end.record()
+            torch.cuda.synchronize()
+            ms = start.elapsed_time(end)
+        losses.append(float(out[0][1]))
+        launches.append({n: fn.launches for n, fn in counters.items()})
+        for h in hooks:
+            h.remove()
+        if step == 0:
+            if len(bad) != len(tensors) or bool(torch.stack(bad).any()):
+                raise AssertionError("train step 1: a gradient is not finite")
+            log(f"train step 1: all {len(tensors)} gradients finite")
+        if step == 1:
+            step_ms = ms
+        log(f"train step {step + 1}: loss {losses[-1]:.6f}, {ms:.2f} ms"
+            f"{' (wall under torch.profiler)' if step == 2 else ''}; launches "
+            f"{launches[-1]}")
+        want = {n: cfg.n_layers for n in counters}
+        if launches[-1] != want:
+            raise AssertionError(f"train step {step + 1}: launches "
+                                 f"{launches[-1]} != {want}")
+    peak = torch.cuda.max_memory_allocated()
+    with torch.no_grad():
+        losses.append(float(llama.loss_fn(params, tokens, cfg)))
+    log(f"train: loss after 3 steps {losses[-1]:.6f} (lr {TRAIN_LR})")
+    if not (all(math.isfinite(x) for x in losses)
+            and all(a > b for a, b in zip(losses, losses[1:]))):
+        raise AssertionError(f"train: the loss did not fall at every step: "
+                             f"{losses}")
+    log(f"train: dim {cfg.dim}, {cfg.n_layers} layers, B1 S{TRAIN_S} "
+        f"{cfg.dtype}, SGD lr {TRAIN_LR}: step {step_ms:.2f} ms (CUDA events, "
+        f"after one warm-up step), {TRAIN_S / step_ms * 1e3:.0f} tokens/s, "
+        f"{flops / 1e12:.2f} TFLOP a step = {flops / step_ms / 1e9:.1f} "
+        f"TFLOP/s, {100 * flops / step_ms / 1e9 / 989:.1f} % of the 989 "
+        f"TFLOP/s bf16 peak; max memory allocated {peak / 2**30:.2f} GiB "
+        f"({peak / 1e9:.2f} GB)")
+    _log_breakdown("train step 3 (one SGD step)", bd)
+    return {n: [x[n] for x in launches] for n in counters}
+
+
 def _entry(name, source, replaces, launches, err, t, shape, **extra):
     return dict(name=name, route="cuda", source=source, replaces=replaces,
                 launches=launches, max_abs_err=err[0], max_row_rel_err=err[1],
@@ -803,6 +1161,8 @@ def main() -> None:
     check_groups(gen, decode_err, prefill_err)
     runs, params, cfg = phase_engine()
     phase_breakdown(params, cfg)
+    bwd_err, bwd_t = check_flash_bwd(gen)
+    train = phase_train(params, cfg)  # last: it rewrites the weights
     del params
     log(card_line())
 
@@ -830,7 +1190,14 @@ def main() -> None:
              flash_t[2048], "B1 Hq32/Hkv8 S2048 D128 bf16 causal",
              "aule_tpu_torch/csrc/flash_fwd.cu",
              "aule_tpu/ops/flash.py:92 (_fwd_kernel); "
-             "aule_tpu/ops/flash.py:638 (_mono_kernel)", {}),
+             "aule_tpu/ops/flash.py:638 (_mono_kernel); "
+             "aule_tpu/ops/flash.py:964 (_causal_kernel, its class checked "
+             "and timed); aule_tpu/ops/flash.py:479 (_win_kernel, its class "
+             "checked and timed)",
+             {"launches_per_train_step": train["flash_fwd"],
+              "time_causal_kernel_class_B2_Hq16_Hkv4_S2048":
+                  flash_t["causal class"],
+              "time_window_256_S4096": flash_t["window"]}),
             ("paged_decode", "paged_decode", ("whole bf16", "a"),
              decode_err["bf16"], decode_t["bf16"],
              decode_shape + " bf16 (f16 checked too)", decode_src,
@@ -860,6 +1227,27 @@ def main() -> None:
         total, by_run = launched(kernel, *keys)
         entries.append(_entry(name, src, row, total, err, t, shape,
                               launches_by_run=by_run, **extra))
+    # The backward kernels run on the train phase: launches per step.
+    bwd_src = "aule_tpu_torch/csrc/flash_bwd.cu"
+    for name, key, row in (
+            ("flash_bwd_dq", "dq", "aule_tpu/ops/flash_vjp.py:127 "
+             "(_dq_kernel); aule_tpu/ops/flash_vjp.py:378 (_win_dq_kernel, "
+             "its class checked and timed)"),
+            ("flash_bwd_dkv", "dkv", "aule_tpu/ops/flash_vjp.py:271 "
+             "(_dkv_kernel); aule_tpu/ops/flash_vjp.py:464 "
+             "(_win_dkv_kernel, its class checked and timed)")):
+        by_step = train[name]
+        if 0 in by_step:
+            raise AssertionError(f"{name} was not launched in a train step")
+        err = bwd_err[key][:2] + (None,)
+        entries.append(_entry(
+            name, bwd_src, row, sum(by_step), err, bwd_t["layer"][key],
+            f"B1 Hq32/Hkv8 S{TRAIN_S} D128 bf16 causal (library: the "
+            f"backward of F.scaled_dot_product_attention, dq, dk and dv "
+            f"together)", launches_per_train_step=by_step,
+            time_whole_backward=bwd_t["layer"]["both"],
+            time_B4_S2048=bwd_t["B4"][key],
+            time_window_256_S4096=bwd_t["window"][key]))
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

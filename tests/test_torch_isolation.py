@@ -38,7 +38,8 @@ def test_no_jax_imports(path):
 
 def test_engine_import_leaves_jax_out():
     code = ("import sys, aule_tpu_torch.serving.engine, "
-            "aule_tpu_torch.ops.flash, aule_tpu_torch.ops.paged_fused, "
+            "aule_tpu_torch.ops.flash, aule_tpu_torch.ops.flash_vjp, "
+            "aule_tpu_torch.ops.paged_fused, "
             "aule_tpu_torch.ops.paged_prefill, aule_tpu_torch.ops.quant; "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'aule_tpu')))")

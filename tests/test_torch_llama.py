@@ -4,7 +4,9 @@
 `load_jax_params`, and `forward` (logits and the returned rotated K / V),
 `decode_step_fused` and `prefill_step_fused` (logits; pools at 1e-4, or
 bytewise for quantized pools and their scale tiles) agree with aule_tpu's
-at 1e-4.
+at 1e-4.  The trainer: `loss_fn` at 1e-5, every parameter's gradient at
+1e-4 against `jax.grad(loss_fn)`, and two `train_step`s (loss and
+parameters) at 1e-4.
 """
 
 import jax
@@ -17,7 +19,8 @@ from aule_tpu.models import llama as jllama
 from aule_tpu.ops.paged_fused import fused_pool_shape, fused_scales_shape
 from aule_tpu.ops.rope import precompute_rope_frequencies as jrope
 from aule_tpu_torch.models import llama as tllama
-from aule_tpu_torch.ops.flash import flash_attention_fwd_plain
+from aule_tpu_torch.ops import flash_vjp
+from aule_tpu_torch.ops.flash_vjp import flash_attention_vjp_plain
 from aule_tpu_torch.ops.paged_fused import paged_attention_fused_plain
 from aule_tpu_torch.ops.paged_prefill import paged_attention_prefill_plain
 from aule_tpu_torch.ops.rope import precompute_rope_frequencies as trope
@@ -72,7 +75,7 @@ def test_forward_attention_hook_is_the_plain_version(params):
     _, tp = params
     tokens = torch.arange(10)[None]
     a = tllama.forward(tp, tokens, TCFG)
-    b = tllama.forward(tp, tokens, TCFG, attention=flash_attention_fwd_plain)
+    b = tllama.forward(tp, tokens, TCFG, attention=flash_attention_vjp_plain)
     assert torch.equal(a, b)  # on the CPU the wrapper IS the plain version
 
 
@@ -288,8 +291,91 @@ def test_load_jax_params_bf16(params):
             jnp.float32))))
 
 
-def test_forward_refuses_grad(params):
+def _train_tokens(seed=7):
+    return np.random.default_rng(seed).integers(
+        0, JCFG.vocab_size, size=(2, 17)).astype(np.int32)
+
+
+def _own_params(jp):
+    """A private copy of the JAX params on the port's side (train_step
+    updates in place)."""
+    return tllama.load_jax_params(jax.tree.map(np.asarray, jp), device="cpu")
+
+
+def _pairs(jtree, tparams):
+    """(name, JAX array, port tensor) over every parameter."""
+    for name in ("embed", "final_norm", "lm_head"):
+        yield name, jtree[name], tparams[name]
+    for li, (jl, tl) in enumerate(zip(jtree["layers"], tparams["layers"])):
+        for key in jl:
+            yield f"layers.{li}.{key}", jl[key], tl[key]
+
+
+def test_loss_fn_matches_jax(params):
+    jp, tp = params
+    tokens = _train_tokens()
+    jl = jllama.loss_fn(jp, jnp.asarray(tokens), JCFG)
+    tl = tllama.loss_fn(tp, torch.from_numpy(tokens).long(), TCFG)
+    assert tl.dtype == torch.float32 and tl.dim() == 0
+    assert_close(tl, np.asarray(jl), 0, 1e-5, "loss")
+
+
+def test_gradients_match_jax(params):
+    """Every parameter's gradient of loss_fn through the port's flash
+    attention (its plain backward on the CPU) against jax.grad through
+    the Pallas backward kernels."""
+    jp, _ = params
+    tokens = _train_tokens()
+    jg = jax.grad(jllama.loss_fn)(jp, jnp.asarray(tokens), JCFG)
+    tp = _own_params(jp)
+    for t in tllama._tensors(tp):
+        t.requires_grad_(True)
+    tllama.loss_fn(tp, torch.from_numpy(tokens).long(), TCFG).backward()
+    for name, g, t in _pairs(jg, tp):
+        assert t.grad is not None, name
+        assert_close(t.grad, np.asarray(g), 1e-4, 1e-4, f"grad {name}")
+
+
+def test_train_steps_match_jax(params):
+    """Two SGD steps at lr 0.5 (as tests/test_model.py): the same losses
+    and parameters as JAX's train_step, and the loss falls."""
+    jp, _ = params
+    tokens = _train_tokens()
+    tp = _own_params(jp)
+    jlosses, tlosses = [], []
+    for _ in range(2):
+        jp, jl = jllama.train_step(jp, jnp.asarray(tokens), JCFG, lr=0.5)
+        out, tl = tllama.train_step(tp, torch.from_numpy(tokens).long(),
+                                    TCFG, lr=0.5)
+        assert out is tp and tl.grad_fn is None
+        jlosses.append(float(jl))
+        tlosses.append(float(tl))
+    assert_close(np.array(tlosses), np.array(jlosses), 0, 1e-4, "losses")
+    assert tlosses[1] < tlosses[0]
+    for name, j, t in _pairs(jp, tp):
+        assert t.grad is None, name  # freed after the update
+        assert_close(t.detach(), np.asarray(j), 1e-4, 1e-4, name)
+
+
+def test_no_grad_forward_skips_the_lse(params, monkeypatch):
+    """Under torch.no_grad() (the engine's step), forward launches the
+    flash forward without its LSE; with grad, with it."""
     _, tp = params
-    grad = dict(tp, lm_head=tp["lm_head"].clone().requires_grad_(True))
-    with pytest.raises(NotImplementedError):
-        tllama.forward(grad, torch.zeros(1, 4, dtype=torch.long), TCFG)
+    calls = []
+    fwd = flash_vjp.flash_attention_fwd
+
+    def spy(*args, **kw):
+        calls.append(kw["return_lse"])
+        return fwd(*args, **kw)
+
+    monkeypatch.setattr(flash_vjp, "flash_attention_fwd", spy)
+    tokens = torch.arange(12)[None]
+    with torch.no_grad():
+        tllama.forward(tp, tokens, TCFG)
+    assert calls == [False] * TCFG.n_layers
+    calls.clear()
+    grad = dict(tp, layers=[dict(layer, wq=layer["wq"].clone()
+                                 .requires_grad_(True))
+                            for layer in tp["layers"]])
+    tllama.forward(grad, tokens, TCFG).sum().backward()
+    assert calls == [True] * TCFG.n_layers
