@@ -3,8 +3,8 @@
 The TPU tile tables and the `AULE_FLASH_*` schedule knobs have no
 counterpart here: the Hopper kernels pick their tiles in the CUDA source.
 What remains is the mask convention shared with the JAX kernels, the
-serving page size, the int8 decode setting and the device rule of the
-entry points.
+serving and paged-cache defaults, the int8 decode setting and the device
+rule of the entry points.
 """
 
 from __future__ import annotations
@@ -18,8 +18,12 @@ import torch
 # aule_tpu/ops/flash.py:43 (finite, so m - m never makes a NaN).
 DEFAULT_MASK_VALUE = -0.7 * float(np.finfo(np.float32).max)
 
-# serving defaults (aule_tpu/config.py:196-199)
+# serving and paged-cache defaults (aule_tpu/config.py:196-199);
+# serving/kv_cache.PagedKVCache reads the last three at each call
 PAGE_SIZE = 16
+INITIAL_PAGES = 512
+MAX_PAGES = 8192
+MAX_PAGES_PER_SEQ = 256
 
 
 def int8_exact() -> bool:

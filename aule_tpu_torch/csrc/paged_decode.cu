@@ -1,21 +1,33 @@
-// Fused-layout paged decode for Hopper (sm_90a), hand-written CUDA C++.
-//
-// Replaces the TPU kernel aule_tpu/ops/paged_fused.py::_fused_decode_kernel
-// in every pool mode: one query token per sequence attends over its
-// sequence's pages of the fused pool kv_pages [P, 2, Hkv, page, D] (axis 1:
-// 0 = K, 1 = V), through block_tables [B, max_pages] (-1 clamps to the
-// scratch page 0), over the first context_lens[b] tokens, optionally only
-// the trailing `window` of them ((len - 1 - pos) < W).  A sequence with
-// context 0 gives zeros and LSE -0.7 * f32max.
+// Paged decode for Hopper (sm_90a), hand-written CUDA C++, over either pool
+// layout of the port (the kernel's template parameter L):
+//   * FusedPool: kv_pages [P, 2, Hkv, page, D] (axis 1: 0 = K, 1 = V) with
+//     the packed scale tile; replaces the TPU kernel
+//     aule_tpu/ops/paged_fused.py::_fused_decode_kernel in every pool mode;
+//   * SplitPools: head-major k_pages and v_pages [Hkv, P, page, D] with f32
+//     scales [Hkv, P, page] each; replaces the TPU kernel
+//     aule_tpu/ops/paged.py::_paged_decode_kernel (native, int8 and e4m3
+//     pools; that kernel has no int8 dot-product mode).  The pools are read
+//     where they lie: the JAX package's TPU route converts quantized split
+//     pools to the fused layout on every call, which the port does not.
+// One query token per sequence attends over its sequence's pages through
+// block_tables [B, max_pages] (-1 clamps to the scratch page 0), over the
+// first context_lens[b] tokens, optionally only the trailing `window` of
+// them ((len - 1 - pos) < W).  A sequence with context 0 gives zeros and
+// LSE -0.7 * f32max.  In both layouts one (head, page) slab [page, D] is
+// contiguous, so the two differ only in where a token's rows and scales
+// lie; the loop, and so the arithmetic, is the same: a bf16 split pool
+// gives the bits of the same pool in the fused layout.
 //
 // Pool modes (common.cuh kPool*):
 //   * native: the pool holds bf16 / f16, the q/out type;
 //   * int8 and e4m3 with a packed scale tile sc [P, page, 128] (row = slot,
-//     lane = kv * 64 + h; bf16 or f32): the payload converts exactly to f32
-//     in registers (e4m3 through cvt.rn.f16x2.e4m3x2), the K scale
-//     multiplies the score, the V scale multiplies p before the PV sum, and
-//     l sums the unscaled p (paged_fused.py:349-447);
-//   * int8 dot products (int8 pools, the JAX package's int8_matmul default):
+//     lane = kv * 64 + h; bf16 or f32), or split f32 scales: the payload
+//     converts exactly to f32 in registers (e4m3 through
+//     cvt.rn.f16x2.e4m3x2), the K scale multiplies the score, the V scale
+//     multiplies p before the PV sum, and l sums the unscaled p
+//     (paged_fused.py:349-447, paged.py:222-223, 250-251);
+//   * int8 dot products (fused int8 pools, the JAX package's int8_matmul
+//     default):
 //     q arrives quantized per row (int8 plus qf = q scale x softmax scale,
 //     from the wrapper, as paged_fused.py:549-560); the score is __dp4a over
 //     int8 K with exact int32 sums, times qf * K scale; p * V scale is
@@ -28,7 +40,9 @@
 // What bounds it on the H100: every live K and V byte is read once and
 // used for a handful of operations, so it is memory bound.  At B8 ctx4096
 // Hkv8 D128 the live KV is 134 MB per layer in bf16 (40 us at 3.35 TB/s),
-// 67 MB of int8 or e4m3 payload plus 8.4 MB of bf16 scales (22.5 us).
+// 67 MB of int8 or e4m3 payload plus 1.0 MB of the bf16 scales a token
+// needs in the fused tile (20.4 us), or plus 2.1 MB of f32 split scales
+// (20.7 us).
 // What the design does about it:
 //   * one block per (sequence, kv head) reads that head's K/V slabs of
 //     each page once and serves all Hq/Hkv q rows of the GQA group from
@@ -88,20 +102,34 @@ constexpr size_t smem_floats(int n) {
   return (size_t)n * D * (NWORKERS + 1) + 2 * NWORKERS * n;
 }
 
+// The pool layouts (the kernel's L).  Their names tell the two apart in a
+// profiler's kernel list.
+struct FusedPool {
+  static constexpr bool kSplit = false;
+};
+struct SplitPools {
+  static constexpr bool kSplit = true;
+};
+
 // q, out: [B, Hq, D] (q int8 in the int8-dot mode, with qf [B, Hq]);
-// kv: [P, 2, Hkv, page, D] bytes; sc: [P, page, 128] or null;
-// lse: [B, Hq] or null.  Grid: (Hkv, B).  G = Hq / Hkv.
-template <typename T, int POOL, int G>
+// lse: [B, Hq] or null.  FusedPool: kv [P, 2, Hkv, page, D] bytes, sc the
+// packed tile [P, page, 128] (bf16 or f32 by sc_f32) or null; v_pages,
+// v_scales and num_pages unused.  SplitPools: kv the K pool and v_pages the
+// V pool [Hkv, P, page, D] bytes, sc and v_scales their f32 scales
+// [Hkv, P, page] or null.  Grid: (Hkv, B).  G = Hq / Hkv.
+template <typename T, int POOL, int G, typename L>
 __global__ void __launch_bounds__(NTHREADS)
     paged_decode_kernel(const void* __restrict__ q,
                         const float* __restrict__ qf,
                         const uint8_t* __restrict__ kv,
-                        const void* __restrict__ sc, int sc_f32,
+                        const uint8_t* __restrict__ v_pages,
+                        const void* __restrict__ sc,
+                        const float* __restrict__ v_scales, int sc_f32,
                         const int* __restrict__ block_tables,
                         const int* __restrict__ context_lens,
                         T* __restrict__ out, float* __restrict__ lse, int Hkv,
-                        int page_size, int max_pages, float scale,
-                        int window) {
+                        int num_pages, int page_size, int max_pages,
+                        float scale, int window) {
   using R = typename Raw<POOL>::type;
   constexpr int ESZ = (POOL == kPoolNative) ? 2 : 1;  // bytes per element
   constexpr bool QUANT = POOL != kPoolNative;
@@ -152,6 +180,8 @@ __global__ void __launch_bounds__(NTHREADS)
   const size_t page_elems = (size_t)2 * Hkv * page_size * D;
   const size_t head_off = (size_t)hk * page_size * D + d0;
   const size_t v_off = (size_t)Hkv * page_size * D;
+  // split pools: row 0 of this head's page 0 (rows count tokens)
+  const size_t head_row0 = (size_t)hk * num_pages * page_size;
 
   float acc[G][8], m[G], l[G];
 #pragma unroll
@@ -179,16 +209,27 @@ __global__ void __launch_bounds__(NTHREADS)
       if (ok[i]) {
         const int page = max(bt[tok / page_size], 0);
         const int slot = tok % page_size;
-        const uint8_t* p =
-            kv + ((size_t)page * page_elems + head_off + (size_t)slot * D) *
-                     ESZ;
-        kr[i] = __ldg(reinterpret_cast<const R*>(p));
-        vr[i] = __ldg(reinterpret_cast<const R*>(p + v_off * ESZ));
-        if constexpr (QUANT) {
-          const size_t si =
-              ((size_t)page * page_size + slot) * kScaleLanes + hk;
-          ksc[i] = load_scale(sc, si, sc_f32);
-          vsc[i] = load_scale(sc, si + kScaleKVStride, sc_f32);
+        if constexpr (L::kSplit) {
+          const size_t row = head_row0 + (size_t)page * page_size + slot;
+          const size_t off = (row * D + d0) * ESZ;
+          kr[i] = __ldg(reinterpret_cast<const R*>(kv + off));
+          vr[i] = __ldg(reinterpret_cast<const R*>(v_pages + off));
+          if constexpr (QUANT) {
+            ksc[i] = __ldg(static_cast<const float*>(sc) + row);
+            vsc[i] = __ldg(v_scales + row);
+          }
+        } else {
+          const uint8_t* p =
+              kv + ((size_t)page * page_elems + head_off + (size_t)slot * D) *
+                       ESZ;
+          kr[i] = __ldg(reinterpret_cast<const R*>(p));
+          vr[i] = __ldg(reinterpret_cast<const R*>(p + v_off * ESZ));
+          if constexpr (QUANT) {
+            const size_t si =
+                ((size_t)page * page_size + slot) * kScaleLanes + hk;
+            ksc[i] = load_scale(sc, si, sc_f32);
+            vsc[i] = load_scale(sc, si + kScaleKVStride, sc_f32);
+          }
         }
       }
     }
@@ -358,53 +399,67 @@ __global__ void __launch_bounds__(NTHREADS)
 struct Args {
   const void* q;
   const float* qf;
-  const uint8_t* kv;
-  const void* sc;
+  const uint8_t* kv;  // the fused pool, or the split K pool
+  const uint8_t* v;   // the split V pool (null for a fused pool)
+  const void* sc;     // the packed tile, or the split K scales
+  const float* vs;    // the split V scales (null for a fused pool)
   int sc_f32;
   const int* bt;
   const int* lens;
   void* out;
   float* lse;
-  int B, Hkv, page_size, max_pages;
+  int B, Hkv, num_pages, page_size, max_pages;
   float scale;
   int window;
   cudaStream_t stream;
 };
 
-template <typename T, int POOL, int G>
+template <typename T, int POOL, int G, typename L>
 int launch(const Args& a) {
   const size_t smem = smem_floats(G) * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      paged_decode_kernel<T, POOL, G>,
+      paged_decode_kernel<T, POOL, G, L>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   dim3 grid(a.Hkv, a.B);
-  paged_decode_kernel<T, POOL, G><<<grid, NTHREADS, smem, a.stream>>>(
-      a.q, a.qf, a.kv, a.sc, a.sc_f32, a.bt, a.lens, static_cast<T*>(a.out),
-      a.lse, a.Hkv, a.page_size, a.max_pages, a.scale, a.window);
+  paged_decode_kernel<T, POOL, G, L><<<grid, NTHREADS, smem, a.stream>>>(
+      a.q, a.qf, a.kv, a.v, a.sc, a.vs, a.sc_f32, a.bt, a.lens,
+      static_cast<T*>(a.out), a.lse, a.Hkv, a.num_pages, a.page_size,
+      a.max_pages, a.scale, a.window);
   return cudaGetLastError();
 }
 
-template <typename T, int POOL>
+template <typename T, int POOL, typename L>
 int by_group(int group, const Args& a) {
   switch (group) {
-    case 1: return launch<T, POOL, 1>(a);
-    case 2: return launch<T, POOL, 2>(a);
-    case 4: return launch<T, POOL, 4>(a);
-    case 8: return launch<T, POOL, 8>(a);
+    case 1: return launch<T, POOL, 1, L>(a);
+    case 2: return launch<T, POOL, 2, L>(a);
+    case 4: return launch<T, POOL, 4, L>(a);
+    case 8: return launch<T, POOL, 8, L>(a);
   }
   return cudaErrorInvalidValue;
 }
 
-template <typename T>
+// The split pools have no int8 dot-product mode (nor has the TPU kernel
+// they replace).
+template <typename T, typename L>
 int by_pool(int pool, int group, const Args& a) {
   switch (pool) {
-    case kPoolNative: return by_group<T, kPoolNative>(group, a);
-    case kPoolInt8: return by_group<T, kPoolInt8>(group, a);
-    case kPoolE4M3: return by_group<T, kPoolE4M3>(group, a);
-    case kPoolInt8Dot: return by_group<T, kPoolInt8Dot>(group, a);
+    case kPoolNative: return by_group<T, kPoolNative, L>(group, a);
+    case kPoolInt8: return by_group<T, kPoolInt8, L>(group, a);
+    case kPoolE4M3: return by_group<T, kPoolE4M3, L>(group, a);
+    case kPoolInt8Dot:
+      if constexpr (!L::kSplit) return by_group<T, kPoolInt8Dot, L>(group, a);
+      break;
   }
   return cudaErrorInvalidValue;
+}
+
+template <typename L>
+int by_dtype(int dtype, int group, int pool, const Args& a) {
+  if (a.B <= 0) return cudaSuccess;
+  if (dtype == aule::kF16) return by_pool<__half, L>(pool, group, a);
+  return by_pool<__nv_bfloat16, L>(pool, group, a);
 }
 
 }  // namespace
@@ -419,14 +474,30 @@ extern "C" int aule_paged_decode(const void* q, const void* qf,
                                  int page_size, int max_pages, float scale,
                                  int window, int dtype, int pool, int sc_f32,
                                  void* stream) {
-  if (B <= 0) return cudaSuccess;
   const Args a{q, static_cast<const float*>(qf),
-               static_cast<const uint8_t*>(kv_pages), kv_scales, sc_f32,
+               static_cast<const uint8_t*>(kv_pages), nullptr, kv_scales,
+               nullptr, sc_f32, static_cast<const int*>(block_tables),
+               static_cast<const int*>(context_lens), out,
+               static_cast<float*>(lse), B, Hkv, 0, page_size, max_pages,
+               scale, window, static_cast<cudaStream_t>(stream)};
+  return by_dtype<FusedPool>(dtype, Hq / Hkv, pool, a);
+}
+
+// Split pools: q, out [B, Hq, D] in the out type; k_pages, v_pages
+// [Hkv, num_pages, page, D] (the out type, or int8 / e4m3 payloads with
+// f32 k_scales, v_scales [Hkv, num_pages, page]; null otherwise).
+extern "C" int aule_paged_decode_split(
+    const void* q, const void* k_pages, const void* v_pages,
+    const void* k_scales, const void* v_scales, const void* block_tables,
+    const void* context_lens, void* out, void* lse, int B, int Hq, int Hkv,
+    int num_pages, int page_size, int max_pages, float scale, int window,
+    int dtype, int pool, void* stream) {
+  const Args a{q, nullptr, static_cast<const uint8_t*>(k_pages),
+               static_cast<const uint8_t*>(v_pages), k_scales,
+               static_cast<const float*>(v_scales), 1,
                static_cast<const int*>(block_tables),
                static_cast<const int*>(context_lens), out,
-               static_cast<float*>(lse), B, Hkv, page_size, max_pages, scale,
-               window, static_cast<cudaStream_t>(stream)};
-  const int group = Hq / Hkv;
-  if (dtype == aule::kF16) return by_pool<__half>(pool, group, a);
-  return by_pool<__nv_bfloat16>(pool, group, a);
+               static_cast<float*>(lse), B, Hkv, num_pages, page_size,
+               max_pages, scale, window, static_cast<cudaStream_t>(stream)};
+  return by_dtype<SplitPools>(dtype, Hq / Hkv, pool, a);
 }

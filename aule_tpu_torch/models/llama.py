@@ -1,5 +1,4 @@
-"""Llama-style decoder (counterpart of aule_tpu/models/llama.py:42-256,
-367-603).
+"""Llama-style decoder (counterpart of aule_tpu/models/llama.py:42-603).
 
 Parameters are a plain dict with the JAX package's keys and its `[in, out]`
 weight orientation (`x @ w`), so JAX params cross over as a plain copy
@@ -14,11 +13,13 @@ gate is computed in f32; logits are f32.
   * `loss_fn` is the mean next-token NLL and `train_step` one SGD step,
     as JAX's (l.367-384).
   * `decode_step_fused` is one decode step over the fused paged pools:
-    append (in place) then paged attention (the paged-decode kernel);
+    append (in place) then paged attention (the paged-decode kernel), and
+    `decode_step` the same over split (head-major) K and V pools (the
+    kernel's split-pool instantiation);
   * `prefill_step_fused` is one chunk of chunked prefill: append the chunk
     (in place) then attend over history plus chunk (the paged-prefill
     kernel).
-  Both quantize what they append when scale pools are passed, and take
+  All three quantize what they append when scale pools are passed, and take
   the paged attention function as an argument (default: the kernel's
   wrapper), as `forward` takes `attention`.
 
@@ -38,6 +39,8 @@ import torch.nn.functional as F
 
 from ..config import resolve_device
 from ..ops.flash_vjp import flash_attention_vjp
+from ..ops.paged import (kv_cache_append_decode,
+                         kv_cache_append_decode_quantized, paged_attention)
 from ..ops.paged_fused import (kv_cache_append_decode_fused,
                                kv_cache_append_prefill_fused,
                                paged_attention_fused)
@@ -260,6 +263,94 @@ def _rotate(x, c, sn, half):
                      dim=-1).to(x.dtype)
 
 
+def _decode_window(cfg: LlamaConfig) -> int:
+    """The decode kernels' window: decode windows are trailing-W (k >=
+    pos-W+1) while prefill's mask is q-k <= W, so W+1 on the decode side
+    makes them identical (JAX llama.py:290-292)."""
+    return cfg.window_size + 1 if cfg.window_size > 0 else -1
+
+
+def _decode_layers(params: Params, token, positions, cfg: LlamaConfig,
+                   rope_cos, rope_sin, attend: Callable):
+    """The layers of one decode step around `attend(li, q, k, v) ->
+    (attn [B, Hq, D], context_lens + 1)`, which appends layer li's rotated
+    k and v [B, Hkv, D] and attends q [B, Hq, D] over its pool.  Returns
+    (logits [B, V] f32, context_lens + 1)."""
+    x = params["embed"][token]
+    c = rope_cos[positions][:, None, :]
+    sn = rope_sin[positions][:, None, :]
+    half = cfg.head_dim // 2
+    lens_out = None
+    for li, layer in enumerate(params["layers"]):
+        h = rms_norm(x, layer["attn_norm"], cfg.norm_eps)
+        q = (h @ layer["wq"]).reshape(-1, cfg.n_heads, cfg.head_dim)
+        k = (h @ layer["wk"]).reshape(-1, cfg.n_kv_heads, cfg.head_dim)
+        v = (h @ layer["wv"]).reshape(-1, cfg.n_kv_heads, cfg.head_dim)
+        attn, lens_out = attend(li, _rotate(q, c, sn, half),
+                                _rotate(k, c, sn, half), v)
+        x = x + attn.reshape(-1, cfg.n_heads * cfg.head_dim) @ layer["wo"]
+        x = _mlp(x, layer, cfg)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return (x @ params["lm_head"]).float(), lens_out
+
+
+def decode_step(
+    params: Params,
+    token: torch.Tensor,                 # [B] int
+    positions: torch.Tensor,             # [B] int
+    k_pages: Sequence[torch.Tensor],     # per-layer split pools
+    v_pages: Sequence[torch.Tensor],
+    block_tables: torch.Tensor,          # [B, max_pages] int32
+    context_lens: torch.Tensor,          # [B] int32, BEFORE this token
+    cfg: LlamaConfig,
+    rope_cos: torch.Tensor,
+    rope_sin: torch.Tensor,
+    k_scales: Optional[Sequence[torch.Tensor]] = None,
+    v_scales: Optional[Sequence[torch.Tensor]] = None,
+    mesh=None,
+    data_axis: str = "data",
+    model_axis: str = "model",
+    *,
+    attention: Callable = paged_attention,
+):
+    """One decode step over split (head-major) pools (JAX l.259-364):
+    appends this token's K/V to each layer's pools (in place, quantized
+    with f32 scales when per-layer `k_scales`/`v_scales` are given) and
+    attends over them with the split paged decode.  Returns (logits [B, V]
+    f32, k_pages, v_pages, context_lens + 1), then k_scales, v_scales when
+    quantized.  Stacked [L, ...] tensors work as pools and scales: their
+    per-layer views are written in place.  `attention` is the paged decode;
+    a reference run passes its plain version
+    (ops.paged.paged_attention_plain).  `mesh` (with its axes) is the
+    tensor-parallel island of JAX's step and raises: it comes with the
+    parallel-layer slice."""
+    if mesh is not None:
+        raise NotImplementedError(
+            f"decode_step(mesh=...) over {data_axis!r}/{model_axis!r} is not "
+            f"ported yet; it comes with the parallel-layer slice")
+    quantized = k_scales is not None
+    window = _decode_window(cfg)
+
+    def attend(li, q, k, v):
+        if quantized:
+            lens = kv_cache_append_decode_quantized(
+                k_pages[li], v_pages[li], k_scales[li], v_scales[li], k, v,
+                block_tables, context_lens)[-1]
+            scales = dict(k_scales=k_scales[li], v_scales=v_scales[li])
+        else:
+            lens = kv_cache_append_decode(k_pages[li], v_pages[li], k, v,
+                                          block_tables, context_lens)[-1]
+            scales = {}
+        return attention(q, k_pages[li], v_pages[li], block_tables, lens,
+                         window_size=window, **scales), lens
+
+    logits, lens_out = _decode_layers(params, token, positions, cfg,
+                                      rope_cos, rope_sin, attend)
+    if quantized:
+        return logits, k_pages, v_pages, lens_out, k_scales, v_scales
+    return logits, k_pages, v_pages, lens_out
+
+
 def decode_step_fused(
     params: Params,
     token: torch.Tensor,                 # [B] int
@@ -282,30 +373,17 @@ def decode_step_fused(
     their per-layer views are written in place.  `attention` is the paged
     decode; a reference run passes its plain version
     (ops.paged_fused.paged_attention_fused_plain)."""
-    # decode windows are trailing-W (k >= pos-W+1) while prefill's mask is
-    # q-k <= W: W+1 on the decode side makes them identical
-    dec_window = cfg.window_size + 1 if cfg.window_size > 0 else -1
-    x = params["embed"][token]
-    c = rope_cos[positions][:, None, :]
-    sn = rope_sin[positions][:, None, :]
-    half = cfg.head_dim // 2
-    lens_out = context_lens
-    for li, layer in enumerate(params["layers"]):
+    window = _decode_window(cfg)
+
+    def attend(li, q, k, v):
         sc = None if kv_scales is None else kv_scales[li]
-        h = rms_norm(x, layer["attn_norm"], cfg.norm_eps)
-        q = (h @ layer["wq"]).reshape(-1, cfg.n_heads, cfg.head_dim)
-        k = (h @ layer["wk"]).reshape(-1, cfg.n_kv_heads, cfg.head_dim)
-        v = (h @ layer["wv"]).reshape(-1, cfg.n_kv_heads, cfg.head_dim)
-        q = _rotate(q, c, sn, half)
-        k = _rotate(k, c, sn, half)
-        lens_out = kv_cache_append_decode_fused(
+        lens = kv_cache_append_decode_fused(
             kv_pages[li], k, v, block_tables, context_lens, kv_scales=sc)[-1]
-        attn = attention(q, kv_pages[li], block_tables, lens_out,
-                         kv_scales=sc, window_size=dec_window)
-        x = x + attn.reshape(-1, cfg.n_heads * cfg.head_dim) @ layer["wo"]
-        x = _mlp(x, layer, cfg)
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits = (x @ params["lm_head"]).float()
+        return attention(q, kv_pages[li], block_tables, lens, kv_scales=sc,
+                         window_size=window), lens
+
+    logits, lens_out = _decode_layers(params, token, positions, cfg,
+                                      rope_cos, rope_sin, attend)
     if kv_scales is not None:
         return logits, kv_pages, lens_out, kv_scales
     return logits, kv_pages, lens_out

@@ -42,6 +42,10 @@ SIGNATURES = {
     # max_pages, scale, window, dtype, pool, sc_f32, stream
     "aule_paged_decode": [_VOID] * 8 + [_INT] * 5 + [_FLOAT] +
                          [_INT] * 4 + [_VOID],
+    # q, k, v, k_scales, v_scales, tables, lens, out, lse, B, Hq, Hkv,
+    # num_pages, page, max_pages, scale, window, dtype, pool, stream
+    "aule_paged_decode_split": [_VOID] * 9 + [_INT] * 6 + [_FLOAT] +
+                               [_INT] * 3 + [_VOID],
     # q, kv, scales, tables, lens, q_offsets, out, lse, B, Hq, Hkv, Sq,
     # page, max_pages, scale, causal, window, dtype, pool, sc_f32, stream
     "aule_paged_prefill": [_VOID] * 8 + [_INT] * 6 + [_FLOAT] +

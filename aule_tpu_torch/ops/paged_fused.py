@@ -344,21 +344,29 @@ def check_pool(q, kv_pages, kv_scales):
                          f"pack_fused_scales), got {tuple(kv_scales.shape)}")
 
 
-def check_kernel_inputs(q, kv_pages, kv_scales, name: str):
-    """What the CUDA kernels take: D=128, GQA groups 1/2/4/8, bf16/f16
-    q, contiguous 16-byte aligned pools."""
+def check_kernel_inputs(q, hkv: int, pools, name: str):
+    """What the CUDA paged kernels take: D=128, GQA groups 1/2/4/8 of the
+    `hkv` kv heads, bf16/f16 q, and `pools` (the pool and scale tensors;
+    None entries are skipped) contiguous, 16-byte aligned, on q's device.
+    Returns the q dtype code."""
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     if q.shape[-1] != KERNEL_HEAD_DIM:
         raise NotImplementedError(
             f"the CUDA {name} kernel takes D={KERNEL_HEAD_DIM} (got "
             f"{q.shape[-1]}); other head dims come with the GPT-2 slice")
-    group = q.shape[1] // kv_pages.shape[2]
+    if q.dtype not in (torch.bfloat16, torch.float16):
+        raise NotImplementedError(
+            f"the CUDA {name} kernel takes bf16 or f16 q and pools (got "
+            f"{q.dtype}); f32 on the card is still to be ported")
+    group = q.shape[1] // hkv
     if group not in KERNEL_GROUPS:
         raise NotImplementedError(
             f"the CUDA {name} kernel takes GQA groups {KERNEL_GROUPS} "
             f"(got {group})")
-    for t in (kv_pages,) if kv_scales is None else (kv_pages, kv_scales):
+    for t in pools:
+        if t is None:
+            continue
         if t.device != q.device:
             raise ValueError(f"{name}: q and the pools must share a device")
         if not t.is_contiguous() or t.data_ptr() % 16:
@@ -402,7 +410,7 @@ def paged_attention_fused(
             q, kv_pages, block_tables, context_lens, kv_scales=kv_scales,
             scale=scale, window_size=window, int8_matmul=int8_dot,
             return_lse=return_lse)
-    code = check_kernel_inputs(q, kv_pages, kv_scales, "paged-decode")
+    code = check_kernel_inputs(q, hkv, (kv_pages, kv_scales), "paged-decode")
     lib = _build.library()
     dev = q.device
     q = q.contiguous()

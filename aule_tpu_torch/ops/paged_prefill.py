@@ -86,7 +86,8 @@ def paged_attention_prefill(
             q, kv_pages, block_tables, context_lens, q_offsets=q_offsets,
             kv_scales=kv_scales, scale=scale, causal=causal,
             window_size=window, return_lse=return_lse)
-    code = check_kernel_inputs(q, kv_pages, kv_scales, "paged-prefill")
+    code = check_kernel_inputs(q, hkv, (kv_pages, kv_scales),
+                               "paged-prefill")
     lib = _build.library()
     dev = q.device
     q = q.contiguous()

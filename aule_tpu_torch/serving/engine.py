@@ -1,6 +1,7 @@
 """Continuous-batching serving engine (counterpart of
-aule_tpu/serving/engine.py) for the fused-layout, single-device case, with
-bf16 / f16 pools or quantized (int8, e4m3) pools and whole-prompt or
+aule_tpu/serving/engine.py) for the single-device case, over fused pools
+(the default) or split head-major pools (`layout="split"`), with bf16 /
+f16 pools or quantized (int8, e4m3) pools and whole-prompt or (fused)
 chunked prefill.
 
 A host loop drives eager PyTorch steps on the card:
@@ -9,14 +10,17 @@ A host loop drives eager PyTorch steps on the card:
   * prefill, whole prompt: one `llama.forward` (the flash kernel) over the
     prompt, whose rotated K and V are then written into the request's
     pages (quantized with `quantized=True`);
-  * prefill, chunked (`prefill_chunk=c`): `llama.prefill_step_fused` (the
-    paged-prefill kernel) over chunks at offsets 0, c, 2c, ..., each
-    attending to the pages the earlier chunks wrote;
+  * prefill, chunked (`prefill_chunk=c`, fused layout only, as JAX's):
+    `llama.prefill_step_fused` (the paged-prefill kernel) over chunks at
+    offsets 0, c, 2c, ..., each attending to the pages the earlier chunks
+    wrote;
   * decode: every running sequence advances through
-    `llama.decode_step_fused` (the paged-decode kernel); when nothing waits
-    and every request has at least `decode_steps` tokens to go, K steps
-    run back to back with the tokens kept on the device and ONE host copy
-    per dispatch (the JAX scheduling rule, engine.py:1664-1666).
+    `llama.decode_step_fused` (the paged-decode kernel), or
+    `llama.decode_step` over split pools (its split-pool instantiation);
+    when nothing waits and every request has at least `decode_steps`
+    tokens to go, K steps run back to back with the tokens kept on the
+    device and ONE host copy per dispatch (the JAX scheduling rule,
+    engine.py:1664-1666).
 
 Page 0 is the reserved scratch page: empty slots carry block-table -1,
 which clamps to page 0, so their dummy appends never touch a live page.
@@ -40,6 +44,8 @@ import torch
 
 from ..config import PAGE_SIZE, resolve_device
 from ..models import llama
+from ..ops.paged import (kv_cache_append_prefill,
+                         kv_cache_append_prefill_quantized)
 from ..ops.paged_fused import (SCALE_DTYPE, fused_pool_shape,
                                fused_scales_shape,
                                kv_cache_append_prefill_fused)
@@ -119,13 +125,19 @@ class Request:
 
 class ServingEngine:
     """Continuous batching over a Llama-style model (models/llama.py) with
-    fused paged KV pools on one device (the card unless device='cpu').
+    paged KV pools on one device (the card unless device='cpu').
 
-    quantized=True stores K/V as `quant_dtype` payloads (torch.int8, the
-    default, or torch.float8_e4m3fn) with one stacked packed scale pool
-    [L, P, page, 128] bf16; int8 pools decode on the int8 dot-product path
-    unless AULE_TPU_INT8_EXACT is set.  prefill_chunk=c prefills prompts in
-    chunks of c tokens through the paged-prefill kernel."""
+    layout='fused' (the default) keeps one stacked fused pool `kv_pages`
+    [L, P, 2, Hkv, page, Dpad]; layout='split' keeps vLLM-style head-major
+    `k_pages` and `v_pages` [L, Hkv, P, page, D] (the attributes of the
+    other layout are None).  quantized=True stores K/V as `quant_dtype`
+    payloads (torch.int8, the default, or torch.float8_e4m3fn): fused
+    pools with one stacked packed scale pool `kv_scales` [L, P, page, 128]
+    bf16 (int8 decodes on the int8 dot-product path unless
+    AULE_TPU_INT8_EXACT is set), split pools with f32 `k_scales` and
+    `v_scales` [L, Hkv, P, page] (exact, scale-folded decode).
+    prefill_chunk=c prefills prompts in chunks of c tokens through the
+    paged-prefill kernel (fused layout only)."""
 
     def __init__(
         self,
@@ -153,12 +165,10 @@ class ServingEngine:
         if prefill_chunk is not None and prefill_chunk <= 0:
             raise ValueError(f"prefill_chunk must be positive, got "
                              f"{prefill_chunk}")
-        if layout == "split":
-            raise NotImplementedError(
-                "layout='split' is not ported yet; it comes with the "
-                "split-layout paged slice")
-        if layout != "fused":
+        if layout not in ("fused", "split"):
             raise ValueError(f"unknown layout {layout!r}")
+        if prefill_chunk is not None and layout != "fused":
+            raise ValueError("prefill_chunk requires layout='fused'")
         if later.get("model") is llama:
             later.pop("model")  # the one family this slice ports
         _refuse_later(later, _LATER_ENGINE_ARGS, "ServingEngine")
@@ -173,16 +183,30 @@ class ServingEngine:
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(sample_seed)
         self.prefill_chunk = prefill_chunk
-        # one stacked pool (and scale pool); layer li is the view [li]
-        self.kv_pages = torch.zeros(
-            (cfg.n_layers,) + fused_pool_shape(
+        self.layout = layout
+        # stacked pools (and scale pools); layer li is the view [li]
+        pool_dtype = quant_dtype if quantized else cfg.dtype
+        self.kv_pages = self.kv_scales = None
+        self.k_pages = self.v_pages = self.k_scales = self.v_scales = None
+
+        def zeros(shape, dtype):
+            return torch.zeros((cfg.n_layers,) + tuple(shape), dtype=dtype,
+                               device=self.device)
+
+        if layout == "fused":
+            self.kv_pages = zeros(fused_pool_shape(
                 num_pages, cfg.n_kv_heads, page_size, cfg.head_dim),
-            dtype=quant_dtype if quantized else cfg.dtype,
-            device=self.device)
-        self.kv_scales = (torch.zeros(
-            (cfg.n_layers,) + fused_scales_shape(
-                num_pages, cfg.n_kv_heads, page_size),
-            dtype=SCALE_DTYPE, device=self.device) if quantized else None)
+                pool_dtype)
+            if quantized:
+                self.kv_scales = zeros(fused_scales_shape(
+                    num_pages, cfg.n_kv_heads, page_size), SCALE_DTYPE)
+        else:  # as aule_tpu/serving/engine.py:286-294
+            shape = (cfg.n_kv_heads, num_pages, page_size, cfg.head_dim)
+            self.k_pages = zeros(shape, pool_dtype)
+            self.v_pages = zeros(shape, pool_dtype)
+            if quantized:
+                self.k_scales = zeros(shape[:-1], torch.float32)
+                self.v_scales = zeros(shape[:-1], torch.float32)
         self.allocator = PythonPageAllocator(num_pages)
         # page 0 is the scratch sink for -1 table entries (empty slots)
         scratch = self.allocator.allocate(1)
@@ -317,20 +341,29 @@ class ServingEngine:
 
     def _prefill(self, tokens: torch.Tensor, bt_row: torch.Tensor):
         """Forward over one prompt [1, n] and write its K/V into the pages
-        of `bt_row` (quantized when the pools are, as the JAX fused path,
-        engine.py:947-973); returns the logits of the last prompt
+        of `bt_row` (quantized when the pools are, as the JAX engine,
+        engine.py:920-944); returns the logits of the last prompt
         position."""
         n = tokens.shape[1]
         logits, kv = llama.forward(
             self.params, tokens, self.cfg, rope_cos=self.rope_cos,
             rope_sin=self.rope_sin, return_kv=True)
-        zero = torch.zeros((1,), dtype=torch.int32, device=self.device)
-        true_len = torch.full((1,), n, dtype=torch.int32, device=self.device)
+        where = (bt_row[None],
+                 torch.zeros((1,), dtype=torch.int32, device=self.device),
+                 torch.full((1,), n, dtype=torch.int32, device=self.device))
         for li, (k, v) in enumerate(kv):
-            kv_cache_append_prefill_fused(
-                self.kv_pages[li], k, v, bt_row[None], zero, true_len,
-                kv_scales=None if self.kv_scales is None
-                else self.kv_scales[li])
+            if self.layout == "fused":
+                kv_cache_append_prefill_fused(
+                    self.kv_pages[li], k, v, *where,
+                    kv_scales=None if self.kv_scales is None
+                    else self.kv_scales[li])
+            elif self.k_scales is not None:
+                kv_cache_append_prefill_quantized(
+                    self.k_pages[li], self.v_pages[li], self.k_scales[li],
+                    self.v_scales[li], k, v, *where)
+            else:
+                kv_cache_append_prefill(self.k_pages[li], self.v_pages[li],
+                                        k, v, *where)
         self.prefill_dispatches += 1
         return logits[0, n - 1]
 
@@ -411,9 +444,15 @@ class ServingEngine:
         steps = []
         for _ in range(n_steps):
             # positions are the lengths before this token
-            logits, _, new_lens, *_ = llama.decode_step_fused(
-                self.params, tok, lens, self.kv_pages, bt, lens, self.cfg,
-                self.rope_cos, self.rope_sin, self.kv_scales)
+            if self.layout == "fused":
+                logits, _, new_lens, *_ = llama.decode_step_fused(
+                    self.params, tok, lens, self.kv_pages, bt, lens,
+                    self.cfg, self.rope_cos, self.rope_sin, self.kv_scales)
+            else:
+                logits, _, _, new_lens, *_ = llama.decode_step(
+                    self.params, tok, lens, self.k_pages, self.v_pages, bt,
+                    lens, self.cfg, self.rope_cos, self.rope_sin,
+                    self.k_scales, self.v_scales)
             tok = self._sample(logits, temps)
             steps.append(tok)
             lens = new_lens

@@ -62,11 +62,13 @@ def train_step_flops(matmul_params: int, tokens: int,
 
 def paged_kv_bytes(tokens: int, hkv: int, head_dim: int,
                    payload_bytes: int, scale_bytes: int = 0) -> float:
-    """Bytes of the K and V of `tokens` cached tokens in a fused pool that
-    attention must read: the payload of both, plus, for a quantized pool
-    (`scale_bytes` per scale), each token's K and V scale of every kv head
-    (lanes h and 64 + h of its packed scale row; the unused lanes are not
-    needed)."""
+    """Bytes of the K and V of `tokens` cached tokens that attention must
+    read, in a fused or a split pool: the payload of both, plus, for a
+    quantized pool (`scale_bytes` per scale), each token's K and V scale of
+    every kv head.  A fused pool's packed row holds them in lanes h and
+    64 + h (bf16, scale_bytes=2; the unused lanes are not needed); split
+    pools hold them in their f32 [Hkv, P, page] scale tensors
+    (scale_bytes=4)."""
     return float(tokens * 2 * hkv * (head_dim * payload_bytes + scale_bytes))
 
 

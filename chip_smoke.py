@@ -15,24 +15,30 @@ Phases, each printing a line of its own:
      pools (a 512-token chunk at q_offset 3488 over 4000 cached tokens,
      with and without a 256 window; a ragged batch of 4 whose padding
      rows must be exact zeros; shuffled page ids and -1 entries); both
-     paged kernels at GQA groups 1, 2 and 8 and with f16 q.  Each
-     with its time at the engine's shapes (median of 20 CUDA-event timed
-     runs), its bound, the plain version's time and a library yardstick's
-     time (F.scaled_dot_product_attention on the gathered, dequantized
-     K/V; timed only, the port never calls it);
+     paged kernels at GQA groups 1, 2 and 8 and with f16 q; the decode
+     over split head-major pools (bf16, f16, int8 and fp8 with f32
+     scales; ragged lengths with 0 and 1, shuffled pages, -1 tails,
+     trailing windows, groups 1, 2, 4 and 8), which must also give the
+     fused kernel's bits on the same pools.  Each with its time at the
+     engine's shapes (median of 20 CUDA-event timed runs), its bound, the
+     plain version's time and a library yardstick's time
+     (F.scaled_dot_product_attention on the gathered, dequantized K/V;
+     timed only, the port never calls it);
   4. engine: a full-width, full-depth Llama-3-8B (random bf16 weights from
      a seeded generator on the card) serves the same 12 greedy requests
-     five times through `ServingEngine`: bf16 pools with whole-prompt
-     prefill, (a) bf16 with prefill_chunk=512, (b) int8 pools with
-     prefill_chunk=512, (c) fp8 pools with whole-prompt prefill, (d) fp8
-     pools with prefill_chunk=512.  Each run checks its launch counts
-     against its dispatches and that every page comes back.  The bf16 runs
-     hold every token against a teacher-forced plain forward; (b)-(d)
-     against a teacher-forced replay of the same steps with the plain
-     attention versions;
+     eight times through `ServingEngine`: over fused pools, bf16 with
+     whole-prompt prefill, (a) bf16 with prefill_chunk=512, (b) int8 with
+     prefill_chunk=512, (c) fp8 with whole-prompt prefill, (d) fp8 with
+     prefill_chunk=512; over split pools (layout="split", whole-prompt
+     prefill), (e) bf16, (f) int8 and (g) fp8.  Each run checks its launch
+     counts against its dispatches (the split runs launch the split decode
+     32 times a step and the fused decode never) and that every page comes
+     back.  The bf16 runs hold every token against a teacher-forced plain
+     forward; (b)-(d), (f) and (g) against a teacher-forced replay of the
+     same steps with the plain attention versions;
   5. breakdown: one prefill step and one 8-step decode dispatch of the
      engine under torch.profiler (device busy share, kernel time by
-     category) for bf16, int8 chunked and fp8 chunked pools;
+     category) for bf16, int8 chunked, fp8 chunked and int8 split pools;
   6. backward kernels: dQ and dK/dV against their plain versions (every
      row within ROW_TOL) at the Llama-3-8B layer, bench.py's B4 row, ragged
      S, Sq != Sk, GQA groups 1, 2 and 8, f16, non-causal, a non-zero lse
@@ -54,7 +60,7 @@ Phases, each printing a line of its own:
   9. last line: {"ok": true, "device": {...}}, printed only when every
      phase passed.  Any failure raises and the exit code is non-zero.
 
-About 3 minutes on an H100, the build included.
+About 3.5 minutes on an H100, the build included.
 """
 
 from __future__ import annotations
@@ -549,6 +555,122 @@ def check_decode(gen):
     return worst, timings
 
 
+def _split_pools(pool, qdt):
+    """A fused pool's K and V as split pools [Hkv, P, page, D] (bf16, or
+    quantized per token by the port's quantize_kv with f32 scales), and the
+    same pools in the fused layout (f32 packed scales when quantized)."""
+    from aule_tpu_torch.ops.paged_fused import (from_fused_layout,
+                                                to_fused_layout)
+    from aule_tpu_torch.ops.quant import quantize_kv
+
+    k, v = (x.contiguous() for x in from_fused_layout(pool))
+    if qdt is None:
+        return (k, v, None, None), (pool, None)
+    (kq, ks), (vq, vs) = quantize_kv(k, qdt), quantize_kv(v, qdt)
+    return (kq, vq, ks, vs), to_fused_layout(kq, vq, ks, vs,
+                                             scale_dtype=torch.float32)
+
+
+SPLIT_MODES = [  # (mode, q and pool dtype, payload dtype or None)
+    ("bf16", torch.bfloat16, None), ("f16", torch.float16, None),
+    ("int8", torch.bfloat16, torch.int8),
+    ("fp8", torch.bfloat16, torch.float8_e4m3fn)]
+
+
+def check_decode_split(gen):
+    """The split-pool paged decode (csrc/paged_decode.cu, SplitPools)
+    against its plain version over bf16, f16, int8 and fp8 pools (f32
+    scales) on the decode phase's four cases and at GQA groups 1, 2, 4
+    and 8; it shares the fused kernel's loop, so on the same pools in the
+    fused layout (f32 packed scales; the exact int8 path) the two give the
+    same bits.  Times of the bf16, int8 and fp8 modes at B8 ctx4096 beside
+    the bound, the plain version, SDPA on the gathered K/V and the fused
+    kernel on the same pools.  Returns the worst errors per mode and the
+    times."""
+    from aule_tpu_torch.ops.paged import paged_attention, paged_attention_plain
+    from aule_tpu_torch.ops.paged_fused import paged_attention_fused
+    from aule_tpu_torch.ops.quant import dequantize_kv
+    from aule_tpu_torch.utils import profiling
+
+    cases = [  # (label, lens, max_pages, shuffle, window, hq)
+        ("B8 ctx4096 contiguous", [4096] * 8, 272, False, -1, 32),
+        ("mixed 0/1/17/4096 with -1 entries",
+         [0, 1, 17, 4096, 4095, 100, 2000, 3000], 272, False, -1, 32),
+        ("shuffled page ids", [4096, 1, 17, 333, 4096, 2048, 64, 3001], 272,
+         True, -1, 32),
+        ("trailing window 1001", [0, 1, 17, 4096, 4095, 100, 2000, 3000],
+         272, True, 1001, 32)] + [
+        (f"group {hq // 8}, shuffled, window 64", [0, 1, 17, 600, 333], 48,
+         True, 64, hq) for hq in (8, 16, 64)]
+    worst = {}
+    for label, lens, max_pages, shuffle, window, hq in cases:
+        for mode, dt, qdt in SPLIT_MODES:
+            q, pool, bt, ln = _decode_inputs(gen, lens, max_pages,
+                                             shuffle=shuffle, hq=hq,
+                                             dtype=dt)
+            (k, v, ks, vs), (fpool, fsc) = _split_pools(pool, qdt)
+            kw = dict(k_scales=ks, v_scales=vs, window_size=window,
+                      return_lse=True)
+            o, lse = paged_attention(q, k, v, bt, ln, **kw)
+            po, plse = paged_attention_plain(q, k, v, bt, ln, **kw)
+            hold(f"split decode {mode} {label}", o, po, lse, plse,
+                 ROW_TOL[dt], worst, mode)
+            fo, flse = paged_attention_fused(
+                q, fpool, bt, ln, kv_scales=fsc, window_size=window,
+                int8_matmul=False, return_lse=True)
+            if not (torch.equal(o, fo) and torch.equal(lse, flse)):
+                raise AssertionError(f"split decode {mode} {label}: not the "
+                                     f"fused kernel's bits on the same pools")
+            del q, pool, k, v, ks, vs, fpool, fsc, o, lse, po, plse, fo, flse
+    log("split decode: every case gives the fused kernel's bits on the same "
+        "pools")
+
+    lens = [4096] * 8
+    q, pool, bt, ln = _decode_inputs(gen, lens, 272)
+    flops = 4.0 * 8 * 32 * 4096 * 128
+    timings = {}
+    for mode, _, qdt in SPLIT_MODES:
+        if mode == "f16":
+            continue
+        (k, v, ks, vs), (fpool, fsc) = _split_pools(pool, qdt)
+        kv_bytes = (profiling.paged_kv_bytes(sum(lens), 8, 128, 2)
+                    if qdt is None else
+                    profiling.paged_kv_bytes(sum(lens), 8, 128, 1,
+                                             scale_bytes=4))
+        kh, vh = ((k, v) if qdt is None
+                  else (dequantize_kv(k, ks), dequantize_kv(v, vs)))
+        # the dense yardstick: pages 1..2048 hold the 8 sequences in order;
+        # [Hkv, P, page, D] -> [B, Hq, 4096, D] bf16, GQA expanded
+        kd, vd = (x[:, 1:].reshape(8, 8, 4096, 128).transpose(0, 1).to(
+            torch.bfloat16).repeat_interleave(4, dim=1) for x in (kh, vh))
+        kw = dict(k_scales=ks, v_scales=vs)
+        ms = profiling.cuda_time_ms(lambda: paged_attention(
+            q, k, v, bt, ln, **kw), iters=20)
+        plain = profiling.cuda_time_ms(lambda: paged_attention_plain(
+            q, k, v, bt, ln, **kw), iters=20)
+        lib = profiling.cuda_time_ms(lambda: F.scaled_dot_product_attention(
+            q[:, :, None], kd, vd), iters=20)
+        fused = profiling.cuda_time_ms(lambda: paged_attention_fused(
+            q, fpool, bt, ln, kv_scales=fsc, int8_matmul=False), iters=20)
+        nbytes = kv_bytes + 2 * q.numel() * 2 + 8 * 272 * 4 + 8 * 4
+        bound, by = profiling.bound_ms(nbytes, flops)
+        timings[mode] = dict(ms=ms[0], plain_ms=plain[0], library_ms=lib[0],
+                             bound_ms=bound, bound_by=by,
+                             fused_kernel_same_pool_ms=fused[0])
+        log(f"split decode time {mode} B8 ctx4096 page16 Hq32/Hkv8"
+            f"{'' if qdt is None else ' (f32 scales)'}: kernel {ms[0]:.4f} "
+            f"ms (min {ms[1]:.4f} max {ms[2]:.4f}), "
+            f"{kv_bytes / ms[0] / 1e6:.1f} GB/s of live KV; plain "
+            f"{plain[0]:.4f} ms; sdpa on the gathered K/V {lib[0]:.4f} ms; "
+            f"fused kernel on the same pool {fused[0]:.4f} ms; bound "
+            f"{bound:.4f} ms ({by}; {nbytes / 1e6:.1f} MB)")
+        del k, v, ks, vs, fpool, fsc, kh, vh, kd, vd
+    paged_attention.launches = 0
+    paged_attention_fused.launches = 0
+    torch.cuda.empty_cache()
+    return worst, timings
+
+
 def _prefill_inputs(gen, hist, chunk, s_pad, max_pages=272, shuffle=True,
                     dtype=torch.bfloat16, hq=32):
     """A bf16 fused pool holding hist[b] + chunk[b] tokens per sequence
@@ -726,11 +848,13 @@ CHUNK = 512
 
 def _launch_counters():
     from aule_tpu_torch.ops.flash import flash_attention_fwd
+    from aule_tpu_torch.ops.paged import paged_attention
     from aule_tpu_torch.ops.paged_fused import paged_attention_fused
     from aule_tpu_torch.ops.paged_prefill import paged_attention_prefill
 
     return {"flash_fwd": flash_attention_fwd,
             "paged_decode": paged_attention_fused,
+            "paged_decode_split": paged_attention,
             "paged_prefill": paged_attention_prefill}
 
 
@@ -739,13 +863,16 @@ def run_engine(params, cfg, prompts, label, **kw):
     are set to 0 just before the run and read just after.  Checks that
     every request finished, that the launches match the dispatches
     (chunked prefill launches the paged-prefill kernel once per layer per
-    chunk and the flash kernel never) and that every page came back."""
+    chunk and the flash kernel never; decode launches the decode kernel of
+    the engine's layout, fused or split, once per layer per step and the
+    other never) and that every page came back."""
     from aule_tpu_torch.serving.engine import ServingEngine
 
     eng = ServingEngine(params, cfg, device=DEV, **ENGINE_KW, **kw)
-    pool_gib = (eng.kv_pages.numel() * eng.kv_pages.element_size()
-                + (0 if eng.kv_scales is None else
-                   eng.kv_scales.numel() * 2)) / 2**30
+    pools = [t for t in (eng.kv_pages, eng.kv_scales, eng.k_pages,
+                         eng.v_pages, eng.k_scales, eng.v_scales)
+             if t is not None]
+    pool_gib = sum(t.numel() * t.element_size() for t in pools) / 2**30
     for p in prompts:
         eng.submit(p, NEW_TOKENS)
     counters = _launch_counters()
@@ -760,8 +887,9 @@ def run_engine(params, cfg, prompts, label, **kw):
     st = eng.stats()
     n_req = len(prompts)
     decode_tokens = st["tokens_generated"] - n_req
-    log(f"engine {label}: pool {eng.kv_pages.dtype} {pool_gib:.2f} GiB "
-        f"with scales; {len(done)} requests in {wall:.2f} s; prefill "
+    log(f"engine {label}: {eng.layout} pools {pools[0].dtype} "
+        f"{pool_gib:.2f} GiB with scales; {len(done)} requests in "
+        f"{wall:.2f} s; prefill "
         f"{st['prefill_seconds']:.3f} s over {st['prefill_dispatches']} "
         f"dispatches ({sum(PROMPT_LENS)} prompt tokens, "
         f"{sum(PROMPT_LENS) / st['prefill_seconds']:.0f} tok/s); decode "
@@ -774,10 +902,13 @@ def run_engine(params, cfg, prompts, label, **kw):
                              f"{NEW_TOKENS} tokens")
     layers = cfg.n_layers
     chunked = kw.get("prefill_chunk") is not None
+    split = kw.get("layout") == "split"
+    decode = st["decode_steps"] * layers
     want = {"flash_fwd": 0 if chunked else st["prefill_dispatches"] * layers,
+            "paged_decode": 0 if split else decode,
+            "paged_decode_split": decode if split else 0,
             "paged_prefill": (st["prefill_dispatches"] * layers if chunked
-                              else 0),
-            "paged_decode": st["decode_steps"] * layers}
+                              else 0)}
     if chunked and st["prefill_dispatches"] != sum(
             -(-n // kw["prefill_chunk"]) for n in PROMPT_LENS):
         raise AssertionError(f"{label}: {st['prefill_dispatches']} prefill "
@@ -841,13 +972,16 @@ def check_plain_forward(params, cfg, prompts, outputs, label):
     agree.report("teacher-forced plain forward")
 
 
-def check_replay(params, cfg, prompts, outputs, label, quant_dtype, chunk):
+def check_replay(params, cfg, prompts, outputs, label, quant_dtype, chunk,
+                 layout="fused"):
     """Teacher-forced replay of a quantized run's steps with the plain
-    attention versions: each prompt is prefilled alone into fresh pools
-    written the same way (chunked through prefill_step_fused, or a whole
-    forward plus the quantized append), then all requests decode together
-    through decode_step_fused, fed the engine's tokens."""
+    attention versions: each prompt is prefilled alone into fresh pools of
+    the run's layout written the same way (chunked through
+    prefill_step_fused, or a whole forward plus the quantized append), then
+    all requests decode together through decode_step_fused or, over split
+    pools, decode_step, fed the engine's tokens."""
     from aule_tpu_torch.models import llama
+    from aule_tpu_torch.ops import paged
     from aule_tpu_torch.ops.flash_vjp import flash_attention_vjp_plain
     from aule_tpu_torch.ops.paged_fused import (
         fused_pool_shape, fused_scales_shape, kv_cache_append_prefill_fused,
@@ -860,11 +994,22 @@ def check_replay(params, cfg, prompts, outputs, label, quant_dtype, chunk):
     page = ENGINE_KW["page_size"]
     need = [-(-(len(p) + NEW_TOKENS) // page) for p in prompts]
     num_pages = 1 + sum(need)
-    pools = torch.zeros((cfg.n_layers,) + fused_pool_shape(
-        num_pages, cfg.n_kv_heads, page, cfg.head_dim), dtype=quant_dtype,
-        device=dev)
-    scales = torch.zeros((cfg.n_layers,) + fused_scales_shape(
-        num_pages, cfg.n_kv_heads, page), dtype=torch.bfloat16, device=dev)
+
+    def zeros(shape, dtype):
+        return torch.zeros((cfg.n_layers,) + tuple(shape), dtype=dtype,
+                           device=dev)
+
+    # fused: [pool, packed scales]; split: [k, v, k scales, v scales]
+    if layout == "fused":
+        pools = [zeros(fused_pool_shape(num_pages, cfg.n_kv_heads, page,
+                                        cfg.head_dim), quant_dtype),
+                 zeros(fused_scales_shape(num_pages, cfg.n_kv_heads, page),
+                       torch.bfloat16)]
+    else:
+        shape = (cfg.n_kv_heads, num_pages, page, cfg.head_dim)
+        pools = [zeros(shape, quant_dtype), zeros(shape, quant_dtype),
+                 zeros(shape[:-1], torch.float32),
+                 zeros(shape[:-1], torch.float32)]
     bt_np = np.full((len(prompts), ENGINE_KW["max_pages_per_seq"]), -1,
                     np.int32)
     at = 1
@@ -888,37 +1033,50 @@ def check_replay(params, cfg, prompts, outputs, label, quant_dtype, chunk):
                 for off in range(0, n, chunk):
                     part = tokens[:, off:off + chunk]
                     logits = llama.prefill_step_fused(
-                        params, part, one(off), one(part.shape[1]), pools,
-                        bt[i:i + 1], cfg, cos, sin, scales,
+                        params, part, one(off), one(part.shape[1]),
+                        pools[0], bt[i:i + 1], cfg, cos, sin, pools[1],
                         attention=paged_attention_prefill_plain)[0][0]
             else:
                 full, kv = llama.forward(
                     params, tokens, cfg, rope_cos=cos, rope_sin=sin,
                     return_kv=True, attention=flash_attention_vjp_plain)
+                where = (bt[i:i + 1], one(0), one(n))
                 for li, (k, v) in enumerate(kv):
-                    kv_cache_append_prefill_fused(
-                        pools[li], k, v, bt[i:i + 1], one(0), one(n),
-                        kv_scales=scales[li])
+                    if layout == "fused":
+                        kv_cache_append_prefill_fused(
+                            pools[0][li], k, v, *where,
+                            kv_scales=pools[1][li])
+                    else:
+                        paged.kv_cache_append_prefill_quantized(
+                            *(t[li] for t in pools), k, v, *where)
                 logits = full[0, n - 1]
                 del full, kv
             agree.add(logits[None], out_t[i, :1], f"request {i} prefill")
         lens = torch.tensor([len(p) for p in prompts], dtype=torch.int32,
                             device=dev)
         for t in range(NEW_TOKENS - 1):
-            logits = llama.decode_step_fused(
-                params, out_t[:, t], lens, pools, bt, lens, cfg, cos, sin,
-                scales, attention=paged_attention_fused_plain)[0]
+            if layout == "fused":
+                logits = llama.decode_step_fused(
+                    params, out_t[:, t], lens, pools[0], bt, lens, cfg, cos,
+                    sin, pools[1], attention=paged_attention_fused_plain)[0]
+            else:
+                logits = llama.decode_step(
+                    params, out_t[:, t], lens, *pools[:2], bt, lens, cfg,
+                    cos, sin, *pools[2:],
+                    attention=paged.paged_attention_plain)[0]
             agree.add(logits, out_t[:, t + 1], f"decode step {t}")
             lens = lens + 1
     agree.report("teacher-forced replay with the plain attention versions")
-    del pools, scales
+    pools.clear()
     torch.cuda.empty_cache()
 
 
 def phase_engine():
-    """Five engine runs of the 12 prompts on a full-width, full-depth
-    Llama-3-8B: bf16 whole-prompt, (a) bf16 chunked, (b) int8
-    chunked, (c) fp8 whole-prompt, (d) fp8 chunked."""
+    """Eight engine runs of the 12 prompts on a full-width, full-depth
+    Llama-3-8B: over fused pools bf16 whole-prompt, (a) bf16 chunked, (b)
+    int8 chunked, (c) fp8 whole-prompt, (d) fp8 chunked; over split pools
+    (layout="split", whole-prompt prefill) (e) bf16, (f) int8 and (g)
+    fp8."""
     from aule_tpu_torch.models import llama
 
     cfg = llama.LlamaConfig.llama3_8b()
@@ -953,16 +1111,39 @@ def phase_engine():
                                       quantized=True, quant_dtype=dt,
                                       prefill_chunk=chunk)
         check_replay(params, cfg, prompts, out_q, label, dt, chunk)
-        same = sum(x == y for o, oa in zip(out_q, out_a)
-                   for x, y in zip(o, oa))
-        log(f"engine {label}: {same} of {len(prompts) * NEW_TOKENS} tokens "
-            f"equal run (a)'s (for information)")
+        log(f"engine {label}: {_same(out_q, out_a)} of "
+            f"{len(prompts) * NEW_TOKENS} tokens equal run (a)'s (for "
+            f"information)")
+
+    for key, label, dt in (("e", "(e) split bf16", None),
+                           ("f", "(f) split int8", torch.int8),
+                           ("g", "(g) split fp8", torch.float8_e4m3fn)):
+        kw = dict(layout="split")
+        if dt is not None:
+            kw.update(quantized=True, quant_dtype=dt)
+        out_s, runs[key] = run_engine(params, cfg, prompts, label, **kw)
+        if dt is None:
+            check_plain_forward(params, cfg, prompts, out_s, label)
+        else:
+            check_replay(params, cfg, prompts, out_s, label, dt, None,
+                         layout="split")
+        log(f"engine {label}: {_same(out_s, out)} of "
+            f"{len(prompts) * NEW_TOKENS} tokens equal the fused bf16 "
+            f"whole-prompt run's (for information)")
     return runs, params, cfg
 
 
+def _same(outs, ref) -> int:
+    """Tokens at which two runs' outputs agree."""
+    return sum(x == y for o, r in zip(outs, ref) for x, y in zip(o, r))
+
+
+# a kernel's category is the first whose key its lower-cased name holds:
+# the split decode (paged_decode_kernel<..., SplitPools>) before the fused
 CATEGORIES = {"flash_fwd": ["flash_fwd_kernel"],
               "flash_bwd_dq": ["flash_bwd_dq_kernel"],
               "flash_bwd_dkv": ["flash_bwd_dkv_kernel"],
+              "paged_decode_split": ["splitpools"],
               "paged_decode": ["paged_decode_kernel"],
               "paged_prefill": ["paged_prefill_kernel"],
               "gemm": ["gemm", "nvjet", "cutlass", "xmma"],
@@ -986,8 +1167,9 @@ def _log_breakdown(label: str, bd: dict) -> None:
 def phase_breakdown(params, cfg) -> None:
     """Where the engine's time goes on the card: a prefill step of one
     2048-token prompt and one 8-step decode dispatch at B8, each under
-    torch.profiler, for bf16 pools with whole-prompt prefill and for int8
-    and fp8 pools with prefill_chunk=512 (that step is four chunks)."""
+    torch.profiler, for bf16 pools with whole-prompt prefill, for int8
+    and fp8 pools with prefill_chunk=512 (that step is four chunks) and for
+    int8 split pools with whole-prompt prefill (run (f)'s configuration)."""
     from aule_tpu_torch.serving.engine import ServingEngine
     from aule_tpu_torch.utils import profiling
 
@@ -996,7 +1178,8 @@ def phase_breakdown(params, cfg) -> None:
                                               prefill_chunk=CHUNK)),
                       ("fp8 chunk 512", dict(
                           quantized=True, quant_dtype=torch.float8_e4m3fn,
-                          prefill_chunk=CHUNK))):
+                          prefill_chunk=CHUNK)),
+                      ("int8 split", dict(quantized=True, layout="split"))):
         eng = ServingEngine(params, cfg, max_batch=8, page_size=16,
                             num_pages=1200, max_pages_per_seq=272,
                             max_seq_len=4352, decode_steps=8, **kw)
@@ -1157,6 +1340,7 @@ def main() -> None:
     gen.manual_seed(SEED)
     flash_err, flash_t = check_flash(gen)
     decode_err, decode_t = check_decode(gen)
+    split_err, split_t = check_decode_split(gen)
     prefill_err, prefill_t = check_prefill(gen)
     check_groups(gen, decode_err, prefill_err)
     runs, params, cfg = phase_engine()
@@ -1179,9 +1363,15 @@ def main() -> None:
     # counts in the runs over that pool.
     decode_src = "aule_tpu_torch/csrc/paged_decode.cu"
     decode_row = "aule_tpu/ops/paged_fused.py:213 (_fused_decode_kernel)"
+    split_row = "aule_tpu/ops/paged.py:45 (_paged_decode_kernel)"
+    split_shape = decode_shape = "B8 ctx4096 page16 Hq32/Hkv8 D128"
+    split_extra = {  # the fused kernel on the same pools, and its bits
+        mode: {"fused_kernel_same_pool_ms":
+               split_t[mode]["fused_kernel_same_pool_ms"],
+               "same_bits_as_fused_kernel": True}
+        for mode in ("bf16", "int8", "fp8")}
     prefill_src = "aule_tpu_torch/csrc/paged_prefill.cu"
     prefill_row = "aule_tpu/ops/paged_fused.py:770 (_fused_prefill_kernel)"
-    decode_shape = "B8 ctx4096 page16 Hq32/Hkv8 D128"
     prefill_shape = ("B1 Hq32/Hkv8 D128 page16, chunk 512 at q_offset 3488 "
                      "over 4000")
     entries = []
@@ -1214,6 +1404,19 @@ def main() -> None:
              decode_err["fp8"], decode_t["fp8"],
              decode_shape + " e4m3, bf16 scales", decode_src,
              decode_row + " fp8 mode", {}),
+            ("paged_decode_split", "paged_decode_split", ("e",),
+             split_err["bf16"], split_t["bf16"],
+             split_shape + " split bf16 pools (f16 checked too)",
+             decode_src, split_row,
+             dict(split_extra["bf16"], f16_errs=split_err["f16"])),
+            ("paged_decode_split_int8", "paged_decode_split", ("f",),
+             split_err["int8"], split_t["int8"],
+             split_shape + " split int8 pools, f32 scales", decode_src,
+             split_row, split_extra["int8"]),
+            ("paged_decode_split_fp8", "paged_decode_split", ("g",),
+             split_err["fp8"], split_t["fp8"],
+             split_shape + " split e4m3 pools, f32 scales", decode_src,
+             split_row, split_extra["fp8"]),
             ("paged_prefill", "paged_prefill", ("a",), prefill_err["bf16"],
              prefill_t["bf16"], prefill_shape + ", bf16 pool (f16 checked "
              "too)", prefill_src, prefill_row, {}),

@@ -4,7 +4,8 @@ On the same tiny f32 params (carried across with `load_jax_params`), greedy
 decoding through the port's engine (device='cpu': the kernels' plain
 versions) is token-identical to aule_tpu's engine, with admission waiting
 for retirements and multi-step decode on, with bf16/f32, int8 and fp8 pools
-and whole-prompt or chunked prefill.
+in the fused layout with whole-prompt or chunked prefill, and in the split
+layout with whole-prompt prefill.
 """
 
 import jax
@@ -117,6 +118,39 @@ def test_chunked_matches_whole_prompt(params, qname):
     assert outs[None] == outs[8]
 
 
+@pytest.mark.parametrize("qname", [None, "int8", "fp8"])
+def test_split_layout_token_identical_to_jax(params, qname):
+    """layout='split' (head-major pools, f32 scales when quantized; the
+    exact scale-folded decode) with whole-prompt prefill: greedy tokens
+    identical to aule_tpu's engine with the same options, with admission
+    waiting for retirements and multi-step decode on."""
+    jp, tp = params
+    jkw = dict(KW, layout="split")
+    tkw = dict(KW, layout="split")
+    if qname is not None:
+        jkw.update(quantized=True, quant_dtype=QDT[qname][0])
+        tkw.update(quantized=True, quant_dtype=QDT[qname][1])
+    jeng = JaxEngine(jp, JCFG, **jkw)
+    teng = ServingEngine(tp, TCFG, device="cpu", **tkw)
+    news = (6, 11, 7)
+    for p, n in zip(_prompts(), news):
+        jeng.submit(p, n)
+        teng.submit(p, n)
+    jout = [r.output for r in jeng.run()]
+    tout = [r.output for r in teng.run()]
+    assert [len(o) for o in tout] == list(news)
+    assert tout == jout
+    assert teng.kv_pages is None and teng.kv_scales is None
+    shape = (TCFG.n_layers, TCFG.n_kv_heads, 64, 16, TCFG.head_dim)
+    assert tuple(teng.k_pages.shape) == tuple(teng.v_pages.shape) == shape
+    if qname is not None:
+        assert teng.k_pages.dtype == QDT[qname][1]
+        assert teng.k_scales.dtype == torch.float32
+        assert tuple(teng.v_scales.shape) == shape[:-1]
+        assert teng.k_scales.data_ptr() != teng.v_scales.data_ptr()
+    assert teng.allocator.num_free == KW["num_pages"] - 1
+
+
 def test_quantized_engine_bad_options(params):
     _, tp = params
     with pytest.raises(ValueError):
@@ -124,6 +158,19 @@ def test_quantized_engine_bad_options(params):
                       quant_dtype=torch.float16, **KW)
     with pytest.raises(ValueError):
         ServingEngine(tp, TCFG, device="cpu", prefill_chunk=0, **KW)
+
+
+def test_split_layout_bad_options(params):
+    """As JAX's engine: chunked prefill needs the fused layout, and an
+    unknown layout is refused."""
+    jp, tp = params
+    with pytest.raises(ValueError):
+        JaxEngine(jp, JCFG, **dict(KW, layout="split", prefill_chunk=8))
+    with pytest.raises(ValueError):
+        ServingEngine(tp, TCFG, device="cpu", layout="split",
+                      prefill_chunk=8, **KW)
+    with pytest.raises(ValueError):
+        ServingEngine(tp, TCFG, device="cpu", layout="paged", **KW)
 
 
 def test_pages_return_after_run(params):
@@ -160,7 +207,7 @@ def test_oversized_request_rejected(params):
     dict(quantized=True, spec_tokens=2),
     dict(enable_prefix_cache=True), dict(mesh=object()),
     dict(spec_tokens=2), dict(ngram_spec=2), dict(lora_params={"a": {}}),
-    dict(sampler=sampling.greedy()), dict(layout="split"),
+    dict(sampler=sampling.greedy()), dict(layout="split", ngram_spec=2),
     dict(model=jllama)])
 def test_unported_engine_options_raise(params, kw):
     _, tp = params

@@ -39,8 +39,9 @@ def test_no_jax_imports(path):
 def test_engine_import_leaves_jax_out():
     code = ("import sys, aule_tpu_torch.serving.engine, "
             "aule_tpu_torch.ops.flash, aule_tpu_torch.ops.flash_vjp, "
-            "aule_tpu_torch.ops.paged_fused, "
-            "aule_tpu_torch.ops.paged_prefill, aule_tpu_torch.ops.quant; "
+            "aule_tpu_torch.ops.paged, aule_tpu_torch.ops.paged_fused, "
+            "aule_tpu_torch.ops.paged_prefill, aule_tpu_torch.ops.quant, "
+            "aule_tpu_torch.serving.kv_cache; "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'aule_tpu')))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -54,6 +55,7 @@ def test_default_device_entry_points_raise_without_cuda():
         pytest.skip("a CUDA device is present: the default device is valid")
     from aule_tpu_torch.models import llama
     from aule_tpu_torch.serving.engine import ServingEngine
+    from aule_tpu_torch.serving.kv_cache import PagedKVCache
 
     cfg = llama.LlamaConfig.tiny()
     with pytest.raises(RuntimeError):
@@ -63,3 +65,5 @@ def test_default_device_entry_points_raise_without_cuda():
         ServingEngine(params, cfg)
     with pytest.raises(RuntimeError):
         llama.load_jax_params({})
+    with pytest.raises(RuntimeError):
+        PagedKVCache.create(2, 64)

@@ -245,6 +245,128 @@ def test_prefill_step_fused(params, qname):
     assert torch.equal(every[1, 6], tout[0][1])
 
 
+def _split_pools(kind, num_pages=16, page=16, seed=8):
+    """Per-layer split pools ([Hkv, P, page, D] K and V, and f32 scales when
+    quantized) holding random history, written by JAX's prefill append;
+    the port gets the same bytes, stacked [L, ...]."""
+    from aule_tpu.ops import paged as jpg
+
+    rng = np.random.default_rng(seed)
+    bt = np.array([[1, 2, -1, -1], [3, 4, 5, -1]], np.int32)
+    hist = np.array([20, 33], np.int32)
+    shape = (JCFG.n_kv_heads, num_pages, page, JCFG.head_dim)
+    jdt, tdt = ((jnp.float32, torch.float32) if kind == "f32" else
+                (jnp.bfloat16, torch.bfloat16) if kind == "bf16" else
+                QDTYPES[kind])
+    jpools = []
+    for _ in range(JCFG.n_layers):
+        k = jnp.asarray(rng.standard_normal((2,) + shape[:1] + (33,)
+                                            + shape[3:]), jnp.float32)
+        v = jnp.asarray(rng.standard_normal(k.shape), jnp.float32)
+        where = (jnp.asarray(bt), jnp.zeros((2,), jnp.int32),
+                 jnp.asarray(hist))
+        if kind in QDTYPES:
+            jpools.append(jpg.kv_cache_append_prefill_quantized(
+                jnp.zeros(shape, jdt), jnp.zeros(shape, jdt),
+                jnp.zeros(shape[:-1]), jnp.zeros(shape[:-1]), k, v,
+                *where)[:4])
+        else:
+            jpools.append(jpg.kv_cache_append_prefill(
+                jnp.zeros(shape, jdt), jnp.zeros(shape, jdt), k, v,
+                *where)[:2])
+    dts = (tdt, tdt, torch.float32, torch.float32)
+    tpools = [torch.stack([_tbits(p[i], dts[i]) for p in jpools])
+              for i in range(len(jpools[0]))]
+    return [list(x) for x in zip(*jpools)], tpools, bt, hist
+
+
+# bf16 runs the whole tiny model in bf16 (weights and pools, as the engine
+# does): JAX rounds p to bf16 before the PV product while the port sums it
+# in f32, and the two frameworks round their bf16 products at other
+# places, so the logits agree to bf16 precision, not f32's
+SPLIT_DECODE_TOL = {"f32": ATOL, "bf16": 5e-2, "int8": ATOL, "fp8": ATOL}
+
+
+def _bf16_model(jp):
+    import dataclasses
+
+    jb = jax.tree.map(lambda a: a.astype(jnp.bfloat16) if a.ndim == 2
+                      else a, jp)
+    return (jb, tllama.load_jax_params(jax.tree.map(np.asarray, jb),
+                                       device="cpu"),
+            dataclasses.replace(JCFG, dtype=jnp.bfloat16),
+            dataclasses.replace(TCFG, dtype=torch.bfloat16))
+
+
+@pytest.mark.parametrize("kind", sorted(SPLIT_DECODE_TOL))
+def test_decode_step_split(params, kind):
+    """decode_step over split pools against JAX's: logits (f32 pools and
+    the exact, scale-folded int8 and fp8 paths at 1e-4), lengths, and
+    every layer's pools after the in-place append (f32 at 1e-4; int8 and
+    fp8 payloads bytewise and their f32 scales within 1e-6 relative; bf16
+    bytewise in layer 0, whose appends come before any attention)."""
+    jp, tp = params
+    jcfg, tcfg = JCFG, TCFG
+    if kind == "bf16":
+        jp, tp, jcfg, tcfg = _bf16_model(jp)
+    jpools, tpools, bt, lens = _split_pools(kind)
+    tok = np.array([5, 77], np.int32)
+    jc, jsn = jrope(64, JCFG.head_dim, JCFG.rope_base)
+    tc, tsn = trope(64, TCFG.head_dim, TCFG.rope_base)
+    jout = jllama.decode_step(jp, jnp.asarray(tok), jnp.asarray(lens),
+                              jpools[0], jpools[1], jnp.asarray(bt),
+                              jnp.asarray(lens), jcfg, jc, jsn, *jpools[2:])
+    tout = tllama.decode_step(tp, torch.from_numpy(tok).long(),
+                              torch.from_numpy(lens).long(), *tpools[:2],
+                              torch.from_numpy(bt), torch.from_numpy(lens),
+                              tcfg, tc, tsn, *tpools[2:])
+    assert len(tout) == len(jout) == (6 if kind in QDTYPES else 4)
+    assert_close(tout[0], np.asarray(jout[0]), 0, SPLIT_DECODE_TOL[kind],
+                 "logits")
+    assert tout[3].tolist() == np.asarray(jout[3]).tolist()
+    for i, j in enumerate((1, 2, 4, 5)[:len(tpools)]):
+        assert tout[j] is tpools[i]  # written in place
+        for li in range(JCFG.n_layers):
+            if kind == "f32":
+                assert_close(tpools[i][li], np.asarray(jout[j][li]), 0,
+                             ATOL, f"pool {i} layer {li}")
+            elif kind == "bf16" and li > 0:
+                # later layers' K/V come from inputs that already carry
+                # the two frameworks' bf16 roundings: two bf16 steps of
+                # values up to 4
+                assert_close(tpools[i][li].float(), np.asarray(
+                    jout[j][li].astype(jnp.float32)), 0, 2 ** -5 * 2,
+                    f"pool {i} layer {li}")
+            elif i >= 2:
+                # a scale is the token's amax / qmax, and the two
+                # frameworks sum the K/V products in other orders: a few
+                # f32 steps apart
+                assert_close(tpools[i][li], np.asarray(jout[j][li]), 1e-6,
+                             0, f"scales {i} layer {li}")
+            else:
+                assert _same_bits(tpools[i][li], jout[j][li]), (i, li)
+
+
+def test_decode_step_split_hook_and_mesh(params):
+    """The attention hook taking the plain version gives the wrapper's
+    result (on the CPU the wrapper IS the plain version); mesh= raises."""
+    from aule_tpu_torch.ops.paged import paged_attention_plain
+
+    _, tp = params
+    _, tpools, bt, lens = _split_pools("int8", seed=9)
+    tc, tsn = trope(64, TCFG.head_dim, TCFG.rope_base)
+    args = (torch.tensor([3, 9]), torch.from_numpy(lens).long())
+    where = (torch.from_numpy(bt), torch.from_numpy(lens), TCFG, tc, tsn)
+    a = tllama.decode_step(tp, *args, *[p.clone() for p in tpools[:2]],
+                           *where, *[p.clone() for p in tpools[2:]])[0]
+    b = tllama.decode_step(tp, *args, *[p.clone() for p in tpools[:2]],
+                           *where, *[p.clone() for p in tpools[2:]],
+                           attention=paged_attention_plain)[0]
+    assert torch.equal(a, b)
+    with pytest.raises(NotImplementedError):
+        tllama.decode_step(tp, *args, *tpools[:2], *where, mesh=object())
+
+
 def test_decode_attention_hook_is_the_plain_version(params):
     _, tp = params
     rng = np.random.default_rng(6)
