@@ -38,6 +38,9 @@ _FLOAT = ctypes.c_float
 SIGNATURES = {
     "aule_flash_fwd": [_VOID, _VOID, _VOID, _VOID, _VOID, _INT, _INT, _INT,
                        _INT, _INT, _FLOAT, _INT, _INT, _INT, _VOID],
+    "aule_flash_fwd_short": [_VOID, _VOID, _VOID, _VOID, _VOID, _INT, _INT,
+                             _INT, _INT, _INT, _FLOAT, _INT, _INT, _INT,
+                             _VOID],
     # q, qf, kv, scales, tables, lens, out, lse, B, Hq, Hkv, page,
     # max_pages, scale, window, dtype, pool, sc_f32, stream
     "aule_paged_decode": [_VOID] * 8 + [_INT] * 5 + [_FLOAT] +

@@ -4,10 +4,13 @@
 k/v [B, Hkv, Sk, D] in; `(out, lse [B, Hq, Sq])` or `out` back.  It follows
 its tensors:
   * CPU tensors go to `flash_attention_fwd_plain`, the dense PyTorch version;
-  * CUDA tensors launch the hand-written kernel in csrc/flash_fwd.cu
-    (replaces the TPU kernels `_fwd_kernel` and `_mono_kernel`; see the
-    source note there), or raise for what the kernel does not take.
-The kernel takes bf16/f16 with D=128; f32 on the card, D other than 128,
+  * CUDA tensors launch a hand-written kernel (both replace the TPU kernels
+    `_fwd_kernel` and `_mono_kernel`; see the source notes), or raise for
+    what the kernels do not take: `flash_fwd_tma`, csrc/flash_fwd.cu's
+    TMA/wgmma kernel, on every shape but the shortest prompts, which go to
+    `flash_fwd_short`, csrc/flash_fwd_short.cu's mma.sync kernel, by one
+    rule on the query length (`SHORT_SQ`).
+The kernels take bf16/f16 with D=128; f32 on the card, D other than 128,
 fused RoPE (`rope_cos`/`rope_sin`, i.e. `flash_attention_rope`) and a
 traced `kv_len` come with later slices and raise here.  Training goes
 through `ops/flash_vjp.py`, whose autograd Function calls this forward
@@ -25,6 +28,13 @@ from . import _build
 from .reference import attention_reference
 
 KERNEL_HEAD_DIM = 128
+# Queries per head at or below which the mma.sync kernel runs: a tile or
+# two of work, whose time is the latency to the first tile, which the
+# TMA/wgmma kernel's warp-specialised set-up lengthens.  Set from
+# chip_smoke.py's device times of both kernels at short prompts (on an
+# H100 the mma.sync kernel led at 7 and 16 queries and trailed from 32;
+# PERF.md).
+SHORT_SQ = 16
 
 
 def flash_attention_fwd_plain(q, k, v, *, causal: bool = False,
@@ -88,11 +98,21 @@ def flash_attention_fwd(
         return flash_attention_fwd_plain(
             q, k, v, causal=causal, scale=scale, window_size=window,
             return_lse=return_lse)
+    kernel = flash_fwd_short if q.shape[2] <= SHORT_SQ else flash_fwd_tma
+    return kernel(q, k, v, causal=causal, scale=scale, window_size=window,
+                  return_lse=return_lse)
+
+
+def _launch(entry: str, q, k, v, causal, scale, window_size, return_lse):
+    """Check CUDA q, k, v and run the C entry point `entry` on them."""
+    _check_shapes(q, k, v)
+    scale, window = _scale_window(q, scale, window_size)
     if q.device.type != "cuda":
-        raise ValueError(f"unsupported device {q.device}")
+        raise ValueError(f"the flash kernels run on CUDA tensors, got "
+                         f"{q.device}")
     if q.shape[-1] != KERNEL_HEAD_DIM:
         raise NotImplementedError(
-            f"the CUDA flash kernel takes D={KERNEL_HEAD_DIM}; D=64 and "
+            f"the CUDA flash kernels take D={KERNEL_HEAD_DIM}; D=64 and "
             f"D=256 come with the GPT-2 slice (got D={q.shape[-1]})")
     if not (q.dtype == k.dtype == v.dtype):
         raise TypeError(f"q/k/v dtypes differ: {q.dtype}, {k.dtype}, "
@@ -106,20 +126,45 @@ def flash_attention_fwd(
         raise ValueError("q, k, v must be on one device")
     lib = _build.library()
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        if x.data_ptr() % 16:  # a TMA tensor map's base
+            raise ValueError(f"{name} must start on a 16-byte boundary")
     batch, hq, seq_q, _ = q.shape
     hkv, seq_k = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
     lse = (torch.empty((batch, hq, seq_q), dtype=torch.float32,
                        device=q.device) if return_lse else None)
-    err = lib.aule_flash_fwd(
+    err = getattr(lib, entry)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lse.data_ptr() if lse is not None else None,
         batch, hq, hkv, seq_q, seq_k, scale, int(bool(causal)),
         window, code, _build.stream_handle(q.device))
-    _build.check(err, "aule_flash_fwd")
-    flash_attention_fwd.launches += 1
+    _build.check(err, entry)
     return (out, lse) if return_lse else out
 
 
-# kernel launches since the last reset (the CPU route does not count)
-flash_attention_fwd.launches = 0
+def flash_fwd_tma(q, k, v, *, causal: bool = False,
+                  scale: Optional[float] = None, window_size: int = -1,
+                  return_lse: bool = True):
+    """csrc/flash_fwd.cu's TMA/wgmma kernel on CUDA tensors of any length
+    (what `flash_attention_fwd` runs above SHORT_SQ queries)."""
+    res = _launch("aule_flash_fwd", q, k, v, causal, scale, window_size,
+                  return_lse)
+    flash_fwd_tma.launches += 1
+    return res
+
+
+def flash_fwd_short(q, k, v, *, causal: bool = False,
+                    scale: Optional[float] = None, window_size: int = -1,
+                    return_lse: bool = True):
+    """csrc/flash_fwd_short.cu's mma.sync kernel on CUDA tensors of any
+    length (what `flash_attention_fwd` runs up to SHORT_SQ queries)."""
+    res = _launch("aule_flash_fwd_short", q, k, v, causal, scale,
+                  window_size, return_lse)
+    flash_fwd_short.launches += 1
+    return res
+
+
+# kernel launches since the last reset (the CPU route counts none)
+flash_fwd_tma.launches = 0
+flash_fwd_short.launches = 0

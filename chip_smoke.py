@@ -9,8 +9,12 @@ Phases, each printing a line of its own:
      nvcc per source, all started together;
   3. kernels: each hand-written kernel against its plain PyTorch version
      on the card (each output row within ROW_TOL of its size, LSE within
-     LSE_TOL; see below): flash forward (also at the shape classes of the
-     TPU's _causal_kernel and _win_kernel); paged decode over bf16, int8
+     LSE_TOL; see below): flash forward, both kernels (the TMA/wgmma one,
+     also at the shape classes of the TPU's _causal_kernel and _win_kernel
+     and at its tiles' edges: ragged prompts, groups 1, 2 and 8, f16,
+     windows with Sq != Sk; and the mma.sync one the wrapper runs for
+     prompts of at most SHORT_SQ tokens, with both kernels' device times
+     at short prompts); paged decode over bf16, int8
      (dot-product and exact paths) and fp8 pools; paged prefill over bf16, f16, int8 and fp8
      pools (a 512-token chunk at q_offset 3488 over 4000 cached tokens,
      with and without a 256 window; a ragged batch of 4 whose padding
@@ -162,7 +166,8 @@ def phase_build():
         f"(nvcc {_build.build_seconds():.2f} s) -> {_build.library_path()}")
     for line in _build.build_log().splitlines():
         if ("registers" in line or "spill" in line or line.startswith("==")
-                or "Function properties" in line):
+                or "Function properties" in line
+                or "Performance Loss" in line):
             log(f"  ptxas {line.strip()}")
 
 
@@ -205,12 +210,16 @@ def hold(what, out, plain, lse, plse, tol, worst=None, key=None,
 
 
 def check_flash(gen):
-    """The flash forward against its plain version at every mask and at
-    the shape classes of the TPU's _fwd_kernel, _mono_kernel,
-    _causal_kernel and _win_kernel; its times at S512, S2048, the
-    _causal_kernel shape and the S4096 window."""
-    from aule_tpu_torch.ops.flash import (flash_attention_fwd,
-                                          flash_attention_fwd_plain)
+    """The flash forward against its plain version at every mask, at the
+    shape classes of the TPU's _fwd_kernel, _mono_kernel, _causal_kernel
+    and _win_kernel, and at the edges of its 128-row, 128-key tiles: the
+    engine's ragged prompt lengths, GQA groups 1, 2 and 8, f16, windows
+    with Sq != Sk and rows that see nothing; its times at S512, S2048, the
+    _causal_kernel shape, the S4096 window and bench.py's B4 S4096 prefill
+    row."""
+    from aule_tpu_torch.ops.flash import (SHORT_SQ, flash_attention_fwd,
+                                          flash_attention_fwd_plain,
+                                          flash_fwd_short, flash_fwd_tma)
     from aule_tpu_torch.ops.reference import build_mask
     from aule_tpu_torch.utils import profiling
 
@@ -232,59 +241,126 @@ def check_flash(gen):
         ("S4096 bidirectional window 256 (_win_kernel class)", LAYER, 4096,
          4096, False, 256, bf),
         ("S512 causal f16", LAYER, 512, 512, True, -1, fp),
+        # the engine's ragged prompts against the 128-row q and key tiles
+        ("S7 causal", LAYER, 7, 7, True, -1, bf),
+        ("S64 causal", LAYER, 64, 64, True, -1, bf),
+        ("S129 causal", LAYER, 129, 129, True, -1, bf),
+        ("S511 causal", LAYER, 511, 511, True, -1, bf),
+        ("S4000 causal", LAYER, 4000, 4000, True, -1, bf),
+        ("group 1 Hq8/Hkv8 S2048 causal", (1, 8, 8), 2048, 2048, True, -1,
+         bf),
+        ("group 2 Hq16/Hkv8 S2048 causal", (1, 16, 8), 2048, 2048, True, -1,
+         bf),
+        ("group 8 Hq64/Hkv8 S2048 causal", (1, 64, 8), 2048, 2048, True, -1,
+         bf),
+        ("S2048 causal f16", LAYER, 2048, 2048, True, -1, fp),
+        ("Sq900 Sk2000 causal window 300", LAYER, 900, 2000, True, 300, bf),
+        ("Sq700 Sk300 bidirectional window 100 (rows that see nothing)",
+         LAYER, 700, 300, False, 100, bf),
     ]
     for label, (b, hq, hkv), sq, sk, causal, window, dt in cases:
         q = _randn((b, hq, sq, 128), gen, dt)
         k = _randn((b, hkv, sk, 128), gen, dt)
         v = _randn((b, hkv, sk, 128), gen, dt)
-        o, lse = flash_attention_fwd(q, k, v, causal=causal,
-                                     window_size=window, return_lse=True)
         po, plse = flash_attention_fwd_plain(q, k, v, causal=causal,
                                              window_size=window,
                                              return_lse=True)
-        hold(f"flash {label}", o, po, lse, plse, ROW_TOL[dt], worst, "flash")
+        # the kernel the wrapper picks, and within one 128-row q tile both
+        kernels = [(flash_attention_fwd, "")]
+        if sq <= 128:
+            kernels = [(flash_fwd_tma, " (TMA kernel)"),
+                       (flash_fwd_short, " (short-prompt kernel)")]
+        for fn, which in kernels:
+            o, lse = fn(q, k, v, causal=causal, window_size=window,
+                        return_lse=True)
+            hold(f"flash {label}{which}", o, po, lse, plse, ROW_TOL[dt],
+                 worst, "flash_short" if fn is flash_fwd_short else "flash")
         del q, k, v, o, lse, po, plse
 
     timings = {}
     for key, (b, hq, hkv), s, window in (
             (512, LAYER, 512, -1), (2048, LAYER, 2048, -1),
             ("causal class", (2, 16, 4), 2048, -1),
-            ("window", LAYER, 4096, 256)):
+            ("window", LAYER, 4096, 256), ("B4 S4096", (4, 32, 8), 4096, -1)):
         q = _randn((b, hq, s, 128), gen)
         k = _randn((b, hkv, s, 128), gen)
         v = _randn((b, hkv, s, 128), gen)
         kx = k.repeat_interleave(hq // hkv, dim=1)
         vx = v.repeat_interleave(hq // hkv, dim=1)
         kw = dict(causal=True, window_size=window, return_lse=False)
-        ms = profiling.cuda_time_ms(lambda: flash_attention_fwd(q, k, v, **kw),
-                                    iters=20)
-        plain = profiling.cuda_time_ms(
-            lambda: flash_attention_fwd_plain(q, k, v, **kw), iters=20)
         if window > 0:
-            mask = build_mask(s, s, True, window, device="cuda")
-            lib = profiling.cuda_time_ms(
-                lambda: F.scaled_dot_product_attention(q, kx, vx,
-                                                       attn_mask=mask),
-                iters=20)
+            mask = dict(attn_mask=build_mask(s, s, True, window,
+                                             device="cuda"))
             flops = profiling.window_attention_flops(b, hq, s, 128, window)
         else:
-            lib = profiling.cuda_time_ms(
-                lambda: F.scaled_dot_product_attention(q, kx, vx,
-                                                       is_causal=True),
-                iters=20)
+            mask = dict(is_causal=True)
             flops = profiling.attention_flops(b, hq, s, s, 128, causal=True)
+        kernel = lambda: flash_attention_fwd(q, k, v, **kw)
+        sdpa = lambda: F.scaled_dot_product_attention(q, kx, vx, **mask)
+        ms = profiling.cuda_time_ms(kernel, iters=20)
+        plain = profiling.cuda_time_ms(
+            lambda: flash_attention_fwd_plain(q, k, v, **kw), iters=20)
+        lib = profiling.cuda_time_ms(sdpa, iters=20)
+        # the card's own time per call (torch.profiler, the kernels of 20
+        # calls): the CUDA-event time of one call also holds the host's
+        # dispatch once a kernel is this short, and the wrapper's Python
+        # dispatch is longer than SDPA's
+        dev, dev_lib = (profiling.device_breakdown(
+            lambda: [fn() for _ in range(20)], {})["busy_ms"] / 20
+            for fn in (kernel, sdpa))
         nbytes = 2 * (q.numel() * 2 + k.numel() + v.numel())
         bound, by = profiling.bound_ms(nbytes, flops)
         timings[key] = dict(ms=ms[0], plain_ms=plain[0], library_ms=lib[0],
-                            bound_ms=bound, bound_by=by)
+                            bound_ms=bound, bound_by=by, device_ms=dev,
+                            library_device_ms=dev_lib)
         log(f"flash time B{b} Hq{hq}/Hkv{hkv} S{s} D128 bf16 causal"
             f"{f' window {window}' if window > 0 else ''}: kernel "
-            f"{ms[0]:.4f} ms (min {ms[1]:.4f} max {ms[2]:.4f}), "
-            f"{flops / ms[0] / 1e9:.1f} TFLOP/s; plain {plain[0]:.4f} ms; "
-            f"sdpa{' with the window mask' if window > 0 else ''} "
-            f"{lib[0]:.4f} ms; bound {bound:.4f} ms ({by})")
-    flash_attention_fwd.launches = 0
-    return worst["flash"], timings
+            f"{ms[0]:.4f} ms (min {ms[1]:.4f} max {ms[2]:.4f}), device "
+            f"{dev:.4f} ms, {flops / dev / 1e9:.1f} TFLOP/s; plain "
+            f"{plain[0]:.4f} ms; sdpa"
+            f"{' with the window mask' if window > 0 else ''} {lib[0]:.4f} "
+            f"ms, device {dev_lib:.4f} ms; bound {bound:.4f} ms ({by})")
+    # both kernels at the engine's short prompts, in device time (torch.
+    # profiler; a call's CUDA-event time is the host's at these sizes):
+    # the evidence for SHORT_SQ
+    cats = {"short": ["flash_fwd_short_kernel"], "tma": ["flash_fwd_kernel"]}
+    short = {}
+    for s in (7, 16, 32, 64, 96, 128):
+        q = _randn((1, 32, s, 128), gen)
+        k = _randn((1, 8, s, 128), gen)
+        v = _randn((1, 8, s, 128), gen)
+        dev = {}
+        for name, fn in (("tma", flash_fwd_tma), ("short", flash_fwd_short)):
+            fn(q, k, v, causal=True, return_lse=False)
+            bd = profiling.device_breakdown(
+                lambda: [fn(q, k, v, causal=True, return_lse=False)
+                         for _ in range(20)], cats)
+            dev[name] = bd["by_category_ms"][name] / 20
+        short[s] = dev
+        log(f"flash short prompt S{s} B1 Hq32/Hkv8 causal, device time per "
+            f"launch: TMA kernel {dev['tma'] * 1e3:.2f} us, short-prompt "
+            f"kernel {dev['short'] * 1e3:.2f} us (the wrapper runs the "
+            f"{'short-prompt' if s <= SHORT_SQ else 'TMA'} kernel)")
+    q = _randn((1, 32, 7, 128), gen)
+    k = _randn((1, 8, 7, 128), gen)
+    v = _randn((1, 8, 7, 128), gen)
+    kx, vx = (x.repeat_interleave(4, dim=1) for x in (k, v))
+    kw = dict(causal=True, return_lse=False)
+    ms = profiling.cuda_time_ms(lambda: flash_fwd_short(q, k, v, **kw),
+                                iters=20)
+    plain = profiling.cuda_time_ms(
+        lambda: flash_attention_fwd_plain(q, k, v, **kw), iters=20)
+    lib = profiling.cuda_time_ms(lambda: F.scaled_dot_product_attention(
+        q, kx, vx, is_causal=True), iters=20)
+    flops = profiling.attention_flops(1, 32, 7, 7, 128, causal=True)
+    bound, by = profiling.bound_ms(2 * (q.numel() * 2 + k.numel() +
+                                        v.numel()), flops)
+    timings["S7 short"] = dict(ms=ms[0], plain_ms=plain[0],
+                               library_ms=lib[0], bound_ms=bound, bound_by=by,
+                               device_ms_per_launch=short[7]["short"],
+                               device_ms_short_prompts=short)
+    flash_fwd_tma.launches = flash_fwd_short.launches = 0
+    return worst, timings
 
 
 def _bwd_inputs(gen, shape, sq, sk, causal, window, dt, with_dlse):
@@ -847,12 +923,12 @@ CHUNK = 512
 
 
 def _launch_counters():
-    from aule_tpu_torch.ops.flash import flash_attention_fwd
+    from aule_tpu_torch.ops.flash import flash_fwd_short, flash_fwd_tma
     from aule_tpu_torch.ops.paged import paged_attention
     from aule_tpu_torch.ops.paged_fused import paged_attention_fused
     from aule_tpu_torch.ops.paged_prefill import paged_attention_prefill
 
-    return {"flash_fwd": flash_attention_fwd,
+    return {"flash_fwd": flash_fwd_tma, "flash_fwd_short": flash_fwd_short,
             "paged_decode": paged_attention_fused,
             "paged_decode_split": paged_attention,
             "paged_prefill": paged_attention_prefill}
@@ -862,8 +938,10 @@ def run_engine(params, cfg, prompts, label, **kw):
     """Serve the prompts through a fresh ServingEngine; the launch counts
     are set to 0 just before the run and read just after.  Checks that
     every request finished, that the launches match the dispatches
-    (chunked prefill launches the paged-prefill kernel once per layer per
-    chunk and the flash kernel never; decode launches the decode kernel of
+    (whole-prompt prefill launches a flash kernel once per layer per
+    prompt, the short-prompt one for prompts of at most SHORT_SQ tokens;
+    chunked prefill launches the paged-prefill kernel once per layer per
+    chunk and no flash kernel; decode launches the decode kernel of
     the engine's layout, fused or split, once per layer per step and the
     other never) and that every page came back."""
     from aule_tpu_torch.serving.engine import ServingEngine
@@ -900,11 +978,17 @@ def run_engine(params, cfg, prompts, label, **kw):
     if len(done) != n_req or any(len(r.output) != NEW_TOKENS for r in done):
         raise AssertionError(f"{label}: not every request finished with "
                              f"{NEW_TOKENS} tokens")
+    from aule_tpu_torch.ops.flash import SHORT_SQ
+
     layers = cfg.n_layers
     chunked = kw.get("prefill_chunk") is not None
     split = kw.get("layout") == "split"
     decode = st["decode_steps"] * layers
-    want = {"flash_fwd": 0 if chunked else st["prefill_dispatches"] * layers,
+    # whole-prompt prefill: one dispatch per prompt, its kernel by length
+    short = sum(n <= SHORT_SQ for n in PROMPT_LENS)
+    want = {"flash_fwd": (0 if chunked else
+                          (st["prefill_dispatches"] - short) * layers),
+            "flash_fwd_short": 0 if chunked else short * layers,
             "paged_decode": 0 if split else decode,
             "paged_decode_split": decode if split else 0,
             "paged_prefill": (st["prefill_dispatches"] * layers if chunked
@@ -1140,7 +1224,8 @@ def _same(outs, ref) -> int:
 
 # a kernel's category is the first whose key its lower-cased name holds:
 # the split decode (paged_decode_kernel<..., SplitPools>) before the fused
-CATEGORIES = {"flash_fwd": ["flash_fwd_kernel"],
+CATEGORIES = {"flash_fwd_short": ["flash_fwd_short_kernel"],
+              "flash_fwd": ["flash_fwd_kernel"],
               "flash_bwd_dq": ["flash_bwd_dq_kernel"],
               "flash_bwd_dkv": ["flash_bwd_dkv_kernel"],
               "paged_decode_split": ["splitpools"],
@@ -1245,7 +1330,7 @@ def phase_train(params, cfg) -> dict:
     forward, dQ and dK/dV kernels once per layer, and the loss falls.
     Returns the backward kernels' launches per step."""
     from aule_tpu_torch.models import llama
-    from aule_tpu_torch.ops.flash import flash_attention_fwd
+    from aule_tpu_torch.ops.flash import flash_fwd_tma
     from aule_tpu_torch.ops.flash_vjp import flash_bwd_dkv, flash_bwd_dq
     from aule_tpu_torch.utils import profiling
 
@@ -1257,7 +1342,7 @@ def phase_train(params, cfg) -> dict:
         t.requires_grad_(True)
     check_grads(params, cfg, tokens)
 
-    counters = {"flash_fwd": flash_attention_fwd,
+    counters = {"flash_fwd": flash_fwd_tma,
                 "flash_bwd_dq": flash_bwd_dq, "flash_bwd_dkv": flash_bwd_dkv}
     matmul_params = sum(t.numel() for t in tensors if t.dim() == 2) \
         - params["embed"].numel()  # the embedding is a gather
@@ -1334,6 +1419,9 @@ def _entry(name, source, replaces, launches, err, t, shape, **extra):
 
 
 def main() -> None:
+    from aule_tpu_torch.ops.flash import SHORT_SQ
+
+    t_start = time.perf_counter()
     kind = phase_device()
     phase_build()
     gen = torch.Generator(device="cuda")
@@ -1348,6 +1436,8 @@ def main() -> None:
     bwd_err, bwd_t = check_flash_bwd(gen)
     train = phase_train(params, cfg)  # last: it rewrites the weights
     del params
+    log(f"chip_smoke: every phase passed in "
+        f"{time.perf_counter() - t_start:.1f} s, the build included")
     log(card_line())
 
     def launched(kernel, *keys):
@@ -1376,7 +1466,7 @@ def main() -> None:
                      "over 4000")
     entries = []
     for name, kernel, keys, err, t, shape, src, row, extra in (
-            ("flash_fwd", "flash_fwd", ("whole bf16", "c"), flash_err,
+            ("flash_fwd", "flash_fwd", ("whole bf16", "c"), flash_err["flash"],
              flash_t[2048], "B1 Hq32/Hkv8 S2048 D128 bf16 causal",
              "aule_tpu_torch/csrc/flash_fwd.cu",
              "aule_tpu/ops/flash.py:92 (_fwd_kernel); "
@@ -1385,9 +1475,24 @@ def main() -> None:
              "and timed); aule_tpu/ops/flash.py:479 (_win_kernel, its class "
              "checked and timed)",
              {"launches_per_train_step": train["flash_fwd"],
+              "device_ms": flash_t[2048]["device_ms"],
+              "library_device_ms": flash_t[2048]["library_device_ms"],
               "time_causal_kernel_class_B2_Hq16_Hkv4_S2048":
                   flash_t["causal class"],
-              "time_window_256_S4096": flash_t["window"]}),
+              "time_window_256_S4096": flash_t["window"],
+              "time_S512": flash_t[512],
+              "time_bench_prefill_B4_S4096": flash_t["B4 S4096"]}),
+            ("flash_fwd_short", "flash_fwd_short", ("whole bf16", "c"),
+             flash_err["flash_short"], flash_t["S7 short"],
+             f"B1 Hq32/Hkv8 S7 D128 bf16 causal (prompts of at most "
+             f"SHORT_SQ = {SHORT_SQ} tokens)",
+             "aule_tpu_torch/csrc/flash_fwd_short.cu",
+             "aule_tpu/ops/flash.py:92 (_fwd_kernel), the engine's shortest "
+             "prompts",
+             {"device_ms_per_launch": flash_t["S7 short"][
+                 "device_ms_per_launch"],
+              "device_ms_short_prompts_both_kernels": flash_t["S7 short"][
+                  "device_ms_short_prompts"]}),
             ("paged_decode", "paged_decode", ("whole bf16", "a"),
              decode_err["bf16"], decode_t["bf16"],
              decode_shape + " bf16 (f16 checked too)", decode_src,

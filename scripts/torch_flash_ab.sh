@@ -1,0 +1,67 @@
+#!/bin/bash
+# A/B of the PyTorch port's flash forward on one CUDA card: chip_smoke.py's
+# check_flash (every case against the plain version, with its timing rows),
+# one timing loop over the same forward shapes in both trees, then
+# check_flash_bwd and check_prefill (their checks and times: the backward
+# takes O and LSE from the forward, and the paged prefill shares common.cuh
+# with it).  The two trees run in turns, A, B, B, A, one process each, so
+# that both versions meet the same card.  Each process builds its tree's
+# kernels and prints the ptxas lines of every kernel.
+#
+#   git archive <commit> | tar -x -C build/parent   # a listed directory
+#   scripts/torch_flash_ab.sh build/parent          # from the repo root
+#
+# Arguments: tree A (e.g. the parent commit), and tree B (default: the
+# current directory).  The timing loop gives, per shape, the median of 20
+# CUDA-event timed calls and, for the engine's short prompts (whose calls
+# the host sets), the device time per launch from torch.profiler.
+set -o pipefail
+A=$(cd "${1:?usage: $0 TREE_A [TREE_B]}" && pwd)
+B=$(cd "${2:-.}" && pwd)
+run() {  # $1 = label, $2 = tree
+  (cd "$2" && python3 - "$1" <<'EOF'
+import sys
+
+import torch
+
+import chip_smoke as c
+from aule_tpu_torch.ops.flash import flash_attention_fwd
+from aule_tpu_torch.utils import profiling
+
+tag = sys.argv[1]
+c.phase_device()
+c.phase_build()
+g = torch.Generator("cuda")
+g.manual_seed(c.SEED)
+c.check_flash(g)
+fwd = {}
+for label, (b, hq, hkv), s, window in (
+        ("S512", c.LAYER, 512, -1), ("S2048", c.LAYER, 2048, -1),
+        ("B2 Hq16/Hkv4 S2048", (2, 16, 4), 2048, -1),
+        ("S4096 W256", c.LAYER, 4096, 256),
+        ("B4 S4096", (4, 32, 8), 4096, -1),
+        ("S7", c.LAYER, 7, -1), ("S64", c.LAYER, 64, -1),
+        ("S129", c.LAYER, 129, -1)):
+    q = c._randn((b, hq, s, 128), g)
+    k = c._randn((b, hkv, s, 128), g)
+    v = c._randn((b, hkv, s, 128), g)
+    call = lambda: flash_attention_fwd(q, k, v, causal=True,
+                                       window_size=window, return_lse=False)
+    ms = profiling.cuda_time_ms(call, iters=20)[0]
+    bd = profiling.device_breakdown(lambda: [call() for _ in range(20)],
+                                    {"flash": ["flash_fwd"]})
+    fwd[label] = (round(ms, 5), round(bd["by_category_ms"]["flash"] / 20, 5))
+    del q, k, v
+print(f"{tag} flash fwd (events median ms, profiler device ms per launch)",
+      fwd, flush=True)
+_, t = c.check_flash_bwd(g)
+print(f"{tag} flash bwd ms", {f"{s} {n}": round(v["ms"], 5)
+                              for s, d in t.items() for n, v in d.items()},
+      flush=True)
+_, t = c.check_prefill(g)
+print(f"{tag} paged prefill ms", {k: round(v["ms"], 5) for k, v in t.items()},
+      flush=True)
+EOF
+  )
+}
+run A1 "$A" && run B1 "$B" && run B2 "$B" && run A2 "$A"

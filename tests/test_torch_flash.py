@@ -126,11 +126,57 @@ def test_fully_masked_rows_are_zero():
                        -0.7 * np.finfo(np.float32).max)
 
 
+# The card's kernel works in tiles of 128 q rows and 128 keys, one q head a
+# block; these cases put lengths, GQA groups and masks on its edges, in f32
+# against JAX (interpret mode), through the port's CPU route: the plain
+# version the kernel is held to on the card.
+EDGE_CASES = {  # id: (B, Hq, Hkv, Sq, Sk, causal, window)
+    "sq7_causal": (1, 4, 2, 7, 7, True, -1),
+    "sq129_causal": (1, 4, 2, 129, 129, True, -1),
+    "sq7_sk129_causal": (1, 4, 2, 7, 129, True, -1),
+    "group1": (1, 2, 2, 100, 100, True, -1),
+    "group2": (1, 4, 2, 100, 100, True, -1),
+    "group8": (1, 8, 1, 100, 100, True, -1),
+    "window_sq60_sk150_causal": (1, 4, 2, 60, 150, True, 20),
+    "window_sq150_sk60_bidirectional": (1, 4, 2, 150, 60, False, 20),
+    "rows_that_see_nothing": (1, 2, 2, 40, 8, False, 4),
+}
+MASKED_LSE = np.float32(-0.7 * np.finfo(np.float32).max)
+
+
+@pytest.mark.parametrize("case", list(EDGE_CASES))
+def test_f32_edge_cases(case):
+    b, hq, hkv, sq, sk, causal, window = EDGE_CASES[case]
+    q, k, v = _inputs(b, hq, hkv, sq, sk, 64, seed=sq + sk + hq)
+    jo, jl, to, tl = _both(q, k, v, "float32", causal=causal,
+                           window_size=window)
+    assert_close(to, jo, 0, F32_ATOL, "out")
+    assert_close(tl, jl, 0, F32_ATOL, "lse")
+    # a row that sees nothing: output 0 and LSE -0.7*f32max in both
+    blind = jl == MASKED_LSE
+    if case == "rows_that_see_nothing":
+        assert blind.any()
+    assert (tl[blind] == MASKED_LSE).all() and (to[blind] == 0).all()
+
+
 def test_cpu_route_does_not_count_launches():
-    before = tflash.flash_attention_fwd.launches
+    kernels = (tflash.flash_fwd_tma, tflash.flash_fwd_short)
+    before = [fn.launches for fn in kernels]
     q, k, v = _inputs(1, 2, 2, 16, 16, 64)
     tflash.flash_attention_fwd(*(torch.from_numpy(x) for x in (q, k, v)))
-    assert tflash.flash_attention_fwd.launches == before
+    assert [fn.launches for fn in kernels] == before
+
+
+@pytest.mark.parametrize("kernel", ["flash_fwd_tma", "flash_fwd_short"])
+def test_kernel_launchers_take_only_cuda_tensors(kernel):
+    """Each kernel's launcher raises on CPU tensors (no CPU route) and
+    counts nothing."""
+    fn = getattr(tflash, kernel)
+    before = fn.launches
+    q = torch.zeros(1, 2, 8, 128, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        fn(q, q, q, causal=True)
+    assert fn.launches == before
 
 
 def test_later_features_raise():
