@@ -114,15 +114,6 @@ __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
-// 4-byte global->shared async copy (one f32 row statistic); zero-fills
-// when !pred.
-__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
-                                          bool pred) {
-  const int src_bytes = pred ? 4 : 0;
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
-               "l"(src), "r"(src_bytes));
-}
-
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
@@ -241,49 +232,6 @@ __device__ __forceinline__ void pack_a(const float (&lo)[4],
   a[1] = Elem<T>::pack(lo[2], lo[3]);
   a[2] = Elem<T>::pack(hi[0], hi[1]);
   a[3] = Elem<T>::pack(hi[2], hi[3]);
-}
-
-// Rows row0 .. row0 + NROWS - 1 of two [*, 128] 16-bit matrices that are
-// read together (K and V, or Q and dO) at `src0` and `src1` into swizzled
-// tiles at `dst0` and `dst1` with cp.async; rows at or past `limit` are
-// zero-filled.  One pass issues both copies of a chunk, as flash_fwd.cu's
-// own loop does: on an H100 80GB HBM3 at 700 W a pass per matrix made the
-// dK/dV kernel ~5 % and the flash forward ~10 % slower (chip_smoke.py's
-// S2048 times).  All NT threads of the block take part.
-template <int NT, int NROWS>
-__device__ __forceinline__ void load_rows_async(uint32_t dst0, uint32_t dst1,
-                                                const void* src0,
-                                                const void* src1, int row0,
-                                                int limit, int tid) {
-  const uint8_t* a = static_cast<const uint8_t*>(src0);
-  const uint8_t* b = static_cast<const uint8_t*>(src1);
-  for (int c = tid; c < NROWS * kChunks; c += NT) {
-    const int r = c / kChunks, ch = c % kChunks;
-    const int pos = row0 + r;
-    const bool ok = pos < limit;
-    const size_t off = (size_t)(ok ? pos : 0) * kRowBytes + ch * 16;
-    cp_async16(dst0 + swz(r, ch), a + off, ok);
-    cp_async16(dst1 + swz(r, ch), b + off, ok);
-  }
-}
-
-// A warp's 16 x 128 f32 accumulator rows ra and rb (those below `limit`)
-// to rows of a [*, 128] matrix of T.
-template <typename T>
-__device__ __forceinline__ void store_rows(const float (&acc)[kTileD / 8][4],
-                                           T* dst, int ra, int rb,
-                                           int limit, int lane) {
-  const int t = lane & 3;
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int r = half ? rb : ra;
-    if (r >= limit) continue;
-    uint32_t* row = reinterpret_cast<uint32_t*>(dst + (size_t)r * kTileD);
-#pragma unroll
-    for (int i = 0; i < kTileD / 8; ++i)
-      row[i * 4 + t] =
-          Elem<T>::pack(acc[i][2 * half], acc[i][2 * half + 1]);
-  }
 }
 
 // ---- The flash block's per-warp work, shared by flash_fwd.cu and

@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks for the port's hand-written kernels:
 // TMA tensor maps (encoded on the host) and their loads and stores, the
 // mbarrier that a TMA load completes, wgmma shared-memory descriptors and
-// the m64n128k16 products with f32 sums, and warpgroup register
-// rebalancing.  Built with nvcc into the plain-C library (ops/_build.py);
+// the m64n128k16 and m64n64k16 products with f32 sums, warpgroup register
+// rebalancing, and thread-block cluster barriers and shared-memory reads.
+// Built with nvcc into the plain-C library (ops/_build.py);
 // libcuda's cuTensorMapEncodeTiled is reached through the runtime's
 // entry-point query, so nothing links against libcuda.
 //
@@ -273,15 +274,98 @@ struct Wgmma;
           : AULE_ACC64                                                      \
           : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));    \
     }                                                                       \
+    /* `rs` with B's descriptor advanced by OB inside the asm */            \
+    template <int OB>                                                       \
+    __device__ __forceinline__ static void rs_at(float (&d)[64],            \
+                                                 const uint32_t (&a)[4],    \
+                                                 uint64_t b) {              \
+      asm volatile(                                                         \
+          "{\n.reg .pred p;\n.reg .b64 db;\nadd.s64 db, %68, %70;\n"        \
+          "setp.ne.b32 p, %69, 0;\n"                                        \
+          "wgmma.mma_async.sync.aligned.m64n128k16.f32." NAME "." NAME " "  \
+          AULE_WGMMA_D ", {%64, %65, %66, %67}, db, p, 1, 1, 1;\n}\n"       \
+          : AULE_ACC64                                                      \
+          : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1),     \
+            "n"(OB));                                                       \
+    }                                                                       \
   };
 
 AULE_WGMMA_TYPE(__nv_bfloat16, "bf16")
 AULE_WGMMA_TYPE(__half, "f16")
 
+// The thread's 32 f32 sums of a 64 x 64 product: the layout above over 8
+// column blocks.
+#define AULE_WGMMA_D32                                                      \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
+  "%30, %31}"
+#define AULE_ACC32 AULE_ACC8(0), AULE_ACC8(8), AULE_ACC8(16), AULE_ACC8(24)
+
+template <typename T>
+struct Wgmma64;
+
+// d (+)= A B for A 64 x 16 and B 16 x 64 (N = 64), both from shared
+// memory and K-major, f32 sums; the sum starts from zero when !accumulate.
+// The descriptors are advanced by OA and OB (16-byte units: the k-step's
+// offset) inside the asm, so a loop holds only the base descriptors in
+// registers, not one advanced descriptor per k-step.
+#define AULE_WGMMA64_TYPE(T, NAME)                                          \
+  template <>                                                               \
+  struct Wgmma64<T> {                                                       \
+    template <int OA, int OB>                                               \
+    __device__ __forceinline__ static void ss_at(float (&d)[32], uint64_t a,\
+                                                 uint64_t b,                \
+                                                 int accumulate) {          \
+      asm volatile(                                                         \
+          "{\n.reg .pred p;\n.reg .b64 da, db;\nadd.s64 da, %32, %35;\n"   \
+          "add.s64 db, %33, %36;\nsetp.ne.b32 p, %34, 0;\n"                 \
+          "wgmma.mma_async.sync.aligned.m64n64k16.f32." NAME "." NAME " "   \
+          AULE_WGMMA_D32 ", da, db, p, 1, 1, 0, 0;\n}\n"                    \
+          : AULE_ACC32                                                      \
+          : "l"(a), "l"(b), "r"(accumulate), "n"(OA), "n"(OB));             \
+    }                                                                       \
+  };
+
+AULE_WGMMA64_TYPE(__nv_bfloat16, "bf16")
+AULE_WGMMA64_TYPE(__half, "f16")
+
+#undef AULE_WGMMA64_TYPE
+#undef AULE_ACC32
+#undef AULE_WGMMA_D32
 #undef AULE_WGMMA_TYPE
 #undef AULE_ACC64
 #undef AULE_ACC8
 #undef AULE_WGMMA_D
+
+// ---- thread-block clusters ------------------------------------------------
+
+// Every thread of every block of the cluster arrives, then waits for all:
+// shared-memory writes before it are visible to the cluster's reads after.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release;\n"
+      "barrier.cluster.wait.acquire;\n" ::
+          : "memory");
+}
+
+// The address of this block's shared address `addr` in the block of
+// cluster rank `rank` (for ld.shared::cluster).
+__device__ __forceinline__ uint32_t cluster_map(uint32_t addr, int rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(out)
+               : "r"(addr), "r"(rank));
+  return out;
+}
+
+__device__ __forceinline__ float ld_cluster_f32(uint32_t addr) {
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n"
+               : "=f"(v)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
 
 }  // namespace hopper
 }  // namespace aule

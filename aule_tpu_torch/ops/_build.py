@@ -61,6 +61,8 @@ SIGNATURES = {
     # window, dtype, stream
     "aule_flash_bwd_dkv": [_VOID] * 8 + [_INT] * 5 + [_FLOAT] + [_INT] * 3 +
                           [_VOID],
+    # o, do, dlse, di, rows, dtype, stream
+    "aule_flash_bwd_delta": [_VOID] * 4 + [_INT] * 2 + [_VOID],
 }
 
 # pool codes (csrc/common.cuh kPool*): what a paged pool holds

@@ -1,15 +1,18 @@
 """Trainable flash attention (counterpart of aule_tpu/ops/flash_vjp.py).
 
-The forward is the flash forward of `ops/flash.py`; the backward is two
-kernels, as in the JAX package (flash_vjp.py:1-20):
+The forward is the flash forward of `ops/flash.py`; the backward is three
+kernels of csrc/flash_bwd.cu, as in the JAX package (flash_vjp.py:1-20):
+  * delta = rowsum(o * do) - dlse, one pass over o and do shared by the
+    other two (`attention_delta`; in JAX an XLA fusion, not a Pallas
+    kernel);
   * dQ, q-parallel, reducing over the live kv tiles (`flash_bwd_dq`);
-  * dK/dV, kv-parallel, reducing over the live q tiles and the GQA group's
-    q heads inside one block, so it needs no atomics (`flash_bwd_dkv`).
-Both recompute P from the saved LSE.  The residuals are (q, k, v, o, lse)
-and delta = rowsum(o * do) - dlse is one PyTorch reduction shared by both
-kernels (in JAX a fused XLA reduction, not a Pallas kernel).  The wrappers
-follow their tensors: CPU tensors take the plain PyTorch versions, CUDA
-tensors launch the hand-written kernels in csrc/flash_bwd.cu (replacing
+  * dK/dV, kv-parallel, reducing over the live q tiles; the GQA group's q
+    heads are split over the two blocks of a thread-block cluster, which
+    sum their shares in a fixed order, so it needs no atomics
+    (`flash_bwd_dkv`).
+Both recompute P from the saved LSE; the residuals are (q, k, v, o, lse).
+The wrappers follow their tensors: CPU tensors take the plain PyTorch
+versions, CUDA tensors launch the hand-written kernels (replacing
 `_dq_kernel` and `_dkv_kernel`, and with a window `_win_dq_kernel` and
 `_win_dkv_kernel`) or raise for what they do not take (bf16/f16, D=128).
 
@@ -32,12 +35,61 @@ from .reference import _expand_kv, build_mask
 from .rope import apply_rope
 
 
-def attention_delta(o: torch.Tensor, do: torch.Tensor,
-                    dlse: Optional[torch.Tensor] = None) -> torch.Tensor:
+def attention_delta_plain(o: torch.Tensor, do: torch.Tensor,
+                          dlse: Optional[torch.Tensor] = None
+                          ) -> torch.Tensor:
     """di = rowsum(o * do) - dlse, f32 [B, Hq, Sq] (flash_vjp.py:746-750):
     the lse cotangent folds into delta because d lse / d s = p."""
     di = (o.float() * do.float()).sum(-1)
     return di if dlse is None else di - dlse.float()
+
+
+def attention_delta(o: torch.Tensor, do: torch.Tensor,
+                    dlse: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """`attention_delta_plain` for CPU tensors; for CUDA tensors the
+    delta kernel of csrc/flash_bwd.cu (one pass over the bf16/f16 o and
+    do, f32 sums)."""
+    if o.device.type == "cpu":
+        return attention_delta_plain(o, do, dlse)
+    if o.device.type != "cuda":
+        raise ValueError(f"unsupported device {o.device}")
+    if do.shape != o.shape or do.device != o.device:
+        raise ValueError(f"do {tuple(do.shape)} on {do.device} is not o's "
+                         f"{tuple(o.shape)} on {o.device}")
+    if o.shape[-1] != KERNEL_HEAD_DIM:
+        raise NotImplementedError(
+            f"the CUDA delta kernel takes D={KERNEL_HEAD_DIM} (got "
+            f"D={o.shape[-1]})")
+    if do.dtype != o.dtype:
+        raise TypeError(f"o/do dtypes differ: {o.dtype}, {do.dtype}")
+    code = _build.dtype_code(o.dtype)
+    o, do = _aligned(o=o, do=do)
+    rows = o.shape[:-1]
+    if dlse is not None:
+        if dlse.shape != rows or dlse.device != o.device:
+            raise ValueError(f"dlse must be {tuple(rows)} on {o.device}, got "
+                             f"{tuple(dlse.shape)} on {dlse.device}")
+        dlse = dlse.float().contiguous()
+    di = torch.empty(rows, dtype=torch.float32, device=o.device)
+    err = _build.library().aule_flash_bwd_delta(
+        o.data_ptr(), do.data_ptr(),
+        dlse.data_ptr() if dlse is not None else None, di.data_ptr(),
+        di.numel(), code, _build.stream_handle(o.device))
+    _build.check(err, "aule_flash_bwd_delta")
+    attention_delta.launches += 1
+    return di
+
+
+def _aligned(**tensors):
+    """The tensors contiguous; raise unless each starts on a 16-byte
+    boundary (a TMA tensor map's base, and the kernels' 16-byte loads)."""
+    out = []
+    for name, x in tensors.items():
+        x = x.contiguous()
+        if x.data_ptr() % 16:
+            raise ValueError(f"{name} must start on a 16-byte boundary")
+        out.append(x)
+    return out
 
 
 # ---- plain versions: dense f32, the same recompute as the kernels
@@ -91,7 +143,7 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal=False,
     """The plain version of `flash_attention_bwd`: (dq, dk, dv) from delta
     and the two kernels' plain versions, in f32 by the kernels' recompute
     (not autograd through a reference)."""
-    di = attention_delta(o, do, dlse)
+    di = attention_delta_plain(o, do, dlse)
     kw = dict(causal=causal, scale=scale, window=window)
     return (flash_bwd_dq_plain(q, k, v, do, lse, di, **kw),
             *flash_bwd_dkv_plain(q, k, v, do, lse, di, **kw))
@@ -119,7 +171,8 @@ def _cuda_inputs(q, k, v, do, lse, di):
         if t.dtype != torch.float32 or t.shape != rows:
             raise ValueError(f"{name} must be f32 {tuple(rows)}, got "
                              f"{t.dtype} {tuple(t.shape)}")
-    return tuple(t.contiguous() for t in (q, k, v, do, lse, di))
+    return (*_aligned(q=q, k=k, v=v, do=do),
+            lse.contiguous(), di.contiguous())
 
 
 def flash_bwd_dq(q, k, v, do, lse, di, *, causal=False, scale=None,
@@ -174,6 +227,7 @@ def flash_bwd_dkv(q, k, v, do, lse, di, *, causal=False, scale=None,
 
 
 # kernel launches since the last reset (the CPU route does not count)
+attention_delta.launches = 0
 flash_bwd_dq.launches = 0
 flash_bwd_dkv.launches = 0
 
@@ -181,8 +235,8 @@ flash_bwd_dkv.launches = 0
 def flash_attention_bwd(q, k, v, o, lse, do, *, causal=False, scale=None,
                         window=-1, dlse=None):
     """(dq, dk, dv) of flash attention from its residuals and the output
-    cotangent `do` (and the lse cotangent `dlse`, None = zero): delta, then
-    the dQ and dK/dV kernels (for CPU tensors their plain versions, which
+    cotangent `do` (and the lse cotangent `dlse`, None = zero): the delta,
+    dQ and dK/dV kernels (for CPU tensors their plain versions, which
     makes this `flash_attention_bwd_plain`)."""
     do = do.contiguous()  # arrives transposed from the heads merge
     di = attention_delta(o, do, dlse)

@@ -20,6 +20,7 @@ from typing import Callable, Dict, Sequence, Tuple
 import torch
 
 H100_BF16_FLOPS = 989e12     # dense tensor-core bf16 / fp16, FLOP/s
+H100_F32_FLOPS = 67e12       # f32 outside the tensor cores, FLOP/s
 H100_HBM_BYTES = 3.35e12     # HBM3 bytes/s
 
 

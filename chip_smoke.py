@@ -28,7 +28,16 @@ Phases, each printing a line of its own:
      plain version's time and a library yardstick's time
      (F.scaled_dot_product_attention on the gathered, dequantized K/V;
      timed only, the port never calls it);
-  4. engine: a full-width, full-depth Llama-3-8B (random bf16 weights from
+  4. backward kernels: delta (within DELTA_TOL, with and without an lse
+     cotangent), dQ and dK/dV (every row within ROW_TOL) against their
+     plain versions at the Llama-3-8B layer, bench.py's B4 row, ragged S
+     and key tiles (B2 S1100), Sq != Sk, GQA groups 1, 2 and 8, f16,
+     non-causal, a non-zero lse cotangent, causal and bidirectional windows
+     of 256 at S4096 and rows that see nothing; two runs bitwise equal;
+     times (CUDA events and profiler device time) beside their bounds, the
+     plain versions and the backward of F.scaled_dot_product_attention
+     (timed only);
+  5. engine: a full-width, full-depth Llama-3-8B (random bf16 weights from
      a seeded generator on the card) serves the same 12 greedy requests
      eight times through `ServingEngine`: over fused pools, bf16 with
      whole-prompt prefill, (a) bf16 with prefill_chunk=512, (b) int8 with
@@ -40,23 +49,16 @@ Phases, each printing a line of its own:
      back.  The bf16 runs hold every token against a teacher-forced plain
      forward; (b)-(d), (f) and (g) against a teacher-forced replay of the
      same steps with the plain attention versions;
-  5. breakdown: one prefill step and one 8-step decode dispatch of the
+  6. breakdown: one prefill step and one 8-step decode dispatch of the
      engine under torch.profiler (device busy share, kernel time by
      category) for bf16, int8 chunked, fp8 chunked and int8 split pools;
-  6. backward kernels: dQ and dK/dV against their plain versions (every
-     row within ROW_TOL) at the Llama-3-8B layer, bench.py's B4 row, ragged
-     S, Sq != Sk, GQA groups 1, 2 and 8, f16, non-causal, a non-zero lse
-     cotangent, causal and bidirectional windows of 256 at S4096 and rows
-     that see nothing; two runs bitwise equal; times beside their bounds,
-     the plain versions and the backward of F.scaled_dot_product_attention
-     (timed only);
   7. train: the same full-width, full-depth Llama-3-8B weights, made to
      require grad: first every parameter's gradient of loss_fn through the
      kernels against the plain attention path's on the weights cut to 2
      layers (GRAD_TOL), then 3 SGD `train_step`s on one batch of B1 x 2049
-     tokens: each launches the forward, dQ and dK/dV kernels once per
-     layer, step 1 checks every gradient finite, step 2 is timed (tokens/s,
-     share of the bf16 peak, peak memory), step 3 runs under
+     tokens: each launches the forward, delta, dQ and dK/dV kernels once
+     per layer, step 1 checks every gradient finite, step 2 is timed
+     (tokens/s, share of the bf16 peak, peak memory), step 3 runs under
      torch.profiler; the loss falls at every step.  Last, as it rewrites
      the weights;
   8. a `kernels` JSON line, one entry per kernel mode the main path
@@ -120,6 +122,12 @@ BWD_FLOOR = 2.0 ** -12
 # millions of elements that is a few 1e-3.  A dropped tile or a wrong mask
 # moves a gradient by tens of %.
 GRAD_TOL = 2e-2
+# Delta sums 128 products, each exact in f32 (two 16-bit values), in
+# another order than the plain version's: each sum is within 127 f32
+# rounding steps (2^-23) of the sum of its terms' sizes, so the two agree
+# within 2^-15 of it, with the lse cotangent's size added.  One wrong or
+# dropped term moves a row by its size, ~1/128 of the row's terms.
+DELTA_TOL = 2.0 ** -15
 SEED = 0
 DEV = "cuda"  # the engine phase's device
 LAYER = (1, 32, 8)  # Llama-3-8B attention: B1, Hq32, Hkv8 (D128)
@@ -363,6 +371,30 @@ def check_flash(gen):
     return worst, timings
 
 
+def device_ms(fn, calls=20):
+    """The card's own time per call of `fn` (torch.profiler, the union of
+    the kernels of `calls` calls, after one warm-up call): unlike a CUDA
+    event pair it holds none of the host's dispatch.  A reading in which
+    the profiler lost kernels (fewer than `calls` times those it saw in
+    one profiled call; it does so after many profiled sessions in one
+    process) is taken again, up to three times; None if none was whole
+    (not measured)."""
+    from aule_tpu_torch.utils import profiling
+
+    fn()
+    per_call = profiling.device_breakdown(fn, {})["kernels"]
+    for _ in range(3):
+        bd = profiling.device_breakdown(lambda: [fn() for _ in range(calls)],
+                                        {})
+        if per_call > 0 and bd["kernels"] == calls * per_call:
+            return bd["busy_ms"] / calls
+    return None
+
+
+def _ms(x) -> str:
+    return "not measured" if x is None else f"{x:.4f} ms"
+
+
 def _bwd_inputs(gen, shape, sq, sk, causal, window, dt, with_dlse):
     """q, k, v, do (and dlse) from the generator; o and lse from the
     forward kernel, as training has them."""
@@ -380,10 +412,11 @@ def _bwd_inputs(gen, shape, sq, sk, causal, window, dt, with_dlse):
 
 
 def _bwd_timings(gen, shape, s, window):
-    """dQ, dK/dV and the whole backward (delta included) at one causal
-    shape: kernel, plain and bound; the library yardstick is the backward
-    of F.scaled_dot_product_attention on the same tensors (K/V expanded to
-    the q heads; dq, dk, dv in one call), timed only."""
+    """Delta, dQ, dK/dV and the whole backward (the three kernels) at one
+    causal shape: kernel (CUDA events, and the card's own time per call
+    from torch.profiler), plain and bound; the library yardstick is the
+    backward of F.scaled_dot_product_attention on the same tensors (K/V
+    expanded to the q heads; dq, dk, dv in one call), timed only."""
     from aule_tpu_torch.ops import flash_vjp as fv
     from aule_tpu_torch.ops.reference import build_mask
     from aule_tpu_torch.utils import profiling
@@ -403,12 +436,18 @@ def _bwd_timings(gen, shape, s, window):
     kx = k.repeat_interleave(hq // hkv, dim=1).requires_grad_(True)
     vx = v.repeat_interleave(hq // hkv, dim=1).requires_grad_(True)
     ref = F.scaled_dot_product_attention(qx, kx, vx, **mask)
-    lib = profiling.cuda_time_ms(lambda: torch.autograd.grad(
-        ref, (qx, kx, vx), do, retain_graph=True), iters=20)
+    sdpa_bwd = lambda: torch.autograd.grad(ref, (qx, kx, vx), do,
+                                           retain_graph=True)
+    lib = profiling.cuda_time_ms(sdpa_bwd, iters=20)
+    lib_dev = device_ms(sdpa_bwd)
     qkvdo = 2 * (2 * q.numel() + k.numel() + v.numel())  # bytes
     stats = 4 * lse.numel()
     out = {}
     for name, fn, plain, flops, nbytes in (
+            # f32 products and sums, outside the tensor cores
+            ("delta", lambda: fv.attention_delta(o, do),
+             lambda: fv.attention_delta_plain(o, do), 2 * o.numel(),
+             2 * (o.numel() + do.numel()) + stats),
             ("dq", lambda: fv.flash_bwd_dq(q, k, v, do, lse, di, **kw),
              lambda: fv.flash_bwd_dq_plain(q, k, v, do, lse, di, **kw),
              profiling.attention_bwd_flops(fwd_flops, 3),
@@ -424,26 +463,35 @@ def _bwd_timings(gen, shape, s, window):
              qkvdo + 2 * o.numel() + 2 * q.numel()
              + 2 * (k.numel() + v.numel()) + stats)):
         ms = profiling.cuda_time_ms(fn, iters=20)
+        dev = device_ms(fn)
         plain_ms = profiling.cuda_time_ms(plain, iters=20)
-        bound, by = profiling.bound_ms(nbytes, flops)
-        out[name] = dict(ms=ms[0], plain_ms=plain_ms[0], library_ms=lib[0],
-                         bound_ms=bound, bound_by=by, gflop=flops / 1e9,
-                         mbytes=nbytes / 1e6)
+        bound, by = profiling.bound_ms(
+            nbytes, flops, profiling.H100_F32_FLOPS if name == "delta"
+            else profiling.H100_BF16_FLOPS)
+        none = name == "delta"  # no one PyTorch call computes delta
+        out[name] = dict(ms=ms[0], device_ms=dev, plain_ms=plain_ms[0],
+                         library_ms=None if none else lib[0],
+                         library_device_ms=None if none else lib_dev,
+                         bound_ms=bound,
+                         bound_by=by, gflop=flops / 1e9, mbytes=nbytes / 1e6)
+        rate = flops / (dev if dev is not None else ms[0]) / 1e9
         log(f"flash bwd time {name} B{b} Hq{hq}/Hkv{hkv} S{s} D128 bf16 "
             f"causal{f' window {window}' if window > 0 else ''}: kernel "
-            f"{ms[0]:.4f} ms (min {ms[1]:.4f} max {ms[2]:.4f}), "
-            f"{flops / ms[0] / 1e9:.1f} TFLOP/s of {flops / 1e9:.1f} GFLOP; "
-            f"plain {plain_ms[0]:.4f} ms; sdpa backward {lib[0]:.4f} ms; "
-            f"bound {bound:.4f} ms ({by}; {nbytes / 1e6:.1f} MB)")
+            f"{ms[0]:.4f} ms (min {ms[1]:.4f} max {ms[2]:.4f}), device "
+            f"{_ms(dev)}, {rate:.1f} TFLOP/s of {flops / 1e9:.1f} GFLOP; "
+            f"plain {plain_ms[0]:.4f} ms; sdpa backward {lib[0]:.4f} ms, "
+            f"device {_ms(lib_dev)}; bound {bound:.4f} ms ({by}; "
+            f"{nbytes / 1e6:.1f} MB)")
     del ref, qx, kx, vx
     return out
 
 
 def check_flash_bwd(gen):
-    """The dQ and dK/dV kernels against their plain versions at every mask
-    the forward takes (every output row within ROW_TOL of its size), two
+    """The delta, dQ and dK/dV kernels against their plain versions at
+    every mask the forward takes (delta within DELTA_TOL, with and without
+    an lse cotangent; every dQ, dK, dV row within ROW_TOL of its size), two
     runs bitwise equal, `flash_attention_bwd` on a non-contiguous do equal
-    to the two kernels; times at the Llama-3-8B layer, bench.py's B4 row
+    to the three kernels; times at the Llama-3-8B layer, bench.py's B4 row
     and the S4096 window.  Returns the worst errors and the times."""
     from aule_tpu_torch.ops import flash_vjp as fv
 
@@ -473,11 +521,18 @@ def check_flash_bwd(gen):
          False),
         ("Sq700 Sk300 non-causal window 100 (rows that see nothing)", LAYER,
          700, 300, False, 100, bf, True),
+        # two batches of clusters, a ragged last 128-key tile
+        ("B2 S1100 causal (ragged key tiles)", (2, 32, 8), 1100, 1100, True,
+         -1, bf, True),
     ]
     worst = {}
     for label, shape, sq, sk, causal, window, dt, with_dlse in cases:
         q, k, v, o, lse, do, dlse = _bwd_inputs(gen, shape, sq, sk, causal,
                                                 window, dt, with_dlse)
+        for cot in (None, dlse) if with_dlse else (None,):
+            hold_delta(f"flash bwd delta {label}"
+                       f"{' with dlse' if cot is not None else ''}",
+                       fv.attention_delta(o, do, cot), o, do, cot, worst)
         di = fv.attention_delta(o, do, dlse)
         kw = dict(causal=causal, window=window)
         dq = fv.flash_bwd_dq(q, k, v, do, lse, di, **kw)
@@ -496,7 +551,8 @@ def check_flash_bwd(gen):
         dq2 = fv.flash_bwd_dq(q, k, v, do, lse, di, **kw)
         dk2, dv2 = fv.flash_bwd_dkv(q, k, v, do, lse, di, **kw)
         if not (torch.equal(dq, dq2) and torch.equal(dk, dk2)
-                and torch.equal(dv, dv2)):
+                and torch.equal(dv, dv2)
+                and torch.equal(di, fv.attention_delta(o, do, dlse))):
             raise AssertionError(f"flash bwd {label}: two runs differ")
         # the whole backward from a transposed (non-contiguous) do, as the
         # heads merge hands it over, gives the kernels' bits
@@ -504,7 +560,7 @@ def check_flash_bwd(gen):
         got = fv.flash_attention_bwd(q, k, v, o, lse, do_t, dlse=dlse, **kw)
         if not all(torch.equal(a, b) for a, b in zip(got, (dq, dk, dv))):
             raise AssertionError(f"flash bwd {label}: flash_attention_bwd "
-                                 f"differs from its two kernels")
+                                 f"differs from its three kernels")
         del q, k, v, o, lse, do, dlse, di, dq, dk, dv, dq2, dk2, dv2, got
     log("flash bwd: every case bitwise equal over two runs and through "
         "flash_attention_bwd")
@@ -512,8 +568,31 @@ def check_flash_bwd(gen):
                "B4": _bwd_timings(gen, (4, 32, 8), 2048, -1),
                "window": _bwd_timings(gen, LAYER, 4096, 256)}
     fv.flash_bwd_dq.launches = fv.flash_bwd_dkv.launches = 0
+    fv.attention_delta.launches = 0
     torch.cuda.empty_cache()
     return worst, timings
+
+
+def hold_delta(what, di, o, do, dlse, worst):
+    """Hold the delta kernel's di to its plain version's: each row within
+    DELTA_TOL of the sum of its terms' sizes, sum |o do| + |dlse|; all
+    finite."""
+    from aule_tpu_torch.ops import flash_vjp as fv
+
+    plain = fv.attention_delta_plain(o, do, dlse)
+    size = (o.float() * do.float()).abs().sum(-1)
+    if dlse is not None:
+        size = size + dlse.abs()
+    diff = (di - plain).abs()
+    rel = float((diff / size.clamp_min(1e-30)).max())
+    ok = rel <= DELTA_TOL and bool(torch.isfinite(di).all())
+    log(f"{what}: max|di-plain| {float(diff.max()):.3e}, relative to the "
+        f"row's terms {rel:.3e} (<= {DELTA_TOL:.3e}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"kernel disagrees with its plain version: "
+                             f"{what}")
+    worst["delta"] = tuple(max(a, b) for a, b in zip(
+        worst.get("delta", (0.0, 0.0, 0.0)), (float(diff.max()), rel, 0.0)))
 
 
 def _decode_inputs(gen, lens, max_pages, page=16, shuffle=False, hq=32,
@@ -1228,6 +1307,7 @@ CATEGORIES = {"flash_fwd_short": ["flash_fwd_short_kernel"],
               "flash_fwd": ["flash_fwd_kernel"],
               "flash_bwd_dq": ["flash_bwd_dq_kernel"],
               "flash_bwd_dkv": ["flash_bwd_dkv_kernel"],
+              "flash_bwd_delta": ["flash_bwd_delta_kernel"],
               "paged_decode_split": ["splitpools"],
               "paged_decode": ["paged_decode_kernel"],
               "paged_prefill": ["paged_prefill_kernel"],
@@ -1327,11 +1407,13 @@ def phase_train(params, cfg) -> dict:
     B1 x (TRAIN_S + 1) tokens (after the 2-layer gradient check): step 1
     warms up and checks every gradient finite, step 2 is timed with CUDA
     events, step 3 runs under torch.profiler; every step launches the
-    forward, dQ and dK/dV kernels once per layer, and the loss falls.
+    forward, delta, dQ and dK/dV kernels once per layer, and the loss
+    falls.
     Returns the backward kernels' launches per step."""
     from aule_tpu_torch.models import llama
     from aule_tpu_torch.ops.flash import flash_fwd_tma
-    from aule_tpu_torch.ops.flash_vjp import flash_bwd_dkv, flash_bwd_dq
+    from aule_tpu_torch.ops.flash_vjp import (attention_delta, flash_bwd_dkv,
+                                              flash_bwd_dq)
     from aule_tpu_torch.utils import profiling
 
     rng = np.random.default_rng(SEED + 2)
@@ -1343,7 +1425,8 @@ def phase_train(params, cfg) -> dict:
     check_grads(params, cfg, tokens)
 
     counters = {"flash_fwd": flash_fwd_tma,
-                "flash_bwd_dq": flash_bwd_dq, "flash_bwd_dkv": flash_bwd_dkv}
+                "flash_bwd_dq": flash_bwd_dq, "flash_bwd_dkv": flash_bwd_dkv,
+                "flash_bwd_delta": attention_delta}
     matmul_params = sum(t.numel() for t in tensors if t.dim() == 2) \
         - params["embed"].numel()  # the embedding is a gather
     flops = profiling.train_step_flops(
@@ -1431,9 +1514,11 @@ def main() -> None:
     split_err, split_t = check_decode_split(gen)
     prefill_err, prefill_t = check_prefill(gen)
     check_groups(gen, decode_err, prefill_err)
+    # before the engine's profiled phases: after many profiled sessions in
+    # one process torch.profiler loses kernels, and these times read it
+    bwd_err, bwd_t = check_flash_bwd(gen)
     runs, params, cfg = phase_engine()
     phase_breakdown(params, cfg)
-    bwd_err, bwd_t = check_flash_bwd(gen)
     train = phase_train(params, cfg)  # last: it rewrites the weights
     del params
     log(f"chip_smoke: every phase passed in "
@@ -1538,6 +1623,8 @@ def main() -> None:
     # The backward kernels run on the train phase: launches per step.
     bwd_src = "aule_tpu_torch/csrc/flash_bwd.cu"
     for name, key, row in (
+            ("flash_bwd_delta", "delta", "aule_tpu/ops/flash_vjp.py:746 "
+             "(delta, an XLA fusion in JAX: no Pallas kernel)"),
             ("flash_bwd_dq", "dq", "aule_tpu/ops/flash_vjp.py:127 "
              "(_dq_kernel); aule_tpu/ops/flash_vjp.py:378 (_win_dq_kernel, "
              "its class checked and timed)"),
@@ -1552,7 +1639,9 @@ def main() -> None:
             name, bwd_src, row, sum(by_step), err, bwd_t["layer"][key],
             f"B1 Hq32/Hkv8 S{TRAIN_S} D128 bf16 causal (library: the "
             f"backward of F.scaled_dot_product_attention, dq, dk and dv "
-            f"together)", launches_per_train_step=by_step,
+            f"together; none for delta)", launches_per_train_step=by_step,
+            device_ms=bwd_t["layer"][key]["device_ms"],
+            library_device_ms=bwd_t["layer"][key]["library_device_ms"],
             time_whole_backward=bwd_t["layer"]["both"],
             time_B4_S2048=bwd_t["B4"][key],
             time_window_256_S4096=bwd_t["window"][key]))

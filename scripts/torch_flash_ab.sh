@@ -2,9 +2,10 @@
 # A/B of the PyTorch port's flash forward on one CUDA card: chip_smoke.py's
 # check_flash (every case against the plain version, with its timing rows),
 # one timing loop over the same forward shapes in both trees, then
-# check_flash_bwd and check_prefill (their checks and times: the backward
-# takes O and LSE from the forward, and the paged prefill shares common.cuh
-# with it).  The two trees run in turns, A, B, B, A, one process each, so
+# check_flash_bwd (its checks and CUDA-event times) and the backward's
+# device time per call at its three timed shapes (delta, dQ, dK/dV, the
+# whole backward and SDPA's backward), then check_prefill (the paged prefill
+# shares common.cuh with the kernels).  The two trees run in turns, A, B, B, A, one process each, so
 # that both versions meet the same card.  Each process builds its tree's
 # kernels and prints the ptxas lines of every kernel.
 #
@@ -58,6 +59,50 @@ _, t = c.check_flash_bwd(g)
 print(f"{tag} flash bwd ms", {f"{s} {n}": round(v["ms"], 5)
                               for s, d in t.items() for n, v in d.items()},
       flush=True)
+# the backward's device time per call (torch.profiler, 20 calls after one):
+# delta, dQ, dK/dV, the whole backward and SDPA's backward, same tensors
+import torch.nn.functional as F
+
+from aule_tpu_torch.ops import flash_vjp as fv
+from aule_tpu_torch.ops.reference import build_mask
+
+
+def dev(fn):  # None where the profiler lost kernels in three tries
+    fn()
+    per_call = profiling.device_breakdown(fn, {})["kernels"]
+    for _ in range(3):
+        bd = profiling.device_breakdown(lambda: [fn() for _ in range(20)],
+                                        {})
+        if per_call > 0 and bd["kernels"] == 20 * per_call:
+            return round(bd["busy_ms"] / 20, 5)
+    return None
+
+
+bwd = {}
+for label, (b, hq, hkv), s, window in (
+        ("S2048", c.LAYER, 2048, -1), ("B4 S2048", (4, 32, 8), 2048, -1),
+        ("S4096 W256", c.LAYER, 4096, 256)):
+    q, k, v, o, lse, do, _ = c._bwd_inputs(g, (b, hq, hkv), s, s, True,
+                                           window, torch.bfloat16, False)
+    di = fv.attention_delta(o, do)
+    kw = dict(causal=True, window=window)
+    qx = q.detach().requires_grad_(True)
+    kx = k.repeat_interleave(hq // hkv, dim=1).requires_grad_(True)
+    vx = v.repeat_interleave(hq // hkv, dim=1).requires_grad_(True)
+    mask = (dict(attn_mask=build_mask(s, s, True, window, device="cuda"))
+            if window > 0 else dict(is_causal=True))
+    ref = F.scaled_dot_product_attention(qx, kx, vx, **mask)
+    bwd[label] = {
+        "delta": dev(lambda: fv.attention_delta(o, do)),
+        "dq": dev(lambda: fv.flash_bwd_dq(q, k, v, do, lse, di, **kw)),
+        "dkv": dev(lambda: fv.flash_bwd_dkv(q, k, v, do, lse, di, **kw)),
+        "whole": dev(lambda: fv.flash_attention_bwd(q, k, v, o, lse, do,
+                                                    **kw)),
+        "sdpa": dev(lambda: torch.autograd.grad(ref, (qx, kx, vx), do,
+                                                retain_graph=True))}
+    del q, k, v, o, lse, do, di, qx, kx, vx, ref
+    torch.cuda.empty_cache()
+print(f"{tag} flash bwd device ms per call", bwd, flush=True)
 _, t = c.check_prefill(g)
 print(f"{tag} paged prefill ms", {k: round(v["ms"], 5) for k, v in t.items()},
       flush=True)

@@ -12,8 +12,15 @@ JAX kernels round p and ds to the input type, the plain version does not;
 at bf16 both stay within 0.6 % of the largest entry of an f32 reference's
 gradient, while single small entries differ by more than 2e-2 of
 themselves).  The plain backward is also held to torch.autograd through
-`ops.reference.attention_reference`.
+`ops.reference.attention_reference`.  Delta's plain version is held to the
+JAX package's delta expression (flash_vjp.py:746-750) within 1e-6 of the
+sum of each row's term sizes (f32 sums of the same exact products in
+another order), and every C entry point the kernels' library exports to
+its ctypes signature.
 """
+
+import ctypes
+import re
 
 import jax
 import jax.numpy as jnp
@@ -23,6 +30,7 @@ import torch
 
 from aule_tpu.ops import flash_vjp as jfv
 from aule_tpu.ops.rope import precompute_rope_frequencies as jrope
+from aule_tpu_torch.ops import _build
 from aule_tpu_torch.ops import flash_vjp as tfv
 from aule_tpu_torch.ops.reference import attention_reference
 from aule_tpu_torch.ops.rope import precompute_rope_frequencies as trope
@@ -241,3 +249,70 @@ def test_unsupported_device_raises():
         tfv.flash_bwd_dq(q, q, q, q, lse, lse)
     with pytest.raises(ValueError):
         tfv.flash_bwd_dkv(q, q, q, q, lse, lse)
+
+
+@pytest.mark.parametrize("with_dlse", [False, True], ids=["no-dlse", "dlse"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_delta_plain_matches_jax(dtype, with_dlse):
+    """attention_delta_plain against JAX's delta: sum(o * do) - dlse in f32
+    (the products of two bf16 values are exact in f32)."""
+    rng = np.random.default_rng(12)
+    o = rng.standard_normal((2, 4, 37, 128)).astype(np.float32)
+    do = rng.standard_normal((2, 4, 37, 128)).astype(np.float32)
+    dlse = (rng.standard_normal((2, 4, 37)).astype(np.float32)
+            if with_dlse else None)
+    jdt, tdt = DTYPES[dtype]
+    want = jnp.sum(jnp.asarray(o, jdt).astype(jnp.float32)
+                   * jnp.asarray(do, jdt).astype(jnp.float32), axis=-1)
+    if with_dlse:
+        want = want - jnp.asarray(dlse).astype(jnp.float32)
+    got = tfv.attention_delta_plain(
+        torch.from_numpy(o).to(tdt), torch.from_numpy(do).to(tdt),
+        None if dlse is None else torch.from_numpy(dlse))
+    assert got.dtype == torch.float32 and got.shape == (2, 4, 37)
+    # the two sums add the same exact products in another order: each is
+    # within a few f32 steps of the sum of its terms' sizes
+    size = (np.abs(np.asarray(jnp.asarray(o, jdt).astype(jnp.float32))
+                   * np.asarray(jnp.asarray(do, jdt).astype(jnp.float32)))
+            .sum(-1))
+    if with_dlse:
+        size = size + np.abs(dlse)
+    err = np.abs(got.numpy() - np.asarray(want))
+    assert (err <= 1e-6 * size).all(), float((err / size).max())
+
+
+def test_delta_routes_to_plain_on_cpu():
+    """attention_delta on CPU tensors is its plain version, with or without
+    dlse, and counts no launch."""
+    g = torch.Generator().manual_seed(3)
+    o, do = (torch.randn(1, 2, 9, 128, generator=g).to(torch.bfloat16)
+             for _ in range(2))
+    dlse = torch.randn(1, 2, 9, generator=g)
+    before = tfv.attention_delta.launches
+    for cot in (None, dlse):
+        assert torch.equal(tfv.attention_delta(o, do, cot),
+                           tfv.attention_delta_plain(o, do, cot))
+    assert tfv.attention_delta.launches == before
+
+
+def test_delta_unsupported_device_raises():
+    o = torch.zeros(1, 2, 8, 128, device="meta")
+    with pytest.raises(ValueError):
+        tfv.attention_delta(o, o)
+
+
+_CTYPE_KIND = {ctypes.c_void_p: "pointer", ctypes.c_int: "int",
+               ctypes.c_float: "float"}
+
+
+@pytest.mark.parametrize("name", sorted(_build.SIGNATURES))
+def test_signature_matches_c_prototype(name):
+    """Each ctypes signature in ops/_build.py has the pointer, int and float
+    arguments of its C entry point in csrc/, in order (a pointer passed as
+    an int would be cut to 32 bits)."""
+    src = "".join(p.read_text() for p in sorted(_build.CSRC.glob("*.cu")))
+    found = re.search(r'extern "C" int ' + name + r"\(([^)]*)\)", src)
+    assert found, f"no C prototype for {name}"
+    params = [" ".join(p.split()) for p in found.group(1).split(",")]
+    kinds = ["pointer" if "*" in p else p.split()[0] for p in params]
+    assert kinds == [_CTYPE_KIND[t] for t in _build.SIGNATURES[name]]
