@@ -32,7 +32,7 @@ constexpr int kPoolInt8Dot = 3; // int8 payload + scales, int8 q, int8 dot
 constexpr int kScaleLanes = 128;
 constexpr int kScaleKVStride = 64;
 
-// The flash and paged-prefill tiles: D = 128 16-bit values per row.
+// The flash and paged-prefill head dim: D = 128 16-bit values per row.
 constexpr int kTileD = 128;
 constexpr int kRowBytes = kTileD * 2;
 
@@ -234,8 +234,8 @@ __device__ __forceinline__ void pack_a(const float (&lo)[4],
   a[3] = Elem<T>::pack(hi[2], hi[3]);
 }
 
-// ---- The flash block's per-warp work, shared by flash_fwd.cu and
-// paged_prefill.cu.  A warp owns 16 rows of the block's Q tile and runs
+// ---- The flash block's per-warp work (flash_fwd_short.cu's mma.sync
+// kernel).  A warp owns 16 rows of the block's Q tile and runs
 // mma.sync m16n8k16 against 64-key K/V tiles, all in shared memory as
 // swizzled 256-byte rows (`swz`); the thread holds rows g = lane / 4 ("a")
 // and g + 8 ("b") of the warp's 16, and key columns 2 * (lane % 4) + {0, 1}
@@ -256,19 +256,15 @@ struct WarpRows {
   }
 };
 
-// One K/V tile: S = Q K^T; with SCALED, S times each key's K scale
-// k_sc[col]; where `need_mask`, scores of columns `keep(col, row_b)`
-// rejects become -inf (row_b: row "b", else "a"); the online softmax in
-// exp2 (sl2 = scale * log2 e folded into one FFMA); with SCALED, p times
-// each key's V scale v_sc[col] while l sums the unscaled p
-// (aule_tpu/ops/paged_fused.py:876-907); then O += P V with P in registers.
-template <typename T, bool SCALED, typename Keep>
+// One K/V tile: S = Q K^T; where `need_mask`, scores of columns
+// `keep(col, row_b)` rejects become -inf (row_b: row "b", else "a"); the
+// online softmax in exp2 (sl2 = scale * log2 e folded into one FFMA); then
+// O += P V with P in registers.
+template <typename T, typename Keep>
 __device__ __forceinline__ void flash_tile(WarpRows& w, uint32_t sQ,
                                            uint32_t tK, uint32_t tV,
                                            int wrow0, int lane, float sl2,
-                                           const float* k_sc,
-                                           const float* v_sc, bool need_mask,
-                                           Keep keep) {
+                                           bool need_mask, Keep keep) {
   constexpr int D = kTileD, BN = kTileN;
   const int t = lane & 3;
 
@@ -286,12 +282,6 @@ __device__ __forceinline__ void flash_tile(WarpRows& w, uint32_t sQ,
       ldsm_b(tK, nn * 16, kk, lane, b);
       mma_pair<T>(s[2 * nn], s[2 * nn + 1], a, b);
     }
-  }
-  if constexpr (SCALED) {
-#pragma unroll
-    for (int nt = 0; nt < BN / 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[nt][e] *= k_sc[nt * 8 + 2 * t + (e & 1)];
   }
   if (need_mask) {
 #pragma unroll
@@ -339,12 +329,6 @@ __device__ __forceinline__ void flash_tile(WarpRows& w, uint32_t sQ,
     w.acc[i][1] *= alpha_a;
     w.acc[i][2] *= alpha_b;
     w.acc[i][3] *= alpha_b;
-  }
-  if constexpr (SCALED) {
-#pragma unroll
-    for (int nt = 0; nt < BN / 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[nt][e] *= v_sc[nt * 8 + 2 * t + (e & 1)];
   }
 
   // O += P V: the S accumulators re-packed as A fragments

@@ -15,7 +15,7 @@
 // whole prompt is a handful of blocks; each loads its Q and 64-key K/V
 // tiles with cp.async (no tensor map to fetch, no warp specialisation to
 // set up) and runs mma.sync m16n8k16 through common.cuh's `flash_tile`
-// and `flash_store`, the tile code the paged prefill shares.
+// and `flash_store`.
 
 #include "common.cuh"
 
@@ -128,9 +128,9 @@ __global__ void __launch_bounds__(NTHREADS)
       }
       return ok;
     };
-    flash_tile<T, false>(w, sQ, sK + stage * BN * ROW_BYTES,
-                         sV + stage * BN * ROW_BYTES, wrow0, lane, sl2,
-                         nullptr, nullptr, need_mask, keep);
+    flash_tile<T>(w, sQ, sK + stage * BN * ROW_BYTES,
+                  sV + stage * BN * ROW_BYTES, wrow0, lane, sl2, need_mask,
+                  keep);
     __syncthreads();  // this stage is refilled two iterations on
   }
   cp_async_wait<0>();

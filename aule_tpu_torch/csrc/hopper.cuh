@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks for the port's hand-written kernels:
 // TMA tensor maps (encoded on the host) and their loads and stores, the
-// mbarrier that a TMA load completes, wgmma shared-memory descriptors and
-// the m64n128k16 and m64n64k16 products with f32 sums, warpgroup register
-// rebalancing, and thread-block cluster barriers and shared-memory reads.
+// mbarrier that a TMA load or a thread's cp.async completes, wgmma
+// shared-memory descriptors and the m64n128k16 and m64n64k16 products with
+// f32 sums, warpgroup register rebalancing, and thread-block cluster
+// barriers and shared-memory reads.
 // Built with nvcc into the plain-C library (ops/_build.py);
 // libcuda's cuTensorMapEncodeTiled is reached through the runtime's
 // entry-point query, so nothing links against libcuda.
@@ -96,6 +97,15 @@ __device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
 
 __device__ __forceinline__ void mbar_arrive(uint32_t bar) {
   asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// One arrival on `bar` once every cp.async this thread issued before it has
+// landed; it does not raise the barrier's expected count (.noinc), so the
+// count given to mbar_init includes these arrivals.
+__device__ __forceinline__ void cp_async_mbar_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
+                   bar)
                : "memory");
 }
 

@@ -19,109 +19,279 @@
 // What bounds it on the H100: the Llama-3-8B chunk case, B1 Hq32/Hkv8 D128
 // with 512 queries at offset 3488 over 4000 cached tokens, is 31 GFLOP
 // (32 us at 989 TFLOP/s bf16) against 25 MB of q, K, V and out (7.5 us at
-// 3.35 TB/s): tensor-core bound, like the flash forward it starts from
-// (csrc/flash_fwd.cu).  The design:
-//   * one block per (sequence, kv head, q tile) holds up to 8 q heads of a
-//     GQA group (128 rows = heads x positions), so each K/V tile is read
-//     once per group;
-//   * the K/V tile loader follows the block table: a 64-key tile is 64
-//     token rows, each one contiguous run of the page's per-head slab
-//     kv_pages[phys, 0|1, h], loaded with 16-byte cp.async and
-//     double-buffered; rows past len are zero-filled;
-//   * tiles past the q tile's last visible position and, with a window,
-//     before its first are never loaded;
-//   * QK^T, the online softmax and PV are the flash block's
-//     (common.cuh `flash_tile` / `flash_store`, shared with flash_fwd.cu):
-//     mma.sync m16n8k16 (bf16 or f16 in, f32 accumulate) with P in
-//     registers; this kernel adds its loader, scales and positional mask;
-//   * int8 and e4m3 pools load their 1-byte payload (half the bytes of a
-//     16-bit tile) and convert it once per tile in shared memory to the q
-//     type, exactly (int8 -> float -> bf16/f16; e4m3 -> f16 with
-//     cvt.rn.f16x2.e4m3x2, then to bf16 through f32 when q is bf16), so
-//     the product code is the 16-bit one.  That pass costs one extra
-//     shared-memory round trip per tile; building the mma fragments
-//     straight from the 1-byte tile is later performance work, as are
-//     wgmma and TMA.
+// 3.35 TB/s): tensor-core bound, so the design is the flash forward's
+// (csrc/flash_fwd.cu, FlashAttention-3) with a paged loader:
+//   * one block per (sequence, kv head, q tile) of 128 rows = up to 8 q
+//     heads of the GQA group x positions, so each K/V tile is read once
+//     per group; the heaviest causal q tiles launch first.  384 threads: a
+//     producer warpgroup and two consumer warpgroups of 64 rows each, which
+//     take the registers (setmaxnreg) for their f32 S and O sums;
+//   * Q comes in by TMA (one box per head), O goes out by TMA (rows past
+//     Sq clipped), the natural-log LSE straight from registers;
+//   * the K/V tiles (128 keys) follow the block table row by row, which
+//     no tensor-map box does: the producer's 128 threads load them with
+//     16-byte cp.async into the 128-byte swizzle wgmma reads, zero-filling
+//     rows past len, and each thread's `cp.async.mbarrier.arrive` completes
+//     the stage's full barrier.  Any page size works.  Tiles past the q
+//     tile's last visible position and, with a window, before its first
+//     are never loaded;
+//   * S = Q K^T and O += P V on wgmma m64n128k16 (Q and K from shared
+//     memory, P from registers, V through the transposed-B bit), the
+//     online softmax in exp2 with the scale in one FFMA, the element mask
+//     only on tiles that straddle an edge for a warpgroup's rows; each
+//     product at one code site (a second one makes ptxas serialise every
+//     wgmma, PERF.md);
+//   * bf16 / f16 pools: a ring of NST = 3 K/V stages (230 KB of shared
+//     memory with Q), full barriers for K and V, an empty one per stage;
+//   * int8 / e4m3 pools: wgmma takes B only from shared memory in the q
+//     type, so the 1-byte tiles are converted there, by the producer and
+//     off the consumers' path.  Its threads' cp.async land raw tiles (half
+//     the bytes) and their scales in a ring of NRAW = 2 stages, completed
+//     on each stage's full barrier; each thread then converts the chunks it
+//     loaded itself (so a stage needs no empty barrier) into a q-type K
+//     stage and a ring of two V stages, each with a full and an empty
+//     barrier, so K(j+1) is converted while the consumers run the softmax
+//     and P V of tile j.  The conversions are
+//     exact and run on the ALUs (no I2F): int8 -> bf16 through the f32
+//     2^23 trick (the value's bf16 is the f32's upper half), int8 -> f16 as
+//     f16 (1024 + x + 128) - 1152, e4m3 -> bf16 / f16 by moving the code's
+//     sign, exponent and mantissa bits into place and one multiply by 2^120
+//     / 2^8 (exact for normals and subnormals; e4m3's NaN codes, which
+//     quantize_kv never writes, read as +-480).  The scales are applied to
+//     the score accumulators and to p in f32, as the TPU kernel does.
+//     What the 1-byte modes still pay over the 16-bit one is the
+//     producer's conversion (its ALU work and shared-memory round trip; a
+//     deeper q-type ring did not help, PERF.md) and the consumers' scale
+//     products.
+
+#include <type_traits>
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
 using namespace aule;
+using namespace aule::hopper;
 
-constexpr int D = kTileD;
-constexpr int BN = kTileN;         // keys per K/V tile
-constexpr int ROWS = 128;          // q rows per block: heads x positions
-constexpr int NWARPS = 8;          // 16 rows per warp
-constexpr int NTHREADS = NWARPS * 32;
-constexpr int ROW_BYTES = kRowBytes;      // one 16-bit row
-constexpr int CHUNKS = D / 8;             // 16-byte chunks per 16-bit row
-constexpr int ROW8_BYTES = D;             // one 1-byte payload row
-constexpr int CHUNKS8 = D / 16;           // 16-byte chunks per payload row
-constexpr int Q_BYTES = ROWS * ROW_BYTES;
-constexpr int TILE16 = 2 * BN * ROW_BYTES;  // K and V tiles, 16-bit
-constexpr int TILE8 = 2 * BN * ROW8_BYTES;  // K and V tiles, 1-byte payload
-constexpr int SC_CHUNKS = 2 * BN * 16;      // each key's 16-byte K, V chunk
-// native pools: Q | 2 x 16-bit tiles
-constexpr int SMEM_NATIVE = Q_BYTES + 2 * TILE16;
-// quantized: Q | converted 16-bit tile | 2 x payload | 2 x scale chunks |
-// the tile's scales as f32 [2][BN]
-constexpr int SMEM_QUANT =
-    Q_BYTES + TILE16 + 2 * TILE8 + 2 * SC_CHUNKS + 2 * BN * 4;
+constexpr int D = kTileD;                   // head dim (the only one)
+constexpr int ROWS = 128;                   // q rows per block
+constexpr int WG_ROWS = 64;                 // q rows per consumer warpgroup
+constexpr int BN = 128;                     // keys per K/V tile
+constexpr int ROW_BYTES = 128;              // a swizzled half-row: 64 values
+constexpr int HALF_BYTES = BN * ROW_BYTES;  // one 64-column half of a tile
+constexpr int TILE_BYTES = 2 * HALF_BYTES;  // Q, or a 16-bit K or V tile
+constexpr int RAW_BYTES = BN * D;           // a 1-byte K or V tile
+constexpr int NST = 3;                      // 16-bit pools: K/V ring stages
+constexpr int NRAW = 2;                     // 1-byte pools: raw ring stages
+constexpr int QNCK = 1, QNCV = 2;           // 1-byte pools: q-type K, V stages
+constexpr int NTHREADS = 3 * 128;           // producer WG + 2 consumer WGs
+// setmaxnreg: the producer gives up registers, the consumers take them
+// (56 + 2 * 224 = 3 * 168, the registers a thread has at launch)
+constexpr int PREGS = 56, CREGS = 224;
+static_assert(ROWS == BN, "the Q tile and a K/V tile share TILE_BYTES");
+static_assert(D == 128, "two 64-column halves per row");
 
-__device__ __forceinline__ uint32_t swz8(int r, int c) {
-  return r * ROW8_BYTES + ((c ^ (r & 7)) << 4);
+// Shared memory, from the 1024-byte aligned Q tile: Q, NCK K stages, NCV V
+// stages (q type), then for 1-byte pools NRAW raw stages (K then V
+// payload), their scales (4 bytes a key, K then V) and the q-type stages'
+// scales as f32; barriers: full Q, full K and V per stage, empty K and V
+// per stage (16-bit pools: one empty barrier a stage for both), full per
+// raw stage.
+template <bool QUANT>
+struct Smem {
+  uint32_t q;
+  static constexpr int NCK = QUANT ? QNCK : NST;
+  static constexpr int NCV = QUANT ? QNCV : NST;
+  static constexpr int NBARS =
+      QUANT ? 1 + 2 * (NCK + NCV) + NRAW : 1 + 3 * NST;
+  static constexpr int RAW = (1 + NCK + NCV) * TILE_BYTES;
+  static constexpr int RSC = RAW + NRAW * 2 * RAW_BYTES;
+  static constexpr int SCF = RSC + NRAW * 2 * BN * 4;
+  static constexpr int BARS = QUANT ? SCF + (NCK + NCV) * BN * 4 : RAW;
+  static constexpr int BYTES = 1024 + BARS + 8 * NBARS;
+
+  __device__ uint32_t k(int s) const { return q + (1 + s) * TILE_BYTES; }
+  __device__ uint32_t v(int s) const {
+    return q + (1 + NCK + s) * TILE_BYTES;
+  }
+  __device__ uint32_t raw(int s) const { return q + RAW + s * 2 * RAW_BYTES; }
+  __device__ uint32_t rsc(int s) const { return q + RSC + s * 2 * BN * 4; }
+  __device__ uint32_t bar(int i) const { return q + BARS + 8 * i; }
+  __device__ uint32_t full_q() const { return bar(0); }
+  __device__ uint32_t full_k(int s) const { return bar(1 + s); }
+  __device__ uint32_t full_v(int s) const { return bar(1 + NCK + s); }
+  __device__ uint32_t empty_k(int s) const {
+    return bar(1 + NCK + NCV + s);
+  }
+  __device__ uint32_t empty_v(int s) const {
+    return QUANT ? bar(1 + 2 * NCK + NCV + s) : empty_k(s);
+  }
+  __device__ uint32_t raw_full(int s) const {
+    return bar(1 + 2 * (NCK + NCV) + s);
+  }
+  // byte offsets from q of a q-type stage's f32 scales
+  __host__ __device__ static constexpr int sck(int s) {
+    return SCF + s * BN * 4;
+  }
+  __host__ __device__ static constexpr int scv(int s) {
+    return SCF + (NCK + s) * BN * 4;
+  }
+};
+static_assert(Smem<false>::BYTES <= 232448 && Smem<true>::BYTES <= 232448,
+              "shared memory a block can use");
+
+// 4-byte global->shared async copy; zero-fills the slot where !pred.
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          bool pred) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(pred ? 4 : 0));
 }
 
-// four payload bytes -> four q-type values, exact
+__device__ __forceinline__ uint4 ld_shared_v4(uint32_t addr) {
+  uint4 v;
+  asm volatile("ld.shared.v4.b32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "r"(addr));
+  return v;
+}
+
+__device__ __forceinline__ void st_shared_v4(uint32_t addr, uint4 v) {
+  asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr),
+               "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w)
+               : "memory");
+}
+
+__device__ __forceinline__ float2 ld_shared_f32x2(uint32_t addr) {
+  float2 v;
+  asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];\n"
+               : "=f"(v.x), "=f"(v.y)
+               : "r"(addr));
+  return v;
+}
+
+// 2^x by the card's ex2.approx.ftz (as flash_fwd.cu).
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t mul_x2(uint32_t a, uint32_t b,
+                                           bool f16) {
+  uint32_t d;
+  if (f16)
+    asm("mul.rn.f16x2 %0, %1, %2;\n" : "=r"(d) : "r"(a), "r"(b));
+  else
+    asm("mul.rn.bf16x2 %0, %1, %2;\n" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+
+// Four payload bytes (little-endian in `w`) -> four q-type values, exactly,
+// with byte permutes, logic and one add or multiply per pair.
 template <typename T, int POOL>
 __device__ __forceinline__ uint2 convert4(uint32_t w) {
-  float f[4];
-  payload4_to_float<POOL>(w, f);
-  return make_uint2(Elem<T>::pack(f[0], f[1]), Elem<T>::pack(f[2], f[3]));
+  constexpr bool F16 = std::is_same<T, __half>::value;
+  if constexpr (POOL == kPoolInt8) {
+    const uint32_t u = w ^ 0x80808080u;  // x + 128 per byte, unsigned
+    if constexpr (F16) {
+      // f16 0x64uu = 1024 + u, minus 1152 (0x6480): x
+      uint32_t lo = __byte_perm(u, 0x64646464u, 0x5140);
+      uint32_t hi = __byte_perm(u, 0x64646464u, 0x7362);
+      asm("sub.rn.f16x2 %0, %0, %1;\n" : "+r"(lo) : "r"(0x64806480u));
+      asm("sub.rn.f16x2 %0, %0, %1;\n" : "+r"(hi) : "r"(0x64806480u));
+      return make_uint2(lo, hi);
+    } else {
+      // f32 0x4B0000uu = 2^23 + u, minus 2^23 + 128: x, whose low 16 bits
+      // are zero, so its bf16 is its upper half
+      uint32_t f[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        f[i] = __float_as_uint(
+            __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540 + i)) -
+            8388736.f);
+      return make_uint2(__byte_perm(f[0], f[1], 0x7632),
+                        __byte_perm(f[2], f[3], 0x7632));
+    }
+  } else {
+    // e4m3 s.eeee.mmm, each byte to the top of a 16-bit lane; sign kept,
+    // exponent and mantissa moved to the top of the q type's fields, then
+    // times 2^(bias difference): 2^8 into f16 (bias 15), 2^120 into bf16
+    const uint32_t v01 = __byte_perm(w, 0, 0x1404);
+    const uint32_t v23 = __byte_perm(w, 0, 0x3424);
+    const int sh = F16 ? 1 : 4;
+    const uint32_t em = F16 ? 0x3F803F80u : 0x07F007F0u;
+    const uint32_t two = F16 ? 0x5C005C00u : 0x7B807B80u;
+    return make_uint2(
+        mul_x2((v01 & 0x80008000u) | ((v01 >> sh) & em), two, F16),
+        mul_x2((v23 & 0x80008000u) | ((v23 >> sh) & em), two, F16));
+  }
 }
 
-// q, o: [B, Hq, Sq, D]; kv: [P, 2, Hkv, page, D] bytes; lse: [B, Hq, Sq]
-// or null.  Grid: (q tiles, Hkv * group / hpb, B); hpb q heads per block.
+// The block's place in the grid: q tiles, heaviest first (x), the q heads
+// h0 .. h0 + hpb - 1 of one GQA group (y), the sequence (z).  Read from the
+// special registers on each call (asm volatile), so the epilogue computes
+// it afresh and nothing of it stays in registers across the main loop.
+struct Place {
+  int bq, q_lo, h0, b;
+};
+
+__device__ __forceinline__ uint32_t sreg(int which) {
+  uint32_t v;
+  switch (which) {
+    case 0: asm volatile("mov.u32 %0, %%ctaid.x;\n" : "=r"(v)); break;
+    case 1: asm volatile("mov.u32 %0, %%ctaid.y;\n" : "=r"(v)); break;
+    case 2: asm volatile("mov.u32 %0, %%ctaid.z;\n" : "=r"(v)); break;
+    case 3: asm volatile("mov.u32 %0, %%nctaid.x;\n" : "=r"(v)); break;
+    default: asm volatile("mov.u32 %0, %%tid.x;\n" : "=r"(v)); break;
+  }
+  return v;
+}
+
+__device__ __forceinline__ Place place(int Hq, int Hkv, int hpb) {
+  const int group = Hq / Hkv, blocks_per_kv = group / hpb;
+  const int y = sreg(1);
+  Place p;
+  p.bq = ROWS / hpb;
+  p.q_lo = (sreg(3) - 1 - sreg(0)) * p.bq;
+  p.h0 = y / blocks_per_kv * group + y % blocks_per_kv * hpb;
+  p.b = sreg(2);
+  return p;
+}
+
+// q: TMA map over [B * Hq, Sq, D] in boxes of bq rows; o: the same over the
+// output in boxes of min(bq, 64) rows; kv: [P, 2, Hkv, page, D] bytes; lse:
+// [B, Hq, Sq] or null.  Grid: (q tiles, Hkv * group / hpb, B); hpb q heads
+// per block, bq = 128 / hpb positions each; block row r is head r / bq,
+// position r % bq.
 template <typename T, int POOL>
-__global__ void __launch_bounds__(NTHREADS)
-    paged_prefill_kernel(const T* __restrict__ q,
+__global__ void __launch_bounds__(NTHREADS, 1)
+    paged_prefill_kernel(const __grid_constant__ CUtensorMap tq,
+                         const __grid_constant__ CUtensorMap to,
                          const uint8_t* __restrict__ kv,
                          const uint8_t* __restrict__ sc, int sc_f32,
                          const int* __restrict__ block_tables,
                          const int* __restrict__ context_lens,
                          const int* __restrict__ q_offsets,
-                         T* __restrict__ o, float* __restrict__ lse, int Hq,
-                         int Hkv, int Sq, int page_size, int max_pages,
-                         int hpb, float scale, int causal, int window) {
+                         float* __restrict__ lse, int Hq, int Hkv, int Sq,
+                         int page_size, int max_pages, int hpb, float scale,
+                         int causal, int window) {
   constexpr bool QUANT = POOL != kPoolNative;
   constexpr int ESZ = QUANT ? 1 : 2;
-  extern __shared__ __align__(128) uint8_t smem[];
-  const uint32_t sQ = smem_u32(smem);
-  const uint32_t sT = sQ + Q_BYTES;  // 16-bit K/V tile(s) the mma reads
-  const uint32_t s8 = sT + TILE16;   // quantized: payload stages
-  const uint32_t sC = s8 + 2 * TILE8;  // quantized: scale-chunk stages
-  float* sF = reinterpret_cast<float*>(smem + Q_BYTES + TILE16 +
-                                       2 * TILE8 + 2 * SC_CHUNKS);
+  extern __shared__ uint8_t smem[];
+  Smem<QUANT> sm;
+  sm.q = (smem_u32(smem) + 1023) & ~1023u;
+  uint8_t* const gq = smem + (sm.q - smem_u32(smem));  // generic address
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int group = Hq / Hkv;
-  const int bq = ROWS / hpb;  // q positions per block
-  // heaviest causal tiles launch first, so the tail of the grid is short
-  const int qt = gridDim.x - 1 - blockIdx.x;
-  const int q_lo = qt * bq;
+  const Place pl = place(Hq, Hkv, hpb);
+  const int bq = pl.bq, q_lo = pl.q_lo, h0 = pl.h0, b = pl.b;
   const int q_hi = min(q_lo + bq, Sq) - 1;
-  const int blocks_per_kv = group / hpb;
-  const int hk = blockIdx.y / blocks_per_kv;
-  const int h0 = hk * group + (blockIdx.y % blocks_per_kv) * hpb;
-  const int b = blockIdx.z;
+  const int hk = h0 / (Hq / Hkv);
 
   const int len = max(0, min(context_lens[b], max_pages * page_size));
   const int off = q_offsets[b];
   const int qa_lo = off + q_lo, qa_hi = off + q_hi;  // absolute positions
-  const int* bt = block_tables + (size_t)b * max_pages;
-
-  // cache positions some live row of this block can see
+  // cache positions some live row of this block can see: tiles j_lo..j_hi
   int k_min = 0, k_max = len - 1;
   if (causal) k_max = min(k_max, qa_hi);
   if (window > 0) k_min = max(0, qa_lo - window);
@@ -129,134 +299,382 @@ __global__ void __launch_bounds__(NTHREADS)
   const int j_lo = k_min / BN;
   const int j_hi = (k_max >= k_min) ? k_max / BN : j_lo - 1;
 
-  // Q tile -> shared memory; block row r is (head r / bq, position r % bq)
-  for (int c = tid; c < ROWS * CHUNKS; c += NTHREADS) {
-    const int r = c / CHUNKS, ch = c % CHUNKS;
-    const int pos = q_lo + r % bq;
-    const bool ok = pos < Sq;
-    const T* src =
-        q + (((size_t)b * Hq + h0 + r / bq) * Sq + (ok ? pos : 0)) * D + ch * 8;
-    cp_async16(sQ + swz(r, ch), src, ok);
+  using L = Smem<QUANT>;
+  if (threadIdx.x == 0) {
+    mbar_init(sm.full_q(), 1);
+    for (int s = 0; s < L::NCK; ++s) {
+      mbar_init(sm.full_k(s), 128);  // one arrival per producer thread
+      mbar_init(sm.empty_k(s), 2 * 4);  // one per consumer warp
+    }
+    for (int s = 0; s < L::NCV; ++s) {
+      mbar_init(sm.full_v(s), 128);
+      if (QUANT) mbar_init(sm.empty_v(s), 2 * 4);
+    }
+    for (int s = 0; s < (QUANT ? NRAW : 0); ++s)
+      mbar_init(sm.raw_full(s), 128);  // one arrival per producer thread
+    mbar_init_fence();
   }
+  __syncthreads();
 
-  // byte offset of token `pos`'s row of head hk, K (kvsel 0) or V (1)
-  auto row_off = [&](int pos, int kvsel) -> size_t {
-    const int phys = max(bt[pos / page_size], 0);
-    return ((((size_t)phys * 2 + kvsel) * Hkv + hk) * page_size +
-            pos % page_size) * D * ESZ;
-  };
-  auto load_kv = [&](int j, int stage) {
-    const int kv0 = j * BN;
-    if constexpr (!QUANT) {
-      const uint32_t dst = sT + stage * TILE16;
-      for (int c = tid; c < 2 * BN * CHUNKS; c += NTHREADS) {
-        const int kvsel = c / (BN * CHUNKS), rc = c % (BN * CHUNKS);
-        const int r = rc / CHUNKS, ch = rc % CHUNKS;
-        const int pos = kv0 + r;
-        const bool ok = pos < len;  // rows past len are zero-filled
-        cp_async16(dst + kvsel * BN * ROW_BYTES + swz(r, ch),
-                   kv + row_off(ok ? pos : 0, kvsel) + ch * 16, ok);
-      }
-    } else {
-      const uint32_t dst = s8 + stage * TILE8;
-      for (int c = tid; c < 2 * BN * CHUNKS8; c += NTHREADS) {
-        const int kvsel = c / (BN * CHUNKS8), rc = c % (BN * CHUNKS8);
-        const int r = rc / CHUNKS8, ch = rc % CHUNKS8;
-        const int pos = kv0 + r;
-        const bool ok = pos < len;
-        cp_async16(dst + kvsel * BN * ROW8_BYTES + swz8(r, ch),
-                   kv + row_off(ok ? pos : 0, kvsel) + ch * 16, ok);
-      }
-      // the aligned 16 bytes of the scale row that hold lane kv*64 + hk
-      if (tid < 2 * BN) {
-        const int kvsel = tid / BN, r = tid % BN;
-        const int pos = kv0 + r;
-        const bool ok = pos < len;
-        const int p = ok ? pos : 0;
-        const int lane_sc = kvsel * kScaleKVStride + hk;
-        const int per16 = sc_f32 ? 4 : 8;
-        const size_t elem =
-            ((size_t)max(bt[p / page_size], 0) * page_size + p % page_size) *
-                kScaleLanes + (lane_sc - lane_sc % per16);
-        cp_async16(sC + stage * SC_CHUNKS + tid * 16,
-                   sc + elem * (sc_f32 ? 4 : 2), ok);
+  if (threadIdx.x < 128) {
+    // ---- producer warpgroup
+    setmaxnreg_dec<PREGS>();
+    const int tid = threadIdx.x, w = tid >> 5, l = tid & 31;
+    if (tid == 0) {
+      tma_prefetch_map(&tq);
+      tma_prefetch_map(&to);
+      mbar_expect_tx(sm.full_q(), TILE_BYTES);
+      for (int h = 0; h < hpb; ++h) {
+        const uint32_t dst = sm.q + h * bq * ROW_BYTES;
+        tma_load_3d(dst, &tq, sm.full_q(), 0, q_lo, b * Hq + h0 + h);
+        tma_load_3d(dst + HALF_BYTES, &tq, sm.full_q(), 64, q_lo,
+                    b * Hq + h0 + h);
       }
     }
-  };
-  if (j_lo <= j_hi) load_kv(j_lo, 0);
-  cp_async_commit();
-
-  // this warp's 16 rows; the thread holds rows g and g + 8 of them
-  const int wrow0 = warp * 16;
-  const int hw = wrow0 / bq;
-  const int pa = q_lo + wrow0 % bq + (lane >> 2), pb = pa + 8;  // in chunk
-  const int qpos_a = off + pa, qpos_b = off + pb;  // absolute positions
-
-  WarpRows w;
-  w.init();
-  const float sl2 = scale * kLog2e;
-
-  for (int j = j_lo; j <= j_hi; ++j) {
-    const int stage = (j - j_lo) & 1;
-    if (j < j_hi) load_kv(j + 1, stage ^ 1);
-    cp_async_commit();
-    cp_async_wait<1>();  // everything but the prefetch just issued
-    __syncthreads();
-
-    uint32_t tK;
-    if constexpr (!QUANT) {
-      tK = sT + stage * TILE16;
-    } else {
-      // payload -> q type, each 16-byte chunk to two chunks of the row
-      const uint8_t* src = smem + (s8 - sQ) + stage * TILE8;
-      uint8_t* dst = smem + (sT - sQ);
-      for (int c = tid; c < 2 * BN * CHUNKS8; c += NTHREADS) {
-        const int kvsel = c / (BN * CHUNKS8), rc = c % (BN * CHUNKS8);
-        const int r = rc / CHUNKS8, ch = rc % CHUNKS8;
-        const uint4 u = *reinterpret_cast<const uint4*>(
-            src + kvsel * BN * ROW8_BYTES + swz8(r, ch));
-        const uint2 c0 = convert4<T, POOL>(u.x), c1 = convert4<T, POOL>(u.y);
-        const uint2 c2 = convert4<T, POOL>(u.z), c3 = convert4<T, POOL>(u.w);
-        uint8_t* row = dst + kvsel * BN * ROW_BYTES;
-        *reinterpret_cast<uint4*>(row + swz(r, 2 * ch)) =
-            make_uint4(c0.x, c0.y, c1.x, c1.y);
-        *reinterpret_cast<uint4*>(row + swz(r, 2 * ch + 1)) =
-            make_uint4(c2.x, c2.y, c3.x, c3.y);
-      }
-      if (tid < 2 * BN) {
-        const int lane_sc = (tid / BN) * kScaleKVStride + hk;
-        const uint8_t* chunk = smem + (sC - sQ) + stage * SC_CHUNKS + tid * 16;
-        sF[tid] = sc_f32
-                      ? reinterpret_cast<const float*>(chunk)[lane_sc % 4]
-                      : __bfloat162float(reinterpret_cast<const __nv_bfloat16*>(
-                            chunk)[lane_sc % 8]);
-      }
-      __syncthreads();
-      tK = sT;
-    }
-    const int kv0 = j * BN;
-
-    // element mask only on tiles that straddle an edge
-    const bool need_mask =
-        (kv0 + BN > len) || (qa_hi >= len) ||
-        (causal && kv0 + BN - 1 > qa_lo) ||
-        (window > 0 && qa_hi - kv0 > window);
-    auto keep = [&](int col, bool row_b) {
-      const int kpos = kv0 + col, qpos = row_b ? qpos_b : qpos_a;
-      bool ok = kpos < len && qpos < len;
-      if (causal) ok = ok && kpos <= qpos;
-      if (window > 0) ok = ok && qpos - kpos <= window;
-      return ok;
+    const int* bt = block_tables + (size_t)b * max_pages;
+    const size_t slab = (size_t)page_size * D * ESZ;  // a page's head rows
+    // the thread's tile rows: 32w + 8a + (l & 7), a = 0..3; a warp's
+    // 16-byte copies cover 8 rows x 4 chunks, neighbouring lanes on
+    // neighbouring rows, so the 8 lanes of a shared-memory phase meet 8
+    // bank groups through the swizzle
+    auto row_src = [&](int j, int row, int kvsel, bool& ok) {
+      const int pos = j * BN + row;
+      ok = pos < len;  // rows past len are zero-filled
+      const int p = ok ? pos : 0;
+      const int phys = max(bt[p / page_size], 0);
+      return kv + ((size_t)phys * 2 + kvsel) * Hkv * slab + hk * slab +
+             (size_t)(p % page_size) * D * ESZ;
     };
-    // quantized: K scales on the score columns, V scales into p (sF)
-    flash_tile<T, QUANT>(w, sQ, tK, tK + BN * ROW_BYTES, wrow0, lane, sl2, sF,
-                         sF + BN, need_mask, keep);
-    __syncthreads();  // this stage (and the converted tile) is refilled
-  }
-  cp_async_wait<0>();
+    if constexpr (!QUANT) {
+      for (int j = j_lo, it = 0; j <= j_hi; ++j, ++it) {
+        const int s = it % NST;
+        mbar_wait(sm.empty_k(s), ((it / NST) & 1) ^ 1);  // round 0 passes
+#pragma unroll
+        for (int kvsel = 0; kvsel < 2; ++kvsel) {
+          const uint32_t dst = kvsel ? sm.v(s) : sm.k(s);
+#pragma unroll
+          for (int a = 0; a < 4; ++a) {
+            const int row = 32 * w + 8 * a + (l & 7);
+            bool ok;
+            const uint8_t* src = row_src(j, row, kvsel, ok);
+#pragma unroll
+            for (int c4 = 0; c4 < 4; ++c4) {
+              const int ch = 4 * c4 + (l >> 3);  // 16-byte chunk of 16
+              cp_async16(dst + (ch >> 3) * HALF_BYTES + row * ROW_BYTES +
+                             (((ch & 7) ^ (row & 7)) << 4),
+                         src + ch * 16, ok);
+            }
+          }
+          cp_async_mbar_arrive(kvsel ? sm.full_v(s) : sm.full_k(s));
+        }
+      }
+      cp_async_wait<0>();  // no copy outlives its thread
+    } else {
+      const int n = j_hi - j_lo + 1;
+      // raw tile j -> raw stage rs: payload rows at 128 bytes, chunk c8 of
+      // row r at c8 ^ (r % 8); key `tid`'s K and V scales (the aligned 4
+      // bytes that hold lane kv * 64 + hk)
+      auto load_raw = [&](int j, int rs) {
+#pragma unroll
+        for (int kvsel = 0; kvsel < 2; ++kvsel) {
+          const uint32_t dst = sm.raw(rs) + kvsel * RAW_BYTES;
+#pragma unroll
+          for (int a = 0; a < 4; ++a) {
+            const int row = 32 * w + 8 * a + (l & 7);
+            bool ok;
+            const uint8_t* src = row_src(j, row, kvsel, ok);
+#pragma unroll
+            for (int c2 = 0; c2 < 2; ++c2) {
+              const int c8 = 4 * c2 + (l >> 3);  // 16-byte chunk of 8
+              cp_async16(dst + row * D + ((c8 ^ (row & 7)) << 4),
+                         src + c8 * 16, ok);
+            }
+          }
+          const int pos = j * BN + tid;
+          const bool ok = pos < len;
+          const int p = ok ? pos : 0;
+          const size_t elem =
+              ((size_t)max(bt[p / page_size], 0) * page_size +
+               p % page_size) * kScaleLanes + kvsel * kScaleKVStride + hk;
+          cp_async4(sm.rsc(rs) + (kvsel * BN + tid) * 4,
+                    sc + (sc_f32 ? elem * 4 : (elem & ~(size_t)1) * 2), ok);
+        }
+        cp_async_mbar_arrive(sm.raw_full(rs));
+      };
+      // the chunks this thread loaded -> a q-type stage; its key's scale
+      auto convert = [&](int rs, int kvsel, uint32_t dst, int scf) {
+        const uint32_t raw = sm.raw(rs) + kvsel * RAW_BYTES;
+#pragma unroll
+        for (int a = 0; a < 4; ++a) {
+          const int row = 32 * w + 8 * a + (l & 7);
+#pragma unroll
+          for (int c2 = 0; c2 < 2; ++c2) {
+            const int c8 = 4 * c2 + (l >> 3);
+            const uint4 u =
+                ld_shared_v4(raw + row * D + ((c8 ^ (row & 7)) << 4));
+            // values 16 c8 .. +15: 16-bit chunks 2 c8, 2 c8 + 1 of the row
+            const uint32_t half =
+                dst + (c8 >> 2) * HALF_BYTES + row * ROW_BYTES;
+            const int c = (2 * c8) & 7;
+            const uint2 x0 = convert4<T, POOL>(u.x);
+            const uint2 x1 = convert4<T, POOL>(u.y);
+            st_shared_v4(half + ((c ^ (row & 7)) << 4),
+                         make_uint4(x0.x, x0.y, x1.x, x1.y));
+            const uint2 x2 = convert4<T, POOL>(u.z);
+            const uint2 x3 = convert4<T, POOL>(u.w);
+            st_shared_v4(half + (((c + 1) ^ (row & 7)) << 4),
+                         make_uint4(x2.x, x2.y, x3.x, x3.y));
+          }
+        }
+        const uint8_t* word =
+            gq + (sm.rsc(rs) - sm.q) + (kvsel * BN + tid) * 4;
+        reinterpret_cast<float*>(gq + scf)[tid] =
+            sc_f32 ? *reinterpret_cast<const float*>(word)
+                   : __bfloat162float(reinterpret_cast<const __nv_bfloat16*>(
+                         word)[hk & 1]);
+        fence_proxy_async();  // the stores, before wgmma reads them
+      };
+      for (int i = 0; i < NRAW && i < n; ++i) load_raw(j_lo + i, i);
+      for (int it = 0; it < n; ++it) {
+        const int rs = it % NRAW;
+        mbar_wait(sm.raw_full(rs), (it / NRAW) & 1);
+        const int ks = it % L::NCK, vs = it % L::NCV;
+        // round 0 of each empty barrier passes
+        mbar_wait(sm.empty_k(ks), ((it / L::NCK) & 1) ^ 1);
+        convert(rs, 0, sm.k(ks), L::sck(ks));
+        mbar_arrive(sm.full_k(ks));
+        mbar_wait(sm.empty_v(vs), ((it / L::NCV) & 1) ^ 1);
+        convert(rs, 1, sm.v(vs), L::scv(vs));
+        mbar_arrive(sm.full_v(vs));
+        // refill the raw stage just converted: this thread alone reads the
+        // chunks it loads, and every thread is past this phase's wait
+        if (it + NRAW < n) load_raw(j_lo + it + NRAW, rs);
+      }
+    }
+  } else {
+    // ---- consumer warpgroup c: block rows 64c .. 64c + 63
+    setmaxnreg_inc<CREGS>();
+    const int c = threadIdx.x / 128 - 1;
+    const int warp = (threadIdx.x / 32) & 3, lane = threadIdx.x & 31;
+    const int t = lane & 3;
+    // the thread's rows "a" and "b" = a + 8 (the accumulator layout)
+    const int ra = WG_ROWS * c + 16 * warp + (lane >> 2), rb = ra + 8;
+    const int pa = q_lo + ra % bq, pb = q_lo + rb % bq;  // in the chunk
+    // the keys a row sees, lo .. hi (hi = -1: a row at or past len)
+    auto key_lo = [&](int qpos) { return window > 0 ? qpos - window : 0; };
+    auto key_hi = [&](int qpos) {
+      return qpos >= len ? -1 : (causal ? qpos : len - 1);
+    };
+    const int lo_a = key_lo(off + pa), hi_a = key_hi(off + pa);
+    const int lo_b = key_lo(off + pb), hi_b = key_hi(off + pb);
+    // the warpgroup's positions w_lo .. w_hi (one run of 64, or all bq of
+    // its heads): tiles inside lo_max .. hi_min need no element mask
+    const int w_lo = off + q_lo + (bq > WG_ROWS ? WG_ROWS * c : 0);
+    const int w_hi = w_lo + min(bq, WG_ROWS) - 1;
+    const int lo_max = key_lo(w_hi);
+    const int hi_min = w_hi >= len ? -1 : key_hi(w_lo);
+    const float sl2 = scale * kLog2e;
 
-  flash_store<T>(w, o, lse, ((size_t)b * Hq + h0 + hw) * Sq, pa, pb, Sq, lane,
-                 scale);
+    float o[64], s[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) o[i] = s[i] = 0.f;
+    float m_a = -INFINITY, m_b = -INFINITY;  // running max of raw scores
+    float l_a = 0.f, l_b = 0.f;              // this thread's row-sum parts
+
+    const uint32_t sqc = sm.q + c * WG_ROWS * ROW_BYTES;
+    const uint64_t dq = wgmma_desc(sqc, 16, 8 * ROW_BYTES);
+    mbar_wait(sm.full_q(), 0);
+
+    for (int j = j_lo, it = 0; j <= j_hi; ++j, ++it) {
+      const int ks = it % L::NCK, vs = it % L::NCV;
+      const uint64_t dk = wgmma_desc(sm.k(ks), 16, 8 * ROW_BYTES);
+      const uint64_t dv = wgmma_desc(sm.v(vs), HALF_BYTES, 8 * ROW_BYTES);
+
+      // S = Q K^T
+      mbar_wait(sm.full_k(ks), (it / L::NCK) & 1);
+      if constexpr (!QUANT) fence_proxy_async();  // cp.async -> wgmma
+      fence_regs(s);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t koff = ((kk / 4) * HALF_BYTES + (kk % 4) * 32) >> 4;
+        Wgmma<T>::ss(s, dq + koff, dk + koff, kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(s);
+      if constexpr (QUANT) {
+        // K scales on the score columns, then the K stage is free
+        const uint32_t ksc = sm.q + L::sck(ks) + 8 * t;
+#pragma unroll
+        for (int jb = 0; jb < BN / 8; ++jb) {
+          const float2 f = ld_shared_f32x2(ksc + 32 * jb);
+          s[4 * jb] *= f.x;
+          s[4 * jb + 1] *= f.y;
+          s[4 * jb + 2] *= f.x;
+          s[4 * jb + 3] *= f.y;
+        }
+        __syncwarp();
+        if (lane == 0) mbar_arrive(sm.empty_k(ks));
+      }
+
+      // element mask only on tiles that straddle an edge for these rows
+      const int kv0 = j * BN;
+      if (kv0 < lo_max || kv0 + BN - 1 > hi_min) {
+        // the row's key range, as columns of this thread's pairs
+        const int ca = lo_a - kv0 - 2 * t, da = hi_a - kv0 - 2 * t;
+        const int cb = lo_b - kv0 - 2 * t, db = hi_b - kv0 - 2 * t;
+#pragma unroll
+        for (int i = 0; i < 64; ++i) {
+          const int col = 8 * (i / 4) + (i & 1);
+          const bool ok = (i & 2) ? (col >= cb && col <= db)
+                                  : (col >= ca && col <= da);
+          if (!ok) s[i] = -INFINITY;
+        }
+      }
+
+      // online softmax (scores in raw units; exp2 of s*sl2 - m*sl2)
+      float mx_a = m_a, mx_b = m_b;
+#pragma unroll
+      for (int i = 0; i < 64; i += 4) {
+        mx_a = fmaxf(mx_a, fmaxf(s[i], s[i + 1]));
+        mx_b = fmaxf(mx_b, fmaxf(s[i + 2], s[i + 3]));
+      }
+      mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, 1));
+      mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, 2));
+      mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, 1));
+      mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, 2));
+      // a row that has seen nothing yet keeps m = -inf: no NaN from -inf+inf
+      const float alpha_a =
+          (mx_a == -INFINITY) ? 1.f : exp2_ftz((m_a - mx_a) * sl2);
+      const float alpha_b =
+          (mx_b == -INFINITY) ? 1.f : exp2_ftz((m_b - mx_b) * sl2);
+      const float nb_a = (mx_a == -INFINITY) ? 0.f : -mx_a * sl2;
+      const float nb_b = (mx_b == -INFINITY) ? 0.f : -mx_b * sl2;
+      float ls_a = 0.f, ls_b = 0.f;
+#pragma unroll
+      for (int i = 0; i < 64; i += 4) {
+        s[i] = exp2_ftz(fmaf(s[i], sl2, nb_a));
+        s[i + 1] = exp2_ftz(fmaf(s[i + 1], sl2, nb_a));
+        s[i + 2] = exp2_ftz(fmaf(s[i + 2], sl2, nb_b));
+        s[i + 3] = exp2_ftz(fmaf(s[i + 3], sl2, nb_b));
+        ls_a += s[i] + s[i + 1];
+        ls_b += s[i + 2] + s[i + 3];
+      }
+      l_a = l_a * alpha_a + ls_a;
+      l_b = l_b * alpha_b + ls_b;
+      m_a = mx_a;
+      m_b = mx_b;
+#pragma unroll
+      for (int i = 0; i < 64; i += 4) {
+        o[i] *= alpha_a;
+        o[i + 1] *= alpha_a;
+        o[i + 2] *= alpha_b;
+        o[i + 3] *= alpha_b;
+      }
+
+      mbar_wait(sm.full_v(vs), (it / L::NCV) & 1);
+      if constexpr (!QUANT) {
+        fence_proxy_async();
+      } else {
+        // V scales into p (l summed the unscaled p)
+        const uint32_t vsc = sm.q + L::scv(vs) + 8 * t;
+#pragma unroll
+        for (int jb = 0; jb < BN / 8; ++jb) {
+          const float2 f = ld_shared_f32x2(vsc + 32 * jb);
+          s[4 * jb] *= f.x;
+          s[4 * jb + 1] *= f.y;
+          s[4 * jb + 2] *= f.x;
+          s[4 * jb + 3] *= f.y;
+        }
+      }
+      // P as A fragments, k-step kk from S's column blocks 2kk and 2kk + 1,
+      // packed into s[4kk .. 4kk + 3] (already read): P takes no registers
+      // of its own, which keeps the consumer within its registers
+#pragma unroll
+      for (int kk = 0; kk < BN / 16; ++kk) {
+        const uint32_t p0 = Elem<T>::pack(s[8 * kk], s[8 * kk + 1]);
+        const uint32_t p1 = Elem<T>::pack(s[8 * kk + 2], s[8 * kk + 3]);
+        const uint32_t p2 = Elem<T>::pack(s[8 * kk + 4], s[8 * kk + 5]);
+        const uint32_t p3 = Elem<T>::pack(s[8 * kk + 6], s[8 * kk + 7]);
+        s[4 * kk] = __uint_as_float(p0);
+        s[4 * kk + 1] = __uint_as_float(p1);
+        s[4 * kk + 2] = __uint_as_float(p2);
+        s[4 * kk + 3] = __uint_as_float(p3);
+      }
+
+      // O += P V
+      fence_regs(o);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BN / 16; ++kk) {
+        const uint32_t a[4] = {
+            __float_as_uint(s[4 * kk]), __float_as_uint(s[4 * kk + 1]),
+            __float_as_uint(s[4 * kk + 2]), __float_as_uint(s[4 * kk + 3])};
+        Wgmma<T>::rs(o, a, dv + ((16 * ROW_BYTES * kk) >> 4));
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(o);
+      fence_regs(s);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(sm.empty_v(vs));  // this warp is done
+    }
+
+    // ---- epilogue: row sums over the row's 4 threads, normalise, store
+    l_a += __shfl_xor_sync(0xffffffffu, l_a, 1);
+    l_a += __shfl_xor_sync(0xffffffffu, l_a, 2);
+    l_b += __shfl_xor_sync(0xffffffffu, l_b, 1);
+    l_b += __shfl_xor_sync(0xffffffffu, l_b, 2);
+    const float inv_a = l_a > 0.f ? 1.f / l_a : 0.f;
+    const float inv_b = l_b > 0.f ? 1.f / l_b : 0.f;
+    // the block's place and the thread's rows afresh (see Place)
+    const Place pe = place(Hq, Hkv, hpb);
+    const int tx = sreg(4);
+    const int ce = tx / 128 - 1, r = 16 * ((tx / 32) & 3) + ((tx & 31) >> 2);
+    const uint32_t so = sm.q + ce * WG_ROWS * ROW_BYTES;
+    // O over this warpgroup's own Q rows, once all its warps are past
+    // their last product; rows r and r + 8 share the swizzle (r % 8)
+    named_sync(1 + ce, 128);
+#pragma unroll
+    for (int jb = 0; jb < D / 8; ++jb) {
+      const uint32_t at = so + (jb / 8) * HALF_BYTES + r * ROW_BYTES +
+                          (((jb % 8) ^ (r & 7)) << 4) + 4 * (tx & 3);
+      st_shared_u32(at, Elem<T>::pack(o[4 * jb] * inv_a,
+                                      o[4 * jb + 1] * inv_a));
+      st_shared_u32(at + 8 * ROW_BYTES, Elem<T>::pack(o[4 * jb + 2] * inv_b,
+                                                      o[4 * jb + 3] * inv_b));
+    }
+    fence_proxy_async();
+    named_sync(1 + ce, 128);
+    if ((tx & 127) == 0) {
+      // one box per head run of the warpgroup's rows
+      const int sb = min(pe.bq, WG_ROWS);
+      for (int r0 = 0; r0 < WG_ROWS; r0 += sb) {
+        const int br = WG_ROWS * ce + r0;
+        const int pos = pe.q_lo + br % pe.bq;
+        if (pos >= Sq) continue;
+        const int plane = pe.b * Hq + pe.h0 + br / pe.bq;
+        tma_store_3d(&to, so + r0 * ROW_BYTES, 0, pos, plane);
+        tma_store_3d(&to, so + HALF_BYTES + r0 * ROW_BYTES, 64, pos, plane);
+      }
+      tma_store_commit();
+      tma_store_wait_read();
+    }
+    // natural-log LSE m * scale + ln l, or kMaskValue for a row that saw
+    // nothing (its output is zeros)
+    if (lse != nullptr && (tx & 3) == 0) {
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int br = WG_ROWS * ce + r + 8 * half;
+        const int pos = pe.q_lo + br % pe.bq;
+        const float l = half ? l_b : l_a, m = half ? m_b : m_a;
+        if (pos < Sq)
+          lse[((size_t)pe.b * Hq + pe.h0 + br / pe.bq) * Sq + pos] =
+              l > 0.f ? m * scale + logf(l) : kMaskValue;
+      }
+    }
+  }
 }
 
 template <typename T, int POOL>
@@ -265,22 +683,29 @@ int launch(const void* q, const void* kv, const void* sc, int sc_f32,
            void* lse, int B, int Hq, int Hkv, int Sq, int page_size,
            int max_pages, float scale, int causal, int window,
            cudaStream_t stream) {
+  constexpr bool f16 = std::is_same<T, __half>::value;
+  constexpr int smem = Smem<POOL != kPoolNative>::BYTES;
   const int group = Hq / Hkv;
   int hpb = 8;  // q heads per block: the largest of 8, 4, 2, 1 dividing group
   while (group % hpb) hpb >>= 1;
   const int bq = ROWS / hpb;
-  const int smem = POOL == kPoolNative ? SMEM_NATIVE : SMEM_QUANT;
-  cudaError_t err = cudaFuncSetAttribute(
-      paged_prefill_kernel<T, POOL>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  CUtensorMap tq, to;
+  cudaError_t err;
+  if ((err = encode_rows128(&tq, q, f16, B * Hq, Sq, bq)) != cudaSuccess ||
+      (err = encode_rows128(&to, o, f16, B * Hq, Sq,
+                            bq < WG_ROWS ? bq : WG_ROWS)) != cudaSuccess)
+    return err;
+  err = cudaFuncSetAttribute(paged_prefill_kernel<T, POOL>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
   if (err != cudaSuccess) return err;
   dim3 grid((Sq + bq - 1) / bq, Hkv * (group / hpb), B);
   paged_prefill_kernel<T, POOL><<<grid, NTHREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const uint8_t*>(kv),
+      tq, to, static_cast<const uint8_t*>(kv),
       static_cast<const uint8_t*>(sc), sc_f32, static_cast<const int*>(bt),
       static_cast<const int*>(lens), static_cast<const int*>(qoff),
-      static_cast<T*>(o), static_cast<float*>(lse), Hq, Hkv, Sq, page_size,
-      max_pages, hpb, scale, causal, window);
+      static_cast<float*>(lse), Hq, Hkv, Sq, page_size, max_pages, hpb,
+      scale, causal, window);
   return cudaGetLastError();
 }
 

@@ -13,8 +13,10 @@ those rows.)
 
 `paged_attention_prefill` follows its tensors: CPU tensors take
 `paged_attention_prefill_plain`; CUDA tensors launch the hand-written kernel
-in csrc/paged_prefill.cu (replaces `_fused_prefill_kernel`; see the source
-note there), or raise for what it does not take.  The JAX function's TPU
+in csrc/paged_prefill.cu (replaces `_fused_prefill_kernel`: a
+warp-specialised wgmma kernel whose producer warps gather the pages and
+convert int8 / e4m3 tiles; see the source note there), or raise for what it
+does not take.  The JAX function's TPU
 tiling arguments (`block_q`, `pages_per_compute_block`) have no
 counterpart: the kernel picks its tiles in the source.
 """
@@ -91,6 +93,8 @@ def paged_attention_prefill(
     lib = _build.library()
     dev = q.device
     q = q.contiguous()
+    if q.data_ptr() % 16:  # a TMA tensor map's base
+        raise ValueError("q must start on a 16-byte boundary")
     bt = block_tables.to(device=dev, dtype=torch.int32).contiguous()
     lens = context_lens.to(device=dev, dtype=torch.int32).contiguous()
     qoff = q_offsets.to(device=dev, dtype=torch.int32).contiguous()

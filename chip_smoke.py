@@ -15,10 +15,12 @@ Phases, each printing a line of its own:
      windows with Sq != Sk; and the mma.sync one the wrapper runs for
      prompts of at most SHORT_SQ tokens, with both kernels' device times
      at short prompts); paged decode over bf16, int8
-     (dot-product and exact paths) and fp8 pools; paged prefill over bf16, f16, int8 and fp8
-     pools (a 512-token chunk at q_offset 3488 over 4000 cached tokens,
-     with and without a 256 window; a ragged batch of 4 whose padding
-     rows must be exact zeros; shuffled page ids and -1 entries); both
+     (dot-product and exact paths) and fp8 pools; paged prefill (the
+     warp-specialised wgmma kernel) over bf16, f16, int8 and fp8 pools (a
+     512-token chunk at q_offset 3488 over 4000 cached tokens, with and
+     without a 256 window; a ragged batch of 4 whose padding rows must be
+     exact zeros; 64-token pages with a 1-token chunk; shuffled page ids
+     and -1 entries), timed also by profiler device time; both
      paged kernels at GQA groups 1, 2 and 8 and with f16 q; the decode
      over split head-major pools (bf16, f16, int8 and fp8 with f32
      scales; ragged lengths with 0 and 1, shuffled pages, -1 tails,
@@ -66,7 +68,7 @@ Phases, each printing a line of its own:
   9. last line: {"ok": true, "device": {...}}, printed only when every
      phase passed.  Any failure raises and the exit code is non-zero.
 
-About 3.5 minutes on an H100, the build included.
+About 4 minutes on an H100, the build included.
 """
 
 from __future__ import annotations
@@ -827,16 +829,17 @@ def check_decode_split(gen):
 
 
 def _prefill_inputs(gen, hist, chunk, s_pad, max_pages=272, shuffle=True,
-                    dtype=torch.bfloat16, hq=32):
-    """A bf16 fused pool holding hist[b] + chunk[b] tokens per sequence
-    (random K/V), chunk queries [B, 32, s_pad, 128], tables with shuffled
-    page ids and -1 tails, page 0 scratch filled with garbage."""
+                    dtype=torch.bfloat16, hq=32, page=16):
+    """A bf16 fused pool of `page`-token pages holding hist[b] + chunk[b]
+    tokens per sequence (random K/V), chunk queries [B, hq, s_pad, 128],
+    tables with shuffled page ids and -1 tails, page 0 scratch filled with
+    garbage."""
     from aule_tpu_torch.ops.paged_fused import fused_pool_shape
 
     total = [h + c for h, c in zip(hist, chunk)]
-    used = [-(-n // 16) for n in total]
+    used = [-(-n // page) for n in total]
     num_pages = 1 + sum(used)
-    pool = _randn(fused_pool_shape(num_pages, 8, 16, 128), gen, dtype)
+    pool = _randn(fused_pool_shape(num_pages, 8, page, 128), gen, dtype)
     pool[0] = 1e4
     ids = np.arange(1, num_pages)
     if shuffle:
@@ -863,22 +866,29 @@ def check_prefill(gen):
         paged_attention_prefill, paged_attention_prefill_plain)
     from aule_tpu_torch.utils import profiling
 
-    cases = [  # (label, hist, chunk, s_pad, window, pool kinds)
+    cases = [  # (label, hist, chunk, s_pad, window, pool kinds, page)
         ("chunk 512 at q_offset 3488 over 4000", [3488], [512], 512, -1,
-         ("bf16", "int8", "fp8")),
+         ("bf16", "int8", "fp8"), 16),
         ("chunk 512 at 3488, window 256", [3488], [512], 512, 256,
-         ("bf16", "int8", "fp8")),
+         ("bf16", "int8", "fp8"), 16),
         ("ragged B4 with rows past context_lens", [1000, 0, 2500, 63],
          [200, 130, 1, 77], 200, -1, ("bf16", "int8", "fp8", "f16",
-                                      "int8 f32-scales")),
-        ("first chunk, S 300", [0], [300], 300, -1, ("bf16",)),
+                                      "int8 f32-scales"), 16),
+        ("first chunk, S 300", [0], [300], 300, -1, ("bf16",), 16),
+        ("page 64, ragged B2 chunks 512 and 1 over 4000 and 901",
+         [3488, 900], [512, 1], 512, -1, ("bf16", "int8", "fp8"), 64),
     ]
     worst = {}
-    for label, hist, chunk, s_pad, window, kinds in cases:
+    # the 64-token-page case draws from a generator of its own, so the
+    # inputs of every check after it are those they had without it
+    page_gen = torch.Generator(device="cuda")
+    page_gen.manual_seed(SEED + 64)
+    for label, hist, chunk, s_pad, window, kinds, page in cases:
         for kind in kinds:
             dt = torch.float16 if kind == "f16" else torch.bfloat16
-            q, pool, bt, ln, qoff = _prefill_inputs(gen, hist, chunk, s_pad,
-                                                    dtype=dt)
+            q, pool, bt, ln, qoff = _prefill_inputs(
+                gen if page == 16 else page_gen, hist, chunk, s_pad,
+                dtype=dt, page=page)
             sc = None
             if kind.startswith("int8") or kind == "fp8":
                 qdt = torch.int8 if kind.startswith("int8") \
@@ -922,23 +932,29 @@ def check_prefill(gen):
         kd, vd = (x.reshape(1, 8, 4000, 128).to(
             torch.bfloat16).repeat_interleave(4, dim=1) for x in (kh, vh))
         kw = dict(q_offsets=qoff, kv_scales=sc)
-        ms = profiling.cuda_time_ms(lambda: paged_attention_prefill(
-            q, pl, bt, ln, **kw), iters=20)
+        kernel = lambda: paged_attention_prefill(q, pl, bt, ln, **kw)
+        sdpa = lambda: F.scaled_dot_product_attention(q, kd, vd,
+                                                      attn_mask=mask)
+        ms = profiling.cuda_time_ms(kernel, iters=20)
         plain = profiling.cuda_time_ms(
             lambda: paged_attention_prefill_plain(q, pl, bt, ln, **kw),
             iters=20)
-        lib = profiling.cuda_time_ms(lambda: F.scaled_dot_product_attention(
-            q, kd, vd, attn_mask=mask), iters=20)
+        lib = profiling.cuda_time_ms(sdpa, iters=20)
+        # the card's own time per call (torch.profiler): a CUDA-event pair
+        # around one call also holds the host's dispatch of the wrapper
+        dev, dev_lib = device_ms(kernel), device_ms(sdpa)
         nbytes = 2 * q.numel() * 2 + kv_bytes + 272 * 4 + 3 * 4
         bound, by = profiling.bound_ms(nbytes, flops)
         timings[name] = dict(ms=ms[0], plain_ms=plain[0], library_ms=lib[0],
-                             bound_ms=bound, bound_by=by)
+                             bound_ms=bound, bound_by=by, device_ms=dev,
+                             library_device_ms=dev_lib)
+        rate = "" if dev is None else f", {flops / dev / 1e9:.1f} TFLOP/s"
         log(f"paged prefill time {name} pool, chunk 512 at 3488 over 4000, "
             f"Hq32/Hkv8 D128 page16: kernel {ms[0]:.4f} ms (min "
-            f"{ms[1]:.4f} max {ms[2]:.4f}), {flops / ms[0] / 1e9:.1f} "
-            f"TFLOP/s; plain {plain[0]:.4f} ms; sdpa on the gathered K/V "
-            f"with a positional mask {lib[0]:.4f} ms; bound {bound:.4f} ms "
-            f"({by})")
+            f"{ms[1]:.4f} max {ms[2]:.4f}), device {_ms(dev)}{rate}; plain "
+            f"{plain[0]:.4f} ms; sdpa on the gathered K/V with a positional "
+            f"mask {lib[0]:.4f} ms, device {_ms(dev_lib)}; bound "
+            f"{bound:.4f} ms ({by})")
         del kd, vd, kh, vh
     paged_attention_prefill.launches = 0
     return worst, timings
@@ -1546,6 +1562,15 @@ def main() -> None:
                "same_bits_as_fused_kernel": True}
         for mode in ("bf16", "int8", "fp8")}
     prefill_src = "aule_tpu_torch/csrc/paged_prefill.cu"
+    prefill_design = ("warp-specialised: a producer warpgroup gathers the "
+                      "pages with cp.async (and converts int8 / e4m3 tiles "
+                      "to the q type in shared memory), two consumer "
+                      "warpgroups run wgmma m64n128k16; mbarrier rings")
+    prefill_extra = {
+        mode: {"design": prefill_design,
+               "device_ms": prefill_t[mode]["device_ms"],
+               "library_device_ms": prefill_t[mode]["library_device_ms"]}
+        for mode in ("bf16", "int8", "fp8")}
     prefill_row = "aule_tpu/ops/paged_fused.py:770 (_fused_prefill_kernel)"
     prefill_shape = ("B1 Hq32/Hkv8 D128 page16, chunk 512 at q_offset 3488 "
                      "over 4000")
@@ -1609,14 +1634,14 @@ def main() -> None:
              split_row, split_extra["fp8"]),
             ("paged_prefill", "paged_prefill", ("a",), prefill_err["bf16"],
              prefill_t["bf16"], prefill_shape + ", bf16 pool (f16 checked "
-             "too)", prefill_src, prefill_row, {}),
+             "too)", prefill_src, prefill_row, prefill_extra["bf16"]),
             ("paged_prefill_int8", "paged_prefill", ("b",),
              prefill_err["int8"], prefill_t["int8"], prefill_shape +
              ", int8 pool, bf16 scales (f32 scales checked too)",
-             prefill_src, prefill_row + " int8 mode", {}),
+             prefill_src, prefill_row + " int8 mode", prefill_extra["int8"]),
             ("paged_prefill_fp8", "paged_prefill", ("d",), prefill_err["fp8"],
              prefill_t["fp8"], prefill_shape + ", e4m3 pool, bf16 scales",
-             prefill_src, prefill_row + " fp8 mode", {})):
+             prefill_src, prefill_row + " fp8 mode", prefill_extra["fp8"])):
         total, by_run = launched(kernel, *keys)
         entries.append(_entry(name, src, row, total, err, t, shape,
                               launches_by_run=by_run, **extra))

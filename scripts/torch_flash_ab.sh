@@ -4,10 +4,13 @@
 # one timing loop over the same forward shapes in both trees, then
 # check_flash_bwd (its checks and CUDA-event times) and the backward's
 # device time per call at its three timed shapes (delta, dQ, dK/dV, the
-# whole backward and SDPA's backward), then check_prefill (the paged prefill
-# shares common.cuh with the kernels).  The two trees run in turns, A, B, B, A, one process each, so
-# that both versions meet the same card.  Each process builds its tree's
-# kernels and prints the ptxas lines of every kernel.
+# whole backward and SDPA's backward), then check_prefill (its checks and
+# CUDA-event times) and the paged prefill's device time per call in each
+# pool mode (bf16, int8, fp8) beside SDPA's on the gathered K/V, at the
+# engine's chunk (512 queries at q_offset 3488 over 4000 cached tokens).
+# The two trees run in turns, A, B, B, A, one process each, so that both
+# versions meet the same card.  Each process builds its tree's kernels and
+# prints the ptxas lines of every kernel.
 #
 #   git archive <commit> | tar -x -C build/parent   # a listed directory
 #   scripts/torch_flash_ab.sh build/parent          # from the repo root
@@ -105,6 +108,34 @@ for label, (b, hq, hkv), s, window in (
 print(f"{tag} flash bwd device ms per call", bwd, flush=True)
 _, t = c.check_prefill(g)
 print(f"{tag} paged prefill ms", {k: round(v["ms"], 5) for k, v in t.items()},
+      flush=True)
+# the paged prefill's device time per call (torch.profiler) and SDPA's on
+# the sequence's K/V gathered (dequantized) to dense bf16 with a positional
+# causal mask, both trees' kernels on the same inputs
+from aule_tpu_torch.ops.paged_fused import dequantize_pool
+from aule_tpu_torch.ops.paged_prefill import paged_attention_prefill
+
+q, pool, bt, ln, qoff = c._prefill_inputs(g, [3488], [512], 512,
+                                          shuffle=False)
+mask = (torch.arange(4000, device="cuda")[None, :]
+        <= 3488 + torch.arange(512, device="cuda")[:, None])
+pre = {}
+for name, dt in (("bf16", None), ("int8", torch.int8),
+                 ("fp8", torch.float8_e4m3fn)):
+    pl, sc = (pool, None) if dt is None else c.quantize_pool(pool, dt)
+    if dt is None:  # the sequence's 4000 tokens sit on pages 1..250
+        kh, vh = (pool[1:251, i].transpose(0, 1) for i in (0, 1))
+    else:
+        kh, vh = dequantize_pool(pl[1:251], sc[1:251])
+    kd, vd = (x.reshape(1, 8, 4000, 128).to(torch.bfloat16)
+              .repeat_interleave(4, dim=1) for x in (kh, vh))
+    pre[name] = (
+        dev(lambda: paged_attention_prefill(q, pl, bt, ln, q_offsets=qoff,
+                                            kv_scales=sc)),
+        dev(lambda: F.scaled_dot_product_attention(q, kd, vd,
+                                                   attn_mask=mask)))
+    del kd, vd, kh, vh
+print(f"{tag} paged prefill device ms per call (kernel, sdpa)", pre,
       flush=True)
 EOF
   )

@@ -5,7 +5,9 @@ JAX package.
 kernel's stand-in) against aule_tpu's Pallas kernel in interpret mode
 (`block_q=16`), mirroring tests/test_paged_fused.py:130-220: history plus a
 chunk appended by both packages, ragged chunks, D=64 padding, a window,
-int8 and fp8 pools with packed scales, and LSE.  f32 at 2e-5 (outputs and
+int8 and fp8 pools with packed scales, and LSE; and the shapes the CUDA
+kernel is held at on the card (GQA groups 1 and 8 with int8 and fp8 pools,
+32-token pages, 1-token chunks).  f32 at 2e-5 (outputs and
 LSE), bf16 q at 2e-2.  Rows at or past `context_lens` are zeros with LSE
 -0.7*f32max in the port (the JAX function's documented contract); the JAX
 kernel lets those rows attend to the whole context, so only live rows are
@@ -40,15 +42,16 @@ def _t(x, dtype=None):
     return t if dtype is None else t.to(dtype)
 
 
-def _appended(batch, hkv, d, hist, chunk, s_pad, qname=None, seed=9):
-    """Both packages' pools after appending `hist` then `chunk` tokens per
-    sequence (JAX appends; the port reads the same bytes), plus the chunk's
-    queries and the layout."""
+def _appended(batch, hkv, d, hist, chunk, s_pad, qname=None, seed=9,
+              page=PAGE):
+    """Both packages' pools of `page`-token pages after appending `hist`
+    then `chunk` tokens per sequence (JAX appends; the port reads the same
+    bytes), plus the chunk's queries and the layout."""
     rng = np.random.default_rng(seed)
     quant = qname is not None
     jdt = QDTYPES[qname][0] if quant else jnp.float32
-    kv = jnp.zeros(jpf.fused_pool_shape(NUM_PAGES, hkv, PAGE, d), jdt)
-    sc = (jnp.zeros(jpf.fused_scales_shape(NUM_PAGES, hkv, PAGE),
+    kv = jnp.zeros(jpf.fused_pool_shape(NUM_PAGES, hkv, page, d), jdt)
+    sc = (jnp.zeros(jpf.fused_scales_shape(NUM_PAGES, hkv, page),
                     jnp.bfloat16) if quant else None)
     ids = 1 + rng.permutation(NUM_PAGES - 1)[:batch * MAX_PAGES]
     bt = ids.reshape(batch, MAX_PAGES).astype(np.int32)
@@ -127,6 +130,49 @@ def test_quantized_pools(qname):
     q = rng.standard_normal((batch, hq, s2, d)).astype(np.float32)
     jo, jl, to, tl = _both(q, kv, sc, bt, lens, hist, window_size=20)
     _check_rows(jo, jl, to, tl, chunk, 2e-5, qname)
+
+
+# The shapes csrc/paged_prefill.cu is held at on the card (chip_smoke.py's
+# check_prefill and check_groups) that the tests above lack, at small
+# sizes: (hq, hkv, page, hist, chunk, s_pad, pool, window).  D = 128, the
+# kernel's.
+KERNEL_SHAPES = {
+    "group 1 int8": (2, 2, 16, [37, 0], [11, 20], 20, "int8", -1),
+    "group 1 fp8": (2, 2, 16, [37, 0], [11, 20], 20, "fp8", 15),
+    "group 8 int8": (8, 1, 16, [21, 40], [16, 5], 16, "int8", 15),
+    "group 8 fp8": (8, 1, 16, [21, 40], [16, 5], 16, "fp8", -1),
+    "page 32 f32": (4, 2, 32, [45, 70], [19, 3], 19, None, -1),
+    "page 32 int8": (4, 2, 32, [45, 70], [19, 3], 19, "int8", 30),
+    "page 32 fp8": (4, 2, 32, [45, 70], [19, 3], 19, "fp8", -1),
+    "1-token chunk int8": (8, 2, 16, [60, 9], [1, 1], 1, "int8", -1),
+    "1-token chunk beside 14 f32": (8, 2, 16, [33, 90], [14, 1], 14, None,
+                                    -1),
+}
+
+
+@pytest.mark.parametrize("name", sorted(KERNEL_SHAPES))
+def test_kernel_shapes_against_jax(name):
+    """JAX (Pallas in interpret mode) = the port's wrapper (on the CPU: the
+    plain version, which chip_smoke.py holds the CUDA kernel to) = its
+    plain version called directly, at each shape the card checks: live rows
+    within 2e-5, padding rows zeros with the mask LSE."""
+    hq, hkv, page, hist, chunk, s_pad, qname, window = KERNEL_SHAPES[name]
+    hist = np.array(hist, np.int32)
+    chunk = np.array(chunk, np.int32)
+    kv, sc, bt, lens, rng = _appended(len(hist), hkv, 128, hist, chunk,
+                                      s_pad, qname=qname, seed=14,
+                                      page=page)
+    q = rng.standard_normal((len(hist), hq, s_pad, 128)).astype(np.float32)
+    jo, jl, to, tl = _both(q, kv, sc, bt, lens, hist, window_size=window)
+    _check_rows(jo, jl, to, tl, chunk, 2e-5, name)
+    launches = tpp.paged_attention_prefill.launches
+    po, pl = tpp.paged_attention_prefill_plain(
+        _t(q), _t(kv), torch.from_numpy(bt), torch.from_numpy(lens),
+        q_offsets=torch.from_numpy(hist),
+        kv_scales=None if sc is None else _t(sc), window_size=window,
+        return_lse=True)
+    assert torch.equal(po, to) and torch.equal(pl, tl)
+    assert tpp.paged_attention_prefill.launches == launches  # CPU route
 
 
 def test_default_offsets_bf16_and_non_causal():
