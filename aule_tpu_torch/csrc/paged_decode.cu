@@ -15,51 +15,74 @@
 // them ((len - 1 - pos) < W).  A sequence with context 0 gives zeros and
 // LSE -0.7 * f32max.  In both layouts one (head, page) slab [page, D] is
 // contiguous, so the two differ only in where a token's rows and scales
-// lie; the loop, and so the arithmetic, is the same: a bf16 split pool
-// gives the bits of the same pool in the fused layout.
+// lie; the partition and the arithmetic depend on the shapes and the
+// window only, so a split pool gives the bits of the same pool in the
+// fused layout.
 //
 // Pool modes (common.cuh kPool*):
 //   * native: the pool holds bf16 / f16, the q/out type;
 //   * int8 and e4m3 with a packed scale tile sc [P, page, 128] (row = slot,
 //     lane = kv * 64 + h; bf16 or f32), or split f32 scales: the payload
-//     converts exactly to f32 in registers (e4m3 through
-//     cvt.rn.f16x2.e4m3x2), the K scale multiplies the score, the V scale
-//     multiplies p before the PV sum, and l sums the unscaled p
-//     (paged_fused.py:349-447, paged.py:222-223, 250-251);
+//     converts exactly to the q type (common.cuh convert4), the K scale
+//     multiplies the score, the V scale multiplies p before the PV sum, and
+//     l sums the unscaled p (paged_fused.py:349-447, paged.py:222-223,
+//     250-251);
 //   * int8 dot products (fused int8 pools, the JAX package's int8_matmul
-//     default):
-//     q arrives quantized per row (int8 plus qf = q scale x softmax scale,
-//     from the wrapper, as paged_fused.py:549-560); the score is __dp4a over
-//     int8 K with exact int32 sums, times qf * K scale; p * V scale is
-//     quantized per row to int8 over SPAN = 4 consecutive tokens (each
-//     half-warp's step below: tokens t_lo + 4j .. t_lo + 4j + 3) and the PV
-//     sum is __dp4a over int8 V, exact in int32, times span max / 127.  The
-//     JAX kernel quantizes p over ppcb * page tokens instead; the plain
-//     version (ops/paged_fused.py) mirrors this kernel's span.
+//     default): q arrives quantized per row (int8 plus qf = q scale x
+//     softmax scale, from the wrapper, as paged_fused.py:549-560); the
+//     score is an int8 tensor-core product with exact int32 sums, times
+//     qf * K scale; p * V scale is quantized per row to int8 codes over
+//     SPAN = 4 consecutive tokens counted from the first visible token
+//     t_lo (tokens t_lo + 4j .. t_lo + 4j + 3) and each code weighs its V
+//     row by code x span max / 127, rounded to f16 for an f16 product over
+//     the int8 V converted exactly (the plain version in
+//     ops/paged_fused.py keeps that weight in f32: 2^-11 apart).  The JAX
+//     kernel quantizes p over ppcb * page tokens instead; the plain version
+//     mirrors this kernel's span.
 //
 // What bounds it on the H100: every live K and V byte is read once and
 // used for a handful of operations, so it is memory bound.  At B8 ctx4096
 // Hkv8 D128 the live KV is 134 MB per layer in bf16 (40 us at 3.35 TB/s),
 // 67 MB of int8 or e4m3 payload plus 1.0 MB of the bf16 scales a token
 // needs in the fused tile (20.4 us), or plus 2.1 MB of f32 split scales
-// (20.7 us).
+// (20.7 us).  B8 x Hkv8 is only 64 (sequence, kv head) pairs for 132 SMs.
 // What the design does about it:
-//   * one block per (sequence, kv head) reads that head's K/V slabs of
-//     each page once and serves all Hq/Hkv q rows of the GQA group from
-//     them (the group's q rows sit pre-scaled in registers);
-//   * each half-warp reads one token row per load (16 bytes a lane of a
-//     16-bit row, 8 bytes a lane of a 1-byte payload row; neighbouring
-//     lanes on neighbouring addresses) and keeps four tokens of K and four
-//     of V in flight; 8 warps per block keep 16 independent streams going;
-//   * each half-warp runs its own f32 online softmax over the tokens it
-//     owns, and the 16 partial states merge once at the end;
-//   * the trailing window skips the dead front of the sequence entirely.
-// At B8 x Hkv8 this is only 64 blocks for 132 SMs, so one block per SM and
-// half the card idle: a split-KV (flash-decoding) pass that spreads one
-// sequence over several blocks and merges their (m, l, acc) is the later
-// performance PR's work.  The scale of each token is read by all 16 lanes
-// of the half-warp (one broadcast load); the 8-byte payload loads reach
-// half the bytes per instruction of the 16-bit path.
+//   * split-KV (flash-decoding): the live tokens [t_lo, len) of one
+//     (sequence, kv head) are cut into `nsplit` ranges of `chunk` tokens,
+//     chunk = ceil((len - t_lo) / nsplit) rounded up to SPAN, one block
+//     each (grid (nsplit, Hkv, B)).  The wrapper picks nsplit from the
+//     shapes and the SM count (ops/decode_split.py): as many blocks as fit
+//     the card in one wave (a second, partial wave of short blocks cost
+//     ~40 %), and it never reads context_lens; each block derives its
+//     range on the device.  Ranges start at t_lo plus a multiple of SPAN,
+//     so no int8 span straddles two.  A block whose range is empty loads
+//     nothing;
+//   * each block streams its range through a ring of NST stages in shared
+//     memory, TS = 64 tokens of K and V a stage plus their scales, with
+//     16-byte cp.async by all 128 threads (rows past the range
+//     zero-filled; each stage's page ids read a stage ahead), 3 blocks to
+//     an SM (one 1-D bulk copy a row, by the copy engine, was no faster;
+//     PERF.md);
+//   * each token's K and V scale is copied once per block with the stage
+//     (4-byte cp.async; a bf16 tile's pair of lanes holding the head's
+//     scale), not loaded by every lane;
+//   * the products run on the tensor cores (mma.sync m16n8k16, or
+//     m16n8k32 int8 for the int8 dot products' scores): each warp takes 16
+//     tokens of a stage, the GQA group's G q rows padded to the 16 rows of
+//     an mma; S = q K^T over a permuted head dim so that each thread reads
+//     its 32 contiguous dims of a K row with 16-byte shared-memory loads,
+//     then the online softmax in f32 on the score fragments (exp2, the
+//     scale folded in), then O += P V with P from registers and V's
+//     fragments paired from 16-byte reads of 4 rows.  The rows of a stage
+//     are XOR-swizzled in 16-byte chunks so that neither read meets a bank
+//     conflict.  1-byte rows convert to the q type (f16 for the int8 dot
+//     products' PV) in registers with the exact bit tricks of
+//     paged_prefill.cu.  The 4 warps' states merge through shared memory;
+//   * the splits merge in the same launch: each block writes its (m, l,
+//     acc) to a workspace the wrapper allocates, and the last block of a
+//     (sequence, kv head) to arrive (a counter that it resets to 0 for the
+//     next call) merges the partials in split order, so two runs give the
+//     same bits and a call is one launch.
 
 #include "common.cuh"
 
@@ -67,39 +90,74 @@ namespace {
 
 using namespace aule;
 
-constexpr int D = 128;          // head dim: 16 lanes x 8 elements
-constexpr int NWARPS = 8;
+constexpr int D = 128;          // head dim (the only one)
+constexpr int NWARPS = 4;
 constexpr int NTHREADS = NWARPS * 32;
-constexpr int NWORKERS = NWARPS * 2;  // half-warps
-constexpr int TPW = 4;                // tokens per half-warp per step (SPAN)
+// blocks resident per SM: the launch bounds hold every mode to the 168
+// registers a thread has at 3 blocks, and 3 rings fit (ops/decode_split.py
+// BLOCKS_PER_SM)
+constexpr int MIN_BLOCKS = 3;
+constexpr int TPW = 4;                // the int8 dot products' p span
+constexpr int GT = 16;                // tokens a warp takes per step
+constexpr int TS = NWARPS * GT;       // tokens per stage
+constexpr int kMaxSplits = 64;        // ops/decode_split.py MAX_SPLITS
 
-// A lane's 8 elements of one token row: 16 bytes of a 16-bit pool, 8 bytes
-// of a 1-byte payload.
+// A stage's geometry for a pool mode: TS rows of RB bytes (CPR 16-byte
+// chunks) of K and of V, each thread copying PER_THREAD chunks of each,
+// RSTEP rows apart.  Chunk c of row r sits at chunk swz_chunk(r, c) of its
+// row, so the consumers' 16-byte reads (below) meet no bank conflict.
 template <int POOL>
-struct Raw {
-  using type = uint2;
-};
-template <>
-struct Raw<kPoolNative> {
-  using type = uint4;
+struct Tile {
+  static constexpr int ESZ = POOL == kPoolNative ? 2 : 1;
+  // ring stages: 2 of 33 KB for 16-bit rows, 4 of 17 KB for 1-byte rows
+  static constexpr int NST = ESZ == 2 ? 2 : 4;
+  static constexpr int RB = D * ESZ;
+  static constexpr int CPR = RB / 16;
+  static constexpr int KV_BYTES = TS * RB;
+  static constexpr int STAGE = 2 * KV_BYTES + 2 * TS * 4;
+  static constexpr int RSTEP = NTHREADS / CPR;
+  static constexpr int PER_THREAD = TS * CPR / NTHREADS;
+
+  // A K read takes chunks 4t + j (16-bit) or 2t + j (1-byte) of rows
+  // {2p, 2p + 1} in each quarter-warp, a V read chunk g (+ 8) of rows
+  // 2t (+ 1, + 8, + 9): the row's bit 0 and bits 1-2 and, for 16-bit rows,
+  // the chunk's bit 3 spread both over the 8 chunk positions of 128 bytes.
+  __device__ static __forceinline__ int swz_chunk(int r, int c) {
+    int x = c ^ (r & 1) ^ (((r >> 1) & 3) << 1);
+    if (ESZ == 2) x ^= ((c >> 3) & 1) << 1;
+    return x;
+  }
+  __device__ static __forceinline__ int offset(int r, int c) {
+    return r * RB + swz_chunk(r, c) * 16;
+  }
 };
 
-template <typename T, int POOL, typename R>
-__device__ __forceinline__ void to_float8(const R& u, float* f) {
-  if constexpr (POOL == kPoolNative) {
-    float2 a = Elem<T>::to_float2(u.x), b = Elem<T>::to_float2(u.y);
-    float2 c = Elem<T>::to_float2(u.z), d = Elem<T>::to_float2(u.w);
-    f[0] = a.x; f[1] = a.y; f[2] = b.x; f[3] = b.y;
-    f[4] = c.x; f[5] = c.y; f[6] = d.x; f[7] = d.y;
-  } else {
-    payload4_to_float<POOL>(u.x, f);
-    payload4_to_float<POOL>(u.y, f + 4);
-  }
+__device__ __forceinline__ uint4 lds128(const uint8_t* p) {
+  return *reinterpret_cast<const uint4*>(p);
 }
 
-// shared floats for group size n: per-worker acc, q, per-worker m and l
-constexpr size_t smem_floats(int n) {
-  return (size_t)n * D * (NWORKERS + 1) + 2 * NWORKERS * n;
+// d (+)= a b, m16n8k32, int8 inputs, exact int32 sums.
+__device__ __forceinline__ void mma_s8(int (&d)[4], uint32_t a0, uint32_t a2,
+                                       uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a0), "r"(0u), "r"(a2), "r"(0u), "r"(b0), "r"(b1));
+}
+
+// 4-byte global->shared async copy; zero-fills the slot where !pred.
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          bool pred) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(pred ? 4 : 0));
+}
+
+// Dynamic shared memory of one instantiation: the ring, which the warps'
+// final states and the splits' merge reuse.
+template <int POOL>
+constexpr int smem_bytes() {
+  return Tile<POOL>::NST * Tile<POOL>::STAGE;
 }
 
 // The pool layouts (the kernel's L).  Their names tell the two apart in a
@@ -111,294 +169,9 @@ struct SplitPools {
   static constexpr bool kSplit = true;
 };
 
-// q, out: [B, Hq, D] (q int8 in the int8-dot mode, with qf [B, Hq]);
-// lse: [B, Hq] or null.  FusedPool: kv [P, 2, Hkv, page, D] bytes, sc the
-// packed tile [P, page, 128] (bf16 or f32 by sc_f32) or null; v_pages,
-// v_scales and num_pages unused.  SplitPools: kv the K pool and v_pages the
-// V pool [Hkv, P, page, D] bytes, sc and v_scales their f32 scales
-// [Hkv, P, page] or null.  Grid: (Hkv, B).  G = Hq / Hkv.
-template <typename T, int POOL, int G, typename L>
-__global__ void __launch_bounds__(NTHREADS)
-    paged_decode_kernel(const void* __restrict__ q,
-                        const float* __restrict__ qf,
-                        const uint8_t* __restrict__ kv,
-                        const uint8_t* __restrict__ v_pages,
-                        const void* __restrict__ sc,
-                        const float* __restrict__ v_scales, int sc_f32,
-                        const int* __restrict__ block_tables,
-                        const int* __restrict__ context_lens,
-                        T* __restrict__ out, float* __restrict__ lse, int Hkv,
-                        int num_pages, int page_size, int max_pages,
-                        float scale, int window) {
-  using R = typename Raw<POOL>::type;
-  constexpr int ESZ = (POOL == kPoolNative) ? 2 : 1;  // bytes per element
-  constexpr bool QUANT = POOL != kPoolNative;
-  constexpr bool DOT = POOL == kPoolInt8Dot;
-  extern __shared__ float sm[];
-  float* s_acc = sm;                        // [NWORKERS][G][D]
-  float* s_q = s_acc + NWORKERS * G * D;    // [G][D]
-  float* s_m = s_q + G * D;                 // [NWORKERS][G]
-  float* s_l = s_m + NWORKERS * G;          // [NWORKERS][G]
-
-  const int hk = blockIdx.x, b = blockIdx.y;
-  const int Hq = Hkv * G;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int half = lane >> 4, d0 = (lane & 15) * 8;
-  const int worker = warp * 2 + half;
-  const float sl2 = scale * kLog2e;
-  const size_t row0 = (size_t)b * Hq + (size_t)hk * G;
-
-  // q rows of the group: f32 pre-scaled by scale*log2(e), or int8 codes
-  // with their factor qf*log2(e)
-  float qr[G][8];
-  int qi[G][2];
-  float qs[G];
-  if constexpr (DOT) {
-    const int8_t* qb = static_cast<const int8_t*>(q) + row0 * D + d0;
-#pragma unroll
-    for (int g = 0; g < G; ++g) {
-      const uint2 w = *reinterpret_cast<const uint2*>(qb + g * D);
-      qi[g][0] = static_cast<int>(w.x);
-      qi[g][1] = static_cast<int>(w.y);
-      qs[g] = qf[row0 + g] * kLog2e;
-    }
-  } else {
-    const T* qb = static_cast<const T*>(q) + row0 * D;
-    for (int i = tid; i < G * D; i += NTHREADS)
-      s_q[i] = Elem<T>::to_float(qb[i]) * sl2;
-    __syncthreads();
-#pragma unroll
-    for (int g = 0; g < G; ++g)
-#pragma unroll
-      for (int e = 0; e < 8; ++e) qr[g][e] = s_q[g * D + d0 + e];
-  }
-
-  const int len =
-      max(0, min(context_lens[b], max_pages * page_size));
-  const int t_lo = window > 0 ? max(0, len - window) : 0;
-  const int* bt = block_tables + (size_t)b * max_pages;
-  const size_t page_elems = (size_t)2 * Hkv * page_size * D;
-  const size_t head_off = (size_t)hk * page_size * D + d0;
-  const size_t v_off = (size_t)Hkv * page_size * D;
-  // split pools: row 0 of this head's page 0 (rows count tokens)
-  const size_t head_row0 = (size_t)hk * num_pages * page_size;
-
-  float acc[G][8], m[G], l[G];
-#pragma unroll
-  for (int g = 0; g < G; ++g) {
-    m[g] = -INFINITY;
-    l[g] = 0.f;
-#pragma unroll
-    for (int e = 0; e < 8; ++e) acc[g][e] = 0.f;
-  }
-
-  // warp-uniform walk: each warp takes 2 x TPW consecutive tokens per step
-  for (int wbase = t_lo + warp * 2 * TPW; wbase < len;
-       wbase += NWARPS * 2 * TPW) {
-    const int base = wbase + half * TPW;
-    R kr[TPW], vr[TPW];
-    float ksc[TPW], vsc[TPW];
-    bool ok[TPW];
-#pragma unroll
-    for (int i = 0; i < TPW; ++i) {
-      const int tok = base + i;
-      ok[i] = tok < len;
-      kr[i] = R{};
-      vr[i] = R{};
-      ksc[i] = vsc[i] = 0.f;
-      if (ok[i]) {
-        const int page = max(bt[tok / page_size], 0);
-        const int slot = tok % page_size;
-        if constexpr (L::kSplit) {
-          const size_t row = head_row0 + (size_t)page * page_size + slot;
-          const size_t off = (row * D + d0) * ESZ;
-          kr[i] = __ldg(reinterpret_cast<const R*>(kv + off));
-          vr[i] = __ldg(reinterpret_cast<const R*>(v_pages + off));
-          if constexpr (QUANT) {
-            ksc[i] = __ldg(static_cast<const float*>(sc) + row);
-            vsc[i] = __ldg(v_scales + row);
-          }
-        } else {
-          const uint8_t* p =
-              kv + ((size_t)page * page_elems + head_off + (size_t)slot * D) *
-                       ESZ;
-          kr[i] = __ldg(reinterpret_cast<const R*>(p));
-          vr[i] = __ldg(reinterpret_cast<const R*>(p + v_off * ESZ));
-          if constexpr (QUANT) {
-            const size_t si =
-                ((size_t)page * page_size + slot) * kScaleLanes + hk;
-            ksc[i] = load_scale(sc, si, sc_f32);
-            vsc[i] = load_scale(sc, si + kScaleKVStride, sc_f32);
-          }
-        }
-      }
-    }
-
-    // scores in log2 units, summed over the 16 lanes of each half-warp
-    // (xor offsets stay inside it)
-    float s[TPW][G];
-    if constexpr (DOT) {
-      int si[TPW][G];
-#pragma unroll
-      for (int i = 0; i < TPW; ++i)
-#pragma unroll
-        for (int g = 0; g < G; ++g)
-          si[i][g] = __dp4a(qi[g][0], static_cast<int>(kr[i].x),
-                            __dp4a(qi[g][1], static_cast<int>(kr[i].y), 0));
-#pragma unroll
-      for (int off = 8; off >= 1; off >>= 1)
-#pragma unroll
-        for (int i = 0; i < TPW; ++i)
-#pragma unroll
-          for (int g = 0; g < G; ++g)
-            si[i][g] += __shfl_xor_sync(0xffffffffu, si[i][g], off);
-#pragma unroll
-      for (int i = 0; i < TPW; ++i)
-#pragma unroll
-        for (int g = 0; g < G; ++g)
-          s[i][g] = static_cast<float>(si[i][g]) * qs[g] * ksc[i];
-    } else {
-#pragma unroll
-      for (int i = 0; i < TPW; ++i) {
-        float kf[8];
-        to_float8<T, POOL>(kr[i], kf);
-#pragma unroll
-        for (int g = 0; g < G; ++g) {
-          float dot = 0.f;
-#pragma unroll
-          for (int e = 0; e < 8; ++e) dot = fmaf(qr[g][e], kf[e], dot);
-          s[i][g] = dot;
-        }
-      }
-#pragma unroll
-      for (int off = 8; off >= 1; off >>= 1)
-#pragma unroll
-        for (int i = 0; i < TPW; ++i)
-#pragma unroll
-          for (int g = 0; g < G; ++g)
-            s[i][g] += __shfl_xor_sync(0xffffffffu, s[i][g], off);
-      if constexpr (QUANT) {
-#pragma unroll
-        for (int i = 0; i < TPW; ++i)
-#pragma unroll
-          for (int g = 0; g < G; ++g) s[i][g] *= ksc[i];
-      }
-    }
-
-    // V of the TPW tokens: f32 values, or (int8 dot) the four tokens'
-    // bytes of element e gathered into one word for __dp4a
-    float vf[TPW][8];
-    int vt[8];
-    if constexpr (DOT) {
-#pragma unroll
-      for (int w = 0; w < 2; ++w) {
-        const uint32_t w0 = w ? vr[0].y : vr[0].x, w1 = w ? vr[1].y : vr[1].x;
-        const uint32_t w2 = w ? vr[2].y : vr[2].x, w3 = w ? vr[3].y : vr[3].x;
-        const uint32_t t01lo = __byte_perm(w0, w1, 0x5140);  // e0, e1
-        const uint32_t t23lo = __byte_perm(w2, w3, 0x5140);
-        const uint32_t t01hi = __byte_perm(w0, w1, 0x7362);  // e2, e3
-        const uint32_t t23hi = __byte_perm(w2, w3, 0x7362);
-        vt[4 * w + 0] = static_cast<int>(__byte_perm(t01lo, t23lo, 0x5410));
-        vt[4 * w + 1] = static_cast<int>(__byte_perm(t01lo, t23lo, 0x7632));
-        vt[4 * w + 2] = static_cast<int>(__byte_perm(t01hi, t23hi, 0x5410));
-        vt[4 * w + 3] = static_cast<int>(__byte_perm(t01hi, t23hi, 0x7632));
-      }
-    } else {
-#pragma unroll
-      for (int i = 0; i < TPW; ++i) to_float8<T, POOL>(vr[i], vf[i]);
-    }
-#pragma unroll
-    for (int g = 0; g < G; ++g) {
-      float mx = m[g];
-#pragma unroll
-      for (int i = 0; i < TPW; ++i)
-        if (ok[i]) mx = fmaxf(mx, s[i][g]);
-      const float alpha = (mx == -INFINITY) ? 1.f : exp2f(m[g] - mx);
-      float p[TPW], psum = 0.f;
-#pragma unroll
-      for (int i = 0; i < TPW; ++i) {
-        p[i] = ok[i] ? exp2f(s[i][g] - mx) : 0.f;
-        psum += p[i];
-      }
-      l[g] = l[g] * alpha + psum;  // l sums the unscaled p
-      m[g] = mx;
-      if constexpr (DOT) {
-        // p * V scale, quantized per row over this span of TPW tokens
-        float pm = 0.f;
-#pragma unroll
-        for (int i = 0; i < TPW; ++i) {
-          p[i] *= vsc[i];
-          pm = fmaxf(pm, p[i]);
-        }
-        const float r = pm > 0.f ? 127.f / pm : 0.f;
-        uint32_t pk = 0;
-        // floor(p * r + 0.5) with two roundings, as the plain version
-        // (no fused multiply-add)
-#pragma unroll
-        for (int i = 0; i < TPW; ++i)
-          pk |= (static_cast<uint32_t>(
-                     floorf(__fadd_rn(__fmul_rn(p[i], r), 0.5f))) &
-                 0xFFu)
-                << (8 * i);
-        const float deq = pm * (1.f / 127.f);
-#pragma unroll
-        for (int e = 0; e < 8; ++e)
-          acc[g][e] = acc[g][e] * alpha +
-                      static_cast<float>(__dp4a(static_cast<int>(pk), vt[e],
-                                                0)) * deq;
-      } else {
-        if constexpr (QUANT) {
-#pragma unroll
-          for (int i = 0; i < TPW; ++i) p[i] *= vsc[i];
-        }
-#pragma unroll
-        for (int e = 0; e < 8; ++e) {
-          float a = acc[g][e] * alpha;
-#pragma unroll
-          for (int i = 0; i < TPW; ++i) a = fmaf(p[i], vf[i][e], a);
-          acc[g][e] = a;
-        }
-      }
-    }
-  }
-
-  // merge the 16 half-warp states: every lane of a half-warp holds the
-  // same m and l, and its own 8 columns of acc
-#pragma unroll
-  for (int g = 0; g < G; ++g) {
-    if ((lane & 15) == 0) {
-      s_m[worker * G + g] = m[g];
-      s_l[worker * G + g] = l[g];
-    }
-#pragma unroll
-    for (int e = 0; e < 8; ++e)
-      s_acc[(worker * G + g) * D + d0 + e] = acc[g][e];
-  }
-  __syncthreads();
-  for (int i = tid; i < G * D; i += NTHREADS) {
-    const int g = i / D, d = i % D;
-    float M = -INFINITY;
-    for (int w = 0; w < NWORKERS; ++w) M = fmaxf(M, s_m[w * G + g]);
-    float L = 0.f, O = 0.f;
-    if (M != -INFINITY) {
-      for (int w = 0; w < NWORKERS; ++w) {
-        const float mw = s_m[w * G + g];
-        if (mw == -INFINITY) continue;
-        const float c = exp2f(mw - M);
-        L += s_l[w * G + g] * c;
-        O += s_acc[(w * G + g) * D + d] * c;
-      }
-    }
-    const size_t row = row0 + g;
-    out[row * D + d] = Elem<T>::from_float(L > 0.f ? O / L : 0.f);
-    if (lse != nullptr && d == 0)
-      lse[row] = L > 0.f ? (M + log2f(L)) * kLn2 : kMaskValue;
-  }
-}
-
 struct Args {
-  const void* q;
-  const float* qf;
+  const void* q;      // [B, Hq, D] (int8 codes in the int8-dot mode)
+  const float* qf;    // [B, Hq] (int8-dot mode), else null
   const uint8_t* kv;  // the fused pool, or the split K pool
   const uint8_t* v;   // the split V pool (null for a fused pool)
   const void* sc;     // the packed tile, or the split K scales
@@ -408,24 +181,498 @@ struct Args {
   const int* lens;
   void* out;
   float* lse;
+  float* ws;          // nsplit > 1: [B, Hkv, nsplit, G] x (D + 2) f32
+  int* counters;      // nsplit > 1: [B, Hkv] int32, 0 between calls
   int B, Hkv, num_pages, page_size, max_pages;
   float scale;
-  int window;
+  int window, nsplit;
   cudaStream_t stream;
 };
 
+// Grid (nsplit, Hkv, B); G = Hq / Hkv.
+template <typename T, int POOL, int G, typename L>
+__global__ void __launch_bounds__(NTHREADS, MIN_BLOCKS)
+    paged_decode_kernel(const Args a) {
+  using TL = Tile<POOL>;
+  // the P V product's input type: the q type, or f16 for the int8 dot
+  // products (their p codes times the span's scale, over int8 V)
+  using PT = std::conditional_t<POOL == kPoolInt8Dot, __half, T>;
+  constexpr int ESZ = TL::ESZ, RB = TL::RB, NST = TL::NST;
+  constexpr bool QUANT = POOL != kPoolNative;
+  constexpr bool DOT = POOL == kPoolInt8Dot;
+  constexpr int VPOOL = DOT ? kPoolInt8 : POOL;  // how V converts
+  extern __shared__ __align__(16) uint8_t smem[];
+  __shared__ int s_last;
+
+  const int split = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
+  const int Hkv = a.Hkv, Hq = Hkv * G, ps = a.page_size;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  // the thread's mma fragment row g (q row g of the group; rows g >= G
+  // and g + 8 are zeros) and column pair 2t, 2t + 1
+  const int g = lane >> 2, t = lane & 3;
+  const bool row_ok = g < G;
+  const size_t row0 = (size_t)b * Hq + (size_t)hk * G;
+
+  // q row g as the A fragments of S = q K^T, over the head dim permuted
+  // so that each thread reads its 32 dims [32t, 32t + 32) of a row in
+  // order: k-step kk holds dims 32t + 4kk + {0, 1} and {2, 3} (16-bit
+  // products, 8 k-steps) or 32t + 8kk + {0..3} and {4..7} (int8 products,
+  // 4 k-steps); K's B fragments are read in the same order.  The int8 dot
+  // products' row factor qs = qf * log2(e).
+  uint32_t qa[16];
+  float qs = 0.f;
+  {
+    uint4 w[4] = {};
+    if (row_ok) {
+      const uint8_t* qb = static_cast<const uint8_t*>(a.q) +
+                          ((row0 + g) * D + 32 * t) * (DOT ? 1 : 2);
+#pragma unroll
+      for (int u = 0; u < (DOT ? 2 : 4); ++u)
+        w[u] = *reinterpret_cast<const uint4*>(qb + 16 * u);
+      if constexpr (DOT) qs = a.qf[row0 + g] * kLog2e;
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      qa[4 * u] = w[u].x;
+      qa[4 * u + 1] = w[u].y;
+      qa[4 * u + 2] = w[u].z;
+      qa[4 * u + 3] = w[u].w;
+    }
+  }
+  const float sfac = DOT ? qs : a.scale * kLog2e;  // scores in log2 units
+
+  // this block's range [s_lo, s_hi) of the live tokens [t_lo, len)
+  const int len = max(0, min(a.lens[b], a.max_pages * ps));
+  const int t_lo = a.window > 0 ? max(0, len - a.window) : 0;
+  const int per = (len - t_lo + a.nsplit - 1) / a.nsplit;
+  const int chunk = (per + TPW - 1) / TPW * TPW;
+  const int s_lo = t_lo + split * chunk;
+  const int s_hi = min(len, s_lo + chunk);
+  const int ntiles = s_hi > s_lo ? (s_hi - s_lo + TS - 1) / TS : 0;
+  const int* bt = a.bt + (size_t)b * a.max_pages;
+
+  // Stage j: rows s_lo + j * TS + r.  Thread tid copies chunk tid % CPR of
+  // rows tid / CPR + i * RSTEP of K and V, and (quantized pools) thread
+  // tid < 2 * TS the K (tid < TS) or V scale of row tid % TS.  The page
+  // ids of a stage are read one stage ahead (`fetch_pages`), so their
+  // loads are in flight while the block computes.
+  const uint32_t ring = smem_u32(smem);
+  const int crow = tid % TL::CPR, r0 = tid / TL::CPR;
+  const int sr = tid % TS;  // the scale row this thread copies
+  int pg[TL::PER_THREAD], slot[TL::PER_THREAD], spg = 0;
+  auto fetch_pages = [&](int j) {
+    const int t0 = s_lo + j * TS;
+    int tok = t0 + r0, lp = tok / ps, sl = tok - lp * ps;
+#pragma unroll
+    for (int i = 0; i < TL::PER_THREAD; ++i) {
+      pg[i] = tok < s_hi ? bt[lp] : 0;
+      slot[i] = sl;
+      tok += TL::RSTEP;
+      sl += TL::RSTEP;
+      while (sl >= ps) {
+        sl -= ps;
+        ++lp;
+      }
+    }
+    if (QUANT && tid < 2 * TS) spg = t0 + sr < s_hi ? bt[(t0 + sr) / ps] : 0;
+  };
+  auto load_stage = [&](int j) {
+    const int t0 = s_lo + j * TS;
+    const uint32_t st = ring + (j % NST) * TL::STAGE;
+#pragma unroll
+    for (int i = 0; i < TL::PER_THREAD; ++i) {
+      const int r = r0 + i * TL::RSTEP, tok = t0 + r;
+      const bool ok = tok < s_hi;
+      const uint8_t* kp = a.kv;  // read nothing where !ok
+      const uint8_t* vp = a.kv;
+      if (ok) {
+        const size_t page = max(pg[i], 0);
+        if constexpr (L::kSplit) {
+          const size_t off =
+              (((size_t)hk * a.num_pages + page) * ps + slot[i]) * RB +
+              crow * 16;
+          kp = a.kv + off;
+          vp = a.v + off;
+        } else {
+          kp = a.kv + ((page * 2 * Hkv + hk) * ps + slot[i]) * RB +
+               crow * 16;
+          vp = kp + (size_t)Hkv * ps * RB;
+        }
+      }
+      const uint32_t dst = st + TL::offset(r, crow);
+      cp_async16(dst, kp, ok);
+      cp_async16(dst + TL::KV_BYTES, vp, ok);
+    }
+    if constexpr (QUANT) {
+      if (tid < 2 * TS) {
+        const int kvsel = tid / TS, tok = t0 + sr;
+        const bool ok = tok < s_hi;
+        const void* src = a.sc;
+        if (ok) {
+          const size_t srow = (size_t)max(spg, 0) * ps + (tok - tok / ps * ps);
+          if constexpr (L::kSplit) {
+            src = (kvsel ? a.vs : static_cast<const float*>(a.sc)) +
+                  (size_t)hk * a.num_pages * ps + srow;
+          } else {
+            const size_t si = srow * kScaleLanes + kvsel * kScaleKVStride;
+            src = a.sc_f32
+                      ? static_cast<const void*>(
+                            static_cast<const float*>(a.sc) + si + hk)
+                      : static_cast<const void*>(
+                            static_cast<const __nv_bfloat16*>(a.sc) + si +
+                            (hk & ~1));
+          }
+        }
+        cp_async4(st + 2 * TL::KV_BYTES + (kvsel * TS + sr) * 4, src, ok);
+      }
+    }
+  };
+  // a staged scale word -> f32: a bf16 tile's word holds lanes hk & ~1
+  // and hk | 1 (the head's in the high half when hk is odd)
+  const bool sc16 = QUANT && !L::kSplit && !a.sc_f32;
+  const int sc_shl = sc16 && !(hk & 1) ? 16 : 0;
+  const uint32_t sc_mask = sc16 ? 0xFFFF0000u : 0xFFFFFFFFu;
+
+  // the warp's state for row g: running max m (log2 units), this thread's
+  // part of l, and O's fragments (c0, c1: row g; c2, c3: the zero rows)
+  float m = -INFINITY, l = 0.f;
+  float acc[16][4];
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+    acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+
+#pragma unroll
+  for (int s = 0; s < NST - 1; ++s) {
+    if (s < ntiles) {
+      fetch_pages(s);
+      load_stage(s);
+    }
+    cp_async_commit();
+  }
+  if (NST - 1 < ntiles) fetch_pages(NST - 1);
+  for (int j = 0; j < ntiles; ++j) {
+    cp_async_wait<NST - 2>();
+    __syncthreads();  // stage j landed; every thread is done with j - 1
+    if (j + NST - 1 < ntiles) {
+      load_stage(j + NST - 1);
+      if (j + NST < ntiles) fetch_pages(j + NST);
+    }
+    cp_async_commit();
+    // the warp's GT rows rb .. rb + 15 of the stage (warp-uniform test)
+    const int rb = warp * GT;
+    const int t0 = s_lo + j * TS;
+    if (t0 + rb >= s_hi) continue;
+    const uint8_t* st = smem + (j % NST) * TL::STAGE;
+    const uint32_t* ssc =
+        reinterpret_cast<const uint32_t*>(st + 2 * TL::KV_BYTES);
+
+    // S = q K^T: n-tile nt holds rows rb + 8nt + 0..7 as its columns; the
+    // thread reads row rb + 8nt + g (its B fragments) and holds the scores
+    // of rows rb + 8nt + 2t + {0, 1}
+    float sc[2][4] = {};
+    if constexpr (DOT) {
+      int si[2][4] = {};
+      uint4 k0[2], k1[2];
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+        const int r = rb + 8 * nt + g;
+        k0[nt] = lds128(st + TL::offset(r, 2 * t));
+        k1[nt] = lds128(st + TL::offset(r, 2 * t + 1));
+      }
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt) {
+          const uint4& k = kk < 2 ? k0[nt] : k1[nt];
+          mma_s8(si[nt], qa[2 * kk], qa[2 * kk + 1], kk & 1 ? k.z : k.x,
+                 kk & 1 ? k.w : k.y);
+        }
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) sc[nt][e] = static_cast<float>(si[nt][e]);
+    } else {
+      uint32_t kb[2][16];
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+        const int r = rb + 8 * nt + g;
+        if constexpr (ESZ == 2) {
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            const uint4 w = lds128(st + TL::offset(r, 4 * t + u));
+            kb[nt][4 * u] = w.x;
+            kb[nt][4 * u + 1] = w.y;
+            kb[nt][4 * u + 2] = w.z;
+            kb[nt][4 * u + 3] = w.w;
+          }
+        } else {
+#pragma unroll
+          for (int u = 0; u < 2; ++u) {
+            const uint4 w = lds128(st + TL::offset(r, 2 * t + u));
+            const uint32_t ws[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+            for (int v = 0; v < 4; ++v) {
+              const uint2 c = convert4<T, POOL>(ws[v]);
+              kb[nt][8 * u + 2 * v] = c.x;
+              kb[nt][8 * u + 2 * v + 1] = c.y;
+            }
+          }
+        }
+      }
+      // the two n-tiles' products alternate, two independent chains
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk)
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt)
+          Elem<T>::mma(sc[nt], qa[2 * kk], 0u, qa[2 * kk + 1], 0u,
+                       kb[nt][2 * kk], kb[nt][2 * kk + 1]);
+    }
+
+    // scores in log2 units (times the K scale), -inf past the range; the
+    // online softmax of row g over its 4 threads
+    float p[2][2], vs[2][2];
+    float mx = -INFINITY;
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int r = rb + 8 * nt + 2 * t + e;
+        float f = sfac;
+        if constexpr (QUANT) {
+          f *= __uint_as_float((ssc[r] << sc_shl) & sc_mask);
+          vs[nt][e] = __uint_as_float((ssc[TS + r] << sc_shl) & sc_mask);
+        }
+        p[nt][e] = t0 + r < s_hi ? sc[nt][e] * f : -INFINITY;
+        mx = fmaxf(mx, p[nt][e]);
+      }
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    const float m_new = fmaxf(m, mx);
+    const float alpha = m_new == -INFINITY ? 1.f : exp2f(m - m_new);
+    float psum = 0.f;
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        p[nt][e] = p[nt][e] == -INFINITY ? 0.f : exp2f(p[nt][e] - m_new);
+        psum += p[nt][e];
+      }
+    l = l * alpha + psum;  // l sums the unscaled p
+    m = m_new;
+
+    // P (times the V scale) as the A fragment of O += P V: k = the group's
+    // rows, 2t + {0, 1} from n-tile 0 and 8 + 2t + {0, 1} from n-tile 1
+    uint32_t pa[2];
+    if constexpr (DOT) {
+      // p * V scale, quantized per row over each span of TPW rows (this
+      // thread's pair and its neighbour's, t ^ 1), as the plain version:
+      // floor(p * 127 / max + 0.5), each code times max / 127
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+        const float p0 = p[nt][0] * vs[nt][0], p1 = p[nt][1] * vs[nt][1];
+        float pm = fmaxf(p0, p1);
+        pm = fmaxf(pm, __shfl_xor_sync(0xffffffffu, pm, 1));
+        const float rr = pm > 0.f ? 127.f / pm : 0.f;
+        const float deq = pm * (1.f / 127.f);
+        const float w0 = floorf(__fadd_rn(__fmul_rn(p0, rr), 0.5f)) * deq;
+        const float w1 = floorf(__fadd_rn(__fmul_rn(p1, rr), 0.5f)) * deq;
+        pa[nt] = Elem<PT>::pack(w0, w1);
+      }
+    } else {
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+        if constexpr (QUANT) {
+          p[nt][0] *= vs[nt][0];
+          p[nt][1] *= vs[nt][1];
+        }
+        pa[nt] = Elem<PT>::pack(p[nt][0], p[nt][1]);
+      }
+    }
+#pragma unroll
+    for (int jn = 0; jn < 16; ++jn) {
+      acc[jn][0] *= alpha;
+      acc[jn][1] *= alpha;
+    }
+
+    // V's B fragments: the thread reads rows rb + 2t + {0, 1, 8, 9}, 16
+    // values each (16-bit rows: chunks g and 8 + g, dims 8g .. 8g + 7 and
+    // 64 + 8g ..; 1-byte rows: chunk g, dims 16g .. 16g + 15), and pairs
+    // rows 2t, 2t + 1 (b0) and 2t + 8, 2t + 9 (b1) value by value: n-tile
+    // jn's column g is the jn-th of them
+    const int vr[4] = {rb + 2 * t, rb + 2 * t + 1, rb + 2 * t + 8,
+                       rb + 2 * t + 9};
+    if constexpr (ESZ == 2) {
+      uint32_t vw[4][8];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const uint4 lo = lds128(st + TL::KV_BYTES + TL::offset(vr[i], g));
+        const uint4 hi =
+            lds128(st + TL::KV_BYTES + TL::offset(vr[i], 8 + g));
+        vw[i][0] = lo.x; vw[i][1] = lo.y; vw[i][2] = lo.z; vw[i][3] = lo.w;
+        vw[i][4] = hi.x; vw[i][5] = hi.y; vw[i][6] = hi.z; vw[i][7] = hi.w;
+      }
+#pragma unroll
+      for (int jn = 0; jn < 16; ++jn) {
+        const uint32_t sel = (jn & 1) ? 0x7632 : 0x5410;
+        const uint32_t b0 = __byte_perm(vw[0][jn / 2], vw[1][jn / 2], sel);
+        const uint32_t b1 = __byte_perm(vw[2][jn / 2], vw[3][jn / 2], sel);
+        Elem<PT>::mma(acc[jn], pa[0], 0u, pa[1], 0u, b0, b1);
+      }
+    } else {
+      uint32_t vw[4][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const uint4 w = lds128(st + TL::KV_BYTES + TL::offset(vr[i], g));
+        vw[i][0] = w.x; vw[i][1] = w.y; vw[i][2] = w.z; vw[i][3] = w.w;
+      }
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const uint32_t sel = (i & 1) ? 0x7362 : 0x5140;
+        const uint2 lo =
+            convert4<PT, VPOOL>(__byte_perm(vw[0][i / 2], vw[1][i / 2], sel));
+        const uint2 hi =
+            convert4<PT, VPOOL>(__byte_perm(vw[2][i / 2], vw[3][i / 2], sel));
+        Elem<PT>::mma(acc[2 * i], pa[0], 0u, pa[1], 0u, lo.x, hi.x);
+        Elem<PT>::mma(acc[2 * i + 1], pa[0], 0u, pa[1], 0u, lo.y, hi.y);
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // the ring is free: the warps' states take it
+
+  // merge the warps' states: row g's m is the same in its 4 threads, l is
+  // summed over them; O column (jn, c) of n-tile jn is head dim
+  // dim(2t + c, jn) (the V values' order above)
+  float* s_acc = reinterpret_cast<float*>(smem);  // [NWARPS][G][D]
+  float* s_m = s_acc + NWARPS * G * D;            // [NWARPS][G]
+  float* s_l = s_m + NWARPS * G;                  // [NWARPS][G]
+  l += __shfl_xor_sync(0xffffffffu, l, 1);
+  l += __shfl_xor_sync(0xffffffffu, l, 2);
+  if (row_ok) {
+    if (t == 0) {
+      s_m[warp * G + g] = m;
+      s_l[warp * G + g] = l;
+    }
+    float* o = s_acc + (warp * G + g) * D;
+#pragma unroll
+    for (int jn = 0; jn < 16; ++jn)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int n = 2 * t + c;
+        const int dim = ESZ == 2 ? (jn < 8 ? 8 * n + jn : 64 + 8 * n + jn - 8)
+                                 : 16 * n + jn;
+        o[dim] = acc[jn][c];
+      }
+  }
+  __syncthreads();
+  // nsplit > 1: this pair's partials, [nsplit][G][D] and [nsplit][G][2]
+  const size_t pair = (size_t)b * Hkv + hk;
+  float* ws_acc = nullptr;
+  float* ws_ml = nullptr;
+  if (a.nsplit > 1) {
+    ws_acc = a.ws + pair * a.nsplit * G * D;
+    ws_ml = a.ws + (size_t)a.B * Hkv * a.nsplit * G * D +
+            pair * a.nsplit * G * 2;
+  }
+  for (int i = tid; i < G * D; i += NTHREADS) {
+    const int g = i / D, d = i % D;
+    float M = -INFINITY;
+    for (int w = 0; w < NWARPS; ++w) M = fmaxf(M, s_m[w * G + g]);
+    float Lsum = 0.f, O = 0.f;
+    if (M != -INFINITY) {
+      for (int w = 0; w < NWARPS; ++w) {
+        const float mw = s_m[w * G + g];
+        if (mw == -INFINITY) continue;
+        const float c = exp2f(mw - M);
+        Lsum += s_l[w * G + g] * c;
+        O += s_acc[(w * G + g) * D + d] * c;
+      }
+    }
+    if (a.nsplit == 1) {
+      const size_t row = row0 + g;
+      static_cast<T*>(a.out)[row * D + d] =
+          Elem<T>::from_float(Lsum > 0.f ? O / Lsum : 0.f);
+      if (a.lse != nullptr && d == 0)
+        a.lse[row] = Lsum > 0.f ? (M + log2f(Lsum)) * kLn2 : kMaskValue;
+    } else {
+      ws_acc[((size_t)split * G + g) * D + d] = O;
+      if (d == 0) {
+        ws_ml[((size_t)split * G + g) * 2] = M;
+        ws_ml[((size_t)split * G + g) * 2 + 1] = Lsum;
+      }
+    }
+  }
+  if (a.nsplit == 1) return;
+
+  // the last block of this (sequence, kv head) to arrive merges the
+  // partials in split order and resets the counter for the next call
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) {
+    const int prev = atomicAdd(a.counters + pair, 1);
+    s_last = prev == a.nsplit - 1;
+    if (s_last) atomicExch(a.counters + pair, 0);
+  }
+  __syncthreads();
+  if (!s_last) return;
+  __threadfence();
+  // every split's (m, l) into shared memory at once, then per q row the
+  // max and each split's weight c = 2^(m - max) (0 for an empty split)
+  // and l's sum in split order, then each output column's sum of c * acc
+  // in split order (independent loads, unrolled)
+  const int ns = a.nsplit;
+  float* s_pm = reinterpret_cast<float*>(smem);  // [nsplit][G] m, then c
+  float* s_pl = s_pm + ns * G;                   // [nsplit][G]
+  float* s_M = s_pl + ns * G;                    // [G]
+  float* s_L = s_M + G;                          // [G]
+  for (int i = tid; i < ns * G; i += NTHREADS) {
+    s_pm[i] = __ldcg(ws_ml + 2 * i);
+    s_pl[i] = __ldcg(ws_ml + 2 * i + 1);
+  }
+  __syncthreads();
+  if (tid < G) {
+    float M = -INFINITY;
+    for (int sp = 0; sp < ns; ++sp) M = fmaxf(M, s_pm[sp * G + tid]);
+    float Lsum = 0.f;
+    for (int sp = 0; sp < ns; ++sp) {
+      const float ms = s_pm[sp * G + tid];
+      const float c = ms == -INFINITY ? 0.f : exp2f(ms - M);
+      s_pm[sp * G + tid] = c;
+      Lsum += s_pl[sp * G + tid] * c;
+    }
+    s_M[tid] = M;
+    s_L[tid] = Lsum;
+  }
+  __syncthreads();
+  for (int i = tid; i < G * D; i += NTHREADS) {
+    const int g = i / D, d = i % D;
+    const float Lsum = s_L[g];
+    float O = 0.f;
+#pragma unroll 8
+    for (int sp = 0; sp < ns; ++sp)
+      O = fmaf(__ldcg(ws_acc + ((size_t)sp * G + g) * D + d),
+               s_pm[sp * G + g], O);
+    const size_t row = row0 + g;
+    static_cast<T*>(a.out)[row * D + d] =
+        Elem<T>::from_float(Lsum > 0.f ? O / Lsum : 0.f);
+    if (a.lse != nullptr && d == 0)
+      a.lse[row] = Lsum > 0.f ? (s_M[g] + log2f(Lsum)) * kLn2 : kMaskValue;
+  }
+}
+
 template <typename T, int POOL, int G, typename L>
 int launch(const Args& a) {
-  const size_t smem = smem_floats(G) * sizeof(float);
+  constexpr int smem = smem_bytes<POOL>();
+  static_assert(NWARPS * G * (D + 2) * 4 <= smem,
+                "the warps' states fit in the ring");
+  static_assert((kMaxSplits * 2 + 2) * G * 4 <= smem,
+                "the merge of up to 64 splits fits in the ring");
   cudaError_t err = cudaFuncSetAttribute(
       paged_decode_kernel<T, POOL, G, L>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  dim3 grid(a.Hkv, a.B);
-  paged_decode_kernel<T, POOL, G, L><<<grid, NTHREADS, smem, a.stream>>>(
-      a.q, a.qf, a.kv, a.v, a.sc, a.vs, a.sc_f32, a.bt, a.lens,
-      static_cast<T*>(a.out), a.lse, a.Hkv, a.num_pages, a.page_size,
-      a.max_pages, a.scale, a.window);
+  dim3 grid(a.nsplit, a.Hkv, a.B);
+  paged_decode_kernel<T, POOL, G, L><<<grid, NTHREADS, smem, a.stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -458,6 +705,9 @@ int by_pool(int pool, int group, const Args& a) {
 template <typename L>
 int by_dtype(int dtype, int group, int pool, const Args& a) {
   if (a.B <= 0) return cudaSuccess;
+  if (a.nsplit < 1 || a.nsplit > kMaxSplits ||
+      (a.nsplit > 1 && (a.ws == nullptr || a.counters == nullptr)))
+    return cudaErrorInvalidValue;
   if (dtype == aule::kF16) return by_pool<__half, L>(pool, group, a);
   return by_pool<__nv_bfloat16, L>(pool, group, a);
 }
@@ -466,38 +716,45 @@ int by_dtype(int dtype, int group, int pool, const Args& a) {
 
 // q: [B, Hq, D] in the out type (int8 codes in the int8-dot mode, with
 // qf [B, Hq] f32 = per-row q scale x softmax scale; qf null otherwise).
+// nsplit > 1: ws [B, Hkv, nsplit, Hq / Hkv, D + 2] f32 (uninitialised) and
+// counters [B, Hkv] int32, zero before the first call and left zero.
 extern "C" int aule_paged_decode(const void* q, const void* qf,
                                  const void* kv_pages, const void* kv_scales,
                                  const void* block_tables,
                                  const void* context_lens, void* out,
-                                 void* lse, int B, int Hq, int Hkv,
-                                 int page_size, int max_pages, float scale,
-                                 int window, int dtype, int pool, int sc_f32,
+                                 void* lse, void* ws, void* counters, int B,
+                                 int Hq, int Hkv, int page_size,
+                                 int max_pages, float scale, int window,
+                                 int nsplit, int dtype, int pool, int sc_f32,
                                  void* stream) {
   const Args a{q, static_cast<const float*>(qf),
                static_cast<const uint8_t*>(kv_pages), nullptr, kv_scales,
                nullptr, sc_f32, static_cast<const int*>(block_tables),
                static_cast<const int*>(context_lens), out,
-               static_cast<float*>(lse), B, Hkv, 0, page_size, max_pages,
-               scale, window, static_cast<cudaStream_t>(stream)};
+               static_cast<float*>(lse), static_cast<float*>(ws),
+               static_cast<int*>(counters), B, Hkv, 0, page_size, max_pages,
+               scale, window, nsplit, static_cast<cudaStream_t>(stream)};
   return by_dtype<FusedPool>(dtype, Hq / Hkv, pool, a);
 }
 
 // Split pools: q, out [B, Hq, D] in the out type; k_pages, v_pages
 // [Hkv, num_pages, page, D] (the out type, or int8 / e4m3 payloads with
-// f32 k_scales, v_scales [Hkv, num_pages, page]; null otherwise).
+// f32 k_scales, v_scales [Hkv, num_pages, page]; null otherwise); ws,
+// counters and nsplit as above.
 extern "C" int aule_paged_decode_split(
     const void* q, const void* k_pages, const void* v_pages,
     const void* k_scales, const void* v_scales, const void* block_tables,
-    const void* context_lens, void* out, void* lse, int B, int Hq, int Hkv,
-    int num_pages, int page_size, int max_pages, float scale, int window,
-    int dtype, int pool, void* stream) {
+    const void* context_lens, void* out, void* lse, void* ws, void* counters,
+    int B, int Hq, int Hkv, int num_pages, int page_size, int max_pages,
+    float scale, int window, int nsplit, int dtype, int pool, void* stream) {
   const Args a{q, nullptr, static_cast<const uint8_t*>(k_pages),
                static_cast<const uint8_t*>(v_pages), k_scales,
                static_cast<const float*>(v_scales), 1,
                static_cast<const int*>(block_tables),
                static_cast<const int*>(context_lens), out,
-               static_cast<float*>(lse), B, Hkv, num_pages, page_size,
-               max_pages, scale, window, static_cast<cudaStream_t>(stream)};
+               static_cast<float*>(lse), static_cast<float*>(ws),
+               static_cast<int*>(counters), B, Hkv, num_pages, page_size,
+               max_pages, scale, window, nsplit,
+               static_cast<cudaStream_t>(stream)};
   return by_dtype<SplitPools>(dtype, Hq / Hkv, pool, a);
 }

@@ -177,57 +177,6 @@ __device__ __forceinline__ float exp2_ftz(float x) {
   return y;
 }
 
-__device__ __forceinline__ uint32_t mul_x2(uint32_t a, uint32_t b,
-                                           bool f16) {
-  uint32_t d;
-  if (f16)
-    asm("mul.rn.f16x2 %0, %1, %2;\n" : "=r"(d) : "r"(a), "r"(b));
-  else
-    asm("mul.rn.bf16x2 %0, %1, %2;\n" : "=r"(d) : "r"(a), "r"(b));
-  return d;
-}
-
-// Four payload bytes (little-endian in `w`) -> four q-type values, exactly,
-// with byte permutes, logic and one add or multiply per pair.
-template <typename T, int POOL>
-__device__ __forceinline__ uint2 convert4(uint32_t w) {
-  constexpr bool F16 = std::is_same<T, __half>::value;
-  if constexpr (POOL == kPoolInt8) {
-    const uint32_t u = w ^ 0x80808080u;  // x + 128 per byte, unsigned
-    if constexpr (F16) {
-      // f16 0x64uu = 1024 + u, minus 1152 (0x6480): x
-      uint32_t lo = __byte_perm(u, 0x64646464u, 0x5140);
-      uint32_t hi = __byte_perm(u, 0x64646464u, 0x7362);
-      asm("sub.rn.f16x2 %0, %0, %1;\n" : "+r"(lo) : "r"(0x64806480u));
-      asm("sub.rn.f16x2 %0, %0, %1;\n" : "+r"(hi) : "r"(0x64806480u));
-      return make_uint2(lo, hi);
-    } else {
-      // f32 0x4B0000uu = 2^23 + u, minus 2^23 + 128: x, whose low 16 bits
-      // are zero, so its bf16 is its upper half
-      uint32_t f[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        f[i] = __float_as_uint(
-            __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540 + i)) -
-            8388736.f);
-      return make_uint2(__byte_perm(f[0], f[1], 0x7632),
-                        __byte_perm(f[2], f[3], 0x7632));
-    }
-  } else {
-    // e4m3 s.eeee.mmm, each byte to the top of a 16-bit lane; sign kept,
-    // exponent and mantissa moved to the top of the q type's fields, then
-    // times 2^(bias difference): 2^8 into f16 (bias 15), 2^120 into bf16
-    const uint32_t v01 = __byte_perm(w, 0, 0x1404);
-    const uint32_t v23 = __byte_perm(w, 0, 0x3424);
-    const int sh = F16 ? 1 : 4;
-    const uint32_t em = F16 ? 0x3F803F80u : 0x07F007F0u;
-    const uint32_t two = F16 ? 0x5C005C00u : 0x7B807B80u;
-    return make_uint2(
-        mul_x2((v01 & 0x80008000u) | ((v01 >> sh) & em), two, F16),
-        mul_x2((v23 & 0x80008000u) | ((v23 >> sh) & em), two, F16));
-  }
-}
-
 // The block's place in the grid: q tiles, heaviest first (x), the q heads
 // h0 .. h0 + hpb - 1 of one GQA group (y), the sequence (z).  Read from the
 // special registers on each call (asm volatile), so the epilogue computes

@@ -1,0 +1,178 @@
+"""Split-KV (flash-decoding) partition of the paged decode kernel
+(csrc/paged_decode.cu) and its plain counterpart.
+
+The kernel spreads the live tokens [t_lo, len) of one (sequence, kv head)
+over `nsplit` blocks.  The wrapper picks `nsplit` here from the shapes and
+the card's SM count only (`num_splits`), so it never reads context_lens on
+the host; each block derives its own range on the device exactly as
+`split_bounds` does:
+
+    chunk = ceil((len - t_lo) / nsplit) rounded up to DECODE_SPAN
+    split s covers [t_lo + s * chunk, min(len, t_lo + (s + 1) * chunk))
+
+so every range starts at t_lo plus a multiple of DECODE_SPAN and no span
+of the int8 dot-product mode straddles two.  Each block leaves (m, l, acc)
+of its range; `split_merge` is the plain version of the partition and the
+merge, in split order, over any per-range partial sums.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Callable, Dict, Optional
+
+import torch
+
+from ..config import DEFAULT_MASK_VALUE
+from .reference import _expand_kv, _gather_pages
+
+# the int8 dot-product decode quantizes p per row over spans of this many
+# consecutive tokens counted from the first visible token (the kernel's
+# half-warp step, TPW)
+DECODE_SPAN = 4
+# blocks of the kernel resident on one SM at a time (its launch bounds'
+# MIN_BLOCKS: registers and shared memory allow 3 in every pool mode)
+BLOCKS_PER_SM = 3
+# fewest tokens of the table's capacity (or window) per split
+MIN_SPLIT_TOKENS = 256
+MAX_SPLITS = 64
+
+
+def num_splits(batch: int, hkv: int, capacity: int, window: int,
+               sm_count: int) -> int:
+    """Blocks per (sequence, kv head): as many as fit the card at once in
+    one wave (BLOCKS_PER_SM on each of `sm_count` SMs; a second, partial
+    wave would cost a whole block's time), at most one per
+    MIN_SPLIT_TOKENS tokens of the table's capacity (max_pages *
+    page_size, or the window when it is smaller), at most MAX_SPLITS.
+    Depends on the shapes only."""
+    span = min(window, capacity) if window > 0 else capacity
+    pairs = max(1, batch * hkv)
+    fit = BLOCKS_PER_SM * sm_count // pairs
+    most = -(-max(1, span) // MIN_SPLIT_TOKENS)
+    return max(1, min(fit, most, MAX_SPLITS))
+
+
+def split_bounds(context_lens: torch.Tensor, capacity: int, window: int,
+                 nsplit: int):
+    """(lo, hi) [B, nsplit] int64: split s of sequence b covers the tokens
+    lo <= pos < hi (empty where lo >= hi), as the kernel computes them."""
+    lens = context_lens.long().clamp(0, capacity)
+    t_lo = (lens - window).clamp_min(0) if window > 0 \
+        else torch.zeros_like(lens)
+    per = -(-(lens - t_lo) // nsplit)
+    chunk = -(-per // DECODE_SPAN) * DECODE_SPAN
+    s = torch.arange(nsplit, device=lens.device)
+    lo = t_lo[:, None] + s[None, :] * chunk[:, None]
+    hi = torch.minimum(lens[:, None], lo + chunk[:, None])
+    return lo, hi
+
+
+def split_merge(scores: torch.Tensor, valid: torch.Tensor, lo, hi,
+                partial: Callable):
+    """The kernel's split and merge in plain PyTorch.  scores, valid
+    [B, H, K] (f32 natural-log scores of every table position; which are
+    visible); lo, hi [B, nsplit] from `split_bounds`.  partial(p, keep)
+    gives (l [B, H], acc [B, H, D]) of the weights p [B, H, K] (exp of the
+    scores minus the range's max, 0 outside `keep`).  Each range's (m, l,
+    acc) merges in split order: out = sum c_s acc_s / sum c_s l_s with
+    c_s = exp(m_s - max m).  Returns (out f32 [B, H, D], lse [B, H])."""
+    pos = torch.arange(scores.shape[-1], device=scores.device)
+    ms, ls, accs = [], [], []
+    for s in range(lo.shape[1]):
+        keep = valid & (pos >= lo[:, s, None, None]) \
+            & (pos < hi[:, s, None, None])
+        m = torch.where(keep, scores, -torch.inf).amax(dim=-1)
+        m_safe = torch.where(torch.isinf(m), torch.zeros_like(m), m)
+        p = torch.where(keep, torch.exp(scores - m_safe[..., None]),
+                        torch.zeros_like(scores))
+        l, acc = partial(p, keep)
+        ms.append(m)
+        ls.append(l)
+        accs.append(acc)
+    return merge_partials(torch.stack(ms, -1), torch.stack(ls, -1),
+                          torch.stack(accs, -2))
+
+
+def merge_partials(m: torch.Tensor, l: torch.Tensor, acc: torch.Tensor):
+    """Merge per-split states m, l [..., nsplit] (m = -inf for an empty
+    split) and acc [..., nsplit, D] in split order.  Returns (out [..., D],
+    lse [...]): zeros and -0.7 * f32max where no split saw a token."""
+    big = m.amax(dim=-1, keepdim=True)
+    seen = ~torch.isinf(big)
+    c = torch.where(torch.isinf(m), torch.zeros_like(m),
+                    torch.exp(m - torch.where(seen, big, 0.0)))
+    total = (l * c).sum(-1)
+    out = (acc * c[..., None]).sum(-2)
+    safe = torch.where(total > 0, total, torch.ones_like(total))
+    out = torch.where(total[..., None] > 0, out / safe[..., None],
+                      torch.zeros_like(out))
+    lse = torch.where(total > 0, big[..., 0] + torch.log(safe),
+                      torch.full_like(total, DEFAULT_MASK_VALUE))
+    return out, lse
+
+
+_SM_COUNT: Dict[int, int] = {}
+_COUNTERS: Dict[int, torch.Tensor] = {}
+
+
+def sm_count(device: torch.device) -> int:
+    idx = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    if idx not in _SM_COUNT:
+        _SM_COUNT[idx] = torch.cuda.get_device_properties(
+            idx).multi_processor_count
+    return _SM_COUNT[idx]
+
+
+def launch_plan(batch: int, hq: int, hkv: int, capacity: int, window: int,
+                device: torch.device):
+    """The kernel's split count for these shapes (`num_splits`) and its
+    merge buffers: (nsplit, workspace, counters), the buffers None when
+    nsplit is 1.  The workspace [B, Hkv, nsplit, G, D + 2] f32 is a fresh
+    torch.empty; the counters [B * Hkv] int32 are zeroed once per device
+    and reused, since the last block of each (sequence, kv head) sets its
+    counter back to 0 (so calls that overlap on two streams must not share
+    a device)."""
+    nsplit = num_splits(batch, hkv, capacity, window, sm_count(device))
+    if nsplit == 1:
+        return nsplit, None, None
+    ws = torch.empty(batch * hq * nsplit * (128 + 2), dtype=torch.float32,
+                     device=device)
+    idx = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    cnt = _COUNTERS.get(idx)
+    if cnt is None or cnt.numel() < batch * hkv:
+        cnt = torch.zeros(max(batch * hkv, 256), dtype=torch.int32,
+                          device=device)
+        _COUNTERS[idx] = cnt
+    return nsplit, ws, cnt
+
+
+def paged_decode_split_plain(q, k_pages, v_pages, block_tables,
+                             context_lens, *, scale: Optional[float] = None,
+                             window: int = -1, nsplit: int,
+                             return_lse: bool = False):
+    """The plain decode over head-major pools [Hkv, P, page, D] (f32 or
+    dequantized), evaluated per split range and merged as the kernel
+    does (`split_merge`)."""
+    hq = q.shape[1]
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    window = window if window and window > 0 else -1
+    kg = _expand_kv(_gather_pages(k_pages, block_tables).float(), hq)
+    vg = _expand_kv(_gather_pages(v_pages, block_tables).float(), hq)
+    scores = torch.einsum("bhd,bhkd->bhk", q.float(), kg) * scale
+    capacity = kg.shape[2]
+    pos = torch.arange(capacity, device=q.device)[None, None, :]
+    lens = context_lens.long().to(q.device)[:, None, None]
+    valid = pos < lens
+    if window > 0:
+        valid = valid & ((lens - 1 - pos) < window)
+    lo, hi = split_bounds(context_lens.to(q.device), capacity, window,
+                          nsplit)
+    out, lse = split_merge(
+        scores, valid, lo, hi,
+        lambda p, keep: (p.sum(-1), torch.einsum("bhk,bhkd->bhd", p, vg)))
+    out = out.to(q.dtype)
+    return (out, lse) if return_lse else out

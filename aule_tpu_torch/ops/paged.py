@@ -32,7 +32,7 @@ from typing import Optional
 
 import torch
 
-from . import _build
+from . import _build, decode_split
 from .paged_fused import check_kernel_inputs
 from .quant import QUANT_DTYPES, dequantize_kv, quantize_kv
 from .reference import paged_attention_reference
@@ -143,14 +143,21 @@ def paged_attention_plain(q, k_pages, v_pages, block_tables, context_lens,
                           *, k_scales: Optional[torch.Tensor] = None,
                           v_scales: Optional[torch.Tensor] = None,
                           scale: Optional[float] = None,
-                          window_size: int = -1, return_lse: bool = False):
+                          window_size: int = -1, return_lse: bool = False,
+                          nsplit: int = 1):
     """The plain PyTorch version of the kernel: the pools dequantized
     (payload times its token's f32 scale, which equals the kernel's folding
     of the scales into s and p up to f32 rounding) when scales are given,
-    then the f32 paged oracle (ops/reference.py)."""
+    then the f32 paged oracle (ops/reference.py); with nsplit > 1, over the
+    kernel's split ranges one by one, merged as it does
+    (ops/decode_split.py)."""
     if k_scales is not None:
         k_pages = dequantize_kv(k_pages, k_scales)
         v_pages = dequantize_kv(v_pages, v_scales)
+    if nsplit > 1:
+        return decode_split.paged_decode_split_plain(
+            q, k_pages, v_pages, block_tables, context_lens, scale=scale,
+            window=window_size, nsplit=nsplit, return_lse=return_lse)
     return paged_attention_reference(
         q, k_pages, v_pages, block_tables, context_lens, scale=scale,
         window_size=window_size, return_lse=return_lse)
@@ -226,6 +233,9 @@ def paged_attention(
                                         v_scales), "split paged-decode")
     lib = _build.library()
     dev = q.device
+    max_pages = block_tables.shape[1]
+    nsplit, ws, cnt = decode_split.launch_plan(
+        batch, hq, hkv, max_pages * page_size, window, dev)
     q = q.contiguous()
     bt = block_tables.to(device=dev, dtype=torch.int32).contiguous()
     lens = context_lens.to(device=dev, dtype=torch.int32).contiguous()
@@ -239,8 +249,10 @@ def paged_attention(
         None if k_scales is None else k_scales.data_ptr(),
         None if v_scales is None else v_scales.data_ptr(),
         bt.data_ptr(), lens.data_ptr(), out.data_ptr(),
-        None if lse is None else lse.data_ptr(), batch, hq, hkv, num_pages,
-        page_size, bt.shape[1], float(scale), window, code, pool,
+        None if lse is None else lse.data_ptr(),
+        None if ws is None else ws.data_ptr(),
+        None if cnt is None else cnt.data_ptr(), batch, hq, hkv, num_pages,
+        page_size, max_pages, float(scale), window, nsplit, code, pool,
         _build.stream_handle(dev))
     _build.check(err, "aule_paged_decode_split")
     paged_attention.launches += 1

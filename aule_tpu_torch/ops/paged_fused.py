@@ -33,7 +33,8 @@ import torch
 import torch.nn.functional as F
 
 from ..config import DEFAULT_MASK_VALUE, int8_exact
-from . import _build
+from . import _build, decode_split
+from .decode_split import DECODE_SPAN
 from .quant import QUANT_DTYPES, dequantize_kv, quantize_kv
 from .reference import (_expand_kv, _gather_pages,
                         paged_attention_reference)
@@ -45,10 +46,6 @@ KERNEL_GROUPS = (1, 2, 4, 8)
 # half the scale-tile lanes hold K scales (lane = h), half V (lane = 64+h)
 SCALE_KV_STRIDE = NUM_LANES // 2
 SCALE_DTYPE = torch.bfloat16
-
-# the int8 dot-product decode quantizes p per row over spans of this many
-# consecutive tokens (csrc/paged_decode.cu's TPW, one half-warp step)
-DECODE_SPAN = 4
 
 
 def pad_head_dim(d: int) -> int:
@@ -234,13 +231,17 @@ def dequantize_pool(kv_pages: torch.Tensor, kv_scales: torch.Tensor,
 
 
 def _int8_dot_plain(q, kv_pages, kv_scales, block_tables, context_lens,
-                    scale, window, return_lse):
+                    scale, window, return_lse, nsplit=1):
     """The int8 dot-product decode in plain PyTorch, with the kernel's
     arithmetic: q quantized per row; s = (q_i8 . k_i8) * qf * k scale,
     an exact integer sum (|sum| < 2^24, so exact in f32 too); p * v scale
     quantized per row to int8 over spans of DECODE_SPAN tokens counted from
     the first visible token (the JAX kernel's span is ppcb * page tokens);
-    each span's integer PV sum times its max / 127."""
+    each code times its span's max / 127 weighs its V row (the kernel
+    rounds that weight to f16 for its tensor-core product, 2^-11 relative;
+    here it stays f32).  With nsplit > 1, per split range and merged as the
+    kernel does (ops/decode_split.py): the ranges start on span
+    boundaries, so the spans are the same."""
     batch, hq, d_true = q.shape
     hkv = kv_pages.shape[2]
     q_i8, qscale = quantize_kv(_pad_last(q, kv_pages.shape[-1]), torch.int8)
@@ -262,21 +263,33 @@ def _int8_dot_plain(q, kv_pages, kv_scales, block_tables, context_lens,
     if window > 0:
         valid = valid & ((lens - 1 - pos) < window)
         t_lo = (lens - window).clamp_min(0)
+
+    def span_pv(p):
+        p3 = p * vf
+        span = ((pos - t_lo).clamp_min(0) // DECODE_SPAN).expand_as(p3)
+        n_spans = seq_k // DECODE_SPAN + 2
+        pm = torch.zeros(p3.shape[:-1] + (n_spans,), dtype=p3.dtype,
+                         device=p3.device).scatter_reduce(
+                             -1, span, p3, reduce="amax")
+        pm_tok = pm.gather(-1, span)
+        r = torch.where(pm_tok > 0.0, 127.0 / pm_tok,
+                        torch.zeros_like(pm_tok))
+        p_i8 = torch.floor(p3 * r + 0.5)
+        w = p_i8 * (pm_tok * (1.0 / 127.0))
+        return torch.einsum("bhk,bhkd->bhd", w, v_i8)
+
+    if nsplit > 1:
+        lo, hi = decode_split.split_bounds(context_lens.to(q.device), seq_k,
+                                           window, nsplit)
+        out, lse = decode_split.split_merge(
+            s, valid, lo, hi, lambda p, keep: (p.sum(-1), span_pv(p)))
+        out = out[..., :d_true].to(q.dtype)
+        return (out, lse) if return_lse else out
     s = torch.where(valid, s, torch.full_like(s, DEFAULT_MASK_VALUE))
     m = s.amax(dim=-1, keepdim=True)
     p = torch.where(valid, torch.exp(s - m), torch.zeros_like(s))
     l = p.sum(dim=-1, keepdim=True)
-    p3 = p * vf
-    span = ((pos - t_lo).clamp_min(0) // DECODE_SPAN).expand_as(p3)
-    n_spans = seq_k // DECODE_SPAN + 2
-    pm = torch.zeros(p3.shape[:-1] + (n_spans,), dtype=p3.dtype,
-                     device=p3.device).scatter_reduce(
-                         -1, span, p3, reduce="amax")
-    pm_tok = pm.gather(-1, span)
-    r = torch.where(pm_tok > 0.0, 127.0 / pm_tok, torch.zeros_like(pm_tok))
-    p_i8 = torch.floor(p3 * r + 0.5)
-    w = p_i8 * (pm_tok * (1.0 / 127.0))
-    pv = torch.einsum("bhk,bhkd->bhd", w, v_i8)
+    pv = span_pv(p)
     l_safe = torch.where(l == 0.0, torch.ones_like(l), l)
     out = torch.where(l > 0.0, pv / l_safe, torch.zeros_like(pv))
     out = out[..., :d_true].to(q.dtype)
@@ -292,13 +305,14 @@ def paged_attention_fused_plain(q, kv_pages, block_tables, context_lens, *,
                                 scale: Optional[float] = None,
                                 window_size: int = -1,
                                 int8_matmul: Optional[bool] = None,
-                                return_lse: bool = False):
+                                return_lse: bool = False, nsplit: int = 1):
     """The plain PyTorch version of the kernel.  16-bit and f32 pools,
     int8 pools with int8_matmul=False and e4m3 pools: gather the pages
     (dequantized: payload times scale, which equals the kernel's folding
     of the scales into s and p up to f32 rounding) and run the f32 paged
     oracle.  int8 pools with int8_matmul (default: as the wrapper's):
-    `_int8_dot_plain`."""
+    `_int8_dot_plain`.  nsplit > 1 evaluates the kernel's split ranges
+    one by one and merges them as it does (ops/decode_split.py)."""
     d_true = q.shape[-1]
     if scale is None:
         scale = 1.0 / math.sqrt(d_true)
@@ -308,11 +322,16 @@ def paged_attention_fused_plain(q, kv_pages, block_tables, context_lens, *,
     if kv_scales is not None and kv_pages.dtype == torch.int8 \
             and int8_matmul:
         return _int8_dot_plain(q, kv_pages, kv_scales, block_tables,
-                               context_lens, scale, window, return_lse)
+                               context_lens, scale, window, return_lse,
+                               nsplit)
     if kv_scales is not None:
         k_pages, v_pages = dequantize_pool(kv_pages, kv_scales, d_true)
     else:
         k_pages, v_pages = from_fused_layout(kv_pages, d_true)
+    if nsplit > 1:
+        return decode_split.paged_decode_split_plain(
+            q, k_pages, v_pages, block_tables, context_lens, scale=scale,
+            window=window, nsplit=nsplit, return_lse=return_lse)
     return paged_attention_reference(
         q, k_pages, v_pages, block_tables, context_lens, scale=scale,
         window_size=window, return_lse=return_lse)
@@ -413,6 +432,9 @@ def paged_attention_fused(
     code = check_kernel_inputs(q, hkv, (kv_pages, kv_scales), "paged-decode")
     lib = _build.library()
     dev = q.device
+    max_pages = block_tables.shape[1]
+    nsplit, ws, cnt = decode_split.launch_plan(
+        batch, hq, hkv, max_pages * page_size, window, dev)
     q = q.contiguous()
     bt = block_tables.to(device=dev, dtype=torch.int32).contiguous()
     lens = context_lens.to(device=dev, dtype=torch.int32).contiguous()
@@ -435,8 +457,10 @@ def paged_attention_fused(
         kv_scales.data_ptr() if kv_scales is not None else None,
         bt.data_ptr(), lens.data_ptr(), out.data_ptr(),
         lse.data_ptr() if lse is not None else None,
-        batch, hq, hkv, page_size, bt.shape[1], float(scale), window, code,
-        pool, sc_f32, _build.stream_handle(dev))
+        ws.data_ptr() if ws is not None else None,
+        cnt.data_ptr() if cnt is not None else None,
+        batch, hq, hkv, page_size, max_pages, float(scale), window, nsplit,
+        code, pool, sc_f32, _build.stream_handle(dev))
     _build.check(err, "aule_paged_decode")
     paged_attention_fused.launches += 1
     return (out, lse) if return_lse else out

@@ -123,7 +123,8 @@ def device_breakdown(fn: Callable[[], object],
     read the card's timeline: the wall time under the profiler, the device
     busy time (union of kernel intervals), and kernel time summed by
     category (the first category with a substring of the lower-cased
-    kernel name; the rest is "other").  All times in ms."""
+    kernel name; the rest is "other") and the kernels counted in each.
+    All times in ms."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -142,6 +143,7 @@ def device_breakdown(fn: Callable[[], object],
     busy_us, end = 0.0, float("-inf")
     by_cat = {name: 0.0 for name in categories}
     by_cat["other"] = 0.0
+    n_cat = dict.fromkeys(by_cat, 0)
     by_kernel: Dict[str, float] = {}
     for start, stop, name in spans:
         busy_us += max(0.0, stop - max(start, end))
@@ -150,7 +152,9 @@ def device_breakdown(fn: Callable[[], object],
         cat = next((c for c, keys in categories.items()
                     if any(k in low for k in keys)), "other")
         by_cat[cat] += (stop - start) / 1e3
+        n_cat[cat] += 1
         by_kernel[name] = by_kernel.get(name, 0.0) + (stop - start) / 1e3
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
     return {"wall_ms": wall_ms, "busy_ms": busy_us / 1e3,
-            "kernels": len(spans), "by_category_ms": by_cat, "top": top}
+            "kernels": len(spans), "by_category_ms": by_cat,
+            "kernels_by_category": n_cat, "top": top}

@@ -14,8 +14,13 @@ Phases, each printing a line of its own:
      and at its tiles' edges: ragged prompts, groups 1, 2 and 8, f16,
      windows with Sq != Sk; and the mma.sync one the wrapper runs for
      prompts of at most SHORT_SQ tokens, with both kernels' device times
-     at short prompts); paged decode over bf16, int8
-     (dot-product and exact paths) and fp8 pools; paged prefill (the
+     at short prompts); paged decode (split-KV, the splits merged in the
+     same launch) over bf16, int8 (dot-product and exact paths) and fp8
+     pools, also at the split cases (B1 ctx4096, lengths 1 and 17 of 4352,
+     lengths on split boundaries, a window starting deep in the table,
+     64-token pages), every call twice with the same bits, timed by
+     profiler device time at B8 ctx4096, B8 ctx1024 and B1 ctx4096 beside
+     SDPA's; paged prefill (the
      warp-specialised wgmma kernel) over bf16, f16, int8 and fp8 pools (a
      512-token chunk at q_offset 3488 over 4000 cached tokens, with and
      without a 256 window; a ragged batch of 4 whose padding rows must be
@@ -24,8 +29,9 @@ Phases, each printing a line of its own:
      paged kernels at GQA groups 1, 2 and 8 and with f16 q; the decode
      over split head-major pools (bf16, f16, int8 and fp8 with f32
      scales; ragged lengths with 0 and 1, shuffled pages, -1 tails,
-     trailing windows, groups 1, 2, 4 and 8), which must also give the
-     fused kernel's bits on the same pools.  Each with its time at the
+     trailing windows, groups 1, 2, 4 and 8, and the split cases), which
+     must also give the fused kernel's bits on the same pools.  Each with
+     its time at the
      engine's shapes (median of 20 CUDA-event timed runs), its bound, the
      plain version's time and a library yardstick's time
      (F.scaled_dot_product_attention on the gathered, dequantized K/V;
@@ -373,23 +379,32 @@ def check_flash(gen):
     return worst, timings
 
 
-def device_ms(fn, calls=20):
+def device_ms(fn, calls=20, key=None):
     """The card's own time per call of `fn` (torch.profiler, the union of
     the kernels of `calls` calls, after one warm-up call): unlike a CUDA
-    event pair it holds none of the host's dispatch.  A reading in which
-    the profiler lost kernels (fewer than `calls` times those it saw in
-    one profiled call; it does so after many profiled sessions in one
-    process) is taken again, up to three times; None if none was whole
-    (not measured)."""
+    event pair it holds none of the host's dispatch.  With `key`, only the
+    kernels whose lower-cased name holds it (a wrapper's kernel, not the
+    PyTorch work around it).  A reading in which the profiler lost kernels
+    (fewer than `calls` times those it saw in one profiled call; it does so
+    after many profiled sessions in one process; with `key`, of that
+    kernel alone) is taken again, up to three times; None if none was
+    whole (not measured)."""
     from aule_tpu_torch.utils import profiling
 
+    cats = {} if key is None else {"k": [key]}
+    part = "other" if key is None else "k"
+
+    def count(bd):
+        return bd["kernels_by_category"][part]
+
     fn()
-    per_call = profiling.device_breakdown(fn, {})["kernels"]
+    per_call = count(profiling.device_breakdown(fn, cats))
     for _ in range(3):
         bd = profiling.device_breakdown(lambda: [fn() for _ in range(calls)],
-                                        {})
-        if per_call > 0 and bd["kernels"] == calls * per_call:
-            return bd["busy_ms"] / calls
+                                        cats)
+        if per_call > 0 and count(bd) == calls * per_call:
+            return (bd["busy_ms"] if key is None
+                    else bd["by_category_ms"]["k"]) / calls
     return None
 
 
@@ -637,11 +652,75 @@ def _tol(dtype, int8_dot=False):
     return ROW_TOL[dtype] + (INT8_DOT_EXTRA if int8_dot else 0.0)
 
 
+# The decode's timed shapes: (label, B, context).  B8 ctx4096 is bench.py's
+# headline decode row, B8 ctx1024 the engine's decode context, B1 ctx4096
+# the shape where a single sequence must fill the card by its splits.
+DECODE_SHAPES = (("B8 ctx4096", 8, 4096), ("B8 ctx1024", 8, 1024),
+                 ("B1 ctx4096", 1, 4096))
+# Cases that pin the decode's split-KV partition (ops/decode_split.py): at
+# B8 x Hkv8 over a 4352-token table the kernel cuts each sequence's live
+# tokens into 9 ranges of ceil(n / 9) tokens rounded up to 4.  They draw
+# from generators of their own, so the inputs of every later check are
+# those they had without them.
+DECODE_SPLIT_CASES = [  # (label, lens, max_pages, page, shuffle, window)
+    ("B1 ctx4096 (17 splits)", [4096], 272, 16, False, -1),
+    ("lengths 1 and 17 over 4352 (most splits empty)", [1, 17], 272, 16,
+     True, -1),
+    ("lengths on split boundaries (9 x 4k) and past them",
+     [4068, 36, 3600, 9, 33, 4096, 2304, 4095], 272, 16, True, -1),
+    ("trailing window 3001, t_lo 1095 past the table's front",
+     [4096, 3001, 3002, 1, 0, 4000, 2048, 3100], 272, 16, True, 3001),
+    ("page 64", [4096, 1000, 1, 0, 63, 64, 65, 4095], 68, 64, True, -1),
+]
+
+
+def _decode_nsplit(batch, max_pages, page, window):
+    from aule_tpu_torch.ops import decode_split
+
+    return decode_split.num_splits(batch, 8, max_pages * page, window,
+                                   decode_split.sm_count(torch.device(DEV)))
+
+
+def _twice(what, fn):
+    """Run a kernel call twice; the two must give the same bits."""
+    a, b = fn(), fn()
+    if not all(torch.equal(x, y) for x, y in zip(a, b)):
+        raise AssertionError(f"{what}: two runs differ")
+    return a
+
+
+def _decode_time(what, kernel, plain, sdpa, key, kv_bytes, batch, ctx):
+    """Times of one decode call at B x ctx (Hq32/Hkv8 D128): CUDA-event
+    medians of the kernel, its plain version and SDPA on the gathered K/V,
+    and the device time per call of the kernel (torch.profiler, its own
+    kernel only) and of SDPA, beside the bound (q, out, tables, lengths
+    and the live K/V read once; 4 B ctx Hq D operations)."""
+    from aule_tpu_torch.utils import profiling
+
+    flops = 4.0 * batch * 32 * ctx * 128
+    nbytes = kv_bytes + 2 * batch * 32 * 128 * 2 + batch * 272 * 4 + 4 * batch
+    bound, by = profiling.bound_ms(nbytes, flops)
+    ms = profiling.cuda_time_ms(kernel, iters=20)
+    pl = profiling.cuda_time_ms(plain, iters=20)
+    lib = profiling.cuda_time_ms(sdpa, iters=20)
+    dev, dev_lib = device_ms(kernel, key=key), device_ms(sdpa)
+    rate = ("" if dev is None else f"{kv_bytes / dev / 1e6:.1f} GB/s of "
+            f"live KV, {bound / dev:.3f} of the bound; ")
+    log(f"{what}: kernel device {_ms(dev)} (events {ms[0]:.4f} ms, min "
+        f"{ms[1]:.4f} max {ms[2]:.4f}), {rate}plain "
+        f"{pl[0]:.4f} ms; sdpa on the gathered K/V device {_ms(dev_lib)} "
+        f"(events {lib[0]:.4f} ms); bound {bound:.4f} ms ({by}; "
+        f"{nbytes / 1e6:.1f} MB)")
+    return dict(ms=ms[0], plain_ms=pl[0], library_ms=lib[0], bound_ms=bound,
+                bound_by=by, device_ms=dev, library_device_ms=dev_lib)
+
+
 def check_decode(gen):
     """The paged-decode kernel over bf16, int8 (dot-product and exact
-    paths) and fp8 pools on four cases, each against its plain version;
-    times of the bf16, int8 (dot products) and fp8 modes at B8 ctx4096.
-    Returns the worst errors per mode and the times."""
+    paths) and fp8 pools on four cases and on the split-KV cases, each
+    against its plain version and twice with the same bits; times of the
+    four modes at DECODE_SHAPES.  Returns the worst errors per mode and the
+    times (the B8 ctx4096 ones at the top level of each mode's dict)."""
     from aule_tpu_torch.ops.paged_fused import (dequantize_pool,
                                                 paged_attention_fused,
                                                 paged_attention_fused_plain)
@@ -661,53 +740,64 @@ def check_decode(gen):
          True, 1001),
     ]
     worst = {}
-    for label, lens, shuffle, window in cases:
-        q, pool, bt, ln = _decode_inputs(gen, lens, 272, shuffle=shuffle)
+    split_gen = torch.Generator(device="cuda")
+    split_gen.manual_seed(SEED + 8)
+    all_cases = ([(label, lens, 272, 16, shuffle, window, gen)
+                  for label, lens, shuffle, window in cases]
+                 + [c + (split_gen,) for c in DECODE_SPLIT_CASES])
+    for label, lens, max_pages, page, shuffle, window, g in all_cases:
+        q, pool, bt, ln = _decode_inputs(g, lens, max_pages, page=page,
+                                         shuffle=shuffle)
+        nsplit = _decode_nsplit(len(lens), max_pages, page, window)
         for mode, dt, dot in modes:
             pl, sc = (pool, None) if dt is None else quantize_pool(pool, dt)
             kw = dict(kv_scales=sc, window_size=window, int8_matmul=dot,
                       return_lse=True)
-            o, lse = paged_attention_fused(q, pl, bt, ln, **kw)
+            o, lse = _twice(f"paged decode {mode} {label}",
+                            lambda: paged_attention_fused(q, pl, bt, ln,
+                                                          **kw))
             po, plse = paged_attention_fused_plain(q, pl, bt, ln, **kw)
-            hold(f"paged decode {mode} {label}", o, po, lse, plse,
-                 _tol(q.dtype, bool(dot)), worst, mode)
+            hold(f"paged decode {mode} {label} ({nsplit} splits)", o, po,
+                 lse, plse, _tol(q.dtype, bool(dot)), worst, mode)
 
-    lens = [4096] * 8
-    q, pool, bt, ln = _decode_inputs(gen, lens, 272)
-    flops = 4.0 * 8 * 32 * 4096 * 128
     timings = {}
-    for name, dt in (("bf16", None), ("int8 dot", torch.int8),
-                     ("fp8", torch.float8_e4m3fn)):
-        if dt is None:
-            pl, sc = pool, None
-            kh, vh = pool[1:, 0].transpose(0, 1), pool[1:, 1].transpose(0, 1)
-            kv_bytes = profiling.paged_kv_bytes(sum(lens), 8, 128, 2)
-        else:
-            pl, sc = quantize_pool(pool, dt)
-            kh, vh = dequantize_pool(pl[1:], sc[1:])
-            kv_bytes = profiling.paged_kv_bytes(sum(lens), 8, 128, 1,
-                                                scale_bytes=2)
-        # the dense yardstick: the same K/V gathered (dequantized) to bf16
-        # [Hkv, P, page, D] -> [B, Hq, 4096, D], GQA expanded, one SDPA
-        kd, vd = (x.reshape(8, 8, 4096, 128).transpose(0, 1).to(
-            torch.bfloat16).repeat_interleave(4, dim=1) for x in (kh, vh))
-        ms = profiling.cuda_time_ms(lambda: paged_attention_fused(
-            q, pl, bt, ln, kv_scales=sc), iters=20)
-        plain = profiling.cuda_time_ms(lambda: paged_attention_fused_plain(
-            q, pl, bt, ln, kv_scales=sc), iters=20)
-        lib = profiling.cuda_time_ms(lambda: F.scaled_dot_product_attention(
-            q[:, :, None], kd, vd), iters=20)
-        nbytes = kv_bytes + 2 * q.numel() * 2 + 8 * 272 * 4 + 8 * 4
-        bound, by = profiling.bound_ms(nbytes, flops)
-        timings[name] = dict(ms=ms[0], plain_ms=plain[0], library_ms=lib[0],
-                             bound_ms=bound, bound_by=by)
-        log(f"paged decode time {name} B8 ctx4096 page16 Hq32/Hkv8"
-            f"{'' if dt is None else ' (bf16 scales)'}: kernel {ms[0]:.4f} "
-            f"ms (min {ms[1]:.4f} max {ms[2]:.4f}), "
-            f"{kv_bytes / ms[0] / 1e6:.1f} GB/s of live KV; plain "
-            f"{plain[0]:.4f} ms; sdpa on the gathered K/V {lib[0]:.4f} ms; "
-            f"bound {bound:.4f} ms ({by})")
-        del kd, vd, kh, vh
+    time_gen = torch.Generator(device="cuda")
+    time_gen.manual_seed(SEED + 9)
+    for shape, batch, ctx in DECODE_SHAPES:
+        lens = [ctx] * batch
+        # B8 ctx4096 draws from the shared generator, as it always has
+        q, pool, bt, ln = _decode_inputs(
+            gen if shape == "B8 ctx4096" else time_gen, lens, 272)
+        nsplit = _decode_nsplit(batch, 272, 16, -1)
+        for name, dt, dot in modes:
+            if dt is None:
+                pl, sc = pool, None
+                kh, vh = (pool[1:, i].transpose(0, 1) for i in (0, 1))
+                kv_bytes = profiling.paged_kv_bytes(sum(lens), 8, 128, 2)
+            else:
+                pl, sc = quantize_pool(pool, dt)
+                kh, vh = dequantize_pool(pl[1:], sc[1:])
+                kv_bytes = profiling.paged_kv_bytes(sum(lens), 8, 128, 1,
+                                                    scale_bytes=2)
+            # the dense yardstick: the same K/V gathered (dequantized) to
+            # bf16 [Hkv, P, page, D] -> [B, Hq, ctx, D], GQA expanded, one
+            # SDPA
+            kd, vd = (x.reshape(8, batch, ctx, 128).transpose(0, 1).to(
+                torch.bfloat16).repeat_interleave(4, dim=1) for x in (kh, vh))
+            kw = dict(kv_scales=sc, int8_matmul=dot)
+            t = _decode_time(
+                f"paged decode time {name} {shape} page16 Hq32/Hkv8 "
+                f"({nsplit} splits{'' if dt is None else ', bf16 scales'})",
+                lambda: paged_attention_fused(q, pl, bt, ln, **kw),
+                lambda: paged_attention_fused_plain(q, pl, bt, ln, **kw),
+                lambda: F.scaled_dot_product_attention(q[:, :, None], kd,
+                                                       vd),
+                "paged_decode_kernel", kv_bytes, batch, ctx)
+            t["nsplit"] = nsplit
+            if shape == "B8 ctx4096":
+                timings[name] = dict(t, shapes={})
+            timings[name]["shapes"][shape] = t
+            del kd, vd, kh, vh
     paged_attention_fused.launches = 0
     return worst, timings
 
@@ -737,41 +827,50 @@ SPLIT_MODES = [  # (mode, q and pool dtype, payload dtype or None)
 def check_decode_split(gen):
     """The split-pool paged decode (csrc/paged_decode.cu, SplitPools)
     against its plain version over bf16, f16, int8 and fp8 pools (f32
-    scales) on the decode phase's four cases and at GQA groups 1, 2, 4
-    and 8; it shares the fused kernel's loop, so on the same pools in the
-    fused layout (f32 packed scales; the exact int8 path) the two give the
-    same bits.  Times of the bf16, int8 and fp8 modes at B8 ctx4096 beside
+    scales) on the decode phase's four cases, its split-KV cases and at
+    GQA groups 1, 2, 4 and 8, twice with the same bits; it shares the fused
+    kernel's partition and arithmetic, so on the same pools in the fused
+    layout (f32 packed scales; the exact int8 path) the two give the same
+    bits.  Times of the bf16, int8 and fp8 modes at DECODE_SHAPES beside
     the bound, the plain version, SDPA on the gathered K/V and the fused
     kernel on the same pools.  Returns the worst errors per mode and the
-    times."""
+    times (the B8 ctx4096 ones at the top level of each mode's dict)."""
     from aule_tpu_torch.ops.paged import paged_attention, paged_attention_plain
     from aule_tpu_torch.ops.paged_fused import paged_attention_fused
     from aule_tpu_torch.ops.quant import dequantize_kv
     from aule_tpu_torch.utils import profiling
 
-    cases = [  # (label, lens, max_pages, shuffle, window, hq)
-        ("B8 ctx4096 contiguous", [4096] * 8, 272, False, -1, 32),
+    cases = [  # (label, lens, max_pages, page, shuffle, window, hq)
+        ("B8 ctx4096 contiguous", [4096] * 8, 272, 16, False, -1, 32),
         ("mixed 0/1/17/4096 with -1 entries",
-         [0, 1, 17, 4096, 4095, 100, 2000, 3000], 272, False, -1, 32),
+         [0, 1, 17, 4096, 4095, 100, 2000, 3000], 272, 16, False, -1, 32),
         ("shuffled page ids", [4096, 1, 17, 333, 4096, 2048, 64, 3001], 272,
-         True, -1, 32),
+         16, True, -1, 32),
         ("trailing window 1001", [0, 1, 17, 4096, 4095, 100, 2000, 3000],
-         272, True, 1001, 32)] + [
+         272, 16, True, 1001, 32)] + [
         (f"group {hq // 8}, shuffled, window 64", [0, 1, 17, 600, 333], 48,
-         True, 64, hq) for hq in (8, 16, 64)]
+         16, True, 64, hq) for hq in (8, 16, 64)]
+    split_gen = torch.Generator(device="cuda")
+    split_gen.manual_seed(SEED + 10)
+    all_cases = ([c + (gen,) for c in cases]
+                 + [(label, lens, max_pages, page, shuffle, window, 32,
+                     split_gen) for label, lens, max_pages, page, shuffle,
+                    window in DECODE_SPLIT_CASES])
     worst = {}
-    for label, lens, max_pages, shuffle, window, hq in cases:
+    for label, lens, max_pages, page, shuffle, window, hq, g in all_cases:
+        nsplit = _decode_nsplit(len(lens), max_pages, page, window)
         for mode, dt, qdt in SPLIT_MODES:
-            q, pool, bt, ln = _decode_inputs(gen, lens, max_pages,
+            q, pool, bt, ln = _decode_inputs(g, lens, max_pages, page=page,
                                              shuffle=shuffle, hq=hq,
                                              dtype=dt)
             (k, v, ks, vs), (fpool, fsc) = _split_pools(pool, qdt)
             kw = dict(k_scales=ks, v_scales=vs, window_size=window,
                       return_lse=True)
-            o, lse = paged_attention(q, k, v, bt, ln, **kw)
+            o, lse = _twice(f"split decode {mode} {label}",
+                            lambda: paged_attention(q, k, v, bt, ln, **kw))
             po, plse = paged_attention_plain(q, k, v, bt, ln, **kw)
-            hold(f"split decode {mode} {label}", o, po, lse, plse,
-                 ROW_TOL[dt], worst, mode)
+            hold(f"split decode {mode} {label} ({nsplit} splits)", o, po,
+                 lse, plse, ROW_TOL[dt], worst, mode)
             fo, flse = paged_attention_fused(
                 q, fpool, bt, ln, kv_scales=fsc, window_size=window,
                 int8_matmul=False, return_lse=True)
@@ -780,48 +879,55 @@ def check_decode_split(gen):
                                      f"fused kernel's bits on the same pools")
             del q, pool, k, v, ks, vs, fpool, fsc, o, lse, po, plse, fo, flse
     log("split decode: every case gives the fused kernel's bits on the same "
-        "pools")
+        "pools, and the same bits twice")
 
-    lens = [4096] * 8
-    q, pool, bt, ln = _decode_inputs(gen, lens, 272)
-    flops = 4.0 * 8 * 32 * 4096 * 128
     timings = {}
-    for mode, _, qdt in SPLIT_MODES:
-        if mode == "f16":
-            continue
-        (k, v, ks, vs), (fpool, fsc) = _split_pools(pool, qdt)
-        kv_bytes = (profiling.paged_kv_bytes(sum(lens), 8, 128, 2)
-                    if qdt is None else
-                    profiling.paged_kv_bytes(sum(lens), 8, 128, 1,
-                                             scale_bytes=4))
-        kh, vh = ((k, v) if qdt is None
-                  else (dequantize_kv(k, ks), dequantize_kv(v, vs)))
-        # the dense yardstick: pages 1..2048 hold the 8 sequences in order;
-        # [Hkv, P, page, D] -> [B, Hq, 4096, D] bf16, GQA expanded
-        kd, vd = (x[:, 1:].reshape(8, 8, 4096, 128).transpose(0, 1).to(
-            torch.bfloat16).repeat_interleave(4, dim=1) for x in (kh, vh))
-        kw = dict(k_scales=ks, v_scales=vs)
-        ms = profiling.cuda_time_ms(lambda: paged_attention(
-            q, k, v, bt, ln, **kw), iters=20)
-        plain = profiling.cuda_time_ms(lambda: paged_attention_plain(
-            q, k, v, bt, ln, **kw), iters=20)
-        lib = profiling.cuda_time_ms(lambda: F.scaled_dot_product_attention(
-            q[:, :, None], kd, vd), iters=20)
-        fused = profiling.cuda_time_ms(lambda: paged_attention_fused(
-            q, fpool, bt, ln, kv_scales=fsc, int8_matmul=False), iters=20)
-        nbytes = kv_bytes + 2 * q.numel() * 2 + 8 * 272 * 4 + 8 * 4
-        bound, by = profiling.bound_ms(nbytes, flops)
-        timings[mode] = dict(ms=ms[0], plain_ms=plain[0], library_ms=lib[0],
-                             bound_ms=bound, bound_by=by,
-                             fused_kernel_same_pool_ms=fused[0])
-        log(f"split decode time {mode} B8 ctx4096 page16 Hq32/Hkv8"
-            f"{'' if qdt is None else ' (f32 scales)'}: kernel {ms[0]:.4f} "
-            f"ms (min {ms[1]:.4f} max {ms[2]:.4f}), "
-            f"{kv_bytes / ms[0] / 1e6:.1f} GB/s of live KV; plain "
-            f"{plain[0]:.4f} ms; sdpa on the gathered K/V {lib[0]:.4f} ms; "
-            f"fused kernel on the same pool {fused[0]:.4f} ms; bound "
-            f"{bound:.4f} ms ({by}; {nbytes / 1e6:.1f} MB)")
-        del k, v, ks, vs, fpool, fsc, kh, vh, kd, vd
+    time_gen = torch.Generator(device="cuda")
+    time_gen.manual_seed(SEED + 11)
+    for shape, batch, ctx in DECODE_SHAPES:
+        lens = [ctx] * batch
+        q, pool, bt, ln = _decode_inputs(
+            gen if shape == "B8 ctx4096" else time_gen, lens, 272)
+        nsplit = _decode_nsplit(batch, 272, 16, -1)
+        for mode, _, qdt in SPLIT_MODES:
+            if mode == "f16":
+                continue
+            (k, v, ks, vs), (fpool, fsc) = _split_pools(pool, qdt)
+            kv_bytes = (profiling.paged_kv_bytes(sum(lens), 8, 128, 2)
+                        if qdt is None else
+                        profiling.paged_kv_bytes(sum(lens), 8, 128, 1,
+                                                 scale_bytes=4))
+            kh, vh = ((k, v) if qdt is None
+                      else (dequantize_kv(k, ks), dequantize_kv(v, vs)))
+            # the dense yardstick: pages 1.. hold the sequences in order;
+            # [Hkv, P, page, D] -> [B, Hq, ctx, D] bf16, GQA expanded
+            kd, vd = (x[:, 1:].reshape(8, batch, ctx, 128).transpose(0, 1).to(
+                torch.bfloat16).repeat_interleave(4, dim=1) for x in (kh, vh))
+            kw = dict(k_scales=ks, v_scales=vs)
+            fused = lambda: paged_attention_fused(q, fpool, bt, ln,
+                                                  kv_scales=fsc,
+                                                  int8_matmul=False)
+            t = _decode_time(
+                f"split decode time {mode} {shape} page16 Hq32/Hkv8 "
+                f"({nsplit} splits{'' if qdt is None else ', f32 scales'})",
+                lambda: paged_attention(q, k, v, bt, ln, **kw),
+                lambda: paged_attention_plain(q, k, v, bt, ln, **kw),
+                lambda: F.scaled_dot_product_attention(q[:, :, None], kd,
+                                                       vd),
+                "splitpools", kv_bytes, batch, ctx)
+            t["nsplit"] = nsplit
+            t["fused_kernel_same_pool_ms"] = profiling.cuda_time_ms(
+                fused, iters=20)[0]
+            t["fused_kernel_same_pool_device_ms"] = device_ms(
+                fused, key="fusedpool")
+            log(f"split decode time {mode} {shape}: the fused kernel on the "
+                f"same pools device "
+                f"{_ms(t['fused_kernel_same_pool_device_ms'])} (events "
+                f"{t['fused_kernel_same_pool_ms']:.4f} ms)")
+            if shape == "B8 ctx4096":
+                timings[mode] = dict(t, shapes={})
+            timings[mode]["shapes"][shape] = t
+            del k, v, ks, vs, fpool, fsc, kh, vh, kd, vd
     paged_attention.launches = 0
     paged_attention_fused.launches = 0
     torch.cuda.empty_cache()
@@ -1556,10 +1662,28 @@ def main() -> None:
     decode_row = "aule_tpu/ops/paged_fused.py:213 (_fused_decode_kernel)"
     split_row = "aule_tpu/ops/paged.py:45 (_paged_decode_kernel)"
     split_shape = decode_shape = "B8 ctx4096 page16 Hq32/Hkv8 D128"
+    decode_design = ("split-KV: nsplit blocks per (sequence, kv head), "
+                     "each streaming its range through a cp.async ring in "
+                     "shared memory; the last block merges the partials in "
+                     "split order in the same launch")
+
+    def decode_extra(t, **more):
+        """Device times, splits and the other timed shapes of a decode
+        mode."""
+        return dict(design=decode_design, device_ms=t["device_ms"],
+                    library_device_ms=t["library_device_ms"],
+                    nsplit=t["nsplit"], time_by_shape={
+                        shape: {k: v for k, v in ts.items()
+                                if k not in ("plain_ms", "bound_by")}
+                        for shape, ts in t["shapes"].items()}, **more)
+
     split_extra = {  # the fused kernel on the same pools, and its bits
-        mode: {"fused_kernel_same_pool_ms":
-               split_t[mode]["fused_kernel_same_pool_ms"],
-               "same_bits_as_fused_kernel": True}
+        mode: decode_extra(
+            split_t[mode], same_bits_as_fused_kernel=True,
+            fused_kernel_same_pool_ms=split_t[mode][
+                "fused_kernel_same_pool_ms"],
+            fused_kernel_same_pool_device_ms=split_t[mode][
+                "fused_kernel_same_pool_device_ms"])
         for mode in ("bf16", "int8", "fp8")}
     prefill_src = "aule_tpu_torch/csrc/paged_prefill.cu"
     prefill_design = ("warp-specialised: a producer warpgroup gathers the "
@@ -1606,19 +1730,22 @@ def main() -> None:
             ("paged_decode", "paged_decode", ("whole bf16", "a"),
              decode_err["bf16"], decode_t["bf16"],
              decode_shape + " bf16 (f16 checked too)", decode_src,
-             decode_row, {}),
+             decode_row, decode_extra(decode_t["bf16"])),
             ("paged_decode_int8", "paged_decode", ("b",),
              decode_err["int8 dot"], decode_t["int8 dot"],
              decode_shape + " int8 dot-product path, bf16 scales",
              decode_src, decode_row + " int8 mode; "
              "scripts/probe_int8_mxu.py:16 (kern)",
-             # the int8 exact path (int8_matmul=False) is checked, not
-             # launched on the main path
-             {"int8_exact_errs": decode_err["int8 exact"]}),
+             # the int8 exact path (int8_matmul=False) is checked and
+             # timed, not launched on the main path
+             decode_extra(decode_t["int8 dot"],
+                          int8_exact_errs=decode_err["int8 exact"],
+                          int8_exact_device_ms=decode_t["int8 exact"][
+                              "device_ms"])),
             ("paged_decode_fp8", "paged_decode", ("c", "d"),
              decode_err["fp8"], decode_t["fp8"],
              decode_shape + " e4m3, bf16 scales", decode_src,
-             decode_row + " fp8 mode", {}),
+             decode_row + " fp8 mode", decode_extra(decode_t["fp8"])),
             ("paged_decode_split", "paged_decode_split", ("e",),
              split_err["bf16"], split_t["bf16"],
              split_shape + " split bf16 pools (f16 checked too)",

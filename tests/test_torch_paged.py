@@ -9,7 +9,8 @@ fold the scales: JAX into s and p, the plain version into the pool) and
 against the f32 oracle on the unquantized pools at JAX's own 2e-2 / 1.2e-1
 (tests/test_quant.py:38-62).  The four appends leave pools and scales
 bytewise equal to JAX's, the masked prefill tail included, and a pool that
-JAX built feeds the port unchanged.
+JAX built feeds the port unchanged.  The plain split-and-merge of the CUDA
+decode's split-KV partition holds to JAX at the same tolerances.
 """
 
 import jax.numpy as jnp
@@ -335,3 +336,46 @@ def test_bad_pools_raise():
         tpg.kv_cache_append_decode_quantized(
             pool, pool, sc, sc, torch.zeros(1, 2, 64), torch.zeros(1, 2, 64),
             bt, torch.zeros(1, dtype=torch.int32))
+
+
+_JAX_SPLIT = {}
+
+
+@pytest.mark.parametrize("nsplit", [1, 3, 8])
+@pytest.mark.parametrize("window", [-1, 21])
+@pytest.mark.parametrize("qname", [None, "int8", "fp8"])
+def test_split_merge_plain_against_jax(qname, window, nsplit):
+    """The plain split-and-merge of the CUDA decode's split-KV partition
+    (ops/decode_split.py: each range on its own, the (m, l, acc) merged in
+    split order), with contexts 0, 1 and 17 so that most of 8 splits are
+    empty, against JAX's paged_attention (interpret mode): f32 pools at
+    2e-5, int8 and fp8 pools with f32 scales at 1e-4; and against the
+    port's whole-range plain version at 1e-5 (f32 rounding of the
+    merge)."""
+    lens = (37, 0, 128, 250, 1, 17)
+    if qname is None:
+        q, k, v, bt, ln = _case(lens, 8, 2, 64, 41)
+        jpools = tuple(jnp.asarray(x) for x in (k, v)) + (None, None)
+        tpools = (_t(k), _t(v), None, None)
+        tol = 2e-5
+    else:
+        q, k, v, bt, ln, jpools, tpools = _quantized(qname, lens, seed=41)
+        tol = 1e-4
+    key = (qname, window)
+    if key not in _JAX_SPLIT:
+        _JAX_SPLIT[key] = jpg.paged_attention(
+            jnp.asarray(q), jpools[0], jpools[1], jnp.asarray(bt),
+            jnp.asarray(ln), k_scales=jpools[2], v_scales=jpools[3],
+            window_size=window, return_lse=True)
+    jo, jl = _JAX_SPLIT[key]
+    args = (_t(q), tpools[0], tpools[1], torch.from_numpy(bt),
+            torch.from_numpy(ln))
+    kw = dict(k_scales=tpools[2], v_scales=tpools[3], window_size=window,
+              return_lse=True)
+    to, tl = tpg.paged_attention_plain(*args, nsplit=nsplit, **kw)
+    assert_close(to, np.asarray(jo), 0, tol, f"{qname} out")
+    assert_close(tl, np.asarray(jl), 0, tol, f"{qname} lse")
+    assert (to[1] == 0).all()  # context 0
+    wo, wl = tpg.paged_attention_plain(*args, **kw)
+    assert_close(to, wo, 0, 1e-5, f"{qname} against one range")
+    assert_close(tl, wl, 0, 1e-5, f"{qname} lse against one range")

@@ -6,7 +6,9 @@ tensors (its plain version, the CUDA kernel's stand-in) matches aule_tpu's
 Pallas kernel in interpret mode at f32 2e-5 and bf16 2e-2, and on quantized
 pools at 2e-5 for the exact int8 and fp8 paths (f32 q) and 4e-2 for the
 int8 dot-product path (the JAX suite's own bound, tests/test_paged_fused.py:
-99; the two quantize p over different token spans).
+99; the two quantize p over different token spans).  The CUDA decode's
+split-KV partition (ops/decode_split.py) is pinned, and its plain
+split-and-merge is held to JAX at the same tolerances.
 """
 
 import jax.numpy as jnp
@@ -16,6 +18,7 @@ import torch
 
 from aule_tpu.ops import paged_fused as jpf
 from aule_tpu.ops import quant as jq
+from aule_tpu_torch.ops import decode_split as ds
 from aule_tpu_torch.ops import paged_fused as tpf
 from aule_tpu_torch.ops import quant as tq
 from aule_tpu_torch.utils.testing import assert_close
@@ -395,3 +398,97 @@ def test_quantized_pools_raise():
             ln, kv_scales=sc)
     with pytest.raises(ValueError):
         tq.quantize_kv(torch.zeros(2, 8), torch.float16)
+
+
+# -- the split-KV partition of the CUDA decode (ops/decode_split.py) -------
+
+@pytest.mark.parametrize("batch,hkv,window,want", [
+    (8, 8, -1, 6), (1, 8, -1, 17), (8, 8, 1001, 4), (64, 8, -1, 1),
+    (2, 2, 100, 1)])
+def test_num_splits_fills_one_wave(batch, hkv, window, want):
+    """As many blocks as fit 132 SMs at once (BLOCKS_PER_SM each), at most
+    one split per MIN_SPLIT_TOKENS of the 4352-token capacity or of the
+    window; from the shapes alone."""
+    n = ds.num_splits(batch, hkv, 4352, window, 132)
+    assert n == want
+    assert n == 1 or batch * hkv * n <= ds.BLOCKS_PER_SM * 132
+
+
+@pytest.mark.parametrize("nsplit", [1, 3, 8, 17])
+@pytest.mark.parametrize("window", [-1, 9, 1001])
+def test_split_bounds_cover_each_live_token_once(nsplit, window):
+    """Every live token lies in exactly one split's range, no range
+    crosses a DECODE_SPAN span counted from t_lo, and short sequences and
+    windows leave splits empty."""
+    cap = 4352
+    lens = torch.tensor([0, 1, 17, 36, 4068, 4096, 4352, 5000],
+                        dtype=torch.int32)
+    lo, hi = ds.split_bounds(lens, cap, window, nsplit)
+    assert lo.shape == hi.shape == (len(lens), nsplit)
+    for b, n in enumerate(lens.clamp(max=cap).tolist()):
+        t_lo = max(0, n - window) if window > 0 else 0
+        count = torch.zeros(cap + 8, dtype=torch.int64)
+        for s in range(nsplit):
+            a, z = int(lo[b, s]), int(hi[b, s])
+            if a >= z:
+                continue
+            count[a:z] += 1
+            assert (a - t_lo) % tpf.DECODE_SPAN == 0
+            assert z == n or (z - t_lo) % tpf.DECODE_SPAN == 0
+        assert (count[t_lo:n] == 1).all()
+        assert count[:t_lo].sum() == 0 and count[n:].sum() == 0
+    empty = lo >= hi
+    assert empty[0].all()                       # context 0
+    if nsplit >= 3:
+        assert empty[1, 1:].all()               # len 1: one live split
+    if nsplit >= 8:
+        assert empty[2].any()                   # len 17
+    if window == 9 and nsplit >= 8:
+        assert empty[5].any()                   # 9 live tokens of 4096
+
+
+_JAX_FUSED = {}
+
+
+@pytest.mark.parametrize("nsplit", [1, 3, 8])
+@pytest.mark.parametrize("window", [-1, 21])
+@pytest.mark.parametrize("mode", ["f32", "int8_exact", "fp8", "int8_dot"])
+def test_split_merge_plain_against_jax(mode, window, nsplit):
+    """The plain split-and-merge (each split's range evaluated on its own,
+    the (m, l, acc) merged in split order, as the kernel) against JAX's
+    paged_attention_fused in interpret mode, with contexts 0, 1 and 5 so
+    that most of 8 splits are empty: f32 pools and the exact int8 and fp8
+    paths (f32 scales) at 2e-5, the int8 dot products at JAX's own 4e-2
+    (LSE 2e-2; the two quantize p over other spans); and against the port's
+    whole-range plain version at 1e-5 (f32 rounding of the merge)."""
+    lens = (37, 0, 64, 5, 1)
+    int8_matmul = mode == "int8_dot"
+    if mode == "f32":
+        rng = np.random.default_rng(31)
+        q, pool, bt, ln = _decode_case(rng, 64, len(lens), lens)
+        jargs = (_j(q), _j(pool), jnp.asarray(bt), jnp.asarray(ln))
+        targs = (_t(q), _t(pool), torch.from_numpy(bt), torch.from_numpy(ln))
+        jkw, tkw = {}, {}
+    else:
+        qname = "fp8" if mode == "fp8" else "int8"
+        _, _, q, bt, ln, jpool, jsc, tpool, tsc = _quant_case(qname, lens)
+        jargs = (_j(q), jpool, jnp.asarray(bt), jnp.asarray(ln))
+        targs = (_t(q), tpool, torch.from_numpy(bt), torch.from_numpy(ln))
+        jkw = dict(kv_scales=jsc, int8_matmul=int8_matmul)
+        tkw = dict(kv_scales=tsc, int8_matmul=int8_matmul)
+    key = (mode, window)
+    if key not in _JAX_FUSED:
+        _JAX_FUSED[key] = jpf.paged_attention_fused(
+            *jargs, window_size=window, return_lse=True, **jkw)
+    jo, jl = _JAX_FUSED[key]
+    to, tl = tpf.paged_attention_fused_plain(
+        *targs, window_size=window, return_lse=True, nsplit=nsplit, **tkw)
+    tol = 4e-2 if int8_matmul else 2e-5
+    assert_close(to, np.asarray(jo), 0, tol, f"{mode} out")
+    assert_close(tl, np.asarray(jl), 0, 2e-2 if int8_matmul else 2e-5,
+                 f"{mode} lse")
+    assert (to[1] == 0).all()  # context 0
+    wo, wl = tpf.paged_attention_fused_plain(
+        *targs, window_size=window, return_lse=True, **tkw)
+    assert_close(to, wo, 0, 1e-5, f"{mode} against one range")
+    assert_close(tl, wl, 0, 1e-5, f"{mode} lse against one range")
