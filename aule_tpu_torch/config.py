@@ -2,14 +2,17 @@
 
 The TPU tile tables and the `AULE_FLASH_*` schedule knobs have no
 counterpart here: the Hopper kernels pick their tiles in the CUDA source.
-What remains is the mask convention shared with the JAX kernels, the
+What remains is the library-wide `AuleConfig` (the backend to force and
+per-call logging), the mask convention shared with the JAX kernels, the
 serving and paged-cache defaults, the int8 decode setting and the device
 rule of the entry points.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
+from typing import Optional
 
 import numpy as np
 import torch
@@ -44,3 +47,43 @@ def resolve_device(device) -> torch.device:
             "and torch.cuda.is_available() is False; pass device='cpu' to "
             "run the plain PyTorch versions")
     return dev
+
+
+def _env_bool(name: str, default: bool) -> bool:
+    v = os.environ.get(name)
+    return default if v is None else v.lower() in ("1", "true", "yes", "on")
+
+
+@dataclasses.dataclass
+class AuleConfig:
+    """Library-wide settings (aule_tpu/config.py::AuleConfig, the fields
+    the port reads), overridable from the environment:
+      AULE_TPU_TORCH_BACKEND = cuda | torch | numpy   (force a backend)
+      AULE_TPU_TORCH_VERBOSE = 1                      (per-call debug logs)
+    The port reads variables of its own: the JAX package's
+    AULE_TPU_BACKEND names its own backends (pallas, xla, numpy), and both
+    packages may live in one process."""
+
+    backend: Optional[str] = None  # None = auto-select
+    verbose: bool = False
+
+    @classmethod
+    def from_env(cls) -> "AuleConfig":
+        return cls(backend=os.environ.get("AULE_TPU_TORCH_BACKEND") or None,
+                   verbose=_env_bool("AULE_TPU_TORCH_VERBOSE", False))
+
+
+_config: Optional[AuleConfig] = None
+
+
+def get_config() -> AuleConfig:
+    """The process's settings, read from the environment at first use."""
+    global _config
+    if _config is None:
+        _config = AuleConfig.from_env()
+    return _config
+
+
+def set_config(cfg: AuleConfig) -> None:
+    global _config
+    _config = cfg

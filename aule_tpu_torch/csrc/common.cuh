@@ -234,6 +234,98 @@ struct Elem<__half> {
   }
 };
 
+// ---- Fused RoPE on 16-bit tiles in shared memory (flash_fwd.cu and
+// flash_fwd_short.cu; aule_tpu/ops/flash.py:227-246): the half-split
+// rotation x1' = x1 cos - x2 sin, x2' = x1 sin + x2 cos of eight value
+// pairs, x1 the 16-byte chunk at shared address `lo` (values d .. d + 7 of
+// a row), x2 the chunk at `hi` (values d + D/2 ..), by the angles of eight
+// table entries (`RopeAngles`, f32); in f32, rounded back to T in place,
+// as the TPU kernel rounds its rotated tiles.  Each product is rounded
+// before the sum (no FMA contraction), as `ops.rope.apply_rope` computes
+// it, so both round to the same T values.
+__device__ __forceinline__ float rot_lo(float x1, float x2, float c,
+                                        float s) {
+  return __fsub_rn(__fmul_rn(x1, c), __fmul_rn(x2, s));
+}
+
+__device__ __forceinline__ float rot_hi(float x1, float x2, float c,
+                                        float s) {
+  return __fadd_rn(__fmul_rn(x1, s), __fmul_rn(x2, c));
+}
+
+// cos and sin of eight consecutive table entries (16-byte aligned rows)
+struct RopeAngles {
+  float4 c[2], s[2];
+  __device__ __forceinline__ void load(const float* cs, const float* sn) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      c[h] = __ldg(reinterpret_cast<const float4*>(cs) + h);
+      s[h] = __ldg(reinterpret_cast<const float4*>(sn) + h);
+    }
+  }
+};
+
+// The shared-memory accesses are volatile asm with no memory clobber: they
+// keep their order against the barrier waits, fences and __syncthreads
+// around them (volatile asm and barriers), and leave the compiler free to
+// schedule the table loads.
+template <typename T>
+__device__ __forceinline__ void rope_chunks(uint32_t lo, uint32_t hi,
+                                            const RopeAngles& ang) {
+  uint32_t a[4], b[4];
+  asm volatile("ld.shared.v4.u32 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+               : "r"(lo));
+  asm volatile("ld.shared.v4.u32 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(b[0]), "=r"(b[1]), "=r"(b[2]), "=r"(b[3])
+               : "r"(hi));
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const float4 c = ang.c[h], s = ang.s[h];
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const float2 x1 = Elem<T>::to_float2(a[2 * h + e]);
+      const float2 x2 = Elem<T>::to_float2(b[2 * h + e]);
+      const float c0 = e ? c.z : c.x, c1 = e ? c.w : c.y;
+      const float s0 = e ? s.z : s.x, s1 = e ? s.w : s.y;
+      a[2 * h + e] = Elem<T>::pack(rot_lo(x1.x, x2.x, c0, s0),
+                                   rot_lo(x1.y, x2.y, c1, s1));
+      b[2 * h + e] = Elem<T>::pack(rot_hi(x1.x, x2.x, c0, s0),
+                                   rot_hi(x1.y, x2.y, c1, s1));
+    }
+  }
+  asm volatile("st.shared.v4.u32 [%0], {%1,%2,%3,%4};\n" ::"r"(lo),
+               "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]));
+  asm volatile("st.shared.v4.u32 [%0], {%1,%2,%3,%4};\n" ::"r"(hi),
+               "r"(b[0]), "r"(b[1]), "r"(b[2]), "r"(b[3]));
+}
+
+// Rotates chunk pairs i = first, first + step, .. < count of a tile: chunk
+// pair i sits at shared addresses `addr(i)` and `addr(i) + hi_off` and
+// turns by table row pos(i) (skipped where pos(i) < 0), columns 8 (i % 8)
+// .. of the [*, half] tables.
+template <typename T, typename Addr, typename Pos>
+__device__ __forceinline__ void rope_pairs(int first, int count, int step,
+                                           uint32_t hi_off, int half,
+                                           Addr addr, Pos pos,
+                                           const float* rc,
+                                           const float* rs) {
+  for (int i = first; i < count; i += step) {
+    const int p = pos(i);
+    if (p < 0) continue;
+    const size_t at = (size_t)p * half + 8 * (i % 8);
+    RopeAngles ang;
+    ang.load(rc + at, rs + at);
+    rope_chunks<T>(addr(i), addr(i) + hi_off, ang);
+  }
+}
+
+// The live key count of a call: kv_len (one int32 on the card, read by
+// the kernel, never by the host) clamped to [0, Sk], or Sk without one.
+__device__ __forceinline__ int live_keys(const int* kv_len, int Sk) {
+  return kv_len != nullptr ? min(max(__ldg(kv_len), 0), Sk) : Sk;
+}
+
 // ---- mma.sync m16n8k16 fragments of swizzled tiles (256-byte rows of
 // D = 128 16-bit values in shared memory, `swz`).  The thread holds rows
 // g = lane / 4 ("a") and g + 8 ("b") of an accumulator's 16, and columns

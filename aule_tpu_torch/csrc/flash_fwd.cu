@@ -52,6 +52,18 @@
 // each product at more than one code site, ptxas serialises every wgmma
 // (C7518/C7512 in the build log) and spills, and ping-pong around this
 // single-site loop gained nothing (PERF.md, Findings).
+//
+// Fused RoPE and a device-side kv_len (_fwd_kernel's use_rope and
+// dynamic_kv_len, flash.py:108-136, 227-246) take the kernel's EXT
+// instantiation; the plain one compiles as before.  With tables, each
+// consumer warpgroup rotates its 64 Q rows once, after Q lands and before
+// its first product, and the producer warpgroup rotates each K stage in
+// shared memory after its TMA load lands (in place, keeping the 128-byte
+// swizzle: values d and d + 64 of a row sit at the same offset of the two
+// 64-column halves) and releases it to the consumers on a barrier of its
+// own, as paged_prefill.cu's producer converts its 1-byte tiles; it keeps
+// NST - 1 loads in flight ahead of the rotation.  kv_len is read from the
+// card by every thread: the tile range and the ragged mask come from it.
 
 #include <type_traits>
 
@@ -72,8 +84,18 @@ constexpr int ROW_BYTES = 128;              // a swizzled half-row: 64 values
 constexpr int HALF_BYTES = BN * ROW_BYTES;  // one 64-column half of a tile
 constexpr int TILE_BYTES = 2 * HALF_BYTES;  // a K or V stage, or the Q tile
 constexpr int NTHREADS = 3 * 128;           // producer WG + 2 consumer WGs
-constexpr int NBARS = 1 + 3 * NST;          // full Q, full K/V, empty
-constexpr int SMEM_BYTES = 1024 + (1 + 2 * NST) * TILE_BYTES + 8 * NBARS;
+// full Q, full K/V, empty; EXT: rotated K
+template <bool EXT>
+constexpr int NBARS = 1 + (EXT ? 4 : 3) * NST;
+template <bool EXT>
+constexpr int SMEM_BYTES = 1024 + (1 + 2 * NST) * TILE_BYTES + 8 * NBARS<EXT>;
+// setmaxnreg: the producer gives up registers, the consumers take them;
+// EXT's producer rotates K stages (24 + 2 * 240 and 56 + 2 * 224 fit the
+// 3 * 168 a thread has at launch)
+template <bool EXT>
+constexpr int PREGS = EXT ? 56 : 24;
+template <bool EXT>
+constexpr int CREGS = EXT ? 224 : 240;
 static_assert(BM == BN, "the Q tile and a K/V stage share TILE_BYTES");
 static_assert(D == 128, "two 64-column halves per row");
 
@@ -91,7 +113,31 @@ struct Smem {
   __device__ uint32_t full_k(int s) const { return bar(1 + s); }
   __device__ uint32_t full_v(int s) const { return bar(1 + NST + s); }
   __device__ uint32_t empty(int s) const { return bar(1 + 2 * NST + s); }
+  __device__ uint32_t ready_k(int s) const { return bar(1 + 3 * NST + s); }
 };
+
+// Rotates rows r0 .. r0 + n - 1 of a 128-row tile at `tile` (two 64-column
+// halves of 128-byte swizzled rows) by table row pos0 + r, `threads`
+// threads from `tid`; rows at or past `limit` or rope_len are left as they
+// are (zeros, or the identity past the table).
+template <typename T>
+__device__ __forceinline__ void rope_tile(uint32_t tile, int r0, int n,
+                                          int pos0, int limit,
+                                          const float* rc, const float* rs,
+                                          int rope_len, int tid,
+                                          int threads) {
+  rope_pairs<T>(
+      tid, n * 8, threads, HALF_BYTES, D / 2,
+      [&](int i) {
+        const int r = r0 + i / 8, c = i % 8;
+        return tile + r * ROW_BYTES + ((c ^ (r & 7)) << 4);
+      },
+      [&](int i) {
+        const int pos = pos0 + r0 + i / 8;
+        return pos < limit && pos < rope_len ? pos : -1;
+      },
+      rc, rs);
+}
 
 // 2^x by the card's ex2.approx.ftz: exp2f adds three instructions per
 // element to keep results below 2^-126, which are far below a rounding
@@ -117,16 +163,20 @@ __device__ __forceinline__ void kv_tiles(int q_lo, int q_hi, int Sk,
 }
 
 // tq, to: [B * Hq, Sq, D] (boxes of 128 and 64 rows); tk, tv: [B * Hkv, Sk,
-// D] (boxes of 128 rows); lse: [B, Hq, Sq] or null.  Grid: one block per
-// (q tile, batch, q head), q head fastest, last q tile first.
-template <typename T>
+// D] (boxes of 128 rows); lse: [B, Hq, Sq] or null.  EXT: rope tables
+// [rope_len, D/2] f32 (or null) and kv_len, one int32 on the card (or
+// null).  Grid: one block per (q tile, batch, q head), q head fastest, last
+// q tile first.
+template <typename T, bool EXT>
 __global__ void __launch_bounds__(NTHREADS, 1)
     flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
                      const __grid_constant__ CUtensorMap tk,
                      const __grid_constant__ CUtensorMap tv,
                      const __grid_constant__ CUtensorMap to,
-                     float* __restrict__ lse, int B, int Hq, int Hkv, int Sq,
-                     int Sk, float scale, int causal, int window) {
+                     float* __restrict__ lse, const float* rc,
+                     const float* rs, const int* kv_len, int B, int Hq,
+                     int Hkv, int Sq, int Sk_all, int rope_len, float scale,
+                     int causal, int window) {
   extern __shared__ uint8_t smem[];
   Smem sm;
   sm.q = (smem_u32(smem) + 1023) & ~1023u;
@@ -140,6 +190,9 @@ __global__ void __launch_bounds__(NTHREADS, 1)
   const int q_hi = min(q_lo + BM, Sq) - 1;
   const int bhq = b * Hq + h;
   const int bhk = b * Hkv + h / (Hq / Hkv);
+  // the keys that attend: the first kv_len (EXT), else all
+  const int Sk = EXT ? live_keys(kv_len, Sk_all) : Sk_all;
+  const bool rope = EXT && rc != nullptr;
   int j_lo, j_hi;
   kv_tiles(q_lo, q_hi, Sk, causal, window, j_lo, j_hi);
 
@@ -149,6 +202,7 @@ __global__ void __launch_bounds__(NTHREADS, 1)
       mbar_init(sm.full_k(s), 1);
       mbar_init(sm.full_v(s), 1);
       mbar_init(sm.empty(s), 2 * 4);  // one arrival per consumer warp
+      if (EXT) mbar_init(sm.ready_k(s), 128);  // every producer thread
     }
     mbar_init_fence();
   }
@@ -156,8 +210,44 @@ __global__ void __launch_bounds__(NTHREADS, 1)
 
   if (threadIdx.x < 128) {
     // ---- producer warpgroup: one thread keeps the ring full
-    setmaxnreg_dec<24>();
-    if (threadIdx.x == 0) {
+    setmaxnreg_dec<PREGS<EXT>>();
+    if (rope) {
+      // every thread rotates each K stage once its load lands; thread 0
+      // refills the stage before it, keeping NST - 1 loads ahead
+      const int tid = threadIdx.x, n = j_hi - j_lo + 1;
+      auto issue = [&](int it) {  // tile j_lo + it into stage it % NST
+        const int s = it % NST, j = j_lo + it;
+        mbar_wait(sm.empty(s), ((it / NST) & 1) ^ 1);  // round 0 passes
+        mbar_expect_tx(sm.full_k(s), TILE_BYTES);
+        tma_load_3d(sm.k(s), &tk, sm.full_k(s), 0, j * BN, bhk);
+        tma_load_3d(sm.k(s) + HALF_BYTES, &tk, sm.full_k(s), 64, j * BN,
+                    bhk);
+        mbar_expect_tx(sm.full_v(s), TILE_BYTES);
+        tma_load_3d(sm.v(s), &tv, sm.full_v(s), 0, j * BN, bhk);
+        tma_load_3d(sm.v(s) + HALF_BYTES, &tv, sm.full_v(s), 64, j * BN,
+                    bhk);
+      };
+      if (tid == 0) {
+        tma_prefetch_map(&tq);
+        tma_prefetch_map(&tk);
+        tma_prefetch_map(&tv);
+        tma_prefetch_map(&to);
+        mbar_expect_tx(sm.full_q(), TILE_BYTES);
+        tma_load_3d(sm.q, &tq, sm.full_q(), 0, q_lo, bhq);
+        tma_load_3d(sm.q + HALF_BYTES, &tq, sm.full_q(), 64, q_lo, bhq);
+        for (int it = 0; it < NST && it < n; ++it) issue(it);
+      }
+      for (int it = 0; it < n; ++it) {
+        const int s = it % NST;
+        mbar_wait(sm.full_k(s), (it / NST) & 1);
+        rope_tile<T>(sm.k(s), 0, BN, (j_lo + it) * BN, Sk, rc, rs, rope_len,
+                     tid, 128);
+        fence_proxy_async();  // the stores, before wgmma reads them
+        mbar_arrive(sm.ready_k(s));
+        // the stage of tile it - 1, released once the consumers are past it
+        if (tid == 0 && it >= 1 && it - 1 + NST < n) issue(it - 1 + NST);
+      }
+    } else if (threadIdx.x == 0) {
       tma_prefetch_map(&tq);
       tma_prefetch_map(&tk);
       tma_prefetch_map(&tv);
@@ -180,7 +270,7 @@ __global__ void __launch_bounds__(NTHREADS, 1)
     }
   } else {
     // ---- consumer warpgroup c: q rows 64c .. 64c + 63 of the block
-    setmaxnreg_inc<240>();
+    setmaxnreg_inc<CREGS<EXT>>();
     const int c = threadIdx.x / 128 - 1;
     const int warp = (threadIdx.x / 32) & 3, lane = threadIdx.x & 31;
     const int t = lane & 3;
@@ -201,6 +291,12 @@ __global__ void __launch_bounds__(NTHREADS, 1)
     const uint32_t sq = sm.q + c * WG_ROWS * ROW_BYTES;
     const uint64_t dq = wgmma_desc(sq, 16, 8 * ROW_BYTES);
     mbar_wait(sm.full_q(), 0);
+    if (rope) {  // this warpgroup's 64 Q rows, once
+      rope_tile<T>(sm.q, WG_ROWS * c, WG_ROWS, q_lo, Sq, rc, rs, rope_len,
+                   threadIdx.x & 127, 128);
+      fence_proxy_async();
+      named_sync(1 + c, 128);
+    }
 
     for (int j = j_lo, it = 0; j <= j_hi; ++j, ++it) {
       const int st = it % NST;
@@ -211,7 +307,7 @@ __global__ void __launch_bounds__(NTHREADS, 1)
       const uint64_t dv = wgmma_desc(sm.v(st), HALF_BYTES, 8 * ROW_BYTES);
 
       // S = Q K^T
-      mbar_wait(sm.full_k(st), ph);
+      mbar_wait(rope ? sm.ready_k(st) : sm.full_k(st), ph);
       fence_regs(s);
       wgmma_fence();
 #pragma unroll
@@ -349,9 +445,10 @@ __global__ void __launch_bounds__(NTHREADS, 1)
   }
 }
 
-template <typename T>
+template <typename T, bool EXT>
 int launch(const void* q, const void* k, const void* v, void* o, void* lse,
-           int B, int Hq, int Hkv, int Sq, int Sk, float scale, int causal,
+           const void* rc, const void* rs, const void* kv_len, int B, int Hq,
+           int Hkv, int Sq, int Sk, int rope_len, float scale, int causal,
            int window, cudaStream_t stream) {
   constexpr bool f16 = std::is_same<T, __half>::value;
   CUtensorMap tq, tk, tv, to;
@@ -363,30 +460,49 @@ int launch(const void* q, const void* k, const void* v, void* o, void* lse,
           cudaSuccess ||
       (err = encode_rows128(&to, o, f16, B * Hq, Sq, WG_ROWS)) != cudaSuccess)
     return err;
-  err = cudaFuncSetAttribute(flash_fwd_kernel<T>,
+  err = cudaFuncSetAttribute(flash_fwd_kernel<T, EXT>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             SMEM_BYTES);
+                             SMEM_BYTES<EXT>);
   if (err != cudaSuccess) return err;
   const int blocks = (Sq + BM - 1) / BM * B * Hq;
-  flash_fwd_kernel<T><<<blocks, NTHREADS, SMEM_BYTES, stream>>>(
-      tq, tk, tv, to, static_cast<float*>(lse), B, Hq, Hkv, Sq, Sk, scale,
+  flash_fwd_kernel<T, EXT><<<blocks, NTHREADS, SMEM_BYTES<EXT>, stream>>>(
+      tq, tk, tv, to, static_cast<float*>(lse),
+      static_cast<const float*>(rc), static_cast<const float*>(rs),
+      static_cast<const int*>(kv_len), B, Hq, Hkv, Sq, Sk, rope_len, scale,
       causal, window);
   return cudaGetLastError();
 }
 
+template <typename T>
+int launch_any(const void* q, const void* k, const void* v, void* o,
+               void* lse, const void* rc, const void* rs, const void* kv_len,
+               int B, int Hq, int Hkv, int Sq, int Sk, int rope_len,
+               float scale, int causal, int window, cudaStream_t stream) {
+  if (rc != nullptr || kv_len != nullptr)
+    return launch<T, true>(q, k, v, o, lse, rc, rs, kv_len, B, Hq, Hkv, Sq,
+                           Sk, rope_len, scale, causal, window, stream);
+  return launch<T, false>(q, k, v, o, lse, nullptr, nullptr, nullptr, B, Hq,
+                          Hkv, Sq, Sk, 0, scale, causal, window, stream);
+}
+
 }  // namespace
 
+// rc, rs: RoPE tables [rope_len, D/2] f32, or null; kv_len: one int32 on
+// the card, or null.
 extern "C" int aule_flash_fwd(const void* q, const void* k, const void* v,
-                              void* o, void* lse, int B, int Hq, int Hkv,
-                              int Sq, int Sk, float scale, int causal,
-                              int window, int dtype, void* stream) {
+                              void* o, void* lse, const void* rc,
+                              const void* rs, const void* kv_len, int B,
+                              int Hq, int Hkv, int Sq, int Sk, int rope_len,
+                              float scale, int causal, int window, int dtype,
+                              void* stream) {
   if (Sq <= 0 || B <= 0) return cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == aule::kF16)
-    return launch<__half>(q, k, v, o, lse, B, Hq, Hkv, Sq, Sk, scale, causal,
-                          window, s);
-  return launch<__nv_bfloat16>(q, k, v, o, lse, B, Hq, Hkv, Sq, Sk, scale,
-                               causal, window, s);
+    return launch_any<__half>(q, k, v, o, lse, rc, rs, kv_len, B, Hq, Hkv,
+                              Sq, Sk, rope_len, scale, causal, window, s);
+  return launch_any<__nv_bfloat16>(q, k, v, o, lse, rc, rs, kv_len, B, Hq,
+                                   Hkv, Sq, Sk, rope_len, scale, causal,
+                                   window, s);
 }
 
 extern "C" const char* aule_error_string(int err) {

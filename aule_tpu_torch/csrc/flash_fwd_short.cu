@@ -8,9 +8,18 @@
 // same masks, GQA groups, LSE and zero rows, and ops/flash.py picks it
 // by the prompt length (SHORT_SQ).
 //
+// It also runs the bucketed decode of the SDPA patch
+// (integration/patching.py): one query against K/V padded to a bucket,
+// with the live length `kv_len` read from the card, so a CUDA graph can
+// replay the call at any length, and fused RoPE (_fwd_kernel's rotation,
+// flash.py:227-246).  Those two take the kernel's EXT instantiation; the
+// plain one compiles as before.
+//
 // What bounds it: bytes, 0.04 us for the 0.14 MB of Q, K, V and O at
 // B1 Hq32/Hkv8 S7; the call lasts the latency of one tile's loads and
-// products instead (a few microseconds).  One block per (batch, kv head,
+// products instead (a few microseconds).  At the bucketed decode's 4096
+// keys it is the K/V read, 16.8 MB at Hkv8 D128 (5.0 us), done by 8
+// blocks walking 64 tiles each.  One block per (batch, kv head,
 // q tile) holds all the q heads of a GQA group it can (up to 8), so the
 // whole prompt is a handful of blocks; each loads its Q and 64-key K/V
 // tiles with cp.async (no tensor map to fetch, no warp specialisation to
@@ -32,14 +41,36 @@ constexpr int ROW_BYTES = kRowBytes;  // one 16-bit row
 constexpr int CHUNKS = D / 8;      // 16-byte chunks per row
 constexpr int SMEM_BYTES = (ROWS + 4 * BN) * ROW_BYTES;  // Q + 2x(K,V)
 
+// Rotates the 16-byte chunk pairs (c, c + 8) of rows 0 .. n - 1 of a tile
+// of 256-byte rows (`swz`) by table row pos(r) (EXT with tables; rows with
+// pos(r) < 0 or past the table stay): chunk c + 8 of a row sits 128 bytes
+// past chunk c under the swizzle.
+template <typename T, typename Pos>
+__device__ __forceinline__ void rope_rows(uint32_t tile, int n, Pos pos,
+                                          const float* rc, const float* rs,
+                                          int rope_len) {
+  rope_pairs<T>(
+      threadIdx.x, n * 8, NTHREADS, 128, D / 2,
+      [&](int i) { return tile + swz(i / 8, i % 8); },
+      [&](int i) {
+        const int p = pos(i / 8);
+        return p < rope_len ? p : -1;
+      },
+      rc, rs);
+}
+
 // q, o: [B, Hq, Sq, D]; k, v: [B, Hkv, Sk, D]; lse: [B, Hq, Sq] or null.
-// Grid: (q tiles, Hkv * group / hpb, B); hpb q heads per block.
-template <typename T>
+// EXT: rope tables [rope_len, D/2] f32 (or null) and kv_len, one int32 on
+// the card (or null).  Grid: (q tiles, Hkv * group / hpb, B); hpb q heads
+// per block.
+template <typename T, bool EXT>
 __global__ void __launch_bounds__(NTHREADS)
     flash_fwd_short_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, T* __restrict__ o,
-                     float* __restrict__ lse, int Hq, int Hkv, int Sq, int Sk,
-                     int hpb, float scale, int causal, int window) {
+                     float* __restrict__ lse, const float* rc,
+                     const float* rs, const int* kv_len, int Hq, int Hkv,
+                     int Sq, int Sk_all, int rope_len, int hpb, float scale,
+                     int causal, int window) {
   extern __shared__ __align__(128) uint8_t smem[];
   const uint32_t sQ = smem_u32(smem);
   const uint32_t sK = sQ + ROWS * ROW_BYTES;
@@ -57,8 +88,11 @@ __global__ void __launch_bounds__(NTHREADS)
   const int h0 = hk * group + (blockIdx.y % blocks_per_kv) * hpb;
   const int b = blockIdx.z;
 
-  const T* kb = k + ((size_t)b * Hkv + hk) * Sk * D;
-  const T* vb = v + ((size_t)b * Hkv + hk) * Sk * D;
+  const T* kb = k + ((size_t)b * Hkv + hk) * Sk_all * D;
+  const T* vb = v + ((size_t)b * Hkv + hk) * Sk_all * D;
+  // the keys that attend: the first kv_len (EXT), else all; the rest are
+  // never loaded and masked as the rows past Sk are
+  const int Sk = EXT ? live_keys(kv_len, Sk_all) : Sk_all;
 
   // kv positions some row of this block can see
   int k_min = 0, k_max = Sk - 1;
@@ -113,6 +147,19 @@ __global__ void __launch_bounds__(NTHREADS)
     __syncthreads();
 
     const int kv0 = j * BN;
+    if constexpr (EXT) {
+      if (rc != nullptr) {  // Q once, each K tile as it lands
+        if (j == j_lo)
+          rope_rows<T>(sQ, ROWS, [&](int r) {
+            const int p = q_lo + r % bq;
+            return p < Sq ? p : -1;
+          }, rc, rs, rope_len);
+        rope_rows<T>(sK + stage * BN * ROW_BYTES, BN,
+                     [&](int r) { return kv0 + r < Sk ? kv0 + r : -1; }, rc,
+                     rs, rope_len);
+        __syncthreads();
+      }
+    }
     // element mask only on tiles that straddle an edge
     const bool need_mask =
         (kv0 + BN > Sk) || (causal && kv0 + BN - 1 > q_lo) ||
@@ -139,38 +186,64 @@ __global__ void __launch_bounds__(NTHREADS)
                  Sq, lane, scale);
 }
 
-template <typename T>
+template <typename T, bool EXT>
 int launch(const void* q, const void* k, const void* v, void* o, void* lse,
-           int B, int Hq, int Hkv, int Sq, int Sk, float scale, int causal,
+           const void* rc, const void* rs, const void* kv_len, int B, int Hq,
+           int Hkv, int Sq, int Sk, int rope_len, float scale, int causal,
            int window, cudaStream_t stream) {
   const int group = Hq / Hkv;
   int hpb = 8;  // q heads per block: the largest of 8, 4, 2, 1 dividing group
   while (group % hpb) hpb >>= 1;
   const int bq = ROWS / hpb;
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_short_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      SMEM_BYTES);
-  if (err != cudaSuccess) return err;
+  // set once, so that a launch inside a CUDA-graph capture makes no
+  // attribute call
+  static bool attr = false;
+  if (!attr) {
+    cudaError_t err = cudaFuncSetAttribute(
+        flash_fwd_short_kernel<T, EXT>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+    if (err != cudaSuccess) return err;
+    attr = true;
+  }
   dim3 grid((Sq + bq - 1) / bq, Hkv * (group / hpb), B);
-  flash_fwd_short_kernel<T><<<grid, NTHREADS, SMEM_BYTES, stream>>>(
+  flash_fwd_short_kernel<T, EXT><<<grid, NTHREADS, SMEM_BYTES, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), static_cast<float*>(lse),
-      Hq, Hkv, Sq, Sk, hpb, scale, causal, window);
+      static_cast<const float*>(rc), static_cast<const float*>(rs),
+      static_cast<const int*>(kv_len), Hq, Hkv, Sq, Sk, rope_len, hpb, scale,
+      causal, window);
   return cudaGetLastError();
+}
+
+template <typename T>
+int launch_any(const void* q, const void* k, const void* v, void* o,
+               void* lse, const void* rc, const void* rs, const void* kv_len,
+               int B, int Hq, int Hkv, int Sq, int Sk, int rope_len,
+               float scale, int causal, int window, cudaStream_t stream) {
+  if (rc != nullptr || kv_len != nullptr)
+    return launch<T, true>(q, k, v, o, lse, rc, rs, kv_len, B, Hq, Hkv, Sq,
+                           Sk, rope_len, scale, causal, window, stream);
+  return launch<T, false>(q, k, v, o, lse, nullptr, nullptr, nullptr, B, Hq,
+                          Hkv, Sq, Sk, 0, scale, causal, window, stream);
 }
 
 }  // namespace
 
+// rc, rs: RoPE tables [rope_len, D/2] f32, or null; kv_len: one int32 on
+// the card, or null.
 extern "C" int aule_flash_fwd_short(const void* q, const void* k,
-                                    const void* v, void* o, void* lse, int B,
-                                    int Hq, int Hkv, int Sq, int Sk,
+                                    const void* v, void* o, void* lse,
+                                    const void* rc, const void* rs,
+                                    const void* kv_len, int B, int Hq,
+                                    int Hkv, int Sq, int Sk, int rope_len,
                                     float scale, int causal, int window,
                                     int dtype, void* stream) {
   if (Sq <= 0 || B <= 0) return cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == aule::kF16)
-    return launch<__half>(q, k, v, o, lse, B, Hq, Hkv, Sq, Sk, scale, causal,
-                          window, s);
-  return launch<__nv_bfloat16>(q, k, v, o, lse, B, Hq, Hkv, Sq, Sk, scale,
-                               causal, window, s);
+    return launch_any<__half>(q, k, v, o, lse, rc, rs, kv_len, B, Hq, Hkv,
+                              Sq, Sk, rope_len, scale, causal, window, s);
+  return launch_any<__nv_bfloat16>(q, k, v, o, lse, rc, rs, kv_len, B, Hq,
+                                   Hkv, Sq, Sk, rope_len, scale, causal,
+                                   window, s);
 }

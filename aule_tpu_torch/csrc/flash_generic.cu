@@ -1,0 +1,789 @@
+// Flash attention, forward and backward, for what the tensor-core kernels
+// do not take (sm_90a): f32 inputs at D = 64, 128 or 256, and bf16 / f16
+// at D = 64 or 256.  Hand-written CUDA C++, products on FFMA.
+//
+// Replaces, for those types and head dims, the TPU kernels
+// aule_tpu/ops/flash.py::_fwd_kernel (its f32 branch, flash.py:151, and
+// the D = 64 / 256 tiles of `_pick_blocks`' d_scale, flash.py:931) and
+// aule_tpu/ops/flash_vjp.py::_dq_kernel and ::_dkv_kernel (and their
+// window forms _win_dq_kernel and _win_dkv_kernel; d_scale at
+// flash_vjp.py:575, 708).  It computes what they compute: the forward
+// with causal and window masks, GQA, Sq != Sk, fused half-split RoPE from
+// [L, D/2] f32 tables (identity past L), a device-side kv_len and the
+// natural-log LSE; the backward's delta, dQ and dK/dV from the saved LSE.
+//
+// What bounds it on the H100: f32 has no tensor-core path that keeps f32
+// (TF32 keeps a 10-bit mantissa, and the f32 rows are held to 1e-5), so
+// the products run at the card's f32 FFMA rate (67 TFLOP/s); 16-bit
+// inputs at D 64 / 256 are widened to f32 on their way into shared memory
+// and take the same path.  The design is the simplest one that stays
+// within that rate's reach:
+//   * one block of 256 threads (16 x 16) per (q tile, head, batch) for the
+//     forward and dQ, per (kv tile, q head, batch) for dK/dV; tiles of
+//     64 rows and 64 keys (32 and 32 at D = 256, to stay in 227 KB);
+//   * every tile in shared memory as f32 rows padded to D + 4 floats, so
+//     each thread reads 16 bytes at a time and the 16 threads of a
+//     half-warp meet distinct bank groups;
+//   * a thread holds a 4 x 4 (2 x 2 at D = 256) block of the score tile
+//     and a row block x D / 16 columns of its output, so a 16-byte read
+//     feeds 4 to 16 FFMAs;
+//   * online softmax in natural units with expf, row max and sum reduced
+//     over the row's 16 threads by shuffles; P (or dS) goes through shared
+//     memory to the second product;
+//   * no atomics: dQ sums the kv tiles in one block, a dK/dV block the q
+//     tiles of one q head; with GQA each head's f32 share goes to a
+//     workspace and a second kernel sums the group's shares in head order,
+//     so two runs give the same bits (with a group of 8 at Hkv 1, one block
+//     per kv tile walking the whole group left most of the card idle).
+// Tiles outside the causal diagonal, the window or kv_len are skipped;
+// rows at or past S load as zeros and are never written.
+
+#include "common.cuh"
+
+namespace {
+
+using namespace aule;
+
+constexpr int kF32 = 2;     // dtype code of f32 (ops/_build.py)
+constexpr int NT = 256;     // threads per block: 16 x 16
+constexpr int TX = 16;
+
+// load and store of one element of the input type, in f32
+template <typename T>
+struct Val;
+
+template <>
+struct Val<float> {
+  __device__ __forceinline__ static float ld(const float* p) {
+    return __ldg(p);
+  }
+  __device__ __forceinline__ static float st(float x) { return x; }
+  __device__ __forceinline__ static float round(float x) { return x; }
+};
+
+template <>
+struct Val<__nv_bfloat16> {
+  __device__ __forceinline__ static float ld(const __nv_bfloat16* p) {
+    return __bfloat162float(*p);
+  }
+  __device__ __forceinline__ static __nv_bfloat16 st(float x) {
+    return __float2bfloat16(x);
+  }
+  // x rounded to the type (a rotated 16-bit value, as the kernels with
+  // 16-bit tiles store it)
+  __device__ __forceinline__ static float round(float x) {
+    return __bfloat162float(__float2bfloat16(x));
+  }
+};
+
+template <>
+struct Val<__half> {
+  __device__ __forceinline__ static float ld(const __half* p) {
+    return __half2float(*p);
+  }
+  __device__ __forceinline__ static __half st(float x) {
+    return __float2half(x);
+  }
+  // x rounded to the type (a rotated 16-bit value, as the kernels with
+  // 16-bit tiles store it)
+  __device__ __forceinline__ static float round(float x) {
+    return __half2float(__float2half(x));
+  }
+};
+
+// Tile shape by head dim: BM q rows, BN keys; f32 rows of LD floats,
+// score rows (P, dS) of LP floats.
+template <int D>
+struct Tiles {
+  static constexpr int BM = D > 128 ? 32 : 64;
+  static constexpr int BN = BM;
+  static constexpr int LD = D + 4;
+  static constexpr int LP = BN + 4;
+  static constexpr int RM = BM / TX;  // q rows per thread
+  static constexpr int CN = BN / TX;  // keys per thread in a score tile
+  static constexpr int RN = BN / TX;  // kv rows per thread (dK/dV)
+  static constexpr int CD = D / TX;   // output columns per thread
+  static constexpr int G = D / 64;    // 64-column groups, 4 a thread each
+};
+
+// Rows row0 .. row0 + R - 1 of src [S, D] -> dst [R][D + 4] f32; rows at or
+// past S are zeros.  With tables, row pos turns by table row pos, half
+// split (x1' = x1 cos - x2 sin, x2' = x1 sin + x2 cos, as common.cuh's
+// rope_chunks: rounded products, the result rounded to T), and rows at or
+// past rope_len stay as they are (cos 1, sin 0).
+template <typename T, int D, int R>
+__device__ __forceinline__ void load_tile(float* dst, const T* src, int row0,
+                                          int S, const float* rc,
+                                          const float* rs, int rope_len) {
+  constexpr int LD = D + 4, H = D / 2;
+  for (int i = threadIdx.x; i < R * H; i += NT) {
+    const int r = i / H, d = i % H, pos = row0 + r;
+    float x1 = 0.f, x2 = 0.f;
+    if (pos < S) {
+      x1 = Val<T>::ld(src + (size_t)pos * D + d);
+      x2 = Val<T>::ld(src + (size_t)pos * D + d + H);
+      if (rc != nullptr && pos < rope_len) {
+        const float c = __ldg(rc + (size_t)pos * H + d);
+        const float s = __ldg(rs + (size_t)pos * H + d);
+        const float y1 = Val<T>::round(rot_lo(x1, x2, c, s));
+        x2 = Val<T>::round(rot_hi(x1, x2, c, s));
+        x1 = y1;
+      }
+    }
+    dst[r * LD + d] = x1;
+    dst[r * LD + d + H] = x2;
+  }
+}
+
+// s[i][j] = A[ty * RM + i] . B[tx + 16 j] over D (the rows of two tiles)
+template <int D, int RM, int CN>
+__device__ __forceinline__ void dot_rows(float (&s)[RM][CN], const float* a,
+                                         const float* b, int ty, int tx) {
+  constexpr int LD = D + 4;
+#pragma unroll
+  for (int i = 0; i < RM; ++i)
+#pragma unroll
+    for (int j = 0; j < CN; ++j) s[i][j] = 0.f;
+#pragma unroll 4
+  for (int d = 0; d < D; d += 4) {
+    float4 x[RM], y[CN];
+#pragma unroll
+    for (int i = 0; i < RM; ++i)
+      x[i] = *reinterpret_cast<const float4*>(a + (ty * RM + i) * LD + d);
+#pragma unroll
+    for (int j = 0; j < CN; ++j)
+      y[j] = *reinterpret_cast<const float4*>(b + (tx + TX * j) * LD + d);
+#pragma unroll
+    for (int i = 0; i < RM; ++i)
+#pragma unroll
+      for (int j = 0; j < CN; ++j) {
+        s[i][j] = fmaf(x[i].x, y[j].x, s[i][j]);
+        s[i][j] = fmaf(x[i].y, y[j].y, s[i][j]);
+        s[i][j] = fmaf(x[i].z, y[j].z, s[i][j]);
+        s[i][j] = fmaf(x[i].w, y[j].w, s[i][j]);
+      }
+  }
+}
+
+__device__ __forceinline__ float comp(const float4& v, int e) {
+  return e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w;
+}
+
+// acc[i][4 g + e] += sum_j W[ty * RM + i][j] * X[j][64 g + 4 tx + e] over
+// the K rows of X (W: rows of LP floats, X: rows of D + 4 floats)
+template <int D, int RM, int K, int LP>
+__device__ __forceinline__ void acc_rows(float (&acc)[RM][D / TX],
+                                         const float* w, const float* x,
+                                         int ty, int tx) {
+  constexpr int LD = D + 4, G = D / 64;
+#pragma unroll 2
+  for (int j = 0; j < K; j += 4) {
+    float4 p[RM];
+#pragma unroll
+    for (int i = 0; i < RM; ++i)
+      p[i] = *reinterpret_cast<const float4*>(w + (ty * RM + i) * LP + j);
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        const float4 v = *reinterpret_cast<const float4*>(
+            x + (j + jj) * LD + 64 * g + 4 * tx);
+#pragma unroll
+        for (int i = 0; i < RM; ++i) {
+          const float pj = comp(p[i], jj);
+          acc[i][4 * g] = fmaf(pj, v.x, acc[i][4 * g]);
+          acc[i][4 * g + 1] = fmaf(pj, v.y, acc[i][4 * g + 1]);
+          acc[i][4 * g + 2] = fmaf(pj, v.z, acc[i][4 * g + 2]);
+          acc[i][4 * g + 3] = fmaf(pj, v.w, acc[i][4 * g + 3]);
+        }
+      }
+  }
+}
+
+// max and sum over the 16 threads of a row (lanes that differ in tx)
+__device__ __forceinline__ float row_max(float x) {
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1)
+    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+
+__device__ __forceinline__ float row_sum(float x) {
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+// may query qpos see key kpos (kpos below the live key count kvl)?
+__device__ __forceinline__ bool visible(int qpos, int kpos, int kvl,
+                                        int causal, int window) {
+  bool ok = kpos < kvl;
+  if (causal) ok = ok && qpos >= kpos;
+  if (window > 0) {
+    ok = ok && qpos - kpos <= window;
+    if (!causal) ok = ok && kpos - qpos <= window;
+  }
+  return ok;
+}
+
+// kv tiles j_lo .. j_hi (BN keys each) hold every key of the first kvl
+// that some row of q_lo .. q_hi can see
+__device__ __forceinline__ void kv_range(int q_lo, int q_hi, int kvl,
+                                         int causal, int window, int BN,
+                                         int& j_lo, int& j_hi) {
+  int k_min = 0, k_max = kvl - 1;
+  if (causal) k_max = min(k_max, q_hi);
+  if (window > 0) {
+    k_min = max(0, q_lo - window);
+    if (!causal) k_max = min(k_max, q_hi + window);
+  }
+  j_lo = k_min / BN;
+  j_hi = (k_max >= k_min) ? k_max / BN : j_lo - 1;
+}
+
+// ---- forward: q, o [B, Hq, Sq, D]; k, v [B, Hkv, Sk, D]; lse [B, Hq, Sq]
+// or null; rope tables [rope_len, D / 2] f32 or null; kv_len one int32 on
+// the card or null.  Grid: (q tiles, Hq, B), the last q tile first.
+template <typename T, int D>
+__global__ void __launch_bounds__(NT)
+    flash_generic_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                             const T* __restrict__ v, T* __restrict__ o,
+                             float* __restrict__ lse, const float* rc,
+                             const float* rs, const int* kv_len, int Hq,
+                             int Hkv, int Sq, int Sk, int rope_len,
+                             float scale, int causal, int window) {
+  using L = Tiles<D>;
+  constexpr int BM = L::BM, BN = L::BN, LD = L::LD, LP = L::LP, RM = L::RM,
+                CN = L::CN, CD = L::CD, G = L::G;
+  extern __shared__ float4 smem4[];
+  float* sQ = reinterpret_cast<float*>(smem4);
+  float* sK = sQ + BM * LD;
+  float* sV = sK + BN * LD;
+  float* sP = sV + BN * LD;
+
+  const int tx = threadIdx.x % TX, ty = threadIdx.x / TX;
+  const int q_lo = (gridDim.x - 1 - blockIdx.x) * BM;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int hk = h / (Hq / Hkv);
+  const int kvl = live_keys(kv_len, Sk);
+  int j_lo, j_hi;
+  kv_range(q_lo, min(q_lo + BM, Sq) - 1, kvl, causal, window, BN, j_lo,
+           j_hi);
+
+  const size_t qoff = ((size_t)b * Hq + h) * Sq * D;
+  const T* kb = k + ((size_t)b * Hkv + hk) * Sk * D;
+  const T* vb = v + ((size_t)b * Hkv + hk) * Sk * D;
+  load_tile<T, D, BM>(sQ, q + qoff, q_lo, Sq, rc, rs, rope_len);
+
+  float acc[RM][CD], m[RM], l[RM];
+#pragma unroll
+  for (int i = 0; i < RM; ++i) {
+    m[i] = -INFINITY;
+    l[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < CD; ++c) acc[i][c] = 0.f;
+  }
+  const int qpos0 = q_lo + ty * RM;
+
+  for (int j = j_lo; j <= j_hi; ++j) {
+    const int kv0 = j * BN;
+    __syncthreads();  // the last tile's readers are done
+    load_tile<T, D, BN>(sK, kb, kv0, Sk, rc, rs, rope_len);
+    load_tile<T, D, BN>(sV, vb, kv0, Sk, nullptr, nullptr, 0);
+    __syncthreads();
+
+    float s[RM][CN];
+    dot_rows<D, RM, CN>(s, sQ, sK, ty, tx);
+#pragma unroll
+    for (int i = 0; i < RM; ++i) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int jj = 0; jj < CN; ++jj) {
+        const bool ok =
+            visible(qpos0 + i, kv0 + tx + TX * jj, kvl, causal, window);
+        s[i][jj] = ok ? s[i][jj] * scale : -INFINITY;
+        mx = fmaxf(mx, s[i][jj]);
+      }
+      const float mn = fmaxf(m[i], row_max(mx));
+      // a row that has seen nothing yet keeps m = -inf and p = 0
+      const float alpha = mn == -INFINITY ? 1.f : expf(m[i] - mn);
+      float sum = 0.f;
+#pragma unroll
+      for (int jj = 0; jj < CN; ++jj) {
+        const float p = mn == -INFINITY ? 0.f : expf(s[i][jj] - mn);
+        sP[(ty * RM + i) * LP + tx + TX * jj] = p;
+        sum += p;
+      }
+      l[i] = l[i] * alpha + row_sum(sum);
+      m[i] = mn;
+#pragma unroll
+      for (int c = 0; c < CD; ++c) acc[i][c] *= alpha;
+    }
+    __syncthreads();
+    acc_rows<D, RM, BN, LP>(acc, sP, sV, ty, tx);
+  }
+
+  // normalise; LSE m + ln l, or kMaskValue with zeros for a row that saw
+  // nothing
+#pragma unroll
+  for (int i = 0; i < RM; ++i) {
+    const int qpos = qpos0 + i;
+    if (qpos >= Sq) continue;
+    const float inv = l[i] > 0.f ? 1.f / l[i] : 0.f;
+    T* orow = o + qoff + (size_t)qpos * D;
+#pragma unroll
+    for (int g = 0; g < G; ++g)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        orow[64 * g + 4 * tx + e] = Val<T>::st(acc[i][4 * g + e] * inv);
+    if (lse != nullptr && tx == 0)
+      lse[(size_t)(b * Hq + h) * Sq + qpos] =
+          l[i] > 0.f ? m[i] + logf(l[i]) : kMaskValue;
+  }
+}
+
+// ---- delta: di = rowsum(o * do) - dlse, one warp a row, in a fixed order
+template <typename T>
+__global__ void __launch_bounds__(NT)
+    flash_generic_delta_kernel(const T* __restrict__ o,
+                               const T* __restrict__ dO,
+                               const float* __restrict__ dlse,
+                               float* __restrict__ di, int rows, int D) {
+  const int row = (blockIdx.x * NT + threadIdx.x) / 32, lane = threadIdx.x % 32;
+  if (row >= rows) return;
+  const T* a = o + (size_t)row * D;
+  const T* c = dO + (size_t)row * D;
+  float s = 0.f;
+  for (int d = lane; d < D; d += 32)
+    s = fmaf(Val<T>::ld(a + d), Val<T>::ld(c + d), s);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    s += __shfl_xor_sync(0xffffffffu, s, off);
+  if (lane == 0) di[row] = dlse != nullptr ? s - dlse[row] : s;
+}
+
+// p and ds of one score element: p = exp(scale s - lse) where visible,
+// ds = p (dp - di) scale
+__device__ __forceinline__ void p_ds(float s, float dp, float lse_r,
+                                     float di_r, bool ok, float scale,
+                                     float& p, float& ds) {
+  p = ok ? expf(s * scale - lse_r) : 0.f;
+  ds = p * (dp - di_r) * scale;
+}
+
+// ---- dQ: dq = ds k over the live kv tiles.  Grid: (q tiles, Hq, B).
+template <typename T, int D>
+__global__ void __launch_bounds__(NT)
+    flash_generic_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                            const T* __restrict__ v,
+                            const T* __restrict__ dO,
+                            const float* __restrict__ lse,
+                            const float* __restrict__ di, T* __restrict__ dq,
+                            int Hq, int Hkv, int Sq, int Sk, float scale,
+                            int causal, int window) {
+  using L = Tiles<D>;
+  constexpr int BM = L::BM, BN = L::BN, LD = L::LD, LP = L::LP, RM = L::RM,
+                CN = L::CN, CD = L::CD, G = L::G;
+  extern __shared__ float4 smem4[];
+  float* sQ = reinterpret_cast<float*>(smem4);
+  float* sO = sQ + BM * LD;  // dO
+  float* sK = sO + BM * LD;
+  float* sV = sK + BN * LD;
+  float* sS = sV + BN * LD;  // dS
+
+  const int tx = threadIdx.x % TX, ty = threadIdx.x / TX;
+  const int q_lo = (gridDim.x - 1 - blockIdx.x) * BM;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int hk = h / (Hq / Hkv);
+  int j_lo, j_hi;
+  kv_range(q_lo, min(q_lo + BM, Sq) - 1, Sk, causal, window, BN, j_lo,
+           j_hi);
+  const size_t row0 = ((size_t)b * Hq + h) * Sq;
+  const T* kb = k + ((size_t)b * Hkv + hk) * Sk * D;
+  const T* vb = v + ((size_t)b * Hkv + hk) * Sk * D;
+  load_tile<T, D, BM>(sQ, q + row0 * D, q_lo, Sq, nullptr, nullptr, 0);
+  load_tile<T, D, BM>(sO, dO + row0 * D, q_lo, Sq, nullptr, nullptr, 0);
+
+  const int qpos0 = q_lo + ty * RM;
+  float lse_r[RM], di_r[RM], acc[RM][CD];
+#pragma unroll
+  for (int i = 0; i < RM; ++i) {
+    const bool in = qpos0 + i < Sq;
+    lse_r[i] = in ? lse[row0 + qpos0 + i] : 0.f;
+    di_r[i] = in ? di[row0 + qpos0 + i] : 0.f;
+#pragma unroll
+    for (int c = 0; c < CD; ++c) acc[i][c] = 0.f;
+  }
+
+  for (int j = j_lo; j <= j_hi; ++j) {
+    const int kv0 = j * BN;
+    __syncthreads();
+    load_tile<T, D, BN>(sK, kb, kv0, Sk, nullptr, nullptr, 0);
+    load_tile<T, D, BN>(sV, vb, kv0, Sk, nullptr, nullptr, 0);
+    __syncthreads();
+    float s[RM][CN], dp[RM][CN];
+    dot_rows<D, RM, CN>(s, sQ, sK, ty, tx);
+    dot_rows<D, RM, CN>(dp, sO, sV, ty, tx);
+#pragma unroll
+    for (int i = 0; i < RM; ++i)
+#pragma unroll
+      for (int jj = 0; jj < CN; ++jj) {
+        const int qpos = qpos0 + i, kpos = kv0 + tx + TX * jj;
+        float p, ds;
+        p_ds(s[i][jj], dp[i][jj], lse_r[i], di_r[i],
+             qpos < Sq && visible(qpos, kpos, Sk, causal, window), scale, p,
+             ds);
+        sS[(ty * RM + i) * LP + tx + TX * jj] = ds;
+      }
+    __syncthreads();
+    acc_rows<D, RM, BN, LP>(acc, sS, sK, ty, tx);
+  }
+
+#pragma unroll
+  for (int i = 0; i < RM; ++i) {
+    const int qpos = qpos0 + i;
+    if (qpos >= Sq) continue;
+    T* row = dq + (row0 + qpos) * D;
+#pragma unroll
+    for (int g = 0; g < G; ++g)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        row[64 * g + 4 * tx + e] = Val<T>::st(acc[i][4 * g + e]);
+  }
+}
+
+// ---- dK/dV: dk = ds^T q and dv = p^T do over the live q tiles of one q
+// head; without GQA written as dk, dv, else as f32 shares [group][B, Hkv,
+// Sk, D] (dK's, then dV's) in `ws` for flash_generic_dkv_kernel_sum.
+// Grid: (kv tiles, Hq, B).
+template <typename T, int D>
+__global__ void __launch_bounds__(NT)
+    flash_generic_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                             const T* __restrict__ v,
+                             const T* __restrict__ dO,
+                             const float* __restrict__ lse,
+                             const float* __restrict__ di,
+                             T* __restrict__ dk, T* __restrict__ dv,
+                             float* __restrict__ ws, int Hq, int Hkv, int Sq,
+                             int Sk, float scale, int causal, int window) {
+  using L = Tiles<D>;
+  constexpr int BM = L::BM, BN = L::BN, LD = L::LD, LP = L::LP, RM = L::RM,
+                CN = L::CN, RN = L::RN, CD = L::CD, G = L::G;
+  extern __shared__ float4 smem4[];
+  float* sK = reinterpret_cast<float*>(smem4);
+  float* sV = sK + BN * LD;
+  float* sQ = sV + BN * LD;
+  float* sO = sQ + BM * LD;  // dO
+  float* sP = sO + BM * LD;
+  float* sS = sP + BM * LP;  // dS
+  float* sLse = sS + BM * LP;
+  float* sDi = sLse + BM;
+
+  const int tid = threadIdx.x, tx = tid % TX, ty = tid / TX;
+  const int group = Hq / Hkv;
+  const int kv_lo = blockIdx.x * BN, h = blockIdx.y, b = blockIdx.z;
+  const int hk = h / group;
+  const int kv_hi = min(kv_lo + BN, Sk) - 1;
+  const size_t kvoff = ((size_t)b * Hkv + hk) * Sk * D;
+  load_tile<T, D, BN>(sK, k + kvoff, kv_lo, Sk, nullptr, nullptr, 0);
+  load_tile<T, D, BN>(sV, v + kvoff, kv_lo, Sk, nullptr, nullptr, 0);
+
+  // q rows that see some key of this tile
+  int q_min = 0, q_max = Sq - 1;
+  if (causal) q_min = kv_lo;
+  if (window > 0) {
+    q_max = min(q_max, kv_hi + window);
+    if (!causal) q_min = max(q_min, kv_lo - window);
+  }
+  const int t_lo = q_min / BM;
+  const int t_hi = q_max >= q_min ? q_max / BM : t_lo - 1;
+
+  float ak[RN][CD], av[RN][CD];
+#pragma unroll
+  for (int i = 0; i < RN; ++i)
+#pragma unroll
+    for (int c = 0; c < CD; ++c) ak[i][c] = av[i][c] = 0.f;
+
+  {
+    const size_t row0 = ((size_t)b * Hq + h) * Sq;
+    for (int t = t_lo; t <= t_hi; ++t) {
+      const int q_lo = t * BM;
+      __syncthreads();  // the last tile's readers are done
+      load_tile<T, D, BM>(sQ, q + row0 * D, q_lo, Sq, nullptr, nullptr, 0);
+      load_tile<T, D, BM>(sO, dO + row0 * D, q_lo, Sq, nullptr, nullptr, 0);
+      for (int r = tid; r < BM; r += NT) {
+        const bool in = q_lo + r < Sq;
+        sLse[r] = in ? lse[row0 + q_lo + r] : 0.f;
+        sDi[r] = in ? di[row0 + q_lo + r] : 0.f;
+      }
+      __syncthreads();
+      float s[RM][CN], dp[RM][CN];
+      dot_rows<D, RM, CN>(s, sQ, sK, ty, tx);
+      dot_rows<D, RM, CN>(dp, sO, sV, ty, tx);
+#pragma unroll
+      for (int i = 0; i < RM; ++i)
+#pragma unroll
+        for (int jj = 0; jj < CN; ++jj) {
+          const int r = ty * RM + i, qpos = q_lo + r;
+          const int kpos = kv_lo + tx + TX * jj;
+          float p, ds;
+          p_ds(s[i][jj], dp[i][jj], sLse[r], sDi[r],
+               qpos < Sq && visible(qpos, kpos, Sk, causal, window), scale,
+               p, ds);
+          sP[r * LP + tx + TX * jj] = p;
+          sS[r * LP + tx + TX * jj] = ds;
+        }
+      __syncthreads();
+      // dv[kr] += sum_r p[r][kr] do[r], dk[kr] += sum_r ds[r][kr] q[r]
+      for (int r = 0; r < BM; ++r) {
+        float pr[RN], sr[RN];
+#pragma unroll
+        for (int i = 0; i < RN; ++i) {
+          pr[i] = sP[r * LP + ty * RN + i];
+          sr[i] = sS[r * LP + ty * RN + i];
+        }
+#pragma unroll
+        for (int g = 0; g < G; ++g) {
+          const float4 xo =
+              *reinterpret_cast<const float4*>(sO + r * LD + 64 * g + 4 * tx);
+          const float4 xq =
+              *reinterpret_cast<const float4*>(sQ + r * LD + 64 * g + 4 * tx);
+#pragma unroll
+          for (int i = 0; i < RN; ++i) {
+            av[i][4 * g] = fmaf(pr[i], xo.x, av[i][4 * g]);
+            av[i][4 * g + 1] = fmaf(pr[i], xo.y, av[i][4 * g + 1]);
+            av[i][4 * g + 2] = fmaf(pr[i], xo.z, av[i][4 * g + 2]);
+            av[i][4 * g + 3] = fmaf(pr[i], xo.w, av[i][4 * g + 3]);
+            ak[i][4 * g] = fmaf(sr[i], xq.x, ak[i][4 * g]);
+            ak[i][4 * g + 1] = fmaf(sr[i], xq.y, ak[i][4 * g + 1]);
+            ak[i][4 * g + 2] = fmaf(sr[i], xq.z, ak[i][4 * g + 2]);
+            ak[i][4 * g + 3] = fmaf(sr[i], xq.w, ak[i][4 * g + 3]);
+          }
+        }
+      }
+    }
+  }
+
+  // this head's share: f32 in the workspace (head h % group's slice), or
+  // the result itself without GQA
+  const size_t n = (size_t)gridDim.z * Hkv * Sk * D;
+  float* wk = ws != nullptr ? ws + (size_t)(h % group) * 2 * n : nullptr;
+#pragma unroll
+  for (int i = 0; i < RN; ++i) {
+    const int kpos = kv_lo + ty * RN + i;
+    if (kpos >= Sk) continue;
+#pragma unroll
+    for (int g = 0; g < G; ++g)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const size_t at = kvoff + (size_t)kpos * D + 64 * g + 4 * tx + e;
+        if (ws != nullptr) {
+          wk[at] = ak[i][4 * g + e];
+          wk[n + at] = av[i][4 * g + e];
+        } else {
+          dk[at] = Val<T>::st(ak[i][4 * g + e]);
+          dv[at] = Val<T>::st(av[i][4 * g + e]);
+        }
+      }
+  }
+}
+
+// dk, dv = the sums of the group's f32 shares in `ws`, in head order.
+template <typename T>
+__global__ void __launch_bounds__(NT)
+    flash_generic_dkv_kernel_sum(const float* __restrict__ ws,
+                                 T* __restrict__ dk, T* __restrict__ dv,
+                                 size_t n, int group) {
+  for (size_t i = (size_t)blockIdx.x * NT + threadIdx.x; i < n;
+       i += (size_t)gridDim.x * NT) {
+    float sk = 0.f, sv = 0.f;
+    for (int g = 0; g < group; ++g) {
+      sk += ws[(size_t)g * 2 * n + i];
+      sv += ws[(size_t)g * 2 * n + n + i];
+    }
+    dk[i] = Val<T>::st(sk);
+    dv[i] = Val<T>::st(sv);
+  }
+}
+
+// ---- host side: one launcher per kernel, instantiated for the (type, D)
+// pairs the tensor-core kernels leave (see the dispatch below)
+
+template <int D>
+constexpr size_t fwd_smem() {
+  using L = Tiles<D>;
+  return sizeof(float) * ((L::BM + 2 * L::BN) * L::LD + L::BM * L::LP);
+}
+
+template <int D>
+constexpr size_t dq_smem() {
+  using L = Tiles<D>;
+  return sizeof(float) * (2 * (L::BM + L::BN) * L::LD + L::BM * L::LP);
+}
+
+template <int D>
+constexpr size_t dkv_smem() {
+  using L = Tiles<D>;
+  return sizeof(float) *
+         (2 * (L::BM + L::BN) * L::LD + 2 * L::BM * L::LP + 2 * L::BM);
+}
+
+// cudaFuncSetAttribute once per kernel (the host call stays out of a
+// CUDA-graph capture after the first launch)
+template <typename F>
+cudaError_t allow_smem(F* kernel, size_t bytes, bool& done) {
+  if (done) return cudaSuccess;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  done = err == cudaSuccess;
+  return err;
+}
+
+template <typename T, int D>
+int fwd(const void* q, const void* k, const void* v, void* o, void* lse,
+        const void* rc, const void* rs, const void* kv_len, int B, int Hq,
+        int Hkv, int Sq, int Sk, int rope_len, float scale, int causal,
+        int window, cudaStream_t stream) {
+  static bool done = false;
+  constexpr size_t smem = fwd_smem<D>();
+  cudaError_t err = allow_smem(flash_generic_fwd_kernel<T, D>, smem, done);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((Sq + Tiles<D>::BM - 1) / Tiles<D>::BM, Hq, B);
+  flash_generic_fwd_kernel<T, D><<<grid, NT, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(o), static_cast<float*>(lse),
+      static_cast<const float*>(rc), static_cast<const float*>(rs),
+      static_cast<const int*>(kv_len), Hq, Hkv, Sq, Sk, rope_len, scale,
+      causal, window);
+  return cudaGetLastError();
+}
+
+template <typename T, int D>
+int dq(const void* q, const void* k, const void* v, const void* dO,
+       const void* lse, const void* di, void* dq_, int B, int Hq, int Hkv,
+       int Sq, int Sk, float scale, int causal, int window,
+       cudaStream_t stream) {
+  static bool done = false;
+  constexpr size_t smem = dq_smem<D>();
+  cudaError_t err = allow_smem(flash_generic_dq_kernel<T, D>, smem, done);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((Sq + Tiles<D>::BM - 1) / Tiles<D>::BM, Hq, B);
+  flash_generic_dq_kernel<T, D><<<grid, NT, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(dO),
+      static_cast<const float*>(lse), static_cast<const float*>(di),
+      static_cast<T*>(dq_), Hq, Hkv, Sq, Sk, scale, causal, window);
+  return cudaGetLastError();
+}
+
+template <typename T, int D>
+int dkv(const void* q, const void* k, const void* v, const void* dO,
+        const void* lse, const void* di, void* dk, void* dv, void* ws, int B,
+        int Hq, int Hkv, int Sq, int Sk, float scale, int causal, int window,
+        cudaStream_t stream) {
+  static bool done = false;
+  constexpr size_t smem = dkv_smem<D>();
+  cudaError_t err = allow_smem(flash_generic_dkv_kernel<T, D>, smem, done);
+  if (err != cudaSuccess) return err;
+  const int group = Hq / Hkv;
+  if (group > 1 && ws == nullptr) return cudaErrorInvalidValue;
+  const dim3 grid((Sk + Tiles<D>::BN - 1) / Tiles<D>::BN, Hq, B);
+  flash_generic_dkv_kernel<T, D><<<grid, NT, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(dO),
+      static_cast<const float*>(lse), static_cast<const float*>(di),
+      static_cast<T*>(dk), static_cast<T*>(dv),
+      group > 1 ? static_cast<float*>(ws) : nullptr, Hq, Hkv, Sq, Sk, scale,
+      causal, window);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || group == 1) return err;
+  const size_t n = (size_t)B * Hkv * Sk * D;
+  const size_t want = (n + NT - 1) / NT;
+  const int blocks = (int)(want < 132 * 8 ? want : 132 * 8);
+  flash_generic_dkv_kernel_sum<T><<<blocks, NT, 0, stream>>>(
+      static_cast<const float*>(ws), static_cast<T*>(dk),
+      static_cast<T*>(dv), n, group);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// f32 at D 64 / 128 / 256; bf16 and f16 at D 64 / 256 (D = 128 in 16 bits
+// is flash_fwd.cu's and flash_bwd.cu's); anything else is refused
+#define AULE_GENERIC_DISPATCH(FN, ...)                          \
+  switch (dtype * 1000 + D) {                                   \
+    case kF32 * 1000 + 64: return FN<float, 64>(__VA_ARGS__);   \
+    case kF32 * 1000 + 128: return FN<float, 128>(__VA_ARGS__); \
+    case kF32 * 1000 + 256: return FN<float, 256>(__VA_ARGS__); \
+    case aule::kBF16 * 1000 + 64:                                     \
+      return FN<__nv_bfloat16, 64>(__VA_ARGS__);                \
+    case aule::kBF16 * 1000 + 256:                                    \
+      return FN<__nv_bfloat16, 256>(__VA_ARGS__);               \
+    case aule::kF16 * 1000 + 64: return FN<__half, 64>(__VA_ARGS__);  \
+    case aule::kF16 * 1000 + 256: return FN<__half, 256>(__VA_ARGS__); \
+    default: return cudaErrorInvalidValue;                      \
+  }
+
+extern "C" int aule_flash_generic_fwd(const void* q, const void* k,
+                                      const void* v, void* o, void* lse,
+                                      const void* rc, const void* rs,
+                                      const void* kv_len, int B, int Hq,
+                                      int Hkv, int Sq, int Sk, int D,
+                                      int rope_len, float scale, int causal,
+                                      int window, int dtype, void* stream) {
+  if (Sq <= 0 || B <= 0) return cudaSuccess;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  AULE_GENERIC_DISPATCH(fwd, q, k, v, o, lse, rc, rs, kv_len, B, Hq, Hkv, Sq,
+                        Sk, rope_len, scale, causal, window, s)
+}
+
+extern "C" int aule_flash_generic_delta(const void* o, const void* dO,
+                                        const void* dlse, void* di, int rows,
+                                        int D, int dtype, void* stream) {
+  if (rows <= 0) return cudaSuccess;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int blocks = (rows + NT / 32 - 1) / (NT / 32);
+  const float* dl = static_cast<const float*>(dlse);
+  float* out = static_cast<float*>(di);
+  if (dtype == kF32)
+    flash_generic_delta_kernel<float><<<blocks, NT, 0, s>>>(
+        static_cast<const float*>(o), static_cast<const float*>(dO), dl, out,
+        rows, D);
+  else if (dtype == aule::kF16)
+    flash_generic_delta_kernel<__half><<<blocks, NT, 0, s>>>(
+        static_cast<const __half*>(o), static_cast<const __half*>(dO), dl,
+        out, rows, D);
+  else
+    flash_generic_delta_kernel<__nv_bfloat16><<<blocks, NT, 0, s>>>(
+        static_cast<const __nv_bfloat16*>(o),
+        static_cast<const __nv_bfloat16*>(dO), dl, out, rows, D);
+  return cudaGetLastError();
+}
+
+extern "C" int aule_flash_generic_dq(const void* q, const void* k,
+                                     const void* v, const void* dO,
+                                     const void* lse, const void* di,
+                                     void* dq_, int B, int Hq, int Hkv,
+                                     int Sq, int Sk, int D, float scale,
+                                     int causal, int window, int dtype,
+                                     void* stream) {
+  if (Sq <= 0 || B <= 0) return cudaSuccess;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  AULE_GENERIC_DISPATCH(dq, q, k, v, dO, lse, di, dq_, B, Hq, Hkv, Sq, Sk,
+                        scale, causal, window, s)
+}
+
+// ws: f32 workspace of 2 * (Hq / Hkv) * B * Hkv * Sk * D floats when
+// Hq > Hkv (the group's shares of dK and dV), else null.
+extern "C" int aule_flash_generic_dkv(const void* q, const void* k,
+                                      const void* v, const void* dO,
+                                      const void* lse, const void* di,
+                                      void* dk, void* dv, void* ws, int B,
+                                      int Hq, int Hkv, int Sq, int Sk, int D,
+                                      float scale, int causal, int window,
+                                      int dtype, void* stream) {
+  if (Sk <= 0 || B <= 0) return cudaSuccess;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  AULE_GENERIC_DISPATCH(dkv, q, k, v, dO, lse, di, dk, dv, ws, B, Hq, Hkv,
+                        Sq, Sk, scale, causal, window, s)
+}

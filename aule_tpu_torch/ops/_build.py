@@ -36,11 +36,24 @@ _FLOAT = ctypes.c_float
 
 # C signatures: every pointer and the stream are c_void_p, every int c_int
 SIGNATURES = {
-    "aule_flash_fwd": [_VOID, _VOID, _VOID, _VOID, _VOID, _INT, _INT, _INT,
-                       _INT, _INT, _FLOAT, _INT, _INT, _INT, _VOID],
-    "aule_flash_fwd_short": [_VOID, _VOID, _VOID, _VOID, _VOID, _INT, _INT,
-                             _INT, _INT, _INT, _FLOAT, _INT, _INT, _INT,
-                             _VOID],
+    # q, k, v, out, lse, rope cos, rope sin, kv_len, B, Hq, Hkv, Sq, Sk,
+    # rope_len, scale, causal, window, dtype, stream
+    "aule_flash_fwd": [_VOID] * 8 + [_INT] * 6 + [_FLOAT] + [_INT] * 3 +
+                      [_VOID],
+    "aule_flash_fwd_short": [_VOID] * 8 + [_INT] * 6 + [_FLOAT] +
+                            [_INT] * 3 + [_VOID],
+    # as aule_flash_fwd, with D after Sk
+    "aule_flash_generic_fwd": [_VOID] * 8 + [_INT] * 7 + [_FLOAT] +
+                              [_INT] * 3 + [_VOID],
+    # o, do, dlse, di, rows, D, dtype, stream
+    "aule_flash_generic_delta": [_VOID] * 4 + [_INT] * 3 + [_VOID],
+    # q, k, v, do, lse, di, dq, B, Hq, Hkv, Sq, Sk, D, scale, causal,
+    # window, dtype, stream
+    "aule_flash_generic_dq": [_VOID] * 7 + [_INT] * 6 + [_FLOAT] +
+                             [_INT] * 3 + [_VOID],
+    # q, k, v, do, lse, di, dk, dv, workspace, then as aule_flash_generic_dq
+    "aule_flash_generic_dkv": [_VOID] * 9 + [_INT] * 6 + [_FLOAT] +
+                              [_INT] * 3 + [_VOID],
     # q, qf, kv, scales, tables, lens, out, lse, ws, counters, B, Hq, Hkv,
     # page, max_pages, scale, window, nsplit, dtype, pool, sc_f32, stream
     "aule_paged_decode": [_VOID] * 10 + [_INT] * 5 + [_FLOAT] +
@@ -146,7 +159,11 @@ def build() -> Path:
 def library() -> ctypes.CDLL:
     """The kernels' shared library, built at first use."""
     if _State.lib is None:
-        so = build()
+        try:
+            so = build()
+        except RuntimeError as e:
+            _record_error(str(e))
+            raise
         if _State.build_seconds is None:
             _State.build_seconds = 0.0
         lib = ctypes.CDLL(str(so))
@@ -170,23 +187,36 @@ def build_log() -> str:
     return _State.log
 
 
+def _record_error(msg: str) -> None:
+    """A build or launch failure, for `get_backend_errors()["cuda"]`."""
+    from .. import backends
+
+    backends.record_error("cuda", msg)
+
+
 def check(err: int, name: str) -> None:
     if err != 0:
-        msg = library().aule_error_string(err).decode()
-        raise RuntimeError(f"{name}: CUDA error {err} ({msg})")
+        msg = (f"{name}: CUDA error {err} "
+               f"({library().aule_error_string(err).decode()})")
+        _record_error(msg)
+        raise RuntimeError(msg)
 
 
 def stream_handle(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def dtype_code(dtype) -> int:
-    """0 = bfloat16, 1 = float16 (the kernels' storage types)."""
+def dtype_code(dtype, f32: bool = False) -> int:
+    """0 = bfloat16, 1 = float16 (the kernels' storage types); 2 = float32
+    where the kernel takes it (`f32`: csrc/flash_generic.cu)."""
     if dtype == torch.bfloat16:
         return 0
     if dtype == torch.float16:
         return 1
-    raise TypeError(f"the CUDA kernels take bfloat16 or float16, got {dtype}")
+    if f32 and dtype == torch.float32:
+        return 2
+    raise TypeError(f"the CUDA kernels take bfloat16 or float16"
+                    f"{' or float32' if f32 else ''}, got {dtype}")
 
 
 def pool_code(dtype) -> int:

@@ -1,20 +1,28 @@
 """Flash-attention forward (counterpart of aule_tpu/ops/flash.py).
 
 `flash_attention_fwd` keeps the JAX signature and layout: q [B, Hq, Sq, D],
-k/v [B, Hkv, Sk, D] in; `(out, lse [B, Hq, Sq])` or `out` back.  It follows
-its tensors:
+k/v [B, Hkv, Sk, D] in; `(out, lse [B, Hq, Sq])` or `out` back.  It takes
+every argument of the TPU kernel `_fwd_kernel`: causal and window masks,
+GQA, Sq != Sk, fused RoPE (`rope_cos`/`rope_sin`, [L, D/2] f32 tables;
+positions 0..Sq-1 for q and 0..Sk-1 for k, the identity past L) and a
+`kv_len` (only the first kv_len keys attend; an int, or an int32 tensor
+that is read on the card and never on the host, so a CUDA graph can replay
+the call at another length).  It follows its tensors:
   * CPU tensors go to `flash_attention_fwd_plain`, the dense PyTorch version;
-  * CUDA tensors launch a hand-written kernel (both replace the TPU kernels
-    `_fwd_kernel` and `_mono_kernel`; see the source notes), or raise for
-    what the kernels do not take: `flash_fwd_tma`, csrc/flash_fwd.cu's
-    TMA/wgmma kernel, on every shape but the shortest prompts, which go to
-    `flash_fwd_short`, csrc/flash_fwd_short.cu's mma.sync kernel, by one
-    rule on the query length (`SHORT_SQ`).
-The kernels take bf16/f16 with D=128; f32 on the card, D other than 128,
-fused RoPE (`rope_cos`/`rope_sin`, i.e. `flash_attention_rope`) and a
-traced `kv_len` come with later slices and raise here.  Training goes
-through `ops/flash_vjp.py`, whose autograd Function calls this forward
-(with its LSE) and the backward kernels.
+  * CUDA tensors launch a hand-written kernel, by one rule on the type, the
+    head dim and the query length:
+      - bf16 / f16 at D = 128: `flash_fwd_short`, csrc/flash_fwd_short.cu's
+        mma.sync kernel, for at most `SHORT_SQ` queries, else
+        `flash_fwd_tma`, csrc/flash_fwd.cu's TMA/wgmma kernel (both
+        replace `_fwd_kernel` and `_mono_kernel`; see the source notes);
+      - f32 at D = 64, 128 or 256 and bf16 / f16 at D = 64 or 256:
+        `flash_fwd_generic`, csrc/flash_generic.cu's FFMA kernel;
+    other head dims raise.
+`flash_attention_rope` is the forward-only fused-RoPE entry, and
+`flash_attention_cuda` the differentiable one (RoPE outside the op, as
+JAX's `flash_attention_pallas`).  Training goes through `ops/flash_vjp.py`,
+whose autograd Function calls this forward (with its LSE) and the backward
+kernels.
 """
 
 from __future__ import annotations
@@ -26,8 +34,11 @@ import torch
 
 from . import _build
 from .reference import attention_reference
+from .rope import apply_rope
 
 KERNEL_HEAD_DIM = 128
+# head dims of csrc/flash_generic.cu (f32 at all three; 16-bit at 64, 256)
+GENERIC_HEAD_DIMS = (64, 128, 256)
 # Queries per head at or below which the mma.sync kernel runs: a tile or
 # two of work, whose time is the latency to the first tile, which the
 # TMA/wgmma kernel's warp-specialised set-up lengthens.  Set from
@@ -37,14 +48,37 @@ KERNEL_HEAD_DIM = 128
 SHORT_SQ = 16
 
 
+def rope_identity_padded(rope_cos, rope_sin, n: int):
+    """The tables as the kernels read them, [n, D/2] f32: rows past the
+    tables' end are cos 1, sin 0 (the TPU kernel pads them so,
+    flash.py:1564-1572)."""
+    cos = rope_cos.float()[:n]
+    sin = rope_sin.float()[:n]
+    if cos.shape[0] < n:
+        pad = n - cos.shape[0]
+        cos = torch.cat([cos, cos.new_ones(pad, cos.shape[1])])
+        sin = torch.cat([sin, sin.new_zeros(pad, sin.shape[1])])
+    return cos, sin
+
+
 def flash_attention_fwd_plain(q, k, v, *, causal: bool = False,
                               scale: Optional[float] = None,
                               window_size: int = -1,
-                              return_lse: bool = True):
-    """The plain PyTorch version of the kernel: dense f32 attention."""
+                              rope_cos: Optional[torch.Tensor] = None,
+                              rope_sin: Optional[torch.Tensor] = None,
+                              return_lse: bool = True, kv_len=None):
+    """The plain PyTorch version of the kernels: dense f32 attention; RoPE
+    in f32 with the kernels' identity past the tables, the rotated q and k
+    rounded to their type as the kernels round their tiles (and as
+    flash.py:227-243 does); the kv_len mask."""
+    if rope_cos is not None:
+        cos, sin = rope_identity_padded(rope_cos, rope_sin,
+                                        max(q.shape[2], k.shape[2]))
+        q = apply_rope(q, cos.to(q.device), sin.to(q.device))
+        k = apply_rope(k, cos.to(k.device), sin.to(k.device))
     return attention_reference(q, k, v, causal=causal, scale=scale,
-                               window_size=window_size,
-                               return_lse=return_lse)
+                               window_size=window_size, return_lse=return_lse,
+                               kv_len=kv_len)
 
 
 def _scale_window(q, scale, window_size):
@@ -68,6 +102,44 @@ def _check_shapes(q, k, v):
                          f"Hkv={k.shape[1]}")
 
 
+def _check_rope(q, rope_cos, rope_sin):
+    if (rope_cos is None) != (rope_sin is None):
+        raise ValueError("rope_cos and rope_sin come together")
+    if rope_cos is None:
+        return
+    want = q.shape[-1] // 2
+    if (rope_cos.dim() != 2 or rope_cos.shape != rope_sin.shape
+            or rope_cos.shape[1] != want):
+        raise ValueError(f"rope tables must both be [L, {want}], got "
+                         f"{tuple(rope_cos.shape)} and "
+                         f"{tuple(rope_sin.shape)}")
+
+
+def uses_generic(q) -> bool:
+    """Whether the card runs q's type and head dim on flash_generic.cu
+    (f32, or a head dim other than 128) rather than the tensor-core
+    kernels."""
+    return q.dtype == torch.float32 or q.shape[-1] != KERNEL_HEAD_DIM
+
+
+def check_kernel_type(q, generic: bool) -> None:
+    """Raise unless the kernels of one family take q's type and head dim:
+    flash_generic.cu (`generic`) f32 at D 64/128/256 and bf16/f16 at D 64
+    or 256; the tensor-core kernels bf16/f16 at D 128."""
+    d = q.shape[-1]
+    if generic:
+        if d in GENERIC_HEAD_DIMS and (q.dtype == torch.float32
+                                       or d != KERNEL_HEAD_DIM):
+            return
+        raise ValueError(f"flash_generic.cu takes f32 at D in "
+                         f"{GENERIC_HEAD_DIMS} and bf16/f16 at D 64 or 256 "
+                         f"(got {q.dtype} D={d})")
+    if d != KERNEL_HEAD_DIM or q.dtype == torch.float32:
+        raise ValueError(f"the tensor-core flash kernels take bf16/f16 at "
+                         f"D={KERNEL_HEAD_DIM} (got {q.dtype} D={d}); the "
+                         f"others run on flash_generic.cu")
+
+
 def flash_attention_fwd(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -79,65 +151,90 @@ def flash_attention_fwd(
     rope_cos: Optional[torch.Tensor] = None,
     rope_sin: Optional[torch.Tensor] = None,
     return_lse: bool = True,
-    kv_len: Optional[torch.Tensor] = None,
+    kv_len=None,
 ):
     """softmax(scale * q k^T + mask) v with GQA, causal (top-left aligned)
-    and window masks, Sq != Sk and ragged lengths.  Returns
-    (out, natural-log lse f32) or just out with return_lse=False."""
+    and window masks, Sq != Sk, fused RoPE and a device-side kv_len.
+    Returns (out, natural-log lse f32) or just out with return_lse=False."""
     _check_shapes(q, k, v)
-    if rope_cos is not None or rope_sin is not None:
-        raise NotImplementedError(
-            "fused RoPE (flash_attention_rope) is not ported yet: it comes "
-            "with a later slice; rotate q/k with ops.rope.apply_rope first")
-    if kv_len is not None:
-        raise NotImplementedError(
-            "a traced kv_len (bucket-padded varlen) is not ported yet: it "
-            "comes with the integration slice")
+    _check_rope(q, rope_cos, rope_sin)
     scale, window = _scale_window(q, scale, window_size)
+    kw = dict(causal=causal, scale=scale, window_size=window,
+              rope_cos=rope_cos, rope_sin=rope_sin, return_lse=return_lse,
+              kv_len=kv_len)
     if q.device.type == "cpu":
-        return flash_attention_fwd_plain(
-            q, k, v, causal=causal, scale=scale, window_size=window,
-            return_lse=return_lse)
-    kernel = flash_fwd_short if q.shape[2] <= SHORT_SQ else flash_fwd_tma
-    return kernel(q, k, v, causal=causal, scale=scale, window_size=window,
-                  return_lse=return_lse)
+        return flash_attention_fwd_plain(q, k, v, **kw)
+    if uses_generic(q):
+        kernel = flash_fwd_generic
+    elif q.shape[2] <= SHORT_SQ:
+        kernel = flash_fwd_short
+    else:
+        kernel = flash_fwd_tma
+    return kernel(q, k, v, **kw)
 
 
-def _launch(entry: str, q, k, v, causal, scale, window_size, return_lse):
+def _kv_len_tensor(kv_len, seq_k: int, device):
+    """kv_len as one int32 on `device` (a tensor is never read on the
+    host: an int32 tensor already there is passed as it is, so a CUDA graph
+    that captured the call reads its value at each replay)."""
+    if kv_len is None:
+        return None
+    if isinstance(kv_len, torch.Tensor):
+        if kv_len.numel() != 1:
+            raise ValueError(f"kv_len must hold one length, got shape "
+                             f"{tuple(kv_len.shape)}")
+        return kv_len.to(device=device, dtype=torch.int32).reshape(1)
+    n = int(kv_len)
+    if not 0 <= n <= seq_k:
+        raise ValueError(f"kv_len {n} is outside [0, Sk={seq_k}]")
+    return torch.tensor([n], dtype=torch.int32, device=device)
+
+
+def _rope_tensor(t, device):
+    """A table as the kernels read it: f32, contiguous, 16-byte aligned."""
+    t = t.to(device=device, dtype=torch.float32).contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _launch(entry: str, q, k, v, causal, scale, window_size, rope_cos,
+            rope_sin, return_lse, kv_len, generic: bool):
     """Check CUDA q, k, v and run the C entry point `entry` on them."""
     _check_shapes(q, k, v)
+    _check_rope(q, rope_cos, rope_sin)
     scale, window = _scale_window(q, scale, window_size)
     if q.device.type != "cuda":
         raise ValueError(f"the flash kernels run on CUDA tensors, got "
                          f"{q.device}")
-    if q.shape[-1] != KERNEL_HEAD_DIM:
-        raise NotImplementedError(
-            f"the CUDA flash kernels take D={KERNEL_HEAD_DIM}; D=64 and "
-            f"D=256 come with the GPT-2 slice (got D={q.shape[-1]})")
     if not (q.dtype == k.dtype == v.dtype):
         raise TypeError(f"q/k/v dtypes differ: {q.dtype}, {k.dtype}, "
                         f"{v.dtype}")
-    if q.dtype == torch.float32:
-        raise NotImplementedError(
-            "f32 flash attention on the card comes with a later slice; "
-            "pass bf16 or f16")
-    code = _build.dtype_code(q.dtype)
+    check_kernel_type(q, generic)
+    d = q.shape[-1]
+    code = _build.dtype_code(q.dtype, f32=generic)
     if not (k.device == v.device == q.device):
         raise ValueError("q, k, v must be on one device")
     lib = _build.library()
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     for name, x in (("q", q), ("k", k), ("v", v)):
-        if x.data_ptr() % 16:  # a TMA tensor map's base
+        if x.data_ptr() % 16:  # a TMA tensor map's base, 16-byte loads
             raise ValueError(f"{name} must start on a 16-byte boundary")
     batch, hq, seq_q, _ = q.shape
     hkv, seq_k = k.shape[1], k.shape[2]
+    cos = sin = None
+    if rope_cos is not None:
+        cos, sin = (_rope_tensor(t, q.device) for t in (rope_cos, rope_sin))
+    live = _kv_len_tensor(kv_len, seq_k, q.device)
     out = torch.empty_like(q)
     lse = (torch.empty((batch, hq, seq_q), dtype=torch.float32,
                        device=q.device) if return_lse else None)
+    dims = (batch, hq, hkv, seq_q, seq_k) + ((d,) if generic else ())
     err = getattr(lib, entry)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lse.data_ptr() if lse is not None else None,
-        batch, hq, hkv, seq_q, seq_k, scale, int(bool(causal)),
+        cos.data_ptr() if cos is not None else None,
+        sin.data_ptr() if sin is not None else None,
+        live.data_ptr() if live is not None else None, *dims,
+        cos.shape[0] if cos is not None else 0, scale, int(bool(causal)),
         window, code, _build.stream_handle(q.device))
     _build.check(err, entry)
     return (out, lse) if return_lse else out
@@ -145,26 +242,67 @@ def _launch(entry: str, q, k, v, causal, scale, window_size, return_lse):
 
 def flash_fwd_tma(q, k, v, *, causal: bool = False,
                   scale: Optional[float] = None, window_size: int = -1,
-                  return_lse: bool = True):
-    """csrc/flash_fwd.cu's TMA/wgmma kernel on CUDA tensors of any length
-    (what `flash_attention_fwd` runs above SHORT_SQ queries)."""
+                  rope_cos=None, rope_sin=None, return_lse: bool = True,
+                  kv_len=None):
+    """csrc/flash_fwd.cu's TMA/wgmma kernel on CUDA bf16/f16 tensors at
+    D=128 of any length (what `flash_attention_fwd` runs above SHORT_SQ
+    queries)."""
     res = _launch("aule_flash_fwd", q, k, v, causal, scale, window_size,
-                  return_lse)
+                  rope_cos, rope_sin, return_lse, kv_len, False)
     flash_fwd_tma.launches += 1
     return res
 
 
 def flash_fwd_short(q, k, v, *, causal: bool = False,
                     scale: Optional[float] = None, window_size: int = -1,
-                    return_lse: bool = True):
-    """csrc/flash_fwd_short.cu's mma.sync kernel on CUDA tensors of any
-    length (what `flash_attention_fwd` runs up to SHORT_SQ queries)."""
+                    rope_cos=None, rope_sin=None, return_lse: bool = True,
+                    kv_len=None):
+    """csrc/flash_fwd_short.cu's mma.sync kernel on CUDA bf16/f16 tensors
+    at D=128 of any length (what `flash_attention_fwd` runs up to
+    SHORT_SQ queries, the bucketed decode's one query among them)."""
     res = _launch("aule_flash_fwd_short", q, k, v, causal, scale,
-                  window_size, return_lse)
+                  window_size, rope_cos, rope_sin, return_lse, kv_len, False)
     flash_fwd_short.launches += 1
+    return res
+
+
+def flash_fwd_generic(q, k, v, *, causal: bool = False,
+                      scale: Optional[float] = None, window_size: int = -1,
+                      rope_cos=None, rope_sin=None, return_lse: bool = True,
+                      kv_len=None):
+    """csrc/flash_generic.cu's FFMA forward on CUDA tensors: f32 at D 64,
+    128 or 256, bf16/f16 at D 64 or 256."""
+    res = _launch("aule_flash_generic_fwd", q, k, v, causal, scale,
+                  window_size, rope_cos, rope_sin, return_lse, kv_len, True)
+    flash_fwd_generic.launches += 1
     return res
 
 
 # kernel launches since the last reset (the CPU route counts none)
 flash_fwd_tma.launches = 0
 flash_fwd_short.launches = 0
+flash_fwd_generic.launches = 0
+
+
+def flash_attention_rope(q, k, v, rope_cos, rope_sin, *,
+                         causal: bool = False, scale: Optional[float] = None,
+                         window_size: int = -1):
+    """Inference fast path: RoPE fused inside the kernel, no rotated q or
+    k in device memory.  Forward-only (flash.py:1658-1673); training goes
+    through `flash_attention_cuda`, which rotates outside the op."""
+    return flash_attention_fwd(q, k, v, causal=causal, scale=scale,
+                               window_size=window_size, rope_cos=rope_cos,
+                               rope_sin=rope_sin, return_lse=False)
+
+
+def flash_attention_cuda(q, k, v, *, causal: bool = False,
+                         scale: Optional[float] = None,
+                         window_size: int = -1, rope_cos=None,
+                         rope_sin=None):
+    """The differentiable public route of the cuda backend (the counterpart
+    of flash.py:1676-1689's flash_attention_pallas): the autograd Function
+    of ops/flash_vjp.py, RoPE outside the op."""
+    from .flash_vjp import flash_attention_vjp
+
+    return flash_attention_vjp(q, k, v, causal, scale, window_size,
+                               rope_cos, rope_sin)

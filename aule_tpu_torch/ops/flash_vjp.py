@@ -15,6 +15,11 @@ The wrappers follow their tensors: CPU tensors take the plain PyTorch
 versions, CUDA tensors launch the hand-written kernels (replacing
 `_dq_kernel` and `_dkv_kernel`, and with a window `_win_dq_kernel` and
 `_win_dkv_kernel`) or raise for what they do not take (bf16/f16, D=128).
+f32 and the head dims 64 and 256 take the three kernels of
+csrc/flash_generic.cu instead (`attention_delta_generic`,
+`flash_bwd_generic_dq`, `flash_bwd_generic_dkv`: FFMA products, a fixed
+order of every sum, no atomics); `flash_attention_bwd` picks by q's type
+and head dim.
 
 RoPE composes outside the op through `ops.rope.apply_rope`, whose
 autograd gives its exact gradient.  With grad off (no input that requires
@@ -30,7 +35,8 @@ import torch
 
 from . import _build
 from .flash import (KERNEL_HEAD_DIM, _check_shapes, _scale_window,
-                    flash_attention_fwd, flash_attention_fwd_plain)
+                    check_kernel_type, flash_attention_fwd,
+                    flash_attention_fwd_plain, uses_generic)
 from .reference import _expand_kv, build_mask
 from .rope import apply_rope
 
@@ -57,9 +63,9 @@ def attention_delta(o: torch.Tensor, do: torch.Tensor,
         raise ValueError(f"do {tuple(do.shape)} on {do.device} is not o's "
                          f"{tuple(o.shape)} on {o.device}")
     if o.shape[-1] != KERNEL_HEAD_DIM:
-        raise NotImplementedError(
-            f"the CUDA delta kernel takes D={KERNEL_HEAD_DIM} (got "
-            f"D={o.shape[-1]})")
+        raise ValueError(
+            f"flash_bwd.cu's delta kernel takes D={KERNEL_HEAD_DIM} (got "
+            f"D={o.shape[-1]}); attention_delta_generic takes the others")
     if do.dtype != o.dtype:
         raise TypeError(f"o/do dtypes differ: {o.dtype}, {do.dtype}")
     code = _build.dtype_code(o.dtype)
@@ -151,16 +157,15 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal=False,
 
 # ---- the kernels' wrappers
 
-def _cuda_inputs(q, k, v, do, lse, di):
-    """Check what the CUDA kernels take; return the tensors contiguous."""
+def _cuda_inputs(q, k, v, do, lse, di, generic=False):
+    """Check what the CUDA kernels take (flash_bwd.cu's: bf16/f16 at
+    D=128; `generic`, flash_generic.cu's: f32 at D 64/128/256, bf16/f16
+    at D 64/256); return the tensors contiguous."""
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     if any(t.device != q.device for t in (k, v, do, lse, di)):
         raise ValueError("q, k, v, do, lse, di must be on one device")
-    if q.shape[-1] != KERNEL_HEAD_DIM:
-        raise NotImplementedError(
-            f"the CUDA flash backward takes D={KERNEL_HEAD_DIM} (got "
-            f"D={q.shape[-1]})")
+    check_kernel_type(q, generic)
     if not (q.dtype == k.dtype == v.dtype == do.dtype):
         raise TypeError(f"q/k/v/do dtypes differ: {q.dtype}, {k.dtype}, "
                         f"{v.dtype}, {do.dtype}")
@@ -226,23 +231,115 @@ def flash_bwd_dkv(q, k, v, do, lse, di, *, causal=False, scale=None,
     return dk, dv
 
 
+def attention_delta_generic(o: torch.Tensor, do: torch.Tensor,
+                            dlse: Optional[torch.Tensor] = None
+                            ) -> torch.Tensor:
+    """`attention_delta_plain` for CPU tensors; for CUDA tensors the delta
+    kernel of csrc/flash_generic.cu (f32, bf16 or f16 at D 64/128/256;
+    one warp a row, f32 sums in a fixed order)."""
+    if o.device.type == "cpu":
+        return attention_delta_plain(o, do, dlse)
+    if o.device.type != "cuda":
+        raise ValueError(f"unsupported device {o.device}")
+    if do.shape != o.shape or do.device != o.device or do.dtype != o.dtype:
+        raise ValueError(f"do {tuple(do.shape)} {do.dtype} on {do.device} "
+                         f"is not o's {tuple(o.shape)} {o.dtype} on "
+                         f"{o.device}")
+    code = _build.dtype_code(o.dtype, f32=True)
+    o, do = o.contiguous(), do.contiguous()
+    rows = o.shape[:-1]
+    if dlse is not None:
+        if dlse.shape != rows or dlse.device != o.device:
+            raise ValueError(f"dlse must be {tuple(rows)} on {o.device}, got "
+                             f"{tuple(dlse.shape)} on {dlse.device}")
+        dlse = dlse.float().contiguous()
+    di = torch.empty(rows, dtype=torch.float32, device=o.device)
+    err = _build.library().aule_flash_generic_delta(
+        o.data_ptr(), do.data_ptr(),
+        dlse.data_ptr() if dlse is not None else None, di.data_ptr(),
+        di.numel(), o.shape[-1], code, _build.stream_handle(o.device))
+    _build.check(err, "aule_flash_generic_delta")
+    attention_delta_generic.launches += 1
+    return di
+
+
+def flash_bwd_generic_dq(q, k, v, do, lse, di, *, causal=False, scale=None,
+                         window=-1):
+    """dQ as `flash_bwd_dq`, on csrc/flash_generic.cu's dQ kernel for CUDA
+    tensors (f32 at D 64/128/256, bf16/f16 at D 64/256)."""
+    _check_shapes(q, k, v)
+    scale, window = _scale_window(q, scale, window)
+    if q.device.type == "cpu":
+        return flash_bwd_dq_plain(q, k, v, do, lse, di, causal=causal,
+                                  scale=scale, window=window)
+    q, k, v, do, lse, di = _cuda_inputs(q, k, v, do, lse, di, generic=True)
+    batch, hq, seq_q, d = q.shape
+    dq = torch.empty_like(q)
+    err = _build.library().aule_flash_generic_dq(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), di.data_ptr(), dq.data_ptr(), batch, hq, k.shape[1],
+        seq_q, k.shape[2], d, scale, int(bool(causal)), window,
+        _build.dtype_code(q.dtype, f32=True), _build.stream_handle(q.device))
+    _build.check(err, "aule_flash_generic_dq")
+    flash_bwd_generic_dq.launches += 1
+    return dq
+
+
+def flash_bwd_generic_dkv(q, k, v, do, lse, di, *, causal=False,
+                          scale=None, window=-1):
+    """(dK, dV) as `flash_bwd_dkv`, on csrc/flash_generic.cu's dK/dV
+    kernel for CUDA tensors (one block per kv tile and q head; with GQA the
+    heads' f32 shares go to a workspace, summed in head order by a second
+    kernel: no atomics)."""
+    _check_shapes(q, k, v)
+    scale, window = _scale_window(q, scale, window)
+    if q.device.type == "cpu":
+        return flash_bwd_dkv_plain(q, k, v, do, lse, di, causal=causal,
+                                   scale=scale, window=window)
+    q, k, v, do, lse, di = _cuda_inputs(q, k, v, do, lse, di, generic=True)
+    batch, hq, seq_q, d = q.shape
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    group = hq // k.shape[1]
+    ws = (torch.empty(2 * group * k.numel(), dtype=torch.float32,
+                      device=q.device) if group > 1 else None)
+    err = _build.library().aule_flash_generic_dkv(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), di.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        ws.data_ptr() if ws is not None else None, batch,
+        hq, k.shape[1], seq_q, k.shape[2], d, scale, int(bool(causal)),
+        window, _build.dtype_code(q.dtype, f32=True),
+        _build.stream_handle(q.device))
+    _build.check(err, "aule_flash_generic_dkv")
+    flash_bwd_generic_dkv.launches += 1
+    return dk, dv
+
+
 # kernel launches since the last reset (the CPU route does not count)
 attention_delta.launches = 0
 flash_bwd_dq.launches = 0
 flash_bwd_dkv.launches = 0
+attention_delta_generic.launches = 0
+flash_bwd_generic_dq.launches = 0
+flash_bwd_generic_dkv.launches = 0
 
 
 def flash_attention_bwd(q, k, v, o, lse, do, *, causal=False, scale=None,
                         window=-1, dlse=None):
     """(dq, dk, dv) of flash attention from its residuals and the output
     cotangent `do` (and the lse cotangent `dlse`, None = zero): the delta,
-    dQ and dK/dV kernels (for CPU tensors their plain versions, which
-    makes this `flash_attention_bwd_plain`)."""
+    dQ and dK/dV kernels, flash_bwd.cu's for bf16/f16 at D=128 and
+    flash_generic.cu's for the rest (for CPU tensors their plain versions,
+    which makes this `flash_attention_bwd_plain`)."""
     do = do.contiguous()  # arrives transposed from the heads merge
-    di = attention_delta(o, do, dlse)
+    if uses_generic(q):
+        delta, dq_fn, dkv_fn = (attention_delta_generic, flash_bwd_generic_dq,
+                                flash_bwd_generic_dkv)
+    else:
+        delta, dq_fn, dkv_fn = attention_delta, flash_bwd_dq, flash_bwd_dkv
+    di = delta(o, do, dlse)
     kw = dict(causal=causal, scale=scale, window=window)
-    return (flash_bwd_dq(q, k, v, do, lse, di, **kw),
-            *flash_bwd_dkv(q, k, v, do, lse, di, **kw))
+    return (dq_fn(q, k, v, do, lse, di, **kw),
+            *dkv_fn(q, k, v, do, lse, di, **kw))
 
 
 # ---- autograd

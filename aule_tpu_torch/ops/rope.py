@@ -15,16 +15,18 @@ def precompute_rope_frequencies(
     seq_len: int,
     head_dim: int,
     base: float = 10000.0,
+    dtype=torch.float32,
     device=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(cos, sin) f32 tables of shape [seq_len, head_dim // 2];
-    theta_i = base^(-i / (d/2)), angle = pos * theta_i."""
+    """(cos, sin) tables of shape [seq_len, head_dim // 2], computed in f32
+    and cast to `dtype` (JAX's signature, plus the device to make them
+    on); theta_i = base^(-i / (d/2)), angle = pos * theta_i."""
     half = head_dim // 2
     freqs = 1.0 / (base ** (torch.arange(half, dtype=torch.float32,
                                          device=device) / half))
     positions = torch.arange(seq_len, dtype=torch.float32, device=device)
     angles = positions[:, None] * freqs[None, :]
-    return torch.cos(angles), torch.sin(angles)
+    return torch.cos(angles).to(dtype), torch.sin(angles).to(dtype)
 
 
 def apply_rope(

@@ -45,7 +45,18 @@ Phases, each printing a line of its own:
      times (CUDA events and profiler device time) beside their bounds, the
      plain versions and the backward of F.scaled_dot_product_attention
      (timed only);
-  5. engine: a full-width, full-depth Llama-3-8B (random bf16 weights from
+  5. public, in a process of its own (`python3 chip_smoke.py --public`
+     runs it alone): aule_tpu_torch's public API on the card, whose
+     select_backend() must be cuda, each call twice with the same bits and
+     held to its plain version: the Llama-3-8B layer with fused RoPE
+     (flash_attention_rope) and through flash_attention forward and
+     backward; the bucketed decode (1 query over K/V padded to 4096)
+     captured in a CUDA graph and replayed with kv_len written in place;
+     kv_len on the TMA kernel; GPT-2 small (D64), f32 and D256 forward and
+     backward on csrc/flash_generic.cu; the SDPA patch (install, an
+     attn_mask call reaching torch's own function, uninstall); each mode
+     timed beside its bound and one PyTorch call;
+  6. engine: a full-width, full-depth Llama-3-8B (random bf16 weights from
      a seeded generator on the card) serves the same 12 greedy requests
      eight times through `ServingEngine`: over fused pools, bf16 with
      whole-prompt prefill, (a) bf16 with prefill_chunk=512, (b) int8 with
@@ -57,10 +68,10 @@ Phases, each printing a line of its own:
      back.  The bf16 runs hold every token against a teacher-forced plain
      forward; (b)-(d), (f) and (g) against a teacher-forced replay of the
      same steps with the plain attention versions;
-  6. breakdown: one prefill step and one 8-step decode dispatch of the
+  7. breakdown: one prefill step and one 8-step decode dispatch of the
      engine under torch.profiler (device busy share, kernel time by
      category) for bf16, int8 chunked, fp8 chunked and int8 split pools;
-  7. train: the same full-width, full-depth Llama-3-8B weights, made to
+  8. train: the same full-width, full-depth Llama-3-8B weights, made to
      require grad: first every parameter's gradient of loss_fn through the
      kernels against the plain attention path's on the weights cut to 2
      layers (GRAD_TOL), then 3 SGD `train_step`s on one batch of B1 x 2049
@@ -69,18 +80,20 @@ Phases, each printing a line of its own:
      (tokens/s, share of the bf16 peak, peak memory), step 3 runs under
      torch.profiler; the loss falls at every step.  Last, as it rewrites
      the weights;
-  8. a `kernels` JSON line, one entry per kernel mode the main path
-     launched (the engine runs, or the train steps for the backward);
-  9. last line: {"ok": true, "device": {...}}, printed only when every
+  9. a `kernels` JSON line, one entry per kernel mode the main path
+     launched (the engine runs, the train steps for the backward, the
+     public phase's calls for its modes);
+  10. last line: {"ok": true, "device": {...}}, printed only when every
      phase passed.  Any failure raises and the exit code is non-zero.
 
-About 4 minutes on an H100, the build included.
+About 4-5 minutes on an H100, the build included.
 """
 
 from __future__ import annotations
 
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -88,6 +101,11 @@ import time
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+# torch's own scaled_dot_product_attention, kept before the public phase's
+# install() replaces the module attribute: every library yardstick below
+# calls it, never the port through the patch
+SDPA = F.scaled_dot_product_attention
 
 # Kernel checks hold every output row to the plain version's row relative
 # to that row's size, so a fault in a row over 4000 keys (outputs ~0.03) is
@@ -312,7 +330,7 @@ def check_flash(gen):
             mask = dict(is_causal=True)
             flops = profiling.attention_flops(b, hq, s, s, 128, causal=True)
         kernel = lambda: flash_attention_fwd(q, k, v, **kw)
-        sdpa = lambda: F.scaled_dot_product_attention(q, kx, vx, **mask)
+        sdpa = lambda: SDPA(q, kx, vx, **mask)
         ms = profiling.cuda_time_ms(kernel, iters=20)
         plain = profiling.cuda_time_ms(
             lambda: flash_attention_fwd_plain(q, k, v, **kw), iters=20)
@@ -366,13 +384,18 @@ def check_flash(gen):
                                 iters=20)
     plain = profiling.cuda_time_ms(
         lambda: flash_attention_fwd_plain(q, k, v, **kw), iters=20)
-    lib = profiling.cuda_time_ms(lambda: F.scaled_dot_product_attention(
-        q, kx, vx, is_causal=True), iters=20)
+    sdpa = lambda: SDPA(q, kx, vx, is_causal=True)
+    lib = profiling.cuda_time_ms(sdpa, iters=20)
+    lib_dev = device_ms(sdpa)
     flops = profiling.attention_flops(1, 32, 7, 7, 128, causal=True)
     bound, by = profiling.bound_ms(2 * (q.numel() * 2 + k.numel() +
                                         v.numel()), flops)
+    log(f"flash short prompt S7: sdpa device {_ms(lib_dev)} (events "
+        f"{lib[0]:.4f} ms), kernel device "
+        f"{short[7]['short'] * 1e3:.2f} us")
     timings["S7 short"] = dict(ms=ms[0], plain_ms=plain[0],
                                library_ms=lib[0], bound_ms=bound, bound_by=by,
+                               library_device_ms=lib_dev,
                                device_ms_per_launch=short[7]["short"],
                                device_ms_short_prompts=short)
     flash_fwd_tma.launches = flash_fwd_short.launches = 0
@@ -410,6 +433,17 @@ def device_ms(fn, calls=20, key=None):
 
 def _ms(x) -> str:
     return "not measured" if x is None else f"{x:.4f} ms"
+
+
+def _vecdot_times(o, do):
+    """(CUDA-event median, device time) of torch.linalg.vecdot(o, do,
+    dim=-1), the one PyTorch call that computes delta's rowsum(o * do): f32
+    rows on f32 inputs; on bf16/f16 inputs its rows come rounded to the
+    input type, where the delta kernels return f32."""
+    from aule_tpu_torch.utils import profiling
+
+    fn = lambda: torch.linalg.vecdot(o, do, dim=-1)
+    return profiling.cuda_time_ms(fn, iters=20)[0], device_ms(fn)
 
 
 def _bwd_inputs(gen, shape, sq, sk, causal, window, dt, with_dlse):
@@ -452,7 +486,7 @@ def _bwd_timings(gen, shape, s, window):
     qx = q.detach().requires_grad_(True)
     kx = k.repeat_interleave(hq // hkv, dim=1).requires_grad_(True)
     vx = v.repeat_interleave(hq // hkv, dim=1).requires_grad_(True)
-    ref = F.scaled_dot_product_attention(qx, kx, vx, **mask)
+    ref = SDPA(qx, kx, vx, **mask)
     sdpa_bwd = lambda: torch.autograd.grad(ref, (qx, kx, vx), do,
                                            retain_graph=True)
     lib = profiling.cuda_time_ms(sdpa_bwd, iters=20)
@@ -485,10 +519,11 @@ def _bwd_timings(gen, shape, s, window):
         bound, by = profiling.bound_ms(
             nbytes, flops, profiling.H100_F32_FLOPS if name == "delta"
             else profiling.H100_BF16_FLOPS)
-        none = name == "delta"  # no one PyTorch call computes delta
+        lib_ms, lib_dev_ms = lib[0], lib_dev
+        if name == "delta":  # torch.linalg.vecdot(o, do): rowsum(o * do)
+            lib_ms, lib_dev_ms = _vecdot_times(o, do)
         out[name] = dict(ms=ms[0], device_ms=dev, plain_ms=plain_ms[0],
-                         library_ms=None if none else lib[0],
-                         library_device_ms=None if none else lib_dev,
+                         library_ms=lib_ms, library_device_ms=lib_dev_ms,
                          bound_ms=bound,
                          bound_by=by, gflop=flops / 1e9, mbytes=nbytes / 1e6)
         rate = flops / (dev if dev is not None else ms[0]) / 1e9
@@ -496,8 +531,8 @@ def _bwd_timings(gen, shape, s, window):
             f"causal{f' window {window}' if window > 0 else ''}: kernel "
             f"{ms[0]:.4f} ms (min {ms[1]:.4f} max {ms[2]:.4f}), device "
             f"{_ms(dev)}, {rate:.1f} TFLOP/s of {flops / 1e9:.1f} GFLOP; "
-            f"plain {plain_ms[0]:.4f} ms; sdpa backward {lib[0]:.4f} ms, "
-            f"device {_ms(lib_dev)}; bound {bound:.4f} ms ({by}; "
+            f"plain {plain_ms[0]:.4f} ms; library {lib_ms:.4f} ms, "
+            f"device {_ms(lib_dev_ms)}; bound {bound:.4f} ms ({by}; "
             f"{nbytes / 1e6:.1f} MB)")
     del ref, qx, kx, vx
     return out
@@ -790,7 +825,7 @@ def check_decode(gen):
                 f"({nsplit} splits{'' if dt is None else ', bf16 scales'})",
                 lambda: paged_attention_fused(q, pl, bt, ln, **kw),
                 lambda: paged_attention_fused_plain(q, pl, bt, ln, **kw),
-                lambda: F.scaled_dot_product_attention(q[:, :, None], kd,
+                lambda: SDPA(q[:, :, None], kd,
                                                        vd),
                 "paged_decode_kernel", kv_bytes, batch, ctx)
             t["nsplit"] = nsplit
@@ -912,7 +947,7 @@ def check_decode_split(gen):
                 f"({nsplit} splits{'' if qdt is None else ', f32 scales'})",
                 lambda: paged_attention(q, k, v, bt, ln, **kw),
                 lambda: paged_attention_plain(q, k, v, bt, ln, **kw),
-                lambda: F.scaled_dot_product_attention(q[:, :, None], kd,
+                lambda: SDPA(q[:, :, None], kd,
                                                        vd),
                 "splitpools", kv_bytes, batch, ctx)
             t["nsplit"] = nsplit
@@ -1039,7 +1074,7 @@ def check_prefill(gen):
             torch.bfloat16).repeat_interleave(4, dim=1) for x in (kh, vh))
         kw = dict(q_offsets=qoff, kv_scales=sc)
         kernel = lambda: paged_attention_prefill(q, pl, bt, ln, **kw)
-        sdpa = lambda: F.scaled_dot_product_attention(q, kd, vd,
+        sdpa = lambda: SDPA(q, kd, vd,
                                                       attn_mask=mask)
         ms = profiling.cuda_time_ms(kernel, iters=20)
         plain = profiling.cuda_time_ms(
@@ -1615,6 +1650,594 @@ def phase_train(params, cfg) -> dict:
     return {n: [x[n] for x in launches] for n in counters}
 
 
+# ---- the public phase: aule_tpu_torch's public attention API on the card
+
+# f32 rows are held as the others, to 1e-5 of each row's size: the kernel
+# and its plain version sum f32 products in other orders, a few f32 steps
+# (2^-24) of the row's terms apart.  A gradient row that cancels (causal
+# row 0: p = 1, dp = di) holds only the f32 noise of dp - di, ~1e-7 of the
+# tensor's largest values, in both versions; such rows are measured
+# against F32_BWD_FLOOR of the largest |value| (2^-5: noise of 1e-7 of it
+# reads as 3e-6 <= 1e-5, while a wrong tile moves a row by its own size).
+ROW_TOL[torch.float32] = 1e-5
+F32_BWD_FLOOR = 2.0 ** -5
+PUBLIC_SEED = SEED + 9   # a generator of its own: earlier checks' inputs
+LLAMA_ROPE_BASE = 500000.0  # Llama-3's RoPE theta
+GPT2 = (1, 12, 12)       # GPT-2 small: 12 heads of D64 (aule_tpu/models/gpt2.py:33-44)
+D256 = (1, 8, 1)         # Gemma-2B's attention shape: 8 q heads, 1 kv head, D256
+BUCKET = 4096            # the bucketed decode's padded context
+
+
+def _public_counters():
+    from aule_tpu_torch.ops import flash as tf
+    from aule_tpu_torch.ops import flash_vjp as fv
+
+    return {"flash_fwd": tf.flash_fwd_tma, "flash_fwd_short": tf.flash_fwd_short,
+            "flash_generic_fwd": tf.flash_fwd_generic,
+            "flash_bwd_delta": fv.attention_delta, "flash_bwd_dq": fv.flash_bwd_dq,
+            "flash_bwd_dkv": fv.flash_bwd_dkv,
+            "flash_generic_delta": fv.attention_delta_generic,
+            "flash_generic_dq": fv.flash_bwd_generic_dq,
+            "flash_generic_dkv": fv.flash_bwd_generic_dkv}
+
+
+class _Counted:
+    """Sets every launch count to 0 on entry and reads them on exit: the
+    launches of the public API calls inside, and only those."""
+
+    def __enter__(self):
+        self.counters = _public_counters()
+        for fn in self.counters.values():
+            fn.launches = 0
+        return self
+
+    def __exit__(self, *exc):
+        self.launches = {n: fn.launches for n, fn in self.counters.items()
+                         if fn.launches}
+        return False
+
+
+def _expect(what, launches, want):
+    if launches != want:
+        raise AssertionError(f"{what}: launches {launches} != {want}")
+    log(f"{what}: launches {launches}")
+
+
+def _frob(what, got, want):
+    """Gradients against the plain path's: relative Frobenius error within
+    GRAD_TOL, all finite (as check_grads)."""
+    for name, g, w in zip("qkv", got, want):
+        rel = float((g.float() - w.float()).norm() / w.float().norm())
+        if not (bool(torch.isfinite(g).all()) and rel <= GRAD_TOL):
+            raise AssertionError(f"{what} d{name}: relative error {rel:.3e}")
+        log(f"{what} d{name}: relative Frobenius error {rel:.3e} "
+            f"(<= {GRAD_TOL}) ok")
+
+
+def _mode_time(what, kernel, plain, library, key, nbytes, flops, rate):
+    """A kernel mode's times: CUDA-event medians of the kernel, its plain
+    version and the library call, and the device time per call of the
+    kernel (its own kernels: `key`) and of the library call
+    (torch.profiler), beside the bound.  `library` may be the (events,
+    device) times of a call timed before."""
+    from aule_tpu_torch.utils import profiling
+
+    bound, by = profiling.bound_ms(nbytes, flops, rate)
+    ms = profiling.cuda_time_ms(kernel, iters=20)
+    pl = profiling.cuda_time_ms(plain, iters=20)
+    if isinstance(library, tuple):
+        lib_ms, dev_lib = library
+    else:
+        lib_ms = profiling.cuda_time_ms(library, iters=20)[0]
+        dev_lib = device_ms(library)
+    dev = device_ms(kernel, key=key)
+    lib_part = f"device {_ms(dev_lib)} (events {lib_ms:.4f} ms)"
+    log(f"{what}: kernel device {_ms(dev)} (events {ms[0]:.4f} ms, min "
+        f"{ms[1]:.4f} max {ms[2]:.4f}); plain {pl[0]:.4f} ms; library "
+        f"{lib_part}; bound {bound:.4f} ms ({by}; {nbytes / 1e6:.1f} MB, "
+        f"{flops / 1e9:.2f} GFLOP)")
+    return dict(ms=ms[0], plain_ms=pl[0], library_ms=lib_ms, bound_ms=bound,
+                bound_by=by, device_ms=dev, library_device_ms=dev_lib)
+
+
+def _rate(dt):
+    from aule_tpu_torch.utils import profiling
+
+    return (profiling.H100_F32_FLOPS if dt == torch.float32
+            else profiling.H100_BF16_FLOPS)
+
+
+def _causal_pairs(sq, n, causal):
+    """(q, k) pairs of Sq queries over the first n keys (causal: k <= q)."""
+    if not causal:
+        return sq * n
+    return sum(min(q + 1, n) for q in range(sq))
+
+
+def _public_rope(gen, res):
+    """Llama-3-8B layer, full width, RoPE: flash_attention_rope (K1's
+    RoPE mode, forward only) and flash_attention(..., rope) with a backward
+    through autograd (rotation outside the op, as JAX's pallas route)."""
+    import aule_tpu_torch as T
+    from aule_tpu_torch.ops import flash as tf
+    from aule_tpu_torch.ops import flash_vjp as fv
+    from aule_tpu_torch.utils import profiling
+
+    b, hq, hkv = LAYER
+    s, dt = TRAIN_S, torch.bfloat16
+    q, k, v, do = (_randn(x, gen, dt) for x in ((b, hq, s, 128), (b, hkv, s, 128),
+                                               (b, hkv, s, 128), (b, hq, s, 128)))
+    cos, sin = T.precompute_rope_frequencies(s, 128, LLAMA_ROPE_BASE,
+                                             device="cuda")
+    label = f"public rope B{b} Hq{hq}/Hkv{hkv} S{s} D128 bf16 causal"
+    with _Counted() as c:
+        o = _twice(label, lambda: [T.flash_attention_rope(
+            q, k, v, cos, sin, causal=True)])[0]
+    _expect(label, c.launches, {"flash_fwd": 2})
+    res["launches"]["flash_fwd_rope"] = c.launches["flash_fwd"]
+    po, plse = tf.flash_attention_fwd_plain(q, k, v, causal=True, rope_cos=cos,
+                                            rope_sin=sin)
+    _, lse = tf.flash_fwd_tma(q, k, v, causal=True, rope_cos=cos, rope_sin=sin)
+    res["err"]["flash_fwd_rope"] = hold(label, o, po, lse, plse, ROW_TOL[dt])
+
+    def fwd_bwd(fn):
+        xs = [x.detach().requires_grad_(True) for x in (q, k, v)]
+        out = fn(*xs)
+        grads = torch.autograd.grad(out, xs, do)
+        return [out.detach(), *grads]
+
+    label = f"public flash_attention rope fwd+bwd B{b} Hq{hq}/Hkv{hkv} S{s}"
+    with _Counted() as c:
+        got = _twice(label, lambda: fwd_bwd(lambda *x: T.flash_attention(
+            *x, causal=True, rope_cos=cos, rope_sin=sin)))
+    _expect(label, c.launches, {n: 2 for n in ("flash_fwd", "flash_bwd_delta",
+                                              "flash_bwd_dq", "flash_bwd_dkv")})
+    want = fwd_bwd(lambda *x: fv.flash_attention_vjp_plain(
+        *x, True, rope_cos=cos, rope_sin=sin))
+    hold(label + " out", got[0], want[0], None, None, ROW_TOL[dt])
+    _frob(label, got[1:], want[1:])
+
+    qr, kr = T.apply_rope(q, cos, sin), T.apply_rope(k, cos, sin)
+    kx, vx = (x.repeat_interleave(hq // hkv, dim=1) for x in (kr, v))
+    flops = profiling.attention_flops(b, hq, s, s, 128, causal=True)
+    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel()) + 4 * 2 * cos.numel()
+    res["time"]["flash_fwd_rope"] = _mode_time(
+        label.replace("flash_attention rope fwd+bwd", "rope mode"),
+        lambda: T.flash_attention_rope(q, k, v, cos, sin, causal=True),
+        lambda: tf.flash_attention_fwd_plain(q, k, v, causal=True, rope_cos=cos,
+                                             rope_sin=sin, return_lse=False),
+        lambda: SDPA(qr, kx, vx, is_causal=True), "flash_fwd_kernel", nbytes,
+        flops, _rate(dt))
+
+
+def _public_decode(gen, res):
+    """The bucketed decode: one query against K/V padded to BUCKET keys,
+    kv_len a device tensor; one CUDA-graph capture of the public call,
+    replayed with kv_len written in place (K2's kv_len mode)."""
+    import aule_tpu_torch as T
+    from aule_tpu_torch.ops import flash as tf
+    from aule_tpu_torch.utils import profiling
+
+    b, hq, hkv = LAYER
+    dt = torch.bfloat16
+    q = _randn((b, hq, 1, 128), gen, dt)
+    kp, vp = (_randn((b, hkv, BUCKET, 128), gen, dt) for _ in range(2))
+    kvl = torch.full((1,), BUCKET, dtype=torch.int32, device="cuda")
+    label = f"public bucketed decode Hq{hq}/Hkv{hkv} D128 bf16, K/V {BUCKET}"
+    with _Counted() as c:
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            for _ in range(2):  # warm-up off the capture
+                T.flash_attention(q, kp, vp, kv_len=kvl)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = T.flash_attention(q, kp, vp, kv_len=kvl)
+        worst = (0.0, 0.0, 0.0)
+        for n in (1, 1000, BUCKET - 1, BUCKET):
+            kvl.fill_(n)
+            graph.replay()
+            first = out.clone()
+            graph.replay()
+            if not torch.equal(first, out):
+                raise AssertionError(f"{label}: two replays differ")
+            po = tf.flash_attention_fwd_plain(q, kp, vp, kv_len=n,
+                                              return_lse=False)
+            errs = hold(f"{label}: graph replay, kv_len {n} written in place",
+                        out, po, None, None, ROW_TOL[dt])
+            worst = tuple(max(a, e) for a, e in zip(worst, errs))
+    # the wrapper counts the warm-ups and the capture; replays run no Python
+    _expect(label, c.launches, {"flash_fwd_short": 3})
+    res["launches"]["flash_fwd_short_kv_len"] = c.launches["flash_fwd_short"]
+    n = BUCKET - 1
+    kvl.fill_(n)
+    o, lse = tf.flash_fwd_short(q, kp, vp, kv_len=kvl)
+    po, plse = tf.flash_attention_fwd_plain(q, kp, vp, kv_len=n)
+    errs = hold(f"{label}: kv_len {n} with LSE", o, po, lse, plse,
+                ROW_TOL[dt])
+    res["err"]["flash_fwd_short_kv_len"] = tuple(max(a, e) for a, e in
+                                                 zip(worst, errs))
+    kx, vx = (x.repeat_interleave(hq // hkv, dim=1) for x in (kp, vp))
+    mask = (torch.arange(BUCKET, device="cuda") < n)[None, None, None]
+    flops = 4.0 * b * hq * n * 128
+    nbytes = 2 * (2 * q.numel() + 2 * b * hkv * n * 128) + 4
+    t = _mode_time(f"{label}, kv_len {n}",
+                   lambda: tf.flash_fwd_short(q, kp, vp, kv_len=kvl,
+                                              return_lse=False),
+                   lambda: tf.flash_attention_fwd_plain(q, kp, vp, kv_len=kvl,
+                                                        return_lse=False),
+                   lambda: SDPA(q, kx, vx, attn_mask=mask), "flash_fwd_short",
+                   nbytes, flops, _rate(dt))
+    t["graph_replay_ms"] = profiling.cuda_time_ms(graph.replay, iters=20)[0]
+    t["launches_note"] = ("warm-ups and capture; the graph replays (10) "
+                          "launch the kernel without the wrapper")
+    res["time"]["flash_fwd_short_kv_len"] = t
+    del graph
+
+
+def _public_kv_len_tma(gen, res):
+    """kv_len on K1: 512 queries against a BUCKET-key bucket, with and
+    without causal, through flash_attention(kv_len=...)."""
+    import aule_tpu_torch as T
+    from aule_tpu_torch.ops import flash as tf
+    from aule_tpu_torch.ops.reference import build_mask
+
+    b, hq, hkv = LAYER
+    sq, n, dt = 512, 3000, torch.bfloat16
+    q = _randn((b, hq, sq, 128), gen, dt)
+    kp, vp = (_randn((b, hkv, BUCKET, 128), gen, dt) for _ in range(2))
+    kvl = torch.full((1,), n, dtype=torch.int32, device="cuda")
+    worst = (0.0, 0.0, 0.0)
+    for causal in (False, True):
+        label = (f"public kv_len {n} of {BUCKET} keys, Sq{sq} Hq{hq}/Hkv{hkv} "
+                 f"D128 bf16{' causal' if causal else ''}")
+        with _Counted() as c:
+            o, lse = _twice(label, lambda: T.flash_attention(
+                q, kp, vp, causal=causal, kv_len=kvl, return_lse=True))
+        _expect(label, c.launches, {"flash_fwd": 2})
+        res["launches"]["flash_fwd_kv_len"] = (
+            res["launches"].get("flash_fwd_kv_len", 0) + c.launches["flash_fwd"])
+        po, plse = tf.flash_attention_fwd_plain(q, kp, vp, causal=causal,
+                                                kv_len=n)
+        errs = hold(label, o, po, lse, plse, ROW_TOL[dt])
+        worst = tuple(max(a, e) for a, e in zip(worst, errs))
+        if causal:
+            continue
+        kx, vx = (x.repeat_interleave(hq // hkv, dim=1) for x in (kp, vp))
+        mask = (torch.arange(BUCKET, device="cuda") < n)[None, None, None]
+        flops = 4.0 * b * hq * 128 * _causal_pairs(sq, n, causal)
+        nbytes = 2 * (2 * q.numel() + 2 * b * hkv * n * 128) + 4
+        res["time"]["flash_fwd_kv_len"] = _mode_time(
+            label, lambda: tf.flash_fwd_tma(q, kp, vp, kv_len=kvl,
+                                            return_lse=False),
+            lambda: tf.flash_attention_fwd_plain(q, kp, vp, kv_len=kvl,
+                                                 return_lse=False),
+            lambda: SDPA(q, kx, vx, attn_mask=mask), "flash_fwd_kernel",
+            nbytes, flops, _rate(dt))
+    res["err"]["flash_fwd_kv_len"] = worst
+
+
+def _public_generic(gen, res, name, shape, s, dt):
+    """flash_attention forward and backward through autograd on
+    csrc/flash_generic.cu (K4) at one layer shape: the output and the
+    gradients held to the plain path's, the three backward kernels to their
+    plain versions row by row; times of the forward and of each backward
+    kernel."""
+    import aule_tpu_torch as T
+    from aule_tpu_torch.ops import flash as tf
+    from aule_tpu_torch.ops import flash_vjp as fv
+    from aule_tpu_torch.utils import profiling
+
+    b, hq, hkv = shape
+    d = {"gpt2": 64, "d256": 256}.get(name, 128)
+    q, k, v, do = (_randn(x, gen, dt) for x in ((b, hq, s, d), (b, hkv, s, d),
+                                               (b, hkv, s, d), (b, hq, s, d)))
+    tname = str(dt).replace("torch.", "")
+    label = f"public {name} B{b} Hq{hq}/Hkv{hkv} S{s} D{d} {tname} causal"
+
+    def fwd_bwd(fn):
+        xs = [x.detach().requires_grad_(True) for x in (q, k, v)]
+        out = fn(*xs)
+        return [out.detach(), *torch.autograd.grad(out, xs, do)]
+
+    with _Counted() as c:
+        got = _twice(label + " fwd+bwd", lambda: fwd_bwd(
+            lambda *x: T.flash_attention(*x, causal=True)))
+    _expect(label + " fwd+bwd", c.launches,
+            {n: 2 for n in ("flash_generic_fwd", "flash_generic_delta",
+                            "flash_generic_dq", "flash_generic_dkv")})
+    for kernel, count in c.launches.items():
+        res["launches"][f"{kernel}_{name}"] = count
+    want = fwd_bwd(lambda *x: fv.flash_attention_vjp_plain(*x, True))
+    _frob(label, got[1:], want[1:])
+    o, lse = tf.flash_fwd_generic(q, k, v, causal=True)
+    po, plse = tf.flash_attention_fwd_plain(q, k, v, causal=True)
+    tol = ROW_TOL[dt]
+    res["err"][f"flash_generic_fwd_{name}"] = hold(label + " forward", o, po,
+                                                   lse, plse, tol)
+    floor = F32_BWD_FLOOR if dt == torch.float32 else BWD_FLOOR
+    di = fv.attention_delta_generic(o, do)
+    worst = {}
+    hold_delta(label + " delta", di, o, do, None, worst)
+    res["err"][f"flash_generic_delta_{name}"] = worst["delta"]
+    dq = fv.flash_bwd_generic_dq(q, k, v, do, lse, di, causal=True)
+    res["err"][f"flash_generic_dq_{name}"] = hold(
+        label + " dQ", dq, fv.flash_bwd_dq_plain(q, k, v, do, lse, di, causal=True),
+        None, None, tol, floor=floor)
+    dk, dv = fv.flash_bwd_generic_dkv(q, k, v, do, lse, di, causal=True)
+    pdk, pdv = fv.flash_bwd_dkv_plain(q, k, v, do, lse, di, causal=True)
+    ek = hold(label + " dK", dk, pdk, None, None, tol, floor=floor)
+    ev = hold(label + " dV", dv, pdv, None, None, tol, floor=floor)
+    res["err"][f"flash_generic_dkv_{name}"] = tuple(max(a, e) for a, e in zip(ek, ev))
+    del pdk, pdv
+
+    kx, vx = (x.repeat_interleave(hq // hkv, dim=1) for x in (k, v))
+    esz = q.element_size()
+    fwd_flops = profiling.attention_flops(b, hq, s, s, d, causal=True)
+    qkv = esz * (q.numel() + k.numel() + v.numel())
+    res["time"][f"flash_generic_fwd_{name}"] = _mode_time(
+        label + " forward", lambda: tf.flash_fwd_generic(q, k, v, causal=True,
+                                                         return_lse=False),
+        lambda: tf.flash_attention_fwd_plain(q, k, v, causal=True,
+                                             return_lse=False),
+        lambda: SDPA(q, kx, vx, is_causal=True), "flash_generic_fwd_kernel",
+        qkv + esz * q.numel(), fwd_flops, _rate(dt))
+    qx = q.detach().requires_grad_(True)
+    kx.requires_grad_(True)
+    vx.requires_grad_(True)
+    ref = SDPA(qx, kx, vx, is_causal=True)
+    sdpa_bwd = lambda: torch.autograd.grad(ref, (qx, kx, vx), do,
+                                           retain_graph=True)
+    # one library time for the three backward kernels (SDPA's backward
+    # computes dq, dk and dv together)
+    lib_bwd = (profiling.cuda_time_ms(sdpa_bwd, iters=20)[0],
+               device_ms(sdpa_bwd))
+    stats = 4 * lse.numel()
+    for part, fn, plain, flops, nbytes in (
+            ("delta", lambda: fv.attention_delta_generic(o, do),
+             lambda: fv.attention_delta_plain(o, do), 2.0 * o.numel(),
+             2 * esz * o.numel() + stats),
+            ("dq", lambda: fv.flash_bwd_generic_dq(q, k, v, do, lse, di, causal=True),
+             lambda: fv.flash_bwd_dq_plain(q, k, v, do, lse, di, causal=True),
+             profiling.attention_bwd_flops(fwd_flops, 3),
+             qkv + 2 * esz * q.numel() + 2 * stats),
+            ("dkv", lambda: fv.flash_bwd_generic_dkv(q, k, v, do, lse, di,
+                                                     causal=True),
+             lambda: fv.flash_bwd_dkv_plain(q, k, v, do, lse, di, causal=True),
+             profiling.attention_bwd_flops(fwd_flops, 4),
+             qkv + esz * (q.numel() + k.numel() + v.numel()) + 2 * stats)):
+        # delta: f32 products outside the tensor cores whatever the type
+        rate = profiling.H100_F32_FLOPS if part == "delta" else _rate(dt)
+        t = _mode_time(f"{label} {part}", fn, plain,
+                       _vecdot_times(o, do) if part == "delta" else lib_bwd,
+                       f"flash_generic_{part}_kernel", nbytes, flops, rate)
+        res["time"][f"flash_generic_{part}_{name}"] = t
+    del ref, qx, kx, vx
+
+
+# The kernel modes the layer checks above do not reach, each held to its
+# plain version: entry -> its cases (label, kernel, (B, Hq, Hkv), Sq, Sk,
+# D, dtype, causal, window, RoPE table rows or None, kv_len or None,
+# route).  Routes: "rope" is flash_attention_rope (RoPE in the kernel);
+# "public" is flash_attention (a kv_len call, RoPE outside the op, as
+# JAX's); "op" is ops.flash.flash_attention_fwd with RoPE and kv_len both
+# in the kernel.  The first case of each entry is timed.
+_BF, _FP, _F32 = torch.bfloat16, torch.float16, torch.float32
+PUBLIC_MODES = {
+    "flash_fwd_short_rope": [
+        (f"1 query over {BUCKET} keys", "flash_fwd_short", LAYER, 1, BUCKET,
+         128, _BF, False, -1, BUCKET, None, "rope"),
+        ("the engine's 7-token prompt, causal", "flash_fwd_short", LAYER, 7,
+         7, 128, _BF, True, -1, 7, None, "rope"),
+        ("16 queries over 512 keys f16, table 300, kv_len 77",
+         "flash_fwd_short", LAYER, 16, 512, 128, _FP, False, -1, 300, 77,
+         "op")],
+    "flash_fwd_rope_f16_window": [
+        (f"S{TRAIN_S} f16 causal window 256", "flash_fwd", LAYER, TRAIN_S,
+         TRAIN_S, 128, _FP, True, 256, TRAIN_S, None, "rope")],
+    "flash_fwd_rope_short_table": [
+        ("Sq512 over Sk2048, table 1536", "flash_fwd", LAYER, 512, 2048, 128,
+         _BF, False, -1, 1536, None, "rope")],
+    "flash_fwd_rope_kv_len": [
+        (f"Sq512 over a {BUCKET}-key bucket, kv_len 3000", "flash_fwd",
+         LAYER, 512, BUCKET, 128, _BF, False, -1, BUCKET, 3000, "op")],
+    "flash_generic_fwd_rope_kv_len_gpt2": [
+        ("Sq512 over Sk1024 causal, kv_len 900", "flash_generic_fwd", GPT2,
+         512, 1024, 64, _BF, True, -1, 1024, 900, "op"),
+        ("the patch's GPT-2 decode: 1 query, kv_len 1000 of a 1024 bucket",
+         "flash_generic_fwd", GPT2, 1, 1024, 64, _BF, False, -1, None, 1000,
+         "public")],
+    "flash_generic_fwd_rope_kv_len_d256": [
+        ("Sq512 over Sk2048, kv_len 1500", "flash_generic_fwd", D256, 512,
+         2048, 256, _BF, False, -1, 2048, 1500, "op")],
+    "flash_generic_fwd_rope_kv_len_f32": [
+        ("Sq512 over Sk2048 causal, kv_len 1500", "flash_generic_fwd", LAYER,
+         512, 2048, 128, _F32, True, -1, 2048, 1500, "op")],
+}
+
+
+def _public_modes(res):
+    """Each case of PUBLIC_MODES through its route, twice with the same
+    bits, its launches counted from 0; the output and the kernel's LSE
+    held to flash_attention_fwd_plain; the first case of each entry timed
+    against its plain version and SDPA on the rotated q and k with the
+    boolean mask of the case (a generator of its own)."""
+    import aule_tpu_torch as T
+    from aule_tpu_torch.ops import flash as tf
+    from aule_tpu_torch.ops.reference import build_mask
+
+    wrappers = _public_counters()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(PUBLIC_SEED + 1)
+    for name, cases in PUBLIC_MODES.items():
+        res["cases"][name] = {}
+        for i, (what, kernel, (b, hq, hkv), sq, sk, d, dt, causal, window,
+                rows, n, route) in enumerate(cases):
+            q = _randn((b, hq, sq, d), gen, dt)
+            k, v = (_randn((b, hkv, sk, d), gen, dt) for _ in range(2))
+            cos = sin = None
+            if rows is not None:
+                cos, sin = T.precompute_rope_frequencies(
+                    rows, d, LLAMA_ROPE_BASE, device="cuda")
+            kvl = (None if n is None else
+                   torch.full((1,), n, dtype=torch.int32, device="cuda"))
+            kw = dict(causal=causal, window_size=window)
+            call = {
+                "rope": lambda: T.flash_attention_rope(q, k, v, cos, sin,
+                                                       **kw),
+                "public": lambda: T.flash_attention(q, k, v, kv_len=kvl,
+                                                    **kw),
+                "op": lambda: tf.flash_attention_fwd(
+                    q, k, v, rope_cos=cos, rope_sin=sin, kv_len=kvl,
+                    return_lse=False, **kw)}[route]
+            label = (f"public {name}: {what}, Hq{hq}/Hkv{hkv} D{d} "
+                     f"{str(dt).replace('torch.', '')} ({route} route)")
+            with _Counted() as c:
+                o = _twice(label, lambda: [call()])[0]
+            _expect(label, c.launches, {kernel: 2})
+            res["launches"][name] = (res["launches"].get(name, 0)
+                                     + c.launches[kernel])
+            _, lse = wrappers[kernel](q, k, v, rope_cos=cos, rope_sin=sin,
+                                      kv_len=kvl, **kw)
+            po, plse = tf.flash_attention_fwd_plain(
+                q, k, v, rope_cos=cos, rope_sin=sin, kv_len=n, **kw)
+            errs = hold(label, o, po, lse, plse, ROW_TOL[dt])
+            res["cases"][name][what] = errs
+            res["err"][name] = tuple(max(a, e) for a, e in zip(
+                res["err"].get(name, (0.0, 0.0, 0.0)), errs))
+            if i:
+                continue
+            mask = build_mask(sq, sk, causal, window, device="cuda")
+            if n is not None:
+                mask = mask & (torch.arange(sk, device="cuda") < n)
+            qr, kr = q, k
+            if cos is not None:
+                pc, ps = tf.rope_identity_padded(cos, sin, max(sq, sk))
+                qr, kr = T.apply_rope(q, pc, ps), T.apply_rope(k, pc, ps)
+            kx, vx = (x.repeat_interleave(hq // hkv, dim=1) for x in (kr, v))
+            keys = int(mask.any(0).sum())  # the keys some query attends
+            esz = q.element_size()
+            nbytes = (esz * (2 * q.numel() + 2 * b * hkv * keys * d)
+                      + (0 if cos is None else 2 * 4 * cos.numel())
+                      + (0 if n is None else 4))
+            flops = 4.0 * b * hq * d * int(mask.sum())
+            res["time"][name] = _mode_time(
+                label, call, lambda: tf.flash_attention_fwd_plain(
+                    q, k, v, rope_cos=cos, rope_sin=sin, kv_len=kvl,
+                    return_lse=False, **kw),
+                lambda: SDPA(qr, kx, vx, attn_mask=mask[None, None]),
+                f"{kernel}_kernel", nbytes, flops, _rate(dt))
+
+
+def _public_patch(gen, res):
+    """The SDPA patch: after install(), torch's scaled_dot_product_attention
+    at the Llama shape launches the port's kernel and is held to the saved
+    original; an attn_mask call reaches the original; uninstall() puts the
+    function object back."""
+    import aule_tpu_torch as T
+    from aule_tpu_torch.integration import patching
+
+    b, hq, hkv = LAYER
+    s, dt = TRAIN_S, torch.bfloat16
+    q = _randn((b, hq, s, 128), gen, dt)
+    k, v = (_randn((b, hkv, s, 128), gen, dt) for _ in range(2))
+    T.install()
+    try:
+        if F.scaled_dot_product_attention is SDPA:
+            raise AssertionError("install() left torch's SDPA in place")
+        label = f"public SDPA patch B{b} Hq{hq}/Hkv{hkv} S{s} causal enable_gqa"
+        with _Counted() as c:
+            got = F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                 enable_gqa=True)
+        _expect(label, c.launches, {"flash_fwd": 1})
+        want = patching.original_sdpa()(q, k, v, is_causal=True,
+                                        enable_gqa=True)
+        res["err"]["sdpa_patch"] = hold(label + " vs the saved original", got,
+                                        want, None, None, ROW_TOL[dt])
+        mask = torch.ones(s, s, dtype=torch.bool, device="cuda").tril()
+        with _Counted() as c:
+            got = F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                                 enable_gqa=True)
+        want = SDPA(q, k, v, attn_mask=mask, enable_gqa=True)
+        if c.launches or not torch.equal(got, want):
+            raise AssertionError("an attn_mask call did not reach the "
+                                 "original")
+        log("public SDPA patch: an attn_mask call reached the original "
+            "(no port launch, its bits)")
+    finally:
+        T.uninstall()
+    if F.scaled_dot_product_attention is not SDPA:
+        raise AssertionError("uninstall() did not restore torch's SDPA")
+    log("public SDPA patch: uninstall() restored the function object")
+    log("public patch_model: transformers is not installed here; the HF "
+        "routing (logits and a bucketed generate) is checked by "
+        "tests/test_torch_integration.py on the CPU")
+
+
+def check_public() -> dict:
+    """The public attention API on the card (the port's `aule_tpu_torch.
+    flash_attention` and its family, the backend chain, the SDPA patch):
+    the selected backend must be cuda; every call runs twice with the same
+    bits and is held to its plain version; each mode's launches are
+    counted from 0 around its public calls.  Returns the errors, times and
+    launches by mode."""
+    import aule_tpu_torch as T
+
+    chosen = T.select_backend()
+    if chosen != "cuda":
+        raise AssertionError(f"the selected backend is {chosen!r}, not cuda: "
+                             f"{T.get_backend_errors()}")
+    log(f"public: select_backend() = {chosen}; available "
+        f"{T.get_available_backends()}")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(PUBLIC_SEED)
+    res = {"err": {}, "time": {}, "launches": {}, "cases": {}}
+    # each mode's launches on its public calls, read by _Counted
+    _public_rope(gen, res)
+    _public_decode(gen, res)
+    _public_kv_len_tma(gen, res)
+    _public_generic(gen, res, "gpt2", GPT2, 1024, torch.bfloat16)
+    _public_generic(gen, res, "f32", LAYER, TRAIN_S, torch.float32)
+    _public_generic(gen, res, "d256", D256, TRAIN_S, torch.bfloat16)
+    _public_patch(gen, res)
+    _public_modes(res)
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_public() -> dict:
+    """check_public in a process of its own (`chip_smoke.py --public`):
+    its profiled timings meet a fresh torch.profiler, which loses kernels
+    after ~100 profiled runs in one process, and the phases after it
+    keep their own count.  Its lines are passed on; its result is the
+    JSON object on its last line."""
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                           "--public"], stdout=subprocess.PIPE,
+                          stderr=subprocess.STDOUT, text=True, timeout=900)
+    lines = proc.stdout.splitlines()
+    for line in lines[:-1] if proc.returncode == 0 else lines:
+        log(f"  {line}")
+    if proc.returncode != 0:
+        raise AssertionError(f"the public phase failed (exit code "
+                             f"{proc.returncode})")
+    return json.loads(lines[-1])
+
+
+def public_main() -> None:
+    """`chip_smoke.py --public`: the public phase alone, its result as one
+    JSON line last."""
+    if not torch.cuda.is_available():
+        log("device: torch.cuda.is_available() is False")
+        sys.exit(2)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from aule_tpu_torch.ops import _build
+
+    _build.library()  # built by the parent's build phase
+    print(json.dumps(check_public()), flush=True)
+
+
 def _entry(name, source, replaces, launches, err, t, shape, **extra):
     return dict(name=name, route="cuda", source=source, replaces=replaces,
                 launches=launches, max_abs_err=err[0], max_row_rel_err=err[1],
@@ -1639,6 +2262,7 @@ def main() -> None:
     # before the engine's profiled phases: after many profiled sessions in
     # one process torch.profiler loses kernels, and these times read it
     bwd_err, bwd_t = check_flash_bwd(gen)
+    public = phase_public()
     runs, params, cfg = phase_engine()
     phase_breakdown(params, cfg)
     train = phase_train(params, cfg)  # last: it rewrites the weights
@@ -1725,6 +2349,7 @@ def main() -> None:
              "prompts",
              {"device_ms_per_launch": flash_t["S7 short"][
                  "device_ms_per_launch"],
+              "library_device_ms": flash_t["S7 short"]["library_device_ms"],
               "device_ms_short_prompts_both_kernels": flash_t["S7 short"][
                   "device_ms_short_prompts"]}),
             ("paged_decode", "paged_decode", ("whole bf16", "a"),
@@ -1791,12 +2416,81 @@ def main() -> None:
             name, bwd_src, row, sum(by_step), err, bwd_t["layer"][key],
             f"B1 Hq32/Hkv8 S{TRAIN_S} D128 bf16 causal (library: the "
             f"backward of F.scaled_dot_product_attention, dq, dk and dv "
-            f"together; none for delta)", launches_per_train_step=by_step,
+            f"together; for delta torch.linalg.vecdot(o, do), its rows "
+            f"rounded to bf16)", launches_per_train_step=by_step,
             device_ms=bwd_t["layer"][key]["device_ms"],
             library_device_ms=bwd_t["layer"][key]["library_device_ms"],
             time_whole_backward=bwd_t["layer"]["both"],
             time_B4_S2048=bwd_t["B4"][key],
             time_window_256_S4096=bwd_t["window"][key]))
+    # The public phase's kernel modes: launches on its counted public calls
+    # (each mode's calls, counts set to 0 just before and read just after).
+    fwd_row = "aule_tpu/ops/flash.py:92 (_fwd_kernel"
+    shapes = {"gpt2": "GPT-2 small layer B1 Hq12/Hkv12 S1024 D64 bf16 causal",
+              "f32": f"Llama-3-8B layer B1 Hq32/Hkv8 S{TRAIN_S} D128 f32 "
+                     f"causal",
+              "d256": f"B1 Hq8/Hkv1 S{TRAIN_S} D256 bf16 causal (Gemma-2B's "
+                      f"attention shape)"}
+    generic_rows = {
+        "fwd": fwd_row + ": its f32 branch, l.151, and the D 64/256 tiles of "
+               "_pick_blocks' d_scale, l.931)",
+        "delta": "aule_tpu/ops/flash_vjp.py:746 (delta, an XLA fusion in "
+                 "JAX: no Pallas kernel)",
+        "dq": "aule_tpu/ops/flash_vjp.py:127 (_dq_kernel, f32 and the D "
+              "64/256 tiles of d_scale, l.708)",
+        "dkv": "aule_tpu/ops/flash_vjp.py:271 (_dkv_kernel, f32 and the D "
+               "64/256 tiles of d_scale, l.708)"}
+    public_rows = [
+        ("flash_fwd_rope", "aule_tpu_torch/csrc/flash_fwd.cu",
+         fwd_row + ", use_rope: the rotation l.227-246); "
+         "aule_tpu/ops/flash.py:638 (_mono_kernel, its RoPE l.692-715)",
+         f"B1 Hq32/Hkv8 S{TRAIN_S} D128 bf16 causal, RoPE fused (theta "
+         f"{LLAMA_ROPE_BASE:.0f}; library: SDPA on apply_rope'd q, k)"),
+        ("flash_fwd_kv_len", "aule_tpu_torch/csrc/flash_fwd.cu",
+         fwd_row + ", dynamic_kv_len: l.108, 121, 136)",
+         f"B1 Hq32/Hkv8 Sq512 over a {BUCKET}-key bucket, kv_len 3000, "
+         f"D128 bf16 (causal checked too; library: SDPA with a boolean key "
+         f"mask)"),
+        ("flash_fwd_short_kv_len", "aule_tpu_torch/csrc/flash_fwd_short.cu",
+         fwd_row + ", dynamic_kv_len) for the SDPA patch's bucketed decode "
+         "(aule_tpu/integration/patching.py:220-238)",
+         f"B1 Hq32/Hkv8 1 query over a {BUCKET}-key bucket, kv_len "
+         f"{BUCKET - 1}, D128 bf16 (CUDA-graph replays at kv_len 1, 1000, "
+         f"{BUCKET - 1}, {BUCKET}; library: SDPA with a boolean key mask)"),
+    ] + [(f"flash_generic_{part}_{mode}",
+          "aule_tpu_torch/csrc/flash_generic.cu", generic_rows[part],
+          shapes[mode] + (" (library: the backward of SDPA, dq, dk and dv "
+                          "together)" if part in ("dq", "dkv") else
+                          " (library: torch.linalg.vecdot(o, do)"
+                          + ("" if mode == "f32" else ", its rows rounded "
+                             "to bf16") + ")" if part == "delta" else ""))
+         for mode in ("f32", "gpt2", "d256")
+         for part in ("fwd", "delta", "dq", "dkv")]
+    mode_src = {"flash_fwd": "aule_tpu_torch/csrc/flash_fwd.cu",
+                "flash_fwd_short": "aule_tpu_torch/csrc/flash_fwd_short.cu",
+                "flash_generic_fwd": "aule_tpu_torch/csrc/flash_generic.cu"}
+    for name, cases in PUBLIC_MODES.items():
+        what, kernel, (b, hq, hkv), *_, d, dt = cases[0][:7]
+        public_rows.append((
+            name, mode_src[kernel],
+            fwd_row + ", use_rope l.227-246 and dynamic_kv_len l.108, 121, "
+            "136)", f"B{b} Hq{hq}/Hkv{hkv} D{d} "
+            f"{str(dt).replace('torch.', '')}, {what} (timed; every case "
+            f"under 'cases'; library: SDPA on the rotated q, k with the "
+            f"case's boolean mask)"))
+    for name, src, row, shape in public_rows:
+        launches = public["launches"].get(name, 0)
+        if launches == 0:
+            raise AssertionError(f"{name} was not launched in the public "
+                                 f"phase")
+        t = public["time"][name]
+        extra = {k: t[k] for k in ("device_ms", "library_device_ms",
+                                   "graph_replay_ms", "launches_note")
+                 if k in t}
+        if name in public["cases"]:
+            extra["cases"] = public["cases"][name]
+        entries.append(_entry(name, src, row, launches, public["err"][name],
+                              t, shape, **extra))
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
@@ -1804,4 +2498,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:] == ["--public"]:
+        public_main()
+    else:
+        main()

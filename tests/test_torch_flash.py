@@ -179,10 +179,22 @@ def test_kernel_launchers_take_only_cuda_tensors(kernel):
     assert fn.launches == before
 
 
-def test_later_features_raise():
-    q = torch.zeros(1, 2, 8, 64)
-    with pytest.raises(NotImplementedError):
-        tflash.flash_attention_fwd(q, q, q, rope_cos=torch.ones(8, 32),
-                                   rope_sin=torch.zeros(8, 32))
-    with pytest.raises(NotImplementedError):
-        tflash.flash_attention_fwd(q, q, q, kv_len=torch.tensor(4))
+@pytest.mark.parametrize("feature", ["rope", "kv_len"])
+def test_rope_and_kv_len_match_jax(feature):
+    """Fused RoPE and a device-side kv_len (which raised before the port
+    took them): the calls at [1, 2, 8, 64] against JAX's Pallas forward in
+    interpret mode."""
+    q, k, v = _inputs(1, 2, 2, 8, 8, 64, seed=19)
+    if feature == "rope":
+        rng = np.random.default_rng(5)
+        ang = rng.uniform(-3, 3, (8, 32)).astype(np.float32)
+        kw = dict(rope_cos=np.cos(ang), rope_sin=np.sin(ang))
+        tkw = {n: torch.from_numpy(x) for n, x in kw.items()}
+    else:
+        kw, tkw = dict(kv_len=jnp.int32(4)), dict(kv_len=torch.tensor(4))
+    jo, jl = jax_flash(*(jnp.asarray(x) for x in (q, k, v)),
+                       return_lse=True, **kw)
+    to, tl = tflash.flash_attention_fwd(
+        *(torch.from_numpy(x) for x in (q, k, v)), **tkw)
+    assert_close(to, np.asarray(jo), 0, F32_ATOL, "out")
+    assert_close(tl, np.asarray(jl), 0, F32_ATOL, "lse")
