@@ -67,6 +67,15 @@ SIGNATURES = {
     # page, max_pages, scale, causal, window, dtype, pool, sc_f32, stream
     "aule_paged_prefill": [_VOID] * 8 + [_INT] * 6 + [_FLOAT] +
                           [_INT] * 5 + [_VOID],
+    # q, qf, kv, v, scales, v_scales, tables, lens, out, lse, ws,
+    # counters, B, Hq, Hkv, num_pages, page, max_pages, D, scale, window,
+    # nsplit, dtype, pool, sc_f32, layout, stream
+    "aule_paged_generic_decode": [_VOID] * 12 + [_INT] * 7 + [_FLOAT] +
+                                 [_INT] * 6 + [_VOID],
+    # q, kv, scales, tables, lens, q_offsets, out, lse, B, Hq, Hkv, Sq,
+    # page, max_pages, D, scale, causal, window, dtype, pool, sc_f32, stream
+    "aule_paged_generic_prefill": [_VOID] * 8 + [_INT] * 7 + [_FLOAT] +
+                                  [_INT] * 5 + [_VOID],
     # q, k, v, do, lse, di, dq, B, Hq, Hkv, Sq, Sk, scale, causal, window,
     # dtype, stream
     "aule_flash_bwd_dq": [_VOID] * 7 + [_INT] * 5 + [_FLOAT] + [_INT] * 3 +
@@ -80,7 +89,7 @@ SIGNATURES = {
 }
 
 # pool codes (csrc/common.cuh kPool*): what a paged pool holds
-POOL_NATIVE = 0    # the q/out type, bf16 or f16
+POOL_NATIVE = 0    # the q/out type (bf16 or f16; f32 in the generic kernels)
 POOL_INT8 = 1      # int8 payload + scales, converted exactly
 POOL_E4M3 = 2      # e4m3 payload + scales, converted exactly
 POOL_INT8_DOT = 3  # int8 payload + scales, int8 q, int8 dot products
@@ -208,7 +217,8 @@ def stream_handle(device) -> int:
 
 def dtype_code(dtype, f32: bool = False) -> int:
     """0 = bfloat16, 1 = float16 (the kernels' storage types); 2 = float32
-    where the kernel takes it (`f32`: csrc/flash_generic.cu)."""
+    where the kernel takes it (`f32`: csrc/flash_generic.cu,
+    csrc/paged_generic.cu)."""
     if dtype == torch.bfloat16:
         return 0
     if dtype == torch.float16:

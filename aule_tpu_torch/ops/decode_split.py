@@ -1,5 +1,6 @@
-"""Split-KV (flash-decoding) partition of the paged decode kernel
-(csrc/paged_decode.cu) and its plain counterpart.
+"""Split-KV (flash-decoding) partition of the paged decode kernels
+(csrc/paged_decode.cu, and csrc/paged_generic.cu's decode, which shares
+it) and its plain counterpart.
 
 The kernel spreads the live tokens [t_lo, len) of one (sequence, kv head)
 over `nsplit` blocks.  The wrapper picks `nsplit` here from the shapes and
@@ -126,7 +127,7 @@ def sm_count(device: torch.device) -> int:
 
 
 def launch_plan(batch: int, hq: int, hkv: int, capacity: int, window: int,
-                device: torch.device):
+                device: torch.device, head_dim: int = 128):
     """The kernel's split count for these shapes (`num_splits`) and its
     merge buffers: (nsplit, workspace, counters), the buffers None when
     nsplit is 1.  The workspace [B, Hkv, nsplit, G, D + 2] f32 is a fresh
@@ -137,8 +138,8 @@ def launch_plan(batch: int, hq: int, hkv: int, capacity: int, window: int,
     nsplit = num_splits(batch, hkv, capacity, window, sm_count(device))
     if nsplit == 1:
         return nsplit, None, None
-    ws = torch.empty(batch * hq * nsplit * (128 + 2), dtype=torch.float32,
-                     device=device)
+    ws = torch.empty(batch * hq * nsplit * (head_dim + 2),
+                     dtype=torch.float32, device=device)
     idx = device.index if device.index is not None \
         else torch.cuda.current_device()
     cnt = _COUNTERS.get(idx)

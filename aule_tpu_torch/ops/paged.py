@@ -15,10 +15,12 @@ pool that aule_tpu built feeds the port unchanged:
     pools as they were for tokens s >= seq_lens[b] (JAX's masked
     read-modify-write, paged.py:537-544).
   * `paged_attention` follows its tensors: CPU tensors take
-    `paged_attention_plain`; CUDA tensors launch the hand-written kernel in
-    csrc/paged_decode.cu (its `SplitPools` instantiation, which replaces
-    the TPU kernel `_paged_decode_kernel`; see the source note there), or
-    raise for what it does not take.  Quantized pools are read in place,
+    `paged_attention_plain`; CUDA tensors launch a hand-written kernel
+    that replaces the TPU kernel `_paged_decode_kernel` (see the source
+    notes): csrc/paged_decode.cu's `SplitPools` instantiation for bf16 /
+    f16 at D = 128, csrc/paged_generic.cu's decode (its `SplitLayout`) for
+    f32 at D 64 / 128 / 256 and bf16 / f16 at D 64 / 256, or raise for
+    what neither takes.  Quantized pools are read in place,
     their f32 scales folded into the scores and p: the JAX package's TPU
     route converts them to the fused layout on every call
     (paged.py:317-337), a copy of the whole pool per layer per step that
@@ -34,6 +36,7 @@ import torch
 
 from . import _build, decode_split
 from .paged_fused import check_kernel_inputs
+from .paged_generic import SPLIT, paged_generic_decode
 from .quant import QUANT_DTYPES, dequantize_kv, quantize_kv
 from .reference import paged_attention_reference
 
@@ -229,21 +232,28 @@ def paged_attention(
             q, k_pages, v_pages, block_tables, context_lens,
             k_scales=k_scales, v_scales=v_scales, scale=scale,
             window_size=window, return_lse=return_lse)
-    code = check_kernel_inputs(q, hkv, (k_pages, v_pages, k_scales,
-                                        v_scales), "split paged-decode")
+    generic = check_kernel_inputs(q, hkv, (k_pages, v_pages, k_scales,
+                                           v_scales), "split paged-decode")
+    q = q.contiguous()
+    pool = (_build.POOL_NATIVE if k_scales is None
+            else _build.pool_code(k_pages.dtype))
+    if generic:
+        return paged_generic_decode(
+            q, q, None, k_pages, v_pages, k_scales, v_scales, block_tables,
+            context_lens, num_pages=num_pages, page_size=page_size,
+            scale=scale, window=window, pool=pool, sc_f32=1, layout=SPLIT,
+            return_lse=return_lse)
+    code = _build.dtype_code(q.dtype)
     lib = _build.library()
     dev = q.device
     max_pages = block_tables.shape[1]
     nsplit, ws, cnt = decode_split.launch_plan(
         batch, hq, hkv, max_pages * page_size, window, dev)
-    q = q.contiguous()
     bt = block_tables.to(device=dev, dtype=torch.int32).contiguous()
     lens = context_lens.to(device=dev, dtype=torch.int32).contiguous()
     out = torch.empty_like(q)
     lse = (torch.empty((batch, hq), dtype=torch.float32, device=dev)
            if return_lse else None)
-    pool = (_build.POOL_NATIVE if k_scales is None
-            else _build.pool_code(k_pages.dtype))
     err = lib.aule_paged_decode_split(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         None if k_scales is None else k_scales.data_ptr(),

@@ -17,10 +17,14 @@ allowed).
     quantizing on the way in when a scale pool is passed.  They return the
     same tensors, so call sites read like the JAX ones.
   * `paged_attention_fused` follows its tensors: CPU tensors take
-    `paged_attention_fused_plain`; CUDA tensors launch the hand-written
-    kernel in csrc/paged_decode.cu (replaces the TPU kernel
-    `_fused_decode_kernel` in every pool mode; see the source note there),
-    or raise for what it does not take.
+    `paged_attention_fused_plain`; CUDA tensors launch a hand-written
+    kernel (both replace the TPU kernel `_fused_decode_kernel` in every
+    pool mode; see the source notes): csrc/paged_decode.cu's tensor-core
+    kernel for bf16 / f16 at D = 128, csrc/paged_generic.cu's FFMA decode
+    for f32 at D 64 / 128 / 256 and bf16 / f16 at D 64 / 256
+    (ops/paged_generic.py), or raise for what neither takes.  A D = 64 q
+    meets pools padded to 128 lanes; the kernel reads the first D lanes of
+    each row and the softmax scale is 1 / sqrt(D) of the true D.
   * The chunked-prefill kernel over this pool is ops/paged_prefill.py.
 """
 
@@ -35,12 +39,12 @@ import torch.nn.functional as F
 from ..config import DEFAULT_MASK_VALUE, int8_exact
 from . import _build, decode_split
 from .decode_split import DECODE_SPAN
+from .paged_generic import FUSED, paged_generic_decode, uses_generic_kernels
 from .quant import QUANT_DTYPES, dequantize_kv, quantize_kv
 from .reference import (_expand_kv, _gather_pages,
                         paged_attention_reference)
 
 NUM_LANES = 128
-KERNEL_HEAD_DIM = 128
 KERNEL_GROUPS = (1, 2, 4, 8)
 
 # half the scale-tile lanes hold K scales (lane = h), half V (lane = 64+h)
@@ -363,21 +367,16 @@ def check_pool(q, kv_pages, kv_scales):
                          f"pack_fused_scales), got {tuple(kv_scales.shape)}")
 
 
-def check_kernel_inputs(q, hkv: int, pools, name: str):
-    """What the CUDA paged kernels take: D=128, GQA groups 1/2/4/8 of the
-    `hkv` kv heads, bf16/f16 q, and `pools` (the pool and scale tensors;
-    None entries are skipped) contiguous, 16-byte aligned, on q's device.
-    Returns the q dtype code."""
+def check_kernel_inputs(q, hkv: int, pools, name: str) -> bool:
+    """What the CUDA paged kernels take: bf16/f16 q at D=128 (the
+    tensor-core kernels), f32 at D 64/128/256 or bf16/f16 at D 64/256 (the
+    generic kernels, csrc/paged_generic.cu); GQA groups 1/2/4/8 of the
+    `hkv` kv heads; `pools` (the pool and scale tensors; None entries are
+    skipped) contiguous, 16-byte aligned, on q's device.  Returns whether q
+    goes to the generic kernels."""
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
-    if q.shape[-1] != KERNEL_HEAD_DIM:
-        raise NotImplementedError(
-            f"the CUDA {name} kernel takes D={KERNEL_HEAD_DIM} (got "
-            f"{q.shape[-1]}); other head dims come with the GPT-2 slice")
-    if q.dtype not in (torch.bfloat16, torch.float16):
-        raise NotImplementedError(
-            f"the CUDA {name} kernel takes bf16 or f16 q and pools (got "
-            f"{q.dtype}); f32 on the card is still to be ported")
+    generic = uses_generic_kernels(q)
     group = q.shape[1] // hkv
     if group not in KERNEL_GROUPS:
         raise NotImplementedError(
@@ -391,7 +390,7 @@ def check_kernel_inputs(q, hkv: int, pools, name: str):
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name}: pools must be contiguous and 16-byte "
                              f"aligned")
-    return _build.dtype_code(q.dtype)
+    return generic
 
 
 def paged_attention_fused(
@@ -429,28 +428,36 @@ def paged_attention_fused(
             q, kv_pages, block_tables, context_lens, kv_scales=kv_scales,
             scale=scale, window_size=window, int8_matmul=int8_dot,
             return_lse=return_lse)
-    code = check_kernel_inputs(q, hkv, (kv_pages, kv_scales), "paged-decode")
-    lib = _build.library()
-    dev = q.device
-    max_pages = block_tables.shape[1]
-    nsplit, ws, cnt = decode_split.launch_plan(
-        batch, hq, hkv, max_pages * page_size, window, dev)
+    generic = check_kernel_inputs(q, hkv, (kv_pages, kv_scales),
+                                  "paged-decode")
     q = q.contiguous()
-    bt = block_tables.to(device=dev, dtype=torch.int32).contiguous()
-    lens = context_lens.to(device=dev, dtype=torch.int32).contiguous()
-    out = torch.empty_like(q)
-    lse = (torch.empty((batch, hq), dtype=torch.float32, device=dev)
-           if return_lse else None)
     q_in, qf, pool, sc_f32 = q, None, _build.POOL_NATIVE, 0
     if kv_scales is not None:
         pool = _build.pool_code(kv_pages.dtype)
         sc_f32 = _build.scale_code(kv_scales.dtype)
     if int8_dot:
         # per-row int8 q and its factor, host side of the kernel as in
-        # paged_fused.py:549-560
+        # paged_fused.py:549-560 (f32 q too)
         q_in, qscale = quantize_kv(q, torch.int8)
         qf = (qscale * scale).contiguous()
         pool = _build.POOL_INT8_DOT
+    if generic:
+        return paged_generic_decode(
+            q, q_in, qf, kv_pages, None, kv_scales, None, block_tables,
+            context_lens, num_pages=kv_pages.shape[0], page_size=page_size,
+            scale=scale, window=window, pool=pool, sc_f32=sc_f32,
+            layout=FUSED, return_lse=return_lse)
+    code = _build.dtype_code(q.dtype)
+    lib = _build.library()
+    dev = q.device
+    max_pages = block_tables.shape[1]
+    nsplit, ws, cnt = decode_split.launch_plan(
+        batch, hq, hkv, max_pages * page_size, window, dev)
+    bt = block_tables.to(device=dev, dtype=torch.int32).contiguous()
+    lens = context_lens.to(device=dev, dtype=torch.int32).contiguous()
+    out = torch.empty_like(q)
+    lse = (torch.empty((batch, hq), dtype=torch.float32, device=dev)
+           if return_lse else None)
     err = lib.aule_paged_decode(
         q_in.data_ptr(), qf.data_ptr() if qf is not None else None,
         kv_pages.data_ptr(),

@@ -1,0 +1,115 @@
+"""Launchers of the generic paged kernels (csrc/paged_generic.cu), the FFMA
+counterparts of the tensor-core paged kernels for what those do not take:
+f32 q and pools at D 64, 128 or 256, and bf16 / f16 at D 64 or 256
+(GPT-2's heads are 64 wide).
+
+The public wrappers route to them: `paged_attention_fused` and the split
+`paged_attention` (ops/paged_fused.py, ops/paged.py) launch
+`paged_generic_decode`, `paged_attention_prefill` (ops/paged_prefill.py)
+launches `paged_generic_prefill`, whenever `uses_generic_kernels(q)`; the
+wrappers' own counters count only the tensor-core kernels.  These functions
+take CUDA tensors that the wrappers have checked; each counts its launches
+in `.launches`.  The plain versions are the wrappers' own.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from . import _build, decode_split
+# the flash kernels' split of types and head dims, which the paged kernels
+# share: the tensor-core ones at D 128 (16-bit), the generic ones at
+# GENERIC_HEAD_DIMS (f32 at all three; 16-bit at 64, 256)
+from .flash import GENERIC_HEAD_DIMS
+from .flash import KERNEL_HEAD_DIM as TENSOR_CORE_HEAD_DIM
+
+KERNEL_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+# the decode kernel's pool layouts
+FUSED, SPLIT = 0, 1
+
+
+def uses_generic_kernels(q: torch.Tensor) -> bool:
+    """Whether the card runs q's type and head dim on the generic paged
+    kernels (f32 at D 64/128/256, bf16/f16 at D 64 or 256) rather than the
+    tensor-core ones (bf16/f16 at D 128).  Raises ValueError for any other
+    type or head dim."""
+    d = q.shape[-1]
+    if q.dtype not in KERNEL_DTYPES or d not in GENERIC_HEAD_DIMS:
+        raise ValueError(
+            f"the CUDA paged kernels take f32 at D in {GENERIC_HEAD_DIMS} "
+            f"and bf16/f16 at D 64 or 256 (paged_generic.cu), bf16/f16 at "
+            f"D={TENSOR_CORE_HEAD_DIM} (the tensor-core kernels); got "
+            f"{q.dtype} D={d}")
+    return q.dtype == torch.float32 or d != TENSOR_CORE_HEAD_DIM
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def paged_generic_decode(q, q_in, qf, kv, v, sc, vs, block_tables,
+                         context_lens, *, num_pages: int, page_size: int,
+                         scale: float, window: int, pool: int, sc_f32: int,
+                         layout: int, return_lse: bool):
+    """One launch of the decode kernel.  q [B, Hq, D] gives the out type
+    and shape; q_in is what the kernel reads (q, or its per-row int8 codes
+    with qf [B, Hq] f32 in the int8 dot-product mode).  layout FUSED: kv is
+    the fused pool and sc its packed scale tile; SPLIT: kv, v the split
+    pools and sc, vs their f32 scales (None for native pools).  The split
+    count comes from the shapes only (ops/decode_split.py), so both
+    layouts give the same bits on the same pools."""
+    batch, hq, d = q.shape
+    hkv = kv.shape[2] if layout == FUSED else kv.shape[0]
+    dev = q.device
+    max_pages = block_tables.shape[1]
+    nsplit, ws, cnt = decode_split.launch_plan(
+        batch, hq, hkv, max_pages * page_size, window, dev, head_dim=d)
+    bt = block_tables.to(device=dev, dtype=torch.int32).contiguous()
+    lens = context_lens.to(device=dev, dtype=torch.int32).contiguous()
+    out = torch.empty_like(q)
+    lse = (torch.empty((batch, hq), dtype=torch.float32, device=dev)
+           if return_lse else None)
+    err = _build.library().aule_paged_generic_decode(
+        q_in.data_ptr(), _ptr(qf), kv.data_ptr(), _ptr(v), _ptr(sc),
+        _ptr(vs), bt.data_ptr(), lens.data_ptr(), out.data_ptr(), _ptr(lse),
+        _ptr(ws), _ptr(cnt), batch, hq, hkv, num_pages, page_size,
+        max_pages, d, float(scale), window, nsplit,
+        _build.dtype_code(q.dtype, f32=True), pool, sc_f32, layout,
+        _build.stream_handle(dev))
+    _build.check(err, "aule_paged_generic_decode")
+    paged_generic_decode.launches += 1
+    return (out, lse) if return_lse else out
+
+
+def paged_generic_prefill(q, kv_pages, kv_scales, block_tables,
+                          context_lens, q_offsets, *, scale: float,
+                          causal: bool, window: int, pool: int, sc_f32: int,
+                          return_lse: bool):
+    """One launch of the prefill kernel over a fused pool: q [B, Hq, S, D]
+    contiguous; context_lens the total visible cache length and q_offsets
+    the position of query 0, per sequence."""
+    batch, hq, s_new, d = q.shape
+    hkv, page_size = kv_pages.shape[2], kv_pages.shape[3]
+    dev = q.device
+    bt = block_tables.to(device=dev, dtype=torch.int32).contiguous()
+    lens = context_lens.to(device=dev, dtype=torch.int32).contiguous()
+    qoff = q_offsets.to(device=dev, dtype=torch.int32).contiguous()
+    out = torch.empty_like(q)
+    lse = (torch.empty((batch, hq, s_new), dtype=torch.float32, device=dev)
+           if return_lse else None)
+    err = _build.library().aule_paged_generic_prefill(
+        q.data_ptr(), kv_pages.data_ptr(), _ptr(kv_scales), bt.data_ptr(),
+        lens.data_ptr(), qoff.data_ptr(), out.data_ptr(), _ptr(lse), batch,
+        hq, hkv, s_new, page_size, bt.shape[1], d, float(scale),
+        int(bool(causal)), window, _build.dtype_code(q.dtype, f32=True),
+        pool, sc_f32, _build.stream_handle(dev))
+    _build.check(err, "aule_paged_generic_prefill")
+    paged_generic_prefill.launches += 1
+    return (out, lse) if return_lse else out
+
+
+# kernel launches since the last reset
+paged_generic_decode.launches = 0
+paged_generic_prefill.launches = 0

@@ -12,11 +12,13 @@ to the whole context; ROADMAP.md queue 3 records it.  No serving path reads
 those rows.)
 
 `paged_attention_prefill` follows its tensors: CPU tensors take
-`paged_attention_prefill_plain`; CUDA tensors launch the hand-written kernel
-in csrc/paged_prefill.cu (replaces `_fused_prefill_kernel`: a
-warp-specialised wgmma kernel whose producer warps gather the pages and
-convert int8 / e4m3 tiles; see the source note there), or raise for what it
-does not take.  The JAX function's TPU
+`paged_attention_prefill_plain`; CUDA tensors launch a hand-written kernel
+that replaces `_fused_prefill_kernel` (see the source notes): for bf16 / f16
+at D = 128 csrc/paged_prefill.cu's (a warp-specialised wgmma kernel whose
+producer warps gather the pages and convert int8 / e4m3 tiles), for f32 at
+D 64 / 128 / 256 and bf16 / f16 at D 64 / 256 csrc/paged_generic.cu's FFMA
+prefill (ops/paged_generic.py), or raise for what neither takes.  The JAX
+function's TPU
 tiling arguments (`block_q`, `pages_per_compute_block`) have no
 counterpart: the kernel picks its tiles in the source.
 """
@@ -31,6 +33,7 @@ import torch
 from . import _build
 from .paged_fused import (check_kernel_inputs, check_pool, dequantize_pool,
                           from_fused_layout)
+from .paged_generic import paged_generic_prefill
 from .reference import paged_prefill_reference
 
 
@@ -88,11 +91,22 @@ def paged_attention_prefill(
             q, kv_pages, block_tables, context_lens, q_offsets=q_offsets,
             kv_scales=kv_scales, scale=scale, causal=causal,
             window_size=window, return_lse=return_lse)
-    code = check_kernel_inputs(q, hkv, (kv_pages, kv_scales),
-                               "paged-prefill")
+    generic = check_kernel_inputs(q, hkv, (kv_pages, kv_scales),
+                                  "paged-prefill")
+    q = q.contiguous()
+    if kv_scales is None:
+        pool, sc_f32 = _build.POOL_NATIVE, 0
+    else:
+        pool = _build.pool_code(kv_pages.dtype)
+        sc_f32 = _build.scale_code(kv_scales.dtype)
+    if generic:
+        return paged_generic_prefill(
+            q, kv_pages, kv_scales, block_tables, context_lens, q_offsets,
+            scale=scale, causal=causal, window=window, pool=pool,
+            sc_f32=sc_f32, return_lse=return_lse)
+    code = _build.dtype_code(q.dtype)
     lib = _build.library()
     dev = q.device
-    q = q.contiguous()
     if q.data_ptr() % 16:  # a TMA tensor map's base
         raise ValueError("q must start on a 16-byte boundary")
     bt = block_tables.to(device=dev, dtype=torch.int32).contiguous()
@@ -101,11 +115,6 @@ def paged_attention_prefill(
     out = torch.empty_like(q)
     lse = (torch.empty((batch, hq, s_new), dtype=torch.float32, device=dev)
            if return_lse else None)
-    if kv_scales is None:
-        pool, sc_f32 = _build.POOL_NATIVE, 0
-    else:
-        pool = _build.pool_code(kv_pages.dtype)
-        sc_f32 = _build.scale_code(kv_scales.dtype)
     err = lib.aule_paged_prefill(
         q.data_ptr(), kv_pages.data_ptr(),
         kv_scales.data_ptr() if kv_scales is not None else None,

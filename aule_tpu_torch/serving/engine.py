@@ -1,22 +1,25 @@
 """Continuous-batching serving engine (counterpart of
 aule_tpu/serving/engine.py) for the single-device case, over fused pools
-(the default) or split head-major pools (`layout="split"`), with bf16 /
-f16 pools or quantized (int8, e4m3) pools and whole-prompt or (fused)
-chunked prefill.
+(the default) or split head-major pools (`layout="split"`), with pools of
+the model's dtype or quantized (int8, e4m3) pools and whole-prompt or
+(fused) chunked prefill.
 
-A host loop drives eager PyTorch steps on the card:
+`model=` is the model family module: `models.llama` (the default) or
+`models.gpt2` (JAX engine.py:217-220); the engine calls its `forward`,
+`prefill_step_fused`, `decode_step_fused` and, for split pools,
+`decode_step`.  A host loop drives eager PyTorch steps on the card:
   * admission: a request joins when a batch slot and all the pages its
     prompt plus max_new_tokens need are free;
-  * prefill, whole prompt: one `llama.forward` (the flash kernel) over the
-    prompt, whose rotated K and V are then written into the request's
-    pages (quantized with `quantized=True`);
+  * prefill, whole prompt: one `model.forward` (the flash kernel) over the
+    prompt, whose K and V (rotated, for Llama) are then written into the
+    request's pages (quantized with `quantized=True`);
   * prefill, chunked (`prefill_chunk=c`, fused layout only, as JAX's):
-    `llama.prefill_step_fused` (the paged-prefill kernel) over chunks at
+    `model.prefill_step_fused` (the paged-prefill kernel) over chunks at
     offsets 0, c, 2c, ..., each attending to the pages the earlier chunks
     wrote;
   * decode: every running sequence advances through
-    `llama.decode_step_fused` (the paged-decode kernel), or
-    `llama.decode_step` over split pools (its split-pool instantiation);
+    `model.decode_step_fused` (the paged-decode kernel), or
+    `model.decode_step` over split pools (its split-pool instantiation);
     when nothing waits and every request has at least `decode_steps`
     tokens to go, K steps run back to back with the tokens kept on the
     device and ONE host copy per dispatch (the JAX scheduling rule,
@@ -43,7 +46,7 @@ import numpy as np
 import torch
 
 from ..config import PAGE_SIZE, resolve_device
-from ..models import llama
+from ..models import gpt2, llama
 from ..ops.paged import (kv_cache_append_prefill,
                          kv_cache_append_prefill_quantized)
 from ..ops.paged_fused import (SCALE_DTYPE, fused_pool_shape,
@@ -61,7 +64,6 @@ _LATER_ENGINE_ARGS = {
     "enable_prefix_cache": (False, _EDGES),
     "mesh": (None, "the parallel-layer slice"),
     "model_axis": ("model", "the parallel-layer slice"),
-    "model": (None, "the other-model-families slice"),
     "sample": (None, _EDGES),
     "sampler": (None, _EDGES),
     "draft_params": (None, _EDGES),
@@ -123,9 +125,14 @@ class Request:
                 and self.output[-1] == self.eos_id)
 
 
+# the model families the engine drives (the port's own modules)
+MODEL_FAMILIES = (llama, gpt2)
+
+
 class ServingEngine:
-    """Continuous batching over a Llama-style model (models/llama.py) with
-    paged KV pools on one device (the card unless device='cpu').
+    """Continuous batching over a model family of the port (`model=`:
+    models/llama.py, the default, or models/gpt2.py) with paged KV pools
+    on one device (the card unless device='cpu').
 
     layout='fused' (the default) keeps one stacked fused pool `kv_pages`
     [L, P, 2, Hkv, page, Dpad]; layout='split' keeps vLLM-style head-major
@@ -137,12 +144,15 @@ class ServingEngine:
     AULE_TPU_INT8_EXACT is set), split pools with f32 `k_scales` and
     `v_scales` [L, Hkv, P, page] (exact, scale-folded decode).
     prefill_chunk=c prefills prompts in chunks of c tokens through the
-    paged-prefill kernel (fused layout only)."""
+    paged-prefill kernel (fused layout only).  Unquantized pools take the
+    model's dtype (f32 for GPT-2), with D padded to 128 lanes in the fused
+    layout.  A model with learned positions (GPT-2's `cfg.n_ctx`) refuses
+    max_seq_len past its table."""
 
     def __init__(
         self,
         params: Dict[str, Any],
-        cfg: llama.LlamaConfig,
+        cfg,
         *,
         max_batch: int = 8,
         page_size: int = PAGE_SIZE,
@@ -155,6 +165,7 @@ class ServingEngine:
         quantized: bool = False,
         quant_dtype=torch.int8,
         prefill_chunk: Optional[int] = None,
+        model=None,
         device="cuda",
         **later,
     ):
@@ -169,9 +180,24 @@ class ServingEngine:
             raise ValueError(f"unknown layout {layout!r}")
         if prefill_chunk is not None and layout != "fused":
             raise ValueError("prefill_chunk requires layout='fused'")
-        if later.get("model") is llama:
-            later.pop("model")  # the one family this slice ports
         _refuse_later(later, _LATER_ENGINE_ARGS, "ServingEngine")
+        self.model = llama if model is None else model
+        if not any(self.model is m for m in MODEL_FAMILIES):
+            raise NotImplementedError(
+                f"ServingEngine: model={model!r} is not a model family of "
+                f"the port; pass aule_tpu_torch.models.llama or .gpt2")
+        if layout == "split" and not hasattr(self.model, "decode_step"):
+            raise ValueError(
+                f"layout='split' decodes through the model's decode_step "
+                f"over split pools, which {self.model.__name__} has not "
+                f"(nor has the JAX package's); use layout='fused'")
+        # learned positions silently reuse the last row past n_ctx (as
+        # JAX's gather clamps): refuse an engine that could decode there
+        n_ctx = getattr(cfg, "n_ctx", None)
+        if n_ctx is not None and max_seq_len > n_ctx:
+            raise ValueError(
+                f"max_seq_len {max_seq_len} exceeds the model's learned-"
+                f"position table n_ctx={n_ctx}")
         self.params = params
         self.cfg = cfg
         self.max_batch = max_batch
@@ -345,7 +371,7 @@ class ServingEngine:
         engine.py:920-944); returns the logits of the last prompt
         position."""
         n = tokens.shape[1]
-        logits, kv = llama.forward(
+        logits, kv = self.model.forward(
             self.params, tokens, self.cfg, rope_cos=self.rope_cos,
             rope_sin=self.rope_sin, return_kv=True)
         where = (bt_row[None],
@@ -369,14 +395,14 @@ class ServingEngine:
 
     def _prefill_chunked(self, tokens: torch.Tensor, bt_row: torch.Tensor):
         """Chunks of `prefill_chunk` tokens at offsets 0, c, 2c, ... through
-        `llama.prefill_step_fused` (engine.py:1329-1381); each chunk
+        `model.prefill_step_fused` (engine.py:1329-1381); each chunk
         appends its K/V and attends to everything before it.  Returns the
         logits of the last prompt position."""
         n, c = tokens.shape[1], self.prefill_chunk
         logits = None
         for off in range(0, n, c):
             chunk = tokens[:, off:off + c]
-            out = llama.prefill_step_fused(
+            out = self.model.prefill_step_fused(
                 self.params, chunk,
                 torch.full((1,), off, dtype=torch.int32, device=self.device),
                 torch.full((1,), chunk.shape[1], dtype=torch.int32,
@@ -445,11 +471,11 @@ class ServingEngine:
         for _ in range(n_steps):
             # positions are the lengths before this token
             if self.layout == "fused":
-                logits, _, new_lens, *_ = llama.decode_step_fused(
+                logits, _, new_lens, *_ = self.model.decode_step_fused(
                     self.params, tok, lens, self.kv_pages, bt, lens,
                     self.cfg, self.rope_cos, self.rope_sin, self.kv_scales)
             else:
-                logits, _, _, new_lens, *_ = llama.decode_step(
+                logits, _, _, new_lens, *_ = self.model.decode_step(
                     self.params, tok, lens, self.k_pages, self.v_pages, bt,
                     lens, self.cfg, self.rope_cos, self.rope_sin,
                     self.k_scales, self.v_scales)

@@ -56,7 +56,30 @@ Phases, each printing a line of its own:
      backward on csrc/flash_generic.cu; the SDPA patch (install, an
      attn_mask call reaching torch's own function, uninstall); each mode
      timed beside its bound and one PyTorch call;
-  6. engine: a full-width, full-depth Llama-3-8B (random bf16 weights from
+  6. gpt2, in a process of its own (`python3 chip_smoke.py --gpt2` runs it
+     alone): csrc/paged_generic.cu's decode and prefill (f32 and D 64/256)
+     held to their plain versions, every call twice with the same bits:
+     the decode at GPT-2's engine case (B8 Hq12/Hkv12 D64 ctx1024 page 16)
+     and its edges (lengths 0, 1 and 17 with -1 tails, shuffled pages with
+     a window, 64-token pages) in f32, bf16, int8 dot, int8 exact and fp8,
+     over split pools too (which must give the fused kernel's bits), f16
+     at D64 group 2 and D256, f32 at the Llama layer (D128 group 4) and at
+     D256 group 8; the prefill of a 256-token chunk at q_offset 768 over
+     1024 (also windowed), a ragged batch whose padding rows must be exact
+     zeros and 64-token pages with a 1-token chunk, f32 at D128 and D256,
+     bf16 at D256, f16 q at D64 group 2; each mode
+     timed at GPT-2's shapes beside its bound, its plain version and SDPA
+     on the gathered K/V.  Then GPT-2 small at full width and depth
+     (random f32 weights from a seeded generator on the card, and the same
+     in bf16) serves 12 greedy requests of 7 to 1,000 prompt tokens
+     through ServingEngine(model=gpt2) seven times (GPT2_RUNS: f32 whole
+     and chunk 256, int8 chunk 256, fp8 whole and chunk 256, bf16 whole
+     and chunk 256), each checked as the Llama runs are (launches: the
+     generic decode 12 times a step, the tensor-core paged kernels never;
+     pages; tokens against a teacher-forced plain forward or
+     plain-attention replay, the f32 runs within GPT2_F32_NEAR_TIE), and
+     one f32 prefill step and decode dispatch under torch.profiler;
+  7. engine: a full-width, full-depth Llama-3-8B (random bf16 weights from
      a seeded generator on the card) serves the same 12 greedy requests
      eight times through `ServingEngine`: over fused pools, bf16 with
      whole-prompt prefill, (a) bf16 with prefill_chunk=512, (b) int8 with
@@ -68,10 +91,10 @@ Phases, each printing a line of its own:
      back.  The bf16 runs hold every token against a teacher-forced plain
      forward; (b)-(d), (f) and (g) against a teacher-forced replay of the
      same steps with the plain attention versions;
-  7. breakdown: one prefill step and one 8-step decode dispatch of the
+  8. breakdown: one prefill step and one 8-step decode dispatch of the
      engine under torch.profiler (device busy share, kernel time by
      category) for bf16, int8 chunked, fp8 chunked and int8 split pools;
-  8. train: the same full-width, full-depth Llama-3-8B weights, made to
+  9. train: the same full-width, full-depth Llama-3-8B weights, made to
      require grad: first every parameter's gradient of loss_fn through the
      kernels against the plain attention path's on the weights cut to 2
      layers (GRAD_TOL), then 3 SGD `train_step`s on one batch of B1 x 2049
@@ -80,13 +103,14 @@ Phases, each printing a line of its own:
      (tokens/s, share of the bf16 peak, peak memory), step 3 runs under
      torch.profiler; the loss falls at every step.  Last, as it rewrites
      the weights;
-  9. a `kernels` JSON line, one entry per kernel mode the main path
-     launched (the engine runs, the train steps for the backward, the
-     public phase's calls for its modes);
-  10. last line: {"ok": true, "device": {...}}, printed only when every
+  10. a `kernels` JSON line, one entry per kernel mode the main path
+     launched (the engine runs, the GPT-2 runs, the train steps for the
+     backward, the public phase's calls for its modes and the GPT-2
+     phase's split-layout calls);
+  11. last line: {"ok": true, "device": {...}}, printed only when every
      phase passed.  Any failure raises and the exit code is non-zero.
 
-About 4-5 minutes on an H100, the build included.
+About 5 minutes on an H100, the build included.
 """
 
 from __future__ import annotations
@@ -339,21 +363,21 @@ def check_flash(gen):
         # calls): the CUDA-event time of one call also holds the host's
         # dispatch once a kernel is this short, and the wrapper's Python
         # dispatch is longer than SDPA's
-        dev, dev_lib = (profiling.device_breakdown(
-            lambda: [fn() for _ in range(20)], {})["busy_ms"] / 20
+        dev, dev_lib = (_busy_per_call(profiling.device_breakdown(
+            lambda: [fn() for _ in range(20)], {}), 20)
             for fn in (kernel, sdpa))
         nbytes = 2 * (q.numel() * 2 + k.numel() + v.numel())
         bound, by = profiling.bound_ms(nbytes, flops)
         timings[key] = dict(ms=ms[0], plain_ms=plain[0], library_ms=lib[0],
                             bound_ms=bound, bound_by=by, device_ms=dev,
                             library_device_ms=dev_lib)
+        rate = "" if dev is None else f", {flops / dev / 1e9:.1f} TFLOP/s"
         log(f"flash time B{b} Hq{hq}/Hkv{hkv} S{s} D128 bf16 causal"
             f"{f' window {window}' if window > 0 else ''}: kernel "
             f"{ms[0]:.4f} ms (min {ms[1]:.4f} max {ms[2]:.4f}), device "
-            f"{dev:.4f} ms, {flops / dev / 1e9:.1f} TFLOP/s; plain "
-            f"{plain[0]:.4f} ms; sdpa"
+            f"{_ms(dev)}{rate}; plain {plain[0]:.4f} ms; sdpa"
             f"{' with the window mask' if window > 0 else ''} {lib[0]:.4f} "
-            f"ms, device {dev_lib:.4f} ms; bound {bound:.4f} ms ({by})")
+            f"ms, device {_ms(dev_lib)}; bound {bound:.4f} ms ({by})")
     # both kernels at the engine's short prompts, in device time (torch.
     # profiler; a call's CUDA-event time is the host's at these sizes):
     # the evidence for SHORT_SQ
@@ -369,11 +393,12 @@ def check_flash(gen):
             bd = profiling.device_breakdown(
                 lambda: [fn(q, k, v, causal=True, return_lse=False)
                          for _ in range(20)], cats)
-            dev[name] = bd["by_category_ms"][name] / 20
+            dev[name] = (bd["by_category_ms"][name] / 20
+                         if bd["kernels_by_category"][name] == 20 else None)
         short[s] = dev
         log(f"flash short prompt S{s} B1 Hq32/Hkv8 causal, device time per "
-            f"launch: TMA kernel {dev['tma'] * 1e3:.2f} us, short-prompt "
-            f"kernel {dev['short'] * 1e3:.2f} us (the wrapper runs the "
+            f"launch: TMA kernel {_us(dev['tma'])}, short-prompt kernel "
+            f"{_us(dev['short'])} (the wrapper runs the "
             f"{'short-prompt' if s <= SHORT_SQ else 'TMA'} kernel)")
     q = _randn((1, 32, 7, 128), gen)
     k = _randn((1, 8, 7, 128), gen)
@@ -391,8 +416,7 @@ def check_flash(gen):
     bound, by = profiling.bound_ms(2 * (q.numel() * 2 + k.numel() +
                                         v.numel()), flops)
     log(f"flash short prompt S7: sdpa device {_ms(lib_dev)} (events "
-        f"{lib[0]:.4f} ms), kernel device "
-        f"{short[7]['short'] * 1e3:.2f} us")
+        f"{lib[0]:.4f} ms), kernel device {_us(short[7]['short'])}")
     timings["S7 short"] = dict(ms=ms[0], plain_ms=plain[0],
                                library_ms=lib[0], bound_ms=bound, bound_by=by,
                                library_device_ms=lib_dev,
@@ -400,6 +424,12 @@ def check_flash(gen):
                                device_ms_short_prompts=short)
     flash_fwd_tma.launches = flash_fwd_short.launches = 0
     return worst, timings
+
+
+def _busy_per_call(bd, calls):
+    """A breakdown's device busy time per call, or None (not measured)
+    when the profiler saw no kernel."""
+    return bd["busy_ms"] / calls if bd["kernels"] else None
 
 
 def device_ms(fn, calls=20, key=None):
@@ -433,6 +463,10 @@ def device_ms(fn, calls=20, key=None):
 
 def _ms(x) -> str:
     return "not measured" if x is None else f"{x:.4f} ms"
+
+
+def _us(x) -> str:
+    return "not measured" if x is None else f"{x * 1e3:.2f} us"
 
 
 def _vecdot_times(o, do):
@@ -837,15 +871,16 @@ def check_decode(gen):
     return worst, timings
 
 
-def _split_pools(pool, qdt):
-    """A fused pool's K and V as split pools [Hkv, P, page, D] (bf16, or
-    quantized per token by the port's quantize_kv with f32 scales), and the
-    same pools in the fused layout (f32 packed scales when quantized)."""
+def _split_pools(pool, qdt, head_dim=None):
+    """A fused pool's K and V as split pools [Hkv, P, page, D] (the pool's
+    type, or quantized per token by the port's quantize_kv with f32
+    scales; D = head_dim of the 128 lanes when given), and the same pools
+    in the fused layout (f32 packed scales when quantized)."""
     from aule_tpu_torch.ops.paged_fused import (from_fused_layout,
                                                 to_fused_layout)
     from aule_tpu_torch.ops.quant import quantize_kv
 
-    k, v = (x.contiguous() for x in from_fused_layout(pool))
+    k, v = (x.contiguous() for x in from_fused_layout(pool, head_dim))
     if qdt is None:
         return (k, v, None, None), (pool, None)
     (kq, ks), (vq, vs) = quantize_kv(k, qdt), quantize_kv(v, qdt)
@@ -1159,30 +1194,42 @@ CHUNK = 512
 
 
 def _launch_counters():
-    from aule_tpu_torch.ops.flash import flash_fwd_short, flash_fwd_tma
+    from aule_tpu_torch.ops.flash import (flash_fwd_generic, flash_fwd_short,
+                                         flash_fwd_tma)
     from aule_tpu_torch.ops.paged import paged_attention
     from aule_tpu_torch.ops.paged_fused import paged_attention_fused
+    from aule_tpu_torch.ops.paged_generic import (paged_generic_decode,
+                                                  paged_generic_prefill)
     from aule_tpu_torch.ops.paged_prefill import paged_attention_prefill
 
     return {"flash_fwd": flash_fwd_tma, "flash_fwd_short": flash_fwd_short,
+            "flash_fwd_generic": flash_fwd_generic,
             "paged_decode": paged_attention_fused,
             "paged_decode_split": paged_attention,
-            "paged_prefill": paged_attention_prefill}
+            "paged_prefill": paged_attention_prefill,
+            "paged_generic_decode": paged_generic_decode,
+            "paged_generic_prefill": paged_generic_prefill}
 
 
-def run_engine(params, cfg, prompts, label, **kw):
-    """Serve the prompts through a fresh ServingEngine; the launch counts
-    are set to 0 just before the run and read just after.  Checks that
-    every request finished, that the launches match the dispatches
-    (whole-prompt prefill launches a flash kernel once per layer per
-    prompt, the short-prompt one for prompts of at most SHORT_SQ tokens;
-    chunked prefill launches the paged-prefill kernel once per layer per
-    chunk and no flash kernel; decode launches the decode kernel of
-    the engine's layout, fused or split, once per layer per step and the
-    other never) and that every page came back."""
+def run_engine(params, cfg, prompts, label, model=None, engine_kw=ENGINE_KW,
+               **kw):
+    """Serve the prompts through a fresh ServingEngine (`model`: the model
+    family, Llama by default); the launch counts are set to 0 just before
+    the run and read just after.  Checks that every request finished, that
+    the launches match the dispatches (whole-prompt prefill launches a
+    flash kernel once per layer per prompt, the short-prompt one for
+    prompts of at most SHORT_SQ tokens; chunked prefill launches the
+    paged-prefill kernel once per layer per chunk and no flash kernel;
+    decode launches the decode kernel of the engine's layout, fused or
+    split, once per layer per step and the other never; a model in f32 or
+    with a head dim other than 128 launches the generic kernels of those
+    roles, flash_generic.cu's and paged_generic.cu's, and the tensor-core
+    ones never, and the other way round) and that every page came
+    back."""
     from aule_tpu_torch.serving.engine import ServingEngine
 
-    eng = ServingEngine(params, cfg, device=DEV, **ENGINE_KW, **kw)
+    eng = ServingEngine(params, cfg, device=DEV, model=model, **engine_kw,
+                        **kw)
     pools = [t for t in (eng.kv_pages, eng.kv_scales, eng.k_pages,
                          eng.v_pages, eng.k_scales, eng.v_scales)
              if t is not None]
@@ -1200,13 +1247,14 @@ def run_engine(params, cfg, prompts, label, **kw):
     launches = {name: fn.launches for name, fn in counters.items()}
     st = eng.stats()
     n_req = len(prompts)
+    lens = [len(p) for p in prompts]
     decode_tokens = st["tokens_generated"] - n_req
     log(f"engine {label}: {eng.layout} pools {pools[0].dtype} "
         f"{pool_gib:.2f} GiB with scales; {len(done)} requests in "
         f"{wall:.2f} s; prefill "
         f"{st['prefill_seconds']:.3f} s over {st['prefill_dispatches']} "
-        f"dispatches ({sum(PROMPT_LENS)} prompt tokens, "
-        f"{sum(PROMPT_LENS) / st['prefill_seconds']:.0f} tok/s); decode "
+        f"dispatches ({sum(lens)} prompt tokens, "
+        f"{sum(lens) / st['prefill_seconds']:.0f} tok/s); decode "
         f"{st['decode_seconds']:.3f} s, {st['decode_steps']} steps in "
         f"{st['decode_dispatches']} dispatches, {decode_tokens} tokens, "
         f"{decode_tokens / st['decode_seconds']:.1f} tok/s")
@@ -1219,25 +1267,31 @@ def run_engine(params, cfg, prompts, label, **kw):
     layers = cfg.n_layers
     chunked = kw.get("prefill_chunk") is not None
     split = kw.get("layout") == "split"
+    generic = cfg.dtype == torch.float32 or cfg.head_dim != 128
     decode = st["decode_steps"] * layers
+    prefill = st["prefill_dispatches"] * layers
     # whole-prompt prefill: one dispatch per prompt, its kernel by length
-    short = sum(n <= SHORT_SQ for n in PROMPT_LENS)
-    want = {"flash_fwd": (0 if chunked else
-                          (st["prefill_dispatches"] - short) * layers),
-            "flash_fwd_short": 0 if chunked else short * layers,
-            "paged_decode": 0 if split else decode,
-            "paged_decode_split": decode if split else 0,
-            "paged_prefill": (st["prefill_dispatches"] * layers if chunked
-                              else 0)}
+    short = 0 if generic else sum(n <= SHORT_SQ for n in lens)
+    tc = {"flash_fwd": (0 if chunked else
+                        (st["prefill_dispatches"] - short) * layers),
+          "flash_fwd_short": 0 if chunked else short * layers,
+          "paged_decode": 0 if split else decode,
+          "paged_decode_split": decode if split else 0,
+          "paged_prefill": prefill if chunked else 0}
+    gen = {"flash_fwd_generic": 0 if chunked else prefill,
+           "paged_generic_decode": decode,
+           "paged_generic_prefill": prefill if chunked else 0}
+    want = {name: ((gen.get(name, 0) if generic else tc.get(name, 0)))
+            for name in counters}
     if chunked and st["prefill_dispatches"] != sum(
-            -(-n // kw["prefill_chunk"]) for n in PROMPT_LENS):
+            -(-n // kw["prefill_chunk"]) for n in lens):
         raise AssertionError(f"{label}: {st['prefill_dispatches']} prefill "
                              f"dispatches for chunks of "
                              f"{kw['prefill_chunk']}")
     if launches != want:
         raise AssertionError(f"{label}: launches {launches} != dispatches "
                              f"x {layers} layers {want}")
-    if st["free_pages"] != ENGINE_KW["num_pages"] - 1:
+    if st["free_pages"] != engine_kw["num_pages"] - 1:
         raise AssertionError(f"{label}: pages leaked: {st['free_pages']} "
                              f"free")
     outputs = [list(r.output) for r in done]
@@ -1248,43 +1302,48 @@ def run_engine(params, cfg, prompts, label, **kw):
 
 class _Agreement:
     """Teacher-forced agreement of emitted tokens with reference logits:
-    each token is the reference argmax, or within NEAR_TIE of its max."""
+    each token is the reference argmax, or within `tie` (NEAR_TIE unless
+    given) of its max."""
 
-    def __init__(self, label):
+    def __init__(self, label, tie=NEAR_TIE):
         self.label, self.exact, self.ties, self.gap = label, 0, 0, 0.0
+        self.tie = tie
 
     def add(self, rows, chosen, where):
         best = rows.max(dim=-1)
         gap = best.values - rows.gather(1, chosen[:, None])[:, 0]
         is_exact = best.indices == chosen
         self.exact += int(is_exact.sum())
-        self.ties += int(((~is_exact) & (gap <= NEAR_TIE)).sum())
+        self.ties += int(((~is_exact) & (gap <= self.tie)).sum())
         self.gap = max(self.gap, float(gap.max()))
-        if bool(((~is_exact) & (gap > NEAR_TIE)).any()):
+        if bool(((~is_exact) & (gap > self.tie)).any()):
             raise AssertionError(
                 f"{self.label} {where}: engine token is "
                 f"{float(gap.max()):.4f} below the reference max, over the "
-                f"near-tie allowance {NEAR_TIE}")
+                f"near-tie allowance {self.tie}")
 
     def report(self, what):
         log(f"engine {self.label}: {what} agrees on "
             f"{self.exact + self.ties} tokens: {self.exact} exact argmax, "
-            f"{self.ties} near-ties (largest gap {self.gap:.4f} <= "
-            f"{NEAR_TIE})")
+            f"{self.ties} near-ties (largest gap {self.gap:.4g} <= "
+            f"{self.tie:.4g})")
 
 
-def check_plain_forward(params, cfg, prompts, outputs, label):
+def check_plain_forward(params, cfg, prompts, outputs, label, model=None,
+                        tie=NEAR_TIE):
     """Teacher-forced plain forward (flash's plain version) over prompt +
-    output: the check of the bf16 runs."""
+    output: the check of the unquantized runs (`model`: Llama unless
+    given)."""
     from aule_tpu_torch.models import llama
     from aule_tpu_torch.ops.flash_vjp import flash_attention_vjp_plain
 
-    agree = _Agreement(label)
+    model = model or llama
+    agree = _Agreement(label, tie)
     with torch.no_grad():
         for i, (p, out) in enumerate(zip(prompts, outputs)):
             seq = np.concatenate([p, np.asarray(out[:-1], np.int32)])
             tokens = torch.from_numpy(seq.astype(np.int64))[None].to(DEV)
-            logits = llama.forward(params, tokens, cfg,
+            logits = model.forward(params, tokens, cfg,
                                    attention=flash_attention_vjp_plain)[0]
             agree.add(logits[len(p) - 1:], torch.tensor(out, device=DEV),
                       f"request {i} (prompt {len(p)})")
@@ -1293,13 +1352,16 @@ def check_plain_forward(params, cfg, prompts, outputs, label):
 
 
 def check_replay(params, cfg, prompts, outputs, label, quant_dtype, chunk,
-                 layout="fused"):
+                 layout="fused", model=None, engine_kw=ENGINE_KW,
+                 tie=NEAR_TIE):
     """Teacher-forced replay of a quantized run's steps with the plain
     attention versions: each prompt is prefilled alone into fresh pools of
     the run's layout written the same way (chunked through
     prefill_step_fused, or a whole forward plus the quantized append), then
     all requests decode together through decode_step_fused or, over split
-    pools, decode_step, fed the engine's tokens."""
+    pools, decode_step, fed the engine's tokens (`model`: Llama unless
+    given; `engine_kw`: the run's engine settings; `tie`: the near-tie
+    allowance)."""
     from aule_tpu_torch.models import llama
     from aule_tpu_torch.ops import paged
     from aule_tpu_torch.ops.flash_vjp import flash_attention_vjp_plain
@@ -1311,7 +1373,8 @@ def check_replay(params, cfg, prompts, outputs, label, quant_dtype, chunk,
     from aule_tpu_torch.ops.rope import precompute_rope_frequencies
 
     dev = DEV
-    page = ENGINE_KW["page_size"]
+    model = model or llama
+    page = engine_kw["page_size"]
     need = [-(-(len(p) + NEW_TOKENS) // page) for p in prompts]
     num_pages = 1 + sum(need)
 
@@ -1330,7 +1393,7 @@ def check_replay(params, cfg, prompts, outputs, label, quant_dtype, chunk,
         pools = [zeros(shape, quant_dtype), zeros(shape, quant_dtype),
                  zeros(shape[:-1], torch.float32),
                  zeros(shape[:-1], torch.float32)]
-    bt_np = np.full((len(prompts), ENGINE_KW["max_pages_per_seq"]), -1,
+    bt_np = np.full((len(prompts), engine_kw["max_pages_per_seq"]), -1,
                     np.int32)
     at = 1
     for i, n in enumerate(need):
@@ -1338,9 +1401,9 @@ def check_replay(params, cfg, prompts, outputs, label, quant_dtype, chunk,
         at += n
     bt = torch.from_numpy(bt_np).to(dev)
     cos, sin = precompute_rope_frequencies(
-        ENGINE_KW["max_seq_len"], cfg.head_dim, cfg.rope_base, device=dev)
+        engine_kw["max_seq_len"], cfg.head_dim, cfg.rope_base, device=dev)
     out_t = torch.tensor(outputs, device=dev)          # [R, NEW_TOKENS]
-    agree = _Agreement(label)
+    agree = _Agreement(label, tie)
 
     def one(x):
         return torch.tensor([x], dtype=torch.int32, device=dev)
@@ -1352,12 +1415,12 @@ def check_replay(params, cfg, prompts, outputs, label, quant_dtype, chunk,
             if chunk:
                 for off in range(0, n, chunk):
                     part = tokens[:, off:off + chunk]
-                    logits = llama.prefill_step_fused(
+                    logits = model.prefill_step_fused(
                         params, part, one(off), one(part.shape[1]),
                         pools[0], bt[i:i + 1], cfg, cos, sin, pools[1],
                         attention=paged_attention_prefill_plain)[0][0]
             else:
-                full, kv = llama.forward(
+                full, kv = model.forward(
                     params, tokens, cfg, rope_cos=cos, rope_sin=sin,
                     return_kv=True, attention=flash_attention_vjp_plain)
                 where = (bt[i:i + 1], one(0), one(n))
@@ -1376,11 +1439,11 @@ def check_replay(params, cfg, prompts, outputs, label, quant_dtype, chunk,
                             device=dev)
         for t in range(NEW_TOKENS - 1):
             if layout == "fused":
-                logits = llama.decode_step_fused(
+                logits = model.decode_step_fused(
                     params, out_t[:, t], lens, pools[0], bt, lens, cfg, cos,
                     sin, pools[1], attention=paged_attention_fused_plain)[0]
             else:
-                logits = llama.decode_step(
+                logits = model.decode_step(
                     params, out_t[:, t], lens, *pools[:2], bt, lens, cfg,
                     cos, sin, *pools[2:],
                     attention=paged.paged_attention_plain)[0]
@@ -1462,6 +1525,9 @@ def _same(outs, ref) -> int:
 # the split decode (paged_decode_kernel<..., SplitPools>) before the fused
 CATEGORIES = {"flash_fwd_short": ["flash_fwd_short_kernel"],
               "flash_fwd": ["flash_fwd_kernel"],
+              "flash_generic": ["flash_generic"],
+              "paged_generic_decode": ["paged_generic_decode"],
+              "paged_generic_prefill": ["paged_generic_prefill"],
               "flash_bwd_dq": ["flash_bwd_dq_kernel"],
               "flash_bwd_dkv": ["flash_bwd_dkv_kernel"],
               "flash_bwd_delta": ["flash_bwd_delta_kernel"],
@@ -2206,27 +2272,441 @@ def check_public() -> dict:
     return res
 
 
-def phase_public() -> dict:
-    """check_public in a process of its own (`chip_smoke.py --public`):
-    its profiled timings meet a fresh torch.profiler, which loses kernels
-    after ~100 profiled runs in one process, and the phases after it
-    keep their own count.  Its lines are passed on; its result is the
-    JSON object on its last line."""
-    proc = subprocess.run([sys.executable, os.path.abspath(__file__),
-                           "--public"], stdout=subprocess.PIPE,
-                          stderr=subprocess.STDOUT, text=True, timeout=900)
+# ---- the GPT-2 phase: csrc/paged_generic.cu and GPT-2 small serving, in a
+# process of its own (`python3 chip_smoke.py --gpt2` runs it alone)
+
+GPT2_SEED = SEED + 12    # a generator of its own: earlier checks' inputs
+# GPT-2 small's engine (aule_tpu/models/gpt2.py:33-44: n_ctx 1024)
+GPT2_ENGINE_KW = dict(max_batch=8, page_size=16, num_pages=512,
+                      max_pages_per_seq=64, max_seq_len=1024, decode_steps=8)
+GPT2_PROMPT_LENS = [7, 16, 17, 64, 129, 256, 300, 511, 700, 768, 999, 1000]
+GPT2_CHUNK = 256
+# Teacher-forced agreement of GPT-2 small in f32: the kernel path and the
+# plain path differ by f32 roundings (2^-24 relative) in each product and
+# sum, in another order; through 12 layers and a 768-wide head that grows
+# to ~1e-5 of a logit (|logit| ~ 1-5 at random weights).  2^-10 is ~100x
+# that; a wrong tile, mask or position moves logits by tenths.
+GPT2_F32_NEAR_TIE = 2.0 ** -10
+# (mode, q / pool dtype, payload dtype or None, int8_matmul)
+GEN_DECODE_MODES = [
+    ("f32", torch.float32, None, None), ("bf16", torch.bfloat16, None, None),
+    ("int8 dot", torch.float32, torch.int8, True),
+    ("int8 exact", torch.float32, torch.int8, False),
+    ("fp8", torch.float32, torch.float8_e4m3fn, None)]
+GEN_F16_MODES = [
+    ("f16", torch.float16, None, None),
+    ("int8 dot", torch.float16, torch.int8, True),
+    ("fp8", torch.float16, torch.float8_e4m3fn, None)]
+GEN_PREFILL_MODES = [  # (mode, q / pool dtype, payload dtype or None)
+    ("f32", torch.float32, None), ("bf16", torch.bfloat16, None),
+    ("int8", torch.float32, torch.int8),
+    ("fp8", torch.float32, torch.float8_e4m3fn)]
+GPT2_HEADS = (12, 12, 64)   # Hq, Hkv, D
+LLAMA_F32 = (32, 8, 128)    # the Llama layer's heads in f32 (group 4)
+D256_F32 = (8, 1, 256)      # Gemma-2B's attention shape (group 8)
+
+
+def _generic_pool(gen, total, max_pages, page, hkv, d, dtype, shuffle):
+    """A fused pool of `page`-token pages (D padded to 128 lanes, zeros in
+    the padding, as the appends leave it) holding total[b] tokens per
+    sequence (random K/V), tables -1 past the used pages, page 0 scratch
+    filled with garbage."""
+    from aule_tpu_torch.ops.paged_fused import fused_pool_shape
+
+    used = [-(-n // page) for n in total]
+    num_pages = 1 + sum(used)
+    pool = _randn(fused_pool_shape(num_pages, hkv, page, d), gen, dtype)
+    pool[..., d:] = 0
+    pool[0] = 1e4
+    ids = np.arange(1, num_pages)
+    if shuffle:
+        ids = np.random.default_rng(SEED).permutation(ids)
+    bt = np.full((len(total), max_pages), -1, np.int32)
+    at = 0
+    for b, n in enumerate(used):
+        bt[b, :n] = ids[at:at + n]
+        at += n
+    return pool, torch.from_numpy(bt).to(DEV)
+
+
+def _gen_quantized(pool, qdt, scale_dtype=torch.bfloat16):
+    return (pool, None) if qdt is None else quantize_pool(pool, qdt,
+                                                          scale_dtype)
+
+
+def _generic_decode_checks(gen, res):
+    """csrc/paged_generic.cu's decode against its plain version, twice with
+    the same bits: GPT-2's engine case (B8 ctx1024 Hq12/Hkv12 D64 page 16)
+    and its edges (lengths 0, 1 and 17 with -1 tails, shuffled pages with
+    a window, 64-token pages) in f32, bf16, int8 dot, int8 exact and fp8
+    (f32 q; bf16 scales as the engine's); f16 at D64 group 2 and D256
+    group 8; f32 at the Llama layer (D128 group 4) and at D256 group 8.
+    Over split pools
+    (f32 scales), the same values in f32, bf16, int8 and fp8 must give the
+    fused kernel's bits, and are held to the split plain version."""
+    from aule_tpu_torch.ops.paged import paged_attention, paged_attention_plain
+    from aule_tpu_torch.ops.paged_fused import (paged_attention_fused,
+                                                paged_attention_fused_plain)
+    from aule_tpu_torch.ops.paged_generic import paged_generic_decode
+
+    cases = [  # (label, lens, max_pages, page, shuffle, window, heads, modes)
+        ("GPT-2 engine B8 ctx1024", [1024] * 8, 64, 16, False, -1,
+         GPT2_HEADS, GEN_DECODE_MODES),
+        ("lengths 0/1/17 with -1 tails", [1, 17, 0, 1024, 1000, 33, 512,
+                                          999], 64, 16, False, -1,
+         GPT2_HEADS, GEN_DECODE_MODES),
+        ("shuffled pages, window 300", [1024, 1, 17, 700, 1000, 64, 300,
+                                        1023], 64, 16, True, 300,
+         GPT2_HEADS, GEN_DECODE_MODES),
+        ("page 64", [1024, 1000, 1, 0, 63, 64, 65, 1023], 16, 64, True, -1,
+         GPT2_HEADS, GEN_DECODE_MODES),
+        ("f16 D64 group 2", [1024, 1, 17, 333], 64, 16, True, 64, (8, 4, 64),
+         GEN_F16_MODES),
+        ("f32 Llama layer D128 group 4", [4096, 1, 17, 3000], 272, 16, True,
+         -1, LLAMA_F32, [m for m in GEN_DECODE_MODES if m[0] != "bf16"]),
+        ("f32 D256 group 8", [2048, 777], 128, 16, True, -1, D256_F32,
+         GEN_DECODE_MODES),
+        ("f16 D256 group 8", [2048, 777], 128, 16, True, -1, D256_F32,
+         GEN_F16_MODES[:1]),
+    ]
+    split_launches = 0
+    for label, lens, max_pages, page, shuffle, window, (hq, hkv, d), modes \
+            in cases:
+        for mode, dt, qdt, dot in modes:
+            pool, bt = _generic_pool(gen, lens, max_pages, page, hkv, d, dt,
+                                     shuffle)
+            ln = torch.tensor(lens, dtype=torch.int32, device=DEV)
+            q = _randn((len(lens), hq, d), gen, dt)
+            pl, sc = _gen_quantized(pool, qdt)
+            kw = dict(kv_scales=sc, window_size=window, int8_matmul=dot,
+                      return_lse=True)
+            what = (f"generic decode {mode} {label} Hq{hq}/Hkv{hkv} D{d} "
+                    f"{str(dt).replace('torch.', '')} q")
+            o, lse = _twice(what, lambda: paged_attention_fused(
+                q, pl, bt, ln, **kw))
+            po, plse = paged_attention_fused_plain(q, pl, bt, ln, **kw)
+            key = mode if hq == 12 else f"{mode} {label}"
+            hold(what, o, po, lse, plse, _tol(dt, bool(dot)), res["err"],
+                 f"decode {key}")
+            if dot or hq != 12:
+                continue
+            (k, v, ks, vs), (fpool, fsc) = _split_pools(pool, qdt, d)
+            skw = dict(k_scales=ks, v_scales=vs, window_size=window,
+                       return_lse=True)
+            before = paged_generic_decode.launches
+            so, slse = _twice(f"split {what}", lambda: paged_attention(
+                q, k, v, bt, ln, **skw))
+            split_launches += paged_generic_decode.launches - before
+            po, plse = paged_attention_plain(q, k, v, bt, ln, **skw)
+            hold(f"split {what}", so, po, slse, plse, _tol(dt), res["err"],
+                 f"split {mode}")
+            fo, flse = paged_attention_fused(
+                q, fpool, bt, ln, kv_scales=fsc, window_size=window,
+                int8_matmul=False, return_lse=True)
+            if not (torch.equal(so, fo) and torch.equal(slse, flse)):
+                raise AssertionError(f"split {what}: not the fused kernel's "
+                                     f"bits on the same pools")
+    res["launches"]["split decode checks"] = split_launches
+    log("generic decode: every split-pool case gives the fused kernel's "
+        "bits on the same pools, and every call the same bits twice")
+
+
+def _generic_prefill_checks(gen, res):
+    """csrc/paged_generic.cu's prefill against its plain version, twice
+    with the same bits, in f32, bf16, int8 and fp8 (f32 q): GPT-2's
+    256-token chunk at q_offset 768 over 1024 tokens (and with a 128
+    window), a ragged batch of 4 whose padding rows must be exact zeros,
+    64-token pages with a 1-token chunk; f32 at the Llama layer (a 512
+    chunk at 3488 over 4000) and at D256 group 8; bf16 at D256 group 8;
+    f16 q (f16, int8 and fp8 pools) at D64 group 2."""
+    from aule_tpu_torch.config import DEFAULT_MASK_VALUE
+    from aule_tpu_torch.ops.paged_prefill import (
+        paged_attention_prefill, paged_attention_prefill_plain)
+
+    f32_modes = [m for m in GEN_PREFILL_MODES if m[0] != "bf16"]
+    f16_modes = [("f16", torch.float16, None),
+                 ("int8", torch.float16, torch.int8),
+                 ("fp8", torch.float16, torch.float8_e4m3fn)]
+    cases = [  # (label, hist, chunk, s_pad, max_pages, page, window, heads,
+        #         modes)
+        ("chunk 256 at q_offset 768 over 1024", [768], [256], 256, 64, 16,
+         -1, GPT2_HEADS, GEN_PREFILL_MODES),
+        ("chunk 256 at 768, window 128", [768], [256], 256, 64, 16, 128,
+         GPT2_HEADS, GEN_PREFILL_MODES),
+        ("ragged B4 with rows past context_lens", [700, 0, 1000, 63],
+         [200, 130, 1, 77], 200, 64, 16, -1, GPT2_HEADS, GEN_PREFILL_MODES),
+        ("page 64, ragged B2 chunks 256 and 1", [768, 900], [256, 1], 256,
+         16, 64, -1, GPT2_HEADS, GEN_PREFILL_MODES),
+        ("f32 Llama layer, chunk 512 at 3488 over 4000", [3488], [512], 512,
+         272, 16, -1, LLAMA_F32, f32_modes),
+        ("f32 D256 group 8, chunk 256 at 1000", [1000], [256], 256, 128, 16,
+         -1, D256_F32, f32_modes),
+        ("bf16 D256 group 8, chunk 256 at 1000", [1000], [256], 256, 128,
+         16, -1, D256_F32, GEN_PREFILL_MODES[1:2]),
+        ("f16 D64 group 2, chunk 256 at 768, window 128", [768], [256], 256,
+         64, 16, 128, (8, 4, 64), f16_modes),
+    ]
+    for label, hist, chunk, s_pad, max_pages, page, window, (hq, hkv, d), \
+            modes in cases:
+        total = [h + c for h, c in zip(hist, chunk)]
+        for mode, dt, qdt in modes:
+            pool, bt = _generic_pool(gen, total, max_pages, page, hkv, d, dt,
+                                     True)
+            pl, sc = _gen_quantized(pool, qdt)
+            q = _randn((len(hist), hq, s_pad, d), gen, dt)
+            ln = torch.tensor(total, dtype=torch.int32, device=DEV)
+            qoff = torch.tensor(hist, dtype=torch.int32, device=DEV)
+            kw = dict(q_offsets=qoff, kv_scales=sc, window_size=window,
+                      return_lse=True)
+            what = (f"generic prefill {mode} {label} Hq{hq}/Hkv{hkv} D{d} "
+                    f"{str(dt).replace('torch.', '')} q")
+            o, lse = _twice(what, lambda: paged_attention_prefill(
+                q, pl, bt, ln, **kw))
+            for b, n in enumerate(chunk):  # padding rows: exact zeros
+                if not (bool((o[b, :, n:] == 0).all()) and bool(
+                        (lse[b, :, n:] == DEFAULT_MASK_VALUE).all())):
+                    raise AssertionError(f"{what}: padding rows of sequence "
+                                         f"{b} are not zeros")
+            po, plse = paged_attention_prefill_plain(q, pl, bt, ln, **kw)
+            key = mode if hq == 12 else f"{mode} {label}"
+            hold(what, o, po, lse, plse, ROW_TOL[dt], res["err"],
+                 f"prefill {key}")
+
+
+def _generic_timings(gen, res):
+    """Times at GPT-2's engine shapes (profiler device time of the kernel
+    alone and of the library call, CUDA-event medians of the kernel, its
+    plain version and the library call, beside the bound): the decode at
+    B8 ctx1024 in every mode over fused pools and in f32, bf16, int8 and
+    fp8 over split pools (f32 scales); the prefill of a 256-token chunk at
+    q_offset 768 over 1024.  Library: SDPA on the gathered, dequantized
+    K/V in q's type (positional mask for the prefill), timed only.  Bounds
+    count the D = 64 live lanes of each K/V row once."""
+    from aule_tpu_torch.ops.paged import paged_attention, paged_attention_plain
+    from aule_tpu_torch.ops.paged_fused import (dequantize_pool,
+                                                from_fused_layout,
+                                                paged_attention_fused,
+                                                paged_attention_fused_plain)
+    from aule_tpu_torch.ops.paged_prefill import (
+        paged_attention_prefill, paged_attention_prefill_plain)
+    from aule_tpu_torch.ops.quant import dequantize_kv
+    from aule_tpu_torch.utils import profiling
+
+    hq, hkv, d = GPT2_HEADS
+    batch, ctx, max_pages = 8, 1024, 64
+    for mode, dt, qdt, dot in GEN_DECODE_MODES:
+        pool, bt = _generic_pool(gen, [ctx] * batch, max_pages, 16, hkv, d,
+                                 dt, False)
+        ln = torch.full((batch,), ctx, dtype=torch.int32, device=DEV)
+        q = _randn((batch, hq, d), gen, dt)
+        pl, sc = _gen_quantized(pool, qdt)
+        # pages 1.. hold the sequences in order: [Hkv, P, page, D] ->
+        # [B, Hq, ctx, D] dense in q's type
+        kh, vh = (from_fused_layout(pl[1:], d) if qdt is None
+                  else dequantize_pool(pl[1:], sc[1:], d))
+        kd, vd = (x.reshape(hkv, batch, ctx, d).transpose(0, 1).to(dt)
+                  for x in (kh, vh))
+        esz = torch.tensor([], dtype=dt).element_size()
+        payload = esz if qdt is None else 1
+        common = 2 * q.numel() * esz + batch * max_pages * 4 + batch * 4
+        flops = 4.0 * batch * hq * ctx * d
+        kw = dict(kv_scales=sc, int8_matmul=dot)
+        res["time"][f"decode {mode}"] = _mode_time(
+            f"generic decode time {mode} GPT-2 B8 ctx1024 page16 "
+            f"Hq12/Hkv12 D64", lambda: paged_attention_fused(
+                q, pl, bt, ln, **kw),
+            lambda: paged_attention_fused_plain(q, pl, bt, ln, **kw),
+            lambda: SDPA(q[:, :, None], kd, vd), "fusedlayout",
+            profiling.paged_kv_bytes(batch * ctx, hkv, d, payload,
+                                     0 if qdt is None else 2) + common,
+            flops, _rate(dt))
+        if dot:
+            continue
+        (k, v, ks, vs), _ = _split_pools(pool, qdt, d)
+        kw = dict(k_scales=ks, v_scales=vs)
+        kh, vh = (k, v) if qdt is None else (dequantize_kv(k, ks),
+                                              dequantize_kv(v, vs))
+        kd, vd = (x[:, 1:].reshape(hkv, batch, ctx, d).transpose(0, 1).to(
+            dt) for x in (kh, vh))
+        res["time"][f"split {mode}"] = _mode_time(
+            f"generic split decode time {mode} GPT-2 B8 ctx1024 page16 "
+            f"Hq12/Hkv12 D64{'' if qdt is None else ', f32 scales'}",
+            lambda: paged_attention(q, k, v, bt, ln, **kw),
+            lambda: paged_attention_plain(q, k, v, bt, ln, **kw),
+            lambda: SDPA(q[:, :, None], kd, vd), "splitlayout",
+            profiling.paged_kv_bytes(batch * ctx, hkv, d, payload,
+                                     0 if qdt is None else 4) + common,
+            flops, _rate(dt))
+        del kd, vd, kh, vh, k, v
+    hist, chunk = 768, 256
+    mask = (torch.arange(hist + chunk, device=DEV)[None, :]
+            <= hist + torch.arange(chunk, device=DEV)[:, None])
+    flops = profiling.paged_prefill_flops([hist], [chunk], hq, d)
+    for mode, dt, qdt in GEN_PREFILL_MODES:
+        pool, bt = _generic_pool(gen, [hist + chunk], max_pages, 16, hkv, d,
+                                 dt, False)
+        pl, sc = _gen_quantized(pool, qdt)
+        q = _randn((1, hq, chunk, d), gen, dt)
+        ln = torch.tensor([hist + chunk], dtype=torch.int32, device=DEV)
+        qoff = torch.tensor([hist], dtype=torch.int32, device=DEV)
+        kh, vh = (from_fused_layout(pl[1:], d) if qdt is None
+                  else dequantize_pool(pl[1:], sc[1:], d))
+        kd, vd = (x.reshape(1, hkv, hist + chunk, d).to(dt)
+                  for x in (kh, vh))
+        esz = q.element_size()
+        kw = dict(q_offsets=qoff, kv_scales=sc)
+        res["time"][f"prefill {mode}"] = _mode_time(
+            f"generic prefill time {mode} GPT-2 chunk 256 at 768 over 1024 "
+            f"Hq12/Hkv12 D64 page16",
+            lambda: paged_attention_prefill(q, pl, bt, ln, **kw),
+            lambda: paged_attention_prefill_plain(q, pl, bt, ln, **kw),
+            lambda: SDPA(q, kd, vd, attn_mask=mask), "paged_generic_prefill",
+            2 * q.numel() * esz + profiling.paged_kv_bytes(
+                hist + chunk, hkv, d, esz if qdt is None else 1,
+                0 if qdt is None else 2) + max_pages * 4 + 3 * 4,
+            flops, _rate(dt))
+        del kd, vd, kh, vh
+
+
+# GPT-2 small's serving runs: (key, label, bf16 model, engine options,
+# check: "plain" forward or quantized "replay", near-tie allowance).  The
+# bf16 and fp8 chunked runs put every pool mode of the generic prefill on
+# the main path.
+GPT2_RUNS = [
+    ("f32", "GPT-2 f32 whole-prompt", False, {}, "plain", GPT2_F32_NEAR_TIE),
+    ("f32 chunk", "GPT-2 f32 chunk 256", False,
+     dict(prefill_chunk=GPT2_CHUNK), "plain", GPT2_F32_NEAR_TIE),
+    ("int8 chunk", "GPT-2 int8 chunk 256", False,
+     dict(quantized=True, prefill_chunk=GPT2_CHUNK), "replay", NEAR_TIE),
+    ("fp8", "GPT-2 fp8 whole-prompt", False,
+     dict(quantized=True, quant_dtype=torch.float8_e4m3fn), "replay",
+     NEAR_TIE),
+    ("fp8 chunk", "GPT-2 fp8 chunk 256", False,
+     dict(quantized=True, quant_dtype=torch.float8_e4m3fn,
+          prefill_chunk=GPT2_CHUNK), "replay", NEAR_TIE),
+    ("bf16", "GPT-2 bf16 whole-prompt", True, {}, "plain", NEAR_TIE),
+    ("bf16 chunk", "GPT-2 bf16 chunk 256", True,
+     dict(prefill_chunk=GPT2_CHUNK), "plain", NEAR_TIE),
+]
+
+
+def _gpt2_serving(res):
+    """GPT-2 small at full width and depth (GPT2Config(): vocab 50,257, 12
+    layers of 12 heads, D64; random f32 weights from a seeded generator on
+    the card, and the same cast to bf16) serves 12 greedy requests of 7 to
+    1,000 prompt tokens, 24 new tokens each, through
+    ServingEngine(model=gpt2) in every run of GPT2_RUNS, each checked by
+    run_engine (launches: the generic paged decode 12 times a step, the
+    generic prefill 12 times a chunk, flash_generic.cu's forward 12 times
+    a whole prompt, the tensor-core kernels never; pages) and held to a
+    teacher-forced plain forward or plain-attention replay.  Then one
+    prefill step and one 8-step decode dispatch of the f32 engine under
+    torch.profiler."""
+    from aule_tpu_torch.models import gpt2
+    from aule_tpu_torch.serving.engine import ServingEngine
+    from aule_tpu_torch.utils import profiling
+
+    cfg = gpt2.GPT2Config()
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(SEED)
+    t0 = time.perf_counter()
+    params = gpt2.init_params(cfg, gen, device=DEV)
+    bcfg = gpt2.GPT2Config(dtype=torch.bfloat16)
+    bparams = {k: ([{n: t.to(torch.bfloat16) for n, t in layer.items()}
+                    for layer in v] if k == "layers" else v.to(torch.bfloat16))
+               for k, v in params.items()}
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in gpt2._tensors(params))
+    log(f"gpt2: GPT-2 small dim {cfg.dim} layers {cfg.n_layers} heads "
+        f"{cfg.n_heads} D{cfg.head_dim} vocab {cfg.vocab_size} n_ctx "
+        f"{cfg.n_ctx}: {n_params / 1e6:.1f} M params, "
+        f"{4 * n_params / 1e9:.2f} GB in f32, init "
+        f"{time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32)
+               for n in GPT2_PROMPT_LENS]
+    for key, label, bf16, kw, check, tie in GPT2_RUNS:
+        p, c = (bparams, bcfg) if bf16 else (params, cfg)
+        out, res["runs"][key] = run_engine(p, c, prompts, label, model=gpt2,
+                                           engine_kw=GPT2_ENGINE_KW, **kw)
+        if check == "plain":
+            check_plain_forward(p, c, prompts, out, label, model=gpt2,
+                                tie=tie)
+        else:
+            check_replay(p, c, prompts, out, label, kw["quant_dtype"]
+                         if "quant_dtype" in kw else torch.int8,
+                         kw.get("prefill_chunk"), model=gpt2,
+                         engine_kw=GPT2_ENGINE_KW, tie=tie)
+    kw = GPT2_ENGINE_KW
+    eng = ServingEngine(params, cfg, model=gpt2, device=DEV, **kw)
+    rng = np.random.default_rng(SEED + 1)
+    n = max(GPT2_PROMPT_LENS)
+    eng.submit(rng.integers(0, cfg.vocab_size, size=n), 1)
+    _log_breakdown(f"gpt2 f32 prefill S{n} (one engine step)",
+                   profiling.device_breakdown(eng.step, CATEGORIES))
+    eng.run()
+    # 8 prompts that fit the pool together with 17 tokens each (the first
+    # from the prefill, then two dispatches of 8 steps)
+    n = min(kw["max_seq_len"], (kw["num_pages"] - 1) // 8 *
+            kw["page_size"]) - 17
+    for _ in range(8):
+        eng.submit(rng.integers(0, cfg.vocab_size, size=n), 17)
+    eng.step()  # admits and prefills all 8, then a first 8-step dispatch
+    _log_breakdown(f"gpt2 f32 decode B8 ctx~{n}, 8 steps (one dispatch)",
+                   profiling.device_breakdown(eng.run, CATEGORIES))
+    del eng, params, bparams
+    torch.cuda.empty_cache()
+
+
+def check_gpt2() -> dict:
+    """The GPT-2 phase: csrc/paged_generic.cu's kernels held to their plain
+    versions and timed, then GPT-2 small served.  Returns the errors,
+    times and launches."""
+    from aule_tpu_torch.ops.paged_generic import (paged_generic_decode,
+                                                  paged_generic_prefill)
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(GPT2_SEED)
+    res = {"err": {}, "time": {}, "launches": {}, "runs": {}}
+    _generic_decode_checks(gen, res)
+    _generic_prefill_checks(gen, res)
+    _generic_timings(gen, res)
+    paged_generic_decode.launches = paged_generic_prefill.launches = 0
+    _gpt2_serving(res)
+    return res
+
+
+def _phase_process(flag: str, what: str) -> dict:
+    """A phase in a process of its own (`chip_smoke.py <flag>`): its
+    profiled timings meet a fresh torch.profiler, which loses kernels
+    after ~100 profiled runs in one process, and the phases after it keep
+    their own count.  Its lines are passed on; its result is the JSON
+    object on its last line."""
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), flag],
+                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                          text=True, timeout=900)
     lines = proc.stdout.splitlines()
     for line in lines[:-1] if proc.returncode == 0 else lines:
         log(f"  {line}")
     if proc.returncode != 0:
-        raise AssertionError(f"the public phase failed (exit code "
+        raise AssertionError(f"the {what} phase failed (exit code "
                              f"{proc.returncode})")
     return json.loads(lines[-1])
 
 
-def public_main() -> None:
-    """`chip_smoke.py --public`: the public phase alone, its result as one
-    JSON line last."""
+def phase_public() -> dict:
+    """check_public in a process of its own (`chip_smoke.py --public`)."""
+    return _phase_process("--public", "public")
+
+
+def phase_gpt2() -> dict:
+    """check_gpt2 in a process of its own (`chip_smoke.py --gpt2`)."""
+    return _phase_process("--gpt2", "GPT-2")
+
+
+def child_main(check) -> None:
+    """`chip_smoke.py --public` or `--gpt2`: that phase alone, its result
+    as one JSON line last."""
     if not torch.cuda.is_available():
         log("device: torch.cuda.is_available() is False")
         sys.exit(2)
@@ -2235,7 +2715,7 @@ def public_main() -> None:
     from aule_tpu_torch.ops import _build
 
     _build.library()  # built by the parent's build phase
-    print(json.dumps(check_public()), flush=True)
+    print(json.dumps(check()), flush=True)
 
 
 def _entry(name, source, replaces, launches, err, t, shape, **extra):
@@ -2244,6 +2724,102 @@ def _entry(name, source, replaces, launches, err, t, shape, **extra):
                 max_lse_err=err[2], ms=t["ms"], plain_ms=t["plain_ms"],
                 bound_ms=t["bound_ms"], bound_by=t["bound_by"],
                 library_ms=t["library_ms"], shape=shape, **extra)
+
+
+def gpt2_entries(gpt2: dict) -> list:
+    """The GPT-2 phase's kernel modes (csrc/paged_generic.cu), each with
+    its launches on the GPT-2 serving runs that use it; the split layout,
+    which GPT-2 serving does not take, with its launches on the phase's
+    counted paged_attention calls."""
+    src = "aule_tpu_torch/csrc/paged_generic.cu"
+    design = ("FFMA, the int8 dot products' scores on __dp4a; K/V tiles "
+              "gathered into f32 shared memory, only the D live lanes of a "
+              "row read; decode split-KV with paged_decode.cu's partition, "
+              "the splits merged in split order in the same launch")
+    decode_row = ("aule_tpu/ops/paged_fused.py:213 (_fused_decode_kernel: "
+                  "f32 with Precision.HIGHEST l.334-336; D64 padded to 128 "
+                  "lanes l.56-66, 494-498)")
+    split_row = ("aule_tpu/ops/paged.py:45 (_paged_decode_kernel: f32 "
+                 "l.208; any D through the lane padding l.366-372)")
+    prefill_row = ("aule_tpu/ops/paged_fused.py:770 (_fused_prefill_kernel: "
+                   "f32 and D64 padded to 128 lanes)")
+    decode_shape = ("GPT-2 small decode B8 ctx1024 page16 Hq12/Hkv12 D64 "
+                    "(fused pools of 128 lanes)")
+    prefill_shape = ("GPT-2 small prefill B1 Hq12/Hkv12 D64 page16, chunk "
+                     "256 at q_offset 768 over 1024")
+    err, times, runs = gpt2["err"], gpt2["time"], gpt2["runs"]
+
+    def shapes(*prefixes):
+        """The mode's errors at its other shapes and q types (Llama D128,
+        D256, f16 q)."""
+        return {k: v for k, v in err.items()
+                if any(k.startswith(p + " ") for p in prefixes)}
+
+    def dev(t):
+        return dict(device_ms=t["device_ms"],
+                    library_device_ms=t["library_device_ms"])
+
+    entries = []
+    for name, kind, mode, keys, pool in (
+            ("paged_generic_decode_f32", "decode", "f32", ("f32",
+                                                           "f32 chunk"),
+             "f32 pools"),
+            ("paged_generic_decode_bf16", "decode", "bf16",
+             ("bf16", "bf16 chunk"), "bf16 pools"),
+            ("paged_generic_decode_int8", "decode", "int8 dot",
+             ("int8 chunk",), "int8 pools, bf16 scales, f32 q, int8 dot "
+             "products"),
+            ("paged_generic_decode_fp8", "decode", "fp8", ("fp8",
+                                                           "fp8 chunk"),
+             "e4m3 pools, bf16 scales, f32 q"),
+            ("paged_generic_prefill_f32", "prefill", "f32", ("f32 chunk",),
+             "f32 pool"),
+            ("paged_generic_prefill_bf16", "prefill", "bf16",
+             ("bf16 chunk",), "bf16 pool"),
+            ("paged_generic_prefill_int8", "prefill", "int8",
+             ("int8 chunk",), "int8 pool, bf16 scales, f32 q"),
+            ("paged_generic_prefill_fp8", "prefill", "fp8", ("fp8 chunk",),
+             "e4m3 pool, bf16 scales, f32 q")):
+        kernel = f"paged_generic_{kind}"
+        by_run = {k: runs[k][kernel] for k in keys}
+        for k, count in by_run.items():
+            if count == 0:
+                raise AssertionError(f"{kernel} was not launched in GPT-2 "
+                                     f"run {k}")
+        t = times[f"{kind} {mode}"]
+        extra = dict(design=design, launches_by_run=by_run, **dev(t),
+                     other_shapes=shapes(f"{kind} {mode}", *(
+                         [f"{kind} f16"] if mode == "bf16" else [])))
+        if mode == "int8 dot":
+            # the int8 exact path (int8_matmul=False) is checked and timed,
+            # not launched on the main path
+            extra.update(int8_exact_errs=err["decode int8 exact"],
+                         int8_exact_device_ms=times["decode int8 exact"][
+                             "device_ms"],
+                         int8_exact_other_shapes=shapes("decode int8 exact"))
+        entries.append(_entry(
+            name, src, decode_row if kind == "decode" else prefill_row,
+            sum(by_run.values()), err[f"{kind} {mode}"], t,
+            f"{decode_shape if kind == 'decode' else prefill_shape}, {pool}",
+            **extra))
+    split_modes = ("f32", "bf16", "int8 exact", "fp8")
+    launches = gpt2["launches"]["split decode checks"]
+    if launches == 0:
+        raise AssertionError("the split layout's generic decode was not "
+                             "launched")
+    worst = tuple(max(err[f"split {m}"][i] for m in split_modes)
+                  for i in range(3))
+    entries.append(_entry(
+        "paged_generic_decode_split", src, split_row, launches, worst,
+        times["split f32"], "GPT-2 small decode B8 ctx1024 page16 "
+        "Hq12/Hkv12 D64, split f32 pools (bf16, int8 and fp8 with f32 "
+        "scales checked and timed too)", design=design,
+        same_bits_as_fused_kernel=True, **dev(times["split f32"]),
+        errs_by_mode={m: err[f"split {m}"] for m in split_modes},
+        time_by_mode={m: times[f"split {m}"] for m in split_modes},
+        launches_note="on the GPT-2 phase's counted paged_attention "
+                      "calls: GPT-2 serving has no split layout"))
+    return entries
 
 
 def main() -> None:
@@ -2263,6 +2839,7 @@ def main() -> None:
     # one process torch.profiler loses kernels, and these times read it
     bwd_err, bwd_t = check_flash_bwd(gen)
     public = phase_public()
+    gpt2 = phase_gpt2()
     runs, params, cfg = phase_engine()
     phase_breakdown(params, cfg)
     train = phase_train(params, cfg)  # last: it rewrites the weights
@@ -2491,6 +3068,7 @@ def main() -> None:
             extra["cases"] = public["cases"][name]
         entries.append(_entry(name, src, row, launches, public["err"][name],
                               t, shape, **extra))
+    entries += gpt2_entries(gpt2)
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
@@ -2499,6 +3077,8 @@ def main() -> None:
 
 if __name__ == "__main__":
     if sys.argv[1:] == ["--public"]:
-        public_main()
+        child_main(check_public)
+    elif sys.argv[1:] == ["--gpt2"]:
+        child_main(check_gpt2)
     else:
         main()

@@ -492,3 +492,50 @@ def test_split_merge_plain_against_jax(mode, window, nsplit):
         *targs, window_size=window, return_lse=True, **tkw)
     assert_close(to, wo, 0, 1e-5, f"{mode} against one range")
     assert_close(tl, wl, 0, 1e-5, f"{mode} lse against one range")
+
+
+# -- which CUDA kernel family takes a q (ops/paged_generic.py) ------------
+
+@pytest.mark.parametrize("dtype,d,generic", [
+    (torch.float32, 64, True), (torch.float32, 128, True),
+    (torch.float32, 256, True), (torch.bfloat16, 64, True),
+    (torch.bfloat16, 128, False), (torch.bfloat16, 256, True),
+    (torch.float16, 64, True), (torch.float16, 128, False)])
+def test_kernel_family_routing(dtype, d, generic):
+    """The tensor-core paged kernels take bf16/f16 at D 128; the generic
+    ones (csrc/paged_generic.cu) f32 at D 64/128/256 and bf16/f16 at D 64
+    or 256."""
+    from aule_tpu_torch.ops.paged_generic import uses_generic_kernels
+
+    assert uses_generic_kernels(torch.zeros(2, 4, d, dtype=dtype)) is generic
+
+
+@pytest.mark.parametrize("dtype,d", [
+    (torch.float32, 96), (torch.bfloat16, 96), (torch.float16, 32),
+    (torch.float64, 64)])
+def test_kernel_family_refuses_other_shapes(dtype, d):
+    from aule_tpu_torch.ops.paged_generic import uses_generic_kernels
+
+    with pytest.raises(ValueError, match="paged kernels take"):
+        uses_generic_kernels(torch.zeros(2, 4, d, dtype=dtype))
+
+
+def test_kernel_inputs_refuse_a_cpu_tensor():
+    q = torch.zeros(1, 4, 64)
+    with pytest.raises(ValueError, match="device"):
+        tpf.check_kernel_inputs(q, HKV, (), "paged-decode")
+
+
+@pytest.mark.parametrize("head_dim", [64, 128, 256])
+def test_launch_plan_workspace_holds_the_head_dim(head_dim, monkeypatch):
+    """The merge workspace holds (D + 2) floats per q row and split, D of
+    the kernel's head dim (csrc/paged_generic.cu takes 64 and 256 too);
+    the split count depends on the shapes and SM count only."""
+    monkeypatch.setattr(ds, "sm_count", lambda device: 132)
+    monkeypatch.setattr(ds, "_COUNTERS", {})
+    dev = torch.device("cpu", 0)  # an index, as a CUDA device has
+    nsplit, ws, cnt = ds.launch_plan(8, 12, 12, 1024, -1, dev,
+                                     head_dim=head_dim)
+    assert nsplit == ds.num_splits(8, 12, 1024, -1, 132) == 4
+    assert ws.numel() == 8 * 12 * nsplit * (head_dim + 2)
+    assert cnt.numel() >= 8 * 12 and not cnt.any()
