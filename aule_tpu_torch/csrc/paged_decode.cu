@@ -68,21 +68,33 @@
 //     scale), not loaded by every lane;
 //   * the products run on the tensor cores (mma.sync m16n8k16, or
 //     m16n8k32 int8 for the int8 dot products' scores): each warp takes 16
-//     tokens of a stage, the GQA group's G q rows padded to the 16 rows of
-//     an mma; S = q K^T over a permuted head dim so that each thread reads
-//     its 32 contiguous dims of a K row with 16-byte shared-memory loads,
-//     then the online softmax in f32 on the score fragments (exp2, the
-//     scale folded in), then O += P V with P from registers and V's
-//     fragments paired from 16-byte reads of 4 rows.  The rows of a stage
-//     are XOR-swizzled in 16-byte chunks so that neither read meets a bank
-//     conflict.  1-byte rows convert to the q type (f16 for the int8 dot
-//     products' PV) in registers with the exact bit tricks of
-//     paged_prefill.cu.  The 4 warps' states merge through shared memory;
+//     tokens of a stage and the block's R q rows of the GQA group, padded
+//     to the 16 rows of an mma; S = q K^T over a permuted head dim so that
+//     each thread reads its 32 contiguous dims of a K row with 16-byte
+//     shared-memory loads, then the online softmax in f32 on the score
+//     fragments (exp2, the scale folded in), then O += P V with P from
+//     registers and V's fragments paired from 16-byte reads of 4 rows.
+//     The rows of a stage are XOR-swizzled in 16-byte chunks so that
+//     neither read meets a bank conflict.  1-byte rows convert to the q
+//     type (f16 for the int8 dot products' PV) in registers with the exact
+//     bit tricks of paged_prefill.cu.  The 4 warps' states merge through
+//     shared memory;
 //   * the splits merge in the same launch: each block writes its (m, l,
 //     acc) to a workspace the wrapper allocates, and the last block of a
-//     (sequence, kv head) to arrive (a counter that it resets to 0 for the
-//     next call) merges the partials in split order, so two runs give the
-//     same bits and a call is one launch.
+//     (sequence, kv head, row tile) to arrive (a counter that it resets to
+//     0 for the next call) merges the partials in split order, so two runs
+//     give the same bits and a call is one launch;
+//   * any GQA group G = Hq / Hkv (the TPU kernels pad G to a multiple of
+//     8, paged.py:376-383, paged_fused.py:541-544): a block takes R q rows
+//     of its kv head's group, the mma rows g + 8 always zero.  G = 1, 2, 4
+//     and 8 have an instantiation of their own (R = G, every row live).
+//     Other groups take R = 8 with the group's rows cut into ceil(G / 8)
+//     row tiles, each a grid row of its own, and the rows past G masked: a
+//     group of at most 8 reads each K/V tile once per (sequence, kv head,
+//     split), as the TPU kernel does, a larger one once per row tile
+//     (ops/decode_split.py counts the row tiles among the blocks of a
+//     wave).  A 16-row tile with the rows g + 8 live was no faster over
+//     groups 12, 16 and 32 (scripts/torch_decode_tiles.py, PERF.md).
 
 #include "common.cuh"
 
@@ -182,17 +194,26 @@ struct Args {
   void* out;
   float* lse;
   float* ws;          // nsplit > 1: [B, Hkv, nsplit, G] x (D + 2) f32
-  int* counters;      // nsplit > 1: [B, Hkv] int32, 0 between calls
+  int* counters;      // nsplit > 1: [B, Hkv, row tiles] int32, 0 between calls
   int B, Hkv, num_pages, page_size, max_pages;
   float scale;
   int window, nsplit;
   cudaStream_t stream;
+  int group;          // G = Hq / Hkv (read by the PAD instantiations only)
 };
 
-// Grid (nsplit, Hkv, B); G = Hq / Hkv.
-template <typename T, int POOL, int G, typename L>
+// The row tiles of a group of G q rows, R rows each.
+__host__ __device__ constexpr int row_tiles(int G, int R) {
+  return (G + R - 1) / R;
+}
+
+// Grid (nsplit, Hkv x row tiles, B).  R: the q rows a block takes.  !PAD:
+// R = G = Hq / Hkv, one tile.  PAD: G = a.group in ceil(G / R) tiles,
+// blockIdx.y = hk * tiles + tile, the rows past G masked.
+template <typename T, int POOL, int R, bool PAD, typename L>
 __global__ void __launch_bounds__(NTHREADS, MIN_BLOCKS)
     paged_decode_kernel(const Args a) {
+  static_assert(R <= 8, "q rows of one mma, the rows g + 8 zero");
   using TL = Tile<POOL>;
   // the P V product's input type: the q type, or f16 for the int8 dot
   // products (their p codes times the span's scale, over int8 V)
@@ -204,14 +225,20 @@ __global__ void __launch_bounds__(NTHREADS, MIN_BLOCKS)
   extern __shared__ __align__(16) uint8_t smem[];
   __shared__ int s_last;
 
-  const int split = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
+  const int split = blockIdx.x, b = blockIdx.z;
+  const int G = PAD ? a.group : R;
+  const int tiles = PAD ? row_tiles(G, R) : 1;
+  const int hk = PAD ? blockIdx.y / tiles : blockIdx.y;
+  // the tile's first row g0 of the group and its nr live rows
+  const int g0 = PAD ? (blockIdx.y - hk * tiles) * R : 0;
+  const int nr = PAD ? min(R, G - g0) : R;
   const int Hkv = a.Hkv, Hq = Hkv * G, ps = a.page_size;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  // the thread's mma fragment row g (q row g of the group; rows g >= G
-  // and g + 8 are zeros) and column pair 2t, 2t + 1
+  // the thread's mma fragment row g (q row g0 + g of the group; rows at
+  // or past nr, and rows g + 8, are zeros) and column pair 2t, 2t + 1
   const int g = lane >> 2, t = lane & 3;
-  const bool row_ok = g < G;
-  const size_t row0 = (size_t)b * Hq + (size_t)hk * G;
+  const bool row_ok = g < nr;
+  const size_t row0 = (size_t)b * Hq + (size_t)hk * G + g0;
 
   // q row g as the A fragments of S = q K^T, over the head dim permuted
   // so that each thread reads its 32 dims [32t, 32t + 32) of a row in
@@ -543,17 +570,17 @@ __global__ void __launch_bounds__(NTHREADS, MIN_BLOCKS)
   // merge the warps' states: row g's m is the same in its 4 threads, l is
   // summed over them; O column (jn, c) of n-tile jn is head dim
   // dim(2t + c, jn) (the V values' order above)
-  float* s_acc = reinterpret_cast<float*>(smem);  // [NWARPS][G][D]
-  float* s_m = s_acc + NWARPS * G * D;            // [NWARPS][G]
-  float* s_l = s_m + NWARPS * G;                  // [NWARPS][G]
+  float* s_acc = reinterpret_cast<float*>(smem);  // [NWARPS][R][D]
+  float* s_m = s_acc + NWARPS * R * D;            // [NWARPS][R]
+  float* s_l = s_m + NWARPS * R;                  // [NWARPS][R]
   l += __shfl_xor_sync(0xffffffffu, l, 1);
   l += __shfl_xor_sync(0xffffffffu, l, 2);
   if (row_ok) {
     if (t == 0) {
-      s_m[warp * G + g] = m;
-      s_l[warp * G + g] = l;
+      s_m[warp * R + g] = m;
+      s_l[warp * R + g] = l;
     }
-    float* o = s_acc + (warp * G + g) * D;
+    float* o = s_acc + (warp * R + g) * D;
 #pragma unroll
     for (int jn = 0; jn < 16; ++jn)
 #pragma unroll
@@ -565,27 +592,28 @@ __global__ void __launch_bounds__(NTHREADS, MIN_BLOCKS)
       }
   }
   __syncthreads();
-  // nsplit > 1: this pair's partials, [nsplit][G][D] and [nsplit][G][2]
+  // nsplit > 1: this pair's partials, [nsplit][G][D] and [nsplit][G][2],
+  // from the tile's first row g0 on
   const size_t pair = (size_t)b * Hkv + hk;
   float* ws_acc = nullptr;
   float* ws_ml = nullptr;
   if (a.nsplit > 1) {
-    ws_acc = a.ws + pair * a.nsplit * G * D;
+    ws_acc = a.ws + pair * a.nsplit * G * D + (size_t)g0 * D;
     ws_ml = a.ws + (size_t)a.B * Hkv * a.nsplit * G * D +
-            pair * a.nsplit * G * 2;
+            pair * a.nsplit * G * 2 + (size_t)g0 * 2;
   }
-  for (int i = tid; i < G * D; i += NTHREADS) {
+  for (int i = tid; i < nr * D; i += NTHREADS) {
     const int g = i / D, d = i % D;
     float M = -INFINITY;
-    for (int w = 0; w < NWARPS; ++w) M = fmaxf(M, s_m[w * G + g]);
+    for (int w = 0; w < NWARPS; ++w) M = fmaxf(M, s_m[w * R + g]);
     float Lsum = 0.f, O = 0.f;
     if (M != -INFINITY) {
       for (int w = 0; w < NWARPS; ++w) {
-        const float mw = s_m[w * G + g];
+        const float mw = s_m[w * R + g];
         if (mw == -INFINITY) continue;
         const float c = exp2f(mw - M);
-        Lsum += s_l[w * G + g] * c;
-        O += s_acc[(w * G + g) * D + d] * c;
+        Lsum += s_l[w * R + g] * c;
+        O += s_acc[(w * R + g) * D + d] * c;
       }
     }
     if (a.nsplit == 1) {
@@ -604,14 +632,15 @@ __global__ void __launch_bounds__(NTHREADS, MIN_BLOCKS)
   }
   if (a.nsplit == 1) return;
 
-  // the last block of this (sequence, kv head) to arrive merges the
-  // partials in split order and resets the counter for the next call
+  // the last block of this (sequence, kv head, row tile) to arrive merges
+  // the partials in split order and resets the counter for the next call
   __threadfence();
   __syncthreads();
+  const size_t cpair = PAD ? (size_t)b * Hkv * tiles + blockIdx.y : pair;
   if (tid == 0) {
-    const int prev = atomicAdd(a.counters + pair, 1);
+    const int prev = atomicAdd(a.counters + cpair, 1);
     s_last = prev == a.nsplit - 1;
-    if (s_last) atomicExch(a.counters + pair, 0);
+    if (s_last) atomicExch(a.counters + cpair, 0);
   }
   __syncthreads();
   if (!s_last) return;
@@ -621,37 +650,47 @@ __global__ void __launch_bounds__(NTHREADS, MIN_BLOCKS)
   // and l's sum in split order, then each output column's sum of c * acc
   // in split order (independent loads, unrolled)
   const int ns = a.nsplit;
-  float* s_pm = reinterpret_cast<float*>(smem);  // [nsplit][G] m, then c
-  float* s_pl = s_pm + ns * G;                   // [nsplit][G]
-  float* s_M = s_pl + ns * G;                    // [G]
-  float* s_L = s_M + G;                          // [G]
-  for (int i = tid; i < ns * G; i += NTHREADS) {
-    s_pm[i] = __ldcg(ws_ml + 2 * i);
-    s_pl[i] = __ldcg(ws_ml + 2 * i + 1);
+  float* s_pm = reinterpret_cast<float*>(smem);  // [nsplit][R] m, then c
+  float* s_pl = s_pm + ns * R;                   // [nsplit][R]
+  float* s_M = s_pl + ns * R;                    // [R]
+  float* s_L = s_M + R;                          // [R]
+  if constexpr (PAD) {
+    // the tile's rows of each split (the rows past nr: no token)
+    for (int i = tid; i < ns * R; i += NTHREADS) {
+      const int sp = i / R, gg = i % R;
+      const bool live = gg < nr;
+      s_pm[i] = live ? __ldcg(ws_ml + ((size_t)sp * G + gg) * 2) : -INFINITY;
+      s_pl[i] = live ? __ldcg(ws_ml + ((size_t)sp * G + gg) * 2 + 1) : 0.f;
+    }
+  } else {
+    for (int i = tid; i < ns * G; i += NTHREADS) {
+      s_pm[i] = __ldcg(ws_ml + 2 * i);
+      s_pl[i] = __ldcg(ws_ml + 2 * i + 1);
+    }
   }
   __syncthreads();
-  if (tid < G) {
+  if (tid < R) {
     float M = -INFINITY;
-    for (int sp = 0; sp < ns; ++sp) M = fmaxf(M, s_pm[sp * G + tid]);
+    for (int sp = 0; sp < ns; ++sp) M = fmaxf(M, s_pm[sp * R + tid]);
     float Lsum = 0.f;
     for (int sp = 0; sp < ns; ++sp) {
-      const float ms = s_pm[sp * G + tid];
+      const float ms = s_pm[sp * R + tid];
       const float c = ms == -INFINITY ? 0.f : exp2f(ms - M);
-      s_pm[sp * G + tid] = c;
-      Lsum += s_pl[sp * G + tid] * c;
+      s_pm[sp * R + tid] = c;
+      Lsum += s_pl[sp * R + tid] * c;
     }
     s_M[tid] = M;
     s_L[tid] = Lsum;
   }
   __syncthreads();
-  for (int i = tid; i < G * D; i += NTHREADS) {
+  for (int i = tid; i < nr * D; i += NTHREADS) {
     const int g = i / D, d = i % D;
     const float Lsum = s_L[g];
     float O = 0.f;
 #pragma unroll 8
     for (int sp = 0; sp < ns; ++sp)
       O = fmaf(__ldcg(ws_acc + ((size_t)sp * G + g) * D + d),
-               s_pm[sp * G + g], O);
+               s_pm[sp * R + g], O);
     const size_t row = row0 + g;
     static_cast<T*>(a.out)[row * D + d] =
         Elem<T>::from_float(Lsum > 0.f ? O / Lsum : 0.f);
@@ -660,64 +699,77 @@ __global__ void __launch_bounds__(NTHREADS, MIN_BLOCKS)
   }
 }
 
-template <typename T, int POOL, int G, typename L>
+template <typename T, int POOL, int R, bool PAD, typename L>
 int launch(const Args& a) {
   constexpr int smem = smem_bytes<POOL>();
-  static_assert(NWARPS * G * (D + 2) * 4 <= smem,
+  static_assert(NWARPS * R * (D + 2) * 4 <= smem,
                 "the warps' states fit in the ring");
-  static_assert((kMaxSplits * 2 + 2) * G * 4 <= smem,
+  static_assert((kMaxSplits * 2 + 2) * R * 4 <= smem,
                 "the merge of up to 64 splits fits in the ring");
   cudaError_t err = cudaFuncSetAttribute(
-      paged_decode_kernel<T, POOL, G, L>,
+      paged_decode_kernel<T, POOL, R, PAD, L>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  dim3 grid(a.nsplit, a.Hkv, a.B);
-  paged_decode_kernel<T, POOL, G, L><<<grid, NTHREADS, smem, a.stream>>>(a);
+  dim3 grid(a.nsplit, a.Hkv * (PAD ? row_tiles(a.group, R) : 1), a.B);
+  paged_decode_kernel<T, POOL, R, PAD, L>
+      <<<grid, NTHREADS, smem, a.stream>>>(a);
   return cudaGetLastError();
 }
 
+// The block's q rows R come from the wrapper (ops/decode_split.py
+// tc_tile_rows, which also sizes the merge counters by the tiles of R
+// rows): R = G = 1, 2, 4 or 8 has an instantiation of its own; any group
+// runs in row tiles of R = 8 with the rows past G masked; any other R is
+// refused.
 template <typename T, int POOL, typename L>
-int by_group(int group, const Args& a) {
-  switch (group) {
-    case 1: return launch<T, POOL, 1, L>(a);
-    case 2: return launch<T, POOL, 2, L>(a);
-    case 4: return launch<T, POOL, 4, L>(a);
-    case 8: return launch<T, POOL, 8, L>(a);
+int by_group(int group, int rows, const Args& a) {
+  if (group < 1) return cudaErrorInvalidValue;
+  if (rows == group) {
+    switch (group) {
+      case 1: return launch<T, POOL, 1, false, L>(a);
+      case 2: return launch<T, POOL, 2, false, L>(a);
+      case 4: return launch<T, POOL, 4, false, L>(a);
+      case 8: return launch<T, POOL, 8, false, L>(a);
+    }
   }
+  if (rows == 8) return launch<T, POOL, 8, true, L>(a);
   return cudaErrorInvalidValue;
 }
 
 // The split pools have no int8 dot-product mode (nor has the TPU kernel
 // they replace).
 template <typename T, typename L>
-int by_pool(int pool, int group, const Args& a) {
+int by_pool(int pool, int group, int rows, const Args& a) {
   switch (pool) {
-    case kPoolNative: return by_group<T, kPoolNative, L>(group, a);
-    case kPoolInt8: return by_group<T, kPoolInt8, L>(group, a);
-    case kPoolE4M3: return by_group<T, kPoolE4M3, L>(group, a);
+    case kPoolNative: return by_group<T, kPoolNative, L>(group, rows, a);
+    case kPoolInt8: return by_group<T, kPoolInt8, L>(group, rows, a);
+    case kPoolE4M3: return by_group<T, kPoolE4M3, L>(group, rows, a);
     case kPoolInt8Dot:
-      if constexpr (!L::kSplit) return by_group<T, kPoolInt8Dot, L>(group, a);
+      if constexpr (!L::kSplit)
+        return by_group<T, kPoolInt8Dot, L>(group, rows, a);
       break;
   }
   return cudaErrorInvalidValue;
 }
 
 template <typename L>
-int by_dtype(int dtype, int group, int pool, const Args& a) {
+int by_dtype(int dtype, int group, int rows, int pool, const Args& a) {
   if (a.B <= 0) return cudaSuccess;
   if (a.nsplit < 1 || a.nsplit > kMaxSplits ||
       (a.nsplit > 1 && (a.ws == nullptr || a.counters == nullptr)))
     return cudaErrorInvalidValue;
-  if (dtype == aule::kF16) return by_pool<__half, L>(pool, group, a);
-  return by_pool<__nv_bfloat16, L>(pool, group, a);
+  if (dtype == aule::kF16) return by_pool<__half, L>(pool, group, rows, a);
+  return by_pool<__nv_bfloat16, L>(pool, group, rows, a);
 }
 
 }  // namespace
 
 // q: [B, Hq, D] in the out type (int8 codes in the int8-dot mode, with
 // qf [B, Hq] f32 = per-row q scale x softmax scale; qf null otherwise).
-// nsplit > 1: ws [B, Hkv, nsplit, Hq / Hkv, D + 2] f32 (uninitialised) and
-// counters [B, Hkv] int32, zero before the first call and left zero.
+// tile_rows: the q rows a block takes (by_group).  nsplit > 1: ws [B, Hkv,
+// nsplit, Hq / Hkv, D + 2] f32 (uninitialised) and counters [B, Hkv, row
+// tiles] int32 (ceil(G / tile_rows) row tiles; G = Hq / Hkv, any whole
+// number), zero before the first call and left zero.
 extern "C" int aule_paged_decode(const void* q, const void* qf,
                                  const void* kv_pages, const void* kv_scales,
                                  const void* block_tables,
@@ -725,28 +777,31 @@ extern "C" int aule_paged_decode(const void* q, const void* qf,
                                  void* lse, void* ws, void* counters, int B,
                                  int Hq, int Hkv, int page_size,
                                  int max_pages, float scale, int window,
-                                 int nsplit, int dtype, int pool, int sc_f32,
-                                 void* stream) {
+                                 int nsplit, int tile_rows, int dtype,
+                                 int pool, int sc_f32, void* stream) {
   const Args a{q, static_cast<const float*>(qf),
                static_cast<const uint8_t*>(kv_pages), nullptr, kv_scales,
                nullptr, sc_f32, static_cast<const int*>(block_tables),
                static_cast<const int*>(context_lens), out,
                static_cast<float*>(lse), static_cast<float*>(ws),
                static_cast<int*>(counters), B, Hkv, 0, page_size, max_pages,
-               scale, window, nsplit, static_cast<cudaStream_t>(stream)};
-  return by_dtype<FusedPool>(dtype, Hq / Hkv, pool, a);
+               scale, window, nsplit, static_cast<cudaStream_t>(stream),
+               Hkv > 0 ? Hq / Hkv : 0};
+  if (Hkv <= 0 || Hq % Hkv) return cudaErrorInvalidValue;
+  return by_dtype<FusedPool>(dtype, Hq / Hkv, tile_rows, pool, a);
 }
 
 // Split pools: q, out [B, Hq, D] in the out type; k_pages, v_pages
 // [Hkv, num_pages, page, D] (the out type, or int8 / e4m3 payloads with
 // f32 k_scales, v_scales [Hkv, num_pages, page]; null otherwise); ws,
-// counters and nsplit as above.
+// counters, nsplit and tile_rows as above.
 extern "C" int aule_paged_decode_split(
     const void* q, const void* k_pages, const void* v_pages,
     const void* k_scales, const void* v_scales, const void* block_tables,
     const void* context_lens, void* out, void* lse, void* ws, void* counters,
     int B, int Hq, int Hkv, int num_pages, int page_size, int max_pages,
-    float scale, int window, int nsplit, int dtype, int pool, void* stream) {
+    float scale, int window, int nsplit, int tile_rows, int dtype, int pool,
+    void* stream) {
   const Args a{q, nullptr, static_cast<const uint8_t*>(k_pages),
                static_cast<const uint8_t*>(v_pages), k_scales,
                static_cast<const float*>(v_scales), 1,
@@ -755,6 +810,7 @@ extern "C" int aule_paged_decode_split(
                static_cast<float*>(lse), static_cast<float*>(ws),
                static_cast<int*>(counters), B, Hkv, num_pages, page_size,
                max_pages, scale, window, nsplit,
-               static_cast<cudaStream_t>(stream)};
-  return by_dtype<SplitPools>(dtype, Hq / Hkv, pool, a);
+               static_cast<cudaStream_t>(stream), Hkv > 0 ? Hq / Hkv : 0};
+  if (Hkv <= 0 || Hq % Hkv) return cudaErrorInvalidValue;
+  return by_dtype<SplitPools>(dtype, Hq / Hkv, tile_rows, pool, a);
 }

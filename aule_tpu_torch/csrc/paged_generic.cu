@@ -63,6 +63,13 @@
 //     row runs the online softmax (exp2, log2 units); then each thread
 //     accumulates a quad of output columns over every NTP-th token, and
 //     the token parts are summed in a fixed order at the end;
+//   * any GQA group G (the TPU kernels pad it to a multiple of 8): a block
+//     takes R q rows of its kv head's group, R = G padded to a power of
+//     two up to 8, so that the lane mapping above divides; rows past G are
+//     zeros whose results are dropped.  A group over 8 is cut into
+//     ceil(G / 8) row tiles of R = 8, each a grid row of its own (each
+//     reads its (sequence, kv head)'s K/V; ops/decode_split.py counts the
+//     tiles among the blocks of a wave);
 //   * prefill: one block per (q tile, q head, sequence), the FFMA tiles of
 //     flash_generic.cu's forward (generic.cuh) over K/V gathered from the
 //     pages, heaviest q tiles first, tiles outside the causal diagonal,
@@ -74,7 +81,7 @@ namespace {
 
 using namespace aule;
 
-constexpr int kMaxGroup = 8;
+constexpr int kMaxGroup = 8;  // q rows a decode block takes at most
 constexpr int kMaxSplits = 64;  // ops/decode_split.py MAX_SPLITS
 constexpr int SPAN = 4;         // ops/decode_split.py DECODE_SPAN
 constexpr unsigned kFull = 0xffffffffu;
@@ -255,8 +262,10 @@ struct DecodeArgs {
   void* out;         // [B, Hq, D] in T
   float* lse;        // [B, Hq] or null
   float* ws;         // nsplit > 1: [B, Hkv, nsplit, G] x (D + 2) f32
-  int* counters;     // nsplit > 1: [B, Hkv] int32, 0 between calls
+  int* counters;     // nsplit > 1: [B, Hkv, row tiles] int32, 0 between calls
   int B, G, max_pages;
+  int R, tiles;      // q rows a block takes (G up to a power of two, <= 8)
+                     // and the row tiles of a group, ceil(G / R)
   float scale;
   int window, nsplit;
   cudaStream_t stream;
@@ -272,7 +281,34 @@ constexpr size_t decode_smem() {
          (2 * Ti::BN * Ti::LD + kMaxGroup * (D + Ti::BN + 4) + 2 * Ti::BN);
 }
 
-// Grid (nsplit, Hkv, B); G = Hq / Hkv in 1, 2, 4, 8.
+// The row tiles of a group of G q rows, R rows each.
+__host__ __device__ constexpr int row_tiles(int G, int R) {
+  return (G + R - 1) / R;
+}
+
+// A decode block's row tile: kv head hk, the group's rows g0 .. g0 + nr -
+// 1 of `tiles`.  blockIdx.y is read with asm volatile, so the epilogue
+// derives the tile afresh and nothing of it holds registers across the
+// main loop (as paged_prefill.cu's Place).
+struct RowTile {
+  int hk, tile, g0, nr, tiles;
+};
+
+__device__ __forceinline__ RowTile row_tile(const DecodeArgs& a) {
+  uint32_t y;
+  asm volatile("mov.u32 %0, %%ctaid.y;\n" : "=r"(y));
+  const int G = a.G, R = a.R;
+  RowTile t;
+  t.tiles = a.tiles;
+  t.hk = t.tiles == 1 ? y : y / t.tiles;  // a group up to 8: no division
+  t.tile = y - t.hk * t.tiles;
+  t.g0 = t.tile * R;
+  t.nr = min(R, G - t.g0);
+  return t;
+}
+
+// Grid (nsplit, Hkv x row tiles, B), blockIdx.y = hk * tiles + tile; G =
+// Hq / Hkv, any whole number.
 template <typename T, int POOL, int D, typename L>
 __global__ void __launch_bounds__(NT)
     paged_generic_decode_kernel(const DecodeArgs a) {
@@ -282,8 +318,8 @@ __global__ void __launch_bounds__(NT)
   extern __shared__ float4 smem4[];
   float* sV = reinterpret_cast<float*>(smem4);  // [BN][LD]
   float* sK = sV + BN * LD;   // [BN][LD]; int8 dot: raw rows of KB bytes
-  float* sQ = sK + BN * LD;   // [G][D]; int8 dot: the codes
-  float* sS = sQ + kMaxGroup * D;  // [G][BN] scores, then weights
+  float* sQ = sK + BN * LD;   // [R][D]; int8 dot: the codes
+  float* sS = sQ + kMaxGroup * D;  // [R][BN] scores, then weights
   float* sM = sS + kMaxGroup * BN;  // running max (log2 units)
   float* sL = sM + kMaxGroup;       // running sum of p
   float* sA = sL + kMaxGroup;       // this tile's rescale of the sums
@@ -292,23 +328,31 @@ __global__ void __launch_bounds__(NT)
   float* sVs = sKs + BN;
   __shared__ int s_last;
 
-  const int split = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
-  const int G = a.G, Hkv = a.pool.Hkv, ps = a.pool.page_size;
+  const int split = blockIdx.x, b = blockIdx.z;
+  const int G = a.G, R = a.R;
+  const int Hkv = a.pool.Hkv, ps = a.pool.page_size;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const size_t row0 = ((size_t)b * Hkv + hk) * G;
+  const RowTile rt0 = row_tile(a);
+  const int hk = rt0.hk;
 
-  if constexpr (DOT) {
-    const int8_t* qb = static_cast<const int8_t*>(a.q) + row0 * D;
-    int8_t* sq = reinterpret_cast<int8_t*>(sQ);
-    for (int i = tid; i < G * D; i += NT) sq[i] = qb[i];
-  } else {
-    const T* qb = static_cast<const T*>(a.q) + row0 * D;
-    for (int i = tid; i < G * D; i += NT) sQ[i] = Val<T>::ld(qb + i);
-  }
-  if (tid < G) {
-    sM[tid] = -INFINITY;
-    sL[tid] = 0.f;
-    sF[tid] = (DOT ? a.qf[row0 + tid] : a.scale) * kLog2e;
+  // the tile's q rows, zeros past nr
+  {
+    const int nr = rt0.nr;
+    const size_t row0 = ((size_t)b * Hkv + hk) * G + rt0.g0;
+    if constexpr (DOT) {
+      const int8_t* qb = static_cast<const int8_t*>(a.q) + row0 * D;
+      int8_t* sq = reinterpret_cast<int8_t*>(sQ);
+      for (int i = tid; i < R * D; i += NT) sq[i] = i < nr * D ? qb[i] : 0;
+    } else {
+      const T* qb = static_cast<const T*>(a.q) + row0 * D;
+      for (int i = tid; i < R * D; i += NT)
+        sQ[i] = i < nr * D ? Val<T>::ld(qb + i) : 0.f;
+    }
+    if (tid < R) {
+      sM[tid] = -INFINITY;
+      sL[tid] = 0.f;
+      sF[tid] = (DOT && tid < nr ? a.qf[row0 + tid] : a.scale) * kLog2e;
+    }
   }
 
   // this block's range [s_lo, s_hi) of the live tokens [t_lo, len)
@@ -324,13 +368,13 @@ __global__ void __launch_bounds__(NT)
 
   // Score pairs (g, t) of a tile: NDP adjacent threads each (a slice of DW
   // dims), PS pairs a thread.  Output quads (g, 4 columns): NTP threads
-  // each (every NTP-th token), PQ quads a thread.  G, BN, D and NT are
+  // each (every NTP-th token), PQ quads a thread.  R, BN, D and NT are
   // powers of two, so every count divides.
-  const int SP = G * BN;
+  const int SP = R * BN;
   const int NDP = SP < NT ? NT / SP : 1, PS = SP > NT ? SP / NT : 1;
   const int NPS = NT / NDP, DW = D / NDP;
   const int dpart = tid % NDP, pslot = tid / NDP;
-  const int OQ = G * D / 4;
+  const int OQ = R * D / 4;
   const int NTP = OQ < NT ? NT / OQ : 1, PQ = OQ > NT ? OQ / NT : 1;
   const int QS = NT / NTP;  // quads in flight
   const int tpart = tid / QS, qslot = tid % QS;
@@ -403,7 +447,7 @@ __global__ void __launch_bounds__(NT)
     __syncthreads();
 
     // online softmax, one warp a q row; the weights replace the scores
-    if (warp < G) {
+    if (warp < R) {
       const int g = warp;
       constexpr int PL = BN / 32;  // tokens a lane
       float sv[PL];
@@ -473,12 +517,12 @@ __global__ void __launch_bounds__(NT)
   }
   __syncthreads();  // the tiles are free: the token parts' sums take them
 
-  float* sO = sK;  // [NTP][G * D]
+  float* sO = sK;  // [NTP][R * D]
 #pragma unroll
   for (int k = 0; k < 2; ++k) {
     if (k >= PQ) break;
     const int qd = qslot + k * QS, g = qd / (D / 4), c = qd % (D / 4) * 4;
-    float* o = sO + (size_t)tpart * G * D + g * D + c;
+    float* o = sO + (size_t)tpart * R * D + g * D + c;
     o[0] = acc[k][0];
     o[1] = acc[k][1];
     o[2] = acc[k][2];
@@ -486,19 +530,23 @@ __global__ void __launch_bounds__(NT)
   }
   __syncthreads();
   // the token parts summed in order; nsplit == 1: normalised out and LSE,
-  // else this split's (m, l, acc) for the merge
+  // else this split's (m, l, acc) for the merge (the tile's rows, from
+  // row g0 of the group on)
+  const RowTile rt = row_tile(a);
+  const int g0 = rt.g0, nr = rt.nr;
+  const size_t row0 = ((size_t)b * Hkv + hk) * G + g0;
   const size_t pair = (size_t)b * Hkv + hk;
   float* ws_acc = nullptr;
   float* ws_ml = nullptr;
   if (a.nsplit > 1) {
-    ws_acc = a.ws + pair * a.nsplit * G * D;
+    ws_acc = a.ws + pair * a.nsplit * G * D + (size_t)g0 * D;
     ws_ml = a.ws + (size_t)a.B * Hkv * a.nsplit * G * D +
-            pair * a.nsplit * G * 2;
+            pair * a.nsplit * G * 2 + (size_t)g0 * 2;
   }
-  for (int i = tid; i < G * D; i += NT) {
+  for (int i = tid; i < nr * D; i += NT) {
     const int g = i / D, d = i % D;
     float O = 0.f;
-    for (int tp = 0; tp < NTP; ++tp) O += sO[(size_t)tp * G * D + i];
+    for (int tp = 0; tp < NTP; ++tp) O += sO[(size_t)tp * R * D + i];
     const float M = sM[g], Lsum = sL[g];
     if (a.nsplit == 1) {
       const size_t row = row0 + g;
@@ -516,51 +564,54 @@ __global__ void __launch_bounds__(NT)
   }
   if (a.nsplit == 1) return;
 
-  // the last block of this (sequence, kv head) to arrive merges the
-  // partials in split order and resets the counter (paged_decode.cu's
+  // the last block of this (sequence, kv head, row tile) to arrive merges
+  // the partials in split order and resets the counter (paged_decode.cu's
   // merge)
   __threadfence();
   __syncthreads();
+  const size_t cpair = ((size_t)b * Hkv + hk) * rt.tiles + rt.tile;
   if (tid == 0) {
-    const int prev = atomicAdd(a.counters + pair, 1);
+    const int prev = atomicAdd(a.counters + cpair, 1);
     s_last = prev == a.nsplit - 1;
-    if (s_last) atomicExch(a.counters + pair, 0);
+    if (s_last) atomicExch(a.counters + cpair, 0);
   }
   __syncthreads();
   if (!s_last) return;
   __threadfence();
   const int ns = a.nsplit;
-  float* s_pm = sK;              // [nsplit][G] m, then the weight c
-  float* s_pl = s_pm + ns * G;   // [nsplit][G]
-  float* s_M = s_pl + ns * G;    // [G]
-  float* s_L = s_M + G;          // [G]
-  for (int i = tid; i < ns * G; i += NT) {
-    s_pm[i] = __ldcg(ws_ml + 2 * i);
-    s_pl[i] = __ldcg(ws_ml + 2 * i + 1);
+  float* s_pm = sK;              // [nsplit][nr] m, then the weight c
+  float* s_pl = s_pm + ns * nr;  // [nsplit][nr]
+  float* s_M = s_pl + ns * nr;   // [nr]
+  float* s_L = s_M + nr;         // [nr]
+  for (int i = tid; i < ns * nr; i += NT) {
+    // one tile holds the group: its rows run on over the splits
+    const size_t at = nr == G ? i : (size_t)(i / nr) * G + i % nr;
+    s_pm[i] = __ldcg(ws_ml + at * 2);
+    s_pl[i] = __ldcg(ws_ml + at * 2 + 1);
   }
   __syncthreads();
-  if (tid < G) {
+  if (tid < nr) {
     float M = -INFINITY;
-    for (int sp = 0; sp < ns; ++sp) M = fmaxf(M, s_pm[sp * G + tid]);
+    for (int sp = 0; sp < ns; ++sp) M = fmaxf(M, s_pm[sp * nr + tid]);
     float Lsum = 0.f;
     for (int sp = 0; sp < ns; ++sp) {
-      const float ms = s_pm[sp * G + tid];
+      const float ms = s_pm[sp * nr + tid];
       const float c = ms == -INFINITY ? 0.f : exp2f(ms - M);
-      s_pm[sp * G + tid] = c;
-      Lsum += s_pl[sp * G + tid] * c;
+      s_pm[sp * nr + tid] = c;
+      Lsum += s_pl[sp * nr + tid] * c;
     }
     s_M[tid] = M;
     s_L[tid] = Lsum;
   }
   __syncthreads();
-  for (int i = tid; i < G * D; i += NT) {
+  for (int i = tid; i < nr * D; i += NT) {
     const int g = i / D, d = i % D;
     const float Lsum = s_L[g];
     float O = 0.f;
 #pragma unroll 8
     for (int sp = 0; sp < ns; ++sp)
       O = fmaf(__ldcg(ws_acc + ((size_t)sp * G + g) * D + d),
-               s_pm[sp * G + g], O);
+               s_pm[sp * nr + g], O);
     const size_t row = row0 + g;
     static_cast<T*>(a.out)[row * D + d] =
         Val<T>::st(Lsum > 0.f ? O / Lsum : 0.f);
@@ -709,7 +760,7 @@ int decode(const DecodeArgs& a) {
   const cudaError_t err =
       allow_smem(paged_generic_decode_kernel<T, POOL, D, L>, smem, done);
   if (err != cudaSuccess) return err;
-  const dim3 grid(a.nsplit, a.pool.Hkv, a.B);
+  const dim3 grid(a.nsplit, a.pool.Hkv * a.tiles, a.B);
   paged_generic_decode_kernel<T, POOL, D, L>
       <<<grid, NT, smem, a.stream>>>(a);
   return cudaGetLastError();
@@ -759,10 +810,13 @@ int prefill_by_pool(int pool, const PrefillArgs& a, int B,
   return cudaErrorInvalidValue;
 }
 
-bool group_ok(int Hq, int Hkv) {
-  if (Hkv <= 0 || Hq % Hkv) return false;
-  const int g = Hq / Hkv;
-  return g <= kMaxGroup && (g & (g - 1)) == 0;
+bool group_ok(int Hq, int Hkv) { return Hkv > 0 && Hq > 0 && Hq % Hkv == 0; }
+
+// The q rows a decode block may take: a power of two up to kMaxGroup, so
+// that the lane mapping divides (the wrapper picks them: ops/decode_split.py
+// generic_tile_rows, which also sizes the merge counters).
+bool rows_ok(int rows) {
+  return rows > 0 && rows <= kMaxGroup && (rows & (rows - 1)) == 0;
 }
 
 }  // namespace
@@ -774,16 +828,19 @@ bool group_ok(int Hq, int Hkv) {
 // split pools [Hkv, num_pages, page, D], sc, vs their f32 scales [Hkv,
 // num_pages, page].  Scales null for native pools.  nsplit > 1: ws
 // [B, Hkv, nsplit, Hq / Hkv, D + 2] f32 (uninitialised) and counters
-// [B, Hkv] int32, zero before the first call and left zero.
+// [B, Hkv, row tiles] int32 (ceil(G / tile_rows) row tiles; G = Hq / Hkv,
+// any whole number), zero before the first call and left zero; tile_rows
+// the q rows a block takes (rows_ok).
 extern "C" int aule_paged_generic_decode(
     const void* q, const void* qf, const void* kv, const void* v,
     const void* sc, const void* vs, const void* block_tables,
     const void* context_lens, void* out, void* lse, void* ws, void* counters,
     int B, int Hq, int Hkv, int num_pages, int page_size, int max_pages,
-    int D, float scale, int window, int nsplit, int dtype, int pool,
-    int sc_f32, int layout, void* stream) {
+    int D, float scale, int window, int nsplit, int tile_rows, int dtype,
+    int pool, int sc_f32, int layout, void* stream) {
   if (B <= 0) return cudaSuccess;
-  if (!group_ok(Hq, Hkv) || nsplit < 1 || nsplit > kMaxSplits ||
+  if (!group_ok(Hq, Hkv) || !rows_ok(tile_rows) || nsplit < 1 ||
+      nsplit > kMaxSplits ||
       (nsplit > 1 && (ws == nullptr || counters == nullptr)))
     return cudaErrorInvalidValue;
   const DecodeArgs a{q,
@@ -801,6 +858,8 @@ extern "C" int aule_paged_generic_decode(
                      B,
                      Hq / Hkv,
                      max_pages,
+                     tile_rows,
+                     row_tiles(Hq / Hkv, tile_rows),
                      scale,
                      window,
                      nsplit,

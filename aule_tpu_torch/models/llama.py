@@ -75,6 +75,14 @@ class LlamaConfig:
                    n_kv_heads=8, hidden_dim=14336)
 
     @classmethod
+    def mistral_7b(cls) -> "LlamaConfig":
+        """Mistral-7B's shape: the Llama architecture with a 4096-token
+        sliding window (the JAX package's LlamaConfig.mistral_7b())."""
+        return cls(vocab_size=32000, dim=4096, n_layers=32, n_heads=32,
+                   n_kv_heads=8, hidden_dim=14336, rope_base=10000.0,
+                   window_size=4096)
+
+    @classmethod
     def tiny(cls, **kw) -> "LlamaConfig":
         """Test-sized config (the JAX package's LlamaConfig.tiny())."""
         defaults = dict(vocab_size=256, dim=128, n_layers=2, n_heads=4,

@@ -55,23 +55,24 @@ SIGNATURES = {
     "aule_flash_generic_dkv": [_VOID] * 9 + [_INT] * 6 + [_FLOAT] +
                               [_INT] * 3 + [_VOID],
     # q, qf, kv, scales, tables, lens, out, lse, ws, counters, B, Hq, Hkv,
-    # page, max_pages, scale, window, nsplit, dtype, pool, sc_f32, stream
+    # page, max_pages, scale, window, nsplit, tile_rows, dtype, pool,
+    # sc_f32, stream
     "aule_paged_decode": [_VOID] * 10 + [_INT] * 5 + [_FLOAT] +
-                         [_INT] * 5 + [_VOID],
+                         [_INT] * 6 + [_VOID],
     # q, k, v, k_scales, v_scales, tables, lens, out, lse, ws, counters, B,
-    # Hq, Hkv, num_pages, page, max_pages, scale, window, nsplit, dtype,
-    # pool, stream
+    # Hq, Hkv, num_pages, page, max_pages, scale, window, nsplit,
+    # tile_rows, dtype, pool, stream
     "aule_paged_decode_split": [_VOID] * 11 + [_INT] * 6 + [_FLOAT] +
-                               [_INT] * 4 + [_VOID],
+                               [_INT] * 5 + [_VOID],
     # q, kv, scales, tables, lens, q_offsets, out, lse, B, Hq, Hkv, Sq,
     # page, max_pages, scale, causal, window, dtype, pool, sc_f32, stream
     "aule_paged_prefill": [_VOID] * 8 + [_INT] * 6 + [_FLOAT] +
                           [_INT] * 5 + [_VOID],
     # q, qf, kv, v, scales, v_scales, tables, lens, out, lse, ws,
     # counters, B, Hq, Hkv, num_pages, page, max_pages, D, scale, window,
-    # nsplit, dtype, pool, sc_f32, layout, stream
+    # nsplit, tile_rows, dtype, pool, sc_f32, layout, stream
     "aule_paged_generic_decode": [_VOID] * 12 + [_INT] * 7 + [_FLOAT] +
-                                 [_INT] * 6 + [_VOID],
+                                 [_INT] * 7 + [_VOID],
     # q, kv, scales, tables, lens, q_offsets, out, lse, B, Hq, Hkv, Sq,
     # page, max_pages, D, scale, causal, window, dtype, pool, sc_f32, stream
     "aule_paged_generic_prefill": [_VOID] * 8 + [_INT] * 7 + [_FLOAT] +

@@ -15,6 +15,15 @@ so every range starts at t_lo plus a multiple of DECODE_SPAN and no span
 of the int8 dot-product mode straddles two.  Each block leaves (m, l, acc)
 of its range; `split_merge` is the plain version of the partition and the
 merge, in split order, over any per-range partial sums.
+
+A block of a decode kernel takes `tile_rows` q rows of its GQA group
+(`tc_tile_rows` for the tensor-core decode, `generic_tile_rows` for the
+generic one): a larger group is cut into `row_tiles` row tiles, each
+nsplit blocks of its own per (sequence, kv head); `num_splits` counts them
+among the blocks of a wave.  The rule lives here only: the wrappers pass
+the tile's rows to the kernels, which size their grid by it and refuse a
+tile they have no instantiation for, and `launch_plan` sizes the merge
+counters by the same number.
 """
 
 from __future__ import annotations
@@ -37,18 +46,46 @@ BLOCKS_PER_SM = 3
 # fewest tokens of the table's capacity (or window) per split
 MIN_SPLIT_TOKENS = 256
 MAX_SPLITS = 64
+# the q rows one block of a decode kernel takes at most: the tensor-core
+# kernel's live mma rows (csrc/paged_decode.cu), the generic kernel's tile
+# (csrc/paged_generic.cu kMaxGroup)
+TC_TILE_ROWS = 8
+GENERIC_TILE_ROWS = 8
+# the groups the tensor-core decode has an instantiation of its own for
+TC_EXACT_GROUPS = (1, 2, 4, 8)
+
+
+def tc_tile_rows(group: int) -> int:
+    """The tensor-core decode's q rows a block: a group of 1, 2, 4 or 8
+    whole, any other in tiles of TC_TILE_ROWS rows, the rows past the
+    group masked."""
+    return group if group in TC_EXACT_GROUPS else TC_TILE_ROWS
+
+
+def generic_tile_rows(group: int) -> int:
+    """The generic decode's q rows a block: the group up to a power of
+    two, at most GENERIC_TILE_ROWS."""
+    rows = 1
+    while rows < min(group, GENERIC_TILE_ROWS):
+        rows *= 2
+    return rows
+
+
+def row_tiles(group: int, rows: int) -> int:
+    """The row tiles of a GQA group of `group` q rows, `rows` a block."""
+    return -(-group // rows)
 
 
 def num_splits(batch: int, hkv: int, capacity: int, window: int,
-               sm_count: int) -> int:
-    """Blocks per (sequence, kv head): as many as fit the card at once in
-    one wave (BLOCKS_PER_SM on each of `sm_count` SMs; a second, partial
-    wave would cost a whole block's time), at most one per
+               sm_count: int, tiles: int = 1) -> int:
+    """Blocks per (sequence, kv head, row tile): as many as fit the card at
+    once in one wave (BLOCKS_PER_SM on each of `sm_count` SMs; a second,
+    partial wave would cost a whole block's time), at most one per
     MIN_SPLIT_TOKENS tokens of the table's capacity (max_pages *
     page_size, or the window when it is smaller), at most MAX_SPLITS.
     Depends on the shapes only."""
     span = min(window, capacity) if window > 0 else capacity
-    pairs = max(1, batch * hkv)
+    pairs = max(1, batch * hkv * tiles)
     fit = BLOCKS_PER_SM * sm_count // pairs
     most = -(-max(1, span) // MIN_SPLIT_TOKENS)
     return max(1, min(fit, most, MAX_SPLITS))
@@ -127,15 +164,22 @@ def sm_count(device: torch.device) -> int:
 
 
 def launch_plan(batch: int, hq: int, hkv: int, capacity: int, window: int,
-                device: torch.device, head_dim: int = 128):
-    """The kernel's split count for these shapes (`num_splits`) and its
-    merge buffers: (nsplit, workspace, counters), the buffers None when
-    nsplit is 1.  The workspace [B, Hkv, nsplit, G, D + 2] f32 is a fresh
-    torch.empty; the counters [B * Hkv] int32 are zeroed once per device
-    and reused, since the last block of each (sequence, kv head) sets its
-    counter back to 0 (so calls that overlap on two streams must not share
-    a device)."""
-    nsplit = num_splits(batch, hkv, capacity, window, sm_count(device))
+                device: torch.device, head_dim: int = 128,
+                tile_rows: Optional[int] = None):
+    """The kernel's split count for these shapes (`num_splits`, over the
+    group's row tiles of `tile_rows` q rows, by default the tensor-core
+    decode's `tc_tile_rows`) and its merge buffers:
+    (nsplit, workspace, counters), the buffers None when nsplit is 1.  The
+    workspace [B, Hkv, nsplit, G, D + 2] f32 is a fresh torch.empty; the
+    counters [B * Hkv * row tiles] int32 are zeroed once per device and
+    reused, since the last block of each (sequence, kv head, row tile)
+    sets its counter back to 0 (so calls that overlap on two streams must
+    not share a device)."""
+    if tile_rows is None:
+        tile_rows = tc_tile_rows(hq // hkv)
+    tiles = row_tiles(hq // hkv, tile_rows)
+    nsplit = num_splits(batch, hkv, capacity, window, sm_count(device),
+                        tiles)
     if nsplit == 1:
         return nsplit, None, None
     ws = torch.empty(batch * hq * nsplit * (head_dim + 2),
@@ -143,8 +187,8 @@ def launch_plan(batch: int, hq: int, hkv: int, capacity: int, window: int,
     idx = device.index if device.index is not None \
         else torch.cuda.current_device()
     cnt = _COUNTERS.get(idx)
-    if cnt is None or cnt.numel() < batch * hkv:
-        cnt = torch.zeros(max(batch * hkv, 256), dtype=torch.int32,
+    if cnt is None or cnt.numel() < batch * hkv * tiles:
+        cnt = torch.zeros(max(batch * hkv * tiles, 256), dtype=torch.int32,
                           device=device)
         _COUNTERS[idx] = cnt
     return nsplit, ws, cnt

@@ -232,8 +232,8 @@ def paged_attention(
             q, k_pages, v_pages, block_tables, context_lens,
             k_scales=k_scales, v_scales=v_scales, scale=scale,
             window_size=window, return_lse=return_lse)
-    generic = check_kernel_inputs(q, hkv, (k_pages, v_pages, k_scales,
-                                           v_scales), "split paged-decode")
+    generic = check_kernel_inputs(q, (k_pages, v_pages, k_scales, v_scales),
+                                  "split paged-decode")
     q = q.contiguous()
     pool = (_build.POOL_NATIVE if k_scales is None
             else _build.pool_code(k_pages.dtype))
@@ -247,8 +247,9 @@ def paged_attention(
     lib = _build.library()
     dev = q.device
     max_pages = block_tables.shape[1]
+    rows = decode_split.tc_tile_rows(hq // hkv)
     nsplit, ws, cnt = decode_split.launch_plan(
-        batch, hq, hkv, max_pages * page_size, window, dev)
+        batch, hq, hkv, max_pages * page_size, window, dev, tile_rows=rows)
     bt = block_tables.to(device=dev, dtype=torch.int32).contiguous()
     lens = context_lens.to(device=dev, dtype=torch.int32).contiguous()
     out = torch.empty_like(q)
@@ -262,8 +263,8 @@ def paged_attention(
         None if lse is None else lse.data_ptr(),
         None if ws is None else ws.data_ptr(),
         None if cnt is None else cnt.data_ptr(), batch, hq, hkv, num_pages,
-        page_size, max_pages, float(scale), window, nsplit, code, pool,
-        _build.stream_handle(dev))
+        page_size, max_pages, float(scale), window, nsplit, rows, code,
+        pool, _build.stream_handle(dev))
     _build.check(err, "aule_paged_decode_split")
     paged_attention.launches += 1
     return (out, lse) if return_lse else out

@@ -45,7 +45,6 @@ from .reference import (_expand_kv, _gather_pages,
                         paged_attention_reference)
 
 NUM_LANES = 128
-KERNEL_GROUPS = (1, 2, 4, 8)
 
 # half the scale-tile lanes hold K scales (lane = h), half V (lane = 64+h)
 SCALE_KV_STRIDE = NUM_LANES // 2
@@ -367,21 +366,16 @@ def check_pool(q, kv_pages, kv_scales):
                          f"pack_fused_scales), got {tuple(kv_scales.shape)}")
 
 
-def check_kernel_inputs(q, hkv: int, pools, name: str) -> bool:
-    """What the CUDA paged kernels take: bf16/f16 q at D=128 (the
-    tensor-core kernels), f32 at D 64/128/256 or bf16/f16 at D 64/256 (the
-    generic kernels, csrc/paged_generic.cu); GQA groups 1/2/4/8 of the
-    `hkv` kv heads; `pools` (the pool and scale tensors; None entries are
-    skipped) contiguous, 16-byte aligned, on q's device.  Returns whether q
-    goes to the generic kernels."""
+def check_kernel_inputs(q, pools, name: str) -> bool:
+    """What the CUDA paged kernels take, at any GQA group: bf16/f16 q at
+    D=128 (the tensor-core kernels), f32 at D 64/128/256 or bf16/f16 at D
+    64/256 (the generic kernels, csrc/paged_generic.cu); `pools` (the pool
+    and scale tensors; None entries are skipped) contiguous, 16-byte
+    aligned, on q's device.  Returns whether q goes to the generic
+    kernels."""
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     generic = uses_generic_kernels(q)
-    group = q.shape[1] // hkv
-    if group not in KERNEL_GROUPS:
-        raise NotImplementedError(
-            f"the CUDA {name} kernel takes GQA groups {KERNEL_GROUPS} "
-            f"(got {group})")
     for t in pools:
         if t is None:
             continue
@@ -428,8 +422,7 @@ def paged_attention_fused(
             q, kv_pages, block_tables, context_lens, kv_scales=kv_scales,
             scale=scale, window_size=window, int8_matmul=int8_dot,
             return_lse=return_lse)
-    generic = check_kernel_inputs(q, hkv, (kv_pages, kv_scales),
-                                  "paged-decode")
+    generic = check_kernel_inputs(q, (kv_pages, kv_scales), "paged-decode")
     q = q.contiguous()
     q_in, qf, pool, sc_f32 = q, None, _build.POOL_NATIVE, 0
     if kv_scales is not None:
@@ -451,8 +444,9 @@ def paged_attention_fused(
     lib = _build.library()
     dev = q.device
     max_pages = block_tables.shape[1]
+    rows = decode_split.tc_tile_rows(hq // hkv)
     nsplit, ws, cnt = decode_split.launch_plan(
-        batch, hq, hkv, max_pages * page_size, window, dev)
+        batch, hq, hkv, max_pages * page_size, window, dev, tile_rows=rows)
     bt = block_tables.to(device=dev, dtype=torch.int32).contiguous()
     lens = context_lens.to(device=dev, dtype=torch.int32).contiguous()
     out = torch.empty_like(q)
@@ -467,7 +461,7 @@ def paged_attention_fused(
         ws.data_ptr() if ws is not None else None,
         cnt.data_ptr() if cnt is not None else None,
         batch, hq, hkv, page_size, max_pages, float(scale), window, nsplit,
-        code, pool, sc_f32, _build.stream_handle(dev))
+        rows, code, pool, sc_f32, _build.stream_handle(dev))
     _build.check(err, "aule_paged_decode")
     paged_attention_fused.launches += 1
     return (out, lse) if return_lse else out

@@ -64,8 +64,10 @@ def paged_generic_decode(q, q_in, qf, kv, v, sc, vs, block_tables,
     hkv = kv.shape[2] if layout == FUSED else kv.shape[0]
     dev = q.device
     max_pages = block_tables.shape[1]
+    rows = decode_split.generic_tile_rows(hq // hkv)
     nsplit, ws, cnt = decode_split.launch_plan(
-        batch, hq, hkv, max_pages * page_size, window, dev, head_dim=d)
+        batch, hq, hkv, max_pages * page_size, window, dev, head_dim=d,
+        tile_rows=rows)
     bt = block_tables.to(device=dev, dtype=torch.int32).contiguous()
     lens = context_lens.to(device=dev, dtype=torch.int32).contiguous()
     out = torch.empty_like(q)
@@ -75,7 +77,7 @@ def paged_generic_decode(q, q_in, qf, kv, v, sc, vs, block_tables,
         q_in.data_ptr(), _ptr(qf), kv.data_ptr(), _ptr(v), _ptr(sc),
         _ptr(vs), bt.data_ptr(), lens.data_ptr(), out.data_ptr(), _ptr(lse),
         _ptr(ws), _ptr(cnt), batch, hq, hkv, num_pages, page_size,
-        max_pages, d, float(scale), window, nsplit,
+        max_pages, d, float(scale), window, nsplit, rows,
         _build.dtype_code(q.dtype, f32=True), pool, sc_f32, layout,
         _build.stream_handle(dev))
     _build.check(err, "aule_paged_generic_decode")

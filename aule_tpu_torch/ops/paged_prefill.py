@@ -91,8 +91,7 @@ def paged_attention_prefill(
             q, kv_pages, block_tables, context_lens, q_offsets=q_offsets,
             kv_scales=kv_scales, scale=scale, causal=causal,
             window_size=window, return_lse=return_lse)
-    generic = check_kernel_inputs(q, hkv, (kv_pages, kv_scales),
-                                  "paged-prefill")
+    generic = check_kernel_inputs(q, (kv_pages, kv_scales), "paged-prefill")
     q = q.contiguous()
     if kv_scales is None:
         pool, sc_f32 = _build.POOL_NATIVE, 0

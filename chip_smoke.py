@@ -26,7 +26,10 @@ Phases, each printing a line of its own:
      without a 256 window; a ragged batch of 4 whose padding rows must be
      exact zeros; 64-token pages with a 1-token chunk; shuffled page ids
      and -1 entries), timed also by profiler device time; both
-     paged kernels at GQA groups 1, 2 and 8 and with f16 q; the decode
+     paged kernels at GQA groups 1, 2 and 8 and with f16 q, and at every
+     other group class (GROUPS, ODD_GROUPS: 3, 5, 6, 7, 12, 16 over 8 kv
+     heads, 24 and 32 over one) in every pool mode, the decode also over
+     split pools (the fused kernel's bits) and with a window; the decode
      over split head-major pools (bf16, f16, int8 and fp8 with f32
      scales; ragged lengths with 0 and 1, shuffled pages, -1 tails,
      trailing windows, groups 1, 2, 4 and 8, and the split cases), which
@@ -67,7 +70,8 @@ Phases, each printing a line of its own:
      D256 group 8; the prefill of a 256-token chunk at q_offset 768 over
      1024 (also windowed), a ragged batch whose padding rows must be exact
      zeros and 64-token pages with a 1-token chunk, f32 at D128 and D256,
-     bf16 at D256, f16 q at D64 group 2; each mode
+     bf16 at D256, f16 q at D64 group 2; both at groups 3, 6 and 12 (f32
+     D128, f32 D64, bf16 D64; GEN_GROUPS) in every pool mode; each mode
      timed at GPT-2's shapes beside its bound, its plain version and SDPA
      on the gathered K/V.  Then GPT-2 small at full width and depth
      (random f32 weights from a seeded generator on the card, and the same
@@ -79,6 +83,18 @@ Phases, each printing a line of its own:
      pages; tokens against a teacher-forced plain forward or
      plain-attention replay, the f32 runs within GPT2_F32_NEAR_TIE), and
      one f32 prefill step and decode dispatch under torch.profiler;
+  6b. llama32, in a process of its own (`python3 chip_smoke.py --llama32`
+     runs it alone): the paged decode's device times at B8 ctx4096 at GQA
+     groups 4, 3 (Llama-3.2-3B's: the same bytes), 12 and 32, and the
+     paged prefill's at groups 4 and 3, beside their bounds and SDPA;
+     then Llama-3.2-3B (LLAMA32_3B: 24 q over 8 kv heads, 28 layers, full
+     width and depth, random bf16 weights) serves the 12 requests six
+     times (LLAMA32_RUNS: bf16 whole and chunk 512, int8 chunk, fp8
+     whole, split bf16 and int8), checked as the Llama-3-8B runs are;
+  6c. mistral, in a process of its own (`--mistral`): Mistral-7B
+     (LlamaConfig.mistral_7b(), its 4096-token window, full width and
+     depth) serves 4 requests of 4,200 to 6,000 prompt tokens whole and
+     with prefill_chunk=512, each held to a teacher-forced plain forward;
   7. engine: a full-width, full-depth Llama-3-8B (random bf16 weights from
      a seeded generator on the card) serves the same 12 greedy requests
      eight times through `ServingEngine`: over fused pools, bf16 with
@@ -104,13 +120,14 @@ Phases, each printing a line of its own:
      torch.profiler; the loss falls at every step.  Last, as it rewrites
      the weights;
   10. a `kernels` JSON line, one entry per kernel mode the main path
-     launched (the engine runs, the GPT-2 runs, the train steps for the
-     backward, the public phase's calls for its modes and the GPT-2
-     phase's split-layout calls);
+     launched (the engine runs, the GPT-2 runs, the Llama-3.2-3B runs for
+     the group-3 modes, the train steps for the backward, the public
+     phase's calls for its modes and the GPT-2 phase's split-layout
+     calls);
   11. last line: {"ok": true, "device": {...}}, printed only when every
      phase passed.  Any failure raises and the exit code is non-zero.
 
-About 5 minutes on an H100, the build included.
+About 7 minutes on an H100, the build included.
 """
 
 from __future__ import annotations
@@ -682,15 +699,15 @@ def hold_delta(what, di, o, do, dlse, worst):
 
 
 def _decode_inputs(gen, lens, max_pages, page=16, shuffle=False, hq=32,
-                   dtype=torch.bfloat16):
-    """A fused pool holding len_b tokens per sequence; tables -1 past the
-    used pages; page 0 scratch filled with garbage."""
+                   dtype=torch.bfloat16, hkv=8):
+    """A fused pool of `hkv` kv heads holding len_b tokens per sequence;
+    tables -1 past the used pages; page 0 scratch filled with garbage."""
     from aule_tpu_torch.ops.paged_fused import fused_pool_shape
 
     batch = len(lens)
     used = [-(-n // page) for n in lens]
     num_pages = 1 + sum(used)
-    pool = _randn(fused_pool_shape(num_pages, 8, page, 128), gen, dtype)
+    pool = _randn(fused_pool_shape(num_pages, hkv, page, 128), gen, dtype)
     pool[0] = 1e4
     ids = np.arange(1, num_pages)
     if shuffle:
@@ -719,6 +736,41 @@ def quantize_pool(pool, dtype, scale_dtype=torch.bfloat16):
 
 def _tol(dtype, int8_dot=False):
     return ROW_TOL[dtype] + (INT8_DOT_EXTRA if int8_dot else 0.0)
+
+
+def _fused_operands_bytes(hkv, qdt, tokens):
+    """The bytes of the live K/V of `tokens` cached tokens in a fused pool
+    of `hkv` kv heads: bf16, or 1-byte payloads with bf16 scales (qdt)."""
+    from aule_tpu_torch.utils import profiling
+
+    if qdt is None:
+        return profiling.paged_kv_bytes(tokens, hkv, 128, 2)
+    return profiling.paged_kv_bytes(tokens, hkv, 128, 1, scale_bytes=2)
+
+
+def _fused_operands(pool, qdt, tokens):
+    """A bf16 fused pool as a timed kernel reads it (itself, or quantized
+    by quantize_pool with bf16 scales: qdt), its K and V (dequantized)
+    head-major [Hkv, P - 1, page, D] without the scratch page, and the
+    bytes of the live K/V of `tokens` cached tokens."""
+    from aule_tpu_torch.ops.paged_fused import dequantize_pool
+
+    nbytes = _fused_operands_bytes(pool.shape[2], qdt, tokens)
+    if qdt is None:
+        kh, vh = (pool[1:, i].transpose(0, 1) for i in (0, 1))
+        return pool, None, kh, vh, nbytes
+    pl, sc = quantize_pool(pool, qdt)
+    kh, vh = dequantize_pool(pl[1:], sc[1:])
+    return pl, sc, kh, vh, nbytes
+
+
+def _dense_kv(kh, vh, batch, ctx, group):
+    """The dense yardstick's K and V: head-major [Hkv, P, page, D] whose
+    pages hold the sequences in order -> [B, Hq, ctx, D] bf16, GQA
+    expanded."""
+    return tuple(x.reshape(x.shape[0], batch, ctx, x.shape[-1]).transpose(
+        0, 1).to(torch.bfloat16).repeat_interleave(group, dim=1)
+        for x in (kh, vh))
 
 
 # The decode's timed shapes: (label, B, context).  B8 ctx4096 is bench.py's
@@ -758,16 +810,19 @@ def _twice(what, fn):
     return a
 
 
-def _decode_time(what, kernel, plain, sdpa, key, kv_bytes, batch, ctx):
-    """Times of one decode call at B x ctx (Hq32/Hkv8 D128): CUDA-event
-    medians of the kernel, its plain version and SDPA on the gathered K/V,
-    and the device time per call of the kernel (torch.profiler, its own
-    kernel only) and of SDPA, beside the bound (q, out, tables, lengths
-    and the live K/V read once; 4 B ctx Hq D operations)."""
+def _decode_time(what, kernel, plain, sdpa, key, kv_bytes, batch, ctx,
+                 hq=32, max_pages=272):
+    """Times of one decode call at B x ctx live tokens (Hq `hq`, D128,
+    tables of `max_pages` pages): CUDA-event medians of the kernel, its
+    plain version and SDPA on the gathered K/V, and the device time per
+    call of the kernel (torch.profiler, its own kernel only) and of SDPA,
+    beside the bound (q, out, tables, lengths and the live K/V read once;
+    4 B ctx Hq D operations)."""
     from aule_tpu_torch.utils import profiling
 
-    flops = 4.0 * batch * 32 * ctx * 128
-    nbytes = kv_bytes + 2 * batch * 32 * 128 * 2 + batch * 272 * 4 + 4 * batch
+    flops = 4.0 * batch * hq * ctx * 128
+    nbytes = (kv_bytes + 2 * batch * hq * 128 * 2 + batch * max_pages * 4
+              + 4 * batch)
     bound, by = profiling.bound_ms(nbytes, flops)
     ms = profiling.cuda_time_ms(kernel, iters=20)
     pl = profiling.cuda_time_ms(plain, iters=20)
@@ -790,10 +845,8 @@ def check_decode(gen):
     against its plain version and twice with the same bits; times of the
     four modes at DECODE_SHAPES.  Returns the worst errors per mode and the
     times (the B8 ctx4096 ones at the top level of each mode's dict)."""
-    from aule_tpu_torch.ops.paged_fused import (dequantize_pool,
-                                                paged_attention_fused,
+    from aule_tpu_torch.ops.paged_fused import (paged_attention_fused,
                                                 paged_attention_fused_plain)
-    from aule_tpu_torch.utils import profiling
 
     modes = [  # (mode, payload dtype or None for bf16, int8_matmul)
         ("bf16", None, None), ("int8 dot", torch.int8, True),
@@ -839,20 +892,10 @@ def check_decode(gen):
             gen if shape == "B8 ctx4096" else time_gen, lens, 272)
         nsplit = _decode_nsplit(batch, 272, 16, -1)
         for name, dt, dot in modes:
-            if dt is None:
-                pl, sc = pool, None
-                kh, vh = (pool[1:, i].transpose(0, 1) for i in (0, 1))
-                kv_bytes = profiling.paged_kv_bytes(sum(lens), 8, 128, 2)
-            else:
-                pl, sc = quantize_pool(pool, dt)
-                kh, vh = dequantize_pool(pl[1:], sc[1:])
-                kv_bytes = profiling.paged_kv_bytes(sum(lens), 8, 128, 1,
-                                                    scale_bytes=2)
-            # the dense yardstick: the same K/V gathered (dequantized) to
-            # bf16 [Hkv, P, page, D] -> [B, Hq, ctx, D], GQA expanded, one
-            # SDPA
-            kd, vd = (x.reshape(8, batch, ctx, 128).transpose(0, 1).to(
-                torch.bfloat16).repeat_interleave(4, dim=1) for x in (kh, vh))
+            pl, sc, kh, vh, kv_bytes = _fused_operands(pool, dt, sum(lens))
+            # the dense yardstick: the same K/V gathered (dequantized),
+            # one SDPA
+            kd, vd = _dense_kv(kh, vh, batch, ctx, 4)
             kw = dict(kv_scales=sc, int8_matmul=dot)
             t = _decode_time(
                 f"paged decode time {name} {shape} page16 Hq32/Hkv8 "
@@ -888,6 +931,24 @@ def _split_pools(pool, qdt, head_dim=None):
                                              scale_dtype=torch.float32)
 
 
+def _split_operands(pool, qdt, tokens):
+    """_split_pools(pool, qdt) as a timed kernel reads them, then their K
+    and V (dequantized) head-major [Hkv, P - 1, page, D] without the
+    scratch page, and the bytes of the live K/V of `tokens` cached tokens
+    (f32 scales)."""
+    from aule_tpu_torch.ops.quant import dequantize_kv
+    from aule_tpu_torch.utils import profiling
+
+    (k, v, ks, vs), fused = _split_pools(pool, qdt)
+    hkv = k.shape[0]
+    if qdt is None:
+        return ((k, v, ks, vs), fused, k[:, 1:], v[:, 1:],
+                profiling.paged_kv_bytes(tokens, hkv, 128, 2))
+    return ((k, v, ks, vs), fused, dequantize_kv(k, ks)[:, 1:],
+            dequantize_kv(v, vs)[:, 1:],
+            profiling.paged_kv_bytes(tokens, hkv, 128, 1, scale_bytes=4))
+
+
 SPLIT_MODES = [  # (mode, q and pool dtype, payload dtype or None)
     ("bf16", torch.bfloat16, None), ("f16", torch.float16, None),
     ("int8", torch.bfloat16, torch.int8),
@@ -907,7 +968,6 @@ def check_decode_split(gen):
     times (the B8 ctx4096 ones at the top level of each mode's dict)."""
     from aule_tpu_torch.ops.paged import paged_attention, paged_attention_plain
     from aule_tpu_torch.ops.paged_fused import paged_attention_fused
-    from aule_tpu_torch.ops.quant import dequantize_kv
     from aule_tpu_torch.utils import profiling
 
     cases = [  # (label, lens, max_pages, page, shuffle, window, hq)
@@ -962,17 +1022,10 @@ def check_decode_split(gen):
         for mode, _, qdt in SPLIT_MODES:
             if mode == "f16":
                 continue
-            (k, v, ks, vs), (fpool, fsc) = _split_pools(pool, qdt)
-            kv_bytes = (profiling.paged_kv_bytes(sum(lens), 8, 128, 2)
-                        if qdt is None else
-                        profiling.paged_kv_bytes(sum(lens), 8, 128, 1,
-                                                 scale_bytes=4))
-            kh, vh = ((k, v) if qdt is None
-                      else (dequantize_kv(k, ks), dequantize_kv(v, vs)))
-            # the dense yardstick: pages 1.. hold the sequences in order;
-            # [Hkv, P, page, D] -> [B, Hq, ctx, D] bf16, GQA expanded
-            kd, vd = (x[:, 1:].reshape(8, batch, ctx, 128).transpose(0, 1).to(
-                torch.bfloat16).repeat_interleave(4, dim=1) for x in (kh, vh))
+            (k, v, ks, vs), (fpool, fsc), kh, vh, kv_bytes = _split_operands(
+                pool, qdt, sum(lens))
+            # the dense yardstick: pages 1.. hold the sequences in order
+            kd, vd = _dense_kv(kh, vh, batch, ctx, 4)
             kw = dict(k_scales=ks, v_scales=vs)
             fused = lambda: paged_attention_fused(q, fpool, bt, ln,
                                                   kv_scales=fsc,
@@ -1005,17 +1058,17 @@ def check_decode_split(gen):
 
 
 def _prefill_inputs(gen, hist, chunk, s_pad, max_pages=272, shuffle=True,
-                    dtype=torch.bfloat16, hq=32, page=16):
-    """A bf16 fused pool of `page`-token pages holding hist[b] + chunk[b]
-    tokens per sequence (random K/V), chunk queries [B, hq, s_pad, 128],
-    tables with shuffled page ids and -1 tails, page 0 scratch filled with
-    garbage."""
+                    dtype=torch.bfloat16, hq=32, page=16, hkv=8):
+    """A bf16 fused pool of `page`-token pages and `hkv` kv heads holding
+    hist[b] + chunk[b] tokens per sequence (random K/V), chunk queries
+    [B, hq, s_pad, 128], tables with shuffled page ids and -1 tails, page 0
+    scratch filled with garbage."""
     from aule_tpu_torch.ops.paged_fused import fused_pool_shape
 
     total = [h + c for h, c in zip(hist, chunk)]
     used = [-(-n // page) for n in total]
     num_pages = 1 + sum(used)
-    pool = _randn(fused_pool_shape(num_pages, 8, page, 128), gen, dtype)
+    pool = _randn(fused_pool_shape(num_pages, hkv, page, 128), gen, dtype)
     pool[0] = 1e4
     ids = np.arange(1, num_pages)
     if shuffle:
@@ -1032,15 +1085,77 @@ def _prefill_inputs(gen, hist, chunk, s_pad, max_pages=272, shuffle=True,
             torch.tensor(hist, dtype=torch.int32, device=dev))
 
 
+def _chunk_prefill_times(q, pool, bt, ln, qoff, modes, what, hist=3488,
+                         window=-1):
+    """The paged prefill of one chunk (q [1, Hq, S, 128] at q_offset
+    `hist` over the hist + S tokens of a bf16 pool of 16-token pages in
+    order, from _prefill_inputs; the engine's chunk case by default: 512
+    queries at 3488 over 4000), causal, with a window W when window > 0,
+    for each (mode, payload dtype or None) of `modes`: the kernel twice
+    with the same bits, held to its plain version (ROW_TOL, LSE_TOL); the
+    CUDA-event medians of the kernel, its plain version and SDPA with a
+    positional mask on the gathered (dequantized) K/V, GQA expanded, and
+    the device time per call of the kernel and of SDPA, beside the bound
+    (the K/V the window leaves visible read once).  `what` labels the log
+    lines, with a {} for the mode.  Returns the times and errors by
+    mode."""
+    from aule_tpu_torch.ops.paged_prefill import (
+        paged_attention_prefill, paged_attention_prefill_plain)
+    from aule_tpu_torch.ops.reference import build_mask
+    from aule_tpu_torch.utils import profiling
+
+    hq, hkv, s = q.shape[1], pool.shape[2], q.shape[2]
+    total = hist + s
+    mask = build_mask(s, total, True, window, device="cuda", q_offset=hist)
+    flops = profiling.paged_prefill_flops([hist], [s], hq, 128, window)
+    live = total - (max(0, hist - window) if window > 0 else 0)
+    where = f"chunk {s} at {hist} over {total}" + (
+        f" window {window}" if window > 0 else "")
+    timings = {}
+    for name, dt in modes:
+        pl, sc, kh, vh, _ = _fused_operands(pool, dt, total)
+        kv_bytes = _fused_operands_bytes(hkv, dt, live)
+        kd, vd = _dense_kv(kh, vh, 1, total, hq // hkv)
+        kw = dict(q_offsets=qoff, kv_scales=sc, window_size=window)
+        kernel = lambda **x: paged_attention_prefill(q, pl, bt, ln, **kw,
+                                                     **x)
+        plain_fn = lambda **x: paged_attention_prefill_plain(q, pl, bt, ln,
+                                                             **kw, **x)
+        label = f"{what.format(name)}, {where}"
+        o, lse = _twice(label, lambda: kernel(return_lse=True))
+        po, plse = plain_fn(return_lse=True)
+        err = hold(label, o, po, lse, plse, ROW_TOL[q.dtype])
+        del o, lse, po, plse
+        sdpa = lambda: SDPA(q, kd, vd, attn_mask=mask)
+        ms = profiling.cuda_time_ms(kernel, iters=20)
+        plain = profiling.cuda_time_ms(plain_fn, iters=20)
+        lib = profiling.cuda_time_ms(sdpa, iters=20)
+        # the card's own time per call (torch.profiler): a CUDA-event pair
+        # around one call also holds the host's dispatch of the wrapper
+        dev, dev_lib = device_ms(kernel), device_ms(sdpa)
+        nbytes = 2 * q.numel() * 2 + kv_bytes + bt.shape[1] * 4 + 3 * 4
+        bound, by = profiling.bound_ms(nbytes, flops)
+        timings[name] = dict(ms=ms[0], plain_ms=plain[0], library_ms=lib[0],
+                             bound_ms=bound, bound_by=by, device_ms=dev,
+                             library_device_ms=dev_lib, err=err)
+        rate = "" if dev is None else f", {flops / dev / 1e9:.1f} TFLOP/s"
+        log(f"{label}, "
+            f"Hq{hq}/Hkv{hkv} D128 page16: kernel {ms[0]:.4f} ms (min "
+            f"{ms[1]:.4f} max {ms[2]:.4f}), device {_ms(dev)}{rate}; plain "
+            f"{plain[0]:.4f} ms; sdpa on the gathered K/V with a positional "
+            f"mask {lib[0]:.4f} ms, device {_ms(dev_lib)}; bound "
+            f"{bound:.4f} ms ({by})")
+        del kd, vd, kh, vh
+    return timings
+
+
 def check_prefill(gen):
     """The paged-prefill kernel against its plain version on bf16, f16,
     int8 and fp8 pools; its time in each pool mode at the engine's chunk
     case.  Returns the worst errors per mode and the times."""
     from aule_tpu_torch.config import DEFAULT_MASK_VALUE
-    from aule_tpu_torch.ops.paged_fused import dequantize_pool
     from aule_tpu_torch.ops.paged_prefill import (
         paged_attention_prefill, paged_attention_prefill_plain)
-    from aule_tpu_torch.utils import profiling
 
     cases = [  # (label, hist, chunk, s_pad, window, pool kinds, page)
         ("chunk 512 at q_offset 3488 over 4000", [3488], [512], 512, -1,
@@ -1086,60 +1201,37 @@ def check_prefill(gen):
 
     q, pool, bt, ln, qoff = _prefill_inputs(gen, [3488], [512], 512,
                                             shuffle=False)
-    mask = (torch.arange(4000, device="cuda")[None, :]
-            <= 3488 + torch.arange(512, device="cuda")[:, None])
-    flops = profiling.paged_prefill_flops([3488], [512], 32, 128)
-    timings = {}
-    for name, dt in (("bf16", None), ("int8", torch.int8),
-                     ("fp8", torch.float8_e4m3fn)):
-        # the sequence's 4000 tokens sit on pages 1..250 in order
-        if dt is None:
-            pl, sc = pool, None
-            kh, vh = (pool[1:251, i].transpose(0, 1) for i in (0, 1))
-            kv_bytes = profiling.paged_kv_bytes(4000, 8, 128, 2)
-        else:
-            pl, sc = quantize_pool(pool, dt)
-            kh, vh = dequantize_pool(pl[1:251], sc[1:251])
-            kv_bytes = profiling.paged_kv_bytes(4000, 8, 128, 1,
-                                                scale_bytes=2)
-        # the dense yardstick: the sequence's K/V gathered (dequantized) to
-        # one dense bf16 tensor, GQA expanded, one SDPA with an explicit
-        # positional causal mask
-        kd, vd = (x.reshape(1, 8, 4000, 128).to(
-            torch.bfloat16).repeat_interleave(4, dim=1) for x in (kh, vh))
-        kw = dict(q_offsets=qoff, kv_scales=sc)
-        kernel = lambda: paged_attention_prefill(q, pl, bt, ln, **kw)
-        sdpa = lambda: SDPA(q, kd, vd,
-                                                      attn_mask=mask)
-        ms = profiling.cuda_time_ms(kernel, iters=20)
-        plain = profiling.cuda_time_ms(
-            lambda: paged_attention_prefill_plain(q, pl, bt, ln, **kw),
-            iters=20)
-        lib = profiling.cuda_time_ms(sdpa, iters=20)
-        # the card's own time per call (torch.profiler): a CUDA-event pair
-        # around one call also holds the host's dispatch of the wrapper
-        dev, dev_lib = device_ms(kernel), device_ms(sdpa)
-        nbytes = 2 * q.numel() * 2 + kv_bytes + 272 * 4 + 3 * 4
-        bound, by = profiling.bound_ms(nbytes, flops)
-        timings[name] = dict(ms=ms[0], plain_ms=plain[0], library_ms=lib[0],
-                             bound_ms=bound, bound_by=by, device_ms=dev,
-                             library_device_ms=dev_lib)
-        rate = "" if dev is None else f", {flops / dev / 1e9:.1f} TFLOP/s"
-        log(f"paged prefill time {name} pool, chunk 512 at 3488 over 4000, "
-            f"Hq32/Hkv8 D128 page16: kernel {ms[0]:.4f} ms (min "
-            f"{ms[1]:.4f} max {ms[2]:.4f}), device {_ms(dev)}{rate}; plain "
-            f"{plain[0]:.4f} ms; sdpa on the gathered K/V with a positional "
-            f"mask {lib[0]:.4f} ms, device {_ms(dev_lib)}; bound "
-            f"{bound:.4f} ms ({by})")
-        del kd, vd, kh, vh
+    timings = _chunk_prefill_times(
+        q, pool, bt, ln, qoff, (("bf16", None), ("int8", torch.int8),
+                                ("fp8", torch.float8_e4m3fn)),
+        "paged prefill time {} pool")
     paged_attention_prefill.launches = 0
     return worst, timings
 
 
-def check_groups(gen, decode_worst, prefill_worst):
+# The GQA groups check_groups holds beyond the main path's 4: (Hq, Hkv).
+# Groups 1, 2 and 8 have decode instantiations of their own; 3, 5, 6 and 7
+# run one 8-row tile with rows masked, 12 and 16 two, 24 and 32 (MQA, Hkv
+# 1) three and four; the prefill takes 1, 2, 4 or 8 heads a block, the
+# largest that divides the group.
+GROUPS = [(8, 8), (16, 8), (64, 8)]
+ODD_GROUPS = [(24, 8), (40, 8), (48, 8), (56, 8), (96, 8), (128, 8), (24, 1),
+              (32, 1)]
+
+
+def check_groups(gen, decode_worst, prefill_worst, split_worst):
     """Both paged kernels at GQA groups 1, 2 and 8 (Hkv 8; the main path's
     group is 4) in every pool mode, and with f16 q, against their plain
-    versions; the errors join each mode's worst."""
+    versions; then, from a generator of their own, at ODD_GROUPS (groups
+    3, 5, 6, 7, 12, 16, 24 and 32): the decode over fused pools in every
+    pool mode (f16 q too) with no window (3 splits) and a trailing window
+    of 64 (one split), the prefill with a window of 64, and the decode
+    over split pools (bf16, f16, int8 and fp8 with f32 scales), which must
+    give the fused kernel's bits on the same pools, each call twice with
+    the same bits.  The errors join each mode's worst; returns the odd
+    groups' worst per (kernel mode, group), keyed "decode bf16 G3" and so
+    on."""
+    from aule_tpu_torch.ops.paged import paged_attention, paged_attention_plain
     from aule_tpu_torch.ops.paged_fused import (paged_attention_fused,
                                                 paged_attention_fused_plain)
     from aule_tpu_torch.ops.paged_prefill import (
@@ -1157,30 +1249,85 @@ def check_groups(gen, decode_worst, prefill_worst):
          "int8"),
         ("f16 q, fp8", torch.float16, torch.float8_e4m3fn, None, "fp8",
          "fp8")]
-    for hq in (8, 16, 64):
+    by_group = {}
+
+    def note(key, errs):
+        by_group[key] = tuple(max(a, b) for a, b in zip(
+            by_group.get(key, (0.0, 0.0, 0.0)), errs))
+
+    odd_gen = torch.Generator(device="cuda")
+    odd_gen.manual_seed(SEED + 12)
+    for (hq, hkv), g in ([(x, gen) for x in GROUPS]
+                         + [(x, odd_gen) for x in ODD_GROUPS]):
+        odd = g is odd_gen
+        name = f"group {hq // hkv}" + (" (MQA)" if hkv == 1 else "")
         for label, dt, qdt, dot, dmode, pmode in kinds:
-            q, pool, bt, ln = _decode_inputs(gen, [0, 1, 17, 600, 333], 48,
-                                             shuffle=True, hq=hq, dtype=dt)
+            q, pool, bt, ln = _decode_inputs(g, [0, 1, 17, 600, 333], 48,
+                                             shuffle=True, hq=hq, dtype=dt,
+                                             hkv=hkv)
             q2, pool2, bt2, ln2, qoff = _prefill_inputs(
-                gen, [300, 0], [100, 37], 100, max_pages=48, dtype=dt, hq=hq)
+                g, [300, 0], [100, 37], 100, max_pages=48, dtype=dt, hq=hq,
+                hkv=hkv)
             sc = sc2 = None
             if qdt is not None:
                 pool, sc = quantize_pool(pool, qdt)
                 pool2, sc2 = quantize_pool(pool2, qdt)
-            kw = dict(kv_scales=sc, int8_matmul=dot, return_lse=True)
-            o, lse = paged_attention_fused(q, pool, bt, ln, **kw)
-            po, plse = paged_attention_fused_plain(q, pool, bt, ln, **kw)
-            hold(f"group {hq // 8} {label}: decode", o, po, lse, plse,
-                 _tol(dt, bool(dot)), decode_worst, dmode)
+            for window in (-1, 64) if odd else (-1,):
+                kw = dict(kv_scales=sc, int8_matmul=dot, return_lse=True,
+                          window_size=window)
+                what = f"{name} {label}: decode" + (
+                    f" (window {window})" if window > 0 else "")
+                o, lse = (_twice(what, lambda: paged_attention_fused(
+                    q, pool, bt, ln, **kw)) if odd
+                    else paged_attention_fused(q, pool, bt, ln, **kw))
+                po, plse = paged_attention_fused_plain(q, pool, bt, ln, **kw)
+                errs = hold(what, o, po, lse, plse, _tol(dt, bool(dot)),
+                            decode_worst, dmode)
+                if odd:
+                    note(f"decode {dmode} G{hq // hkv}", errs)
             kw = dict(q_offsets=qoff, kv_scales=sc2, window_size=64,
                       return_lse=True)
-            o, lse = paged_attention_prefill(q2, pool2, bt2, ln2, **kw)
+            what = f"{name} {label}: prefill (window 64)"
+            o, lse = (_twice(what, lambda: paged_attention_prefill(
+                q2, pool2, bt2, ln2, **kw)) if odd
+                else paged_attention_prefill(q2, pool2, bt2, ln2, **kw))
             po, plse = paged_attention_prefill_plain(q2, pool2, bt2, ln2,
                                                      **kw)
-            hold(f"group {hq // 8} {label}: prefill (window 64)", o, po, lse,
-                 plse, ROW_TOL[dt], prefill_worst, pmode)
+            errs = hold(what, o, po, lse, plse, ROW_TOL[dt], prefill_worst,
+                        pmode)
+            if odd:
+                note(f"prefill {pmode} G{hq // hkv}", errs)
+        if not odd:
+            continue
+        for mode, dt, qdt in SPLIT_MODES:
+            q, pool, bt, ln = _decode_inputs(g, [0, 1, 17, 600, 333], 48,
+                                             shuffle=True, hq=hq, dtype=dt,
+                                             hkv=hkv)
+            (k, v, ks, vs), (fpool, fsc) = _split_pools(pool, qdt)
+            for window in (-1, 64):
+                kw = dict(k_scales=ks, v_scales=vs, window_size=window,
+                          return_lse=True)
+                what = f"{name} split {mode}: decode" + (
+                    f" (window {window})" if window > 0 else "")
+                o, lse = _twice(what, lambda: paged_attention(q, k, v, bt, ln,
+                                                              **kw))
+                po, plse = paged_attention_plain(q, k, v, bt, ln, **kw)
+                note(f"split {mode} G{hq // hkv}",
+                     hold(what, o, po, lse, plse, ROW_TOL[dt], split_worst,
+                          mode))
+                fo, flse = paged_attention_fused(
+                    q, fpool, bt, ln, kv_scales=fsc, window_size=window,
+                    int8_matmul=False, return_lse=True)
+                if not (torch.equal(o, fo) and torch.equal(lse, flse)):
+                    raise AssertionError(f"{what}: not the fused kernel's "
+                                         f"bits on the same pools")
+    log("groups: every odd group's split-pool decode gives the fused "
+        "kernel's bits on the same pools, and every call the same bits "
+        "twice")
+    paged_attention.launches = 0
     paged_attention_fused.launches = 0
     paged_attention_prefill.launches = 0
+    return by_group
 
 
 PROMPT_LENS = [7, 64, 129, 300, 511, 700, 1000, 1024, 1500, 2048, 3000,
@@ -2473,6 +2620,96 @@ def _generic_prefill_checks(gen, res):
                  f"prefill {key}")
 
 
+# csrc/paged_generic.cu at GQA groups its power-of-two rule refused before:
+# groups 3, 6 and 12 over 4 kv heads (12: two row tiles of 8, the second
+# half empty), at (label, q dtype, head dim); the f32 types with f32 q over
+# every pool, bf16 q over bf16, int8 and e4m3 pools.
+GEN_GROUPS = (3, 6, 12)
+GEN_GROUP_TYPES = (("f32 D128", torch.float32, 128),
+                   ("f32 D64", torch.float32, 64),
+                   ("bf16 D64", torch.bfloat16, 64))
+
+
+def _generic_group_checks(res):
+    """csrc/paged_generic.cu's decode (both layouts, no window and a
+    trailing window of 64) and prefill (window 64) at GEN_GROUPS and
+    GEN_GROUP_TYPES in every pool mode, from a generator of their own,
+    held as _generic_decode_checks and _generic_prefill_checks hold theirs:
+    twice with the same bits, against the plain versions, the split pools
+    giving the fused kernel's bits."""
+    from aule_tpu_torch.ops.paged import paged_attention, paged_attention_plain
+    from aule_tpu_torch.ops.paged_fused import (paged_attention_fused,
+                                                paged_attention_fused_plain)
+    from aule_tpu_torch.ops.paged_prefill import (
+        paged_attention_prefill, paged_attention_prefill_plain)
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(GPT2_SEED + 3)
+    hkv, lens, max_pages = 4, [0, 1, 17, 600, 333], 48
+    hist, chunk = [300, 0], [100, 37]
+    for group in GEN_GROUPS:
+        hq = group * hkv
+        for tlabel, dt, d in GEN_GROUP_TYPES:
+            native = "f32" if dt == torch.float32 else "bf16"
+            for mode, qdt, dot in ((native, None, None),
+                                   ("int8 dot", torch.int8, True),
+                                   ("int8 exact", torch.int8, False),
+                                   ("fp8", torch.float8_e4m3fn, None)):
+                where = f"group {group} Hq{hq}/Hkv{hkv} {tlabel}"
+                pool, bt = _generic_pool(gen, lens, max_pages, 16, hkv, d, dt,
+                                         True)
+                ln = torch.tensor(lens, dtype=torch.int32, device=DEV)
+                q = _randn((len(lens), hq, d), gen, dt)
+                pl, sc = _gen_quantized(pool, qdt)
+                for window in (-1, 64):
+                    kw = dict(kv_scales=sc, window_size=window,
+                              int8_matmul=dot, return_lse=True)
+                    what = f"generic decode {mode} {where} window {window}"
+                    o, lse = _twice(what, lambda: paged_attention_fused(
+                        q, pl, bt, ln, **kw))
+                    po, plse = paged_attention_fused_plain(q, pl, bt, ln,
+                                                           **kw)
+                    hold(what, o, po, lse, plse, _tol(dt, bool(dot)),
+                         res["err"], f"decode {mode} {where}")
+                    if dot:
+                        continue
+                    (k, v, ks, vs), (fpool, fsc) = _split_pools(pool, qdt, d)
+                    skw = dict(k_scales=ks, v_scales=vs, window_size=window,
+                               return_lse=True)
+                    so, slse = _twice(f"split {what}", lambda: paged_attention(
+                        q, k, v, bt, ln, **skw))
+                    po, plse = paged_attention_plain(q, k, v, bt, ln, **skw)
+                    hold(f"split {what}", so, po, slse, plse, _tol(dt),
+                         res["err"], f"split {mode} {where}")
+                    fo, flse = paged_attention_fused(
+                        q, fpool, bt, ln, kv_scales=fsc, window_size=window,
+                        int8_matmul=False, return_lse=True)
+                    if not (torch.equal(so, fo) and torch.equal(slse, flse)):
+                        raise AssertionError(f"split {what}: not the fused "
+                                             f"kernel's bits on the same "
+                                             f"pools")
+                if mode == "int8 exact":
+                    continue  # the prefill has one int8 mode
+                total = [h + c for h, c in zip(hist, chunk)]
+                pool, bt = _generic_pool(gen, total, max_pages, 16, hkv, d, dt,
+                                         True)
+                pl, sc = _gen_quantized(pool, qdt)
+                q = _randn((len(hist), hq, max(chunk), d), gen, dt)
+                kw = dict(q_offsets=torch.tensor(hist, dtype=torch.int32,
+                                                 device=DEV),
+                          kv_scales=sc, window_size=64, return_lse=True)
+                ln = torch.tensor(total, dtype=torch.int32, device=DEV)
+                pmode = mode.split()[0]
+                what = f"generic prefill {pmode} {where} window 64"
+                o, lse = _twice(what, lambda: paged_attention_prefill(
+                    q, pl, bt, ln, **kw))
+                po, plse = paged_attention_prefill_plain(q, pl, bt, ln, **kw)
+                hold(what, o, po, lse, plse, ROW_TOL[dt], res["err"],
+                     f"prefill {pmode} {where}")
+    log("generic groups: every split-pool case gives the fused kernel's bits "
+        "on the same pools, and every call the same bits twice")
+
+
 def _generic_timings(gen, res):
     """Times at GPT-2's engine shapes (profiler device time of the kernel
     alone and of the library call, CUDA-event medians of the kernel, its
@@ -2670,9 +2907,336 @@ def check_gpt2() -> dict:
     res = {"err": {}, "time": {}, "launches": {}, "runs": {}}
     _generic_decode_checks(gen, res)
     _generic_prefill_checks(gen, res)
+    _generic_group_checks(res)
     _generic_timings(gen, res)
     paged_generic_decode.launches = paged_generic_prefill.launches = 0
     _gpt2_serving(res)
+    return res
+
+
+# Llama-3.2-3B (meta-llama/Llama-3.2-3B, config.json): 24 q heads over 8
+# kv heads, GQA group 3, D128, 28 layers.  Neither package has tied
+# embeddings or the llama3 RoPE scaling, so the head is untied and RoPE
+# plain: no attention shape changes (~3.61 B parameters).
+LLAMA32_3B = dict(vocab_size=128256, dim=3072, n_layers=28, n_heads=24,
+                  n_kv_heads=8, hidden_dim=8192, rope_base=500000.0,
+                  norm_eps=1e-5)
+# Its serving runs, the Llama-3-8B runs' keys: (key, label, engine
+# options, quantized payload dtype or None).  Every run decodes through
+# the tensor-core decode at group 3; the chunked ones prefill through the
+# paged prefill at group 3.
+LLAMA32_RUNS = [
+    ("whole bf16", "Llama-3.2-3B bf16 whole-prompt", {}, None),
+    ("a", "Llama-3.2-3B (a) bf16 chunk 512", dict(prefill_chunk=CHUNK),
+     None),
+    ("b", "Llama-3.2-3B (b) int8 chunk 512",
+     dict(quantized=True, prefill_chunk=CHUNK), torch.int8),
+    ("c", "Llama-3.2-3B (c) fp8 whole-prompt",
+     dict(quantized=True, quant_dtype=torch.float8_e4m3fn),
+     torch.float8_e4m3fn),
+    ("e", "Llama-3.2-3B (e) split bf16", dict(layout="split"), None),
+    ("f", "Llama-3.2-3B (f) split int8", dict(layout="split", quantized=True),
+     torch.int8),
+]
+# The decode's GQA classes timed side by side at B8 ctx4096: (tag, Hq,
+# Hkv); the main path's group 4, Llama-3.2-3B's 3 (the same bytes read),
+# 12 (two 8-row tiles) and 32 (MQA, four 8-row tiles).
+GQA_TIMED = (("g4", 32, 8), ("g3", 24, 8), ("g12", 96, 8), ("g32", 32, 1))
+# check_groups' small case at every group, as the kernels line names it
+GROUP_CASE = {
+    "decode": "check_groups: B5 lengths 0/1/17/600/333 over 48-page tables "
+              "(3 splits), shuffled pages, with and without a window 64",
+    "prefill": "check_groups: chunks 100 at 300 and 37 at 0, 48-page "
+               "tables, window 64"}
+GQA_SEED = SEED + 13  # a generator of its own
+
+
+def _gqa_decode_times(res):
+    """The decode at B8 ctx4096 page 16 (272-page tables) for each of
+    GQA_TIMED, in one process so that the groups meet the same card:
+    groups 4 and 3 in every mode of Llama-3.2-3B's runs (fused bf16, int8
+    dot products and fp8 with bf16 scales; split bf16 and int8 with f32
+    scales), 12 and 32 fused bf16.  Each call twice with the same bits,
+    held to its plain version (_tol), then its device and event times
+    beside its bound, its plain version and SDPA on the gathered K/V (GQA
+    expanded); errors into res["err"], times into res["time"]."""
+    from aule_tpu_torch.ops.paged import paged_attention, paged_attention_plain
+    from aule_tpu_torch.ops.paged_fused import (paged_attention_fused,
+                                                paged_attention_fused_plain)
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(GQA_SEED)
+    batch, ctx = 8, 4096
+    lens = [ctx] * batch
+    modes = [  # (mode, payload dtype or None, int8_matmul, split pools)
+        ("bf16", None, None, False), ("int8 dot", torch.int8, True, False),
+        ("fp8", torch.float8_e4m3fn, None, False),
+        ("split bf16", None, None, True), ("split int8", torch.int8, None,
+                                           True)]
+    for tag, hq, hkv in GQA_TIMED:
+        group = hq // hkv
+        q, pool, bt, ln = _decode_inputs(gen, lens, 272, hq=hq, hkv=hkv)
+        for mode, qdt, dot, split in (modes if tag in ("g3", "g4")
+                                      else modes[:1]):
+            if split:
+                (k, v, ks, vs), _, kh, vh, kv_bytes = _split_operands(
+                    pool, qdt, sum(lens))
+                kw = dict(k_scales=ks, v_scales=vs)
+                kernel = lambda **x: paged_attention(q, k, v, bt, ln, **kw,
+                                                     **x)
+                plain = lambda **x: paged_attention_plain(q, k, v, bt, ln,
+                                                          **kw, **x)
+            else:
+                pl, sc, kh, vh, kv_bytes = _fused_operands(pool, qdt,
+                                                           sum(lens))
+                kw = dict(kv_scales=sc, int8_matmul=dot)
+                kernel = lambda **x: paged_attention_fused(q, pl, bt, ln,
+                                                           **kw, **x)
+                plain = lambda **x: paged_attention_fused_plain(
+                    q, pl, bt, ln, **kw, **x)
+            what = (f"gqa decode {mode} group {group} B8 ctx4096 page16 "
+                    f"Hq{hq}/Hkv{hkv}")
+            o, lse = _twice(what, lambda: kernel(return_lse=True))
+            po, plse = plain(return_lse=True)
+            res["err"][f"decode {mode} {tag}"] = hold(
+                what, o, po, lse, plse, _tol(torch.bfloat16, bool(dot)))
+            del o, lse, po, plse
+            kd, vd = _dense_kv(kh, vh, batch, ctx, group)
+            res["time"][f"decode {mode} {tag}"] = _decode_time(
+                f"gqa decode time {mode} group {group} B8 ctx4096 page16 "
+                f"Hq{hq}/Hkv{hkv}", kernel, plain,
+                lambda: SDPA(q[:, :, None], kd, vd),
+                "splitpools" if split else "fusedpool", kv_bytes, batch, ctx,
+                hq=hq)
+            del kd, vd, kh, vh
+        del q, pool
+        torch.cuda.empty_cache()
+    g3, g4 = (res["time"][f"decode bf16 {t}"]["device_ms"]
+              for t in ("g3", "g4"))
+    log(f"gqa decode: group 3 bf16 {_ms(g3)} against group 4 {_ms(g4)} "
+        f"(same bytes read)"
+        + ("" if None in (g3, g4) else f", ratio {g3 / g4:.3f}"))
+
+
+def _gqa_prefill_times(res):
+    """The paged prefill at the engine's chunk case (_chunk_prefill_times:
+    held to its plain version, then timed) at groups 4 and 3 (Hkv 8), bf16
+    and int8 pools (bf16 scales)."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(GQA_SEED + 1)
+    for tag, hq in (("g4", 32), ("g3", 24)):
+        q, pool, bt, ln, qoff = _prefill_inputs(gen, [3488], [512], 512,
+                                                shuffle=False, hq=hq)
+        t = _chunk_prefill_times(
+            q, pool, bt, ln, qoff, (("bf16", None), ("int8", torch.int8)),
+            f"gqa prefill time {{}} group {hq // 8}")
+        for mode, times in t.items():
+            res["time"][f"prefill {mode} {tag}"] = times
+            res["err"][f"prefill {mode} {tag}"] = times["err"]
+
+
+def _serve(params, cfg, prompts, runs, res, engine_kw=ENGINE_KW):
+    """Serve the prompts once per run of `runs` ((key, label, engine
+    options, quantized payload dtype or None)), each checked by run_engine
+    and held to a teacher-forced plain forward (unquantized) or a
+    plain-attention replay (quantized)."""
+    for key, label, kw, qdt in runs:
+        out, res["runs"][key] = run_engine(params, cfg, prompts, label,
+                                           engine_kw=engine_kw, **kw)
+        if qdt is None:
+            check_plain_forward(params, cfg, prompts, out, label)
+        else:
+            check_replay(params, cfg, prompts, out, label, qdt,
+                         kw.get("prefill_chunk"),
+                         layout=kw.get("layout", "fused"),
+                         engine_kw=engine_kw)
+
+
+def check_llama32() -> dict:
+    """The GQA phase: the decode's and the prefill's times at groups 3, 4,
+    12 and 32 (_gqa_decode_times, _gqa_prefill_times), then Llama-3.2-3B
+    at full width and depth (LLAMA32_3B, random bf16 weights from SEED on
+    the card) serving the 12 prompts of PROMPT_LENS, 24 new tokens each,
+    through ServingEngine(**ENGINE_KW) in every run of LLAMA32_RUNS.
+    Returns the times and each run's launches."""
+    from aule_tpu_torch.models import llama
+
+    log(card_line())
+    res = {"time": {}, "err": {}, "runs": {}}
+    _gqa_decode_times(res)
+    _gqa_prefill_times(res)
+    cfg = llama.LlamaConfig(**LLAMA32_3B)
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(SEED)
+    t0 = time.perf_counter()
+    params = llama.init_params(cfg, gen, device=DEV)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in llama._tensors(params))
+    log(f"llama32: Llama-3.2-3B dim {cfg.dim} layers {cfg.n_layers} heads "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} (group "
+        f"{cfg.n_heads // cfg.n_kv_heads}) D{cfg.head_dim} hidden "
+        f"{cfg.hidden_dim} vocab {cfg.vocab_size} bf16: "
+        f"{n_params / 1e9:.3f} B params, init "
+        f"{time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32)
+               for n in PROMPT_LENS]
+    _serve(params, cfg, prompts, LLAMA32_RUNS, res)
+    del params
+    torch.cuda.empty_cache()
+    return res
+
+
+# Mistral-7B (LlamaConfig.mistral_7b(): a 4096-token sliding window) at full
+# width and depth, prompts past the window so that both the prefill's and
+# the decode's window bite; max_seq_len raised to hold them.
+MISTRAL_PROMPT_LENS = [4200, 4700, 5300, 6000]
+MISTRAL_KW = dict(max_batch=8, page_size=16, num_pages=1400,
+                  max_pages_per_seq=384, max_seq_len=6144, decode_steps=8)
+MISTRAL_RUNS = [
+    ("whole bf16", "Mistral-7B bf16 whole-prompt", {}, None),
+    ("a", "Mistral-7B (a) bf16 chunk 512", dict(prefill_chunk=CHUNK), None),
+]
+
+
+MISTRAL_SEED = SEED + 14  # a generator of its own
+
+
+def _mistral_kernels(res):
+    """Mistral-7B's windowed kernels at its shapes (Hq32/Hkv8 D128 bf16),
+    each call twice with the same bits, held to its plain version
+    (ROW_TOL, LSE_TOL) and timed beside its bound and a library call: the
+    flash forward of the whole-prompt prefill at the longest prompt
+    (S6000, window 4096: the TMA kernel's window skip; SDPA with the
+    window's boolean mask); the decode over MISTRAL_KW's 384-page tables
+    with the decode window 4097 (llama._decode_window), at the prompts'
+    lengths after their new tokens (shuffled pages) and, timed, at B4
+    ctx6000 (SDPA on the window's gathered K/V); the paged prefill of a
+    512-token chunk at 5488 over 6000 with the window
+    (_chunk_prefill_times).  Errors into res["err"], times into
+    res["time"]."""
+    from aule_tpu_torch.models import llama
+    from aule_tpu_torch.ops.flash import (flash_attention_fwd,
+                                          flash_attention_fwd_plain)
+    from aule_tpu_torch.ops.paged_fused import (paged_attention_fused,
+                                                paged_attention_fused_plain)
+    from aule_tpu_torch.ops.reference import build_mask
+    from aule_tpu_torch.utils import profiling
+
+    cfg = llama.LlamaConfig.mistral_7b()
+    hq, hkv, w = cfg.n_heads, cfg.n_kv_heads, cfg.window_size
+    dw, pages = llama._decode_window(cfg), MISTRAL_KW["max_pages_per_seq"]
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(MISTRAL_SEED)
+
+    s = max(MISTRAL_PROMPT_LENS)
+    q = _randn((1, hq, s, 128), gen)
+    k = _randn((1, hkv, s, 128), gen)
+    v = _randn((1, hkv, s, 128), gen)
+    kw = dict(causal=True, window_size=w)
+    what = (f"mistral flash forward B1 Hq{hq}/Hkv{hkv} S{s} D128 bf16 "
+            f"causal window {w}")
+    o, lse = _twice(what, lambda: flash_attention_fwd(q, k, v,
+                                                      return_lse=True, **kw))
+    po, plse = flash_attention_fwd_plain(q, k, v, return_lse=True, **kw)
+    res["err"]["flash"] = hold(what, o, po, lse, plse,
+                               ROW_TOL[torch.bfloat16])
+    del o, lse, po, plse
+    kx, vx = (x.repeat_interleave(hq // hkv, dim=1) for x in (k, v))
+    mask = build_mask(s, s, True, w, device="cuda")
+    kernel = lambda: flash_attention_fwd(q, k, v, return_lse=False, **kw)
+    sdpa = lambda: SDPA(q, kx, vx, attn_mask=mask)
+    ms = profiling.cuda_time_ms(kernel, iters=20)
+    plain = profiling.cuda_time_ms(
+        lambda: flash_attention_fwd_plain(q, k, v, return_lse=False, **kw),
+        iters=20)
+    lib = profiling.cuda_time_ms(sdpa, iters=20)
+    dev, dev_lib = device_ms(kernel), device_ms(sdpa)
+    flops = profiling.window_attention_flops(1, hq, s, 128, w)
+    bound, by = profiling.bound_ms(2 * (q.numel() * 2 + k.numel()
+                                        + v.numel()), flops)
+    res["time"]["flash"] = dict(ms=ms[0], plain_ms=plain[0],
+                                library_ms=lib[0], bound_ms=bound,
+                                bound_by=by, device_ms=dev,
+                                library_device_ms=dev_lib)
+    rate = "" if dev is None else f", {flops / dev / 1e9:.1f} TFLOP/s"
+    log(f"{what}: kernel {ms[0]:.4f} ms (min {ms[1]:.4f} max {ms[2]:.4f}), "
+        f"device {_ms(dev)}{rate}; plain {plain[0]:.4f} ms; sdpa with the "
+        f"window mask {lib[0]:.4f} ms, device {_ms(dev_lib)}; bound "
+        f"{bound:.4f} ms ({by})")
+    del q, k, v, kx, vx, mask
+
+    lens = [n + NEW_TOKENS for n in MISTRAL_PROMPT_LENS]
+    for label, case_lens, shuffle in (
+            ("the prompts' lengths " + "/".join(map(str, lens)), lens, True),
+            ("B4 ctx6000", [s] * 4, False)):
+        q, pool, bt, ln = _decode_inputs(gen, case_lens, pages,
+                                         shuffle=shuffle, hq=hq, hkv=hkv)
+        kernel = lambda **x: paged_attention_fused(q, pool, bt, ln,
+                                                   window_size=dw, **x)
+        plain = lambda **x: paged_attention_fused_plain(q, pool, bt, ln,
+                                                        window_size=dw, **x)
+        what = (f"mistral decode window {dw} over {pages}-page tables, "
+                f"{label}, Hq{hq}/Hkv{hkv} D128 bf16")
+        o, lse = _twice(what, lambda: kernel(return_lse=True))
+        po, plse = plain(return_lse=True)
+        errs = hold(what, o, po, lse, plse, ROW_TOL[torch.bfloat16])
+        res["err"]["decode"] = tuple(max(a, b) for a, b in zip(
+            res["err"].get("decode", (0.0, 0.0, 0.0)), errs))
+        del o, lse, po, plse
+        if shuffle:
+            continue
+        _, _, kh, vh, kv_bytes = _fused_operands(pool, None, 4 * dw)
+        kd, vd = (x[:, :, -dw:].contiguous()
+                  for x in _dense_kv(kh, vh, 4, s, hq // hkv))
+        res["time"]["decode"] = _decode_time(
+            f"mistral decode time window {dw} B4 ctx6000 page16 "
+            f"Hq{hq}/Hkv{hkv}", kernel, plain,
+            lambda: SDPA(q[:, :, None], kd, vd), "fusedpool", kv_bytes, 4,
+            dw, hq=hq, max_pages=pages)
+        del kd, vd, kh, vh
+    del q, pool
+
+    q, pool, bt, ln, qoff = _prefill_inputs(gen, [s - CHUNK], [CHUNK],
+                                            CHUNK, max_pages=pages,
+                                            shuffle=False, hq=hq, hkv=hkv)
+    t = _chunk_prefill_times(q, pool, bt, ln, qoff, (("bf16", None),),
+                             "mistral prefill {} pool", hist=s - CHUNK,
+                             window=w)["bf16"]
+    res["time"]["prefill"], res["err"]["prefill"] = t, t["err"]
+    del q, pool
+    torch.cuda.empty_cache()
+
+
+def check_mistral() -> dict:
+    """Mistral-7B: its windowed kernels at its shapes (_mistral_kernels),
+    then the model (random bf16 weights from SEED on the card) serving
+    MISTRAL_PROMPT_LENS prompts, 24 new tokens each, through
+    ServingEngine(**MISTRAL_KW) whole-prompt and with prefill_chunk=512,
+    each held to a teacher-forced plain forward with the window.  Returns
+    the kernels' errors and times and each run's launches."""
+    from aule_tpu_torch.models import llama
+
+    log(card_line())
+    res = {"time": {}, "err": {}, "runs": {}}
+    _mistral_kernels(res)
+    cfg = llama.LlamaConfig.mistral_7b()
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(SEED)
+    t0 = time.perf_counter()
+    params = llama.init_params(cfg, gen, device=DEV)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in llama._tensors(params))
+    log(f"mistral: Mistral-7B dim {cfg.dim} layers {cfg.n_layers} heads "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} window {cfg.window_size} vocab "
+        f"{cfg.vocab_size} bf16: {n_params / 1e9:.3f} B params, init "
+        f"{time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(SEED + 2)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32)
+               for n in MISTRAL_PROMPT_LENS]
+    _serve(params, cfg, prompts, MISTRAL_RUNS, res, engine_kw=MISTRAL_KW)
+    del params
+    torch.cuda.empty_cache()
     return res
 
 
@@ -2704,9 +3268,19 @@ def phase_gpt2() -> dict:
     return _phase_process("--gpt2", "GPT-2")
 
 
+def phase_llama32() -> dict:
+    """check_llama32 in a process of its own (`chip_smoke.py --llama32`)."""
+    return _phase_process("--llama32", "Llama-3.2-3B")
+
+
+def phase_mistral() -> dict:
+    """check_mistral in a process of its own (`chip_smoke.py --mistral`)."""
+    return _phase_process("--mistral", "Mistral-7B")
+
+
 def child_main(check) -> None:
-    """`chip_smoke.py --public` or `--gpt2`: that phase alone, its result
-    as one JSON line last."""
+    """`chip_smoke.py --public`, `--gpt2`, `--llama32` or `--mistral`: that
+    phase alone, its result as one JSON line last."""
     if not torch.cuda.is_available():
         log("device: torch.cuda.is_available() is False")
         sys.exit(2)
@@ -2822,6 +3396,117 @@ def gpt2_entries(gpt2: dict) -> list:
     return entries
 
 
+def gqa_entries(llama32: dict, group_err: dict) -> list:
+    """The paged kernels at GQA group 3, each mode with its launches on the
+    Llama-3.2-3B runs that use it, its errors and times at B8 ctx4096
+    (decode) or the 512-token chunk at 3488 over 4000 (prefill), Hq24/Hkv8,
+    and its worst errors per group in check_groups' small case; the
+    decode's times and errors at groups 4, 12 and 32 beside them."""
+    runs, times, errs = llama32["runs"], llama32["time"], llama32["err"]
+    decode_src = "aule_tpu_torch/csrc/paged_decode.cu"
+    any_group = " at any GQA group (padded to a multiple of 8 rows, {})"
+    fused_row = ("aule_tpu/ops/paged_fused.py:213 (_fused_decode_kernel"
+                 + any_group.format("l.541-544") + ")")
+    split_row = ("aule_tpu/ops/paged.py:45 (_paged_decode_kernel"
+                 + any_group.format("l.376-383") + ")")
+    prefill_row = ("aule_tpu/ops/paged_fused.py:770 (_fused_prefill_kernel"
+                   + any_group.format("l.998-1007") + ")")
+    decode_shape = "B8 ctx4096 page16 Hq24/Hkv8 D128 (group 3: one 8-row tile)"
+    prefill_shape = ("B1 Hq24/Hkv8 D128 page16, chunk 512 at q_offset 3488 "
+                     "over 4000 (group 3: one q head a block)")
+    entries = []
+    for name, kind, mode, keys, src, row, shape, err_key in (
+            ("paged_decode_g3", "decode", "bf16", ("whole bf16", "a"),
+             decode_src, fused_row, decode_shape + " bf16", "decode bf16"),
+            ("paged_decode_g3_int8", "decode", "int8 dot", ("b",), decode_src,
+             fused_row, decode_shape + " int8 dot products, bf16 scales",
+             "decode int8 dot"),
+            ("paged_decode_g3_fp8", "decode", "fp8", ("c",), decode_src,
+             fused_row, decode_shape + " e4m3, bf16 scales", "decode fp8"),
+            ("paged_decode_split_g3", "decode", "split bf16", ("e",),
+             decode_src, split_row, decode_shape + " split bf16 pools",
+             "split bf16"),
+            ("paged_decode_split_g3_int8", "decode", "split int8", ("f",),
+             decode_src, split_row, decode_shape + " split int8 pools, f32 "
+             "scales", "split int8"),
+            ("paged_prefill_g3", "prefill", "bf16", ("a",),
+             "aule_tpu_torch/csrc/paged_prefill.cu", prefill_row,
+             prefill_shape + ", bf16 pool", "prefill bf16"),
+            ("paged_prefill_g3_int8", "prefill", "int8", ("b",),
+             "aule_tpu_torch/csrc/paged_prefill.cu", prefill_row,
+             prefill_shape + ", int8 pool, bf16 scales", "prefill int8")):
+        kernel = ("paged_prefill" if kind == "prefill" else
+                  "paged_decode_split" if mode.startswith("split")
+                  else "paged_decode")
+        by_run = {k: runs[k][kernel] for k in keys}
+        for k, count in by_run.items():
+            if count == 0:
+                raise AssertionError(f"{kernel} was not launched in "
+                                     f"Llama-3.2-3B run {k}")
+        t = times[f"{kind} {mode} g3"]
+        extra = dict(launches_by_run=by_run, device_ms=t["device_ms"],
+                     library_device_ms=t["library_device_ms"],
+                     group_4_same_run=dict(
+                         times[f"{kind} {mode} g4"],
+                         err=errs[f"{kind} {mode} g4"]),
+                     small_case_errs_by_group={
+                         k.split()[-1]: v for k, v in group_err.items()
+                         if k.startswith(err_key + " G")},
+                     small_case=GROUP_CASE[kind])
+        if name == "paged_decode_g3":
+            extra.update(
+                time_group_12=dict(times["decode bf16 g12"],
+                                   err=errs["decode bf16 g12"]),
+                time_group_32_mqa=dict(times["decode bf16 g32"],
+                                       err=errs["decode bf16 g32"]))
+        entries.append(_entry(name, src, row, sum(by_run.values()),
+                              errs[f"{kind} {mode} g3"], t, shape, **extra))
+    return entries
+
+
+def mistral_entries(mistral: dict) -> list:
+    """Mistral-7B's windowed kernels (_mistral_kernels), each with its
+    launches on the Mistral-7B runs, its errors and times at Mistral's
+    shapes."""
+    runs, times, errs = mistral["runs"], mistral["time"], mistral["err"]
+    design = "window 4096 (decode: trailing 4097), group 4"
+    entries = []
+    for name, kernel, key, keys, src, row, shape in (
+            ("flash_fwd_window_4096", "flash_fwd", "flash", ("whole bf16",),
+             "aule_tpu_torch/csrc/flash_fwd.cu",
+             "aule_tpu/ops/flash.py:479 (_win_kernel)",
+             f"Mistral-7B whole-prompt prefill B1 Hq32/Hkv8 "
+             f"S{max(MISTRAL_PROMPT_LENS)} D128 bf16 causal window 4096 "
+             f"(library: SDPA with the window's boolean mask)"),
+            ("paged_decode_window_4097", "paged_decode", "decode",
+             ("whole bf16", "a"), "aule_tpu_torch/csrc/paged_decode.cu",
+             "aule_tpu/ops/paged_fused.py:213 (_fused_decode_kernel, "
+             "window_size)",
+             f"Mistral-7B decode B4 ctx{max(MISTRAL_PROMPT_LENS)} page16 "
+             f"Hq32/Hkv8 D128 bf16 over {MISTRAL_KW['max_pages_per_seq']}-"
+             f"page tables, trailing window 4097 (held at the prompts' "
+             f"lengths too; library: SDPA on the window's gathered K/V)"),
+            ("paged_prefill_window_4096", "paged_prefill", "prefill", ("a",),
+             "aule_tpu_torch/csrc/paged_prefill.cu",
+             "aule_tpu/ops/paged_fused.py:770 (_fused_prefill_kernel, "
+             "window_size)",
+             f"Mistral-7B prefill B1 Hq32/Hkv8 D128 page16 bf16 pool, chunk "
+             f"{CHUNK} at q_offset {max(MISTRAL_PROMPT_LENS) - CHUNK} over "
+             f"{max(MISTRAL_PROMPT_LENS)}, window 4096 (library: SDPA with "
+             f"the positional window mask)")):
+        by_run = {k: runs[k][kernel] for k in keys}
+        for k, count in by_run.items():
+            if count == 0:
+                raise AssertionError(f"{kernel} was not launched in "
+                                     f"Mistral-7B run {k}")
+        t = times[key]
+        entries.append(_entry(
+            name, src, row, sum(by_run.values()), errs[key], t, shape,
+            design=design, launches_by_run=by_run, device_ms=t["device_ms"],
+            library_device_ms=t["library_device_ms"]))
+    return entries
+
+
 def main() -> None:
     from aule_tpu_torch.ops.flash import SHORT_SQ
 
@@ -2834,12 +3519,14 @@ def main() -> None:
     decode_err, decode_t = check_decode(gen)
     split_err, split_t = check_decode_split(gen)
     prefill_err, prefill_t = check_prefill(gen)
-    check_groups(gen, decode_err, prefill_err)
+    group_err = check_groups(gen, decode_err, prefill_err, split_err)
     # before the engine's profiled phases: after many profiled sessions in
     # one process torch.profiler loses kernels, and these times read it
     bwd_err, bwd_t = check_flash_bwd(gen)
     public = phase_public()
     gpt2 = phase_gpt2()
+    llama32 = phase_llama32()
+    mistral = phase_mistral()
     runs, params, cfg = phase_engine()
     phase_breakdown(params, cfg)
     train = phase_train(params, cfg)  # last: it rewrites the weights
@@ -3069,6 +3756,8 @@ def main() -> None:
         entries.append(_entry(name, src, row, launches, public["err"][name],
                               t, shape, **extra))
     entries += gpt2_entries(gpt2)
+    entries += gqa_entries(llama32, group_err)
+    entries += mistral_entries(mistral)
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
@@ -3080,5 +3769,9 @@ if __name__ == "__main__":
         child_main(check_public)
     elif sys.argv[1:] == ["--gpt2"]:
         child_main(check_gpt2)
+    elif sys.argv[1:] == ["--llama32"]:
+        child_main(check_llama32)
+    elif sys.argv[1:] == ["--mistral"]:
+        child_main(check_mistral)
     else:
         main()

@@ -10,6 +10,11 @@
 #     B1 ctx4096, Hq32/Hkv8 D128 page 16: fused bf16, int8 dot products,
 #     int8 exact, fp8 (bf16 scales); split bf16, int8, fp8 (f32 scales);
 #     beside SDPA on the gathered K/V (bf16);
+#   * the generic decode (csrc/paged_generic.cu) at GPT-2 small's engine
+#     shape, B8 ctx1024 Hq12/Hkv12 D64 page 16: fused f32, bf16, int8 dot
+#     products, int8 exact and fp8 (f32 q, bf16 scales), split f32; and
+#     its prefill of a 256-token chunk at q_offset 768 over 1024, f32 and
+#     bf16;
 #   * the other kernels, which the decode's changes must leave as they
 #     were: the flash forward at S2048 causal and B4 S4096, the whole
 #     backward at S2048 causal, and the paged prefill (bf16, int8, fp8) at
@@ -83,6 +88,28 @@ for shape, batch, ctx in (("B8 ctx4096", 8, 4096), ("B8 ctx1024", 8, 1024),
         q[:, :, None], kd, vd))
     print(f"{tag} decode {shape} device us", out, flush=True)
     del q, pool, kd, vd
+
+generic = {}
+hq, hkv, d = c.GPT2_HEADS
+ln = torch.full((8,), 1024, dtype=torch.int32, device="cuda")
+for name, dt, qdt, dot in c.GEN_DECODE_MODES:
+    pool, bt = c._generic_pool(g, [1024] * 8, 64, 16, hkv, d, dt, False)
+    q = c._randn((8, hq, d), g, dt)
+    pl, sc = c._gen_quantized(pool, qdt)
+    generic[f"decode {name}"] = dev(lambda: paged_attention_fused(
+        q, pl, bt, ln, kv_scales=sc, int8_matmul=dot), "fusedlayout")
+    if name == "f32":
+        (k, v, _, _), _ = c._split_pools(pool, None, d)
+        generic["split decode f32"] = dev(lambda: paged_attention(
+            q, k, v, bt, ln), "splitlayout")
+qoff = torch.tensor([768], dtype=torch.int32, device="cuda")
+for name, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+    pool, bt = c._generic_pool(g, [1024], 64, 16, hkv, d, dt, False)
+    q = c._randn((1, hq, 256, d), g, dt)
+    generic[f"prefill {name}"] = dev(lambda: paged_attention_prefill(
+        q, pool, bt, ln[:1], q_offsets=qoff), "paged_generic_prefill")
+print(f"{tag} generic kernels (GPT-2 shapes) device us", generic,
+      flush=True)
 
 other = {}
 for label, (b, hq, hkv), s in (("flash fwd S2048", c.LAYER, 2048),

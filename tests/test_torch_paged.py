@@ -78,7 +78,8 @@ def _both(q, k, v, bt, ln, jdt=jnp.float32, tdt=torch.float32, **kw):
     return jo, to
 
 
-@pytest.mark.parametrize("hq,hkv", [(4, 4), (8, 2), (16, 4), (12, 1)])
+@pytest.mark.parametrize("hq,hkv", [(4, 4), (8, 2), (16, 4), (12, 1),
+                                    (6, 2), (12, 2), (24, 2), (24, 1)])
 def test_attention_f32_groups(hq, hkv):
     q, k, v, bt, ln = _case((37, 128, 5, 250), hq, hkv, 64, seed=hq + hkv)
     (jo, jl), (to, tl) = _both(q, k, v, bt, ln)

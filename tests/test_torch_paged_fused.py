@@ -7,8 +7,9 @@ Pallas kernel in interpret mode at f32 2e-5 and bf16 2e-2, and on quantized
 pools at 2e-5 for the exact int8 and fp8 paths (f32 q) and 4e-2 for the
 int8 dot-product path (the JAX suite's own bound, tests/test_paged_fused.py:
 99; the two quantize p over different token spans).  The CUDA decode's
-split-KV partition (ops/decode_split.py) is pinned, and its plain
-split-and-merge is held to JAX at the same tolerances.
+split-KV partition (ops/decode_split.py), with the row tiles of large GQA
+groups, is pinned, and its plain split-and-merge is held to JAX at the
+same tolerances, at every group class (3, 6, 12 and MQA 24 included).
 """
 
 import jax.numpy as jnp
@@ -45,9 +46,9 @@ def _bytes(x):
     return x.tobytes()
 
 
-def _pool(rng, d):
+def _pool(rng, d, hkv=HKV):
     return rng.standard_normal(
-        tpf.fused_pool_shape(NUM_PAGES, HKV, PAGE, d)).astype(np.float32)
+        tpf.fused_pool_shape(NUM_PAGES, hkv, PAGE, d)).astype(np.float32)
 
 
 def test_layout_round_trip():
@@ -111,8 +112,8 @@ def test_append_prefill_bytewise(dtype):
     assert tl.tolist() == np.asarray(jl).tolist()
 
 
-def _decode_case(rng, d, batch, lens, hq=4):
-    pool = _pool(rng, d)
+def _decode_case(rng, d, batch, lens, hq=4, hkv=HKV):
+    pool = _pool(rng, d, hkv)
     pool[0] = 1e3  # scratch page: garbage that must never be attended
     q = rng.standard_normal((batch, hq, d)).astype(np.float32)
     max_pages = 4
@@ -142,6 +143,29 @@ def test_attention_f32(window, lens):
     assert_close(tl, np.asarray(jl), 0, 2e-5, "lse")
     zero = ln == 0
     assert (to[torch.from_numpy(zero)] == 0).all()
+
+
+@pytest.mark.parametrize("hq,hkv", [(6, 2), (12, 2), (24, 2), (24, 1)])
+def test_attention_f32_any_group(hq, hkv):
+    """GQA groups 3, 6 and 12 and MQA 24, which the JAX kernel pads to a
+    multiple of 8 rows (paged_fused.py:541-544) and the CUDA kernel takes
+    in row tiles: the plain version, whole and over 3 splits, against JAX
+    in interpret mode at 2e-5, with a trailing window, zero and one-token
+    contexts and -1 tails."""
+    rng = np.random.default_rng(40 + hq + hkv)
+    lens = (0, 1, 37, 64)
+    q, pool, bt, ln = _decode_case(rng, 128, len(lens), lens, hq=hq,
+                                   hkv=hkv)
+    jo, jl = jpf.paged_attention_fused(
+        _j(q), _j(pool), jnp.asarray(bt), jnp.asarray(ln), window_size=30,
+        return_lse=True)
+    for nsplit in (1, 3):
+        to, tl = tpf.paged_attention_fused_plain(
+            _t(q), _t(pool), torch.from_numpy(bt), torch.from_numpy(ln),
+            window_size=30, return_lse=True, nsplit=nsplit)
+        assert_close(to, np.asarray(jo), 0, 2e-5, f"out {hq}:{hkv} {nsplit}")
+        assert_close(tl, np.asarray(jl), 0, 2e-5, f"lse {hq}:{hkv} {nsplit}")
+    assert (to[0] == 0).all()
 
 
 def test_attention_bf16():
@@ -412,6 +436,45 @@ def test_num_splits_fills_one_wave(batch, hkv, window, want):
     n = ds.num_splits(batch, hkv, 4352, window, 132)
     assert n == want
     assert n == 1 or batch * hkv * n <= ds.BLOCKS_PER_SM * 132
+    # a group's row tiles count as (sequence, kv head) pairs of their own
+    for tiles in (2, 3):
+        assert ds.num_splits(batch, hkv, 4352, window, 132, tiles) \
+            == ds.num_splits(batch * tiles, hkv, 4352, window, 132)
+    assert ds.num_splits(batch, hkv, 4352, window, 132, 1) == want
+
+
+@pytest.mark.parametrize("group,tc,generic", [
+    (1, 1, 1), (3, 1, 1), (4, 1, 1), (8, 1, 1), (12, 2, 2), (16, 2, 2),
+    (24, 3, 3), (32, 4, 4)])
+def test_row_tiles_in_the_launch_plan(group, tc, generic, monkeypatch):
+    """Both decode kernels take up to 8 q rows a block: a larger group is
+    cut into row tiles, each with its own splits and merge counters; the
+    split count counts the tiles among the blocks of one wave.  Groups up
+    to 8 keep one tile, so their split count is the one-tile count."""
+    monkeypatch.setattr(ds, "sm_count", lambda device: 132)
+    monkeypatch.setattr(ds, "_COUNTERS", {})
+    # the rows the wrappers pass to the kernels: a power-of-two group up
+    # to 8 whole, any other group padded, never more than the kernel takes
+    tc_rows, gen_rows = ds.tc_tile_rows(group), ds.generic_tile_rows(group)
+    assert tc_rows == (group if group in (1, 2, 4, 8) else 8)
+    assert gen_rows in (1, 2, 4, 8) and gen_rows >= min(group, 8)
+    assert ds.row_tiles(group, tc_rows) == tc
+    assert ds.row_tiles(group, gen_rows) == generic
+    hkv = 1 if group > 16 else 8
+    dev = torch.device("cpu", 0)
+    # the launch plan's default is the tensor-core rule
+    assert ds.launch_plan(8, hkv * group, hkv, 4352, -1, dev)[0] \
+        == ds.launch_plan(8, hkv * group, hkv, 4352, -1, dev,
+                          tile_rows=tc_rows)[0]
+    for rows, tiles in ((tc_rows, tc), (gen_rows, generic)):
+        nsplit, ws, cnt = ds.launch_plan(8, hkv * group, hkv, 4352, -1, dev,
+                                         tile_rows=rows)
+        assert nsplit == ds.num_splits(8, hkv, 4352, -1, 132, tiles)
+        assert nsplit == 1 or 8 * hkv * tiles * nsplit \
+            <= ds.BLOCKS_PER_SM * 132
+        if nsplit > 1:
+            assert ws.numel() == 8 * hkv * group * nsplit * 130
+            assert cnt.numel() >= 8 * hkv * tiles and not cnt.any()
 
 
 @pytest.mark.parametrize("nsplit", [1, 3, 8, 17])
@@ -523,7 +586,7 @@ def test_kernel_family_refuses_other_shapes(dtype, d):
 def test_kernel_inputs_refuse_a_cpu_tensor():
     q = torch.zeros(1, 4, 64)
     with pytest.raises(ValueError, match="device"):
-        tpf.check_kernel_inputs(q, HKV, (), "paged-decode")
+        tpf.check_kernel_inputs(q, (), "paged-decode")
 
 
 @pytest.mark.parametrize("head_dim", [64, 128, 256])

@@ -135,8 +135,14 @@ def test_quantized_pools(qname):
 # The shapes csrc/paged_prefill.cu is held at on the card (chip_smoke.py's
 # check_prefill and check_groups) that the tests above lack, at small
 # sizes: (hq, hkv, page, hist, chunk, s_pad, pool, window).  D = 128, the
-# kernel's.
+# kernel's.  Groups 3, 6 and 12 and MQA 24 (JAX pads them to a multiple of
+# 8 rows, paged_fused.py:998-1007) are the kernel's 1, 2 and 4 heads a
+# block and its 8 heads a block three times.
 KERNEL_SHAPES = {
+    "group 3 f32": (6, 2, 16, [37, 0], [11, 20], 20, None, 15),
+    "group 6 int8": (12, 2, 16, [21, 40], [16, 5], 16, "int8", -1),
+    "group 12 f32": (24, 2, 16, [21, 40], [16, 5], 16, None, 15),
+    "group 24 (MQA) fp8": (24, 1, 16, [45, 9], [12, 3], 12, "fp8", 30),
     "group 1 int8": (2, 2, 16, [37, 0], [11, 20], 20, "int8", -1),
     "group 1 fp8": (2, 2, 16, [37, 0], [11, 20], 20, "fp8", 15),
     "group 8 int8": (8, 1, 16, [21, 40], [16, 5], 16, "int8", 15),
