@@ -229,15 +229,16 @@ int launch_any(const void* q, const void* k, const void* v, void* o,
 
 }  // namespace
 
-// rc, rs: RoPE tables [rope_len, D/2] f32, or null; kv_len: one int32 on
-// the card, or null.
+// D: 128 only (any other is refused).  rc, rs: RoPE tables [rope_len,
+// D/2] f32, or null; kv_len: one int32 on the card, or null.
 extern "C" int aule_flash_fwd_short(const void* q, const void* k,
                                     const void* v, void* o, void* lse,
                                     const void* rc, const void* rs,
                                     const void* kv_len, int B, int Hq,
-                                    int Hkv, int Sq, int Sk, int rope_len,
-                                    float scale, int causal, int window,
-                                    int dtype, void* stream) {
+                                    int Hkv, int Sq, int Sk, int D,
+                                    int rope_len, float scale, int causal,
+                                    int window, int dtype, void* stream) {
+  if (D != kTileD) return cudaErrorInvalidValue;
   if (Sq <= 0 || B <= 0) return cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == aule::kF16)

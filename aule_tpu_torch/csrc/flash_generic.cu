@@ -1,23 +1,20 @@
 // Flash attention, forward and backward, for what the tensor-core kernels
-// do not take (sm_90a): f32 inputs at D = 64, 128 or 256, and bf16 / f16
-// at D = 64 or 256.  Hand-written CUDA C++, products on FFMA.
+// do not take (sm_90a): f32 inputs at D = 64, 128 or 256 (bf16 / f16 run
+// on flash_fwd.cu and flash_bwd.cu at every head dim).  Hand-written CUDA
+// C++, products on FFMA.
 //
-// Replaces, for those types and head dims, the TPU kernels
-// aule_tpu/ops/flash.py::_fwd_kernel (its f32 branch, flash.py:151, and
-// the D = 64 / 256 tiles of `_pick_blocks`' d_scale, flash.py:931) and
-// aule_tpu/ops/flash_vjp.py::_dq_kernel and ::_dkv_kernel (and their
-// window forms _win_dq_kernel and _win_dkv_kernel; d_scale at
-// flash_vjp.py:575, 708).  It computes what they compute: the forward
+// Replaces, in f32, the TPU kernels aule_tpu/ops/flash.py::_fwd_kernel
+// (its f32 branch, flash.py:151) and aule_tpu/ops/flash_vjp.py::_dq_kernel
+// and ::_dkv_kernel (and their window forms _win_dq_kernel and
+// _win_dkv_kernel).  It computes what they compute: the forward
 // with causal and window masks, GQA, Sq != Sk, fused half-split RoPE from
 // [L, D/2] f32 tables (identity past L), a device-side kv_len and the
 // natural-log LSE; the backward's delta, dQ and dK/dV from the saved LSE.
 //
 // What bounds it on the H100: f32 has no tensor-core path that keeps f32
 // (TF32 keeps a 10-bit mantissa, and the f32 rows are held to 1e-5), so
-// the products run at the card's f32 FFMA rate (67 TFLOP/s); 16-bit
-// inputs at D 64 / 256 are widened to f32 on their way into shared memory
-// and take the same path.  The design is the simplest one that stays
-// within that rate's reach:
+// the products run at the card's f32 FFMA rate (67 TFLOP/s).  The design
+// is the simplest one that stays within that rate's reach:
 //   * one block of 256 threads (16 x 16) per (q tile, head, batch) for the
 //     forward and dQ, per (kv tile, q head, batch) for dK/dV; tiles of
 //     64 rows and 64 keys (32 and 32 at D = 256, to stay in 227 KB);
@@ -525,6 +522,15 @@ int dkv(const void* q, const void* k, const void* v, const void* dO,
   return cudaGetLastError();
 }
 
+// f32 at D 64 / 128 / 256; anything else is refused
+#define AULE_GENERIC_F32_DISPATCH(FN, ...)                      \
+  switch (dtype * 1000 + D) {                                   \
+    case kF32 * 1000 + 64: return FN<float, 64>(__VA_ARGS__);   \
+    case kF32 * 1000 + 128: return FN<float, 128>(__VA_ARGS__); \
+    case kF32 * 1000 + 256: return FN<float, 256>(__VA_ARGS__); \
+    default: return cudaErrorInvalidValue;                      \
+  }
+
 }  // namespace
 
 extern "C" int aule_flash_generic_fwd(const void* q, const void* k,
@@ -536,30 +542,21 @@ extern "C" int aule_flash_generic_fwd(const void* q, const void* k,
                                       int window, int dtype, void* stream) {
   if (Sq <= 0 || B <= 0) return cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  AULE_GENERIC_DISPATCH(fwd, q, k, v, o, lse, rc, rs, kv_len, B, Hq, Hkv, Sq,
-                        Sk, rope_len, scale, causal, window, s)
+  AULE_GENERIC_F32_DISPATCH(fwd, q, k, v, o, lse, rc, rs, kv_len, B, Hq,
+                            Hkv, Sq, Sk, rope_len, scale, causal, window, s)
 }
 
 extern "C" int aule_flash_generic_delta(const void* o, const void* dO,
                                         const void* dlse, void* di, int rows,
                                         int D, int dtype, void* stream) {
+  if (dtype != kF32 || (D != 64 && D != 128 && D != 256))
+    return cudaErrorInvalidValue;
   if (rows <= 0) return cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int blocks = (rows + NT / 32 - 1) / (NT / 32);
-  const float* dl = static_cast<const float*>(dlse);
-  float* out = static_cast<float*>(di);
-  if (dtype == kF32)
-    flash_generic_delta_kernel<float><<<blocks, NT, 0, s>>>(
-        static_cast<const float*>(o), static_cast<const float*>(dO), dl, out,
-        rows, D);
-  else if (dtype == aule::kF16)
-    flash_generic_delta_kernel<__half><<<blocks, NT, 0, s>>>(
-        static_cast<const __half*>(o), static_cast<const __half*>(dO), dl,
-        out, rows, D);
-  else
-    flash_generic_delta_kernel<__nv_bfloat16><<<blocks, NT, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(o),
-        static_cast<const __nv_bfloat16*>(dO), dl, out, rows, D);
+  flash_generic_delta_kernel<float><<<blocks, NT, 0, s>>>(
+      static_cast<const float*>(o), static_cast<const float*>(dO),
+      static_cast<const float*>(dlse), static_cast<float*>(di), rows, D);
   return cudaGetLastError();
 }
 
@@ -572,8 +569,8 @@ extern "C" int aule_flash_generic_dq(const void* q, const void* k,
                                      void* stream) {
   if (Sq <= 0 || B <= 0) return cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  AULE_GENERIC_DISPATCH(dq, q, k, v, dO, lse, di, dq_, B, Hq, Hkv, Sq, Sk,
-                        scale, causal, window, s)
+  AULE_GENERIC_F32_DISPATCH(dq, q, k, v, dO, lse, di, dq_, B, Hq, Hkv, Sq,
+                            Sk, scale, causal, window, s)
 }
 
 // ws: f32 workspace of 2 * (Hq / Hkv) * B * Hkv * Sk * D floats when
@@ -587,6 +584,6 @@ extern "C" int aule_flash_generic_dkv(const void* q, const void* k,
                                       int dtype, void* stream) {
   if (Sk <= 0 || B <= 0) return cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  AULE_GENERIC_DISPATCH(dkv, q, k, v, dO, lse, di, dk, dv, ws, B, Hq, Hkv,
-                        Sq, Sk, scale, causal, window, s)
+  AULE_GENERIC_F32_DISPATCH(dkv, q, k, v, dO, lse, di, dk, dv, ws, B, Hq,
+                            Hkv, Sq, Sk, scale, causal, window, s)
 }

@@ -195,7 +195,7 @@ cudaError_t allow_smem(F* kernel, size_t bytes, bool& done) {
 }  // namespace
 
 // f32 at D 64 / 128 / 256; bf16 and f16 at D 64 / 256 (D = 128 in 16 bits
-// is flash_fwd.cu's and flash_bwd.cu's); anything else is refused
+// is the tensor-core paged kernels'); anything else is refused
 #define AULE_GENERIC_DISPATCH(FN, ...)                          \
   switch (dtype * 1000 + D) {                                   \
     case kF32 * 1000 + 64: return FN<float, 64>(__VA_ARGS__);   \

@@ -2,18 +2,19 @@
 // TMA tensor maps (encoded on the host) and their loads and stores, the
 // mbarrier that a TMA load or a thread's cp.async completes, wgmma
 // shared-memory descriptors and the m64n128k16 and m64n64k16 products with
-// f32 sums, warpgroup register rebalancing, and thread-block cluster
+// f32 sums (and the products of a head dim's k-steps built on them),
+// warpgroup register rebalancing, and thread-block cluster
 // barriers and shared-memory reads.
 // Built with nvcc into the plain-C library (ops/_build.py);
 // libcuda's cuTensorMapEncodeTiled is reached through the runtime's
 // entry-point query, so nothing links against libcuda.
 //
-// Layout convention of every tile here: a [rows, 128] matrix of 16-bit
-// values sits in shared memory as two 64-column halves, each [rows, 64] of
-// 128-byte rows in the 128-byte swizzle (16-byte chunk c of row r at chunk
-// c ^ (r % 8)) that TMA writes and wgmma reads.  Each tile starts on a
-// 1024-byte boundary, so the swizzle, which the hardware takes from the
-// address bits, is the same for both.
+// Layout convention of every tile here: a [rows, d] matrix of 16-bit
+// values (d = 64, 128 or 256) sits in shared memory as d / 64 chunks of 64
+// columns, each [rows, 64] of 128-byte rows in the 128-byte swizzle
+// (16-byte piece c of row r at piece c ^ (r % 8)) that TMA writes and wgmma
+// reads.  Each chunk starts on a 1024-byte boundary, so the swizzle, which
+// the hardware takes from the address bits, is the same for all.
 #pragma once
 
 #include <cuda.h>
@@ -49,18 +50,20 @@ inline EncodeTiledFn encode_tiled_fn() {
   return fn;
 }
 
-// A rank-3 map over a contiguous [planes, rows, 128] tensor of 16-bit
-// values (planes = batch x heads), read or written in boxes of [1, box_rows,
-// 64]: one 64-column half of box_rows rows, 128-byte swizzled.  A plane is
-// a dimension of its own, so a box never runs into the next head's rows:
+// A rank-3 map over a contiguous [planes, rows, d] tensor of 16-bit values
+// (planes = batch x heads; d = 64, 128 or 256), read or written in boxes of
+// [1, box_rows, 64]: one 64-column chunk of box_rows rows, 128-byte
+// swizzled, so a tile of d columns is d / 64 such chunks.  A plane is a
+// dimension of its own, so a box never runs into the next head's rows:
 // rows past `rows` load as zeros and are clipped from stores.
-inline cudaError_t encode_rows128(CUtensorMap* map, const void* base,
-                                  bool f16, int planes, int rows,
-                                  int box_rows) {
+inline cudaError_t encode_rows(CUtensorMap* map, const void* base, bool f16,
+                               int planes, int rows, int box_rows, int d) {
   EncodeTiledFn fn = encode_tiled_fn();
   if (fn == nullptr) return cudaErrorNotSupported;
-  const cuuint64_t dims[3] = {128, (cuuint64_t)rows, (cuuint64_t)planes};
-  const cuuint64_t strides[2] = {128 * 2, (cuuint64_t)rows * 128 * 2};
+  const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)rows,
+                              (cuuint64_t)planes};
+  const cuuint64_t strides[2] = {(cuuint64_t)d * 2,
+                                 (cuuint64_t)rows * d * 2};
   const cuuint32_t box[3] = {64, (cuuint32_t)box_rows, 1};
   const cuuint32_t elem[3] = {1, 1, 1};
   CUresult r = fn(map,
@@ -314,8 +317,9 @@ AULE_WGMMA_TYPE(__half, "f16")
 template <typename T>
 struct Wgmma64;
 
-// d (+)= A B for A 64 x 16 and B 16 x 64 (N = 64), both from shared
-// memory and K-major, f32 sums; the sum starts from zero when !accumulate.
+// d (+)= A B for A 64 x 16 and B 16 x 64 (N = 64), f32 sums.  `ss_at`:
+// both from shared memory and K-major; the sum starts from zero when
+// !accumulate.  `rs_at`: A from registers, B MN-major, as Wgmma's `rs`.
 // The descriptors are advanced by OA and OB (16-byte units: the k-step's
 // offset) inside the asm, so a loop holds only the base descriptors in
 // registers, not one advanced descriptor per k-step.
@@ -334,6 +338,20 @@ struct Wgmma64;
           : AULE_ACC32                                                      \
           : "l"(a), "l"(b), "r"(accumulate), "n"(OA), "n"(OB));             \
     }                                                                       \
+    /* A from registers, B MN-major, B's descriptor advanced by OB */       \
+    template <int OB>                                                       \
+    __device__ __forceinline__ static void rs_at(float (&d)[32],            \
+                                                 const uint32_t (&a)[4],    \
+                                                 uint64_t b) {              \
+      asm volatile(                                                         \
+          "{\n.reg .pred p;\n.reg .b64 db;\nadd.s64 db, %36, %38;\n"        \
+          "setp.ne.b32 p, %37, 0;\n"                                        \
+          "wgmma.mma_async.sync.aligned.m64n64k16.f32." NAME "." NAME " "   \
+          AULE_WGMMA_D32 ", {%32, %33, %34, %35}, db, p, 1, 1, 1;\n}\n"     \
+          : AULE_ACC32                                                      \
+          : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1),     \
+            "n"(OB));                                                       \
+    }                                                                       \
   };
 
 AULE_WGMMA64_TYPE(__nv_bfloat16, "bf16")
@@ -346,6 +364,61 @@ AULE_WGMMA64_TYPE(__half, "f16")
 #undef AULE_ACC64
 #undef AULE_ACC8
 #undef AULE_WGMMA_D
+
+// ---- the k-steps of a product over a head dim ------------------------------
+
+// Offset (in 16-byte units, for a wgmma descriptor) of k-step kk (values
+// 16kk .. 16kk + 15) of a K-major tile whose 64-column chunks hold `rows`
+// 128-byte rows each: in chunk kk / 4, 32 bytes per step into it.
+__host__ __device__ constexpr int kstep(int kk, int rows) {
+  return ((kk / 4) * rows * 128 + (kk % 4) * 32) >> 4;
+}
+
+// Offset (16-byte units) of k-step kk (rows 16kk .. 16kk + 15) of an
+// MN-major operand.
+__host__ __device__ constexpr int mnstep(int kk) { return (16 * 128 * kk) >> 4; }
+
+// d = A B (ONTO: d += A B) over all D / 16 k-steps from KK on, N = 64
+// (m64n64k16): A a K-major tile of RA rows a chunk, B one of RB rows a
+// chunk, the 64 from its descriptor's row on.  The k-steps unroll at
+// compile time, so each descriptor offset is an asm immediate and only the
+// two base descriptors take registers.
+template <typename T, int D, int RA, int RB, bool ONTO = false, int KK = 0>
+__device__ __forceinline__ void ss_product(float (&d)[32], uint64_t a,
+                                           uint64_t b) {
+  static_assert(RA % 64 == 0 && RB % 64 == 0, "whole 64-row groups");
+  if constexpr (KK < D / 16) {
+    Wgmma64<T>::template ss_at<kstep(KK, RA), kstep(KK, RB)>(
+        d, a, b, ONTO || KK > 0);
+    ss_product<T, D, RA, RB, ONTO, KK + 1>(d, a, b);
+  }
+}
+
+// d += A B over N k-steps from KK on, N = D output columns: A from
+// registers (a[kk] the A fragment of k-step kk), B MN-major with its
+// 64-column chunks CHUNK bytes apart (the descriptor's lbo).  m64n64k16 at
+// D = 64, m64n128k16 at 128; at 256 two m64n128k16 a k-step, columns
+// 0 .. 127 into d[0 .. 63] and 128 .. 255 (B two chunks on) into
+// d[64 .. 127], which keeps the accumulator layout of one 64 x D product.
+template <typename T, int D, int CHUNK, int N, int KK = 0>
+__device__ __forceinline__ void rs_product(float (&d)[D / 2],
+                                           const uint32_t (&a)[N][4],
+                                           uint64_t b) {
+  if constexpr (KK < N) {
+    if constexpr (D == 64) {
+      Wgmma64<T>::template rs_at<mnstep(KK)>(d, a[KK], b);
+    } else if constexpr (D == 128) {
+      Wgmma<T>::template rs_at<mnstep(KK)>(d, a[KK], b);
+    } else {
+      static_assert(D == 256, "D = 64, 128 or 256");
+      Wgmma<T>::template rs_at<mnstep(KK)>(
+          *reinterpret_cast<float(*)[64]>(d), a[KK], b);
+      Wgmma<T>::template rs_at<mnstep(KK) + 2 * CHUNK / 16>(
+          *reinterpret_cast<float(*)[64]>(d + 64), a[KK], b);
+    }
+    rs_product<T, D, CHUNK, N, KK + 1>(d, a, b);
+  }
+}
 
 // ---- thread-block clusters ------------------------------------------------
 

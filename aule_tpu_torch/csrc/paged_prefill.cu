@@ -640,9 +640,9 @@ int launch(const void* q, const void* kv, const void* sc, int sc_f32,
   const int bq = ROWS / hpb;
   CUtensorMap tq, to;
   cudaError_t err;
-  if ((err = encode_rows128(&tq, q, f16, B * Hq, Sq, bq)) != cudaSuccess ||
-      (err = encode_rows128(&to, o, f16, B * Hq, Sq,
-                            bq < WG_ROWS ? bq : WG_ROWS)) != cudaSuccess)
+  if ((err = encode_rows(&tq, q, f16, B * Hq, Sq, bq, 128)) != cudaSuccess ||
+      (err = encode_rows(&to, o, f16, B * Hq, Sq, bq < WG_ROWS ? bq : WG_ROWS,
+                         128)) != cudaSuccess)
     return err;
   err = cudaFuncSetAttribute(paged_prefill_kernel<T, POOL>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,

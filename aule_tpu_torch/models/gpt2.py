@@ -16,7 +16,8 @@ turns TF32 on (torch.backends.cuda.matmul.allow_tf32 stays as the caller
 set it, off by default).
 
 Attention runs on the port's kernels: `forward` through the flash
-attention (csrc/flash_generic.cu on the card: f32, or bf16 at D 64),
+attention (on the card csrc/flash_generic.cu in f32, the tensor-core
+csrc/flash_fwd.cu and csrc/flash_bwd.cu in bf16 at D 64),
 `decode_step_fused` and `prefill_step_fused` through the paged kernels
 (csrc/paged_generic.cu for those types and head dims), over fused pools
 whose rows are padded from 64 to 128 lanes.  GPT-2 has no decode over

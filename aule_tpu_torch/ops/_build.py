@@ -36,13 +36,13 @@ _FLOAT = ctypes.c_float
 
 # C signatures: every pointer and the stream are c_void_p, every int c_int
 SIGNATURES = {
-    # q, k, v, out, lse, rope cos, rope sin, kv_len, B, Hq, Hkv, Sq, Sk,
+    # q, k, v, out, lse, rope cos, rope sin, kv_len, B, Hq, Hkv, Sq, Sk, D,
     # rope_len, scale, causal, window, dtype, stream
-    "aule_flash_fwd": [_VOID] * 8 + [_INT] * 6 + [_FLOAT] + [_INT] * 3 +
+    "aule_flash_fwd": [_VOID] * 8 + [_INT] * 7 + [_FLOAT] + [_INT] * 3 +
                       [_VOID],
-    "aule_flash_fwd_short": [_VOID] * 8 + [_INT] * 6 + [_FLOAT] +
+    # as aule_flash_fwd (D is 128)
+    "aule_flash_fwd_short": [_VOID] * 8 + [_INT] * 7 + [_FLOAT] +
                             [_INT] * 3 + [_VOID],
-    # as aule_flash_fwd, with D after Sk
     "aule_flash_generic_fwd": [_VOID] * 8 + [_INT] * 7 + [_FLOAT] +
                               [_INT] * 3 + [_VOID],
     # o, do, dlse, di, rows, D, dtype, stream
@@ -77,16 +77,16 @@ SIGNATURES = {
     # page, max_pages, D, scale, causal, window, dtype, pool, sc_f32, stream
     "aule_paged_generic_prefill": [_VOID] * 8 + [_INT] * 7 + [_FLOAT] +
                                   [_INT] * 5 + [_VOID],
-    # q, k, v, do, lse, di, dq, B, Hq, Hkv, Sq, Sk, scale, causal, window,
-    # dtype, stream
-    "aule_flash_bwd_dq": [_VOID] * 7 + [_INT] * 5 + [_FLOAT] + [_INT] * 3 +
+    # q, k, v, do, o, dlse, lse, di, dq, B, Hq, Hkv, Sq, Sk, D, scale,
+    # causal, window, dtype, stream
+    "aule_flash_bwd_dq": [_VOID] * 9 + [_INT] * 6 + [_FLOAT] + [_INT] * 3 +
                          [_VOID],
-    # q, k, v, do, lse, di, dk, dv, B, Hq, Hkv, Sq, Sk, scale, causal,
+    # q, k, v, do, lse, di, dk, dv, B, Hq, Hkv, Sq, Sk, D, scale, causal,
     # window, dtype, stream
-    "aule_flash_bwd_dkv": [_VOID] * 8 + [_INT] * 5 + [_FLOAT] + [_INT] * 3 +
+    "aule_flash_bwd_dkv": [_VOID] * 8 + [_INT] * 6 + [_FLOAT] + [_INT] * 3 +
                           [_VOID],
-    # o, do, dlse, di, rows, dtype, stream
-    "aule_flash_bwd_delta": [_VOID] * 4 + [_INT] * 2 + [_VOID],
+    # o, do, dlse, di, rows, D, dtype, stream
+    "aule_flash_bwd_delta": [_VOID] * 4 + [_INT] * 3 + [_VOID],
 }
 
 # pool codes (csrc/common.cuh kPool*): what a paged pool holds

@@ -10,12 +10,16 @@ that is read on the card and never on the host, so a CUDA graph can replay
 the call at another length).  It follows its tensors:
   * CPU tensors go to `flash_attention_fwd_plain`, the dense PyTorch version;
   * CUDA tensors launch a hand-written kernel, by one rule on the type, the
-    head dim and the query length:
-      - bf16 / f16 at D = 128: `flash_fwd_short`, csrc/flash_fwd_short.cu's
-        mma.sync kernel, for at most `SHORT_SQ` queries, else
-        `flash_fwd_tma`, csrc/flash_fwd.cu's TMA/wgmma kernel (both
-        replace `_fwd_kernel` and `_mono_kernel`; see the source notes);
-      - f32 at D = 64, 128 or 256 and bf16 / f16 at D = 64 or 256:
+    head dim and the query length (`forward_kernel`):
+      - bf16 / f16 at D = 64, 128 or 256 (`TENSOR_CORE_HEAD_DIMS`):
+        `flash_fwd_tma`, csrc/flash_fwd.cu's TMA/wgmma kernel (replaces
+        `_fwd_kernel` at every d_scale and `_mono_kernel`; see the source
+        notes), except at D = 128 for at most `SHORT_SQ` queries:
+        `flash_fwd_short`, csrc/flash_fwd_short.cu's mma.sync kernel (at
+        D 64 and 256 the TMA kernel runs short queries too: on an H100 it
+        took 9.6 us against flash_generic.cu's 126 at 1 and 16 queries of
+        GPT-2's layer, scripts/torch_flash_ab.sh);
+      - f32 at D = 64, 128 or 256 (`GENERIC_HEAD_DIMS`):
         `flash_fwd_generic`, csrc/flash_generic.cu's FFMA kernel;
     other head dims raise.
 `flash_attention_rope` is the forward-only fused-RoPE entry, and
@@ -36,12 +40,13 @@ from . import _build
 from .reference import attention_reference
 from .rope import apply_rope
 
-KERNEL_HEAD_DIM = 128
-# head dims of csrc/flash_generic.cu (f32 at all three; 16-bit at 64, 256)
+# head dims of the tensor-core kernels (csrc/flash_fwd.cu, csrc/flash_bwd.cu;
+# bf16 / f16) and of csrc/flash_generic.cu (f32)
+TENSOR_CORE_HEAD_DIMS = (64, 128, 256)
 GENERIC_HEAD_DIMS = (64, 128, 256)
-# Queries per head at or below which the mma.sync kernel runs: a tile or
-# two of work, whose time is the latency to the first tile, which the
-# TMA/wgmma kernel's warp-specialised set-up lengthens.  Set from
+# Queries per head at or below which the mma.sync kernel runs at D = 128:
+# a tile or two of work, whose time is the latency to the first tile,
+# which the TMA/wgmma kernel's warp-specialised set-up lengthens.  Set from
 # chip_smoke.py's device times of both kernels at short prompts (on an
 # H100 the mma.sync kernel led at 7 and 16 queries and trailed from 32;
 # PERF.md).
@@ -116,28 +121,38 @@ def _check_rope(q, rope_cos, rope_sin):
 
 
 def uses_generic(q) -> bool:
-    """Whether the card runs q's type and head dim on flash_generic.cu
-    (f32, or a head dim other than 128) rather than the tensor-core
-    kernels."""
-    return q.dtype == torch.float32 or q.shape[-1] != KERNEL_HEAD_DIM
+    """Whether the card runs q's forward and backward on
+    csrc/flash_generic.cu rather than the tensor-core kernels: f32, at
+    every head dim (the f32 rows are held to 1e-5, which TF32 does not
+    keep)."""
+    return q.dtype == torch.float32
+
+
+def forward_kernel(q):
+    """The forward wrapper `flash_attention_fwd` launches for a CUDA q (the
+    rule of the module's docstring)."""
+    if uses_generic(q):
+        return flash_fwd_generic
+    if q.shape[2] <= SHORT_SQ and q.shape[-1] == 128:
+        return flash_fwd_short
+    return flash_fwd_tma
 
 
 def check_kernel_type(q, generic: bool) -> None:
     """Raise unless the kernels of one family take q's type and head dim:
-    flash_generic.cu (`generic`) f32 at D 64/128/256 and bf16/f16 at D 64
-    or 256; the tensor-core kernels bf16/f16 at D 128."""
+    flash_generic.cu (`generic`) f32 at D 64/128/256; the tensor-core
+    kernels bf16/f16 at D 64/128/256."""
     d = q.shape[-1]
     if generic:
-        if d in GENERIC_HEAD_DIMS and (q.dtype == torch.float32
-                                       or d != KERNEL_HEAD_DIM):
+        if d in GENERIC_HEAD_DIMS and q.dtype == torch.float32:
             return
         raise ValueError(f"flash_generic.cu takes f32 at D in "
-                         f"{GENERIC_HEAD_DIMS} and bf16/f16 at D 64 or 256 "
-                         f"(got {q.dtype} D={d})")
-    if d != KERNEL_HEAD_DIM or q.dtype == torch.float32:
+                         f"{GENERIC_HEAD_DIMS} (got {q.dtype} D={d}); "
+                         f"bf16/f16 run on the tensor-core kernels")
+    if d not in TENSOR_CORE_HEAD_DIMS or q.dtype == torch.float32:
         raise ValueError(f"the tensor-core flash kernels take bf16/f16 at "
-                         f"D={KERNEL_HEAD_DIM} (got {q.dtype} D={d}); the "
-                         f"others run on flash_generic.cu")
+                         f"D in {TENSOR_CORE_HEAD_DIMS} (got {q.dtype} "
+                         f"D={d}); f32 runs on flash_generic.cu")
 
 
 def flash_attention_fwd(
@@ -164,13 +179,7 @@ def flash_attention_fwd(
               kv_len=kv_len)
     if q.device.type == "cpu":
         return flash_attention_fwd_plain(q, k, v, **kw)
-    if uses_generic(q):
-        kernel = flash_fwd_generic
-    elif q.shape[2] <= SHORT_SQ:
-        kernel = flash_fwd_short
-    else:
-        kernel = flash_fwd_tma
-    return kernel(q, k, v, **kw)
+    return forward_kernel(q)(q, k, v, **kw)
 
 
 def _kv_len_tensor(kv_len, seq_k: int, device):
@@ -227,7 +236,7 @@ def _launch(entry: str, q, k, v, causal, scale, window_size, rope_cos,
     out = torch.empty_like(q)
     lse = (torch.empty((batch, hq, seq_q), dtype=torch.float32,
                        device=q.device) if return_lse else None)
-    dims = (batch, hq, hkv, seq_q, seq_k) + ((d,) if generic else ())
+    dims = (batch, hq, hkv, seq_q, seq_k, d)
     err = getattr(lib, entry)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lse.data_ptr() if lse is not None else None,
@@ -245,8 +254,8 @@ def flash_fwd_tma(q, k, v, *, causal: bool = False,
                   rope_cos=None, rope_sin=None, return_lse: bool = True,
                   kv_len=None):
     """csrc/flash_fwd.cu's TMA/wgmma kernel on CUDA bf16/f16 tensors at
-    D=128 of any length (what `flash_attention_fwd` runs above SHORT_SQ
-    queries)."""
+    D 64, 128 or 256 of any length (what `flash_attention_fwd` runs for
+    them, but for at most SHORT_SQ queries at D 128)."""
     res = _launch("aule_flash_fwd", q, k, v, causal, scale, window_size,
                   rope_cos, rope_sin, return_lse, kv_len, False)
     flash_fwd_tma.launches += 1
@@ -260,6 +269,9 @@ def flash_fwd_short(q, k, v, *, causal: bool = False,
     """csrc/flash_fwd_short.cu's mma.sync kernel on CUDA bf16/f16 tensors
     at D=128 of any length (what `flash_attention_fwd` runs up to
     SHORT_SQ queries, the bucketed decode's one query among them)."""
+    if q.shape[-1] != 128:
+        raise ValueError(f"flash_fwd_short.cu takes D=128 (got "
+                         f"D={q.shape[-1]})")
     res = _launch("aule_flash_fwd_short", q, k, v, causal, scale,
                   window_size, rope_cos, rope_sin, return_lse, kv_len, False)
     flash_fwd_short.launches += 1
@@ -270,8 +282,8 @@ def flash_fwd_generic(q, k, v, *, causal: bool = False,
                       scale: Optional[float] = None, window_size: int = -1,
                       rope_cos=None, rope_sin=None, return_lse: bool = True,
                       kv_len=None):
-    """csrc/flash_generic.cu's FFMA forward on CUDA tensors: f32 at D 64,
-    128 or 256, bf16/f16 at D 64 or 256."""
+    """csrc/flash_generic.cu's FFMA forward on CUDA f32 tensors at D 64,
+    128 or 256."""
     res = _launch("aule_flash_generic_fwd", q, k, v, causal, scale,
                   window_size, rope_cos, rope_sin, return_lse, kv_len, True)
     flash_fwd_generic.launches += 1

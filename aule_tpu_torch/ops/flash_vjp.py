@@ -4,7 +4,8 @@ The forward is the flash forward of `ops/flash.py`; the backward is three
 kernels of csrc/flash_bwd.cu, as in the JAX package (flash_vjp.py:1-20):
   * delta = rowsum(o * do) - dlse, one pass over o and do shared by the
     other two (`attention_delta`; in JAX an XLA fusion, not a Pallas
-    kernel);
+    kernel); at D 64 and 256 the dQ kernel computes its rows' delta from o
+    itself, on the tensor cores that compute dP (`flash_bwd_dq`);
   * dQ, q-parallel, reducing over the live kv tiles (`flash_bwd_dq`);
   * dK/dV, kv-parallel, reducing over the live q tiles; the GQA group's q
     heads are split over the two blocks of a thread-block cluster, which
@@ -13,13 +14,13 @@ kernels of csrc/flash_bwd.cu, as in the JAX package (flash_vjp.py:1-20):
 Both recompute P from the saved LSE; the residuals are (q, k, v, o, lse).
 The wrappers follow their tensors: CPU tensors take the plain PyTorch
 versions, CUDA tensors launch the hand-written kernels (replacing
-`_dq_kernel` and `_dkv_kernel`, and with a window `_win_dq_kernel` and
-`_win_dkv_kernel`) or raise for what they do not take (bf16/f16, D=128).
-f32 and the head dims 64 and 256 take the three kernels of
+`_dq_kernel` and `_dkv_kernel` at every d_scale, and with a window
+`_win_dq_kernel` and `_win_dkv_kernel`) or raise for what they do not take
+(bf16/f16 at D 64, 128 or 256).  f32 takes the three kernels of
 csrc/flash_generic.cu instead (`attention_delta_generic`,
 `flash_bwd_generic_dq`, `flash_bwd_generic_dkv`: FFMA products, a fixed
-order of every sum, no atomics); `flash_attention_bwd` picks by q's type
-and head dim.
+order of every sum, no atomics; f32 only); `flash_attention_bwd` picks by
+q's type (`ops.flash.uses_generic`), the delta with the other two.
 
 RoPE composes outside the op through `ops.rope.apply_rope`, whose
 autograd gives its exact gradient.  With grad off (no input that requires
@@ -34,7 +35,7 @@ from typing import Optional
 import torch
 
 from . import _build
-from .flash import (KERNEL_HEAD_DIM, _check_shapes, _scale_window,
+from .flash import (TENSOR_CORE_HEAD_DIMS, _check_shapes, _scale_window,
                     check_kernel_type, flash_attention_fwd,
                     flash_attention_fwd_plain, uses_generic)
 from .reference import _expand_kv, build_mask
@@ -54,7 +55,7 @@ def attention_delta(o: torch.Tensor, do: torch.Tensor,
                     dlse: Optional[torch.Tensor] = None) -> torch.Tensor:
     """`attention_delta_plain` for CPU tensors; for CUDA tensors the
     delta kernel of csrc/flash_bwd.cu (one pass over the bf16/f16 o and
-    do, f32 sums)."""
+    do at D 64, 128 or 256, f32 sums)."""
     if o.device.type == "cpu":
         return attention_delta_plain(o, do, dlse)
     if o.device.type != "cuda":
@@ -62,10 +63,10 @@ def attention_delta(o: torch.Tensor, do: torch.Tensor,
     if do.shape != o.shape or do.device != o.device:
         raise ValueError(f"do {tuple(do.shape)} on {do.device} is not o's "
                          f"{tuple(o.shape)} on {o.device}")
-    if o.shape[-1] != KERNEL_HEAD_DIM:
+    if o.shape[-1] not in TENSOR_CORE_HEAD_DIMS:
         raise ValueError(
-            f"flash_bwd.cu's delta kernel takes D={KERNEL_HEAD_DIM} (got "
-            f"D={o.shape[-1]}); attention_delta_generic takes the others")
+            f"flash_bwd.cu's delta kernel takes D in {TENSOR_CORE_HEAD_DIMS}"
+            f" (got D={o.shape[-1]})")
     if do.dtype != o.dtype:
         raise TypeError(f"o/do dtypes differ: {o.dtype}, {do.dtype}")
     code = _build.dtype_code(o.dtype)
@@ -80,7 +81,7 @@ def attention_delta(o: torch.Tensor, do: torch.Tensor,
     err = _build.library().aule_flash_bwd_delta(
         o.data_ptr(), do.data_ptr(),
         dlse.data_ptr() if dlse is not None else None, di.data_ptr(),
-        di.numel(), code, _build.stream_handle(o.device))
+        di.numel(), o.shape[-1], code, _build.stream_handle(o.device))
     _build.check(err, "aule_flash_bwd_delta")
     attention_delta.launches += 1
     return di
@@ -159,8 +160,8 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal=False,
 
 def _cuda_inputs(q, k, v, do, lse, di, generic=False):
     """Check what the CUDA kernels take (flash_bwd.cu's: bf16/f16 at
-    D=128; `generic`, flash_generic.cu's: f32 at D 64/128/256, bf16/f16
-    at D 64/256); return the tensors contiguous."""
+    D 64/128/256; `generic`, flash_generic.cu's backward: f32 at D
+    64/128/256); return the tensors contiguous."""
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     if any(t.device != q.device for t in (k, v, do, lse, di)):
@@ -181,25 +182,40 @@ def _cuda_inputs(q, k, v, do, lse, di, generic=False):
 
 
 def flash_bwd_dq(q, k, v, do, lse, di, *, causal=False, scale=None,
-                 window=-1):
+                 window=-1, o=None, dlse=None):
     """dQ [B, Hq, Sq, D] from q, k, v, do, the forward's lse and delta
     `di` (f32 [B, Hq, Sq]).  CPU tensors: the plain version; CUDA tensors:
     the dQ kernel of csrc/flash_bwd.cu (replaces flash_vjp.py::
-    _dq_kernel)."""
+    _dq_kernel).  At D 64 and 256 the kernel computes delta itself from the
+    forward's output `o` (required there) and the lse cotangent `dlse`, on
+    the tensor cores that compute dP, so a row whose exact dS is zero
+    (causal row 0) gets exactly zero (csrc/flash_bwd.cu DqTile); at D 128
+    it reads `di`."""
     _check_shapes(q, k, v)
     scale, window = _scale_window(q, scale, window)
     if q.device.type == "cpu":
         return flash_bwd_dq_plain(q, k, v, do, lse, di, causal=causal,
                                   scale=scale, window=window)
     q, k, v, do, lse, di = _cuda_inputs(q, k, v, do, lse, di)
+    batch, hq, seq_q, d = q.shape
+    if d != 128:
+        if o is None or o.shape != q.shape or o.dtype != q.dtype:
+            raise ValueError(f"the dQ kernel at D={d} takes the forward's "
+                             f"output o, {q.dtype} {tuple(q.shape)}")
+        (o,) = _aligned(o=o.to(q.device))
+        if dlse is not None:
+            dlse = dlse.to(q.device, torch.float32).contiguous()
+    else:
+        o = dlse = None
     code = _build.dtype_code(q.dtype)
     lib = _build.library()
-    batch, hq, seq_q, _ = q.shape
     dq = torch.empty_like(q)
     err = lib.aule_flash_bwd_dq(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        o.data_ptr() if o is not None else None,
+        dlse.data_ptr() if dlse is not None else None,
         lse.data_ptr(), di.data_ptr(), dq.data_ptr(), batch, hq, k.shape[1],
-        seq_q, k.shape[2], scale, int(bool(causal)), window, code,
+        seq_q, k.shape[2], d, scale, int(bool(causal)), window, code,
         _build.stream_handle(q.device))
     _build.check(err, "aule_flash_bwd_dq")
     flash_bwd_dq.launches += 1
@@ -219,13 +235,13 @@ def flash_bwd_dkv(q, k, v, do, lse, di, *, causal=False, scale=None,
     q, k, v, do, lse, di = _cuda_inputs(q, k, v, do, lse, di)
     code = _build.dtype_code(q.dtype)
     lib = _build.library()
-    batch, hq, seq_q, _ = q.shape
+    batch, hq, seq_q, d = q.shape
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     err = lib.aule_flash_bwd_dkv(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), di.data_ptr(), dk.data_ptr(), dv.data_ptr(), batch,
-        hq, k.shape[1], seq_q, k.shape[2], scale, int(bool(causal)), window,
-        code, _build.stream_handle(q.device))
+        hq, k.shape[1], seq_q, k.shape[2], d, scale, int(bool(causal)),
+        window, code, _build.stream_handle(q.device))
     _build.check(err, "aule_flash_bwd_dkv")
     flash_bwd_dkv.launches += 1
     return dk, dv
@@ -235,8 +251,8 @@ def attention_delta_generic(o: torch.Tensor, do: torch.Tensor,
                             dlse: Optional[torch.Tensor] = None
                             ) -> torch.Tensor:
     """`attention_delta_plain` for CPU tensors; for CUDA tensors the delta
-    kernel of csrc/flash_generic.cu (f32, bf16 or f16 at D 64/128/256;
-    one warp a row, f32 sums in a fixed order)."""
+    kernel of csrc/flash_generic.cu (f32 at D 64/128/256; one warp a row,
+    f32 sums in a fixed order)."""
     if o.device.type == "cpu":
         return attention_delta_plain(o, do, dlse)
     if o.device.type != "cuda":
@@ -245,6 +261,8 @@ def attention_delta_generic(o: torch.Tensor, do: torch.Tensor,
         raise ValueError(f"do {tuple(do.shape)} {do.dtype} on {do.device} "
                          f"is not o's {tuple(o.shape)} {o.dtype} on "
                          f"{o.device}")
+    if o.dtype != torch.float32:
+        raise TypeError(f"flash_generic.cu's delta takes f32 (got {o.dtype})")
     code = _build.dtype_code(o.dtype, f32=True)
     o, do = o.contiguous(), do.contiguous()
     rows = o.shape[:-1]
@@ -266,7 +284,7 @@ def attention_delta_generic(o: torch.Tensor, do: torch.Tensor,
 def flash_bwd_generic_dq(q, k, v, do, lse, di, *, causal=False, scale=None,
                          window=-1):
     """dQ as `flash_bwd_dq`, on csrc/flash_generic.cu's dQ kernel for CUDA
-    tensors (f32 at D 64/128/256, bf16/f16 at D 64/256)."""
+    tensors (f32 at D 64/128/256)."""
     _check_shapes(q, k, v)
     scale, window = _scale_window(q, scale, window)
     if q.device.type == "cpu":
@@ -327,19 +345,18 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal=False, scale=None,
                         window=-1, dlse=None):
     """(dq, dk, dv) of flash attention from its residuals and the output
     cotangent `do` (and the lse cotangent `dlse`, None = zero): the delta,
-    dQ and dK/dV kernels, flash_bwd.cu's for bf16/f16 at D=128 and
-    flash_generic.cu's for the rest (for CPU tensors their plain versions,
+    dQ and dK/dV kernels, flash_bwd.cu's for bf16/f16 (D 64, 128, 256)
+    and flash_generic.cu's for f32 (for CPU tensors their plain versions,
     which makes this `flash_attention_bwd_plain`)."""
     do = do.contiguous()  # arrives transposed from the heads merge
-    if uses_generic(q):
-        delta, dq_fn, dkv_fn = (attention_delta_generic, flash_bwd_generic_dq,
-                                flash_bwd_generic_dkv)
-    else:
-        delta, dq_fn, dkv_fn = attention_delta, flash_bwd_dq, flash_bwd_dkv
-    di = delta(o, do, dlse)
     kw = dict(causal=causal, scale=scale, window=window)
-    return (dq_fn(q, k, v, do, lse, di, **kw),
-            *dkv_fn(q, k, v, do, lse, di, **kw))
+    if uses_generic(q):
+        di = attention_delta_generic(o, do, dlse)
+        return (flash_bwd_generic_dq(q, k, v, do, lse, di, **kw),
+                *flash_bwd_generic_dkv(q, k, v, do, lse, di, **kw))
+    di = attention_delta(o, do, dlse)
+    return (flash_bwd_dq(q, k, v, do, lse, di, o=o, dlse=dlse, **kw),
+            *flash_bwd_dkv(q, k, v, do, lse, di, **kw))
 
 
 # ---- autograd

@@ -19,11 +19,13 @@ from typing import Optional
 import torch
 
 from . import _build, decode_split
-# the flash kernels' split of types and head dims, which the paged kernels
-# share: the tensor-core ones at D 128 (16-bit), the generic ones at
-# GENERIC_HEAD_DIMS (f32 at all three; 16-bit at 64, 256)
+# the generic kernels' head dims, the flash ones' (f32 at all three; 16-bit
+# at 64 and 256, which the flash kernels run on the tensor cores)
 from .flash import GENERIC_HEAD_DIMS
-from .flash import KERNEL_HEAD_DIM as TENSOR_CORE_HEAD_DIM
+
+# the head dim of the tensor-core paged kernels (csrc/paged_decode.cu,
+# csrc/paged_prefill.cu: 16-bit at D 128 only)
+TENSOR_CORE_HEAD_DIM = 128
 
 KERNEL_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 # the decode kernel's pool layouts

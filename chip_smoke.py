@@ -55,8 +55,9 @@ Phases, each printing a line of its own:
      (flash_attention_rope) and through flash_attention forward and
      backward; the bucketed decode (1 query over K/V padded to 4096)
      captured in a CUDA graph and replayed with kv_len written in place;
-     kv_len on the TMA kernel; GPT-2 small (D64), f32 and D256 forward and
-     backward on csrc/flash_generic.cu; the SDPA patch (install, an
+     kv_len on the TMA kernel; GPT-2 small's layer (D64) and D256 in bf16
+     and f16 forward and backward on the tensor-core kernels, f32 on
+     csrc/flash_generic.cu; the SDPA patch (install, an
      attn_mask call reaching torch's own function, uninstall); each mode
      timed beside its bound and one PyTorch call;
   6. gpt2, in a process of its own (`python3 chip_smoke.py --gpt2` runs it
@@ -1368,11 +1369,13 @@ def run_engine(params, cfg, prompts, label, model=None, engine_kw=ENGINE_KW,
     prompts of at most SHORT_SQ tokens; chunked prefill launches the
     paged-prefill kernel once per layer per chunk and no flash kernel;
     decode launches the decode kernel of the engine's layout, fused or
-    split, once per layer per step and the other never; a model in f32 or
-    with a head dim other than 128 launches the generic kernels of those
-    roles, flash_generic.cu's and paged_generic.cu's, and the tensor-core
-    ones never, and the other way round) and that every page came
-    back."""
+    split, once per layer per step and the other never; whole-prompt
+    prefill launches the flash forward that ops/flash.py's rule picks for
+    the model's type, head dim and the prompt's length (`forward_kernel`:
+    flash_generic.cu's in f32, the tensor-core kernels in bf16 at D 64 and
+    128 above SHORT_SQ tokens); a model in f32 or with a head dim other than
+    128 launches paged_generic.cu's paged kernels, and the tensor-core ones
+    never, and the other way round) and that every page came back."""
     from aule_tpu_torch.serving.engine import ServingEngine
 
     eng = ServingEngine(params, cfg, device=DEV, model=model, **engine_kw,
@@ -1409,7 +1412,7 @@ def run_engine(params, cfg, prompts, label, model=None, engine_kw=ENGINE_KW,
     if len(done) != n_req or any(len(r.output) != NEW_TOKENS for r in done):
         raise AssertionError(f"{label}: not every request finished with "
                              f"{NEW_TOKENS} tokens")
-    from aule_tpu_torch.ops.flash import SHORT_SQ
+    from aule_tpu_torch.ops.flash import forward_kernel
 
     layers = cfg.n_layers
     chunked = kw.get("prefill_chunk") is not None
@@ -1417,19 +1420,21 @@ def run_engine(params, cfg, prompts, label, model=None, engine_kw=ENGINE_KW,
     generic = cfg.dtype == torch.float32 or cfg.head_dim != 128
     decode = st["decode_steps"] * layers
     prefill = st["prefill_dispatches"] * layers
-    # whole-prompt prefill: one dispatch per prompt, its kernel by length
-    short = 0 if generic else sum(n <= SHORT_SQ for n in lens)
-    tc = {"flash_fwd": (0 if chunked else
-                        (st["prefill_dispatches"] - short) * layers),
-          "flash_fwd_short": 0 if chunked else short * layers,
-          "paged_decode": 0 if split else decode,
-          "paged_decode_split": decode if split else 0,
-          "paged_prefill": prefill if chunked else 0}
-    gen = {"flash_fwd_generic": 0 if chunked else prefill,
-           "paged_generic_decode": decode,
-           "paged_generic_prefill": prefill if chunked else 0}
-    want = {name: ((gen.get(name, 0) if generic else tc.get(name, 0)))
-            for name in counters}
+    want = dict.fromkeys(counters, 0)
+    if not chunked:  # whole-prompt prefill: one dispatch per prompt
+        for n in lens:
+            q = torch.empty(1, 1, n, cfg.head_dim, dtype=cfg.dtype,
+                            device="meta")
+            name = next(k for k, fn in counters.items()
+                        if fn is forward_kernel(q))
+            want[name] += layers
+    if generic:
+        want["paged_generic_decode"] = decode
+        want["paged_generic_prefill"] = prefill if chunked else 0
+    else:
+        want["paged_decode"] = 0 if split else decode
+        want["paged_decode_split"] = decode if split else 0
+        want["paged_prefill"] = prefill if chunked else 0
     if chunked and st["prefill_dispatches"] != sum(
             -(-n // kw["prefill_chunk"]) for n in lens):
         raise AssertionError(f"{label}: {st['prefill_dispatches']} prefill "
@@ -2131,23 +2136,48 @@ def _public_kv_len_tma(gen, res):
     res["err"]["flash_fwd_kv_len"] = worst
 
 
-def _public_generic(gen, res, name, shape, s, dt):
-    """flash_attention forward and backward through autograd on
-    csrc/flash_generic.cu (K4) at one layer shape: the output and the
-    gradients held to the plain path's, the three backward kernels to their
-    plain versions row by row; times of the forward and of each backward
-    kernel."""
+def _layer_kernels(dt):
+    """part -> (counter name, wrapper) of the forward and the three
+    backward kernels that flash_attention launches for a layer of type dt
+    (ops/flash.py's rule: flash_generic.cu for f32, the tensor-core kernels
+    for bf16/f16)."""
+    from aule_tpu_torch.ops import flash as tf
+    from aule_tpu_torch.ops import flash_vjp as fv
+
+    if dt == torch.float32:
+        return {"fwd": ("flash_generic_fwd", tf.flash_fwd_generic),
+                "delta": ("flash_generic_delta", fv.attention_delta_generic),
+                "dq": ("flash_generic_dq", fv.flash_bwd_generic_dq),
+                "dkv": ("flash_generic_dkv", fv.flash_bwd_generic_dkv)}
+    return {"fwd": ("flash_fwd", tf.flash_fwd_tma),
+            "delta": ("flash_bwd_delta", fv.attention_delta),
+            "dq": ("flash_bwd_dq", fv.flash_bwd_dq),
+            "dkv": ("flash_bwd_dkv", fv.flash_bwd_dkv)}
+
+
+def _public_layer(gen, res, name, shape, s, d, dt):
+    """flash_attention forward and backward through autograd at one layer
+    shape, on the kernels ops/flash.py's rule picks (`_layer_kernels`): the
+    output and the gradients held to the plain path's, the forward and the
+    three backward kernels to their plain versions row by row; times of the
+    forward and of each backward kernel beside SDPA's and the bound (the
+    16-bit D 64 / 256 layers' FFMA times before the tensor-core kernels took
+    them: scripts/torch_flash_ab.sh in the parent tree).  The mode names:
+    the counter's, then `name`."""
     import aule_tpu_torch as T
     from aule_tpu_torch.ops import flash as tf
     from aule_tpu_torch.ops import flash_vjp as fv
     from aule_tpu_torch.utils import profiling
 
     b, hq, hkv = shape
-    d = {"gpt2": 64, "d256": 256}.get(name, 128)
+    kernels = _layer_kernels(dt)
+    counter = {part: n for part, (n, _) in kernels.items()}
+    k_ = {part: fn for part, (_, fn) in kernels.items()}
     q, k, v, do = (_randn(x, gen, dt) for x in ((b, hq, s, d), (b, hkv, s, d),
                                                (b, hkv, s, d), (b, hq, s, d)))
     tname = str(dt).replace("torch.", "")
     label = f"public {name} B{b} Hq{hq}/Hkv{hkv} S{s} D{d} {tname} causal"
+    mode = {part: f"{n}_{name}" for part, n in counter.items()}
 
     def fwd_bwd(fn):
         xs = [x.detach().requires_grad_(True) for x in (q, k, v)]
@@ -2158,44 +2188,37 @@ def _public_generic(gen, res, name, shape, s, dt):
         got = _twice(label + " fwd+bwd", lambda: fwd_bwd(
             lambda *x: T.flash_attention(*x, causal=True)))
     _expect(label + " fwd+bwd", c.launches,
-            {n: 2 for n in ("flash_generic_fwd", "flash_generic_delta",
-                            "flash_generic_dq", "flash_generic_dkv")})
-    for kernel, count in c.launches.items():
-        res["launches"][f"{kernel}_{name}"] = count
+            {n: 2 for n in counter.values()})
+    for part, n in counter.items():
+        res["launches"][mode[part]] = c.launches[n]
     want = fwd_bwd(lambda *x: fv.flash_attention_vjp_plain(*x, True))
     _frob(label, got[1:], want[1:])
-    o, lse = tf.flash_fwd_generic(q, k, v, causal=True)
+    o, lse = k_["fwd"](q, k, v, causal=True)
     po, plse = tf.flash_attention_fwd_plain(q, k, v, causal=True)
     tol = ROW_TOL[dt]
-    res["err"][f"flash_generic_fwd_{name}"] = hold(label + " forward", o, po,
-                                                   lse, plse, tol)
+    res["err"][mode["fwd"]] = hold(label + " forward", o, po, lse, plse, tol)
     floor = F32_BWD_FLOOR if dt == torch.float32 else BWD_FLOOR
-    di = fv.attention_delta_generic(o, do)
+    di = k_["delta"](o, do)
     worst = {}
     hold_delta(label + " delta", di, o, do, None, worst)
-    res["err"][f"flash_generic_delta_{name}"] = worst["delta"]
-    dq = fv.flash_bwd_generic_dq(q, k, v, do, lse, di, causal=True)
-    res["err"][f"flash_generic_dq_{name}"] = hold(
+    res["err"][mode["delta"]] = worst["delta"]
+    # the tensor-core dQ at D 64/256 computes delta from o itself
+    dq_kw = {} if dt == torch.float32 else dict(o=o)
+    dq = k_["dq"](q, k, v, do, lse, di, causal=True, **dq_kw)
+    res["err"][mode["dq"]] = hold(
         label + " dQ", dq, fv.flash_bwd_dq_plain(q, k, v, do, lse, di, causal=True),
         None, None, tol, floor=floor)
-    dk, dv = fv.flash_bwd_generic_dkv(q, k, v, do, lse, di, causal=True)
+    dk, dv = k_["dkv"](q, k, v, do, lse, di, causal=True)
     pdk, pdv = fv.flash_bwd_dkv_plain(q, k, v, do, lse, di, causal=True)
     ek = hold(label + " dK", dk, pdk, None, None, tol, floor=floor)
     ev = hold(label + " dV", dv, pdv, None, None, tol, floor=floor)
-    res["err"][f"flash_generic_dkv_{name}"] = tuple(max(a, e) for a, e in zip(ek, ev))
+    res["err"][mode["dkv"]] = tuple(max(a, e) for a, e in zip(ek, ev))
     del pdk, pdv
 
     kx, vx = (x.repeat_interleave(hq // hkv, dim=1) for x in (k, v))
     esz = q.element_size()
     fwd_flops = profiling.attention_flops(b, hq, s, s, d, causal=True)
     qkv = esz * (q.numel() + k.numel() + v.numel())
-    res["time"][f"flash_generic_fwd_{name}"] = _mode_time(
-        label + " forward", lambda: tf.flash_fwd_generic(q, k, v, causal=True,
-                                                         return_lse=False),
-        lambda: tf.flash_attention_fwd_plain(q, k, v, causal=True,
-                                             return_lse=False),
-        lambda: SDPA(q, kx, vx, is_causal=True), "flash_generic_fwd_kernel",
-        qkv + esz * q.numel(), fwd_flops, _rate(dt))
     qx = q.detach().requires_grad_(True)
     kx.requires_grad_(True)
     vx.requires_grad_(True)
@@ -2207,25 +2230,33 @@ def _public_generic(gen, res, name, shape, s, dt):
     lib_bwd = (profiling.cuda_time_ms(sdpa_bwd, iters=20)[0],
                device_ms(sdpa_bwd))
     stats = 4 * lse.numel()
-    for part, fn, plain, flops, nbytes in (
-            ("delta", lambda: fv.attention_delta_generic(o, do),
+    kw = dict(causal=True)
+    for part, fn, plain, flops, nbytes, library in (
+            ("fwd", lambda: k_["fwd"](q, k, v, return_lse=False, **kw),
+             lambda: tf.flash_attention_fwd_plain(q, k, v, return_lse=False,
+                                                  **kw),
+             fwd_flops, qkv + esz * q.numel(),
+             lambda: SDPA(q, kx.detach(), vx.detach(), is_causal=True)),
+            ("delta", lambda: k_["delta"](o, do),
              lambda: fv.attention_delta_plain(o, do), 2.0 * o.numel(),
-             2 * esz * o.numel() + stats),
-            ("dq", lambda: fv.flash_bwd_generic_dq(q, k, v, do, lse, di, causal=True),
-             lambda: fv.flash_bwd_dq_plain(q, k, v, do, lse, di, causal=True),
+             2 * esz * o.numel() + stats, _vecdot_times(o, do)),
+            ("dq", lambda: k_["dq"](q, k, v, do, lse, di, **kw, **dq_kw),
+             lambda: fv.flash_bwd_dq_plain(q, k, v, do, lse, di, **kw),
              profiling.attention_bwd_flops(fwd_flops, 3),
-             qkv + 2 * esz * q.numel() + 2 * stats),
-            ("dkv", lambda: fv.flash_bwd_generic_dkv(q, k, v, do, lse, di,
-                                                     causal=True),
-             lambda: fv.flash_bwd_dkv_plain(q, k, v, do, lse, di, causal=True),
+             # reading o in place of di where the kernel takes o
+             qkv + 2 * esz * q.numel() + 2 * stats
+             + (esz * o.numel() - stats if dq_kw else 0), lib_bwd),
+            ("dkv", lambda: k_["dkv"](q, k, v, do, lse, di, **kw),
+             lambda: fv.flash_bwd_dkv_plain(q, k, v, do, lse, di, **kw),
              profiling.attention_bwd_flops(fwd_flops, 4),
-             qkv + esz * (q.numel() + k.numel() + v.numel()) + 2 * stats)):
+             qkv + esz * (q.numel() + k.numel() + v.numel()) + 2 * stats,
+             lib_bwd)):
         # delta: f32 products outside the tensor cores whatever the type
         rate = profiling.H100_F32_FLOPS if part == "delta" else _rate(dt)
-        t = _mode_time(f"{label} {part}", fn, plain,
-                       _vecdot_times(o, do) if part == "delta" else lib_bwd,
-                       f"flash_generic_{part}_kernel", nbytes, flops, rate)
-        res["time"][f"flash_generic_{part}_{name}"] = t
+        key = counter[part] + ("_kernel" if part == "fwd" else "")
+        t = _mode_time(f"{label} {part}", fn, plain, library, key, nbytes,
+                       flops, rate)
+        res["time"][mode[part]] = t
     del ref, qx, kx, vx
 
 
@@ -2255,15 +2286,19 @@ PUBLIC_MODES = {
     "flash_fwd_rope_kv_len": [
         (f"Sq512 over a {BUCKET}-key bucket, kv_len 3000", "flash_fwd",
          LAYER, 512, BUCKET, 128, _BF, False, -1, BUCKET, 3000, "op")],
-    "flash_generic_fwd_rope_kv_len_gpt2": [
-        ("Sq512 over Sk1024 causal, kv_len 900", "flash_generic_fwd", GPT2,
+    "flash_fwd_rope_kv_len_d64": [
+        ("Sq512 over Sk1024 causal, kv_len 900", "flash_fwd", GPT2,
          512, 1024, 64, _BF, True, -1, 1024, 900, "op"),
+        ("f16 Sq300 over Sk700, table 500, kv_len 650", "flash_fwd", GPT2,
+         300, 700, 64, _FP, False, -1, 500, 650, "op"),
         ("the patch's GPT-2 decode: 1 query, kv_len 1000 of a 1024 bucket",
-         "flash_generic_fwd", GPT2, 1, 1024, 64, _BF, False, -1, None, 1000,
+         "flash_fwd", GPT2, 1, 1024, 64, _BF, False, -1, None, 1000,
          "public")],
-    "flash_generic_fwd_rope_kv_len_d256": [
-        ("Sq512 over Sk2048, kv_len 1500", "flash_generic_fwd", D256, 512,
-         2048, 256, _BF, False, -1, 2048, 1500, "op")],
+    "flash_fwd_rope_kv_len_d256": [
+        ("Sq512 over Sk2048, kv_len 1500", "flash_fwd", D256, 512,
+         2048, 256, _BF, False, -1, 2048, 1500, "op"),
+        ("f16 Sq200 over Sk900 causal, table 600, kv_len 800", "flash_fwd",
+         D256, 200, 900, 256, _FP, True, -1, 600, 800, "op")],
     "flash_generic_fwd_rope_kv_len_f32": [
         ("Sq512 over Sk2048 causal, kv_len 1500", "flash_generic_fwd", LAYER,
          512, 2048, 128, _F32, True, -1, 2048, 1500, "op")],
@@ -2410,9 +2445,16 @@ def check_public() -> dict:
     _public_rope(gen, res)
     _public_decode(gen, res)
     _public_kv_len_tma(gen, res)
-    _public_generic(gen, res, "gpt2", GPT2, 1024, torch.bfloat16)
-    _public_generic(gen, res, "f32", LAYER, TRAIN_S, torch.float32)
-    _public_generic(gen, res, "d256", D256, TRAIN_S, torch.bfloat16)
+    _public_layer(gen, res, "gpt2", GPT2, 1024, 64, torch.bfloat16)
+    _public_layer(gen, res, "f32", LAYER, TRAIN_S, 128, torch.float32)
+    _public_layer(gen, res, "d256", D256, TRAIN_S, 256, torch.bfloat16)
+    # f16 at both new head dims, on generators of their own (a new case
+    # drawn from `gen` would move the inputs of every later check)
+    for name, shape, s, d, seed in (("f16_d64", GPT2, 512, 64, 1),
+                                    ("f16_d256", D256, 1024, 256, 2)):
+        g = torch.Generator(device="cuda")
+        g.manual_seed(PUBLIC_SEED + 100 + seed)
+        _public_layer(g, res, name, shape, s, d, torch.float16)
     _public_patch(gen, res)
     _public_modes(res)
     torch.cuda.empty_cache()
@@ -2834,8 +2876,10 @@ def _gpt2_serving(res):
     1,000 prompt tokens, 24 new tokens each, through
     ServingEngine(model=gpt2) in every run of GPT2_RUNS, each checked by
     run_engine (launches: the generic paged decode 12 times a step, the
-    generic prefill 12 times a chunk, flash_generic.cu's forward 12 times
-    a whole prompt, the tensor-core kernels never; pages) and held to a
+    generic prefill 12 times a chunk, the flash forward 12 times a whole
+    prompt, by ops/flash.py's rule: flash_generic.cu's in f32 and for bf16
+    prompts of at most SHORT_SQ tokens, the TMA kernel at D64 for longer
+    bf16 prompts; the tensor-core paged kernels never; pages) and held to a
     teacher-forced plain forward or plain-attention replay.  Then one
     prefill step and one 8-step decode dispatch of the f32 engine under
     torch.profiler."""
@@ -3696,14 +3740,27 @@ def main() -> None:
               "d256": f"B1 Hq8/Hkv1 S{TRAIN_S} D256 bf16 causal (Gemma-2B's "
                       f"attention shape)"}
     generic_rows = {
-        "fwd": fwd_row + ": its f32 branch, l.151, and the D 64/256 tiles of "
-               "_pick_blocks' d_scale, l.931)",
+        "fwd": fwd_row + ": its f32 branch, l.151)",
         "delta": "aule_tpu/ops/flash_vjp.py:746 (delta, an XLA fusion in "
                  "JAX: no Pallas kernel)",
-        "dq": "aule_tpu/ops/flash_vjp.py:127 (_dq_kernel, f32 and the D "
-              "64/256 tiles of d_scale, l.708)",
-        "dkv": "aule_tpu/ops/flash_vjp.py:271 (_dkv_kernel, f32 and the D "
-               "64/256 tiles of d_scale, l.708)"}
+        "dq": "aule_tpu/ops/flash_vjp.py:127 (_dq_kernel, f32)",
+        "dkv": "aule_tpu/ops/flash_vjp.py:271 (_dkv_kernel, f32)"}
+    # the tensor-core kernels at the head dims 64 and 256
+    tc_rows = {
+        "fwd": fwd_row + " at the D 64/256 tiles of _pick_blocks' d_scale, "
+               "l.931); aule_tpu/ops/flash.py:638 (_mono_kernel's causal "
+               "class)",
+        "delta": generic_rows["delta"],
+        "dq": "aule_tpu/ops/flash_vjp.py:127 (_dq_kernel at the D 64/256 "
+              "tiles of d_scale, l.575); aule_tpu/ops/flash_vjp.py:378 "
+              "(_win_dq_kernel)",
+        "dkv": "aule_tpu/ops/flash_vjp.py:271 (_dkv_kernel at the D 64/256 "
+               "tiles of d_scale, l.708); aule_tpu/ops/flash_vjp.py:464 "
+               "(_win_dkv_kernel)"}
+    tc_src = {"fwd": "aule_tpu_torch/csrc/flash_fwd.cu"}
+    shapes.update({
+        "f16_d64": "B1 Hq12/Hkv12 S512 D64 f16 causal",
+        "f16_d256": "B1 Hq8/Hkv1 S1024 D256 f16 causal"})
     public_rows = [
         ("flash_fwd_rope", "aule_tpu_torch/csrc/flash_fwd.cu",
          fwd_row + ", use_rope: the rotation l.227-246); "
@@ -3721,15 +3778,28 @@ def main() -> None:
          f"B1 Hq32/Hkv8 1 query over a {BUCKET}-key bucket, kv_len "
          f"{BUCKET - 1}, D128 bf16 (CUDA-graph replays at kv_len 1, 1000, "
          f"{BUCKET - 1}, {BUCKET}; library: SDPA with a boolean key mask)"),
-    ] + [(f"flash_generic_{part}_{mode}",
-          "aule_tpu_torch/csrc/flash_generic.cu", generic_rows[part],
-          shapes[mode] + (" (library: the backward of SDPA, dq, dk and dv "
-                          "together)" if part in ("dq", "dkv") else
-                          " (library: torch.linalg.vecdot(o, do)"
-                          + ("" if mode == "f32" else ", its rows rounded "
-                             "to bf16") + ")" if part == "delta" else ""))
-         for mode in ("f32", "gpt2", "d256")
-         for part in ("fwd", "delta", "dq", "dkv")]
+    ]
+
+    def library_note(mode, part):
+        if part in ("dq", "dkv"):
+            return " (library: the backward of SDPA, dq, dk and dv together)"
+        if part == "delta":
+            return (" (library: torch.linalg.vecdot(o, do)"
+                    + ("" if mode == "f32" else ", its rows rounded to the "
+                       "input type") + ")")
+        return ""
+
+    public_rows += [(f"flash_generic_{part}_f32",
+                     "aule_tpu_torch/csrc/flash_generic.cu",
+                     generic_rows[part], shapes["f32"]
+                     + library_note("f32", part))
+                    for part in ("fwd", "delta", "dq", "dkv")]
+    public_rows += [(("flash_fwd" if part == "fwd" else f"flash_bwd_{part}")
+                     + f"_{mode}",
+                     tc_src.get(part, "aule_tpu_torch/csrc/flash_bwd.cu"),
+                     tc_rows[part], shapes[mode] + library_note(mode, part))
+                    for mode in ("gpt2", "d256", "f16_d64", "f16_d256")
+                    for part in ("fwd", "delta", "dq", "dkv")]
     mode_src = {"flash_fwd": "aule_tpu_torch/csrc/flash_fwd.cu",
                 "flash_fwd_short": "aule_tpu_torch/csrc/flash_fwd_short.cu",
                 "flash_generic_fwd": "aule_tpu_torch/csrc/flash_generic.cu"}
@@ -3753,6 +3823,15 @@ def main() -> None:
                  if k in t}
         if name in public["cases"]:
             extra["cases"] = public["cases"][name]
+        if name == "flash_fwd_gpt2":
+            # GPT-2 small's bf16 whole-prompt serving prefills its prompts
+            # above SHORT_SQ tokens through this mode (run_engine checks
+            # the count against the rule)
+            served = gpt2["runs"]["bf16"]["flash_fwd"]
+            if served == 0:
+                raise AssertionError("the GPT-2 bf16 whole-prompt run "
+                                     "launched no TMA forward")
+            extra["launches_gpt2_bf16_whole_prompt_serving"] = served
         entries.append(_entry(name, src, row, launches, public["err"][name],
                               t, shape, **extra))
     entries += gpt2_entries(gpt2)

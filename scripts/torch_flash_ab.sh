@@ -4,8 +4,12 @@
 # one timing loop over the same forward shapes in both trees, then
 # check_flash_bwd (its checks and CUDA-event times) and the backward's
 # device time per call at its three timed shapes (delta, dQ, dK/dV, the
-# whole backward and SDPA's backward), then check_prefill (its checks and
-# CUDA-event times) and the paged prefill's device time per call in each
+# whole backward and SDPA's backward), the bf16 forward and backward at
+# the head dims 64 and 256 as flash_attention routes them (flash_generic.cu
+# in trees before the tensor-core kernels took them; also at 1 and 16
+# queries), then check_prefill
+# (its checks and CUDA-event times) and the paged prefill's device time
+# per call in each
 # pool mode (bf16, int8, fp8) beside SDPA's on the gathered K/V, at the
 # engine's chunk (512 queries at q_offset 3488 over 4000 cached tokens).
 # The two trees run in turns, A, B, B, A, one process each, so that both
@@ -106,6 +110,34 @@ for label, (b, hq, hkv), s, window in (
     del q, k, v, o, lse, do, di, qx, kx, vx, ref
     torch.cuda.empty_cache()
 print(f"{tag} flash bwd device ms per call", bwd, flush=True)
+# bf16 at the head dims 64 and 256 (GPT-2 small's layer; B1 Hq8/Hkv1 S2048,
+# Gemma-2B's attention): the forward, the whole backward and its parts as
+# flash_attention routes them in each tree, and the forward of 1 and 16
+# queries over the layer's keys (a decode step; the short-query rule),
+# device ms per call, on a generator of its own
+g2 = torch.Generator("cuda")
+g2.manual_seed(c.SEED + 300)
+parts = {"delta": ["delta"], "dq": ["_dq_"], "dkv": ["_dkv"]}
+dd = {}
+for label, (b, hq, hkv), s, d in (("GPT-2 D64 S1024", (1, 12, 12), 1024, 64),
+                                   ("D256 S2048", (1, 8, 1), 2048, 256)):
+    q, k, v, do = (c._randn(x, g2) for x in ((b, hq, s, d), (b, hkv, s, d),
+                                             (b, hkv, s, d), (b, hq, s, d)))
+    o, lse = flash_attention_fwd(q, k, v, causal=True)
+    whole = lambda: fv.flash_attention_bwd(q, k, v, o, lse, do, causal=True)
+    whole()
+    by = profiling.device_breakdown(lambda: [whole() for _ in range(20)],
+                                    parts)["by_category_ms"]
+    dd[label] = {"fwd": dev(lambda: flash_attention_fwd(
+                     q, k, v, causal=True, return_lse=False)),
+                 "bwd": dev(whole),
+                 **{p: round(by[p] / 20, 5) for p in parts}}
+    for sq in (1, 16):
+        qs = q[:, :, :sq].contiguous()
+        dd[label][f"fwd Sq{sq}"] = dev(lambda: flash_attention_fwd(
+            qs, k, v, return_lse=False))
+    del q, k, v, do, o, lse, qs
+print(f"{tag} 16-bit D64/D256 device ms per call", dd, flush=True)
 _, t = c.check_prefill(g)
 print(f"{tag} paged prefill ms", {k: round(v["ms"], 5) for k, v in t.items()},
       flush=True)

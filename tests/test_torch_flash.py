@@ -167,16 +167,48 @@ def test_cpu_route_does_not_count_launches():
     assert [fn.launches for fn in kernels] == before
 
 
+@pytest.mark.parametrize("d", [64, 128, 256])
 @pytest.mark.parametrize("kernel", ["flash_fwd_tma", "flash_fwd_short"])
-def test_kernel_launchers_take_only_cuda_tensors(kernel):
-    """Each kernel's launcher raises on CPU tensors (no CPU route) and
-    counts nothing."""
+def test_kernel_launchers_take_only_cuda_tensors(kernel, d):
+    """Each kernel's launcher raises on CPU tensors (no CPU route) at every
+    head dim and counts nothing."""
     fn = getattr(tflash, kernel)
     before = fn.launches
-    q = torch.zeros(1, 2, 8, 128, dtype=torch.bfloat16)
+    q = torch.zeros(1, 2, 8, d, dtype=torch.bfloat16)
     with pytest.raises(ValueError):
         fn(q, q, q, causal=True)
     assert fn.launches == before
+
+
+@pytest.mark.parametrize("sq", [tflash.SHORT_SQ, tflash.SHORT_SQ + 1])
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_kernel_routing(dtype, d, sq):
+    """The one rule of ops/flash.py: f32 on flash_generic.cu; bf16/f16 on
+    the tensor-core kernels at D 64/128/256, the mma.sync kernel at D 128
+    up to SHORT_SQ queries; each family's type check takes what the rule
+    sends it and refuses the other's."""
+    q = torch.zeros(1, 2, sq, d, dtype=dtype)
+    generic = dtype == torch.float32
+    assert tflash.uses_generic(q) is generic
+    short = sq <= tflash.SHORT_SQ and d == 128
+    want = ("flash_fwd_generic" if generic
+            else "flash_fwd_short" if short else "flash_fwd_tma")
+    assert tflash.forward_kernel(q) is getattr(tflash, want)
+    tflash.check_kernel_type(q, generic)
+    with pytest.raises(ValueError):
+        tflash.check_kernel_type(q, not generic)
+
+
+@pytest.mark.parametrize("dtype,d", [(torch.float32, 96),
+                                     (torch.bfloat16, 96),
+                                     (torch.float16, 32)])
+def test_kernel_routing_refuses_other_head_dims(dtype, d):
+    q = torch.zeros(1, 2, 32, d, dtype=dtype)
+    for generic in (True, False):
+        with pytest.raises(ValueError):
+            tflash.check_kernel_type(q, generic)
 
 
 @pytest.mark.parametrize("feature", ["rope", "kv_len"])

@@ -563,11 +563,12 @@ def test_split_merge_plain_against_jax(mode, window, nsplit):
     (torch.float32, 64, True), (torch.float32, 128, True),
     (torch.float32, 256, True), (torch.bfloat16, 64, True),
     (torch.bfloat16, 128, False), (torch.bfloat16, 256, True),
-    (torch.float16, 64, True), (torch.float16, 128, False)])
+    (torch.float16, 64, True), (torch.float16, 128, False),
+    (torch.float16, 256, True)])
 def test_kernel_family_routing(dtype, d, generic):
     """The tensor-core paged kernels take bf16/f16 at D 128; the generic
     ones (csrc/paged_generic.cu) f32 at D 64/128/256 and bf16/f16 at D 64
-    or 256."""
+    or 256 (whatever the flash kernels take)."""
     from aule_tpu_torch.ops.paged_generic import uses_generic_kernels
 
     assert uses_generic_kernels(torch.zeros(2, 4, d, dtype=dtype)) is generic
