@@ -1,6 +1,7 @@
 // Paged attention for what the tensor-core paged kernels (paged_decode.cu,
 // paged_prefill.cu) do not take (sm_90a): f32 q and pools at D = 64, 128 or
-// 256, and bf16 / f16 at D = 64 or 256 (GPT-2's heads are 64 wide), in
+// 256, and for the decode bf16 / f16 at D = 64 or 256 (GPT-2's heads are 64
+// wide; paged_prefill.cu runs the 16-bit prefill at every head dim), in
 // every pool mode of the port.  Hand-written CUDA C++, the products on
 // FFMA (the int8 dot products' scores on __dp4a).  The counterpart of
 // flash_generic.cu for the paged kernels.  Two kernels:
@@ -15,8 +16,8 @@
 //       query token per sequence over the first context_lens[b] tokens (the
 //       trailing `window` of them with a window), -1 table entries clamp to
 //       page 0, context 0 gives zeros and LSE -0.7 * f32max;
-//   (b) paged prefill over fused pools: replaces
-//       aule_tpu/ops/paged_fused.py::_fused_prefill_kernel for them.  Query
+//   (b) paged prefill over fused pools, f32 only: replaces
+//       aule_tpu/ops/paged_fused.py::_fused_prefill_kernel for it.  Query
 //       s of sequence b sits at q_offsets[b] + s and sees cache positions
 //       below context_lens[b], at or before its own when causal, and within
 //       q - k <= W with a window (one-sided also when not causal); rows at
@@ -867,11 +868,11 @@ extern "C" int aule_paged_generic_decode(
   AULE_GENERIC_DISPATCH(decode_by_layout, layout, pool, a)
 }
 
-// (b) q, out [B, Hq, Sq, D] in dtype; kv the fused pool [P, 2, Hkv, page,
-// Dpad] with its packed scale tile sc (quantized pools; bf16, or f32 with
-// sc_f32) or null; context_lens the total visible cache length and
-// q_offsets the position of query 0, per sequence; lse [B, Hq, Sq] or
-// null.
+// (b) q, out [B, Hq, Sq, D] f32 (16-bit q runs csrc/paged_prefill.cu); kv
+// the fused pool [P, 2, Hkv, page, Dpad] with its packed scale tile sc
+// (quantized pools; bf16, or f32 with sc_f32) or null; context_lens the
+// total visible cache length and q_offsets the position of query 0, per
+// sequence; lse [B, Hq, Sq] or null.
 extern "C" int aule_paged_generic_prefill(
     const void* q, const void* kv, const void* sc, const void* block_tables,
     const void* context_lens, const void* q_offsets, void* out, void* lse,
@@ -895,5 +896,11 @@ extern "C" int aule_paged_generic_prefill(
                       causal,
                       window};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  AULE_GENERIC_DISPATCH(prefill_by_pool, pool, a, B, s)
+  if (dtype != kF32) return cudaErrorInvalidValue;  // paged_prefill.cu's
+  switch (D) {
+    case 64: return prefill_by_pool<float, 64>(pool, a, B, s);
+    case 128: return prefill_by_pool<float, 128>(pool, a, B, s);
+    case 256: return prefill_by_pool<float, 256>(pool, a, B, s);
+  }
+  return cudaErrorInvalidValue;
 }

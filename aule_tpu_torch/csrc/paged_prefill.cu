@@ -63,6 +63,25 @@
 //     producer's conversion (its ALU work and shared-memory round trip; a
 //     deeper q-type ring did not help, PERF.md) and the consumers' scale
 //     products.
+//
+// Head dims 64 and 256 (the template's D; `Tile<D>` holds each one's
+// shape, as in flash_fwd.cu; D = 128 is the code described above, its
+// constants and branches kept through `if constexpr`).  JAX pads D to the
+// 128 lanes of a pool row (paged_fused.py:961-964); here the producer
+// reads the D live lanes of each row at the pool's padded stride, never
+// the padding.  A tile of D columns is D / 64 swizzled 64-column chunks,
+// so Q K^T runs D / 16 k-steps across them and P V's V operand spans
+// D / 64 swizzle atoms along N.
+//   * D = 64: one consumer warpgroup (64 q rows, 256 threads, no
+//     setmaxnreg) with 128-key stages: GPT-2's chunk (12 heads, group 1) is
+//     twice the blocks of D = 128's shape.  O += P V is m64n64k16;
+//   * D = 256: O is 64 x 256 f32, 128 registers a consumer thread, which
+//     do not fit beside a second consumer warpgroup in the 168 a thread
+//     has at 384 threads; one consumer warpgroup with 64-key stages: S =
+//     Q K^T m64n64k16 over 16 k-steps, O += P V two m64n128k16 a k-step
+//     (hopper.cuh rs_product), three 16-bit stages of 32 KB K + 32 KB V
+//     beside the 32 KB Q tile.  The 1-byte raw rows are D bytes (D = 64:
+//     128, half of it read).
 
 #include <type_traits>
 
@@ -74,46 +93,66 @@ namespace {
 using namespace aule;
 using namespace aule::hopper;
 
-constexpr int D = kTileD;                   // head dim (the only one)
-constexpr int ROWS = 128;                   // q rows per block
-constexpr int WG_ROWS = 64;                 // q rows per consumer warpgroup
-constexpr int BN = 128;                     // keys per K/V tile
-constexpr int ROW_BYTES = 128;              // a swizzled half-row: 64 values
-constexpr int HALF_BYTES = BN * ROW_BYTES;  // one 64-column half of a tile
-constexpr int TILE_BYTES = 2 * HALF_BYTES;  // Q, or a 16-bit K or V tile
-constexpr int RAW_BYTES = BN * D;           // a 1-byte K or V tile
-constexpr int NST = 3;                      // 16-bit pools: K/V ring stages
-constexpr int NRAW = 2;                     // 1-byte pools: raw ring stages
-constexpr int QNCK = 1, QNCV = 2;           // 1-byte pools: q-type K, V stages
-constexpr int NTHREADS = 3 * 128;           // producer WG + 2 consumer WGs
-// setmaxnreg: the producer gives up registers, the consumers take them
-// (56 + 2 * 224 = 3 * 168, the registers a thread has at launch)
-constexpr int PREGS = 56, CREGS = 224;
-static_assert(ROWS == BN, "the Q tile and a K/V tile share TILE_BYTES");
-static_assert(D == 128, "two 64-column halves per row");
+constexpr int WG_ROWS = 64;     // q rows per consumer warpgroup
+constexpr int ROW_BYTES = 128;  // a swizzled chunk row: 64 values
+constexpr int NRAW = 2;         // 1-byte pools: raw ring stages
+constexpr int QNCK = 1, QNCV = 2;  // 1-byte pools: q-type K, V stages
+
+// The shape at head dim D (see the top): consumer warpgroups, keys a K/V
+// stage, 16-bit ring stages, and (D = 128, two consumer warpgroups) the
+// registers setmaxnreg moves: the producer gives up registers, the
+// consumers take them (56 + 2 * 224 = 3 * 168, the registers a thread has
+// at launch).
+template <int D>
+struct Tile;
+template <>
+struct Tile<64> {
+  static constexpr int NWG = 1, BN = 128, NST = 3;
+};
+template <>
+struct Tile<128> {
+  static constexpr int NWG = 2, BN = 128, NST = 3;
+  static constexpr int PREGS = 56, CREGS = 224;
+};
+template <>
+struct Tile<256> {
+  static constexpr int NWG = 1, BN = 64, NST = 3;
+};
 
 // Shared memory, from the 1024-byte aligned Q tile: Q, NCK K stages, NCV V
-// stages (q type), then for 1-byte pools NRAW raw stages (K then V
-// payload), their scales (4 bytes a key, K then V) and the q-type stages'
+// stages (q type; D / 64 chunks of 128-byte swizzled rows each), then for
+// 1-byte pools NRAW raw stages (K then V payload, rows of max(D, 128)
+// bytes), their scales (4 bytes a key, K then V) and the q-type stages'
 // scales as f32; barriers: full Q, full K and V per stage, empty K and V
 // per stage (16-bit pools: one empty barrier a stage for both), full per
 // raw stage.
-template <bool QUANT>
+template <int D, bool QUANT>
 struct Smem {
   uint32_t q;
-  static constexpr int NCK = QUANT ? QNCK : NST;
-  static constexpr int NCV = QUANT ? QNCV : NST;
+  static constexpr int NWG = Tile<D>::NWG, BN = Tile<D>::BN;
+  static constexpr int ROWS = NWG * WG_ROWS;          // q rows per block
+  static constexpr int NTHREADS = (1 + NWG) * 128;    // producer + consumers
+  static constexpr int CHUNKS = D < 64 ? 1 : D / 64;  // 64-column chunks
+  static constexpr int Q_CHUNK = ROWS * ROW_BYTES;
+  static constexpr int KV_CHUNK = BN * ROW_BYTES;
+  static constexpr int Q_BYTES = CHUNKS * Q_CHUNK;
+  static constexpr int KV_BYTES = CHUNKS * KV_CHUNK;
+  static constexpr int RAW_ROW = D < 128 ? 128 : D;   // a raw row's bytes
+  static constexpr int RAW_BYTES = BN * RAW_ROW;      // a 1-byte K or V tile
+  static constexpr int NCK = QUANT ? QNCK : Tile<D>::NST;
+  static constexpr int NCV = QUANT ? QNCV : Tile<D>::NST;
   static constexpr int NBARS =
-      QUANT ? 1 + 2 * (NCK + NCV) + NRAW : 1 + 3 * NST;
-  static constexpr int RAW = (1 + NCK + NCV) * TILE_BYTES;
+      QUANT ? 1 + 2 * (NCK + NCV) + NRAW : 1 + 3 * Tile<D>::NST;
+  static constexpr int RAW = Q_BYTES + (NCK + NCV) * KV_BYTES;
   static constexpr int RSC = RAW + NRAW * 2 * RAW_BYTES;
   static constexpr int SCF = RSC + NRAW * 2 * BN * 4;
   static constexpr int BARS = QUANT ? SCF + (NCK + NCV) * BN * 4 : RAW;
   static constexpr int BYTES = 1024 + BARS + 8 * NBARS;
+  static_assert(BYTES <= 232448, "shared memory a block can use");
 
-  __device__ uint32_t k(int s) const { return q + (1 + s) * TILE_BYTES; }
+  __device__ uint32_t k(int s) const { return q + Q_BYTES + s * KV_BYTES; }
   __device__ uint32_t v(int s) const {
-    return q + (1 + NCK + s) * TILE_BYTES;
+    return q + Q_BYTES + (NCK + s) * KV_BYTES;
   }
   __device__ uint32_t raw(int s) const { return q + RAW + s * 2 * RAW_BYTES; }
   __device__ uint32_t rsc(int s) const { return q + RSC + s * 2 * BN * 4; }
@@ -138,8 +177,11 @@ struct Smem {
     return SCF + (NCK + s) * BN * 4;
   }
 };
-static_assert(Smem<false>::BYTES <= 232448 && Smem<true>::BYTES <= 232448,
-              "shared memory a block can use");
+// D = 128 keeps the layout it had with one shape: Q and a K/V tile 32 KB
+static_assert(Smem<128, false>::Q_BYTES == 32768 &&
+                  Smem<128, false>::KV_BYTES == 32768 &&
+                  Smem<128, true>::RAW_BYTES == 16384,
+              "D = 128's tiles");
 
 // 4-byte global->shared async copy; zero-fills the slot where !pred.
 __device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
@@ -197,6 +239,7 @@ __device__ __forceinline__ uint32_t sreg(int which) {
   return v;
 }
 
+template <int ROWS>
 __device__ __forceinline__ Place place(int Hq, int Hkv, int hpb) {
   const int group = Hq / Hkv, blocks_per_kv = group / hpb;
   const int y = sreg(1);
@@ -209,12 +252,12 @@ __device__ __forceinline__ Place place(int Hq, int Hkv, int hpb) {
 }
 
 // q: TMA map over [B * Hq, Sq, D] in boxes of bq rows; o: the same over the
-// output in boxes of min(bq, 64) rows; kv: [P, 2, Hkv, page, D] bytes; lse:
-// [B, Hq, Sq] or null.  Grid: (q tiles, Hkv * group / hpb, B); hpb q heads
-// per block, bq = 128 / hpb positions each; block row r is head r / bq,
-// position r % bq.
-template <typename T, int POOL>
-__global__ void __launch_bounds__(NTHREADS, 1)
+// output in boxes of min(bq, 64) rows; kv: [P, 2, Hkv, page, Dpad] bytes
+// (Dpad = D padded to 128 lanes); lse: [B, Hq, Sq] or null.  Grid: (q
+// tiles, Hkv * group / hpb, B); hpb q heads per block, bq = ROWS / hpb
+// positions each; block row r is head r / bq, position r % bq.
+template <typename T, int POOL, int D>
+__global__ void __launch_bounds__(Smem<D, POOL != kPoolNative>::NTHREADS, 1)
     paged_prefill_kernel(const __grid_constant__ CUtensorMap tq,
                          const __grid_constant__ CUtensorMap to,
                          const uint8_t* __restrict__ kv,
@@ -227,12 +270,17 @@ __global__ void __launch_bounds__(NTHREADS, 1)
                          int causal, int window) {
   constexpr bool QUANT = POOL != kPoolNative;
   constexpr int ESZ = QUANT ? 1 : 2;
+  using L = Smem<D, QUANT>;
+  constexpr int ROWS = L::ROWS, BN = L::BN, NWG = L::NWG;
+  constexpr int NST = Tile<D>::NST, CHUNKS = L::CHUNKS;
+  constexpr int Q_CHUNK = L::Q_CHUNK, KV_CHUNK = L::KV_CHUNK;
+  constexpr int DP = D < 128 ? 128 : D;  // the pool row's lanes
   extern __shared__ uint8_t smem[];
-  Smem<QUANT> sm;
+  L sm;
   sm.q = (smem_u32(smem) + 1023) & ~1023u;
   uint8_t* const gq = smem + (sm.q - smem_u32(smem));  // generic address
 
-  const Place pl = place(Hq, Hkv, hpb);
+  const Place pl = place<ROWS>(Hq, Hkv, hpb);
   const int bq = pl.bq, q_lo = pl.q_lo, h0 = pl.h0, b = pl.b;
   const int q_hi = min(q_lo + bq, Sq) - 1;
   const int hk = h0 / (Hq / Hkv);
@@ -248,16 +296,15 @@ __global__ void __launch_bounds__(NTHREADS, 1)
   const int j_lo = k_min / BN;
   const int j_hi = (k_max >= k_min) ? k_max / BN : j_lo - 1;
 
-  using L = Smem<QUANT>;
   if (threadIdx.x == 0) {
     mbar_init(sm.full_q(), 1);
     for (int s = 0; s < L::NCK; ++s) {
       mbar_init(sm.full_k(s), 128);  // one arrival per producer thread
-      mbar_init(sm.empty_k(s), 2 * 4);  // one per consumer warp
+      mbar_init(sm.empty_k(s), NWG * 4);  // one per consumer warp
     }
     for (int s = 0; s < L::NCV; ++s) {
       mbar_init(sm.full_v(s), 128);
-      if (QUANT) mbar_init(sm.empty_v(s), 2 * 4);
+      if (QUANT) mbar_init(sm.empty_v(s), NWG * 4);
     }
     for (int s = 0; s < (QUANT ? NRAW : 0); ++s)
       mbar_init(sm.raw_full(s), 128);  // one arrival per producer thread
@@ -267,32 +314,34 @@ __global__ void __launch_bounds__(NTHREADS, 1)
 
   if (threadIdx.x < 128) {
     // ---- producer warpgroup
-    setmaxnreg_dec<PREGS>();
+    if constexpr (NWG == 2) setmaxnreg_dec<Tile<D>::PREGS>();
     const int tid = threadIdx.x, w = tid >> 5, l = tid & 31;
     if (tid == 0) {
       tma_prefetch_map(&tq);
       tma_prefetch_map(&to);
-      mbar_expect_tx(sm.full_q(), TILE_BYTES);
+      mbar_expect_tx(sm.full_q(), L::Q_BYTES);
       for (int h = 0; h < hpb; ++h) {
         const uint32_t dst = sm.q + h * bq * ROW_BYTES;
-        tma_load_3d(dst, &tq, sm.full_q(), 0, q_lo, b * Hq + h0 + h);
-        tma_load_3d(dst + HALF_BYTES, &tq, sm.full_q(), 64, q_lo,
-                    b * Hq + h0 + h);
+#pragma unroll
+        for (int ch = 0; ch < CHUNKS; ++ch)
+          tma_load_3d(dst + ch * Q_CHUNK, &tq, sm.full_q(), 64 * ch, q_lo,
+                      b * Hq + h0 + h);
       }
     }
     const int* bt = block_tables + (size_t)b * max_pages;
-    const size_t slab = (size_t)page_size * D * ESZ;  // a page's head rows
-    // the thread's tile rows: 32w + 8a + (l & 7), a = 0..3; a warp's
-    // 16-byte copies cover 8 rows x 4 chunks, neighbouring lanes on
+    const size_t slab = (size_t)page_size * DP * ESZ;  // a page's head rows
+    // the thread's tile rows: (BN / 4) w + 8a + (l & 7), a < BN / 32; a
+    // warp's 16-byte copies cover 8 rows x 4 chunks, neighbouring lanes on
     // neighbouring rows, so the 8 lanes of a shared-memory phase meet 8
-    // bank groups through the swizzle
+    // bank groups through the swizzle.  A row's D live lanes are read at
+    // the pool's padded stride, never its padding.
     auto row_src = [&](int j, int row, int kvsel, bool& ok) {
       const int pos = j * BN + row;
       ok = pos < len;  // rows past len are zero-filled
       const int p = ok ? pos : 0;
       const int phys = max(bt[p / page_size], 0);
       return kv + ((size_t)phys * 2 + kvsel) * Hkv * slab + hk * slab +
-             (size_t)(p % page_size) * D * ESZ;
+             (size_t)(p % page_size) * DP * ESZ;
     };
     if constexpr (!QUANT) {
       for (int j = j_lo, it = 0; j <= j_hi; ++j, ++it) {
@@ -302,14 +351,14 @@ __global__ void __launch_bounds__(NTHREADS, 1)
         for (int kvsel = 0; kvsel < 2; ++kvsel) {
           const uint32_t dst = kvsel ? sm.v(s) : sm.k(s);
 #pragma unroll
-          for (int a = 0; a < 4; ++a) {
-            const int row = 32 * w + 8 * a + (l & 7);
+          for (int a = 0; a < BN / 32; ++a) {
+            const int row = BN / 4 * w + 8 * a + (l & 7);
             bool ok;
             const uint8_t* src = row_src(j, row, kvsel, ok);
 #pragma unroll
-            for (int c4 = 0; c4 < 4; ++c4) {
-              const int ch = 4 * c4 + (l >> 3);  // 16-byte chunk of 16
-              cp_async16(dst + (ch >> 3) * HALF_BYTES + row * ROW_BYTES +
+            for (int c4 = 0; c4 < D / 32; ++c4) {
+              const int ch = 4 * c4 + (l >> 3);  // 16-byte chunk of D / 8
+              cp_async16(dst + (ch >> 3) * KV_CHUNK + row * ROW_BYTES +
                              (((ch & 7) ^ (row & 7)) << 4),
                          src + ch * 16, ok);
             }
@@ -320,33 +369,36 @@ __global__ void __launch_bounds__(NTHREADS, 1)
       cp_async_wait<0>();  // no copy outlives its thread
     } else {
       const int n = j_hi - j_lo + 1;
-      // raw tile j -> raw stage rs: payload rows at 128 bytes, chunk c8 of
-      // row r at c8 ^ (r % 8); key `tid`'s K and V scales (the aligned 4
-      // bytes that hold lane kv * 64 + hk)
+      // raw tile j -> raw stage rs: payload rows at RAW_ROW bytes, chunk
+      // c8 of row r at c8 ^ (r % 8); key `tid`'s K and V scales (the
+      // aligned 4 bytes that hold lane kv * 64 + hk), tid < BN
+      constexpr int RAW_ROW = L::RAW_ROW, RAW_BYTES = L::RAW_BYTES;
       auto load_raw = [&](int j, int rs) {
 #pragma unroll
         for (int kvsel = 0; kvsel < 2; ++kvsel) {
           const uint32_t dst = sm.raw(rs) + kvsel * RAW_BYTES;
 #pragma unroll
-          for (int a = 0; a < 4; ++a) {
-            const int row = 32 * w + 8 * a + (l & 7);
+          for (int a = 0; a < BN / 32; ++a) {
+            const int row = BN / 4 * w + 8 * a + (l & 7);
             bool ok;
             const uint8_t* src = row_src(j, row, kvsel, ok);
 #pragma unroll
-            for (int c2 = 0; c2 < 2; ++c2) {
-              const int c8 = 4 * c2 + (l >> 3);  // 16-byte chunk of 8
-              cp_async16(dst + row * D + ((c8 ^ (row & 7)) << 4),
+            for (int c2 = 0; c2 < D / 64; ++c2) {
+              const int c8 = 4 * c2 + (l >> 3);  // 16-byte chunk of D / 16
+              cp_async16(dst + row * RAW_ROW + ((c8 ^ (row & 7)) << 4),
                          src + c8 * 16, ok);
             }
           }
-          const int pos = j * BN + tid;
-          const bool ok = pos < len;
-          const int p = ok ? pos : 0;
-          const size_t elem =
-              ((size_t)max(bt[p / page_size], 0) * page_size +
-               p % page_size) * kScaleLanes + kvsel * kScaleKVStride + hk;
-          cp_async4(sm.rsc(rs) + (kvsel * BN + tid) * 4,
-                    sc + (sc_f32 ? elem * 4 : (elem & ~(size_t)1) * 2), ok);
+          if (BN >= 128 || tid < BN) {  // a key a thread
+            const int pos = j * BN + tid;
+            const bool ok = pos < len;
+            const int p = ok ? pos : 0;
+            const size_t elem =
+                ((size_t)max(bt[p / page_size], 0) * page_size +
+                 p % page_size) * kScaleLanes + kvsel * kScaleKVStride + hk;
+            cp_async4(sm.rsc(rs) + (kvsel * BN + tid) * 4,
+                      sc + (sc_f32 ? elem * 4 : (elem & ~(size_t)1) * 2), ok);
+          }
         }
         cp_async_mbar_arrive(sm.raw_full(rs));
       };
@@ -354,16 +406,16 @@ __global__ void __launch_bounds__(NTHREADS, 1)
       auto convert = [&](int rs, int kvsel, uint32_t dst, int scf) {
         const uint32_t raw = sm.raw(rs) + kvsel * RAW_BYTES;
 #pragma unroll
-        for (int a = 0; a < 4; ++a) {
-          const int row = 32 * w + 8 * a + (l & 7);
+        for (int a = 0; a < BN / 32; ++a) {
+          const int row = BN / 4 * w + 8 * a + (l & 7);
 #pragma unroll
-          for (int c2 = 0; c2 < 2; ++c2) {
+          for (int c2 = 0; c2 < D / 64; ++c2) {
             const int c8 = 4 * c2 + (l >> 3);
             const uint4 u =
-                ld_shared_v4(raw + row * D + ((c8 ^ (row & 7)) << 4));
+                ld_shared_v4(raw + row * RAW_ROW + ((c8 ^ (row & 7)) << 4));
             // values 16 c8 .. +15: 16-bit chunks 2 c8, 2 c8 + 1 of the row
             const uint32_t half =
-                dst + (c8 >> 2) * HALF_BYTES + row * ROW_BYTES;
+                dst + (c8 >> 2) * KV_CHUNK + row * ROW_BYTES;
             const int c = (2 * c8) & 7;
             const uint2 x0 = convert4<T, POOL>(u.x);
             const uint2 x1 = convert4<T, POOL>(u.y);
@@ -375,12 +427,15 @@ __global__ void __launch_bounds__(NTHREADS, 1)
                          make_uint4(x2.x, x2.y, x3.x, x3.y));
           }
         }
-        const uint8_t* word =
-            gq + (sm.rsc(rs) - sm.q) + (kvsel * BN + tid) * 4;
-        reinterpret_cast<float*>(gq + scf)[tid] =
-            sc_f32 ? *reinterpret_cast<const float*>(word)
-                   : __bfloat162float(reinterpret_cast<const __nv_bfloat16*>(
-                         word)[hk & 1]);
+        if (BN >= 128 || tid < BN) {
+          const uint8_t* word =
+              gq + (sm.rsc(rs) - sm.q) + (kvsel * BN + tid) * 4;
+          reinterpret_cast<float*>(gq + scf)[tid] =
+              sc_f32 ? *reinterpret_cast<const float*>(word)
+                     : __bfloat162float(
+                           reinterpret_cast<const __nv_bfloat16*>(word)
+                               [hk & 1]);
+        }
         fence_proxy_async();  // the stores, before wgmma reads them
       };
       for (int i = 0; i < NRAW && i < n; ++i) load_raw(j_lo + i, i);
@@ -402,7 +457,7 @@ __global__ void __launch_bounds__(NTHREADS, 1)
     }
   } else {
     // ---- consumer warpgroup c: block rows 64c .. 64c + 63
-    setmaxnreg_inc<CREGS>();
+    if constexpr (NWG == 2) setmaxnreg_inc<Tile<D>::CREGS>();
     const int c = threadIdx.x / 128 - 1;
     const int warp = (threadIdx.x / 32) & 3, lane = threadIdx.x & 31;
     const int t = lane & 3;
@@ -424,9 +479,12 @@ __global__ void __launch_bounds__(NTHREADS, 1)
     const int hi_min = w_hi >= len ? -1 : key_hi(w_lo);
     const float sl2 = scale * kLog2e;
 
-    float o[64], s[64];
+    // S: the thread's BN / 2 sums of a 64 x BN tile; O: its D / 2 of 64 x D
+    float o[D / 2], s[BN / 2];
 #pragma unroll
-    for (int i = 0; i < 64; ++i) o[i] = s[i] = 0.f;
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) s[i] = 0.f;
     float m_a = -INFINITY, m_b = -INFINITY;  // running max of raw scores
     float l_a = 0.f, l_b = 0.f;              // this thread's row-sum parts
 
@@ -437,17 +495,19 @@ __global__ void __launch_bounds__(NTHREADS, 1)
     for (int j = j_lo, it = 0; j <= j_hi; ++j, ++it) {
       const int ks = it % L::NCK, vs = it % L::NCV;
       const uint64_t dk = wgmma_desc(sm.k(ks), 16, 8 * ROW_BYTES);
-      const uint64_t dv = wgmma_desc(sm.v(vs), HALF_BYTES, 8 * ROW_BYTES);
+      const uint64_t dv = wgmma_desc(sm.v(vs), KV_CHUNK, 8 * ROW_BYTES);
 
       // S = Q K^T
       mbar_wait(sm.full_k(ks), (it / L::NCK) & 1);
       if constexpr (!QUANT) fence_proxy_async();  // cp.async -> wgmma
       fence_regs(s);
       wgmma_fence();
+      if constexpr (BN == 128) {
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        const uint32_t koff = ((kk / 4) * HALF_BYTES + (kk % 4) * 32) >> 4;
-        Wgmma<T>::ss(s, dq + koff, dk + koff, kk > 0);
+        for (int kk = 0; kk < D / 16; ++kk)
+          Wgmma<T>::ss(s, dq + kstep(kk, ROWS), dk + kstep(kk, BN), kk > 0);
+      } else {
+        ss_product<T, D, ROWS, BN>(s, dq, dk);
       }
       wgmma_commit();
       wgmma_wait<0>();
@@ -474,7 +534,7 @@ __global__ void __launch_bounds__(NTHREADS, 1)
         const int ca = lo_a - kv0 - 2 * t, da = hi_a - kv0 - 2 * t;
         const int cb = lo_b - kv0 - 2 * t, db = hi_b - kv0 - 2 * t;
 #pragma unroll
-        for (int i = 0; i < 64; ++i) {
+        for (int i = 0; i < BN / 2; ++i) {
           const int col = 8 * (i / 4) + (i & 1);
           const bool ok = (i & 2) ? (col >= cb && col <= db)
                                   : (col >= ca && col <= da);
@@ -485,7 +545,7 @@ __global__ void __launch_bounds__(NTHREADS, 1)
       // online softmax (scores in raw units; exp2 of s*sl2 - m*sl2)
       float mx_a = m_a, mx_b = m_b;
 #pragma unroll
-      for (int i = 0; i < 64; i += 4) {
+      for (int i = 0; i < BN / 2; i += 4) {
         mx_a = fmaxf(mx_a, fmaxf(s[i], s[i + 1]));
         mx_b = fmaxf(mx_b, fmaxf(s[i + 2], s[i + 3]));
       }
@@ -502,7 +562,7 @@ __global__ void __launch_bounds__(NTHREADS, 1)
       const float nb_b = (mx_b == -INFINITY) ? 0.f : -mx_b * sl2;
       float ls_a = 0.f, ls_b = 0.f;
 #pragma unroll
-      for (int i = 0; i < 64; i += 4) {
+      for (int i = 0; i < BN / 2; i += 4) {
         s[i] = exp2_ftz(fmaf(s[i], sl2, nb_a));
         s[i + 1] = exp2_ftz(fmaf(s[i + 1], sl2, nb_a));
         s[i + 2] = exp2_ftz(fmaf(s[i + 2], sl2, nb_b));
@@ -515,7 +575,7 @@ __global__ void __launch_bounds__(NTHREADS, 1)
       m_a = mx_a;
       m_b = mx_b;
 #pragma unroll
-      for (int i = 0; i < 64; i += 4) {
+      for (int i = 0; i < D / 2; i += 4) {
         o[i] *= alpha_a;
         o[i + 1] *= alpha_a;
         o[i + 2] *= alpha_b;
@@ -537,35 +597,58 @@ __global__ void __launch_bounds__(NTHREADS, 1)
           s[4 * jb + 3] *= f.y;
         }
       }
-      // P as A fragments, k-step kk from S's column blocks 2kk and 2kk + 1,
-      // packed into s[4kk .. 4kk + 3] (already read): P takes no registers
-      // of its own, which keeps the consumer within its registers
+      if constexpr (D == 128) {
+        // P as A fragments, k-step kk from S's column blocks 2kk and
+        // 2kk + 1, packed into s[4kk .. 4kk + 3] (already read): P takes
+        // no registers of its own, which keeps the two-warpgroup consumer
+        // within its registers
 #pragma unroll
-      for (int kk = 0; kk < BN / 16; ++kk) {
-        const uint32_t p0 = Elem<T>::pack(s[8 * kk], s[8 * kk + 1]);
-        const uint32_t p1 = Elem<T>::pack(s[8 * kk + 2], s[8 * kk + 3]);
-        const uint32_t p2 = Elem<T>::pack(s[8 * kk + 4], s[8 * kk + 5]);
-        const uint32_t p3 = Elem<T>::pack(s[8 * kk + 6], s[8 * kk + 7]);
-        s[4 * kk] = __uint_as_float(p0);
-        s[4 * kk + 1] = __uint_as_float(p1);
-        s[4 * kk + 2] = __uint_as_float(p2);
-        s[4 * kk + 3] = __uint_as_float(p3);
-      }
+        for (int kk = 0; kk < BN / 16; ++kk) {
+          const uint32_t p0 = Elem<T>::pack(s[8 * kk], s[8 * kk + 1]);
+          const uint32_t p1 = Elem<T>::pack(s[8 * kk + 2], s[8 * kk + 3]);
+          const uint32_t p2 = Elem<T>::pack(s[8 * kk + 4], s[8 * kk + 5]);
+          const uint32_t p3 = Elem<T>::pack(s[8 * kk + 6], s[8 * kk + 7]);
+          s[4 * kk] = __uint_as_float(p0);
+          s[4 * kk + 1] = __uint_as_float(p1);
+          s[4 * kk + 2] = __uint_as_float(p2);
+          s[4 * kk + 3] = __uint_as_float(p3);
+        }
 
-      // O += P V
-      fence_regs(o);
-      wgmma_fence();
+        // O += P V
+        fence_regs(o);
+        wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < BN / 16; ++kk) {
-        const uint32_t a[4] = {
-            __float_as_uint(s[4 * kk]), __float_as_uint(s[4 * kk + 1]),
-            __float_as_uint(s[4 * kk + 2]), __float_as_uint(s[4 * kk + 3])};
-        Wgmma<T>::rs(o, a, dv + ((16 * ROW_BYTES * kk) >> 4));
+        for (int kk = 0; kk < BN / 16; ++kk) {
+          const uint32_t a[4] = {
+              __float_as_uint(s[4 * kk]), __float_as_uint(s[4 * kk + 1]),
+              __float_as_uint(s[4 * kk + 2]), __float_as_uint(s[4 * kk + 3])};
+          Wgmma<T>::rs(o, a, dv + ((16 * ROW_BYTES * kk) >> 4));
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(o);
+        fence_regs(s);
+      } else {
+        // one consumer warpgroup of up to 255 registers: P as A fragments
+        // of its own (k-step kk from S's column blocks 2kk, 2kk + 1), then
+        // O += P V over the D / 64 chunks of V (flash_fwd.cu's products)
+        uint32_t p[BN / 16][4];
+#pragma unroll
+        for (int kk = 0; kk < BN / 16; ++kk) {
+          p[kk][0] = Elem<T>::pack(s[8 * kk], s[8 * kk + 1]);
+          p[kk][1] = Elem<T>::pack(s[8 * kk + 2], s[8 * kk + 3]);
+          p[kk][2] = Elem<T>::pack(s[8 * kk + 4], s[8 * kk + 5]);
+          p[kk][3] = Elem<T>::pack(s[8 * kk + 6], s[8 * kk + 7]);
+        }
+        fence_regs(o);
+        wgmma_fence();
+        rs_product<T, D, KV_CHUNK, BN / 16>(o, p, dv);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(o);
+#pragma unroll
+        for (int kk = 0; kk < BN / 16; ++kk) fence_regs(p[kk]);
       }
-      wgmma_commit();
-      wgmma_wait<0>();
-      fence_regs(o);
-      fence_regs(s);
       __syncwarp();
       if (lane == 0) mbar_arrive(sm.empty_v(vs));  // this warp is done
     }
@@ -578,7 +661,7 @@ __global__ void __launch_bounds__(NTHREADS, 1)
     const float inv_a = l_a > 0.f ? 1.f / l_a : 0.f;
     const float inv_b = l_b > 0.f ? 1.f / l_b : 0.f;
     // the block's place and the thread's rows afresh (see Place)
-    const Place pe = place(Hq, Hkv, hpb);
+    const Place pe = place<ROWS>(Hq, Hkv, hpb);
     const int tx = sreg(4);
     const int ce = tx / 128 - 1, r = 16 * ((tx / 32) & 3) + ((tx & 31) >> 2);
     const uint32_t so = sm.q + ce * WG_ROWS * ROW_BYTES;
@@ -587,7 +670,7 @@ __global__ void __launch_bounds__(NTHREADS, 1)
     named_sync(1 + ce, 128);
 #pragma unroll
     for (int jb = 0; jb < D / 8; ++jb) {
-      const uint32_t at = so + (jb / 8) * HALF_BYTES + r * ROW_BYTES +
+      const uint32_t at = so + (jb / 8) * Q_CHUNK + r * ROW_BYTES +
                           (((jb % 8) ^ (r & 7)) << 4) + 4 * (tx & 3);
       st_shared_u32(at, Elem<T>::pack(o[4 * jb] * inv_a,
                                       o[4 * jb + 1] * inv_a));
@@ -604,8 +687,10 @@ __global__ void __launch_bounds__(NTHREADS, 1)
         const int pos = pe.q_lo + br % pe.bq;
         if (pos >= Sq) continue;
         const int plane = pe.b * Hq + pe.h0 + br / pe.bq;
-        tma_store_3d(&to, so + r0 * ROW_BYTES, 0, pos, plane);
-        tma_store_3d(&to, so + HALF_BYTES + r0 * ROW_BYTES, 64, pos, plane);
+#pragma unroll
+        for (int ch = 0; ch < CHUNKS; ++ch)
+          tma_store_3d(&to, so + ch * Q_CHUNK + r0 * ROW_BYTES, 64 * ch, pos,
+                       plane);
       }
       tma_store_commit();
       tma_store_wait_read();
@@ -626,30 +711,30 @@ __global__ void __launch_bounds__(NTHREADS, 1)
   }
 }
 
-template <typename T, int POOL>
+template <typename T, int POOL, int D>
 int launch(const void* q, const void* kv, const void* sc, int sc_f32,
            const void* bt, const void* lens, const void* qoff, void* o,
            void* lse, int B, int Hq, int Hkv, int Sq, int page_size,
            int max_pages, float scale, int causal, int window,
            cudaStream_t stream) {
+  using L = Smem<D, POOL != kPoolNative>;
   constexpr bool f16 = std::is_same<T, __half>::value;
-  constexpr int smem = Smem<POOL != kPoolNative>::BYTES;
   const int group = Hq / Hkv;
   int hpb = 8;  // q heads per block: the largest of 8, 4, 2, 1 dividing group
   while (group % hpb) hpb >>= 1;
-  const int bq = ROWS / hpb;
+  const int bq = L::ROWS / hpb;
   CUtensorMap tq, to;
   cudaError_t err;
-  if ((err = encode_rows(&tq, q, f16, B * Hq, Sq, bq, 128)) != cudaSuccess ||
+  if ((err = encode_rows(&tq, q, f16, B * Hq, Sq, bq, D)) != cudaSuccess ||
       (err = encode_rows(&to, o, f16, B * Hq, Sq, bq < WG_ROWS ? bq : WG_ROWS,
-                         128)) != cudaSuccess)
+                         D)) != cudaSuccess)
     return err;
-  err = cudaFuncSetAttribute(paged_prefill_kernel<T, POOL>,
+  err = cudaFuncSetAttribute(paged_prefill_kernel<T, POOL, D>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             smem);
+                             L::BYTES);
   if (err != cudaSuccess) return err;
   dim3 grid((Sq + bq - 1) / bq, Hkv * (group / hpb), B);
-  paged_prefill_kernel<T, POOL><<<grid, NTHREADS, smem, stream>>>(
+  paged_prefill_kernel<T, POOL, D><<<grid, L::NTHREADS, L::BYTES, stream>>>(
       tq, to, static_cast<const uint8_t*>(kv),
       static_cast<const uint8_t*>(sc), sc_f32, static_cast<const int*>(bt),
       static_cast<const int*>(lens), static_cast<const int*>(qoff),
@@ -658,7 +743,7 @@ int launch(const void* q, const void* kv, const void* sc, int sc_f32,
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, int D>
 int by_pool(int pool, const void* q, const void* kv, const void* sc,
             int sc_f32, const void* bt, const void* lens, const void* qoff,
             void* o, void* lse, int B, int Hq, int Hkv, int Sq, int page_size,
@@ -666,40 +751,66 @@ int by_pool(int pool, const void* q, const void* kv, const void* sc,
             cudaStream_t s) {
   switch (pool) {
     case kPoolNative:
-      return launch<T, kPoolNative>(q, kv, sc, sc_f32, bt, lens, qoff, o, lse,
-                                    B, Hq, Hkv, Sq, page_size, max_pages,
-                                    scale, causal, window, s);
+      return launch<T, kPoolNative, D>(q, kv, sc, sc_f32, bt, lens, qoff, o,
+                                       lse, B, Hq, Hkv, Sq, page_size,
+                                       max_pages, scale, causal, window, s);
     case kPoolInt8:
-      return launch<T, kPoolInt8>(q, kv, sc, sc_f32, bt, lens, qoff, o, lse,
-                                  B, Hq, Hkv, Sq, page_size, max_pages, scale,
-                                  causal, window, s);
+      return launch<T, kPoolInt8, D>(q, kv, sc, sc_f32, bt, lens, qoff, o,
+                                     lse, B, Hq, Hkv, Sq, page_size,
+                                     max_pages, scale, causal, window, s);
     case kPoolE4M3:
-      return launch<T, kPoolE4M3>(q, kv, sc, sc_f32, bt, lens, qoff, o, lse,
-                                  B, Hq, Hkv, Sq, page_size, max_pages, scale,
-                                  causal, window, s);
+      return launch<T, kPoolE4M3, D>(q, kv, sc, sc_f32, bt, lens, qoff, o,
+                                     lse, B, Hq, Hkv, Sq, page_size,
+                                     max_pages, scale, causal, window, s);
+  }
+  return cudaErrorInvalidValue;
+}
+
+template <typename T>
+int by_dim(int D, int pool, const void* q, const void* kv, const void* sc,
+           int sc_f32, const void* bt, const void* lens, const void* qoff,
+           void* o, void* lse, int B, int Hq, int Hkv, int Sq, int page_size,
+           int max_pages, float scale, int causal, int window,
+           cudaStream_t s) {
+  switch (D) {
+    case 64:
+      return by_pool<T, 64>(pool, q, kv, sc, sc_f32, bt, lens, qoff, o, lse,
+                            B, Hq, Hkv, Sq, page_size, max_pages, scale,
+                            causal, window, s);
+    case 128:
+      return by_pool<T, 128>(pool, q, kv, sc, sc_f32, bt, lens, qoff, o, lse,
+                             B, Hq, Hkv, Sq, page_size, max_pages, scale,
+                             causal, window, s);
+    case 256:
+      return by_pool<T, 256>(pool, q, kv, sc, sc_f32, bt, lens, qoff, o, lse,
+                             B, Hq, Hkv, Sq, page_size, max_pages, scale,
+                             causal, window, s);
   }
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
+// q, o: [B, Hq, Sq, D], D = 64, 128 or 256; kv_pages [P, 2, Hkv, page,
+// Dpad] with its packed scale tile (1-byte pools) or null.
 extern "C" int aule_paged_prefill(const void* q, const void* kv_pages,
                                   const void* kv_scales,
                                   const void* block_tables,
                                   const void* context_lens,
                                   const void* q_offsets, void* o, void* lse,
-                                  int B, int Hq, int Hkv, int Sq,
+                                  int B, int Hq, int Hkv, int Sq, int D,
                                   int page_size, int max_pages, float scale,
                                   int causal, int window, int dtype, int pool,
                                   int sc_f32, void* stream) {
   if (Sq <= 0 || B <= 0) return cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == aule::kF16)
-    return by_pool<__half>(pool, q, kv_pages, kv_scales, sc_f32, block_tables,
-                           context_lens, q_offsets, o, lse, B, Hq, Hkv, Sq,
-                           page_size, max_pages, scale, causal, window, s);
-  return by_pool<__nv_bfloat16>(pool, q, kv_pages, kv_scales, sc_f32,
-                                block_tables, context_lens, q_offsets, o, lse,
-                                B, Hq, Hkv, Sq, page_size, max_pages, scale,
-                                causal, window, s);
+    return by_dim<__half>(D, pool, q, kv_pages, kv_scales, sc_f32,
+                          block_tables, context_lens, q_offsets, o, lse, B,
+                          Hq, Hkv, Sq, page_size, max_pages, scale, causal,
+                          window, s);
+  return by_dim<__nv_bfloat16>(D, pool, q, kv_pages, kv_scales, sc_f32,
+                               block_tables, context_lens, q_offsets, o, lse,
+                               B, Hq, Hkv, Sq, page_size, max_pages, scale,
+                               causal, window, s);
 }

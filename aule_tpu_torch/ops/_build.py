@@ -43,6 +43,10 @@ SIGNATURES = {
     # as aule_flash_fwd (D is 128)
     "aule_flash_fwd_short": [_VOID] * 8 + [_INT] * 7 + [_FLOAT] +
                             [_INT] * 3 + [_VOID],
+    # q, k, v, out, lse, rope cos, rope sin, kv_len, ws, counters, B, Hq,
+    # Hkv, Sk, D, rope_len, scale, causal, window, nsplit, dtype, stream
+    "aule_flash_fwd_decode": [_VOID] * 10 + [_INT] * 6 + [_FLOAT] +
+                             [_INT] * 4 + [_VOID],
     "aule_flash_generic_fwd": [_VOID] * 8 + [_INT] * 7 + [_FLOAT] +
                               [_INT] * 3 + [_VOID],
     # o, do, dlse, di, rows, D, dtype, stream
@@ -64,9 +68,9 @@ SIGNATURES = {
     # tile_rows, dtype, pool, stream
     "aule_paged_decode_split": [_VOID] * 11 + [_INT] * 6 + [_FLOAT] +
                                [_INT] * 5 + [_VOID],
-    # q, kv, scales, tables, lens, q_offsets, out, lse, B, Hq, Hkv, Sq,
+    # q, kv, scales, tables, lens, q_offsets, out, lse, B, Hq, Hkv, Sq, D,
     # page, max_pages, scale, causal, window, dtype, pool, sc_f32, stream
-    "aule_paged_prefill": [_VOID] * 8 + [_INT] * 6 + [_FLOAT] +
+    "aule_paged_prefill": [_VOID] * 8 + [_INT] * 7 + [_FLOAT] +
                           [_INT] * 5 + [_VOID],
     # q, qf, kv, v, scales, v_scales, tables, lens, out, lse, ws,
     # counters, B, Hq, Hkv, num_pages, page, max_pages, D, scale, window,

@@ -1,6 +1,8 @@
 """Split-KV (flash-decoding) partition of the paged decode kernels
 (csrc/paged_decode.cu, and csrc/paged_generic.cu's decode, which shares
-it) and its plain counterpart.
+it) and of the one-query flash decode (csrc/flash_fwd_short.cu
+`flash_fwd_decode_kernel`, over contiguous K/V: t_lo = 0 and the capacity
+the padded Sk), and its plain counterpart.
 
 The kernel spreads the live tokens [t_lo, len) of one (sequence, kv head)
 over `nsplit` blocks.  The wrapper picks `nsplit` here from the shapes and
@@ -18,18 +20,18 @@ merge, in split order, over any per-range partial sums.
 
 A block of a decode kernel takes `tile_rows` q rows of its GQA group
 (`tc_tile_rows` for the tensor-core decode, `generic_tile_rows` for the
-generic one): a larger group is cut into `row_tiles` row tiles, each
-nsplit blocks of its own per (sequence, kv head); `num_splits` counts them
-among the blocks of a wave.  The rule lives here only: the wrappers pass
-the tile's rows to the kernels, which size their grid by it and refuse a
-tile they have no instantiation for, and `launch_plan` sizes the merge
-counters by the same number.
+generic one, FLASH_TILE_ROWS for the flash decode): a larger group is cut
+into `row_tiles` row tiles, each nsplit blocks of its own per (sequence,
+kv head); `num_splits` counts them among the blocks of a wave.  The rule
+lives here only: the wrappers pass the tile's rows to the kernels, which
+size their grid by it and refuse a tile they have no instantiation for,
+and `launch_plan` sizes the merge counters by the same number.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, List, Optional
 
 import torch
 
@@ -53,6 +55,9 @@ TC_TILE_ROWS = 8
 GENERIC_TILE_ROWS = 8
 # the groups the tensor-core decode has an instantiation of its own for
 TC_EXACT_GROUPS = (1, 2, 4, 8)
+# the one-query flash decode's q rows a block, at every group (its mma
+# rows g; rows past the group masked)
+FLASH_TILE_ROWS = 8
 
 
 def tc_tile_rows(group: int) -> int:
@@ -152,6 +157,9 @@ def merge_partials(m: torch.Tensor, l: torch.Tensor, acc: torch.Tensor):
 
 _SM_COUNT: Dict[int, int] = {}
 _COUNTERS: Dict[int, torch.Tensor] = {}
+# counters that a larger set replaced: kept, since a CUDA graph captured
+# with them may still replay
+_RETIRED: List[torch.Tensor] = []
 
 
 def sm_count(device: torch.device) -> int:
@@ -174,7 +182,10 @@ def launch_plan(batch: int, hq: int, hkv: int, capacity: int, window: int,
     counters [B * Hkv * row tiles] int32 are zeroed once per device and
     reused, since the last block of each (sequence, kv head, row tile)
     sets its counter back to 0 (so calls that overlap on two streams must
-    not share a device)."""
+    not share a device).  Inside a CUDA-graph capture without such a set,
+    the counters are a torch.zeros of the capture (its fill replays before
+    each launch) and are not kept: the zeroing of a set made there would
+    never run eagerly, and its memory belongs to the graph."""
     if tile_rows is None:
         tile_rows = tc_tile_rows(hq // hkv)
     tiles = row_tiles(hq // hkv, tile_rows)
@@ -186,11 +197,15 @@ def launch_plan(batch: int, hq: int, hkv: int, capacity: int, window: int,
                      dtype=torch.float32, device=device)
     idx = device.index if device.index is not None \
         else torch.cuda.current_device()
+    need = batch * hkv * tiles
     cnt = _COUNTERS.get(idx)
-    if cnt is None or cnt.numel() < batch * hkv * tiles:
-        cnt = torch.zeros(max(batch * hkv * tiles, 256), dtype=torch.int32,
-                          device=device)
-        _COUNTERS[idx] = cnt
+    if cnt is None or cnt.numel() < need:
+        fresh = torch.zeros(max(need, 256), dtype=torch.int32, device=device)
+        if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+            return nsplit, ws, fresh
+        if cnt is not None:
+            _RETIRED.append(cnt)
+        cnt = _COUNTERS[idx] = fresh
     return nsplit, ws, cnt
 
 

@@ -14,11 +14,15 @@ the call at another length).  It follows its tensors:
       - bf16 / f16 at D = 64, 128 or 256 (`TENSOR_CORE_HEAD_DIMS`):
         `flash_fwd_tma`, csrc/flash_fwd.cu's TMA/wgmma kernel (replaces
         `_fwd_kernel` at every d_scale and `_mono_kernel`; see the source
-        notes), except at D = 128 for at most `SHORT_SQ` queries:
-        `flash_fwd_short`, csrc/flash_fwd_short.cu's mma.sync kernel (at
-        D 64 and 256 the TMA kernel runs short queries too: on an H100 it
-        took 9.6 us against flash_generic.cu's 126 at 1 and 16 queries of
-        GPT-2's layer, scripts/torch_flash_ab.sh);
+        notes), except at D = 128 for
+          one query: `flash_fwd_decode`, csrc/flash_fwd_short.cu's
+          split-KV decode (every GQA group, mask, RoPE and kv_len; the
+          SDPA patch's bucketed decode), and
+          2 to `SHORT_SQ` queries: `flash_fwd_short`, the same file's
+          mma.sync kernel
+        (at D 64 and 256 the TMA kernel runs short queries too: on an H100
+        it took 9.6 us against flash_generic.cu's 126 at 1 and 16 queries
+        of GPT-2's layer, scripts/torch_flash_ab.sh);
       - f32 at D = 64, 128 or 256 (`GENERIC_HEAD_DIMS`):
         `flash_fwd_generic`, csrc/flash_generic.cu's FFMA kernel;
     other head dims raise.
@@ -36,8 +40,8 @@ from typing import Optional
 
 import torch
 
-from . import _build
-from .reference import attention_reference
+from . import _build, decode_split
+from .reference import _expand_kv, attention_reference
 from .rope import apply_rope
 
 # head dims of the tensor-core kernels (csrc/flash_fwd.cu, csrc/flash_bwd.cu;
@@ -84,6 +88,54 @@ def flash_attention_fwd_plain(q, k, v, *, causal: bool = False,
     return attention_reference(q, k, v, causal=causal, scale=scale,
                                window_size=window_size, return_lse=return_lse,
                                kv_len=kv_len)
+
+
+def decode_keys(seq_k: int, causal: bool, window: int) -> int:
+    """The keys a lone query (position 0) may see of Sk: key 0 alone when
+    causal, keys 0 .. window with a window, else all.  The split-KV
+    decode's capacity (ops/decode_split.py `num_splits`): shapes only."""
+    if causal:
+        return min(seq_k, 1)
+    if window > 0:
+        return min(seq_k, window + 1)
+    return seq_k
+
+
+def flash_decode_split_plain(q, k, v, *, nsplit: int, causal: bool = False,
+                             scale: Optional[float] = None,
+                             window_size: int = -1, rope_cos=None,
+                             rope_sin=None, kv_len=None,
+                             return_lse: bool = True):
+    """The plain version of the split-KV decode (`flash_fwd_decode`): one
+    query over the keys [0, n) it sees (n from kv_len and
+    `decode_keys`), cut into nsplit ranges by ops/decode_split.py's
+    `split_bounds` and merged in split order (`split_merge`), in f32 with
+    the plain version's RoPE.  q [B, Hq, 1, D]."""
+    if q.shape[2] != 1:
+        raise ValueError(f"the decode takes one query, got Sq={q.shape[2]}")
+    scale, window = _scale_window(q, scale, window_size)
+    batch, hq = q.shape[:2]
+    seq_k = k.shape[2]
+    if rope_cos is not None:
+        cos, sin = rope_identity_padded(rope_cos, rope_sin,
+                                        max(1, seq_k))
+        q = apply_rope(q, cos.to(q.device), sin.to(q.device))
+        k = apply_rope(k, cos.to(k.device), sin.to(k.device))
+    kx = _expand_kv(k.float(), hq)
+    vx = _expand_kv(v.float(), hq)
+    scores = torch.einsum("bhd,bhkd->bhk", q[:, :, 0].float(), kx) * scale
+    live = torch.as_tensor(seq_k if kv_len is None else kv_len,
+                           device=q.device).reshape(()).clamp(
+        0, decode_keys(seq_k, causal, window))
+    pos = torch.arange(seq_k, device=q.device)
+    valid = (pos < live)[None, None].expand(batch, hq, seq_k)
+    lo, hi = decode_split.split_bounds(live.reshape(1).expand(batch),
+                                       seq_k, -1, nsplit)
+    out, lse = decode_split.split_merge(
+        scores, valid, lo, hi,
+        lambda p, keep: (p.sum(-1), torch.einsum("bhk,bhkd->bhd", p, vx)))
+    out = out.to(q.dtype)[:, :, None]
+    return (out, lse[:, :, None]) if return_lse else out
 
 
 def _scale_window(q, scale, window_size):
@@ -133,7 +185,9 @@ def forward_kernel(q):
     rule of the module's docstring)."""
     if uses_generic(q):
         return flash_fwd_generic
-    if q.shape[2] <= SHORT_SQ and q.shape[-1] == 128:
+    if q.shape[-1] == 128 and q.shape[2] == 1:
+        return flash_fwd_decode
+    if q.shape[-1] == 128 and q.shape[2] <= SHORT_SQ:
         return flash_fwd_short
     return flash_fwd_tma
 
@@ -236,15 +290,28 @@ def _launch(entry: str, q, k, v, causal, scale, window_size, rope_cos,
     out = torch.empty_like(q)
     lse = (torch.empty((batch, hq, seq_q), dtype=torch.float32,
                        device=q.device) if return_lse else None)
-    dims = (batch, hq, hkv, seq_q, seq_k, d)
-    err = getattr(lib, entry)(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        lse.data_ptr() if lse is not None else None,
-        cos.data_ptr() if cos is not None else None,
-        sin.data_ptr() if sin is not None else None,
-        live.data_ptr() if live is not None else None, *dims,
-        cos.shape[0] if cos is not None else 0, scale, int(bool(causal)),
-        window, code, _build.stream_handle(q.device))
+    ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse.data_ptr() if lse is not None else None,
+            cos.data_ptr() if cos is not None else None,
+            sin.data_ptr() if sin is not None else None,
+            live.data_ptr() if live is not None else None]
+    rope_len = cos.shape[0] if cos is not None else 0
+    flags = (scale, int(bool(causal)), window)
+    if entry == "aule_flash_fwd_decode":
+        # the split count from the shapes (the padded Sk is the capacity)
+        # and the merge buffers (ops/decode_split.py)
+        nsplit, ws, cnt = decode_split.launch_plan(
+            batch, hq, hkv, decode_keys(seq_k, causal, window), -1,
+            q.device, head_dim=d, tile_rows=decode_split.FLASH_TILE_ROWS)
+        ptrs += [ws.data_ptr() if ws is not None else None,
+                 cnt.data_ptr() if cnt is not None else None]
+        err = lib.aule_flash_fwd_decode(
+            *ptrs, batch, hq, hkv, seq_k, d, rope_len, *flags, nsplit, code,
+            _build.stream_handle(q.device))
+    else:
+        err = getattr(lib, entry)(
+            *ptrs, batch, hq, hkv, seq_q, seq_k, d, rope_len, *flags, code,
+            _build.stream_handle(q.device))
     _build.check(err, entry)
     return (out, lse) if return_lse else out
 
@@ -267,14 +334,30 @@ def flash_fwd_short(q, k, v, *, causal: bool = False,
                     rope_cos=None, rope_sin=None, return_lse: bool = True,
                     kv_len=None):
     """csrc/flash_fwd_short.cu's mma.sync kernel on CUDA bf16/f16 tensors
-    at D=128 of any length (what `flash_attention_fwd` runs up to
-    SHORT_SQ queries, the bucketed decode's one query among them)."""
+    at D=128 of any length (what `flash_attention_fwd` runs for 2 to
+    SHORT_SQ queries)."""
     if q.shape[-1] != 128:
         raise ValueError(f"flash_fwd_short.cu takes D=128 (got "
                          f"D={q.shape[-1]})")
     res = _launch("aule_flash_fwd_short", q, k, v, causal, scale,
                   window_size, rope_cos, rope_sin, return_lse, kv_len, False)
     flash_fwd_short.launches += 1
+    return res
+
+
+def flash_fwd_decode(q, k, v, *, causal: bool = False,
+                     scale: Optional[float] = None, window_size: int = -1,
+                     rope_cos=None, rope_sin=None, return_lse: bool = True,
+                     kv_len=None):
+    """csrc/flash_fwd_short.cu's split-KV decode on CUDA bf16/f16 tensors
+    at D=128 and one query (what `flash_attention_fwd` runs for them);
+    `flash_decode_split_plain` is its plain version."""
+    if q.shape[-1] != 128 or q.dim() != 4 or q.shape[2] != 1:
+        raise ValueError(f"the split-KV decode takes one query at D=128 "
+                         f"(got q {tuple(q.shape)})")
+    res = _launch("aule_flash_fwd_decode", q, k, v, causal, scale,
+                  window_size, rope_cos, rope_sin, return_lse, kv_len, False)
+    flash_fwd_decode.launches += 1
     return res
 
 
@@ -293,6 +376,7 @@ def flash_fwd_generic(q, k, v, *, causal: bool = False,
 # kernel launches since the last reset (the CPU route counts none)
 flash_fwd_tma.launches = 0
 flash_fwd_short.launches = 0
+flash_fwd_decode.launches = 0
 flash_fwd_generic.launches = 0
 
 

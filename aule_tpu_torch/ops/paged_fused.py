@@ -366,16 +366,17 @@ def check_pool(q, kv_pages, kv_scales):
                          f"pack_fused_scales), got {tuple(kv_scales.shape)}")
 
 
-def check_kernel_inputs(q, pools, name: str) -> bool:
-    """What the CUDA paged kernels take, at any GQA group: bf16/f16 q at
-    D=128 (the tensor-core kernels), f32 at D 64/128/256 or bf16/f16 at D
-    64/256 (the generic kernels, csrc/paged_generic.cu); `pools` (the pool
-    and scale tensors; None entries are skipped) contiguous, 16-byte
-    aligned, on q's device.  Returns whether q goes to the generic
-    kernels."""
+def check_kernel_inputs(q, pools, name: str,
+                        rule=uses_generic_kernels) -> bool:
+    """What the CUDA paged kernels take, at any GQA group: f32, bf16 or
+    f16 q at D 64/128/256; `pools` (the pool and scale tensors; None
+    entries are skipped) contiguous, 16-byte aligned, on q's device.
+    Returns `rule(q)`: whether q goes to the generic kernels
+    (csrc/paged_generic.cu; the decode's rule by default, the prefill's is
+    ops/paged_generic.py `prefill_uses_generic`)."""
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
-    generic = uses_generic_kernels(q)
+    generic = rule(q)
     for t in pools:
         if t is None:
             continue

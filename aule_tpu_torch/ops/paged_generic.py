@@ -1,15 +1,17 @@
 """Launchers of the generic paged kernels (csrc/paged_generic.cu), the FFMA
 counterparts of the tensor-core paged kernels for what those do not take:
-f32 q and pools at D 64, 128 or 256, and bf16 / f16 at D 64 or 256
-(GPT-2's heads are 64 wide).
+the decode of f32 q and pools at D 64, 128 or 256 and of bf16 / f16 at D 64
+or 256 (GPT-2's heads are 64 wide), and the prefill of f32 at D 64, 128 or
+256 (csrc/paged_prefill.cu runs the 16-bit prefill at every head dim).
 
-The public wrappers route to them: `paged_attention_fused` and the split
-`paged_attention` (ops/paged_fused.py, ops/paged.py) launch
-`paged_generic_decode`, `paged_attention_prefill` (ops/paged_prefill.py)
-launches `paged_generic_prefill`, whenever `uses_generic_kernels(q)`; the
-wrappers' own counters count only the tensor-core kernels.  These functions
-take CUDA tensors that the wrappers have checked; each counts its launches
-in `.launches`.  The plain versions are the wrappers' own.
+The public wrappers route to them by one rule each: `paged_attention_fused`
+and the split `paged_attention` (ops/paged_fused.py, ops/paged.py) launch
+`paged_generic_decode` whenever `uses_generic_kernels(q)`, and
+`paged_attention_prefill` (ops/paged_prefill.py) launches
+`paged_generic_prefill` whenever `prefill_uses_generic(q)`; the wrappers'
+own counters count only the tensor-core kernels.  These functions take
+CUDA tensors that the wrappers have checked; each counts its launches in
+`.launches`.  The plain versions are the wrappers' own.
 """
 
 from __future__ import annotations
@@ -20,11 +22,11 @@ import torch
 
 from . import _build, decode_split
 # the generic kernels' head dims, the flash ones' (f32 at all three; 16-bit
-# at 64 and 256, which the flash kernels run on the tensor cores)
+# decode at 64 and 256)
 from .flash import GENERIC_HEAD_DIMS
 
-# the head dim of the tensor-core paged kernels (csrc/paged_decode.cu,
-# csrc/paged_prefill.cu: 16-bit at D 128 only)
+# the head dim of the tensor-core paged decode (csrc/paged_decode.cu: 16-bit
+# at D 128 only)
 TENSOR_CORE_HEAD_DIM = 128
 
 KERNEL_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
@@ -32,19 +34,29 @@ KERNEL_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 FUSED, SPLIT = 0, 1
 
 
-def uses_generic_kernels(q: torch.Tensor) -> bool:
-    """Whether the card runs q's type and head dim on the generic paged
-    kernels (f32 at D 64/128/256, bf16/f16 at D 64 or 256) rather than the
-    tensor-core ones (bf16/f16 at D 128).  Raises ValueError for any other
-    type or head dim."""
+def _check_kernel_type(q: torch.Tensor) -> None:
     d = q.shape[-1]
     if q.dtype not in KERNEL_DTYPES or d not in GENERIC_HEAD_DIMS:
         raise ValueError(
-            f"the CUDA paged kernels take f32 at D in {GENERIC_HEAD_DIMS} "
-            f"and bf16/f16 at D 64 or 256 (paged_generic.cu), bf16/f16 at "
-            f"D={TENSOR_CORE_HEAD_DIM} (the tensor-core kernels); got "
-            f"{q.dtype} D={d}")
-    return q.dtype == torch.float32 or d != TENSOR_CORE_HEAD_DIM
+            f"the CUDA paged kernels take f32, bf16 and f16 at D in "
+            f"{GENERIC_HEAD_DIMS}; got {q.dtype} D={d}")
+
+
+def uses_generic_kernels(q: torch.Tensor) -> bool:
+    """Whether the card runs q's decode on the generic paged decode (f32 at
+    D 64/128/256, bf16/f16 at D 64 or 256) rather than the tensor-core one
+    (csrc/paged_decode.cu: bf16/f16 at D 128).  Raises ValueError for any
+    other type or head dim."""
+    _check_kernel_type(q)
+    return q.dtype == torch.float32 or q.shape[-1] != TENSOR_CORE_HEAD_DIM
+
+
+def prefill_uses_generic(q: torch.Tensor) -> bool:
+    """Whether the card runs q's prefill on the generic paged prefill (f32
+    at D 64/128/256) rather than csrc/paged_prefill.cu (bf16/f16 at D
+    64/128/256).  Raises ValueError for any other type or head dim."""
+    _check_kernel_type(q)
+    return q.dtype == torch.float32
 
 
 def _ptr(t: Optional[torch.Tensor]):
@@ -91,8 +103,8 @@ def paged_generic_prefill(q, kv_pages, kv_scales, block_tables,
                           context_lens, q_offsets, *, scale: float,
                           causal: bool, window: int, pool: int, sc_f32: int,
                           return_lse: bool):
-    """One launch of the prefill kernel over a fused pool: q [B, Hq, S, D]
-    contiguous; context_lens the total visible cache length and q_offsets
+    """One launch of the f32 prefill kernel over a fused pool: q [B, Hq, S,
+    D] contiguous; context_lens the total visible cache length and q_offsets
     the position of query 0, per sequence."""
     batch, hq, s_new, d = q.shape
     hkv, page_size = kv_pages.shape[2], kv_pages.shape[3]

@@ -13,14 +13,15 @@ those rows.)
 
 `paged_attention_prefill` follows its tensors: CPU tensors take
 `paged_attention_prefill_plain`; CUDA tensors launch a hand-written kernel
-that replaces `_fused_prefill_kernel` (see the source notes): for bf16 / f16
-at D = 128 csrc/paged_prefill.cu's (a warp-specialised wgmma kernel whose
-producer warps gather the pages and convert int8 / e4m3 tiles), for f32 at
-D 64 / 128 / 256 and bf16 / f16 at D 64 / 256 csrc/paged_generic.cu's FFMA
-prefill (ops/paged_generic.py), or raise for what neither takes.  The JAX
-function's TPU
-tiling arguments (`block_q`, `pages_per_compute_block`) have no
-counterpart: the kernel picks its tiles in the source.
+that replaces `_fused_prefill_kernel` (see the source notes), by one rule
+on the type (ops/paged_generic.py `prefill_uses_generic`): for bf16 / f16
+at D = 64, 128 or 256 csrc/paged_prefill.cu's (a warp-specialised wgmma
+kernel whose producer warps gather the pages and convert int8 / e4m3
+tiles; templated on the head dim, a D = 64 q reads the D live lanes of the
+pool's 128-lane rows), for f32 at D 64 / 128 / 256 csrc/paged_generic.cu's
+FFMA prefill (ops/paged_generic.py), or raise for what neither takes.  The
+JAX function's TPU tiling arguments (`block_q`, `pages_per_compute_block`)
+have no counterpart: the kernel picks its tiles in the source.
 """
 
 from __future__ import annotations
@@ -33,7 +34,7 @@ import torch
 from . import _build
 from .paged_fused import (check_kernel_inputs, check_pool, dequantize_pool,
                           from_fused_layout)
-from .paged_generic import paged_generic_prefill
+from .paged_generic import paged_generic_prefill, prefill_uses_generic
 from .reference import paged_prefill_reference
 
 
@@ -91,7 +92,8 @@ def paged_attention_prefill(
             q, kv_pages, block_tables, context_lens, q_offsets=q_offsets,
             kv_scales=kv_scales, scale=scale, causal=causal,
             window_size=window, return_lse=return_lse)
-    generic = check_kernel_inputs(q, (kv_pages, kv_scales), "paged-prefill")
+    generic = check_kernel_inputs(q, (kv_pages, kv_scales), "paged-prefill",
+                                  rule=prefill_uses_generic)
     q = q.contiguous()
     if kv_scales is None:
         pool, sc_f32 = _build.POOL_NATIVE, 0
@@ -119,7 +121,7 @@ def paged_attention_prefill(
         kv_scales.data_ptr() if kv_scales is not None else None,
         bt.data_ptr(), lens.data_ptr(), qoff.data_ptr(), out.data_ptr(),
         lse.data_ptr() if lse is not None else None,
-        batch, hq, hkv, s_new, page_size, bt.shape[1], float(scale),
+        batch, hq, hkv, s_new, d_true, page_size, bt.shape[1], float(scale),
         int(bool(causal)), window, code, pool, sc_f32,
         _build.stream_handle(dev))
     _build.check(err, "aule_paged_prefill")

@@ -53,16 +53,20 @@ Phases, each printing a line of its own:
      select_backend() must be cuda, each call twice with the same bits and
      held to its plain version: the Llama-3-8B layer with fused RoPE
      (flash_attention_rope) and through flash_attention forward and
-     backward; the bucketed decode (1 query over K/V padded to 4096)
-     captured in a CUDA graph and replayed with kv_len written in place;
+     backward; the bucketed decode (1 query over K/V padded to 4096,
+     csrc/flash_fwd_short.cu's split-KV kernel; bf16 and f16, with and
+     without RoPE) captured in a CUDA graph, replayed with kv_len written
+     in place, deleted and captured again;
      kv_len on the TMA kernel; GPT-2 small's layer (D64) and D256 in bf16
      and f16 forward and backward on the tensor-core kernels, f32 on
      csrc/flash_generic.cu; the SDPA patch (install, an
      attn_mask call reaching torch's own function, uninstall); each mode
      timed beside its bound and one PyTorch call;
   6. gpt2, in a process of its own (`python3 chip_smoke.py --gpt2` runs it
-     alone): csrc/paged_generic.cu's decode and prefill (f32 and D 64/256)
-     held to their plain versions, every call twice with the same bits:
+     alone): csrc/paged_generic.cu's decode (f32 and D 64/256) and prefill
+     (f32), and csrc/paged_prefill.cu's 16-bit prefill at D 64/256 (bf16
+     and f16 pools, int8 and e4m3 pools with 16-bit q), held to their plain
+     versions, every call twice with the same bits:
      the decode at GPT-2's engine case (B8 Hq12/Hkv12 D64 ctx1024 page 16)
      and its edges (lengths 0, 1 and 17 with -1 tails, shuffled pages with
      a window, 64-token pages) in f32, bf16, int8 dot, int8 exact and fp8,
@@ -70,8 +74,9 @@ Phases, each printing a line of its own:
      at D64 group 2 and D256, f32 at the Llama layer (D128 group 4) and at
      D256 group 8; the prefill of a 256-token chunk at q_offset 768 over
      1024 (also windowed), a ragged batch whose padding rows must be exact
-     zeros and 64-token pages with a 1-token chunk, f32 at D128 and D256,
-     bf16 at D256, f16 q at D64 group 2; both at groups 3, 6 and 12 (f32
+     zeros and 64-token pages with a 1-token chunk, f32 at D128, D256
+     group 8 (also a ragged batch), D64 group 2 with a window; both at
+     groups 3, 6 and 12 (f32
      D128, f32 D64, bf16 D64; GEN_GROUPS) in every pool mode; each mode
      timed at GPT-2's shapes beside its bound, its plain version and SDPA
      on the gathered K/V.  Then GPT-2 small at full width and depth
@@ -80,7 +85,9 @@ Phases, each printing a line of its own:
      through ServingEngine(model=gpt2) seven times (GPT2_RUNS: f32 whole
      and chunk 256, int8 chunk 256, fp8 whole and chunk 256, bf16 whole
      and chunk 256), each checked as the Llama runs are (launches: the
-     generic decode 12 times a step, the tensor-core paged kernels never;
+     generic decode 12 times a step, the tensor-core decode never; the
+     chunked prefill 12 times a chunk, on paged_generic.cu in f32, on
+     paged_prefill.cu in bf16;
      pages; tokens against a teacher-forced plain forward or
      plain-attention replay, the f32 runs within GPT2_F32_NEAR_TIE), and
      one f32 prefill step and decode dispatch under torch.profiler;
@@ -1342,8 +1349,8 @@ CHUNK = 512
 
 
 def _launch_counters():
-    from aule_tpu_torch.ops.flash import (flash_fwd_generic, flash_fwd_short,
-                                         flash_fwd_tma)
+    from aule_tpu_torch.ops.flash import (flash_fwd_decode, flash_fwd_generic,
+                                         flash_fwd_short, flash_fwd_tma)
     from aule_tpu_torch.ops.paged import paged_attention
     from aule_tpu_torch.ops.paged_fused import paged_attention_fused
     from aule_tpu_torch.ops.paged_generic import (paged_generic_decode,
@@ -1351,6 +1358,7 @@ def _launch_counters():
     from aule_tpu_torch.ops.paged_prefill import paged_attention_prefill
 
     return {"flash_fwd": flash_fwd_tma, "flash_fwd_short": flash_fwd_short,
+            "flash_fwd_decode": flash_fwd_decode,
             "flash_fwd_generic": flash_fwd_generic,
             "paged_decode": paged_attention_fused,
             "paged_decode_split": paged_attention,
@@ -1373,9 +1381,11 @@ def run_engine(params, cfg, prompts, label, model=None, engine_kw=ENGINE_KW,
     prefill launches the flash forward that ops/flash.py's rule picks for
     the model's type, head dim and the prompt's length (`forward_kernel`:
     flash_generic.cu's in f32, the tensor-core kernels in bf16 at D 64 and
-    128 above SHORT_SQ tokens); a model in f32 or with a head dim other than
-    128 launches paged_generic.cu's paged kernels, and the tensor-core ones
-    never, and the other way round) and that every page came back."""
+    128 above SHORT_SQ tokens); the paged decode and prefill that
+    ops/paged_generic.py's rules pick: a model in f32 or with a head dim
+    other than 128 decodes on paged_generic.cu, an f32 model prefills its
+    chunks there, a bf16 one on paged_prefill.cu at every head dim, and the
+    other family never) and that every page came back."""
     from aule_tpu_torch.serving.engine import ServingEngine
 
     eng = ServingEngine(params, cfg, device=DEV, model=model, **engine_kw,
@@ -1413,11 +1423,14 @@ def run_engine(params, cfg, prompts, label, model=None, engine_kw=ENGINE_KW,
         raise AssertionError(f"{label}: not every request finished with "
                              f"{NEW_TOKENS} tokens")
     from aule_tpu_torch.ops.flash import forward_kernel
+    from aule_tpu_torch.ops.paged_generic import (prefill_uses_generic,
+                                                  uses_generic_kernels)
 
     layers = cfg.n_layers
     chunked = kw.get("prefill_chunk") is not None
     split = kw.get("layout") == "split"
-    generic = cfg.dtype == torch.float32 or cfg.head_dim != 128
+    row = torch.empty(1, 1, 1, cfg.head_dim, dtype=cfg.dtype, device="meta")
+    generic = uses_generic_kernels(row)
     decode = st["decode_steps"] * layers
     prefill = st["prefill_dispatches"] * layers
     want = dict.fromkeys(counters, 0)
@@ -1430,11 +1443,11 @@ def run_engine(params, cfg, prompts, label, model=None, engine_kw=ENGINE_KW,
             want[name] += layers
     if generic:
         want["paged_generic_decode"] = decode
-        want["paged_generic_prefill"] = prefill if chunked else 0
     else:
         want["paged_decode"] = 0 if split else decode
         want["paged_decode_split"] = decode if split else 0
-        want["paged_prefill"] = prefill if chunked else 0
+    want["paged_generic_prefill" if prefill_uses_generic(row)
+         else "paged_prefill"] = prefill if chunked else 0
     if chunked and st["prefill_dispatches"] != sum(
             -(-n // kw["prefill_chunk"]) for n in lens):
         raise AssertionError(f"{label}: {st['prefill_dispatches']} prefill "
@@ -1676,6 +1689,7 @@ def _same(outs, ref) -> int:
 # a kernel's category is the first whose key its lower-cased name holds:
 # the split decode (paged_decode_kernel<..., SplitPools>) before the fused
 CATEGORIES = {"flash_fwd_short": ["flash_fwd_short_kernel"],
+              "flash_fwd_decode": ["flash_fwd_decode_kernel"],
               "flash_fwd": ["flash_fwd_kernel"],
               "flash_generic": ["flash_generic"],
               "paged_generic_decode": ["paged_generic_decode"],
@@ -1891,6 +1905,7 @@ def _public_counters():
     from aule_tpu_torch.ops import flash_vjp as fv
 
     return {"flash_fwd": tf.flash_fwd_tma, "flash_fwd_short": tf.flash_fwd_short,
+            "flash_fwd_decode": tf.flash_fwd_decode,
             "flash_generic_fwd": tf.flash_fwd_generic,
             "flash_bwd_delta": fv.attention_delta, "flash_bwd_dq": fv.flash_bwd_dq,
             "flash_bwd_dkv": fv.flash_bwd_dkv,
@@ -2030,68 +2045,129 @@ def _public_rope(gen, res):
 
 def _public_decode(gen, res):
     """The bucketed decode: one query against K/V padded to BUCKET keys,
-    kv_len a device tensor; one CUDA-graph capture of the public call,
-    replayed with kv_len written in place (K2's kv_len mode)."""
+    kv_len a device tensor, on csrc/flash_fwd_short.cu's split-KV kernel.
+    In bf16 and f16, plain (the public flash_attention) and with RoPE
+    tables (flash_attention_fwd, the rotation in the kernel): after two
+    warm-up calls, one CUDA-graph capture of the call, replayed with
+    kv_len 0, 1, 1000, BUCKET - 1 and BUCKET written in place, two replays
+    with the same bits, each held to the plain version; then the graph is
+    deleted, an eager call held, and a second capture replayed and held
+    the same way.  The merge counters are dropped before the first
+    capture, so it makes its own inside the graph (ops/decode_split.py
+    launch_plan); the eager call makes the shared ones.  The kernel's LSE
+    is held at kv_len BUCKET - 1; the plain mode is timed there in bf16,
+    beside the device time of the short kernel that ran it before."""
     import aule_tpu_torch as T
+    from aule_tpu_torch.ops import decode_split
     from aule_tpu_torch.ops import flash as tf
     from aule_tpu_torch.utils import profiling
 
     b, hq, hkv = LAYER
-    dt = torch.bfloat16
-    q = _randn((b, hq, 1, 128), gen, dt)
-    kp, vp = (_randn((b, hkv, BUCKET, 128), gen, dt) for _ in range(2))
-    kvl = torch.full((1,), BUCKET, dtype=torch.int32, device="cuda")
-    label = f"public bucketed decode Hq{hq}/Hkv{hkv} D128 bf16, K/V {BUCKET}"
+    cos, sin = T.precompute_rope_frequencies(BUCKET, 128, LLAMA_ROPE_BASE,
+                                             device="cuda")
+    worst = (0.0, 0.0, 0.0)
+    inputs = {}
     with _Counted() as c:
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
-            for _ in range(2):  # warm-up off the capture
-                T.flash_attention(q, kp, vp, kv_len=kvl)
-        torch.cuda.current_stream().wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            out = T.flash_attention(q, kp, vp, kv_len=kvl)
-        worst = (0.0, 0.0, 0.0)
-        for n in (1, 1000, BUCKET - 1, BUCKET):
-            kvl.fill_(n)
-            graph.replay()
-            first = out.clone()
-            graph.replay()
-            if not torch.equal(first, out):
-                raise AssertionError(f"{label}: two replays differ")
-            po = tf.flash_attention_fwd_plain(q, kp, vp, kv_len=n,
-                                              return_lse=False)
-            errs = hold(f"{label}: graph replay, kv_len {n} written in place",
-                        out, po, None, None, ROW_TOL[dt])
-            worst = tuple(max(a, e) for a, e in zip(worst, errs))
-    # the wrapper counts the warm-ups and the capture; replays run no Python
-    _expect(label, c.launches, {"flash_fwd_short": 3})
-    res["launches"]["flash_fwd_short_kv_len"] = c.launches["flash_fwd_short"]
+        for dt in (torch.bfloat16, torch.float16):
+            q = _randn((b, hq, 1, 128), gen, dt)
+            kp, vp = (_randn((b, hkv, BUCKET, 128), gen, dt)
+                      for _ in range(2))
+            kvl = torch.full((1,), BUCKET, dtype=torch.int32, device="cuda")
+            inputs[dt] = q, kp, vp, kvl
+            for rope in (False, True):
+                tables = dict(rope_cos=cos, rope_sin=sin) if rope else {}
+                if rope:
+                    call = lambda: tf.flash_attention_fwd(
+                        q, kp, vp, kv_len=kvl, return_lse=False, **tables)
+                else:
+                    call = lambda: T.flash_attention(q, kp, vp, kv_len=kvl)
+                label = (f"public bucketed decode Hq{hq}/Hkv{hkv} D128 "
+                         f"{str(dt).replace('torch.', '')}"
+                         f"{', RoPE' if rope else ''}, K/V {BUCKET}")
+                side = torch.cuda.Stream()
+                side.wait_stream(torch.cuda.current_stream())
+                with torch.cuda.stream(side):
+                    for _ in range(2):  # warm-up off the capture
+                        call()
+                torch.cuda.current_stream().wait_stream(side)
+                decode_split._COUNTERS.clear()
+                for rnd in ("capture", "re-capture"):
+                    graph = torch.cuda.CUDAGraph()
+                    with torch.cuda.graph(graph):
+                        out = call()
+                    for n in (0, 1, 1000, BUCKET - 1, BUCKET):
+                        kvl.fill_(n)
+                        graph.replay()
+                        first = out.clone()
+                        graph.replay()
+                        if not torch.equal(first, out):
+                            raise AssertionError(f"{label}: two replays "
+                                                 f"differ")
+                        po = tf.flash_attention_fwd_plain(
+                            q, kp, vp, kv_len=n, return_lse=False, **tables)
+                        errs = hold(f"{label}: {rnd}, replay at kv_len {n} "
+                                    f"written in place", out, po, None, None,
+                                    ROW_TOL[dt])
+                        worst = tuple(max(a, e) for a, e in zip(worst, errs))
+                    if rnd == "re-capture":
+                        break
+                    del graph, out
+                    torch.cuda.synchronize()
+                    kvl.fill_(1000)
+                    o = call()
+                    po = tf.flash_attention_fwd_plain(
+                        q, kp, vp, kv_len=1000, return_lse=False, **tables)
+                    hold(f"{label}: eager at kv_len 1000 after the graph was "
+                         f"deleted", o, po, None, None, ROW_TOL[dt])
+                del graph, out
+    # the wrapper counts the warm-ups, captures and eager calls; replays
+    # run no Python
+    _expect("public bucketed decode", c.launches, {"flash_fwd_decode": 20})
+    res["launches"]["flash_fwd_decode_kv_len"] = c.launches[
+        "flash_fwd_decode"]
     n = BUCKET - 1
-    kvl.fill_(n)
-    o, lse = tf.flash_fwd_short(q, kp, vp, kv_len=kvl)
-    po, plse = tf.flash_attention_fwd_plain(q, kp, vp, kv_len=n)
-    errs = hold(f"{label}: kv_len {n} with LSE", o, po, lse, plse,
-                ROW_TOL[dt])
-    res["err"]["flash_fwd_short_kv_len"] = tuple(max(a, e) for a, e in
-                                                 zip(worst, errs))
+    for dt, (q, kp, vp, kvl) in inputs.items():
+        kvl.fill_(n)
+        for tables in ({}, dict(rope_cos=cos, rope_sin=sin)):
+            o, lse = tf.flash_fwd_decode(q, kp, vp, kv_len=kvl, **tables)
+            po, plse = tf.flash_attention_fwd_plain(q, kp, vp, kv_len=n,
+                                                    **tables)
+            errs = hold(f"public bucketed decode "
+                        f"{str(dt).replace('torch.', '')}"
+                        f"{', RoPE' if tables else ''}: kv_len {n} with LSE",
+                        o, po, lse, plse, ROW_TOL[dt])
+            worst = tuple(max(a, e) for a, e in zip(worst, errs))
+    res["err"]["flash_fwd_decode_kv_len"] = worst
+    q, kp, vp, kvl = inputs[torch.bfloat16]
     kx, vx = (x.repeat_interleave(hq // hkv, dim=1) for x in (kp, vp))
     mask = (torch.arange(BUCKET, device="cuda") < n)[None, None, None]
     flops = 4.0 * b * hq * n * 128
     nbytes = 2 * (2 * q.numel() + 2 * b * hkv * n * 128) + 4
-    t = _mode_time(f"{label}, kv_len {n}",
-                   lambda: tf.flash_fwd_short(q, kp, vp, kv_len=kvl,
-                                              return_lse=False),
-                   lambda: tf.flash_attention_fwd_plain(q, kp, vp, kv_len=kvl,
-                                                        return_lse=False),
-                   lambda: SDPA(q, kx, vx, attn_mask=mask), "flash_fwd_short",
-                   nbytes, flops, _rate(dt))
+    label = f"public bucketed decode Hq{hq}/Hkv{hkv} D128 bf16, kv_len {n}"
+    t = _mode_time(label, lambda: tf.flash_fwd_decode(
+        q, kp, vp, kv_len=kvl, return_lse=False),
+        lambda: tf.flash_attention_fwd_plain(q, kp, vp, kv_len=kvl,
+                                             return_lse=False),
+        lambda: SDPA(q, kx, vx, attn_mask=mask), "flash_fwd_decode_kernel",
+        nbytes, flops, _rate(torch.bfloat16))
+    t["nsplit"] = decode_split.launch_plan(b, hq, hkv, BUCKET, -1, q.device,
+                                           tile_rows=8)[0]
+    t["short_kernel_device_ms"] = device_ms(lambda: tf.flash_fwd_short(
+        q, kp, vp, kv_len=kvl, return_lse=False), key="flash_fwd_short")
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        tf.flash_fwd_decode(q, kp, vp, kv_len=kvl, return_lse=False)
     t["graph_replay_ms"] = profiling.cuda_time_ms(graph.replay, iters=20)[0]
-    t["launches_note"] = ("warm-ups and capture; the graph replays (10) "
-                          "launch the kernel without the wrapper")
-    res["time"]["flash_fwd_short_kv_len"] = t
     del graph
+    log(f"{label}: the short kernel on the same call (before this kernel "
+        f"took it) device {_ms(t['short_kernel_device_ms'])}; "
+        f"{t['nsplit']} splits; graph replay {t['graph_replay_ms']:.4f} ms")
+    t["launches_note"] = ("warm-ups, captures and eager calls in bf16 and "
+                          "f16, plain and RoPE; the graph replays (80 "
+                          "checked, and the timed ones) launch the kernel "
+                          "without the wrapper")
+    res["time"]["flash_fwd_decode_kv_len"] = t
+    tf.flash_fwd_decode.launches = tf.flash_fwd_short.launches = 0
 
 
 def _public_kv_len_tma(gen, res):
@@ -2269,9 +2345,18 @@ def _public_layer(gen, res, name, shape, s, d, dt):
 # in the kernel.  The first case of each entry is timed.
 _BF, _FP, _F32 = torch.bfloat16, torch.float16, torch.float32
 PUBLIC_MODES = {
-    "flash_fwd_short_rope": [
-        (f"1 query over {BUCKET} keys", "flash_fwd_short", LAYER, 1, BUCKET,
+    "flash_fwd_decode_rope": [
+        (f"1 query over {BUCKET} keys", "flash_fwd_decode", LAYER, 1, BUCKET,
          128, _BF, False, -1, BUCKET, None, "rope"),
+        (f"f16 1 query over {BUCKET} keys, table 3000, kv_len 3500",
+         "flash_fwd_decode", LAYER, 1, BUCKET, 128, _FP, False, -1, 3000,
+         3500, "op"),
+        ("group 3 Hq24/Hkv8, 1 query over 1000 keys, window 300",
+         "flash_fwd_decode", (1, 24, 8), 1, 1000, 128, _BF, False, 300,
+         1000, None, "rope"),
+        ("B2 group 12 Hq96/Hkv8 f16, causal, kv_len 900", "flash_fwd_decode",
+         (2, 96, 8), 1, 1024, 128, _FP, True, -1, 1024, 900, "op")],
+    "flash_fwd_short_rope": [
         ("the engine's 7-token prompt, causal", "flash_fwd_short", LAYER, 7,
          7, 128, _BF, True, -1, 7, None, "rope"),
         ("16 queries over 512 keys f16, table 300, kv_len 77",
@@ -2490,6 +2575,15 @@ GEN_PREFILL_MODES = [  # (mode, q / pool dtype, payload dtype or None)
     ("f32", torch.float32, None), ("bf16", torch.bfloat16, None),
     ("int8", torch.float32, torch.int8),
     ("fp8", torch.float32, torch.float8_e4m3fn)]
+# 16-bit q on csrc/paged_prefill.cu at D 64 / 256: (mode, q dtype, payload
+# dtype or None, scale dtype)
+TC_PREFILL_MODES = [
+    ("bf16", torch.bfloat16, None, None), ("f16", torch.float16, None, None),
+    ("int8 bf16 q", torch.bfloat16, torch.int8, torch.bfloat16),
+    ("fp8 bf16 q", torch.bfloat16, torch.float8_e4m3fn, torch.bfloat16),
+    ("int8 f16 q f32 scales", torch.float16, torch.int8, torch.float32),
+    ("fp8 f16 q f32 scales", torch.float16, torch.float8_e4m3fn,
+     torch.float32)]
 GPT2_HEADS = (12, 12, 64)   # Hq, Hkv, D
 LLAMA_F32 = (32, 8, 128)    # the Llama layer's heads in f32 (group 4)
 D256_F32 = (8, 1, 256)      # Gemma-2B's attention shape (group 8)
@@ -2601,65 +2695,76 @@ def _generic_decode_checks(gen, res):
 
 
 def _generic_prefill_checks(gen, res):
-    """csrc/paged_generic.cu's prefill against its plain version, twice
-    with the same bits, in f32, bf16, int8 and fp8 (f32 q): GPT-2's
-    256-token chunk at q_offset 768 over 1024 tokens (and with a 128
-    window), a ragged batch of 4 whose padding rows must be exact zeros,
-    64-token pages with a 1-token chunk; f32 at the Llama layer (a 512
-    chunk at 3488 over 4000) and at D256 group 8; bf16 at D256 group 8;
-    f16 q (f16, int8 and fp8 pools) at D64 group 2."""
+    """The paged prefill at the head dims 64 and 256 against its plain
+    version, twice with the same bits, each call counted on the kernel
+    ops/paged_generic.py's rule picks: f32 q (f32, int8 and fp8 pools) on
+    csrc/paged_generic.cu, 16-bit q on csrc/paged_prefill.cu's tensor
+    cores (TC_PREFILL_MODES: bf16 and f16 pools, int8 and e4m3 pools with
+    bf16 q and bf16 scales, with f16 q and f32 scales).  GPT-2's 256-token
+    chunk at q_offset 768 over 1024 (and with a 128 window), a ragged
+    batch of 4 whose padding rows must be exact zeros, 64-token pages with
+    a 1-token chunk; D256 group 8 (a chunk of 256 at 1000, a ragged batch
+    of 3); D64 group 2 with a window; f32 at the Llama layer (a 512 chunk
+    at 3488 over 4000)."""
     from aule_tpu_torch.config import DEFAULT_MASK_VALUE
+    from aule_tpu_torch.ops.paged_generic import paged_generic_prefill
     from aule_tpu_torch.ops.paged_prefill import (
         paged_attention_prefill, paged_attention_prefill_plain)
 
-    f32_modes = [m for m in GEN_PREFILL_MODES if m[0] != "bf16"]
-    f16_modes = [("f16", torch.float16, None),
-                 ("int8", torch.float16, torch.int8),
-                 ("fp8", torch.float16, torch.float8_e4m3fn)]
+    f32_modes = [(m, dt, qdt, torch.bfloat16)
+                 for m, dt, qdt in GEN_PREFILL_MODES if dt == torch.float32]
+    both = f32_modes + TC_PREFILL_MODES
     cases = [  # (label, hist, chunk, s_pad, max_pages, page, window, heads,
         #         modes)
         ("chunk 256 at q_offset 768 over 1024", [768], [256], 256, 64, 16,
-         -1, GPT2_HEADS, GEN_PREFILL_MODES),
+         -1, GPT2_HEADS, both),
         ("chunk 256 at 768, window 128", [768], [256], 256, 64, 16, 128,
-         GPT2_HEADS, GEN_PREFILL_MODES),
+         GPT2_HEADS, both),
         ("ragged B4 with rows past context_lens", [700, 0, 1000, 63],
-         [200, 130, 1, 77], 200, 64, 16, -1, GPT2_HEADS, GEN_PREFILL_MODES),
+         [200, 130, 1, 77], 200, 64, 16, -1, GPT2_HEADS, both),
         ("page 64, ragged B2 chunks 256 and 1", [768, 900], [256, 1], 256,
-         16, 64, -1, GPT2_HEADS, GEN_PREFILL_MODES),
+         16, 64, -1, GPT2_HEADS, both),
         ("f32 Llama layer, chunk 512 at 3488 over 4000", [3488], [512], 512,
          272, 16, -1, LLAMA_F32, f32_modes),
-        ("f32 D256 group 8, chunk 256 at 1000", [1000], [256], 256, 128, 16,
-         -1, D256_F32, f32_modes),
-        ("bf16 D256 group 8, chunk 256 at 1000", [1000], [256], 256, 128,
-         16, -1, D256_F32, GEN_PREFILL_MODES[1:2]),
-        ("f16 D64 group 2, chunk 256 at 768, window 128", [768], [256], 256,
-         64, 16, 128, (8, 4, 64), f16_modes),
+        ("D256 group 8, chunk 256 at 1000", [1000], [256], 256, 128, 16, -1,
+         D256_F32, both),
+        ("D256 group 8, ragged B3", [700, 0, 1000], [200, 130, 1], 200, 128,
+         16, -1, D256_F32, TC_PREFILL_MODES),
+        ("D64 group 2, chunk 256 at 768, window 128", [768], [256], 256, 64,
+         16, 128, (8, 4, 64), TC_PREFILL_MODES),
     ]
     for label, hist, chunk, s_pad, max_pages, page, window, (hq, hkv, d), \
             modes in cases:
         total = [h + c for h, c in zip(hist, chunk)]
-        for mode, dt, qdt in modes:
+        for mode, dt, qdt, sdt in modes:
             pool, bt = _generic_pool(gen, total, max_pages, page, hkv, d, dt,
                                      True)
-            pl, sc = _gen_quantized(pool, qdt)
+            pl, sc = _gen_quantized(pool, qdt, sdt)
             q = _randn((len(hist), hq, s_pad, d), gen, dt)
             ln = torch.tensor(total, dtype=torch.int32, device=DEV)
             qoff = torch.tensor(hist, dtype=torch.int32, device=DEV)
             kw = dict(q_offsets=qoff, kv_scales=sc, window_size=window,
                       return_lse=True)
-            what = (f"generic prefill {mode} {label} Hq{hq}/Hkv{hkv} D{d} "
+            tc = dt != torch.float32
+            kernel = paged_attention_prefill if tc else paged_generic_prefill
+            what = (f"{'tensor-core' if tc else 'generic'} prefill {mode} "
+                    f"{label} Hq{hq}/Hkv{hkv} D{d} "
                     f"{str(dt).replace('torch.', '')} q")
+            before = kernel.launches
             o, lse = _twice(what, lambda: paged_attention_prefill(
                 q, pl, bt, ln, **kw))
+            if kernel.launches != before + 2:
+                raise AssertionError(f"{what}: not launched on "
+                                     f"{kernel.__name__}")
             for b, n in enumerate(chunk):  # padding rows: exact zeros
                 if not (bool((o[b, :, n:] == 0).all()) and bool(
                         (lse[b, :, n:] == DEFAULT_MASK_VALUE).all())):
                     raise AssertionError(f"{what}: padding rows of sequence "
                                          f"{b} are not zeros")
             po, plse = paged_attention_prefill_plain(q, pl, bt, ln, **kw)
-            key = mode if hq == 12 else f"{mode} {label}"
-            hold(what, o, po, lse, plse, ROW_TOL[dt], res["err"],
-                 f"prefill {key}")
+            key = (("tc prefill " if tc else "prefill ") + mode
+                   + ("" if hq == 12 else f" {label}"))
+            hold(what, o, po, lse, plse, ROW_TOL[dt], res["err"], key)
 
 
 # csrc/paged_generic.cu at GQA groups its power-of-two rule refused before:
@@ -2674,7 +2779,8 @@ GEN_GROUP_TYPES = (("f32 D128", torch.float32, 128),
 
 def _generic_group_checks(res):
     """csrc/paged_generic.cu's decode (both layouts, no window and a
-    trailing window of 64) and prefill (window 64) at GEN_GROUPS and
+    trailing window of 64) and the prefill (window 64; paged_generic.cu's
+    for f32 q, paged_prefill.cu's for bf16 q) at GEN_GROUPS and
     GEN_GROUP_TYPES in every pool mode, from a generator of their own,
     held as _generic_decode_checks and _generic_prefill_checks hold theirs:
     twice with the same bits, against the plain versions, the split pools
@@ -2742,12 +2848,14 @@ def _generic_group_checks(res):
                           kv_scales=sc, window_size=64, return_lse=True)
                 ln = torch.tensor(total, dtype=torch.int32, device=DEV)
                 pmode = mode.split()[0]
-                what = f"generic prefill {pmode} {where} window 64"
+                what = (f"{'generic' if dt == torch.float32 else 'tensor-core'}"
+                        f" prefill {pmode} {where} window 64")
                 o, lse = _twice(what, lambda: paged_attention_prefill(
                     q, pl, bt, ln, **kw))
                 po, plse = paged_attention_prefill_plain(q, pl, bt, ln, **kw)
                 hold(what, o, po, lse, plse, ROW_TOL[dt], res["err"],
-                     f"prefill {pmode} {where}")
+                     ("prefill " if dt == torch.float32 else "tc prefill ")
+                     + f"{pmode} {where}")
     log("generic groups: every split-pool case gives the fused kernel's bits "
         "on the same pools, and every call the same bits twice")
 
@@ -2758,9 +2866,11 @@ def _generic_timings(gen, res):
     plain version and the library call, beside the bound): the decode at
     B8 ctx1024 in every mode over fused pools and in f32, bf16, int8 and
     fp8 over split pools (f32 scales); the prefill of a 256-token chunk at
-    q_offset 768 over 1024.  Library: SDPA on the gathered, dequantized
-    K/V in q's type (positional mask for the prefill), timed only.  Bounds
-    count the D = 64 live lanes of each K/V row once."""
+    q_offset 768 over 1024 (f32 q on paged_generic.cu, bf16 q on
+    paged_prefill.cu, also over int8 and e4m3 pools) and bf16 at D256 group
+    8 (a chunk of 256 at 1000).  Library: SDPA on the gathered, dequantized
+    K/V in q's type (positional mask for the prefill, GQA expanded), timed
+    only.  Bounds count the D live lanes of each K/V row once."""
     from aule_tpu_torch.ops.paged import paged_attention, paged_attention_plain
     from aule_tpu_torch.ops.paged_fused import (dequantize_pool,
                                                 from_fused_layout,
@@ -2817,11 +2927,18 @@ def _generic_timings(gen, res):
                                      0 if qdt is None else 4) + common,
             flops, _rate(dt))
         del kd, vd, kh, vh, k, v
-    hist, chunk = 768, 256
-    mask = (torch.arange(hist + chunk, device=DEV)[None, :]
-            <= hist + torch.arange(chunk, device=DEV)[:, None])
-    flops = profiling.paged_prefill_flops([hist], [chunk], hq, d)
-    for mode, dt, qdt in GEN_PREFILL_MODES:
+    # the prefill at GPT-2's chunk in every mode of GEN_PREFILL_MODES (f32
+    # q on paged_generic.cu, bf16 on paged_prefill.cu) and with bf16 q over
+    # 1-byte pools, then bf16 at D256 group 8 (a chunk of 256 at 1000)
+    for mode, dt, qdt, (hq, hkv, d), hist, chunk, max_pages in [
+            (m, dt, qdt, GPT2_HEADS, 768, 256, 64)
+            for m, dt, qdt in GEN_PREFILL_MODES] + [
+            (m, dt, qdt, GPT2_HEADS, 768, 256, 64)
+            for m, dt, qdt, _ in TC_PREFILL_MODES[2:4]] + [
+            ("bf16 d256", torch.bfloat16, None, D256_F32, 1000, 256, 128)]:
+        mask = (torch.arange(hist + chunk, device=DEV)[None, :]
+                <= hist + torch.arange(chunk, device=DEV)[:, None])
+        flops = profiling.paged_prefill_flops([hist], [chunk], hq, d)
         pool, bt = _generic_pool(gen, [hist + chunk], max_pages, 16, hkv, d,
                                  dt, False)
         pl, sc = _gen_quantized(pool, qdt)
@@ -2830,16 +2947,21 @@ def _generic_timings(gen, res):
         qoff = torch.tensor([hist], dtype=torch.int32, device=DEV)
         kh, vh = (from_fused_layout(pl[1:], d) if qdt is None
                   else dequantize_pool(pl[1:], sc[1:], d))
-        kd, vd = (x.reshape(1, hkv, hist + chunk, d).to(dt)
-                  for x in (kh, vh))
+        # pages 1.. hold the sequence in order; its last page is partial
+        kd, vd = (x.reshape(1, hkv, -1, d)[:, :, :hist + chunk].to(dt)
+                  .repeat_interleave(hq // hkv, dim=1) for x in (kh, vh))
         esz = q.element_size()
         kw = dict(q_offsets=qoff, kv_scales=sc)
-        res["time"][f"prefill {mode}"] = _mode_time(
-            f"generic prefill time {mode} GPT-2 chunk 256 at 768 over 1024 "
-            f"Hq12/Hkv12 D64 page16",
+        tc = dt != torch.float32
+        res["time"][("tc prefill " if tc else "prefill ") + mode] = \
+            _mode_time(
+            f"{'tensor-core' if tc else 'generic'} prefill time {mode} "
+            f"chunk {chunk} at {hist} over {hist + chunk} Hq{hq}/Hkv{hkv} "
+            f"D{d} page16",
             lambda: paged_attention_prefill(q, pl, bt, ln, **kw),
             lambda: paged_attention_prefill_plain(q, pl, bt, ln, **kw),
-            lambda: SDPA(q, kd, vd, attn_mask=mask), "paged_generic_prefill",
+            lambda: SDPA(q, kd, vd, attn_mask=mask),
+            "paged_prefill_kernel" if tc else "paged_generic_prefill",
             2 * q.numel() * esz + profiling.paged_kv_bytes(
                 hist + chunk, hkv, d, esz if qdt is None else 1,
                 0 if qdt is None else 2) + max_pages * 4 + 3 * 4,
@@ -2849,8 +2971,8 @@ def _generic_timings(gen, res):
 
 # GPT-2 small's serving runs: (key, label, bf16 model, engine options,
 # check: "plain" forward or quantized "replay", near-tie allowance).  The
-# bf16 and fp8 chunked runs put every pool mode of the generic prefill on
-# the main path.
+# f32, int8 and fp8 chunked runs put every pool mode of the generic prefill
+# on the main path, the bf16 chunked run the tensor-core prefill at D64.
 GPT2_RUNS = [
     ("f32", "GPT-2 f32 whole-prompt", False, {}, "plain", GPT2_F32_NEAR_TIE),
     ("f32 chunk", "GPT-2 f32 chunk 256", False,
@@ -2876,7 +2998,8 @@ def _gpt2_serving(res):
     1,000 prompt tokens, 24 new tokens each, through
     ServingEngine(model=gpt2) in every run of GPT2_RUNS, each checked by
     run_engine (launches: the generic paged decode 12 times a step, the
-    generic prefill 12 times a chunk, the flash forward 12 times a whole
+    prefill 12 times a chunk (paged_generic.cu's in f32, paged_prefill.cu's
+    in bf16), the flash forward 12 times a whole
     prompt, by ops/flash.py's rule: flash_generic.cu's in f32 and for bf16
     prompts of at most SHORT_SQ tokens, the TMA kernel at D64 for longer
     bf16 prompts; the tensor-core paged kernels never; pages) and held to a
@@ -2940,9 +3063,10 @@ def _gpt2_serving(res):
 
 
 def check_gpt2() -> dict:
-    """The GPT-2 phase: csrc/paged_generic.cu's kernels held to their plain
-    versions and timed, then GPT-2 small served.  Returns the errors,
-    times and launches."""
+    """The GPT-2 phase: csrc/paged_generic.cu's kernels and
+    csrc/paged_prefill.cu at D 64/256 held to their plain versions and
+    timed, then GPT-2 small served.  Returns the errors, times and
+    launches."""
     from aule_tpu_torch.ops.paged_generic import (paged_generic_decode,
                                                   paged_generic_prefill)
 
@@ -3392,8 +3516,6 @@ def gpt2_entries(gpt2: dict) -> list:
              "e4m3 pools, bf16 scales, f32 q"),
             ("paged_generic_prefill_f32", "prefill", "f32", ("f32 chunk",),
              "f32 pool"),
-            ("paged_generic_prefill_bf16", "prefill", "bf16",
-             ("bf16 chunk",), "bf16 pool"),
             ("paged_generic_prefill_int8", "prefill", "int8",
              ("int8 chunk",), "int8 pool, bf16 scales, f32 q"),
             ("paged_generic_prefill_fp8", "prefill", "fp8", ("fp8 chunk",),
@@ -3407,7 +3529,8 @@ def gpt2_entries(gpt2: dict) -> list:
         t = times[f"{kind} {mode}"]
         extra = dict(design=design, launches_by_run=by_run, **dev(t),
                      other_shapes=shapes(f"{kind} {mode}", *(
-                         [f"{kind} f16"] if mode == "bf16" else [])))
+                         [f"{kind} f16"] if mode == "bf16" and
+                         kind == "decode" else [])))
         if mode == "int8 dot":
             # the int8 exact path (int8_matmul=False) is checked and timed,
             # not launched on the main path
@@ -3420,6 +3543,27 @@ def gpt2_entries(gpt2: dict) -> list:
             sum(by_run.values()), err[f"{kind} {mode}"], t,
             f"{decode_shape if kind == 'decode' else prefill_shape}, {pool}",
             **extra))
+    # 16-bit q at D 64 / 256: csrc/paged_prefill.cu's tensor cores, on the
+    # bf16 chunked run
+    by_run = {"bf16 chunk": runs["bf16 chunk"]["paged_prefill"]}
+    if by_run["bf16 chunk"] == 0 or runs["bf16 chunk"][
+            "paged_generic_prefill"]:
+        raise AssertionError("the GPT-2 bf16 chunked run did not prefill on "
+                             "paged_prefill.cu alone")
+    t = times["tc prefill bf16"]
+    entries.append(_entry(
+        "paged_prefill_d64", "aule_tpu_torch/csrc/paged_prefill.cu",
+        "aule_tpu/ops/paged_fused.py:770 (_fused_prefill_kernel at D64 "
+        "padded to 128 lanes, l.961-964; and at D256)",
+        by_run["bf16 chunk"], err["tc prefill bf16"], t,
+        f"{prefill_shape}, bf16 pool", launches_by_run=by_run, **dev(t),
+        design="paged_prefill.cu's warp-specialised wgmma kernel at Tile<64> "
+               "/ Tile<256>: one consumer warpgroup, 128- / 64-key stages; "
+               "the producer reads a row's D live lanes",
+        other_shapes={k: v for k, v in err.items()
+                      if k.startswith("tc prefill ")},
+        time_by_mode={k[len("tc prefill "):]: v for k, v in times.items()
+                      if k.startswith("tc prefill ")}))
     split_modes = ("f32", "bf16", "int8 exact", "fp8")
     launches = gpt2["launches"]["split decode checks"]
     if launches == 0:
@@ -3772,12 +3916,14 @@ def main() -> None:
          f"B1 Hq32/Hkv8 Sq512 over a {BUCKET}-key bucket, kv_len 3000, "
          f"D128 bf16 (causal checked too; library: SDPA with a boolean key "
          f"mask)"),
-        ("flash_fwd_short_kv_len", "aule_tpu_torch/csrc/flash_fwd_short.cu",
+        ("flash_fwd_decode_kv_len", "aule_tpu_torch/csrc/flash_fwd_short.cu",
          fwd_row + ", dynamic_kv_len) for the SDPA patch's bucketed decode "
-         "(aule_tpu/integration/patching.py:220-238)",
+         "(aule_tpu/integration/patching.py:220-238): split-KV "
+         "(flash_fwd_decode_kernel)",
          f"B1 Hq32/Hkv8 1 query over a {BUCKET}-key bucket, kv_len "
-         f"{BUCKET - 1}, D128 bf16 (CUDA-graph replays at kv_len 1, 1000, "
-         f"{BUCKET - 1}, {BUCKET}; library: SDPA with a boolean key mask)"),
+         f"{BUCKET - 1}, D128 bf16 (f16 and RoPE checked too; CUDA-graph "
+         f"replays at kv_len 0, 1, 1000, {BUCKET - 1}, {BUCKET}, captured "
+         f"twice; library: SDPA with a boolean key mask)"),
     ]
 
     def library_note(mode, part):
@@ -3802,6 +3948,7 @@ def main() -> None:
                     for part in ("fwd", "delta", "dq", "dkv")]
     mode_src = {"flash_fwd": "aule_tpu_torch/csrc/flash_fwd.cu",
                 "flash_fwd_short": "aule_tpu_torch/csrc/flash_fwd_short.cu",
+                "flash_fwd_decode": "aule_tpu_torch/csrc/flash_fwd_short.cu",
                 "flash_generic_fwd": "aule_tpu_torch/csrc/flash_generic.cu"}
     for name, cases in PUBLIC_MODES.items():
         what, kernel, (b, hq, hkv), *_, d, dt = cases[0][:7]
@@ -3819,7 +3966,8 @@ def main() -> None:
                                  f"phase")
         t = public["time"][name]
         extra = {k: t[k] for k in ("device_ms", "library_device_ms",
-                                   "graph_replay_ms", "launches_note")
+                                   "graph_replay_ms", "launches_note",
+                                   "nsplit", "short_kernel_device_ms")
                  if k in t}
         if name in public["cases"]:
             extra["cases"] = public["cases"][name]

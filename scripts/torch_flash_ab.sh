@@ -11,8 +11,10 @@
 # (its checks and CUDA-event times) and the paged prefill's device time
 # per call in each
 # pool mode (bf16, int8, fp8) beside SDPA's on the gathered K/V, at the
-# engine's chunk (512 queries at q_offset 3488 over 4000 cached tokens).
-# The two trees run in turns, A, B, B, A, one process each, so that both
+# engine's chunk (512 queries at q_offset 3488 over 4000 cached tokens),
+# then the one-query decode (the SDPA patch's bucketed decode, plain and
+# with RoPE) and the 16-bit paged prefill at D 64 and 256, as each tree
+# routes them, beside SDPA.  The two trees run in turns, A, B, B, A, one process each, so that both
 # versions meet the same card.  Each process builds its tree's kernels and
 # prints the ptxas lines of every kernel.
 #
@@ -169,6 +171,60 @@ for name, dt in (("bf16", None), ("int8", torch.int8),
     del kd, vd, kh, vh
 print(f"{tag} paged prefill device ms per call (kernel, sdpa)", pre,
       flush=True)
+# The one-query decode and the 16-bit paged prefill at D 64 / 256 as each
+# tree routes them (since PR 13: csrc/flash_fwd_short.cu's split-KV kernel
+# and csrc/paged_prefill.cu's Tile<64> / Tile<256>; before, the short
+# kernel and csrc/paged_generic.cu's FFMA prefill), device ms per call
+# beside SDPA's, on a generator of its own: the SDPA patch's bucketed
+# decode (1 query over a 4096-key bucket, kv_len 4095, the Llama layer
+# B1 Hq32/Hkv8 D128 bf16; SDPA with a key mask) and the RoPE mode over
+# all 4096 keys (SDPA on the rotated q, k); GPT-2's chunk of 256 at q
+# offset 768 over 1024 (Hq12/Hkv12 D64 page 16) and a chunk of 256 at
+# 1000 at Hq8/Hkv1 D256 (SDPA with a positional mask on the gathered K/V).
+import aule_tpu_torch as T
+from aule_tpu_torch.ops.paged_fused import from_fused_layout
+
+g3 = torch.Generator("cuda")
+g3.manual_seed(c.SEED + 400)
+b, hq, hkv = c.LAYER
+q = c._randn((b, hq, 1, 128), g3)
+kp, vp = (c._randn((b, hkv, 4096, 128), g3) for _ in range(2))
+kvl = torch.full((1,), 4095, dtype=torch.int32, device="cuda")
+cos, sin = T.precompute_rope_frequencies(4096, 128, c.LLAMA_ROPE_BASE,
+                                         device="cuda")
+qr, kr = T.apply_rope(q, cos, sin), T.apply_rope(kp, cos, sin)
+kx, vx, krx = (x.repeat_interleave(hq // hkv, dim=1) for x in (kp, vp, kr))
+key_mask = (torch.arange(4096, device="cuda") < 4095)[None, None, None]
+new = {"decode kv_len 4095": (
+           dev(lambda: flash_attention_fwd(q, kp, vp, kv_len=kvl,
+                                           return_lse=False)),
+           dev(lambda: F.scaled_dot_product_attention(
+               q, kx, vx, attn_mask=key_mask))),
+       "decode RoPE": (
+           dev(lambda: T.flash_attention_rope(q, kp, vp, cos, sin)),
+           dev(lambda: F.scaled_dot_product_attention(qr, krx, vx)))}
+del q, kp, vp, kx, vx, krx, qr, kr
+for label, (hq, hkv, d), hist, chunk, max_pages in (
+        ("prefill GPT-2 D64", (12, 12, 64), 768, 256, 64),
+        ("prefill D256 group 8", (8, 1, 256), 1000, 256, 128)):
+    total = hist + chunk
+    pool, bt = c._generic_pool(g3, [total], max_pages, 16, hkv, d,
+                               torch.bfloat16, False)
+    q = c._randn((1, hq, chunk, d), g3)
+    ln = torch.tensor([total], dtype=torch.int32, device="cuda")
+    qoff = torch.tensor([hist], dtype=torch.int32, device="cuda")
+    kd, vd = (x.reshape(1, hkv, -1, d)[:, :, :total]
+              .repeat_interleave(hq // hkv, dim=1)
+              for x in from_fused_layout(pool[1:], d))
+    mask = (torch.arange(total, device="cuda")[None, :]
+            <= hist + torch.arange(chunk, device="cuda")[:, None])
+    new[label] = (
+        dev(lambda: paged_attention_prefill(q, pool, bt, ln, q_offsets=qoff)),
+        dev(lambda: F.scaled_dot_product_attention(q, kd, vd,
+                                                   attn_mask=mask)))
+    del pool, q, kd, vd
+print(f"{tag} decode and D64/D256 prefill device ms per call (kernel, sdpa)",
+      new, flush=True)
 EOF
   )
 }

@@ -180,21 +180,22 @@ def test_kernel_launchers_take_only_cuda_tensors(kernel, d):
     assert fn.launches == before
 
 
-@pytest.mark.parametrize("sq", [tflash.SHORT_SQ, tflash.SHORT_SQ + 1])
+@pytest.mark.parametrize("sq", [1, 2, tflash.SHORT_SQ, tflash.SHORT_SQ + 1])
 @pytest.mark.parametrize("d", [64, 128, 256])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
                                    torch.float16])
 def test_kernel_routing(dtype, d, sq):
     """The one rule of ops/flash.py: f32 on flash_generic.cu; bf16/f16 on
-    the tensor-core kernels at D 64/128/256, the mma.sync kernel at D 128
-    up to SHORT_SQ queries; each family's type check takes what the rule
-    sends it and refuses the other's."""
+    the tensor-core kernels at D 64/128/256, at D 128 the split-KV decode
+    for one query and the mma.sync kernel for 2 to SHORT_SQ queries; each
+    family's type check takes what the rule sends it and refuses the
+    other's."""
     q = torch.zeros(1, 2, sq, d, dtype=dtype)
     generic = dtype == torch.float32
     assert tflash.uses_generic(q) is generic
-    short = sq <= tflash.SHORT_SQ and d == 128
     want = ("flash_fwd_generic" if generic
-            else "flash_fwd_short" if short else "flash_fwd_tma")
+            else "flash_fwd_tma" if d != 128 or sq > tflash.SHORT_SQ
+            else "flash_fwd_decode" if sq == 1 else "flash_fwd_short")
     assert tflash.forward_kernel(q) is getattr(tflash, want)
     tflash.check_kernel_type(q, generic)
     with pytest.raises(ValueError):

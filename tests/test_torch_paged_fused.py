@@ -559,29 +559,43 @@ def test_split_merge_plain_against_jax(mode, window, nsplit):
 
 # -- which CUDA kernel family takes a q (ops/paged_generic.py) ------------
 
+@pytest.mark.parametrize("kernel", ["decode", "prefill"])
 @pytest.mark.parametrize("dtype,d,generic", [
     (torch.float32, 64, True), (torch.float32, 128, True),
     (torch.float32, 256, True), (torch.bfloat16, 64, True),
     (torch.bfloat16, 128, False), (torch.bfloat16, 256, True),
     (torch.float16, 64, True), (torch.float16, 128, False),
     (torch.float16, 256, True)])
-def test_kernel_family_routing(dtype, d, generic):
-    """The tensor-core paged kernels take bf16/f16 at D 128; the generic
-    ones (csrc/paged_generic.cu) f32 at D 64/128/256 and bf16/f16 at D 64
-    or 256 (whatever the flash kernels take)."""
-    from aule_tpu_torch.ops.paged_generic import uses_generic_kernels
+def test_kernel_family_routing(dtype, d, generic, kernel):
+    """Each paged kernel's rule (ops/paged_generic.py).  The decode: the
+    tensor-core kernel (csrc/paged_decode.cu) takes bf16/f16 at D 128, the
+    generic one (csrc/paged_generic.cu) f32 at D 64/128/256 and bf16/f16
+    at D 64 or 256 (`generic`).  The prefill: the tensor-core kernel
+    (csrc/paged_prefill.cu) takes bf16/f16 at D 64/128/256, the generic
+    one f32 alone."""
+    from aule_tpu_torch.ops.paged_generic import (prefill_uses_generic,
+                                                  uses_generic_kernels)
 
-    assert uses_generic_kernels(torch.zeros(2, 4, d, dtype=dtype)) is generic
+    if kernel == "decode":
+        got = uses_generic_kernels(torch.zeros(2, 4, d, dtype=dtype))
+        assert got is generic
+    else:
+        got = prefill_uses_generic(torch.zeros(1, 4, 8, d, dtype=dtype))
+        assert got is (dtype == torch.float32)
 
 
+@pytest.mark.parametrize("kernel", ["decode", "prefill"])
 @pytest.mark.parametrize("dtype,d", [
     (torch.float32, 96), (torch.bfloat16, 96), (torch.float16, 32),
     (torch.float64, 64)])
-def test_kernel_family_refuses_other_shapes(dtype, d):
-    from aule_tpu_torch.ops.paged_generic import uses_generic_kernels
+def test_kernel_family_refuses_other_shapes(dtype, d, kernel):
+    from aule_tpu_torch.ops.paged_generic import (prefill_uses_generic,
+                                                  uses_generic_kernels)
 
+    rule = uses_generic_kernels if kernel == "decode" \
+        else prefill_uses_generic
     with pytest.raises(ValueError, match="paged kernels take"):
-        uses_generic_kernels(torch.zeros(2, 4, d, dtype=dtype))
+        rule(torch.zeros(2, 4, d, dtype=dtype))
 
 
 def test_kernel_inputs_refuse_a_cpu_tensor():
