@@ -1,173 +1,42 @@
-// Flash attention, forward and backward, for what the tensor-core kernels
-// do not take (sm_90a): f32 inputs at D = 64, 128 or 256 (bf16 / f16 run
-// on flash_fwd.cu and flash_bwd.cu at every head dim).  Hand-written CUDA
-// C++, products on FFMA.
+// Flash attention backward for what the tensor-core kernels do not take
+// (sm_90a): f32 inputs at D = 64, 128 or 256 (bf16 / f16 run on
+// flash_bwd.cu at every head dim; the f32 forward is flash_f32.cu's
+// 3xTF32 kernel, whose LSE this backward takes).  Hand-written CUDA C++,
+// products on FFMA.
 //
-// Replaces, in f32, the TPU kernels aule_tpu/ops/flash.py::_fwd_kernel
-// (its f32 branch, flash.py:151) and aule_tpu/ops/flash_vjp.py::_dq_kernel
+// Replaces, in f32, the TPU kernels aule_tpu/ops/flash_vjp.py::_dq_kernel
 // and ::_dkv_kernel (and their window forms _win_dq_kernel and
-// _win_dkv_kernel).  It computes what they compute: the forward
-// with causal and window masks, GQA, Sq != Sk, fused half-split RoPE from
-// [L, D/2] f32 tables (identity past L), a device-side kv_len and the
-// natural-log LSE; the backward's delta, dQ and dK/dV from the saved LSE.
+// _win_dkv_kernel).  It computes what they compute: the backward's delta,
+// dQ and dK/dV from the saved LSE, with causal and window masks, GQA and
+// Sq != Sk.
 //
-// What bounds it on the H100: f32 has no tensor-core path that keeps f32
-// (TF32 keeps a 10-bit mantissa, and the f32 rows are held to 1e-5), so
-// the products run at the card's f32 FFMA rate (67 TFLOP/s).  The design
-// is the simplest one that stays within that rate's reach:
-//   * one block of 256 threads (16 x 16) per (q tile, head, batch) for the
-//     forward and dQ, per (kv tile, q head, batch) for dK/dV; tiles of
-//     64 rows and 64 keys (32 and 32 at D = 256, to stay in 227 KB);
+// What bounds it on the H100: the products run at the card's f32 FFMA
+// rate (67 TFLOP/s); moving them to the tensor cores in 3xTF32, as the
+// forward did, is the next step.  The design is the simplest one that
+// stays within that rate's reach:
+//   * one block of 256 threads (16 x 16) per (q tile, head, batch) for
+//     dQ, per (kv tile, q head, batch) for dK/dV; tiles of 64 rows and 64
+//     keys (32 and 32 at D = 256, to stay in 227 KB);
 //   * every tile in shared memory as f32 rows padded to D + 4 floats, so
 //     each thread reads 16 bytes at a time and the 16 threads of a
 //     half-warp meet distinct bank groups;
 //   * a thread holds a 4 x 4 (2 x 2 at D = 256) block of the score tile
 //     and a row block x D / 16 columns of its output, so a 16-byte read
-//     feeds 4 to 16 FFMAs;
-//   * online softmax in natural units with expf, row max and sum reduced
-//     over the row's 16 threads by shuffles; P (or dS) goes through shared
-//     memory to the second product;
+//     feeds 4 to 16 FFMAs; dS goes through shared memory to the second
+//     product;
 //   * no atomics: dQ sums the kv tiles in one block, a dK/dV block the q
 //     tiles of one q head; with GQA each head's f32 share goes to a
 //     workspace and a second kernel sums the group's shares in head order,
 //     so two runs give the same bits (with a group of 8 at Hkv 1, one block
 //     per kv tile walking the whole group left most of the card idle).
-// Tiles outside the causal diagonal, the window or kv_len are skipped;
-// rows at or past S load as zeros and are never written.
+// Tiles outside the causal diagonal or the window are skipped; rows at or
+// past S load as zeros and are never written.
 
 #include "generic.cuh"
 
 namespace {
 
 using namespace aule;
-
-// may query qpos see key kpos (kpos below the live key count kvl)?
-__device__ __forceinline__ bool visible(int qpos, int kpos, int kvl,
-                                        int causal, int window) {
-  bool ok = kpos < kvl;
-  if (causal) ok = ok && qpos >= kpos;
-  if (window > 0) {
-    ok = ok && qpos - kpos <= window;
-    if (!causal) ok = ok && kpos - qpos <= window;
-  }
-  return ok;
-}
-
-// kv tiles j_lo .. j_hi (BN keys each) hold every key of the first kvl
-// that some row of q_lo .. q_hi can see
-__device__ __forceinline__ void kv_range(int q_lo, int q_hi, int kvl,
-                                         int causal, int window, int BN,
-                                         int& j_lo, int& j_hi) {
-  int k_min = 0, k_max = kvl - 1;
-  if (causal) k_max = min(k_max, q_hi);
-  if (window > 0) {
-    k_min = max(0, q_lo - window);
-    if (!causal) k_max = min(k_max, q_hi + window);
-  }
-  j_lo = k_min / BN;
-  j_hi = (k_max >= k_min) ? k_max / BN : j_lo - 1;
-}
-
-// ---- forward: q, o [B, Hq, Sq, D]; k, v [B, Hkv, Sk, D]; lse [B, Hq, Sq]
-// or null; rope tables [rope_len, D / 2] f32 or null; kv_len one int32 on
-// the card or null.  Grid: (q tiles, Hq, B), the last q tile first.
-template <typename T, int D>
-__global__ void __launch_bounds__(NT)
-    flash_generic_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                             const T* __restrict__ v, T* __restrict__ o,
-                             float* __restrict__ lse, const float* rc,
-                             const float* rs, const int* kv_len, int Hq,
-                             int Hkv, int Sq, int Sk, int rope_len,
-                             float scale, int causal, int window) {
-  using L = Tiles<D>;
-  constexpr int BM = L::BM, BN = L::BN, LD = L::LD, LP = L::LP, RM = L::RM,
-                CN = L::CN, CD = L::CD, G = L::G;
-  extern __shared__ float4 smem4[];
-  float* sQ = reinterpret_cast<float*>(smem4);
-  float* sK = sQ + BM * LD;
-  float* sV = sK + BN * LD;
-  float* sP = sV + BN * LD;
-
-  const int tx = threadIdx.x % TX, ty = threadIdx.x / TX;
-  const int q_lo = (gridDim.x - 1 - blockIdx.x) * BM;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int hk = h / (Hq / Hkv);
-  const int kvl = live_keys(kv_len, Sk);
-  int j_lo, j_hi;
-  kv_range(q_lo, min(q_lo + BM, Sq) - 1, kvl, causal, window, BN, j_lo,
-           j_hi);
-
-  const size_t qoff = ((size_t)b * Hq + h) * Sq * D;
-  const T* kb = k + ((size_t)b * Hkv + hk) * Sk * D;
-  const T* vb = v + ((size_t)b * Hkv + hk) * Sk * D;
-  load_tile<T, D, BM>(sQ, q + qoff, q_lo, Sq, rc, rs, rope_len);
-
-  float acc[RM][CD], m[RM], l[RM];
-#pragma unroll
-  for (int i = 0; i < RM; ++i) {
-    m[i] = -INFINITY;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < CD; ++c) acc[i][c] = 0.f;
-  }
-  const int qpos0 = q_lo + ty * RM;
-
-  for (int j = j_lo; j <= j_hi; ++j) {
-    const int kv0 = j * BN;
-    __syncthreads();  // the last tile's readers are done
-    load_tile<T, D, BN>(sK, kb, kv0, Sk, rc, rs, rope_len);
-    load_tile<T, D, BN>(sV, vb, kv0, Sk, nullptr, nullptr, 0);
-    __syncthreads();
-
-    float s[RM][CN];
-    dot_rows<D, RM, CN>(s, sQ, sK, ty, tx);
-#pragma unroll
-    for (int i = 0; i < RM; ++i) {
-      float mx = -INFINITY;
-#pragma unroll
-      for (int jj = 0; jj < CN; ++jj) {
-        const bool ok =
-            visible(qpos0 + i, kv0 + tx + TX * jj, kvl, causal, window);
-        s[i][jj] = ok ? s[i][jj] * scale : -INFINITY;
-        mx = fmaxf(mx, s[i][jj]);
-      }
-      const float mn = fmaxf(m[i], row_max(mx));
-      // a row that has seen nothing yet keeps m = -inf and p = 0
-      const float alpha = mn == -INFINITY ? 1.f : expf(m[i] - mn);
-      float sum = 0.f;
-#pragma unroll
-      for (int jj = 0; jj < CN; ++jj) {
-        const float p = mn == -INFINITY ? 0.f : expf(s[i][jj] - mn);
-        sP[(ty * RM + i) * LP + tx + TX * jj] = p;
-        sum += p;
-      }
-      l[i] = l[i] * alpha + row_sum(sum);
-      m[i] = mn;
-#pragma unroll
-      for (int c = 0; c < CD; ++c) acc[i][c] *= alpha;
-    }
-    __syncthreads();
-    acc_rows<D, RM, BN, LP>(acc, sP, sV, ty, tx);
-  }
-
-  // normalise; LSE m + ln l, or kMaskValue with zeros for a row that saw
-  // nothing
-#pragma unroll
-  for (int i = 0; i < RM; ++i) {
-    const int qpos = qpos0 + i;
-    if (qpos >= Sq) continue;
-    const float inv = l[i] > 0.f ? 1.f / l[i] : 0.f;
-    T* orow = o + qoff + (size_t)qpos * D;
-#pragma unroll
-    for (int g = 0; g < G; ++g)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        orow[64 * g + 4 * tx + e] = Val<T>::st(acc[i][4 * g + e] * inv);
-    if (lse != nullptr && tx == 0)
-      lse[(size_t)(b * Hq + h) * Sq + qpos] =
-          l[i] > 0.f ? m[i] + logf(l[i]) : kMaskValue;
-  }
-}
 
 // ---- delta: di = rowsum(o * do) - dlse, one warp a row, in a fixed order
 template <typename T>
@@ -228,8 +97,8 @@ __global__ void __launch_bounds__(NT)
   const size_t row0 = ((size_t)b * Hq + h) * Sq;
   const T* kb = k + ((size_t)b * Hkv + hk) * Sk * D;
   const T* vb = v + ((size_t)b * Hkv + hk) * Sk * D;
-  load_tile<T, D, BM>(sQ, q + row0 * D, q_lo, Sq, nullptr, nullptr, 0);
-  load_tile<T, D, BM>(sO, dO + row0 * D, q_lo, Sq, nullptr, nullptr, 0);
+  load_tile<T, D, BM>(sQ, q + row0 * D, q_lo, Sq);
+  load_tile<T, D, BM>(sO, dO + row0 * D, q_lo, Sq);
 
   const int qpos0 = q_lo + ty * RM;
   float lse_r[RM], di_r[RM], acc[RM][CD];
@@ -245,8 +114,8 @@ __global__ void __launch_bounds__(NT)
   for (int j = j_lo; j <= j_hi; ++j) {
     const int kv0 = j * BN;
     __syncthreads();
-    load_tile<T, D, BN>(sK, kb, kv0, Sk, nullptr, nullptr, 0);
-    load_tile<T, D, BN>(sV, vb, kv0, Sk, nullptr, nullptr, 0);
+    load_tile<T, D, BN>(sK, kb, kv0, Sk);
+    load_tile<T, D, BN>(sV, vb, kv0, Sk);
     __syncthreads();
     float s[RM][CN], dp[RM][CN];
     dot_rows<D, RM, CN>(s, sQ, sK, ty, tx);
@@ -312,8 +181,8 @@ __global__ void __launch_bounds__(NT)
   const int hk = h / group;
   const int kv_hi = min(kv_lo + BN, Sk) - 1;
   const size_t kvoff = ((size_t)b * Hkv + hk) * Sk * D;
-  load_tile<T, D, BN>(sK, k + kvoff, kv_lo, Sk, nullptr, nullptr, 0);
-  load_tile<T, D, BN>(sV, v + kvoff, kv_lo, Sk, nullptr, nullptr, 0);
+  load_tile<T, D, BN>(sK, k + kvoff, kv_lo, Sk);
+  load_tile<T, D, BN>(sV, v + kvoff, kv_lo, Sk);
 
   // q rows that see some key of this tile
   int q_min = 0, q_max = Sq - 1;
@@ -336,8 +205,8 @@ __global__ void __launch_bounds__(NT)
     for (int t = t_lo; t <= t_hi; ++t) {
       const int q_lo = t * BM;
       __syncthreads();  // the last tile's readers are done
-      load_tile<T, D, BM>(sQ, q + row0 * D, q_lo, Sq, nullptr, nullptr, 0);
-      load_tile<T, D, BM>(sO, dO + row0 * D, q_lo, Sq, nullptr, nullptr, 0);
+      load_tile<T, D, BM>(sQ, q + row0 * D, q_lo, Sq);
+      load_tile<T, D, BM>(sO, dO + row0 * D, q_lo, Sq);
       for (int r = tid; r < BM; r += NT) {
         const bool in = q_lo + r < Sq;
         sLse[r] = in ? lse[row0 + q_lo + r] : 0.f;
@@ -437,12 +306,6 @@ __global__ void __launch_bounds__(NT)
 // pairs the tensor-core kernels leave (see the dispatch below)
 
 template <int D>
-constexpr size_t fwd_smem() {
-  using L = Tiles<D>;
-  return sizeof(float) * ((L::BM + 2 * L::BN) * L::LD + L::BM * L::LP);
-}
-
-template <int D>
 constexpr size_t dq_smem() {
   using L = Tiles<D>;
   return sizeof(float) * (2 * (L::BM + L::BN) * L::LD + L::BM * L::LP);
@@ -453,25 +316,6 @@ constexpr size_t dkv_smem() {
   using L = Tiles<D>;
   return sizeof(float) *
          (2 * (L::BM + L::BN) * L::LD + 2 * L::BM * L::LP + 2 * L::BM);
-}
-
-template <typename T, int D>
-int fwd(const void* q, const void* k, const void* v, void* o, void* lse,
-        const void* rc, const void* rs, const void* kv_len, int B, int Hq,
-        int Hkv, int Sq, int Sk, int rope_len, float scale, int causal,
-        int window, cudaStream_t stream) {
-  static bool done = false;
-  constexpr size_t smem = fwd_smem<D>();
-  cudaError_t err = allow_smem(flash_generic_fwd_kernel<T, D>, smem, done);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((Sq + Tiles<D>::BM - 1) / Tiles<D>::BM, Hq, B);
-  flash_generic_fwd_kernel<T, D><<<grid, NT, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), static_cast<float*>(lse),
-      static_cast<const float*>(rc), static_cast<const float*>(rs),
-      static_cast<const int*>(kv_len), Hq, Hkv, Sq, Sk, rope_len, scale,
-      causal, window);
-  return cudaGetLastError();
 }
 
 template <typename T, int D>
@@ -522,29 +366,7 @@ int dkv(const void* q, const void* k, const void* v, const void* dO,
   return cudaGetLastError();
 }
 
-// f32 at D 64 / 128 / 256; anything else is refused
-#define AULE_GENERIC_F32_DISPATCH(FN, ...)                      \
-  switch (dtype * 1000 + D) {                                   \
-    case kF32 * 1000 + 64: return FN<float, 64>(__VA_ARGS__);   \
-    case kF32 * 1000 + 128: return FN<float, 128>(__VA_ARGS__); \
-    case kF32 * 1000 + 256: return FN<float, 256>(__VA_ARGS__); \
-    default: return cudaErrorInvalidValue;                      \
-  }
-
 }  // namespace
-
-extern "C" int aule_flash_generic_fwd(const void* q, const void* k,
-                                      const void* v, void* o, void* lse,
-                                      const void* rc, const void* rs,
-                                      const void* kv_len, int B, int Hq,
-                                      int Hkv, int Sq, int Sk, int D,
-                                      int rope_len, float scale, int causal,
-                                      int window, int dtype, void* stream) {
-  if (Sq <= 0 || B <= 0) return cudaSuccess;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  AULE_GENERIC_F32_DISPATCH(fwd, q, k, v, o, lse, rc, rs, kv_len, B, Hq,
-                            Hkv, Sq, Sk, rope_len, scale, causal, window, s)
-}
 
 extern "C" int aule_flash_generic_delta(const void* o, const void* dO,
                                         const void* dlse, void* di, int rows,

@@ -1,7 +1,7 @@
-// Shared pieces of the FFMA kernels (flash_generic.cu, paged_generic.cu):
-// f32 tiles in shared memory, rows padded to D + 4 floats, read 16 bytes at
-// a time by a 16 x 16 grid of threads, and the dispatch over the (type,
-// D) pairs those kernels take.  Each source includes it once, so its
+// Shared pieces of the f32 kernels (flash_generic.cu, paged_generic.cu,
+// and flash_f32.cu's masks): f32 tiles in shared memory, rows padded to D +
+// 4 floats, read 16 bytes at a time by a 16 x 16 grid of threads, and the
+// dispatch over the head dims those kernels take.  Each source includes it once, so its
 // internal-linkage definitions are that source's own.
 #pragma once
 
@@ -25,37 +25,6 @@ struct Val<float> {
     return __ldg(p);
   }
   __device__ __forceinline__ static float st(float x) { return x; }
-  __device__ __forceinline__ static float round(float x) { return x; }
-};
-
-template <>
-struct Val<__nv_bfloat16> {
-  __device__ __forceinline__ static float ld(const __nv_bfloat16* p) {
-    return __bfloat162float(*p);
-  }
-  __device__ __forceinline__ static __nv_bfloat16 st(float x) {
-    return __float2bfloat16(x);
-  }
-  // x rounded to the type (a rotated 16-bit value, as the kernels with
-  // 16-bit tiles store it)
-  __device__ __forceinline__ static float round(float x) {
-    return __bfloat162float(__float2bfloat16(x));
-  }
-};
-
-template <>
-struct Val<__half> {
-  __device__ __forceinline__ static float ld(const __half* p) {
-    return __half2float(*p);
-  }
-  __device__ __forceinline__ static __half st(float x) {
-    return __float2half(x);
-  }
-  // x rounded to the type (a rotated 16-bit value, as the kernels with
-  // 16-bit tiles store it)
-  __device__ __forceinline__ static float round(float x) {
-    return __half2float(__float2half(x));
-  }
 };
 
 // Tile shape by head dim: BM q rows, BN keys; f32 rows of LD floats,
@@ -74,14 +43,10 @@ struct Tiles {
 };
 
 // Rows row0 .. row0 + R - 1 of src [S, D] -> dst [R][D + 4] f32; rows at or
-// past S are zeros.  With tables, row pos turns by table row pos, half
-// split (x1' = x1 cos - x2 sin, x2' = x1 sin + x2 cos, as common.cuh's
-// rope_chunks: rounded products, the result rounded to T), and rows at or
-// past rope_len stay as they are (cos 1, sin 0).
+// past S are zeros.
 template <typename T, int D, int R>
 __device__ __forceinline__ void load_tile(float* dst, const T* src, int row0,
-                                          int S, const float* rc,
-                                          const float* rs, int rope_len) {
+                                          int S) {
   constexpr int LD = D + 4, H = D / 2;
   for (int i = threadIdx.x; i < R * H; i += NT) {
     const int r = i / H, d = i % H, pos = row0 + r;
@@ -89,13 +54,6 @@ __device__ __forceinline__ void load_tile(float* dst, const T* src, int row0,
     if (pos < S) {
       x1 = Val<T>::ld(src + (size_t)pos * D + d);
       x2 = Val<T>::ld(src + (size_t)pos * D + d + H);
-      if (rc != nullptr && pos < rope_len) {
-        const float c = __ldg(rc + (size_t)pos * H + d);
-        const float s = __ldg(rs + (size_t)pos * H + d);
-        const float y1 = Val<T>::round(rot_lo(x1, x2, c, s));
-        x2 = Val<T>::round(rot_hi(x1, x2, c, s));
-        x1 = y1;
-      }
     }
     dst[r * LD + d] = x1;
     dst[r * LD + d + H] = x2;
@@ -181,6 +139,33 @@ __device__ __forceinline__ float row_sum(float x) {
   return x;
 }
 
+// may query qpos see key kpos (kpos below the live key count kvl)?
+__device__ __forceinline__ bool visible(int qpos, int kpos, int kvl,
+                                        int causal, int window) {
+  bool ok = kpos < kvl;
+  if (causal) ok = ok && qpos >= kpos;
+  if (window > 0) {
+    ok = ok && qpos - kpos <= window;
+    if (!causal) ok = ok && kpos - qpos <= window;
+  }
+  return ok;
+}
+
+// kv tiles j_lo .. j_hi (BN keys each) hold every key of the first kvl
+// that some row of q_lo .. q_hi can see
+__device__ __forceinline__ void kv_range(int q_lo, int q_hi, int kvl,
+                                         int causal, int window, int BN,
+                                         int& j_lo, int& j_hi) {
+  int k_min = 0, k_max = kvl - 1;
+  if (causal) k_max = min(k_max, q_hi);
+  if (window > 0) {
+    k_min = max(0, q_lo - window);
+    if (!causal) k_max = min(k_max, q_hi + window);
+  }
+  j_lo = k_min / BN;
+  j_hi = (k_max >= k_min) ? k_max / BN : j_lo - 1;
+}
+
 // cudaFuncSetAttribute once per kernel (the host call stays out of a
 // CUDA-graph capture after the first launch)
 template <typename F>
@@ -194,18 +179,11 @@ cudaError_t allow_smem(F* kernel, size_t bytes, bool& done) {
 
 }  // namespace
 
-// f32 at D 64 / 128 / 256; bf16 and f16 at D 64 / 256 (D = 128 in 16 bits
-// is the tensor-core paged kernels'); anything else is refused
-#define AULE_GENERIC_DISPATCH(FN, ...)                          \
+// f32 at D 64 / 128 / 256; anything else is refused
+#define AULE_GENERIC_F32_DISPATCH(FN, ...)                      \
   switch (dtype * 1000 + D) {                                   \
     case kF32 * 1000 + 64: return FN<float, 64>(__VA_ARGS__);   \
     case kF32 * 1000 + 128: return FN<float, 128>(__VA_ARGS__); \
     case kF32 * 1000 + 256: return FN<float, 256>(__VA_ARGS__); \
-    case aule::kBF16 * 1000 + 64:                                     \
-      return FN<__nv_bfloat16, 64>(__VA_ARGS__);                \
-    case aule::kBF16 * 1000 + 256:                                    \
-      return FN<__nv_bfloat16, 256>(__VA_ARGS__);               \
-    case aule::kF16 * 1000 + 64: return FN<__half, 64>(__VA_ARGS__);  \
-    case aule::kF16 * 1000 + 256: return FN<__half, 256>(__VA_ARGS__); \
     default: return cudaErrorInvalidValue;                      \
   }

@@ -1,10 +1,9 @@
 // Paged attention for what the tensor-core paged kernels (paged_decode.cu,
 // paged_prefill.cu) do not take (sm_90a): f32 q and pools at D = 64, 128 or
-// 256, and for the decode bf16 / f16 at D = 64 or 256 (GPT-2's heads are 64
-// wide; paged_prefill.cu runs the 16-bit prefill at every head dim), in
-// every pool mode of the port.  Hand-written CUDA C++, the products on
-// FFMA (the int8 dot products' scores on __dp4a).  The counterpart of
-// flash_generic.cu for the paged kernels.  Two kernels:
+// 256 (those two run bf16 / f16 at every head dim), in every pool mode of
+// the port.  Hand-written CUDA C++, the products on FFMA (the int8 dot
+// products' scores on __dp4a).  The counterpart of flash_generic.cu for
+// the paged kernels.  Two kernels:
 //   (a) paged decode over either pool layout (the kernel's L, as in
 //       paged_decode.cu).  Replaces, for those types and head dims, the TPU
 //       kernels aule_tpu/ops/paged_fused.py::_fused_decode_kernel (fused
@@ -25,7 +24,7 @@
 //       port's documented divergence from the JAX kernel, ROADMAP queue 3).
 //
 // Pool modes (common.cuh kPool*):
-//   * native: the pool holds the q / out type (f32, bf16 or f16);
+//   * native: the pool holds the q / out type (f32);
 //   * int8 and e4m3 with scales (the fused packed tile, bf16 or f32, or
 //     split f32 scales): each value is its payload times its token's scale
 //     in f32, one product, as the plain versions dequantize;
@@ -41,8 +40,7 @@
 // What bounds it on the H100: decode reads every live K and V byte once
 // for a handful of operations, so it is memory bound.  GPT-2 small at B8
 // ctx1024 (12 kv heads, D64) holds 50.3 MB of live f32 K/V a layer (15.0 us
-// at 3.35 TB/s), 25.2 MB in bf16 and 12.6 MB of 1-byte payload (plus the
-// scales).  The kernel reads only the D live lanes of a fused pool's
+// at 3.35 TB/s) and 12.6 MB of 1-byte payload (plus the scales).  The kernel reads only the D live lanes of a fused pool's
 // 128-lane row: reading the padded rows whole would double those bytes.
 // The prefill does 4 D operations per (row, visible key) pair, bound by
 // the 67 TFLOP/s of f32 FFMA.  The design is the simplest that stays
@@ -680,8 +678,7 @@ __global__ void __launch_bounds__(NT)
   const int* bt = a.bt + (size_t)b * a.max_pages;
 
   const size_t qoff = ((size_t)b * a.Hq + h) * a.Sq * D;
-  load_tile<T, D, BM>(sQ, static_cast<const T*>(a.q) + qoff, s_lo, a.Sq,
-                      nullptr, nullptr, 0);
+  load_tile<T, D, BM>(sQ, static_cast<const T*>(a.q) + qoff, s_lo, a.Sq);
 
   float acc[RM][CD], m[RM], l[RM];
 #pragma unroll
@@ -824,7 +821,7 @@ bool rows_ok(int rows) {
 
 // (a) q, out [B, Hq, D] (q: int8 codes in the int8-dot mode, with qf
 // [B, Hq] f32 = per-row q scale x softmax scale; qf null otherwise); dtype
-// the out type.  layout 0: kv the fused pool [P, 2, Hkv, page, Dpad], sc
+// f32, the out type.  layout 0: kv the fused pool [P, 2, Hkv, page, Dpad], sc
 // its packed scale tile (bf16, or f32 with sc_f32); layout 1: kv, v the
 // split pools [Hkv, num_pages, page, D], sc, vs their f32 scales [Hkv,
 // num_pages, page].  Scales null for native pools.  nsplit > 1: ws
@@ -865,7 +862,7 @@ extern "C" int aule_paged_generic_decode(
                      window,
                      nsplit,
                      static_cast<cudaStream_t>(stream)};
-  AULE_GENERIC_DISPATCH(decode_by_layout, layout, pool, a)
+  AULE_GENERIC_F32_DISPATCH(decode_by_layout, layout, pool, a)
 }
 
 // (b) q, out [B, Hq, Sq, D] f32 (16-bit q runs csrc/paged_prefill.cu); kv

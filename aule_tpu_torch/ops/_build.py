@@ -47,8 +47,9 @@ SIGNATURES = {
     # Hkv, Sk, D, rope_len, scale, causal, window, nsplit, dtype, stream
     "aule_flash_fwd_decode": [_VOID] * 10 + [_INT] * 6 + [_FLOAT] +
                              [_INT] * 4 + [_VOID],
-    "aule_flash_generic_fwd": [_VOID] * 8 + [_INT] * 7 + [_FLOAT] +
-                              [_INT] * 3 + [_VOID],
+    # as aule_flash_fwd (dtype 2: f32)
+    "aule_flash_f32_fwd": [_VOID] * 8 + [_INT] * 7 + [_FLOAT] + [_INT] * 3 +
+                          [_VOID],
     # o, do, dlse, di, rows, D, dtype, stream
     "aule_flash_generic_delta": [_VOID] * 4 + [_INT] * 3 + [_VOID],
     # q, k, v, do, lse, di, dq, B, Hq, Hkv, Sq, Sk, D, scale, causal,
@@ -59,14 +60,14 @@ SIGNATURES = {
     "aule_flash_generic_dkv": [_VOID] * 9 + [_INT] * 6 + [_FLOAT] +
                               [_INT] * 3 + [_VOID],
     # q, qf, kv, scales, tables, lens, out, lse, ws, counters, B, Hq, Hkv,
-    # page, max_pages, scale, window, nsplit, tile_rows, dtype, pool,
+    # D, page, max_pages, scale, window, nsplit, tile_rows, dtype, pool,
     # sc_f32, stream
-    "aule_paged_decode": [_VOID] * 10 + [_INT] * 5 + [_FLOAT] +
+    "aule_paged_decode": [_VOID] * 10 + [_INT] * 6 + [_FLOAT] +
                          [_INT] * 6 + [_VOID],
     # q, k, v, k_scales, v_scales, tables, lens, out, lse, ws, counters, B,
-    # Hq, Hkv, num_pages, page, max_pages, scale, window, nsplit,
+    # Hq, Hkv, D, num_pages, page, max_pages, scale, window, nsplit,
     # tile_rows, dtype, pool, stream
-    "aule_paged_decode_split": [_VOID] * 11 + [_INT] * 6 + [_FLOAT] +
+    "aule_paged_decode_split": [_VOID] * 11 + [_INT] * 7 + [_FLOAT] +
                                [_INT] * 5 + [_VOID],
     # q, kv, scales, tables, lens, q_offsets, out, lse, B, Hq, Hkv, Sq, D,
     # page, max_pages, scale, causal, window, dtype, pool, sc_f32, stream
@@ -222,8 +223,8 @@ def stream_handle(device) -> int:
 
 def dtype_code(dtype, f32: bool = False) -> int:
     """0 = bfloat16, 1 = float16 (the kernels' storage types); 2 = float32
-    where the kernel takes it (`f32`: csrc/flash_generic.cu,
-    csrc/paged_generic.cu)."""
+    where the kernel takes it (`f32`: csrc/flash_f32.cu,
+    csrc/flash_generic.cu, csrc/paged_generic.cu)."""
     if dtype == torch.bfloat16:
         return 0
     if dtype == torch.float16:

@@ -42,8 +42,9 @@ from .reference import _expand_kv, _gather_pages
 # consecutive tokens counted from the first visible token (the kernel's
 # half-warp step, TPW)
 DECODE_SPAN = 4
-# blocks of the kernel resident on one SM at a time (its launch bounds'
-# MIN_BLOCKS: registers and shared memory allow 3 in every pool mode)
+# blocks of a decode kernel resident on one SM at a time (its launch
+# bounds' minimum: registers and shared memory allow 3 in every pool mode;
+# the tensor-core decode at D 256 allows 1, `tc_blocks_per_sm`)
 BLOCKS_PER_SM = 3
 # fewest tokens of the table's capacity (or window) per split
 MIN_SPLIT_TOKENS = 256
@@ -76,22 +77,31 @@ def generic_tile_rows(group: int) -> int:
     return rows
 
 
+def tc_blocks_per_sm(head_dim: int) -> int:
+    """The tensor-core decode's blocks resident on an SM at head dim
+    `head_dim` (csrc/paged_decode.cuh min_blocks): 3 at D 64 and 128, 1 at
+    D 256, whose ring of 132 KB and O fragment of 64 registers a thread
+    leave room for one."""
+    return 1 if head_dim > 128 else BLOCKS_PER_SM
+
+
 def row_tiles(group: int, rows: int) -> int:
     """The row tiles of a GQA group of `group` q rows, `rows` a block."""
     return -(-group // rows)
 
 
 def num_splits(batch: int, hkv: int, capacity: int, window: int,
-               sm_count: int, tiles: int = 1) -> int:
+               sm_count: int, tiles: int = 1,
+               blocks_per_sm: int = BLOCKS_PER_SM) -> int:
     """Blocks per (sequence, kv head, row tile): as many as fit the card at
-    once in one wave (BLOCKS_PER_SM on each of `sm_count` SMs; a second,
+    once in one wave (`blocks_per_sm` on each of `sm_count` SMs; a second,
     partial wave would cost a whole block's time), at most one per
     MIN_SPLIT_TOKENS tokens of the table's capacity (max_pages *
     page_size, or the window when it is smaller), at most MAX_SPLITS.
     Depends on the shapes only."""
     span = min(window, capacity) if window > 0 else capacity
     pairs = max(1, batch * hkv * tiles)
-    fit = BLOCKS_PER_SM * sm_count // pairs
+    fit = blocks_per_sm * sm_count // pairs
     most = -(-max(1, span) // MIN_SPLIT_TOKENS)
     return max(1, min(fit, most, MAX_SPLITS))
 
@@ -173,10 +183,11 @@ def sm_count(device: torch.device) -> int:
 
 def launch_plan(batch: int, hq: int, hkv: int, capacity: int, window: int,
                 device: torch.device, head_dim: int = 128,
-                tile_rows: Optional[int] = None):
+                tile_rows: Optional[int] = None,
+                blocks_per_sm: int = BLOCKS_PER_SM):
     """The kernel's split count for these shapes (`num_splits`, over the
     group's row tiles of `tile_rows` q rows, by default the tensor-core
-    decode's `tc_tile_rows`) and its merge buffers:
+    decode's `tc_tile_rows`, at `blocks_per_sm`) and its merge buffers:
     (nsplit, workspace, counters), the buffers None when nsplit is 1.  The
     workspace [B, Hkv, nsplit, G, D + 2] f32 is a fresh torch.empty; the
     counters [B * Hkv * row tiles] int32 are zeroed once per device and
@@ -190,7 +201,7 @@ def launch_plan(batch: int, hq: int, hkv: int, capacity: int, window: int,
         tile_rows = tc_tile_rows(hq // hkv)
     tiles = row_tiles(hq // hkv, tile_rows)
     nsplit = num_splits(batch, hkv, capacity, window, sm_count(device),
-                        tiles)
+                        tiles, blocks_per_sm)
     if nsplit == 1:
         return nsplit, None, None
     ws = torch.empty(batch * hq * nsplit * (head_dim + 2),

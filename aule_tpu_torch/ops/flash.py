@@ -21,10 +21,14 @@ the call at another length).  It follows its tensors:
           2 to `SHORT_SQ` queries: `flash_fwd_short`, the same file's
           mma.sync kernel
         (at D 64 and 256 the TMA kernel runs short queries too: on an H100
-        it took 9.6 us against flash_generic.cu's 126 at 1 and 16 queries
+        it took 9.6 us against the FFMA kernel's 126 at 1 and 16 queries
         of GPT-2's layer, scripts/torch_flash_ab.sh);
       - f32 at D = 64, 128 or 256 (`GENERIC_HEAD_DIMS`):
-        `flash_fwd_generic`, csrc/flash_generic.cu's FFMA kernel;
+        `flash_fwd_f32`, csrc/flash_f32.cu's kernel on the tensor cores in
+        3xTF32 (each f32 operand split into two TF32 values, three
+        products summed in f32: within 1e-5 of an f32 reference, as the
+        TPU kernel's f32 branch keeps f32 on the matrix unit at
+        Precision.HIGHEST);
     other head dims raise.
 `flash_attention_rope` is the forward-only fused-RoPE entry, and
 `flash_attention_cuda` the differentiable one (RoPE outside the op, as
@@ -45,7 +49,8 @@ from .reference import _expand_kv, attention_reference
 from .rope import apply_rope
 
 # head dims of the tensor-core kernels (csrc/flash_fwd.cu, csrc/flash_bwd.cu;
-# bf16 / f16) and of csrc/flash_generic.cu (f32)
+# bf16 / f16) and of the f32 ones (csrc/flash_f32.cu's forward,
+# csrc/flash_generic.cu's backward)
 TENSOR_CORE_HEAD_DIMS = (64, 128, 256)
 GENERIC_HEAD_DIMS = (64, 128, 256)
 # Queries per head at or below which the mma.sync kernel runs at D = 128:
@@ -173,10 +178,11 @@ def _check_rope(q, rope_cos, rope_sin):
 
 
 def uses_generic(q) -> bool:
-    """Whether the card runs q's forward and backward on
-    csrc/flash_generic.cu rather than the tensor-core kernels: f32, at
-    every head dim (the f32 rows are held to 1e-5, which TF32 does not
-    keep)."""
+    """Whether the card runs q's forward and backward on the f32 kernels
+    (csrc/flash_f32.cu's 3xTF32 forward, csrc/flash_generic.cu's FFMA
+    backward) rather than the 16-bit tensor-core kernels: f32, at every
+    head dim (the f32 rows are held to 1e-5 of an f32 reference, which one
+    TF32 pass, with its 11-bit significand, does not keep)."""
     return q.dtype == torch.float32
 
 
@@ -184,7 +190,7 @@ def forward_kernel(q):
     """The forward wrapper `flash_attention_fwd` launches for a CUDA q (the
     rule of the module's docstring)."""
     if uses_generic(q):
-        return flash_fwd_generic
+        return flash_fwd_f32
     if q.shape[-1] == 128 and q.shape[2] == 1:
         return flash_fwd_decode
     if q.shape[-1] == 128 and q.shape[2] <= SHORT_SQ:
@@ -194,19 +200,19 @@ def forward_kernel(q):
 
 def check_kernel_type(q, generic: bool) -> None:
     """Raise unless the kernels of one family take q's type and head dim:
-    flash_generic.cu (`generic`) f32 at D 64/128/256; the tensor-core
-    kernels bf16/f16 at D 64/128/256."""
+    the f32 kernels (`generic`: flash_f32.cu, flash_generic.cu) f32 at D
+    64/128/256; the 16-bit tensor-core kernels bf16/f16 at D 64/128/256."""
     d = q.shape[-1]
     if generic:
         if d in GENERIC_HEAD_DIMS and q.dtype == torch.float32:
             return
-        raise ValueError(f"flash_generic.cu takes f32 at D in "
+        raise ValueError(f"the f32 flash kernels take f32 at D in "
                          f"{GENERIC_HEAD_DIMS} (got {q.dtype} D={d}); "
                          f"bf16/f16 run on the tensor-core kernels")
     if d not in TENSOR_CORE_HEAD_DIMS or q.dtype == torch.float32:
         raise ValueError(f"the tensor-core flash kernels take bf16/f16 at "
                          f"D in {TENSOR_CORE_HEAD_DIMS} (got {q.dtype} "
-                         f"D={d}); f32 runs on flash_generic.cu")
+                         f"D={d}); f32 runs on flash_f32.cu")
 
 
 def flash_attention_fwd(
@@ -361,15 +367,15 @@ def flash_fwd_decode(q, k, v, *, causal: bool = False,
     return res
 
 
-def flash_fwd_generic(q, k, v, *, causal: bool = False,
-                      scale: Optional[float] = None, window_size: int = -1,
-                      rope_cos=None, rope_sin=None, return_lse: bool = True,
-                      kv_len=None):
-    """csrc/flash_generic.cu's FFMA forward on CUDA f32 tensors at D 64,
-    128 or 256."""
-    res = _launch("aule_flash_generic_fwd", q, k, v, causal, scale,
+def flash_fwd_f32(q, k, v, *, causal: bool = False,
+                  scale: Optional[float] = None, window_size: int = -1,
+                  rope_cos=None, rope_sin=None, return_lse: bool = True,
+                  kv_len=None):
+    """csrc/flash_f32.cu's 3xTF32 tensor-core forward on CUDA f32 tensors
+    at D 64, 128 or 256."""
+    res = _launch("aule_flash_f32_fwd", q, k, v, causal, scale,
                   window_size, rope_cos, rope_sin, return_lse, kv_len, True)
-    flash_fwd_generic.launches += 1
+    flash_fwd_f32.launches += 1
     return res
 
 
@@ -377,7 +383,7 @@ def flash_fwd_generic(q, k, v, *, causal: bool = False,
 flash_fwd_tma.launches = 0
 flash_fwd_short.launches = 0
 flash_fwd_decode.launches = 0
-flash_fwd_generic.launches = 0
+flash_fwd_f32.launches = 0
 
 
 def flash_attention_rope(q, k, v, rope_cos, rope_sin, *,

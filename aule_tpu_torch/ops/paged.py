@@ -18,9 +18,9 @@ pool that aule_tpu built feeds the port unchanged:
     `paged_attention_plain`; CUDA tensors launch a hand-written kernel
     that replaces the TPU kernel `_paged_decode_kernel` (see the source
     notes): csrc/paged_decode.cu's `SplitPools` instantiation for bf16 /
-    f16 at D = 128, csrc/paged_generic.cu's decode (its `SplitLayout`) for
-    f32 at D 64 / 128 / 256 and bf16 / f16 at D 64 / 256, or raise for
-    what neither takes.  Quantized pools are read in place,
+    f16 at D = 64, 128 or 256, csrc/paged_generic.cu's decode (its
+    `SplitLayout`) for f32 at those head dims, or raise for what neither
+    takes.  Quantized pools are read in place,
     their f32 scales folded into the scores and p: the JAX package's TPU
     route converts them to the fused layout on every call
     (paged.py:317-337), a copy of the whole pool per layer per step that
@@ -249,7 +249,8 @@ def paged_attention(
     max_pages = block_tables.shape[1]
     rows = decode_split.tc_tile_rows(hq // hkv)
     nsplit, ws, cnt = decode_split.launch_plan(
-        batch, hq, hkv, max_pages * page_size, window, dev, tile_rows=rows)
+        batch, hq, hkv, max_pages * page_size, window, dev, head_dim=d,
+        tile_rows=rows, blocks_per_sm=decode_split.tc_blocks_per_sm(d))
     bt = block_tables.to(device=dev, dtype=torch.int32).contiguous()
     lens = context_lens.to(device=dev, dtype=torch.int32).contiguous()
     out = torch.empty_like(q)
@@ -262,9 +263,9 @@ def paged_attention(
         bt.data_ptr(), lens.data_ptr(), out.data_ptr(),
         None if lse is None else lse.data_ptr(),
         None if ws is None else ws.data_ptr(),
-        None if cnt is None else cnt.data_ptr(), batch, hq, hkv, num_pages,
-        page_size, max_pages, float(scale), window, nsplit, rows, code,
-        pool, _build.stream_handle(dev))
+        None if cnt is None else cnt.data_ptr(), batch, hq, hkv, d,
+        num_pages, page_size, max_pages, float(scale), window, nsplit, rows,
+        code, pool, _build.stream_handle(dev))
     _build.check(err, "aule_paged_decode_split")
     paged_attention.launches += 1
     return (out, lse) if return_lse else out

@@ -20,11 +20,11 @@ allowed).
     `paged_attention_fused_plain`; CUDA tensors launch a hand-written
     kernel (both replace the TPU kernel `_fused_decode_kernel` in every
     pool mode; see the source notes): csrc/paged_decode.cu's tensor-core
-    kernel for bf16 / f16 at D = 128, csrc/paged_generic.cu's FFMA decode
-    for f32 at D 64 / 128 / 256 and bf16 / f16 at D 64 / 256
-    (ops/paged_generic.py), or raise for what neither takes.  A D = 64 q
-    meets pools padded to 128 lanes; the kernel reads the first D lanes of
-    each row and the softmax scale is 1 / sqrt(D) of the true D.
+    kernel for bf16 / f16 at D = 64, 128 or 256, csrc/paged_generic.cu's
+    FFMA decode for f32 at those head dims (ops/paged_generic.py), or
+    raise for what neither takes.  A D = 64 q meets pools padded to 128
+    lanes; the kernels read the first D lanes of each row and the softmax
+    scale is 1 / sqrt(D) of the true D.
   * The chunked-prefill kernel over this pool is ops/paged_prefill.py.
 """
 
@@ -406,11 +406,11 @@ def paged_attention_fused(
     quantized pools (kv_scales given) keep q's dtype, and int8 pools run
     the int8 dot-product path unless int8_matmul=False (default: the
     AULE_TPU_INT8_EXACT setting, config.int8_exact)."""
-    batch, hq, d_true = q.shape
+    batch, hq, d = q.shape
     _, _, hkv, page_size, _ = kv_pages.shape
     check_pool(q, kv_pages, kv_scales)
     if scale is None:
-        scale = 1.0 / math.sqrt(d_true)
+        scale = 1.0 / math.sqrt(d)
     window = int(window_size) if window_size and window_size > 0 else -1
     if int8_matmul is None:
         int8_matmul = not int8_exact()
@@ -447,7 +447,8 @@ def paged_attention_fused(
     max_pages = block_tables.shape[1]
     rows = decode_split.tc_tile_rows(hq // hkv)
     nsplit, ws, cnt = decode_split.launch_plan(
-        batch, hq, hkv, max_pages * page_size, window, dev, tile_rows=rows)
+        batch, hq, hkv, max_pages * page_size, window, dev, head_dim=d,
+        tile_rows=rows, blocks_per_sm=decode_split.tc_blocks_per_sm(d))
     bt = block_tables.to(device=dev, dtype=torch.int32).contiguous()
     lens = context_lens.to(device=dev, dtype=torch.int32).contiguous()
     out = torch.empty_like(q)
@@ -461,8 +462,8 @@ def paged_attention_fused(
         lse.data_ptr() if lse is not None else None,
         ws.data_ptr() if ws is not None else None,
         cnt.data_ptr() if cnt is not None else None,
-        batch, hq, hkv, page_size, max_pages, float(scale), window, nsplit,
-        rows, code, pool, sc_f32, _build.stream_handle(dev))
+        batch, hq, hkv, d, page_size, max_pages, float(scale), window,
+        nsplit, rows, code, pool, sc_f32, _build.stream_handle(dev))
     _build.check(err, "aule_paged_decode")
     paged_attention_fused.launches += 1
     return (out, lse) if return_lse else out

@@ -1,8 +1,8 @@
 """Launchers of the generic paged kernels (csrc/paged_generic.cu), the FFMA
 counterparts of the tensor-core paged kernels for what those do not take:
-the decode of f32 q and pools at D 64, 128 or 256 and of bf16 / f16 at D 64
-or 256 (GPT-2's heads are 64 wide), and the prefill of f32 at D 64, 128 or
-256 (csrc/paged_prefill.cu runs the 16-bit prefill at every head dim).
+f32 q and pools at D 64, 128 or 256, in the decode and the prefill
+(csrc/paged_decode.cu runs the 16-bit decode and csrc/paged_prefill.cu the
+16-bit prefill at every head dim).
 
 The public wrappers route to them by one rule each: `paged_attention_fused`
 and the split `paged_attention` (ops/paged_fused.py, ops/paged.py) launch
@@ -21,13 +21,9 @@ from typing import Optional
 import torch
 
 from . import _build, decode_split
-# the generic kernels' head dims, the flash ones' (f32 at all three; 16-bit
-# decode at 64 and 256)
+# the paged kernels' head dims, the flash ones' (every family takes 64, 128
+# and 256)
 from .flash import GENERIC_HEAD_DIMS
-
-# the head dim of the tensor-core paged decode (csrc/paged_decode.cu: 16-bit
-# at D 128 only)
-TENSOR_CORE_HEAD_DIM = 128
 
 KERNEL_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 # the decode kernel's pool layouts
@@ -44,11 +40,11 @@ def _check_kernel_type(q: torch.Tensor) -> None:
 
 def uses_generic_kernels(q: torch.Tensor) -> bool:
     """Whether the card runs q's decode on the generic paged decode (f32 at
-    D 64/128/256, bf16/f16 at D 64 or 256) rather than the tensor-core one
-    (csrc/paged_decode.cu: bf16/f16 at D 128).  Raises ValueError for any
-    other type or head dim."""
+    D 64/128/256) rather than the tensor-core one (csrc/paged_decode.cu:
+    bf16/f16 at D 64/128/256).  Raises ValueError for any other type or
+    head dim."""
     _check_kernel_type(q)
-    return q.dtype == torch.float32 or q.shape[-1] != TENSOR_CORE_HEAD_DIM
+    return q.dtype == torch.float32
 
 
 def prefill_uses_generic(q: torch.Tensor) -> bool:

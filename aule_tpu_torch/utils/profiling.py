@@ -21,6 +21,9 @@ import torch
 
 H100_BF16_FLOPS = 989e12     # dense tensor-core bf16 / fp16, FLOP/s
 H100_F32_FLOPS = 67e12       # f32 outside the tensor cores, FLOP/s
+H100_TF32_FLOPS = 495e12     # dense tensor-core TF32, FLOP/s
+# an f32 product in 3xTF32 (three TF32 products, csrc/flash_f32.cu)
+H100_3XTF32_FLOPS = H100_TF32_FLOPS / 3
 H100_HBM_BYTES = 3.35e12     # HBM3 bytes/s
 
 

@@ -58,21 +58,26 @@ Phases, each printing a line of its own:
      without RoPE) captured in a CUDA graph, replayed with kv_len written
      in place, deleted and captured again;
      kv_len on the TMA kernel; GPT-2 small's layer (D64) and D256 in bf16
-     and f16 forward and backward on the tensor-core kernels, f32 on
-     csrc/flash_generic.cu; the SDPA patch (install, an
-     attn_mask call reaching torch's own function, uninstall); each mode
-     timed beside its bound and one PyTorch call;
+     and f16 forward and backward on the tensor-core kernels; the Llama
+     layer and GPT-2's layer in f32, forward on csrc/flash_f32.cu (3xTF32
+     on the tensor cores), backward on csrc/flash_generic.cu; the SDPA
+     patch (install, an attn_mask call reaching torch's own function,
+     uninstall); the forward's RoPE, kv_len, window and GQA modes
+     (PUBLIC_MODES; f32 at D 64, 128 and 256 too); each mode timed beside
+     its bound and one PyTorch call;
   6. gpt2, in a process of its own (`python3 chip_smoke.py --gpt2` runs it
-     alone): csrc/paged_generic.cu's decode (f32 and D 64/256) and prefill
-     (f32), and csrc/paged_prefill.cu's 16-bit prefill at D 64/256 (bf16
-     and f16 pools, int8 and e4m3 pools with 16-bit q), held to their plain
-     versions, every call twice with the same bits:
+     alone): csrc/paged_generic.cu's decode and prefill (f32),
+     csrc/paged_decode.cu's 16-bit decode and csrc/paged_prefill.cu's
+     16-bit prefill at D 64/256 (bf16 and f16 pools, int8 and e4m3 pools
+     with 16-bit q), held to their plain versions, every call twice with
+     the same bits and counted on the kernel the rule picks:
      the decode at GPT-2's engine case (B8 Hq12/Hkv12 D64 ctx1024 page 16)
      and its edges (lengths 0, 1 and 17 with -1 tails, shuffled pages with
-     a window, 64-token pages) in f32, bf16, int8 dot, int8 exact and fp8,
-     over split pools too (which must give the fused kernel's bits), f16
-     at D64 group 2 and D256, f32 at the Llama layer (D128 group 4) and at
-     D256 group 8; the prefill of a 256-token chunk at q_offset 768 over
+     a window, 64-token pages) in f32 q (f32, int8 dot, int8 exact, fp8
+     pools) and 16-bit q (TC_DECODE_MODES), over split pools too (which
+     must give the fused kernel's bits), 16 bits at D64 group 2 and D256
+     group 8, f32 at the Llama layer (D128 group 4) and at D256 group 8;
+     the prefill of a 256-token chunk at q_offset 768 over
      1024 (also windowed), a ragged batch whose padding rows must be exact
      zeros and 64-token pages with a 1-token chunk, f32 at D128, D256
      group 8 (also a ragged batch), D64 group 2 with a window; both at
@@ -85,9 +90,9 @@ Phases, each printing a line of its own:
      through ServingEngine(model=gpt2) seven times (GPT2_RUNS: f32 whole
      and chunk 256, int8 chunk 256, fp8 whole and chunk 256, bf16 whole
      and chunk 256), each checked as the Llama runs are (launches: the
-     generic decode 12 times a step, the tensor-core decode never; the
-     chunked prefill 12 times a chunk, on paged_generic.cu in f32, on
-     paged_prefill.cu in bf16;
+     decode 12 times a step and the chunked prefill 12 times a chunk, on
+     paged_generic.cu in f32, on paged_decode.cu / paged_prefill.cu in
+     bf16, the other family never;
      pages; tokens against a teacher-forced plain forward or
      plain-attention replay, the f32 runs within GPT2_F32_NEAR_TIE), and
      one f32 prefill step and decode dispatch under torch.profiler;
@@ -1349,7 +1354,7 @@ CHUNK = 512
 
 
 def _launch_counters():
-    from aule_tpu_torch.ops.flash import (flash_fwd_decode, flash_fwd_generic,
+    from aule_tpu_torch.ops.flash import (flash_fwd_decode, flash_fwd_f32,
                                          flash_fwd_short, flash_fwd_tma)
     from aule_tpu_torch.ops.paged import paged_attention
     from aule_tpu_torch.ops.paged_fused import paged_attention_fused
@@ -1359,7 +1364,7 @@ def _launch_counters():
 
     return {"flash_fwd": flash_fwd_tma, "flash_fwd_short": flash_fwd_short,
             "flash_fwd_decode": flash_fwd_decode,
-            "flash_fwd_generic": flash_fwd_generic,
+            "flash_fwd_f32": flash_fwd_f32,
             "paged_decode": paged_attention_fused,
             "paged_decode_split": paged_attention,
             "paged_prefill": paged_attention_prefill,
@@ -1380,12 +1385,12 @@ def run_engine(params, cfg, prompts, label, model=None, engine_kw=ENGINE_KW,
     split, once per layer per step and the other never; whole-prompt
     prefill launches the flash forward that ops/flash.py's rule picks for
     the model's type, head dim and the prompt's length (`forward_kernel`:
-    flash_generic.cu's in f32, the tensor-core kernels in bf16 at D 64 and
+    flash_f32.cu's in f32, the tensor-core kernels in bf16 at D 64 and
     128 above SHORT_SQ tokens); the paged decode and prefill that
-    ops/paged_generic.py's rules pick: a model in f32 or with a head dim
-    other than 128 decodes on paged_generic.cu, an f32 model prefills its
-    chunks there, a bf16 one on paged_prefill.cu at every head dim, and the
-    other family never) and that every page came back."""
+    ops/paged_generic.py's rules pick: a model in f32 decodes and prefills
+    its chunks on paged_generic.cu, a bf16 one on paged_decode.cu and
+    paged_prefill.cu at every head dim, and the other family never) and
+    that every page came back."""
     from aule_tpu_torch.serving.engine import ServingEngine
 
     eng = ServingEngine(params, cfg, device=DEV, model=model, **engine_kw,
@@ -1691,6 +1696,7 @@ def _same(outs, ref) -> int:
 CATEGORIES = {"flash_fwd_short": ["flash_fwd_short_kernel"],
               "flash_fwd_decode": ["flash_fwd_decode_kernel"],
               "flash_fwd": ["flash_fwd_kernel"],
+              "flash_f32": ["flash_f32_fwd_kernel"],
               "flash_generic": ["flash_generic"],
               "paged_generic_decode": ["paged_generic_decode"],
               "paged_generic_prefill": ["paged_generic_prefill"],
@@ -1906,7 +1912,7 @@ def _public_counters():
 
     return {"flash_fwd": tf.flash_fwd_tma, "flash_fwd_short": tf.flash_fwd_short,
             "flash_fwd_decode": tf.flash_fwd_decode,
-            "flash_generic_fwd": tf.flash_fwd_generic,
+            "flash_f32_fwd": tf.flash_fwd_f32,
             "flash_bwd_delta": fv.attention_delta, "flash_bwd_dq": fv.flash_bwd_dq,
             "flash_bwd_dkv": fv.flash_bwd_dkv,
             "flash_generic_delta": fv.attention_delta_generic,
@@ -1977,6 +1983,15 @@ def _rate(dt):
     from aule_tpu_torch.utils import profiling
 
     return (profiling.H100_F32_FLOPS if dt == torch.float32
+            else profiling.H100_BF16_FLOPS)
+
+
+def _fwd_rate(dt):
+    """The flash forward's peak rate for dt: f32 runs in 3xTF32 on the
+    tensor cores (csrc/flash_f32.cu), 495 / 3 TFLOP/s."""
+    from aule_tpu_torch.utils import profiling
+
+    return (profiling.H100_3XTF32_FLOPS if dt == torch.float32
             else profiling.H100_BF16_FLOPS)
 
 
@@ -2221,7 +2236,7 @@ def _layer_kernels(dt):
     from aule_tpu_torch.ops import flash_vjp as fv
 
     if dt == torch.float32:
-        return {"fwd": ("flash_generic_fwd", tf.flash_fwd_generic),
+        return {"fwd": ("flash_f32_fwd", tf.flash_fwd_f32),
                 "delta": ("flash_generic_delta", fv.attention_delta_generic),
                 "dq": ("flash_generic_dq", fv.flash_bwd_generic_dq),
                 "dkv": ("flash_generic_dkv", fv.flash_bwd_generic_dkv)}
@@ -2327,11 +2342,16 @@ def _public_layer(gen, res, name, shape, s, d, dt):
              profiling.attention_bwd_flops(fwd_flops, 4),
              qkv + esz * (q.numel() + k.numel() + v.numel()) + 2 * stats,
              lib_bwd)):
-        # delta: f32 products outside the tensor cores whatever the type
-        rate = profiling.H100_F32_FLOPS if part == "delta" else _rate(dt)
+        # delta: f32 products outside the tensor cores whatever the type;
+        # the f32 forward in 3xTF32 (its FFMA bound kept beside it)
+        rate = (profiling.H100_F32_FLOPS if part == "delta"
+                else _fwd_rate(dt) if part == "fwd" else _rate(dt))
         key = counter[part] + ("_kernel" if part == "fwd" else "")
         t = _mode_time(f"{label} {part}", fn, plain, library, key, nbytes,
                        flops, rate)
+        if part == "fwd" and dt == torch.float32:
+            t["ffma_bound_ms"] = profiling.bound_ms(
+                nbytes, flops, profiling.H100_F32_FLOPS)[0]
         res["time"][mode[part]] = t
     del ref, qx, kx, vx
 
@@ -2384,9 +2404,19 @@ PUBLIC_MODES = {
          2048, 256, _BF, False, -1, 2048, 1500, "op"),
         ("f16 Sq200 over Sk900 causal, table 600, kv_len 800", "flash_fwd",
          D256, 200, 900, 256, _FP, True, -1, 600, 800, "op")],
-    "flash_generic_fwd_rope_kv_len_f32": [
-        ("Sq512 over Sk2048 causal, kv_len 1500", "flash_generic_fwd", LAYER,
-         512, 2048, 128, _F32, True, -1, 2048, 1500, "op")],
+    "flash_f32_fwd_rope_kv_len": [
+        ("Sq512 over Sk2048 causal, kv_len 1500", "flash_f32_fwd", LAYER,
+         512, 2048, 128, _F32, True, -1, 2048, 1500, "op"),
+        ("D256 group 8, Sq1024 causal", "flash_f32_fwd", D256, 1024, 1024,
+         256, _F32, True, -1, None, None, "public"),
+        ("D256 group 8, Sq300 over Sk900, window 100, table 600, kv_len "
+         "800", "flash_f32_fwd", D256, 300, 900, 256, _F32, False, 100, 600,
+         800, "op"),
+        ("GPT-2 D64 B2 Sq333 over Sk1000 causal, window 256, table 1000, "
+         "kv_len 0", "flash_f32_fwd", (2, 12, 12), 333, 1000, 64, _F32,
+         True, 256, 1000, 0, "op"),
+        ("group 3 Hq24/Hkv8 D128 Sq700 over Sk500, non-causal", "flash_f32_fwd",
+         (1, 24, 8), 700, 500, 128, _F32, False, -1, None, None, "public")],
 }
 
 
@@ -2460,7 +2490,7 @@ def _public_modes(res):
                     q, k, v, rope_cos=cos, rope_sin=sin, kv_len=kvl,
                     return_lse=False, **kw),
                 lambda: SDPA(qr, kx, vx, attn_mask=mask[None, None]),
-                f"{kernel}_kernel", nbytes, flops, _rate(dt))
+                f"{kernel}_kernel", nbytes, flops, _fwd_rate(dt))
 
 
 def _public_patch(gen, res):
@@ -2535,11 +2565,13 @@ def check_public() -> dict:
     _public_layer(gen, res, "d256", D256, TRAIN_S, 256, torch.bfloat16)
     # f16 at both new head dims, on generators of their own (a new case
     # drawn from `gen` would move the inputs of every later check)
-    for name, shape, s, d, seed in (("f16_d64", GPT2, 512, 64, 1),
-                                    ("f16_d256", D256, 1024, 256, 2)):
+    for name, shape, s, d, seed, dt in (
+            ("f16_d64", GPT2, 512, 64, 1, torch.float16),
+            ("f16_d256", D256, 1024, 256, 2, torch.float16),
+            ("gpt2_f32", GPT2, 1024, 64, 3, torch.float32)):
         g = torch.Generator(device="cuda")
         g.manual_seed(PUBLIC_SEED + 100 + seed)
-        _public_layer(g, res, name, shape, s, d, torch.float16)
+        _public_layer(g, res, name, shape, s, d, dt)
     _public_patch(gen, res)
     _public_modes(res)
     torch.cuda.empty_cache()
@@ -2561,16 +2593,24 @@ GPT2_CHUNK = 256
 # to ~1e-5 of a logit (|logit| ~ 1-5 at random weights).  2^-10 is ~100x
 # that; a wrong tile, mask or position moves logits by tenths.
 GPT2_F32_NEAR_TIE = 2.0 ** -10
-# (mode, q / pool dtype, payload dtype or None, int8_matmul)
+# The paged decode's modes, (mode, q / pool dtype, payload dtype or None,
+# int8_matmul, scale dtype): f32 q on csrc/paged_generic.cu (bf16 scales,
+# as the engine's), and 16-bit q on csrc/paged_decode.cu at every head dim
+# (bf16 q with bf16 scales, f16 q with f32 scales)
+_BS, _FS = torch.bfloat16, torch.float32
 GEN_DECODE_MODES = [
-    ("f32", torch.float32, None, None), ("bf16", torch.bfloat16, None, None),
-    ("int8 dot", torch.float32, torch.int8, True),
-    ("int8 exact", torch.float32, torch.int8, False),
-    ("fp8", torch.float32, torch.float8_e4m3fn, None)]
-GEN_F16_MODES = [
-    ("f16", torch.float16, None, None),
-    ("int8 dot", torch.float16, torch.int8, True),
-    ("fp8", torch.float16, torch.float8_e4m3fn, None)]
+    ("f32", torch.float32, None, None, None),
+    ("int8 dot", torch.float32, torch.int8, True, _BS),
+    ("int8 exact", torch.float32, torch.int8, False, _BS),
+    ("fp8", torch.float32, torch.float8_e4m3fn, None, _BS)]
+TC_DECODE_MODES = [
+    ("bf16", torch.bfloat16, None, None, None),
+    ("f16", torch.float16, None, None, None),
+    ("int8 dot bf16 q", torch.bfloat16, torch.int8, True, _BS),
+    ("int8 exact bf16 q", torch.bfloat16, torch.int8, False, _BS),
+    ("fp8 bf16 q", torch.bfloat16, torch.float8_e4m3fn, None, _BS),
+    ("int8 dot f16 q f32 scales", torch.float16, torch.int8, True, _FS),
+    ("fp8 f16 q f32 scales", torch.float16, torch.float8_e4m3fn, None, _FS)]
 GEN_PREFILL_MODES = [  # (mode, q / pool dtype, payload dtype or None)
     ("f32", torch.float32, None), ("bf16", torch.bfloat16, None),
     ("int8", torch.float32, torch.int8),
@@ -2618,80 +2658,102 @@ def _gen_quantized(pool, qdt, scale_dtype=torch.bfloat16):
 
 
 def _generic_decode_checks(gen, res):
-    """csrc/paged_generic.cu's decode against its plain version, twice with
-    the same bits: GPT-2's engine case (B8 ctx1024 Hq12/Hkv12 D64 page 16)
-    and its edges (lengths 0, 1 and 17 with -1 tails, shuffled pages with
-    a window, 64-token pages) in f32, bf16, int8 dot, int8 exact and fp8
-    (f32 q; bf16 scales as the engine's); f16 at D64 group 2 and D256
-    group 8; f32 at the Llama layer (D128 group 4) and at D256 group 8.
-    Over split pools
-    (f32 scales), the same values in f32, bf16, int8 and fp8 must give the
-    fused kernel's bits, and are held to the split plain version."""
+    """The paged decode at the head dims 64 and 256 against its plain
+    version, twice with the same bits, each call counted on the kernel
+    ops/paged_generic.py's rule picks: f32 q (GEN_DECODE_MODES: f32, int8
+    dot, int8 exact and fp8 pools) on csrc/paged_generic.cu, 16-bit q
+    (TC_DECODE_MODES: bf16 and f16 pools; int8 dot, int8 exact and e4m3
+    pools with bf16 q and bf16 scales; int8 dot and e4m3 with f16 q and f32
+    scales) on csrc/paged_decode.cu.  GPT-2's engine case (B8 ctx1024
+    Hq12/Hkv12 D64 page 16) and its edges (lengths 0, 1 and 17 with -1
+    tails, shuffled pages with a window, 64-token pages) in both; D64 group
+    2 with a window of 64 and D256 group 8 in 16 bits; f32 at the Llama
+    layer (D128 group 4) and at D256 group 8.  Over split pools (f32
+    scales), the same values in every mode but the int8 dot products (f32:
+    GPT-2's cases; 16 bits: every case) must give the fused kernel's bits,
+    and are held to the split plain version."""
     from aule_tpu_torch.ops.paged import paged_attention, paged_attention_plain
     from aule_tpu_torch.ops.paged_fused import (paged_attention_fused,
                                                 paged_attention_fused_plain)
     from aule_tpu_torch.ops.paged_generic import paged_generic_decode
 
+    both = GEN_DECODE_MODES + TC_DECODE_MODES
     cases = [  # (label, lens, max_pages, page, shuffle, window, heads, modes)
         ("GPT-2 engine B8 ctx1024", [1024] * 8, 64, 16, False, -1,
-         GPT2_HEADS, GEN_DECODE_MODES),
+         GPT2_HEADS, both),
         ("lengths 0/1/17 with -1 tails", [1, 17, 0, 1024, 1000, 33, 512,
                                           999], 64, 16, False, -1,
-         GPT2_HEADS, GEN_DECODE_MODES),
+         GPT2_HEADS, both),
         ("shuffled pages, window 300", [1024, 1, 17, 700, 1000, 64, 300,
                                         1023], 64, 16, True, 300,
-         GPT2_HEADS, GEN_DECODE_MODES),
+         GPT2_HEADS, both),
         ("page 64", [1024, 1000, 1, 0, 63, 64, 65, 1023], 16, 64, True, -1,
-         GPT2_HEADS, GEN_DECODE_MODES),
-        ("f16 D64 group 2", [1024, 1, 17, 333], 64, 16, True, 64, (8, 4, 64),
-         GEN_F16_MODES),
+         GPT2_HEADS, both),
+        ("D64 group 2, window 64", [1024, 1, 17, 333], 64, 16, True, 64,
+         (8, 4, 64), TC_DECODE_MODES),
         ("f32 Llama layer D128 group 4", [4096, 1, 17, 3000], 272, 16, True,
-         -1, LLAMA_F32, [m for m in GEN_DECODE_MODES if m[0] != "bf16"]),
+         -1, LLAMA_F32, GEN_DECODE_MODES),
         ("f32 D256 group 8", [2048, 777], 128, 16, True, -1, D256_F32,
          GEN_DECODE_MODES),
-        ("f16 D256 group 8", [2048, 777], 128, 16, True, -1, D256_F32,
-         GEN_F16_MODES[:1]),
+        ("D256 group 8", [2048, 777], 128, 16, True, -1, D256_F32,
+         TC_DECODE_MODES),
     ]
-    split_launches = 0
+    counted = {"split decode checks": 0, "tc split decode checks": 0,
+               "tc decode d256 checks": 0}
     for label, lens, max_pages, page, shuffle, window, (hq, hkv, d), modes \
             in cases:
-        for mode, dt, qdt, dot in modes:
+        for mode, dt, qdt, dot, sdt in modes:
+            tc = dt != torch.float32
             pool, bt = _generic_pool(gen, lens, max_pages, page, hkv, d, dt,
                                      shuffle)
             ln = torch.tensor(lens, dtype=torch.int32, device=DEV)
             q = _randn((len(lens), hq, d), gen, dt)
-            pl, sc = _gen_quantized(pool, qdt)
+            pl, sc = _gen_quantized(pool, qdt, sdt)
             kw = dict(kv_scales=sc, window_size=window, int8_matmul=dot,
                       return_lse=True)
-            what = (f"generic decode {mode} {label} Hq{hq}/Hkv{hkv} D{d} "
+            fam = "tensor-core" if tc else "generic"
+            what = (f"{fam} decode {mode} {label} Hq{hq}/Hkv{hkv} D{d} "
                     f"{str(dt).replace('torch.', '')} q")
+            kernel = paged_attention_fused if tc else paged_generic_decode
+            before = kernel.launches
             o, lse = _twice(what, lambda: paged_attention_fused(
                 q, pl, bt, ln, **kw))
+            if kernel.launches != before + 2:
+                raise AssertionError(f"{what}: not launched on "
+                                     f"{kernel.__name__}")
+            if tc and d == 256:
+                counted["tc decode d256 checks"] += 2
             po, plse = paged_attention_fused_plain(q, pl, bt, ln, **kw)
-            key = mode if hq == 12 else f"{mode} {label}"
-            hold(what, o, po, lse, plse, _tol(dt, bool(dot)), res["err"],
-                 f"decode {key}")
-            if dot or hq != 12:
+            key = (("tc " if tc else "") + "decode " + mode
+                   + ("" if hq == 12 else f" {label}"))
+            hold(what, o, po, lse, plse, _tol(dt, bool(dot)), res["err"], key)
+            if dot or not (tc or hq == 12):
                 continue
             (k, v, ks, vs), (fpool, fsc) = _split_pools(pool, qdt, d)
             skw = dict(k_scales=ks, v_scales=vs, window_size=window,
                        return_lse=True)
-            before = paged_generic_decode.launches
+            kernel = paged_attention if tc else paged_generic_decode
+            before = kernel.launches
             so, slse = _twice(f"split {what}", lambda: paged_attention(
                 q, k, v, bt, ln, **skw))
-            split_launches += paged_generic_decode.launches - before
+            if kernel.launches != before + 2:
+                raise AssertionError(f"split {what}: not launched on "
+                                     f"{kernel.__name__}")
+            counted[("tc " if tc else "") + "split decode checks"] += 2
             po, plse = paged_attention_plain(q, k, v, bt, ln, **skw)
             hold(f"split {what}", so, po, slse, plse, _tol(dt), res["err"],
-                 f"split {mode}")
+                 ("tc " if tc else "") + "split " + mode
+                 + ("" if hq == 12 else f" {label}"))
             fo, flse = paged_attention_fused(
                 q, fpool, bt, ln, kv_scales=fsc, window_size=window,
                 int8_matmul=False, return_lse=True)
             if not (torch.equal(so, fo) and torch.equal(slse, flse)):
                 raise AssertionError(f"split {what}: not the fused kernel's "
                                      f"bits on the same pools")
-    res["launches"]["split decode checks"] = split_launches
-    log("generic decode: every split-pool case gives the fused kernel's "
-        "bits on the same pools, and every call the same bits twice")
+    res["launches"].update(counted)
+    log("paged decode at D 64/256: every split-pool case gives the fused "
+        "kernel's bits on the same pools, and every call the same bits "
+        "twice")
 
 
 def _generic_prefill_checks(gen, res):
@@ -2767,10 +2829,10 @@ def _generic_prefill_checks(gen, res):
             hold(what, o, po, lse, plse, ROW_TOL[dt], res["err"], key)
 
 
-# csrc/paged_generic.cu at GQA groups its power-of-two rule refused before:
-# groups 3, 6 and 12 over 4 kv heads (12: two row tiles of 8, the second
-# half empty), at (label, q dtype, head dim); the f32 types with f32 q over
-# every pool, bf16 q over bf16, int8 and e4m3 pools.
+# The paged kernels at the head dims 64 and 128 at GQA groups 3, 6 and 12
+# over 4 kv heads (12: two row tiles of 8, the second half empty), at
+# (label, q dtype, head dim): f32 q over every pool on csrc/paged_generic.cu,
+# bf16 q over bf16, int8 and e4m3 pools on the tensor-core kernels.
 GEN_GROUPS = (3, 6, 12)
 GEN_GROUP_TYPES = (("f32 D128", torch.float32, 128),
                    ("f32 D64", torch.float32, 64),
@@ -2778,10 +2840,11 @@ GEN_GROUP_TYPES = (("f32 D128", torch.float32, 128),
 
 
 def _generic_group_checks(res):
-    """csrc/paged_generic.cu's decode (both layouts, no window and a
-    trailing window of 64) and the prefill (window 64; paged_generic.cu's
-    for f32 q, paged_prefill.cu's for bf16 q) at GEN_GROUPS and
-    GEN_GROUP_TYPES in every pool mode, from a generator of their own,
+    """The paged decode (both layouts, no window and a trailing window of
+    64; paged_generic.cu's for f32 q, paged_decode.cu's for bf16 q) and the
+    prefill (window 64; paged_generic.cu's for f32 q, paged_prefill.cu's
+    for bf16 q) at GEN_GROUPS and GEN_GROUP_TYPES in every pool mode, from
+    a generator of their own,
     held as _generic_decode_checks and _generic_prefill_checks hold theirs:
     twice with the same bits, against the plain versions, the split pools
     giving the fused kernel's bits."""
@@ -2812,13 +2875,15 @@ def _generic_group_checks(res):
                 for window in (-1, 64):
                     kw = dict(kv_scales=sc, window_size=window,
                               int8_matmul=dot, return_lse=True)
-                    what = f"generic decode {mode} {where} window {window}"
+                    tc = "tc " if dt != torch.float32 else ""
+                    what = (f"{'tensor-core' if tc else 'generic'} decode "
+                            f"{mode} {where} window {window}")
                     o, lse = _twice(what, lambda: paged_attention_fused(
                         q, pl, bt, ln, **kw))
                     po, plse = paged_attention_fused_plain(q, pl, bt, ln,
                                                            **kw)
                     hold(what, o, po, lse, plse, _tol(dt, bool(dot)),
-                         res["err"], f"decode {mode} {where}")
+                         res["err"], f"{tc}decode {mode} {where}")
                     if dot:
                         continue
                     (k, v, ks, vs), (fpool, fsc) = _split_pools(pool, qdt, d)
@@ -2828,7 +2893,7 @@ def _generic_group_checks(res):
                         q, k, v, bt, ln, **skw))
                     po, plse = paged_attention_plain(q, k, v, bt, ln, **skw)
                     hold(f"split {what}", so, po, slse, plse, _tol(dt),
-                         res["err"], f"split {mode} {where}")
+                         res["err"], f"{tc}split {mode} {where}")
                     fo, flse = paged_attention_fused(
                         q, fpool, bt, ln, kv_scales=fsc, window_size=window,
                         int8_matmul=False, return_lse=True)
@@ -2860,73 +2925,111 @@ def _generic_group_checks(res):
         "on the same pools, and every call the same bits twice")
 
 
-def _generic_timings(gen, res):
-    """Times at GPT-2's engine shapes (profiler device time of the kernel
-    alone and of the library call, CUDA-event medians of the kernel, its
-    plain version and the library call, beside the bound): the decode at
-    B8 ctx1024 in every mode over fused pools and in f32, bf16, int8 and
-    fp8 over split pools (f32 scales); the prefill of a 256-token chunk at
-    q_offset 768 over 1024 (f32 q on paged_generic.cu, bf16 q on
-    paged_prefill.cu, also over int8 and e4m3 pools) and bf16 at D256 group
-    8 (a chunk of 256 at 1000).  Library: SDPA on the gathered, dequantized
-    K/V in q's type (positional mask for the prefill, GQA expanded), timed
-    only.  Bounds count the D live lanes of each K/V row once."""
+def _decode_mode_times(gen, res, key, mode, lens, heads, max_pages,
+                       split):
+    """One decode mode's times over fused pools (and split pools with f32
+    scales when `split`): `_mode_time` of the wrapper as the rule routes
+    it, beside SDPA on the K/V gathered (dequantized) to q's type with a
+    key mask, at the context lengths `lens`.  Bounds count the D live
+    lanes of each live K/V row once."""
     from aule_tpu_torch.ops.paged import paged_attention, paged_attention_plain
     from aule_tpu_torch.ops.paged_fused import (dequantize_pool,
                                                 from_fused_layout,
                                                 paged_attention_fused,
                                                 paged_attention_fused_plain)
-    from aule_tpu_torch.ops.paged_prefill import (
-        paged_attention_prefill, paged_attention_prefill_plain)
     from aule_tpu_torch.ops.quant import dequantize_kv
+    from aule_tpu_torch.ops.reference import _gather_pages
     from aule_tpu_torch.utils import profiling
 
-    hq, hkv, d = GPT2_HEADS
-    batch, ctx, max_pages = 8, 1024, 64
-    for mode, dt, qdt, dot in GEN_DECODE_MODES:
-        pool, bt = _generic_pool(gen, [ctx] * batch, max_pages, 16, hkv, d,
-                                 dt, False)
-        ln = torch.full((batch,), ctx, dtype=torch.int32, device=DEV)
-        q = _randn((batch, hq, d), gen, dt)
-        pl, sc = _gen_quantized(pool, qdt)
-        # pages 1.. hold the sequences in order: [Hkv, P, page, D] ->
-        # [B, Hq, ctx, D] dense in q's type
-        kh, vh = (from_fused_layout(pl[1:], d) if qdt is None
-                  else dequantize_pool(pl[1:], sc[1:], d))
-        kd, vd = (x.reshape(hkv, batch, ctx, d).transpose(0, 1).to(dt)
-                  for x in (kh, vh))
-        esz = torch.tensor([], dtype=dt).element_size()
-        payload = esz if qdt is None else 1
-        common = 2 * q.numel() * esz + batch * max_pages * 4 + batch * 4
-        flops = 4.0 * batch * hq * ctx * d
-        kw = dict(kv_scales=sc, int8_matmul=dot)
-        res["time"][f"decode {mode}"] = _mode_time(
-            f"generic decode time {mode} GPT-2 B8 ctx1024 page16 "
-            f"Hq12/Hkv12 D64", lambda: paged_attention_fused(
-                q, pl, bt, ln, **kw),
-            lambda: paged_attention_fused_plain(q, pl, bt, ln, **kw),
-            lambda: SDPA(q[:, :, None], kd, vd), "fusedlayout",
-            profiling.paged_kv_bytes(batch * ctx, hkv, d, payload,
-                                     0 if qdt is None else 2) + common,
-            flops, _rate(dt))
-        if dot:
-            continue
-        (k, v, ks, vs), _ = _split_pools(pool, qdt, d)
-        kw = dict(k_scales=ks, v_scales=vs)
-        kh, vh = (k, v) if qdt is None else (dequantize_kv(k, ks),
-                                              dequantize_kv(v, vs))
-        kd, vd = (x[:, 1:].reshape(hkv, batch, ctx, d).transpose(0, 1).to(
-            dt) for x in (kh, vh))
-        res["time"][f"split {mode}"] = _mode_time(
-            f"generic split decode time {mode} GPT-2 B8 ctx1024 page16 "
-            f"Hq12/Hkv12 D64{'' if qdt is None else ', f32 scales'}",
-            lambda: paged_attention(q, k, v, bt, ln, **kw),
-            lambda: paged_attention_plain(q, k, v, bt, ln, **kw),
-            lambda: SDPA(q[:, :, None], kd, vd), "splitlayout",
-            profiling.paged_kv_bytes(batch * ctx, hkv, d, payload,
-                                     0 if qdt is None else 4) + common,
-            flops, _rate(dt))
-        del kd, vd, kh, vh, k, v
+    name, dt, qdt, dot, sdt = mode
+    hq, hkv, d = heads
+    batch = len(lens)
+    pool, bt = _generic_pool(gen, lens, max_pages, 16, hkv, d, dt, False)
+    ln = torch.tensor(lens, dtype=torch.int32, device=DEV)
+    q = _randn((batch, hq, d), gen, dt)
+    pl, sc = _gen_quantized(pool, qdt, sdt)
+    # a key mask where a sequence is shorter than the table (SDPA then
+    # takes another route than without one)
+    keep = None if min(lens) == max_pages * 16 else (
+        torch.arange(max_pages * 16, device=DEV)[None, :]
+        < ln[:, None])[:, None, None]
+
+    def dense(k, v):
+        """[Hkv, P, page, D] K and V -> [B, Hq, ctx, D] in q's type."""
+        return (_gather_pages(x, bt).to(dt).repeat_interleave(
+            hq // hkv, dim=1) for x in (k, v))
+
+    kd, vd = dense(*(from_fused_layout(pl, d) if qdt is None
+                     else dequantize_pool(pl, sc, d)))
+    esz = q.element_size()
+    payload = esz if qdt is None else 1
+    common = 2 * q.numel() * esz + batch * max_pages * 4 + batch * 4
+    flops = 4.0 * hq * d * sum(lens)
+    rate = _rate(dt)
+    kind = ("generic" if dt == torch.float32 else "tensor-core")
+    shape = (f"B{batch} ctx{'/'.join(map(str, sorted(set(lens))))} page16 "
+             f"Hq{hq}/Hkv{hkv} D{d}")
+    kw = dict(kv_scales=sc, int8_matmul=dot)
+    res["time"][f"{key}decode {name}"] = _mode_time(
+        f"{kind} decode time {name} {shape}",
+        lambda: paged_attention_fused(q, pl, bt, ln, **kw),
+        lambda: paged_attention_fused_plain(q, pl, bt, ln, **kw),
+        lambda: SDPA(q[:, :, None], kd, vd, attn_mask=keep),
+        "fusedlayout" if dt == torch.float32 else "fusedpool",
+        profiling.paged_kv_bytes(sum(lens), hkv, d, payload,
+                                 0 if qdt is None else 2) + common,
+        flops, rate)
+    del kd, vd
+    if not split:
+        return
+    (k, v, ks, vs), _ = _split_pools(pool, qdt, d)
+    kw = dict(k_scales=ks, v_scales=vs)
+    kd, vd = dense(*((k, v) if qdt is None else (dequantize_kv(k, ks),
+                                                 dequantize_kv(v, vs))))
+    res["time"][f"{key}split {name}"] = _mode_time(
+        f"{kind} split decode time {name} {shape}"
+        f"{'' if qdt is None else ', f32 scales'}",
+        lambda: paged_attention(q, k, v, bt, ln, **kw),
+        lambda: paged_attention_plain(q, k, v, bt, ln, **kw),
+        lambda: SDPA(q[:, :, None], kd, vd, attn_mask=keep),
+        "splitlayout" if dt == torch.float32 else "splitpools",
+        profiling.paged_kv_bytes(sum(lens), hkv, d, payload,
+                                 0 if qdt is None else 4) + common,
+        flops, rate)
+    del kd, vd, k, v
+
+
+def _generic_timings(gen, res):
+    """Times at GPT-2's engine shapes (profiler device time of the kernel
+    alone and of the library call, CUDA-event medians of the kernel, its
+    plain version and the library call, beside the bound): the decode at
+    B8 ctx1024 in every f32-q mode over fused pools and in f32, int8 and
+    fp8 over split pools (f32 scales) on paged_generic.cu, and on
+    paged_decode.cu in bf16 (both layouts), int8 dot products and e4m3
+    (bf16 q); paged_decode.cu at D256 group 8 (B2 Hq8/Hkv1, contexts 2048
+    and 777) in bf16 and f16; the prefill of a 256-token chunk at
+    q_offset 768 over 1024 (f32 q on paged_generic.cu, bf16 q on
+    paged_prefill.cu, also over int8 and e4m3 pools) and bf16 at D256 group
+    8 (a chunk of 256 at 1000).  Library: SDPA on the gathered, dequantized
+    K/V in q's type (a key mask for the decode, a positional mask for the
+    prefill, GQA expanded), timed only.  Bounds count the D live lanes of
+    each K/V row once."""
+    from aule_tpu_torch.ops.paged_fused import (dequantize_pool,
+                                                from_fused_layout)
+    from aule_tpu_torch.ops.paged_prefill import (
+        paged_attention_prefill, paged_attention_prefill_plain)
+    from aule_tpu_torch.utils import profiling
+
+    gpt2 = ([1024] * 8, GPT2_HEADS, 64)
+    for key, mode, (lens, heads, max_pages), split in (
+            [("", m, gpt2, not m[3]) for m in GEN_DECODE_MODES]
+            + [("tc ", m, gpt2, m[0] == "bf16")
+               for m in TC_DECODE_MODES if m[0] in ("bf16", "int8 dot bf16 q",
+                                                    "fp8 bf16 q")]
+            + [("tc d256 ", m, ([2048, 777], D256_F32, 128), False)
+               for m in TC_DECODE_MODES[:2]]):
+        _decode_mode_times(gen, res, key, mode, lens, heads, max_pages,
+                           split)
     # the prefill at GPT-2's chunk in every mode of GEN_PREFILL_MODES (f32
     # q on paged_generic.cu, bf16 on paged_prefill.cu) and with bf16 q over
     # 1-byte pools, then bf16 at D256 group 8 (a chunk of 256 at 1000)
@@ -2997,12 +3100,11 @@ def _gpt2_serving(res):
     the card, and the same cast to bf16) serves 12 greedy requests of 7 to
     1,000 prompt tokens, 24 new tokens each, through
     ServingEngine(model=gpt2) in every run of GPT2_RUNS, each checked by
-    run_engine (launches: the generic paged decode 12 times a step, the
-    prefill 12 times a chunk (paged_generic.cu's in f32, paged_prefill.cu's
-    in bf16), the flash forward 12 times a whole
-    prompt, by ops/flash.py's rule: flash_generic.cu's in f32 and for bf16
-    prompts of at most SHORT_SQ tokens, the TMA kernel at D64 for longer
-    bf16 prompts; the tensor-core paged kernels never; pages) and held to a
+    run_engine (launches: the paged decode 12 times a step and the prefill
+    12 times a chunk, paged_generic.cu's in f32, paged_decode.cu's and
+    paged_prefill.cu's in bf16; the flash forward 12 times a whole prompt,
+    by ops/flash.py's rule: flash_f32.cu's in f32, the TMA kernel at D64
+    in bf16; pages) and held to a
     teacher-forced plain forward or plain-attention replay.  Then one
     prefill step and one 8-step decode dispatch of the f32 engine under
     torch.profiler."""
@@ -3063,10 +3165,10 @@ def _gpt2_serving(res):
 
 
 def check_gpt2() -> dict:
-    """The GPT-2 phase: csrc/paged_generic.cu's kernels and
-    csrc/paged_prefill.cu at D 64/256 held to their plain versions and
-    timed, then GPT-2 small served.  Returns the errors, times and
-    launches."""
+    """The GPT-2 phase: csrc/paged_generic.cu's kernels, and
+    csrc/paged_decode.cu and csrc/paged_prefill.cu at D 64/256, held to
+    their plain versions and timed, then GPT-2 small served.  Returns the
+    errors, times and launches."""
     from aule_tpu_torch.ops.paged_generic import (paged_generic_decode,
                                                   paged_generic_prefill)
 
@@ -3469,10 +3571,11 @@ def _entry(name, source, replaces, launches, err, t, shape, **extra):
 
 
 def gpt2_entries(gpt2: dict) -> list:
-    """The GPT-2 phase's kernel modes (csrc/paged_generic.cu), each with
-    its launches on the GPT-2 serving runs that use it; the split layout,
-    which GPT-2 serving does not take, with its launches on the phase's
-    counted paged_attention calls."""
+    """The GPT-2 phase's kernel modes (csrc/paged_generic.cu for f32 q;
+    csrc/paged_decode.cu and csrc/paged_prefill.cu for 16-bit q at D 64 /
+    256), each with its launches on the GPT-2 serving runs that use it;
+    the split layout, which GPT-2 serving does not take, and D256 with
+    their launches on the phase's counted checks."""
     src = "aule_tpu_torch/csrc/paged_generic.cu"
     design = ("FFMA, the int8 dot products' scores on __dp4a; K/V tiles "
               "gathered into f32 shared memory, only the D live lanes of a "
@@ -3506,8 +3609,6 @@ def gpt2_entries(gpt2: dict) -> list:
             ("paged_generic_decode_f32", "decode", "f32", ("f32",
                                                            "f32 chunk"),
              "f32 pools"),
-            ("paged_generic_decode_bf16", "decode", "bf16",
-             ("bf16", "bf16 chunk"), "bf16 pools"),
             ("paged_generic_decode_int8", "decode", "int8 dot",
              ("int8 chunk",), "int8 pools, bf16 scales, f32 q, int8 dot "
              "products"),
@@ -3528,9 +3629,7 @@ def gpt2_entries(gpt2: dict) -> list:
                                      f"run {k}")
         t = times[f"{kind} {mode}"]
         extra = dict(design=design, launches_by_run=by_run, **dev(t),
-                     other_shapes=shapes(f"{kind} {mode}", *(
-                         [f"{kind} f16"] if mode == "bf16" and
-                         kind == "decode" else [])))
+                     other_shapes=shapes(f"{kind} {mode}"))
         if mode == "int8 dot":
             # the int8 exact path (int8_matmul=False) is checked and timed,
             # not launched on the main path
@@ -3564,7 +3663,65 @@ def gpt2_entries(gpt2: dict) -> list:
                       if k.startswith("tc prefill ")},
         time_by_mode={k[len("tc prefill "):]: v for k, v in times.items()
                       if k.startswith("tc prefill ")}))
-    split_modes = ("f32", "bf16", "int8 exact", "fp8")
+    # 16-bit q at D 64 / 256: csrc/paged_decode.cu's tensor cores, on the
+    # bf16 runs (D64), and on the phase's counted checks (split; D256)
+    tc_src = "aule_tpu_torch/csrc/paged_decode.cu"
+    tc_design = ("paged_decode.cu's split-KV kernel at Tile<64, POOL> / "
+                 "Tile<256, POOL>: a cp.async ring of 64-token stages (4 or 8 "
+                 "at D64, 3 blocks an SM; 2 or 4 at D256, 1 block an SM), "
+                 "mma.sync m16n8k16 (m16n8k32 int8 scores), the fused "
+                 "pool's D64 rows read at their 64 live lanes, the merge in "
+                 "the launch")
+    by_run = {k: runs[k]["paged_decode"] for k in ("bf16", "bf16 chunk")}
+    for k, count in by_run.items():
+        if count == 0 or runs[k]["paged_generic_decode"]:
+            raise AssertionError(f"the GPT-2 {k} run did not decode on "
+                                 f"paged_decode.cu alone")
+    tc_modes = [m[0] for m in TC_DECODE_MODES]
+    t = times["tc decode bf16"]
+    entries.append(_entry(
+        "paged_decode_d64", tc_src, decode_row.replace(
+            "f32 with Precision.HIGHEST l.334-336; ", ""),
+        sum(by_run.values()), err["tc decode bf16"], t,
+        f"{decode_shape}, bf16 pools", design=tc_design,
+        launches_by_run=by_run, **dev(t),
+        errs_by_mode={m: err[f"tc decode {m}"] for m in tc_modes},
+        time_by_mode={k[len("tc decode "):]: v for k, v in times.items()
+                      if k.startswith("tc decode ")},
+        other_shapes={k: v for k, v in err.items()
+                      if k.startswith(("tc decode ", "tc split "))
+                      and k not in {f"tc {x} {m}" for m in tc_modes
+                                    for x in ("decode", "split")}}))
+    launches = gpt2["launches"]["tc split decode checks"]
+    tc_split = [m for m in tc_modes if "dot" not in m]
+    entries.append(_entry(
+        "paged_decode_split_d64", tc_src, split_row.replace("f32 l.208; ", ""),
+        launches,
+        tuple(max(err[f"tc split {m}"][i] for m in tc_split)
+              for i in range(3)), times["tc split bf16"],
+        "GPT-2 small decode B8 ctx1024 page16 Hq12/Hkv12 D64, split bf16 "
+        "pools (f16, int8 and fp8 with f32 scales checked too)",
+        design=tc_design, same_bits_as_fused_kernel=True,
+        **dev(times["tc split bf16"]),
+        errs_by_mode={m: err[f"tc split {m}"] for m in tc_split},
+        launches_note="on the GPT-2 phase's counted paged_attention calls "
+                      "at D 64 and 256: GPT-2 serving has no split layout"))
+    launches = gpt2["launches"]["tc decode d256 checks"]
+    d256 = {k: v for k, v in err.items()
+            if k.startswith("tc ") and k.endswith("D256 group 8")}
+    entries.append(_entry(
+        "paged_decode_d256", tc_src, decode_row.replace(
+            "f32 with Precision.HIGHEST l.334-336; D64 padded to 128 lanes "
+            "l.56-66, 494-498", "D256"),
+        launches, tuple(max(e[i] for e in d256.values()) for i in range(3)),
+        times["tc d256 decode bf16"],
+        "D256 group 8 decode B2 Hq8/Hkv1 contexts 2048 and 777 page16, bf16 "
+        "pools (f16 timed too; every pool mode, both layouts checked)",
+        design=tc_design, **dev(times["tc d256 decode bf16"]),
+        time_f16=times["tc d256 decode f16"], errs_by_mode=d256,
+        launches_note="on the GPT-2 phase's counted D256 decode checks: no "
+                      "served model has a head dim of 256"))
+    split_modes = ("f32", "int8 exact", "fp8")
     launches = gpt2["launches"]["split decode checks"]
     if launches == 0:
         raise AssertionError("the split layout's generic decode was not "
@@ -3574,8 +3731,8 @@ def gpt2_entries(gpt2: dict) -> list:
     entries.append(_entry(
         "paged_generic_decode_split", src, split_row, launches, worst,
         times["split f32"], "GPT-2 small decode B8 ctx1024 page16 "
-        "Hq12/Hkv12 D64, split f32 pools (bf16, int8 and fp8 with f32 "
-        "scales checked and timed too)", design=design,
+        "Hq12/Hkv12 D64, split f32 pools (int8 and fp8 with f32 scales "
+        "checked and timed too)", design=design,
         same_bits_as_fused_kernel=True, **dev(times["split f32"]),
         errs_by_mode={m: err[f"split {m}"] for m in split_modes},
         time_by_mode={m: times[f"split {m}"] for m in split_modes},
@@ -3881,10 +4038,12 @@ def main() -> None:
     shapes = {"gpt2": "GPT-2 small layer B1 Hq12/Hkv12 S1024 D64 bf16 causal",
               "f32": f"Llama-3-8B layer B1 Hq32/Hkv8 S{TRAIN_S} D128 f32 "
                      f"causal",
+              "gpt2_f32": "GPT-2 small layer B1 Hq12/Hkv12 S1024 D64 f32 "
+                          "causal",
               "d256": f"B1 Hq8/Hkv1 S{TRAIN_S} D256 bf16 causal (Gemma-2B's "
                       f"attention shape)"}
     generic_rows = {
-        "fwd": fwd_row + ": its f32 branch, l.151)",
+        "fwd": fwd_row + ": its f32 branch at Precision.HIGHEST, l.147-152)",
         "delta": "aule_tpu/ops/flash_vjp.py:746 (delta, an XLA fusion in "
                  "JAX: no Pallas kernel)",
         "dq": "aule_tpu/ops/flash_vjp.py:127 (_dq_kernel, f32)",
@@ -3935,10 +4094,13 @@ def main() -> None:
                        "input type") + ")")
         return ""
 
-    public_rows += [(f"flash_generic_{part}_f32",
-                     "aule_tpu_torch/csrc/flash_generic.cu",
-                     generic_rows[part], shapes["f32"]
+    public_rows += [(("flash_f32_fwd" if part == "fwd"
+                      else f"flash_generic_{part}") + f"_{mode}",
+                     "aule_tpu_torch/csrc/flash_"
+                     + ("f32" if part == "fwd" else "generic") + ".cu",
+                     generic_rows[part], shapes[mode]
                      + library_note("f32", part))
+                    for mode in ("f32", "gpt2_f32")
                     for part in ("fwd", "delta", "dq", "dkv")]
     public_rows += [(("flash_fwd" if part == "fwd" else f"flash_bwd_{part}")
                      + f"_{mode}",
@@ -3949,7 +4111,7 @@ def main() -> None:
     mode_src = {"flash_fwd": "aule_tpu_torch/csrc/flash_fwd.cu",
                 "flash_fwd_short": "aule_tpu_torch/csrc/flash_fwd_short.cu",
                 "flash_fwd_decode": "aule_tpu_torch/csrc/flash_fwd_short.cu",
-                "flash_generic_fwd": "aule_tpu_torch/csrc/flash_generic.cu"}
+                "flash_f32_fwd": "aule_tpu_torch/csrc/flash_f32.cu"}
     for name, cases in PUBLIC_MODES.items():
         what, kernel, (b, hq, hkv), *_, d, dt = cases[0][:7]
         public_rows.append((
@@ -3967,7 +4129,8 @@ def main() -> None:
         t = public["time"][name]
         extra = {k: t[k] for k in ("device_ms", "library_device_ms",
                                    "graph_replay_ms", "launches_note",
-                                   "nsplit", "short_kernel_device_ms")
+                                   "nsplit", "short_kernel_device_ms",
+                                   "ffma_bound_ms")
                  if k in t}
         if name in public["cases"]:
             extra["cases"] = public["cases"][name]
@@ -3980,6 +4143,14 @@ def main() -> None:
                 raise AssertionError("the GPT-2 bf16 whole-prompt run "
                                      "launched no TMA forward")
             extra["launches_gpt2_bf16_whole_prompt_serving"] = served
+        if name == "flash_f32_fwd_gpt2_f32":
+            # GPT-2 small's f32 whole-prompt serving prefills through this
+            # mode at D64 (run_engine checks the count against the rule)
+            served = gpt2["runs"]["f32"]["flash_fwd_f32"]
+            if served == 0:
+                raise AssertionError("the GPT-2 f32 whole-prompt run "
+                                     "launched no f32 forward")
+            extra["launches_gpt2_f32_whole_prompt_serving"] = served
         entries.append(_entry(name, src, row, launches, public["err"][name],
                               t, shape, **extra))
     entries += gpt2_entries(gpt2)

@@ -10,11 +10,16 @@
 #     B1 ctx4096, Hq32/Hkv8 D128 page 16: fused bf16, int8 dot products,
 #     int8 exact, fp8 (bf16 scales); split bf16, int8, fp8 (f32 scales);
 #     beside SDPA on the gathered K/V (bf16);
-#   * the generic decode (csrc/paged_generic.cu) at GPT-2 small's engine
-#     shape, B8 ctx1024 Hq12/Hkv12 D64 page 16: fused f32, bf16, int8 dot
-#     products, int8 exact and fp8 (f32 q, bf16 scales), split f32; and
-#     its prefill of a 256-token chunk at q_offset 768 over 1024, f32 and
-#     bf16;
+#   * the decode at the head dims 64 and 256 as each tree routes it (f32
+#     q on csrc/paged_generic.cu; 16-bit q on csrc/paged_decode.cu in
+#     trees that template it on D, else on paged_generic.cu): GPT-2
+#     small's engine shape, B8 ctx1024 Hq12/Hkv12 D64 page 16, and D256
+#     group 8 (B2 Hq8/Hkv1,
+#     contexts 2048 and 777), every pool mode (f32 q over f32, int8 and
+#     e4m3 pools; bf16 and f16 pools; int8 and e4m3 with bf16 q and bf16
+#     scales, with f16 q and f32 scales) in both layouts, beside SDPA; and
+#     the paged prefill of a 256-token chunk at q_offset 768 over 1024 at
+#     GPT-2's shape, f32 and bf16;
 #   * the other kernels, which the decode's changes must leave as they
 #     were: the flash forward at S2048 causal and B4 S4096, the whole
 #     backward at S2048 causal, and the paged prefill (bf16, int8, fp8) at
@@ -89,26 +94,67 @@ for shape, batch, ctx in (("B8 ctx4096", 8, 4096), ("B8 ctx1024", 8, 1024),
     print(f"{tag} decode {shape} device us", out, flush=True)
     del q, pool, kd, vd
 
-generic = {}
+# The paged decode at GPT-2 small's engine shape (B8 ctx1024 Hq12/Hkv12 D64
+# page 16) and at D256 group 8 (B2 Hq8/Hkv1, contexts 2048 and 777), in
+# every pool mode and both layouts, as each tree routes them (f32 q on
+# csrc/paged_generic.cu; 16-bit q on csrc/paged_decode.cu in trees that
+# template it on D, else on paged_generic.cu), the decode kernel's own
+# device time, beside SDPA on the gathered K/V (bf16, a key mask where a
+# sequence is shorter than its table); then the paged prefill of a
+# 256-token chunk at q offset 768 over 1024 at GPT-2's shape, f32 and
+# bf16.
+from aule_tpu_torch.ops.paged_fused import from_fused_layout
+from aule_tpu_torch.ops.reference import _gather_pages
+
+f32, bf, fp = torch.float32, torch.bfloat16, torch.float16
+i8, e4 = torch.int8, torch.float8_e4m3fn
+modes = [  # (name, q / pool dtype, payload or None, int8_matmul, scales)
+    ("f32", f32, None, None, None), ("int8 dot f32 q", f32, i8, True, bf),
+    ("int8 exact f32 q", f32, i8, False, bf), ("fp8 f32 q", f32, e4, None, bf),
+    ("bf16", bf, None, None, None), ("f16", fp, None, None, None),
+    ("int8 dot bf16 q", bf, i8, True, bf),
+    ("int8 exact bf16 q", bf, i8, False, bf),
+    ("fp8 bf16 q", bf, e4, None, bf),
+    ("int8 dot f16 q f32 scales", fp, i8, True, f32),
+    ("fp8 f16 q f32 scales", fp, e4, None, f32)]
+for shape, lens, (hq, hkv, d), max_pages in (
+        ("GPT-2 B8 ctx1024 D64", [1024] * 8, c.GPT2_HEADS, 64),
+        ("D256 group 8 B2 ctx2048/777", [2048, 777], (8, 1, 256), 128)):
+    ln = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    generic = {}
+    for name, dt, qdt, dot, sdt in modes:
+        pool, bt = c._generic_pool(g, lens, max_pages, 16, hkv, d, dt, False)
+        q = c._randn((len(lens), hq, d), g, dt)
+        pl, sc = (pool, None) if qdt is None else c.quantize_pool(pool, qdt,
+                                                                   sdt)
+        generic[f"fused {name}"] = dev(lambda: paged_attention_fused(
+            q, pl, bt, ln, kv_scales=sc, int8_matmul=dot), "decode_kernel")
+        if not dot:
+            (k, v, ks, vs), _ = c._split_pools(pool, qdt, d)
+            generic[f"split {name}"] = dev(lambda: paged_attention(
+                q, k, v, bt, ln, k_scales=ks, v_scales=vs), "decode_kernel")
+            del k, v, ks, vs
+        if name == "bf16":
+            kd, vd = (_gather_pages(x, bt).repeat_interleave(hq // hkv, dim=1)
+                      for x in from_fused_layout(pool, d))
+            keep = None if min(lens) == max_pages * 16 else (
+                torch.arange(max_pages * 16, device="cuda")[None, :]
+                < ln[:, None])[:, None, None]
+            generic["sdpa"] = dev(lambda: F.scaled_dot_product_attention(
+                q[:, :, None], kd, vd, attn_mask=keep))
+            del kd, vd
+        del pool, pl, sc, q
+    print(f"{tag} paged decode {shape} device us", generic, flush=True)
 hq, hkv, d = c.GPT2_HEADS
-ln = torch.full((8,), 1024, dtype=torch.int32, device="cuda")
-for name, dt, qdt, dot in c.GEN_DECODE_MODES:
-    pool, bt = c._generic_pool(g, [1024] * 8, 64, 16, hkv, d, dt, False)
-    q = c._randn((8, hq, d), g, dt)
-    pl, sc = c._gen_quantized(pool, qdt)
-    generic[f"decode {name}"] = dev(lambda: paged_attention_fused(
-        q, pl, bt, ln, kv_scales=sc, int8_matmul=dot), "fusedlayout")
-    if name == "f32":
-        (k, v, _, _), _ = c._split_pools(pool, None, d)
-        generic["split decode f32"] = dev(lambda: paged_attention(
-            q, k, v, bt, ln), "splitlayout")
+ln = torch.full((1,), 1024, dtype=torch.int32, device="cuda")
 qoff = torch.tensor([768], dtype=torch.int32, device="cuda")
+pre = {}
 for name, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
     pool, bt = c._generic_pool(g, [1024], 64, 16, hkv, d, dt, False)
     q = c._randn((1, hq, 256, d), g, dt)
-    generic[f"prefill {name}"] = dev(lambda: paged_attention_prefill(
-        q, pool, bt, ln[:1], q_offsets=qoff), "paged_generic_prefill")
-print(f"{tag} generic kernels (GPT-2 shapes) device us", generic,
+    pre[f"prefill {name}"] = dev(lambda: paged_attention_prefill(
+        q, pool, bt, ln, q_offsets=qoff), "prefill_kernel")
+print(f"{tag} paged prefill (GPT-2 chunk 256 at 768) device us", pre,
       flush=True)
 
 other = {}

@@ -14,7 +14,11 @@
 # engine's chunk (512 queries at q_offset 3488 over 4000 cached tokens),
 # then the one-query decode (the SDPA patch's bucketed decode, plain and
 # with RoPE) and the 16-bit paged prefill at D 64 and 256, as each tree
-# routes them, beside SDPA.  The two trees run in turns, A, B, B, A, one process each, so that both
+# routes them, beside SDPA; last the f32 forward as each tree routes it
+# (flash_f32.cu's 3xTF32 kernel in trees that have it, else
+# flash_generic.cu's FFMA one) at the Llama layer, GPT-2's layer, D256
+# and RoPE + kv_len, and the f32 backward's parts, beside SDPA in f32.
+# The two trees run in turns, A, B, B, A, one process each, so that both
 # versions meet the same card.  Each process builds its tree's kernels and
 # prints the ptxas lines of every kernel.
 #
@@ -225,6 +229,57 @@ for label, (hq, hkv, d), hist, chunk, max_pages in (
     del pool, q, kd, vd
 print(f"{tag} decode and D64/D256 prefill device ms per call (kernel, sdpa)",
       new, flush=True)
+torch.cuda.empty_cache()
+# The f32 forward as each tree routes it (csrc/flash_f32.cu's 3xTF32
+# kernel in trees that have it, else csrc/flash_generic.cu's FFMA forward)
+# and the f32 backward (csrc/flash_generic.cu in both: delta, dQ, dK/dV),
+# device ms per call beside SDPA's in f32 (phase_device sets allow_tf32
+# False): the
+# Llama layer S2048, GPT-2's layer S1024 D64, D256 group 8 S2048 (causal;
+# SDPA is_causal) and RoPE + kv_len (Sq512 over 1500 of 2048 keys, causal;
+# SDPA on the rotated q, k with the boolean mask), on a generator of its
+# own.
+g4 = torch.Generator("cuda")
+g4.manual_seed(c.SEED + 500)
+f32 = {}
+for label, (b, hq, hkv), sq, sk, d, rows, n in (
+        ("Llama S2048", c.LAYER, 2048, 2048, 128, None, None),
+        ("GPT-2 S1024 D64", (1, 12, 12), 1024, 1024, 64, None, None),
+        ("D256 group 8 S2048", (1, 8, 1), 2048, 2048, 256, None, None),
+        ("RoPE kv_len 1500 Sq512/Sk2048", c.LAYER, 512, 2048, 128, 2048,
+         1500)):
+    q = c._randn((b, hq, sq, d), g4, torch.float32)
+    k, v = (c._randn((b, hkv, sk, d), g4, torch.float32) for _ in range(2))
+    cos = sin = kvl = None
+    sdpa_kw = dict(is_causal=True)
+    qr, kr = q, k
+    if rows is not None:
+        cos, sin = T.precompute_rope_frequencies(rows, d, c.LLAMA_ROPE_BASE,
+                                                 device="cuda")
+        kvl = torch.full((1,), n, dtype=torch.int32, device="cuda")
+        qr, kr = T.apply_rope(q, cos, sin), T.apply_rope(k, cos, sin)
+        sdpa_kw = dict(attn_mask=build_mask(sq, sk, True, -1, device="cuda")
+                       & (torch.arange(sk, device="cuda") < n))
+    kx, vx = (x.repeat_interleave(hq // hkv, dim=1) for x in (kr, v))
+    f32[label] = {
+        "fwd": dev(lambda: flash_attention_fwd(
+            q, k, v, causal=True, rope_cos=cos, rope_sin=sin, kv_len=kvl,
+            return_lse=False)),
+        "sdpa": dev(lambda: F.scaled_dot_product_attention(qr, kx, vx,
+                                                           **sdpa_kw))}
+    if label == "Llama S2048":
+        o, lse = flash_attention_fwd(q, k, v, causal=True)
+        do = c._randn(q.shape, g4, torch.float32)
+        whole = lambda: fv.flash_attention_bwd(q, k, v, o, lse, do,
+                                               causal=True)
+        whole()
+        by = profiling.device_breakdown(lambda: [whole() for _ in range(5)],
+                                        parts)["by_category_ms"]
+        f32[label].update({f"bwd {p}": round(by[p] / 5, 5) for p in parts})
+        del o, lse, do
+    del q, k, v, kx, vx, qr, kr
+    torch.cuda.empty_cache()
+print(f"{tag} f32 forward and backward device ms per call", f32, flush=True)
 EOF
   )
 }

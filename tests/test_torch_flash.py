@@ -185,7 +185,8 @@ def test_kernel_launchers_take_only_cuda_tensors(kernel, d):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
                                    torch.float16])
 def test_kernel_routing(dtype, d, sq):
-    """The one rule of ops/flash.py: f32 on flash_generic.cu; bf16/f16 on
+    """The one rule of ops/flash.py: f32 on flash_f32.cu (the backward on
+    flash_generic.cu); bf16/f16 on
     the tensor-core kernels at D 64/128/256, at D 128 the split-KV decode
     for one query and the mma.sync kernel for 2 to SHORT_SQ queries; each
     family's type check takes what the rule sends it and refuses the
@@ -193,7 +194,7 @@ def test_kernel_routing(dtype, d, sq):
     q = torch.zeros(1, 2, sq, d, dtype=dtype)
     generic = dtype == torch.float32
     assert tflash.uses_generic(q) is generic
-    want = ("flash_fwd_generic" if generic
+    want = ("flash_fwd_f32" if generic
             else "flash_fwd_tma" if d != 128 or sq > tflash.SHORT_SQ
             else "flash_fwd_decode" if sq == 1 else "flash_fwd_short")
     assert tflash.forward_kernel(q) is getattr(tflash, want)

@@ -562,15 +562,15 @@ def test_split_merge_plain_against_jax(mode, window, nsplit):
 @pytest.mark.parametrize("kernel", ["decode", "prefill"])
 @pytest.mark.parametrize("dtype,d,generic", [
     (torch.float32, 64, True), (torch.float32, 128, True),
-    (torch.float32, 256, True), (torch.bfloat16, 64, True),
-    (torch.bfloat16, 128, False), (torch.bfloat16, 256, True),
-    (torch.float16, 64, True), (torch.float16, 128, False),
-    (torch.float16, 256, True)])
+    (torch.float32, 256, True), (torch.bfloat16, 64, False),
+    (torch.bfloat16, 128, False), (torch.bfloat16, 256, False),
+    (torch.float16, 64, False), (torch.float16, 128, False),
+    (torch.float16, 256, False)])
 def test_kernel_family_routing(dtype, d, generic, kernel):
     """Each paged kernel's rule (ops/paged_generic.py).  The decode: the
-    tensor-core kernel (csrc/paged_decode.cu) takes bf16/f16 at D 128, the
-    generic one (csrc/paged_generic.cu) f32 at D 64/128/256 and bf16/f16
-    at D 64 or 256 (`generic`).  The prefill: the tensor-core kernel
+    tensor-core kernel (csrc/paged_decode.cu) takes bf16/f16 at D
+    64/128/256, the generic one (csrc/paged_generic.cu) f32 alone
+    (`generic`).  The prefill the same: the tensor-core kernel
     (csrc/paged_prefill.cu) takes bf16/f16 at D 64/128/256, the generic
     one f32 alone."""
     from aule_tpu_torch.ops.paged_generic import (prefill_uses_generic,
@@ -617,3 +617,22 @@ def test_launch_plan_workspace_holds_the_head_dim(head_dim, monkeypatch):
     assert nsplit == ds.num_splits(8, 12, 1024, -1, 132) == 4
     assert ws.numel() == 8 * 12 * nsplit * (head_dim + 2)
     assert cnt.numel() >= 8 * 12 and not cnt.any()
+
+
+@pytest.mark.parametrize("head_dim,per_sm", [(64, 3), (128, 3), (256, 1)])
+def test_tensor_core_decode_splits_by_its_blocks_per_sm(head_dim, per_sm,
+                                                        monkeypatch):
+    """The tensor-core decode's wave holds 3 blocks an SM at D 64 and 128
+    and 1 at D 256 (csrc/paged_decode.cu min_blocks): its split count is
+    one wave of those at B8 x 8 kv heads over 4096 tokens (6 splits, or 2
+    at D 256), the same for either layout since it reads the shapes
+    only."""
+    monkeypatch.setattr(ds, "sm_count", lambda device: 132)
+    monkeypatch.setattr(ds, "_COUNTERS", {})
+    assert ds.tc_blocks_per_sm(head_dim) == per_sm
+    dev = torch.device("cpu", 0)
+    nsplit, ws, _ = ds.launch_plan(8, 32, 8, 4096, -1, dev,
+                                   head_dim=head_dim,
+                                   blocks_per_sm=per_sm)
+    assert nsplit == per_sm * 132 // (8 * 8)
+    assert ws.numel() == 8 * 32 * nsplit * (head_dim + 2)
