@@ -265,20 +265,12 @@ struct RopeAngles {
   }
 };
 
-// The shared-memory accesses are volatile asm with no memory clobber: they
-// keep their order against the barrier waits, fences and __syncthreads
-// around them (volatile asm and barriers), and leave the compiler free to
-// schedule the table loads.
+// Eight value pairs in registers: a holds x1 (8 T values), b x2; both are
+// rotated in place (rope_chunks in shared memory, rope_prepass.cu in
+// device memory: the same roundings).
 template <typename T>
-__device__ __forceinline__ void rope_chunks(uint32_t lo, uint32_t hi,
-                                            const RopeAngles& ang) {
-  uint32_t a[4], b[4];
-  asm volatile("ld.shared.v4.u32 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
-               : "r"(lo));
-  asm volatile("ld.shared.v4.u32 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(b[0]), "=r"(b[1]), "=r"(b[2]), "=r"(b[3])
-               : "r"(hi));
+__device__ __forceinline__ void rope_regs(uint32_t (&a)[4], uint32_t (&b)[4],
+                                          const RopeAngles& ang) {
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const float4 c = ang.c[h], s = ang.s[h];
@@ -294,6 +286,23 @@ __device__ __forceinline__ void rope_chunks(uint32_t lo, uint32_t hi,
                                    rot_hi(x1.y, x2.y, c1, s1));
     }
   }
+}
+
+// The shared-memory accesses are volatile asm with no memory clobber: they
+// keep their order against the barrier waits, fences and __syncthreads
+// around them (volatile asm and barriers), and leave the compiler free to
+// schedule the table loads.
+template <typename T>
+__device__ __forceinline__ void rope_chunks(uint32_t lo, uint32_t hi,
+                                            const RopeAngles& ang) {
+  uint32_t a[4], b[4];
+  asm volatile("ld.shared.v4.u32 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+               : "r"(lo));
+  asm volatile("ld.shared.v4.u32 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(b[0]), "=r"(b[1]), "=r"(b[2]), "=r"(b[3])
+               : "r"(hi));
+  rope_regs<T>(a, b, ang);
   asm volatile("st.shared.v4.u32 [%0], {%1,%2,%3,%4};\n" ::"r"(lo),
                "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]));
   asm volatile("st.shared.v4.u32 [%0], {%1,%2,%3,%4};\n" ::"r"(hi),

@@ -1,6 +1,6 @@
 // Flash attention forward for f32 inputs at D = 64, 128 or 256 (sm_90a),
 // on the tensor cores in 3xTF32.  Hand-written CUDA C++.  bf16 / f16 run on
-// flash_fwd.cu; the f32 backward is flash_generic.cu's and takes this
+// flash_fwd.cu; the f32 backward is flash_f32_bwd.cu's and takes this
 // kernel's LSE.
 //
 // Replaces, in f32, the TPU kernel aule_tpu/ops/flash.py::_fwd_kernel (its
@@ -53,6 +53,7 @@
 // registers a thread).
 
 #include "generic.cuh"
+#include "tf32.cuh"
 
 namespace {
 
@@ -81,38 +82,6 @@ struct F32Tile {
   static constexpr int SMEM =
       4 * (BM * LQ + (PRE ? 2 : 1) * BN * (LQ + LV));
 };
-
-__device__ __forceinline__ uint32_t tf32(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
-  return r;
-}
-
-// x = big + small, each a TF32 value
-__device__ __forceinline__ void split(float x, uint32_t& big,
-                                      uint32_t& small) {
-  big = tf32(x);
-  small = tf32(x - __uint_as_float(big));
-}
-
-// d += a b, m16n8k8, TF32 inputs, f32 sums
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// d += a b in 3xTF32: the cross terms first, then big x big
-__device__ __forceinline__ void mma3(float (&d)[4], const uint32_t (&ab)[4],
-                                     const uint32_t (&as)[4],
-                                     const uint32_t (&bb)[2],
-                                     const uint32_t (&bs)[2]) {
-  mma_tf32(d, as, bb);
-  mma_tf32(d, ab, bs);
-  mma_tf32(d, ab, bb);
-}
 
 // Rows row0 .. row0 + R - 1 of src [S, D] f32 -> dst (rows of ld floats);
 // rows at or past lim are zeros.  Without tables by 16-byte cp.async (the
@@ -163,25 +132,6 @@ __device__ __forceinline__ void load_rows(float* dst, int ld, const float* src,
 // q, o [B, Hq, Sq, D]; k, v [B, Hkv, Sk, D]; lse [B, Hq, Sq] or null; rope
 // tables [rope_len, D / 2] f32 or null; kv_len one int32 on the card or
 // null.  Grid: (q tiles, Hq, B), the last q tile first.
-// The tile's rows (R of ld floats) split in place: raw values in `small`
-// become their small parts, their big parts go to `big`.
-template <int D, int R, int NTH>
-__device__ __forceinline__ void split_rows(float* big, float* small, int ld) {
-  constexpr int C = D / 4;
-  for (int i = threadIdx.x; i < R * C; i += NTH) {
-    const int at = (i / C) * ld + 4 * (i % C);
-    const float4 x = *reinterpret_cast<const float4*>(small + at);
-    uint32_t b[4], sm[4];
-    split(x.x, b[0], sm[0]);
-    split(x.y, b[1], sm[1]);
-    split(x.z, b[2], sm[2]);
-    split(x.w, b[3], sm[3]);
-    *reinterpret_cast<uint4*>(big + at) = make_uint4(b[0], b[1], b[2], b[3]);
-    *reinterpret_cast<uint4*>(small + at) =
-        make_uint4(sm[0], sm[1], sm[2], sm[3]);
-  }
-}
-
 template <int D>
 __global__ void __launch_bounds__(F32Tile<D>::NTH, F32Tile<D>::MINB)
     flash_f32_fwd_kernel(const float* __restrict__ q,

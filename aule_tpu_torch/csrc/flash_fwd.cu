@@ -57,13 +57,17 @@
 // dynamic_kv_len, flash.py:108-136, 227-246) take the kernel's EXT
 // instantiation; the plain one compiles as before.  With tables, each
 // consumer warpgroup rotates its 64 Q rows once, after Q lands and before
-// its first product, and the producer warpgroup rotates each K stage in
-// shared memory after its TMA load lands (in place, keeping the 128-byte
-// swizzle: values d and d + 64 of a row sit at the same offset of the two
-// 64-column halves) and releases it to the consumers on a barrier of its
-// own, as paged_prefill.cu's producer converts its 1-byte tiles; it keeps
-// NST - 1 loads in flight ahead of the rotation.  kv_len is read from the
-// card by every thread: the tile range and the ragged mask come from it.
+// its first product (in place, keeping the 128-byte swizzle).  K arrives
+// rotated: rope_prepass.cu turns each K row once a call, before this
+// kernel, where the TPU kernel (and this one until the pre-pass) turned
+// every K tile again for every q tile and q head of a group (at the Llama
+// layer S2048 ~4,350 stage rotations and ~285 MB of table reads through
+// L2, 157.5 us against the plain kernel's 75.9 on an H100 80GB HBM3 at
+// 700 W; PERF.md).  So the producer is the plain one.  EXT keeps its 56 /
+// 224 registers: with the plain 24 / 240 its kv_len mode (512 queries over
+// 3000 of 4096 keys) took 48.1 us against 45.2 (same card; PERF.md).
+// kv_len is read from the card by every thread: the tile range and the
+// ragged mask come from it.
 //
 // Head dims 64 and 256 (the template's D; `Tile<D>` holds each one's
 // shape).  A tile of D columns is D / 64 swizzled 64-column chunks
@@ -129,8 +133,8 @@ struct Shape {
   static constexpr int KV_CHUNK = BN * ROW_BYTES;      // a chunk of K or V
   static constexpr int Q_BYTES = CHUNKS * Q_CHUNK;     // the Q tile
   static constexpr int KV_BYTES = CHUNKS * KV_CHUNK;   // a K or V stage
-  // full Q, full K/V, empty; EXT: rotated K
-  static constexpr int NBARS = 1 + (EXT ? 4 : 3) * NST;
+  // full Q, full K/V, empty
+  static constexpr int NBARS = 1 + 3 * NST;
   static constexpr int SMEM = 1024 + Q_BYTES + 2 * NST * KV_BYTES + 8 * NBARS;
   static_assert(SMEM <= 232448, "the block's shared memory");
 };
@@ -151,12 +155,9 @@ struct Smem {
   __device__ uint32_t full_k(int s) const { return bar(1 + s); }
   __device__ uint32_t full_v(int s) const { return bar(1 + S::NST + s); }
   __device__ uint32_t empty(int s) const { return bar(1 + 2 * S::NST + s); }
-  __device__ uint32_t ready_k(int s) const {
-    return bar(1 + 3 * S::NST + s);
-  }
 };
 
-// Rotates rows r0 .. r0 + n - 1 of a tile at `tile` (D / 64 chunks of
+// Rotates rows r0 .. r0 + n - 1 of the Q tile at `tile` (D / 64 chunks of
 // 128-byte swizzled rows, CHUNK bytes apart) by table row pos0 + r,
 // `threads` threads from `tid`; rows at or past `limit` or rope_len are
 // left as they are (zeros, or the identity past the table).  The pair of
@@ -227,9 +228,9 @@ __device__ __forceinline__ void kv_tiles(int q_lo, int q_hi, int Sk,
 
 // tq, to: [B * Hq, Sq, D] (boxes of BM and 64 rows); tk, tv: [B * Hkv, Sk,
 // D] (boxes of BN rows); lse: [B, Hq, Sq] or null.  EXT: rope tables
-// [rope_len, D/2] f32 (or null) and kv_len, one int32 on the card (or
-// null).  Grid: one block per (q tile, batch, q head), q head fastest, last
-// q tile first.
+// [rope_len, D/2] f32 (or null; K comes rotated, rope_prepass.cu, and the
+// consumers turn Q) and kv_len, one int32 on the card (or null).  Grid: one
+// block per (q tile, batch, q head), q head fastest, last q tile first.
 template <typename T, int D, bool EXT>
 __global__ void __launch_bounds__(Shape<D, EXT>::NTHREADS, 1)
     flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
@@ -269,7 +270,6 @@ __global__ void __launch_bounds__(Shape<D, EXT>::NTHREADS, 1)
       mbar_init(sm.full_k(s), 1);
       mbar_init(sm.full_v(s), 1);
       mbar_init(sm.empty(s), NWG * 4);  // one arrival per consumer warp
-      if (EXT) mbar_init(sm.ready_k(s), 128);  // every producer thread
     }
     mbar_init_fence();
   }
@@ -300,36 +300,10 @@ __global__ void __launch_bounds__(Shape<D, EXT>::NTHREADS, 1)
   if (threadIdx.x < 128) {
     // ---- producer warpgroup: one thread keeps the ring full
     // setmaxnreg (two consumer warpgroups, D = 128): the producer gives up
-    // registers, the consumers take them; EXT's producer rotates K stages
-    // (24 + 2 * 240 and 56 + 2 * 224 fit the 3 * 168 a thread has at
-    // launch)
+    // registers, the consumers take them (24 + 2 * 240 and 56 + 2 * 224 fit
+    // the 3 * 168 a thread has at launch)
     if constexpr (NWG == 2) setmaxnreg_dec<EXT ? 56 : 24>();
-    if (rope) {
-      // every thread rotates each K stage once its load lands; thread 0
-      // refills the stage before it, keeping NST - 1 loads ahead
-      const int tid = threadIdx.x, n = j_hi - j_lo + 1;
-      auto issue = [&](int it) {  // tile j_lo + it into stage it % NST
-        load_kv(it % NST, j_lo + it, ((it / NST) & 1) ^ 1);  // round 0 passes
-      };
-      if (tid == 0) {
-        tma_prefetch_map(&tq);
-        tma_prefetch_map(&tk);
-        tma_prefetch_map(&tv);
-        tma_prefetch_map(&to);
-        load_q();
-        for (int it = 0; it < NST && it < n; ++it) issue(it);
-      }
-      for (int it = 0; it < n; ++it) {
-        const int s = it % NST;
-        mbar_wait(sm.full_k(s), (it / NST) & 1);
-        rope_tile<T, D, KV_CHUNK>(sm.k(s), 0, BN, (j_lo + it) * BN, Sk, rc,
-                                  rs, rope_len, tid, 128);
-        fence_proxy_async();  // the stores, before wgmma reads them
-        mbar_arrive(sm.ready_k(s));
-        // the stage of tile it - 1, released once the consumers are past it
-        if (tid == 0 && it >= 1 && it - 1 + NST < n) issue(it - 1 + NST);
-      }
-    } else if (threadIdx.x == 0) {
+    if (threadIdx.x == 0) {
       tma_prefetch_map(&tq);
       tma_prefetch_map(&tk);
       tma_prefetch_map(&tv);
@@ -380,7 +354,7 @@ __global__ void __launch_bounds__(Shape<D, EXT>::NTHREADS, 1)
       const uint64_t dv = wgmma_desc(sm.v(st), KV_CHUNK, 8 * ROW_BYTES);
 
       // S = Q K^T
-      mbar_wait(rope ? sm.ready_k(st) : sm.full_k(st), ph);
+      mbar_wait(sm.full_k(st), ph);
       fence_regs(s);
       wgmma_fence();
       if constexpr (BN == 128) {

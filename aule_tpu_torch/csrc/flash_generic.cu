@@ -1,36 +1,25 @@
-// Flash attention backward for what the tensor-core kernels do not take
-// (sm_90a): f32 inputs at D = 64, 128 or 256 (bf16 / f16 run on
-// flash_bwd.cu at every head dim; the f32 forward is flash_f32.cu's
-// 3xTF32 kernel, whose LSE this backward takes).  Hand-written CUDA C++,
-// products on FFMA.
+// The f32 flash backward's delta, and its dK/dV at D = 256 (sm_90a),
+// hand-written CUDA C++ on FFMA; bf16 / f16 take flash_bwd.cu, f32 dQ and
+// dK/dV at D 64 / 128 flash_f32_bwd.cu's 3xTF32 kernels.
 //
-// Replaces, in f32, the TPU kernels aule_tpu/ops/flash_vjp.py::_dq_kernel
-// and ::_dkv_kernel (and their window forms _win_dq_kernel and
-// _win_dkv_kernel).  It computes what they compute: the backward's delta,
-// dQ and dK/dV from the saved LSE, with causal and window masks, GQA and
-// Sq != Sk.
+// delta: di = rowsum(o * do) - dlse for f32 o and do at D = 64, 128 or
+// 256.  It replaces no Pallas kernel: in the JAX package delta is an XLA
+// fusion (aule_tpu/ops/flash_vjp.py:746-750).  What bounds it on the H100:
+// bytes (o and do read once).  One warp a row, f32 sums in a fixed order,
+// so two runs give the same bits.
 //
-// What bounds it on the H100: the products run at the card's f32 FFMA
-// rate (67 TFLOP/s); moving them to the tensor cores in 3xTF32, as the
-// forward did, is the next step.  The design is the simplest one that
-// stays within that rate's reach:
-//   * one block of 256 threads (16 x 16) per (q tile, head, batch) for
-//     dQ, per (kv tile, q head, batch) for dK/dV; tiles of 64 rows and 64
-//     keys (32 and 32 at D = 256, to stay in 227 KB);
-//   * every tile in shared memory as f32 rows padded to D + 4 floats, so
-//     each thread reads 16 bytes at a time and the 16 threads of a
-//     half-warp meet distinct bank groups;
-//   * a thread holds a 4 x 4 (2 x 2 at D = 256) block of the score tile
-//     and a row block x D / 16 columns of its output, so a 16-byte read
-//     feeds 4 to 16 FFMAs; dS goes through shared memory to the second
-//     product;
-//   * no atomics: dQ sums the kv tiles in one block, a dK/dV block the q
-//     tiles of one q head; with GQA each head's f32 share goes to a
-//     workspace and a second kernel sums the group's shares in head order,
-//     so two runs give the same bits (with a group of 8 at Hkv 1, one block
-//     per kv tile walking the whole group left most of the card idle).
-// Tiles outside the causal diagonal or the window are skipped; rows at or
-// past S load as zeros and are never written.
+// dK/dV at D = 256 replaces, in f32, aule_tpu/ops/flash_vjp.py::_dkv_kernel
+// (and _win_dkv_kernel) there: flash_f32_bwd.cu's 3xTF32 kernel, whose 16
+// x 256 sums of dK and dV do not fit a thread's registers together, ran
+// two passes over its q tiles and took 3.22 ms at B1 Hq8/Hkv1 S2048 causal
+// against this kernel's 2.32 (H100 80GB HBM3, 700 W; PERF.md).  What bounds
+// it: operations, at the card's f32 FFMA rate (67 TFLOP/s).  One block of
+// 256 threads (16 x 16) per (kv tile of 32 keys, q head, batch), every tile
+// in shared memory as f32 rows padded to D + 4 floats; a thread holds a 2 x
+// 2 block of the score tile and a row block x 16 columns of dK and dV; no
+// atomics: with GQA each head's f32 share goes to a workspace and a second
+// kernel sums the group's shares in head order, so two runs give the same
+// bits.
 
 #include "generic.cuh"
 
@@ -65,87 +54,6 @@ __device__ __forceinline__ void p_ds(float s, float dp, float lse_r,
                                      float& p, float& ds) {
   p = ok ? expf(s * scale - lse_r) : 0.f;
   ds = p * (dp - di_r) * scale;
-}
-
-// ---- dQ: dq = ds k over the live kv tiles.  Grid: (q tiles, Hq, B).
-template <typename T, int D>
-__global__ void __launch_bounds__(NT)
-    flash_generic_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                            const T* __restrict__ v,
-                            const T* __restrict__ dO,
-                            const float* __restrict__ lse,
-                            const float* __restrict__ di, T* __restrict__ dq,
-                            int Hq, int Hkv, int Sq, int Sk, float scale,
-                            int causal, int window) {
-  using L = Tiles<D>;
-  constexpr int BM = L::BM, BN = L::BN, LD = L::LD, LP = L::LP, RM = L::RM,
-                CN = L::CN, CD = L::CD, G = L::G;
-  extern __shared__ float4 smem4[];
-  float* sQ = reinterpret_cast<float*>(smem4);
-  float* sO = sQ + BM * LD;  // dO
-  float* sK = sO + BM * LD;
-  float* sV = sK + BN * LD;
-  float* sS = sV + BN * LD;  // dS
-
-  const int tx = threadIdx.x % TX, ty = threadIdx.x / TX;
-  const int q_lo = (gridDim.x - 1 - blockIdx.x) * BM;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int hk = h / (Hq / Hkv);
-  int j_lo, j_hi;
-  kv_range(q_lo, min(q_lo + BM, Sq) - 1, Sk, causal, window, BN, j_lo,
-           j_hi);
-  const size_t row0 = ((size_t)b * Hq + h) * Sq;
-  const T* kb = k + ((size_t)b * Hkv + hk) * Sk * D;
-  const T* vb = v + ((size_t)b * Hkv + hk) * Sk * D;
-  load_tile<T, D, BM>(sQ, q + row0 * D, q_lo, Sq);
-  load_tile<T, D, BM>(sO, dO + row0 * D, q_lo, Sq);
-
-  const int qpos0 = q_lo + ty * RM;
-  float lse_r[RM], di_r[RM], acc[RM][CD];
-#pragma unroll
-  for (int i = 0; i < RM; ++i) {
-    const bool in = qpos0 + i < Sq;
-    lse_r[i] = in ? lse[row0 + qpos0 + i] : 0.f;
-    di_r[i] = in ? di[row0 + qpos0 + i] : 0.f;
-#pragma unroll
-    for (int c = 0; c < CD; ++c) acc[i][c] = 0.f;
-  }
-
-  for (int j = j_lo; j <= j_hi; ++j) {
-    const int kv0 = j * BN;
-    __syncthreads();
-    load_tile<T, D, BN>(sK, kb, kv0, Sk);
-    load_tile<T, D, BN>(sV, vb, kv0, Sk);
-    __syncthreads();
-    float s[RM][CN], dp[RM][CN];
-    dot_rows<D, RM, CN>(s, sQ, sK, ty, tx);
-    dot_rows<D, RM, CN>(dp, sO, sV, ty, tx);
-#pragma unroll
-    for (int i = 0; i < RM; ++i)
-#pragma unroll
-      for (int jj = 0; jj < CN; ++jj) {
-        const int qpos = qpos0 + i, kpos = kv0 + tx + TX * jj;
-        float p, ds;
-        p_ds(s[i][jj], dp[i][jj], lse_r[i], di_r[i],
-             qpos < Sq && visible(qpos, kpos, Sk, causal, window), scale, p,
-             ds);
-        sS[(ty * RM + i) * LP + tx + TX * jj] = ds;
-      }
-    __syncthreads();
-    acc_rows<D, RM, BN, LP>(acc, sS, sK, ty, tx);
-  }
-
-#pragma unroll
-  for (int i = 0; i < RM; ++i) {
-    const int qpos = qpos0 + i;
-    if (qpos >= Sq) continue;
-    T* row = dq + (row0 + qpos) * D;
-#pragma unroll
-    for (int g = 0; g < G; ++g)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        row[64 * g + 4 * tx + e] = Val<T>::st(acc[i][4 * g + e]);
-  }
 }
 
 // ---- dK/dV: dk = ds^T q and dv = p^T do over the live q tiles of one q
@@ -302,38 +210,11 @@ __global__ void __launch_bounds__(NT)
   }
 }
 
-// ---- host side: one launcher per kernel, instantiated for the (type, D)
-// pairs the tensor-core kernels leave (see the dispatch below)
-
-template <int D>
-constexpr size_t dq_smem() {
-  using L = Tiles<D>;
-  return sizeof(float) * (2 * (L::BM + L::BN) * L::LD + L::BM * L::LP);
-}
-
 template <int D>
 constexpr size_t dkv_smem() {
   using L = Tiles<D>;
   return sizeof(float) *
          (2 * (L::BM + L::BN) * L::LD + 2 * L::BM * L::LP + 2 * L::BM);
-}
-
-template <typename T, int D>
-int dq(const void* q, const void* k, const void* v, const void* dO,
-       const void* lse, const void* di, void* dq_, int B, int Hq, int Hkv,
-       int Sq, int Sk, float scale, int causal, int window,
-       cudaStream_t stream) {
-  static bool done = false;
-  constexpr size_t smem = dq_smem<D>();
-  cudaError_t err = allow_smem(flash_generic_dq_kernel<T, D>, smem, done);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((Sq + Tiles<D>::BM - 1) / Tiles<D>::BM, Hq, B);
-  flash_generic_dq_kernel<T, D><<<grid, NT, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dO),
-      static_cast<const float*>(lse), static_cast<const float*>(di),
-      static_cast<T*>(dq_), Hq, Hkv, Sq, Sk, scale, causal, window);
-  return cudaGetLastError();
 }
 
 template <typename T, int D>
@@ -382,21 +263,8 @@ extern "C" int aule_flash_generic_delta(const void* o, const void* dO,
   return cudaGetLastError();
 }
 
-extern "C" int aule_flash_generic_dq(const void* q, const void* k,
-                                     const void* v, const void* dO,
-                                     const void* lse, const void* di,
-                                     void* dq_, int B, int Hq, int Hkv,
-                                     int Sq, int Sk, int D, float scale,
-                                     int causal, int window, int dtype,
-                                     void* stream) {
-  if (Sq <= 0 || B <= 0) return cudaSuccess;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  AULE_GENERIC_F32_DISPATCH(dq, q, k, v, dO, lse, di, dq_, B, Hq, Hkv, Sq,
-                            Sk, scale, causal, window, s)
-}
-
 // ws: f32 workspace of 2 * (Hq / Hkv) * B * Hkv * Sk * D floats when
-// Hq > Hkv (the group's shares of dK and dV), else null.
+// Hq > Hkv (the group's shares of dK and dV), else null.  f32 at D 256.
 extern "C" int aule_flash_generic_dkv(const void* q, const void* k,
                                       const void* v, const void* dO,
                                       const void* lse, const void* di,
@@ -404,8 +272,10 @@ extern "C" int aule_flash_generic_dkv(const void* q, const void* k,
                                       int Hq, int Hkv, int Sq, int Sk, int D,
                                       float scale, int causal, int window,
                                       int dtype, void* stream) {
+  if (dtype != kF32 || D != 256) return cudaErrorInvalidValue;
   if (Sk <= 0 || B <= 0) return cudaSuccess;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  AULE_GENERIC_F32_DISPATCH(dkv, q, k, v, dO, lse, di, dk, dv, ws, B, Hq,
-                            Hkv, Sq, Sk, scale, causal, window, s)
+  if (Hkv <= 0 || Hq % Hkv) return cudaErrorInvalidValue;
+  return dkv<float, 256>(q, k, v, dO, lse, di, dk, dv, ws, B, Hq, Hkv, Sq,
+                         Sk, scale, causal, window,
+                         static_cast<cudaStream_t>(stream));
 }

@@ -1,7 +1,8 @@
-// Shared pieces of the f32 kernels (flash_generic.cu, paged_generic.cu,
-// and flash_f32.cu's masks): f32 tiles in shared memory, rows padded to D +
-// 4 floats, read 16 bytes at a time by a 16 x 16 grid of threads, and the
-// dispatch over the head dims those kernels take.  Each source includes it once, so its
+// Shared pieces of the f32 kernels (paged_generic.cu, flash_generic.cu's
+// delta, and flash_f32.cu's and flash_f32_bwd.cu's masks and tile ranges):
+// f32 tiles in shared memory, rows padded to D + 4 floats, read 16 bytes at
+// a time by a 16 x 16 grid of threads, and the dispatch over the head dims
+// those kernels take.  Each source includes it once, so its
 // internal-linkage definitions are that source's own.
 #pragma once
 

@@ -54,11 +54,18 @@ SIGNATURES = {
     "aule_flash_generic_delta": [_VOID] * 4 + [_INT] * 3 + [_VOID],
     # q, k, v, do, lse, di, dq, B, Hq, Hkv, Sq, Sk, D, scale, causal,
     # window, dtype, stream
-    "aule_flash_generic_dq": [_VOID] * 7 + [_INT] * 6 + [_FLOAT] +
+    "aule_flash_f32_bwd_dq": [_VOID] * 7 + [_INT] * 6 + [_FLOAT] +
                              [_INT] * 3 + [_VOID],
-    # q, k, v, do, lse, di, dk, dv, workspace, then as aule_flash_generic_dq
+    # q, k, v, do, lse, di, dk, dv, workspace, B, Hq, Hkv, Sq, Sk, D, scale,
+    # causal, window, dtype, stream
+    "aule_flash_f32_bwd_dkv": [_VOID] * 9 + [_INT] * 6 + [_FLOAT] +
+                              [_INT] * 3 + [_VOID],
+    # as aule_flash_f32_bwd_dkv (D 256)
     "aule_flash_generic_dkv": [_VOID] * 9 + [_INT] * 6 + [_FLOAT] +
                               [_INT] * 3 + [_VOID],
+    # x, out, B * H, S, rope cos, rope sin, D, rope_len, dtype, stream
+    "aule_rope_prepass": [_VOID] * 2 + [_INT] * 2 + [_VOID] * 2 +
+                         [_INT] * 3 + [_VOID],
     # q, qf, kv, scales, tables, lens, out, lse, ws, counters, B, Hq, Hkv,
     # D, page, max_pages, scale, window, nsplit, tile_rows, dtype, pool,
     # sc_f32, stream
@@ -224,7 +231,7 @@ def stream_handle(device) -> int:
 def dtype_code(dtype, f32: bool = False) -> int:
     """0 = bfloat16, 1 = float16 (the kernels' storage types); 2 = float32
     where the kernel takes it (`f32`: csrc/flash_f32.cu,
-    csrc/flash_generic.cu, csrc/paged_generic.cu)."""
+    csrc/flash_f32_bwd.cu, csrc/flash_generic.cu, csrc/paged_generic.cu)."""
     if dtype == torch.bfloat16:
         return 0
     if dtype == torch.float16:

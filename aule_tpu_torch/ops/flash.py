@@ -14,7 +14,8 @@ the call at another length).  It follows its tensors:
       - bf16 / f16 at D = 64, 128 or 256 (`TENSOR_CORE_HEAD_DIMS`):
         `flash_fwd_tma`, csrc/flash_fwd.cu's TMA/wgmma kernel (replaces
         `_fwd_kernel` at every d_scale and `_mono_kernel`; see the source
-        notes), except at D = 128 for
+        notes; with RoPE, `rope_prepass` first turns K once a call, and the
+        kernel turns Q), except at D = 128 for
           one query: `flash_fwd_decode`, csrc/flash_fwd_short.cu's
           split-KV decode (every GQA group, mask, RoPE and kv_len; the
           SDPA patch's bucketed decode), and
@@ -50,7 +51,7 @@ from .rope import apply_rope
 
 # head dims of the tensor-core kernels (csrc/flash_fwd.cu, csrc/flash_bwd.cu;
 # bf16 / f16) and of the f32 ones (csrc/flash_f32.cu's forward,
-# csrc/flash_generic.cu's backward)
+# csrc/flash_f32_bwd.cu's backward with csrc/flash_generic.cu's delta)
 TENSOR_CORE_HEAD_DIMS = (64, 128, 256)
 GENERIC_HEAD_DIMS = (64, 128, 256)
 # Queries per head at or below which the mma.sync kernel runs at D = 128:
@@ -179,7 +180,7 @@ def _check_rope(q, rope_cos, rope_sin):
 
 def uses_generic(q) -> bool:
     """Whether the card runs q's forward and backward on the f32 kernels
-    (csrc/flash_f32.cu's 3xTF32 forward, csrc/flash_generic.cu's FFMA
+    (csrc/flash_f32.cu's 3xTF32 forward, csrc/flash_f32_bwd.cu's 3xTF32
     backward) rather than the 16-bit tensor-core kernels: f32, at every
     head dim (the f32 rows are held to 1e-5 of an f32 reference, which one
     TF32 pass, with its 11-bit significand, does not keep)."""
@@ -200,7 +201,7 @@ def forward_kernel(q):
 
 def check_kernel_type(q, generic: bool) -> None:
     """Raise unless the kernels of one family take q's type and head dim:
-    the f32 kernels (`generic`: flash_f32.cu, flash_generic.cu) f32 at D
+    the f32 kernels (`generic`: flash_f32.cu, flash_f32_bwd.cu) f32 at D
     64/128/256; the 16-bit tensor-core kernels bf16/f16 at D 64/128/256."""
     d = q.shape[-1]
     if generic:
@@ -265,6 +266,42 @@ def _rope_tensor(t, device):
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
+def rope_prepass_plain(x, rope_cos, rope_sin):
+    """The pre-pass's plain version: `apply_rope` over the tables as the
+    kernels read them (`rope_identity_padded`: the identity past their
+    end), x [B, H, S, D] rotated and rounded to its type."""
+    cos, sin = rope_identity_padded(rope_cos, rope_sin, x.shape[2])
+    return apply_rope(x, cos.to(x.device), sin.to(x.device))
+
+
+def rope_prepass(x, rope_cos, rope_sin):
+    """csrc/rope_prepass.cu on CUDA bf16/f16 x [B, H, S, D] at D 64, 128 or
+    256: x rotated into a new tensor, each row once (rows at or past the
+    tables' length as they are), as `flash_fwd_tma` needs its K (it turns
+    Q in its consumers: turning Q in the pre-pass's launch too was 1-6 %
+    faster at S2048, D64 and D256 and 8 % slower over 3,000 of 4,096 keys
+    on an H100 80GB HBM3 at 700 W, PERF.md).  The rotation of
+    `rope_prepass_plain`, bit for bit.  Raises on other tensors."""
+    if x.device.type != "cuda":
+        raise ValueError(f"rope_prepass runs on CUDA tensors, got "
+                         f"{x.device}")
+    if x.dim() != 4:
+        raise ValueError(f"rope_prepass takes [B, H, S, D], got "
+                         f"{tuple(x.shape)}")
+    check_kernel_type(x, False)
+    _check_rope(x, rope_cos, rope_sin)
+    x = x.contiguous()
+    y = torch.empty_like(x)
+    cos, sin = (_rope_tensor(t, x.device) for t in (rope_cos, rope_sin))
+    err = _build.library().aule_rope_prepass(
+        x.data_ptr(), y.data_ptr(), x.shape[0] * x.shape[1], x.shape[2],
+        cos.data_ptr(), sin.data_ptr(), x.shape[-1], cos.shape[0],
+        _build.dtype_code(x.dtype), _build.stream_handle(x.device))
+    _build.check(err, "aule_rope_prepass")
+    rope_prepass.launches += 1
+    return y
+
+
 def _launch(entry: str, q, k, v, causal, scale, window_size, rope_cos,
             rope_sin, return_lse, kv_len, generic: bool):
     """Check CUDA q, k, v and run the C entry point `entry` on them."""
@@ -301,6 +338,10 @@ def _launch(entry: str, q, k, v, causal, scale, window_size, rope_cos,
             cos.data_ptr() if cos is not None else None,
             sin.data_ptr() if sin is not None else None,
             live.data_ptr() if live is not None else None]
+    if entry == "aule_flash_fwd" and cos is not None:
+        # K turned once a call; the kernel reads it as it comes
+        k = rope_prepass(k, cos, sin)
+        ptrs[1] = k.data_ptr()
     rope_len = cos.shape[0] if cos is not None else 0
     flags = (scale, int(bool(causal)), window)
     if entry == "aule_flash_fwd_decode":
@@ -384,6 +425,7 @@ flash_fwd_tma.launches = 0
 flash_fwd_short.launches = 0
 flash_fwd_decode.launches = 0
 flash_fwd_f32.launches = 0
+rope_prepass.launches = 0
 
 
 def flash_attention_rope(q, k, v, rope_cos, rope_sin, *,

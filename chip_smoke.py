@@ -47,12 +47,17 @@ Phases, each printing a line of its own:
      of 256 at S4096 and rows that see nothing; two runs bitwise equal;
      times (CUDA events and profiler device time) beside their bounds, the
      plain versions and the backward of F.scaled_dot_product_attention
-     (timed only);
+     (timed only); then the f32 backward (F32_BWD_CASES: the Llama,
+     GPT-2 and D256 group 8 layers, Sq != Sk, groups 1/3/8, windows, a
+     non-zero lse cotangent) on csrc/flash_f32_bwd.cu, every row within
+     1e-5, two runs bitwise equal;
   5. public, in a process of its own (`python3 chip_smoke.py --public`
      runs it alone): aule_tpu_torch's public API on the card, whose
      select_backend() must be cuda, each call twice with the same bits and
      held to its plain version: the Llama-3-8B layer with fused RoPE
-     (flash_attention_rope) and through flash_attention forward and
+     (flash_attention_rope: csrc/rope_prepass.cu turns K, then the TMA
+     kernel; the pre-pass also held to apply_rope at D 64/128/256, bf16
+     and f16, short tables) and through flash_attention forward and
      backward; the bucketed decode (1 query over K/V padded to 4096,
      csrc/flash_fwd_short.cu's split-KV kernel; bf16 and f16, with and
      without RoPE) captured in a CUDA graph, replayed with kv_len written
@@ -60,7 +65,8 @@ Phases, each printing a line of its own:
      kv_len on the TMA kernel; GPT-2 small's layer (D64) and D256 in bf16
      and f16 forward and backward on the tensor-core kernels; the Llama
      layer and GPT-2's layer in f32, forward on csrc/flash_f32.cu (3xTF32
-     on the tensor cores), backward on csrc/flash_generic.cu; the SDPA
+     on the tensor cores), backward on csrc/flash_f32_bwd.cu (3xTF32) with
+     csrc/flash_generic.cu's delta; the SDPA
      patch (install, an attn_mask call reaching torch's own function,
      uninstall); the forward's RoPE, kv_len, window and GQA modes
      (PUBLIC_MODES; f32 at D 64, 128 and 256 too); each mode timed beside
@@ -471,10 +477,12 @@ def device_ms(fn, calls=20, key=None):
     (fewer than `calls` times those it saw in one profiled call; it does so
     after many profiled sessions in one process; with `key`, of that
     kernel alone) is taken again, up to three times; None if none was
-    whole (not measured)."""
+    whole (not measured).  `key` may be a tuple of such names: their
+    kernels' time together."""
     from aule_tpu_torch.utils import profiling
 
-    cats = {} if key is None else {"k": [key]}
+    cats = ({} if key is None else
+            {"k": list(key) if isinstance(key, tuple) else [key]})
     part = "other" if key is None else "k"
 
     def count(bd):
@@ -510,16 +518,16 @@ def _vecdot_times(o, do):
     return profiling.cuda_time_ms(fn, iters=20)[0], device_ms(fn)
 
 
-def _bwd_inputs(gen, shape, sq, sk, causal, window, dt, with_dlse):
+def _bwd_inputs(gen, shape, sq, sk, causal, window, dt, with_dlse, d=128):
     """q, k, v, do (and dlse) from the generator; o and lse from the
     forward kernel, as training has them."""
     from aule_tpu_torch.ops.flash import flash_attention_fwd
 
     b, hq, hkv = shape
-    q = _randn((b, hq, sq, 128), gen, dt)
-    k = _randn((b, hkv, sk, 128), gen, dt)
-    v = _randn((b, hkv, sk, 128), gen, dt)
-    do = _randn((b, hq, sq, 128), gen, dt)
+    q = _randn((b, hq, sq, d), gen, dt)
+    k = _randn((b, hkv, sk, d), gen, dt)
+    v = _randn((b, hkv, sk, d), gen, dt)
+    do = _randn((b, hq, sq, d), gen, dt)
     dlse = _randn((b, hq, sq), gen, torch.float32) if with_dlse else None
     o, lse = flash_attention_fwd(q, k, v, causal=causal, window_size=window,
                                  return_lse=True)
@@ -687,6 +695,84 @@ def check_flash_bwd(gen):
     fv.attention_delta.launches = 0
     torch.cuda.empty_cache()
     return worst, timings
+
+
+F32_BWD_SEED = SEED + 15  # a generator of its own: earlier checks' inputs
+# (label, (B, Hq, Hkv), Sq, Sk, D, causal, window, dlse)
+F32_BWD_CASES = [
+    ("Llama-3-8B layer S2048 causal", LAYER, 2048, 2048, 128, True, -1,
+     False),
+    ("GPT-2 layer B1 Hq12 S1024 D64 causal", (1, 12, 12), 1024, 1024, 64,
+     True, -1, False),
+    ("D256 group 8 Hq8/Hkv1 S2048 causal", (1, 8, 1), 2048, 2048, 256, True,
+     -1, False),
+    ("Sq300 Sk900 causal", LAYER, 300, 900, 128, True, -1, False),
+    ("Sq900 Sk300 causal", LAYER, 900, 300, 128, True, -1, False),
+    ("S777 non-causal", LAYER, 777, 777, 128, False, -1, False),
+    ("group 1 Hq8/Hkv8 S777 causal", (1, 8, 8), 777, 777, 128, True, -1,
+     False),
+    ("group 3 Hq24/Hkv8 S1000 causal", (1, 24, 8), 1000, 1000, 128, True,
+     -1, False),
+    ("group 8 Hq64/Hkv8 S1000 causal", (1, 64, 8), 1000, 1000, 128, True,
+     -1, False),
+    ("S4096 causal window 256", LAYER, 4096, 4096, 128, True, 256, False),
+    ("S4096 bidirectional window 256", LAYER, 4096, 4096, 128, False, 256,
+     False),
+    ("Sq700 Sk300 non-causal window 100, non-zero dlse (rows that see "
+     "nothing)", LAYER, 700, 300, 128, False, 100, True),
+]
+
+
+def check_flash_bwd_f32():
+    """The f32 backward's kernels (flash_generic.cu's delta, flash_f32_bwd.
+    cu's dQ and dK/dV; at D 256 flash_generic.cu's FFMA dK/dV, as
+    `f32_dkv_kernel` routes it) against their plain versions over
+    F32_BWD_CASES: every dQ, dK, dV row within ROW_TOL[f32] of its size (at
+    least F32_BWD_FLOOR of the largest |value|, for rows that cancel), two
+    runs bitwise equal, `flash_attention_bwd` equal to the three kernels.
+    Returns the worst errors of dQ and dK/dV and each case's."""
+    from aule_tpu_torch.ops import flash_vjp as fv
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(F32_BWD_SEED)
+    f32 = torch.float32
+    worst, cases = {}, {}
+    for label, shape, sq, sk, d, causal, window, with_dlse in F32_BWD_CASES:
+        q, k, v, o, lse, do, dlse = _bwd_inputs(gen, shape, sq, sk, causal,
+                                                window, f32, with_dlse, d)
+        di = fv.attention_delta_generic(o, do, dlse)
+        kw = dict(causal=causal, window=window)
+        what = f"flash f32 bwd {label} D{d}"
+        dkv = fv.f32_dkv_kernel(q)
+        dq = fv.flash_bwd_f32_dq(q, k, v, do, lse, di, **kw)
+        dk, dv = dkv(q, k, v, do, lse, di, **kw)
+        errs = {"dq": hold(f"{what} dQ", dq, fv.flash_bwd_dq_plain(
+            q, k, v, do, lse, di, **kw), None, None, ROW_TOL[f32], worst,
+            "dq", F32_BWD_FLOOR)}
+        pdk, pdv = fv.flash_bwd_dkv_plain(q, k, v, do, lse, di, **kw)
+        ek = hold(f"{what} dK", dk, pdk, None, None, ROW_TOL[f32], worst,
+                  "dkv", F32_BWD_FLOOR)
+        ev = hold(f"{what} dV", dv, pdv, None, None, ROW_TOL[f32], worst,
+                  "dkv", F32_BWD_FLOOR)
+        errs["dkv"] = tuple(max(a, b) for a, b in zip(ek, ev))
+        cases[label] = errs
+        del pdk, pdv
+        dq2 = fv.flash_bwd_f32_dq(q, k, v, do, lse, di, **kw)
+        dk2, dv2 = dkv(q, k, v, do, lse, di, **kw)
+        got = fv.flash_attention_bwd(q, k, v, o, lse, do, dlse=dlse, **kw)
+        if not (torch.equal(dq, dq2) and torch.equal(dk, dk2)
+                and torch.equal(dv, dv2)):
+            raise AssertionError(f"{what}: two runs differ")
+        if not all(torch.equal(a, b) for a, b in zip(got, (dq, dk, dv))):
+            raise AssertionError(f"{what}: flash_attention_bwd differs from "
+                                 f"its three kernels")
+        del q, k, v, o, lse, do, dlse, di, dq, dk, dv, dq2, dk2, dv2, got
+    log("flash f32 bwd: every case bitwise equal over two runs and through "
+        "flash_attention_bwd")
+    fv.flash_bwd_f32_dq.launches = fv.flash_bwd_f32_dkv.launches = 0
+    fv.flash_bwd_generic_dkv.launches = fv.attention_delta_generic.launches = 0
+    torch.cuda.empty_cache()
+    return worst, cases
 
 
 def hold_delta(what, di, o, do, dlse, worst):
@@ -1697,6 +1783,8 @@ CATEGORIES = {"flash_fwd_short": ["flash_fwd_short_kernel"],
               "flash_fwd_decode": ["flash_fwd_decode_kernel"],
               "flash_fwd": ["flash_fwd_kernel"],
               "flash_f32": ["flash_f32_fwd_kernel"],
+              "flash_f32_bwd": ["flash_f32_bwd"],
+              "rope_prepass": ["rope_prepass_kernel"],
               "flash_generic": ["flash_generic"],
               "paged_generic_decode": ["paged_generic_decode"],
               "paged_generic_prefill": ["paged_generic_prefill"],
@@ -1916,8 +2004,10 @@ def _public_counters():
             "flash_bwd_delta": fv.attention_delta, "flash_bwd_dq": fv.flash_bwd_dq,
             "flash_bwd_dkv": fv.flash_bwd_dkv,
             "flash_generic_delta": fv.attention_delta_generic,
-            "flash_generic_dq": fv.flash_bwd_generic_dq,
-            "flash_generic_dkv": fv.flash_bwd_generic_dkv}
+            "flash_f32_bwd_dq": fv.flash_bwd_f32_dq,
+            "flash_f32_bwd_dkv": fv.flash_bwd_f32_dkv,
+            "flash_generic_dkv": fv.flash_bwd_generic_dkv,
+            "rope_prepass": tf.rope_prepass}
 
 
 class _Counted:
@@ -1987,8 +2077,9 @@ def _rate(dt):
 
 
 def _fwd_rate(dt):
-    """The flash forward's peak rate for dt: f32 runs in 3xTF32 on the
-    tensor cores (csrc/flash_f32.cu), 495 / 3 TFLOP/s."""
+    """The flash kernels' peak rate for dt: f32 runs in 3xTF32 on the
+    tensor cores (csrc/flash_f32.cu, csrc/flash_f32_bwd.cu), 495 / 3
+    TFLOP/s."""
     from aule_tpu_torch.utils import profiling
 
     return (profiling.H100_3XTF32_FLOPS if dt == torch.float32
@@ -2021,8 +2112,11 @@ def _public_rope(gen, res):
     with _Counted() as c:
         o = _twice(label, lambda: [T.flash_attention_rope(
             q, k, v, cos, sin, causal=True)])[0]
-    _expect(label, c.launches, {"flash_fwd": 2})
+    # K turned once a call by the pre-pass, then the TMA kernel
+    _expect(label, c.launches, {"flash_fwd": 2, "rope_prepass": 2})
     res["launches"]["flash_fwd_rope"] = c.launches["flash_fwd"]
+    res["launches"]["rope_prepass"] = (res["launches"].get("rope_prepass", 0)
+                                       + c.launches["rope_prepass"])
     po, plse = tf.flash_attention_fwd_plain(q, k, v, causal=True, rope_cos=cos,
                                             rope_sin=sin)
     _, lse = tf.flash_fwd_tma(q, k, v, causal=True, rope_cos=cos, rope_sin=sin)
@@ -2054,8 +2148,9 @@ def _public_rope(gen, res):
         lambda: T.flash_attention_rope(q, k, v, cos, sin, causal=True),
         lambda: tf.flash_attention_fwd_plain(q, k, v, causal=True, rope_cos=cos,
                                              rope_sin=sin, return_lse=False),
-        lambda: SDPA(qr, kx, vx, is_causal=True), "flash_fwd_kernel", nbytes,
-        flops, _rate(dt))
+        lambda: SDPA(qr, kx, vx, is_causal=True),
+        ("flash_fwd_kernel", "rope_prepass_kernel"), nbytes, flops,
+        _rate(dt))
 
 
 def _public_decode(gen, res):
@@ -2230,16 +2325,16 @@ def _public_kv_len_tma(gen, res):
 def _layer_kernels(dt):
     """part -> (counter name, wrapper) of the forward and the three
     backward kernels that flash_attention launches for a layer of type dt
-    (ops/flash.py's rule: flash_generic.cu for f32, the tensor-core kernels
-    for bf16/f16)."""
+    (ops/flash.py's rule: flash_f32.cu, flash_generic.cu's delta and
+    flash_f32_bwd.cu for f32, the tensor-core kernels for bf16/f16)."""
     from aule_tpu_torch.ops import flash as tf
     from aule_tpu_torch.ops import flash_vjp as fv
 
     if dt == torch.float32:
         return {"fwd": ("flash_f32_fwd", tf.flash_fwd_f32),
                 "delta": ("flash_generic_delta", fv.attention_delta_generic),
-                "dq": ("flash_generic_dq", fv.flash_bwd_generic_dq),
-                "dkv": ("flash_generic_dkv", fv.flash_bwd_generic_dkv)}
+                "dq": ("flash_f32_bwd_dq", fv.flash_bwd_f32_dq),
+                "dkv": ("flash_f32_bwd_dkv", fv.flash_bwd_f32_dkv)}
     return {"fwd": ("flash_fwd", tf.flash_fwd_tma),
             "delta": ("flash_bwd_delta", fv.attention_delta),
             "dq": ("flash_bwd_dq", fv.flash_bwd_dq),
@@ -2343,13 +2438,14 @@ def _public_layer(gen, res, name, shape, s, d, dt):
              qkv + esz * (q.numel() + k.numel() + v.numel()) + 2 * stats,
              lib_bwd)):
         # delta: f32 products outside the tensor cores whatever the type;
-        # the f32 forward in 3xTF32 (its FFMA bound kept beside it)
+        # f32's forward, dQ and dK/dV in 3xTF32 (their FFMA bounds kept
+        # beside them)
         rate = (profiling.H100_F32_FLOPS if part == "delta"
-                else _fwd_rate(dt) if part == "fwd" else _rate(dt))
+                else _fwd_rate(dt))
         key = counter[part] + ("_kernel" if part == "fwd" else "")
         t = _mode_time(f"{label} {part}", fn, plain, library, key, nbytes,
                        flops, rate)
-        if part == "fwd" and dt == torch.float32:
+        if part != "delta" and dt == torch.float32:
             t["ffma_bound_ms"] = profiling.bound_ms(
                 nbytes, flops, profiling.H100_F32_FLOPS)[0]
         res["time"][mode[part]] = t
@@ -2456,11 +2552,16 @@ def _public_modes(res):
                     return_lse=False, **kw)}[route]
             label = (f"public {name}: {what}, Hq{hq}/Hkv{hkv} D{d} "
                      f"{str(dt).replace('torch.', '')} ({route} route)")
+            # the TMA kernel's RoPE turns K in the pre-pass first
+            prepass = kernel == "flash_fwd" and cos is not None
             with _Counted() as c:
                 o = _twice(label, lambda: [call()])[0]
-            _expect(label, c.launches, {kernel: 2})
+            _expect(label, c.launches,
+                    {kernel: 2, **({"rope_prepass": 2} if prepass else {})})
             res["launches"][name] = (res["launches"].get(name, 0)
                                      + c.launches[kernel])
+            if prepass:
+                res["launches"]["rope_prepass"] += c.launches["rope_prepass"]
             _, lse = wrappers[kernel](q, k, v, rope_cos=cos, rope_sin=sin,
                                       kv_len=kvl, **kw)
             po, plse = tf.flash_attention_fwd_plain(
@@ -2490,7 +2591,75 @@ def _public_modes(res):
                     q, k, v, rope_cos=cos, rope_sin=sin, kv_len=kvl,
                     return_lse=False, **kw),
                 lambda: SDPA(qr, kx, vx, attn_mask=mask[None, None]),
-                f"{kernel}_kernel", nbytes, flops, _fwd_rate(dt))
+                (f"{kernel}_kernel", "rope_prepass_kernel") if prepass
+                else f"{kernel}_kernel", nbytes, flops, _fwd_rate(dt))
+
+
+# the RoPE pre-pass's cases: (label, (B, Hkv), S, D, dtype, table rows);
+# the first is the Llama layer's K, timed
+PREPASS_CASES = [
+    (f"Llama-3-8B K B1 Hkv8 S{TRAIN_S}", (1, 8), TRAIN_S, 128, torch.bfloat16,
+     TRAIN_S),
+    ("f16 B2 Hkv8 S4096, table 3000", (2, 8), 4096, 128, torch.float16, 3000),
+    ("GPT-2 K B1 Hkv12 S1024, table 500", (1, 12), 1024, 64, torch.bfloat16,
+     500),
+    ("f16 D256 Hkv1 S2048, table 1536", (1, 1), 2048, 256, torch.float16,
+     1536),
+]
+
+
+def _public_rope_prepass(res):
+    """csrc/rope_prepass.cu against `rope_prepass_plain` (apply_rope over
+    the identity-padded tables): every value within one rounding step of
+    the type (2^-7 of it in bf16, 2^-10 in f16), rows past the table as
+    they were, two runs the same bits; the Llama layer's K timed beside its
+    bound and plain version (no one PyTorch call computes it: library
+    null).  A generator of its own."""
+    import aule_tpu_torch as T
+    from aule_tpu_torch.ops import flash as tf
+    from aule_tpu_torch.utils import profiling
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(PUBLIC_SEED + 200)
+    worst = (0.0, 0.0, 0.0)
+    for i, (what, (b, hkv), s, d, dt, rows) in enumerate(PREPASS_CASES):
+        k = _randn((b, hkv, s, d), gen, dt)
+        cos, sin = T.precompute_rope_frequencies(rows, d, LLAMA_ROPE_BASE,
+                                                 device="cuda")
+        got = tf.rope_prepass(k, cos, sin)
+        want = tf.rope_prepass_plain(k, cos, sin)
+        diff = (got.float() - want.float()).abs()
+        step = (2.0 ** -7 if dt == torch.bfloat16 else 2.0 ** -10)
+        rel = float((diff / want.float().abs().clamp_min(2.0 ** -14)).max())
+        same = int((got == want).sum())
+        ok = (rel <= step and torch.equal(got[:, :, rows:], k[:, :, rows:])
+              and torch.equal(got, tf.rope_prepass(k, cos, sin)))
+        label = f"public rope pre-pass {what} D{d} {str(dt)[6:]}"
+        log(f"{label}: max|out-plain| {float(diff.max()):.3e}, relative "
+            f"{rel:.3e} (<= {step:.3e}), {same} of {got.numel()} values "
+            f"equal {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"kernel disagrees with its plain version: "
+                                 f"{label}")
+        worst = (max(worst[0], float(diff.max())), max(worst[1], rel), 0.0)
+        if i:
+            continue
+        nbytes = 2 * k.numel() * k.element_size() + 2 * 4 * cos.numel()
+        # 6 f32 operations a pair, off the tensor cores
+        bound, by = profiling.bound_ms(nbytes, 3.0 * k.numel(),
+                                       profiling.H100_F32_FLOPS)
+        fn = lambda: tf.rope_prepass(k, cos, sin)
+        ms = profiling.cuda_time_ms(fn, iters=20)
+        pl = profiling.cuda_time_ms(lambda: tf.rope_prepass_plain(k, cos, sin),
+                                    iters=20)
+        dev = device_ms(fn, key="rope_prepass_kernel")
+        log(f"{label}: kernel device {_ms(dev)} (events {ms[0]:.4f} ms); "
+            f"plain {pl[0]:.4f} ms; library none; bound {bound:.4f} ms "
+            f"({by}; {nbytes / 1e6:.1f} MB)")
+        res["time"]["rope_prepass"] = dict(
+            ms=ms[0], plain_ms=pl[0], library_ms=None, bound_ms=bound,
+            bound_by=by, device_ms=dev)
+    res["err"]["rope_prepass"] = worst
 
 
 def _public_patch(gen, res):
@@ -2574,6 +2743,9 @@ def check_public() -> dict:
         _public_layer(g, res, name, shape, s, d, dt)
     _public_patch(gen, res)
     _public_modes(res)
+    t_phase = time.perf_counter()
+    _public_rope_prepass(res)
+    log(f"public rope pre-pass checks: {time.perf_counter() - t_phase:.1f} s")
     torch.cuda.empty_cache()
     return res
 
@@ -3868,6 +4040,9 @@ def main() -> None:
     # before the engine's profiled phases: after many profiled sessions in
     # one process torch.profiler loses kernels, and these times read it
     bwd_err, bwd_t = check_flash_bwd(gen)
+    t_phase = time.perf_counter()
+    f32_bwd_err, f32_bwd_cases = check_flash_bwd_f32()
+    log(f"phase f32 backward cases: {time.perf_counter() - t_phase:.1f} s")
     public = phase_public()
     gpt2 = phase_gpt2()
     llama32 = phase_llama32()
@@ -4046,8 +4221,12 @@ def main() -> None:
         "fwd": fwd_row + ": its f32 branch at Precision.HIGHEST, l.147-152)",
         "delta": "aule_tpu/ops/flash_vjp.py:746 (delta, an XLA fusion in "
                  "JAX: no Pallas kernel)",
-        "dq": "aule_tpu/ops/flash_vjp.py:127 (_dq_kernel, f32)",
-        "dkv": "aule_tpu/ops/flash_vjp.py:271 (_dkv_kernel, f32)"}
+        "dq": "aule_tpu/ops/flash_vjp.py:127 (_dq_kernel, f32: Precision."
+              "HIGHEST l.182); aule_tpu/ops/flash_vjp.py:378 (_win_dq_kernel, "
+              "f32, its class checked)",
+        "dkv": "aule_tpu/ops/flash_vjp.py:271 (_dkv_kernel, f32: Precision."
+               "HIGHEST l.322); aule_tpu/ops/flash_vjp.py:464 (_win_dkv_kernel, "
+               "f32, its class checked)"}
     # the tensor-core kernels at the head dims 64 and 256
     tc_rows = {
         "fwd": fwd_row + " at the D 64/256 tiles of _pick_blocks' d_scale, "
@@ -4094,14 +4273,24 @@ def main() -> None:
                        "input type") + ")")
         return ""
 
-    public_rows += [(("flash_f32_fwd" if part == "fwd"
-                      else f"flash_generic_{part}") + f"_{mode}",
-                     "aule_tpu_torch/csrc/flash_"
-                     + ("f32" if part == "fwd" else "generic") + ".cu",
+    f32_names = {"fwd": ("flash_f32_fwd", "flash_f32.cu"),
+                 "delta": ("flash_generic_delta", "flash_generic.cu"),
+                 "dq": ("flash_f32_bwd_dq", "flash_f32_bwd.cu"),
+                 "dkv": ("flash_f32_bwd_dkv", "flash_f32_bwd.cu")}
+    public_rows += [(f32_names[part][0] + f"_{mode}",
+                     "aule_tpu_torch/csrc/" + f32_names[part][1],
                      generic_rows[part], shapes[mode]
                      + library_note("f32", part))
                     for mode in ("f32", "gpt2_f32")
                     for part in ("fwd", "delta", "dq", "dkv")]
+    public_rows.append((
+        "rope_prepass", "aule_tpu_torch/csrc/rope_prepass.cu",
+        fwd_row + ", use_rope l.227-246: the rotation of each K chunk, done "
+        "here once a call; also _mono_kernel's, l.692-715)",
+        f"B1 Hkv8 S{TRAIN_S} D128 bf16 K, RoPE theta "
+        f"{LLAMA_ROPE_BASE:.0f} (launched by every RoPE call on the TMA "
+        f"kernel; bf16 / f16 at D 64, 128, 256 and short tables checked "
+        f"too; library: none)"))
     public_rows += [(("flash_fwd" if part == "fwd" else f"flash_bwd_{part}")
                      + f"_{mode}",
                      tc_src.get(part, "aule_tpu_torch/csrc/flash_bwd.cu"),
@@ -4134,6 +4323,13 @@ def main() -> None:
                  if k in t}
         if name in public["cases"]:
             extra["cases"] = public["cases"][name]
+        part = {"flash_f32_bwd_dq_f32": "dq",
+                "flash_f32_bwd_dkv_f32": "dkv"}.get(name)
+        if part is not None:
+            # the f32 backward's case list (check_flash_bwd_f32)
+            extra["f32_bwd_cases"] = {c: e[part]
+                                      for c, e in f32_bwd_cases.items()}
+            extra["f32_bwd_cases_worst"] = f32_bwd_err[part]
         if name == "flash_fwd_gpt2":
             # GPT-2 small's bf16 whole-prompt serving prefills its prompts
             # above SHORT_SQ tokens through this mode (run_engine checks

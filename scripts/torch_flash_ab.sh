@@ -14,10 +14,15 @@
 # engine's chunk (512 queries at q_offset 3488 over 4000 cached tokens),
 # then the one-query decode (the SDPA patch's bucketed decode, plain and
 # with RoPE) and the 16-bit paged prefill at D 64 and 256, as each tree
-# routes them, beside SDPA; last the f32 forward as each tree routes it
-# (flash_f32.cu's 3xTF32 kernel in trees that have it, else
-# flash_generic.cu's FFMA one) at the Llama layer, GPT-2's layer, D256
-# and RoPE + kv_len, and the f32 backward's parts, beside SDPA in f32.
+# routes them, beside SDPA; then the TMA kernel's RoPE modes (S2048
+# causal, RoPE + kv_len 3000 of 4096, D64 and D256 RoPE + kv_len) as each
+# tree runs them, beside the plain TMA kernel at the same shape and SDPA on
+# the rotated q, k; last the f32 forward as each tree routes it (flash_f32.cu's
+# 3xTF32 kernel in trees that have it, else flash_generic.cu's FFMA one) at
+# the Llama layer, GPT-2's layer, D256 and RoPE + kv_len, and the f32
+# backward's parts as each tree routes them (flash_f32_bwd.cu's 3xTF32
+# dQ and dK/dV in trees that have it, else flash_generic.cu's FFMA ones)
+# at the Llama layer, GPT-2's layer and D256 group 8, beside SDPA in f32.
 # The two trees run in turns, A, B, B, A, one process each, so that both
 # versions meet the same card.  Each process builds its tree's kernels and
 # prints the ptxas lines of every kernel.
@@ -230,15 +235,55 @@ for label, (hq, hkv, d), hist, chunk, max_pages in (
 print(f"{tag} decode and D64/D256 prefill device ms per call (kernel, sdpa)",
       new, flush=True)
 torch.cuda.empty_cache()
+# The TMA kernel's RoPE modes as each tree runs them (csrc/rope_prepass.cu
+# turning K once a call, then csrc/flash_fwd.cu, in trees that have it;
+# before, the TMA kernel's producer turned every K stage), device ms per
+# call of the whole call beside the TMA kernel at the same shape without
+# tables and SDPA on the rotated q, k with the case's boolean mask, on a
+# generator of its own.
+g5 = torch.Generator("cuda")
+g5.manual_seed(c.SEED + 600)
+rope = {}
+for label, (b, hq, hkv), sq, sk, d, causal, n in (
+        ("S2048 causal", c.LAYER, 2048, 2048, 128, True, None),
+        ("Sq512 kv_len 3000 of 4096", c.LAYER, 512, 4096, 128, False, 3000),
+        ("D64 Sq512/Sk1024 causal kv_len 900", (1, 12, 12), 512, 1024, 64,
+         True, 900),
+        ("D256 Sq512/Sk2048 kv_len 1500", (1, 8, 1), 512, 2048, 256, False,
+         1500)):
+    q = c._randn((b, hq, sq, d), g5)
+    k, v = (c._randn((b, hkv, sk, d), g5) for _ in range(2))
+    cos, sin = T.precompute_rope_frequencies(sk, d, c.LLAMA_ROPE_BASE,
+                                             device="cuda")
+    kvl = (None if n is None else
+           torch.full((1,), n, dtype=torch.int32, device="cuda"))
+    mask = build_mask(sq, sk, causal, -1, device="cuda")
+    if n is not None:
+        mask = mask & (torch.arange(sk, device="cuda") < n)
+    qr, kr = T.apply_rope(q, cos, sin), T.apply_rope(k, cos, sin)
+    kx, vx = (x.repeat_interleave(hq // hkv, dim=1) for x in (kr, v))
+    call = lambda: flash_attention_fwd(q, k, v, causal=causal, rope_cos=cos,
+                                       rope_sin=sin, kv_len=kvl,
+                                       return_lse=False)
+    rope[label] = {
+        "rope": dev(call),
+        "no rope": dev(lambda: flash_attention_fwd(
+            q, k, v, causal=causal, kv_len=kvl, return_lse=False)),
+        "sdpa": dev(lambda: F.scaled_dot_product_attention(
+            qr, kx, vx, attn_mask=mask[None, None]))}
+    del q, k, v, qr, kr, kx, vx, mask
+    torch.cuda.empty_cache()
+print(f"{tag} TMA RoPE modes device ms per call", rope, flush=True)
 # The f32 forward as each tree routes it (csrc/flash_f32.cu's 3xTF32
 # kernel in trees that have it, else csrc/flash_generic.cu's FFMA forward)
-# and the f32 backward (csrc/flash_generic.cu in both: delta, dQ, dK/dV),
-# device ms per call beside SDPA's in f32 (phase_device sets allow_tf32
-# False): the
-# Llama layer S2048, GPT-2's layer S1024 D64, D256 group 8 S2048 (causal;
-# SDPA is_causal) and RoPE + kv_len (Sq512 over 1500 of 2048 keys, causal;
-# SDPA on the rotated q, k with the boolean mask), on a generator of its
-# own.
+# and the f32 backward as each tree routes it (flash_generic.cu's delta;
+# csrc/flash_f32_bwd.cu's 3xTF32 dQ and dK/dV in trees that have it, else
+# flash_generic.cu's FFMA ones), device ms per call beside SDPA's in f32
+# (phase_device sets allow_tf32 False; SDPA's backward: dq, dk and dv in
+# one call): the Llama layer S2048, GPT-2's layer S1024 D64, D256 group 8
+# S2048 (causal; SDPA is_causal) and, forward only, RoPE + kv_len (Sq512
+# over 1500 of 2048 keys, causal; SDPA on the rotated q, k with the
+# boolean mask), on a generator of its own.
 g4 = torch.Generator("cuda")
 g4.manual_seed(c.SEED + 500)
 f32 = {}
@@ -267,7 +312,7 @@ for label, (b, hq, hkv), sq, sk, d, rows, n in (
             return_lse=False)),
         "sdpa": dev(lambda: F.scaled_dot_product_attention(qr, kx, vx,
                                                            **sdpa_kw))}
-    if label == "Llama S2048":
+    if rows is None:
         o, lse = flash_attention_fwd(q, k, v, causal=True)
         do = c._randn(q.shape, g4, torch.float32)
         whole = lambda: fv.flash_attention_bwd(q, k, v, o, lse, do,
@@ -276,7 +321,12 @@ for label, (b, hq, hkv), sq, sk, d, rows, n in (
         by = profiling.device_breakdown(lambda: [whole() for _ in range(5)],
                                         parts)["by_category_ms"]
         f32[label].update({f"bwd {p}": round(by[p] / 5, 5) for p in parts})
-        del o, lse, do
+        qx = q.detach().requires_grad_(True)
+        kxg, vxg = (x.detach().requires_grad_(True) for x in (kx, vx))
+        ref = F.scaled_dot_product_attention(qx, kxg, vxg, is_causal=True)
+        f32[label]["sdpa bwd"] = dev(lambda: torch.autograd.grad(
+            ref, (qx, kxg, vxg), do, retain_graph=True))
+        del o, lse, do, qx, kxg, vxg, ref
     del q, k, v, kx, vx, qr, kr
     torch.cuda.empty_cache()
 print(f"{tag} f32 forward and backward device ms per call", f32, flush=True)

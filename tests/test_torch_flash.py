@@ -15,6 +15,7 @@ import torch
 from aule_tpu.ops.flash import flash_attention_fwd as jax_flash
 from aule_tpu.ops.reference import attention_reference as jax_reference
 from aule_tpu_torch.ops import flash as tflash
+from aule_tpu_torch.ops import flash_vjp as tflash_vjp
 from aule_tpu_torch.utils.testing import assert_close
 
 F32_ATOL = 2e-5
@@ -167,16 +168,36 @@ def test_cpu_route_does_not_count_launches():
     assert [fn.launches for fn in kernels] == before
 
 
+def _launcher_call(kernel, d):
+    """(wrapper, a call of it on CPU tensors at head dim d): the forward
+    launchers on bf16 q, k, v; the RoPE pre-pass on bf16 k and [8, d/2]
+    tables; the f32 backward's dQ and dK/dV (both dK/dV kernels) on f32 q,
+    k, v, do, lse, di."""
+    if kernel in ("flash_fwd_tma", "flash_fwd_short", "rope_prepass"):
+        fn = getattr(tflash, kernel)
+        q = torch.zeros(1, 2, 8, d, dtype=torch.bfloat16)
+        if kernel == "rope_prepass":
+            tab = torch.ones(8, d // 2)
+            return fn, lambda: fn(q, tab, tab * 0)
+        return fn, lambda: fn(q, q, q, causal=True)
+    fn = getattr(tflash_vjp, kernel)
+    q = torch.zeros(1, 2, 8, d)
+    rows = torch.zeros(1, 2, 8)
+    return fn, lambda: fn(q, q, q, q, rows, rows, causal=True)
+
+
 @pytest.mark.parametrize("d", [64, 128, 256])
-@pytest.mark.parametrize("kernel", ["flash_fwd_tma", "flash_fwd_short"])
+@pytest.mark.parametrize("kernel", ["flash_fwd_tma", "flash_fwd_short",
+                                    "rope_prepass", "flash_bwd_f32_dq",
+                                    "flash_bwd_f32_dkv",
+                                    "flash_bwd_generic_dkv"])
 def test_kernel_launchers_take_only_cuda_tensors(kernel, d):
     """Each kernel's launcher raises on CPU tensors (no CPU route) at every
     head dim and counts nothing."""
-    fn = getattr(tflash, kernel)
+    fn, call = _launcher_call(kernel, d)
     before = fn.launches
-    q = torch.zeros(1, 2, 8, d, dtype=torch.bfloat16)
     with pytest.raises(ValueError):
-        fn(q, q, q, causal=True)
+        call()
     assert fn.launches == before
 
 
@@ -186,7 +207,7 @@ def test_kernel_launchers_take_only_cuda_tensors(kernel, d):
                                    torch.float16])
 def test_kernel_routing(dtype, d, sq):
     """The one rule of ops/flash.py: f32 on flash_f32.cu (the backward on
-    flash_generic.cu); bf16/f16 on
+    flash_f32_bwd.cu); bf16/f16 on
     the tensor-core kernels at D 64/128/256, at D 128 the split-KV decode
     for one query and the mma.sync kernel for 2 to SHORT_SQ queries; each
     family's type check takes what the rule sends it and refuses the
@@ -232,3 +253,41 @@ def test_rope_and_kv_len_match_jax(feature):
         *(torch.from_numpy(x) for x in (q, k, v)), **tkw)
     assert_close(to, np.asarray(jo), 0, F32_ATOL, "out")
     assert_close(tl, np.asarray(jl), 0, F32_ATOL, "lse")
+
+
+ROPE_STEP = {"bfloat16": 2.0 ** -8, "float16": 2.0 ** -11}
+
+
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+def test_rope_prepass_plain_matches_jax(dtype, d):
+    """The RoPE pre-pass's plain version (csrc/rope_prepass.cu turns K once
+    a call for the TMA forward) against JAX's `apply_rope` and the Pallas
+    kernel's `_apply_rope_tile` rounding (f32 rotation, rounded to the
+    type) over the identity-padded tables the TPU kernel reads
+    (flash.py:1564-1572): a 25-row table under 40 keys, so rows 25.. stay
+    as they are, bit for bit; every other value within one rounding step
+    of the type of JAX's."""
+    from aule_tpu.ops.flash import _apply_rope_tile
+    from aule_tpu.ops.rope import apply_rope as jax_apply_rope
+
+    rng = np.random.default_rng(d)
+    x = rng.standard_normal((2, 3, 40, d)).astype(np.float32)
+    ang = rng.uniform(-3, 3, (25, d // 2)).astype(np.float32)
+    cos, sin = np.cos(ang), np.sin(ang)
+    pad = np.zeros((15, d // 2), np.float32)
+    cos_p, sin_p = np.concatenate([cos, pad + 1]), np.concatenate([sin, pad])
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    xj = jnp.asarray(x, jdt)
+    xt = torch.from_numpy(x).to(tdt)
+    got = tflash.rope_prepass_plain(xt, torch.from_numpy(cos),
+                                    torch.from_numpy(sin))
+    assert got.dtype == tdt and got.shape == xt.shape
+    assert torch.equal(got[:, :, 25:], xt[:, :, 25:])
+    got = got.float().numpy()
+    for want in (jax_apply_rope(xj, jnp.asarray(cos_p), jnp.asarray(sin_p)),
+                 _apply_rope_tile(xj.astype(jnp.float32), jnp.asarray(cos_p),
+                                  jnp.asarray(sin_p)).astype(jdt)):
+        want = np.asarray(want.astype(jnp.float32))
+        step = ROPE_STEP[dtype] * np.maximum(np.abs(want), 2.0 ** -14)
+        assert (np.abs(got - want) <= step).all()
