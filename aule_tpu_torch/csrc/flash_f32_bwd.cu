@@ -34,14 +34,17 @@
 //     at D256, where FFMA dP reads 1.8e-6); on FFMA every case of
 //     chip_smoke.py's F32_BWD_CASES reads 2.5-3.9e-6 (PERF.md).  dK/dV's
 //     dP^T stays on the tensor cores: no dK or dV row cancels so.
-//   * dK/dV (D 64 and 128): one block per (kv tile, q head, sequence); each
-//     warp owns 16 keys.  For each live q tile S^T = K Q^T and dP^T = V
-//     dO^T, P^T and dS^T with lse and di per column, dV += P^T dO and dK +=
-//     dS^T Q.  At D 256 the 16 x 256 sums of dK and dV (256 registers a
-//     thread) do not fit together: a block running two passes over its q
-//     tiles (dV's, then dK's, S recomputed) took 3.22 ms at B1 Hq8/Hkv1
-//     S2048 causal against flash_generic.cu's FFMA kernel's 2.32 (H100
-//     80GB HBM3, 700 W; PERF.md), so D 256 keeps that kernel.
+//   * dK/dV: one block per (kv tile, q head, sequence); at D 64 and 128
+//     each warp owns 16 keys.  For each live q tile S^T = K Q^T and dP^T =
+//     V dO^T, P^T and dS^T with lse and di per column, dV += P^T dO and dK
+//     += dS^T Q.  At D 256 the 16 x 256 sums of dK and dV (256 registers a
+//     thread) do not fit together (two passes over the q tiles, S
+//     recomputed, lost to FFMA on the card; PERF.md), so a pair of warps
+//     owns 16 keys, each warp one half of the head dim: 128 sums a thread,
+//     as at D 128.  Each warp sums its half's S^T and dP^T on the tensor
+//     cores, the pair swaps those partials through shared memory and adds
+//     the other's to its own (the same bits in both), and each updates its
+//     half of dK and dV.
 //   * splits once a block: dQ splits each K tile as it lands, dK/dV each Q
 //     and dO tile (the raw tile lands where its small parts go, each value
 //     split in place by one thread, its big part beside it); the warps
@@ -99,19 +102,26 @@ struct DqTile<256> {
   static constexpr int NW = 4, BN = 16, MINB = 1;
 };
 
-// dK/dV tiles: NW warps of 16 keys, BM q rows a tile; PRE: K and V split
-// once at the start (else by each warp as it reads its rows).  Shared
-// memory: 102 KB at D 64 (two blocks an SM), 198 KB at D 128 (8 warps).
+// dK/dV tiles: NW warps, HS of them a 16-key row block (each warp one
+// HS-th of the head dim), BM q rows a tile; PRE: K and V split once at the
+// start (else by each warp as it reads its rows).  Shared memory: 102 KB
+// at D 64 (two blocks an SM), 198 KB at D 128 (8 warps), 211 KB at D 256
+// (8 warps, 64 keys, 16 KB of it the pairs' score exchange).
 template <int D>
 struct KvTile;
 template <>
 struct KvTile<64> {
-  static constexpr int NW = 4, BM = 32, MINB = 2;
+  static constexpr int NW = 4, BM = 32, MINB = 2, HS = 1;
   static constexpr bool PRE = true;
 };
 template <>
 struct KvTile<128> {
-  static constexpr int NW = 8, BM = 32, MINB = 1;
+  static constexpr int NW = 8, BM = 32, MINB = 1, HS = 1;
+  static constexpr bool PRE = false;
+};
+template <>
+struct KvTile<256> {
+  static constexpr int NW = 8, BM = 16, MINB = 1, HS = 2;
   static constexpr bool PRE = false;
 };
 
@@ -121,11 +131,12 @@ constexpr int dq_smem() {
   return 4 * (2 * 16 * T::NW + 3 * T::BN) * (D + 4);
 }
 
+// (HS > 1: each warp's two score partials, 2 BM / 8 fragments of 4 x 32)
 template <int D>
 constexpr int dkv_smem() {
   using T = KvTile<D>;
-  return 4 * (((T::PRE ? 4 : 2) * 16 * T::NW + 4 * T::BM) * (D + 4) +
-              2 * T::BM);
+  return 4 * (((T::PRE ? 4 : 2) * 16 * T::NW / T::HS + 4 * T::BM) * (D + 4) +
+              2 * T::BM + (T::HS > 1 ? T::NW * 2 * (T::BM / 8) * 128 : 0));
 }
 
 // Rows row0 .. row0 + R - 1 of src [S, D] f32 -> dst (rows of D + 4
@@ -168,16 +179,16 @@ __device__ __forceinline__ void frag_a(const float* big, const float* small,
   }
 }
 
-// s[NS][4] = A rows (r, r + 8) . B rows (8 jn + g) over the head dim: B in
-// big and small parts; chains of one k-step (8 head-dim values) on the
-// tensor cores from zero, two side by side, their sum added to s in f32
-// (the first pair's sum is s).
-template <int D, int NS, bool APRE>
+// s[NS][4] = A rows (r, r + 8) . B rows (8 jn + g) over D head-dim values
+// (rows of L floats): B in big and small parts; chains of one k-step (8
+// head-dim values) on the tensor cores from zero, two side by side, their
+// sum added to s in f32 (the first pair's sum is s).
+template <int D, int NS, bool APRE, int L = D + 4>
 __device__ __forceinline__ void scores(float (&s)[NS][4], const float* ab_,
                                        const float* as_, int r,
                                        const float* bb_, const float* bs_,
                                        int g, int t) {
-  constexpr int L = D + 4, KS = 2;
+  constexpr int KS = 2;
 #pragma unroll 2
   for (int c0 = 0; c0 < D / 8; c0 += KS) {
     float part[KS][NS][4];
@@ -228,17 +239,17 @@ __device__ __forceinline__ void score_frags(const float (&x)[NS][4],
 }
 
 // acc[D / 8][4] += A (KK k-steps, from score_frags) x B rows 8kk + 2t, 8kk
-// + 2t + 1 (columns 8 jn + g), B in big and small parts: each output
-// n-tile's chain over the tile's KK k-steps on the tensor cores from zero,
-// JB side by side, added to acc in f32.
-template <int D, int KK>
+// + 2t + 1 (columns 8 jn + g of D; rows of L floats), B in big and small
+// parts: each output n-tile's chain over the tile's KK k-steps on the
+// tensor cores from zero, JB side by side, added to acc in f32.
+template <int D, int KK, int L = D + 4>
 __device__ __forceinline__ void rows_product(float (&acc)[D / 8][4],
                                              const uint32_t (&ab)[KK][4],
                                              const uint32_t (&as)[KK][4],
                                              const float* bb_,
                                              const float* bs_, int g,
                                              int t) {
-  constexpr int L = D + 4, NO = D / 8, JB = NO < 8 ? NO : 8;
+  constexpr int NO = D / 8, JB = NO < 8 ? NO : 8;
   const float* pb = bb_ + 2 * t * L + g;
   const float* ps = bs_ + 2 * t * L + g;
 #pragma unroll
@@ -427,12 +438,40 @@ struct DkvArgs {
 template <int D>
 struct DkvBlock {
   using TL = KvTile<D>;
-  static constexpr int NTH = TL::NW * 32, BN = TL::NW * 16, BM = TL::BM;
-  static constexpr int L = D + 4, NS = BM / 8, NO = D / 8;
+  static constexpr int HS = TL::HS, NTH = TL::NW * 32, BN = TL::NW * 16 / HS;
+  static constexpr int BM = TL::BM, L = D + 4, NS = BM / 8, DH = D / HS;
+  static constexpr int NO = DH / 8;
   static constexpr bool PRE = TL::PRE;
-  float *sK, *sKs, *sV, *sVs, *sQ, *sQs, *sO, *sOs, *sLse, *sDi;
-  int g, t, r, kv_lo, kpos0, kpos1, t_lo, t_hi;
+  float *sK, *sKs, *sV, *sVs, *sQ, *sQs, *sO, *sOs, *sLse, *sDi, *sX;
+  int g, t, r, hc, kv_lo, kpos0, kpos1, t_lo, t_hi;
   size_t row0, kvoff;
+
+  // HS > 1: S^T and dP^T summed over the row block's warps, each adding its
+  // partner's partial to its own (a + b = b + a: the same bits in both)
+  __device__ __forceinline__ void exchange(float (&s)[NS][4],
+                                           float (&dp)[NS][4]) const {
+    if constexpr (HS > 1) {
+      static_assert(HS == 2, "a row block of two warps");
+      const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+      float* mine = sX + warp * 2 * NS * 128 + lane;
+      const float* other = sX + (warp ^ 1) * 2 * NS * 128 + lane;
+#pragma unroll
+      for (int jn = 0; jn < NS; ++jn)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          mine[(4 * jn + e) * 32] = s[jn][e];
+          mine[(4 * (NS + jn) + e) * 32] = dp[jn][e];
+        }
+      __syncthreads();
+#pragma unroll
+      for (int jn = 0; jn < NS; ++jn)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[jn][e] += other[(4 * jn + e) * 32];
+          dp[jn][e] += other[(4 * (NS + jn) + e) * 32];
+        }
+    }
+  }
 
   // dV += P^T dO and dK += dS^T Q over the q tiles t_lo .. t_hi; Q(t_lo)
   // and dO(t_lo) are in flight (two commit groups)
@@ -450,16 +489,19 @@ struct DkvBlock {
         sDi[i] = in ? a.di[row0 + q_lo + i] : 0.f;
       }
       __syncthreads();  // Q(tq) split, its lse and di in place
-      // S^T = K Q^T: the warp's keys r, r + 8 against q rows 8 jn + g
+      // S^T = K Q^T: the warp's keys r, r + 8 against q rows 8 jn + g, over
+      // the warp's head-dim columns hc .. hc + DH - 1
+      const int c = HS > 1 ? hc : 0;
       float s[NS][4];
-      scores<D, NS, PRE>(s, sK, sKs, r, sQ, sQs, g, t);
+      scores<DH, NS, PRE, L>(s, sK + c, sKs + c, r, sQ + c, sQs + c, g, t);
 
       cp_async_wait<0>();
       __syncthreads();  // dO(tq) landed
       split_rows<D, BM, NTH>(sO, sOs, L);
       __syncthreads();  // dO(tq) split
       float dp[NS][4];
-      scores<D, NS, PRE>(dp, sV, sVs, r, sO, sOs, g, t);
+      scores<DH, NS, PRE, L>(dp, sV + c, sVs + c, r, sO + c, sOs + c, g, t);
+      exchange(s, dp);
       // P^T and dS^T, lse and di per column (q row)
 #pragma unroll
       for (int jn = 0; jn < NS; ++jn)
@@ -477,7 +519,7 @@ struct DkvBlock {
       // dK += dS^T Q: Q's rows 8kk + 2t, 8kk + 2t + 1
       uint32_t ab[NS][4], as[NS][4];
       score_frags<NS>(dp, ab, as);
-      rows_product<D, NS>(ak, ab, as, sQ, sQs, g, t);
+      rows_product<DH, NS, L>(ak, ab, as, sQ + c, sQs + c, g, t);
       __syncthreads();  // every warp is done with Q(tq)
       if (tq < t_hi) {
         load_async<D, BM, NTH>(sQs, a.q + row0 * D, q_lo + BM, a.Sq);
@@ -485,7 +527,7 @@ struct DkvBlock {
       }
       // dV += P^T dO
       score_frags<NS>(s, ab, as);
-      rows_product<D, NS>(av, ab, as, sO, sOs, g, t);
+      rows_product<DH, NS, L>(av, ab, as, sO + c, sOs + c, g, t);
       __syncthreads();  // every warp is done with dO(tq)
       if (tq < t_hi) {
         load_async<D, BM, NTH>(sOs, a.dO + row0 * D, q_lo + BM, a.Sq);
@@ -503,8 +545,8 @@ struct DkvBlock {
     cp_async_commit();
   }
 
-  // the warp's rows of a 16 x D sum: to the workspace share of head h
-  // (GQA) or to out
+  // the warp's rows and columns of a 16 x D sum: to the workspace share of
+  // head h (GQA) or to out
   __device__ __forceinline__ void store(const DkvArgs<D>& a,
                                         const float (&acc)[NO][4], float* out,
                                         float* share) const {
@@ -512,7 +554,8 @@ struct DkvBlock {
     for (int half = 0; half < 2; ++half) {
       const int kpos = half ? kpos1 : kpos0;
       if (kpos >= a.Sk) continue;
-      const size_t at = kvoff + (size_t)kpos * D + 2 * t;
+      const size_t at =
+          kvoff + (size_t)kpos * D + (HS > 1 ? hc : 0) + 2 * t;
       float* dst = (share != nullptr ? share : out) + at;
 #pragma unroll
       for (int jn = 0; jn < NO; ++jn)
@@ -527,7 +570,7 @@ __global__ void __launch_bounds__(KvTile<D>::NW * 32, KvTile<D>::MINB)
     flash_f32_bwd_dkv_kernel(const DkvArgs<D> a) {
   using Blk = DkvBlock<D>;
   constexpr int NTH = Blk::NTH, BN = Blk::BN, BM = Blk::BM, L = Blk::L,
-                NO = Blk::NO;
+                NO = Blk::NO, HS = Blk::HS;
   constexpr bool PRE = Blk::PRE;
   extern __shared__ float4 smem4[];
   Blk blk;
@@ -541,11 +584,13 @@ __global__ void __launch_bounds__(KvTile<D>::NW * 32, KvTile<D>::MINB)
   blk.sOs = blk.sO + BM * L;
   blk.sLse = blk.sOs + BM * L;
   blk.sDi = blk.sLse + BM;
+  blk.sX = blk.sDi + BM;
 
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   blk.g = lane >> 2;
   blk.t = lane & 3;
-  blk.r = warp * 16 + blk.g;
+  blk.r = warp / HS * 16 + blk.g;
+  blk.hc = warp % HS * Blk::DH;
   const int group = a.Hq / a.Hkv;
   const int h = blockIdx.y, b = blockIdx.z;
   blk.kv_lo = blockIdx.x * BN;
@@ -648,7 +693,8 @@ int dkv(const void* q, const void* k, const void* v, const void* dO,
                      static_cast<float*>(dv),
                      group > 1 ? static_cast<float*>(ws) : nullptr,
                      Hq, Hkv, Sq, Sk, scale, causal, window};
-  const dim3 grid((Sk + 16 * TL::NW - 1) / (16 * TL::NW), Hq, B);
+  constexpr int BN = 16 * TL::NW / TL::HS;
+  const dim3 grid((Sk + BN - 1) / BN, Hq, B);
   flash_f32_bwd_dkv_kernel<D><<<grid, TL::NW * 32, smem, stream>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess || group == 1) return err;
@@ -691,8 +737,7 @@ extern "C" int aule_flash_f32_bwd_dq(const void* q, const void* k,
 }
 
 // ws: f32 workspace of 2 * (Hq / Hkv) * B * Hkv * Sk * D floats when
-// Hq > Hkv (the group's shares of dK and dV), else null.  D 64 or 128 (D
-// 256 runs flash_generic.cu's FFMA dK/dV).
+// Hq > Hkv (the group's shares of dK and dV), else null.  D 64, 128 or 256.
 extern "C" int aule_flash_f32_bwd_dkv(const void* q, const void* k,
                                       const void* v, const void* dO,
                                       const void* lse, const void* di,
@@ -710,6 +755,9 @@ extern "C" int aule_flash_f32_bwd_dkv(const void* q, const void* k,
                      scale, causal, window, s);
     case 128:
       return dkv<128>(q, k, v, dO, lse, di, dk, dv, ws, B, Hq, Hkv, Sq, Sk,
+                      scale, causal, window, s);
+    case 256:
+      return dkv<256>(q, k, v, dO, lse, di, dk, dv, ws, B, Hq, Hkv, Sq, Sk,
                       scale, causal, window, s);
   }
   return cudaErrorInvalidValue;

@@ -2,9 +2,9 @@
 // paged_prefill.cu) do not take (sm_90a): f32 q and pools at D = 64, 128 or
 // 256 (those two run bf16 / f16 at every head dim), in every pool mode of
 // the port.  Hand-written CUDA C++, the products on FFMA (the int8 dot
-// products' scores on __dp4a).  The counterpart of flash_generic.cu for
-// the paged kernels.  Two kernels:
-//   (a) paged decode over either pool layout (the kernel's L, as in
+// products' scores on __dp4a).  The f32 prefill is paged_prefill_f32.cu's
+// (3xTF32 on the tensor cores).  The kernel:
+//   paged decode over either pool layout (the kernel's L, as in
 //       paged_decode.cu).  Replaces, for those types and head dims, the TPU
 //       kernels aule_tpu/ops/paged_fused.py::_fused_decode_kernel (fused
 //       pools [P, 2, Hkv, page, Dpad], D padded to 128 lanes:
@@ -15,13 +15,6 @@
 //       query token per sequence over the first context_lens[b] tokens (the
 //       trailing `window` of them with a window), -1 table entries clamp to
 //       page 0, context 0 gives zeros and LSE -0.7 * f32max;
-//   (b) paged prefill over fused pools, f32 only: replaces
-//       aule_tpu/ops/paged_fused.py::_fused_prefill_kernel for it.  Query
-//       s of sequence b sits at q_offsets[b] + s and sees cache positions
-//       below context_lens[b], at or before its own when causal, and within
-//       q - k <= W with a window (one-sided also when not causal); rows at
-//       or past context_lens[b] give zeros and LSE -0.7 * f32max (the
-//       port's documented divergence from the JAX kernel, ROADMAP queue 3).
 //
 // Pool modes (common.cuh kPool*):
 //   * native: the pool holds the q / out type (f32);
@@ -42,9 +35,7 @@
 // ctx1024 (12 kv heads, D64) holds 50.3 MB of live f32 K/V a layer (15.0 us
 // at 3.35 TB/s) and 12.6 MB of 1-byte payload (plus the scales).  The kernel reads only the D live lanes of a fused pool's
 // 128-lane row: reading the padded rows whole would double those bytes.
-// The prefill does 4 D operations per (row, visible key) pair, bound by
-// the 67 TFLOP/s of f32 FFMA.  The design is the simplest that stays
-// within reach of both:
+// The design:
 //   * decode is split-KV over the card with the partition of
 //     paged_decode.cu (ops/decode_split.py: nsplit blocks per (sequence,
 //     kv head) from the shapes and the SM count only, each block's range
@@ -68,13 +59,10 @@
 //     zeros whose results are dropped.  A group over 8 is cut into
 //     ceil(G / 8) row tiles of R = 8, each a grid row of its own (each
 //     reads its (sequence, kv head)'s K/V; ops/decode_split.py counts the
-//     tiles among the blocks of a wave);
-//   * prefill: one block per (q tile, q head, sequence), the FFMA tiles of
-//     flash_generic.cu's forward (generic.cuh) over K/V gathered from the
-//     pages, heaviest q tiles first, tiles outside the causal diagonal,
-//     the window or the context skipped.
+//     tiles among the blocks of a wave).
 
 #include "generic.cuh"
+#include "paged_pool.cuh"
 
 namespace {
 
@@ -84,89 +72,6 @@ constexpr int kMaxGroup = 8;  // q rows a decode block takes at most
 constexpr int kMaxSplits = 64;  // ops/decode_split.py MAX_SPLITS
 constexpr int SPAN = 4;         // ops/decode_split.py DECODE_SPAN
 constexpr unsigned kFull = 0xffffffffu;
-
-// The pool layouts (the decode's L).  Their names tell the kernels apart
-// in a profiler's list, and from paged_decode.cu's FusedPool / SplitPools.
-struct FusedLayout {
-  static constexpr bool kSplit = false;
-};
-struct SplitLayout {
-  static constexpr bool kSplit = true;
-};
-
-// Where a pool's rows and scales lie.
-struct Pool {
-  const uint8_t* kv;  // the fused pool, or the split K pool
-  const uint8_t* v;   // the split V pool (null for a fused pool)
-  const void* sc;     // the packed tile, or the split K scales (quantized)
-  const float* vs;    // the split V scales (null for a fused pool)
-  int sc_f32, Hkv, num_pages, page_size;
-};
-
-// A stored row: ESZ-byte values BYTES apart (D values, padded to 128
-// lanes in a fused pool), of which the CPR 16-byte chunks holding the D
-// values are read.
-template <typename T, int POOL, int D, typename L>
-struct Row {
-  static constexpr int ESZ = POOL == kPoolNative ? (int)sizeof(T) : 1;
-  static constexpr int BYTES = (L::kSplit ? D : (D + 127) / 128 * 128) * ESZ;
-  static constexpr int CPR = D * ESZ / 16;
-};
-
-// Index of the row (in rows of the pool's row size) of K (kvsel 0) or V of
-// token `slot` of page `page`, kv head hk.  Split pools keep K and V in two
-// tensors of the same shape.
-template <typename L>
-__device__ __forceinline__ size_t row_index(const Pool& p, size_t page,
-                                            int slot, int hk, int kvsel) {
-  if constexpr (L::kSplit)
-    return ((size_t)hk * p.num_pages + page) * p.page_size + slot;
-  else
-    return ((page * 2 + kvsel) * p.Hkv + hk) * p.page_size + slot;
-}
-
-// The K (kvsel 0) or V scale of that token, f32.
-template <typename L>
-__device__ __forceinline__ float row_scale(const Pool& p, size_t page,
-                                           int slot, int hk, int kvsel) {
-  if constexpr (L::kSplit) {
-    const float* s = kvsel ? p.vs : static_cast<const float*>(p.sc);
-    return __ldg(s + ((size_t)hk * p.num_pages + page) * p.page_size + slot);
-  } else {
-    return load_scale(p.sc,
-                      (page * p.page_size + slot) * kScaleLanes +
-                          kvsel * kScaleKVStride + hk,
-                      p.sc_f32);
-  }
-}
-
-// One 16-byte chunk of a row -> its values in f32, exactly.
-template <typename T, int POOL>
-__device__ __forceinline__ void chunk_to_float(const uint4& w, float* f) {
-  const uint32_t u[4] = {w.x, w.y, w.z, w.w};
-  if constexpr (POOL != kPoolNative) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) payload4_to_float<POOL>(u[i], f + 4 * i);
-  } else if constexpr (std::is_same<T, float>::value) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) f[i] = __uint_as_float(u[i]);
-  } else {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 x = Elem<T>::to_float2(u[i]);
-      f[2 * i] = x.x;
-      f[2 * i + 1] = x.y;
-    }
-  }
-}
-
-// Page and slot of token `tok` through one sequence's table (-1 -> 0).
-__device__ __forceinline__ void locate(const int* bt, int tok, int ps,
-                                       size_t& page, int& slot) {
-  const int lp = tok / ps;
-  slot = tok - lp * ps;
-  page = (size_t)max(__ldg(bt + lp), 0);
-}
 
 // Tokens tok0 .. tok0 + R - 1 of a sequence's table, kv head hk, K (kvsel
 // 0) or V -> dst [R][D + 4] f32: 1-byte payloads times their token's scale
@@ -619,136 +524,6 @@ __global__ void __launch_bounds__(NT)
   }
 }
 
-// ---- (b) prefill over fused pools
-
-struct PrefillArgs {
-  const void* q;      // [B, Hq, Sq, D]
-  Pool pool;
-  const int* bt;      // [B, max_pages]
-  const int* lens;    // [B] total visible cache length
-  const int* qoff;    // [B] absolute position of query 0
-  void* out;          // [B, Hq, Sq, D]
-  float* lse;         // [B, Hq, Sq] or null
-  int Hq, Sq, max_pages;
-  float scale;
-  int causal, window;
-};
-
-template <int D>
-constexpr size_t prefill_smem() {
-  using Ti = Tiles<D>;
-  return sizeof(float) * ((Ti::BM + 2 * Ti::BN) * Ti::LD + Ti::BM * Ti::LP);
-}
-
-// may the query at qpos see the key at kpos, with len cached tokens?
-__device__ __forceinline__ bool seen(int qpos, int kpos, int len, int causal,
-                                     int window) {
-  bool ok = kpos < len && qpos < len;
-  if (causal) ok = ok && kpos <= qpos;
-  if (window > 0) ok = ok && qpos - kpos <= window;
-  return ok;
-}
-
-// Grid (q tiles, Hq, B), the last q tile first.
-template <typename T, int POOL, int D>
-__global__ void __launch_bounds__(NT)
-    paged_generic_prefill_kernel(const PrefillArgs a) {
-  using Ti = Tiles<D>;
-  constexpr int BM = Ti::BM, BN = Ti::BN, LD = Ti::LD, LP = Ti::LP,
-                RM = Ti::RM, CN = Ti::CN, CD = Ti::CD, GC = Ti::G;
-  extern __shared__ float4 smem4[];
-  float* sQ = reinterpret_cast<float*>(smem4);
-  float* sK = sQ + BM * LD;
-  float* sV = sK + BN * LD;
-  float* sP = sV + BN * LD;
-
-  const int tx = threadIdx.x % TX, ty = threadIdx.x / TX;
-  const int s_lo = (gridDim.x - 1 - blockIdx.x) * BM;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int Hkv = a.pool.Hkv, hk = h / (a.Hq / Hkv);
-  const int len = max(0, min(a.lens[b], a.max_pages * a.pool.page_size));
-  const int q0 = a.qoff[b];
-  // the keys [k_min, k_max] some live row of this tile sees
-  const int qa_lo = q0 + s_lo, qa_hi = q0 + min(s_lo + BM, a.Sq) - 1;
-  const int k_min = a.window > 0 ? max(0, qa_lo - a.window) : 0;
-  const int k_max =
-      qa_lo >= len ? -1 : (a.causal ? min(len - 1, qa_hi) : len - 1);
-  const int j_lo = k_min / BN;
-  const int j_hi = k_max >= k_min ? k_max / BN : j_lo - 1;
-  const int* bt = a.bt + (size_t)b * a.max_pages;
-
-  const size_t qoff = ((size_t)b * a.Hq + h) * a.Sq * D;
-  load_tile<T, D, BM>(sQ, static_cast<const T*>(a.q) + qoff, s_lo, a.Sq);
-
-  float acc[RM][CD], m[RM], l[RM];
-#pragma unroll
-  for (int i = 0; i < RM; ++i) {
-    m[i] = -INFINITY;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < CD; ++c) acc[i][c] = 0.f;
-  }
-  const int qpos0 = q0 + s_lo + ty * RM;
-
-  for (int j = j_lo; j <= j_hi; ++j) {
-    const int kv0 = j * BN;
-    __syncthreads();  // the last tile's readers are done
-    load_kv<T, POOL, D, BN, FusedLayout, false>(sK, a.pool, bt, hk, 0, kv0,
-                                                len);
-    load_kv<T, POOL, D, BN, FusedLayout, false>(sV, a.pool, bt, hk, 1, kv0,
-                                                len);
-    __syncthreads();
-
-    float s[RM][CN];
-    dot_rows<D, RM, CN>(s, sQ, sK, ty, tx);
-#pragma unroll
-    for (int i = 0; i < RM; ++i) {
-      float mx = -INFINITY;
-#pragma unroll
-      for (int jj = 0; jj < CN; ++jj) {
-        const bool ok =
-            seen(qpos0 + i, kv0 + tx + TX * jj, len, a.causal, a.window);
-        s[i][jj] = ok ? s[i][jj] * a.scale : -INFINITY;
-        mx = fmaxf(mx, s[i][jj]);
-      }
-      const float mn = fmaxf(m[i], row_max(mx));
-      // a row that has seen nothing yet keeps m = -inf and p = 0
-      const float alpha = mn == -INFINITY ? 1.f : expf(m[i] - mn);
-      float sum = 0.f;
-#pragma unroll
-      for (int jj = 0; jj < CN; ++jj) {
-        const float p = mn == -INFINITY ? 0.f : expf(s[i][jj] - mn);
-        sP[(ty * RM + i) * LP + tx + TX * jj] = p;
-        sum += p;
-      }
-      l[i] = l[i] * alpha + row_sum(sum);
-      m[i] = mn;
-#pragma unroll
-      for (int c = 0; c < CD; ++c) acc[i][c] *= alpha;
-    }
-    __syncthreads();
-    acc_rows<D, RM, BN, LP>(acc, sP, sV, ty, tx);
-  }
-
-  // normalise; LSE m + ln l, or kMaskValue with zeros for a row that saw
-  // nothing (every row at or past the context)
-#pragma unroll
-  for (int i = 0; i < RM; ++i) {
-    const int sq = s_lo + ty * RM + i;
-    if (sq >= a.Sq) continue;
-    const float inv = l[i] > 0.f ? 1.f / l[i] : 0.f;
-    T* orow = static_cast<T*>(a.out) + qoff + (size_t)sq * D;
-#pragma unroll
-    for (int g = 0; g < GC; ++g)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        orow[64 * g + 4 * tx + e] = Val<T>::st(acc[i][4 * g + e] * inv);
-    if (a.lse != nullptr && tx == 0)
-      a.lse[((size_t)b * a.Hq + h) * a.Sq + sq] =
-          l[i] > 0.f ? m[i] + logf(l[i]) : kMaskValue;
-  }
-}
-
 // ---- host side
 
 template <typename T, int POOL, int D, typename L>
@@ -783,29 +558,6 @@ template <typename T, int D>
 int decode_by_layout(int layout, int pool, const DecodeArgs& a) {
   return layout ? decode_by_pool<T, D, SplitLayout>(pool, a)
                 : decode_by_pool<T, D, FusedLayout>(pool, a);
-}
-
-template <typename T, int POOL, int D>
-int prefill(const PrefillArgs& a, int B, cudaStream_t stream) {
-  static bool done = false;
-  constexpr size_t smem = prefill_smem<D>();
-  const cudaError_t err =
-      allow_smem(paged_generic_prefill_kernel<T, POOL, D>, smem, done);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((a.Sq + Tiles<D>::BM - 1) / Tiles<D>::BM, a.Hq, B);
-  paged_generic_prefill_kernel<T, POOL, D><<<grid, NT, smem, stream>>>(a);
-  return cudaGetLastError();
-}
-
-template <typename T, int D>
-int prefill_by_pool(int pool, const PrefillArgs& a, int B,
-                    cudaStream_t stream) {
-  switch (pool) {
-    case kPoolNative: return prefill<T, kPoolNative, D>(a, B, stream);
-    case kPoolInt8: return prefill<T, kPoolInt8, D>(a, B, stream);
-    case kPoolE4M3: return prefill<T, kPoolE4M3, D>(a, B, stream);
-  }
-  return cudaErrorInvalidValue;
 }
 
 bool group_ok(int Hq, int Hkv) { return Hkv > 0 && Hq > 0 && Hq % Hkv == 0; }
@@ -863,41 +615,4 @@ extern "C" int aule_paged_generic_decode(
                      nsplit,
                      static_cast<cudaStream_t>(stream)};
   AULE_GENERIC_F32_DISPATCH(decode_by_layout, layout, pool, a)
-}
-
-// (b) q, out [B, Hq, Sq, D] f32 (16-bit q runs csrc/paged_prefill.cu); kv
-// the fused pool [P, 2, Hkv, page, Dpad] with its packed scale tile sc
-// (quantized pools; bf16, or f32 with sc_f32) or null; context_lens the
-// total visible cache length and q_offsets the position of query 0, per
-// sequence; lse [B, Hq, Sq] or null.
-extern "C" int aule_paged_generic_prefill(
-    const void* q, const void* kv, const void* sc, const void* block_tables,
-    const void* context_lens, const void* q_offsets, void* out, void* lse,
-    int B, int Hq, int Hkv, int Sq, int page_size, int max_pages, int D,
-    float scale, int causal, int window, int dtype, int pool, int sc_f32,
-    void* stream) {
-  if (B <= 0 || Sq <= 0) return cudaSuccess;
-  if (!group_ok(Hq, Hkv)) return cudaErrorInvalidValue;
-  const PrefillArgs a{q,
-                      Pool{static_cast<const uint8_t*>(kv), nullptr, sc,
-                           nullptr, sc_f32, Hkv, 0, page_size},
-                      static_cast<const int*>(block_tables),
-                      static_cast<const int*>(context_lens),
-                      static_cast<const int*>(q_offsets),
-                      out,
-                      static_cast<float*>(lse),
-                      Hq,
-                      Sq,
-                      max_pages,
-                      scale,
-                      causal,
-                      window};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype != kF32) return cudaErrorInvalidValue;  // paged_prefill.cu's
-  switch (D) {
-    case 64: return prefill_by_pool<float, 64>(pool, a, B, s);
-    case 128: return prefill_by_pool<float, 128>(pool, a, B, s);
-    case 256: return prefill_by_pool<float, 256>(pool, a, B, s);
-  }
-  return cudaErrorInvalidValue;
 }

@@ -60,9 +60,6 @@ SIGNATURES = {
     # causal, window, dtype, stream
     "aule_flash_f32_bwd_dkv": [_VOID] * 9 + [_INT] * 6 + [_FLOAT] +
                               [_INT] * 3 + [_VOID],
-    # as aule_flash_f32_bwd_dkv (D 256)
-    "aule_flash_generic_dkv": [_VOID] * 9 + [_INT] * 6 + [_FLOAT] +
-                              [_INT] * 3 + [_VOID],
     # x, out, B * H, S, rope cos, rope sin, D, rope_len, dtype, stream
     "aule_rope_prepass": [_VOID] * 2 + [_INT] * 2 + [_VOID] * 2 +
                          [_INT] * 3 + [_VOID],
@@ -87,7 +84,7 @@ SIGNATURES = {
                                  [_INT] * 7 + [_VOID],
     # q, kv, scales, tables, lens, q_offsets, out, lse, B, Hq, Hkv, Sq,
     # page, max_pages, D, scale, causal, window, dtype, pool, sc_f32, stream
-    "aule_paged_generic_prefill": [_VOID] * 8 + [_INT] * 7 + [_FLOAT] +
+    "aule_paged_prefill_f32": [_VOID] * 8 + [_INT] * 7 + [_FLOAT] +
                                   [_INT] * 5 + [_VOID],
     # q, k, v, do, o, dlse, lse, di, dq, B, Hq, Hkv, Sq, Sk, D, scale,
     # causal, window, dtype, stream
@@ -231,7 +228,8 @@ def stream_handle(device) -> int:
 def dtype_code(dtype, f32: bool = False) -> int:
     """0 = bfloat16, 1 = float16 (the kernels' storage types); 2 = float32
     where the kernel takes it (`f32`: csrc/flash_f32.cu,
-    csrc/flash_f32_bwd.cu, csrc/flash_generic.cu, csrc/paged_generic.cu)."""
+    csrc/flash_f32_bwd.cu, csrc/flash_generic.cu, csrc/paged_generic.cu,
+    csrc/paged_prefill_f32.cu)."""
     if dtype == torch.bfloat16:
         return 0
     if dtype == torch.float16:

@@ -20,10 +20,9 @@ versions, CUDA tensors launch the hand-written kernels (replacing
 (`attention_delta_generic`) and csrc/flash_f32_bwd.cu's dQ and dK/dV
 (`flash_bwd_f32_dq`, `flash_bwd_f32_dkv`: the products on the tensor cores
 in 3xTF32, short chains added to f32 sums, dQ's dP on FFMA, a fixed order
-of every sum, no atomics; f32 only), but at D 256 flash_generic.cu's FFMA
-dK/dV (`flash_bwd_generic_dkv`; `f32_dkv_kernel` holds the rule);
-`flash_attention_bwd` picks by q's type (`ops.flash.uses_generic`), the
-delta with the other two.
+of every sum, no atomics; f32 only; at D 256 a pair of warps on the two
+halves of the head dim); `flash_attention_bwd` picks by q's type
+(`ops.flash.uses_generic`), the delta with the other two.
 
 RoPE composes outside the op through `ops.rope.apply_rope`, whose
 autograd gives its exact gradient.  With grad off (no input that requires
@@ -309,18 +308,11 @@ def flash_bwd_f32_dq(q, k, v, do, lse, di, *, causal=False, scale=None,
 def flash_bwd_f32_dkv(q, k, v, do, lse, di, *, causal=False, scale=None,
                       window=-1):
     """(dK, dV) as `flash_bwd_dkv`, on csrc/flash_f32_bwd.cu's 3xTF32 dK/dV
-    kernel (CUDA f32 tensors at D 64 and 128; replaces flash_vjp.py::
+    kernel (CUDA f32 tensors at D 64, 128 and 256; replaces flash_vjp.py::
     _dkv_kernel's f32 branch): one block per kv tile and q head; with GQA
     the heads' f32 shares go to a workspace, summed in head order by a
     second kernel (no atomics).  Raises on other tensors:
     `flash_bwd_dkv_plain` is its plain version."""
-    return _f32_dkv("aule_flash_f32_bwd_dkv", flash_bwd_f32_dkv, q, k, v,
-                    do, lse, di, causal, scale, window)
-
-
-def _f32_dkv(entry, wrapper, q, k, v, do, lse, di, causal, scale, window):
-    """Run the f32 dK/dV C entry `entry` on CUDA tensors; count a launch on
-    `wrapper`."""
     _check_shapes(q, k, v)
     scale, window = _scale_window(q, scale, window)
     q, k, v, do, lse, di = _cuda_inputs(q, k, v, do, lse, di, generic=True)
@@ -329,37 +321,16 @@ def _f32_dkv(entry, wrapper, q, k, v, do, lse, di, causal, scale, window):
     group = hq // k.shape[1]
     ws = (torch.empty(2 * group * k.numel(), dtype=torch.float32,
                       device=q.device) if group > 1 else None)
-    err = getattr(_build.library(), entry)(
+    err = _build.library().aule_flash_f32_bwd_dkv(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), di.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         ws.data_ptr() if ws is not None else None, batch,
         hq, k.shape[1], seq_q, k.shape[2], d, scale, int(bool(causal)),
         window, _build.dtype_code(q.dtype, f32=True),
         _build.stream_handle(q.device))
-    _build.check(err, entry)
-    wrapper.launches += 1
+    _build.check(err, "aule_flash_f32_bwd_dkv")
+    flash_bwd_f32_dkv.launches += 1
     return dk, dv
-
-
-def flash_bwd_generic_dkv(q, k, v, do, lse, di, *, causal=False,
-                          scale=None, window=-1):
-    """(dK, dV) as `flash_bwd_dkv`, on csrc/flash_generic.cu's FFMA dK/dV
-    kernel (CUDA f32 tensors at D 256, where it ran faster than
-    flash_f32_bwd.cu's 3xTF32 one on an H100: `f32_dkv_kernel`; replaces
-    flash_vjp.py::_dkv_kernel's f32 branch there; one block per kv tile
-    and q head, GQA shares summed in head order by a second kernel).
-    Raises on other tensors: `flash_bwd_dkv_plain` is its plain version."""
-    return _f32_dkv("aule_flash_generic_dkv", flash_bwd_generic_dkv, q, k,
-                    v, do, lse, di, causal, scale, window)
-
-
-def f32_dkv_kernel(q):
-    """The f32 dK/dV wrapper for q's head dim: flash_f32_bwd.cu's 3xTF32
-    kernel at D 64 and 128; flash_generic.cu's FFMA kernel at D 256, where
-    the 3xTF32 kernel (two passes over its q tiles: dK and dV do not fit a
-    thread's registers together) took 3.22 ms against 2.32 at B1 Hq8/Hkv1
-    S2048 causal on an H100 80GB HBM3 at 700 W (PERF.md)."""
-    return flash_bwd_generic_dkv if q.shape[-1] == 256 else flash_bwd_f32_dkv
 
 
 # kernel launches since the last reset (the CPU route does not count)
@@ -369,7 +340,6 @@ flash_bwd_dkv.launches = 0
 attention_delta_generic.launches = 0
 flash_bwd_f32_dq.launches = 0
 flash_bwd_f32_dkv.launches = 0
-flash_bwd_generic_dkv.launches = 0
 
 
 def flash_attention_bwd(q, k, v, o, lse, do, *, causal=False, scale=None,
@@ -378,8 +348,7 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal=False, scale=None,
     cotangent `do` (and the lse cotangent `dlse`, None = zero): the delta,
     dQ and dK/dV kernels, flash_bwd.cu's for bf16/f16 (D 64, 128, 256)
     and for f32 flash_generic.cu's delta with flash_f32_bwd.cu's dQ and
-    dK/dV (`f32_dkv_kernel`: flash_generic.cu's at D 256; for CPU tensors
-    `flash_attention_bwd_plain`)."""
+    dK/dV (for CPU tensors `flash_attention_bwd_plain`)."""
     kw = dict(causal=causal, scale=scale, window=window)
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, o, lse, do, dlse=dlse, **kw)
@@ -387,7 +356,7 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal=False, scale=None,
     if uses_generic(q):
         di = attention_delta_generic(o, do, dlse)
         return (flash_bwd_f32_dq(q, k, v, do, lse, di, **kw),
-                *f32_dkv_kernel(q)(q, k, v, do, lse, di, **kw))
+                *flash_bwd_f32_dkv(q, k, v, do, lse, di, **kw))
     di = attention_delta(o, do, dlse)
     return (flash_bwd_dq(q, k, v, do, lse, di, o=o, dlse=dlse, **kw),
             *flash_bwd_dkv(q, k, v, do, lse, di, **kw))

@@ -1,14 +1,14 @@
-"""Launchers of the generic paged kernels (csrc/paged_generic.cu), the FFMA
-counterparts of the tensor-core paged kernels for what those do not take:
-f32 q and pools at D 64, 128 or 256, in the decode and the prefill
-(csrc/paged_decode.cu runs the 16-bit decode and csrc/paged_prefill.cu the
-16-bit prefill at every head dim).
+"""Launchers of the paged kernels for f32 q at D 64, 128 or 256, what the
+16-bit paged kernels do not take (csrc/paged_decode.cu runs the 16-bit
+decode and csrc/paged_prefill.cu the 16-bit prefill at every head dim):
+the decode on csrc/paged_generic.cu (FFMA) and the prefill on
+csrc/paged_prefill_f32.cu (3xTF32 on the tensor cores).
 
 The public wrappers route to them by one rule each: `paged_attention_fused`
 and the split `paged_attention` (ops/paged_fused.py, ops/paged.py) launch
 `paged_generic_decode` whenever `uses_generic_kernels(q)`, and
 `paged_attention_prefill` (ops/paged_prefill.py) launches
-`paged_generic_prefill` whenever `prefill_uses_generic(q)`; the wrappers'
+`paged_prefill_f32` whenever `prefill_uses_generic(q)`; the wrappers'
 own counters count only the tensor-core kernels.  These functions take
 CUDA tensors that the wrappers have checked; each counts its launches in
 `.launches`.  The plain versions are the wrappers' own.
@@ -48,7 +48,7 @@ def uses_generic_kernels(q: torch.Tensor) -> bool:
 
 
 def prefill_uses_generic(q: torch.Tensor) -> bool:
-    """Whether the card runs q's prefill on the generic paged prefill (f32
+    """Whether the card runs q's prefill on csrc/paged_prefill_f32.cu (f32
     at D 64/128/256) rather than csrc/paged_prefill.cu (bf16/f16 at D
     64/128/256).  Raises ValueError for any other type or head dim."""
     _check_kernel_type(q)
@@ -95,13 +95,17 @@ def paged_generic_decode(q, q_in, qf, kv, v, sc, vs, block_tables,
     return (out, lse) if return_lse else out
 
 
-def paged_generic_prefill(q, kv_pages, kv_scales, block_tables,
+def paged_prefill_f32(q, kv_pages, kv_scales, block_tables,
                           context_lens, q_offsets, *, scale: float,
                           causal: bool, window: int, pool: int, sc_f32: int,
                           return_lse: bool):
-    """One launch of the f32 prefill kernel over a fused pool: q [B, Hq, S,
-    D] contiguous; context_lens the total visible cache length and q_offsets
-    the position of query 0, per sequence."""
+    """One launch of csrc/paged_prefill_f32.cu's prefill over a fused pool
+    (f32, int8 or e4m3 with scales): q [B, Hq, S, D] f32 contiguous;
+    context_lens the total visible cache length and q_offsets the position
+    of query 0, per sequence.  Raises on CPU tensors (the wrapper's plain
+    version is `paged_attention_prefill_plain`)."""
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
     batch, hq, s_new, d = q.shape
     hkv, page_size = kv_pages.shape[2], kv_pages.shape[3]
     dev = q.device
@@ -111,17 +115,17 @@ def paged_generic_prefill(q, kv_pages, kv_scales, block_tables,
     out = torch.empty_like(q)
     lse = (torch.empty((batch, hq, s_new), dtype=torch.float32, device=dev)
            if return_lse else None)
-    err = _build.library().aule_paged_generic_prefill(
+    err = _build.library().aule_paged_prefill_f32(
         q.data_ptr(), kv_pages.data_ptr(), _ptr(kv_scales), bt.data_ptr(),
         lens.data_ptr(), qoff.data_ptr(), out.data_ptr(), _ptr(lse), batch,
         hq, hkv, s_new, page_size, bt.shape[1], d, float(scale),
         int(bool(causal)), window, _build.dtype_code(q.dtype, f32=True),
         pool, sc_f32, _build.stream_handle(dev))
-    _build.check(err, "aule_paged_generic_prefill")
-    paged_generic_prefill.launches += 1
+    _build.check(err, "aule_paged_prefill_f32")
+    paged_prefill_f32.launches += 1
     return (out, lse) if return_lse else out
 
 
 # kernel launches since the last reset
 paged_generic_decode.launches = 0
-paged_generic_prefill.launches = 0
+paged_prefill_f32.launches = 0

@@ -18,8 +18,8 @@ on the type (ops/paged_generic.py `prefill_uses_generic`): for bf16 / f16
 at D = 64, 128 or 256 csrc/paged_prefill.cu's (a warp-specialised wgmma
 kernel whose producer warps gather the pages and convert int8 / e4m3
 tiles; templated on the head dim, a D = 64 q reads the D live lanes of the
-pool's 128-lane rows), for f32 at D 64 / 128 / 256 csrc/paged_generic.cu's
-FFMA prefill (ops/paged_generic.py), or raise for what neither takes.  The
+pool's 128-lane rows), for f32 at D 64 / 128 / 256 csrc/paged_prefill_f32.cu's
+3xTF32 prefill (ops/paged_generic.py), or raise for what neither takes.  The
 JAX function's TPU tiling arguments (`block_q`, `pages_per_compute_block`)
 have no counterpart: the kernel picks its tiles in the source.
 """
@@ -34,7 +34,7 @@ import torch
 from . import _build
 from .paged_fused import (check_kernel_inputs, check_pool, dequantize_pool,
                           from_fused_layout)
-from .paged_generic import paged_generic_prefill, prefill_uses_generic
+from .paged_generic import paged_prefill_f32, prefill_uses_generic
 from .reference import paged_prefill_reference
 
 
@@ -101,7 +101,7 @@ def paged_attention_prefill(
         pool = _build.pool_code(kv_pages.dtype)
         sc_f32 = _build.scale_code(kv_scales.dtype)
     if generic:
-        return paged_generic_prefill(
+        return paged_prefill_f32(
             q, kv_pages, kv_scales, block_tables, context_lens, q_offsets,
             scale=scale, causal=causal, window=window, pool=pool,
             sc_f32=sc_f32, return_lse=return_lse)

@@ -4,8 +4,23 @@ aule_tpu/utils/testing.py::assert_close), for torch tensors and arrays.
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
+
+
+def cap_cpu_threads() -> int:
+    """Cap torch's intra-op threads at this process's share of the cores.
+
+    Under pytest-xdist each of the `PYTEST_XDIST_WORKER_COUNT` workers
+    would otherwise run torch with one thread per core, and the CPU
+    models' many small ops spin those threads against each other's. A lone
+    run (no xdist) keeps every core. Returns the cap."""
+    workers = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1") or 1)
+    n = max(1, (os.cpu_count() or 1) // max(1, workers))
+    torch.set_num_threads(n)
+    return n
 
 
 def _np64(x) -> np.ndarray:

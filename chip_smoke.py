@@ -64,15 +64,17 @@ Phases, each printing a line of its own:
      in place, deleted and captured again;
      kv_len on the TMA kernel; GPT-2 small's layer (D64) and D256 in bf16
      and f16 forward and backward on the tensor-core kernels; the Llama
-     layer and GPT-2's layer in f32, forward on csrc/flash_f32.cu (3xTF32
-     on the tensor cores), backward on csrc/flash_f32_bwd.cu (3xTF32) with
+     layer, GPT-2's layer and D256 group 8 in f32, forward on
+     csrc/flash_f32.cu (3xTF32 on the tensor cores), backward on
+     csrc/flash_f32_bwd.cu (3xTF32) with
      csrc/flash_generic.cu's delta; the SDPA
      patch (install, an attn_mask call reaching torch's own function,
      uninstall); the forward's RoPE, kv_len, window and GQA modes
      (PUBLIC_MODES; f32 at D 64, 128 and 256 too); each mode timed beside
      its bound and one PyTorch call;
   6. gpt2, in a process of its own (`python3 chip_smoke.py --gpt2` runs it
-     alone): csrc/paged_generic.cu's decode and prefill (f32),
+     alone): csrc/paged_generic.cu's decode and csrc/paged_prefill_f32.cu's
+     prefill (f32 q),
      csrc/paged_decode.cu's 16-bit decode and csrc/paged_prefill.cu's
      16-bit prefill at D 64/256 (bf16 and f16 pools, int8 and e4m3 pools
      with 16-bit q), held to their plain versions, every call twice with
@@ -97,7 +99,8 @@ Phases, each printing a line of its own:
      and chunk 256, int8 chunk 256, fp8 whole and chunk 256, bf16 whole
      and chunk 256), each checked as the Llama runs are (launches: the
      decode 12 times a step and the chunked prefill 12 times a chunk, on
-     paged_generic.cu in f32, on paged_decode.cu / paged_prefill.cu in
+     paged_generic.cu / paged_prefill_f32.cu in f32, on paged_decode.cu /
+     paged_prefill.cu in
      bf16, the other family never;
      pages; tokens against a teacher-forced plain forward or
      plain-attention replay, the f32 runs within GPT2_F32_NEAR_TIE), and
@@ -720,13 +723,17 @@ F32_BWD_CASES = [
      False),
     ("Sq700 Sk300 non-causal window 100, non-zero dlse (rows that see "
      "nothing)", LAYER, 700, 300, 128, False, 100, True),
+    ("D256 group 1 Hq4/Hkv4 Sq700 Sk300 non-causal window 100, non-zero "
+     "dlse", (1, 4, 4), 700, 300, 256, False, 100, True),
+    ("D256 group 3 Hq6/Hkv2 S777 causal", (1, 6, 2), 777, 777, 256, True, -1,
+     False),
 ]
 
 
 def check_flash_bwd_f32():
     """The f32 backward's kernels (flash_generic.cu's delta, flash_f32_bwd.
-    cu's dQ and dK/dV; at D 256 flash_generic.cu's FFMA dK/dV, as
-    `f32_dkv_kernel` routes it) against their plain versions over
+    cu's dQ and dK/dV, at D 256 its pairs of warps on the two halves of the
+    head dim) against their plain versions over
     F32_BWD_CASES: every dQ, dK, dV row within ROW_TOL[f32] of its size (at
     least F32_BWD_FLOOR of the largest |value|, for rows that cancel), two
     runs bitwise equal, `flash_attention_bwd` equal to the three kernels.
@@ -743,7 +750,7 @@ def check_flash_bwd_f32():
         di = fv.attention_delta_generic(o, do, dlse)
         kw = dict(causal=causal, window=window)
         what = f"flash f32 bwd {label} D{d}"
-        dkv = fv.f32_dkv_kernel(q)
+        dkv = fv.flash_bwd_f32_dkv
         dq = fv.flash_bwd_f32_dq(q, k, v, do, lse, di, **kw)
         dk, dv = dkv(q, k, v, do, lse, di, **kw)
         errs = {"dq": hold(f"{what} dQ", dq, fv.flash_bwd_dq_plain(
@@ -770,7 +777,7 @@ def check_flash_bwd_f32():
     log("flash f32 bwd: every case bitwise equal over two runs and through "
         "flash_attention_bwd")
     fv.flash_bwd_f32_dq.launches = fv.flash_bwd_f32_dkv.launches = 0
-    fv.flash_bwd_generic_dkv.launches = fv.attention_delta_generic.launches = 0
+    fv.attention_delta_generic.launches = 0
     torch.cuda.empty_cache()
     return worst, cases
 
@@ -1445,7 +1452,7 @@ def _launch_counters():
     from aule_tpu_torch.ops.paged import paged_attention
     from aule_tpu_torch.ops.paged_fused import paged_attention_fused
     from aule_tpu_torch.ops.paged_generic import (paged_generic_decode,
-                                                  paged_generic_prefill)
+                                                  paged_prefill_f32)
     from aule_tpu_torch.ops.paged_prefill import paged_attention_prefill
 
     return {"flash_fwd": flash_fwd_tma, "flash_fwd_short": flash_fwd_short,
@@ -1455,7 +1462,7 @@ def _launch_counters():
             "paged_decode_split": paged_attention,
             "paged_prefill": paged_attention_prefill,
             "paged_generic_decode": paged_generic_decode,
-            "paged_generic_prefill": paged_generic_prefill}
+            "paged_prefill_f32": paged_prefill_f32}
 
 
 def run_engine(params, cfg, prompts, label, model=None, engine_kw=ENGINE_KW,
@@ -1474,7 +1481,8 @@ def run_engine(params, cfg, prompts, label, model=None, engine_kw=ENGINE_KW,
     flash_f32.cu's in f32, the tensor-core kernels in bf16 at D 64 and
     128 above SHORT_SQ tokens); the paged decode and prefill that
     ops/paged_generic.py's rules pick: a model in f32 decodes and prefills
-    its chunks on paged_generic.cu, a bf16 one on paged_decode.cu and
+    its chunks on paged_generic.cu / paged_prefill_f32.cu, a bf16 one on
+    paged_decode.cu and
     paged_prefill.cu at every head dim, and the other family never) and
     that every page came back."""
     from aule_tpu_torch.serving.engine import ServingEngine
@@ -1537,7 +1545,7 @@ def run_engine(params, cfg, prompts, label, model=None, engine_kw=ENGINE_KW,
     else:
         want["paged_decode"] = 0 if split else decode
         want["paged_decode_split"] = decode if split else 0
-    want["paged_generic_prefill" if prefill_uses_generic(row)
+    want["paged_prefill_f32" if prefill_uses_generic(row)
          else "paged_prefill"] = prefill if chunked else 0
     if chunked and st["prefill_dispatches"] != sum(
             -(-n // kw["prefill_chunk"]) for n in lens):
@@ -1787,7 +1795,7 @@ CATEGORIES = {"flash_fwd_short": ["flash_fwd_short_kernel"],
               "rope_prepass": ["rope_prepass_kernel"],
               "flash_generic": ["flash_generic"],
               "paged_generic_decode": ["paged_generic_decode"],
-              "paged_generic_prefill": ["paged_generic_prefill"],
+              "paged_prefill_f32": ["paged_prefill_f32"],
               "flash_bwd_dq": ["flash_bwd_dq_kernel"],
               "flash_bwd_dkv": ["flash_bwd_dkv_kernel"],
               "flash_bwd_delta": ["flash_bwd_delta_kernel"],
@@ -2006,7 +2014,6 @@ def _public_counters():
             "flash_generic_delta": fv.attention_delta_generic,
             "flash_f32_bwd_dq": fv.flash_bwd_f32_dq,
             "flash_f32_bwd_dkv": fv.flash_bwd_f32_dkv,
-            "flash_generic_dkv": fv.flash_bwd_generic_dkv,
             "rope_prepass": tf.rope_prepass}
 
 
@@ -2737,7 +2744,8 @@ def check_public() -> dict:
     for name, shape, s, d, seed, dt in (
             ("f16_d64", GPT2, 512, 64, 1, torch.float16),
             ("f16_d256", D256, 1024, 256, 2, torch.float16),
-            ("gpt2_f32", GPT2, 1024, 64, 3, torch.float32)):
+            ("gpt2_f32", GPT2, 1024, 64, 3, torch.float32),
+            ("d256_f32", D256, TRAIN_S, 256, 4, torch.float32)):
         g = torch.Generator(device="cuda")
         g.manual_seed(PUBLIC_SEED + 100 + seed)
         _public_layer(g, res, name, shape, s, d, dt)
@@ -2750,7 +2758,7 @@ def check_public() -> dict:
     return res
 
 
-# ---- the GPT-2 phase: csrc/paged_generic.cu and GPT-2 small serving, in a
+# ---- the GPT-2 phase: the f32-q paged kernels and GPT-2 small serving, in a
 # process of its own (`python3 chip_smoke.py --gpt2` runs it alone)
 
 GPT2_SEED = SEED + 12    # a generator of its own: earlier checks' inputs
@@ -2932,7 +2940,7 @@ def _generic_prefill_checks(gen, res):
     """The paged prefill at the head dims 64 and 256 against its plain
     version, twice with the same bits, each call counted on the kernel
     ops/paged_generic.py's rule picks: f32 q (f32, int8 and fp8 pools) on
-    csrc/paged_generic.cu, 16-bit q on csrc/paged_prefill.cu's tensor
+    csrc/paged_prefill_f32.cu, 16-bit q on csrc/paged_prefill.cu's tensor
     cores (TC_PREFILL_MODES: bf16 and f16 pools, int8 and e4m3 pools with
     bf16 q and bf16 scales, with f16 q and f32 scales).  GPT-2's 256-token
     chunk at q_offset 768 over 1024 (and with a 128 window), a ragged
@@ -2941,7 +2949,7 @@ def _generic_prefill_checks(gen, res):
     of 3); D64 group 2 with a window; f32 at the Llama layer (a 512 chunk
     at 3488 over 4000)."""
     from aule_tpu_torch.config import DEFAULT_MASK_VALUE
-    from aule_tpu_torch.ops.paged_generic import paged_generic_prefill
+    from aule_tpu_torch.ops.paged_generic import paged_prefill_f32
     from aule_tpu_torch.ops.paged_prefill import (
         paged_attention_prefill, paged_attention_prefill_plain)
 
@@ -2980,8 +2988,8 @@ def _generic_prefill_checks(gen, res):
             kw = dict(q_offsets=qoff, kv_scales=sc, window_size=window,
                       return_lse=True)
             tc = dt != torch.float32
-            kernel = paged_attention_prefill if tc else paged_generic_prefill
-            what = (f"{'tensor-core' if tc else 'generic'} prefill {mode} "
+            kernel = paged_attention_prefill if tc else paged_prefill_f32
+            what = (f"{'tensor-core' if tc else 'f32-q'} prefill {mode} "
                     f"{label} Hq{hq}/Hkv{hkv} D{d} "
                     f"{str(dt).replace('torch.', '')} q")
             before = kernel.launches
@@ -3003,7 +3011,8 @@ def _generic_prefill_checks(gen, res):
 
 # The paged kernels at the head dims 64 and 128 at GQA groups 3, 6 and 12
 # over 4 kv heads (12: two row tiles of 8, the second half empty), at
-# (label, q dtype, head dim): f32 q over every pool on csrc/paged_generic.cu,
+# (label, q dtype, head dim): f32 q over every pool on csrc/paged_generic.cu
+# and csrc/paged_prefill_f32.cu,
 # bf16 q over bf16, int8 and e4m3 pools on the tensor-core kernels.
 GEN_GROUPS = (3, 6, 12)
 GEN_GROUP_TYPES = (("f32 D128", torch.float32, 128),
@@ -3014,7 +3023,7 @@ GEN_GROUP_TYPES = (("f32 D128", torch.float32, 128),
 def _generic_group_checks(res):
     """The paged decode (both layouts, no window and a trailing window of
     64; paged_generic.cu's for f32 q, paged_decode.cu's for bf16 q) and the
-    prefill (window 64; paged_generic.cu's for f32 q, paged_prefill.cu's
+    prefill (window 64; paged_prefill_f32.cu's for f32 q, paged_prefill.cu's
     for bf16 q) at GEN_GROUPS and GEN_GROUP_TYPES in every pool mode, from
     a generator of their own,
     held as _generic_decode_checks and _generic_prefill_checks hold theirs:
@@ -3180,7 +3189,7 @@ def _generic_timings(gen, res):
     paged_decode.cu in bf16 (both layouts), int8 dot products and e4m3
     (bf16 q); paged_decode.cu at D256 group 8 (B2 Hq8/Hkv1, contexts 2048
     and 777) in bf16 and f16; the prefill of a 256-token chunk at
-    q_offset 768 over 1024 (f32 q on paged_generic.cu, bf16 q on
+    q_offset 768 over 1024 (f32 q on paged_prefill_f32.cu, bf16 q on
     paged_prefill.cu, also over int8 and e4m3 pools) and bf16 at D256 group
     8 (a chunk of 256 at 1000).  Library: SDPA on the gathered, dequantized
     K/V in q's type (a key mask for the decode, a positional mask for the
@@ -3203,7 +3212,7 @@ def _generic_timings(gen, res):
         _decode_mode_times(gen, res, key, mode, lens, heads, max_pages,
                            split)
     # the prefill at GPT-2's chunk in every mode of GEN_PREFILL_MODES (f32
-    # q on paged_generic.cu, bf16 on paged_prefill.cu) and with bf16 q over
+    # q on paged_prefill_f32.cu, bf16 on paged_prefill.cu) and with bf16 q over
     # 1-byte pools, then bf16 at D256 group 8 (a chunk of 256 at 1000)
     for mode, dt, qdt, (hq, hkv, d), hist, chunk, max_pages in [
             (m, dt, qdt, GPT2_HEADS, 768, 256, 64)
@@ -3228,25 +3237,28 @@ def _generic_timings(gen, res):
         esz = q.element_size()
         kw = dict(q_offsets=qoff, kv_scales=sc)
         tc = dt != torch.float32
-        res["time"][("tc prefill " if tc else "prefill ") + mode] = \
+        nbytes = 2 * q.numel() * esz + profiling.paged_kv_bytes(
+            hist + chunk, hkv, d, esz if qdt is None else 1,
+            0 if qdt is None else 2) + max_pages * 4 + 3 * 4
+        res["time"][("tc prefill " if tc else "prefill ") + mode] = t = \
             _mode_time(
-            f"{'tensor-core' if tc else 'generic'} prefill time {mode} "
+            f"{'tensor-core' if tc else 'f32-q'} prefill time {mode} "
             f"chunk {chunk} at {hist} over {hist + chunk} Hq{hq}/Hkv{hkv} "
             f"D{d} page16",
             lambda: paged_attention_prefill(q, pl, bt, ln, **kw),
             lambda: paged_attention_prefill_plain(q, pl, bt, ln, **kw),
             lambda: SDPA(q, kd, vd, attn_mask=mask),
-            "paged_prefill_kernel" if tc else "paged_generic_prefill",
-            2 * q.numel() * esz + profiling.paged_kv_bytes(
-                hist + chunk, hkv, d, esz if qdt is None else 1,
-                0 if qdt is None else 2) + max_pages * 4 + 3 * 4,
-            flops, _rate(dt))
+            "paged_prefill_kernel" if tc else "paged_prefill_f32",
+            nbytes, flops, _fwd_rate(dt))
+        if not tc:  # f32 q in 3xTF32; its FFMA bound beside it
+            t["ffma_bound_ms"] = profiling.bound_ms(
+                nbytes, flops, profiling.H100_F32_FLOPS)[0]
         del kd, vd, kh, vh
 
 
 # GPT-2 small's serving runs: (key, label, bf16 model, engine options,
 # check: "plain" forward or quantized "replay", near-tie allowance).  The
-# f32, int8 and fp8 chunked runs put every pool mode of the generic prefill
+# f32, int8 and fp8 chunked runs put every pool mode of the f32-q prefill
 # on the main path, the bf16 chunked run the tensor-core prefill at D64.
 GPT2_RUNS = [
     ("f32", "GPT-2 f32 whole-prompt", False, {}, "plain", GPT2_F32_NEAR_TIE),
@@ -3273,7 +3285,8 @@ def _gpt2_serving(res):
     1,000 prompt tokens, 24 new tokens each, through
     ServingEngine(model=gpt2) in every run of GPT2_RUNS, each checked by
     run_engine (launches: the paged decode 12 times a step and the prefill
-    12 times a chunk, paged_generic.cu's in f32, paged_decode.cu's and
+    12 times a chunk, paged_generic.cu's / paged_prefill_f32.cu's in f32,
+    paged_decode.cu's and
     paged_prefill.cu's in bf16; the flash forward 12 times a whole prompt,
     by ops/flash.py's rule: flash_f32.cu's in f32, the TMA kernel at D64
     in bf16; pages) and held to a
@@ -3337,12 +3350,13 @@ def _gpt2_serving(res):
 
 
 def check_gpt2() -> dict:
-    """The GPT-2 phase: csrc/paged_generic.cu's kernels, and
-    csrc/paged_decode.cu and csrc/paged_prefill.cu at D 64/256, held to
+    """The GPT-2 phase: csrc/paged_generic.cu's and csrc/paged_prefill_f32.cu's
+    kernels, and csrc/paged_decode.cu and csrc/paged_prefill.cu at D 64/256,
+    held to
     their plain versions and timed, then GPT-2 small served.  Returns the
     errors, times and launches."""
     from aule_tpu_torch.ops.paged_generic import (paged_generic_decode,
-                                                  paged_generic_prefill)
+                                                  paged_prefill_f32)
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(GPT2_SEED)
@@ -3351,7 +3365,7 @@ def check_gpt2() -> dict:
     _generic_prefill_checks(gen, res)
     _generic_group_checks(res)
     _generic_timings(gen, res)
-    paged_generic_decode.launches = paged_generic_prefill.launches = 0
+    paged_generic_decode.launches = paged_prefill_f32.launches = 0
     _gpt2_serving(res)
     return res
 
@@ -3743,16 +3757,24 @@ def _entry(name, source, replaces, launches, err, t, shape, **extra):
 
 
 def gpt2_entries(gpt2: dict) -> list:
-    """The GPT-2 phase's kernel modes (csrc/paged_generic.cu for f32 q;
-    csrc/paged_decode.cu and csrc/paged_prefill.cu for 16-bit q at D 64 /
-    256), each with its launches on the GPT-2 serving runs that use it;
+    """The GPT-2 phase's kernel modes (csrc/paged_generic.cu's decode and
+    csrc/paged_prefill_f32.cu's prefill for f32 q; csrc/paged_decode.cu and
+    csrc/paged_prefill.cu for 16-bit q at D 64 / 256), each with its
+    launches on the GPT-2 serving runs that use it;
     the split layout, which GPT-2 serving does not take, and D256 with
     their launches on the phase's counted checks."""
-    src = "aule_tpu_torch/csrc/paged_generic.cu"
-    design = ("FFMA, the int8 dot products' scores on __dp4a; K/V tiles "
-              "gathered into f32 shared memory, only the D live lanes of a "
-              "row read; decode split-KV with paged_decode.cu's partition, "
-              "the splits merged in split order in the same launch")
+    src = {"decode": "aule_tpu_torch/csrc/paged_generic.cu",
+           "prefill": "aule_tpu_torch/csrc/paged_prefill_f32.cu"}
+    design = {"decode": "FFMA, the int8 dot products' scores on __dp4a; K/V "
+                        "tiles gathered into f32 shared memory, only the D "
+                        "live lanes of a row read; split-KV with "
+                        "paged_decode.cu's partition, the splits merged in "
+                        "split order in the same launch",
+              "prefill": "3xTF32 on mma.sync (tf32.cuh, short chains); a "
+                         "block of 16 q rows of one head, its 4 warps taking "
+                         "every 4th key tile, each gathering its own pages "
+                         "by cp.async (1-byte pools converted to f32 in "
+                         "shared memory), merged in warp order"}
     decode_row = ("aule_tpu/ops/paged_fused.py:213 (_fused_decode_kernel: "
                   "f32 with Precision.HIGHEST l.334-336; D64 padded to 128 "
                   "lanes l.56-66, 494-498)")
@@ -3787,20 +3809,21 @@ def gpt2_entries(gpt2: dict) -> list:
             ("paged_generic_decode_fp8", "decode", "fp8", ("fp8",
                                                            "fp8 chunk"),
              "e4m3 pools, bf16 scales, f32 q"),
-            ("paged_generic_prefill_f32", "prefill", "f32", ("f32 chunk",),
+            ("paged_prefill_f32", "prefill", "f32", ("f32 chunk",),
              "f32 pool"),
-            ("paged_generic_prefill_int8", "prefill", "int8",
+            ("paged_prefill_f32_int8", "prefill", "int8",
              ("int8 chunk",), "int8 pool, bf16 scales, f32 q"),
-            ("paged_generic_prefill_fp8", "prefill", "fp8", ("fp8 chunk",),
+            ("paged_prefill_f32_fp8", "prefill", "fp8", ("fp8 chunk",),
              "e4m3 pool, bf16 scales, f32 q")):
-        kernel = f"paged_generic_{kind}"
+        kernel = ("paged_generic_decode" if kind == "decode"
+                  else "paged_prefill_f32")
         by_run = {k: runs[k][kernel] for k in keys}
         for k, count in by_run.items():
             if count == 0:
                 raise AssertionError(f"{kernel} was not launched in GPT-2 "
                                      f"run {k}")
         t = times[f"{kind} {mode}"]
-        extra = dict(design=design, launches_by_run=by_run, **dev(t),
+        extra = dict(design=design[kind], launches_by_run=by_run, **dev(t),
                      other_shapes=shapes(f"{kind} {mode}"))
         if mode == "int8 dot":
             # the int8 exact path (int8_matmul=False) is checked and timed,
@@ -3809,8 +3832,10 @@ def gpt2_entries(gpt2: dict) -> list:
                          int8_exact_device_ms=times["decode int8 exact"][
                              "device_ms"],
                          int8_exact_other_shapes=shapes("decode int8 exact"))
+        if "ffma_bound_ms" in t:
+            extra["ffma_bound_ms"] = t["ffma_bound_ms"]
         entries.append(_entry(
-            name, src, decode_row if kind == "decode" else prefill_row,
+            name, src[kind], decode_row if kind == "decode" else prefill_row,
             sum(by_run.values()), err[f"{kind} {mode}"], t,
             f"{decode_shape if kind == 'decode' else prefill_shape}, {pool}",
             **extra))
@@ -3818,7 +3843,7 @@ def gpt2_entries(gpt2: dict) -> list:
     # bf16 chunked run
     by_run = {"bf16 chunk": runs["bf16 chunk"]["paged_prefill"]}
     if by_run["bf16 chunk"] == 0 or runs["bf16 chunk"][
-            "paged_generic_prefill"]:
+            "paged_prefill_f32"]:
         raise AssertionError("the GPT-2 bf16 chunked run did not prefill on "
                              "paged_prefill.cu alone")
     t = times["tc prefill bf16"]
@@ -3901,10 +3926,10 @@ def gpt2_entries(gpt2: dict) -> list:
     worst = tuple(max(err[f"split {m}"][i] for m in split_modes)
                   for i in range(3))
     entries.append(_entry(
-        "paged_generic_decode_split", src, split_row, launches, worst,
-        times["split f32"], "GPT-2 small decode B8 ctx1024 page16 "
+        "paged_generic_decode_split", src["decode"], split_row, launches,
+        worst, times["split f32"], "GPT-2 small decode B8 ctx1024 page16 "
         "Hq12/Hkv12 D64, split f32 pools (int8 and fp8 with f32 scales "
-        "checked and timed too)", design=design,
+        "checked and timed too)", design=design["decode"],
         same_bits_as_fused_kernel=True, **dev(times["split f32"]),
         errs_by_mode={m: err[f"split {m}"] for m in split_modes},
         time_by_mode={m: times[f"split {m}"] for m in split_modes},
@@ -4215,6 +4240,8 @@ def main() -> None:
                      f"causal",
               "gpt2_f32": "GPT-2 small layer B1 Hq12/Hkv12 S1024 D64 f32 "
                           "causal",
+              "d256_f32": f"B1 Hq8/Hkv1 S{TRAIN_S} D256 f32 causal (Gemma-2B's "
+                          f"attention shape)",
               "d256": f"B1 Hq8/Hkv1 S{TRAIN_S} D256 bf16 causal (Gemma-2B's "
                       f"attention shape)"}
     generic_rows = {
@@ -4281,7 +4308,7 @@ def main() -> None:
                      "aule_tpu_torch/csrc/" + f32_names[part][1],
                      generic_rows[part], shapes[mode]
                      + library_note("f32", part))
-                    for mode in ("f32", "gpt2_f32")
+                    for mode in ("f32", "gpt2_f32", "d256_f32")
                     for part in ("fwd", "delta", "dq", "dkv")]
     public_rows.append((
         "rope_prepass", "aule_tpu_torch/csrc/rope_prepass.cu",

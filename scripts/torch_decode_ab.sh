@@ -102,7 +102,8 @@ for shape, batch, ctx in (("B8 ctx4096", 8, 4096), ("B8 ctx1024", 8, 1024),
 # device time, beside SDPA on the gathered K/V (bf16, a key mask where a
 # sequence is shorter than its table); then the paged prefill of a
 # 256-token chunk at q offset 768 over 1024 at GPT-2's shape, f32 and
-# bf16.
+# bf16, as each tree routes it (f32 q on csrc/paged_prefill_f32.cu in
+# trees that have it, else on csrc/paged_generic.cu).
 from aule_tpu_torch.ops.paged_fused import from_fused_layout
 from aule_tpu_torch.ops.reference import _gather_pages
 
@@ -153,7 +154,7 @@ for name, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
     pool, bt = c._generic_pool(g, [1024], 64, 16, hkv, d, dt, False)
     q = c._randn((1, hq, 256, d), g, dt)
     pre[f"prefill {name}"] = dev(lambda: paged_attention_prefill(
-        q, pool, bt, ln, q_offsets=qoff), "prefill_kernel")
+        q, pool, bt, ln, q_offsets=qoff), "prefill")
 print(f"{tag} paged prefill (GPT-2 chunk 256 at 768) device us", pre,
       flush=True)
 

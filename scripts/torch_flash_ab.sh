@@ -22,8 +22,9 @@
 # the Llama layer, GPT-2's layer, D256 and RoPE + kv_len, and the f32
 # backward's parts as each tree routes them (flash_f32_bwd.cu's 3xTF32
 # dQ and dK/dV in trees that have it, else flash_generic.cu's FFMA ones)
-# at the Llama layer, GPT-2's layer and D256 group 8, beside SDPA in f32.
-# The two trees run in turns, A, B, B, A, one process each, so that both
+# at the Llama layer, GPT-2's layer and D256 group 8, beside SDPA in f32;
+# then the f32-q paged prefill as each tree routes it at GPT-2's chunk in
+# f32, int8 and e4m3 pools, beside SDPA.  The two trees run in turns, A, B, B, A, one process each, so that both
 # versions meet the same card.  Each process builds its tree's kernels and
 # prints the ptxas lines of every kernel.
 #
@@ -330,6 +331,38 @@ for label, (b, hq, hkv), sq, sk, d, rows, n in (
     del q, k, v, kx, vx, qr, kr
     torch.cuda.empty_cache()
 print(f"{tag} f32 forward and backward device ms per call", f32, flush=True)
+# The f32-q paged prefill as each tree routes it (csrc/paged_prefill_f32.cu's
+# 3xTF32 kernel in trees that have it, else csrc/paged_generic.cu's FFMA
+# one) at GPT-2's chunk of 256 at q_offset 768 over 1024 (Hq12/Hkv12 D64,
+# page 16) in f32, int8 and e4m3 pools (bf16 scales), device ms per call
+# beside SDPA in f32 on the gathered, dequantized K/V with a positional
+# mask, on a generator of its own.
+from aule_tpu_torch.ops.paged_fused import dequantize_pool, from_fused_layout
+from aule_tpu_torch.ops.paged_prefill import paged_attention_prefill
+
+g6 = torch.Generator("cuda")
+g6.manual_seed(c.SEED + 700)
+pool, bt = c._generic_pool(g6, [1024], 64, 16, 12, 64, torch.float32, False)
+q = c._randn((1, 12, 256, 64), g6, torch.float32)
+ln = torch.tensor([1024], dtype=torch.int32, device="cuda")
+qoff = torch.tensor([768], dtype=torch.int32, device="cuda")
+mask = (torch.arange(1024, device="cuda")[None, :]
+        <= 768 + torch.arange(256, device="cuda")[:, None])
+pf = {}
+for name, qdt in (("f32", None), ("int8", torch.int8),
+                  ("fp8", torch.float8_e4m3fn)):
+    pl, sc = c._gen_quantized(pool, qdt)
+    kh, vh = (from_fused_layout(pl[1:], 64) if qdt is None
+              else dequantize_pool(pl[1:], sc[1:], 64))
+    kd, vd = (x.reshape(1, 12, -1, 64)[:, :, :1024].float() for x in (kh, vh))
+    pf[name] = (
+        dev(lambda: paged_attention_prefill(q, pl, bt, ln, q_offsets=qoff,
+                                            kv_scales=sc)),
+        dev(lambda: F.scaled_dot_product_attention(q, kd, vd,
+                                                   attn_mask=mask)))
+    del kd, vd, kh, vh
+print(f"{tag} f32-q paged prefill, GPT-2 chunk, device ms per call (kernel, "
+      f"sdpa)", pf, flush=True)
 EOF
   )
 }

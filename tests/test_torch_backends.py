@@ -8,6 +8,9 @@ import torch
 
 import aule_tpu_torch
 from aule_tpu_torch import backends, config
+from aule_tpu_torch.utils.testing import cap_cpu_threads
+
+cap_cpu_threads()
 
 
 @pytest.fixture

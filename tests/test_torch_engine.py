@@ -19,6 +19,9 @@ from aule_tpu.serving.engine import ServingEngine as JaxEngine
 from aule_tpu_torch.models import llama as tllama
 from aule_tpu_torch.serving import sampling
 from aule_tpu_torch.serving.engine import ServingEngine
+from aule_tpu_torch.utils.testing import cap_cpu_threads
+
+cap_cpu_threads()
 
 JCFG = jllama.LlamaConfig.tiny()
 TCFG = tllama.LlamaConfig.tiny()

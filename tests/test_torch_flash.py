@@ -16,7 +16,10 @@ from aule_tpu.ops.flash import flash_attention_fwd as jax_flash
 from aule_tpu.ops.reference import attention_reference as jax_reference
 from aule_tpu_torch.ops import flash as tflash
 from aule_tpu_torch.ops import flash_vjp as tflash_vjp
-from aule_tpu_torch.utils.testing import assert_close
+from aule_tpu_torch.ops import paged_generic
+from aule_tpu_torch.utils.testing import assert_close, cap_cpu_threads
+
+cap_cpu_threads()
 
 F32_ATOL = 2e-5
 BF16_ATOL = 2e-2
@@ -171,8 +174,8 @@ def test_cpu_route_does_not_count_launches():
 def _launcher_call(kernel, d):
     """(wrapper, a call of it on CPU tensors at head dim d): the forward
     launchers on bf16 q, k, v; the RoPE pre-pass on bf16 k and [8, d/2]
-    tables; the f32 backward's dQ and dK/dV (both dK/dV kernels) on f32 q,
-    k, v, do, lse, di."""
+    tables; the f32 backward's dQ and dK/dV on f32 q, k, v, do, lse, di;
+    the f32-q paged prefill on f32 q and a fused f32 pool."""
     if kernel in ("flash_fwd_tma", "flash_fwd_short", "rope_prepass"):
         fn = getattr(tflash, kernel)
         q = torch.zeros(1, 2, 8, d, dtype=torch.bfloat16)
@@ -180,6 +183,15 @@ def _launcher_call(kernel, d):
             tab = torch.ones(8, d // 2)
             return fn, lambda: fn(q, tab, tab * 0)
         return fn, lambda: fn(q, q, q, causal=True)
+    if kernel == "paged_prefill_f32":
+        fn = paged_generic.paged_prefill_f32
+        q = torch.zeros(1, 2, 8, d)
+        pool = torch.zeros(2, 2, 2, 16, max(d, 128))
+        table = torch.ones(1, 1, dtype=torch.int32)
+        lens = torch.full((1,), 8, dtype=torch.int32)
+        return fn, lambda: fn(q, pool, None, table, lens, lens * 0,
+                              scale=d ** -0.5, causal=True, window=-1,
+                              pool=0, sc_f32=0, return_lse=False)
     fn = getattr(tflash_vjp, kernel)
     q = torch.zeros(1, 2, 8, d)
     rows = torch.zeros(1, 2, 8)
@@ -190,7 +202,7 @@ def _launcher_call(kernel, d):
 @pytest.mark.parametrize("kernel", ["flash_fwd_tma", "flash_fwd_short",
                                     "rope_prepass", "flash_bwd_f32_dq",
                                     "flash_bwd_f32_dkv",
-                                    "flash_bwd_generic_dkv"])
+                                    "paged_prefill_f32"])
 def test_kernel_launchers_take_only_cuda_tensors(kernel, d):
     """Each kernel's launcher raises on CPU tensors (no CPU route) at every
     head dim and counts nothing."""

@@ -21,7 +21,9 @@ import torch
 from aule_tpu.ops.flash import flash_attention_fwd as jax_flash
 from aule_tpu_torch.ops import decode_split as ds
 from aule_tpu_torch.ops import flash as tflash
-from aule_tpu_torch.utils.testing import assert_close
+from aule_tpu_torch.utils.testing import assert_close, cap_cpu_threads
+
+cap_cpu_threads()
 
 F32_ATOL = 2e-5
 BUCKET = 256  # a bucket of the SDPA patch's decode, cut small

@@ -31,6 +31,9 @@ import pytest
 import torch
 
 from aule_tpu.ops.reference import attention_reference
+from aule_tpu_torch.utils.testing import cap_cpu_threads
+
+cap_cpu_threads()
 
 ROW_TOL = {torch.bfloat16: 2.0 ** -6, torch.float16: 2.0 ** -8}
 BWD_FLOOR = 2.0 ** -12

@@ -35,6 +35,9 @@ from aule_tpu.ops.flash import flash_attention_fwd as jax_flash
 from aule_tpu.ops.reference import attention_reference
 from aule_tpu_torch.ops.flash import flash_attention_fwd_plain
 from aule_tpu_torch.ops.reference import build_mask
+from aule_tpu_torch.utils.testing import cap_cpu_threads
+
+cap_cpu_threads()
 
 ROW_TOL = 1e-5   # chip_smoke.py ROW_TOL[torch.float32]
 LSE_TOL = 1e-4   # chip_smoke.py LSE_TOL

@@ -8,10 +8,11 @@ k-step) on the tensor cores from zero, two such chains side by side, their
 sum added to the f32 score; P = exp(scale S - lse) from the forward's LSE
 and dS = P (dP - di) scale in f32; dQ += dS K sums one key tile (64 keys at
 D 64, 32 at D 128, 16 at D 256) a chain, and dK += dS^T Q, dV += P^T dO one
-q tile (32 rows) a chain, each chain added to its f32 sum; a GQA group's
-dK / dV shares are added in head order.  At D 256 dK / dV run on
-csrc/flash_generic.cu's FFMA kernel (every product one f32 chain in order),
-which was faster there on the card.  dQ's dP alone runs on FFMA, one f32
+q tile (32 rows; 16 at D 256) a chain, each chain added to its f32 sum; a
+GQA group's dK / dV shares are added in head order.  At D 256 a pair of
+warps owns a key block, each warp one half of the head dim: S^T and dP^T
+are each the sum of the two halves' scores (each half summed as above),
+and each warp updates its half of dK and dV.  dQ's dP alone runs on FFMA, one f32
 chain in the head dim's order: where one key takes a row's
 weight (a causal row 0), dS = P (dP - di) cancels to the rounding of dP
 itself, and the card's check holds dQ there to the plain version's f32 dP
@@ -44,15 +45,18 @@ import torch
 
 from aule_tpu.ops import flash_vjp as jfv
 from aule_tpu.ops.reference import attention_reference
-from aule_tpu_torch.ops.flash_vjp import flash_attention_bwd_plain
+from aule_tpu_torch.ops.flash_vjp import (flash_attention_bwd_plain,
+                                          flash_bwd_dq_plain)
 from aule_tpu_torch.ops.reference import build_mask
 from test_torch_flash_tf32 import ROW_TOL, mma3
+from aule_tpu_torch.utils.testing import cap_cpu_threads
+
+cap_cpu_threads()
 
 F32_BWD_FLOOR = 2.0 ** -5   # chip_smoke.py F32_BWD_FLOOR
 # the kernels' tiles by head dim: keys a dQ chain, q rows a dK / dV chain
-# (D 256's dK / dV run on FFMA)
 DQ_KEYS = {64: 64, 128: 32, 256: 16}
-DKV_ROWS = {64: 32, 128: 32}
+DKV_ROWS = {64: 32, 128: 32, 256: 16}
 
 
 def _scores(a, b, passes=3):
@@ -80,14 +84,12 @@ def _ffma(a, b):
     return out
 
 
-def _ffma_rows(w, x):
-    """w [.., M, K] @ x [.., K, N] on FFMA: one f32 chain from 0 over the K
-    rows in order (flash_generic.cu's dK / dV)."""
-    out = torch.zeros(w.shape[:-1] + (x.shape[-1],))
-    w64, x64 = w.double(), x.double()
-    for kk in range(w.shape[-1]):
-        out = (out.double() + w64[..., kk, None] * x64[..., kk, None, :]).float()
-    return out
+def _half_scores(a, b, passes=3):
+    """`_scores` as the D 256 dK/dV kernel sums it: each half of the head
+    dim summed by one warp of a pair, the two halves' sums added."""
+    h = a.shape[-1] // 2
+    return (_scores(a[..., :h], b[..., :h], passes)
+            + _scores(a[..., h:], b[..., h:], passes))
 
 
 def _rows(w, x, tile, chain="tile", passes=3):
@@ -127,23 +129,18 @@ def _bwd_model(q, k, v, do, lse, di, causal, window, chain="tile",
     # dQ's scores, rows q
     dp = _ffma(do, vx) if dq_dp == "ffma" else _scores(do, vx, passes)
     _, ds = p_ds(_scores(q, kx, passes), dp, lse[..., None], di[..., None])
-    # dK/dV's, transposed: rows k, lse and di per column; at D 256 all on
-    # FFMA (flash_generic.cu)
-    ffma = d == 256
-    score = _ffma if ffma else (lambda a, b: _scores(a, b, passes))
-    pt, dst = p_ds(score(kx, q).transpose(-1, -2),
-                   score(vx, do).transpose(-1, -2), lse[..., None],
+    # dK/dV's, transposed: rows k, lse and di per column; at D 256 summed
+    # over the two halves of the head dim
+    score = _half_scores if d == 256 else _scores
+    pt, dst = p_ds(score(kx, q, passes).transpose(-1, -2),
+                   score(vx, do, passes).transpose(-1, -2), lse[..., None],
                    di[..., None])
     shape = k.shape[:2] + (group,) + k.shape[2:]
 
     def sums(ch):
         dq = _rows(ds, kx, DQ_KEYS[d], ch, passes)
-        if ffma:
-            dk_h = _ffma_rows(dst.transpose(-1, -2), q)
-            dv_h = _ffma_rows(pt.transpose(-1, -2), do)
-        else:
-            dk_h = _rows(dst.transpose(-1, -2), q, DKV_ROWS[d], ch, passes)
-            dv_h = _rows(pt.transpose(-1, -2), do, DKV_ROWS[d], ch, passes)
+        dk_h = _rows(dst.transpose(-1, -2), q, DKV_ROWS[d], ch, passes)
+        dv_h = _rows(pt.transpose(-1, -2), do, DKV_ROWS[d], ch, passes)
         dk_g, dv_g = dk_h.reshape(shape), dv_h.reshape(shape)
         dk, dv = dk_g[:, :, 0], dv_g[:, :, 0]
         for h in range(1, group):  # the workspace sum, in head order
@@ -277,7 +274,8 @@ def test_3xtf32_bwd_within_chip_limits_of_pallas(causal):
 def test_cancelling_rows_take_the_plain_rounding_of_dp():
     """D256 group 4, causal: at row 0 (one key, dS exactly 0) what is left
     of dQ is the rounding of dP - delta.  JAX's backward and the port's
-    plain one already differ there by more than the limit (2.0e-5); dP on
+    plain one already differ there by more than the limit (2.0e-5;
+    test_causal_row_0_against_f64 says which is off); dP on
     FFMA in the head dim's order (the kernel's) stays within a third of it
     of the plain version (1.8e-6), dP in 3xTF32 does not (1.8e-5)."""
     (q, k, v, do), cot = _inputs(1, 4, 1, 192, 192, 256, 513, False)
@@ -313,3 +311,64 @@ def test_one_long_chain_misses_the_limit():
     for i in (1, 2):
         assert _row_rel(long[i].numpy(), want[i].numpy()) > ROW_TOL
     _assert_within(tile, want, ROW_TOL / 3)
+
+
+def _f64_dq(q, k, v, do, causal):
+    """dQ in f64 (numpy), no dlse: ds = p (dp - rowsum(p dp)) scale."""
+    q, k, v, do = (np.asarray(x, np.float64) for x in (q, k, v, do))
+    group = q.shape[1] // k.shape[1]
+    k, v = (np.repeat(x, group, axis=1) for x in (k, v))
+    scale = q.shape[-1] ** -0.5
+    s = q @ k.swapaxes(-1, -2) * scale
+    keep = build_mask(q.shape[2], k.shape[2], causal, -1).numpy()
+    s = np.where(keep, s, -np.inf)
+    p = np.exp(s - s.max(-1, keepdims=True))
+    p /= p.sum(-1, keepdims=True)
+    dp = do @ v.swapaxes(-1, -2)
+    ds = p * (dp - (p * dp).sum(-1, keepdims=True)) * scale
+    return ds @ k
+
+
+def _dq_delta_in_dp_order(q, k, v, do, lse):
+    """The plain dQ (causal) on delta formed as JAX's autodiff forms it,
+    rowsum(p dP) on the p and dP that dS takes, not rowsum(o dO)."""
+    tq, tk, tv, tdo = (torch.from_numpy(x) for x in (q, k, v, do))
+    group = tq.shape[1] // tk.shape[1]
+    kx, vx = (x.repeat_interleave(group, dim=1) for x in (tk, tv))
+    s = torch.matmul(tq, kx.transpose(-1, -2)) * q.shape[-1] ** -0.5
+    keep = build_mask(tq.shape[2], tk.shape[2], True, -1)
+    p = torch.where(keep, torch.exp(s - lse[..., None]), torch.zeros(()))
+    di = (p * torch.matmul(tdo, vx.transpose(-1, -2))).sum(-1)
+    return flash_bwd_dq_plain(tq, tk, tv, tdo, lse, di, causal=True)
+
+
+# causal D 128 / 256, where a row 0 sees one key (CASES' widths)
+CAUSAL_ROW0 = [(128, 8, 2, 320, 7), (256, 4, 1, 192, 513),
+               (256, 8, 1, 160, 3)]
+
+
+@pytest.mark.parametrize("d,hq,hkv,s,seed", CAUSAL_ROW0,
+                         ids=lambda x: str(x))
+def test_causal_row_0_against_f64(d, hq, hkv, s, seed):
+    """Which side of the gap between JAX's backward and the port's plain
+    one at a causal row 0 is off: the exact dQ there is 0 (one key, p = 1),
+    as an f64 reference gives it.  JAX's `jax.vjp`, whose delta is rowsum(p
+    dP) on dS's own p and dP, gives 0 too; the port's plain backward, whose
+    delta is rowsum(o dO) as every kernel's and the Pallas backward's is
+    (flash_vjp.py:746-750), leaves the rounding of two dot products, up to
+    ~4e-5 of the floor.  The same plain dQ on a delta in dP's order gives 0
+    there and sits within the limit of JAX and of f64 on every row."""
+    (q, k, v, do), cot = _inputs(1, hq, hkv, s, s, d, seed, False)
+    exact = _f64_dq(q, k, v, do, True)
+    floor = F32_BWD_FLOOR * np.abs(exact).max()
+    assert np.abs(exact[:, :, 0]).max() == 0.0
+    _, _, jax_grads = _jax_backward(q, k, v, do, cot, True, -1)
+    _, lse, plain = _plain_backward(q, k, v, do, cot, True, -1)
+    dp_order = _dq_delta_in_dp_order(q, k, v, do, torch.from_numpy(lse))
+    row0 = {name: np.abs(np.asarray(g)[:, :, 0]).max() / floor
+            for name, g in (("jax", jax_grads[0]), ("plain", plain[0]),
+                            ("dp order", dp_order))}
+    assert row0["jax"] == 0.0 and row0["dp order"] == 0.0
+    assert row0["plain"] > ROW_TOL / 4
+    assert _row_rel(dp_order.numpy(), exact) <= ROW_TOL / 4
+    assert _row_rel(dp_order.numpy(), jax_grads[0]) <= ROW_TOL

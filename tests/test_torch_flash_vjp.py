@@ -34,7 +34,9 @@ from aule_tpu_torch.ops import _build
 from aule_tpu_torch.ops import flash_vjp as tfv
 from aule_tpu_torch.ops.reference import attention_reference
 from aule_tpu_torch.ops.rope import precompute_rope_frequencies as trope
-from aule_tpu_torch.utils.testing import assert_close
+from aule_tpu_torch.utils.testing import assert_close, cap_cpu_threads
+
+cap_cpu_threads()
 
 BWD_TOL = (1e-4, 1e-4)
 LOW_TOL = (2e-2, 2e-2)

@@ -24,7 +24,9 @@ from aule_tpu.serving.engine import ServingEngine as JaxEngine
 from aule_tpu_torch.models import gpt2 as tgpt2
 from aule_tpu_torch.models import llama as tllama
 from aule_tpu_torch.serving.engine import ServingEngine
-from aule_tpu_torch.utils.testing import assert_close
+from aule_tpu_torch.utils.testing import assert_close, cap_cpu_threads
+
+cap_cpu_threads()
 
 JCFG = jgpt2.GPT2Config.tiny()
 TCFG = tgpt2.GPT2Config.tiny()

@@ -23,7 +23,9 @@ from aule_tpu.ops.paged_fused import (fused_pool_shape, fused_scales_shape,
                                       kv_cache_append_prefill_fused)
 from aule_tpu_torch.models import gpt2 as tgpt2
 from aule_tpu_torch.ops.paged_prefill import paged_attention_prefill_plain
-from aule_tpu_torch.utils.testing import assert_close
+from aule_tpu_torch.utils.testing import assert_close, cap_cpu_threads
+
+cap_cpu_threads()
 
 JCFG = jgpt2.GPT2Config.tiny()
 TCFG = tgpt2.GPT2Config.tiny()

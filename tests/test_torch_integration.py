@@ -12,7 +12,9 @@ import torch.nn.functional as F
 import aule_tpu_torch
 from aule_tpu_torch import backends
 from aule_tpu_torch.integration import patching
-from aule_tpu_torch.utils.testing import assert_close
+from aule_tpu_torch.utils.testing import assert_close, cap_cpu_threads
+
+cap_cpu_threads()
 
 ORIGINAL_SDPA = F.scaled_dot_product_attention
 

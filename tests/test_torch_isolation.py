@@ -9,6 +9,10 @@ from pathlib import Path
 import pytest
 import torch
 
+from aule_tpu_torch.utils.testing import cap_cpu_threads
+
+cap_cpu_threads()
+
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "aule_tpu")
 

@@ -20,7 +20,9 @@ from aule_tpu_torch.ops import paged as tpg
 from aule_tpu_torch.serving.kv_cache import (PagedKVCache,
                                              PagePoolExhausted,
                                              PythonPageAllocator)
-from aule_tpu_torch.utils.testing import assert_close
+from aule_tpu_torch.utils.testing import assert_close, cap_cpu_threads
+
+cap_cpu_threads()
 
 
 def _create(**kw):

@@ -24,7 +24,9 @@ from aule_tpu_torch.ops.flash_vjp import flash_attention_vjp_plain
 from aule_tpu_torch.ops.paged_fused import paged_attention_fused_plain
 from aule_tpu_torch.ops.paged_prefill import paged_attention_prefill_plain
 from aule_tpu_torch.ops.rope import precompute_rope_frequencies as trope
-from aule_tpu_torch.utils.testing import assert_close
+from aule_tpu_torch.utils.testing import assert_close, cap_cpu_threads
+
+cap_cpu_threads()
 
 JCFG = jllama.LlamaConfig.tiny()
 TCFG = tllama.LlamaConfig.tiny()

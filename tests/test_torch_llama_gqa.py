@@ -25,7 +25,9 @@ from aule_tpu.ops.rope import precompute_rope_frequencies as jrope
 from aule_tpu_torch.models import llama as tllama
 from aule_tpu_torch.ops.rope import precompute_rope_frequencies as trope
 from aule_tpu_torch.serving.engine import ServingEngine
-from aule_tpu_torch.utils.testing import assert_close
+from aule_tpu_torch.utils.testing import assert_close, cap_cpu_threads
+
+cap_cpu_threads()
 
 GQA3 = dict(dim=384, n_heads=6, n_kv_heads=2)
 JCFG = jllama.LlamaConfig.tiny(**GQA3)

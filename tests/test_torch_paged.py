@@ -22,7 +22,9 @@ from aule_tpu.ops import paged as jpg
 from aule_tpu.ops import quant as jq
 from aule_tpu.ops.reference import paged_attention_reference as joracle
 from aule_tpu_torch.ops import paged as tpg
-from aule_tpu_torch.utils.testing import assert_close
+from aule_tpu_torch.utils.testing import assert_close, cap_cpu_threads
+
+cap_cpu_threads()
 
 PAGE, NUM_PAGES, MAX_PAGES = 16, 40, 16
 

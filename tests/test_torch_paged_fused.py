@@ -22,7 +22,9 @@ from aule_tpu.ops import quant as jq
 from aule_tpu_torch.ops import decode_split as ds
 from aule_tpu_torch.ops import paged_fused as tpf
 from aule_tpu_torch.ops import quant as tq
-from aule_tpu_torch.utils.testing import assert_close
+from aule_tpu_torch.utils.testing import assert_close, cap_cpu_threads
+
+cap_cpu_threads()
 
 HKV, PAGE, NUM_PAGES = 2, 16, 24
 

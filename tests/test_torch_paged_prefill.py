@@ -23,7 +23,9 @@ from aule_tpu.ops import paged_fused as jpf
 from aule_tpu_torch.config import DEFAULT_MASK_VALUE
 from aule_tpu_torch.ops import paged_fused as tpf
 from aule_tpu_torch.ops import paged_prefill as tpp
-from aule_tpu_torch.utils.testing import assert_close
+from aule_tpu_torch.utils.testing import assert_close, cap_cpu_threads
+
+cap_cpu_threads()
 
 PAGE, NUM_PAGES, MAX_PAGES = 16, 40, 8
 QDTYPES = {"int8": (jnp.int8, torch.int8),

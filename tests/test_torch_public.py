@@ -20,7 +20,9 @@ import torch
 import aule_tpu
 import aule_tpu_torch
 from aule_tpu_torch.ops import flash as tflash
-from aule_tpu_torch.utils.testing import assert_close
+from aule_tpu_torch.utils.testing import assert_close, cap_cpu_threads
+
+cap_cpu_threads()
 
 F32, BF16, F16 = 2e-5, 2e-2, 1e-2
 JDT = {"f32": jnp.float32, "bf16": jnp.bfloat16, "f16": jnp.float16}

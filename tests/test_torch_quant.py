@@ -14,6 +14,9 @@ import torch
 
 from aule_tpu.ops import quant as jq
 from aule_tpu_torch.ops import quant as tq
+from aule_tpu_torch.utils.testing import cap_cpu_threads
+
+cap_cpu_threads()
 
 DTYPES = {"int8": (jnp.int8, torch.int8),
           "fp8": (jnp.float8_e4m3fn, torch.float8_e4m3fn)}

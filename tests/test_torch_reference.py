@@ -11,7 +11,9 @@ from aule_tpu.ops import reference as jref
 from aule_tpu.ops.rope import precompute_rope_frequencies as jax_tables
 from aule_tpu_torch.ops import reference as tref
 from aule_tpu_torch.ops.rope import precompute_rope_frequencies
-from aule_tpu_torch.utils.testing import assert_close
+from aule_tpu_torch.utils.testing import assert_close, cap_cpu_threads
+
+cap_cpu_threads()
 
 
 def _inputs(b, hq, hkv, sq, sk, d, seed):

@@ -10,7 +10,9 @@ import torch
 from aule_tpu.ops import topk as jtopk
 from aule_tpu_torch.ops import topk as ttopk
 from aule_tpu_torch.ops.rope import precompute_rope_frequencies
-from aule_tpu_torch.utils.testing import assert_close
+from aule_tpu_torch.utils.testing import assert_close, cap_cpu_threads
+
+cap_cpu_threads()
 
 
 def _inputs(b, hq, hkv, sq, sk, d, seed):
