@@ -1,8 +1,7 @@
-// Shared pieces of the f32 kernels (paged_generic.cu's decode tiles,
+// Shared pieces of the f32 kernels (paged_generic.cuh's decode,
 // flash_generic.cu's delta, the masks and tile ranges of flash_f32.cu,
-// flash_f32_bwd.cu and paged_prefill_f32.cu), and the dispatch over the head
-// dims those kernels take.  Each source includes it once, so its
-// internal-linkage definitions are that source's own.
+// flash_f32_bwd.cu and paged_prefill_f32.cu).  Each source includes it
+// once, so its internal-linkage definitions are that source's own.
 #pragma once
 
 #include "common.cuh"
@@ -24,13 +23,6 @@ struct Val<float> {
     return __ldg(p);
   }
   __device__ __forceinline__ static float st(float x) { return x; }
-};
-
-// The decode's key tiles by head dim: BN keys, f32 rows of LD floats.
-template <int D>
-struct Tiles {
-  static constexpr int BN = D > 128 ? 32 : 64;
-  static constexpr int LD = D + 4;
 };
 
 // may query qpos see key kpos (kpos below the live key count kvl)?
@@ -73,11 +65,3 @@ cudaError_t allow_smem(F* kernel, size_t bytes, bool& done) {
 
 }  // namespace
 
-// f32 at D 64 / 128 / 256; anything else is refused
-#define AULE_GENERIC_F32_DISPATCH(FN, ...)                      \
-  switch (dtype * 1000 + D) {                                   \
-    case kF32 * 1000 + 64: return FN<float, 64>(__VA_ARGS__);   \
-    case kF32 * 1000 + 128: return FN<float, 128>(__VA_ARGS__); \
-    case kF32 * 1000 + 256: return FN<float, 256>(__VA_ARGS__); \
-    default: return cudaErrorInvalidValue;                      \
-  }

@@ -1,4 +1,4 @@
-// The paged pools as the f32 paged kernels read them (paged_generic.cu's
+// The paged pools as the f32 paged kernels read them (paged_generic.cuh's
 // decode, paged_prefill_f32.cu's prefill): the two layouts, where a token's
 // row and scale lie, and a 16-byte chunk of a row in f32.  Each source
 // includes it once (internal linkage).

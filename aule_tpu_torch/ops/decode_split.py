@@ -44,14 +44,15 @@ from .reference import _expand_kv, _gather_pages
 DECODE_SPAN = 4
 # blocks of a decode kernel resident on one SM at a time (its launch
 # bounds' minimum: registers and shared memory allow 3 in every pool mode;
-# the tensor-core decode at D 256 allows 1, `tc_blocks_per_sm`)
+# both decodes at D 256 allow 1, `tc_blocks_per_sm`,
+# `generic_blocks_per_sm`)
 BLOCKS_PER_SM = 3
 # fewest tokens of the table's capacity (or window) per split
 MIN_SPLIT_TOKENS = 256
 MAX_SPLITS = 64
 # the q rows one block of a decode kernel takes at most: the tensor-core
 # kernel's live mma rows (csrc/paged_decode.cu), the generic kernel's tile
-# (csrc/paged_generic.cu kMaxGroup)
+# (csrc/paged_generic.cuh kMaxGroup)
 TC_TILE_ROWS = 8
 GENERIC_TILE_ROWS = 8
 # the groups the tensor-core decode has an instantiation of its own for
@@ -83,6 +84,20 @@ def tc_blocks_per_sm(head_dim: int) -> int:
     D 256, whose ring of 132 KB and O fragment of 64 registers a thread
     leave room for one."""
     return 1 if head_dim > 128 else BLOCKS_PER_SM
+
+
+def generic_blocks_per_sm(head_dim: int, quantized: bool) -> int:
+    """The blocks an SM of the generic decode's wave at head dim
+    `head_dim`: over 1-byte pools at D 64 and 128 the 3 blocks of 4 warps
+    that an SM holds (csrc/paged_generic.cuh Geo<D>::BPS: their rings take
+    a third of its shared memory each), since their short ranges wait on
+    round trips more than on bytes; over f32 pools 1, since those stream
+    at the card's rate and the merge of more splits cost more than it
+    saved (on an H100, GPT-2's decode at B8 ctx1024 took 19.0 us in one
+    split against 21.9 in four, the f32 Llama layer's 101.1 in two against
+    111.8 in six: scripts/torch_generic_decode_sweep.py, PERF.md §6); at D
+    256 1, the block of 8 warps an SM holds."""
+    return BLOCKS_PER_SM if quantized and head_dim <= 128 else 1
 
 
 def row_tiles(group: int, rows: int) -> int:

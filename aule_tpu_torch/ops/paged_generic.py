@@ -1,8 +1,9 @@
 """Launchers of the paged kernels for f32 q at D 64, 128 or 256, what the
 16-bit paged kernels do not take (csrc/paged_decode.cu runs the 16-bit
 decode and csrc/paged_prefill.cu the 16-bit prefill at every head dim):
-the decode on csrc/paged_generic.cu (FFMA) and the prefill on
-csrc/paged_prefill_f32.cu (3xTF32 on the tensor cores).
+the decode on csrc/paged_generic.cuh (FFMA; its entry point in
+csrc/paged_generic.cu) and the prefill on csrc/paged_prefill_f32.cu
+(3xTF32 on the tensor cores).
 
 The public wrappers route to them by one rule each: `paged_attention_fused`
 and the split `paged_attention` (ops/paged_fused.py, ops/paged.py) launch
@@ -68,8 +69,9 @@ def paged_generic_decode(q, q_in, qf, kv, v, sc, vs, block_tables,
     with qf [B, Hq] f32 in the int8 dot-product mode).  layout FUSED: kv is
     the fused pool and sc its packed scale tile; SPLIT: kv, v the split
     pools and sc, vs their f32 scales (None for native pools).  The split
-    count comes from the shapes only (ops/decode_split.py), so both
-    layouts give the same bits on the same pools."""
+    count comes from the shapes only (ops/decode_split.py, at the kernel's
+    `generic_blocks_per_sm`), so both layouts give the same bits on the
+    same pools."""
     batch, hq, d = q.shape
     hkv = kv.shape[2] if layout == FUSED else kv.shape[0]
     dev = q.device
@@ -77,7 +79,9 @@ def paged_generic_decode(q, q_in, qf, kv, v, sc, vs, block_tables,
     rows = decode_split.generic_tile_rows(hq // hkv)
     nsplit, ws, cnt = decode_split.launch_plan(
         batch, hq, hkv, max_pages * page_size, window, dev, head_dim=d,
-        tile_rows=rows)
+        tile_rows=rows,
+        blocks_per_sm=decode_split.generic_blocks_per_sm(
+            d, pool != _build.POOL_NATIVE))
     bt = block_tables.to(device=dev, dtype=torch.int32).contiguous()
     lens = context_lens.to(device=dev, dtype=torch.int32).contiguous()
     out = torch.empty_like(q)

@@ -2846,8 +2846,13 @@ def _generic_decode_checks(gen, res):
     pools with bf16 q and bf16 scales; int8 dot and e4m3 with f16 q and f32
     scales) on csrc/paged_decode.cu.  GPT-2's engine case (B8 ctx1024
     Hq12/Hkv12 D64 page 16) and its edges (lengths 0, 1 and 17 with -1
-    tails, shuffled pages with a window, 64-token pages) in both; D64 group
-    2 with a window of 64 and D256 group 8 in 16 bits; f32 at the Llama
+    tails, shuffled pages with a window, 64-token pages) in both; GPT-2's
+    heads at B64 ctx1024 on shuffled pages in f32 q (768 (sequence, kv
+    head) pairs: one split, so a block reads a whole 1,024-token range's
+    page ids and writes its rows without the merge) and over 600-page
+    tables (csrc/paged_generic.cuh copies a table's first 512 entries with
+    q, the rest a ring ahead); D64 group 2 with a window of 64 and D256
+    group 8 in 16 bits; f32 at the Llama
     layer (D128 group 4) and at D256 group 8.  Over split pools (f32
     scales), the same values in every mode but the int8 dot products (f32:
     GPT-2's cases; 16 bits: every case) must give the fused kernel's bits,
@@ -2855,8 +2860,15 @@ def _generic_decode_checks(gen, res):
     from aule_tpu_torch.ops.paged import paged_attention, paged_attention_plain
     from aule_tpu_torch.ops.paged_fused import (paged_attention_fused,
                                                 paged_attention_fused_plain)
+    from aule_tpu_torch.ops import decode_split
     from aule_tpu_torch.ops.paged_generic import paged_generic_decode
 
+    if decode_split.num_splits(
+            64, GPT2_HEADS[1], 1024, -1,
+            decode_split.sm_count(torch.device(DEV)), 1,
+            decode_split.generic_blocks_per_sm(64, True)) != 1:
+        raise AssertionError("GPT-2 at B64 ctx1024 no longer runs in one "
+                             "split: the case checks nothing of its own")
     both = GEN_DECODE_MODES + TC_DECODE_MODES
     cases = [  # (label, lens, max_pages, page, shuffle, window, heads, modes)
         ("GPT-2 engine B8 ctx1024", [1024] * 8, 64, 16, False, -1,
@@ -2869,6 +2881,10 @@ def _generic_decode_checks(gen, res):
          GPT2_HEADS, both),
         ("page 64", [1024, 1000, 1, 0, 63, 64, 65, 1023], 16, 64, True, -1,
          GPT2_HEADS, both),
+        ("B64 ctx1024, one split", [1024] * 64, 64, 16, True, -1,
+         GPT2_HEADS, GEN_DECODE_MODES),
+        ("a 600-page table, lengths to 9600", [9600, 8193, 5, 8200], 600,
+         16, True, -1, GPT2_HEADS, GEN_DECODE_MODES),
         ("D64 group 2, window 64", [1024, 1, 17, 333], 64, 16, True, 64,
          (8, 4, 64), TC_DECODE_MODES),
         ("f32 Llama layer D128 group 4", [4096, 1, 17, 3000], 272, 16, True,
@@ -3765,11 +3781,22 @@ def gpt2_entries(gpt2: dict) -> list:
     their launches on the phase's counted checks."""
     src = {"decode": "aule_tpu_torch/csrc/paged_generic.cu",
            "prefill": "aule_tpu_torch/csrc/paged_prefill_f32.cu"}
-    design = {"decode": "FFMA, the int8 dot products' scores on __dp4a; K/V "
-                        "tiles gathered into f32 shared memory, only the D "
-                        "live lanes of a row read; split-KV with "
-                        "paged_decode.cu's partition, the splits merged in "
-                        "split order in the same launch",
+    design = {"decode": "FFMA, the int8 dot products' scores on __dp4a; "
+                        "split-KV with paged_decode.cu's partition at "
+                        "generic_blocks_per_sm (a wave of 3 blocks an SM "
+                        "over 1-byte pools at D 64/128, else 1), the splits "
+                        "merged in split order in the same launch; in a "
+                        "block, warps own tiles of "
+                        "16 / 8 / 4 tokens (D 64/128/256) in turn, each "
+                        "streaming them through its own ring of cp.async "
+                        "stages (the D live lanes of each row, each "
+                        "token's scales (and page ids past the table's "
+                        "first 512 entries, which come with q) copied with "
+                        "the stage), 1-byte rows converted in registers as "
+                        "read, the score sums scattered so that each lane "
+                        "runs the softmax of its own rows, no block "
+                        "barrier in the loop; the warps merged in warp "
+                        "order",
               "prefill": "3xTF32 on mma.sync (tf32.cuh, short chains); a "
                          "block of 16 q rows of one head, its 4 warps taking "
                          "every 4th key tile, each gathering its own pages "

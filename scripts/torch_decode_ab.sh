@@ -17,7 +17,9 @@
 #     group 8 (B2 Hq8/Hkv1,
 #     contexts 2048 and 777), every pool mode (f32 q over f32, int8 and
 #     e4m3 pools; bf16 and f16 pools; int8 and e4m3 with bf16 q and bf16
-#     scales, with f16 q and f32 scales) in both layouts, beside SDPA; and
+#     scales, with f16 q and f32 scales) in both layouts, beside SDPA; the
+#     f32-q modes also at GPT-2's heads at B64 ctx1024 (one split) and at
+#     the f32 Llama layer's decode (B8 ctx4096 Hq32/Hkv8 D128); and
 #     the paged prefill of a 256-token chunk at q_offset 768 over 1024 at
 #     GPT-2's shape, f32 and bf16;
 #   * the other kernels, which the decode's changes must leave as they
@@ -96,7 +98,9 @@ for shape, batch, ctx in (("B8 ctx4096", 8, 4096), ("B8 ctx1024", 8, 1024),
 
 # The paged decode at GPT-2 small's engine shape (B8 ctx1024 Hq12/Hkv12 D64
 # page 16) and at D256 group 8 (B2 Hq8/Hkv1, contexts 2048 and 777), in
-# every pool mode and both layouts, as each tree routes them (f32 q on
+# every pool mode and both layouts, and in the f32-q modes at GPT-2's heads
+# at B64 ctx1024 (one split) and the f32 Llama layer's decode (B8 ctx4096
+# Hq32/Hkv8 D128, SDPA in f32), as each tree routes them (f32 q on
 # csrc/paged_generic.cu; 16-bit q on csrc/paged_decode.cu in trees that
 # template it on D, else on paged_generic.cu), the decode kernel's own
 # device time, beside SDPA on the gathered K/V (bf16, a key mask where a
@@ -118,12 +122,18 @@ modes = [  # (name, q / pool dtype, payload or None, int8_matmul, scales)
     ("fp8 bf16 q", bf, e4, None, bf),
     ("int8 dot f16 q f32 scales", fp, i8, True, f32),
     ("fp8 f16 q f32 scales", fp, e4, None, f32)]
-for shape, lens, (hq, hkv, d), max_pages in (
-        ("GPT-2 B8 ctx1024 D64", [1024] * 8, c.GPT2_HEADS, 64),
-        ("D256 group 8 B2 ctx2048/777", [2048, 777], (8, 1, 256), 128)):
+for shape, lens, (hq, hkv, d), max_pages, f32_only in (
+        ("GPT-2 B8 ctx1024 D64", [1024] * 8, c.GPT2_HEADS, 64, False),
+        ("GPT-2 B64 ctx1024 D64 (one split)", [1024] * 64, c.GPT2_HEADS, 64,
+         True),
+        ("D256 group 8 B2 ctx2048/777", [2048, 777], (8, 1, 256), 128, False),
+        ("f32 Llama layer B8 ctx4096 D128 group 4", [4096] * 8, (32, 8, 128),
+         272, True)):
     ln = torch.tensor(lens, dtype=torch.int32, device="cuda")
     generic = {}
     for name, dt, qdt, dot, sdt in modes:
+        if f32_only and dt != f32:
+            continue
         pool, bt = c._generic_pool(g, lens, max_pages, 16, hkv, d, dt, False)
         q = c._randn((len(lens), hq, d), g, dt)
         pl, sc = (pool, None) if qdt is None else c.quantize_pool(pool, qdt,
@@ -135,7 +145,7 @@ for shape, lens, (hq, hkv, d), max_pages in (
             generic[f"split {name}"] = dev(lambda: paged_attention(
                 q, k, v, bt, ln, k_scales=ks, v_scales=vs), "decode_kernel")
             del k, v, ks, vs
-        if name == "bf16":
+        if name == ("f32" if f32_only else "bf16"):
             kd, vd = (_gather_pages(x, bt).repeat_interleave(hq // hkv, dim=1)
                       for x in from_fused_layout(pool, d))
             keep = None if min(lens) == max_pages * 16 else (

@@ -22,7 +22,8 @@
 # the Llama layer, GPT-2's layer, D256 and RoPE + kv_len, and the f32
 # backward's parts as each tree routes them (flash_f32_bwd.cu's 3xTF32
 # dQ and dK/dV in trees that have it, else flash_generic.cu's FFMA ones)
-# at the Llama layer, GPT-2's layer and D256 group 8, beside SDPA in f32;
+# at the Llama layer, GPT-2's layer and D256 group 8, beside SDPA in f32
+# (the delta beside torch.linalg.vecdot of o and dO);
 # then the f32-q paged prefill as each tree routes it at GPT-2's chunk in
 # f32, int8 and e4m3 pools, beside SDPA.  The two trees run in turns, A, B, B, A, one process each, so that both
 # versions meet the same card.  Each process builds its tree's kernels and
@@ -281,7 +282,7 @@ print(f"{tag} TMA RoPE modes device ms per call", rope, flush=True)
 # csrc/flash_f32_bwd.cu's 3xTF32 dQ and dK/dV in trees that have it, else
 # flash_generic.cu's FFMA ones), device ms per call beside SDPA's in f32
 # (phase_device sets allow_tf32 False; SDPA's backward: dq, dk and dv in
-# one call): the Llama layer S2048, GPT-2's layer S1024 D64, D256 group 8
+# one call; the delta's yardstick torch.linalg.vecdot): the Llama layer S2048, GPT-2's layer S1024 D64, D256 group 8
 # S2048 (causal; SDPA is_causal) and, forward only, RoPE + kv_len (Sq512
 # over 1500 of 2048 keys, causal; SDPA on the rotated q, k with the
 # boolean mask), on a generator of its own.
@@ -322,6 +323,8 @@ for label, (b, hq, hkv), sq, sk, d, rows, n in (
         by = profiling.device_breakdown(lambda: [whole() for _ in range(5)],
                                         parts)["by_category_ms"]
         f32[label].update({f"bwd {p}": round(by[p] / 5, 5) for p in parts})
+        # the delta's library yardstick: rowsum(o dO) in one PyTorch call
+        f32[label]["vecdot"] = dev(lambda: torch.linalg.vecdot(o, do))
         qx = q.detach().requires_grad_(True)
         kxg, vxg = (x.detach().requires_grad_(True) for x in (kx, vx))
         ref = F.scaled_dot_product_attention(qx, kxg, vxg, is_causal=True)
