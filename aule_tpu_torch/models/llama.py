@@ -92,6 +92,13 @@ class LlamaConfig:
         return cls(**defaults)
 
 
+def _dense(generator, dev, dtype, fan_in, shape) -> torch.Tensor:
+    """N(0, 1/fan_in) drawn in f32 from `generator`, cast to `dtype`."""
+    w = torch.randn(shape, generator=generator, device=dev,
+                    dtype=torch.float32)
+    return w.mul_(1.0 / math.sqrt(fan_in)).to(dtype)
+
+
 def init_params(cfg: LlamaConfig, generator: torch.Generator,
                 device="cuda") -> Params:
     """Random parameters, N(0, 1/fan_in) in f32 cast to cfg.dtype (the JAX
@@ -99,9 +106,7 @@ def init_params(cfg: LlamaConfig, generator: torch.Generator,
     dev = resolve_device(device)
 
     def dense(fan_in, shape):
-        w = torch.randn(shape, generator=generator, device=dev,
-                        dtype=torch.float32)
-        return w.mul_(1.0 / math.sqrt(fan_in)).to(cfg.dtype)
+        return _dense(generator, dev, cfg.dtype, fan_in, shape)
 
     d, h = cfg.dim, cfg.hidden_dim
     qkv_dim = cfg.n_heads * cfg.head_dim
@@ -203,6 +208,14 @@ def forward(
     differentiable flash attention; a reference run passes its plain
     version (ops.flash_vjp's flash_attention_vjp_plain) to hold the kernel
     path against it."""
+    return _forward(params, tokens, cfg, rope_cos, rope_sin, return_kv,
+                    attention, _mlp)
+
+
+def _forward(params, tokens, cfg, rope_cos, rope_sin, return_kv: bool,
+             attention: Callable, mlp: Callable):
+    """`forward` with the MLP block `mlp(x, layer, cfg) -> x + MLP(x)` as
+    an argument (models/moe.py passes its routed mixture)."""
     b, s = tokens.shape
     dev = params["embed"].device
     if rope_cos is None:
@@ -221,7 +234,7 @@ def forward(
             kv_out.append((k, v))
         attn = attention(q, k, v, causal=True, window_size=cfg.window_size)
         x = x + _merge_heads(attn) @ layer["wo"]
-        x = _mlp(x, layer, cfg)
+        x = mlp(x, layer, cfg)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = (x @ params["lm_head"]).float()
     if return_kv:
@@ -252,11 +265,17 @@ def train_step(params: Params, tokens: torch.Tensor, cfg: LlamaConfig,
     memory beyond the weights and their gradients.  The returned params are
     the same dict; `loss` (0-d f32) is the loss before the update, as
     JAX's."""
+    return _sgd_step(params, lambda: loss_fn(params, tokens, cfg), lr)
+
+
+def _sgd_step(params: Params, loss_of: Callable[[], torch.Tensor],
+              lr: float):
+    """`train_step`'s update around the loss `loss_of()` of `params`."""
     tensors = list(_tensors(params))
     for t in tensors:
         t.requires_grad_(True)
         t.grad = None
-    loss = loss_fn(params, tokens, cfg)
+    loss = loss_of()
     loss.backward()
     with torch.no_grad():
         for t in tensors:
@@ -279,11 +298,13 @@ def _decode_window(cfg: LlamaConfig) -> int:
 
 
 def _decode_layers(params: Params, token, positions, cfg: LlamaConfig,
-                   rope_cos, rope_sin, attend: Callable):
+                   rope_cos, rope_sin, attend: Callable,
+                   mlp: Callable = _mlp):
     """The layers of one decode step around `attend(li, q, k, v) ->
     (attn [B, Hq, D], context_lens + 1)`, which appends layer li's rotated
-    k and v [B, Hkv, D] and attends q [B, Hq, D] over its pool.  Returns
-    (logits [B, V] f32, context_lens + 1)."""
+    k and v [B, Hkv, D] and attends q [B, Hq, D] over its pool, and the MLP
+    block `mlp` (as `_forward`'s).  Returns (logits [B, V] f32,
+    context_lens + 1)."""
     x = params["embed"][token]
     c = rope_cos[positions][:, None, :]
     sn = rope_sin[positions][:, None, :]
@@ -297,7 +318,7 @@ def _decode_layers(params: Params, token, positions, cfg: LlamaConfig,
         attn, lens_out = attend(li, _rotate(q, c, sn, half),
                                 _rotate(k, c, sn, half), v)
         x = x + attn.reshape(-1, cfg.n_heads * cfg.head_dim) @ layer["wo"]
-        x = _mlp(x, layer, cfg)
+        x = mlp(x, layer, cfg)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return (x @ params["lm_head"]).float(), lens_out
 
@@ -381,6 +402,16 @@ def decode_step_fused(
     their per-layer views are written in place.  `attention` is the paged
     decode; a reference run passes its plain version
     (ops.paged_fused.paged_attention_fused_plain)."""
+    return _decode_fused(params, token, positions, kv_pages, block_tables,
+                         context_lens, cfg, rope_cos, rope_sin, kv_scales,
+                         attention, _mlp)
+
+
+def _decode_fused(params, token, positions, kv_pages, block_tables,
+                  context_lens, cfg, rope_cos, rope_sin, kv_scales,
+                  attention: Callable, mlp: Callable):
+    """`decode_step_fused` with the MLP block as an argument (as
+    `_forward`'s)."""
     window = _decode_window(cfg)
 
     def attend(li, q, k, v):
@@ -391,7 +422,7 @@ def decode_step_fused(
                          window_size=window), lens
 
     logits, lens_out = _decode_layers(params, token, positions, cfg,
-                                      rope_cos, rope_sin, attend)
+                                      rope_cos, rope_sin, attend, mlp)
     if kv_scales is not None:
         return logits, kv_pages, lens_out, kv_scales
     return logits, kv_pages, lens_out
@@ -420,6 +451,16 @@ def prefill_step_fused(
     every position with all_logits=True.  `attention` is the paged prefill;
     a reference run passes its plain version
     (ops.paged_prefill.paged_attention_prefill_plain)."""
+    return _prefill_fused(params, tokens, q_offsets, seq_lens, kv_pages,
+                          block_tables, cfg, rope_cos, rope_sin, kv_scales,
+                          all_logits, attention, _mlp)
+
+
+def _prefill_fused(params, tokens, q_offsets, seq_lens, kv_pages,
+                   block_tables, cfg, rope_cos, rope_sin, kv_scales,
+                   all_logits: bool, attention: Callable, mlp: Callable):
+    """`prefill_step_fused` with the MLP block as an argument (as
+    `_forward`'s)."""
     _, s_chunk = tokens.shape
     dev = params["embed"].device
     q_offsets = q_offsets.to(dev)
@@ -445,7 +486,7 @@ def prefill_step_fused(
                          q_offsets=q_offsets, kv_scales=sc, causal=True,
                          window_size=cfg.window_size)
         x = x + _merge_heads(attn) @ layer["wo"]
-        x = _mlp(x, layer, cfg)
+        x = mlp(x, layer, cfg)
     if not all_logits:
         # only the last valid row of each sequence is ever sampled
         last = (seq_lens.long() - 1).clamp_min(0)

@@ -1,0 +1,289 @@
+"""Mixture-of-Experts Llama, Mixtral-style (counterpart of
+aule_tpu/models/moe.py, its single-device forms).
+
+The attention stack is models/llama.py's (the flash kernels, RoPE, GQA,
+the paged decode and prefill); each layer's MLP becomes a top-k routed
+mixture of SwiGLU experts:
+
+  router: [dim, E] linear; each token keeps its top_k experts, whose
+          logits are softmaxed into gates summing to 1 (ties go to the
+          lower expert index, as jax.lax.top_k's);
+  expert: SwiGLU (e_gate, e_up, e_down), the E copies stacked on a
+          leading [E] dim.
+
+`forward`, `decode_step_fused` and `prefill_step_fused` evaluate the dense
+mixture (`_moe_mlp_dense`: every expert on every token, weighted by the
+gates, zero off the top k; exact, JAX's single-device oracle form), or a
+`moe_mlp(layer, x, cfg)` the caller passes.  Rounding follows JAX's
+(l.122-138): the gate is silu of the f32 product, gate times up is f32 and
+is cast to x's dtype before `@ e_down`, and the gate-weighted sum over the
+experts is f32.
+
+The expert-parallel forms (GShard capacity dispatch over an `expert` mesh
+axis: `make_expert_parallel_mlp`, `make_expert_parallel_forward`,
+`param_specs`) come with the parallel-layer slice; `mesh=` raises here,
+naming it, and `lora=` names the LoRA slice.  ServingEngine(model=moe)
+serves it over fused pools (it has no decode over split pools, nor has
+JAX's).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Dict, Optional, Sequence
+
+import torch
+import torch.nn.functional as F
+
+from ..config import resolve_device
+from ..ops.flash_vjp import flash_attention_vjp
+from ..ops.paged_fused import paged_attention_fused
+from ..ops.paged_prefill import paged_attention_prefill
+from . import llama
+
+Params = Dict[str, Any]
+_PARALLEL = "the parallel-layer slice"
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig(llama.LlamaConfig):
+    n_experts: int = 8
+    top_k: int = 2
+
+    @classmethod
+    def tiny(cls, **kw) -> "MoEConfig":
+        """Test-sized config (the JAX package's MoEConfig.tiny())."""
+        defaults = dict(vocab_size=256, dim=128, n_layers=2, n_heads=4,
+                        n_kv_heads=2, hidden_dim=128, rope_base=10000.0,
+                        dtype=torch.float32, n_experts=4, top_k=2)
+        defaults.update(kw)
+        return cls(**defaults)
+
+    @classmethod
+    def mixtral_8x7b(cls) -> "MoEConfig":
+        """Mixtral-8x7B's shape (mistralai/Mixtral-8x7B-v0.1): 32 layers,
+        8 experts, top 2, GQA 32 / 8 heads, RoPE theta 1e6."""
+        return cls(vocab_size=32000, dim=4096, n_layers=32, n_heads=32,
+                   n_kv_heads=8, hidden_dim=14336, rope_base=1e6,
+                   n_experts=8, top_k=2)
+
+
+def _later(mesh=None, lora=None, lora_idx=None) -> None:
+    if mesh is not None:
+        raise NotImplementedError(
+            f"moe with mesh= is not ported yet; it comes with {_PARALLEL}")
+    if lora is not None or lora_idx is not None:
+        raise NotImplementedError(
+            "moe with lora= is not ported yet; it comes with the LoRA slice")
+
+
+def init_params(cfg: MoEConfig, generator: torch.Generator,
+                device="cuda") -> Params:
+    """Random parameters: Llama's attention weights and norms, and per
+    layer a router and E experts, every matrix N(0, 1/fan_in) in f32 cast
+    to cfg.dtype (the JAX init's scales), norms one.  `generator` must
+    live on `device`."""
+    dev = resolve_device(device)
+
+    def dense(fan_in, shape):
+        return llama._dense(generator, dev, cfg.dtype, fan_in, shape)
+
+    def ones():
+        return torch.ones((cfg.dim,), dtype=torch.float32, device=dev)
+
+    d, h, e = cfg.dim, cfg.hidden_dim, cfg.n_experts
+    qkv_dim = cfg.n_heads * cfg.head_dim
+    kv_dim = cfg.n_kv_heads * cfg.head_dim
+    layers = []
+    for _ in range(cfg.n_layers):
+        layers.append({
+            "wq": dense(d, (d, qkv_dim)),
+            "wk": dense(d, (d, kv_dim)),
+            "wv": dense(d, (d, kv_dim)),
+            "wo": dense(qkv_dim, (qkv_dim, d)),
+            "attn_norm": ones(),
+            "mlp_norm": ones(),
+            "router": dense(d, (d, e)),
+            "e_gate": dense(d, (e, d, h)),
+            "e_up": dense(d, (e, d, h)),
+            "e_down": dense(h, (e, h, d)),
+        })
+    return {"embed": dense(1, (cfg.vocab_size, d)), "layers": layers,
+            "final_norm": ones(), "lm_head": dense(d, (d, cfg.vocab_size))}
+
+
+def load_jax_params(np_tree: Params, device="cuda",
+                    dtype: Optional[torch.dtype] = None) -> Params:
+    """The JAX package's MoE params (`jax.tree.map(np.asarray, params)`)
+    on `device`: `router`, `e_gate`, `e_up` and `e_down` carried across
+    with the attention weights, recast to `dtype` when given; norms stay
+    f32."""
+    return llama.load_jax_params(np_tree, device=device, dtype=dtype)
+
+
+def _gating(layer, x: torch.Tensor, cfg: MoEConfig):
+    """(weights [T, E] f32 with top_k nonzeros summing to 1, router logits
+    [T, E] f32) for x [T, dim].  A stable descending sort gives ties to the
+    lower expert index, as jax.lax.top_k does (torch.topk promises no
+    order among equal values)."""
+    logits = (x @ layer["router"]).float()
+    vals, idx = torch.sort(logits, dim=-1, descending=True, stable=True)
+    gates = torch.softmax(vals[:, :cfg.top_k], dim=-1)
+    weights = torch.zeros_like(logits).scatter(-1, idx[:, :cfg.top_k], gates)
+    return weights, logits
+
+
+def _expert_mlp(eg, eu, ed, x: torch.Tensor) -> torch.Tensor:
+    """The SwiGLU experts on x [T, dim] with [E, dim, hid] weights ->
+    [E, T, dim] in x's dtype."""
+    gate = F.silu((x @ eg).float())
+    return (gate * (x @ eu).float()).to(x.dtype) @ ed
+
+
+def _moe_mlp_dense(layer, x: torch.Tensor, cfg: MoEConfig) -> torch.Tensor:
+    """The mixture on x [B, S, dim]: every expert on every token, summed
+    in f32 with the gate weights (zero off each token's top k)."""
+    b, s, d = x.shape
+    xt = x.reshape(b * s, d)
+    weights, _ = _gating(layer, xt, cfg)
+    outs = _expert_mlp(layer["e_gate"], layer["e_up"], layer["e_down"], xt)
+    y = torch.einsum("etd,te->td", outs.float(), weights)
+    return y.to(x.dtype).reshape(b, s, d)
+
+
+def _block(mlp: Callable, aux: Optional[list] = None) -> Callable:
+    """The MLP block llama's layer loops take, `x + MLP(rms_norm(x))`,
+    around the mixture `mlp(layer, h [B, S, dim], cfg)`; with `aux`, each
+    layer also appends its load-balancing term, E * sum_e frac_e * prob_e
+    on the router's inputs (JAX l.190-194)."""
+
+    def block(x, layer, cfg):
+        h = llama.rms_norm(x, layer["mlp_norm"], cfg.norm_eps)
+        if aux is not None:
+            w, rl = _gating(layer, h.reshape(-1, cfg.dim), cfg)
+            frac = (w > 0).float().mean(dim=0)
+            prob = torch.softmax(rl, dim=-1).mean(dim=0)
+            aux.append(cfg.n_experts * (frac * prob).sum())
+        if x.dim() == 2:  # a decode step's [B, dim]
+            return x + mlp(layer, h[:, None, :], cfg)[:, 0]
+        return x + mlp(layer, h, cfg)
+
+    return block
+
+
+def forward(
+    params: Params,
+    tokens: torch.Tensor,          # [B, S] int
+    cfg: MoEConfig,
+    *,
+    rope_cos: Optional[torch.Tensor] = None,
+    rope_sin: Optional[torch.Tensor] = None,
+    return_kv: bool = False,
+    return_aux: bool = False,
+    moe_mlp: Optional[Callable] = None,
+    mesh=None,
+    data_axis: str = "data",
+    model_axis: str = "model",
+    lora=None,
+    lora_idx=None,
+    attention: Callable = flash_attention_vjp,
+):
+    """Causal-LM forward: logits [B, S, V] f32; with return_kv also the
+    per-layer rotated k and unrotated v (llama.forward's), with return_aux
+    also the load-balancing loss, the mean over layers of E * sum_e frac_e
+    * prob_e.  `attention` as llama.forward's."""
+    del data_axis, model_axis
+    _later(mesh, lora, lora_idx)
+    aux: list = []
+    out = llama._forward(params, tokens, cfg, rope_cos, rope_sin, return_kv,
+                         attention, _block(moe_mlp or _moe_mlp_dense,
+                                           aux if return_aux else None))
+    if not return_aux:
+        return out
+    total = 0.0
+    for a in aux:
+        total = total + a
+    out = out if isinstance(out, tuple) else (out,)
+    return out + (total / cfg.n_layers,)
+
+
+def loss_fn(params: Params, tokens: torch.Tensor, cfg: MoEConfig,
+            moe_mlp: Optional[Callable] = None, aux_weight: float = 1e-2, *,
+            attention: Callable = flash_attention_vjp) -> torch.Tensor:
+    """Mean next-token NLL of `tokens` [B, S] plus aux_weight times the
+    load-balancing loss (JAX l.294-302), a 0-d f32 tensor."""
+    logits, aux = forward(params, tokens[:, :-1], cfg, moe_mlp=moe_mlp,
+                          return_aux=True, attention=attention)
+    targets = tokens[:, 1:].to(logits.device)
+    nll = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                          targets.reshape(-1))
+    return nll + aux_weight * aux
+
+
+def train_step(params: Params, tokens: torch.Tensor, cfg: MoEConfig,
+               lr: float = 1e-4, moe_mlp: Optional[Callable] = None):
+    """One SGD step, in place, as llama.train_step's.  Returns (params,
+    the loss before the update)."""
+    return llama._sgd_step(
+        params, lambda: loss_fn(params, tokens, cfg, moe_mlp), lr)
+
+
+def decode_step_fused(
+    params: Params,
+    token: torch.Tensor,                 # [B] int
+    positions: torch.Tensor,             # [B] int
+    kv_pages: Sequence[torch.Tensor],    # per-layer fused pools
+    block_tables: torch.Tensor,          # [B, max_pages] int32
+    context_lens: torch.Tensor,          # [B] int32, BEFORE this token
+    cfg: MoEConfig,
+    rope_cos: torch.Tensor,
+    rope_sin: torch.Tensor,
+    kv_scales: Optional[Sequence[torch.Tensor]] = None,
+    mesh=None,
+    model_axis: str = "model",
+    moe_mlp: Optional[Callable] = None,
+    lora=None,
+    lora_idx=None,
+    *,
+    attention: Callable = paged_attention_fused,
+):
+    """One decode step over fused pools with the routed MLP: llama's
+    append and paged decode (the decode kernel), then the mixture on the
+    [B, 1, dim] stream.  Returns as llama.decode_step_fused."""
+    del model_axis
+    _later(mesh, lora, lora_idx)
+    return llama._decode_fused(
+        params, token, positions, kv_pages, block_tables, context_lens, cfg,
+        rope_cos, rope_sin, kv_scales, attention,
+        _block(moe_mlp or _moe_mlp_dense))
+
+
+def prefill_step_fused(
+    params: Params,
+    tokens: torch.Tensor,                # [B, S_chunk] int
+    q_offsets: torch.Tensor,             # [B]
+    seq_lens: torch.Tensor,              # [B]
+    kv_pages: Sequence[torch.Tensor],    # per-layer fused pools
+    block_tables: torch.Tensor,          # [B, max_pages] int32
+    cfg: MoEConfig,
+    rope_cos: torch.Tensor,
+    rope_sin: torch.Tensor,
+    kv_scales: Optional[Sequence[torch.Tensor]] = None,
+    mesh=None,
+    model_axis: str = "model",
+    moe_mlp: Optional[Callable] = None,
+    all_logits: bool = False,
+    lora=None,
+    lora_idx=None,
+    *,
+    attention: Callable = paged_attention_prefill,
+):
+    """One chunk of chunked prefill over fused pools with the routed MLP
+    (llama.prefill_step_fused's append and paged prefill, the prefill
+    kernel).  Returns as llama.prefill_step_fused, all_logits included."""
+    del model_axis
+    _later(mesh, lora, lora_idx)
+    return llama._prefill_fused(
+        params, tokens, q_offsets, seq_lens, kv_pages, block_tables, cfg,
+        rope_cos, rope_sin, kv_scales, all_logits, attention,
+        _block(moe_mlp or _moe_mlp_dense))

@@ -4,8 +4,9 @@ aule_tpu/serving/engine.py) for the single-device case, over fused pools
 the model's dtype or quantized (int8, e4m3) pools and whole-prompt or
 (fused) chunked prefill.
 
-`model=` is the model family module: `models.llama` (the default) or
-`models.gpt2` (JAX engine.py:217-220); the engine calls its `forward`,
+`model=` is the model family module: `models.llama` (the default),
+`models.gpt2` or `models.moe` (JAX engine.py:217-220); the engine calls
+its `forward`,
 `prefill_step_fused`, `decode_step_fused` and, for split pools,
 `decode_step`.  A host loop drives eager PyTorch steps on the card:
   * admission: a request joins when a batch slot and all the pages its
@@ -34,11 +35,17 @@ its remainder).
 
 Options of the JAX engine outside this slice raise NotImplementedError
 naming the slice that brings them; none is silently ignored.
+
+`save_engine_state` / `load_engine_state` checkpoint a running engine in
+the JAX package's files (JAX engine.py:1726-1855), so either package can
+resume the other's greedy requests.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
 import time
 from typing import Any, Callable, Dict, List, Optional
 
@@ -46,7 +53,7 @@ import numpy as np
 import torch
 
 from ..config import PAGE_SIZE, resolve_device
-from ..models import gpt2, llama
+from ..models import gpt2, llama, moe
 from ..ops.paged import (kv_cache_append_prefill,
                          kv_cache_append_prefill_quantized)
 from ..ops.paged_fused import (SCALE_DTYPE, fused_pool_shape,
@@ -54,6 +61,7 @@ from ..ops.paged_fused import (SCALE_DTYPE, fused_pool_shape,
                                kv_cache_append_prefill_fused)
 from ..ops.quant import QUANT_DTYPES
 from ..ops.rope import precompute_rope_frequencies
+from ..utils.checkpoint import load_pytree, save_pytree
 from . import sampling
 from .kv_cache import PythonPageAllocator
 
@@ -126,12 +134,13 @@ class Request:
 
 
 # the model families the engine drives (the port's own modules)
-MODEL_FAMILIES = (llama, gpt2)
+MODEL_FAMILIES = (llama, gpt2, moe)
 
 
 class ServingEngine:
     """Continuous batching over a model family of the port (`model=`:
-    models/llama.py, the default, or models/gpt2.py) with paged KV pools
+    models/llama.py, the default, models/gpt2.py or models/moe.py) with
+    paged KV pools
     on one device (the card unless device='cpu').
 
     layout='fused' (the default) keeps one stacked fused pool `kv_pages`
@@ -185,7 +194,8 @@ class ServingEngine:
         if not any(self.model is m for m in MODEL_FAMILIES):
             raise NotImplementedError(
                 f"ServingEngine: model={model!r} is not a model family of "
-                f"the port; pass aule_tpu_torch.models.llama or .gpt2")
+                f"the port; pass aule_tpu_torch.models.llama, .gpt2 or "
+                f".moe")
         if layout == "split" and not hasattr(self.model, "decode_step"):
             raise ValueError(
                 f"layout='split' decodes through the model's decode_step "
@@ -508,3 +518,139 @@ class ServingEngine:
         self.slots[slot] = None
         self.slot_pages[slot] = []
         self.slot_lens[slot] = 0
+
+
+# -- checkpoint / resume (JAX engine.py:1726-1855) ---------------------------
+
+# the request fields of the JAX engine's file that belong to features the
+# port's engine lacks, with the values a request that uses none of them has
+_REQUEST_LATER = {"top_k": 0, "top_p": 0.0, "want_logprobs": False,
+                  "logprobs": [], "stop": [], "logit_bias": None,
+                  "lora": None}
+
+
+def _pools_tree(eng: ServingEngine, leaf=None) -> Dict[str, Any]:
+    """The engine's pools under the JAX engine's keys: the fused pool and
+    its packed scales are JAX's `k_pages` and `k_scales` (its `v_pages`
+    and `v_scales` are None then); there is no draft pool (`dk_*`).  With
+    `leaf`, every pool is replaced by it (a template for load_pytree)."""
+    if eng.layout == "fused":
+        tree = {"k_pages": eng.kv_pages, "v_pages": None,
+                "k_scales": eng.kv_scales, "v_scales": None}
+    else:
+        tree = {"k_pages": eng.k_pages, "v_pages": eng.v_pages,
+                "k_scales": eng.k_scales, "v_scales": eng.v_scales}
+    tree.update(dk_pages=None, dk_scales=None)
+    if leaf is not None:
+        tree = {k: None if v is None else leaf for k, v in tree.items()}
+    return tree
+
+
+def save_engine_state(eng: ServingEngine, path: str) -> None:
+    """Persist the pools and the request and slot bookkeeping to
+    `<path>.pools.npz` / `.pools.tree.json` / `.state.json`, the JAX
+    engine's files; params are not saved (utils.checkpoint.save_pytree
+    them separately).  Fields of the JAX engine's features the port lacks
+    (prefix cache, speculative decoding, top-k / top-p, logprobs, stop
+    sequences, logit bias, LoRA) are written with the values an engine
+    that uses none of them writes.  The sampler's state is a
+    torch.Generator's, under a key of the port's own
+    (`torch_generator_state`): JAX's `rng_key` cannot be derived from it,
+    so a JAX engine resumes the port's sampled requests from its own
+    seed."""
+    save_pytree(path + ".pools", _pools_tree(eng))
+
+    def req(r: Optional[Request]):
+        return None if r is None else dict(
+            req_id=r.req_id, prompt=np.asarray(r.prompt).tolist(),
+            max_new_tokens=r.max_new_tokens, eos_id=r.eos_id,
+            output=list(r.output), temperature=r.temperature,
+            cancelled=r.cancelled, **_REQUEST_LATER)
+
+    host = {
+        "slots": [req(r) for r in eng.slots],
+        "slot_pages": [list(p) for p in eng.slot_pages],
+        "slot_lens": eng.slot_lens.tolist(),
+        "waiting": [req(r) for r in eng.waiting],
+        "finished": [req(r) for r in eng.finished],
+        "next_id": eng._next_id,
+        "prefix_cache": {},
+        "page_rc": {},
+        "prefix_hit_tokens": 0,
+        "free_pages": eng.allocator.free_list(),
+        "slot_dlens": [0] * eng.max_batch,
+        "spec_drafted": 0,
+        "spec_accepted": 0,
+        "spec_disabled": False,
+        "torch_generator_state": eng.generator.get_state().tolist(),
+    }
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    with open(path + ".state.json", "w") as f:
+        json.dump(host, f)
+
+
+def load_engine_state(eng: ServingEngine, path: str) -> None:
+    """Restore state saved by save_engine_state, of either package, into
+    a freshly constructed engine of the same configuration (pools of the
+    same layout, shapes and dtypes, written in place).  A file that holds
+    a feature the port's engine lacks (a prefix-cache entry, speculative
+    decoding, a request with top-k / top-p, logprobs, stop sequences, a
+    logit bias or a LoRA adapter) raises NotImplementedError naming the
+    slice that brings it.  A JAX file carries no torch.Generator state:
+    the engine keeps its own, so greedy requests resume exactly."""
+    with open(path + ".state.json") as f:
+        host = json.load(f)
+    if host.get("prefix_cache") or host.get("page_rc"):
+        raise NotImplementedError(
+            f"load_engine_state: the file holds prefix-cache entries; the "
+            f"prefix cache is not ported yet, it comes with {_EDGES}")
+    if (host.get("spec_drafted") or host.get("spec_accepted")
+            or any(host.get("slot_dlens", []))):
+        raise NotImplementedError(
+            f"load_engine_state: the file holds speculative-decoding state; "
+            f"speculative decoding is not ported yet, it comes with {_EDGES}")
+    if len(host["slots"]) != eng.max_batch:
+        raise ValueError(f"the file has {len(host['slots'])} batch slots, "
+                         f"the engine {eng.max_batch}")
+
+    def req(d) -> Optional[Request]:
+        if d is None:
+            return None
+        later = {"top_k": d.get("top_k", 0), "top_p": d.get("top_p", 0.0),
+                 "logprobs": d.get("want_logprobs", False),
+                 "stop": d.get("stop") or None,
+                 "logit_bias": d.get("logit_bias") or None,
+                 "lora": d.get("lora")}
+        _refuse_later(later, _LATER_SUBMIT_ARGS,
+                      f"load_engine_state: request {d['req_id']}")
+        r = Request(d["req_id"], np.asarray(d["prompt"], np.int32),
+                    d["max_new_tokens"], d["eos_id"],
+                    temperature=float(d.get("temperature", 0.0)),
+                    cancelled=bool(d.get("cancelled", False)))
+        r.output.extend(int(t) for t in d["output"])
+        return r
+
+    slots = [req(d) for d in host["slots"]]
+    waiting = [req(d) for d in host["waiting"]]
+    finished = [req(d) for d in host["finished"]]
+    pools = _pools_tree(eng)
+    state = load_pytree(path + ".pools", _pools_tree(eng, leaf=0))
+    for key, t in pools.items():
+        if t is None:
+            continue
+        got = state[key]
+        if got.shape != t.shape or got.dtype != t.dtype:
+            raise ValueError(
+                f"{key}: the file holds {tuple(got.shape)} {got.dtype}, the "
+                f"engine {tuple(t.shape)} {t.dtype}")
+        t.copy_(got)
+    eng.slots = slots
+    eng.slot_pages = [[int(p) for p in pages] for pages in host["slot_pages"]]
+    eng.slot_lens = np.asarray(host["slot_lens"], np.int32)
+    eng.waiting = waiting
+    eng.finished = finished
+    eng._next_id = int(host["next_id"])
+    eng.allocator.set_free_list([int(p) for p in host["free_pages"]])
+    if "torch_generator_state" in host:
+        eng.generator.set_state(torch.tensor(host["torch_generator_state"],
+                                             dtype=torch.uint8))

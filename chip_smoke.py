@@ -103,7 +103,10 @@ Phases, each printing a line of its own:
      paged_prefill.cu in
      bf16, the other family never;
      pages; tokens against a teacher-forced plain forward or
-     plain-attention replay, the f32 runs within GPT2_F32_NEAR_TIE), and
+     plain-attention replay, the f32 runs within GPT2_F32_NEAR_TIE); the
+     bf16 whole-prompt run once more, saved with save_engine_state after
+     its first decode dispatch and resumed by a fresh engine, which must
+     give the uninterrupted run's tokens and every page back; and
      one f32 prefill step and decode dispatch under torch.profiler;
   6b. llama32, in a process of its own (`python3 chip_smoke.py --llama32`
      runs it alone): the paged decode's device times at B8 ctx4096 at GQA
@@ -117,6 +120,17 @@ Phases, each printing a line of its own:
      (LlamaConfig.mistral_7b(), its 4096-token window, full width and
      depth) serves 4 requests of 4,200 to 6,000 prompt tokens whole and
      with prefill_chunk=512, each held to a teacher-forced plain forward;
+  6d. moe, in a process of its own (`--moe`): Mixtral-8x7B (models/moe.py,
+     MoEConfig.mixtral_8x7b(): 8 experts, top 2, full width, 16 of its 32
+     layers, random bf16 weights) serves the 12 requests three times
+     (MOE_RUNS: bf16 whole-prompt, int8 chunk 512, fp8 whole-prompt), each
+     checked as the Llama runs are; then moe.loss_fn's gradients through
+     the kernels against the plain attention path's on 2 layers;
+  6e. adamw, in a process of its own (`--adamw`): AdamW
+     (parallel/optimizer.py, an f32 master, clip 1.0, a warm-up schedule,
+     2 micro-batches) on Llama-3-8B at full width on 8 layers, 3 steps of
+     B2 x 2049 tokens (launches asserted, the loss falling, step 2 timed,
+     peak memory), then the update on the card against the CPU's;
   7. engine: a full-width, full-depth Llama-3-8B (random bf16 weights from
      a seeded generator on the card) serves the same 12 greedy requests
      eight times through `ServingEngine`: over fused pools, bf16 with
@@ -145,11 +159,13 @@ Phases, each printing a line of its own:
      launched (the engine runs, the GPT-2 runs, the Llama-3.2-3B runs for
      the group-3 modes, the train steps for the backward, the public
      phase's calls for its modes and the GPT-2 phase's split-layout
-     calls);
+     calls; the Mixtral runs and the AdamW steps added to the modes they
+     launch);
   11. last line: {"ok": true, "device": {...}}, printed only when every
      phase passed.  Any failure raises and the exit code is non-zero.
 
-About 7 minutes on an H100, the build included.
+About 12 minutes on an H100, the build included (`seconds by phase`
+in the log).
 """
 
 from __future__ import annotations
@@ -1466,7 +1482,7 @@ def _launch_counters():
 
 
 def run_engine(params, cfg, prompts, label, model=None, engine_kw=ENGINE_KW,
-               **kw):
+               routing=None, **kw):
     """Serve the prompts through a fresh ServingEngine (`model`: the model
     family, Llama by default); the launch counts are set to 0 just before
     the run and read just after.  Checks that every request finished, that
@@ -1484,7 +1500,8 @@ def run_engine(params, cfg, prompts, label, model=None, engine_kw=ENGINE_KW,
     its chunks on paged_generic.cu / paged_prefill_f32.cu, a bf16 one on
     paged_decode.cu and
     paged_prefill.cu at every head dim, and the other family never) and
-    that every page came back."""
+    that every page came back.  `routing` (a _Routing) logs where a
+    mixture of experts sent each token."""
     from aule_tpu_torch.serving.engine import ServingEngine
 
     eng = ServingEngine(params, cfg, device=DEV, model=model, **engine_kw,
@@ -1498,9 +1515,15 @@ def run_engine(params, cfg, prompts, label, model=None, engine_kw=ENGINE_KW,
     counters = _launch_counters()
     for fn in counters.values():
         fn.launches = 0
+    if routing is not None:
+        routing.attach(eng)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    done = eng.run()
+    try:
+        done = eng.run()
+    finally:
+        if routing is not None:
+            routing.detach()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {name: fn.launches for name, fn in counters.items()}
@@ -1593,11 +1616,155 @@ class _Agreement:
             f"{self.tie:.4g})")
 
 
+def _top(logits, k):
+    """Each row's top-k experts, ties to the lower index (models/moe.py's
+    _gating order)."""
+    return torch.sort(logits, dim=-1, descending=True,
+                      stable=True).indices[:, :k]
+
+
+def _mixture(layer, x, logits, idx, cfg):
+    """models/moe.py's _moe_mlp_dense on x [B, S, dim] (router logits
+    `logits` [B*S, E]) with each token's experts given by `idx` [B*S, k]:
+    the same arithmetic, the gates from its own logits."""
+    from aule_tpu_torch.models import moe
+
+    gates = torch.softmax(logits.gather(-1, idx), dim=-1)
+    w = torch.zeros_like(logits).scatter(-1, idx, gates)
+    outs = moe._expert_mlp(layer["e_gate"], layer["e_up"], layer["e_down"],
+                           x.reshape(-1, x.shape[-1]))
+    y = torch.einsum("etd,te->td", outs.float(), w)
+    return y.to(x.dtype).reshape(x.shape)
+
+
+class _Routing:
+    """Where a Mixtral run sent each token, logged and then pinned.
+
+    The router's logits are bf16 products (JAX's rounding, aule_tpu/models/
+    moe.py:114).  Where a token's k-th and (k+1)-th experts lie within a
+    rounding of each other, the kernel path and the plain path send it to
+    different experts as soon as their attention outputs differ by a
+    rounding, and its MLP output moves by a gate times the difference of
+    two experts' outputs (a Mixtral run's teacher-forced check saw tokens
+    over a unit below the plain max).  That is the router's discontinuity,
+    not the attention's error, so the checks route the plain path as the
+    kernel path did.  `attach(eng)` puts a logging copy of
+    moe._moe_mlp_dense in place while the engine serves (the same
+    arithmetic: it notes each row's top-k, keyed by (request, position)
+    from the engine's state, then calls the original) and `detach()`
+    restores it; `log(rows)` makes this object a `moe_mlp` that logs a
+    model call whose x rows are `rows` ((request, position) each) and runs
+    the dense mixture.  Then `pin(rows)` makes it a `moe_mlp` that routes
+    the next call's rows as logged, its gates from its own logits.
+    `flips` counts the token-layers a pinned call would have routed
+    otherwise."""
+
+    def __init__(self, n_layers):
+        self.n_layers = n_layers
+        self.logged, self.table, self.rows, self.logging = [], {}, None, False
+        self.calls = self.flips = 0
+        self._restore = None
+
+    def attach(self, eng):
+        from aule_tpu_torch.models import moe
+
+        dense = moe._moe_mlp_dense
+        run_prefill, decode_all = eng._run_prefill, eng._decode_all
+        at = dict(req=None, offset=0, calls=0, slots=(), lens=())
+
+        def prefill(slot, req):
+            at.update(req=req.req_id, offset=0, calls=0)
+            return run_prefill(slot, req)
+
+        def decode():
+            at.update(req=None, calls=0, lens=eng.slot_lens.copy(),
+                      slots=[r and r.req_id for r in eng.slots])
+            return decode_all()
+
+        def logged(layer, x, cfg):
+            b, s, d = x.shape
+            if at["req"] is not None:  # a prompt, or a chunk of one
+                rows = [(at["req"], at["offset"] + j) for j in range(s)]
+            else:  # a decode step: one row a batch slot
+                step = at["calls"] // self.n_layers
+                rows = [None if r is None else (r, int(at["lens"][i]) + step)
+                        for i, r in enumerate(at["slots"])]
+            logits = (x.reshape(b * s, d) @ layer["router"]).float()
+            self.logged.append((rows, at["calls"] % self.n_layers,
+                                _top(logits, cfg.top_k)))
+            at["calls"] += 1
+            if at["req"] is not None and at["calls"] % self.n_layers == 0:
+                at["offset"] += s
+            return dense(layer, x, cfg)
+
+        eng._run_prefill, eng._decode_all = prefill, decode
+        moe._moe_mlp_dense = logged
+
+        def restore():
+            moe._moe_mlp_dense = dense
+            # the wrappers refer to the engine: drop them, or the engine
+            # and its pools live on in a cycle until the collector runs
+            del eng._run_prefill, eng._decode_all
+
+        self._restore = restore
+
+    def detach(self):
+        self._restore()
+        self._restore = None
+        self._build()
+
+    def _build(self):
+        """The logged calls as one table a request: [positions, layers,
+        k] experts."""
+        ends = {}
+        for rows, _, _ in self.logged:
+            for key in rows:
+                if key is not None:
+                    ends[key[0]] = max(ends.get(key[0], 0), key[1] + 1)
+        k = self.logged[0][2].shape[1]
+        self.table = {r: np.full((n, self.n_layers, k), -1, np.int64)
+                      for r, n in ends.items()}
+        for rows, li, idx in self.logged:
+            idx = idx.cpu().numpy()
+            for i, key in enumerate(rows):
+                if key is not None:
+                    self.table[key[0]][key[1], li] = idx[i]
+        self.logged.clear()
+
+    def log(self, rows):
+        self.rows, self.calls, self.logging = rows, 0, True
+        return self
+
+    def pin(self, rows):
+        if self.logging:
+            self._build()
+        self.rows, self.calls, self.logging = rows, 0, False
+        return self
+
+    def __call__(self, layer, x, cfg):
+        b, s, d = x.shape
+        li = self.calls % self.n_layers
+        self.calls += 1
+        logits = (x.reshape(b * s, d) @ layer["router"]).float()
+        own = _top(logits, cfg.top_k)
+        if self.logging:
+            self.logged.append((self.rows, li, own))
+            return _mixture(layer, x, logits, own, cfg)
+        got = np.stack([self.table[r][p, li] for r, p in self.rows])
+        if (got < 0).any():
+            raise AssertionError("routing: a row the engine never routed")
+        idx = torch.from_numpy(got).to(x.device)
+        self.flips += int((own.sort(-1).values
+                           != idx.sort(-1).values).any(-1).sum())
+        return _mixture(layer, x, logits, idx, cfg)
+
+
 def check_plain_forward(params, cfg, prompts, outputs, label, model=None,
-                        tie=NEAR_TIE):
+                        tie=NEAR_TIE, routing=None):
     """Teacher-forced plain forward (flash's plain version) over prompt +
     output: the check of the unquantized runs (`model`: Llama unless
-    given)."""
+    given; a mixture of experts routed as the run was by `routing`, a
+    detached _Routing)."""
     from aule_tpu_torch.models import llama
     from aule_tpu_torch.ops.flash_vjp import flash_attention_vjp_plain
 
@@ -1607,17 +1774,23 @@ def check_plain_forward(params, cfg, prompts, outputs, label, model=None,
         for i, (p, out) in enumerate(zip(prompts, outputs)):
             seq = np.concatenate([p, np.asarray(out[:-1], np.int32)])
             tokens = torch.from_numpy(seq.astype(np.int64))[None].to(DEV)
+            kw = {} if routing is None else dict(moe_mlp=routing.pin(
+                [(i, pos) for pos in range(len(seq))]))
             logits = model.forward(params, tokens, cfg,
-                                   attention=flash_attention_vjp_plain)[0]
+                                   attention=flash_attention_vjp_plain,
+                                   **kw)[0]
             agree.add(logits[len(p) - 1:], torch.tensor(out, device=DEV),
                       f"request {i} (prompt {len(p)})")
             del logits
-    agree.report("teacher-forced plain forward")
+    agree.report("teacher-forced plain forward" + (
+        "" if routing is None else
+        f" (experts pinned to the run's routing; the plain path would have "
+        f"routed {routing.flips} token-layers otherwise)"))
 
 
 def check_replay(params, cfg, prompts, outputs, label, quant_dtype, chunk,
                  layout="fused", model=None, engine_kw=ENGINE_KW,
-                 tie=NEAR_TIE):
+                 tie=NEAR_TIE, routing=None):
     """Teacher-forced replay of a quantized run's steps with the plain
     attention versions: each prompt is prefilled alone into fresh pools of
     the run's layout written the same way (chunked through
@@ -1625,7 +1798,8 @@ def check_replay(params, cfg, prompts, outputs, label, quant_dtype, chunk,
     all requests decode together through decode_step_fused or, over split
     pools, decode_step, fed the engine's tokens (`model`: Llama unless
     given; `engine_kw`: the run's engine settings; `tie`: the near-tie
-    allowance)."""
+    allowance; a mixture of experts routed as the run was by `routing`, a
+    detached _Routing)."""
     from aule_tpu_torch.models import llama
     from aule_tpu_torch.ops import paged
     from aule_tpu_torch.ops.flash_vjp import flash_attention_vjp_plain
@@ -1669,6 +1843,9 @@ def check_replay(params, cfg, prompts, outputs, label, quant_dtype, chunk,
     out_t = torch.tensor(outputs, device=dev)          # [R, NEW_TOKENS]
     agree = _Agreement(label, tie)
 
+    def pinned(rows):
+        return {} if routing is None else dict(moe_mlp=routing.pin(rows))
+
     def one(x):
         return torch.tensor([x], dtype=torch.int32, device=dev)
 
@@ -1682,11 +1859,14 @@ def check_replay(params, cfg, prompts, outputs, label, quant_dtype, chunk,
                     logits = model.prefill_step_fused(
                         params, part, one(off), one(part.shape[1]),
                         pools[0], bt[i:i + 1], cfg, cos, sin, pools[1],
-                        attention=paged_attention_prefill_plain)[0][0]
+                        attention=paged_attention_prefill_plain,
+                        **pinned([(i, off + j)
+                                  for j in range(part.shape[1])]))[0][0]
             else:
                 full, kv = model.forward(
                     params, tokens, cfg, rope_cos=cos, rope_sin=sin,
-                    return_kv=True, attention=flash_attention_vjp_plain)
+                    return_kv=True, attention=flash_attention_vjp_plain,
+                    **pinned([(i, j) for j in range(n)]))
                 where = (bt[i:i + 1], one(0), one(n))
                 for li, (k, v) in enumerate(kv):
                     if layout == "fused":
@@ -1705,7 +1885,9 @@ def check_replay(params, cfg, prompts, outputs, label, quant_dtype, chunk,
             if layout == "fused":
                 logits = model.decode_step_fused(
                     params, out_t[:, t], lens, pools[0], bt, lens, cfg, cos,
-                    sin, pools[1], attention=paged_attention_fused_plain)[0]
+                    sin, pools[1], attention=paged_attention_fused_plain,
+                    **pinned([(i, len(p) + t)
+                              for i, p in enumerate(prompts)]))[0]
             else:
                 logits = model.decode_step(
                     params, out_t[:, t], lens, *pools[:2], bt, lens, cfg,
@@ -1713,7 +1895,11 @@ def check_replay(params, cfg, prompts, outputs, label, quant_dtype, chunk,
                     attention=paged.paged_attention_plain)[0]
             agree.add(logits, out_t[:, t + 1], f"decode step {t}")
             lens = lens + 1
-    agree.report("teacher-forced replay with the plain attention versions")
+    agree.report("teacher-forced replay with the plain attention versions"
+                 + ("" if routing is None else
+                    f" (experts pinned to the run's routing; the replay "
+                    f"would have routed {routing.flips} token-layers "
+                    f"otherwise)"))
     pools.clear()
     torch.cuda.empty_cache()
 
@@ -1853,27 +2039,42 @@ def phase_breakdown(params, cfg) -> None:
         torch.cuda.empty_cache()
 
 
-def check_grads(params, cfg, tokens) -> None:
-    """Every parameter's gradient of loss_fn through the kernels against
-    the plain path's (flash_attention_fwd_plain + flash_attention_bwd_plain
-    on the card), on the same weights cut to 2 layers (views, full width);
-    relative Frobenius error within GRAD_TOL, all finite."""
+def check_grads(params, cfg, tokens, model=None, label="train") -> None:
+    """Every parameter's gradient of `model`.loss_fn (Llama's unless
+    given) through the kernels against the plain path's
+    (flash_attention_fwd_plain + flash_attention_bwd_plain on the card), on
+    the same weights cut to 2 layers (views, full width); relative
+    Frobenius error within GRAD_TOL, all finite.  A mixture of experts
+    (a model with `n_experts` in its config) is routed alike on both
+    passes (_Routing: the plain pass logged first, the kernel pass
+    pinned to it)."""
     import dataclasses
 
     from aule_tpu_torch.models import llama
     from aule_tpu_torch.ops.flash_vjp import (flash_attention_vjp,
                                               flash_attention_vjp_plain)
 
+    model = model or llama
     small = dict(params, layers=params["layers"][:2])
     cfg2 = dataclasses.replace(cfg, n_layers=2)
     tensors = list(llama._tensors(small))
+    for t in tensors:
+        t.requires_grad_(True)
     names = ["embed", "final_norm", "lm_head"] + [  # llama._tensors' order
         f"layers.{li}.{key}" for li, layer in enumerate(small["layers"])
         for key in layer]
-    got = {}
-    for name, attention in (("kernel", flash_attention_vjp),
-                            ("plain", flash_attention_vjp_plain)):
-        loss = llama.loss_fn(small, tokens, cfg2, attention=attention)
+    got, routing = {}, None
+    passes = (("kernel", flash_attention_vjp),
+              ("plain", flash_attention_vjp_plain))
+    if hasattr(cfg, "n_experts"):
+        routing = _Routing(2)
+        passes = passes[::-1]
+    rows = [(0, pos) for pos in range(tokens.shape[1] - 1)]
+    for name, attention in passes:
+        kw = {} if routing is None else dict(
+            moe_mlp=routing.log(rows) if name == "plain"
+            else routing.pin(rows))
+        loss = model.loss_fn(small, tokens, cfg2, attention=attention, **kw)
         got[name] = (float(loss.detach()),
                      torch.autograd.grad(loss, tensors))
         del loss
@@ -1881,14 +2082,20 @@ def check_grads(params, cfg, tokens) -> None:
     for name, g, r in zip(names, got["kernel"][1], got["plain"][1]):
         rel = float((g.float() - r.float()).norm() / r.float().norm())
         if not (bool(torch.isfinite(g).all()) and rel <= GRAD_TOL):
-            raise AssertionError(f"gradient check: {name} relative error "
-                                 f"{rel:.3e} (<= {GRAD_TOL}) or not finite")
+            raise AssertionError(f"{label} gradient check: {name} relative "
+                                 f"error {rel:.3e} (<= {GRAD_TOL}) or not "
+                                 f"finite")
         if rel >= worst:
             worst, worst_name = rel, name
-    log(f"train gradient check, 2 layers full width S{TRAIN_S}: loss kernel "
+    log(f"{label} gradient check, 2 layers full width "
+        f"S{tokens.shape[1] - 1}: loss kernel "
         f"{got['kernel'][0]:.6f} plain {got['plain'][0]:.6f}; "
         f"{len(tensors)} gradients, largest relative Frobenius error "
-        f"{worst:.3e} ({worst_name}) <= {GRAD_TOL} ok")
+        f"{worst:.3e} ({worst_name}) <= {GRAD_TOL} ok"
+        + ("" if routing is None else
+           f"; experts pinned to the plain pass's routing, which the "
+           f"kernel pass would have changed for {routing.flips} of "
+           f"{cfg2.n_layers * len(rows)} token-layers"))
     del got
     torch.cuda.empty_cache()
 
@@ -3224,7 +3431,14 @@ def _generic_timings(gen, res):
                for m in TC_DECODE_MODES if m[0] in ("bf16", "int8 dot bf16 q",
                                                     "fp8 bf16 q")]
             + [("tc d256 ", m, ([2048, 777], D256_F32, 128), False)
-               for m in TC_DECODE_MODES[:2]]):
+               for m in TC_DECODE_MODES[:2]]
+            # the f32-q decode at the f32 Llama layer's decode (D128 group
+            # 4, B8 ctx4096) and D256 group 8: its plain version's time and
+            # SDPA in f32 beside it
+            + [(f"{tag} ", m, shape, False) for tag, shape in (
+                ("llama d128", ([4096] * 8, LLAMA_F32, 256)),
+                ("d256", ([2048, 777], D256_F32, 128)))
+               for m in GEN_DECODE_MODES]):
         _decode_mode_times(gen, res, key, mode, lens, heads, max_pages,
                            split)
     # the prefill at GPT-2's chunk in every mode of GEN_PREFILL_MODES (f32
@@ -3294,6 +3508,66 @@ GPT2_RUNS = [
 ]
 
 
+def _gpt2_resume(params, cfg, prompts, want, res):
+    """Engine checkpoint / resume on the card: the GPT-2 bf16 whole-prompt
+    run again, saved with save_engine_state after its first decode
+    dispatch into a temporary directory (removed afterwards), loaded by a
+    fresh engine, which must finish with the uninterrupted run's tokens
+    (`want`) and give every page back."""
+    import tempfile
+
+    from aule_tpu_torch.models import gpt2
+    from aule_tpu_torch.serving.engine import (ServingEngine,
+                                               load_engine_state,
+                                               save_engine_state)
+
+    kw = GPT2_ENGINE_KW
+
+    def engine():
+        return ServingEngine(params, cfg, model=gpt2, device=DEV, **kw)
+
+    eng = engine()
+    for p in prompts:
+        eng.submit(p, NEW_TOKENS)
+    eng.step()  # admits and prefills 8 requests, then one decode dispatch
+    if eng.decode_dispatches != 1 or not eng.waiting:
+        raise AssertionError("engine resume: not saved mid-run after one "
+                             "decode dispatch")
+    running = eng.num_running
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "engine")
+        t0 = time.perf_counter()
+        save_engine_state(eng, path)
+        t_save = time.perf_counter() - t0
+        del eng
+        torch.cuda.empty_cache()
+        nbytes = sum(os.path.getsize(os.path.join(tmp, f))
+                     for f in os.listdir(tmp))
+        fresh = engine()
+        t0 = time.perf_counter()
+        load_engine_state(fresh, path)
+        torch.cuda.synchronize()
+        t_load = time.perf_counter() - t0
+    got = [list(r.output) for r in fresh.run()]
+    if got != want:
+        same = _same(got, want)
+        raise AssertionError(f"engine resume: {same} of "
+                             f"{len(prompts) * NEW_TOKENS} tokens equal the "
+                             f"uninterrupted run's")
+    if fresh.allocator.num_free != kw["num_pages"] - 1:
+        raise AssertionError(f"engine resume: pages leaked: "
+                             f"{fresh.allocator.num_free} free")
+    log(f"engine resume GPT-2 bf16 whole-prompt: saved after the first "
+        f"decode dispatch ({running} running, {len(prompts) - running} "
+        f"waiting; {nbytes / 1e6:.1f} MB in {t_save:.2f} s, loaded in "
+        f"{t_load:.2f} s); the resumed engine's {len(prompts) * NEW_TOKENS} "
+        f"tokens equal the uninterrupted run's; every page came back")
+    res["resume"] = dict(tokens_equal=len(prompts) * NEW_TOKENS,
+                         file_mb=nbytes / 1e6, save_s=t_save, load_s=t_load)
+    del fresh
+    torch.cuda.empty_cache()
+
+
 def _gpt2_serving(res):
     """GPT-2 small at full width and depth (GPT2Config(): vocab 50,257, 12
     layers of 12 heads, D64; random f32 weights from a seeded generator on
@@ -3336,6 +3610,8 @@ def _gpt2_serving(res):
         p, c = (bparams, bcfg) if bf16 else (params, cfg)
         out, res["runs"][key] = run_engine(p, c, prompts, label, model=gpt2,
                                            engine_kw=GPT2_ENGINE_KW, **kw)
+        if key == "bf16":
+            _gpt2_resume(p, c, prompts, out, res)
         if check == "plain":
             check_plain_forward(p, c, prompts, out, label, model=gpt2,
                                 tie=tie)
@@ -3507,21 +3783,28 @@ def _gqa_prefill_times(res):
             res["err"][f"prefill {mode} {tag}"] = times["err"]
 
 
-def _serve(params, cfg, prompts, runs, res, engine_kw=ENGINE_KW):
+def _serve(params, cfg, prompts, runs, res, engine_kw=ENGINE_KW,
+           model=None):
     """Serve the prompts once per run of `runs` ((key, label, engine
-    options, quantized payload dtype or None)), each checked by run_engine
-    and held to a teacher-forced plain forward (unquantized) or a
-    plain-attention replay (quantized)."""
+    options, quantized payload dtype or None)) of `model` (Llama unless
+    given), each checked by run_engine and held to a teacher-forced plain
+    forward (unquantized) or a plain-attention replay (quantized); a
+    mixture of experts (`n_experts` in cfg) routed in the check as the run
+    routed (_Routing)."""
     for key, label, kw, qdt in runs:
+        routing = (_Routing(cfg.n_layers) if hasattr(cfg, "n_experts")
+                   else None)
         out, res["runs"][key] = run_engine(params, cfg, prompts, label,
-                                           engine_kw=engine_kw, **kw)
+                                           model=model, engine_kw=engine_kw,
+                                           routing=routing, **kw)
         if qdt is None:
-            check_plain_forward(params, cfg, prompts, out, label)
+            check_plain_forward(params, cfg, prompts, out, label,
+                                model=model, routing=routing)
         else:
             check_replay(params, cfg, prompts, out, label, qdt,
                          kw.get("prefill_chunk"),
-                         layout=kw.get("layout", "fused"),
-                         engine_kw=engine_kw)
+                         layout=kw.get("layout", "fused"), model=model,
+                         engine_kw=engine_kw, routing=routing)
 
 
 def check_llama32() -> dict:
@@ -3712,6 +3995,242 @@ def check_mistral() -> dict:
     return res
 
 
+# Mixtral-8x7B (mistralai/Mixtral-8x7B-v0.1, config.json: MoEConfig.
+# mixtral_8x7b()) at full width, cut to 16 of its 32 layers: a layer holds
+# 1.45 B parameters (2.9 GB in bf16), so 32 layers (93 GB) do not fit the
+# card's 80 GB; 16 take 46.4 GB, with 0.5 GB of embedding and head, which
+# leaves room for the 2,100-page pools (2.2 GB) and the dense mixture's
+# [8, T, 14336] transients.
+MIXTRAL_LAYERS = 16
+# Its serving runs: (key, label, engine options, quantized payload dtype or
+# None), the Llama-3-8B runs' keys.  The whole-prompt runs prefill through
+# the flash forward, the chunked one through the paged prefill; every run
+# decodes through the fused decode (group 4, D128, as Llama-3-8B's).
+MOE_RUNS = [
+    ("whole bf16", "Mixtral bf16 whole-prompt", {}, None),
+    ("b", "Mixtral (b) int8 chunk 512",
+     dict(quantized=True, prefill_chunk=CHUNK), torch.int8),
+    ("c", "Mixtral (c) fp8 whole-prompt",
+     dict(quantized=True, quant_dtype=torch.float8_e4m3fn),
+     torch.float8_e4m3fn),
+]
+MOE_GRAD_S = 1024  # the 2-layer gradient check's tokens (B1 x 1025)
+
+
+def check_moe() -> dict:
+    """Mixtral-8x7B at full width on MIXTRAL_LAYERS layers (random bf16
+    weights from SEED on the card) serving the 12 prompts of PROMPT_LENS,
+    24 new tokens each, through ServingEngine(model=moe, **ENGINE_KW) in
+    every run of MOE_RUNS (each checked by run_engine: the fused decode 16
+    times a step, the paged prefill 16 times a chunk, the flash forward 16
+    times a whole prompt, every page back; tokens held to a teacher-forced
+    plain forward or a plain-attention replay, routed as the run routed),
+    then moe.loss_fn's gradients through the kernels against the plain
+    attention path's on the weights cut to 2 layers, both passes routed
+    alike (check_grads, GRAD_TOL).  Returns each run's launches."""
+    import dataclasses
+
+    from aule_tpu_torch.models import llama, moe
+
+    log(card_line())
+    cfg = dataclasses.replace(moe.MoEConfig.mixtral_8x7b(),
+                              n_layers=MIXTRAL_LAYERS)
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(SEED)
+    t0 = time.perf_counter()
+    params = moe.init_params(cfg, gen, device=DEV)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in llama._tensors(params))
+    log(f"moe: Mixtral-8x7B dim {cfg.dim} layers {cfg.n_layers} of 32 heads "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} D{cfg.head_dim} hidden "
+        f"{cfg.hidden_dim} experts {cfg.n_experts} top {cfg.top_k} vocab "
+        f"{cfg.vocab_size} RoPE {cfg.rope_base:.0f} bf16: "
+        f"{n_params / 1e9:.3f} B params ({2 * n_params / 1e9:.1f} GB), init "
+        f"{time.perf_counter() - t0:.1f} s; memory allocated "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32)
+               for n in PROMPT_LENS]
+    res = {"runs": {}}
+    _serve(params, cfg, prompts, MOE_RUNS, res, model=moe)
+    tokens = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, size=(1, MOE_GRAD_S + 1))).to(DEV)
+    check_grads(params, cfg, tokens, model=moe, label="moe")
+    log(f"moe: max memory allocated "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del params
+    torch.cuda.empty_cache()
+    return res
+
+
+# AdamW on Llama-3-8B at full width, cut to 8 of its 32 layers: the 8
+# layers hold 1.75 B parameters and the embedding and head 1.05 B; bf16
+# params and grads take 4 B a parameter and the f32 moments and master 12
+# B, about 45 GB in all (32 layers would need about 128 GB).
+ADAMW_LAYERS = 8
+ADAMW_BATCH = 2          # B2 x (TRAIN_S + 1) tokens a step
+ADAMW_MICRO = 2          # in micro-batches of B1
+ADAMW_PEAK_LR = 1e-4     # reached after ADAMW_WARMUP steps
+ADAMW_WARMUP = 2
+ADAMW_CHECK = dict(lr=1e-3, weight_decay=0.01)  # the card-vs-CPU check
+
+
+def adamw_lr(count: int) -> float:
+    """The warm-up schedule: linear to ADAMW_PEAK_LR over ADAMW_WARMUP
+    steps, then flat."""
+    return ADAMW_PEAK_LR * min(1.0, count / ADAMW_WARMUP)
+
+
+def _adamw_card_vs_cpu(params) -> dict:
+    """The AdamW update applied to one fixed set of gradients on the card
+    and on the CPU: layer 0's wq, wk and attention norm (bf16 and f32
+    leaves, 21 M parameters) with an f32 master, two steps of a stand-in
+    model whose loss is sum(p * G) (gradient G, seeded); every leaf of the
+    params, mu, nu and master within 1e-6 of the leaf's largest value.  No
+    clipping here: the global norm sums in another order on each device,
+    and a clip scale one f32 step apart moves every value by a step."""
+    import types
+
+    from aule_tpu_torch.parallel import optimizer
+    from aule_tpu_torch.utils.tree import tree_flatten
+
+    layer = params["layers"][0]
+    small = {k: layer[k].detach() for k in ("wq", "wk", "attn_norm")}
+    cpu_gen = torch.Generator().manual_seed(SEED + 16)
+    grads = {k: 0.05 * torch.randn(v.shape, generator=cpu_gen)
+             for k, v in small.items()}
+    out = {}
+    for dev in (DEV, "cpu"):
+        p = {k: v.to(dev, copy=True) for k, v in small.items()}
+        g = {k: v.to(dev) for k, v in grads.items()}
+
+        def loss_fn(params, tokens, cfg, g=g):
+            return sum((params[k].float() * g[k]).sum() for k in sorted(g))
+
+        step = optimizer.make_adamw_train_step(
+            types.SimpleNamespace(loss_fn=loss_fn), None, **ADAMW_CHECK)
+        opt = optimizer.adamw_init(p, master_weights=True)
+        for _ in range(2):
+            p, opt, _ = step(p, opt, None)
+        out[dev] = {"params": p, "mu": opt.mu, "nu": opt.nu,
+                    "master": opt.master}
+    worst, differ, n = 0.0, 0, 0
+    for part in ("params", "mu", "nu", "master"):
+        for a, b in zip(tree_flatten(out[DEV][part]),
+                        tree_flatten(out["cpu"][part])):
+            a, b = a.detach().cpu().float(), b.detach().float()
+            size = float(b.abs().max())
+            err = float((a - b).abs().max())
+            worst = max(worst, err / size)
+            differ += int((a != b).sum())
+            n += a.numel()
+            if err > 1e-6 * size:
+                raise AssertionError(f"AdamW card vs CPU: {part} differs by "
+                                     f"{err:.3e} (> 1e-6 of {size:.3e})")
+    log(f"adamw update card vs CPU (layer 0 wq, wk, attn_norm; 2 steps, "
+        f"lr {ADAMW_CHECK['lr']}, weight decay "
+        f"{ADAMW_CHECK['weight_decay']}, f32 master): largest difference "
+        f"{worst:.3e} of a leaf's size (<= 1e-6); {differ} of {n} values "
+        f"differ in any bit")
+    return dict(worst_rel=worst, values_differ=differ, values=n)
+
+
+def check_adamw() -> dict:
+    """make_adamw_train_step(llama, cfg, lr=adamw_lr, clip_norm=1.0,
+    micro_batches=ADAMW_MICRO) with adamw_init(master_weights=True) on
+    Llama-3-8B at full width on ADAMW_LAYERS layers (random bf16 weights
+    from SEED on the card), 3 steps on one batch of ADAMW_BATCH x (TRAIN_S +
+    1) tokens: every micro-batch launches the forward, delta, dQ and dK/dV
+    kernels once a layer (asserted), the loss falls at every step, step 2
+    is timed (CUDA events: tokens/s, share of the bf16 peak) beside
+    max_memory_allocated; then the update card vs CPU
+    (_adamw_card_vs_cpu).  Returns the kernels' launches a step."""
+    import dataclasses
+
+    from aule_tpu_torch.models import llama
+    from aule_tpu_torch.ops.flash import flash_fwd_tma
+    from aule_tpu_torch.ops.flash_vjp import (attention_delta, flash_bwd_dkv,
+                                              flash_bwd_dq)
+    from aule_tpu_torch.parallel import optimizer
+    from aule_tpu_torch.utils import profiling
+
+    log(card_line())
+    cfg = dataclasses.replace(llama.LlamaConfig.llama3_8b(),
+                              n_layers=ADAMW_LAYERS)
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(SEED)
+    params = llama.init_params(cfg, gen, device=DEV)
+    opt = optimizer.adamw_init(params, master_weights=True)
+    tensors = list(llama._tensors(params))
+    n_params = sum(t.numel() for t in tensors)
+    torch.cuda.synchronize()
+    log(f"adamw: Llama-3-8B dim {cfg.dim} layers {cfg.n_layers} of 32, bf16 "
+        f"params with f32 moments and master: {n_params / 1e9:.3f} B "
+        f"params; memory allocated "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    step = optimizer.make_adamw_train_step(
+        llama, cfg, lr=adamw_lr, clip_norm=1.0, micro_batches=ADAMW_MICRO)
+    rng = np.random.default_rng(SEED + 3)
+    tokens = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, size=(ADAMW_BATCH, TRAIN_S + 1))).to(DEV)
+    counters = {"flash_fwd": flash_fwd_tma, "flash_bwd_delta": attention_delta,
+                "flash_bwd_dq": flash_bwd_dq, "flash_bwd_dkv": flash_bwd_dkv}
+    matmul_params = sum(t.numel() for t in tensors if t.dim() == 2) \
+        - params["embed"].numel()  # the embedding is a gather
+    n_tok = ADAMW_BATCH * TRAIN_S
+    flops = profiling.train_step_flops(
+        matmul_params, n_tok, cfg.n_layers * profiling.attention_flops(
+            ADAMW_BATCH, cfg.n_heads, TRAIN_S, TRAIN_S, cfg.head_dim,
+            causal=True))
+    want = {n: ADAMW_MICRO * cfg.n_layers for n in counters}
+    losses, launches, times = [], [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(3):
+        for fn in counters.values():
+            fn.launches = 0
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        params, opt, loss = step(params, opt, tokens)
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+        losses.append(float(loss))
+        launches.append({n: fn.launches for n, fn in counters.items()})
+        log(f"adamw step {i + 1}: loss {losses[-1]:.6f} (lr "
+            f"{adamw_lr(i + 1):.3g}), {times[-1]:.2f} ms; launches "
+            f"{launches[-1]}")
+        if launches[-1] != want:
+            raise AssertionError(f"adamw step {i + 1}: launches "
+                                 f"{launches[-1]} != {ADAMW_MICRO} "
+                                 f"micro-batches x {cfg.n_layers} layers")
+    peak = torch.cuda.max_memory_allocated()
+    with torch.no_grad():
+        losses.append(float(llama.loss_fn(params, tokens[:1], cfg) +
+                            llama.loss_fn(params, tokens[1:], cfg)) / 2)
+    log(f"adamw: loss after 3 steps {losses[-1]:.6f}")
+    if not (all(math.isfinite(x) for x in losses)
+            and all(a > b for a, b in zip(losses, losses[1:]))):
+        raise AssertionError(f"adamw: the loss did not fall at every step: "
+                             f"{losses}")
+    ms = times[1]
+    log(f"adamw: dim {cfg.dim}, {cfg.n_layers} layers, B{ADAMW_BATCH} "
+        f"S{TRAIN_S} in {ADAMW_MICRO} micro-batches, bf16 with an f32 "
+        f"master, clip 1.0: step 2 {ms:.2f} ms (CUDA events), "
+        f"{n_tok / ms * 1e3:.0f} tokens/s, {flops / 1e12:.2f} TFLOP a step "
+        f"= {flops / ms / 1e9:.1f} TFLOP/s, "
+        f"{100 * flops / ms / 1e9 / 989:.1f} % of the 989 TFLOP/s bf16 peak; "
+        f"max memory allocated {peak / 2**30:.2f} GiB ({peak / 1e9:.2f} GB)")
+    res = {"launches": {n: [x[n] for x in launches] for n in counters},
+           "losses": losses, "step_ms": ms, "tokens_per_s": n_tok / ms * 1e3,
+           "peak_share": flops / ms / 1e9 / 989, "max_memory_gb": peak / 1e9}
+    res["card_vs_cpu"] = _adamw_card_vs_cpu(params)
+    del params, opt
+    torch.cuda.empty_cache()
+    return res
+
+
 def _phase_process(flag: str, what: str) -> dict:
     """A phase in a process of its own (`chip_smoke.py <flag>`): its
     profiled timings meet a fresh torch.profiler, which loses kernels
@@ -3750,9 +4269,20 @@ def phase_mistral() -> dict:
     return _phase_process("--mistral", "Mistral-7B")
 
 
+def phase_moe() -> dict:
+    """check_moe in a process of its own (`chip_smoke.py --moe`)."""
+    return _phase_process("--moe", "Mixtral MoE")
+
+
+def phase_adamw() -> dict:
+    """check_adamw in a process of its own (`chip_smoke.py --adamw`)."""
+    return _phase_process("--adamw", "AdamW")
+
+
 def child_main(check) -> None:
-    """`chip_smoke.py --public`, `--gpt2`, `--llama32` or `--mistral`: that
-    phase alone, its result as one JSON line last."""
+    """`chip_smoke.py --public`, `--gpt2`, `--llama32`, `--mistral`,
+    `--moe` or `--adamw`: that phase alone, its result as one JSON line
+    last."""
     if not torch.cuda.is_available():
         log("device: torch.cuda.is_available() is False")
         sys.exit(2)
@@ -3861,6 +4391,14 @@ def gpt2_entries(gpt2: dict) -> list:
                          int8_exact_other_shapes=shapes("decode int8 exact"))
         if "ffma_bound_ms" in t:
             extra["ffma_bound_ms"] = t["ffma_bound_ms"]
+        if name == "paged_generic_decode_f32":
+            # every f32-q pool mode timed at the f32 Llama layer's decode
+            # and at D256 group 8 (library: SDPA in f32)
+            for tag, what in (("llama d128", "llama_d128_group4_B8_ctx4096"),
+                              ("d256", "d256_group8_B2_ctx2048_777")):
+                extra[f"time_{what}_by_mode"] = {
+                    m[0]: times[f"{tag} decode {m[0]}"]
+                    for m in GEN_DECODE_MODES}
         entries.append(_entry(
             name, src[kind], decode_row if kind == "decode" else prefill_row,
             sum(by_run.values()), err[f"{kind} {mode}"], t,
@@ -4076,35 +4614,87 @@ def mistral_entries(mistral: dict) -> list:
     return entries
 
 
+# the kernel modes the Mixtral runs launch: (entry, counter, runs of
+# MOE_RUNS); Mixtral's attention is Llama-3-8B's (group 4, D128, bf16)
+MOE_LAUNCHES = [
+    ("flash_fwd", "flash_fwd", ("whole bf16", "c")),
+    ("flash_fwd_short", "flash_fwd_short", ("whole bf16", "c")),
+    ("paged_decode", "paged_decode", ("whole bf16",)),
+    ("paged_decode_int8", "paged_decode", ("b",)),
+    ("paged_decode_fp8", "paged_decode", ("c",)),
+    ("paged_prefill_int8", "paged_prefill", ("b",)),
+]
+ADAMW_LAUNCHES = ("flash_fwd", "flash_bwd_delta", "flash_bwd_dq",
+                  "flash_bwd_dkv")
+
+
+def add_moe_adamw_launches(entries, moe, adamw) -> None:
+    """Add the Mixtral runs' and the AdamW steps' launches to the entries
+    of the kernel modes they launch, each also by run or by step; a mode
+    that one of them should launch and did not fails."""
+    by_name = {e["name"]: e for e in entries}
+    for name, counter, keys in MOE_LAUNCHES:
+        n = {k: moe["runs"][k][counter] for k in keys}
+        if 0 in n.values():
+            raise AssertionError(f"{name} was not launched in Mixtral runs "
+                                 f"{n}")
+        by_name[name]["launches"] += sum(n.values())
+        by_name[name]["launches_mixtral_by_run"] = n
+    for name in ADAMW_LAUNCHES:
+        steps = adamw["launches"][name]
+        if 0 in steps:
+            raise AssertionError(f"{name} was not launched in an AdamW step")
+        by_name[name]["launches"] += sum(steps)
+        by_name[name]["launches_per_adamw_step"] = steps
+
+
 def main() -> None:
     from aule_tpu_torch.ops.flash import SHORT_SQ
 
     t_start = time.perf_counter()
+    seconds = {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = round(time.perf_counter() - t0, 1)
+        return out
+
     kind = phase_device()
-    phase_build()
+    timed("build", phase_build)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
+    t0 = time.perf_counter()
     flash_err, flash_t = check_flash(gen)
     decode_err, decode_t = check_decode(gen)
     split_err, split_t = check_decode_split(gen)
     prefill_err, prefill_t = check_prefill(gen)
     group_err = check_groups(gen, decode_err, prefill_err, split_err)
+    seconds["kernels"] = round(time.perf_counter() - t0, 1)
     # before the engine's profiled phases: after many profiled sessions in
     # one process torch.profiler loses kernels, and these times read it
-    bwd_err, bwd_t = check_flash_bwd(gen)
-    t_phase = time.perf_counter()
-    f32_bwd_err, f32_bwd_cases = check_flash_bwd_f32()
-    log(f"phase f32 backward cases: {time.perf_counter() - t_phase:.1f} s")
-    public = phase_public()
-    gpt2 = phase_gpt2()
-    llama32 = phase_llama32()
-    mistral = phase_mistral()
-    runs, params, cfg = phase_engine()
-    phase_breakdown(params, cfg)
-    train = phase_train(params, cfg)  # last: it rewrites the weights
-    del params
+    bwd_err, bwd_t = timed("backward", check_flash_bwd, gen)
+    f32_bwd_err, f32_bwd_cases = timed("f32 backward cases",
+                                       check_flash_bwd_f32)
+    public = timed("public", phase_public)
+    gpt2 = timed("gpt2", phase_gpt2)
+    llama32 = timed("llama32", phase_llama32)
+    mistral = timed("mistral", phase_mistral)
+    torch.cuda.empty_cache()  # the MoE and AdamW processes need ~60 GB
+    free, total = torch.cuda.mem_get_info()
+    log(f"before the MoE and AdamW processes: this process holds "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated, "
+        f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved; the card "
+        f"has {free / 2**30:.2f} of {total / 2**30:.2f} GiB free")
+    moe = timed("moe", phase_moe)
+    adamw = timed("adamw", phase_adamw)
+    runs, params, cfg = timed("engine", phase_engine)
+    timed("breakdown", phase_breakdown, params, cfg)
+    train = timed("train", phase_train, params, cfg)  # last: it rewrites
+    del params                                       # the weights
     log(f"chip_smoke: every phase passed in "
-        f"{time.perf_counter() - t_start:.1f} s, the build included")
+        f"{time.perf_counter() - t_start:.1f} s, the build included; "
+        f"seconds by phase {seconds}")
     log(card_line())
 
     def launched(kernel, *keys):
@@ -4406,6 +4996,7 @@ def main() -> None:
     entries += gpt2_entries(gpt2)
     entries += gqa_entries(llama32, group_err)
     entries += mistral_entries(mistral)
+    add_moe_adamw_launches(entries, moe, adamw)
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
@@ -4421,5 +5012,9 @@ if __name__ == "__main__":
         child_main(check_llama32)
     elif sys.argv[1:] == ["--mistral"]:
         child_main(check_mistral)
+    elif sys.argv[1:] == ["--moe"]:
+        child_main(check_moe)
+    elif sys.argv[1:] == ["--adamw"]:
+        child_main(check_adamw)
     else:
         main()

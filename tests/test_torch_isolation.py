@@ -40,18 +40,39 @@ def test_no_jax_imports(path):
     assert not bad, f"{path.name} imports {bad}"
 
 
+# the modules a user imports, and what none of them may pull in: JAX, the
+# JAX package, and what the card's host may lack (transformers for the HF
+# conversion, ml_dtypes for the checkpoints' bf16 and float8 leaves)
+ENTRY_MODULES = (
+    "aule_tpu_torch.serving.engine", "aule_tpu_torch.ops.flash",
+    "aule_tpu_torch.ops.flash_vjp", "aule_tpu_torch.ops.paged",
+    "aule_tpu_torch.ops.paged_fused", "aule_tpu_torch.ops.paged_prefill",
+    "aule_tpu_torch.ops.quant", "aule_tpu_torch.serving.kv_cache",
+    "aule_tpu_torch.models.moe", "aule_tpu_torch.models.convert",
+    "aule_tpu_torch.parallel", "aule_tpu_torch.parallel.optimizer",
+    "aule_tpu_torch.utils.checkpoint", "aule_tpu_torch.utils.tree")
+LEFT_OUT = FORBIDDEN + ("transformers", "ml_dtypes")
+
+
 def test_engine_import_leaves_jax_out():
-    code = ("import sys, aule_tpu_torch.serving.engine, "
-            "aule_tpu_torch.ops.flash, aule_tpu_torch.ops.flash_vjp, "
-            "aule_tpu_torch.ops.paged, aule_tpu_torch.ops.paged_fused, "
-            "aule_tpu_torch.ops.paged_prefill, aule_tpu_torch.ops.quant, "
-            "aule_tpu_torch.serving.kv_cache; "
-            "print(sorted(m for m in sys.modules "
-            "if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'aule_tpu')))")
+    code = (f"import sys, {', '.join(ENTRY_MODULES)}; "
+            f"print(sorted(m for m in sys.modules "
+            f"if m.split('.')[0] in {LEFT_OUT!r}))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[]"
+
+
+@pytest.mark.parametrize("module", ["models/moe.py", "models/convert.py",
+                                    "parallel/optimizer.py",
+                                    "parallel/__init__.py",
+                                    "utils/checkpoint.py", "utils/tree.py"])
+def test_new_modules_import_no_optional_packages(module):
+    """Not even inside a function: these modules never import
+    transformers or ml_dtypes."""
+    roots = set(_imported_roots(ROOT / "aule_tpu_torch" / module))
+    assert not roots & set(LEFT_OUT), sorted(roots & set(LEFT_OUT))
 
 
 def test_default_device_entry_points_raise_without_cuda():
@@ -71,3 +92,9 @@ def test_default_device_entry_points_raise_without_cuda():
         llama.load_jax_params({})
     with pytest.raises(RuntimeError):
         PagedKVCache.create(2, 64)
+    from aule_tpu_torch.models import moe
+
+    with pytest.raises(RuntimeError):
+        moe.init_params(moe.MoEConfig.tiny(), torch.Generator())
+    with pytest.raises(RuntimeError):
+        moe.load_jax_params({})
