@@ -22,8 +22,11 @@ csrc/flash_fwd.cu and csrc/flash_bwd.cu in bf16 at D 64),
 (csrc/paged_generic.cu for those types and head dims), over fused pools
 whose rows are padded from 64 to 128 lanes.  GPT-2 has no decode over
 split pools (nor has the JAX model), so the engine's `layout="split"`
-refuses it.  `mesh=` and `lora=` raise: they come with the parallel-layer
-and serving-edges slices.  Entry points run on the card by default
+refuses it.  `lora=` / `lora_idx=` put multi-LoRA adapters on the
+projections as llama's `_lora_proj` does, the engine's targets `wq`, `wk`,
+`wv` on the three slices of `w_qkv` and `wo` on `w_proj` (JAX
+l.145-158).  `mesh=` raises: it comes with the parallel-layer slice.
+Entry points run on the card by default
 (`device="cuda"`) and raise without CUDA; pass `device="cpu"` for the
 plain versions.
 """
@@ -43,7 +46,7 @@ from ..ops.paged_fused import (kv_cache_append_decode_fused,
                                kv_cache_append_prefill_fused,
                                paged_attention_fused)
 from ..ops.paged_prefill import paged_attention_prefill
-from .llama import _to_torch
+from .llama import _lora_at, _lora_proj, _to_torch
 
 Params = Dict[str, Any]
 
@@ -84,15 +87,11 @@ class GPT2Config:
         return cls(**defaults)
 
 
-def _later(mesh, lora) -> None:
+def _later(mesh) -> None:
     if mesh is not None:
         raise NotImplementedError(
             "gpt2 with mesh= is not ported yet; it comes with the "
             "parallel-layer slice")
-    if lora is not None:
-        raise NotImplementedError(
-            "gpt2 with lora= is not ported yet; it comes with the "
-            "serving-edges slice")
 
 
 def init_params(cfg: GPT2Config, generator: torch.Generator,
@@ -181,11 +180,16 @@ def _merge(x):
     return x.transpose(1, 2).reshape(b, s, h * d)
 
 
-def _qkv(layer, h, cfg):
-    """q, k, v [B, H, S, D] from the qkv-major weight."""
+_QKV = ("wq", "wk", "wv")  # the LoRA targets on w_qkv's three slices
+
+
+def _qkv(layer, h, cfg, ll=None, lora_idx=None):
+    """q, k, v [B, H, S, D] from the qkv-major weight, each slice with its
+    adapter of the layer's bank `ll`."""
     w, bias = layer["w_qkv"], layer["qkv_b"]
-    return tuple(_split(h @ w[i] + bias[i], cfg.n_heads, cfg.head_dim)
-                 for i in range(3))
+    return tuple(_split(_lora_proj(h, w[i], ll, name, lora_idx) + bias[i],
+                        cfg.n_heads, cfg.head_dim)
+                 for i, name in enumerate(_QKV))
 
 
 def _mlp(layer, x, cfg):
@@ -220,26 +224,30 @@ def forward(
     attention: Callable = flash_attention_vjp,
     mesh=None,
     lora=None,
+    lora_idx: Optional[torch.Tensor] = None,
 ):
     """Causal-LM forward: logits [B, S, V] f32, with return_kv also the
     per-layer (k, v) [B, H, S, D] for filling the decode pools.
     `attention` is the differentiable flash attention; a reference run
-    passes its plain version (ops.flash_vjp.flash_attention_vjp_plain)."""
+    passes its plain version (ops.flash_vjp.flash_attention_vjp_plain).
+    `lora` / `lora_idx` [B]: the adapters (llama.forward's)."""
     del rope_cos, rope_sin
-    _later(mesh, lora)
+    _later(mesh)
     dev = params["wte"].device
     b, s = tokens.shape
     if positions is None:
         positions = torch.arange(s, device=dev)[None].expand(b, s)
     x = _embed(params, tokens.to(dev), positions.to(dev), cfg)
     kv_out: List[Tuple[torch.Tensor, torch.Tensor]] = []
-    for layer in params["layers"]:
+    for li, layer in enumerate(params["layers"]):
+        ll = _lora_at(lora, li)
         h = layer_norm(x, layer["ln1_g"], layer["ln1_b"], cfg.norm_eps)
-        q, k, v = _qkv(layer, h, cfg)
+        q, k, v = _qkv(layer, h, cfg, ll, lora_idx)
         if return_kv:
             kv_out.append((k, v))
         attn = attention(q, k, v, causal=True)
-        x = x + _merge(attn) @ layer["w_proj"] + layer["proj_b"]
+        x = x + (_lora_proj(_merge(attn), layer["w_proj"], ll, "wo",
+                            lora_idx) + layer["proj_b"])
         x = _mlp(layer, x, cfg)
     logits = _logits(params, x, cfg)
     if return_kv:
@@ -262,6 +270,7 @@ def decode_step_fused(
     attention: Callable = paged_attention_fused,
     mesh=None,
     lora=None,
+    lora_idx: Optional[torch.Tensor] = None,
 ):
     """One decode step over fused pools (llama.decode_step_fused's
     signature): appends this token's K/V to each layer's pool (in place,
@@ -269,25 +278,28 @@ def decode_step_fused(
     attends over it with the paged decode.  Returns (logits [B, V] f32,
     kv_pages, context_lens + 1), and kv_scales fourth when quantized.
     `attention` is the paged decode; a reference run passes its plain
-    version (ops.paged_fused.paged_attention_fused_plain)."""
+    version (ops.paged_fused.paged_attention_fused_plain).  `lora` /
+    `lora_idx` [B]: the adapters (llama.forward's)."""
     del rope_cos, rope_sin
-    _later(mesh, lora)
+    _later(mesh)
     dev = params["wte"].device
     x = _embed(params, token.to(dev), positions.to(dev), cfg)
     lens_out = context_lens
     for li, layer in enumerate(params["layers"]):
+        ll = _lora_at(lora, li)
         sc = None if kv_scales is None else kv_scales[li]
         h = layer_norm(x, layer["ln1_g"], layer["ln1_b"], cfg.norm_eps)
         w, bias = layer["w_qkv"], layer["qkv_b"]
-        q, k, v = ((h @ w[i] + bias[i]).reshape(-1, cfg.n_heads,
-                                               cfg.head_dim)
-                   for i in range(3))
+        q, k, v = ((_lora_proj(h, w[i], ll, name, lora_idx)
+                    + bias[i]).reshape(-1, cfg.n_heads, cfg.head_dim)
+                   for i, name in enumerate(_QKV))
         lens_out = kv_cache_append_decode_fused(
             kv_pages[li], k, v, block_tables, context_lens,
             kv_scales=sc)[-1]
         attn = attention(q, kv_pages[li], block_tables, lens_out,
                          kv_scales=sc)
-        x = x + attn.reshape(-1, cfg.dim) @ layer["w_proj"] + layer["proj_b"]
+        x = x + (_lora_proj(attn.reshape(-1, cfg.dim), layer["w_proj"], ll,
+                            "wo", lora_idx) + layer["proj_b"])
         x = _mlp(layer, x, cfg)
     logits = _logits(params, x, cfg)
     if kv_scales is not None:
@@ -311,6 +323,7 @@ def prefill_step_fused(
     attention: Callable = paged_attention_prefill,
     mesh=None,
     lora=None,
+    lora_idx: Optional[torch.Tensor] = None,
 ):
     """One chunk of chunked prefill over the fused pools
     (llama.prefill_step_fused's signature): append the chunk's K/V (in
@@ -319,9 +332,10 @@ def prefill_step_fused(
     and kv_scales fourth when quantized.  Logits are [B, V] f32 for each
     sequence's last valid chunk token, or [B, S, V] with all_logits=True.
     `attention` is the paged prefill; a reference run passes its plain
-    version (ops.paged_prefill.paged_attention_prefill_plain)."""
+    version (ops.paged_prefill.paged_attention_prefill_plain).  `lora` /
+    `lora_idx` [B]: the adapters (llama.forward's)."""
     del rope_cos, rope_sin
-    _later(mesh, lora)
+    _later(mesh)
     _, s_chunk = tokens.shape
     dev = params["wte"].device
     q_offsets = q_offsets.to(dev)
@@ -331,15 +345,17 @@ def prefill_step_fused(
     x = _embed(params, tokens.to(dev), positions, cfg)
     lens_out = q_offsets + seq_lens
     for li, layer in enumerate(params["layers"]):
+        ll = _lora_at(lora, li)
         sc = None if kv_scales is None else kv_scales[li]
         h = layer_norm(x, layer["ln1_g"], layer["ln1_b"], cfg.norm_eps)
-        q, k, v = _qkv(layer, h, cfg)
+        q, k, v = _qkv(layer, h, cfg, ll, lora_idx)
         lens_out = kv_cache_append_prefill_fused(
             kv_pages[li], k, v, block_tables, q_offsets, seq_lens,
             kv_scales=sc)[-1]
         attn = attention(q, kv_pages[li], block_tables, lens_out,
                          q_offsets=q_offsets, kv_scales=sc, causal=True)
-        x = x + _merge(attn) @ layer["w_proj"] + layer["proj_b"]
+        x = x + (_lora_proj(_merge(attn), layer["w_proj"], ll, "wo",
+                            lora_idx) + layer["proj_b"])
         x = _mlp(layer, x, cfg)
     if not all_logits:
         # only the last valid row of each sequence is ever sampled

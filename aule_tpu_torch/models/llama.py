@@ -22,6 +22,9 @@ gate is computed in f32; logits are f32.
   All three quantize what they append when scale pools are passed, and take
   the paged attention function as an argument (default: the kernel's
   wrapper), as `forward` takes `attention`.
+  `forward`, `decode_step_fused` and `prefill_step_fused` take multi-LoRA
+  adapters (`lora=`, a stacked bank, and `lora_idx=`, each row's adapter;
+  `_lora_proj`); the split-pool `decode_step` has none, as JAX's.
 
 Entry points run on the card by default (`device="cuda"`) and raise
 without CUDA; pass `device="cpu"` for the plain versions.
@@ -185,6 +188,35 @@ def _merge_heads(x):
     return x.transpose(1, 2).reshape(b, s, h * dh)
 
 
+def _lora_proj(h: torch.Tensor, w: torch.Tensor, lora_layer, name: str,
+               idx: Optional[torch.Tensor]) -> torch.Tensor:
+    """h @ w plus a per-row low-rank delta (h A_i) B_i, row b on adapter
+    idx[b] of the stacked bank (JAX l.172-194): lora_layer[name] = (A
+    [N, d, r], B [N, r, o]) over N adapters, the alpha / r scale folded
+    into B, index 0 the all-zero base adapter.  h is [B, d] (decode) or
+    [B, S, d] (prefill).  JAX's rounding: h @ w in the model's type, the
+    delta in f32 on the gathered A_i, B_i, cast to the output's type, then
+    added."""
+    out = h @ w
+    if lora_layer is None or idx is None or name not in lora_layer:
+        return out
+    a, b = lora_layer[name]
+    idx = idx.to(a.device).long()
+    ai = a[idx].float()                    # [B, d, r]
+    bi = b[idx].float()                    # [B, r, o]
+    hf = h.float()
+    if h.dim() == 2:
+        d = torch.bmm(torch.bmm(hf[:, None], ai), bi)[:, 0]
+    else:
+        d = torch.bmm(torch.bmm(hf, ai), bi)
+    return out + d.to(out.dtype)
+
+
+def _lora_at(lora, li: int):
+    """Layer li's entry of a LoRA bank, or None without one."""
+    return None if lora is None else lora["layers"][li]
+
+
 def _mlp(x, layer, cfg):
     h = rms_norm(x, layer["mlp_norm"], cfg.norm_eps)
     gate = F.silu((h @ layer["w_gate"]).float())
@@ -201,19 +233,33 @@ def forward(
     rope_sin: Optional[torch.Tensor] = None,
     return_kv: bool = False,
     attention: Callable = flash_attention_vjp,
+    lora=None,
+    lora_idx: Optional[torch.Tensor] = None,
 ):
     """Causal-LM forward (prefill and training).  Returns logits [B, S, V]
     f32; with return_kv also the per-layer ROTATED k and unrotated v
     [B, Hkv, S, Dh] for filling the decode pools.  `attention` is the
     differentiable flash attention; a reference run passes its plain
     version (ops.flash_vjp's flash_attention_vjp_plain) to hold the kernel
-    path against it."""
+    path against it.  `lora` / `lora_idx` [B]: the adapters on wq, wk, wv
+    and wo (`_lora_proj`)."""
     return _forward(params, tokens, cfg, rope_cos, rope_sin, return_kv,
-                    attention, _mlp)
+                    attention, _mlp, lora, lora_idx)
+
+
+def _qkv(x, layer, cfg, ll, lora_idx):
+    """q [B, Hq, S, D], k and v [B, Hkv, S, D] (unrotated) of x [B, S,
+    dim], each projection with its adapter of the layer's bank `ll`."""
+    h = rms_norm(x, layer["attn_norm"], cfg.norm_eps)
+    return tuple(
+        _split_heads(_lora_proj(h, layer[name], ll, name, lora_idx), heads,
+                     cfg.head_dim)
+        for name, heads in (("wq", cfg.n_heads), ("wk", cfg.n_kv_heads),
+                            ("wv", cfg.n_kv_heads)))
 
 
 def _forward(params, tokens, cfg, rope_cos, rope_sin, return_kv: bool,
-             attention: Callable, mlp: Callable):
+             attention: Callable, mlp: Callable, lora=None, lora_idx=None):
     """`forward` with the MLP block `mlp(x, layer, cfg) -> x + MLP(x)` as
     an argument (models/moe.py passes its routed mixture)."""
     b, s = tokens.shape
@@ -223,17 +269,15 @@ def _forward(params, tokens, cfg, rope_cos, rope_sin, return_kv: bool,
             s, cfg.head_dim, cfg.rope_base, device=dev)
     x = params["embed"][tokens.to(dev)]
     kv_out: List[Tuple[torch.Tensor, torch.Tensor]] = []
-    for layer in params["layers"]:
-        h = rms_norm(x, layer["attn_norm"], cfg.norm_eps)
-        q = _split_heads(h @ layer["wq"], cfg.n_heads, cfg.head_dim)
-        k = _split_heads(h @ layer["wk"], cfg.n_kv_heads, cfg.head_dim)
-        v = _split_heads(h @ layer["wv"], cfg.n_kv_heads, cfg.head_dim)
+    for li, layer in enumerate(params["layers"]):
+        q, k, v = _qkv(x, layer, cfg, _lora_at(lora, li), lora_idx)
         q = apply_rope(q, rope_cos, rope_sin)
         k = apply_rope(k, rope_cos, rope_sin)
         if return_kv:
             kv_out.append((k, v))
         attn = attention(q, k, v, causal=True, window_size=cfg.window_size)
-        x = x + _merge_heads(attn) @ layer["wo"]
+        x = x + _lora_proj(_merge_heads(attn), layer["wo"],
+                           _lora_at(lora, li), "wo", lora_idx)
         x = mlp(x, layer, cfg)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = (x @ params["lm_head"]).float()
@@ -299,25 +343,29 @@ def _decode_window(cfg: LlamaConfig) -> int:
 
 def _decode_layers(params: Params, token, positions, cfg: LlamaConfig,
                    rope_cos, rope_sin, attend: Callable,
-                   mlp: Callable = _mlp):
+                   mlp: Callable = _mlp, lora=None, lora_idx=None):
     """The layers of one decode step around `attend(li, q, k, v) ->
     (attn [B, Hq, D], context_lens + 1)`, which appends layer li's rotated
     k and v [B, Hkv, D] and attends q [B, Hq, D] over its pool, and the MLP
-    block `mlp` (as `_forward`'s).  Returns (logits [B, V] f32,
-    context_lens + 1)."""
+    block `mlp` (as `_forward`'s), with the adapters `lora` / `lora_idx`
+    [B] on the projections.  Returns (logits [B, V] f32, context_lens +
+    1)."""
     x = params["embed"][token]
     c = rope_cos[positions][:, None, :]
     sn = rope_sin[positions][:, None, :]
     half = cfg.head_dim // 2
     lens_out = None
     for li, layer in enumerate(params["layers"]):
+        ll = _lora_at(lora, li)
         h = rms_norm(x, layer["attn_norm"], cfg.norm_eps)
-        q = (h @ layer["wq"]).reshape(-1, cfg.n_heads, cfg.head_dim)
-        k = (h @ layer["wk"]).reshape(-1, cfg.n_kv_heads, cfg.head_dim)
-        v = (h @ layer["wv"]).reshape(-1, cfg.n_kv_heads, cfg.head_dim)
+        q, k, v = (_lora_proj(h, layer[name], ll, name, lora_idx).reshape(
+            -1, heads, cfg.head_dim) for name, heads in (
+                ("wq", cfg.n_heads), ("wk", cfg.n_kv_heads),
+                ("wv", cfg.n_kv_heads)))
         attn, lens_out = attend(li, _rotate(q, c, sn, half),
                                 _rotate(k, c, sn, half), v)
-        x = x + attn.reshape(-1, cfg.n_heads * cfg.head_dim) @ layer["wo"]
+        x = x + _lora_proj(attn.reshape(-1, cfg.n_heads * cfg.head_dim),
+                           layer["wo"], ll, "wo", lora_idx)
         x = mlp(x, layer, cfg)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return (x @ params["lm_head"]).float(), lens_out
@@ -393,6 +441,8 @@ def decode_step_fused(
     kv_scales: Optional[Sequence[torch.Tensor]] = None,
     *,
     attention: Callable = paged_attention_fused,
+    lora=None,
+    lora_idx: Optional[torch.Tensor] = None,
 ):
     """One decode step: appends this token's K/V to each layer's fused pool
     (in place, quantized when per-layer packed scale pools `kv_scales` are
@@ -401,15 +451,17 @@ def decode_step_fused(
     quantized.  Stacked [L, ...] tensors work as `kv_pages` / `kv_scales`:
     their per-layer views are written in place.  `attention` is the paged
     decode; a reference run passes its plain version
-    (ops.paged_fused.paged_attention_fused_plain)."""
+    (ops.paged_fused.paged_attention_fused_plain).  `lora` / `lora_idx`
+    [B]: the adapters, as forward's."""
     return _decode_fused(params, token, positions, kv_pages, block_tables,
                          context_lens, cfg, rope_cos, rope_sin, kv_scales,
-                         attention, _mlp)
+                         attention, _mlp, lora, lora_idx)
 
 
 def _decode_fused(params, token, positions, kv_pages, block_tables,
                   context_lens, cfg, rope_cos, rope_sin, kv_scales,
-                  attention: Callable, mlp: Callable):
+                  attention: Callable, mlp: Callable, lora=None,
+                  lora_idx=None):
     """`decode_step_fused` with the MLP block as an argument (as
     `_forward`'s)."""
     window = _decode_window(cfg)
@@ -422,7 +474,8 @@ def _decode_fused(params, token, positions, kv_pages, block_tables,
                          window_size=window), lens
 
     logits, lens_out = _decode_layers(params, token, positions, cfg,
-                                      rope_cos, rope_sin, attend, mlp)
+                                      rope_cos, rope_sin, attend, mlp, lora,
+                                      lora_idx)
     if kv_scales is not None:
         return logits, kv_pages, lens_out, kv_scales
     return logits, kv_pages, lens_out
@@ -442,6 +495,8 @@ def prefill_step_fused(
     *,
     all_logits: bool = False,
     attention: Callable = paged_attention_prefill,
+    lora=None,
+    lora_idx: Optional[torch.Tensor] = None,
 ):
     """One chunk of chunked prefill over the fused pools: append the
     chunk's K/V (in place, quantized when `kv_scales` are given), then
@@ -450,15 +505,17 @@ def prefill_step_fused(
     [B, V] f32 for each sequence's last valid chunk token, or [B, S, V] for
     every position with all_logits=True.  `attention` is the paged prefill;
     a reference run passes its plain version
-    (ops.paged_prefill.paged_attention_prefill_plain)."""
+    (ops.paged_prefill.paged_attention_prefill_plain).  `lora` /
+    `lora_idx` [B]: the adapters, as forward's."""
     return _prefill_fused(params, tokens, q_offsets, seq_lens, kv_pages,
                           block_tables, cfg, rope_cos, rope_sin, kv_scales,
-                          all_logits, attention, _mlp)
+                          all_logits, attention, _mlp, lora, lora_idx)
 
 
 def _prefill_fused(params, tokens, q_offsets, seq_lens, kv_pages,
                    block_tables, cfg, rope_cos, rope_sin, kv_scales,
-                   all_logits: bool, attention: Callable, mlp: Callable):
+                   all_logits: bool, attention: Callable, mlp: Callable,
+                   lora=None, lora_idx=None):
     """`prefill_step_fused` with the MLP block as an argument (as
     `_forward`'s)."""
     _, s_chunk = tokens.shape
@@ -473,10 +530,7 @@ def _prefill_fused(params, tokens, q_offsets, seq_lens, kv_pages,
     lens_out = q_offsets + seq_lens
     for li, layer in enumerate(params["layers"]):
         sc = None if kv_scales is None else kv_scales[li]
-        h = rms_norm(x, layer["attn_norm"], cfg.norm_eps)
-        q = _split_heads(h @ layer["wq"], cfg.n_heads, cfg.head_dim)
-        k = _split_heads(h @ layer["wk"], cfg.n_kv_heads, cfg.head_dim)
-        v = _split_heads(h @ layer["wv"], cfg.n_kv_heads, cfg.head_dim)
+        q, k, v = _qkv(x, layer, cfg, _lora_at(lora, li), lora_idx)
         q = apply_rope(q, rope_cos, rope_sin, positions[:, None])
         k = apply_rope(k, rope_cos, rope_sin, positions[:, None])
         lens_out = kv_cache_append_prefill_fused(
@@ -485,7 +539,8 @@ def _prefill_fused(params, tokens, q_offsets, seq_lens, kv_pages,
         attn = attention(q, kv_pages[li], block_tables, lens_out,
                          q_offsets=q_offsets, kv_scales=sc, causal=True,
                          window_size=cfg.window_size)
-        x = x + _merge_heads(attn) @ layer["wo"]
+        x = x + _lora_proj(_merge_heads(attn), layer["wo"],
+                           _lora_at(lora, li), "wo", lora_idx)
         x = mlp(x, layer, cfg)
     if not all_logits:
         # only the last valid row of each sequence is ever sampled

@@ -22,7 +22,9 @@ experts is f32.
 The expert-parallel forms (GShard capacity dispatch over an `expert` mesh
 axis: `make_expert_parallel_mlp`, `make_expert_parallel_forward`,
 `param_specs`) come with the parallel-layer slice; `mesh=` raises here,
-naming it, and `lora=` names the LoRA slice.  ServingEngine(model=moe)
+naming it.  `lora=` / `lora_idx=` put multi-LoRA adapters on the
+attention's wq, wk, wv and wo, as llama's (JAX l.169-188).
+ServingEngine(model=moe)
 serves it over fused pools (it has no decode over split pools, nor has
 JAX's).
 """
@@ -68,13 +70,10 @@ class MoEConfig(llama.LlamaConfig):
                    n_experts=8, top_k=2)
 
 
-def _later(mesh=None, lora=None, lora_idx=None) -> None:
+def _later(mesh=None) -> None:
     if mesh is not None:
         raise NotImplementedError(
             f"moe with mesh= is not ported yet; it comes with {_PARALLEL}")
-    if lora is not None or lora_idx is not None:
-        raise NotImplementedError(
-            "moe with lora= is not ported yet; it comes with the LoRA slice")
 
 
 def init_params(cfg: MoEConfig, generator: torch.Generator,
@@ -191,13 +190,14 @@ def forward(
     """Causal-LM forward: logits [B, S, V] f32; with return_kv also the
     per-layer rotated k and unrotated v (llama.forward's), with return_aux
     also the load-balancing loss, the mean over layers of E * sum_e frac_e
-    * prob_e.  `attention` as llama.forward's."""
+    * prob_e.  `attention`, `lora` and `lora_idx` as llama.forward's."""
     del data_axis, model_axis
-    _later(mesh, lora, lora_idx)
+    _later(mesh)
     aux: list = []
     out = llama._forward(params, tokens, cfg, rope_cos, rope_sin, return_kv,
                          attention, _block(moe_mlp or _moe_mlp_dense,
-                                           aux if return_aux else None))
+                                           aux if return_aux else None),
+                         lora, lora_idx)
     if not return_aux:
         return out
     total = 0.0
@@ -249,13 +249,14 @@ def decode_step_fused(
 ):
     """One decode step over fused pools with the routed MLP: llama's
     append and paged decode (the decode kernel), then the mixture on the
-    [B, 1, dim] stream.  Returns as llama.decode_step_fused."""
+    [B, 1, dim] stream, with the adapters `lora` / `lora_idx` as llama's.
+    Returns as llama.decode_step_fused."""
     del model_axis
-    _later(mesh, lora, lora_idx)
+    _later(mesh)
     return llama._decode_fused(
         params, token, positions, kv_pages, block_tables, context_lens, cfg,
         rope_cos, rope_sin, kv_scales, attention,
-        _block(moe_mlp or _moe_mlp_dense))
+        _block(moe_mlp or _moe_mlp_dense), lora, lora_idx)
 
 
 def prefill_step_fused(
@@ -280,10 +281,11 @@ def prefill_step_fused(
 ):
     """One chunk of chunked prefill over fused pools with the routed MLP
     (llama.prefill_step_fused's append and paged prefill, the prefill
-    kernel).  Returns as llama.prefill_step_fused, all_logits included."""
+    kernel), with the adapters `lora` / `lora_idx` as llama's.  Returns as
+    llama.prefill_step_fused, all_logits included."""
     del model_axis
-    _later(mesh, lora, lora_idx)
+    _later(mesh)
     return llama._prefill_fused(
         params, tokens, q_offsets, seq_lens, kv_pages, block_tables, cfg,
         rope_cos, rope_sin, kv_scales, all_logits, attention,
-        _block(moe_mlp or _moe_mlp_dense))
+        _block(moe_mlp or _moe_mlp_dense), lora, lora_idx)

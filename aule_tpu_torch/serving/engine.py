@@ -33,17 +33,40 @@ The JAX engine pads prompts to power-of-two buckets, chunks to
 artifacts and the port runs exact shapes (the last chunk of a prompt is
 its remainder).
 
-Options of the JAX engine outside this slice raise NotImplementedError
-naming the slice that brings them; none is silently ignored.
+Per request (`submit`): temperature, top-k / top-p (one vocabulary sort,
+only while a running sampled request restricts), logprobs (the raw
+model's, a log-softmax only while a running request asks), stop
+sequences (multi-step overshoot trimmed on the host), an additive logit
+bias (a [B, V] matrix rebuilt only when the slots turn over) and a LoRA
+adapter (`lora_params=`: a stacked bank, index 0 the all-zero base; the
+per-row gathers only while a running request has an adapter).  A greedy
+batch without any of them pays none of it.  `sampler=` (a
+(logits, generator) sampler) and `sample=` (a logits -> token callable)
+replace the per-request sampling, as in JAX.
+
+`enable_prefix_cache=True` (with `prefill_chunk`) keeps full prompt pages
+content-addressed by a chained SHA-1 seeded by the request's adapter
+name (JAX engine.py:824-898, the same hashes byte for byte): a request
+whose prompt starts with cached pages reuses them (refcounted; pinned
+before any eviction) and prefills from the first uncached page; pages
+nobody holds stay resident until pool pressure evicts them, oldest
+registration first.
+
+Options of the JAX engine outside this slice (speculative decoding, the
+tensor-parallel mesh) raise NotImplementedError naming the slice that
+brings them; none is silently ignored.
 
 `save_engine_state` / `load_engine_state` checkpoint a running engine in
 the JAX package's files (JAX engine.py:1726-1855), so either package can
-resume the other's greedy requests.
+resume the other's greedy requests, with their per-request options and
+the prefix cache's maps.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
+import inspect
 import json
 import os
 import time
@@ -65,34 +88,23 @@ from ..utils.checkpoint import load_pytree, save_pytree
 from . import sampling
 from .kv_cache import PythonPageAllocator
 
-_EDGES = "the serving-edges slice"
+_SPEC = "the speculative-decoding slice"
+_PARALLEL = "the parallel-layer slice"
 
 # engine arguments of the JAX engine outside this slice: (default, slice)
 _LATER_ENGINE_ARGS = {
-    "enable_prefix_cache": (False, _EDGES),
-    "mesh": (None, "the parallel-layer slice"),
-    "model_axis": ("model", "the parallel-layer slice"),
-    "sample": (None, _EDGES),
-    "sampler": (None, _EDGES),
-    "draft_params": (None, _EDGES),
-    "draft_cfg": (None, _EDGES),
-    "draft_model": (None, _EDGES),
-    "spec_tokens": (0, _EDGES),
-    "spec_min_acceptance": (0.0, _EDGES),
-    "ngram_spec": (0, _EDGES),
-    "ngram_max": (3, _EDGES),
-    "lora_params": (None, _EDGES),
+    "mesh": (None, _PARALLEL),
+    "model_axis": ("model", _PARALLEL),
+    "draft_params": (None, _SPEC),
+    "draft_cfg": (None, _SPEC),
+    "draft_model": (None, _SPEC),
+    "spec_tokens": (0, _SPEC),
+    "spec_min_acceptance": (0.0, _SPEC),
+    "ngram_spec": (0, _SPEC),
+    "ngram_max": (3, _SPEC),
 }
-
-# submit() options of the JAX engine outside this slice
-_LATER_SUBMIT_ARGS = {
-    "top_k": (0, _EDGES),
-    "top_p": (0.0, _EDGES),
-    "logprobs": (False, _EDGES),
-    "stop": (None, _EDGES),
-    "logit_bias": (None, _EDGES),
-    "lora": (None, _EDGES),
-}
+# the projections an adapter may target (JAX engine.py:362)
+LORA_TARGETS = ("wq", "wk", "wv", "wo")
 
 
 def _refuse_later(given: Dict[str, Any], table, where: str) -> None:
@@ -106,6 +118,14 @@ def _refuse_later(given: Dict[str, Any], table, where: str) -> None:
                 f"with {later}")
 
 
+def _chosen_logprob(logits: torch.Tensor, toks: torch.Tensor
+                    ) -> torch.Tensor:
+    """log softmax(logits) at the chosen tokens, [B] f32 (JAX
+    engine.py:46-50)."""
+    lsm = torch.log_softmax(logits.float(), dim=-1)
+    return lsm.gather(-1, toks.reshape(-1, 1).long().to(lsm.device))[:, 0]
+
+
 @dataclasses.dataclass
 class Request:
     req_id: int
@@ -115,13 +135,29 @@ class Request:
     output: List[int] = dataclasses.field(default_factory=list)
     # streaming: on_token(req_id, token) for every generated token
     on_token: Optional[Callable[[int, int], None]] = None
-    # temperature 0 = greedy (the default)
+    # temperature 0 = greedy (the default); top_k 0 / top_p 0 =
+    # unrestricted; they restrict only sampled (temperature > 0) draws
     temperature: float = 0.0
+    top_k: int = 0
+    top_p: float = 0.0
     # set by ServingEngine.cancel(): retired early with a partial output
     cancelled: bool = False
+    # submit(logprobs=True): logprobs[i] is log softmax(raw logits) at
+    # output[i], before bias, temperature and restriction
+    want_logprobs: bool = False
+    logprobs: List[float] = dataclasses.field(default_factory=list)
+    # stop sequences (token ids): the request ends when its output ends
+    # with one of them (kept in the output, as eos)
+    stop: List[List[int]] = dataclasses.field(default_factory=list)
+    # {token id: additive bias} on the logits before the token is chosen
+    logit_bias: Optional[Dict[int, float]] = None
+    # the LoRA adapter's name (None = the base model)
+    lora: Optional[str] = None
 
-    def _emit(self, tok: int) -> None:
+    def _emit(self, tok: int, logp: Optional[float] = None) -> None:
         self.output.append(tok)
+        if self.want_logprobs and logp is not None:
+            self.logprobs.append(float(logp))
         if self.on_token is not None:
             self.on_token(self.req_id, tok)
 
@@ -129,12 +165,23 @@ class Request:
     def done(self) -> bool:
         if len(self.output) >= self.max_new_tokens:
             return True
-        return (bool(self.output) and self.eos_id is not None
-                and self.output[-1] == self.eos_id)
+        if (self.output and self.eos_id is not None
+                and self.output[-1] == self.eos_id):
+            return True
+        return any(len(s) <= len(self.output)
+                   and self.output[-len(s):] == s for s in self.stop)
 
 
 # the model families the engine drives (the port's own modules)
 MODEL_FAMILIES = (llama, gpt2, moe)
+
+
+def _as_tensor(x, device) -> torch.Tensor:
+    """An adapter matrix (torch, numpy or any array with __array__) on
+    `device`, in its own dtype."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device)
+    return llama._to_torch(np.asarray(x), device, None)
 
 
 class ServingEngine:
@@ -156,7 +203,17 @@ class ServingEngine:
     paged-prefill kernel (fused layout only).  Unquantized pools take the
     model's dtype (f32 for GPT-2), with D padded to 128 lanes in the fused
     layout.  A model with learned positions (GPT-2's `cfg.n_ctx`) refuses
-    max_seq_len past its table."""
+    max_seq_len past its table.
+
+    `sampler` is a (logits, generator) sampler (serving/sampling.py) drawn
+    from the engine's generator (seeded by `sample_seed`); `sample` a
+    logits -> token callable (sampling.make_engine_sampler makes one);
+    either replaces the per-request temperature / top-k / top-p.
+    `lora_params` = {name: {"layers": [{"wq": (A [d, r], B [r, o]), ...}
+    a layer]}} registers adapters on wq / wk / wv / wo (the alpha / r
+    scale folded into B; fused layout only; ranks must agree per target);
+    `submit(lora=name)` picks one.  `enable_prefix_cache` (with
+    `prefill_chunk`) turns on the prefix cache."""
 
     def __init__(
         self,
@@ -168,12 +225,16 @@ class ServingEngine:
         num_pages: int = 512,
         max_pages_per_seq: int = 64,
         max_seq_len: int = 2048,
+        sample: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
+        sampler: Optional[sampling.Sampler] = None,
         sample_seed: int = 0,
         layout: str = "fused",
         decode_steps: int = 8,
         quantized: bool = False,
         quant_dtype=torch.int8,
         prefill_chunk: Optional[int] = None,
+        enable_prefix_cache: bool = False,
+        lora_params: Optional[Dict[str, Any]] = None,
         model=None,
         device="cuda",
         **later,
@@ -189,6 +250,10 @@ class ServingEngine:
             raise ValueError(f"unknown layout {layout!r}")
         if prefill_chunk is not None and layout != "fused":
             raise ValueError("prefill_chunk requires layout='fused'")
+        if enable_prefix_cache and prefill_chunk is None:
+            raise ValueError("enable_prefix_cache requires prefill_chunk")
+        if sample is not None and sampler is not None:
+            raise ValueError("pass either sample= or sampler=, not both")
         _refuse_later(later, _LATER_ENGINE_ARGS, "ServingEngine")
         self.model = llama if model is None else model
         if not any(self.model is m for m in MODEL_FAMILIES):
@@ -218,8 +283,17 @@ class ServingEngine:
             max_seq_len, cfg.head_dim, cfg.rope_base, device=self.device)
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(sample_seed)
+        # sampler= draws from self.generator; sample= is a logits -> token
+        # callable; without either, each request's own options decide
+        self._sampler = sampler
+        self._legacy_sample = sample is not None
+        self.sample = sample or (lambda logits: torch.argmax(logits, -1))
         self.prefill_chunk = prefill_chunk
         self.layout = layout
+        self.lora = None
+        self._lora_names: Dict[str, int] = {}
+        if lora_params:
+            self._register_lora(lora_params)
         # stacked pools (and scale pools); layer li is the view [li]
         pool_dtype = quant_dtype if quantized else cfg.dtype
         self.kv_pages = self.kv_scales = None
@@ -256,6 +330,14 @@ class ServingEngine:
         self.finished: List[Request] = []
         self._next_id = 0
         self.decode_steps = max(1, int(decode_steps))
+        # prefix cache (JAX engine.py:499-512): chain hash -> page, page ->
+        # chain hash, page -> refcount (insertion order = eviction order)
+        self.enable_prefix_cache = enable_prefix_cache
+        self._prefix_cache: Dict[str, int] = {}
+        self._page_hash: Dict[int, str] = {}
+        self._page_rc: Dict[int, int] = {}
+        self.prefix_cache_hit_tokens = 0
+        self._bias_cache = None
 
         # observability counters (see stats())
         self.tokens_generated = 0
@@ -267,14 +349,74 @@ class ServingEngine:
         self.prefill_seconds = 0.0
         self.decode_seconds = 0.0
 
+    def _register_lora(self, lora_params: Dict[str, Any]) -> None:
+        """Stack the adapters into one bank (JAX engine.py:339-395): per
+        layer and target, A [N + 1, d, r] and B [N + 1, r, o] on the
+        engine's device, index 0 all zeros (the base model), an adapter
+        without that target zeros too."""
+        if "lora" not in inspect.signature(
+                self.model.decode_step_fused).parameters:
+            raise ValueError(
+                "this model family does not support LoRA serving "
+                "(models/llama.py does)")
+        if self.layout != "fused":
+            raise ValueError("multi-LoRA requires layout='fused'")
+        names = list(lora_params)
+        self._lora_names = {n: i + 1 for i, n in enumerate(names)}
+        bank = []
+        for li in range(self.cfg.n_layers):
+            keys: set = set()
+            for n in names:
+                keys |= set(lora_params[n]["layers"][li])
+            bad = keys - set(LORA_TARGETS)
+            if bad:
+                raise ValueError(
+                    f"layer {li}: unsupported LoRA targets {sorted(bad)} "
+                    f"(the model applies adapters to {sorted(LORA_TARGETS)} "
+                    f"only; registering others would silently ignore them)")
+            entry = {}
+            for key in sorted(keys):
+                pairs = [lora_params[n]["layers"][li].get(key) for n in names]
+                ref = next(p for p in pairs if p is not None)
+                ref = [_as_tensor(m, self.device) for m in ref]
+                stacks = []
+                for j in range(2):
+                    mats = [torch.zeros_like(ref[j]) if p is None
+                            else _as_tensor(p[j], self.device) for p in pairs]
+                    if len({tuple(m.shape) for m in mats}) != 1:
+                        raise ValueError(
+                            f"layer {li} {key}: adapters disagree on LoRA "
+                            f"shape; pad ranks to match before registering")
+                    stacks.append(torch.stack([torch.zeros_like(mats[0])]
+                                              + mats))
+                entry[key] = tuple(stacks)
+            bank.append(entry)
+        self.lora = {"layers": bank}
+
     # -- public API ------------------------------------------------------
 
     def submit(self, prompt, max_new_tokens: int,
                eos_id: Optional[int] = None,
                on_token: Optional[Callable[[int, int], None]] = None,
-               temperature: float = 0.0, **later) -> int:
-        _refuse_later(later, _LATER_SUBMIT_ARGS, "submit")
+               temperature: float = 0.0, top_k: int = 0, top_p: float = 0.0,
+               logprobs: bool = False, stop=None,
+               logit_bias: Optional[Dict[int, float]] = None,
+               lora: Optional[str] = None) -> int:
+        """Queue a request (JAX engine.py:545-600); returns its id."""
         prompt = np.asarray(prompt, np.int32)
+        stop = [[int(t) for t in s] for s in (stop or [])]
+        if any(not s for s in stop):
+            raise ValueError("stop sequences must be non-empty")
+        if logit_bias:
+            logit_bias = {int(k): float(v) for k, v in logit_bias.items()}
+            v = self.cfg.vocab_size
+            if any(not 0 <= t < v for t in logit_bias):
+                raise ValueError(f"logit_bias token ids must be in "
+                                 f"[0, {v})")
+        if lora is not None and lora not in self._lora_names:
+            raise ValueError(
+                f"unknown LoRA adapter {lora!r}; registered: "
+                f"{sorted(self._lora_names) or 'none'}")
         if prompt.size == 0:
             raise ValueError("empty prompt: nothing to prefill")
         # admission is all-or-nothing: a request that cannot fit its page
@@ -288,10 +430,23 @@ class ServingEngine:
                 f"max_new_tokens {max_new_tokens}) but the engine caps a "
                 f"sequence at {capacity} "
                 f"(min(max_pages_per_seq*page_size, max_seq_len))")
+        if (temperature or top_k or top_p) and (
+                self._sampler is not None or self._legacy_sample):
+            raise ValueError(
+                "per-request sampling params compose with the default "
+                "sampler only; drop sampler=/sample= or "
+                "temperature=/top_k=/top_p=")
         if temperature < 0:
             raise ValueError("temperature must be >= 0")
+        if top_p and not 0.0 < top_p <= 1.0:
+            raise ValueError("top_p must be in (0, 1] (0 disables)")
+        if top_k < 0:
+            raise ValueError("top_k must be >= 0 (0 disables)")
         req = Request(self._next_id, prompt, max_new_tokens, eos_id,
-                      on_token=on_token, temperature=float(temperature))
+                      on_token=on_token, temperature=float(temperature),
+                      top_k=int(top_k), top_p=float(top_p),
+                      want_logprobs=bool(logprobs), stop=stop,
+                      logit_bias=logit_bias or None, lora=lora)
         self._next_id += 1
         self.waiting.append(req)
         return req.req_id
@@ -325,6 +480,8 @@ class ServingEngine:
             "decode_steps": self.decode_steps_run,
             "prefill_seconds": self.prefill_seconds,
             "decode_seconds": self.decode_seconds,
+            "prefix_cache_pages": len(self._page_rc),
+            "prefix_cache_hit_tokens": self.prefix_cache_hit_tokens,
         }
 
     @property
@@ -351,23 +508,89 @@ class ServingEngine:
         if self.num_running:
             self._decode_all()
 
+    # prefix cache (JAX engine.py:824-898, 1383-1396)
+
+    def _prompt_page_hashes(self, prompt,
+                            lora: Optional[str] = None) -> List[str]:
+        """Chained SHA-1 hashes of the prompt's full pages, seeded by the
+        adapter's name: an adapter's wk / wv deltas change the pages'
+        contents for the same tokens, so its pages are never another
+        adapter's or the base model's."""
+        hashes = []
+        prev = f"lora={lora or ''}".encode()
+        for p in range(len(prompt) // self.page_size):
+            chunk = np.asarray(
+                prompt[p * self.page_size:(p + 1) * self.page_size],
+                np.int32).tobytes()
+            prev = hashlib.sha1(prev + chunk).hexdigest().encode()
+            hashes.append(prev.decode())
+        return hashes
+
+    def _prefix_hits(self, prompt, lora: Optional[str] = None):
+        """(cached pages, their hashes) of the longest cached prefix,
+        capped so that at least one prompt token still prefills."""
+        if not self.enable_prefix_cache:
+            return [], []
+        max_pages = (len(prompt) - 1) // self.page_size
+        hit_pages, hit_hashes = [], []
+        for h in self._prompt_page_hashes(prompt, lora)[:max_pages]:
+            phys = self._prefix_cache.get(h)
+            if phys is None:
+                break
+            hit_pages.append(phys)
+            hit_hashes.append(h)
+        return hit_pages, hit_hashes
+
+    def _evict_for(self, shortfall: int) -> None:
+        """Free cached pages nobody holds, oldest registration first, until
+        `shortfall` pages came back or none is left."""
+        victims = [p for p, rc in self._page_rc.items() if rc == 0]
+        for phys in victims[:max(0, shortfall)]:
+            del self._prefix_cache[self._page_hash.pop(phys)]
+            del self._page_rc[phys]
+            self.allocator.free([phys])
+
+    def _register_prompt_pages(self, slot: int, req: Request) -> None:
+        """Register the request's full prompt pages (they hold its KV now);
+        a hash already cached keeps its page, and a page this slot reused
+        is already registered."""
+        for idx, h in enumerate(self._prompt_page_hashes(req.prompt,
+                                                         req.lora)):
+            phys = self.slot_pages[slot][idx]
+            if h in self._prefix_cache or phys in self._page_rc:
+                continue
+            self._prefix_cache[h] = phys
+            self._page_hash[phys] = h
+            self._page_rc[phys] = 1
+
     def _admit(self) -> None:
         for slot in range(self.max_batch):
             if self.slots[slot] is not None or not self.waiting:
                 continue
             req = self.waiting[0]
-            need = -(-(len(req.prompt) + req.max_new_tokens)
-                     // self.page_size)
+            total = -(-(len(req.prompt) + req.max_new_tokens)
+                      // self.page_size)
+            hit_pages, _ = self._prefix_hits(req.prompt, req.lora)
+            need = total - len(hit_pages)
+            # pin the hits before evicting: eviction frees refcount-0 pages
+            # oldest first, which could be the very pages reused here
+            for phys in hit_pages:
+                self._page_rc[phys] += 1
             if need > self.allocator.num_free:
+                self._evict_for(need - self.allocator.num_free)
+            if need > self.allocator.num_free:
+                for phys in hit_pages:  # admission deferred: unpin
+                    self._page_rc[phys] -= 1
                 break  # wait for running sequences to retire
             self.waiting.pop(0)
-            pages = self.allocator.allocate(need)
+            pages = hit_pages + self.allocator.allocate(need)
             if 0 in pages:
                 raise RuntimeError("scratch page 0 was handed out")
             self.slots[slot] = req
             self.slot_pages[slot] = pages
             self.slot_lens[slot] = 0
-            self._run_prefill(slot, req)
+            self._run_prefill(slot, req,
+                              hit_len=len(hit_pages) * self.page_size)
 
     def _block_table(self) -> torch.Tensor:
         bt = np.full((self.max_batch, self.max_pages_per_seq), -1, np.int32)
@@ -375,15 +598,41 @@ class ServingEngine:
             bt[s, :len(pages)] = pages
         return torch.from_numpy(bt).to(self.device)
 
-    def _prefill(self, tokens: torch.Tensor, bt_row: torch.Tensor):
+    # LoRA rows (JAX engine.py:1440-1457, 1477-1479)
+
+    def _lora_row(self) -> Optional[torch.Tensor]:
+        """[B] bank indices of the running requests (0 = base), or None
+        when none runs on an adapter: then no gather and no low-rank
+        product runs."""
+        if self.lora is None or not any(
+                r is not None and r.lora for r in self.slots):
+            return None
+        return torch.tensor([
+            self._lora_names[r.lora] if r is not None and r.lora else 0
+            for r in self.slots], dtype=torch.int64, device=self.device)
+
+    def _lora_idx_for(self, req: Request) -> Optional[torch.Tensor]:
+        """[1] bank index of one request's prefill, or None on the base
+        model."""
+        if self.lora is None or not req.lora:
+            return None
+        return torch.tensor([self._lora_names[req.lora]], dtype=torch.int64,
+                            device=self.device)
+
+    def _lora_kw(self, lidx: Optional[torch.Tensor]) -> Dict[str, Any]:
+        return ({} if self.lora is None or lidx is None
+                else {"lora": self.lora, "lora_idx": lidx})
+
+    def _prefill(self, tokens: torch.Tensor, bt_row: torch.Tensor,
+                 lidx: Optional[torch.Tensor]):
         """Forward over one prompt [1, n] and write its K/V into the pages
         of `bt_row` (quantized when the pools are, as the JAX engine,
-        engine.py:920-944); returns the logits of the last prompt
+        engine.py:906-945); returns the logits of the last prompt
         position."""
         n = tokens.shape[1]
         logits, kv = self.model.forward(
             self.params, tokens, self.cfg, rope_cos=self.rope_cos,
-            rope_sin=self.rope_sin, return_kv=True)
+            rope_sin=self.rope_sin, return_kv=True, **self._lora_kw(lidx))
         where = (bt_row[None],
                  torch.zeros((1,), dtype=torch.int32, device=self.device),
                  torch.full((1,), n, dtype=torch.int32, device=self.device))
@@ -403,14 +652,16 @@ class ServingEngine:
         self.prefill_dispatches += 1
         return logits[0, n - 1]
 
-    def _prefill_chunked(self, tokens: torch.Tensor, bt_row: torch.Tensor):
-        """Chunks of `prefill_chunk` tokens at offsets 0, c, 2c, ... through
-        `model.prefill_step_fused` (engine.py:1329-1381); each chunk
-        appends its K/V and attends to everything before it.  Returns the
-        logits of the last prompt position."""
+    def _prefill_chunked(self, tokens: torch.Tensor, bt_row: torch.Tensor,
+                         start: int, lidx: Optional[torch.Tensor]):
+        """Chunks of `prefill_chunk` tokens at offsets start, start + c,
+        ... through `model.prefill_step_fused` (engine.py:1329-1381); each
+        chunk appends its K/V and attends to everything before it, the
+        cached prefix's pages included.  Returns the logits of the last
+        prompt position."""
         n, c = tokens.shape[1], self.prefill_chunk
         logits = None
-        for off in range(0, n, c):
+        for off in range(start, n, c):
             chunk = tokens[:, off:off + c]
             out = self.model.prefill_step_fused(
                 self.params, chunk,
@@ -418,12 +669,12 @@ class ServingEngine:
                 torch.full((1,), chunk.shape[1], dtype=torch.int32,
                            device=self.device),
                 self.kv_pages, bt_row[None], self.cfg, self.rope_cos,
-                self.rope_sin, self.kv_scales)
+                self.rope_sin, self.kv_scales, **self._lora_kw(lidx))
             logits = out[0]
             self.prefill_dispatches += 1
         return logits[0]
 
-    def _run_prefill(self, slot: int, req: Request) -> None:
+    def _run_prefill(self, slot: int, req: Request, hit_len: int = 0) -> None:
         t0 = time.perf_counter()
         n = len(req.prompt)
         tokens = torch.from_numpy(req.prompt.astype(np.int64))[None].to(
@@ -432,67 +683,153 @@ class ServingEngine:
         pages = self.slot_pages[slot]
         bt[:len(pages)] = pages
         bt_row = torch.from_numpy(bt).to(self.device)
+        lidx = self._lora_idx_for(req)
         if self.prefill_chunk is not None:
-            logits = self._prefill_chunked(tokens, bt_row)
-        else:
-            logits = self._prefill(tokens, bt_row)
+            # cached prefix pages hold their KV already: start at hit_len
+            self.prefix_cache_hit_tokens += hit_len
+            logits = self._prefill_chunked(tokens, bt_row, hit_len, lidx)
+        else:  # the cache requires chunked prefill, so nothing was hit
+            logits = self._prefill(tokens, bt_row, lidx)
         self.slot_lens[slot] = n
-        if req.temperature > 0.0:
-            tok = sampling.temperature(req.temperature)(logits,
-                                                        self.generator)
-        else:
-            tok = torch.argmax(logits, dim=-1)
-        tok = int(tok)
+        tok, logp = self._host_sample(logits, req)
         self.prefill_seconds += time.perf_counter() - t0
         self.tokens_generated += 1
-        req._emit(tok)
+        req._emit(tok, logp)
         if self.slots[slot] is not req:
             return  # cancel() from the callback already retired it
+        if self.enable_prefix_cache:
+            self._register_prompt_pages(slot, req)
         if req.done:
             self._retire(slot)
 
-    def _sample(self, logits: torch.Tensor,
-                temps: Optional[torch.Tensor]) -> torch.Tensor:
-        if temps is None:
-            return torch.argmax(logits, dim=-1)
-        return sampling.sample_rows(logits, temps, self.generator)
+    # sampling (JAX engine.py:1481-1566)
+
+    def _bias_vector(self, bias: Dict[int, float]) -> torch.Tensor:
+        vec = torch.zeros((self.cfg.vocab_size,), dtype=torch.float32)
+        vec[list(bias)] = torch.tensor(list(bias.values()),
+                                       dtype=torch.float32)
+        return vec.to(self.device)
+
+    def _bias_matrix(self) -> Optional[torch.Tensor]:
+        """[B, V] additive logit bias, or None when no running request has
+        one (then no add runs).  Rebuilt only when the (slot, request)
+        assignment changes: a request's bias never does."""
+        key = tuple((s, r.req_id) for s, r in enumerate(self.slots)
+                    if r is not None and r.logit_bias)
+        if not key:
+            return None
+        if self._bias_cache is not None and self._bias_cache[0] == key:
+            return self._bias_cache[1]
+        mat = torch.zeros((self.max_batch, self.cfg.vocab_size),
+                          dtype=torch.float32)
+        for s, r in enumerate(self.slots):
+            if r is not None and r.logit_bias:
+                mat[s, list(r.logit_bias)] = torch.tensor(
+                    list(r.logit_bias.values()), dtype=torch.float32)
+        mat = mat.to(self.device)
+        self._bias_cache = (key, mat)
+        return mat
+
+    def _sample_dev(self, logits: torch.Tensor, temps, tks, tps,
+                    bias) -> torch.Tensor:
+        """The next tokens of a decode step on the device: the bias added
+        (when some row has one), then the engine's `sampler=`, or each
+        row's temperature and top-k / top-p (temps None: every row is
+        greedy, tks / tps None: no row restricts), or `sample=` / the
+        argmax."""
+        if bias is not None:
+            logits = logits.float() + bias
+        if self._sampler is not None:
+            return self._sampler(logits, self.generator)
+        if temps is not None and not self._legacy_sample:
+            return sampling.sample_rows(logits, temps, self.generator, tks,
+                                        tps)
+        return self.sample(logits)
+
+    def _host_sample(self, logits: torch.Tensor, req: Request):
+        """The first token of a request from its prefill's last logits [V]
+        and, when it wants logprobs, the raw logits' logprob of it."""
+        raw = logits
+        if req.logit_bias:
+            logits = logits.float() + self._bias_vector(req.logit_bias)
+        if self._sampler is not None:
+            tok = self._sampler(logits, self.generator)
+        elif req.temperature > 0.0 and not self._legacy_sample:
+            dev = logits.device
+            tok = sampling.sample_rows(
+                logits[None], torch.tensor([req.temperature], device=dev),
+                self.generator,
+                torch.tensor([req.top_k], device=dev) if req.top_k else None,
+                torch.tensor([req.top_p], device=dev) if req.top_p
+                else None)[0]
+        else:
+            tok = self.sample(logits)
+        tok = int(tok)
+        logp = None
+        if req.want_logprobs:
+            logp = float(_chosen_logprob(raw[None], torch.tensor([tok]))[0])
+        return tok, logp
 
     def _decode_all(self) -> None:
         t0 = time.perf_counter()
         tokens = np.zeros((self.max_batch,), np.int64)
         remaining = []
+        running = [r for r in self.slots if r is not None]
         for s, req in enumerate(self.slots):
             if req is not None:
                 tokens[s] = req.output[-1]
                 remaining.append(req.max_new_tokens - len(req.output))
-        temps = None
-        if any(r is not None and r.temperature > 0.0 for r in self.slots):
-            temps = torch.tensor(
-                [r.temperature if r is not None else 0.0
-                 for r in self.slots], dtype=torch.float32,
-                device=self.device)
+        temps = tks = tps = None
+        if any(r.temperature > 0.0 for r in running):
+            def row(field, dtype):
+                return torch.tensor([getattr(r, field) if r is not None
+                                     else 0 for r in self.slots],
+                                    dtype=dtype, device=self.device)
+
+            temps = row("temperature", torch.float32)
+            # the vocabulary sort only while a sampled request restricts
+            sampled = [r for r in running if r.temperature > 0.0]
+            if any(r.top_k for r in sampled):
+                tks = row("top_k", torch.int64)
+            if any(r.top_p for r in sampled):
+                tps = row("top_p", torch.float32)
+        want_lp = any(r.want_logprobs for r in running)
+        bias = self._bias_matrix()
+        lkw = self._lora_kw(self._lora_row())
         k = self.decode_steps
         n_steps = (k if k > 1 and not self.waiting and remaining
                    and min(remaining) >= k else 1)
         tok = torch.from_numpy(tokens).to(self.device)
         lens = torch.from_numpy(self.slot_lens.copy()).to(self.device)
         bt = self._block_table()
-        steps = []
+        steps, lps = [], []
         for _ in range(n_steps):
             # positions are the lengths before this token
             if self.layout == "fused":
                 logits, _, new_lens, *_ = self.model.decode_step_fused(
                     self.params, tok, lens, self.kv_pages, bt, lens,
-                    self.cfg, self.rope_cos, self.rope_sin, self.kv_scales)
+                    self.cfg, self.rope_cos, self.rope_sin, self.kv_scales,
+                    **lkw)
             else:
                 logits, _, _, new_lens, *_ = self.model.decode_step(
                     self.params, tok, lens, self.k_pages, self.v_pages, bt,
                     lens, self.cfg, self.rope_cos, self.rope_sin,
                     self.k_scales, self.v_scales)
-            tok = self._sample(logits, temps)
+            tok = self._sample_dev(logits, temps, tks, tps, bias).long()
             steps.append(tok)
+            if want_lp:
+                lps.append(_chosen_logprob(logits, tok))
             lens = new_lens
-        next_np = torch.stack(steps).cpu().numpy()  # one host copy
+        # one host copy: the tokens, and the logprobs beside them (f64
+        # holds every token id and every f32 logprob exactly)
+        if want_lp:
+            both = torch.stack([torch.stack(steps).double(),
+                                torch.stack(lps).double()]).cpu().numpy()
+            next_np = both[0].astype(np.int64)
+            logp_np = both[1].astype(np.float32)
+        else:
+            next_np = torch.stack(steps).cpu().numpy()
+            logp_np = None
         self.decode_seconds += time.perf_counter() - t0
         self.decode_dispatches += 1
         self.decode_steps_run += n_steps
@@ -503,30 +840,33 @@ class ServingEngine:
                 continue
             for step in range(n_steps):
                 self.tokens_generated += 1
-                req._emit(int(next_np[step, s]))
+                req._emit(int(next_np[step, s]),
+                          None if logp_np is None else logp_np[step, s])
                 if self.slots[s] is not req:
                     break  # cancel() from the on_token callback retired it
                 if req.done:
-                    # eos overshoot: the pages hold a few tokens past eos,
-                    # but the request retires and frees them
+                    # eos or stop overshoot: the pages hold a few tokens
+                    # past it, but the request retires and frees them
                     self._retire(s)
                     break
 
     def _retire(self, slot: int) -> None:
+        """Finish the slot's request: cached pages drop a reference and
+        stay resident until evicted, private pages are freed."""
         self.finished.append(self.slots[slot])
-        self.allocator.free(self.slot_pages[slot])
+        private = []
+        for phys in self.slot_pages[slot]:
+            if phys in self._page_rc:
+                self._page_rc[phys] -= 1
+            else:
+                private.append(phys)
+        self.allocator.free(private)
         self.slots[slot] = None
         self.slot_pages[slot] = []
         self.slot_lens[slot] = 0
 
 
 # -- checkpoint / resume (JAX engine.py:1726-1855) ---------------------------
-
-# the request fields of the JAX engine's file that belong to features the
-# port's engine lacks, with the values a request that uses none of them has
-_REQUEST_LATER = {"top_k": 0, "top_p": 0.0, "want_logprobs": False,
-                  "logprobs": [], "stop": [], "logit_bias": None,
-                  "lora": None}
 
 
 def _pools_tree(eng: ServingEngine, leaf=None) -> Dict[str, Any]:
@@ -547,14 +887,12 @@ def _pools_tree(eng: ServingEngine, leaf=None) -> Dict[str, Any]:
 
 
 def save_engine_state(eng: ServingEngine, path: str) -> None:
-    """Persist the pools and the request and slot bookkeeping to
-    `<path>.pools.npz` / `.pools.tree.json` / `.state.json`, the JAX
-    engine's files; params are not saved (utils.checkpoint.save_pytree
-    them separately).  Fields of the JAX engine's features the port lacks
-    (prefix cache, speculative decoding, top-k / top-p, logprobs, stop
-    sequences, logit bias, LoRA) are written with the values an engine
-    that uses none of them writes.  The sampler's state is a
-    torch.Generator's, under a key of the port's own
+    """Persist the pools and the request, slot and prefix-cache
+    bookkeeping to `<path>.pools.npz` / `.pools.tree.json` / `.state.json`,
+    the JAX engine's files; params and adapters are not saved
+    (utils.checkpoint.save_pytree them separately).  Speculative decoding's
+    fields are written as an engine without it writes them.  The sampler's
+    state is a torch.Generator's, under a key of the port's own
     (`torch_generator_state`): JAX's `rng_key` cannot be derived from it,
     so a JAX engine resumes the port's sampled requests from its own
     seed."""
@@ -565,7 +903,10 @@ def save_engine_state(eng: ServingEngine, path: str) -> None:
             req_id=r.req_id, prompt=np.asarray(r.prompt).tolist(),
             max_new_tokens=r.max_new_tokens, eos_id=r.eos_id,
             output=list(r.output), temperature=r.temperature,
-            cancelled=r.cancelled, **_REQUEST_LATER)
+            top_k=r.top_k, top_p=r.top_p, cancelled=r.cancelled,
+            want_logprobs=r.want_logprobs, logprobs=list(r.logprobs),
+            stop=[list(s) for s in r.stop], logit_bias=r.logit_bias,
+            lora=r.lora)
 
     host = {
         "slots": [req(r) for r in eng.slots],
@@ -574,9 +915,11 @@ def save_engine_state(eng: ServingEngine, path: str) -> None:
         "waiting": [req(r) for r in eng.waiting],
         "finished": [req(r) for r in eng.finished],
         "next_id": eng._next_id,
-        "prefix_cache": {},
-        "page_rc": {},
-        "prefix_hit_tokens": 0,
+        # without the cache's maps a resumed engine would free a page
+        # another slot still reads
+        "prefix_cache": dict(eng._prefix_cache),
+        "page_rc": {str(k): v for k, v in eng._page_rc.items()},
+        "prefix_hit_tokens": eng.prefix_cache_hit_tokens,
         "free_pages": eng.allocator.free_list(),
         "slot_dlens": [0] * eng.max_batch,
         "spec_drafted": 0,
@@ -592,23 +935,19 @@ def save_engine_state(eng: ServingEngine, path: str) -> None:
 def load_engine_state(eng: ServingEngine, path: str) -> None:
     """Restore state saved by save_engine_state, of either package, into
     a freshly constructed engine of the same configuration (pools of the
-    same layout, shapes and dtypes, written in place).  A file that holds
-    a feature the port's engine lacks (a prefix-cache entry, speculative
-    decoding, a request with top-k / top-p, logprobs, stop sequences, a
-    logit bias or a LoRA adapter) raises NotImplementedError naming the
-    slice that brings it.  A JAX file carries no torch.Generator state:
-    the engine keeps its own, so greedy requests resume exactly."""
+    same layout, shapes and dtypes, written in place; the same adapters
+    registered).  A request on an adapter the engine lacks raises
+    ValueError, as JAX's; a file holding speculative-decoding state raises
+    NotImplementedError naming the slice that brings it.  A JAX file
+    carries no torch.Generator state: the engine keeps its own, so greedy
+    requests resume exactly."""
     with open(path + ".state.json") as f:
         host = json.load(f)
-    if host.get("prefix_cache") or host.get("page_rc"):
-        raise NotImplementedError(
-            f"load_engine_state: the file holds prefix-cache entries; the "
-            f"prefix cache is not ported yet, it comes with {_EDGES}")
     if (host.get("spec_drafted") or host.get("spec_accepted")
             or any(host.get("slot_dlens", []))):
         raise NotImplementedError(
             f"load_engine_state: the file holds speculative-decoding state; "
-            f"speculative decoding is not ported yet, it comes with {_EDGES}")
+            f"speculative decoding is not ported yet, it comes with {_SPEC}")
     if len(host["slots"]) != eng.max_batch:
         raise ValueError(f"the file has {len(host['slots'])} batch slots, "
                          f"the engine {eng.max_batch}")
@@ -616,18 +955,26 @@ def load_engine_state(eng: ServingEngine, path: str) -> None:
     def req(d) -> Optional[Request]:
         if d is None:
             return None
-        later = {"top_k": d.get("top_k", 0), "top_p": d.get("top_p", 0.0),
-                 "logprobs": d.get("want_logprobs", False),
-                 "stop": d.get("stop") or None,
-                 "logit_bias": d.get("logit_bias") or None,
-                 "lora": d.get("lora")}
-        _refuse_later(later, _LATER_SUBMIT_ARGS,
-                      f"load_engine_state: request {d['req_id']}")
         r = Request(d["req_id"], np.asarray(d["prompt"], np.int32),
                     d["max_new_tokens"], d["eos_id"],
                     temperature=float(d.get("temperature", 0.0)),
-                    cancelled=bool(d.get("cancelled", False)))
+                    top_k=int(d.get("top_k", 0)),
+                    top_p=float(d.get("top_p", 0.0)),
+                    cancelled=bool(d.get("cancelled", False)),
+                    want_logprobs=bool(d.get("want_logprobs", False)),
+                    stop=[[int(t) for t in s] for s in d.get("stop", [])],
+                    logit_bias=({int(k): float(v) for k, v in
+                                 d["logit_bias"].items()}
+                                if d.get("logit_bias") else None),
+                    lora=d.get("lora"))
+        if r.lora is not None and r.lora not in eng._lora_names:
+            raise ValueError(
+                f"checkpointed request {r.req_id} uses LoRA adapter "
+                f"{r.lora!r} but the engine has "
+                f"{sorted(eng._lora_names) or 'no adapters'} registered; "
+                f"resuming would decode on the wrong weights")
         r.output.extend(int(t) for t in d["output"])
+        r.logprobs.extend(float(x) for x in d.get("logprobs", []))
         return r
 
     slots = [req(d) for d in host["slots"]]
@@ -650,6 +997,13 @@ def load_engine_state(eng: ServingEngine, path: str) -> None:
     eng.waiting = waiting
     eng.finished = finished
     eng._next_id = int(host["next_id"])
+    eng._prefix_cache = {str(h): int(p) for h, p in
+                         host.get("prefix_cache", {}).items()}
+    eng._page_hash = {p: h for h, p in eng._prefix_cache.items()}
+    eng._page_rc = {int(p): int(rc) for p, rc in
+                    host.get("page_rc", {}).items()}
+    eng.prefix_cache_hit_tokens = int(host.get("prefix_hit_tokens", 0))
+    eng._bias_cache = None
     eng.allocator.set_free_list([int(p) for p in host["free_pages"]])
     if "torch_generator_state" in host:
         eng.generator.set_state(torch.tensor(host["torch_generator_state"],

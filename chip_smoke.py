@@ -97,7 +97,9 @@ Phases, each printing a line of its own:
      in bf16) serves 12 greedy requests of 7 to 1,000 prompt tokens
      through ServingEngine(model=gpt2) seven times (GPT2_RUNS: f32 whole
      and chunk 256, int8 chunk 256, fp8 whole and chunk 256, bf16 whole
-     and chunk 256), each checked as the Llama runs are (launches: the
+     and chunk 256) and once more in f32 chunk 256 with two rank-16 LoRA
+     adapters over its requests and top-k 20 on two of them, each checked
+     as the Llama runs are (launches: the
      decode 12 times a step and the chunked prefill 12 times a chunk, on
      paged_generic.cu / paged_prefill_f32.cu in f32, on paged_decode.cu /
      paged_prefill.cu in
@@ -123,8 +125,9 @@ Phases, each printing a line of its own:
   6d. moe, in a process of its own (`--moe`): Mixtral-8x7B (models/moe.py,
      MoEConfig.mixtral_8x7b(): 8 experts, top 2, full width, 16 of its 32
      layers, random bf16 weights) serves the 12 requests three times
-     (MOE_RUNS: bf16 whole-prompt, int8 chunk 512, fp8 whole-prompt), each
-     checked as the Llama runs are; then moe.loss_fn's gradients through
+     (MOE_RUNS: bf16 whole-prompt, int8 chunk 512 with two LoRA adapters
+     over its requests, fp8 whole-prompt), each checked as the Llama runs
+     are, routed as the run routed; then moe.loss_fn's gradients through
      the kernels against the plain attention path's on 2 layers;
   6e. adamw, in a process of its own (`--adamw`): AdamW
      (parallel/optimizer.py, an f32 master, clip 1.0, a warm-up schedule,
@@ -143,6 +146,18 @@ Phases, each printing a line of its own:
      back.  The bf16 runs hold every token against a teacher-forced plain
      forward; (b)-(d), (f) and (g) against a teacher-forced replay of the
      same steps with the plain attention versions;
+  7b. edges: on the same weights, two rank-16 LoRA adapters and 12
+     prompts on one shared 1,024-token prefix (adapters cycling base, a,
+     b; prefill_chunk=512) served three times: (h0) bf16, prefix cache
+     off, greedy; (h) the prefix cache on, with logprobs, stop sequences,
+     logit bias (+100 and -100), temperature 0.8 with top-k 20 and with
+     top-p 0.9 on some requests; (i) (h)'s requests over an int8 pool.
+     Each held to a teacher-forced plain forward (or, for (i), a plain-
+     attention replay) on its request's adapter and bias; sampled tokens
+     inside their restricted sets, logprobs within LOGPROB_TOL, stops,
+     bans and the cache's hits (9 x 1,024 tokens; no group reads another's
+     pages) checked; then one decode dispatch of (h)'s configuration and
+     of run (a)'s under torch.profiler (kernels a step);
   8. breakdown: one prefill step and one 8-step decode dispatch of the
      engine under torch.profiler (device busy share, kernel time by
      category) for bf16, int8 chunked, fp8 chunked and int8 split pools;
@@ -159,13 +174,13 @@ Phases, each printing a line of its own:
      launched (the engine runs, the GPT-2 runs, the Llama-3.2-3B runs for
      the group-3 modes, the train steps for the backward, the public
      phase's calls for its modes and the GPT-2 phase's split-layout
-     calls; the Mixtral runs and the AdamW steps added to the modes they
-     launch);
+     calls; the Mixtral runs, the AdamW steps and the edges runs added to
+     the modes they launch);
   11. last line: {"ok": true, "device": {...}}, printed only when every
      phase passed.  Any failure raises and the exit code is non-zero.
 
-About 12 minutes on an H100, the build included (`seconds by phase`
-in the log).
+About 13 minutes on an H100 80GB HBM3 at 700 W, the build included
+(755.6 s at PR 19; `seconds by phase` in the log).
 """
 
 from __future__ import annotations
@@ -1482,7 +1497,7 @@ def _launch_counters():
 
 
 def run_engine(params, cfg, prompts, label, model=None, engine_kw=ENGINE_KW,
-               routing=None, **kw):
+               routing=None, submit_kw=None, info=None, **kw):
     """Serve the prompts through a fresh ServingEngine (`model`: the model
     family, Llama by default); the launch counts are set to 0 just before
     the run and read just after.  Checks that every request finished, that
@@ -1500,18 +1515,32 @@ def run_engine(params, cfg, prompts, label, model=None, engine_kw=ENGINE_KW,
     its chunks on paged_generic.cu / paged_prefill_f32.cu, a bf16 one on
     paged_decode.cu and
     paged_prefill.cu at every head dim, and the other family never) and
-    that every page came back.  `routing` (a _Routing) logs where a
-    mixture of experts sent each token."""
+    that every page came back (a cached page stays resident: free and
+    cached pages together).  `routing` (a _Routing) logs where a mixture of
+    experts sent each token.  `submit_kw` gives each request's options
+    (`stop`: the request may end early; a prefix-cache hit prefills from
+    the hit); `info`, a dict, receives each request's logprobs, its cache
+    hit and prefix pages, the run's stats and the engine's LoRA bank."""
     from aule_tpu_torch.serving.engine import ServingEngine
 
     eng = ServingEngine(params, cfg, device=DEV, model=model, **engine_kw,
                         **kw)
+    submit_kw = submit_kw or [{}] * len(prompts)
+    hits = {}
+    if eng.enable_prefix_cache:
+        run_prefill = eng._run_prefill
+
+        def spy(slot, req, hit_len=0):
+            hits[req.req_id] = (hit_len, list(eng.slot_pages[slot]))
+            return run_prefill(slot, req, hit_len)
+
+        eng._run_prefill = spy
     pools = [t for t in (eng.kv_pages, eng.kv_scales, eng.k_pages,
                          eng.v_pages, eng.k_scales, eng.v_scales)
              if t is not None]
     pool_gib = sum(t.numel() * t.element_size() for t in pools) / 2**30
-    for p in prompts:
-        eng.submit(p, NEW_TOKENS)
+    for p, skw in zip(prompts, submit_kw):
+        eng.submit(p, NEW_TOKENS, **skw)
     counters = _launch_counters()
     for fn in counters.values():
         fn.launches = 0
@@ -1541,16 +1570,18 @@ def run_engine(params, cfg, prompts, label, model=None, engine_kw=ENGINE_KW,
         f"{st['decode_dispatches']} dispatches, {decode_tokens} tokens, "
         f"{decode_tokens / st['decode_seconds']:.1f} tok/s")
     log(f"engine {label}: launches {launches}")
-    if len(done) != n_req or any(len(r.output) != NEW_TOKENS for r in done):
+    if len(done) != n_req or any(
+            len(r.output) != NEW_TOKENS if not r.stop
+            else not 0 < len(r.output) <= NEW_TOKENS for r in done):
         raise AssertionError(f"{label}: not every request finished with "
-                             f"{NEW_TOKENS} tokens")
+                             f"{NEW_TOKENS} tokens (or fewer at a stop)")
     from aule_tpu_torch.ops.flash import forward_kernel
     from aule_tpu_torch.ops.paged_generic import (prefill_uses_generic,
                                                   uses_generic_kernels)
 
     layers = cfg.n_layers
-    chunked = kw.get("prefill_chunk") is not None
-    split = kw.get("layout") == "split"
+    chunked = eng.prefill_chunk is not None
+    split = eng.layout == "split"
     row = torch.empty(1, 1, 1, cfg.head_dim, dtype=cfg.dtype, device="meta")
     generic = uses_generic_kernels(row)
     decode = st["decode_steps"] * layers
@@ -1570,18 +1601,29 @@ def run_engine(params, cfg, prompts, label, model=None, engine_kw=ENGINE_KW,
         want["paged_decode_split"] = decode if split else 0
     want["paged_prefill_f32" if prefill_uses_generic(row)
          else "paged_prefill"] = prefill if chunked else 0
+    hit = [hits.get(i, (0, None))[0] for i in range(n_req)]
+    if sum(hit) != st["prefix_cache_hit_tokens"]:
+        raise AssertionError(f"{label}: cache hits {hit} against "
+                             f"{st['prefix_cache_hit_tokens']} in stats()")
     if chunked and st["prefill_dispatches"] != sum(
-            -(-n // kw["prefill_chunk"]) for n in lens):
+            -(-(n - h) // eng.prefill_chunk) for n, h in zip(lens, hit)):
         raise AssertionError(f"{label}: {st['prefill_dispatches']} prefill "
                              f"dispatches for chunks of "
-                             f"{kw['prefill_chunk']}")
+                             f"{eng.prefill_chunk}")
     if launches != want:
         raise AssertionError(f"{label}: launches {launches} != dispatches "
                              f"x {layers} layers {want}")
-    if st["free_pages"] != engine_kw["num_pages"] - 1:
+    if (st["free_pages"] + st["prefix_cache_pages"]
+            != engine_kw["num_pages"] - 1 or any(eng._page_rc.values())):
         raise AssertionError(f"{label}: pages leaked: {st['free_pages']} "
-                             f"free")
+                             f"free, {st['prefix_cache_pages']} cached")
+    if info is not None:
+        info.update(logprobs=[list(r.logprobs) for r in done], hits=hits,
+                    stats=st, lora=eng.lora)
     outputs = [list(r.output) for r in done]
+    # the spy refers to the engine: drop it, or the engine and its pools
+    # live on in a cycle until the collector runs
+    eng.__dict__.pop("_run_prefill", None)
     del eng, done
     torch.cuda.empty_cache()
     return outputs, launches
@@ -1614,6 +1656,98 @@ class _Agreement:
             f"{self.exact + self.ties} tokens: {self.exact} exact argmax, "
             f"{self.ties} near-ties (largest gap {self.gap:.4g} <= "
             f"{self.tie:.4g})")
+
+
+# A served logprob against the plain path's f32 log-softmax at the emitted
+# token: both are a difference of logits, z_t - logsumexp(z), and
+# logsumexp moves by a softmax-weighted mean of the logits' moves, so the
+# allowance for two paths' bf16 roundings is the near-tie's, which covers
+# the same roundings in the difference of two logits.
+LOGPROB_TOL = NEAR_TIE
+
+
+class _EdgeJudge:
+    """Per-request options of a served run judged against teacher-forced
+    reference logits (check_plain_forward's or check_replay's rows).  Each
+    request's spec: `lora` (its bank index; 0 the base model), `bias`
+    ({token: value} added to the rows first), `temperature` with `top_k` /
+    `top_p` (a sampled token must lie in the restricted set of the
+    reference rows, sampling.restrict_rows, within the near-tie allowance
+    of its cutoff), `logprobs` (the engine's, each within LOGPROB_TOL of the
+    reference log-softmax at the token); a greedy token is the reference
+    argmax or a near-tie (_Agreement).  `bank` is the engine's LoRA
+    bank."""
+
+    def __init__(self, label, specs, bank=None):
+        self.label, self.specs, self.bank = label, specs, bank
+        self.agree = None
+
+    def start(self, tie):
+        self.agree = _Agreement(self.label, tie)
+        self.tie, self.sampled, self.margin = tie, 0, float("inf")
+        self.lp_n, self.lp_err = 0, 0.0
+        return self
+
+    def lora_kw(self, reqs) -> dict:
+        idx = [self.specs[i].get("lora", 0) for i in reqs]
+        if self.bank is None or not any(idx):
+            return {}
+        return dict(lora=self.bank, lora_idx=torch.tensor(idx, device=DEV))
+
+    def add(self, i, rows, chosen, t0, where):
+        from aule_tpu_torch.serving import sampling
+
+        spec = self.specs[i]
+        rows = rows.float()
+        tok = torch.tensor(chosen, device=rows.device)
+        where = f"{where}, request {i}"
+        if spec.get("logprobs") is not None:
+            lp = torch.log_softmax(rows, -1).gather(1, tok[:, None])[:, 0]
+            got = torch.tensor(spec["logprobs"][t0:t0 + len(chosen)],
+                               device=rows.device)
+            err = float((lp - got).abs().max())
+            self.lp_n += len(chosen)
+            self.lp_err = max(self.lp_err, err)
+            if err > LOGPROB_TOL:
+                raise AssertionError(f"{self.label} {where}: logprob off the "
+                                     f"plain path's by {err:.4g} > "
+                                     f"{LOGPROB_TOL}")
+        if spec.get("bias"):
+            bias = torch.zeros(rows.shape[-1], device=rows.device)
+            bias[list(spec["bias"])] = torch.tensor(
+                list(spec["bias"].values()), device=rows.device)
+            rows = rows + bias
+        t = spec.get("temperature", 0.0)
+        if not t:
+            self.agree.add(rows, tok, where)
+            return
+        n = rows.shape[0]
+        kept = sampling.restrict_rows(
+            rows / t, torch.full((n,), spec.get("top_k", 0), device=DEV)
+            if spec.get("top_k") else None,
+            torch.full((n,), spec.get("top_p", 0.0), device=DEV)
+            if spec.get("top_p") else None)
+        cut = kept.masked_fill(~torch.isfinite(kept), float("inf")).min(
+            -1).values * t
+        margin = rows.gather(1, tok[:, None])[:, 0] - cut
+        self.sampled += n
+        self.margin = min(self.margin, float(margin.min()))
+        if bool((margin < -self.tie).any()):
+            raise AssertionError(
+                f"{self.label} {where}: a sampled token lies "
+                f"{-float(margin.min()):.4f} below its restricted set's "
+                f"cutoff, over the near-tie allowance {self.tie}")
+
+    def report(self, what):
+        self.agree.report(what)
+        if self.sampled:
+            log(f"engine {self.label}: {self.sampled} sampled tokens inside "
+                f"their top-k / top-p sets (smallest margin above the "
+                f"cutoff {self.margin:.4g}, allowance -{self.tie:.4g})")
+        if self.lp_n:
+            log(f"engine {self.label}: {self.lp_n} logprobs within "
+                f"{self.lp_err:.4g} of the reference log-softmax (allowance "
+                f"{LOGPROB_TOL})")
 
 
 def _top(logits, k):
@@ -1672,9 +1806,9 @@ class _Routing:
         run_prefill, decode_all = eng._run_prefill, eng._decode_all
         at = dict(req=None, offset=0, calls=0, slots=(), lens=())
 
-        def prefill(slot, req):
-            at.update(req=req.req_id, offset=0, calls=0)
-            return run_prefill(slot, req)
+        def prefill(slot, req, hit_len=0):
+            at.update(req=req.req_id, offset=hit_len, calls=0)
+            return run_prefill(slot, req, hit_len)
 
         def decode():
             at.update(req=None, calls=0, lens=eng.slot_lens.copy(),
@@ -1760,27 +1894,34 @@ class _Routing:
 
 
 def check_plain_forward(params, cfg, prompts, outputs, label, model=None,
-                        tie=NEAR_TIE, routing=None):
+                        tie=NEAR_TIE, routing=None, edges=None):
     """Teacher-forced plain forward (flash's plain version) over prompt +
     output: the check of the unquantized runs (`model`: Llama unless
     given; a mixture of experts routed as the run was by `routing`, a
-    detached _Routing)."""
+    detached _Routing; per-request options judged by `edges`, an
+    _EdgeJudge, which also gives each request its adapter)."""
     from aule_tpu_torch.models import llama
     from aule_tpu_torch.ops.flash_vjp import flash_attention_vjp_plain
 
     model = model or llama
-    agree = _Agreement(label, tie)
+    agree = _Agreement(label, tie) if edges is None else edges.start(tie)
     with torch.no_grad():
         for i, (p, out) in enumerate(zip(prompts, outputs)):
             seq = np.concatenate([p, np.asarray(out[:-1], np.int32)])
             tokens = torch.from_numpy(seq.astype(np.int64))[None].to(DEV)
             kw = {} if routing is None else dict(moe_mlp=routing.pin(
                 [(i, pos) for pos in range(len(seq))]))
+            if edges is not None:
+                kw.update(edges.lora_kw([i]))
             logits = model.forward(params, tokens, cfg,
                                    attention=flash_attention_vjp_plain,
                                    **kw)[0]
-            agree.add(logits[len(p) - 1:], torch.tensor(out, device=DEV),
-                      f"request {i} (prompt {len(p)})")
+            where = f"request {i} (prompt {len(p)})"
+            if edges is None:
+                agree.add(logits[len(p) - 1:], torch.tensor(out, device=DEV),
+                          where)
+            else:
+                edges.add(i, logits[len(p) - 1:], out, 0, where)
             del logits
     agree.report("teacher-forced plain forward" + (
         "" if routing is None else
@@ -1790,7 +1931,7 @@ def check_plain_forward(params, cfg, prompts, outputs, label, model=None,
 
 def check_replay(params, cfg, prompts, outputs, label, quant_dtype, chunk,
                  layout="fused", model=None, engine_kw=ENGINE_KW,
-                 tie=NEAR_TIE, routing=None):
+                 tie=NEAR_TIE, routing=None, edges=None):
     """Teacher-forced replay of a quantized run's steps with the plain
     attention versions: each prompt is prefilled alone into fresh pools of
     the run's layout written the same way (chunked through
@@ -1799,7 +1940,8 @@ def check_replay(params, cfg, prompts, outputs, label, quant_dtype, chunk,
     pools, decode_step, fed the engine's tokens (`model`: Llama unless
     given; `engine_kw`: the run's engine settings; `tie`: the near-tie
     allowance; a mixture of experts routed as the run was by `routing`, a
-    detached _Routing)."""
+    detached _Routing; per-request options, adapters and lengths judged by
+    `edges`, an _EdgeJudge)."""
     from aule_tpu_torch.models import llama
     from aule_tpu_torch.ops import paged
     from aule_tpu_torch.ops.flash_vjp import flash_attention_vjp_plain
@@ -1840,8 +1982,23 @@ def check_replay(params, cfg, prompts, outputs, label, quant_dtype, chunk,
     bt = torch.from_numpy(bt_np).to(dev)
     cos, sin = precompute_rope_frequencies(
         engine_kw["max_seq_len"], cfg.head_dim, cfg.rope_base, device=dev)
-    out_t = torch.tensor(outputs, device=dev)          # [R, NEW_TOKENS]
-    agree = _Agreement(label, tie)
+    # [R, NEW_TOKENS]; a request that stopped early is padded with 0s past
+    # its end, which feed its row but are never judged
+    out_t = torch.tensor([list(o) + [0] * (NEW_TOKENS - len(o))
+                          for o in outputs], device=dev)
+    agree = _Agreement(label, tie) if edges is None else edges.start(tie)
+
+    def judge(rows, t, reqs, where):
+        """Rows of requests `reqs` that chose their output[t]."""
+        if edges is None:
+            agree.add(rows, out_t[:, t] if t else out_t[reqs[0], :1], where)
+            return
+        for j, i in enumerate(reqs):
+            if t < len(outputs[i]):
+                edges.add(i, rows[j:j + 1], [outputs[i][t]], t, where)
+
+    def lora(reqs):
+        return {} if edges is None else edges.lora_kw(reqs)
 
     def pinned(rows):
         return {} if routing is None else dict(moe_mlp=routing.pin(rows))
@@ -1861,12 +2018,13 @@ def check_replay(params, cfg, prompts, outputs, label, quant_dtype, chunk,
                         pools[0], bt[i:i + 1], cfg, cos, sin, pools[1],
                         attention=paged_attention_prefill_plain,
                         **pinned([(i, off + j)
-                                  for j in range(part.shape[1])]))[0][0]
+                                  for j in range(part.shape[1])]),
+                        **lora([i]))[0][0]
             else:
                 full, kv = model.forward(
                     params, tokens, cfg, rope_cos=cos, rope_sin=sin,
                     return_kv=True, attention=flash_attention_vjp_plain,
-                    **pinned([(i, j) for j in range(n)]))
+                    **pinned([(i, j) for j in range(n)]), **lora([i]))
                 where = (bt[i:i + 1], one(0), one(n))
                 for li, (k, v) in enumerate(kv):
                     if layout == "fused":
@@ -1878,22 +2036,24 @@ def check_replay(params, cfg, prompts, outputs, label, quant_dtype, chunk,
                             *(t[li] for t in pools), k, v, *where)
                 logits = full[0, n - 1]
                 del full, kv
-            agree.add(logits[None], out_t[i, :1], f"request {i} prefill")
+            judge(logits[None], 0, [i], f"request {i} prefill")
         lens = torch.tensor([len(p) for p in prompts], dtype=torch.int32,
                             device=dev)
-        for t in range(NEW_TOKENS - 1):
+        everyone = list(range(len(prompts)))
+        for t in range(max(len(o) for o in outputs) - 1):
             if layout == "fused":
                 logits = model.decode_step_fused(
                     params, out_t[:, t], lens, pools[0], bt, lens, cfg, cos,
                     sin, pools[1], attention=paged_attention_fused_plain,
                     **pinned([(i, len(p) + t)
-                              for i, p in enumerate(prompts)]))[0]
+                              for i, p in enumerate(prompts)]),
+                    **lora(everyone))[0]
             else:
                 logits = model.decode_step(
                     params, out_t[:, t], lens, *pools[:2], bt, lens, cfg,
                     cos, sin, *pools[2:],
                     attention=paged.paged_attention_plain)[0]
-            agree.add(logits, out_t[:, t + 1], f"decode step {t}")
+            judge(logits, t + 1, everyone, f"decode step {t}")
             lens = lens + 1
     agree.report("teacher-forced replay with the plain attention versions"
                  + ("" if routing is None else
@@ -1964,6 +2124,243 @@ def phase_engine():
             f"{len(prompts) * NEW_TOKENS} tokens equal the fused bf16 "
             f"whole-prompt run's (for information)")
     return runs, params, cfg
+
+
+# The edges phase: the per-request serving options over one base model.
+# 12 prompts, each one shared 1,024-token prefix (64 pages, exactly two
+# chunks of CHUNK, so a cached prefix ends on a chunk boundary) and a tail
+# of its own; adapters cycle base, a, b over them.
+EDGE_PREFIX = 1024
+EDGE_TAILS = [7, 64, 129, 300, 511, 700, 1000, 33, 250, 450, 800, 999]
+EDGE_GROUPS = (None, "a", "b")
+EDGE_KW = dict(ENGINE_KW, prefill_chunk=CHUNK)
+EDGE_RANK = 16
+# B's entries are N(0, EDGE_B_STD^2) (the alpha / r scale folded in) over A
+# N(0, 1 / d_in): each delta element is then N(0, r * EDGE_B_STD^2) =
+# N(0, 0.25) against a base projection element N(0, 1), a shift the
+# logits show (logged)
+EDGE_B_STD = 0.125
+EDGE_BIAS_TOKEN = 4242   # the +100 request's token
+EDGE_TEMP = 0.8
+EDGE_SEED = SEED + 19    # the adapters' generator
+
+
+def edge_adapters(cfg, seed=EDGE_SEED) -> dict:
+    """Adapters `a` and `b`, rank EDGE_RANK on wq / wk / wv / wo of every
+    layer of `cfg` (f32 on the card; A N(0, 1 / d_in), B N(0,
+    EDGE_B_STD^2)), from a generator seeded with `seed`."""
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(seed)
+    q = cfg.n_heads * cfg.head_dim
+    kv = cfg.n_kv_heads * cfg.head_dim
+    dims = {"wq": (cfg.dim, q), "wk": (cfg.dim, kv), "wv": (cfg.dim, kv),
+            "wo": (q, cfg.dim)}
+
+    def mat(shape, std):
+        return torch.randn(shape, generator=gen, device=DEV).mul_(std)
+
+    return {name: {"layers": [
+        {t: (mat((i, EDGE_RANK), 1.0 / math.sqrt(i)),
+             mat((EDGE_RANK, o), EDGE_B_STD)) for t, (i, o) in dims.items()}
+        for _ in range(cfg.n_layers)]} for name in ("a", "b")}
+
+
+def edge_specs(submit_kw, info) -> list:
+    """Each request's _EdgeJudge spec from its submit options and the run's
+    logprobs (bank index: a 1, b 2, in edge_adapters' order)."""
+    return [dict(lora={None: 0, "a": 1, "b": 2}[kw.get("lora")],
+                 bias=kw.get("logit_bias"),
+                 temperature=kw.get("temperature", 0.0),
+                 top_k=kw.get("top_k", 0), top_p=kw.get("top_p", 0.0),
+                 logprobs=info["logprobs"][i] if kw.get("logprobs")
+                 else None) for i, kw in enumerate(submit_kw)]
+
+
+def _edge_requests(out0) -> list:
+    """Run (h)'s per-request options from run (h0)'s greedy outputs: the
+    adapters as in (h0); logprobs on requests 0, 1 and 5; a stop sequence
+    on 2 and 7 (their (h0) tokens 10-11); +100 on EDGE_BIAS_TOKEN for 3,
+    -100 on its (h0) first token for 4; temperature EDGE_TEMP with top_k
+    20 on 5 and with top_p 0.9 on 6; the rest plain greedy."""
+    reqs = [dict(lora=EDGE_GROUPS[i % 3]) for i in range(len(out0))]
+    for i in (0, 1, 5):
+        reqs[i]["logprobs"] = True
+    for i in (2, 7):
+        reqs[i]["stop"] = [out0[i][10:12]]
+    reqs[3]["logit_bias"] = {EDGE_BIAS_TOKEN: 100.0}
+    reqs[4]["logit_bias"] = {out0[4][0]: -100.0}
+    reqs[5].update(temperature=EDGE_TEMP, top_k=20)
+    reqs[6].update(temperature=EDGE_TEMP, top_p=0.9)
+    return reqs
+
+
+def _check_edge_outputs(label, outs, reqs, info, must_stop):
+    """What each option promises of the tokens: a stopped request ends with
+    its stop sequence at its first occurrence (and run (h)'s do stop,
+    short of NEW_TOKENS), the +100 request emits only its token, the -100
+    one never its banned token; each adapter group's first request
+    registers the prefix and the other nine reuse it (hits 9 x
+    EDGE_PREFIX), and no request reads another group's prefix pages."""
+    for i, (out, kw) in enumerate(zip(outs, reqs)):
+        for seq in kw.get("stop", []):
+            n = len(seq)
+            at = next((j for j in range(len(out) - n + 1)
+                       if out[j:j + n] == seq), None)
+            if at is not None and at + n != len(out):
+                raise AssertionError(f"{label}: request {i} ran past its "
+                                     f"stop sequence at {at}")
+            if must_stop and (at is None or len(out) >= NEW_TOKENS):
+                raise AssertionError(f"{label}: request {i} did not stop at "
+                                     f"{seq}: {out}")
+        for tok, val in (kw.get("logit_bias") or {}).items():
+            if val > 0 and set(out) != {tok}:
+                raise AssertionError(f"{label}: request {i} emitted other "
+                                     f"tokens than its +{val} token {tok}")
+            if val < 0 and tok in out:
+                raise AssertionError(f"{label}: request {i} emitted its "
+                                     f"banned token {tok}")
+    pages = {}
+    for rid, (hit, got) in sorted(info["hits"].items()):
+        group = reqs[rid].get("lora")
+        first = group not in pages
+        if hit != (0 if first else EDGE_PREFIX):
+            raise AssertionError(f"{label}: request {rid} hit {hit} cached "
+                                 f"tokens")
+        prefix = tuple(got[:EDGE_PREFIX // EDGE_KW["page_size"]])
+        if pages.setdefault(group, prefix) != prefix:
+            raise AssertionError(f"{label}: request {rid} read other prefix "
+                                 f"pages than its group's first request")
+    seen = [set(p) for p in pages.values()]
+    if any(a & b for j, a in enumerate(seen) for b in seen[j + 1:]):
+        raise AssertionError(f"{label}: two adapter groups share prefix "
+                             f"pages")
+    hits = info["stats"]["prefix_cache_hit_tokens"]
+    if hits != 9 * EDGE_PREFIX:
+        raise AssertionError(f"{label}: {hits} cached tokens hit, not "
+                             f"{9 * EDGE_PREFIX}")
+
+
+def _edge_breakdown(params, cfg, prompts, reqs, adapters) -> dict:
+    """One 8-step decode dispatch at B8 under torch.profiler in run (h)'s
+    configuration (the first 8 requests with their options and adapters,
+    the prefix cache on) and in run (a)'s (the same prompts, bf16 chunk
+    512, no option): the kernels a step each launches."""
+    from aule_tpu_torch.serving.engine import ServingEngine
+    from aule_tpu_torch.utils import profiling
+
+    res = {}
+    for key, kw, rk in (
+            ("a", {}, [{}] * 8),
+            ("h", dict(enable_prefix_cache=True, lora_params=adapters),
+             reqs[:8])):
+        eng = ServingEngine(params, cfg, device=DEV, **EDGE_KW, **kw)
+        for p, r in zip(prompts[:8], rk):
+            eng.submit(p, 17, **r)
+        eng.step()  # admits and prefills all 8, then a first dispatch
+        bd = profiling.device_breakdown(eng.step, CATEGORIES)
+        _log_breakdown(f"edges decode B8, 8 steps (one dispatch), run "
+                       f"({key})'s configuration", bd)
+        res[key] = dict(wall_ms=bd["wall_ms"], busy_ms=bd["busy_ms"],
+                        kernels=bd["kernels"],
+                        kernels_per_step=bd["kernels"] / 8)
+        eng.run()
+        del eng
+        torch.cuda.empty_cache()
+    h, a = res["h"]["kernels_per_step"], res["a"]["kernels_per_step"]
+    log(f"edges: kernels a decode step {h:.1f} in run (h)'s configuration "
+        f"against {a:.1f} in run (a)'s: the edges add {h - a:.1f}")
+    return res
+
+
+def phase_edges(params, cfg) -> dict:
+    """The serving edges on the engine phase's Llama-3-8B weights: two
+    rank-16 adapters (edge_adapters) and 12 prompts on one shared 1,024-token
+    prefix, adapters cycling base / a / b, EDGE_KW (prefill_chunk 512),
+    NEW_TOKENS each, served three times: (h0) bf16, prefix cache off, all
+    greedy, held to a teacher-forced plain forward with each request's
+    adapter; (h) the same requests with the prefix cache on and the
+    per-request options of _edge_requests, held to the plain forward with
+    adapters and biases, sampled tokens inside their restricted sets,
+    logprobs within LOGPROB_TOL, stops, bans and cache hits checked; (i)
+    run (h)'s requests over an int8 pool, held to a teacher-forced replay
+    with the plain attention versions the same way.  Then one decode
+    dispatch of (h)'s configuration under torch.profiler beside run (a)'s.
+    Returns each run's launches and numbers."""
+    from aule_tpu_torch.models import llama
+    from aule_tpu_torch.ops.flash_vjp import flash_attention_vjp_plain
+
+    t0 = time.perf_counter()
+    adapters = edge_adapters(cfg)
+    rng = np.random.default_rng(EDGE_SEED)
+    prefix = rng.integers(0, cfg.vocab_size, size=EDGE_PREFIX)
+    prompts = [np.concatenate([prefix, rng.integers(
+        0, cfg.vocab_size, size=n)]).astype(np.int32) for n in EDGE_TAILS]
+    groups = [dict(lora=EDGE_GROUPS[i % 3]) for i in range(len(prompts))]
+    res = {"runs": {}, "stats": {}}
+    info0 = {}
+    out0, res["runs"]["h0"] = run_engine(
+        params, cfg, prompts, "(h0) bf16 chunk 512, LoRA, cache off",
+        engine_kw=EDGE_KW, lora_params=adapters, submit_kw=groups,
+        info=info0)
+    res["stats"]["h0"] = info0["stats"]
+    bank = info0["lora"]
+    check_plain_forward(params, cfg, prompts, out0, "(h0)", edges=_EdgeJudge(
+        "(h0)", edge_specs(groups, info0), bank))
+    # the adapter's effect: request 1 (adapter a) on the plain path, with
+    # and without it, at its last prompt position
+    with torch.no_grad():
+        tokens = torch.from_numpy(prompts[1].astype(np.int64))[None].to(DEV)
+        lo = [llama.forward(params, tokens, cfg,
+                            attention=flash_attention_vjp_plain, **kw)[0, -1]
+              for kw in ({}, dict(lora=bank,
+                                  lora_idx=torch.tensor([1], device=DEV)))]
+    shift = res["adapter_logit_shift"] = dict(
+        max_abs=float((lo[1] - lo[0]).abs().max()),
+        base_max_abs=float(lo[0].abs().max()),
+        argmax_moved=bool(lo[0].argmax() != lo[1].argmax()))
+    log(f"edges: adapter a moves request 1's last-position logits by up to "
+        f"{shift['max_abs']:.3f} (base logits up to "
+        f"{shift['base_max_abs']:.3f}; argmax moved: "
+        f"{shift['argmax_moved']})")
+
+    reqs = _edge_requests(out0)
+    for key, label, kw in (
+            ("h", "(h) bf16 chunk 512, LoRA, cache on, options", {}),
+            ("i", "(i) int8 chunk 512, LoRA, cache on, options",
+             dict(quantized=True))):
+        info = {}
+        out, res["runs"][key] = run_engine(
+            params, cfg, prompts, label, engine_kw=EDGE_KW,
+            lora_params=adapters, submit_kw=reqs, info=info,
+            enable_prefix_cache=True, **kw)
+        res["stats"][key] = info["stats"]
+        judge = _EdgeJudge(f"({key})", edge_specs(reqs, info), info["lora"])
+        if key == "h":
+            check_plain_forward(params, cfg, prompts, out, f"({key})",
+                                edges=judge)
+        else:
+            check_replay(params, cfg, prompts, out, f"({key})", torch.int8,
+                         CHUNK, engine_kw=EDGE_KW, edges=judge)
+        _check_edge_outputs(f"({key})", out, reqs, info, key == "h")
+        greedy = [i for i, r in enumerate(reqs)
+                  if not r.get("temperature") and not r.get("logit_bias")]
+        same = sum(x == y for i in greedy for x, y in zip(out[i], out0[i]))
+        total = sum(min(len(out[i]), len(out0[i])) for i in greedy)
+        log(f"engine ({key}): {same} of {total} tokens of its greedy "
+            f"unbiased requests equal run (h0)'s (for information)")
+    saved = res["stats"]["h0"]["prefill_seconds"] - res["stats"]["h"][
+        "prefill_seconds"]
+    log(f"edges: the prefix cache skipped {9 * EDGE_PREFIX} of "
+        f"{sum(len(p) for p in prompts)} prompt tokens; prefill "
+        f"{res['stats']['h0']['prefill_seconds']:.3f} s in (h0), "
+        f"{res['stats']['h']['prefill_seconds']:.3f} s in (h): {saved:.3f} s "
+        f"saved")
+    res["prefill_seconds_saved"] = saved
+    res["breakdown"] = _edge_breakdown(params, cfg, prompts, reqs, adapters)
+    log(f"edges: {time.perf_counter() - t0:.1f} s; {card_line()}")
+    del adapters, bank
+    torch.cuda.empty_cache()
+    return res
 
 
 def _same(outs, ref) -> int:
@@ -3573,7 +3970,9 @@ def _gpt2_serving(res):
     layers of 12 heads, D64; random f32 weights from a seeded generator on
     the card, and the same cast to bf16) serves 12 greedy requests of 7 to
     1,000 prompt tokens, 24 new tokens each, through
-    ServingEngine(model=gpt2) in every run of GPT2_RUNS, each checked by
+    ServingEngine(model=gpt2) in every run of GPT2_RUNS and in an f32
+    chunk-256 run with two LoRA adapters (base / a / b over the requests)
+    and top-k 20 at EDGE_TEMP on two, each checked by
     run_engine (launches: the paged decode 12 times a step and the prefill
     12 times a chunk, paged_generic.cu's / paged_prefill_f32.cu's in f32,
     paged_decode.cu's and
@@ -3620,6 +4019,22 @@ def _gpt2_serving(res):
                          if "quant_dtype" in kw else torch.int8,
                          kw.get("prefill_chunk"), model=gpt2,
                          engine_kw=GPT2_ENGINE_KW, tie=tie)
+    # f32 chunk 256 with two rank-16 adapters cycling base / a / b over the
+    # requests and top-k 20 at EDGE_TEMP on two of them: paged_generic.cuh
+    # and paged_prefill_f32.cu under LoRA
+    label = "GPT-2 f32 chunk 256, LoRA + top-k"
+    reqs = [dict(lora=EDGE_GROUPS[i % 3]) for i in range(len(prompts))]
+    for i in (4, 9):
+        reqs[i].update(temperature=EDGE_TEMP, top_k=20)
+    info = {}
+    out, res["runs"]["f32 lora"] = run_engine(
+        params, cfg, prompts, label, model=gpt2, engine_kw=GPT2_ENGINE_KW,
+        prefill_chunk=GPT2_CHUNK, lora_params=edge_adapters(cfg),
+        submit_kw=reqs, info=info)
+    check_plain_forward(params, cfg, prompts, out, label, model=gpt2,
+                        tie=GPT2_F32_NEAR_TIE, edges=_EdgeJudge(
+                            label, edge_specs(reqs, info), info["lora"]))
+    del info
     kw = GPT2_ENGINE_KW
     eng = ServingEngine(params, cfg, model=gpt2, device=DEV, **kw)
     rng = np.random.default_rng(SEED + 1)
@@ -3784,27 +4199,38 @@ def _gqa_prefill_times(res):
 
 
 def _serve(params, cfg, prompts, runs, res, engine_kw=ENGINE_KW,
-           model=None):
+           model=None, lora_run=None):
     """Serve the prompts once per run of `runs` ((key, label, engine
     options, quantized payload dtype or None)) of `model` (Llama unless
     given), each checked by run_engine and held to a teacher-forced plain
     forward (unquantized) or a plain-attention replay (quantized); a
     mixture of experts (`n_experts` in cfg) routed in the check as the run
-    routed (_Routing)."""
+    routed (_Routing).  The run keyed `lora_run` registers edge_adapters'
+    two adapters and cycles base / a / b over its requests; its check runs
+    each request on its adapter."""
     for key, label, kw, qdt in runs:
         routing = (_Routing(cfg.n_layers) if hasattr(cfg, "n_experts")
                    else None)
+        more, info, reqs = {}, {}, None
+        if key == lora_run:
+            reqs = [dict(lora=EDGE_GROUPS[i % 3])
+                    for i in range(len(prompts))]
+            more = dict(lora_params=edge_adapters(cfg), submit_kw=reqs,
+                        info=info)
         out, res["runs"][key] = run_engine(params, cfg, prompts, label,
                                            model=model, engine_kw=engine_kw,
-                                           routing=routing, **kw)
+                                           routing=routing, **more, **kw)
+        edges = (None if reqs is None else
+                 _EdgeJudge(label, edge_specs(reqs, info), info["lora"]))
         if qdt is None:
             check_plain_forward(params, cfg, prompts, out, label,
-                                model=model, routing=routing)
+                                model=model, routing=routing, edges=edges)
         else:
             check_replay(params, cfg, prompts, out, label, qdt,
                          kw.get("prefill_chunk"),
                          layout=kw.get("layout", "fused"), model=model,
-                         engine_kw=engine_kw, routing=routing)
+                         engine_kw=engine_kw, routing=routing, edges=edges)
+        del more, info
 
 
 def check_llama32() -> dict:
@@ -4008,12 +4434,13 @@ MIXTRAL_LAYERS = 16
 # decodes through the fused decode (group 4, D128, as Llama-3-8B's).
 MOE_RUNS = [
     ("whole bf16", "Mixtral bf16 whole-prompt", {}, None),
-    ("b", "Mixtral (b) int8 chunk 512",
+    ("b", "Mixtral (b) int8 chunk 512, LoRA",
      dict(quantized=True, prefill_chunk=CHUNK), torch.int8),
     ("c", "Mixtral (c) fp8 whole-prompt",
      dict(quantized=True, quant_dtype=torch.float8_e4m3fn),
      torch.float8_e4m3fn),
 ]
+MOE_LORA_RUN = "b"  # carries edge_adapters' two adapters (base / a / b)
 MOE_GRAD_S = 1024  # the 2-layer gradient check's tokens (B1 x 1025)
 
 
@@ -4024,7 +4451,9 @@ def check_moe() -> dict:
     every run of MOE_RUNS (each checked by run_engine: the fused decode 16
     times a step, the paged prefill 16 times a chunk, the flash forward 16
     times a whole prompt, every page back; tokens held to a teacher-forced
-    plain forward or a plain-attention replay, routed as the run routed),
+    plain forward or a plain-attention replay, routed as the run routed;
+    run MOE_LORA_RUN on edge_adapters' two adapters, base / a / b over its
+    requests, checked on each request's adapter),
     then moe.loss_fn's gradients through the kernels against the plain
     attention path's on the weights cut to 2 layers, both passes routed
     alike (check_grads, GRAD_TOL).  Returns each run's launches."""
@@ -4052,7 +4481,8 @@ def check_moe() -> dict:
     prompts = [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32)
                for n in PROMPT_LENS]
     res = {"runs": {}}
-    _serve(params, cfg, prompts, MOE_RUNS, res, model=moe)
+    _serve(params, cfg, prompts, MOE_RUNS, res, model=moe,
+           lora_run=MOE_LORA_RUN)
     tokens = torch.from_numpy(rng.integers(
         0, cfg.vocab_size, size=(1, MOE_GRAD_S + 1))).to(DEV)
     check_grads(params, cfg, tokens, model=moe, label="moe")
@@ -4358,7 +4788,8 @@ def gpt2_entries(gpt2: dict) -> list:
     entries = []
     for name, kind, mode, keys, pool in (
             ("paged_generic_decode_f32", "decode", "f32", ("f32",
-                                                           "f32 chunk"),
+                                                           "f32 chunk",
+                                                           "f32 lora"),
              "f32 pools"),
             ("paged_generic_decode_int8", "decode", "int8 dot",
              ("int8 chunk",), "int8 pools, bf16 scales, f32 q, int8 dot "
@@ -4366,7 +4797,8 @@ def gpt2_entries(gpt2: dict) -> list:
             ("paged_generic_decode_fp8", "decode", "fp8", ("fp8",
                                                            "fp8 chunk"),
              "e4m3 pools, bf16 scales, f32 q"),
-            ("paged_prefill_f32", "prefill", "f32", ("f32 chunk",),
+            ("paged_prefill_f32", "prefill", "f32", ("f32 chunk",
+                                                     "f32 lora"),
              "f32 pool"),
             ("paged_prefill_f32_int8", "prefill", "int8",
              ("int8 chunk",), "int8 pool, bf16 scales, f32 q"),
@@ -4648,6 +5080,28 @@ def add_moe_adamw_launches(entries, moe, adamw) -> None:
         by_name[name]["launches_per_adamw_step"] = steps
 
 
+# the kernel modes the edges runs launch: (entry, counter, runs); (h0) and
+# (h) over bf16 pools, (i) over int8 (row 12's int8 dot products)
+EDGE_LAUNCHES = [
+    ("paged_decode", "paged_decode", ("h0", "h")),
+    ("paged_prefill", "paged_prefill", ("h0", "h")),
+    ("paged_decode_int8", "paged_decode", ("i",)),
+    ("paged_prefill_int8", "paged_prefill", ("i",)),
+]
+
+
+def add_edge_launches(entries, edges) -> None:
+    """Add the edges runs' launches to the entries of the kernel modes they
+    launch, also by run; a mode a run should launch and did not fails."""
+    by_name = {e["name"]: e for e in entries}
+    for name, counter, keys in EDGE_LAUNCHES:
+        n = {k: edges["runs"][k][counter] for k in keys}
+        if 0 in n.values():
+            raise AssertionError(f"{name} was not launched in edges runs {n}")
+        by_name[name]["launches"] += sum(n.values())
+        by_name[name]["launches_edges_by_run"] = n
+
+
 def main() -> None:
     from aule_tpu_torch.ops.flash import SHORT_SQ
 
@@ -4689,6 +5143,7 @@ def main() -> None:
     moe = timed("moe", phase_moe)
     adamw = timed("adamw", phase_adamw)
     runs, params, cfg = timed("engine", phase_engine)
+    edges = timed("edges", phase_edges, params, cfg)
     timed("breakdown", phase_breakdown, params, cfg)
     train = timed("train", phase_train, params, cfg)  # last: it rewrites
     del params                                       # the weights
@@ -4997,6 +5452,7 @@ def main() -> None:
     entries += gqa_entries(llama32, group_err)
     entries += mistral_entries(mistral)
     add_moe_adamw_launches(entries, moe, adamw)
+    add_edge_launches(entries, edges)
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

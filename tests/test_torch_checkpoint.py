@@ -10,8 +10,9 @@ an AdamWState saved by JAX resumes in the port.  `save_engine_state` /
 `load_engine_state`: the port's engine resumed mid-run gives the
 uninterrupted run's tokens (greedy and with seeded temperature), a JAX
 engine's greedy state resumed by the port finishes with JAX's
-uninterrupted tokens, and a file holding a prefix-cache entry or a LoRA
-request raises.
+uninterrupted tokens, and a run with the prefix cache, LoRA requests or
+stop sequences crosses between the packages both ways with the same
+tokens (a request on an adapter the engine lacks raises ValueError).
 """
 
 import json
@@ -25,6 +26,7 @@ import torch
 from aule_tpu.models import llama as jllama
 from aule_tpu.parallel import optimizer as joptim
 from aule_tpu.serving.engine import ServingEngine as JaxEngine
+from aule_tpu.serving.engine import load_engine_state as jax_load_engine
 from aule_tpu.serving.engine import save_engine_state as jax_save_engine
 from aule_tpu.utils import checkpoint as jckpt
 from aule_tpu_torch.models import llama as tllama
@@ -339,32 +341,99 @@ def test_jax_engine_state_resumes_in_the_port(tmp_path, params):
     assert teng.allocator.num_free == KW["num_pages"] - 1
 
 
-def _saved(tmp_path, tp):
+def _adapter(seed=5, rank=2):
+    rng = np.random.default_rng(seed)
+    kv = TCFG.n_kv_heads * TCFG.head_dim
+    return {"layers": [
+        {t: (rng.standard_normal((TCFG.dim, rank)).astype(np.float32) * 0.3,
+             rng.standard_normal((rank, kv)).astype(np.float32) * 0.3)
+         for t in ("wk", "wv")} for _ in range(TCFG.n_layers)]}
+
+
+def _feature_case(edit, tp):
+    """(engine options, prompts, per-request submit options) of a run that
+    uses one serving-edges feature: the prefix cache (two requests on one
+    2-page prefix, co-scheduled, a third waiting), LoRA adapters (base and
+    adapter requests mixed) or stop sequences taken from the plain greedy
+    output, the first ending after the save (with logprobs and a logit
+    bias beside them)."""
+    if edit == "prefix_cache":
+        rng = np.random.default_rng(13)
+        base = rng.integers(0, 256, size=32).astype(np.int32)
+        prompts = [np.concatenate([base, t]) for t in _prompts(14, (5, 9, 3))]
+        return (dict(prefill_chunk=16, enable_prefix_cache=True), prompts,
+                [{}, {}, {}])
+    prompts = _prompts(15, (11, 6, 19))
+    if edit == "lora":
+        return (dict(lora_params={"x": _adapter()}), prompts,
+                [dict(lora="x"), {}, dict(lora="x")])
     eng = ServingEngine(tp, TCFG, device="cpu", **KW)
-    eng.submit(_prompts(12, (9,))[0], max_new_tokens=6)
-    eng.step()
-    path = str(tmp_path / "ck")
-    save_engine_state(eng, path)
-    with open(path + ".state.json") as f:
-        return path, json.load(f)
+    for p in prompts:
+        eng.submit(p, max_new_tokens=8)
+    base = _outputs(eng)
+    return ({}, prompts, [dict(stop=[base[0][4:6]], logprobs=True),
+                          dict(logit_bias={3: 1.5}),
+                          dict(stop=[base[2][1:2]])])
 
 
 @pytest.mark.parametrize("edit", ["prefix_cache", "lora", "stop"])
-def test_engine_state_with_later_features_raises(tmp_path, params, edit):
-    """A file holding a prefix-cache entry, a request on a LoRA adapter or
-    with stop sequences raises, naming the slice that brings it."""
-    _, tp = params
-    path, host = _saved(tmp_path, tp)
-    assert host["prefix_cache"] == {} and host["slots"][0]["lora"] is None
+def test_engine_state_with_edges_crosses_packages(tmp_path, params, edit):
+    """A run with the prefix cache, LoRA requests or stop sequences saved
+    after 3 steps resumes in the other package with the uninterrupted
+    run's tokens, both ways: JAX's state finished by the port, the port's
+    by JAX (the same JAX engine that ran uninterrupted, its state
+    replaced).  The requests' options, logprobs and the cache's maps come
+    across; every page comes back."""
+    jp, tp = params
+    engine_kw, prompts, reqs = _feature_case(edit, tp)
+    jkw = dict(KW, **engine_kw)
+
+    def submit(eng):
+        for p, r in zip(prompts, reqs):
+            eng.submit(p, max_new_tokens=8, **r)
+        return eng
+
+    jeng = submit(JaxEngine(jp, JCFG, **jkw))
+    want = _outputs(jeng)
+    assert want == _outputs(submit(ServingEngine(tp, TCFG, device="cpu",
+                                                 **jkw)))
+    if edit == "stop":
+        assert min(len(o) for o in want) < 8  # a stop sequence ended one
+    jeng1 = submit(JaxEngine(jp, JCFG, **jkw))
+    for _ in range(3):
+        jeng1.step()
+    jax_save_engine(jeng1, str(tmp_path / "jax"))
+    with open(str(tmp_path / "jax.state.json")) as f:
+        host = json.load(f)
     if edit == "prefix_cache":
-        host["prefix_cache"] = {"abc": 3}
-        host["page_rc"] = {"3": 1}
-    elif edit == "lora":
-        host["slots"][0]["lora"] = "adapter"
-    else:
-        host["slots"][0]["stop"] = [[1, 2]]
-    with open(path + ".state.json", "w") as f:
-        json.dump(host, f)
-    eng = ServingEngine(tp, TCFG, device="cpu", **KW)
-    with pytest.raises(NotImplementedError, match="slice"):
-        load_engine_state(eng, path)
+        assert host["prefix_cache"] and host["prefix_hit_tokens"] == 32
+    teng = ServingEngine(tp, TCFG, device="cpu", **jkw)
+    load_engine_state(teng, str(tmp_path / "jax"))
+    assert teng._prefix_cache == jeng1._prefix_cache
+    assert _outputs(teng) == want
+    free = teng.allocator.num_free + len(teng._page_rc)
+    assert free == KW["num_pages"] - 1
+
+    teng1 = submit(ServingEngine(tp, TCFG, device="cpu", **jkw))
+    for _ in range(3):
+        teng1.step()
+    save_engine_state(teng1, str(tmp_path / "port"))
+    jax_load_engine(jeng, str(tmp_path / "port"))
+    got = jeng.run()
+    assert [r.output for r in got] == want
+    if edit == "stop":
+        assert len(got[0].logprobs) == len(got[0].output)
+
+
+def test_lora_request_without_its_adapter_raises(tmp_path, params):
+    """A saved request on an adapter the loading engine lacks raises
+    ValueError, as JAX's load_engine_state does."""
+    _, tp = params
+    eng = ServingEngine(tp, TCFG, device="cpu",
+                        lora_params={"x": _adapter()}, **KW)
+    eng.submit(_prompts(12, (9,))[0], max_new_tokens=6, lora="x")
+    eng.step()
+    save_engine_state(eng, str(tmp_path / "ck"))
+    bare = ServingEngine(tp, TCFG, device="cpu", **KW)
+    with pytest.raises(ValueError, match="LoRA adapter"):
+        load_engine_state(bare, str(tmp_path / "ck"))

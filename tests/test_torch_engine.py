@@ -206,26 +206,82 @@ def test_oversized_request_rejected(params):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(enable_prefix_cache=True, prefill_chunk=8),
-    dict(quantized=True, spec_tokens=2),
-    dict(enable_prefix_cache=True), dict(mesh=object()),
-    dict(spec_tokens=2), dict(ngram_spec=2), dict(lora_params={"a": {}}),
-    dict(sampler=sampling.greedy()), dict(layout="split", ngram_spec=2),
-    dict(model=jllama)])
+    dict(quantized=True, spec_tokens=2), dict(mesh=object()),
+    dict(spec_tokens=2), dict(ngram_spec=2),
+    dict(layout="split", ngram_spec=2), dict(model=jllama)])
 def test_unported_engine_options_raise(params, kw):
     _, tp = params
     with pytest.raises(NotImplementedError):
         ServingEngine(tp, TCFG, device="cpu", **dict(KW, **kw))
 
 
+def _adapter(seed=3, rank=2):
+    rng = np.random.default_rng(seed)
+    q = TCFG.n_heads * TCFG.head_dim
+    return {"layers": [
+        {"wq": (rng.standard_normal((TCFG.dim, rank)).astype(np.float32),
+                rng.standard_normal((rank, q)).astype(np.float32) * 0.1)}
+        for _ in range(TCFG.n_layers)]}
+
+
+def _greedy(tp, n=6, **kw):
+    eng = ServingEngine(tp, TCFG, device="cpu", **dict(KW, **kw))
+    for p in _prompts():
+        eng.submit(p, n)
+    return [r.output for r in eng.run()]
+
+
 @pytest.mark.parametrize("kw", [
-    dict(top_k=5), dict(top_p=0.9), dict(logit_bias={1: 2.0}),
-    dict(lora="a"), dict(logprobs=True), dict(stop=[[1]])])
-def test_unported_submit_options_raise(params, kw):
+    dict(enable_prefix_cache=True, prefill_chunk=8),
+    dict(lora_params={"a": _adapter()}), dict(sampler=sampling.greedy())])
+def test_edge_engine_options_accepted(params, kw):
+    """The serving-edges options of the engine (ported from JAX's): an
+    engine with the prefix cache, with a registered adapter its requests
+    do not use, or with a greedy sampler= serves the plain engine's
+    greedy tokens."""
     _, tp = params
-    eng = ServingEngine(tp, TCFG, device="cpu", **KW)
-    with pytest.raises(NotImplementedError):
-        eng.submit(np.arange(4, dtype=np.int32), 2, **kw)
+    assert _greedy(tp, **kw) == _greedy(tp)
+
+
+def test_prefix_cache_without_chunk_raises(params):
+    _, tp = params
+    with pytest.raises(ValueError, match="prefill_chunk"):
+        ServingEngine(tp, TCFG, device="cpu", enable_prefix_cache=True, **KW)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(top_k=5, temperature=0.8), dict(top_p=0.9, temperature=0.8),
+    dict(logit_bias={1: 100.0}), dict(lora="a"), dict(logprobs=True),
+    dict(stop=[[2, 3]])])
+def test_edge_submit_options_accepted(params, kw):
+    """submit() takes every per-request option of JAX's: each request
+    finishes, and each option shows in its output (stop=[[2, 3]] stands for
+    the plain output's tokens 2 and 3)."""
+    _, tp = params
+    eng = ServingEngine(tp, TCFG, device="cpu", lora_params={"a": _adapter()},
+                        **KW)
+    prompt = _prompts()[0]
+    eng.submit(prompt, 6)
+    (plain,) = eng.run()
+    if "stop" in kw:
+        kw = dict(stop=[[plain.output[2], plain.output[3]]])
+    eng.submit(prompt, 6, **kw)
+    (req,) = eng.run()
+    if "stop" in kw:
+        first = next(i for i in range(1, 6)
+                     if req.output[i - 1:i + 1] == kw["stop"][0])
+        assert len(req.output) == first + 1 <= 4
+    else:
+        assert len(req.output) == 6
+    if "logit_bias" in kw:
+        assert req.output == [1] * 6
+    elif "lora" in kw:
+        assert req.output != plain.output
+    elif "logprobs" in kw:
+        assert len(req.logprobs) == 6 and max(req.logprobs) <= 0.0
+        assert req.output == plain.output and not plain.logprobs
+    elif "temperature" in kw:
+        assert not req.logprobs
 
 
 def test_seeded_temperature_sampling_reproducible(params):

@@ -146,7 +146,7 @@ def test_engine_token_identical_to_jax(params, qname, chunk):
 def test_engine_refusals(params):
     """max_seq_len past the learned-position table raises ValueError (as
     JAX's engine), so does the split layout (no decode over split pools);
-    a model module of another package and mesh=/lora= on the model raise
+    a model module of another package and mesh= on the model raise
     NotImplementedError."""
     _, tp = params
     kw = dict(KW, max_pages_per_seq=32)
@@ -159,11 +159,42 @@ def test_engine_refusals(params):
     with pytest.raises(NotImplementedError):
         ServingEngine(tp, TCFG, model=jgpt2, device="cpu", **KW)
     tokens = torch.zeros((1, 4), dtype=torch.long)
-    for bad in (dict(mesh=object()), dict(lora={"a": {}})):
-        with pytest.raises(NotImplementedError):
-            tgpt2.forward(tp, tokens, TCFG, **bad)
+    with pytest.raises(NotImplementedError):
+        tgpt2.forward(tp, tokens, TCFG, mesh=object())
     # the default family is still Llama
     lp = tllama.init_params(tllama.LlamaConfig.tiny(), torch.Generator(),
                             device="cpu")
     eng = ServingEngine(lp, tllama.LlamaConfig.tiny(), device="cpu", **KW)
     assert eng.model is tllama
+
+
+def test_forward_with_lora_matches_jax(params):
+    """forward with a two-adapter bank on wq / wk / wv (w_qkv's slices) and
+    wo (w_proj), rows on adapter 1, the base and adapter 2, against JAX's
+    under "highest" matmuls (2e-4, as forward's)."""
+    jp, tp = params
+    rng = np.random.default_rng(9)
+    bank = []
+    for _ in range(JCFG.n_layers):
+        entry = {}
+        for t in ("wq", "wk", "wv", "wo"):
+            a = rng.standard_normal((3, JCFG.dim, 4)).astype(np.float32) * .2
+            b = rng.standard_normal((3, 4, JCFG.dim)).astype(np.float32) * .2
+            a[0] = b[0] = 0.0
+            entry[t] = (a, b)
+        bank.append(entry)
+    idx = np.array([1, 0, 2], np.int32)
+    tokens = rng.integers(0, JCFG.vocab_size, (3, 10)).astype(np.int32)
+    with jax.default_matmul_precision("highest"):
+        want = jgpt2.forward(
+            jp, jnp.asarray(tokens), JCFG, lora={"layers": [
+                {t: tuple(jnp.asarray(m) for m in ab) for t, ab in e.items()}
+                for e in bank]}, lora_idx=jnp.asarray(idx))
+    got = tgpt2.forward(
+        tp, torch.from_numpy(tokens).long(), TCFG, lora={"layers": [
+            {t: tuple(torch.from_numpy(m) for m in ab) for t, ab in e.items()}
+            for e in bank]}, lora_idx=torch.from_numpy(idx))
+    assert_close(got, np.asarray(want), 0, 2e-4, "lora logits")
+    plain = tgpt2.forward(tp, torch.from_numpy(tokens).long(), TCFG)
+    assert torch.equal(got[1], plain[1])  # the base row is untouched
+    assert not torch.allclose(got[0], plain[0])

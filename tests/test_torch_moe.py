@@ -10,7 +10,8 @@ JAX's params carried across (`load_jax_params`).
   * two SGD `train_step`s (loss and params) within 1e-5;
   * `ServingEngine(model=moe)` token-identical to JAX's engine, over f32,
     int8 and fp8 fused pools, whole-prompt and chunked;
-  * `layout="split"`, `mesh=` and `lora=` raise.
+  * `forward` and `prefill_step_fused` with LoRA adapters within 1e-5;
+  * `layout="split"` and `mesh=` raise.
 """
 
 import jax
@@ -213,14 +214,69 @@ def test_unported_forms_raise(params):
     tokens = torch.from_numpy(_tokens(1, 5)).long()
     with pytest.raises(NotImplementedError, match="parallel-layer"):
         tmoe.forward(tp, tokens, TCFG, mesh=object())
-    with pytest.raises(NotImplementedError, match="LoRA"):
-        tmoe.forward(tp, tokens, TCFG, lora={"layers": []})
     with pytest.raises(NotImplementedError, match="parallel-layer"):
         tmoe.decode_step_fused(tp, None, None, None, None, None, TCFG, None,
                                None, mesh=object())
-    with pytest.raises(NotImplementedError, match="LoRA"):
-        tmoe.prefill_step_fused(tp, None, None, None, None, None, TCFG, None,
-                                None, lora_idx=torch.zeros(1))
     with pytest.raises(NotImplementedError):
         ServingEngine(tp, TCFG, device="cpu", model=tmoe,
                       **dict(KW, mesh=object()))
+
+
+@pytest.mark.parametrize("fn", ["forward", "prefill_step_fused"])
+def test_lora_matches_jax(params, fn):
+    """forward and a chunk of prefill_step_fused with a two-adapter bank on
+    the attention's wq / wk / wv / wo (rows on adapter 2 and the base)
+    within 1e-5 of JAX's: the logits and the pools written."""
+    from aule_tpu.ops.paged_fused import fused_pool_shape
+    from aule_tpu.ops.rope import precompute_rope_frequencies as jrope
+    from aule_tpu_torch.ops.rope import precompute_rope_frequencies as trope
+
+    jp, tp = params
+    rng = np.random.default_rng(11)
+    q = JCFG.n_heads * JCFG.head_dim
+    kv = JCFG.n_kv_heads * JCFG.head_dim
+    dims = {"wq": (JCFG.dim, q), "wk": (JCFG.dim, kv), "wv": (JCFG.dim, kv),
+            "wo": (q, JCFG.dim)}
+    bank = []
+    for _ in range(JCFG.n_layers):
+        entry = {}
+        for t, (i, o) in dims.items():
+            a = rng.standard_normal((3, i, 4)).astype(np.float32) * 0.2
+            b = rng.standard_normal((3, 4, o)).astype(np.float32) * 0.2
+            a[0] = b[0] = 0.0
+            entry[t] = (a, b)
+        bank.append(entry)
+
+    def conv(f):
+        return {"layers": [{t: tuple(f(m) for m in ab)
+                            for t, ab in e.items()} for e in bank]}
+
+    idx = np.array([2, 0], np.int32)
+    jl = dict(lora=conv(jnp.asarray), lora_idx=jnp.asarray(idx))
+    tl = dict(lora=conv(torch.from_numpy), lora_idx=torch.from_numpy(idx))
+    tokens = _tokens(2, 9, seed=12)
+    if fn == "forward":
+        want = jmoe.forward(jp, jnp.asarray(tokens), JCFG, **jl)
+        got = tmoe.forward(tp, torch.from_numpy(tokens).long(), TCFG, **tl)
+        assert_close(got, np.asarray(want), 0, TOL, "lora forward")
+        return
+    shape = fused_pool_shape(8, JCFG.n_kv_heads, 16, JCFG.head_dim)
+    pools = np.stack([(rng.standard_normal(shape) * 0.1).astype(np.float32)
+                      for _ in range(JCFG.n_layers)])
+    bt = np.array([[1, 2, -1], [3, 4, 5]], np.int32)
+    hist = np.array([14, 30], np.int32)
+    slens = np.array([9, 5], np.int32)
+    jc, js = jrope(64, JCFG.head_dim, JCFG.rope_base)
+    tc, ts = trope(64, TCFG.head_dim, TCFG.rope_base)
+    jout = jmoe.prefill_step_fused(
+        jp, jnp.asarray(tokens), jnp.asarray(hist), jnp.asarray(slens),
+        [jnp.asarray(p) for p in pools], jnp.asarray(bt), JCFG, jc, js, **jl)
+    tpools = torch.from_numpy(pools.copy())
+    tout = tmoe.prefill_step_fused(
+        tp, torch.from_numpy(tokens).long(), torch.from_numpy(hist),
+        torch.from_numpy(slens), tpools, torch.from_numpy(bt), TCFG, tc, ts,
+        **tl)
+    assert_close(tout[0], np.asarray(jout[0]), 0, TOL, "lora prefill")
+    for li in range(JCFG.n_layers):
+        assert_close(tpools[li], np.asarray(jout[1][li]), 0, TOL,
+                     f"pool{li}")
