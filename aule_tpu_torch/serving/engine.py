@@ -52,9 +52,32 @@ before any eviction) and prefills from the first uncached page; pages
 nobody holds stay resident until pool pressure evicts them, oldest
 registration first.
 
-Options of the JAX engine outside this slice (speculative decoding, the
-tensor-parallel mesh) raise NotImplementedError naming the slice that
-brings them; none is silently ignored.
+Speculative decoding (JAX engine.py:659-822, 995-1327), over fused pools
+with the per-request options above (an engine-level `sampler=` / `sample=`
+refuses it, as JAX's):
+  * draft model (`spec_tokens=K`, `draft_params`, `draft_cfg`,
+    `draft_model`: a family of the port, the target's by default): the
+    draft keeps its own fused pool `dk_pages` (and `dk_scales` when
+    quantized) in the target's pool dtype, addressed by the same block
+    tables and the same allocator, and prefills every prompt beside the
+    target (whole, or chunked from the prefix cache's hit: cached pages
+    carry draft KV too).  A round is one draft chunked prefill over the
+    tokens its pool lacks, K-1 draft decode steps and ONE target chunked
+    prefill over [t, g0..g{K-1}] with every position's logits; greedy
+    slots keep the longest prefix the target's biased argmax agrees with
+    plus its next token (token-identical to plain greedy decode in exact
+    arithmetic), sampled slots rejection-sample against the target's
+    warped distribution (each emitted token keeps its distribution).  The
+    round stays on the device and ends in ONE host copy of its tokens,
+    counts and logprobs.  A slot whose budget cannot take K+1 tokens
+    verifies only its pending token; `spec_min_acceptance` turns
+    speculation off after 8 rounds under it;
+  * prompt lookup (`ngram_spec=K`, `ngram_max`): the K tokens that
+    followed the latest earlier occurrence of the context's last n-gram
+    (n = ngram_max .. 1) are verified the same way, with no draft model.
+`mesh=` (the tensor-parallel mesh) raises NotImplementedError naming the
+parallel-layer slice; no option is silently ignored.  Pages come from
+`kv_cache.make_allocator`: the native C++ free list where g++ builds it.
 
 `save_engine_state` / `load_engine_state` checkpoint a running engine in
 the JAX package's files (JAX engine.py:1726-1855), so either package can
@@ -68,6 +91,7 @@ import dataclasses
 import hashlib
 import inspect
 import json
+import logging
 import os
 import time
 from typing import Any, Callable, Dict, List, Optional
@@ -86,23 +110,20 @@ from ..ops.quant import QUANT_DTYPES
 from ..ops.rope import precompute_rope_frequencies
 from ..utils.checkpoint import load_pytree, save_pytree
 from . import sampling
-from .kv_cache import PythonPageAllocator
+from .kv_cache import make_allocator
 
-_SPEC = "the speculative-decoding slice"
+logger = logging.getLogger("aule_tpu_torch")
+
 _PARALLEL = "the parallel-layer slice"
 
 # engine arguments of the JAX engine outside this slice: (default, slice)
 _LATER_ENGINE_ARGS = {
     "mesh": (None, _PARALLEL),
     "model_axis": ("model", _PARALLEL),
-    "draft_params": (None, _SPEC),
-    "draft_cfg": (None, _SPEC),
-    "draft_model": (None, _SPEC),
-    "spec_tokens": (0, _SPEC),
-    "spec_min_acceptance": (0.0, _SPEC),
-    "ngram_spec": (0, _SPEC),
-    "ngram_max": (3, _SPEC),
 }
+# speculation turns itself off after this many rounds under
+# spec_min_acceptance (JAX engine.py:813)
+SPEC_DISABLE_ROUNDS = 8
 # the projections an adapter may target (JAX engine.py:362)
 LORA_TARGETS = ("wq", "wk", "wv", "wo")
 
@@ -213,7 +234,15 @@ class ServingEngine:
     a layer]}} registers adapters on wq / wk / wv / wo (the alpha / r
     scale folded into B; fused layout only; ranks must agree per target);
     `submit(lora=name)` picks one.  `enable_prefix_cache` (with
-    `prefill_chunk`) turns on the prefix cache."""
+    `prefill_chunk`) turns on the prefix cache.
+
+    `spec_tokens=K` with `draft_params` / `draft_cfg` (and `draft_model`,
+    a family of the port; the target's by default) speculates K tokens a
+    round with the draft model; `ngram_spec=K` (`ngram_max` the longest
+    n-gram looked up) speculates by prompt lookup.  Both need the fused
+    layout and no `sampler=` / `sample=`, and exclude each other; the
+    draft's vocabulary must be the target's.  `spec_min_acceptance` > 0
+    stops speculating after 8 rounds under that acceptance."""
 
     def __init__(
         self,
@@ -236,6 +265,13 @@ class ServingEngine:
         enable_prefix_cache: bool = False,
         lora_params: Optional[Dict[str, Any]] = None,
         model=None,
+        draft_params: Optional[Dict[str, Any]] = None,
+        draft_cfg=None,
+        draft_model=None,
+        spec_tokens: int = 0,
+        spec_min_acceptance: float = 0.0,
+        ngram_spec: int = 0,
+        ngram_max: int = 3,
         device="cuda",
         **later,
     ):
@@ -273,6 +309,10 @@ class ServingEngine:
             raise ValueError(
                 f"max_seq_len {max_seq_len} exceeds the model's learned-"
                 f"position table n_ctx={n_ctx}")
+        self._check_speculation(cfg, layout, sample is not None
+                                or sampler is not None, draft_params,
+                                draft_cfg, draft_model, spec_tokens,
+                                ngram_spec, ngram_max)
         self.params = params
         self.cfg = cfg
         self.max_batch = max_batch
@@ -317,7 +357,37 @@ class ServingEngine:
             if quantized:
                 self.k_scales = zeros(shape[:-1], torch.float32)
                 self.v_scales = zeros(shape[:-1], torch.float32)
-        self.allocator = PythonPageAllocator(num_pages)
+        # speculative decoding (JAX engine.py:325-338, 396-455): the draft's
+        # fused pool shares the target's page ids, so one allocator serves
+        # both
+        self.spec_tokens = int(spec_tokens)
+        self.ngram_spec = int(ngram_spec)
+        self.ngram_max = int(ngram_max)
+        self.spec_min_acceptance = float(spec_min_acceptance)
+        self._spec_disabled = False
+        self.spec_rounds = self.spec_drafted = self.spec_accepted = 0
+        self.dk_pages = self.dk_scales = None
+        self.draft_params = self.draft_cfg = self.draft_model = None
+        if self.spec_tokens > 0:
+            self.draft_params = draft_params
+            self.draft_cfg = draft_cfg
+            self.draft_model = self.model if draft_model is None \
+                else draft_model
+            self.draft_rope_cos, self.draft_rope_sin = \
+                precompute_rope_frequencies(max_seq_len, draft_cfg.head_dim,
+                                            draft_cfg.rope_base,
+                                            device=self.device)
+            self.dk_pages = torch.zeros(
+                (draft_cfg.n_layers,) + fused_pool_shape(
+                    num_pages, draft_cfg.n_kv_heads, page_size,
+                    draft_cfg.head_dim), dtype=pool_dtype,
+                device=self.device)
+            if quantized:
+                self.dk_scales = torch.zeros(
+                    (draft_cfg.n_layers,) + fused_scales_shape(
+                        num_pages, draft_cfg.n_kv_heads, page_size),
+                    dtype=SCALE_DTYPE, device=self.device)
+        self.allocator = make_allocator(num_pages)
         # page 0 is the scratch sink for -1 table entries (empty slots)
         scratch = self.allocator.allocate(1)
         if scratch != [0]:
@@ -326,6 +396,10 @@ class ServingEngine:
         self.slots: List[Optional[Request]] = [None] * max_batch
         self.slot_pages: List[List[int]] = [[] for _ in range(max_batch)]
         self.slot_lens = np.zeros((max_batch,), np.int32)
+        # how far each slot's draft pool is written: it trails slot_lens
+        # after plain decode dispatches, and a round's draft prefill
+        # closes the gap
+        self.slot_dlens = np.zeros((max_batch,), np.int32)
         self.waiting: List[Request] = []
         self.finished: List[Request] = []
         self._next_id = 0
@@ -344,10 +418,55 @@ class ServingEngine:
         self.prefill_dispatches = 0
         self.decode_dispatches = 0
         self.decode_steps_run = 0
-        # host seconds in prefill and in decode dispatches; each dispatch
-        # ends in a host copy of its tokens, so these include device time
+        # the draft's prefill dispatches (whole prompts, chunks and the
+        # chunks that catch a lagging draft pool up)
+        self.draft_prefill_dispatches = 0
+        # host seconds in prefill (the draft's included) and in decode
+        # dispatches and speculative rounds; each ends in a host copy of
+        # its tokens, so these include device time
         self.prefill_seconds = 0.0
         self.decode_seconds = 0.0
+
+    def _check_speculation(self, cfg, layout, engine_sampler, draft_params,
+                           draft_cfg, draft_model, spec_tokens, ngram_spec,
+                           ngram_max) -> None:
+        """JAX's refusals of speculative decoding (engine.py:396-433), in
+        its order, and a draft family that is not the port's."""
+        if ngram_spec > 0:
+            if spec_tokens > 0:
+                raise ValueError(
+                    "ngram_spec and spec_tokens are mutually exclusive")
+            if layout != "fused":
+                raise ValueError("prompt-lookup decoding requires "
+                                 "layout='fused'")
+            if engine_sampler:
+                raise ValueError(
+                    "prompt-lookup decoding is exact for greedy decoding "
+                    "only; drop sampler=/sample=")
+            if ngram_max < 1:
+                raise ValueError("ngram_max must be >= 1")
+        if draft_model is not None and not any(
+                draft_model is m for m in MODEL_FAMILIES):
+            raise NotImplementedError(
+                f"ServingEngine: draft_model={draft_model!r} is not a model "
+                f"family of the port; pass aule_tpu_torch.models.llama, "
+                f".gpt2 or .moe")
+        if spec_tokens <= 0:
+            return
+        if draft_params is None or draft_cfg is None:
+            raise ValueError(
+                "spec_tokens > 0 requires draft_params and draft_cfg")
+        if layout != "fused":
+            raise ValueError("speculative decoding requires layout='fused'")
+        if engine_sampler:
+            raise ValueError("speculative decoding is exact for greedy "
+                             "decoding only; drop sampler=/sample=")
+        tv = getattr(cfg, "vocab_size", None)
+        dv = getattr(draft_cfg, "vocab_size", None)
+        if tv is not None and dv is not None and tv != dv:
+            raise ValueError(
+                f"draft vocab {dv} != target vocab {tv}: speculative "
+                f"decoding requires a shared tokenizer")
 
     def _register_lora(self, lora_params: Dict[str, Any]) -> None:
         """Stack the adapters into one bank (JAX engine.py:339-395): per
@@ -478,6 +597,11 @@ class ServingEngine:
             "prefill_dispatches": self.prefill_dispatches,
             "decode_dispatches": self.decode_dispatches,
             "decode_steps": self.decode_steps_run,
+            "draft_prefill_dispatches": self.draft_prefill_dispatches,
+            "spec_rounds": self.spec_rounds,
+            "spec_drafted": self.spec_drafted,
+            "spec_accepted": self.spec_accepted,
+            "spec_disabled": self._spec_disabled,
             "prefill_seconds": self.prefill_seconds,
             "decode_seconds": self.decode_seconds,
             "prefix_cache_pages": len(self._page_rc),
@@ -504,9 +628,17 @@ class ServingEngine:
 
     @torch.no_grad()
     def step(self) -> None:
+        """Admit what fits, then one speculative round (draft model or
+        prompt lookup) when a slot has K+1 tokens to go, else one decode
+        dispatch (JAX engine.py:659-669)."""
         self._admit()
         if self.num_running:
-            self._decode_all()
+            caps = self._spec_caps(self.spec_tokens)
+            ncaps = self._spec_caps(self.ngram_spec)
+            if caps is not None:
+                self._spec_all(caps)
+            elif ncaps is None or not self._ngram_all(ncaps):
+                self._decode_all()
 
     # prefix cache (JAX engine.py:824-898, 1383-1396)
 
@@ -623,25 +755,35 @@ class ServingEngine:
         return ({} if self.lora is None or lidx is None
                 else {"lora": self.lora, "lora_idx": lidx})
 
+    def _side(self, draft: bool):
+        """(model, params, cfg, rope cos, rope sin, fused pool, its scales)
+        of the target or of the draft."""
+        if draft:
+            return (self.draft_model, self.draft_params, self.draft_cfg,
+                    self.draft_rope_cos, self.draft_rope_sin, self.dk_pages,
+                    self.dk_scales)
+        return (self.model, self.params, self.cfg, self.rope_cos,
+                self.rope_sin, self.kv_pages, self.kv_scales)
+
     def _prefill(self, tokens: torch.Tensor, bt_row: torch.Tensor,
-                 lidx: Optional[torch.Tensor]):
+                 lidx: Optional[torch.Tensor], draft: bool = False):
         """Forward over one prompt [1, n] and write its K/V into the pages
         of `bt_row` (quantized when the pools are, as the JAX engine,
-        engine.py:906-945); returns the logits of the last prompt
-        position."""
+        engine.py:906-945; the draft's into its own pool, :995-1018);
+        returns the logits of the last prompt position."""
         n = tokens.shape[1]
-        logits, kv = self.model.forward(
-            self.params, tokens, self.cfg, rope_cos=self.rope_cos,
-            rope_sin=self.rope_sin, return_kv=True, **self._lora_kw(lidx))
+        model, params, cfg, cos, sin, pool, scales = self._side(draft)
+        logits, kv = model.forward(params, tokens, cfg, rope_cos=cos,
+                                   rope_sin=sin, return_kv=True,
+                                   **self._lora_kw(lidx))
         where = (bt_row[None],
                  torch.zeros((1,), dtype=torch.int32, device=self.device),
                  torch.full((1,), n, dtype=torch.int32, device=self.device))
         for li, (k, v) in enumerate(kv):
             if self.layout == "fused":
                 kv_cache_append_prefill_fused(
-                    self.kv_pages[li], k, v, *where,
-                    kv_scales=None if self.kv_scales is None
-                    else self.kv_scales[li])
+                    pool[li], k, v, *where,
+                    kv_scales=None if scales is None else scales[li])
             elif self.k_scales is not None:
                 kv_cache_append_prefill_quantized(
                     self.k_pages[li], self.v_pages[li], self.k_scales[li],
@@ -649,11 +791,34 @@ class ServingEngine:
             else:
                 kv_cache_append_prefill(self.k_pages[li], self.v_pages[li],
                                         k, v, *where)
-        self.prefill_dispatches += 1
+        self._count_prefill(draft)
         return logits[0, n - 1]
 
+    def _count_prefill(self, draft: bool) -> None:
+        if draft:
+            self.draft_prefill_dispatches += 1
+        else:
+            self.prefill_dispatches += 1
+
+    def _prefill_chunk(self, chunk: torch.Tensor, off: int,
+                       bt_row: torch.Tensor, lidx: Optional[torch.Tensor],
+                       draft: bool = False) -> torch.Tensor:
+        """One chunk [1, c] at offset `off` through the target's or the
+        draft's `prefill_step_fused`; returns its last row's logits [1,
+        V]."""
+        model, params, cfg, cos, sin, pool, scales = self._side(draft)
+        out = model.prefill_step_fused(
+            params, chunk,
+            torch.full((1,), off, dtype=torch.int32, device=self.device),
+            torch.full((1,), chunk.shape[1], dtype=torch.int32,
+                       device=self.device),
+            pool, bt_row[None], cfg, cos, sin, scales, **self._lora_kw(lidx))
+        self._count_prefill(draft)
+        return out[0]
+
     def _prefill_chunked(self, tokens: torch.Tensor, bt_row: torch.Tensor,
-                         start: int, lidx: Optional[torch.Tensor]):
+                         start: int, lidx: Optional[torch.Tensor],
+                         draft: bool = False):
         """Chunks of `prefill_chunk` tokens at offsets start, start + c,
         ... through `model.prefill_step_fused` (engine.py:1329-1381); each
         chunk appends its K/V and attends to everything before it, the
@@ -662,16 +827,8 @@ class ServingEngine:
         n, c = tokens.shape[1], self.prefill_chunk
         logits = None
         for off in range(start, n, c):
-            chunk = tokens[:, off:off + c]
-            out = self.model.prefill_step_fused(
-                self.params, chunk,
-                torch.full((1,), off, dtype=torch.int32, device=self.device),
-                torch.full((1,), chunk.shape[1], dtype=torch.int32,
-                           device=self.device),
-                self.kv_pages, bt_row[None], self.cfg, self.rope_cos,
-                self.rope_sin, self.kv_scales, **self._lora_kw(lidx))
-            logits = out[0]
-            self.prefill_dispatches += 1
+            logits = self._prefill_chunk(tokens[:, off:off + c], off, bt_row,
+                                         lidx, draft)
         return logits[0]
 
     def _run_prefill(self, slot: int, req: Request, hit_len: int = 0) -> None:
@@ -691,6 +848,16 @@ class ServingEngine:
         else:  # the cache requires chunked prefill, so nothing was hit
             logits = self._prefill(tokens, bt_row, lidx)
         self.slot_lens[slot] = n
+        if self.spec_tokens > 0:
+            # the draft's pool holds the prompt too (JAX engine.py:1352-1368,
+            # 1421-1429); a cached page was written by a speculative request,
+            # so it holds the draft's KV as well and the draft starts at the
+            # same hit
+            if self.prefill_chunk is not None:
+                self._prefill_chunked(tokens, bt_row, hit_len, None, True)
+            else:
+                self._prefill(tokens, bt_row, None, True)
+            self.slot_dlens[slot] = n
         tok, logp = self._host_sample(logits, req)
         self.prefill_seconds += time.perf_counter() - t0
         self.tokens_generated += 1
@@ -850,6 +1017,330 @@ class ServingEngine:
                     self._retire(s)
                     break
 
+    # speculative decoding (JAX engine.py:671-822, 1039-1327)
+
+    def _spec_caps(self, k: int) -> Optional[np.ndarray]:
+        """Each slot's verify length for a round of K = k candidates, or
+        None when no round runs (k 0, speculation turned off, or no slot
+        with K+1 tokens to go).  A slot whose budget cannot take the
+        round's K+1 appends verifies only its pending token (cap 1), so
+        one short request does not stop the batch's speculation."""
+        if k <= 0 or self._spec_disabled:
+            return None
+        caps = np.ones((self.max_batch,), np.int32)
+        for s, req in enumerate(self.slots):
+            if req is not None and req.max_new_tokens - len(req.output) > k:
+                caps[s] = k + 1
+        return caps if (caps > 1).any() else None
+
+    def _spec_sampling_args(self):
+        """(temps, tks, tps) of a round on the device, or Nones when every
+        running request is greedy: then the round draws no random number
+        and sorts no vocabulary (tks / tps only while a sampled request
+        restricts)."""
+        sampled = [r for r in self.slots if r is not None
+                   and r.temperature > 0.0]
+        if not sampled:
+            return None, None, None
+
+        def row(field, dtype):
+            return torch.tensor([getattr(r, field) if r is not None else 0
+                                 for r in self.slots], dtype=dtype,
+                                device=self.device)
+
+        return (row("temperature", torch.float32),
+                row("top_k", torch.int64) if any(r.top_k for r in sampled)
+                else None,
+                row("top_p", torch.float32) if any(r.top_p for r in sampled)
+                else None)
+
+    def _warp(self, logits: torch.Tensor, temps, tks, tps) -> torch.Tensor:
+        """Logits [..., V] scaled by each row's temperature (1 for greedy
+        rows) and cut to its top-k / top-p: the distribution a sampled
+        row draws from, as plain decode's sampling warps it."""
+        t_eff = torch.where(temps > 0.0, temps, torch.ones_like(temps))
+        shape = logits.shape
+        scaled = logits.float().reshape(shape[0], -1, shape[-1]) \
+            / t_eff[:, None, None]
+        if tks is not None or tps is not None:
+            n = scaled.shape[1]
+
+            def rep(x):
+                return None if x is None else x.repeat_interleave(n)
+
+            scaled = sampling.restrict_rows(
+                scaled.reshape(-1, shape[-1]), rep(tks), rep(tps))
+        return scaled.reshape(shape)
+
+    def _propose(self, logits: torch.Tensor, temps, tks, tps):
+        """A draft proposal from logits [B, V]: the argmax of greedy rows,
+        a draw from the warped draft distribution for sampled rows, and
+        that distribution (None when every row is greedy)."""
+        amax = torch.argmax(logits, dim=-1)
+        if temps is None:
+            return amax, None
+        scaled = self._warp(logits, temps, tks, tps)
+        drawn = sampling._gumbel_argmax(scaled, self.generator)
+        return (torch.where(temps > 0.0, drawn, amax),
+                torch.softmax(scaled, dim=-1))
+
+    def _spec_all(self, caps: np.ndarray) -> None:
+        """One draft-model round (JAX engine.py:715-774): catch a lagging
+        draft pool up, run the round, commit each slot's tokens."""
+        t0 = time.perf_counter()
+        k = self.spec_tokens
+        seqs = {s: np.concatenate([r.prompt, np.asarray(r.output, np.int32)])
+                for s, r in enumerate(self.slots) if r is not None}
+        # after plain decode dispatches the draft pool may trail the
+        # committed tokens by more than a round's catch-up: replay the gap
+        # in draft-only chunks of K+1
+        for s, seq in seqs.items():
+            if self.slot_lens[s] + 1 - self.slot_dlens[s] <= k + 1:
+                continue
+            bt_row = self._block_table()[s]
+            while self.slot_lens[s] + 1 - self.slot_dlens[s] > k + 1:
+                lo = int(self.slot_dlens[s])
+                self._prefill_chunk(
+                    self._device_row(seq[lo:lo + k + 1][None], torch.int64),
+                    lo, bt_row, None, draft=True)
+                self.slot_dlens[s] = lo + k + 1
+        catchup = np.zeros((self.max_batch, k + 1), np.int64)
+        clen = np.zeros((self.max_batch,), np.int32)
+        for s, seq in seqs.items():
+            lo, hi = int(self.slot_dlens[s]), int(self.slot_lens[s]) + 1
+            catchup[s, :hi - lo] = seq[lo:hi]
+            clen[s] = hi - lo
+        a, lp, n_emit, m = self._spec_round(catchup, clen, caps)
+        self.decode_seconds += time.perf_counter() - t0
+        # cap-1 slots emit one token and draft nothing
+        for s, (lens_old, _, m_s, retired) in self._commit_round(
+                a, lp, n_emit, m, k, counted=caps > 1).items():
+            if not retired:
+                # the draft pool holds t and the accepted g_0 ..
+                # g_{min(m, K-1) - 1} (its decode steps append K-1 of the K
+                # candidates); a cap-1 slot verified t alone
+                self.slot_dlens[s] = lens_old + 1 + min(m_s, k - 1,
+                                                        int(caps[s]) - 1)
+
+    def _device_row(self, a: np.ndarray, dtype=torch.int32) -> torch.Tensor:
+        """A host array on the engine's device (lengths int32, tokens
+        int64)."""
+        return torch.from_numpy(np.ascontiguousarray(a)).to(
+            device=self.device, dtype=dtype)
+
+    def _spec_round(self, catchup: np.ndarray, clen: np.ndarray,
+                    caps: np.ndarray):
+        """One round for the whole batch on the device (JAX
+        engine.py:1039-1144).  catchup [B, K+1] holds each slot's committed
+        tokens at positions slot_dlens .. slot_lens, the last one the
+        pending token t (emitted, in no pool yet): the draft appends them
+        in one chunked prefill and its last row proposes g0, then K-1
+        draft decode steps propose g1 .. g{K-1}; the target verifies [t,
+        g0 .. g{K-1}] in one chunked prefill (_verify_chunk).  Returns the
+        host arrays (a, lp, n_emit, m) of _verify_chunk."""
+        k = self.spec_tokens
+        model, params, cfg, cos, sin, pool, scales = self._side(True)
+        temps, tks, tps = self._spec_sampling_args()
+        bt = self._block_table()
+        lens = self._device_row(self.slot_lens)
+        clen_t = self._device_row(clen)
+        catch_t = self._device_row(catchup, torch.int64)
+        dlogits = model.prefill_step_fused(
+            params, catch_t, self._device_row(self.slot_dlens), clen_t, pool,
+            bt, cfg, cos, sin, scales)[0]
+        tok, q0 = self._propose(dlogits, temps, tks, tps)
+        props, dists = [tok], [q0]
+        for i in range(k - 1):
+            # the draft pool holds the committed tokens through t at lens
+            pos = lens + 1 + i
+            logits = model.decode_step_fused(params, tok, pos, pool, bt, pos,
+                                             cfg, cos, sin, scales)[0]
+            tok, qn = self._propose(logits, temps, tks, tps)
+            props.append(tok)
+            dists.append(qn)
+        g = torch.stack(props, dim=1)
+        q = None if temps is None else torch.stack(dists, dim=1)
+        t = catch_t.gather(1, (clen_t.long() - 1).clamp(min=0)[:, None])
+        return self._verify_chunk(torch.cat([t, g], dim=1), q, caps, bt,
+                                  lens, temps, tks, tps)
+
+    def _verify_chunk(self, chunk: torch.Tensor, q: Optional[torch.Tensor],
+                      caps: np.ndarray, bt: torch.Tensor, lens: torch.Tensor,
+                      temps, tks, tps):
+        """The target's verify, shared by both kinds of speculation (JAX
+        engine.py:1146-1251): ONE chunked prefill over chunk = [t, g_0 ..
+        g_{K-1}] [B, K+1] with every position's logits, then per slot:
+
+          greedy: a_i = the biased argmax (what plain decode emits), m =
+            the longest prefix with a_i == g_i; n_emit = m + 1;
+          sampled: rejection sampling against the warped target
+            distribution p_i (bias, temperature, top-k / top-p): accept
+            g_i when u * q_i(g_i) < p_i(g_i), draw the first rejected
+            position from the residual (p_i - q_i)^+, or from p_i with
+            g_i zeroed when the proposals are prompt lookup's (q None: a
+            one-hot q), or the bonus from p_K when all K are accepted.
+
+        A slot verifies min(caps, K+1) positions (0 when empty); n_emit =
+        min(m + 1, caps), so rows past a slot's verify length (the
+        kernel's rows past the context) never decide.  Logprobs are the
+        raw model's.  Returns the host arrays a [B, K+1], lp [B, K+1] or
+        None, n_emit [B] and m = n_emit - 1 [B], copied in ONE transfer."""
+        k = chunk.shape[1] - 1
+        active = np.array([r is not None for r in self.slots])
+        vlen = np.where(active, np.minimum(caps, k + 1), 0)
+        lidx = self._lora_row()
+        out = self.model.prefill_step_fused(
+            self.params, chunk, lens, self._device_row(vlen), self.kv_pages,
+            bt, self.cfg, self.rope_cos, self.rope_sin, self.kv_scales,
+            all_logits=True, **self._lora_kw(lidx))
+        logits = out[0]                                    # [B, K+1, V]
+        bias = self._bias_matrix()
+        biased = logits if bias is None else logits + bias[:, None, :]
+        arg = torch.argmax(biased, dim=-1)                 # [B, K+1]
+        g = chunk[:, 1:]
+        if temps is None:
+            a = arg
+            m = torch.cumprod((arg[:, :k] == g).long(), dim=1).sum(dim=1)
+        else:
+            b, v = biased.shape[0], biased.shape[-1]
+            p = torch.softmax(self._warp(biased, temps, tks, tps), dim=-1)
+            p_at_g = p[:, :k].gather(-1, g[..., None])[..., 0]
+            if q is None:  # deterministic proposals: q_i = one-hot(g_i)
+                q_at_g = torch.ones_like(p_at_g)
+                residual = p[:, :k].scatter(-1, g[..., None], 0.0)
+            else:
+                q_at_g = q.gather(-1, g[..., None])[..., 0]
+                residual = (p[:, :k] - q).clamp(min=0.0)
+            u = torch.rand((b, k), generator=self.generator,
+                           device=self.device)
+            acc = torch.where((temps <= 0.0)[:, None], arg[:, :k] == g,
+                              u * q_at_g < p_at_g)
+            m = torch.cumprod(acc.long(), dim=1).sum(dim=1)  # [B] in 0..K
+            mk = m.clamp(max=k)[:, None]
+            res_m = residual.gather(1, m.clamp(max=k - 1)[:, None, None]
+                                    .expand(b, 1, v))[:, 0]
+            rs = res_m.sum(dim=-1, keepdim=True)
+            p_m = p.gather(1, mk[..., None].expand(b, 1, v))[:, 0]
+            # rs ~ 0 only where p == q at the rejection, whose acceptance
+            # was 1: fall back to p_m there
+            final = torch.where(m[:, None] >= k, p_m,
+                                torch.where(rs > 1e-12, res_m / rs, p_m))
+            drawn = sampling._gumbel_argmax(torch.log(final), self.generator)
+            final_tok = torch.where(temps > 0.0, drawn,
+                                    arg.gather(1, mk)[:, 0])
+            a = torch.cat([g, torch.zeros_like(g[:, :1])], dim=1)
+            a = a.scatter(1, mk, final_tok[:, None])
+        n_emit = torch.minimum(m + 1, self._device_row(caps, torch.int64))
+        parts = [a.double().flatten(), n_emit.double()]
+        if any(r is not None and r.want_logprobs for r in self.slots):
+            parts.append(_chosen_logprob(logits.reshape(-1, logits.shape[-1]),
+                                         a.flatten()).double())
+        # one host copy: f64 holds every token id, count and f32 logprob
+        host = torch.cat(parts).cpu().numpy()
+        nb = a.numel()
+        a_np = host[:nb].astype(np.int64).reshape(a.shape)
+        n_np = host[nb:nb + len(caps)].astype(np.int64)
+        lp_np = (host[nb + len(caps):].astype(np.float32).reshape(a.shape)
+                 if len(parts) > 2 else None)
+        return a_np, lp_np, n_np, n_np - 1
+
+    def _commit_round(self, a, lp, n_emit, m, k, counted=None):
+        """A round's commit for both kinds of speculation (JAX
+        engine.py:776-822): each slot emits its n_emit tokens (cut at a
+        stop, eos or cancel as multi-step decode is; pages past them are
+        hidden by the length and overwritten), its length moves on, the
+        acceptance counters take the `counted` slots' K and m, and after
+        SPEC_DISABLE_ROUNDS rounds under spec_min_acceptance speculation
+        stops for good.  Returns {slot: (old length, emitted, m,
+        retired)}."""
+        self.spec_rounds += 1
+        info = {}
+        for s, req in enumerate(self.slots):
+            if req is None:
+                continue
+            lens_old = int(self.slot_lens[s])
+            if counted is None or counted[s]:
+                self.spec_drafted += k
+                self.spec_accepted += int(m[s])
+            emitted = 0
+            for j in range(int(n_emit[s])):
+                self.tokens_generated += 1
+                req._emit(int(a[s, j]), None if lp is None else lp[s, j])
+                emitted += 1
+                if self.slots[s] is not req or req.done:
+                    break  # cancel() from the callback, or finished
+            retired = self.slots[s] is not req
+            if not retired and req.done:
+                self._retire(s)
+                retired = True
+            if not retired:
+                self.slot_lens[s] = lens_old + emitted
+            info[s] = (lens_old, emitted, int(m[s]), retired)
+        rate = self.spec_accepted / max(self.spec_drafted, 1)
+        if (self.spec_min_acceptance > 0.0
+                and self.spec_rounds >= SPEC_DISABLE_ROUNDS
+                and rate < self.spec_min_acceptance):
+            self._spec_disabled = True
+            logger.info("speculation disabled: acceptance %.3f < %.3f after "
+                        "%d rounds", rate, self.spec_min_acceptance,
+                        self.spec_rounds)
+        return info
+
+    def _ngram_propose(self, seq: np.ndarray) -> Optional[np.ndarray]:
+        """Prompt lookup (JAX engine.py:1264-1286): the trailing n-gram
+        of the context (n = ngram_max .. 1, longest first) matched against
+        earlier context, the latest occurrence winning; returns the K
+        tokens after it (padded by repeating its last token when the match
+        sits near the end), or None when nothing matches."""
+        from numpy.lib.stride_tricks import sliding_window_view
+
+        k, n_seq = self.ngram_spec, seq.size
+        for n in range(min(self.ngram_max, n_seq - 1), 0, -1):
+            tail = seq[n_seq - n:]
+            wins = sliding_window_view(seq, n)[:n_seq - n]  # not the tail
+            hits = np.flatnonzero((wins == tail).all(axis=1))
+            if hits.size == 0:
+                continue
+            i = int(hits[-1])
+            cont = seq[i + n:i + n + k]
+            if cont.size < k:
+                cont = np.concatenate(
+                    [cont, np.full(k - cont.size, cont[-1], seq.dtype)])
+            return cont
+        return None
+
+    def _ngram_all(self, caps: np.ndarray) -> bool:
+        """One prompt-lookup round (JAX engine.py:1288-1327); False (and
+        nothing done) when no slot has a candidate.  A slot without one
+        verifies only its pending token and is not counted."""
+        t0 = time.perf_counter()
+        k = self.ngram_spec
+        g = np.zeros((self.max_batch, k), np.int64)
+        t = np.zeros((self.max_batch, 1), np.int64)
+        counted = np.zeros((self.max_batch,), bool)
+        for s, req in enumerate(self.slots):
+            if req is None:
+                continue
+            seq = np.concatenate([req.prompt,
+                                  np.asarray(req.output, np.int32)])
+            t[s] = seq[-1]
+            prop = self._ngram_propose(seq)
+            if prop is not None and caps[s] > 1:
+                g[s] = prop
+                counted[s] = True
+        if not counted.any():
+            return False
+        caps = np.where(counted, caps, 1).astype(np.int32)
+        temps, tks, tps = self._spec_sampling_args()
+        a, lp, n_emit, m = self._verify_chunk(
+            self._device_row(np.concatenate([t, g], axis=1), torch.int64),
+            None, caps,
+            self._block_table(), self._device_row(self.slot_lens), temps,
+            tks, tps)
+        self.decode_seconds += time.perf_counter() - t0
+        self._commit_round(a, lp, n_emit, m, k, counted=counted)
+        return True
+
     def _retire(self, slot: int) -> None:
         """Finish the slot's request: cached pages drop a reference and
         stay resident until evicted, private pages are freed."""
@@ -864,6 +1355,7 @@ class ServingEngine:
         self.slots[slot] = None
         self.slot_pages[slot] = []
         self.slot_lens[slot] = 0
+        self.slot_dlens[slot] = 0
 
 
 # -- checkpoint / resume (JAX engine.py:1726-1855) ---------------------------
@@ -872,15 +1364,16 @@ class ServingEngine:
 def _pools_tree(eng: ServingEngine, leaf=None) -> Dict[str, Any]:
     """The engine's pools under the JAX engine's keys: the fused pool and
     its packed scales are JAX's `k_pages` and `k_scales` (its `v_pages`
-    and `v_scales` are None then); there is no draft pool (`dk_*`).  With
-    `leaf`, every pool is replaced by it (a template for load_pytree)."""
+    and `v_scales` are None then), the draft's fused pool and scales its
+    `dk_pages` and `dk_scales` (None without a draft model).  With `leaf`,
+    every pool is replaced by it (a template for load_pytree)."""
     if eng.layout == "fused":
         tree = {"k_pages": eng.kv_pages, "v_pages": None,
                 "k_scales": eng.kv_scales, "v_scales": None}
     else:
         tree = {"k_pages": eng.k_pages, "v_pages": eng.v_pages,
                 "k_scales": eng.k_scales, "v_scales": eng.v_scales}
-    tree.update(dk_pages=None, dk_scales=None)
+    tree.update(dk_pages=eng.dk_pages, dk_scales=eng.dk_scales)
     if leaf is not None:
         tree = {k: None if v is None else leaf for k, v in tree.items()}
     return tree
@@ -890,8 +1383,10 @@ def save_engine_state(eng: ServingEngine, path: str) -> None:
     """Persist the pools and the request, slot and prefix-cache
     bookkeeping to `<path>.pools.npz` / `.pools.tree.json` / `.state.json`,
     the JAX engine's files; params and adapters are not saved
-    (utils.checkpoint.save_pytree them separately).  Speculative decoding's
-    fields are written as an engine without it writes them.  The sampler's
+    (utils.checkpoint.save_pytree them separately).  Speculative decoding
+    writes the draft's pool, each slot's draft length and the acceptance
+    counters under JAX's keys (JAX saves no round count: a resumed engine
+    of either package counts rounds from 0).  The sampler's
     state is a torch.Generator's, under a key of the port's own
     (`torch_generator_state`): JAX's `rng_key` cannot be derived from it,
     so a JAX engine resumes the port's sampled requests from its own
@@ -921,10 +1416,10 @@ def save_engine_state(eng: ServingEngine, path: str) -> None:
         "page_rc": {str(k): v for k, v in eng._page_rc.items()},
         "prefix_hit_tokens": eng.prefix_cache_hit_tokens,
         "free_pages": eng.allocator.free_list(),
-        "slot_dlens": [0] * eng.max_batch,
-        "spec_drafted": 0,
-        "spec_accepted": 0,
-        "spec_disabled": False,
+        "slot_dlens": eng.slot_dlens.tolist(),
+        "spec_drafted": eng.spec_drafted,
+        "spec_accepted": eng.spec_accepted,
+        "spec_disabled": eng._spec_disabled,
         "torch_generator_state": eng.generator.get_state().tolist(),
     }
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
@@ -936,18 +1431,16 @@ def load_engine_state(eng: ServingEngine, path: str) -> None:
     """Restore state saved by save_engine_state, of either package, into
     a freshly constructed engine of the same configuration (pools of the
     same layout, shapes and dtypes, written in place; the same adapters
-    registered).  A request on an adapter the engine lacks raises
-    ValueError, as JAX's; a file holding speculative-decoding state raises
-    NotImplementedError naming the slice that brings it.  A JAX file
-    carries no torch.Generator state: the engine keeps its own, so greedy
-    requests resume exactly."""
+    registered, the same draft model).  A request on an adapter the engine
+    lacks raises ValueError, as JAX's, and so does a draft pool's state
+    for an engine without a draft model.  A JAX file carries no
+    torch.Generator state: the engine keeps its own, so greedy requests
+    resume exactly."""
     with open(path + ".state.json") as f:
         host = json.load(f)
-    if (host.get("spec_drafted") or host.get("spec_accepted")
-            or any(host.get("slot_dlens", []))):
-        raise NotImplementedError(
-            f"load_engine_state: the file holds speculative-decoding state; "
-            f"speculative decoding is not ported yet, it comes with {_SPEC}")
+    if any(host.get("slot_dlens", [])) and eng.dk_pages is None:
+        raise ValueError("the file holds a draft pool's state and the "
+                         "engine has no draft model (spec_tokens=0)")
     if len(host["slots"]) != eng.max_batch:
         raise ValueError(f"the file has {len(host['slots'])} batch slots, "
                          f"the engine {eng.max_batch}")
@@ -1005,6 +1498,11 @@ def load_engine_state(eng: ServingEngine, path: str) -> None:
     eng.prefix_cache_hit_tokens = int(host.get("prefix_hit_tokens", 0))
     eng._bias_cache = None
     eng.allocator.set_free_list([int(p) for p in host["free_pages"]])
+    eng.slot_dlens = np.asarray(host.get("slot_dlens",
+                                         [0] * eng.max_batch), np.int32)
+    eng.spec_drafted = int(host.get("spec_drafted", 0))
+    eng.spec_accepted = int(host.get("spec_accepted", 0))
+    eng._spec_disabled = bool(host.get("spec_disabled", False))
     if "torch_generator_state" in host:
         eng.generator.set_state(torch.tensor(host["torch_generator_state"],
                                              dtype=torch.uint8))

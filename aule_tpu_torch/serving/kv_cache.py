@@ -1,25 +1,29 @@
 """Paged KV-cache management (counterpart of aule_tpu/serving/kv_cache.py).
 
   * `PythonPageAllocator`: the LIFO free list of page ids;
+  * `make_allocator`: the native C++ allocator (serving/native.py) where
+    g++ builds it, else `PythonPageAllocator` with a logged warning;
   * `PagedKVCache`: split-layout pools ([Hkv, P, page, D] K and V, and f32
     scales [Hkv, P, page] each when quantized; ops/paged.py) with the
     host-side bookkeeping of each sequence's pages and length.  Growth
     keeps the data.
 
-The native C++ allocator (aule_tpu/serving/native.py) comes with a later
-slice; unlike JAX's `make_allocator`, nothing here falls back quietly from
-one allocator to another.
+Both allocators hand out the same pages in the same order for the same
+calls, so free lists and checkpoint files do not depend on which one runs.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import logging
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from .. import config
+
+logger = logging.getLogger("aule_tpu_torch")
 
 
 class PagePoolExhausted(RuntimeError):
@@ -61,6 +65,21 @@ class PythonPageAllocator:
 
     def set_free_list(self, pages: List[int]) -> None:
         self._free = list(pages)
+
+
+def make_allocator(num_pages: int):
+    """The native allocator (serving/native.py, built with g++ at first
+    use) where it builds and loads, else PythonPageAllocator (JAX
+    kv_cache.py:69-76); the fallback logs a warning with the build
+    error."""
+    try:
+        from .native import NativePageAllocator
+
+        return NativePageAllocator(num_pages)
+    except Exception as e:
+        logger.warning("make_allocator: falling back to PythonPageAllocator "
+                       "(%s)", e)
+        return PythonPageAllocator(num_pages)
 
 
 @dataclasses.dataclass
@@ -111,7 +130,7 @@ class PagedKVCache:
                           v_scales=zeros(shape[:-1], torch.float32))
         return cls(zeros(shape, pool_dtype), zeros(shape, pool_dtype),
                    page_size, max_pages_per_seq,
-                   PythonPageAllocator(num_pages), **scales)
+                   make_allocator(num_pages), **scales)
 
     @property
     def num_pages(self) -> int:

@@ -134,6 +134,30 @@ Phases, each printing a line of its own:
      2 micro-batches) on Llama-3-8B at full width on 8 layers, 3 steps of
      B2 x 2049 tokens (launches asserted, the loss falling, step 2 timed,
      peak memory), then the update on the card against the CPU's;
+  6f. spec, in a process of its own (`--spec`): speculative decoding.
+     First the kernels at the shapes it gives them, each twice with the
+     same bits, held to its plain version and timed beside its bound and
+     SDPA: the verify's paged prefill at B8 x 5 queries over 4,096 tokens
+     (D128 group 4; ragged slots of 5, 1 and 0 queries checked) and the
+     draft's catch-up prefill at D64 group 4, over bf16, int8 and e4m3
+     pools; the draft's decode at D64 group 4, B8 ctx4096; the draft's
+     whole-prompt flash forward at D64 group 4.  Then Llama-3-8B at full
+     width and depth serves the 12 prompts, 48 new tokens each, over
+     ENGINE_KW with 1,024 pages (SPEC_KW): (s0) plain bf16 chunk 512;
+     (s1) self-draft K=4, 4 requests sampled at temperature 0.8 / top-p
+     0.9, saved after its first round and resumed by a fresh engine with
+     the same greedy tokens; (s2) a Llama-3.2-1B-shaped draft (LLAMA32_1B,
+     random weights) K=4 over an int8 pool, whole-prompt, turned off after
+     8 rounds under spec_min_acceptance 0.3; (s3) prompt lookup K=4 over
+     prompts that repeat a 64-token span, half sampled with top-k 20.
+     Each run on the native page allocator, its launches checked round by
+     round (the target's verify 32 paged prefills, the draft's prefill
+     once a layer and its decode K-1 times a layer), every page back,
+     greedy tokens held to a teacher-forced plain forward (int8: a
+     plain-attention replay), sampled ones inside their sets; (s1)'s
+     greedy-prefix match against (s0) and its acceptance against JAX's
+     chip floors; one (s1) round and one (s3) round under the profiler
+     beside a plain dispatch;
   7. engine: a full-width, full-depth Llama-3-8B (random bf16 weights from
      a seeded generator on the card) serves the same 12 greedy requests
      eight times through `ServingEngine`: over fused pools, bf16 with
@@ -174,8 +198,9 @@ Phases, each printing a line of its own:
      launched (the engine runs, the GPT-2 runs, the Llama-3.2-3B runs for
      the group-3 modes, the train steps for the backward, the public
      phase's calls for its modes and the GPT-2 phase's split-layout
-     calls; the Mixtral runs, the AdamW steps and the edges runs added to
-     the modes they launch);
+     calls; the Mixtral runs, the AdamW steps, the edges runs and the spec
+     runs added to the modes they launch; the spec phase's verify, draft
+     prefill, draft decode and D64 flash modes);
   11. last line: {"ok": true, "device": {...}}, printed only when every
      phase passed.  Any failure raises and the exit code is non-zero.
 
@@ -1516,15 +1541,21 @@ def run_engine(params, cfg, prompts, label, model=None, engine_kw=ENGINE_KW,
     paged_decode.cu and
     paged_prefill.cu at every head dim, and the other family never) and
     that every page came back (a cached page stays resident: free and
-    cached pages together).  `routing` (a _Routing) logs where a mixture of
+    cached pages together), on the native page allocator.  `routing` (a
+    _Routing) logs where a mixture of
     experts sent each token.  `submit_kw` gives each request's options
     (`stop`: the request may end early; a prefix-cache hit prefills from
     the hit); `info`, a dict, receives each request's logprobs, its cache
     hit and prefix pages, the run's stats and the engine's LoRA bank."""
     from aule_tpu_torch.serving.engine import ServingEngine
+    from aule_tpu_torch.serving.native import NativePageAllocator
 
     eng = ServingEngine(params, cfg, device=DEV, model=model, **engine_kw,
                         **kw)
+    if not isinstance(eng.allocator, NativePageAllocator):
+        raise AssertionError(f"{label}: the engine runs on "
+                             f"{type(eng.allocator).__name__}, not the native "
+                             f"allocator")
     submit_kw = submit_kw or [{}] * len(prompts)
     hits = {}
     if eng.enable_prefix_cache:
@@ -1931,7 +1962,8 @@ def check_plain_forward(params, cfg, prompts, outputs, label, model=None,
 
 def check_replay(params, cfg, prompts, outputs, label, quant_dtype, chunk,
                  layout="fused", model=None, engine_kw=ENGINE_KW,
-                 tie=NEAR_TIE, routing=None, edges=None):
+                 tie=NEAR_TIE, routing=None, edges=None,
+                 new_tokens=NEW_TOKENS):
     """Teacher-forced replay of a quantized run's steps with the plain
     attention versions: each prompt is prefilled alone into fresh pools of
     the run's layout written the same way (chunked through
@@ -1941,7 +1973,7 @@ def check_replay(params, cfg, prompts, outputs, label, quant_dtype, chunk,
     given; `engine_kw`: the run's engine settings; `tie`: the near-tie
     allowance; a mixture of experts routed as the run was by `routing`, a
     detached _Routing; per-request options, adapters and lengths judged by
-    `edges`, an _EdgeJudge)."""
+    `edges`, an _EdgeJudge; `new_tokens`: the run's max_new_tokens)."""
     from aule_tpu_torch.models import llama
     from aule_tpu_torch.ops import paged
     from aule_tpu_torch.ops.flash_vjp import flash_attention_vjp_plain
@@ -1955,7 +1987,7 @@ def check_replay(params, cfg, prompts, outputs, label, quant_dtype, chunk,
     dev = DEV
     model = model or llama
     page = engine_kw["page_size"]
-    need = [-(-(len(p) + NEW_TOKENS) // page) for p in prompts]
+    need = [-(-(len(p) + new_tokens) // page) for p in prompts]
     num_pages = 1 + sum(need)
 
     def zeros(shape, dtype):
@@ -1982,9 +2014,9 @@ def check_replay(params, cfg, prompts, outputs, label, quant_dtype, chunk,
     bt = torch.from_numpy(bt_np).to(dev)
     cos, sin = precompute_rope_frequencies(
         engine_kw["max_seq_len"], cfg.head_dim, cfg.rope_base, device=dev)
-    # [R, NEW_TOKENS]; a request that stopped early is padded with 0s past
+    # [R, new_tokens]; a request that stopped early is padded with 0s past
     # its end, which feed its row but are never judged
-    out_t = torch.tensor([list(o) + [0] * (NEW_TOKENS - len(o))
+    out_t = torch.tensor([list(o) + [0] * (new_tokens - len(o))
                           for o in outputs], device=dev)
     agree = _Agreement(label, tie) if edges is None else edges.start(tie)
 
@@ -4661,6 +4693,689 @@ def check_adamw() -> dict:
     return res
 
 
+# The spec phase: speculative decoding on Llama-3-8B, in a process of its
+# own (`python3 chip_smoke.py --spec`).  The 12 prompts of PROMPT_LENS,
+# SPEC_NEW_TOKENS each, over ENGINE_KW with SPEC_PAGES pages: the requests
+# hold at most 887 pages at once, and run (s1)'s resume file carries the
+# target's and the draft's pools (2 x 2.1 GB at 1,024 pages).
+SPEC_SEED = SEED + 20       # the kernel checks' generator, and (s2)'s draft
+SPEC_NEW_TOKENS = 48
+SPEC_K = 4
+SPEC_PAGES = 1024
+SPEC_KW = dict(ENGINE_KW, num_pages=SPEC_PAGES)
+SPEC_TEMP = 0.8
+SPEC_SPAN = 64               # (s3)'s prompts repeat a span of this length
+# Llama-3.2-1B's shape (meta-llama/Llama-3.2-1B config.json), cut as
+# LLAMA32_3B is: an untied head and plain RoPE (no llama3 frequency
+# scaling); its weights come from the seed DRAFT_SEED
+LLAMA32_1B = dict(vocab_size=128256, dim=2048, n_layers=16, n_heads=32,
+                  n_kv_heads=8, hidden_dim=8192, rope_base=500000.0,
+                  norm_eps=1e-5)
+DRAFT_SEED = SEED + 1
+# JAX's chip floors (tests/test_speculative.py:444-474): the greedy-prefix
+# match of a self-draft run against plain greedy, and its acceptance
+SPEC_MIN_MATCH = 0.95
+SPEC_MIN_ACCEPT = 0.85
+# (s2) turns speculation off after 8 rounds under this acceptance
+SPEC_S2_MIN_ACCEPT = 0.3
+SPEC_COUNTERS = ("paged_prefill", "paged_decode", "flash_fwd",
+                 "flash_fwd_short", "flash_fwd_decode", "flash_fwd_f32")
+
+
+def _spec_prefill_check(gen, res, key, d, hist, chunk, modes, timed):
+    """The paged prefill (csrc/paged_prefill.cu) at a speculative round's
+    shape: B = len(hist) sequences of chunk[b] queries at q_offset hist[b]
+    (0 queries: an empty slot; 1: a slot that verifies its pending token
+    alone), Hq32/Hkv8 D`d`, 16-token pages in shuffled 272-entry tables.
+    Each (mode, payload dtype or None) of `modes` twice with the same bits
+    and held to its plain version (ROW_TOL, LSE_TOL; rows past a
+    sequence's queries exact zeros); with `timed` (every hist equal) its
+    times beside its bound, its plain version and SDPA on the gathered
+    (dequantized) K/V with a positional mask, GQA expanded."""
+    from aule_tpu_torch.ops.paged_fused import (dequantize_pool,
+                                                from_fused_layout)
+    from aule_tpu_torch.ops.paged_prefill import (
+        paged_attention_prefill, paged_attention_prefill_plain)
+    from aule_tpu_torch.ops.reference import _gather_pages, build_mask
+    from aule_tpu_torch.utils import profiling
+
+    hq, hkv, batch, s = 32, 8, len(hist), max(chunk)
+    total = [h + c for h, c in zip(hist, chunk)]
+    pool, bt = _generic_pool(gen, total, 272, 16, hkv, d, torch.bfloat16,
+                             True)
+    q = _randn((batch, hq, s, d), gen)
+    ln = torch.tensor(total, dtype=torch.int32, device=DEV)
+    qoff = torch.tensor(hist, dtype=torch.int32, device=DEV)
+    shape = (f"B{batch} x {s} queries over {min(total)}-{max(total)} "
+             f"Hq{hq}/Hkv{hkv} D{d} page16")
+    for name, qdt in modes:
+        pl, sc = _gen_quantized(pool, qdt)
+        kw = dict(q_offsets=qoff, kv_scales=sc)
+        kernel = (lambda **x: paged_attention_prefill(q, pl, bt, ln, **kw,
+                                                      **x))
+        plain = (lambda **x: paged_attention_prefill_plain(q, pl, bt, ln,
+                                                           **kw, **x))
+        what = f"spec {key} {name} {shape}"
+        o, lse = _twice(what, lambda: kernel(return_lse=True))
+        po, plse = plain(return_lse=True)
+        res["err"][f"{key} {name}"] = hold(what, o, po, lse, plse,
+                                           ROW_TOL[torch.bfloat16])
+        del o, lse, po, plse
+        if not timed:
+            continue
+        k, v = (from_fused_layout(pl, d) if qdt is None
+                else dequantize_pool(pl, sc, d))
+        kd, vd = (_gather_pages(x, bt).to(torch.bfloat16).repeat_interleave(
+            hq // hkv, dim=1) for x in (k, v))
+        mask = build_mask(s, kd.shape[2], True, device=DEV,
+                          q_offset=hist[0])
+        payload = 2 if qdt is None else 1
+        nbytes = (2 * q.numel() * 2 + profiling.paged_kv_bytes(
+            sum(total), hkv, d, payload, 0 if qdt is None else 2)
+            + batch * 272 * 4 + 2 * batch * 4)
+        res["time"][f"{key} {name}"] = _mode_time(
+            f"spec {key} time {name} {shape}", kernel, plain,
+            lambda: SDPA(q, kd, vd, attn_mask=mask), "paged_prefill_kernel",
+            nbytes, profiling.paged_prefill_flops(hist, chunk, hq, d),
+            profiling.H100_BF16_FLOPS)
+        del kd, vd, k, v
+    del pool, q
+    torch.cuda.empty_cache()
+
+
+def _spec_decode_check(gen, res):
+    """The draft's decode (csrc/paged_decode.cu at D64 group 4: Hq32/Hkv8,
+    Llama-3.2-1B's heads) at B8 ctx4096 page 16 over bf16, int8 (dot
+    products) and e4m3 pools with bf16 scales: twice with the same bits,
+    held to its plain version, then timed (_decode_mode_times: device
+    time beside its bound, its plain version and SDPA)."""
+    from aule_tpu_torch.ops.paged_fused import (paged_attention_fused,
+                                                paged_attention_fused_plain)
+
+    lens = [4096] * 8
+    pool, bt = _generic_pool(gen, lens, 272, 16, 8, 64, torch.bfloat16, True)
+    ln = torch.tensor(lens, dtype=torch.int32, device=DEV)
+    q = _randn((8, 32, 64), gen)
+    modes = [("bf16", torch.bfloat16, None, None, torch.bfloat16),
+             ("int8 dot", torch.bfloat16, torch.int8, True, torch.bfloat16),
+             ("fp8", torch.bfloat16, torch.float8_e4m3fn, None,
+              torch.bfloat16)]
+    for mode in modes:
+        name, _, qdt, dot, _ = mode
+        pl, sc = _gen_quantized(pool, qdt)
+        kw = dict(kv_scales=sc, int8_matmul=dot)
+        what = f"spec draft decode {name} B8 ctx4096 Hq32/Hkv8 D64 page16"
+        o, lse = _twice(what, lambda: paged_attention_fused(
+            q, pl, bt, ln, return_lse=True, **kw))
+        po, plse = paged_attention_fused_plain(q, pl, bt, ln,
+                                               return_lse=True, **kw)
+        res["err"][f"draft decode {name}"] = hold(
+            what, o, po, lse, plse, _tol(torch.bfloat16, bool(dot)))
+        del o, lse, po, plse
+        _decode_mode_times(gen, res, "draft ", mode, lens, (32, 8, 64), 272,
+                           False)
+    del pool, q
+    torch.cuda.empty_cache()
+
+
+def _spec_flash_check(gen, res):
+    """The draft's whole-prompt prefill: csrc/flash_fwd.cu's TMA kernel at
+    D64 group 4 (B1 Hq32/Hkv8, causal) at S2048 (timed beside its bound,
+    its plain version and SDPA on GQA-expanded K/V) and S1000 (ragged
+    tiles), twice with the same bits, held to its plain version."""
+    from aule_tpu_torch.ops.flash import (flash_attention_fwd_plain,
+                                          flash_fwd_tma)
+    from aule_tpu_torch.utils import profiling
+
+    for s in (2048, 1000):
+        q = _randn((1, 32, s, 64), gen)
+        k, v = (_randn((1, 8, s, 64), gen) for _ in range(2))
+        what = f"spec draft flash fwd B1 Hq32/Hkv8 S{s} D64 bf16 causal"
+        kernel = lambda **x: flash_fwd_tma(q, k, v, causal=True, **x)
+        plain = lambda: flash_attention_fwd_plain(q, k, v, causal=True)
+        o, lse = _twice(what, kernel)
+        po, plse = plain()
+        res["err"][f"flash d64 S{s}"] = hold(what, o, po, lse, plse,
+                                             ROW_TOL[torch.bfloat16])
+        del o, lse, po, plse
+        if s == 2048:
+            kx, vx = (x.repeat_interleave(4, dim=1) for x in (k, v))
+            nbytes = 2 * (2 * q.numel() + k.numel() + v.numel()) + 4 * 32 * s
+            res["time"]["flash d64"] = _mode_time(
+                f"spec draft flash fwd time B1 Hq32/Hkv8 S{s} D64 bf16 "
+                f"causal", lambda: kernel(return_lse=False),
+                lambda: plain()[0],
+                lambda: SDPA(q, kx, vx, is_causal=True), "flash_fwd_kernel",
+                nbytes, profiling.attention_flops(1, 32, s, s, 64, True),
+                profiling.H100_BF16_FLOPS)
+            del kx, vx
+        del q, k, v
+
+
+def _spec_kernel_checks(res) -> None:
+    """The kernels at the shapes speculation gives them (a generator of
+    its own): the verify's prefill at B8 x (K+1) queries, D128 group 4,
+    over contexts near 4096 (timed) and ragged (slots of K+1, 1 and 0
+    queries), in bf16, int8 and e4m3 pools; the draft's catch-up prefill
+    at D64 group 4 the same way; the draft's decode at D64 group 4, B8
+    ctx4096; the draft's whole-prompt flash forward at D64 group 4."""
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(SPEC_SEED)
+    modes = (("bf16", None), ("int8", torch.int8),
+             ("fp8", torch.float8_e4m3fn))
+    k1 = SPEC_K + 1
+    ragged_hist = [4091, 3000, 4095, 0, 17, 2048, 4000, 1]
+    ragged_chunk = [k1, k1, 1, 0, k1, 1, k1, k1]
+    for key, d in (("verify", 128), ("draft prefill", 64)):
+        _spec_prefill_check(gen, res, key, d, [4096 - k1] * 8, [k1] * 8,
+                            modes, True)
+        _spec_prefill_check(gen, res, key + " ragged", d, ragged_hist,
+                            ragged_chunk, modes, False)
+    _spec_decode_check(gen, res)
+    _spec_flash_check(gen, res)
+
+
+class _SpecSpy:
+    """The launch counts of a speculative engine's run, by where they
+    happen: spies on the engine's methods read the counters
+    (_launch_counters, SPEC_COUNTERS) before and after each call.  Buckets:
+    the target's and the draft's prompt prefill (whole or chunks, lag
+    catch-up chunks included), plain decode dispatches, and per round the
+    target's verify and the draft's part (the round less its verify)."""
+
+    def __init__(self, eng):
+        import inspect
+
+        self.counters = {k: v for k, v in _launch_counters().items()
+                         if k in SPEC_COUNTERS}
+        self.buckets = {}
+        self.rounds = []
+        self._verify = None
+
+        def snap():
+            return {k: fn.launches for k, fn in self.counters.items()}
+
+        def delta(a, b):
+            return {k: b[k] - a[k] for k in a}
+
+        def add(bucket, d):
+            acc = self.buckets.setdefault(bucket, dict.fromkeys(d, 0))
+            for k, n in d.items():
+                acc[k] += n
+
+        def wrap(name, bucket_of):
+            orig = getattr(eng, name)
+            sig = inspect.signature(orig)
+
+            def spy(*a, **k):
+                before = snap()
+                out = orig(*a, **k)
+                bucket_of(sig.bind(*a, **k).arguments, delta(before, snap()))
+                return out
+
+            setattr(eng, name, spy)
+
+        def prefill(args, d):
+            add("draft prefill" if args.get("draft") else "target prefill",
+                d)
+
+        def verify(args, d):
+            self._verify = d
+            add("verify", d)
+
+        def round_(args, d):
+            target = self._verify
+            draft = {k: d[k] - target[k] for k in d}
+            self.rounds.append(dict(draft=draft, target=target))
+            add("round draft", draft)
+
+        def ngram(args, d):
+            if self._verify is not None:
+                self.rounds.append(dict(draft=None, target=self._verify))
+
+        def decode(args, d):
+            add("decode", d)
+
+        wrap("_prefill", prefill)
+        wrap("_prefill_chunk", prefill)
+        wrap("_verify_chunk", verify)
+        wrap("_spec_round", round_)
+        wrap("_decode_all", decode)
+        orig_ngram = eng._ngram_all
+
+        def ngram_spy(caps):
+            self._verify = None
+            fired = orig_ngram(caps)
+            ngram(None, None)
+            return fired
+
+        eng._ngram_all = ngram_spy
+        self.eng = eng
+
+    def detach(self):
+        for name in ("_prefill", "_prefill_chunk", "_verify_chunk",
+                     "_spec_round", "_decode_all", "_ngram_all"):
+            self.eng.__dict__.pop(name, None)
+        self.eng = None
+
+
+def _spec_launch_checks(label, spy, eng, cfg, dcfg, prompts, totals):
+    """Every round launched the target's paged prefill once a layer and
+    no decode, the draft's paged prefill once a layer and its decode K-1
+    times a layer; plain dispatches the decode once a layer a step; the
+    prompts' prefill as run_engine's rule has it; and the buckets add up
+    to the counters (no launch outside them)."""
+    from aule_tpu_torch.ops.flash import forward_kernel
+
+    st = eng.stats()
+    lt = cfg.n_layers
+    zero = dict.fromkeys(SPEC_COUNTERS, 0)
+    for i, r in enumerate(spy.rounds):
+        if r["target"] != dict(zero, paged_prefill=lt):
+            raise AssertionError(f"{label}: round {i} launched {r['target']} "
+                                 f"in the verify, not {lt} paged prefills")
+        if r["draft"] is not None:
+            ld = dcfg.n_layers
+            want = dict(zero, paged_prefill=ld,
+                        paged_decode=ld * (eng.spec_tokens - 1))
+            if r["draft"] != want:
+                raise AssertionError(f"{label}: round {i}'s draft launched "
+                                     f"{r['draft']}, not {want}")
+    speculates = eng.spec_tokens > 0 or eng.ngram_spec > 0
+    if len(spy.rounds) != st["spec_rounds"] or (speculates
+                                                and not spy.rounds):
+        raise AssertionError(f"{label}: {len(spy.rounds)} rounds seen, "
+                             f"{st['spec_rounds']} counted")
+    b = spy.buckets
+    want_decode = dict(zero, paged_decode=st["decode_steps"] * lt)
+    if b.get("decode", zero) != want_decode:
+        raise AssertionError(f"{label}: plain decode launched "
+                             f"{b.get('decode')}, not {want_decode}")
+
+    def prefill_want(c, n_disp, lens):
+        if eng.prefill_chunk is not None:
+            return dict(zero, paged_prefill=n_disp * c.n_layers)
+        want = dict(zero)
+        for n in lens:
+            q = torch.empty(1, 1, n, c.head_dim, dtype=c.dtype,
+                            device="meta")
+            name = next(k for k in SPEC_COUNTERS
+                        if spy.counters[k] is forward_kernel(q))
+            want[name] += c.n_layers
+        # a lagging draft pool catches up in chunks through the prefill
+        want["paged_prefill"] += (n_disp - len(lens)) * c.n_layers
+        return want
+
+    lens = [len(p) for p in prompts]
+    checks = [("target prefill", prefill_want(cfg, st["prefill_dispatches"],
+                                              lens))]
+    if dcfg is not None:
+        checks.append(("draft prefill", prefill_want(
+            dcfg, st["draft_prefill_dispatches"], lens)))
+    for bucket, want in checks:
+        if b.get(bucket, zero) != want:
+            raise AssertionError(f"{label}: {bucket} launched "
+                                 f"{b.get(bucket)}, not {want}")
+    added = dict(zero)
+    for d in b.values():
+        for k, n in d.items():
+            added[k] += n
+    if added != totals:
+        raise AssertionError(f"{label}: the buckets add to {added}, the "
+                             f"counters read {totals}")
+
+
+def run_spec_engine(params, cfg, prompts, label, submit_kw, resume=None,
+                    **kw):
+    """Serve the prompts (SPEC_NEW_TOKENS each, per-request options
+    `submit_kw`) through a fresh ServingEngine(**SPEC_KW, **kw) on the
+    card; the launch counts are set to 0 just before the run and read just
+    after, and held by _spec_launch_checks round by round.  Checks the
+    native allocator, that every request finished and every page came
+    back; logs stats().  With `resume` (a dict), the engine is saved after
+    its first round (save_engine_state, a temporary directory; the save is
+    not timed), a fresh engine loads it and finishes, and resume gets
+    both runs' outputs and the file's size and times."""
+    import tempfile
+
+    from aule_tpu_torch.serving.engine import (ServingEngine,
+                                               load_engine_state,
+                                               save_engine_state)
+    from aule_tpu_torch.serving.native import NativePageAllocator
+
+    def engine():
+        return ServingEngine(params, cfg, device=DEV, **SPEC_KW, **kw)
+
+    eng = engine()
+    if not isinstance(eng.allocator, NativePageAllocator):
+        raise AssertionError(f"{label}: the engine runs on "
+                             f"{type(eng.allocator).__name__}, not the native "
+                             f"allocator")
+    for p, skw in zip(prompts, submit_kw):
+        eng.submit(p, SPEC_NEW_TOKENS, **skw)
+    spy = _SpecSpy(eng)
+    for fn in spy.counters.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    t_save, tmp = 0.0, None
+    while eng.has_work():
+        eng.step()
+        if resume is not None and tmp is None and eng.spec_rounds >= 1:
+            torch.cuda.synchronize()
+            ts = time.perf_counter()
+            tmp = tempfile.TemporaryDirectory()
+            path = os.path.join(tmp.name, "engine")
+            save_engine_state(eng, path)
+            t_save = time.perf_counter() - ts
+            resume.update(rounds_at_save=eng.spec_rounds,
+                          file_gb=sum(os.path.getsize(os.path.join(
+                              tmp.name, f)) for f in os.listdir(tmp.name))
+                          / 1e9, save_s=t_save)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0 - t_save
+    totals = {k: fn.launches for k, fn in spy.counters.items()}
+    done = sorted(eng.finished, key=lambda r: r.req_id)
+    eng.finished = []
+    spy.detach()
+    st = eng.stats()
+    n_req = len(prompts)
+    decode_tokens = st["tokens_generated"] - n_req
+    log(f"spec {label}: {len(done)} requests in {wall:.2f} s; prefill "
+        f"{st['prefill_seconds']:.3f} s ({st['prefill_dispatches']} target "
+        f"+ {st['draft_prefill_dispatches']} draft dispatches, "
+        f"{sum(len(p) for p in prompts) / st['prefill_seconds']:.0f} prompt "
+        f"tok/s); decode {st['decode_seconds']:.3f} s: "
+        f"{st['spec_rounds']} rounds + {st['decode_dispatches']} plain "
+        f"dispatches ({st['decode_steps']} steps), {decode_tokens} tokens, "
+        f"{decode_tokens / st['decode_seconds']:.1f} tok/s; acceptance "
+        f"{st['spec_accepted']} / {st['spec_drafted']}")
+    log(f"spec {label}: stats() {st}")
+    parts = {k: {n: c for n, c in v.items() if c}
+             for k, v in spy.buckets.items()}
+    log(f"spec {label}: launches {totals}; by part {parts}")
+    if len(done) != n_req or any(
+            not 0 < len(r.output) <= SPEC_NEW_TOKENS
+            or (len(r.output) < SPEC_NEW_TOKENS and not r.stop
+                and r.eos_id is None) for r in done):
+        raise AssertionError(f"{label}: not every request finished")
+    _spec_launch_checks(label, spy, eng, cfg, eng.draft_cfg, prompts,
+                        totals)
+    if st["free_pages"] != SPEC_PAGES - 1:
+        raise AssertionError(f"{label}: pages leaked: {st['free_pages']} "
+                             f"free")
+    outputs = [list(r.output) for r in done]
+    if resume is not None:
+        if tmp is None:
+            raise AssertionError(f"{label}: no round ran to save after")
+        del eng
+        torch.cuda.empty_cache()
+        fresh = engine()
+        t1 = time.perf_counter()
+        load_engine_state(fresh, path)
+        torch.cuda.synchronize()
+        resume["load_s"] = time.perf_counter() - t1
+        tmp.cleanup()
+        resume["outputs"] = [list(r.output) for r in fresh.run()]
+        if fresh.allocator.num_free != SPEC_PAGES - 1:
+            raise AssertionError(f"{label}: the resumed engine leaked pages")
+        del fresh
+    else:
+        del eng
+    torch.cuda.empty_cache()
+    # a layer pass launches one attention kernel: the decode side's
+    # passes (rounds and plain dispatches) per decode token of the batch
+    passes = sum(sum(spy.buckets.get(b, {}).values())
+                 for b in ("verify", "round draft", "decode"))
+    run = dict(stats=st, wall_s=wall, launches=totals,
+               buckets=spy.buckets, rounds=len(spy.rounds),
+               decode_tok_s=decode_tokens / st["decode_seconds"],
+               layer_passes_per_decode_token=passes / max(decode_tokens, 1))
+    return outputs, run
+
+
+def _prefix_match(got, want):
+    """JAX's greedy-prefix match (tests/test_speculative.py:458-465): each
+    pair compared up to its first mismatch, which counts; the share of the
+    compared tokens that agree, and each pair's first mismatch (None when
+    they agree throughout)."""
+    same = total = 0
+    first = []
+    for g, w in zip(got, want):
+        at = None
+        for j, (a, b) in enumerate(zip(g, w)):
+            total += 1
+            if a != b:
+                at = j
+                break
+            same += 1
+        first.append(at)
+    return same / max(total, 1), same, total, first
+
+
+def _divergence_gaps(params, cfg, prompts, got, want, first):
+    """At each pair's first mismatch j: the plain forward (flash's plain
+    version) over prompt + the shared tokens, and how far below its max
+    logit each run's token j lies.  Two runs that read the same weights
+    through different kernels may part only at a near-tie (both within
+    NEAR_TIE of the max)."""
+    from aule_tpu_torch.models import llama
+    from aule_tpu_torch.ops.flash_vjp import flash_attention_vjp_plain
+
+    gaps = []
+    with torch.no_grad():
+        for p, g, w, j in zip(prompts, got, want, first):
+            if j is None:
+                continue
+            seq = np.concatenate([p, np.asarray(w[:j], np.int32)])
+            tokens = torch.from_numpy(seq.astype(np.int64))[None].to(DEV)
+            row = llama.forward(params, tokens, cfg,
+                                attention=flash_attention_vjp_plain)[0][-1]
+            top = float(row.max())
+            gaps.append((top - float(row[g[j]]), top - float(row[w[j]])))
+            del row
+    return gaps
+
+
+def _spec_round_profiles(params, cfg, prompts, prompts3, res) -> None:
+    """One round of (s1)'s configuration and one of (s3)'s under
+    torch.profiler, beside one plain 8-step dispatch: the first 8 prompts,
+    prefilled, then one engine step profiled (a prompt-lookup step only
+    when a slot has a candidate).  Kernels, device busy share and tokens
+    emitted per profiled step."""
+    from aule_tpu_torch.serving.engine import ServingEngine
+    from aule_tpu_torch.utils import profiling
+
+    for key, kw, ps in (
+            ("plain", {}, prompts),
+            ("s1", dict(draft_params=params, draft_cfg=cfg,
+                        spec_tokens=SPEC_K), prompts),
+            ("s3", dict(ngram_spec=SPEC_K), prompts3)):
+        eng = ServingEngine(params, cfg, device=DEV, prefill_chunk=CHUNK,
+                            **SPEC_KW, **kw)
+        for p in ps[:8]:
+            eng.submit(p, SPEC_NEW_TOKENS)
+        eng._admit()
+        bd = None
+        while eng.has_work() and bd is None:
+            ready = key != "s3" or any(
+                eng._ngram_propose(np.concatenate(
+                    [r.prompt, np.asarray(r.output, np.int32)])) is not None
+                for r in eng.slots if r is not None)
+            if not ready:
+                eng.step()
+                continue
+            n0, r0 = eng.tokens_generated, eng.spec_rounds
+            got = profiling.device_breakdown(eng.step, CATEGORIES)
+            if key == "plain" or eng.spec_rounds > r0:
+                bd, emitted = got, eng.tokens_generated - n0
+        what = {"plain": "one plain 8-step decode dispatch",
+                "s1": "one (s1) self-draft round, K=4",
+                "s3": "one (s3) prompt-lookup round, K=4"}[key]
+        if bd is None:
+            log(f"spec breakdown {what}: no step to profile (not measured)")
+            res["profile"][key] = None
+        else:
+            _log_breakdown(f"spec {what}, B8, {emitted} tokens", bd)
+            res["profile"][key] = dict(
+                wall_ms=bd["wall_ms"], busy_ms=bd["busy_ms"],
+                busy_share=bd["busy_ms"] / bd["wall_ms"],
+                kernels=bd["kernels"], tokens=emitted,
+                ms_per_token=bd["wall_ms"] / max(emitted, 1))
+        eng.run()
+        del eng
+        torch.cuda.empty_cache()
+
+
+def check_spec() -> dict:
+    """The spec phase: the kernels at speculation's shapes
+    (_spec_kernel_checks), then a full-width, full-depth Llama-3-8B
+    (random bf16 weights from SEED) serving the 12 prompts of PROMPT_LENS,
+    SPEC_NEW_TOKENS each: (s0) plain bf16 chunk 512, the yardstick; (s1)
+    self-draft K=4 bf16 chunk 512, 4 requests sampled at SPEC_TEMP with
+    top-p 0.9, saved after its first round and resumed by a fresh engine;
+    (s2) a Llama-3.2-1B-shaped draft (LLAMA32_1B, random weights from
+    DRAFT_SEED) K=4 over an int8 pool with whole-prompt prefill and
+    spec_min_acceptance 0.3; (s3) prompt lookup K=4 bf16 chunk 512 over
+    prompts that repeat a SPEC_SPAN-token span, half sampled at SPEC_TEMP
+    with top-k 20.  Each run's launches checked round by round
+    (_spec_launch_checks); greedy tokens held to a teacher-forced plain
+    forward (bf16) or plain-attention replay (int8), sampled ones inside
+    their top-p / top-k sets (_EdgeJudge); (s1)'s greedy-prefix match
+    against (s0) and acceptance over JAX's chip floors, its resumed tokens
+    equal; (s2) turned off after 8 rounds.  Then one round of (s1) and of
+    (s3) under the profiler beside a plain dispatch."""
+    from aule_tpu_torch.models import llama
+
+    log(card_line())
+    res = {"time": {}, "err": {}, "runs": {}, "profile": {}, "seconds": {}}
+    clock = [time.perf_counter()]
+
+    def lap(part):
+        now = time.perf_counter()
+        res["seconds"][part] = round(now - clock[0], 1)
+        clock[0] = now
+
+    _spec_kernel_checks(res)
+    lap("kernels")
+    cfg = llama.LlamaConfig.llama3_8b()
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(SEED)
+    params = llama.init_params(cfg, gen, device=DEV)
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32)
+               for n in PROMPT_LENS]
+    nreq = len(prompts)
+
+    lap("init")
+    out0, res["runs"]["s0"] = run_spec_engine(
+        params, cfg, prompts, "(s0) plain bf16 chunk 512", [{}] * nreq,
+        prefill_chunk=CHUNK)
+    check_plain_forward(params, cfg, prompts, out0, "(s0)")
+    lap("s0")
+
+    sampled = set(range(1, nreq, 3))  # 4 of 12
+    specs1 = [dict(temperature=SPEC_TEMP, top_p=0.9) if i in sampled else {}
+              for i in range(nreq)]
+    resume = {}
+    out1, res["runs"]["s1"] = run_spec_engine(
+        params, cfg, prompts, "(s1) self-draft K=4 bf16 chunk 512", specs1,
+        resume=resume, prefill_chunk=CHUNK, draft_params=params,
+        draft_cfg=cfg, spec_tokens=SPEC_K)
+    check_plain_forward(params, cfg, prompts, out1, "(s1)",
+                        edges=_EdgeJudge("(s1)", specs1))
+    greedy = [i for i in range(nreq) if i not in sampled]
+    match, same, total, first = _prefix_match([out1[i] for i in greedy],
+                                              [out0[i] for i in greedy])
+    gaps = _divergence_gaps(params, cfg, [prompts[i] for i in greedy],
+                            [out1[i] for i in greedy],
+                            [out0[i] for i in greedy], first)
+    decisive = sum(max(gp) > NEAR_TIE for gp in gaps)
+    # JAX's floor counts every parting; on random bf16 weights near-ties
+    # are common (a few % of tokens, _Agreement), and two kernel paths
+    # part at some of them: the floor holds the partings that are not
+    # near-ties
+    held = (same + len(gaps) - decisive) / max(total, 1)
+    st1 = res["runs"]["s1"]["stats"]
+    acc1 = st1["spec_accepted"] / max(st1["spec_drafted"], 1)
+    log(f"spec (s1): greedy-prefix match against (s0) {match:.4f} ({same} "
+        f"of {total} compared tokens); the runs part at "
+        f"{len(gaps)} of {len(greedy)} greedy requests, {decisive} of them "
+        f"not at a near-tie (gaps of the two tokens below the plain "
+        f"forward's max: {[tuple(round(x, 4) for x in gp) for gp in gaps]}"
+        f"); match counting near-tie partings as agreeing {held:.4f} "
+        f"(floor {SPEC_MIN_MATCH}); acceptance {acc1:.4f} (floor "
+        f"{SPEC_MIN_ACCEPT})")
+    if held < SPEC_MIN_MATCH or acc1 < SPEC_MIN_ACCEPT:
+        raise AssertionError("(s1): under JAX's chip floors")
+    got = [resume["outputs"][i] for i in greedy]
+    want = [out1[i] for i in greedy]
+    if got != want:
+        raise AssertionError(f"(s1) resumed: {_same(got, want)} greedy "
+                             f"tokens equal the uninterrupted run's")
+    sampled_same = sum(resume["outputs"][i] == out1[i] for i in sampled)
+    log(f"spec (s1): saved after round {resume['rounds_at_save']} "
+        f"({resume['file_gb']:.2f} GB in {resume['save_s']:.2f} s, loaded "
+        f"in {resume['load_s']:.2f} s); the resumed engine's greedy tokens "
+        f"equal the uninterrupted run's, and {sampled_same} of "
+        f"{len(sampled)} sampled requests too")
+    lap("s1")
+    res["runs"]["s1"].update(prefix_match=match, partings=len(gaps),
+                             decisive_partings=decisive,
+                             prefix_match_near_ties_agree=held,
+                             acceptance=acc1,
+                             resume={k: v for k, v in resume.items()
+                                     if k != "outputs"})
+
+    dcfg = llama.LlamaConfig(**LLAMA32_1B)
+    dgen = torch.Generator(device=DEV)
+    dgen.manual_seed(DRAFT_SEED)
+    dparams = llama.init_params(dcfg, dgen, device=DEV)
+    out2, res["runs"]["s2"] = run_spec_engine(
+        params, cfg, prompts, "(s2) Llama-3.2-1B-shaped draft K=4 int8 "
+        "whole-prompt", [{}] * nreq, quantized=True,
+        draft_params=dparams, draft_cfg=dcfg, spec_tokens=SPEC_K,
+        spec_min_acceptance=SPEC_S2_MIN_ACCEPT)
+    st2 = res["runs"]["s2"]["stats"]
+    if not st2["spec_disabled"] or st2["spec_rounds"] != 8:
+        raise AssertionError(f"(s2): speculation not turned off after 8 "
+                             f"rounds: {st2}")
+    check_replay(params, cfg, prompts, out2, "(s2)", torch.int8, None,
+                 engine_kw=SPEC_KW, new_tokens=SPEC_NEW_TOKENS)
+    del dparams
+    torch.cuda.empty_cache()
+    lap("s2")
+
+    span = rng.integers(0, cfg.vocab_size, size=SPEC_SPAN).astype(np.int32)
+    prompts3 = []
+    for n in PROMPT_LENS:
+        p = rng.integers(0, cfg.vocab_size, size=n).astype(np.int32)
+        p[-min(n, SPEC_SPAN):] = span[:min(n, SPEC_SPAN)]
+        if n >= 3 * SPEC_SPAN:
+            p[n // 2 - SPEC_SPAN:n // 2] = span
+        prompts3.append(p)
+    specs3 = [dict(temperature=SPEC_TEMP, top_k=20) if i % 2 else {}
+              for i in range(nreq)]
+    out3, res["runs"]["s3"] = run_spec_engine(
+        params, cfg, prompts3, "(s3) prompt lookup K=4 bf16 chunk 512",
+        specs3, prefill_chunk=CHUNK, ngram_spec=SPEC_K)
+    check_plain_forward(params, cfg, prompts3, out3, "(s3)",
+                        edges=_EdgeJudge("(s3)", specs3))
+    lap("s3")
+    _spec_round_profiles(params, cfg, prompts, prompts3, res)
+    lap("profiles")
+    for key, run in res["runs"].items():
+        st = run["stats"]
+        log(f"spec ({key}): decode {run['decode_tok_s']:.1f} tok/s, "
+            f"{run['layer_passes_per_decode_token']:.2f} layer passes a "
+            f"decode token, {st['spec_rounds']} rounds, acceptance "
+            f"{st['spec_accepted']} / {st['spec_drafted']}")
+    log(f"spec: seconds by part {res['seconds']}")
+    del params
+    torch.cuda.empty_cache()
+    return res
+
+
 def _phase_process(flag: str, what: str) -> dict:
     """A phase in a process of its own (`chip_smoke.py <flag>`): its
     profiled timings meet a fresh torch.profiler, which loses kernels
@@ -4709,10 +5424,15 @@ def phase_adamw() -> dict:
     return _phase_process("--adamw", "AdamW")
 
 
+def phase_spec() -> dict:
+    """check_spec in a process of its own (`chip_smoke.py --spec`)."""
+    return _phase_process("--spec", "speculative decoding")
+
+
 def child_main(check) -> None:
     """`chip_smoke.py --public`, `--gpt2`, `--llama32`, `--mistral`,
-    `--moe` or `--adamw`: that phase alone, its result as one JSON line
-    last."""
+    `--moe`, `--adamw` or `--spec`: that phase alone, its result as one
+    JSON line last."""
     if not torch.cuda.is_available():
         log("device: torch.cuda.is_available() is False")
         sys.exit(2)
@@ -5102,6 +5822,114 @@ def add_edge_launches(entries, edges) -> None:
         by_name[name]["launches_edges_by_run"] = n
 
 
+# The spec phase's launches by kernel mode: (mode, [(run, part, counter)]);
+# the parts are _SpecSpy's buckets.  The first five are the modes the spec
+# phase adds (the verify's and the draft's shapes); the rest add the spec
+# runs' launches to the engine phase's modes.
+SPEC_LAUNCHES = [
+    ("paged_prefill_verify", [("s1", "verify", "paged_prefill"),
+                              ("s1", "round draft", "paged_prefill"),
+                              ("s3", "verify", "paged_prefill")]),
+    ("paged_prefill_verify_int8", [("s2", "verify", "paged_prefill")]),
+    ("paged_prefill_d64_int8", [("s2", "round draft", "paged_prefill"),
+                                ("s2", "draft prefill", "paged_prefill")]),
+    ("paged_decode_d64_int8", [("s2", "round draft", "paged_decode")]),
+    ("flash_fwd_d64", [("s2", "draft prefill", "flash_fwd")]),
+    ("paged_decode", [("s0", "decode", "paged_decode"),
+                      ("s1", "decode", "paged_decode"),
+                      ("s1", "round draft", "paged_decode"),
+                      ("s3", "decode", "paged_decode")]),
+    ("paged_prefill", [("s0", "target prefill", "paged_prefill"),
+                       ("s1", "target prefill", "paged_prefill"),
+                       ("s1", "draft prefill", "paged_prefill"),
+                       ("s3", "target prefill", "paged_prefill")]),
+    ("paged_decode_int8", [("s2", "decode", "paged_decode")]),
+    ("flash_fwd", [("s2", "target prefill", "flash_fwd")]),
+    ("flash_fwd_short", [("s2", "target prefill", "flash_fwd_short")]),
+]
+
+
+def spec_entries(entries, spec) -> None:
+    """The spec phase's kernel modes as entries (each with its launches in
+    the spec runs, by run and part, its errors, times and bound at the
+    shape the spec phase checked), and the spec runs' launches added to
+    the engine phase's modes they launch.  A mode the spec runs should
+    launch and did not fails."""
+    prefill_src = "aule_tpu_torch/csrc/paged_prefill.cu"
+    prefill_row = "aule_tpu/ops/paged_fused.py:770 (_fused_prefill_kernel"
+    decode_row = "aule_tpu/ops/paged_fused.py:213 (_fused_decode_kernel"
+
+    def worst(*keys):
+        errs = [spec["err"][k] for k in keys]
+        return tuple(max(e[i] for e in errs) for i in range(3))
+
+    def more(prefix, modes):
+        return {f"{m.replace(' ', '_')}_{k}": spec["time"][f"{prefix} {m}"][k]
+                for m in modes for k in ("device_ms", "library_device_ms",
+                                         "ms", "bound_ms")}
+
+    verify_shape = (f"B8 x {SPEC_K + 1} queries over 4096 (q_offset "
+                    f"{4096 - SPEC_K - 1}) Hq32/Hkv8")
+    new = {
+        "paged_prefill_verify": (
+            prefill_src, prefill_row + ") at the verify's shape: a "
+            "speculative round's target pass, aule_tpu/serving/engine.py:"
+            "1146-1251", worst("verify bf16", "verify ragged bf16"),
+            spec["time"]["verify bf16"],
+            verify_shape + " D128 bf16 page16 (ragged slots of 5, 1 and 0 "
+            "queries checked; library: SDPA with a positional mask)",
+            more("verify", ("fp8",))),
+        "paged_prefill_verify_int8": (
+            prefill_src, prefill_row + ") int8 mode at the verify's shape",
+            worst("verify int8", "verify ragged int8"),
+            spec["time"]["verify int8"],
+            verify_shape + " D128 int8 pool, bf16 scales", {}),
+        "paged_prefill_d64_int8": (
+            prefill_src, prefill_row + ") int8 mode, D64 group 4: the "
+            "draft's catch-up prefill, aule_tpu/serving/engine.py:1072-1087",
+            worst("draft prefill int8", "draft prefill ragged int8"),
+            spec["time"]["draft prefill int8"],
+            verify_shape + " D64 int8 pool, bf16 scales (Llama-3.2-1B's "
+            "heads)", more("draft prefill", ("bf16", "fp8"))),
+        "paged_decode_d64_int8": (
+            "aule_tpu_torch/csrc/paged_decode.cu", decode_row + ") int8 "
+            "dot-product mode, D64 group 4: the draft's decode steps, "
+            "aule_tpu/serving/engine.py:1107-1129; "
+            "scripts/probe_int8_mxu.py:16 (kern)",
+            spec["err"]["draft decode int8 dot"],
+            spec["time"]["draft decode int8 dot"],
+            "B8 ctx4096 page16 Hq32/Hkv8 D64 int8 pool, bf16 scales",
+            more("draft decode", ("bf16", "fp8"))),
+        "flash_fwd_d64": (
+            "aule_tpu_torch/csrc/flash_fwd.cu", "aule_tpu/ops/flash.py:92 "
+            "(_fwd_kernel) at D64 group 4: the draft's whole-prompt "
+            "prefill, aule_tpu/serving/engine.py:995-1018; "
+            "aule_tpu/ops/flash.py:638 (_mono_kernel)",
+            worst("flash d64 S2048", "flash d64 S1000"),
+            spec["time"]["flash d64"],
+            "B1 Hq32/Hkv8 S2048 D64 bf16 causal (S1000 checked too; "
+            "library: SDPA on GQA-expanded K/V)", {}),
+    }
+    by_name = {e["name"]: e for e in entries}
+    for name, parts in SPEC_LAUNCHES:
+        n = {f"{run} {part}": spec["runs"][run]["buckets"].get(part, {}).get(
+            counter, 0) for run, part, counter in parts}
+        total = sum(n.values())
+        if total == 0:
+            raise AssertionError(f"{name} was not launched in the spec runs "
+                                 f"{n}")
+        if name in new:
+            src, row, err, t, shape, extra = new[name]
+            entries.append(_entry(name, src, row, total, err, t, shape,
+                                  launches_spec_by_part=n,
+                                  device_ms=t["device_ms"],
+                                  library_device_ms=t["library_device_ms"],
+                                  **extra))
+        else:
+            by_name[name]["launches"] += total
+            by_name[name]["launches_spec_by_part"] = n
+
+
 def main() -> None:
     from aule_tpu_torch.ops.flash import SHORT_SQ
 
@@ -5142,6 +5970,7 @@ def main() -> None:
         f"has {free / 2**30:.2f} of {total / 2**30:.2f} GiB free")
     moe = timed("moe", phase_moe)
     adamw = timed("adamw", phase_adamw)
+    spec = timed("spec", phase_spec)
     runs, params, cfg = timed("engine", phase_engine)
     edges = timed("edges", phase_edges, params, cfg)
     timed("breakdown", phase_breakdown, params, cfg)
@@ -5453,6 +6282,7 @@ def main() -> None:
     entries += mistral_entries(mistral)
     add_moe_adamw_launches(entries, moe, adamw)
     add_edge_launches(entries, edges)
+    spec_entries(entries, spec)
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
@@ -5472,5 +6302,7 @@ if __name__ == "__main__":
         child_main(check_moe)
     elif sys.argv[1:] == ["--adamw"]:
         child_main(check_adamw)
+    elif sys.argv[1:] == ["--spec"]:
+        child_main(check_spec)
     else:
         main()

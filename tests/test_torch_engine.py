@@ -206,13 +206,33 @@ def test_oversized_request_rejected(params):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(quantized=True, spec_tokens=2), dict(mesh=object()),
-    dict(spec_tokens=2), dict(ngram_spec=2),
-    dict(layout="split", ngram_spec=2), dict(model=jllama)])
+    dict(mesh=object()), dict(model=jllama),
+    dict(mesh=object(), ngram_spec=2)])
 def test_unported_engine_options_raise(params, kw):
     _, tp = params
     with pytest.raises(NotImplementedError):
         ServingEngine(tp, TCFG, device="cpu", **dict(KW, **kw))
+
+
+@pytest.mark.parametrize("kw", [
+    dict(quantized=True, spec_tokens=2), dict(spec_tokens=2),
+    dict(ngram_spec=2), dict(layout="split", ngram_spec=2)])
+def test_speculative_engine_options(params, kw):
+    """The speculative options the port's engine refused before it had
+    speculation: each raises JAX's ValueError (spec_tokens without a
+    draft, prompt lookup over split pools) or is accepted, as JAX's."""
+    jp, tp = params
+    jkw, tkw = dict(KW, **kw), dict(KW, **kw)
+    try:
+        JaxEngine(jp, JCFG, **jkw)
+    except ValueError as e:
+        with pytest.raises(ValueError) as got:
+            ServingEngine(tp, TCFG, device="cpu", **tkw)
+        assert str(got.value) == str(e)
+        return
+    eng = ServingEngine(tp, TCFG, device="cpu", **tkw)
+    assert (eng.spec_tokens, eng.ngram_spec) == (kw.get("spec_tokens", 0),
+                                                 kw.get("ngram_spec", 0))
 
 
 def _adapter(seed=3, rank=2):

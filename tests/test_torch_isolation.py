@@ -50,7 +50,8 @@ ENTRY_MODULES = (
     "aule_tpu_torch.ops.quant", "aule_tpu_torch.serving.kv_cache",
     "aule_tpu_torch.models.moe", "aule_tpu_torch.models.convert",
     "aule_tpu_torch.parallel", "aule_tpu_torch.parallel.optimizer",
-    "aule_tpu_torch.utils.checkpoint", "aule_tpu_torch.utils.tree")
+    "aule_tpu_torch.utils.checkpoint", "aule_tpu_torch.utils.tree",
+    "aule_tpu_torch.serving.native")
 LEFT_OUT = FORBIDDEN + ("transformers", "ml_dtypes")
 
 
