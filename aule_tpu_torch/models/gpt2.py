@@ -25,7 +25,7 @@ split pools (nor has the JAX model), so the engine's `layout="split"`
 refuses it.  `lora=` / `lora_idx=` put multi-LoRA adapters on the
 projections as llama's `_lora_proj` does, the engine's targets `wq`, `wk`,
 `wv` on the three slices of `w_qkv` and `wo` on `w_proj` (JAX
-l.145-158).  `mesh=` raises: it comes with the parallel-layer slice.
+l.145-158).  `mesh=` raises: it comes with the parallel-layer model slice.
 Entry points run on the card by default
 (`device="cuda"`) and raise without CUDA; pass `device="cpu"` for the
 plain versions.
@@ -91,7 +91,7 @@ def _later(mesh) -> None:
     if mesh is not None:
         raise NotImplementedError(
             "gpt2 with mesh= is not ported yet; it comes with the "
-            "parallel-layer slice")
+            "parallel-layer model slice")
 
 
 def init_params(cfg: GPT2Config, generator: torch.Generator,

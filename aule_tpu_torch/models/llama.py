@@ -26,6 +26,16 @@ gate is computed in f32; logits are f32.
   adapters (`lora=`, a stacked bank, and `lora_idx=`, each row's adapter;
   `_lora_proj`); the split-pool `decode_step` has none, as JAX's.
 
+Tensor parallelism (`mesh=`, JAX l.86-102, 154-170, 282-330, 407-460,
+522-560): `param_specs` shards wq, wk, wv, w_gate and w_up by columns, wo
+and w_down by rows and lm_head by vocabulary; `shard_params` cuts this
+rank's shards from the full params.  Under a mesh each step takes those
+shards and pools of the rank's kv heads, attends locally over its heads
+(GQA groups co-located), joins the ranks by one all-reduce after wo and
+one after w_down (parallel/collectives.py's psum), and all-gathers the
+logits over the vocabulary, so every rank holds the full logits; forward
+also shards the batch over `data_axis`.  LoRA adapters with a mesh raise.
+
 Entry points run on the card by default (`device="cuda"`) and raise
 without CUDA; pass `device="cpu"` for the plain versions.
 """
@@ -33,6 +43,7 @@ without CUDA; pass `device="cpu"` for the plain versions.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -49,6 +60,8 @@ from ..ops.paged_fused import (kv_cache_append_decode_fused,
                                paged_attention_fused)
 from ..ops.paged_prefill import paged_attention_prefill
 from ..ops.rope import apply_rope, precompute_rope_frequencies
+from ..parallel.collectives import all_gather, enter_region, psum
+from ..parallel.mesh import axis_size, shard
 
 Params = Dict[str, Any]
 
@@ -135,6 +148,124 @@ def init_params(cfg: LlamaConfig, generator: torch.Generator,
     }
 
 
+def param_specs(cfg: LlamaConfig) -> Dict[str, Any]:
+    """Tensor-parallel specs over a (data, model) mesh (JAX l.86-102; a
+    spec is a tuple of axis names or None per dim, see parallel/mesh.py):
+    wq, wk, wv, w_gate and w_up shard by columns (heads, hidden units),
+    wo and w_down by rows, lm_head by vocabulary; the rest replicates."""
+    layer = {
+        "wq": (None, "model"), "wk": (None, "model"), "wv": (None, "model"),
+        "wo": ("model", None),
+        "w_gate": (None, "model"), "w_up": (None, "model"),
+        "w_down": ("model", None),
+        "attn_norm": (None,), "mlp_norm": (None,),
+    }
+    return {
+        "embed": (None, None),
+        "layers": [dict(layer) for _ in range(cfg.n_layers)],
+        "final_norm": (None,),
+        "lm_head": (None, "model"),
+    }
+
+
+def shard_params(params: Params, cfg: LlamaConfig, mesh,
+                 model_axis: str = "model") -> Params:
+    """This rank's shards of the full params under `param_specs` (the
+    spec's `model` read as `model_axis`): what `mesh=` calls take.  The
+    full params arrive as usual (`init_params`, `load_jax_params`)."""
+    specs = param_specs(cfg)
+
+    def one(t, spec):
+        return shard(t, mesh, tuple(model_axis if a == "model" else a
+                                    for a in spec))
+
+    return {
+        "embed": one(params["embed"], specs["embed"]),
+        "layers": [{k: one(v, ls[k]) for k, v in layer.items()}
+                   for layer, ls in zip(params["layers"], specs["layers"])],
+        "final_norm": one(params["final_norm"], specs["final_norm"]),
+        "lm_head": one(params["lm_head"], specs["lm_head"]),
+    }
+
+
+class _RankConfig:
+    """A config as one rank of a tensor-parallel mesh sees it: its share
+    of the heads (GQA groups co-located), the full head_dim."""
+
+    def __init__(self, cfg, tp: int):
+        self._cfg = cfg
+        self.n_heads = cfg.n_heads // tp
+        self.n_kv_heads = cfg.n_kv_heads // tp
+        self.head_dim = cfg.head_dim
+
+    def __getattr__(self, name):
+        return getattr(self._cfg, name)
+
+
+class _TensorParallel:
+    """A `mesh=` call's view of the mesh (JAX l.154-170's shard_map island
+    plus the GSPMD dense layers around it): each rank projects its heads
+    and hidden units from its param shards, attends locally over its
+    heads' pools, and the ranks join by one all-reduce after wo, one
+    after w_down, and an all-gather of the logits over the vocabulary
+    (and over the batch when `data_axis` shards it)."""
+
+    def __init__(self, cfg, mesh, model_axis: str,
+                 data_axis: Optional[str] = None):
+        tp = axis_size(mesh, model_axis)
+        if cfg.n_heads % tp or cfg.n_kv_heads % tp:
+            raise ValueError(
+                f"n_heads {cfg.n_heads} and n_kv_heads {cfg.n_kv_heads} "
+                f"must be divisible by tp {tp}")
+        self.mesh, self.model_axis, self.data_axis = mesh, model_axis, \
+            data_axis
+        self.cfg = _RankConfig(cfg, tp)
+
+    def enter(self, x: torch.Tensor) -> torch.Tensor:
+        """x, replicated, entering the rank's columns (its gradient summed
+        over the ranks backward)."""
+        return enter_region(x, self.model_axis, self.mesh)
+
+    def reduce(self, x: torch.Tensor) -> torch.Tensor:
+        return psum(x, self.model_axis, self.mesh)
+
+    def logits(self, x: torch.Tensor) -> torch.Tensor:
+        x = all_gather(x, self.model_axis, self.mesh, dim=-1)
+        if self.data_axis is not None:
+            x = all_gather(x, self.data_axis, self.mesh, dim=0)
+        return x
+
+    def rows(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's batch rows of `x` over `data_axis`."""
+        return shard(x, self.mesh, (self.data_axis,))
+
+
+def _tensor_parallel(cfg, mesh, model_axis, data_axis=None, lora=None):
+    """The `_TensorParallel` view of a `mesh=` call (None without one)."""
+    if mesh is None:
+        return None
+    if lora is not None:
+        raise NotImplementedError(
+            "LoRA adapters with mesh= are not ported: the serving engine "
+            "refuses multi-LoRA under tensor parallelism, as JAX's does")
+    return _TensorParallel(cfg, mesh, model_axis, data_axis)
+
+
+def _enter(tp, x):
+    return x if tp is None else tp.enter(x)
+
+
+def _reduce(tp, x):
+    return x if tp is None else tp.reduce(x)
+
+
+def _logits(tp, x, lm_head):
+    """f32 logits of the normed x (all of them on every rank under a
+    mesh: the rank's vocabulary columns, all-gathered)."""
+    x = (_enter(tp, x) @ lm_head).float()
+    return x if tp is None else tp.logits(x)
+
+
 def _to_torch(a: np.ndarray, dev, dtype) -> torch.Tensor:
     a = np.asarray(a)
     if a.dtype.name == "bfloat16":  # ml_dtypes: no numpy-native bf16
@@ -217,11 +348,19 @@ def _lora_at(lora, li: int):
     return None if lora is None else lora["layers"][li]
 
 
-def _mlp(x, layer, cfg):
-    h = rms_norm(x, layer["mlp_norm"], cfg.norm_eps)
+def _mlp(x, layer, cfg, tp=None):
+    h = _enter(tp, rms_norm(x, layer["mlp_norm"], cfg.norm_eps))
     gate = F.silu((h @ layer["w_gate"]).float())
     up = (h @ layer["w_up"]).float()
-    return x + (gate * up).to(x.dtype) @ layer["w_down"]
+    return x + _reduce(tp, (gate * up).to(x.dtype) @ layer["w_down"])
+
+
+def _mlp_of(tp, mlp=None):
+    """The MLP block of a call: `mlp` (a family's own), or Llama's, whose
+    w_down partial sums join over the ranks under tensor parallelism."""
+    if mlp is not None:
+        return mlp
+    return _mlp if tp is None else functools.partial(_mlp, tp=tp)
 
 
 def forward(
@@ -233,6 +372,9 @@ def forward(
     rope_sin: Optional[torch.Tensor] = None,
     return_kv: bool = False,
     attention: Callable = flash_attention_vjp,
+    mesh=None,
+    data_axis: str = "data",
+    model_axis: str = "model",
     lora=None,
     lora_idx: Optional[torch.Tensor] = None,
 ):
@@ -242,15 +384,25 @@ def forward(
     differentiable flash attention; a reference run passes its plain
     version (ops.flash_vjp's flash_attention_vjp_plain) to hold the kernel
     path against it.  `lora` / `lora_idx` [B]: the adapters on wq, wk, wv
-    and wo (`_lora_proj`)."""
+    and wo (`_lora_proj`).
+
+    With `mesh` (JAX l.154-170): `params` are this rank's shards
+    (`shard_params`) and `tokens` the full batch; attention stays local to
+    the rank's heads (GQA groups co-located) and its batch rows over
+    `data_axis`, the ranks join after wo and w_down, and every rank gets
+    the full logits; the returned k and v are the rank's heads and rows.
+    Differentiable: each rank's backward of its copy of one loss gives
+    its shards' gradients (the replicated params' whole, over `data_axis`
+    only its rows' share: summing those is a trainer's)."""
+    tp = _tensor_parallel(cfg, mesh, model_axis, data_axis, lora)
     return _forward(params, tokens, cfg, rope_cos, rope_sin, return_kv,
-                    attention, _mlp, lora, lora_idx)
+                    attention, _mlp_of(tp), lora, lora_idx, tp)
 
 
-def _qkv(x, layer, cfg, ll, lora_idx):
+def _qkv(x, layer, cfg, ll, lora_idx, tp=None):
     """q [B, Hq, S, D], k and v [B, Hkv, S, D] (unrotated) of x [B, S,
     dim], each projection with its adapter of the layer's bank `ll`."""
-    h = rms_norm(x, layer["attn_norm"], cfg.norm_eps)
+    h = _enter(tp, rms_norm(x, layer["attn_norm"], cfg.norm_eps))
     return tuple(
         _split_heads(_lora_proj(h, layer[name], ll, name, lora_idx), heads,
                      cfg.head_dim)
@@ -259,9 +411,13 @@ def _qkv(x, layer, cfg, ll, lora_idx):
 
 
 def _forward(params, tokens, cfg, rope_cos, rope_sin, return_kv: bool,
-             attention: Callable, mlp: Callable, lora=None, lora_idx=None):
+             attention: Callable, mlp: Callable, lora=None, lora_idx=None,
+             tp=None):
     """`forward` with the MLP block `mlp(x, layer, cfg) -> x + MLP(x)` as
-    an argument (models/moe.py passes its routed mixture)."""
+    an argument (models/moe.py passes its routed mixture) and the mesh
+    view `tp` (None on one device)."""
+    if tp is not None:
+        tokens, cfg = tp.rows(tokens), tp.cfg
     b, s = tokens.shape
     dev = params["embed"].device
     if rope_cos is None:
@@ -270,17 +426,17 @@ def _forward(params, tokens, cfg, rope_cos, rope_sin, return_kv: bool,
     x = params["embed"][tokens.to(dev)]
     kv_out: List[Tuple[torch.Tensor, torch.Tensor]] = []
     for li, layer in enumerate(params["layers"]):
-        q, k, v = _qkv(x, layer, cfg, _lora_at(lora, li), lora_idx)
+        q, k, v = _qkv(x, layer, cfg, _lora_at(lora, li), lora_idx, tp)
         q = apply_rope(q, rope_cos, rope_sin)
         k = apply_rope(k, rope_cos, rope_sin)
         if return_kv:
             kv_out.append((k, v))
         attn = attention(q, k, v, causal=True, window_size=cfg.window_size)
-        x = x + _lora_proj(_merge_heads(attn), layer["wo"],
-                           _lora_at(lora, li), "wo", lora_idx)
+        x = x + _reduce(tp, _lora_proj(_merge_heads(attn), layer["wo"],
+                                       _lora_at(lora, li), "wo", lora_idx))
         x = mlp(x, layer, cfg)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits = (x @ params["lm_head"]).float()
+    logits = _logits(tp, x, params["lm_head"])
     if return_kv:
         return logits, kv_out
     return logits
@@ -343,13 +499,15 @@ def _decode_window(cfg: LlamaConfig) -> int:
 
 def _decode_layers(params: Params, token, positions, cfg: LlamaConfig,
                    rope_cos, rope_sin, attend: Callable,
-                   mlp: Callable = _mlp, lora=None, lora_idx=None):
+                   mlp: Callable = _mlp, lora=None, lora_idx=None, tp=None):
     """The layers of one decode step around `attend(li, q, k, v) ->
     (attn [B, Hq, D], context_lens + 1)`, which appends layer li's rotated
     k and v [B, Hkv, D] and attends q [B, Hq, D] over its pool, and the MLP
     block `mlp` (as `_forward`'s), with the adapters `lora` / `lora_idx`
-    [B] on the projections.  Returns (logits [B, V] f32, context_lens +
-    1)."""
+    [B] on the projections, and the mesh view `tp` (`attend` then takes
+    this rank's heads).  Returns (logits [B, V] f32, context_lens + 1)."""
+    if tp is not None:
+        cfg = tp.cfg
     x = params["embed"][token]
     c = rope_cos[positions][:, None, :]
     sn = rope_sin[positions][:, None, :]
@@ -357,18 +515,19 @@ def _decode_layers(params: Params, token, positions, cfg: LlamaConfig,
     lens_out = None
     for li, layer in enumerate(params["layers"]):
         ll = _lora_at(lora, li)
-        h = rms_norm(x, layer["attn_norm"], cfg.norm_eps)
+        h = _enter(tp, rms_norm(x, layer["attn_norm"], cfg.norm_eps))
         q, k, v = (_lora_proj(h, layer[name], ll, name, lora_idx).reshape(
             -1, heads, cfg.head_dim) for name, heads in (
                 ("wq", cfg.n_heads), ("wk", cfg.n_kv_heads),
                 ("wv", cfg.n_kv_heads)))
         attn, lens_out = attend(li, _rotate(q, c, sn, half),
                                 _rotate(k, c, sn, half), v)
-        x = x + _lora_proj(attn.reshape(-1, cfg.n_heads * cfg.head_dim),
-                           layer["wo"], ll, "wo", lora_idx)
+        x = x + _reduce(tp, _lora_proj(
+            attn.reshape(-1, cfg.n_heads * cfg.head_dim), layer["wo"], ll,
+            "wo", lora_idx))
         x = mlp(x, layer, cfg)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return (x @ params["lm_head"]).float(), lens_out
+    return _logits(tp, x, params["lm_head"]), lens_out
 
 
 def decode_step(
@@ -398,13 +557,13 @@ def decode_step(
     quantized.  Stacked [L, ...] tensors work as pools and scales: their
     per-layer views are written in place.  `attention` is the paged decode;
     a reference run passes its plain version
-    (ops.paged.paged_attention_plain).  `mesh` (with its axes) is the
-    tensor-parallel island of JAX's step and raises: it comes with the
-    parallel-layer slice."""
-    if mesh is not None:
-        raise NotImplementedError(
-            f"decode_step(mesh=...) over {data_axis!r}/{model_axis!r} is not "
-            f"ported yet; it comes with the parallel-layer slice")
+    (ops.paged.paged_attention_plain).  With `mesh` (JAX l.282-330),
+    `params` are this rank's shards and the pools (and scales) hold its
+    kv heads, [Hkv/tp, P, page, D]; tables and lengths are the full ones
+    and every rank gets the full logits.  `data_axis` is accepted as JAX's
+    step accepts it: serving shards no batch."""
+    del data_axis
+    tp = _tensor_parallel(cfg, mesh, model_axis)
     quantized = k_scales is not None
     window = _decode_window(cfg)
 
@@ -422,7 +581,8 @@ def decode_step(
                          window_size=window, **scales), lens
 
     logits, lens_out = _decode_layers(params, token, positions, cfg,
-                                      rope_cos, rope_sin, attend)
+                                      rope_cos, rope_sin, attend,
+                                      _mlp_of(tp), tp=tp)
     if quantized:
         return logits, k_pages, v_pages, lens_out, k_scales, v_scales
     return logits, k_pages, v_pages, lens_out
@@ -439,6 +599,8 @@ def decode_step_fused(
     rope_cos: torch.Tensor,
     rope_sin: torch.Tensor,
     kv_scales: Optional[Sequence[torch.Tensor]] = None,
+    mesh=None,
+    model_axis: str = "model",
     *,
     attention: Callable = paged_attention_fused,
     lora=None,
@@ -452,16 +614,21 @@ def decode_step_fused(
     their per-layer views are written in place.  `attention` is the paged
     decode; a reference run passes its plain version
     (ops.paged_fused.paged_attention_fused_plain).  `lora` / `lora_idx`
-    [B]: the adapters, as forward's."""
+    [B]: the adapters, as forward's.  With `mesh` (JAX l.407-460),
+    `params` are this rank's shards and each fused pool holds its kv
+    heads, [P, 2, Hkv/tp, page, Dpad], with scale tiles packing its local
+    heads ([P, page, 128]: one 128-lane block of JAX's tp*128 lanes);
+    the pages stay whole local slabs, so the kernel runs unchanged."""
+    tp = _tensor_parallel(cfg, mesh, model_axis, lora=lora)
     return _decode_fused(params, token, positions, kv_pages, block_tables,
                          context_lens, cfg, rope_cos, rope_sin, kv_scales,
-                         attention, _mlp, lora, lora_idx)
+                         attention, _mlp_of(tp), lora, lora_idx, tp)
 
 
 def _decode_fused(params, token, positions, kv_pages, block_tables,
                   context_lens, cfg, rope_cos, rope_sin, kv_scales,
                   attention: Callable, mlp: Callable, lora=None,
-                  lora_idx=None):
+                  lora_idx=None, tp=None):
     """`decode_step_fused` with the MLP block as an argument (as
     `_forward`'s)."""
     window = _decode_window(cfg)
@@ -475,7 +642,7 @@ def _decode_fused(params, token, positions, kv_pages, block_tables,
 
     logits, lens_out = _decode_layers(params, token, positions, cfg,
                                       rope_cos, rope_sin, attend, mlp, lora,
-                                      lora_idx)
+                                      lora_idx, tp)
     if kv_scales is not None:
         return logits, kv_pages, lens_out, kv_scales
     return logits, kv_pages, lens_out
@@ -492,6 +659,8 @@ def prefill_step_fused(
     rope_cos: torch.Tensor,
     rope_sin: torch.Tensor,
     kv_scales: Optional[Sequence[torch.Tensor]] = None,
+    mesh=None,
+    model_axis: str = "model",
     *,
     all_logits: bool = False,
     attention: Callable = paged_attention_prefill,
@@ -506,18 +675,23 @@ def prefill_step_fused(
     every position with all_logits=True.  `attention` is the paged prefill;
     a reference run passes its plain version
     (ops.paged_prefill.paged_attention_prefill_plain).  `lora` /
-    `lora_idx` [B]: the adapters, as forward's."""
+    `lora_idx` [B]: the adapters, as forward's.  With `mesh` (JAX
+    l.522-560): this rank's shards and pools, as decode_step_fused's."""
+    tp = _tensor_parallel(cfg, mesh, model_axis, lora=lora)
     return _prefill_fused(params, tokens, q_offsets, seq_lens, kv_pages,
                           block_tables, cfg, rope_cos, rope_sin, kv_scales,
-                          all_logits, attention, _mlp, lora, lora_idx)
+                          all_logits, attention, _mlp_of(tp), lora,
+                          lora_idx, tp)
 
 
 def _prefill_fused(params, tokens, q_offsets, seq_lens, kv_pages,
                    block_tables, cfg, rope_cos, rope_sin, kv_scales,
                    all_logits: bool, attention: Callable, mlp: Callable,
-                   lora=None, lora_idx=None):
+                   lora=None, lora_idx=None, tp=None):
     """`prefill_step_fused` with the MLP block as an argument (as
     `_forward`'s)."""
+    if tp is not None:
+        cfg = tp.cfg
     _, s_chunk = tokens.shape
     dev = params["embed"].device
     q_offsets = q_offsets.to(dev)
@@ -530,7 +704,7 @@ def _prefill_fused(params, tokens, q_offsets, seq_lens, kv_pages,
     lens_out = q_offsets + seq_lens
     for li, layer in enumerate(params["layers"]):
         sc = None if kv_scales is None else kv_scales[li]
-        q, k, v = _qkv(x, layer, cfg, _lora_at(lora, li), lora_idx)
+        q, k, v = _qkv(x, layer, cfg, _lora_at(lora, li), lora_idx, tp)
         q = apply_rope(q, rope_cos, rope_sin, positions[:, None])
         k = apply_rope(k, rope_cos, rope_sin, positions[:, None])
         lens_out = kv_cache_append_prefill_fused(
@@ -539,15 +713,15 @@ def _prefill_fused(params, tokens, q_offsets, seq_lens, kv_pages,
         attn = attention(q, kv_pages[li], block_tables, lens_out,
                          q_offsets=q_offsets, kv_scales=sc, causal=True,
                          window_size=cfg.window_size)
-        x = x + _lora_proj(_merge_heads(attn), layer["wo"],
-                           _lora_at(lora, li), "wo", lora_idx)
+        x = x + _reduce(tp, _lora_proj(_merge_heads(attn), layer["wo"],
+                                       _lora_at(lora, li), "wo", lora_idx))
         x = mlp(x, layer, cfg)
     if not all_logits:
         # only the last valid row of each sequence is ever sampled
         last = (seq_lens.long() - 1).clamp_min(0)
         x = x[torch.arange(x.shape[0], device=dev), last]
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits = (x @ params["lm_head"]).float()
+    logits = _logits(tp, x, params["lm_head"])
     if kv_scales is not None:
         return logits, kv_pages, lens_out, kv_scales
     return logits, kv_pages, lens_out

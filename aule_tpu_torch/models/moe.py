@@ -21,7 +21,7 @@ experts is f32.
 
 The expert-parallel forms (GShard capacity dispatch over an `expert` mesh
 axis: `make_expert_parallel_mlp`, `make_expert_parallel_forward`,
-`param_specs`) come with the parallel-layer slice; `mesh=` raises here,
+`param_specs`) come with the parallel-layer model slice; `mesh=` raises here,
 naming it.  `lora=` / `lora_idx=` put multi-LoRA adapters on the
 attention's wq, wk, wv and wo, as llama's (JAX l.169-188).
 ServingEngine(model=moe)
@@ -44,7 +44,7 @@ from ..ops.paged_prefill import paged_attention_prefill
 from . import llama
 
 Params = Dict[str, Any]
-_PARALLEL = "the parallel-layer slice"
+_PARALLEL = "the parallel-layer model slice"
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,12 +1,44 @@
-"""parallel of the PyTorch / CUDA port (mirrors aule_tpu/parallel): the
-single-device AdamW so far; meshes, collectives, ZeRO-1 and pipelines come
-with the parallel-layer slice."""
+"""parallel of the PyTorch / CUDA port (mirrors aule_tpu/parallel): meshes
+over torch.distributed, the cross-rank softmax combine and the
+differentiable collectives under it, head / context / ring / Ulysses
+attention and the sharded paged decode, and AdamW on one device.
 
+The JAX layer's ZeRO-1 layout (`zero1_specs`, AdamW's `mesh=` /
+`param_specs=`) and its pipeline parallelism are not ported yet: they
+come with the parallel layer's model-level slice."""
+
+from .collectives import (  # noqa: F401
+    softmax_combine_allreduce,
+    softmax_combine_pair,
+)
+from .mesh import make_mesh  # noqa: F401
 from .optimizer import (  # noqa: F401
     AdamWState,
     adamw_init,
     global_norm,
     make_adamw_train_step,
 )
+from .sharded import (  # noqa: F401
+    make_context_parallel_attention,
+    make_head_parallel_attention,
+    make_ring_attention,
+    make_sharded_paged_attention,
+    make_sharded_paged_attention_fused,
+    make_ulysses_attention,
+)
 
-__all__ = ["AdamWState", "adamw_init", "global_norm", "make_adamw_train_step"]
+__all__ = [
+    "softmax_combine_allreduce",
+    "softmax_combine_pair",
+    "make_mesh",
+    "AdamWState",
+    "adamw_init",
+    "make_adamw_train_step",
+    "make_context_parallel_attention",
+    "make_head_parallel_attention",
+    "make_ring_attention",
+    "make_sharded_paged_attention",
+    "make_sharded_paged_attention_fused",
+    "make_ulysses_attention",
+    "global_norm",
+]

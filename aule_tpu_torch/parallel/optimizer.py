@@ -21,7 +21,7 @@ returned trees are the ones passed in), and every `.grad` is freed as soon
 as it is summed or applied, so a step needs the weights, the optimizer
 state and one set of gradients (with micro-batches, their f32 sums) and
 nothing more.  The ZeRO-1 layout (`zero1_specs`, `mesh=`, `param_specs=`)
-comes with the parallel-layer slice and raises here.
+comes with the parallel-layer model slice and raises here.
 """
 
 from __future__ import annotations
@@ -35,7 +35,7 @@ import torch
 
 from ..utils.tree import tree_flatten, tree_map
 
-_PARALLEL = "the parallel-layer slice"
+_PARALLEL = "the parallel-layer model slice"
 
 
 @dataclasses.dataclass

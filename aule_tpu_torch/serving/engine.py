@@ -75,8 +75,20 @@ refuses it, as JAX's):
   * prompt lookup (`ngram_spec=K`, `ngram_max`): the K tokens that
     followed the latest earlier occurrence of the context's last n-gram
     (n = ngram_max .. 1) are verified the same way, with no draft model.
-`mesh=` (the tensor-parallel mesh) raises NotImplementedError naming the
-parallel-layer slice; no option is silently ignored.  Pages come from
+Tensor-parallel serving (`mesh=`, `model_axis=`; JAX engine.py:157-175,
+232-238, 295-321): every rank of the mesh runs this engine loop on the
+same requests; the engine takes the full params and keeps this rank's
+shards (`llama.shard_params`), and its pools hold the rank's Hkv/tp kv
+heads in either layout and any pool dtype, so the paged kernels run
+unchanged on each rank.  The model steps join the ranks (an all-reduce
+after wo and after w_down, the logits all-gathered over the vocabulary),
+and every token the ranks sample is broadcast from the axis' first rank
+before anything reads it, so the ranks' pools never part.  The mesh's
+other axes must be 1 (serving data parallelism is replicas of the
+engine); a draft model shards over the same axis.  Llama only: a GPT-2 or
+MoE family with a mesh raises NotImplementedError (their meshes come with
+the parallel layer's model-level slice); LoRA with a mesh raises
+ValueError, as JAX's.  No option is silently ignored.  Pages come from
 `kv_cache.make_allocator`: the native C++ free list where g++ builds it.
 
 `save_engine_state` / `load_engine_state` checkpoint a running engine in
@@ -108,35 +120,21 @@ from ..ops.paged_fused import (SCALE_DTYPE, fused_pool_shape,
                                kv_cache_append_prefill_fused)
 from ..ops.quant import QUANT_DTYPES
 from ..ops.rope import precompute_rope_frequencies
+from ..parallel.collectives import broadcast
+from ..parallel.mesh import axis_size
 from ..utils.checkpoint import load_pytree, save_pytree
 from . import sampling
 from .kv_cache import make_allocator
 
 logger = logging.getLogger("aule_tpu_torch")
 
-_PARALLEL = "the parallel-layer slice"
-
-# engine arguments of the JAX engine outside this slice: (default, slice)
-_LATER_ENGINE_ARGS = {
-    "mesh": (None, _PARALLEL),
-    "model_axis": ("model", _PARALLEL),
-}
+# where the meshes of the other families come from
+_PARALLEL = "the parallel-layer model slice"
 # speculation turns itself off after this many rounds under
 # spec_min_acceptance (JAX engine.py:813)
 SPEC_DISABLE_ROUNDS = 8
 # the projections an adapter may target (JAX engine.py:362)
 LORA_TARGETS = ("wq", "wk", "wv", "wo")
-
-
-def _refuse_later(given: Dict[str, Any], table, where: str) -> None:
-    for name, value in given.items():
-        if name not in table:
-            raise TypeError(f"{where} got an unexpected argument {name!r}")
-        default, later = table[name]
-        if value != default and value is not None:
-            raise NotImplementedError(
-                f"{where}: {name}={value!r} is not ported yet; it comes "
-                f"with {later}")
 
 
 def _chosen_logprob(logits: torch.Tensor, toks: torch.Tensor
@@ -242,7 +240,12 @@ class ServingEngine:
     n-gram looked up) speculates by prompt lookup.  Both need the fused
     layout and no `sampler=` / `sample=`, and exclude each other; the
     draft's vocabulary must be the target's.  `spec_min_acceptance` > 0
-    stops speculating after 8 rounds under that acceptance."""
+    stops speculating after 8 rounds under that acceptance.
+
+    `mesh` (a parallel.mesh mesh; Llama only) serves tensor-parallel over
+    its `model_axis`: every rank builds this engine from the full params
+    and runs the same loop on the same requests (see the module
+    docstring)."""
 
     def __init__(
         self,
@@ -272,8 +275,9 @@ class ServingEngine:
         spec_min_acceptance: float = 0.0,
         ngram_spec: int = 0,
         ngram_max: int = 3,
+        mesh=None,
+        model_axis: str = "model",
         device="cuda",
-        **later,
     ):
         self.device = resolve_device(device)
         if quantized and quant_dtype not in QUANT_DTYPES:
@@ -290,7 +294,6 @@ class ServingEngine:
             raise ValueError("enable_prefix_cache requires prefill_chunk")
         if sample is not None and sampler is not None:
             raise ValueError("pass either sample= or sampler=, not both")
-        _refuse_later(later, _LATER_ENGINE_ARGS, "ServingEngine")
         self.model = llama if model is None else model
         if not any(self.model is m for m in MODEL_FAMILIES):
             raise NotImplementedError(
@@ -302,6 +305,8 @@ class ServingEngine:
                 f"layout='split' decodes through the model's decode_step "
                 f"over split pools, which {self.model.__name__} has not "
                 f"(nor has the JAX package's); use layout='fused'")
+        self.tp = self._check_mesh(cfg, mesh, model_axis, draft_model)
+        self.mesh, self.model_axis = mesh, model_axis
         # learned positions silently reuse the last row past n_ctx (as
         # JAX's gather clamps): refuse an engine that could decode there
         n_ctx = getattr(cfg, "n_ctx", None)
@@ -313,7 +318,7 @@ class ServingEngine:
                                 or sampler is not None, draft_params,
                                 draft_cfg, draft_model, spec_tokens,
                                 ngram_spec, ngram_max)
-        self.params = params
+        self.params = self._shard(params, cfg)
         self.cfg = cfg
         self.max_batch = max_batch
         self.page_size = page_size
@@ -343,15 +348,16 @@ class ServingEngine:
             return torch.zeros((cfg.n_layers,) + tuple(shape), dtype=dtype,
                                device=self.device)
 
+        # under tensor parallelism each rank's pools hold its kv heads
+        hkv = cfg.n_kv_heads // self.tp
         if layout == "fused":
             self.kv_pages = zeros(fused_pool_shape(
-                num_pages, cfg.n_kv_heads, page_size, cfg.head_dim),
-                pool_dtype)
+                num_pages, hkv, page_size, cfg.head_dim), pool_dtype)
             if quantized:
                 self.kv_scales = zeros(fused_scales_shape(
-                    num_pages, cfg.n_kv_heads, page_size), SCALE_DTYPE)
+                    num_pages, hkv, page_size), SCALE_DTYPE)
         else:  # as aule_tpu/serving/engine.py:286-294
-            shape = (cfg.n_kv_heads, num_pages, page_size, cfg.head_dim)
+            shape = (hkv, num_pages, page_size, cfg.head_dim)
             self.k_pages = zeros(shape, pool_dtype)
             self.v_pages = zeros(shape, pool_dtype)
             if quantized:
@@ -369,7 +375,12 @@ class ServingEngine:
         self.dk_pages = self.dk_scales = None
         self.draft_params = self.draft_cfg = self.draft_model = None
         if self.spec_tokens > 0:
-            self.draft_params = draft_params
+            if draft_cfg.n_kv_heads % self.tp:
+                raise ValueError(
+                    f"draft n_kv_heads {draft_cfg.n_kv_heads} not divisible "
+                    f"by tp {self.tp}")
+            # the draft shards over the target's axis (JAX l.456-471)
+            self.draft_params = self._shard(draft_params, draft_cfg)
             self.draft_cfg = draft_cfg
             self.draft_model = self.model if draft_model is None \
                 else draft_model
@@ -377,15 +388,15 @@ class ServingEngine:
                 precompute_rope_frequencies(max_seq_len, draft_cfg.head_dim,
                                             draft_cfg.rope_base,
                                             device=self.device)
+            dhkv = draft_cfg.n_kv_heads // self.tp
             self.dk_pages = torch.zeros(
                 (draft_cfg.n_layers,) + fused_pool_shape(
-                    num_pages, draft_cfg.n_kv_heads, page_size,
-                    draft_cfg.head_dim), dtype=pool_dtype,
-                device=self.device)
+                    num_pages, dhkv, page_size, draft_cfg.head_dim),
+                dtype=pool_dtype, device=self.device)
             if quantized:
                 self.dk_scales = torch.zeros(
                     (draft_cfg.n_layers,) + fused_scales_shape(
-                        num_pages, draft_cfg.n_kv_heads, page_size),
+                        num_pages, dhkv, page_size),
                     dtype=SCALE_DTYPE, device=self.device)
         self.allocator = make_allocator(num_pages)
         # page 0 is the scratch sink for -1 table entries (empty slots)
@@ -426,6 +437,50 @@ class ServingEngine:
         # its tokens, so these include device time
         self.prefill_seconds = 0.0
         self.decode_seconds = 0.0
+
+    def _check_mesh(self, cfg, mesh, model_axis, draft_model) -> int:
+        """The tensor-parallel degree (1 without a mesh), after JAX's
+        refusals (engine.py:232-238) and the port's: another family than
+        Llama, a mesh axis besides `model_axis` larger than 1."""
+        if mesh is None:
+            return 1
+        for what, fam in (("model", self.model), ("draft_model",
+                                                   draft_model)):
+            if fam is not None and fam is not llama:
+                raise NotImplementedError(
+                    f"ServingEngine: {what}={fam.__name__} with mesh= is "
+                    f"not ported yet; it comes with {_PARALLEL}")
+        for name, size in zip(mesh.mesh_dim_names or (), mesh.shape):
+            if name != model_axis and size != 1:
+                raise ValueError(
+                    f"mesh axis {name!r} has {size} ranks: tensor-parallel "
+                    f"serving shards over {model_axis!r} alone (serving data "
+                    f"parallelism is engine replicas)")
+        tp = axis_size(mesh, model_axis)
+        if cfg.n_kv_heads % tp:
+            raise ValueError(f"n_kv_heads {cfg.n_kv_heads} not divisible by "
+                             f"tp {tp}")
+        return tp
+
+    def _shard(self, params, cfg):
+        """This rank's shards of a model's full params (all of them
+        without a mesh)."""
+        if self.mesh is None or params is None:
+            return params
+        return llama.shard_params(params, cfg, self.mesh, self.model_axis)
+
+    def _mesh_kw(self) -> Dict[str, Any]:
+        """The model steps' mesh arguments ({} without a mesh)."""
+        if self.mesh is None:
+            return {}
+        return {"mesh": self.mesh, "model_axis": self.model_axis}
+
+    def _agree(self, t: torch.Tensor) -> torch.Tensor:
+        """`t` (sampled tokens, or a round's host copy) as the mesh axis'
+        first rank has it, so every rank appends and emits the same."""
+        if self.mesh is None:
+            return t
+        return broadcast(t, self.model_axis, self.mesh)
 
     def _check_speculation(self, cfg, layout, engine_sampler, draft_params,
                            draft_cfg, draft_model, spec_tokens, ngram_spec,
@@ -478,6 +533,9 @@ class ServingEngine:
             raise ValueError(
                 "this model family does not support LoRA serving "
                 "(models/llama.py does)")
+        if self.mesh is not None:
+            raise ValueError("multi-LoRA does not compose with "
+                             "tensor-parallel serving yet")
         if self.layout != "fused":
             raise ValueError("multi-LoRA requires layout='fused'")
         names = list(lora_params)
@@ -775,7 +833,7 @@ class ServingEngine:
         model, params, cfg, cos, sin, pool, scales = self._side(draft)
         logits, kv = model.forward(params, tokens, cfg, rope_cos=cos,
                                    rope_sin=sin, return_kv=True,
-                                   **self._lora_kw(lidx))
+                                   **self._mesh_kw(), **self._lora_kw(lidx))
         where = (bt_row[None],
                  torch.zeros((1,), dtype=torch.int32, device=self.device),
                  torch.full((1,), n, dtype=torch.int32, device=self.device))
@@ -812,7 +870,8 @@ class ServingEngine:
             torch.full((1,), off, dtype=torch.int32, device=self.device),
             torch.full((1,), chunk.shape[1], dtype=torch.int32,
                        device=self.device),
-            pool, bt_row[None], cfg, cos, sin, scales, **self._lora_kw(lidx))
+            pool, bt_row[None], cfg, cos, sin, scales, **self._mesh_kw(),
+            **self._lora_kw(lidx))
         self._count_prefill(draft)
         return out[0]
 
@@ -931,6 +990,8 @@ class ServingEngine:
                 else None)[0]
         else:
             tok = self.sample(logits)
+        if self.mesh is not None:
+            tok = self._agree(torch.as_tensor(tok).reshape(1).long())[0]
         tok = int(tok)
         logp = None
         if req.want_logprobs:
@@ -976,13 +1037,14 @@ class ServingEngine:
                 logits, _, new_lens, *_ = self.model.decode_step_fused(
                     self.params, tok, lens, self.kv_pages, bt, lens,
                     self.cfg, self.rope_cos, self.rope_sin, self.kv_scales,
-                    **lkw)
+                    **self._mesh_kw(), **lkw)
             else:
                 logits, _, _, new_lens, *_ = self.model.decode_step(
                     self.params, tok, lens, self.k_pages, self.v_pages, bt,
                     lens, self.cfg, self.rope_cos, self.rope_sin,
-                    self.k_scales, self.v_scales)
-            tok = self._sample_dev(logits, temps, tks, tps, bias).long()
+                    self.k_scales, self.v_scales, **self._mesh_kw())
+            tok = self._agree(
+                self._sample_dev(logits, temps, tks, tps, bias).long())
             steps.append(tok)
             if want_lp:
                 lps.append(_chosen_logprob(logits, tok))
@@ -1147,15 +1209,18 @@ class ServingEngine:
         catch_t = self._device_row(catchup, torch.int64)
         dlogits = model.prefill_step_fused(
             params, catch_t, self._device_row(self.slot_dlens), clen_t, pool,
-            bt, cfg, cos, sin, scales)[0]
+            bt, cfg, cos, sin, scales, **self._mesh_kw())[0]
         tok, q0 = self._propose(dlogits, temps, tks, tps)
+        tok = self._agree(tok)
         props, dists = [tok], [q0]
         for i in range(k - 1):
             # the draft pool holds the committed tokens through t at lens
             pos = lens + 1 + i
             logits = model.decode_step_fused(params, tok, pos, pool, bt, pos,
-                                             cfg, cos, sin, scales)[0]
+                                             cfg, cos, sin, scales,
+                                             **self._mesh_kw())[0]
             tok, qn = self._propose(logits, temps, tks, tps)
+            tok = self._agree(tok)
             props.append(tok)
             dists.append(qn)
         g = torch.stack(props, dim=1)
@@ -1192,7 +1257,7 @@ class ServingEngine:
         out = self.model.prefill_step_fused(
             self.params, chunk, lens, self._device_row(vlen), self.kv_pages,
             bt, self.cfg, self.rope_cos, self.rope_sin, self.kv_scales,
-            all_logits=True, **self._lora_kw(lidx))
+            all_logits=True, **self._mesh_kw(), **self._lora_kw(lidx))
         logits = out[0]                                    # [B, K+1, V]
         bias = self._bias_matrix()
         biased = logits if bias is None else logits + bias[:, None, :]
@@ -1236,7 +1301,7 @@ class ServingEngine:
             parts.append(_chosen_logprob(logits.reshape(-1, logits.shape[-1]),
                                          a.flatten()).double())
         # one host copy: f64 holds every token id, count and f32 logprob
-        host = torch.cat(parts).cpu().numpy()
+        host = self._agree(torch.cat(parts)).cpu().numpy()
         nb = a.numel()
         a_np = host[:nb].astype(np.int64).reshape(a.shape)
         n_np = host[nb:nb + len(caps)].astype(np.int64)
@@ -1379,6 +1444,13 @@ def _pools_tree(eng: ServingEngine, leaf=None) -> Dict[str, Any]:
     return tree
 
 
+def _refuse_mesh(eng: ServingEngine) -> None:
+    if eng.mesh is not None:
+        raise NotImplementedError(
+            "checkpointing a tensor-parallel engine is not ported: its pools "
+            "are per-rank shards")
+
+
 def save_engine_state(eng: ServingEngine, path: str) -> None:
     """Persist the pools and the request, slot and prefix-cache
     bookkeeping to `<path>.pools.npz` / `.pools.tree.json` / `.state.json`,
@@ -1391,6 +1463,7 @@ def save_engine_state(eng: ServingEngine, path: str) -> None:
     (`torch_generator_state`): JAX's `rng_key` cannot be derived from it,
     so a JAX engine resumes the port's sampled requests from its own
     seed."""
+    _refuse_mesh(eng)
     save_pytree(path + ".pools", _pools_tree(eng))
 
     def req(r: Optional[Request]):
@@ -1436,6 +1509,7 @@ def load_engine_state(eng: ServingEngine, path: str) -> None:
     for an engine without a draft model.  A JAX file carries no
     torch.Generator state: the engine keeps its own, so greedy requests
     resume exactly."""
+    _refuse_mesh(eng)
     with open(path + ".state.json") as f:
         host = json.load(f)
     if any(host.get("slot_dlens", [])) and eng.dk_pages is None:

@@ -1,9 +1,16 @@
-"""Test helper: tolerance comparison (counterpart of
-aule_tpu/utils/testing.py::assert_close), for torch tensors and arrays.
+"""Test helpers: tolerance comparison (counterpart of
+aule_tpu/utils/testing.py::assert_close) for torch tensors and arrays, the
+intra-op thread cap, and torch.distributed worlds on one host:
+`run_world` runs a function in N spawned ranks (gloo on the CPU, or gloo
+/ NCCL on the card) and `single_rank_world` makes this process a world of
+one.  `sharded_cases` and `tp_cases` are the rank side of the parallel
+layer's checks (tests/test_torch_sharded.py, tests/test_torch_tp.py): they
+live here, so a spawned rank imports neither JAX nor a test module.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 
 import numpy as np
@@ -45,3 +52,276 @@ def assert_close(actual, expected, rtol: float, atol: float, label: str = ""):
             f"actual={actual[idx]:.6g} expected={expected[idx]:.6g} "
             f"maxAbsDiff={err.max():.3e} meanAbsDiff={err.mean():.3e}"
         )
+
+
+def _rank_main(rank: int, world_size: int, init_file: str, backend: str,
+               threads: int, blob: bytes, queue) -> None:
+    """One spawned rank of `run_world`: join the process group, run the
+    function, send back (rank, ok, pickled result or traceback)."""
+    import pickle
+    import traceback
+
+    import torch.distributed as dist
+
+    if threads:
+        torch.set_num_threads(threads)
+    # one host: gloo's sockets on the loopback device
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    try:
+        fn, args = pickle.loads(blob)
+        dist.init_process_group(
+            backend, store=dist.FileStore(init_file, world_size), rank=rank,
+            world_size=world_size)
+        try:
+            out = fn(*args)
+        finally:
+            dist.destroy_process_group()
+        queue.put((rank, True, pickle.dumps(out)))
+    except BaseException:  # reported to the parent, which raises
+        queue.put((rank, False, traceback.format_exc()))
+        raise
+
+
+WORLD_TIMEOUT = 600.0  # seconds a world may run before run_world stops it
+
+
+def run_world(fn, world_size: int, *args, backend: str = "gloo",
+              threads: int = 1) -> list:
+    """Run `fn(*args)` in a world of `world_size` spawned processes (one
+    rank each, the process group initialised through a FileStore in a
+    temporary directory, so worlds started at once never share an address)
+    and return each rank's result, rank 0 first.
+
+    `fn` is pickled by its import path: it lives in an importable module
+    of the port, so a child imports neither JAX nor a test file.  Tensors
+    cross by value.  Each rank runs `threads` intra-op threads (0: torch's
+    default).  A rank that raises, or a world still running after
+    WORLD_TIMEOUT seconds, stops every rank and raises RuntimeError with
+    the rank's traceback."""
+    import pickle
+    import queue as queue_mod
+    import tempfile
+    import time
+
+    import torch.multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    blob = pickle.dumps((fn, args))
+    results: list = [None] * world_size
+    with tempfile.TemporaryDirectory() as tmp:
+        q = ctx.Queue()
+        procs = [ctx.Process(
+            target=_rank_main,
+            args=(r, world_size, os.path.join(tmp, "store"), backend, threads,
+                  blob, q), daemon=True) for r in range(world_size)]
+        for p in procs:
+            p.start()
+        try:
+            deadline = time.monotonic() + WORLD_TIMEOUT
+            for _ in range(world_size):
+                left = deadline - time.monotonic()
+                try:
+                    rank, ok, payload = q.get(timeout=max(left, 0.1))
+                except queue_mod.Empty:
+                    raise RuntimeError(
+                        f"world of {world_size} ranks still running after "
+                        f"{WORLD_TIMEOUT} s") from None
+                if not ok:
+                    raise RuntimeError(f"rank {rank} failed:\n{payload}")
+                results[rank] = pickle.loads(payload)
+            for p in procs:
+                p.join(timeout=30)
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.terminate()
+                    p.join(timeout=10)
+            q.close()
+    return results
+
+
+def sharded_cases(cases):
+    """Rank side of the sharded-attention checks, run by `run_world` on
+    CPU ranks.
+
+    Each case is a dict: `make` (a `parallel.sharded` maker) with `kwargs`,
+    `mesh` ((axis sizes, axis names)), `args` (full tensors, the same on
+    every rank) with `in_specs`, `out_spec`, and `grads`.  Every rank
+    shards the args, calls the strategy on its shards and all-gathers the
+    output; with `grads` it back-propagates its share of the loss
+    sum(out * arange(out.numel()) * 1e-3) (the JAX tests' loss: each rank
+    weighs its own block of the global output) and all-gathers the
+    gradients of the first three args; with `raises` it records the
+    ValueError's message.  Rank 0 returns [{"out": ...,
+    "grads": [...]}] per case (CPU tensors); the other ranks None."""
+    import torch.distributed as dist
+
+    from ..parallel import mesh as pmesh
+    from ..parallel import sharded
+
+    meshes = {}
+    results = []
+    for case in cases:
+        key = tuple(map(tuple, case["mesh"]))
+        if key not in meshes:
+            meshes[key] = pmesh.make_mesh(*case["mesh"], "cpu")
+        mesh = meshes[key]
+        args = [pmesh.shard(a, mesh, spec)
+                for a, spec in zip(case["args"], case["in_specs"])]
+        fn = getattr(sharded, case["make"])(mesh, **case.get("kwargs", {}))
+        if case.get("raises"):
+            try:
+                fn(*args)
+            except ValueError as e:
+                results.append({"error": str(e)})
+                continue
+            raise AssertionError(f"{case['make']} did not raise")
+        if case.get("grads"):
+            for a in args[:3]:
+                a.requires_grad_(True)
+        got = fn(*args)
+        out = pmesh.unshard(got.detach(), mesh, case["out_spec"])
+        res = {"out": out.cpu()}
+        if case.get("grads"):
+            w = (torch.arange(out.numel(), dtype=torch.float32)
+                 .reshape(out.shape) * 1e-3)
+            w = pmesh.shard(w, mesh, case["out_spec"])
+            (got.float() * w).sum().backward()
+            res["grads"] = [pmesh.unshard(a.grad, mesh, spec).cpu()
+                            for a, spec in zip(args[:3], case["in_specs"])]
+        results.append(res)
+    return results if dist.get_rank() == 0 else None
+
+
+def _shard_arg(a, mesh, spec):
+    from ..parallel.mesh import shard
+
+    if isinstance(a, (list, tuple)):
+        return [shard(t, mesh, spec) for t in a]
+    return shard(a, mesh, spec)
+
+
+def _unshard_out(a, mesh, spec):
+    from ..parallel.mesh import unshard
+
+    if spec is None:
+        return a
+    if isinstance(a, (list, tuple)):
+        return [unshard(t, mesh, spec) for t in a]
+    return unshard(a, mesh, spec)
+
+
+def _cpu(x):
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu()
+    if isinstance(x, (list, tuple)):
+        return [_cpu(t) for t in x]
+    return x
+
+
+def _tp_grads(llama, params, case, mesh, model_axis):
+    """The full gradients of a "grads" case, in the params' structure."""
+    from ..parallel.mesh import unshard
+
+    specs = llama.param_specs(case["cfg"])
+    top = ("embed", "final_norm", "lm_head")
+    pairs = [(params[k], specs[k]) for k in top] + [
+        (layer[k], ls[k]) for layer, ls in zip(params["layers"],
+                                               specs["layers"])
+        for k in layer]
+    for t, _ in pairs:
+        t.requires_grad_(True)
+    logits = llama.forward(params, case["tokens"], case["cfg"], mesh=mesh,
+                           model_axis=model_axis)
+    (logits * case["weights"]).sum().backward()
+    grads = iter([unshard(t.grad, mesh, tuple(
+        model_axis if a == "model" else a for a in spec)).cpu()
+        for t, spec in pairs])
+    out = {k: next(grads) for k in top}
+    out["layers"] = [{k: next(grads) for k in layer}
+                     for layer in params["layers"]]
+    return out
+
+
+def tp_cases(cases):
+    """Rank side of the tensor-parallel Llama checks, run by `run_world` on
+    CPU ranks.
+
+    A case is a dict with `mesh` ((axis sizes, axis names)), the full
+    `params` and `cfg`, and either
+      * kind "step": `fn`, a `models.llama` step called on this rank's
+        param shards (`shard_params`) with `args` (an arg given as
+        {"shard": tensor or list, "spec": spec} goes in as this rank's
+        shard) and `kwargs`; the outputs come back all-gathered by
+        `out_specs` (None: as the rank has it, the full logits);
+      * kind "engine": a `ServingEngine(mesh=...)` (its `kwargs`; a
+        `draft` entry gives the draft's full params) serving `prompts`
+        for `max_new` tokens each; its outputs and speculation counters;
+      * kind "grads": the gradients of sum(forward(tokens) * weights)
+        with respect to this rank's param shards, all-gathered by
+        `param_specs` into the full params' structure.
+    Rank 0 returns the list of results (CPU tensors); the others None."""
+    import torch.distributed as dist
+
+    from ..models import llama
+    from ..parallel import mesh as pmesh
+    from ..serving.engine import ServingEngine
+
+    meshes = {}
+    results = []
+    for case in cases:
+        key = tuple(map(tuple, case["mesh"]))
+        if key not in meshes:
+            meshes[key] = pmesh.make_mesh(*case["mesh"], "cpu")
+        mesh = meshes[key]
+        names = case["mesh"][1]
+        kw = dict(case.get("kwargs", {}))
+        if case["kind"] == "engine":
+            draft = case.get("draft")
+            if draft is not None:
+                kw["draft_params"] = draft
+            eng = ServingEngine(case["params"], case["cfg"], mesh=mesh,
+                                model_axis=names[-1], device="cpu",
+                                **kw)
+            for p in case["prompts"]:
+                eng.submit(p, max_new_tokens=case["max_new"])
+            done = eng.run()
+            st = eng.stats()
+            results.append({"outputs": [r.output for r in done],
+                            "spec": (st["spec_rounds"], st["spec_drafted"],
+                                     st["spec_accepted"])})
+            continue
+        params = llama.shard_params(case["params"], case["cfg"], mesh,
+                                    names[-1])
+        if case["kind"] == "grads":
+            results.append(_tp_grads(llama, params, case, mesh, names[-1]))
+            continue
+        args = [_shard_arg(a["shard"], mesh, a["spec"])
+                if isinstance(a, dict) and "shard" in a else a
+                for a in case["args"]]
+        out = getattr(llama, case["fn"])(params, *args, mesh=mesh,
+                                         model_axis=names[-1], **kw)
+        out = out if isinstance(out, tuple) else (out,)
+        results.append([_cpu(_unshard_out(o, mesh, spec))
+                        for o, spec in zip(out, case["out_specs"])])
+    return results if dist.get_rank() == 0 else None
+
+
+@contextlib.contextmanager
+def single_rank_world():
+    """This process as the only rank of a gloo world (a FileStore in a
+    temporary directory) for the block's duration."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        raise RuntimeError("this process is already a rank of a world")
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group(
+            "gloo", store=dist.FileStore(os.path.join(tmp, "store"), 1),
+            rank=0, world_size=1)
+        try:
+            yield
+        finally:
+            dist.destroy_process_group()

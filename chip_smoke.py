@@ -156,8 +156,37 @@ Phases, each printing a line of its own:
      greedy tokens held to a teacher-forced plain forward (int8: a
      plain-attention replay), sampled ones inside their sets; (s1)'s
      greedy-prefix match against (s0) and its acceptance against JAX's
-     chip floors; one (s1) round and one (s3) round under the profiler
-     beside a plain dispatch;
+     chip floors; then GPT-2 small in f32 (no bf16 near-ties) served (s4)
+     plain and (s5) self-draft K=4, chunk 256: (s5)'s raw greedy-prefix
+     match against (s4), with no near-tie credit, must reach JAX's 95 %
+     floor; one (s1) round and one (s3) round under the profiler beside a
+     plain dispatch;
+  6g. parallel, in a process of its own (`--parallel`): the kernels at
+     the shard shapes the strategies and the tensor-parallel engine give
+     them (the ring's diagonal and full hops and context parallel's
+     shard at B1 Hq32/Hkv8 S2048, Ulysses' full-sequence kernel at Hq16
+     S8192 causal and window 256, head parallelism's Hq16 S4096, the
+     ring hops' backward with a non-zero lse cotangent, the paged decode
+     at a (model 2, ctx 2) split shard and int8 / e4m3 ctx-2 shards, the
+     tp 2 engine's Hq16/Hkv4 decode and prefill), each held to its plain
+     version and timed; then parallel/'s strategies through their entry
+     points (PAR_CASES, Llama-3-8B's Hq32/Hkv8 D128 bf16) in spawned
+     worlds (utils/testing.run_world): a world of 1 over NCCL runs every
+     strategy and a short tensor-parallel engine; gloo worlds of 2 and 4
+     processes share the one card, their collectives staged through host
+     memory (no multi-GPU figure): ring attention over 4 ranks at S8192
+     and its gradients over 2 at S4096, context parallelism (Sq2048 over
+     Sk8192, 4 ranks), Ulysses over 2 at S8192 (causal, window 256),
+     head parallelism on a (1, 2) mesh, the sharded paged decode at B8
+     ctx4096 (split pools over model 2 x ctx 2; fused int8 and e4m3 over
+     ctx 2); each held on rank 0 to the single-device kernel call on the
+     full tensors (ROW_TOL; gradients within GRAD_TOL), per-rank CUDA-event
+     times beside it and the collectives' share; then Llama-3-8B at full
+     width on 8 layers served tensor-parallel over 2 ranks (PAR_TP_RUNS:
+     bf16 and int8 chunk 512, 8 requests; a short self-draft run, the
+     draft sharded too), its tokens held to the teacher-forced plain
+     forward or plain-attention replay and logged beside the tp 1 engine's
+     tokens and tok/s on the same weights;
   7. engine: a full-width, full-depth Llama-3-8B (random bf16 weights from
      a seeded generator on the card) serves the same 12 greedy requests
      eight times through `ServingEngine`: over fused pools, bf16 with
@@ -200,16 +229,20 @@ Phases, each printing a line of its own:
      phase's calls for its modes and the GPT-2 phase's split-layout
      calls; the Mixtral runs, the AdamW steps, the edges runs and the spec
      runs added to the modes they launch; the spec phase's verify, draft
-     prefill, draft decode and D64 flash modes);
+     prefill, draft decode and D64 flash modes; the parallel phase's
+     shard shapes, launches summed over the ranks of the runs that give
+     them those shapes);
   11. last line: {"ok": true, "device": {...}}, printed only when every
      phase passed.  Any failure raises and the exit code is non-zero.
 
-About 13 minutes on an H100 80GB HBM3 at 700 W, the build included
-(755.6 s at PR 19; `seconds by phase` in the log).
+About 13-14 minutes on an H100 80GB HBM3 at 700 W, the build included
+(801.2 s with the parallel phase's 73.5; `seconds by phase` in the
+log).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -5227,6 +5260,62 @@ def _spec_round_profiles(params, cfg, prompts, prompts3, res) -> None:
         torch.cuda.empty_cache()
 
 
+GPT2_SPEC_NEW = NEW_TOKENS   # GPT2_PROMPT_LENS end at 1000: within n_ctx
+
+
+def _spec_gpt2_f32(res, held) -> None:
+    """JAX's greedy-prefix floor on the path without near-ties: GPT-2
+    small in f32 (random weights from SEED) serves GPT2_PROMPT_LENS
+    greedy, GPT2_SPEC_NEW tokens each, prefill_chunk 256, (s4) plain and
+    (s5) self-draft K=4.  (s5)'s raw greedy-prefix match against (s4),
+    with no near-tie credit, must reach SPEC_MIN_MATCH (JAX
+    tests/test_speculative.py:444-474); (s5)'s tokens are held to the
+    teacher-forced plain forward within GPT2_F32_NEAR_TIE.  The bf16
+    Llama run's figure counting near-tie partings as agreeing (`held`)
+    is logged beside it."""
+    from aule_tpu_torch.models import gpt2
+    from aule_tpu_torch.serving.engine import ServingEngine
+
+    cfg = gpt2.GPT2Config()
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(SEED)
+    params = gpt2.init_params(cfg, gen, device=DEV)
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32)
+               for n in GPT2_PROMPT_LENS]
+    outs, stats = {}, {}
+    for key, kw in (("s4", {}), ("s5", dict(draft_params=params,
+                                            draft_cfg=cfg,
+                                            spec_tokens=SPEC_K))):
+        eng = ServingEngine(params, cfg, model=gpt2, device=DEV,
+                            prefill_chunk=GPT2_CHUNK, **GPT2_ENGINE_KW, **kw)
+        for p in prompts:
+            eng.submit(p, GPT2_SPEC_NEW)
+        outs[key] = [list(r.output) for r in eng.run()]
+        stats[key] = eng.stats()
+        del eng
+    match, same, total, first = _prefix_match(outs["s5"], outs["s4"])
+    st = stats["s5"]
+    acc = st["spec_accepted"] / max(st["spec_drafted"], 1)
+    log(f"spec (s5) GPT-2 small f32 self-draft K=4 chunk 256: raw "
+        f"greedy-prefix match against (s4) plain {match:.4f} ({same} of "
+        f"{total} compared tokens; {sum(f is not None for f in first)} of "
+        f"{len(first)} requests part), no near-tie credit (floor "
+        f"{SPEC_MIN_MATCH}); acceptance {acc:.4f} over {st['spec_rounds']} "
+        f"rounds; beside it the bf16 Llama-3-8B run (s1) counting near-tie "
+        f"partings as agreeing: {held:.4f}")
+    check_plain_forward(params, cfg, prompts, outs["s5"], "(s5)", model=gpt2,
+                        tie=GPT2_F32_NEAR_TIE)
+    if match < SPEC_MIN_MATCH:
+        raise AssertionError(f"(s5): raw greedy-prefix match {match:.4f} "
+                             f"under JAX's floor {SPEC_MIN_MATCH}")
+    res["runs"]["s5"] = dict(prefix_match=match, compared=total,
+                             acceptance=acc, stats=st)
+    del params
+    torch.cuda.empty_cache()
+
+
+
 def check_spec() -> dict:
     """The spec phase: the kernels at speculation's shapes
     (_spec_kernel_checks), then a full-width, full-depth Llama-3-8B
@@ -5362,9 +5451,13 @@ def check_spec() -> dict:
     check_plain_forward(params, cfg, prompts3, out3, "(s3)",
                         edges=_EdgeJudge("(s3)", specs3))
     lap("s3")
+    _spec_gpt2_f32(res, held)
+    lap("s4-s5")
     _spec_round_profiles(params, cfg, prompts, prompts3, res)
     lap("profiles")
     for key, run in res["runs"].items():
+        if key == "s5":
+            continue
         st = run["stats"]
         log(f"spec ({key}): decode {run['decode_tok_s']:.1f} tok/s, "
             f"{run['layer_passes_per_decode_token']:.2f} layer passes a "
@@ -5374,6 +5467,731 @@ def check_spec() -> dict:
     del params
     torch.cuda.empty_cache()
     return res
+
+
+PAR_SEED = SEED + 21          # the parallel phase's generators
+PAR_HEADS = (32, 8)           # Llama-3-8B's attention: Hq32 / Hkv8, D128
+PAR_WINDOW = 256
+PAR_PAGE = 16
+PAR_TP_LAYERS = 8             # the tensor-parallel engine's depth
+PAR_TP_PROMPTS = PROMPT_LENS[:8]
+PAR_TP_KW = dict(ENGINE_KW, num_pages=640)
+PAR_SPEC_NEW = 16             # the short self-draft run: 2 requests
+PAR_CTX = (None, None, "ctx", None)
+PAR_REPL = (None, None, None, None)
+PAR_HEADS_SPEC = ("data", "model", None, None)
+# The strategies on the card: name -> (world, (mesh sizes, axis names),
+# maker, its kwargs, inputs, in_specs, out_spec, gradients).  Inputs are
+# ("flash", B, Hq, Hkv, Sq, Sk) or ("paged", layout, payload dtype, n_ctx)
+# at B8 ctx4096 over 16-token pages striped over the ctx shards.
+PAR_CASES = {
+    "ring": (4, ((4,), ("ctx",)), "make_ring_attention", dict(causal=True),
+             ("flash", 1, 32, 8, 8192, 8192), [PAR_CTX] * 3, PAR_CTX, False),
+    "context": (4, ((4,), ("ctx",)), "make_context_parallel_attention", {},
+                ("flash", 1, 32, 8, 2048, 8192),
+                [PAR_REPL, PAR_CTX, PAR_CTX], PAR_REPL, False),
+    "split_paged": (4, ((2, 2), ("model", "ctx")),
+                    "make_sharded_paged_attention",
+                    dict(data_axis=None, ctx_axis="ctx"),
+                    ("paged", "split", None, 2),
+                    [(None, "model", None), ("model", "ctx", None, None),
+                     ("model", "ctx", None, None), (None, "ctx", None),
+                     (None, "ctx")], (None, "model", None), False),
+    "ring_grads": (2, ((2,), ("ctx",)), "make_ring_attention",
+                   dict(causal=True), ("flash", 1, 32, 8, 4096, 4096),
+                   [PAR_CTX] * 3, PAR_CTX, True),
+    "ulysses": (2, ((2,), ("ctx",)), "make_ulysses_attention",
+                dict(causal=True), ("flash", 1, 32, 8, 8192, 8192),
+                [PAR_CTX] * 3, PAR_CTX, False),
+    "ulysses_window": (2, ((2,), ("ctx",)), "make_ulysses_attention",
+                       dict(causal=True, window_size=PAR_WINDOW),
+                       ("flash", 1, 32, 8, 8192, 8192), [PAR_CTX] * 3,
+                       PAR_CTX, False),
+    "head": (2, ((1, 2), ("data", "model")), "make_head_parallel_attention",
+             dict(causal=True), ("flash", 1, 32, 8, 4096, 4096),
+             [PAR_HEADS_SPEC] * 3, PAR_HEADS_SPEC, False),
+    "fused_int8": (2, ((2,), ("ctx",)), "make_sharded_paged_attention_fused",
+                   dict(data_axis=None, ctx_axis="ctx", quantized=True),
+                   ("paged", "fused", torch.int8, 2),
+                   [(None, None, None), ("ctx", None, None, None, None),
+                    (None, "ctx", None), (None, "ctx"), ("ctx", None, None)],
+                   (None, None, None), False),
+    "fused_fp8": (2, ((2,), ("ctx",)), "make_sharded_paged_attention_fused",
+                  dict(data_axis=None, ctx_axis="ctx", quantized=True),
+                  ("paged", "fused", torch.float8_e4m3fn, 2),
+                  [(None, None, None), ("ctx", None, None, None, None),
+                   (None, "ctx", None), (None, "ctx"), ("ctx", None, None)],
+                  (None, None, None), False),
+}
+# the tensor-parallel engine's runs: name -> (engine kwargs, prompts, new
+# tokens); the self-draft run's draft is the target, sharded the same way
+PAR_TP_RUNS = {
+    "p1": (dict(prefill_chunk=CHUNK), 8, NEW_TOKENS),
+    "p2": (dict(prefill_chunk=CHUNK, quantized=True), 8, NEW_TOKENS),
+    "p3": (dict(prefill_chunk=CHUNK, spec_tokens=SPEC_K), 2, PAR_SPEC_NEW),
+}
+PAR_TP_LABELS = {"p1": "bf16 chunk 512", "p2": "int8 chunk 512",
+                 "p3": "self-draft K=4 bf16 chunk 512"}
+
+
+def _par_counters():
+    counters = dict(_launch_counters())
+    counters.update({k: v for k, v in _public_counters().items()
+                     if k.startswith("flash_bwd")})
+    return counters
+
+
+class _HopSpy:
+    """The flash forward launches made inside each call of
+    parallel/sharded.py's flash_attention_lse while the spy is in place,
+    by the call's causal flag: the ring's diagonal hops (causal) and its
+    full hops and context parallel's shard (non-causal).  A skipped hop
+    calls no core and counts nowhere."""
+
+    def __init__(self, counters):
+        self.fwd = [c for k, c in counters.items()
+                    if k.startswith("flash_fwd")]
+        self.hops = {"diag": 0, "full": 0}
+
+    def _launched(self):
+        return sum(c.launches for c in self.fwd)
+
+    def __enter__(self):
+        from aule_tpu_torch.parallel import sharded
+
+        self.real = real = sharded.flash_attention_lse
+
+        def spy(*args, causal=False, **kw):
+            before = self._launched()
+            out = real(*args, causal=causal, **kw)
+            self.hops["diag" if causal else "full"] += (self._launched()
+                                                        - before)
+            return out
+
+        sharded.flash_attention_lse = spy
+        return self
+
+    def __exit__(self, *exc):
+        from aule_tpu_torch.parallel import sharded
+
+        sharded.flash_attention_lse = self.real
+        return False
+
+
+def _par_inputs(spec, seed):
+    """A case's full inputs, the same on every rank (a generator seeded
+    alike): q, k, v [B, H, S, D] bf16; or q [B, Hq, D] with pools of
+    n_ctx shards of pages (page 0 of each scratch) holding B sequences of
+    4,096 tokens striped page by page over the shards, per-shard tables
+    and lengths [B, n_ctx, ...], and the same pages under one global table
+    for the single-device call."""
+    from aule_tpu_torch.ops.paged_fused import fused_pool_shape
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    if spec[0] == "flash":
+        _, b, hq, hkv, sq, sk = spec
+        return [_randn((b, hq, sq, 128), gen), _randn((b, hkv, sk, 128), gen),
+                _randn((b, hkv, sk, 128), gen)], None
+    _, layout, qdt, n_ctx = spec
+    batch, ctx, hq, hkv = 8, 4096, *PAR_HEADS
+    per_seq = ctx // PAR_PAGE
+    local = 1 + batch * per_seq // n_ctx
+    pool = _randn(fused_pool_shape(n_ctx * local, hkv, PAR_PAGE, 128), gen)
+    bt = np.full((batch, n_ctx, per_seq // n_ctx), -1, np.int32)
+    lens = np.zeros((batch, n_ctx), np.int32)
+    gbt = np.zeros((batch, per_seq), np.int32)
+    cursor = [1] * n_ctx
+    for b in range(batch):
+        for lp in range(per_seq):
+            s = lp % n_ctx
+            bt[b, s, lp // n_ctx] = cursor[s]
+            gbt[b, lp] = s * local + cursor[s]
+            lens[b, s] += PAR_PAGE
+            cursor[s] += 1
+    q = _randn((batch, hq, 128), gen)
+    dev = "cuda"
+    tables = [torch.from_numpy(bt).to(dev), torch.from_numpy(lens).to(dev)]
+    full = [torch.from_numpy(gbt).to(dev),
+            torch.full((batch,), ctx, dtype=torch.int32, device=dev)]
+    if layout == "split":
+        (k, v, _, _), _ = _split_pools(pool, None)
+        return [q, k, v] + tables, [q, k, v] + full
+    pl, sc = quantize_pool(pool, qdt)
+    return [q, pl] + tables + [sc], [q, pl] + full + [sc]
+
+
+def _par_single(name, full):
+    """The single-device kernel call on a case's full tensors."""
+    from aule_tpu_torch.ops.flash_vjp import flash_attention_vjp
+    from aule_tpu_torch.ops.paged import paged_attention
+    from aule_tpu_torch.ops.paged_fused import paged_attention_fused
+
+    kind, kw = PAR_CASES[name][4], PAR_CASES[name][3]
+    if kind[0] == "flash":
+        return flash_attention_vjp(*full[:3], causal=kw.get("causal", False),
+                                   window_size=kw.get("window_size", -1))
+    if kind[1] == "split":
+        return paged_attention(*full)
+    return paged_attention_fused(*full[:4], kv_scales=full[4])
+
+
+def _par_strategy(name, mesh, res, rank):
+    """One strategy on this rank: its shards in, the counted call (the
+    counts set to 0 just before and read just after; the flash forward's
+    launches also by hop class, _HopSpy), three timed calls
+    (CUDA events; the collectives' host seconds), the output all-gathered
+    and, on rank 0, held to the single-device call on the full tensors
+    (every row within ROW_TOL; the gradients' relative Frobenius error
+    within GRAD_TOL)."""
+    from aule_tpu_torch.parallel import collectives
+    from aule_tpu_torch.parallel import mesh as pmesh
+    from aule_tpu_torch.parallel import sharded
+    from aule_tpu_torch.utils import profiling
+
+    _, _, maker, kw, kind, in_specs, out_spec, grads = PAR_CASES[name]
+    if kind[0] == "paged":  # one table a ctx shard
+        kind = kind[:3] + (pmesh.axis_size(mesh, "ctx"),)
+    args, full = _par_inputs(kind, PAR_SEED + len(res))
+    full = full or args
+    shards = [pmesh.shard(a, mesh, s) for a, s in zip(args, in_specs)]
+    fn = getattr(sharded, maker)(mesh, **kw)
+    do = None
+    if grads:
+        do = _randn(args[0].shape, torch.Generator(device="cuda")
+                    .manual_seed(PAR_SEED), torch.bfloat16)
+        for t in shards[:3]:
+            t.requires_grad_(True)
+
+    def call():
+        out = fn(*shards)
+        if grads:
+            (out.float() * pmesh.shard(do, mesh, out_spec).float()).sum(
+                ).backward()
+        return out
+
+    counters = _par_counters()
+    torch.cuda.synchronize()
+    for c in counters.values():
+        c.launches = 0
+    with _HopSpy(counters) as spy:
+        out = call()
+    torch.cuda.synchronize()
+    launches = {k: c.launches for k, c in counters.items() if c.launches}
+    got = pmesh.unshard(out.detach(), mesh, out_spec)
+    # copies: the timed calls below accumulate into the shards' .grad
+    got_grads = ([pmesh.unshard(t.grad, mesh, s).clone()
+                  for t, s in zip(shards[:3], in_specs)] if grads else None)
+    collectives.reset_stats()
+    t0 = time.perf_counter()
+    ms = profiling.cuda_time_ms(call, warmup=0, iters=3)
+    wall = (time.perf_counter() - t0) / 3
+    row = dict(launches=launches, hops=spy.hops, ms=ms[0],
+               wall_ms=wall * 1e3,
+               collective_ms=collectives.STATS["seconds"] / 3 * 1e3,
+               collective_calls=collectives.STATS["calls"] // 3,
+               collective_mbytes=collectives.STATS["bytes"] / 3 / 1e6)
+    if rank == 0:
+        ref_in = [t.detach().requires_grad_(grads) if i < 3 else t
+                  for i, t in enumerate(full)]
+        want = _par_single(name, ref_in)
+        label = f"parallel {name}"
+        row["err"] = hold(label, got, want, None, None,
+                          _tol(torch.bfloat16, kind[2:3] == (torch.int8,)))
+        if grads:
+            (want.float() * do.float()).sum().backward()
+            _frob(label, got_grads, [t.grad for t in ref_in[:3]])
+        row["single_ms"] = profiling.cuda_time_ms(
+            lambda: _par_single(name, full), iters=3)[0]
+    res[name] = row
+
+
+def _par_tp_engine(mesh, rank, res, cfg, params, prompts, runs):
+    """The tensor-parallel engine's runs on this rank (every rank drives
+    the same loop on the same requests): counts set to 0 just before each
+    run and read just after, the collectives' host seconds, the decode's
+    tok/s; rank 0 keeps the outputs."""
+    from aule_tpu_torch.parallel import collectives
+    from aule_tpu_torch.serving.engine import ServingEngine
+
+    for key in runs:
+        ekw, n_req, new = PAR_TP_RUNS[key]
+        kw = dict(PAR_TP_KW, **ekw)
+        if "spec_tokens" in ekw:
+            kw.update(draft_params=params, draft_cfg=cfg)
+        eng = ServingEngine(params, cfg, mesh=mesh, model_axis="model",
+                            device=DEV, **kw)
+        for p in prompts[:n_req]:
+            eng.submit(p, new)
+        counters = _par_counters()
+        torch.cuda.synchronize()
+        for c in counters.values():
+            c.launches = 0
+        collectives.reset_stats()
+        t0 = time.perf_counter()
+        done = eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        st = eng.stats()
+        res[key] = dict(
+            launches={k: c.launches for k, c in counters.items()
+                      if c.launches},
+            wall_s=wall, stats=st,
+            decode_tok_s=(st["tokens_generated"] - n_req)
+            / max(st["decode_seconds"], 1e-9),
+            collective_s=collectives.STATS["seconds"],
+            collective_calls=collectives.STATS["calls"],
+            outputs=[list(r.output) for r in done] if rank == 0 else None)
+        del eng
+        torch.cuda.empty_cache()
+
+
+def _par_nccl_transport():
+    """World 1 over NCCL: its meshes' axes all have size 1, so the
+    strategies' collectives return before they reach NCCL.  Here each
+    collective's unstaged branch (the buffer stays on the card) runs once
+    on the one-rank group, through NCCL, and must hand back its input
+    (ppermute's self-pair is a copy: it sends nothing).  Returns the
+    collectives' STATS of these calls."""
+    import torch.distributed as dist
+
+    from aule_tpu_torch.parallel import collectives as coll
+
+    group = dist.group.WORLD
+    x = torch.arange(48, dtype=torch.float32, device=DEV).reshape(2, 4, 6)
+    if coll._staged(x, group):
+        raise AssertionError("world 1: a CUDA tensor over NCCL was staged "
+                             "through host memory")
+    coll.reset_stats()
+    outs = {"all_reduce": coll._all_reduce(x, dist.ReduceOp.SUM, group),
+            "all_gather": coll._all_gather(x, 1, group),
+            "all_to_all": coll._all_to_all(x, 0, 2, group),
+            "broadcast": coll._broadcast(x, group),
+            "ppermute": coll._ppermute(x, [(0, 0)], group)}
+    torch.cuda.synchronize()
+    for name, out in outs.items():
+        if out.device != x.device or not torch.equal(out, x):
+            raise AssertionError(f"world 1: {name} over NCCL did not hand "
+                                 f"back its input")
+    return dict(coll.STATS, checked=sorted(outs))
+
+
+def par_rank(job):
+    """One rank of a parallel-phase world on the card (run by
+    utils/testing.run_world): world 1 over NCCL runs every strategy and a
+    short tensor-parallel engine at mesh sizes 1; the gloo worlds of 2 and
+    4 run their PAR_CASES and, in the world of 2, the tensor-parallel
+    engine (PAR_TP_RUNS) at Llama-3-8B's width on PAR_TP_LAYERS layers.
+    Returns {case: row} (rank 0's rows hold the errors)."""
+    import torch.distributed as dist
+
+    from aule_tpu_torch.models import llama
+    from aule_tpu_torch.ops import _build
+    from aule_tpu_torch.parallel import mesh as pmesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _build.library()  # built by the parent's build phase
+    rank, world = dist.get_rank(), dist.get_world_size()
+    res = {"world": world, "backend": dist.get_backend()}
+    if job == "world1":
+        res["nccl_transport"] = _par_nccl_transport()
+    meshes = {}
+    for name, (w, (sizes, names), *_) in PAR_CASES.items():
+        if job != "world1" and w != world:
+            continue
+        sizes = tuple(1 for _ in sizes) if job == "world1" else sizes
+        if (sizes, names) not in meshes:
+            meshes[(sizes, names)] = pmesh.make_mesh(sizes, names, "cuda")
+        _par_strategy(name, meshes[(sizes, names)], res, rank)
+    if world == 2 or job == "world1":
+        cfg = llama.LlamaConfig(**dict(dataclasses.asdict(
+            llama.LlamaConfig.llama3_8b()), n_layers=PAR_TP_LAYERS))
+        gen = torch.Generator(device=DEV)
+        gen.manual_seed(SEED)
+        params = llama.init_params(cfg, gen, device=DEV)
+        rng = np.random.default_rng(SEED)
+        prompts = [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32)
+                   for n in PAR_TP_PROMPTS]
+        tp_mesh = pmesh.make_mesh((1, world), ("data", "model"), "cuda")
+        _par_tp_engine(tp_mesh, rank, res, cfg, params, prompts,
+                       ("p3",) if job == "world1" else tuple(PAR_TP_RUNS))
+        del params
+    torch.cuda.empty_cache()
+    return res
+
+
+def _par_flash_times(name, q, k, v, causal, window=-1):
+    """The forward kernel at a shard shape: twice with the same bits, held
+    to its plain version (ROW_TOL, LSE_TOL), CUDA-event medians of the
+    kernel, its plain version and SDPA (GQA expanded; a window as a
+    boolean mask), and the device time per call of the kernel (its own
+    kernel) and of SDPA (torch.profiler), beside the bound."""
+    from aule_tpu_torch.ops.flash import (flash_attention_fwd,
+                                         flash_attention_fwd_plain)
+    from aule_tpu_torch.ops.reference import build_mask
+    from aule_tpu_torch.utils import profiling
+
+    b, hq, sq, _ = q.shape
+    sk, g = k.shape[2], hq // k.shape[1]
+    kw = dict(causal=causal, window_size=window, return_lse=True)
+    o, lse = _twice(name, lambda: flash_attention_fwd(q, k, v, **kw))
+    po, plse = flash_attention_fwd_plain(q, k, v, **kw)
+    err = hold(f"{name} B{b} Hq{hq}/Hkv{k.shape[1]} Sq{sq} Sk{sk} "
+               f"{'causal' if causal else 'non-causal'}"
+               f"{f' window {window}' if window > 0 else ''}", o, po, lse,
+               plse, ROW_TOL[q.dtype])
+    del o, lse, po, plse
+    kx, vx = (x.repeat_interleave(g, dim=1) for x in (k, v))
+    if window > 0:
+        flops = profiling.window_attention_flops(b, hq, sq, 128, window)
+        mask = dict(attn_mask=build_mask(sq, sk, True, window, device=DEV))
+    else:
+        flops = profiling.attention_flops(b, hq, sq, sk, 128, causal)
+        mask = dict(is_causal=causal)
+    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel()) + 4 * b * hq * sq
+    bound, by = profiling.bound_ms(nbytes, flops)
+    ms = profiling.cuda_time_ms(lambda: flash_attention_fwd(q, k, v, **kw),
+                                iters=10)
+    pl = profiling.cuda_time_ms(lambda: flash_attention_fwd_plain(
+        q, k, v, **kw), warmup=1, iters=3)
+    sdpa = lambda: SDPA(q, kx, vx, **mask)
+    lib = profiling.cuda_time_ms(sdpa, iters=10)
+    dev = device_ms(lambda: flash_attention_fwd(q, k, v, **kw),
+                    key="flash_fwd")
+    dev_lib = device_ms(sdpa)
+    del kx, vx
+    rate = flops / (dev if dev is not None else ms[0]) / 1e9
+    log(f"{name}: kernel device {_ms(dev)} (events {ms[0]:.4f} ms, min "
+        f"{ms[1]:.4f} max {ms[2]:.4f}), {rate:.1f} TFLOP/s; plain "
+        f"{pl[0]:.4f} ms; SDPA device {_ms(dev_lib)} (events {lib[0]:.4f} "
+        f"ms); bound {bound:.4f} ms ({by})")
+    return dict(ms=ms[0], plain_ms=pl[0], library_ms=lib[0], bound_ms=bound,
+                bound_by=by, err=err, device_ms=dev,
+                library_device_ms=dev_lib)
+
+
+def _par_bwd_times(gen, res):
+    """The backward kernels at the ring gradients' shard (B1 Hq32/Hkv8
+    S2048 over 2048 keys): the diagonal hop (causal) and the full hop
+    (non-causal), both with the non-zero lse cotangent the combine hands
+    each hop; each held to its plain version (delta within DELTA_TOL,
+    dQ / dK / dV rows within ROW_TOL); the full hop's delta, dQ and dK/dV
+    timed beside the bound, their plain versions and the backward of SDPA
+    (dq, dk and dv in one call; delta: torch.linalg.vecdot): CUDA-event
+    medians, and device times per call (torch.profiler; a kernel's own
+    kernel alone)."""
+    from aule_tpu_torch.ops import flash_vjp as fv
+    from aule_tpu_torch.utils import profiling
+
+    worst = {}
+    for causal in (True, False):
+        q, k, v, o, lse, do, dlse = _bwd_inputs(
+            gen, (1, *PAR_HEADS), 2048, 2048, causal, -1,
+            torch.bfloat16, True)
+        di = _twice("parallel bwd delta", lambda: (fv.attention_delta(
+            o, do, dlse),))[0]
+        hold_delta(f"ring shard bwd delta causal={causal}", di, o, do, dlse,
+                   worst)
+        pd = fv.attention_delta_plain(o, do, dlse)
+        kw = dict(causal=causal)
+        dq = fv.flash_bwd_dq(q, k, v, do, lse, di, o=o, dlse=dlse, **kw)
+        pdq = fv.flash_bwd_dq_plain(q, k, v, do, lse, pd, **kw)
+        worst[("dq", causal)] = hold(
+            f"ring shard bwd dq causal={causal}", dq, pdq, None, None,
+            ROW_TOL[torch.bfloat16])
+        dk, dv = fv.flash_bwd_dkv(q, k, v, do, lse, di, **kw)
+        pdk, pdv = fv.flash_bwd_dkv_plain(q, k, v, do, lse, pd, **kw)
+        e1 = hold(f"ring shard bwd dk causal={causal}", dk, pdk, None, None,
+                  ROW_TOL[torch.bfloat16])
+        e2 = hold(f"ring shard bwd dv causal={causal}", dv, pdv, None, None,
+                  ROW_TOL[torch.bfloat16])
+        worst[("dkv", causal)] = tuple(max(a, b) for a, b in zip(e1, e2))
+        del dq, pdq, dk, dv, pdk, pdv
+    # the full hop (the class the ring adds), timed
+    fwd_flops = profiling.attention_flops(1, 32, 2048, 2048, 128)
+    qx = q.detach().requires_grad_(True)
+    kx = k.repeat_interleave(4, dim=1).requires_grad_(True)
+    vx = v.repeat_interleave(4, dim=1).requires_grad_(True)
+    ref = SDPA(qx, kx, vx)
+    sdpa_bwd = lambda: torch.autograd.grad(ref, (qx, kx, vx), do,
+                                           retain_graph=True)
+    lib = profiling.cuda_time_ms(sdpa_bwd, iters=10)[0]
+    lib_dev = device_ms(sdpa_bwd)
+    qkvdo = 2 * (2 * q.numel() + k.numel() + v.numel())
+    stats = 4 * lse.numel()
+    for part, fn, plain, flops, nbytes in (
+            ("delta", lambda: fv.attention_delta(o, do, dlse),
+             lambda: fv.attention_delta_plain(o, do, dlse), 2 * o.numel(),
+             2 * (o.numel() + do.numel()) + 2 * stats),
+            ("dq", lambda: fv.flash_bwd_dq(q, k, v, do, lse, di, o=o,
+                                           dlse=dlse),
+             lambda: fv.flash_bwd_dq_plain(q, k, v, do, lse, di),
+             profiling.attention_bwd_flops(fwd_flops, 3),
+             qkvdo + 2 * q.numel() + 2 * stats),
+            ("dkv", lambda: fv.flash_bwd_dkv(q, k, v, do, lse, di),
+             lambda: fv.flash_bwd_dkv_plain(q, k, v, do, lse, di),
+             profiling.attention_bwd_flops(fwd_flops, 4),
+             qkvdo + 2 * (k.numel() + v.numel()) + 2 * stats)):
+        ms = profiling.cuda_time_ms(fn, iters=10)
+        dev = device_ms(fn, key=f"flash_bwd_{part}")
+        pl = profiling.cuda_time_ms(plain, warmup=1, iters=3)
+        bound, by = profiling.bound_ms(
+            nbytes, flops, profiling.H100_F32_FLOPS if part == "delta"
+            else profiling.H100_BF16_FLOPS)
+        lib_ms, lib_dev_ms = (_vecdot_times(o, do) if part == "delta"
+                              else (lib, lib_dev))
+        err = (worst["delta"] if part == "delta" else tuple(
+            max(a, b) for a, b in zip(worst[(part, True)],
+                                      worst[(part, False)])))
+        res[f"bwd_{part}"] = dict(ms=ms[0], plain_ms=pl[0], library_ms=lib_ms,
+                                  bound_ms=bound, bound_by=by, err=err,
+                                  device_ms=dev, library_device_ms=lib_dev_ms)
+        log(f"ring shard bwd {part} (full hop, non-zero dlse): kernel device "
+            f"{_ms(dev)} (events {ms[0]:.4f} ms); plain {pl[0]:.4f} ms; "
+            f"library device {_ms(lib_dev_ms)} (events {lib_ms:.4f} ms); "
+            f"bound {bound:.4f} ms ({by})")
+    del ref, qx, kx, vx
+
+
+def _par_kernel_checks(res):
+    """Each kernel at the shard shapes the strategies and the
+    tensor-parallel engine give it, in this process: held to its plain
+    version and timed beside its bound and one PyTorch call."""
+    from aule_tpu_torch.ops.paged import paged_attention, paged_attention_plain
+    from aule_tpu_torch.ops.paged_fused import (paged_attention_fused,
+                                                paged_attention_fused_plain)
+
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(PAR_SEED)
+    hq, hkv = PAR_HEADS
+
+    def qkv(hq, hkv, sq, sk):
+        return (_randn((1, hq, sq, 128), gen), _randn((1, hkv, sk, 128), gen),
+                _randn((1, hkv, sk, 128), gen))
+
+    t = {}
+    # the ring's diagonal and full hops (S8192 over 4, S4096 over 2: the
+    # same 2048-token shards), context parallel's Sq2048 over its 2048-key
+    # shard (the full hop's shape)
+    t["flash_fwd_ring_diag_shard"] = _par_flash_times(
+        "ring diagonal hop", *qkv(hq, hkv, 2048, 2048), True)
+    t["flash_fwd_shard_full"] = _par_flash_times(
+        "ring full hop / context-parallel shard", *qkv(hq, hkv, 2048, 2048),
+        False)
+    # Ulysses' full-sequence kernel over half the heads (2 ranks), causal
+    # and windowed; head parallelism's half of the heads at S4096
+    t["flash_fwd_ulysses"] = _par_flash_times(
+        "Ulysses local", *qkv(hq // 2, hkv // 2, 8192, 8192), True)
+    t["flash_fwd_ulysses_window"] = _par_flash_times(
+        "Ulysses local", *qkv(hq // 2, hkv // 2, 8192, 8192), True,
+        PAR_WINDOW)
+    t["flash_fwd_head_parallel"] = _par_flash_times(
+        "head-parallel local", *qkv(hq // 2, hkv // 2, 4096, 4096), True)
+    _par_bwd_times(gen, t)
+
+    # the sharded paged decode: split pools over model 2 x ctx 2, fused
+    # int8 / e4m3 over ctx 2 (B8, 2,048 tokens a shard)
+    lens = [2048] * 8
+    for name, heads, qdt in (
+            ("paged_decode_split_shard", (hq // 2, hkv // 2), None),
+            ("paged_decode_int8_ctx_shard", (hq, hkv), torch.int8),
+            ("paged_decode_fp8_ctx_shard", (hq, hkv), torch.float8_e4m3fn)):
+        q, pool, bt, ln = _decode_inputs(gen, lens, 128, hq=heads[0],
+                                         hkv=heads[1])
+        if qdt is None:
+            (k, v, _, _), _ = _split_pools(pool, None)
+            kernel = lambda **x: paged_attention(q, k, v, bt, ln, **x)
+            plain = lambda **x: paged_attention_plain(q, k, v, bt, ln, **x)
+            kh, vh, kv_bytes = k[:, 1:], v[:, 1:], _fused_operands_bytes(
+                heads[1], None, sum(lens))
+            key = "splitpools"
+        else:
+            pl, sc, kh, vh, kv_bytes = _fused_operands(pool, qdt, sum(lens))
+            kernel = lambda **x: paged_attention_fused(q, pl, bt, ln,
+                                                       kv_scales=sc, **x)
+            plain = lambda **x: paged_attention_fused_plain(
+                q, pl, bt, ln, kv_scales=sc,
+                int8_matmul=qdt == torch.int8, **x)
+            key = "fusedpool"
+        o, lse = _twice(name, lambda: kernel(return_lse=True))
+        po, plse = plain(return_lse=True)
+        err = hold(f"{name} B8 Hq{heads[0]}/Hkv{heads[1]} ctx2048", o, po,
+                   lse, plse, _tol(torch.bfloat16, qdt == torch.int8))
+        kd, vd = _dense_kv(kh, vh, 8, 2048, heads[0] // heads[1])
+        qd = q[:, :, None]
+        tm = _decode_time(name, kernel, plain, lambda: SDPA(qd, kd, vd), key,
+                          kv_bytes, 8, 2048, hq=heads[0], max_pages=128)
+        t[name] = dict(tm, err=err)
+        del o, lse, po, plse, kd, vd, pool
+    # the tensor-parallel engine's kernels: each rank's half of the heads
+    # (Hq16 / Hkv4): the decode at B8 ctx1024, the prefill of a 512-token
+    # chunk at q_offset 512 (bf16 and int8 pools)
+    q, pool, bt, ln = _decode_inputs(gen, [1024] * 8, 72, hq=hq // 2,
+                                     hkv=hkv // 2)
+    for name, qdt in (("paged_decode_tp2", None),
+                      ("paged_decode_int8_tp2", torch.int8)):
+        pl, sc, kh, vh, kv_bytes = _fused_operands(pool, qdt, 8 * 1024)
+        kernel = lambda **x: paged_attention_fused(q, pl, bt, ln,
+                                                   kv_scales=sc, **x)
+        plain = lambda **x: paged_attention_fused_plain(
+            q, pl, bt, ln, kv_scales=sc, int8_matmul=qdt is not None, **x)
+        o, lse = _twice(name, lambda: kernel(return_lse=True))
+        po, plse = plain(return_lse=True)
+        err = hold(f"{name} B8 Hq16/Hkv4 ctx1024", o, po, lse, plse,
+                   _tol(torch.bfloat16, qdt is not None))
+        kd, vd = _dense_kv(kh, vh, 8, 1024, 4)
+        qd = q[:, :, None]
+        tm = _decode_time(name, kernel, plain, lambda: SDPA(qd, kd, vd),
+                          "fusedpool", kv_bytes, 8, 1024, hq=hq // 2,
+                          max_pages=72)
+        t[name] = dict(tm, err=err)
+        del o, lse, po, plse, kd, vd
+    q, pool, bt, ln, qoff = _prefill_inputs(gen, [512], [512], 512,
+                                            max_pages=72, hq=hq // 2,
+                                            hkv=hkv // 2)
+    times = _chunk_prefill_times(q, pool, bt, ln, qoff,
+                                 (("bf16", None), ("int8", torch.int8)),
+                                 "parallel TP prefill {}", hist=512)
+    t["paged_prefill_tp2"] = times["bf16"]
+    t["paged_prefill_int8_tp2"] = times["int8"]
+    res["kernels"] = t
+
+
+def _par_sum(counts):
+    total = {}
+    for c in counts:
+        for k, n in c.items():
+            total[k] = total.get(k, 0) + n
+    return total
+
+
+def _par_log_world(label, rows):
+    """Per-rank times of each strategy beside the single-device call, and
+    the collectives' share."""
+    first = rows[0]
+    for name in PAR_CASES:
+        if name not in first:
+            continue
+        per = [r[name] for r in rows]
+        share = [p["collective_ms"] / max(p["wall_ms"], 1e-9) for p in per]
+        log(f"parallel {label} {name}: per-rank time "
+            f"{[round(p['ms'], 3) for p in per]} ms (CUDA events, median of "
+            f"3; ranks share one card), single-device call "
+            f"{first[name]['single_ms']:.3f} ms; collectives "
+            f"{[round(p['collective_ms'], 3) for p in per]} ms a call "
+            f"({[round(s, 3) for s in share]} of each rank's wall time, "
+            f"{per[0]['collective_calls']} calls, "
+            f"{per[0]['collective_mbytes']:.1f} MB sent by rank 0), "
+            f"launches on rank 0 {first[name]['launches']}")
+
+
+def check_parallel() -> dict:
+    """The parallel phase: the kernels at their shard shapes
+    (_par_kernel_checks), then the strategies and the tensor-parallel
+    engine through the port's entry points (par_rank) in a world of 1
+    over NCCL, and in worlds of 2 and 4 gloo processes sharing this one
+    card (collectives staged through host memory: no multi-GPU figure),
+    then the tensor-parallel engine's tokens held to the teacher-forced
+    plain forward (bf16) or plain-attention replay (int8), beside the tp 1
+    engine's on the same weights and prompts."""
+    from aule_tpu_torch.models import llama
+    from aule_tpu_torch.serving.engine import ServingEngine
+    from aule_tpu_torch.utils.testing import run_world
+
+    log(card_line())
+    res = {"seconds": {}}
+    clock = [time.perf_counter()]
+
+    def lap(part):
+        now = time.perf_counter()
+        res["seconds"][part] = round(now - clock[0], 1)
+        clock[0] = now
+
+    _par_kernel_checks(res)
+    lap("kernels")
+    torch.cuda.empty_cache()
+    worlds = {}
+    for job, world, backend in (("world1", 1, "nccl"), ("world2", 2, "gloo"),
+                                ("world4", 4, "gloo")):
+        rows = run_world(par_rank, world, job, backend=backend, threads=0)
+        worlds[job] = rows
+        _par_log_world(f"world {world} ({backend})", rows)
+        lap(job)
+    cfg = llama.LlamaConfig(**dict(dataclasses.asdict(
+        llama.LlamaConfig.llama3_8b()), n_layers=PAR_TP_LAYERS))
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(SEED)
+    params = llama.init_params(cfg, gen, device=DEV)
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32)
+               for n in PAR_TP_PROMPTS]
+    # each case's launches, and its flash forwards by hop class, summed
+    # over its ranks
+    res["launches"], res["hops"] = {}, {}
+    for job in ("world2", "world4"):
+        for name in PAR_CASES:
+            if name in worlds[job][0]:
+                for part in ("launches", "hops"):
+                    res[part][name] = _par_sum(
+                        r[name][part] for r in worlds[job])
+    tp_rows = worlds["world2"]
+    res["tp"] = {}
+    for key, (ekw, n_req, new) in PAR_TP_RUNS.items():
+        kw = dict(PAR_TP_KW, **ekw)
+        if "spec_tokens" in ekw:
+            kw.update(draft_params=params, draft_cfg=cfg)
+        eng = ServingEngine(params, cfg, device=DEV, **kw)
+        for p in prompts[:n_req]:
+            eng.submit(p, new)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        one = [list(r.output) for r in eng.run()]
+        torch.cuda.synchronize()
+        wall1 = time.perf_counter() - t0
+        st1 = eng.stats()
+        tok1 = (st1["tokens_generated"] - n_req) / st1["decode_seconds"]
+        del eng
+        tp = tp_rows[0][key]
+        got = tp["outputs"]
+        label = f"(TP {key}) {PAR_TP_LABELS[key]}"
+        if ekw.get("quantized"):
+            check_replay(params, cfg, prompts[:n_req], got, label,
+                         torch.int8, CHUNK, engine_kw=PAR_TP_KW,
+                         new_tokens=new)
+        else:
+            check_plain_forward(params, cfg, prompts[:n_req], got, label)
+        match = _prefix_match(got, one)[0]
+        log(f"parallel {label}: tp 2 decode {tp['decode_tok_s']:.1f} tok/s "
+            f"(gloo through host memory, both ranks on one card: no "
+            f"multi-GPU figure), wall {tp['wall_s']:.2f} s, collectives "
+            f"{tp['collective_s']:.2f} s in {tp['collective_calls']} calls "
+            f"on rank 0; tp 1 decode {tok1:.1f} tok/s, wall {wall1:.2f} s; "
+            f"greedy-prefix match with tp 1 {match:.4f}; launches on rank 0 "
+            f"{tp['launches']}")
+        res["tp"][key] = dict(tp_decode_tok_s=tp["decode_tok_s"],
+                              tp1_decode_tok_s=tok1, tp_wall_s=tp["wall_s"],
+                              tp1_wall_s=wall1, prefix_match_tp1=match,
+                              collective_s=tp["collective_s"],
+                              launches=_par_sum(r[key]["launches"]
+                                                for r in tp_rows))
+        torch.cuda.empty_cache()
+    log(f"parallel world 1 (nccl): collectives' unstaged branch on a "
+        f"one-rank group {worlds['world1'][0]['nccl_transport']}: each "
+        f"handed back its input")
+    w1 = worlds["world1"][0]["p3"]
+    if not w1["launches"].get("paged_prefill"):
+        raise AssertionError("world 1's engine run launched no prefill")
+    check_plain_forward(params, cfg, prompts[:2], w1["outputs"],
+                        "(TP p3, world 1 over NCCL)")
+    del params
+    torch.cuda.empty_cache()
+    lap("tp")
+    res["worlds"] = {job: [{k: v for k, v in r.items()
+                            if k not in PAR_TP_RUNS} for r in rows]
+                     for job, rows in worlds.items()}
+    log(f"parallel: seconds by part {res['seconds']}")
+    return res
+
 
 
 def _phase_process(flag: str, what: str) -> dict:
@@ -5429,10 +6247,16 @@ def phase_spec() -> dict:
     return _phase_process("--spec", "speculative decoding")
 
 
+def phase_parallel() -> dict:
+    """check_parallel in a process of its own (`chip_smoke.py
+    --parallel`), which starts the worlds' processes."""
+    return _phase_process("--parallel", "parallel")
+
+
 def child_main(check) -> None:
     """`chip_smoke.py --public`, `--gpt2`, `--llama32`, `--mistral`,
-    `--moe`, `--adamw` or `--spec`: that phase alone, its result as one
-    JSON line last."""
+    `--moe`, `--adamw`, `--spec` or `--parallel`: that phase alone, its
+    result as one JSON line last."""
     if not torch.cuda.is_available():
         log("device: torch.cuda.is_available() is False")
         sys.exit(2)
@@ -5930,6 +6754,134 @@ def spec_entries(entries, spec) -> None:
             by_name[name]["launches_spec_by_part"] = n
 
 
+PAR_FWD_SRC = "aule_tpu_torch/csrc/flash_fwd.cu"
+PAR_FWD_ROW = "aule_tpu/ops/flash.py:92 (_fwd_kernel)"
+
+
+def parallel_entries(entries, par) -> None:
+    """The parallel phase's kernel modes at their shard shapes, each with
+    its launches summed over the ranks of the runs that give it that
+    shape (the ring's forward launches by hop class as _HopSpy counted
+    them: n diagonal and n(n-1)/2 full hops over n ranks, the skipped hops
+    none, and the classes' sum equal to the counters' total), its errors
+    against its plain version and its times."""
+    n = par["launches"]
+    hops = par["hops"]
+    t = par["kernels"]
+
+    def got(case, counter):
+        return n[case].get(counter, 0)
+
+    for case, ranks in (("ring", 4), ("ring_grads", 2), ("context", 4)):
+        h = hops[case]
+        want = ((0, ranks) if case == "context"
+                else (ranks, ranks * (ranks - 1) // 2))
+        total = sum(v for k, v in n[case].items() if k.startswith("flash_fwd"))
+        if (h["diag"], h["full"]) != want or total != h["diag"] + h["full"]:
+            raise AssertionError(
+                f"{case}: flash forward launches {h} by hop class (total "
+                f"{total}), not {want[0]} diagonal and {want[1]} full")
+        log(f"parallel {case}: flash forward launches by hop class {h} "
+            f"({ranks} ranks)")
+    bwd = {p: got("ring_grads", f"flash_bwd_{p}") for p in
+           ("delta", "dq", "dkv")}
+    if set(bwd.values()) != {3}:
+        raise AssertionError(f"ring backward launches {bwd}, not 3 each "
+                             f"(2 diagonal and 1 full hop; none skipped)")
+    tp = {k: v["launches"] for k, v in par["tp"].items()}
+    rows = [
+        ("flash_fwd_ring_diag_shard", PAR_FWD_SRC,
+         PAR_FWD_ROW + "; aule_tpu/ops/flash.py:638 (_mono_kernel)",
+         hops["ring"]["diag"] + hops["ring_grads"]["diag"],
+         "B1 Hq32/Hkv8 S2048 D128 bf16 causal: the ring's diagonal hops "
+         "(S8192 over 4 ranks, S4096 over 2; library: SDPA)"),
+        ("flash_fwd_shard_full", PAR_FWD_SRC, PAR_FWD_ROW,
+         hops["ring"]["full"] + hops["ring_grads"]["full"]
+         + hops["context"]["full"],
+         "B1 Hq32/Hkv8 Sq2048 Sk2048 D128 bf16 non-causal: the ring's full "
+         "hops and context parallel's Sq2048 over a 2048-key shard of 8192 "
+         "(4 ranks; library: SDPA)"),
+        ("flash_fwd_ulysses", PAR_FWD_SRC,
+         PAR_FWD_ROW + "; aule_tpu/ops/flash.py:638 (_mono_kernel)",
+         got("ulysses", "flash_fwd"),
+         "B1 Hq16/Hkv4 S8192 D128 bf16 causal: Ulysses' full-sequence "
+         "kernel on half the heads (2 ranks; library: SDPA)"),
+        ("flash_fwd_ulysses_window", PAR_FWD_SRC,
+         "aule_tpu/ops/flash.py:479 (_win_kernel)",
+         got("ulysses_window", "flash_fwd"),
+         f"B1 Hq16/Hkv4 S8192 D128 bf16 causal window {PAR_WINDOW} "
+         f"(2 ranks; library: SDPA with a boolean mask)"),
+        ("flash_fwd_head_parallel", PAR_FWD_SRC,
+         PAR_FWD_ROW + "; aule_tpu/ops/flash.py:638 (_mono_kernel)",
+         got("head", "flash_fwd"),
+         "B1 Hq16/Hkv4 S4096 D128 bf16 causal: head parallelism on a "
+         "(1, 2) mesh (library: SDPA)"),
+        ("flash_bwd_delta_ring_shard", "aule_tpu_torch/csrc/flash_bwd.cu",
+         "aule_tpu/ops/flash_vjp.py:746 (delta, an XLA fusion in JAX: no "
+         "Pallas kernel)", bwd["delta"],
+         "B1 Hq32/Hkv8 S2048 D128 bf16, the ring's hops with a non-zero "
+         "lse cotangent; timed at the full hop (library: "
+         "torch.linalg.vecdot(o, do))"),
+        ("flash_bwd_dq_ring_shard", "aule_tpu_torch/csrc/flash_bwd.cu",
+         "aule_tpu/ops/flash_vjp.py:127 (_dq_kernel)", bwd["dq"],
+         "B1 Hq32/Hkv8 S2048 D128 bf16, the ring's diagonal and full hops "
+         "with a non-zero lse cotangent; timed at the full hop (library: the "
+         "backward of SDPA, dq, dk and dv together)"),
+        ("flash_bwd_dkv_ring_shard", "aule_tpu_torch/csrc/flash_bwd.cu",
+         "aule_tpu/ops/flash_vjp.py:271 (_dkv_kernel)", bwd["dkv"],
+         "as flash_bwd_dq_ring_shard"),
+        ("paged_decode_split_shard", "aule_tpu_torch/csrc/paged_decode.cu",
+         "aule_tpu/ops/paged.py:45 (_paged_decode_kernel)",
+         got("split_paged", "paged_decode_split"),
+         "B8 Hq16/Hkv4 ctx2048 page16 D128 split bf16 pools: a (model 2, "
+         "ctx 2) shard of B8 ctx4096, with its LSE for the combine "
+         "(library: SDPA on the gathered K/V)"),
+        ("paged_decode_int8_ctx_shard", "aule_tpu_torch/csrc/paged_decode.cu",
+         "aule_tpu/ops/paged_fused.py:213 (_fused_decode_kernel) int8 mode",
+         got("fused_int8", "paged_decode"),
+         "B8 Hq32/Hkv8 ctx2048 page16 D128 fused int8 pool, bf16 scales: a "
+         "ctx-2 shard of B8 ctx4096 (library: SDPA on the dequantized K/V)"),
+        ("paged_decode_fp8_ctx_shard", "aule_tpu_torch/csrc/paged_decode.cu",
+         "aule_tpu/ops/paged_fused.py:213 (_fused_decode_kernel) fp8 mode",
+         got("fused_fp8", "paged_decode"),
+         "B8 Hq32/Hkv8 ctx2048 page16 D128 fused e4m3 pool, bf16 scales: a "
+         "ctx-2 shard of B8 ctx4096 (library: SDPA on the dequantized K/V)"),
+        ("paged_decode_tp2", "aule_tpu_torch/csrc/paged_decode.cu",
+         "aule_tpu/ops/paged_fused.py:213 (_fused_decode_kernel)",
+         tp["p1"].get("paged_decode", 0) + tp["p3"].get("paged_decode", 0),
+         "B8 Hq16/Hkv4 ctx1024 page16 D128 bf16: a rank's heads in the tp 2 "
+         "engine (runs p1 and p3; library: SDPA)"),
+        ("paged_decode_int8_tp2", "aule_tpu_torch/csrc/paged_decode.cu",
+         "aule_tpu/ops/paged_fused.py:213 (_fused_decode_kernel) int8 mode",
+         tp["p2"].get("paged_decode", 0),
+         "B8 Hq16/Hkv4 ctx1024 page16 D128 int8 pool: the tp 2 engine's run "
+         "p2 (library: SDPA on the dequantized K/V)"),
+        ("paged_prefill_tp2", "aule_tpu_torch/csrc/paged_prefill.cu",
+         "aule_tpu/ops/paged_fused.py:770 (_fused_prefill_kernel)",
+         tp["p1"].get("paged_prefill", 0) + tp["p3"].get("paged_prefill", 0),
+         "B1 Hq16/Hkv4 D128 page16, chunk 512 at q_offset 512 over 1024, "
+         "bf16 pool: a rank's heads in the tp 2 engine (runs p1 and p3; "
+         "library: SDPA with a positional mask)"),
+        ("paged_prefill_int8_tp2", "aule_tpu_torch/csrc/paged_prefill.cu",
+         "aule_tpu/ops/paged_fused.py:770 (_fused_prefill_kernel) int8 "
+         "mode", tp["p2"].get("paged_prefill", 0),
+         "as paged_prefill_tp2, int8 pool (run p2)"),
+    ]
+    key = {"flash_bwd_delta_ring_shard": "bwd_delta",
+           "flash_bwd_dq_ring_shard": "bwd_dq",
+           "flash_bwd_dkv_ring_shard": "bwd_dkv"}
+    for name, src, row, launches, shape in rows:
+        if launches == 0:
+            raise AssertionError(f"{name} was not launched in the parallel "
+                                 f"phase")
+        tm = t[key.get(name, name)]
+        err = tuple(tm["err"]) + (0.0,) * (3 - len(tm["err"]))
+        extra = {k: tm[k] for k in ("device_ms", "library_device_ms")
+                 if k in tm}
+        entries.append(_entry(name, src, row, launches, err, tm, shape,
+                              phase="parallel", **extra))
+
+
 def main() -> None:
     from aule_tpu_torch.ops.flash import SHORT_SQ
 
@@ -5971,6 +6923,8 @@ def main() -> None:
     moe = timed("moe", phase_moe)
     adamw = timed("adamw", phase_adamw)
     spec = timed("spec", phase_spec)
+    torch.cuda.empty_cache()  # the worlds' processes share the card
+    par = timed("parallel", phase_parallel)
     runs, params, cfg = timed("engine", phase_engine)
     edges = timed("edges", phase_edges, params, cfg)
     timed("breakdown", phase_breakdown, params, cfg)
@@ -6283,6 +7237,7 @@ def main() -> None:
     add_moe_adamw_launches(entries, moe, adamw)
     add_edge_launches(entries, edges)
     spec_entries(entries, spec)
+    parallel_entries(entries, par)
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
@@ -6304,5 +7259,7 @@ if __name__ == "__main__":
         child_main(check_adamw)
     elif sys.argv[1:] == ["--spec"]:
         child_main(check_spec)
+    elif sys.argv[1:] == ["--parallel"]:
+        child_main(check_parallel)
     else:
         main()

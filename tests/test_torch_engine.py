@@ -16,7 +16,9 @@ import torch
 
 from aule_tpu.models import llama as jllama
 from aule_tpu.serving.engine import ServingEngine as JaxEngine
+from aule_tpu_torch.models import gpt2 as tgpt2
 from aule_tpu_torch.models import llama as tllama
+from aule_tpu_torch.models import moe as tmoe
 from aule_tpu_torch.serving import sampling
 from aule_tpu_torch.serving.engine import ServingEngine
 from aule_tpu_torch.utils.testing import cap_cpu_threads
@@ -206,9 +208,11 @@ def test_oversized_request_rejected(params):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(mesh=object()), dict(model=jllama),
-    dict(mesh=object(), ngram_spec=2)])
+    dict(mesh=object(), model=tgpt2), dict(model=jllama),
+    dict(mesh=object(), model=tmoe, ngram_spec=2)])
 def test_unported_engine_options_raise(params, kw):
+    """A JAX module as the family, and a mesh over the families whose
+    meshes are not ported (tests/test_torch_tp.py serves Llama's)."""
     _, tp = params
     with pytest.raises(NotImplementedError):
         ServingEngine(tp, TCFG, device="cpu", **dict(KW, **kw))

@@ -24,7 +24,9 @@ from aule_tpu_torch.ops.flash_vjp import flash_attention_vjp_plain
 from aule_tpu_torch.ops.paged_fused import paged_attention_fused_plain
 from aule_tpu_torch.ops.paged_prefill import paged_attention_prefill_plain
 from aule_tpu_torch.ops.rope import precompute_rope_frequencies as trope
-from aule_tpu_torch.utils.testing import assert_close, cap_cpu_threads
+from aule_tpu_torch.parallel.mesh import make_mesh
+from aule_tpu_torch.utils.testing import (assert_close, cap_cpu_threads,
+                                          single_rank_world)
 
 cap_cpu_threads()
 
@@ -351,7 +353,9 @@ def test_decode_step_split(params, kind):
 
 def test_decode_step_split_hook_and_mesh(params):
     """The attention hook taking the plain version gives the wrapper's
-    result (on the CPU the wrapper IS the plain version); mesh= raises."""
+    result (on the CPU the wrapper IS the plain version); mesh= over a
+    one-rank world gives the same bits (tests/test_torch_tp.py holds
+    wider meshes to JAX's)."""
     from aule_tpu_torch.ops.paged import paged_attention_plain
 
     _, tp = params
@@ -365,8 +369,12 @@ def test_decode_step_split_hook_and_mesh(params):
                            *where, *[p.clone() for p in tpools[2:]],
                            attention=paged_attention_plain)[0]
     assert torch.equal(a, b)
-    with pytest.raises(NotImplementedError):
-        tllama.decode_step(tp, *args, *tpools[:2], *where, mesh=object())
+    with single_rank_world():
+        mesh = make_mesh((1, 1), ("data", "model"), "cpu")
+        c = tllama.decode_step(tp, *args, *[p.clone() for p in tpools[:2]],
+                               *where, *[p.clone() for p in tpools[2:]],
+                               mesh=mesh)[0]
+    assert torch.equal(a, c)
 
 
 def test_decode_attention_hook_is_the_plain_version(params):

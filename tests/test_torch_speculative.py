@@ -415,9 +415,11 @@ def test_spec_validation_errors(weights):
         ServingEngine(tp, TCFG, device="cpu", draft_params=td,
                       draft_cfg=TDRAFT, draft_model=jllama, spec_tokens=2,
                       **kw)
+    # a mesh shards Llama drafts only (tests/test_torch_tp.py serves one)
     with pytest.raises(NotImplementedError, match="parallel-layer"):
         ServingEngine(tp, TCFG, device="cpu", draft_params=td,
-                      draft_cfg=TDRAFT, spec_tokens=2, mesh=object(), **kw)
+                      draft_cfg=TDRAFT, draft_model=tgpt2, spec_tokens=2,
+                      mesh=object(), **kw)
 
 
 def test_spec_sliding_window_model(weights):
