@@ -1,15 +1,19 @@
 // Paged decode for Hopper (sm_90a): the entry points, the dispatch over
-// type and head dim, and the D = 128 instantiations; the kernel and its
-// design note are in paged_decode.cuh, D 64 and 256 in
-// paged_decode_d64.cu and paged_decode_d256.cu.
+// type and head dim, and the bf16 D = 128 instantiations; the kernel and
+// its design note are in paged_decode.cuh, f16 D = 128 in
+// paged_decode_f16.cu, D 64 and 256 in paged_decode_d64.cu,
+// paged_decode_d256.cu and their _f16 twins.
 
 #include "paged_decode.cuh"
 
 namespace aule_decode {
 
-AULE_DECODE_DIM(, 128);
-AULE_DECODE_DIM(extern, 64);
-AULE_DECODE_DIM(extern, 256);
+AULE_DECODE_TYPE(, 128, __nv_bfloat16);
+AULE_DECODE_TYPE(extern, 128, __half);
+AULE_DECODE_TYPE(extern, 64, __nv_bfloat16);
+AULE_DECODE_TYPE(extern, 64, __half);
+AULE_DECODE_TYPE(extern, 256, __nv_bfloat16);
+AULE_DECODE_TYPE(extern, 256, __half);
 
 namespace {
 

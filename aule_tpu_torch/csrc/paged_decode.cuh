@@ -864,13 +864,13 @@ int by_pool(int pool, int group, int rows, const Args& a) {
   return cudaErrorInvalidValue;
 }
 
-// by_pool's instantiations, one source each head dim (AULE_DECODE_DIM)
+// by_pool's instantiations, one source each head dim and q type
+// (AULE_DECODE_TYPE): the build runs one nvcc a source, all together, so
+// it lasts as long as its largest source
 #define AULE_DECODE_BY_POOL(D, T, L)                                     \
   template int by_pool<T, D, L>(int pool, int group, int rows, const Args& a)
-#define AULE_DECODE_DIM(KW, D)                                \
-  KW AULE_DECODE_BY_POOL(D, __nv_bfloat16, FusedPool);        \
-  KW AULE_DECODE_BY_POOL(D, __nv_bfloat16, SplitPools);       \
-  KW AULE_DECODE_BY_POOL(D, __half, FusedPool);               \
-  KW AULE_DECODE_BY_POOL(D, __half, SplitPools)
+#define AULE_DECODE_TYPE(KW, D, T)                            \
+  KW AULE_DECODE_BY_POOL(D, T, FusedPool);                    \
+  KW AULE_DECODE_BY_POOL(D, T, SplitPools)
 
 }  // namespace aule_decode

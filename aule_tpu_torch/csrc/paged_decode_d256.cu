@@ -1,11 +1,12 @@
-// Paged decode for Hopper (sm_90a): the D = 256 instantiations of
+// Paged decode for Hopper (sm_90a): the bf16 D = 256 instantiations of
 // paged_decode.cuh's kernel (paged_decode.cu dispatches to them), compiled
-// in a source of their own so that the head dims build in parallel.
+// in a source of their own so that the head dims and q types build in
+// parallel.
 
 #include "paged_decode.cuh"
 
 namespace aule_decode {
 
-AULE_DECODE_DIM(, 256);
+AULE_DECODE_TYPE(, 256, __nv_bfloat16);
 
 }  // namespace aule_decode

@@ -25,8 +25,19 @@ split pools (nor has the JAX model), so the engine's `layout="split"`
 refuses it.  `lora=` / `lora_idx=` put multi-LoRA adapters on the
 projections as llama's `_lora_proj` does, the engine's targets `wq`, `wk`,
 `wv` on the three slices of `w_qkv` and `wo` on `w_proj` (JAX
-l.145-158).  `mesh=` raises: it comes with the parallel-layer model slice.
-Entry points run on the card by default
+l.145-158).
+
+Tensor parallelism (`mesh=`, JAX l.69-89, 167-397): `param_specs` shards
+the qkv-major `w_qkv` [3, dim, H*D] and its bias by heads (so the MHA
+heads shard cleanly), w_fc and fc_b by hidden units, w_proj and w_out by
+rows; the embeddings, norms and output biases replicate.  `shard_params`
+cuts a rank's shards from the full params.  Under a mesh each rank
+projects its heads and hidden units, attends over them (its pools hold its
+heads), and the ranks join by one all-reduce after w_proj and one after
+w_out, each followed by its replicated bias, as JAX's GSPMD program adds
+it after the reduction; the tied head's logits are whole on every rank.
+forward also shards the batch over `data_axis`.  LoRA with a mesh raises,
+as llama's.  Entry points run on the card by default
 (`device="cuda"`) and raise without CUDA; pass `device="cpu"` for the
 plain versions.
 """
@@ -46,7 +57,10 @@ from ..ops.paged_fused import (kv_cache_append_decode_fused,
                                kv_cache_append_prefill_fused,
                                paged_attention_fused)
 from ..ops.paged_prefill import paged_attention_prefill
-from .llama import _lora_at, _lora_proj, _to_torch
+from ..parallel.collectives import all_gather
+from ..parallel.mesh import map_specs, renamed, shard
+from .llama import (_enter, _lora_at, _lora_proj, _reduce, _tensor_parallel,
+                    _to_torch)
 
 Params = Dict[str, Any]
 
@@ -87,11 +101,36 @@ class GPT2Config:
         return cls(**defaults)
 
 
-def _later(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "gpt2 with mesh= is not ported yet; it comes with the "
-            "parallel-layer model slice")
+def param_specs(cfg: GPT2Config) -> Dict[str, Any]:
+    """Tensor-parallel specs over a (data, model) mesh (JAX l.69-89; tuples,
+    see parallel/mesh.py)."""
+    layer = {
+        "ln1_g": (None,), "ln1_b": (None,),
+        "w_qkv": (None, None, "model"),   # [3, dim, H*Dh]: heads sharded
+        "qkv_b": (None, "model"),
+        "w_proj": ("model", None),        # [H*Dh, dim]: rows sharded
+        "proj_b": (None,),
+        "ln2_g": (None,), "ln2_b": (None,),
+        "w_fc": (None, "model"),
+        "fc_b": ("model",),
+        "w_out": ("model", None),
+        "out_b": (None,),
+    }
+    return {
+        "wte": (None, None),
+        "wpe": (None, None),
+        "final_ln_g": (None,),
+        "final_ln_b": (None,),
+        "layers": [dict(layer) for _ in range(cfg.n_layers)],
+    }
+
+
+def shard_params(params: Params, cfg: GPT2Config, mesh,
+                 model_axis: str = "model") -> Params:
+    """This rank's shards of the full params under `param_specs` (its
+    `model` read as `model_axis`): what `mesh=` calls take."""
+    return map_specs(lambda spec, t: shard(t, mesh, renamed(spec, model_axis)),
+                     param_specs(cfg), params)
 
 
 def init_params(cfg: GPT2Config, generator: torch.Generator,
@@ -192,11 +231,19 @@ def _qkv(layer, h, cfg, ll=None, lora_idx=None):
                  for i, name in enumerate(_QKV))
 
 
-def _mlp(layer, x, cfg):
-    h = layer_norm(x, layer["ln2_g"], layer["ln2_b"], cfg.norm_eps)
+def _proj(layer, attn, tp, ll=None, lora_idx=None):
+    """The output projection of the merged heads [..., H*D], its partial
+    sums joined over the ranks, then its bias."""
+    return _reduce(tp, _lora_proj(attn, layer["w_proj"], ll, "wo",
+                                  lora_idx)) + layer["proj_b"]
+
+
+def _mlp(layer, x, cfg, tp=None):
+    h = _enter(tp, layer_norm(x, layer["ln2_g"], layer["ln2_b"],
+                              cfg.norm_eps))
     # jax.nn.gelu's default is the tanh approximation
     h = F.gelu(h @ layer["w_fc"] + layer["fc_b"], approximate="tanh")
-    return x + h @ layer["w_out"] + layer["out_b"]
+    return x + _reduce(tp, h @ layer["w_out"]) + layer["out_b"]
 
 
 def _embed(params, tokens, positions, cfg):
@@ -223,6 +270,8 @@ def forward(
     return_kv: bool = False,
     attention: Callable = flash_attention_vjp,
     mesh=None,
+    data_axis: str = "data",
+    model_axis: str = "model",
     lora=None,
     lora_idx: Optional[torch.Tensor] = None,
 ):
@@ -230,26 +279,35 @@ def forward(
     per-layer (k, v) [B, H, S, D] for filling the decode pools.
     `attention` is the differentiable flash attention; a reference run
     passes its plain version (ops.flash_vjp.flash_attention_vjp_plain).
-    `lora` / `lora_idx` [B]: the adapters (llama.forward's)."""
+    `lora` / `lora_idx` [B]: the adapters (llama.forward's).  With `mesh`
+    (JAX l.167-220): `params` are this rank's shards (`shard_params`),
+    `tokens` (and `positions`) the full batch, sharded over `data_axis`;
+    attention runs over the rank's heads and rows, every rank gets the
+    full logits, and the returned k and v are the rank's heads and rows."""
     del rope_cos, rope_sin
-    _later(mesh)
+    tp = _tensor_parallel(cfg, mesh, model_axis, data_axis, lora)
     dev = params["wte"].device
     b, s = tokens.shape
     if positions is None:
         positions = torch.arange(s, device=dev)[None].expand(b, s)
-    x = _embed(params, tokens.to(dev), positions.to(dev), cfg)
+    tokens, positions = tokens.to(dev), positions.to(dev)
+    if tp is not None:
+        tokens, positions, cfg = tp.rows(tokens), tp.rows(positions), tp.cfg
+    x = _embed(params, tokens, positions, cfg)
     kv_out: List[Tuple[torch.Tensor, torch.Tensor]] = []
     for li, layer in enumerate(params["layers"]):
         ll = _lora_at(lora, li)
-        h = layer_norm(x, layer["ln1_g"], layer["ln1_b"], cfg.norm_eps)
+        h = _enter(tp, layer_norm(x, layer["ln1_g"], layer["ln1_b"],
+                                  cfg.norm_eps))
         q, k, v = _qkv(layer, h, cfg, ll, lora_idx)
         if return_kv:
             kv_out.append((k, v))
         attn = attention(q, k, v, causal=True)
-        x = x + (_lora_proj(_merge(attn), layer["w_proj"], ll, "wo",
-                            lora_idx) + layer["proj_b"])
-        x = _mlp(layer, x, cfg)
+        x = x + _proj(layer, _merge(attn), tp, ll, lora_idx)
+        x = _mlp(layer, x, cfg, tp)
     logits = _logits(params, x, cfg)
+    if tp is not None and tp.data_axis is not None:
+        logits = all_gather(logits, tp.data_axis, tp.mesh, dim=0)
     if return_kv:
         return logits, kv_out
     return logits
@@ -266,9 +324,10 @@ def decode_step_fused(
     rope_cos=None,                       # unused (learned positions)
     rope_sin=None,
     kv_scales: Optional[Sequence[torch.Tensor]] = None,
+    mesh=None,
+    model_axis: str = "model",
     *,
     attention: Callable = paged_attention_fused,
-    mesh=None,
     lora=None,
     lora_idx: Optional[torch.Tensor] = None,
 ):
@@ -279,16 +338,22 @@ def decode_step_fused(
     kv_pages, context_lens + 1), and kv_scales fourth when quantized.
     `attention` is the paged decode; a reference run passes its plain
     version (ops.paged_fused.paged_attention_fused_plain).  `lora` /
-    `lora_idx` [B]: the adapters (llama.forward's)."""
+    `lora_idx` [B]: the adapters (llama.forward's).  With `mesh` (JAX
+    l.222-306): `params` are this rank's shards and each fused pool holds
+    its heads, [P, 2, H/tp, page, Dpad] (scale tiles packing its local
+    heads), as llama.decode_step_fused(mesh=)'s."""
     del rope_cos, rope_sin
-    _later(mesh)
+    tp = _tensor_parallel(cfg, mesh, model_axis, lora=lora)
+    if tp is not None:
+        cfg = tp.cfg
     dev = params["wte"].device
     x = _embed(params, token.to(dev), positions.to(dev), cfg)
     lens_out = context_lens
     for li, layer in enumerate(params["layers"]):
         ll = _lora_at(lora, li)
         sc = None if kv_scales is None else kv_scales[li]
-        h = layer_norm(x, layer["ln1_g"], layer["ln1_b"], cfg.norm_eps)
+        h = _enter(tp, layer_norm(x, layer["ln1_g"], layer["ln1_b"],
+                                  cfg.norm_eps))
         w, bias = layer["w_qkv"], layer["qkv_b"]
         q, k, v = ((_lora_proj(h, w[i], ll, name, lora_idx)
                     + bias[i]).reshape(-1, cfg.n_heads, cfg.head_dim)
@@ -298,9 +363,9 @@ def decode_step_fused(
             kv_scales=sc)[-1]
         attn = attention(q, kv_pages[li], block_tables, lens_out,
                          kv_scales=sc)
-        x = x + (_lora_proj(attn.reshape(-1, cfg.dim), layer["w_proj"], ll,
-                            "wo", lora_idx) + layer["proj_b"])
-        x = _mlp(layer, x, cfg)
+        x = x + _proj(layer, attn.reshape(-1, cfg.n_heads * cfg.head_dim),
+                      tp, ll, lora_idx)
+        x = _mlp(layer, x, cfg, tp)
     logits = _logits(params, x, cfg)
     if kv_scales is not None:
         return logits, kv_pages, lens_out, kv_scales
@@ -318,10 +383,11 @@ def prefill_step_fused(
     rope_cos=None,                       # unused (learned positions)
     rope_sin=None,
     kv_scales: Optional[Sequence[torch.Tensor]] = None,
+    mesh=None,
+    model_axis: str = "model",
     *,
     all_logits: bool = False,
     attention: Callable = paged_attention_prefill,
-    mesh=None,
     lora=None,
     lora_idx: Optional[torch.Tensor] = None,
 ):
@@ -333,9 +399,12 @@ def prefill_step_fused(
     sequence's last valid chunk token, or [B, S, V] with all_logits=True.
     `attention` is the paged prefill; a reference run passes its plain
     version (ops.paged_prefill.paged_attention_prefill_plain).  `lora` /
-    `lora_idx` [B]: the adapters (llama.forward's)."""
+    `lora_idx` [B]: the adapters (llama.forward's).  With `mesh` (JAX
+    l.307-397): this rank's shards and pools, as decode_step_fused's."""
     del rope_cos, rope_sin
-    _later(mesh)
+    tp = _tensor_parallel(cfg, mesh, model_axis, lora=lora)
+    if tp is not None:
+        cfg = tp.cfg
     _, s_chunk = tokens.shape
     dev = params["wte"].device
     q_offsets = q_offsets.to(dev)
@@ -347,16 +416,16 @@ def prefill_step_fused(
     for li, layer in enumerate(params["layers"]):
         ll = _lora_at(lora, li)
         sc = None if kv_scales is None else kv_scales[li]
-        h = layer_norm(x, layer["ln1_g"], layer["ln1_b"], cfg.norm_eps)
+        h = _enter(tp, layer_norm(x, layer["ln1_g"], layer["ln1_b"],
+                                  cfg.norm_eps))
         q, k, v = _qkv(layer, h, cfg, ll, lora_idx)
         lens_out = kv_cache_append_prefill_fused(
             kv_pages[li], k, v, block_tables, q_offsets, seq_lens,
             kv_scales=sc)[-1]
         attn = attention(q, kv_pages[li], block_tables, lens_out,
                          q_offsets=q_offsets, kv_scales=sc, causal=True)
-        x = x + (_lora_proj(_merge(attn), layer["w_proj"], ll, "wo",
-                            lora_idx) + layer["proj_b"])
-        x = _mlp(layer, x, cfg)
+        x = x + _proj(layer, _merge(attn), tp, ll, lora_idx)
+        x = _mlp(layer, x, cfg, tp)
     if not all_logits:
         # only the last valid row of each sequence is ever sampled
         last = (seq_lens.long() - 1).clamp_min(0)

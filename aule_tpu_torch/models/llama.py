@@ -61,7 +61,8 @@ from ..ops.paged_fused import (kv_cache_append_decode_fused,
 from ..ops.paged_prefill import paged_attention_prefill
 from ..ops.rope import apply_rope, precompute_rope_frequencies
 from ..parallel.collectives import all_gather, enter_region, psum
-from ..parallel.mesh import axis_size, shard
+from ..parallel.mesh import axis_size, map_specs, renamed, shard
+from ..utils.tree import tree_flatten, tree_map
 
 Params = Dict[str, Any]
 
@@ -173,19 +174,8 @@ def shard_params(params: Params, cfg: LlamaConfig, mesh,
     """This rank's shards of the full params under `param_specs` (the
     spec's `model` read as `model_axis`): what `mesh=` calls take.  The
     full params arrive as usual (`init_params`, `load_jax_params`)."""
-    specs = param_specs(cfg)
-
-    def one(t, spec):
-        return shard(t, mesh, tuple(model_axis if a == "model" else a
-                                    for a in spec))
-
-    return {
-        "embed": one(params["embed"], specs["embed"]),
-        "layers": [{k: one(v, ls[k]) for k, v in layer.items()}
-                   for layer, ls in zip(params["layers"], specs["layers"])],
-        "final_norm": one(params["final_norm"], specs["final_norm"]),
-        "lm_head": one(params["lm_head"], specs["lm_head"]),
-    }
+    return map_specs(lambda spec, t: shard(t, mesh, renamed(spec, model_axis)),
+                     param_specs(cfg), params)
 
 
 class _RankConfig:
@@ -410,6 +400,20 @@ def _qkv(x, layer, cfg, ll, lora_idx, tp=None):
                             ("wv", cfg.n_kv_heads)))
 
 
+def _layer(x, layer, cfg, rope_cos, rope_sin, attention: Callable,
+           mlp: Callable, ll=None, lora_idx=None, tp=None):
+    """One transformer block on x [B, S, dim] (JAX l.229-250; also the
+    pipeline's stage block): (its output, the layer's rotated k and
+    unrotated v)."""
+    q, k, v = _qkv(x, layer, cfg, ll, lora_idx, tp)
+    q = apply_rope(q, rope_cos, rope_sin)
+    k = apply_rope(k, rope_cos, rope_sin)
+    attn = attention(q, k, v, causal=True, window_size=cfg.window_size)
+    x = x + _reduce(tp, _lora_proj(_merge_heads(attn), layer["wo"], ll, "wo",
+                                   lora_idx))
+    return mlp(x, layer, cfg), (k, v)
+
+
 def _forward(params, tokens, cfg, rope_cos, rope_sin, return_kv: bool,
              attention: Callable, mlp: Callable, lora=None, lora_idx=None,
              tp=None):
@@ -426,15 +430,10 @@ def _forward(params, tokens, cfg, rope_cos, rope_sin, return_kv: bool,
     x = params["embed"][tokens.to(dev)]
     kv_out: List[Tuple[torch.Tensor, torch.Tensor]] = []
     for li, layer in enumerate(params["layers"]):
-        q, k, v = _qkv(x, layer, cfg, _lora_at(lora, li), lora_idx, tp)
-        q = apply_rope(q, rope_cos, rope_sin)
-        k = apply_rope(k, rope_cos, rope_sin)
+        x, kv = _layer(x, layer, cfg, rope_cos, rope_sin, attention, mlp,
+                       _lora_at(lora, li), lora_idx, tp)
         if return_kv:
-            kv_out.append((k, v))
-        attn = attention(q, k, v, causal=True, window_size=cfg.window_size)
-        x = x + _reduce(tp, _lora_proj(_merge_heads(attn), layer["wo"],
-                                       _lora_at(lora, li), "wo", lora_idx))
-        x = mlp(x, layer, cfg)
+            kv_out.append(kv)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = _logits(tp, x, params["lm_head"])
     if return_kv:
@@ -442,22 +441,39 @@ def _forward(params, tokens, cfg, rope_cos, rope_sin, return_kv: bool,
     return logits
 
 
-def loss_fn(params: Params, tokens: torch.Tensor, cfg: LlamaConfig, *,
-            attention: Callable = flash_attention_vjp) -> torch.Tensor:
+def loss_fn(params: Params, tokens: torch.Tensor, cfg: LlamaConfig,
+            mesh=None, *, attention: Callable = flash_attention_vjp,
+            data_axis: str = "data", model_axis: str = "model",
+            sum_data_grads: bool = True) -> torch.Tensor:
     """Mean next-token negative log-likelihood of `tokens` [B, S] under
-    `forward(tokens[:, :-1])` (JAX l.367-373), a 0-d f32 tensor."""
-    logits = forward(params, tokens[:, :-1], cfg, attention=attention)
+    `forward(tokens[:, :-1])` (JAX l.367-373), a 0-d f32 tensor.
+
+    With `mesh` (dp x tp): `params` are this rank's shards (`shard_params`)
+    and `tokens` the full batch, which forward shards over `data_axis`;
+    every rank returns the same loss of the whole batch.  The params enter
+    the data axis through `enter_region`, so backward sums each gradient
+    over the data ranks and leaves the gradient of the rank's shard, as
+    jax.grad of JAX's loss_fn(mesh=) gives the global one.
+    sum_data_grads=False leaves the rank's rows' share instead (the ZeRO-1
+    step reduce-scatters those itself)."""
+    if mesh is not None and sum_data_grads:
+        params = tree_map(lambda t: enter_region(t, data_axis, mesh), params)
+    logits = forward(params, tokens[:, :-1], cfg, attention=attention,
+                     mesh=mesh, data_axis=data_axis, model_axis=model_axis)
     targets = tokens[:, 1:].to(logits.device)
     return F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
                            targets.reshape(-1))
 
 
 def train_step(params: Params, tokens: torch.Tensor, cfg: LlamaConfig,
-               lr: float = 1e-4):
+               lr: float = 1e-4, mesh=None, *, data_axis: str = "data",
+               model_axis: str = "model"):
     """One SGD step, p <- p - lr * grad, computed in f32 and cast back to
     each parameter's dtype (JAX l.376-384): `add_` with `alpha=-lr`, which
     PyTorch computes for bf16 and f16 in f32 (its opmath type) and rounds
-    once.  Returns (params, loss).
+    once.  Returns (params, loss).  With `mesh`, dp x tp: `params` are this
+    rank's shards and each takes its gradient summed over the data ranks
+    (`loss_fn(mesh=)`), so the ranks' replicated shards stay equal.
 
     Two departures from JAX, whose step is pure: every parameter tensor is
     made to require grad and is updated IN PLACE under torch.no_grad(),
@@ -465,13 +481,15 @@ def train_step(params: Params, tokens: torch.Tensor, cfg: LlamaConfig,
     memory beyond the weights and their gradients.  The returned params are
     the same dict; `loss` (0-d f32) is the loss before the update, as
     JAX's."""
-    return _sgd_step(params, lambda: loss_fn(params, tokens, cfg), lr)
+    return params, _sgd_step(tree_flatten(params), lambda: loss_fn(
+        params, tokens, cfg, mesh, data_axis=data_axis,
+        model_axis=model_axis), lr)
 
 
-def _sgd_step(params: Params, loss_of: Callable[[], torch.Tensor],
-              lr: float):
-    """`train_step`'s update around the loss `loss_of()` of `params`."""
-    tensors = list(_tensors(params))
+def _sgd_step(tensors, loss_of: Callable[[], torch.Tensor],
+              lr: float) -> torch.Tensor:
+    """`train_step`'s update of the parameter tensors `tensors` around
+    their loss `loss_of()`; returns the loss, detached."""
     for t in tensors:
         t.requires_grad_(True)
         t.grad = None
@@ -481,7 +499,7 @@ def _sgd_step(params: Params, loss_of: Callable[[], torch.Tensor],
         for t in tensors:
             t.add_(t.grad, alpha=-lr)
             t.grad = None
-    return params, loss.detach()
+    return loss.detach()
 
 
 def _rotate(x, c, sn, half):

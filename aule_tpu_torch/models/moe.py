@@ -19,11 +19,23 @@ gates, zero off the top k; exact, JAX's single-device oracle form), or a
 is cast to x's dtype before `@ e_down`, and the gate-weighted sum over the
 experts is f32.
 
-The expert-parallel forms (GShard capacity dispatch over an `expert` mesh
-axis: `make_expert_parallel_mlp`, `make_expert_parallel_forward`,
-`param_specs`) come with the parallel-layer model slice; `mesh=` raises here,
-naming it.  `lora=` / `lora_idx=` put multi-LoRA adapters on the
-attention's wq, wk, wv and wo, as llama's (JAX l.169-188).
+Expert parallelism (JAX l.87-110, 211-291): `make_expert_parallel_mlp`
+is the GShard capacity dispatch over an `expert` mesh axis.  Tokens are
+replicated over the axis; every rank gates all of them (the same top-k),
+places each (token, expert) pair at its position in the expert's bucket
+of `expert_capacity` slots (a cumulative sum over the tokens; a pair past
+the capacity drops, as JAX's), gathers its E/n local experts' buckets
+[E/n, C, dim], runs them, and scatters the gate-weighted outputs back; one
+all-reduce (psum) over the axis combines the ranks.  The products are
+einsums and matmuls, as JAX computes them outside Pallas.  `param_specs
+(expert_axis=)` shards the experts' leading [E] dim, and `shard_params`
+cuts a rank's shards from the full params.  Tensor parallelism (`mesh=`
+on forward and the serving steps): the attention is llama's
+tensor-parallel island (heads over `model_axis`) and the experts stay
+replicated, as JAX's param_specs(expert_axis=None) place them.
+`lora=` / `lora_idx=` put multi-LoRA adapters on the
+attention's wq, wk, wv and wo, as llama's (JAX l.169-188); with a mesh
+they raise, as llama's.
 ServingEngine(model=moe)
 serves it over fused pools (it has no decode over split pools, nor has
 JAX's).
@@ -32,6 +44,7 @@ JAX's).
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Callable, Dict, Optional, Sequence
 
 import torch
@@ -41,10 +54,12 @@ from ..config import resolve_device
 from ..ops.flash_vjp import flash_attention_vjp
 from ..ops.paged_fused import paged_attention_fused
 from ..ops.paged_prefill import paged_attention_prefill
+from ..parallel.collectives import enter_region, psum
+from ..parallel.mesh import axis_index, axis_size, map_specs, shard
+from ..utils.tree import tree_flatten
 from . import llama
 
 Params = Dict[str, Any]
-_PARALLEL = "the parallel-layer model slice"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -68,12 +83,6 @@ class MoEConfig(llama.LlamaConfig):
         return cls(vocab_size=32000, dim=4096, n_layers=32, n_heads=32,
                    n_kv_heads=8, hidden_dim=14336, rope_base=1e6,
                    n_experts=8, top_k=2)
-
-
-def _later(mesh=None) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            f"moe with mesh= is not ported yet; it comes with {_PARALLEL}")
 
 
 def init_params(cfg: MoEConfig, generator: torch.Generator,
@@ -109,6 +118,39 @@ def init_params(cfg: MoEConfig, generator: torch.Generator,
         })
     return {"embed": dense(1, (cfg.vocab_size, d)), "layers": layers,
             "final_norm": ones(), "lm_head": dense(d, (d, cfg.vocab_size))}
+
+
+def param_specs(cfg: MoEConfig, expert_axis: Optional[str] = None,
+                model_axis: Optional[str] = "model") -> Dict[str, Any]:
+    """Specs (JAX l.87-110; tuples, see parallel/mesh.py): the attention
+    shards as llama's over `model_axis` (None: replicated), the experts'
+    leading [E] dim over `expert_axis` when given; the router, norms and
+    embedding replicate."""
+    ex, mo = expert_axis, model_axis
+    layer = {
+        "wq": (None, mo), "wk": (None, mo), "wv": (None, mo),
+        "wo": (mo, None),
+        "attn_norm": (None,), "mlp_norm": (None,),
+        "router": (None, None),
+        "e_gate": (ex, None, None), "e_up": (ex, None, None),
+        "e_down": (ex, None, None),
+    }
+    return {
+        "embed": (None, None),
+        "layers": [dict(layer) for _ in range(cfg.n_layers)],
+        "final_norm": (None,),
+        "lm_head": (None, mo),
+    }
+
+
+def shard_params(params: Params, cfg: MoEConfig, mesh,
+                 model_axis: Optional[str] = "model",
+                 expert_axis: Optional[str] = None) -> Params:
+    """This rank's shards of the full params under `param_specs(cfg,
+    expert_axis, model_axis)`: what `mesh=` steps (model_axis) and an
+    expert-parallel forward (expert_axis, model_axis=None) take."""
+    return map_specs(lambda spec, t: shard(t, mesh, spec),
+                     param_specs(cfg, expert_axis, model_axis), params)
 
 
 def load_jax_params(np_tree: Params, device="cuda",
@@ -150,18 +192,26 @@ def _moe_mlp_dense(layer, x: torch.Tensor, cfg: MoEConfig) -> torch.Tensor:
     return y.to(x.dtype).reshape(b, s, d)
 
 
-def _block(mlp: Callable, aux: Optional[list] = None) -> Callable:
+def _block(mlp: Callable, aux: Optional[list] = None, tp=None) -> Callable:
     """The MLP block llama's layer loops take, `x + MLP(rms_norm(x))`,
     around the mixture `mlp(layer, h [B, S, dim], cfg)`; with `aux`, each
     layer also appends its load-balancing term, E * sum_e frac_e * prob_e
-    on the router's inputs (JAX l.190-194)."""
+    on the router's inputs (JAX l.190-194: means over the whole batch, so
+    over the data ranks' rows under the mesh view `tp`)."""
+
+    def mean_rows(t):
+        t = t.mean(dim=0)
+        if tp is None or tp.data_axis is None:
+            return t
+        return psum(t, tp.data_axis, tp.mesh) / axis_size(tp.mesh,
+                                                          tp.data_axis)
 
     def block(x, layer, cfg):
         h = llama.rms_norm(x, layer["mlp_norm"], cfg.norm_eps)
         if aux is not None:
             w, rl = _gating(layer, h.reshape(-1, cfg.dim), cfg)
-            frac = (w > 0).float().mean(dim=0)
-            prob = torch.softmax(rl, dim=-1).mean(dim=0)
+            frac = mean_rows((w > 0).float())
+            prob = mean_rows(torch.softmax(rl, dim=-1))
             aux.append(cfg.n_experts * (frac * prob).sum())
         if x.dim() == 2:  # a decode step's [B, dim]
             return x + mlp(layer, h[:, None, :], cfg)[:, 0]
@@ -190,14 +240,17 @@ def forward(
     """Causal-LM forward: logits [B, S, V] f32; with return_kv also the
     per-layer rotated k and unrotated v (llama.forward's), with return_aux
     also the load-balancing loss, the mean over layers of E * sum_e frac_e
-    * prob_e.  `attention`, `lora` and `lora_idx` as llama.forward's."""
-    del data_axis, model_axis
-    _later(mesh)
+    * prob_e.  `attention`, `lora` and `lora_idx` as llama.forward's.
+    With `mesh`: `params` are this rank's shards (`shard_params`), the
+    attention is llama's tensor-parallel island and the batch shards over
+    `data_axis` (llama.forward(mesh=)'s), the mixture runs on the
+    replicated experts."""
+    tp = llama._tensor_parallel(cfg, mesh, model_axis, data_axis, lora)
     aux: list = []
     out = llama._forward(params, tokens, cfg, rope_cos, rope_sin, return_kv,
                          attention, _block(moe_mlp or _moe_mlp_dense,
-                                           aux if return_aux else None),
-                         lora, lora_idx)
+                                           aux if return_aux else None, tp),
+                         lora, lora_idx, tp)
     if not return_aux:
         return out
     total = 0.0
@@ -224,8 +277,9 @@ def train_step(params: Params, tokens: torch.Tensor, cfg: MoEConfig,
                lr: float = 1e-4, moe_mlp: Optional[Callable] = None):
     """One SGD step, in place, as llama.train_step's.  Returns (params,
     the loss before the update)."""
-    return llama._sgd_step(
-        params, lambda: loss_fn(params, tokens, cfg, moe_mlp), lr)
+    return params, llama._sgd_step(
+        tree_flatten(params), lambda: loss_fn(params, tokens, cfg, moe_mlp),
+        lr)
 
 
 def decode_step_fused(
@@ -250,13 +304,13 @@ def decode_step_fused(
     """One decode step over fused pools with the routed MLP: llama's
     append and paged decode (the decode kernel), then the mixture on the
     [B, 1, dim] stream, with the adapters `lora` / `lora_idx` as llama's.
-    Returns as llama.decode_step_fused."""
-    del model_axis
-    _later(mesh)
+    Returns as llama.decode_step_fused.  With `mesh`: this rank's shards
+    and pools of its kv heads, as llama.decode_step_fused(mesh=)'s."""
+    tp = llama._tensor_parallel(cfg, mesh, model_axis, lora=lora)
     return llama._decode_fused(
         params, token, positions, kv_pages, block_tables, context_lens, cfg,
         rope_cos, rope_sin, kv_scales, attention,
-        _block(moe_mlp or _moe_mlp_dense), lora, lora_idx)
+        _block(moe_mlp or _moe_mlp_dense), lora, lora_idx, tp)
 
 
 def prefill_step_fused(
@@ -282,10 +336,86 @@ def prefill_step_fused(
     """One chunk of chunked prefill over fused pools with the routed MLP
     (llama.prefill_step_fused's append and paged prefill, the prefill
     kernel), with the adapters `lora` / `lora_idx` as llama's.  Returns as
-    llama.prefill_step_fused, all_logits included."""
-    del model_axis
-    _later(mesh)
+    llama.prefill_step_fused, all_logits included.  With `mesh`: as
+    decode_step_fused's."""
+    tp = llama._tensor_parallel(cfg, mesh, model_axis, lora=lora)
     return llama._prefill_fused(
         params, tokens, q_offsets, seq_lens, kv_pages, block_tables, cfg,
         rope_cos, rope_sin, kv_scales, all_logits, attention,
-        _block(moe_mlp or _moe_mlp_dense), lora, lora_idx)
+        _block(moe_mlp or _moe_mlp_dense), lora, lora_idx, tp)
+
+
+def _dispatch_tensors(weights: torch.Tensor, capacity: int):
+    """(dispatch [T, E, C] one-hot, combine [T, E, C] gate-weighted) of
+    the gate weights [T, E] (JAX l.211-224): a (token, expert) pair's slot
+    is its position among the expert's tokens (a cumulative sum over T);
+    pairs at or past `capacity` drop."""
+    assign = (weights > 0.0).to(torch.int64)
+    pos = torch.cumsum(assign, dim=0) * assign - 1      # -1: not assigned
+    keep = (assign == 1) & (pos < capacity)
+    slot = torch.where(keep, pos, torch.full_like(pos, capacity))
+    dispatch = F.one_hot(slot, capacity + 1)[..., :capacity].float()
+    return dispatch, dispatch * weights[..., None]
+
+
+def expert_capacity(tokens: int, cfg: MoEConfig,
+                    capacity_factor: float = 2.0) -> int:
+    """Slots per expert (JAX l.226-230): ceil(T k / E * factor), at least
+    k."""
+    c = int(math.ceil(tokens * cfg.top_k / cfg.n_experts * capacity_factor))
+    return max(c, cfg.top_k)
+
+
+def make_expert_parallel_mlp(mesh, cfg: MoEConfig, *,
+                             expert_axis: str = "expert",
+                             capacity_factor: float = 2.0) -> Callable:
+    """moe_mlp(layer, x [B, S, dim], cfg) with this rank's E/n experts in
+    `layer` (`shard_params(expert_axis=)`) and x the same on every rank
+    (JAX l.232-279): the capacity dispatch of the module docstring, one
+    psum over `expert_axis`.  mesh=None runs every expert on this device:
+    the same capacity mixture without the psum (the plain version an
+    expert-parallel run is held to).  Differentiable: x and the router
+    enter the expert axis (each rank's partial gradient summed once)."""
+    n_ex = 1 if mesh is None else axis_size(mesh, expert_axis)
+    if cfg.n_experts % n_ex:
+        raise ValueError(f"n_experts {cfg.n_experts} % {n_ex} != 0")
+    e_local = cfg.n_experts // n_ex
+
+    def enter(t):
+        return t if mesh is None else enter_region(t, expert_axis, mesh)
+
+    def moe_mlp(layer, x, cfg_):
+        del cfg_
+        b, s, d = x.shape
+        xt = enter(x.reshape(b * s, d))
+        weights, _ = _gating({"router": enter(layer["router"])}, xt, cfg)
+        dispatch, combine = _dispatch_tensors(
+            weights, expert_capacity(b * s, cfg, capacity_factor))
+        lo = 0 if mesh is None else axis_index(mesh, expert_axis) * e_local
+        buckets = torch.einsum("tec,td->ecd", dispatch[:, lo:lo + e_local],
+                               xt.float()).to(x.dtype)   # [E/n, C, d]
+        outs = _expert_mlp(layer["e_gate"], layer["e_up"], layer["e_down"],
+                           buckets)
+        y = torch.einsum("ecd,tec->td", outs.float(),
+                         combine[:, lo:lo + e_local])
+        if mesh is not None:
+            y = psum(y, expert_axis, mesh)
+        return y.to(x.dtype).reshape(b, s, d)
+
+    return moe_mlp
+
+
+def make_expert_parallel_forward(mesh, cfg: MoEConfig,
+                                 expert_axis: str = "expert",
+                                 capacity_factor: float = 2.0) -> Callable:
+    """fn(params, tokens) -> logits (JAX l.282-291): forward with the
+    expert-parallel mixture; `params` are this rank's shards under
+    `shard_params(expert_axis=expert_axis, model_axis=None)` (the
+    attention replicated, the rank's experts)."""
+    mlp = make_expert_parallel_mlp(mesh, cfg, expert_axis=expert_axis,
+                                   capacity_factor=capacity_factor)
+
+    def fn(params, tokens):
+        return forward(params, tokens, cfg, moe_mlp=mlp)
+
+    return fn

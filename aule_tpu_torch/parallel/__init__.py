@@ -1,11 +1,9 @@
 """parallel of the PyTorch / CUDA port (mirrors aule_tpu/parallel): meshes
 over torch.distributed, the cross-rank softmax combine and the
 differentiable collectives under it, head / context / ring / Ulysses
-attention and the sharded paged decode, and AdamW on one device.
-
-The JAX layer's ZeRO-1 layout (`zero1_specs`, AdamW's `mesh=` /
-`param_specs=`) and its pipeline parallelism are not ported yet: they
-come with the parallel layer's model-level slice."""
+attention and the sharded paged decode, AdamW with its ZeRO-1 layout,
+and pipeline parallelism (`parallel.pipeline`, imported from there as
+JAX's package does)."""
 
 from .collectives import (  # noqa: F401
     softmax_combine_allreduce,
@@ -17,6 +15,7 @@ from .optimizer import (  # noqa: F401
     adamw_init,
     global_norm,
     make_adamw_train_step,
+    zero1_specs,
 )
 from .sharded import (  # noqa: F401
     make_context_parallel_attention,
@@ -34,6 +33,7 @@ __all__ = [
     "AdamWState",
     "adamw_init",
     "make_adamw_train_step",
+    "zero1_specs",
     "make_context_parallel_attention",
     "make_head_parallel_attention",
     "make_ring_attention",

@@ -28,7 +28,11 @@ at each replicated boundary, as in Megatron-LM:
     all-to-all;
   * `all_gather`: concatenate every rank's block along a dim into a
     replicated result; the backward keeps this rank's block of the
-    cotangent.
+    cotangent;
+  * `reduce_scatter` (no gradient): the sum over the axis of every rank's
+    tensor, each rank keeping its block along a dim (ZeRO-1's gradient
+    shards; `all_gather` rebuilds the updated parameters from the
+    blocks).
 
 Transport: NCCL where each rank has its own GPU; a gloo group moves host
 tensors, so a CUDA tensor over a gloo group (several ranks sharing one
@@ -112,6 +116,25 @@ def _all_gather(t: torch.Tensor, dim: int, group) -> torch.Tensor:
     parts = [torch.empty_like(buf) for _ in range(dist.get_world_size(group))]
     dist.all_gather(parts, buf, group=group)
     out = _back(torch.cat(parts, dim=dim), t)
+    _done(t0, t)
+    return out
+
+
+def _reduce_scatter(t: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """The sum over the group of every rank's `t`, of which this rank keeps
+    block `rank` along `dim` (the dim must split into the group's ranks)."""
+    n = dist.get_world_size(group)
+    if t.shape[dim] % n:
+        raise ValueError(f"reduce_scatter: dim {dim} of {tuple(t.shape)} "
+                         f"does not split into {n} ranks")
+    host = _staged(t, group)
+    t0 = _start(t, host)
+    buf = _buffer(t.movedim(dim, 0), host)
+    out = buf.new_empty((buf.shape[0] // n,) + tuple(buf.shape[1:]))
+    # reduce_scatter_single: reduce_scatter_tensor's newer name
+    rs = getattr(dist, "reduce_scatter_single", dist.reduce_scatter_tensor)
+    rs(out, buf, group=group)
+    out = _back(out, t).movedim(0, dim).contiguous()
     _done(t0, t)
     return out
 
@@ -268,6 +291,16 @@ def all_gather(x: torch.Tensor, axis_name: str, mesh, *,
     if axis_size(mesh, axis_name) == 1:
         return x
     return _AllGather.apply(x, dim, _group(mesh, axis_name))
+
+
+def reduce_scatter(x: torch.Tensor, axis_name: str, mesh, *,
+                   dim: int) -> torch.Tensor:
+    """Sum over the axis, this rank keeping its block (axis order) along
+    `dim`; no gradient."""
+    x = x.detach()
+    if axis_size(mesh, axis_name) == 1:
+        return x
+    return _reduce_scatter(x, dim, _group(mesh, axis_name))
 
 
 def ppermute(x: torch.Tensor, axis_name: str, mesh,

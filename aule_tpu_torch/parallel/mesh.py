@@ -12,11 +12,13 @@ so a spec here is a tuple with one entry per dim: None (replicated), an
 axis name, or a tuple of axis names (major to minor).  `shard` takes a
 full tensor that every rank holds to the rank's block of it, and
 `unshard` all-gathers the blocks back into the full tensor on every rank.
+A spec tree (a family's `param_specs`) has the shape of its param tree
+with a spec at each leaf; `map_specs` walks the two together.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+from typing import Callable, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -85,6 +87,24 @@ def _block(mesh, entry) -> Tuple[int, int]:
         idx = idx * axis_size(mesh, a) + axis_index(mesh, a)
         count *= axis_size(mesh, a)
     return idx, count
+
+
+def map_specs(fn: Callable, specs, params):
+    """fn(spec, param) at every leaf of a param tree (dicts, lists and
+    tuples) beside its spec tree, called in utils/tree.py's leaf order (a
+    dict's keys sorted); the result has the params' shape."""
+    if isinstance(params, dict):
+        out = {k: map_specs(fn, specs[k], params[k]) for k in sorted(params)}
+        return {k: out[k] for k in params}
+    if isinstance(params, (list, tuple)):
+        return type(params)(map_specs(fn, s, p)
+                            for s, p in zip(specs, params))
+    return fn(tuple(specs), params)
+
+
+def renamed(spec: Spec, model_axis: Optional[str]) -> Spec:
+    """`spec` with its `model` entries read as `model_axis`."""
+    return tuple(model_axis if a == "model" else a for a in spec)
 
 
 def shard(x: torch.Tensor, mesh, spec: Spec) -> torch.Tensor:

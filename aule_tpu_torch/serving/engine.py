@@ -85,10 +85,11 @@ after wo and after w_down, the logits all-gathered over the vocabulary),
 and every token the ranks sample is broadcast from the axis' first rank
 before anything reads it, so the ranks' pools never part.  The mesh's
 other axes must be 1 (serving data parallelism is replicas of the
-engine); a draft model shards over the same axis.  Llama only: a GPT-2 or
-MoE family with a mesh raises NotImplementedError (their meshes come with
-the parallel layer's model-level slice); LoRA with a mesh raises
-ValueError, as JAX's.  No option is silently ignored.  Pages come from
+engine); a draft model shards over the same axis.  Every family shards by
+its own `shard_params` (GPT-2's heads through its qkv-major `w_qkv`, MoE's
+attention over the axis with its experts replicated, as JAX's
+param_specs place them); LoRA with a mesh raises ValueError, as JAX's.
+No option is silently ignored.  Pages come from
 `kv_cache.make_allocator`: the native C++ free list where g++ builds it.
 
 `save_engine_state` / `load_engine_state` checkpoint a running engine in
@@ -128,8 +129,6 @@ from .kv_cache import make_allocator
 
 logger = logging.getLogger("aule_tpu_torch")
 
-# where the meshes of the other families come from
-_PARALLEL = "the parallel-layer model slice"
 # speculation turns itself off after this many rounds under
 # spec_min_acceptance (JAX engine.py:813)
 SPEC_DISABLE_ROUNDS = 8
@@ -305,7 +304,13 @@ class ServingEngine:
                 f"layout='split' decodes through the model's decode_step "
                 f"over split pools, which {self.model.__name__} has not "
                 f"(nor has the JAX package's); use layout='fused'")
-        self.tp = self._check_mesh(cfg, mesh, model_axis, draft_model)
+        if draft_model is not None and not any(
+                draft_model is m for m in MODEL_FAMILIES):
+            raise NotImplementedError(
+                f"ServingEngine: draft_model={draft_model!r} is not a model "
+                f"family of the port; pass aule_tpu_torch.models.llama, "
+                f".gpt2 or .moe")
+        self.tp = self._check_mesh(cfg, mesh, model_axis)
         self.mesh, self.model_axis = mesh, model_axis
         # learned positions silently reuse the last row past n_ctx (as
         # JAX's gather clamps): refuse an engine that could decode there
@@ -316,9 +321,9 @@ class ServingEngine:
                 f"position table n_ctx={n_ctx}")
         self._check_speculation(cfg, layout, sample is not None
                                 or sampler is not None, draft_params,
-                                draft_cfg, draft_model, spec_tokens,
-                                ngram_spec, ngram_max)
-        self.params = self._shard(params, cfg)
+                                draft_cfg, spec_tokens, ngram_spec,
+                                ngram_max)
+        self.params = self._shard(params, cfg, self.model)
         self.cfg = cfg
         self.max_batch = max_batch
         self.page_size = page_size
@@ -380,10 +385,11 @@ class ServingEngine:
                     f"draft n_kv_heads {draft_cfg.n_kv_heads} not divisible "
                     f"by tp {self.tp}")
             # the draft shards over the target's axis (JAX l.456-471)
-            self.draft_params = self._shard(draft_params, draft_cfg)
-            self.draft_cfg = draft_cfg
             self.draft_model = self.model if draft_model is None \
                 else draft_model
+            self.draft_params = self._shard(draft_params, draft_cfg,
+                                            self.draft_model)
+            self.draft_cfg = draft_cfg
             self.draft_rope_cos, self.draft_rope_sin = \
                 precompute_rope_frequencies(max_seq_len, draft_cfg.head_dim,
                                             draft_cfg.rope_base,
@@ -438,18 +444,12 @@ class ServingEngine:
         self.prefill_seconds = 0.0
         self.decode_seconds = 0.0
 
-    def _check_mesh(self, cfg, mesh, model_axis, draft_model) -> int:
+    def _check_mesh(self, cfg, mesh, model_axis) -> int:
         """The tensor-parallel degree (1 without a mesh), after JAX's
-        refusals (engine.py:232-238) and the port's: another family than
-        Llama, a mesh axis besides `model_axis` larger than 1."""
+        refusals (engine.py:232-238) and the port's: a mesh axis besides
+        `model_axis` larger than 1."""
         if mesh is None:
             return 1
-        for what, fam in (("model", self.model), ("draft_model",
-                                                   draft_model)):
-            if fam is not None and fam is not llama:
-                raise NotImplementedError(
-                    f"ServingEngine: {what}={fam.__name__} with mesh= is "
-                    f"not ported yet; it comes with {_PARALLEL}")
         for name, size in zip(mesh.mesh_dim_names or (), mesh.shape):
             if name != model_axis and size != 1:
                 raise ValueError(
@@ -462,12 +462,12 @@ class ServingEngine:
                              f"tp {tp}")
         return tp
 
-    def _shard(self, params, cfg):
-        """This rank's shards of a model's full params (all of them
-        without a mesh)."""
+    def _shard(self, params, cfg, family):
+        """This rank's shards of a model's full params, by its family's
+        shard_params (all of them without a mesh)."""
         if self.mesh is None or params is None:
             return params
-        return llama.shard_params(params, cfg, self.mesh, self.model_axis)
+        return family.shard_params(params, cfg, self.mesh, self.model_axis)
 
     def _mesh_kw(self) -> Dict[str, Any]:
         """The model steps' mesh arguments ({} without a mesh)."""
@@ -483,10 +483,10 @@ class ServingEngine:
         return broadcast(t, self.model_axis, self.mesh)
 
     def _check_speculation(self, cfg, layout, engine_sampler, draft_params,
-                           draft_cfg, draft_model, spec_tokens, ngram_spec,
+                           draft_cfg, spec_tokens, ngram_spec,
                            ngram_max) -> None:
         """JAX's refusals of speculative decoding (engine.py:396-433), in
-        its order, and a draft family that is not the port's."""
+        its order."""
         if ngram_spec > 0:
             if spec_tokens > 0:
                 raise ValueError(
@@ -500,12 +500,6 @@ class ServingEngine:
                     "only; drop sampler=/sample=")
             if ngram_max < 1:
                 raise ValueError("ngram_max must be >= 1")
-        if draft_model is not None and not any(
-                draft_model is m for m in MODEL_FAMILIES):
-            raise NotImplementedError(
-                f"ServingEngine: draft_model={draft_model!r} is not a model "
-                f"family of the port; pass aule_tpu_torch.models.llama, "
-                f".gpt2 or .moe")
         if spec_tokens <= 0:
             return
         if draft_params is None or draft_cfg is None:

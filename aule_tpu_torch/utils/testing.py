@@ -1,11 +1,13 @@
 """Test helpers: tolerance comparison (counterpart of
 aule_tpu/utils/testing.py::assert_close) for torch tensors and arrays, the
 intra-op thread cap, and torch.distributed worlds on one host:
-`run_world` runs a function in N spawned ranks (gloo on the CPU, or gloo
+`run_world` runs a function in N rank processes (gloo on the CPU, or gloo
 / NCCL on the card) and `single_rank_world` makes this process a world of
-one.  `sharded_cases` and `tp_cases` are the rank side of the parallel
-layer's checks (tests/test_torch_sharded.py, tests/test_torch_tp.py): they
-live here, so a spawned rank imports neither JAX nor a test module.
+one.  `sharded_cases`, `tp_cases` and `model_cases` are the rank side of
+the parallel layer's checks (tests/test_torch_sharded.py,
+test_torch_tp.py, and the model level's test_torch_zero1.py,
+test_torch_pipeline.py, test_torch_moe_ep.py, test_torch_gpt2_tp.py): they
+live here, so a rank imports neither JAX nor a test module.
 """
 
 from __future__ import annotations
@@ -15,6 +17,8 @@ import os
 
 import numpy as np
 import torch
+
+from .tree import tree_flatten, tree_map
 
 
 def cap_cpu_threads() -> int:
@@ -56,7 +60,7 @@ def assert_close(actual, expected, rtol: float, atol: float, label: str = ""):
 
 def _rank_main(rank: int, world_size: int, init_file: str, backend: str,
                threads: int, blob: bytes, queue) -> None:
-    """One spawned rank of `run_world`: join the process group, run the
+    """One rank of `run_world`: join the process group, run the
     function, send back (rank, ok, pickled result or traceback)."""
     import pickle
     import traceback
@@ -87,10 +91,15 @@ WORLD_TIMEOUT = 600.0  # seconds a world may run before run_world stops it
 
 def run_world(fn, world_size: int, *args, backend: str = "gloo",
               threads: int = 1) -> list:
-    """Run `fn(*args)` in a world of `world_size` spawned processes (one
-    rank each, the process group initialised through a FileStore in a
+    """Run `fn(*args)` in a world of `world_size` new processes (one rank
+    each, the process group initialised through a FileStore in a
     temporary directory, so worlds started at once never share an address)
     and return each rank's result, rank 0 first.
+
+    The ranks fork from a forkserver that has imported torch and this
+    module once per calling process (a spawned rank would pay that
+    import, seconds of CPU, itself); the server initialises no CUDA, so
+    a rank may.
 
     `fn` is pickled by its import path: it lives in an importable module
     of the port, so a child imports neither JAX nor a test file.  Tensors
@@ -105,7 +114,8 @@ def run_world(fn, world_size: int, *args, backend: str = "gloo",
 
     import torch.multiprocessing as mp
 
-    ctx = mp.get_context("spawn")
+    ctx = mp.get_context("forkserver")
+    ctx.set_forkserver_preload([__name__])  # read at the server's start
     blob = pickle.dumps((fn, args))
     results: list = [None] * world_size
     with tempfile.TemporaryDirectory() as tmp:
@@ -221,26 +231,16 @@ def _cpu(x):
 
 def _tp_grads(llama, params, case, mesh, model_axis):
     """The full gradients of a "grads" case, in the params' structure."""
-    from ..parallel.mesh import unshard
+    from ..parallel.mesh import map_specs, renamed, unshard
 
-    specs = llama.param_specs(case["cfg"])
-    top = ("embed", "final_norm", "lm_head")
-    pairs = [(params[k], specs[k]) for k in top] + [
-        (layer[k], ls[k]) for layer, ls in zip(params["layers"],
-                                               specs["layers"])
-        for k in layer]
-    for t, _ in pairs:
+    for t in tree_flatten(params):
         t.requires_grad_(True)
     logits = llama.forward(params, case["tokens"], case["cfg"], mesh=mesh,
                            model_axis=model_axis)
     (logits * case["weights"]).sum().backward()
-    grads = iter([unshard(t.grad, mesh, tuple(
-        model_axis if a == "model" else a for a in spec)).cpu()
-        for t, spec in pairs])
-    out = {k: next(grads) for k in top}
-    out["layers"] = [{k: next(grads) for k in layer}
-                     for layer in params["layers"]]
-    return out
+    return map_specs(lambda spec, t: unshard(
+        t.grad, mesh, renamed(spec, model_axis)).cpu(),
+        llama.param_specs(case["cfg"]), params)
 
 
 def tp_cases(cases):
@@ -304,6 +304,132 @@ def tp_cases(cases):
         out = out if isinstance(out, tuple) else (out,)
         results.append([_cpu(_unshard_out(o, mesh, spec))
                         for o, spec in zip(out, case["out_specs"])])
+    return results if dist.get_rank() == 0 else None
+
+
+def _tree_unshard(params, specs, mesh):
+    """The full params from a rank's shards under a spec tree,
+    all-gathered on every rank (CPU copies)."""
+    from ..parallel.mesh import map_specs, unshard
+
+    return map_specs(lambda spec, t: unshard(t.detach(), mesh, spec).cpu()
+                     .clone(), specs, params)
+
+
+def _model_case(case, mesh):
+    """One case of `model_cases` on this rank."""
+    from ..models import gpt2, llama, moe
+    from ..parallel import optimizer, pipeline
+    from ..serving.engine import ServingEngine
+
+    kind, cfg = case["kind"], case["cfg"]
+    kw = dict(case.get("kwargs", {}))
+    # a copy: the steps update in place, and a replicated shard is the
+    # full tensor itself, which the other cases share
+    case = dict(case, params=tree_map(torch.clone, case["params"]))
+    if kind in ("sgd", "zero1"):
+        params = llama.shard_params(case["params"], cfg, mesh)
+        specs = llama.param_specs(cfg)
+        losses = []
+        if kind == "sgd":
+            for _ in range(case.get("steps", 1)):
+                params, loss = llama.train_step(params, case["tokens"], cfg,
+                                                mesh=mesh, **kw)
+                losses.append(float(loss))
+            return {"losses": losses,
+                    "params": _tree_unshard(params, specs, mesh)}
+        opt = optimizer.adamw_init(params, specs, mesh, **case.get(
+            "init", {}))
+        step = optimizer.make_adamw_train_step(llama, cfg, mesh, **kw)
+        for _ in range(case.get("steps", 1)):
+            params, opt, loss = step(params, opt, case["tokens"])
+            losses.append(float(loss))
+        z = optimizer.zero1_specs(specs, params, mesh)
+        return {"losses": losses, "params": _tree_unshard(params, specs,
+                                                          mesh),
+                "mu": _tree_unshard(opt.mu, z, mesh),
+                "mu_shapes": [tuple(t.shape) for t in tree_flatten(opt.mu)],
+                "zero1_specs": z}
+    if kind in ("pipeline_forward", "pipeline_step"):
+        params = pipeline.shard_params(case["params"], mesh)
+        specs = pipeline.pipeline_param_specs()
+        if kind == "pipeline_forward":
+            fwd = pipeline.make_pipeline_forward(mesh, cfg, **kw)
+            with torch.no_grad():
+                return {"logits": fwd(params, case["tokens"]).cpu()}
+        step = pipeline.make_pipeline_train_step(mesh, cfg, **kw)
+        params, loss = step(params, case["tokens"])
+        return {"loss": float(loss),
+                "params": _tree_unshard(params, specs, mesh)}
+    if kind == "ep":
+        params = moe.shard_params(case["params"], cfg, mesh,
+                                  model_axis=None, expert_axis="expert")
+        fn = moe.make_expert_parallel_forward(mesh, cfg, **kw)
+        with torch.no_grad():
+            return {"logits": fn(params, case["tokens"]).cpu()}
+    if kind == "moe_forward":
+        params = moe.shard_params(case["params"], cfg, mesh)
+        with torch.no_grad():
+            logits, aux = moe.forward(params, case["tokens"], cfg,
+                                      mesh=mesh, return_aux=True)
+        return {"logits": logits.cpu(), "aux": float(aux)}
+    if kind == "gpt2_forward":
+        params = gpt2.shard_params(case["params"], cfg, mesh)
+        with torch.no_grad():
+            return {"logits": gpt2.forward(params, case["tokens"], cfg,
+                                           mesh=mesh).cpu()}
+    if kind == "engine":
+        fam = {"llama": llama, "gpt2": gpt2, "moe": moe}[case["model"]]
+        eng = ServingEngine(case["params"], cfg, mesh=mesh, model=fam,
+                            device="cpu", **kw)
+        for p in case["prompts"]:
+            eng.submit(p, max_new_tokens=case["max_new"])
+        return {"outputs": [r.output for r in eng.run()]}
+    assert kind == "roundtrip"
+    skw = case.get("shard_kwargs", {})
+    if case["model"] == "pipeline":
+        specs = pipeline.pipeline_param_specs()
+        shards = pipeline.shard_params(case["params"], mesh)
+    else:
+        fam = {"llama": llama, "gpt2": gpt2, "moe": moe}[case["model"]]
+        specs = fam.param_specs(cfg, **skw) if fam is moe else \
+            fam.param_specs(cfg)
+        shards = fam.shard_params(case["params"], cfg, mesh, **skw)
+    return {"params": _tree_unshard(shards, specs, mesh),
+            "shapes": [tuple(t.shape) for t in tree_flatten(shards)]}
+
+
+def model_cases(cases):
+    """Rank side of the parallel layer's model-level checks
+    (tests/test_torch_zero1.py, test_torch_pipeline.py,
+    test_torch_moe_ep.py, test_torch_gpt2_tp.py), run by `run_world` on
+    CPU ranks.  A case is a dict with `kind`, `mesh` ((axis sizes, axis
+    names)), the full `params` (stacked for the pipeline), `cfg`, and:
+      * "sgd": `tokens`, `steps`, `kwargs` of llama.train_step(mesh=);
+      * "zero1": `tokens`, `steps`, `init` (adamw_init's master_weights)
+        and `kwargs` of make_adamw_train_step(llama, cfg, mesh);
+      * "pipeline_forward" / "pipeline_step": `tokens` and the makers'
+        `kwargs` (microbatches, lr);
+      * "ep": `tokens`, make_expert_parallel_forward's `kwargs`;
+      * "moe_forward": `tokens`: moe.forward(mesh=, return_aux=True);
+      * "gpt2_forward": `tokens`;
+      * "engine": `model` ("llama", "gpt2" or "moe"), engine `kwargs`,
+        `prompts`, `max_new`;
+      * "roundtrip": `model` ("llama", "gpt2", "moe" or "pipeline":
+        stacked params) and `shard_kwargs`: the family's shard_params,
+        all-gathered back by its param_specs.
+    Losses, logits, outputs and the params all-gathered into their full
+    structure come back; rank 0 returns the list, the others None."""
+    import torch.distributed as dist
+
+    from ..parallel import mesh as pmesh
+
+    meshes, results = {}, []
+    for case in cases:
+        key = tuple(map(tuple, case["mesh"]))
+        if key not in meshes:
+            meshes[key] = pmesh.make_mesh(*case["mesh"], "cpu")
+        results.append(_model_case(case, meshes[key]))
     return results if dist.get_rank() == 0 else None
 
 

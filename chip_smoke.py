@@ -114,8 +114,9 @@ Phases, each printing a line of its own:
      runs it alone): the paged decode's device times at B8 ctx4096 at GQA
      groups 4, 3 (Llama-3.2-3B's: the same bytes), 12 and 32, and the
      paged prefill's at groups 4 and 3, beside their bounds and SDPA;
-     then Llama-3.2-3B (LLAMA32_3B: 24 q over 8 kv heads, 28 layers, full
-     width and depth, random bf16 weights) serves the 12 requests six
+     then Llama-3.2-3B (LLAMA32_3B: 24 q over 8 kv heads, full width,
+     LLAMA32_LAYERS of its 28 layers, random bf16 weights) serves the 12
+     requests six
      times (LLAMA32_RUNS: bf16 whole and chunk 512, int8 chunk, fp8
      whole, split bf16 and int8), checked as the Llama-3-8B runs are;
   6c. mistral, in a process of its own (`--mistral`): Mistral-7B
@@ -2471,19 +2472,16 @@ def _log_breakdown(label: str, bd: dict) -> None:
 def phase_breakdown(params, cfg) -> None:
     """Where the engine's time goes on the card: a prefill step of one
     2048-token prompt and one 8-step decode dispatch at B8, each under
-    torch.profiler, for bf16 pools with whole-prompt prefill, for int8
-    and fp8 pools with prefill_chunk=512 (that step is four chunks) and for
-    int8 split pools with whole-prompt prefill (run (f)'s configuration)."""
+    torch.profiler, for bf16 pools with whole-prompt prefill and for int8
+    pools with prefill_chunk=512 (that step is four chunks).  The fp8 and
+    int8 split-pool configurations run in the engine phase (runs (c),
+    (d), (f)) and are not profiled here: the script's time limit."""
     from aule_tpu_torch.serving.engine import ServingEngine
     from aule_tpu_torch.utils import profiling
 
     for label, kw in (("bf16", {}),
                       ("int8 chunk 512", dict(quantized=True,
-                                              prefill_chunk=CHUNK)),
-                      ("fp8 chunk 512", dict(
-                          quantized=True, quant_dtype=torch.float8_e4m3fn,
-                          prefill_chunk=CHUNK)),
-                      ("int8 split", dict(quantized=True, layout="split"))):
+                                              prefill_chunk=CHUNK))):
         eng = ServingEngine(params, cfg, max_batch=8, page_size=16,
                             num_pages=1200, max_pages_per_seq=272,
                             max_seq_len=4352, decode_steps=8, **kw)
@@ -4149,6 +4147,9 @@ def check_gpt2() -> dict:
 LLAMA32_3B = dict(vocab_size=128256, dim=3072, n_layers=28, n_heads=24,
                   n_kv_heads=8, hidden_dim=8192, rope_base=500000.0,
                   norm_eps=1e-5)
+# Served at 14 of those 28 layers: depth cut for the script's time limit;
+# the attention shapes do not change with depth.
+LLAMA32_LAYERS = 14
 # Its serving runs, the Llama-3-8B runs' keys: (key, label, engine
 # options, quantized payload dtype or None).  Every run decodes through
 # the tensor-core decode at group 3; the chunked ones prefill through the
@@ -4301,8 +4302,8 @@ def _serve(params, cfg, prompts, runs, res, engine_kw=ENGINE_KW,
 def check_llama32() -> dict:
     """The GQA phase: the decode's and the prefill's times at groups 3, 4,
     12 and 32 (_gqa_decode_times, _gqa_prefill_times), then Llama-3.2-3B
-    at full width and depth (LLAMA32_3B, random bf16 weights from SEED on
-    the card) serving the 12 prompts of PROMPT_LENS, 24 new tokens each,
+    at full width on LLAMA32_LAYERS layers (LLAMA32_3B, random bf16
+    weights from SEED on the card) serving the 12 prompts of PROMPT_LENS, 24 new tokens each,
     through ServingEngine(**ENGINE_KW) in every run of LLAMA32_RUNS.
     Returns the times and each run's launches."""
     from aule_tpu_torch.models import llama
@@ -4311,7 +4312,7 @@ def check_llama32() -> dict:
     res = {"time": {}, "err": {}, "runs": {}}
     _gqa_decode_times(res)
     _gqa_prefill_times(res)
-    cfg = llama.LlamaConfig(**LLAMA32_3B)
+    cfg = llama.LlamaConfig(**dict(LLAMA32_3B, n_layers=LLAMA32_LAYERS))
     gen = torch.Generator(device=DEV)
     gen.manual_seed(SEED)
     t0 = time.perf_counter()
@@ -4487,12 +4488,12 @@ def check_mistral() -> dict:
 
 
 # Mixtral-8x7B (mistralai/Mixtral-8x7B-v0.1, config.json: MoEConfig.
-# mixtral_8x7b()) at full width, cut to 16 of its 32 layers: a layer holds
+# mixtral_8x7b()) at full width, cut to 8 of its 32 layers: a layer holds
 # 1.45 B parameters (2.9 GB in bf16), so 32 layers (93 GB) do not fit the
-# card's 80 GB; 16 take 46.4 GB, with 0.5 GB of embedding and head, which
-# leaves room for the 2,100-page pools (2.2 GB) and the dense mixture's
-# [8, T, 14336] transients.
-MIXTRAL_LAYERS = 16
+# card's 80 GB; 8 take 23.2 GB, with 0.5 GB of embedding and head, beside
+# the 2,100-page pools (2.2 GB) and the dense mixture's [8, T, 14336]
+# transients; depth cut for the script's time limit.
+MIXTRAL_LAYERS = 8
 # Its serving runs: (key, label, engine options, quantized payload dtype or
 # None), the Llama-3-8B runs' keys.  The whole-prompt runs prefill through
 # the flash forward, the chunked one through the paged prefill; every run
@@ -4513,9 +4514,9 @@ def check_moe() -> dict:
     """Mixtral-8x7B at full width on MIXTRAL_LAYERS layers (random bf16
     weights from SEED on the card) serving the 12 prompts of PROMPT_LENS,
     24 new tokens each, through ServingEngine(model=moe, **ENGINE_KW) in
-    every run of MOE_RUNS (each checked by run_engine: the fused decode 16
-    times a step, the paged prefill 16 times a chunk, the flash forward 16
-    times a whole prompt, every page back; tokens held to a teacher-forced
+    every run of MOE_RUNS (each checked by run_engine: the fused decode
+    once a layer a step, the paged prefill once a layer a chunk, the flash
+    forward once a layer a whole prompt, every page back; tokens held to a teacher-forced
     plain forward or a plain-attention replay, routed as the run routed;
     run MOE_LORA_RUN on edge_adapters' two adapters, base / a / b over its
     requests, checked on each request's adapter),
@@ -4732,7 +4733,7 @@ def check_adamw() -> dict:
 # hold at most 887 pages at once, and run (s1)'s resume file carries the
 # target's and the draft's pools (2 x 2.1 GB at 1,024 pages).
 SPEC_SEED = SEED + 20       # the kernel checks' generator, and (s2)'s draft
-SPEC_NEW_TOKENS = 48
+SPEC_NEW_TOKENS = 32
 SPEC_K = 4
 SPEC_PAGES = 1024
 SPEC_KW = dict(ENGINE_KW, num_pages=SPEC_PAGES)
@@ -5210,54 +5211,41 @@ def _divergence_gaps(params, cfg, prompts, got, want, first):
     return gaps
 
 
-def _spec_round_profiles(params, cfg, prompts, prompts3, res) -> None:
-    """One round of (s1)'s configuration and one of (s3)'s under
-    torch.profiler, beside one plain 8-step dispatch: the first 8 prompts,
-    prefilled, then one engine step profiled (a prompt-lookup step only
-    when a slot has a candidate).  Kernels, device busy share and tokens
-    emitted per profiled step."""
+def _spec_round_profile(params, cfg, prompts, res) -> None:
+    """One round of (s1)'s configuration under torch.profiler: the first 8
+    prompts, prefilled, then one engine step profiled.  Kernels, device
+    busy share and tokens emitted per profiled step.  (The plain dispatch
+    and (s3)'s round are not profiled here, for the script's time limit;
+    the breakdown phase profiles a plain dispatch.)"""
     from aule_tpu_torch.serving.engine import ServingEngine
     from aule_tpu_torch.utils import profiling
 
-    for key, kw, ps in (
-            ("plain", {}, prompts),
-            ("s1", dict(draft_params=params, draft_cfg=cfg,
-                        spec_tokens=SPEC_K), prompts),
-            ("s3", dict(ngram_spec=SPEC_K), prompts3)):
-        eng = ServingEngine(params, cfg, device=DEV, prefill_chunk=CHUNK,
-                            **SPEC_KW, **kw)
-        for p in ps[:8]:
-            eng.submit(p, SPEC_NEW_TOKENS)
-        eng._admit()
-        bd = None
-        while eng.has_work() and bd is None:
-            ready = key != "s3" or any(
-                eng._ngram_propose(np.concatenate(
-                    [r.prompt, np.asarray(r.output, np.int32)])) is not None
-                for r in eng.slots if r is not None)
-            if not ready:
-                eng.step()
-                continue
-            n0, r0 = eng.tokens_generated, eng.spec_rounds
-            got = profiling.device_breakdown(eng.step, CATEGORIES)
-            if key == "plain" or eng.spec_rounds > r0:
-                bd, emitted = got, eng.tokens_generated - n0
-        what = {"plain": "one plain 8-step decode dispatch",
-                "s1": "one (s1) self-draft round, K=4",
-                "s3": "one (s3) prompt-lookup round, K=4"}[key]
-        if bd is None:
-            log(f"spec breakdown {what}: no step to profile (not measured)")
-            res["profile"][key] = None
-        else:
-            _log_breakdown(f"spec {what}, B8, {emitted} tokens", bd)
-            res["profile"][key] = dict(
-                wall_ms=bd["wall_ms"], busy_ms=bd["busy_ms"],
-                busy_share=bd["busy_ms"] / bd["wall_ms"],
-                kernels=bd["kernels"], tokens=emitted,
-                ms_per_token=bd["wall_ms"] / max(emitted, 1))
-        eng.run()
-        del eng
-        torch.cuda.empty_cache()
+    eng = ServingEngine(params, cfg, device=DEV, prefill_chunk=CHUNK,
+                        draft_params=params, draft_cfg=cfg,
+                        spec_tokens=SPEC_K, **SPEC_KW)
+    for p in prompts[:8]:
+        eng.submit(p, SPEC_NEW_TOKENS)
+    eng._admit()
+    bd = None
+    while eng.has_work() and bd is None:
+        n0, r0 = eng.tokens_generated, eng.spec_rounds
+        got = profiling.device_breakdown(eng.step, CATEGORIES)
+        if eng.spec_rounds > r0:
+            bd, emitted = got, eng.tokens_generated - n0
+    what = "one (s1) self-draft round, K=4"
+    if bd is None:
+        log(f"spec breakdown {what}: no step to profile (not measured)")
+        res["profile"]["s1"] = None
+    else:
+        _log_breakdown(f"spec {what}, B8, {emitted} tokens", bd)
+        res["profile"]["s1"] = dict(
+            wall_ms=bd["wall_ms"], busy_ms=bd["busy_ms"],
+            busy_share=bd["busy_ms"] / bd["wall_ms"],
+            kernels=bd["kernels"], tokens=emitted,
+            ms_per_token=bd["wall_ms"] / max(emitted, 1))
+    eng.run()
+    del eng
+    torch.cuda.empty_cache()
 
 
 GPT2_SPEC_NEW = NEW_TOKENS   # GPT2_PROMPT_LENS end at 1000: within n_ctx
@@ -5453,8 +5441,8 @@ def check_spec() -> dict:
     lap("s3")
     _spec_gpt2_f32(res, held)
     lap("s4-s5")
-    _spec_round_profiles(params, cfg, prompts, prompts3, res)
-    lap("profiles")
+    _spec_round_profile(params, cfg, prompts, res)
+    lap("profile")
     for key, run in res["runs"].items():
         if key == "s5":
             continue
@@ -5767,6 +5755,7 @@ def _par_nccl_transport():
             "all_gather": coll._all_gather(x, 1, group),
             "all_to_all": coll._all_to_all(x, 0, 2, group),
             "broadcast": coll._broadcast(x, group),
+            "reduce_scatter": coll._reduce_scatter(x, 1, group),
             "ppermute": coll._ppermute(x, [(0, 0)], group)}
     torch.cuda.synchronize()
     for name, out in outs.items():
@@ -5778,11 +5767,11 @@ def _par_nccl_transport():
 
 def par_rank(job):
     """One rank of a parallel-phase world on the card (run by
-    utils/testing.run_world): world 1 over NCCL runs every strategy and a
-    short tensor-parallel engine at mesh sizes 1; the gloo worlds of 2 and
-    4 run their PAR_CASES and, in the world of 2, the tensor-parallel
-    engine (PAR_TP_RUNS) at Llama-3-8B's width on PAR_TP_LAYERS layers.
-    Returns {case: row} (rank 0's rows hold the errors)."""
+    utils/testing.run_world): world 1 over NCCL runs each collective's
+    NCCL branch once (_par_nccl_transport); the gloo worlds of 2 and 4 run
+    their PAR_CASES and, in the world of 2, the tensor-parallel engine
+    (PAR_TP_RUNS) at Llama-3-8B's width on PAR_TP_LAYERS layers.  Returns
+    {case: row} (rank 0's rows hold the errors)."""
     import torch.distributed as dist
 
     from aule_tpu_torch.models import llama
@@ -5795,15 +5784,15 @@ def par_rank(job):
     res = {"world": world, "backend": dist.get_backend()}
     if job == "world1":
         res["nccl_transport"] = _par_nccl_transport()
+        return res
     meshes = {}
     for name, (w, (sizes, names), *_) in PAR_CASES.items():
-        if job != "world1" and w != world:
+        if w != world:
             continue
-        sizes = tuple(1 for _ in sizes) if job == "world1" else sizes
         if (sizes, names) not in meshes:
             meshes[(sizes, names)] = pmesh.make_mesh(sizes, names, "cuda")
         _par_strategy(name, meshes[(sizes, names)], res, rank)
-    if world == 2 or job == "world1":
+    if world == 2:
         cfg = llama.LlamaConfig(**dict(dataclasses.asdict(
             llama.LlamaConfig.llama3_8b()), n_layers=PAR_TP_LAYERS))
         gen = torch.Generator(device=DEV)
@@ -5814,7 +5803,7 @@ def par_rank(job):
                    for n in PAR_TP_PROMPTS]
         tp_mesh = pmesh.make_mesh((1, world), ("data", "model"), "cuda")
         _par_tp_engine(tp_mesh, rank, res, cfg, params, prompts,
-                       ("p3",) if job == "world1" else tuple(PAR_TP_RUNS))
+                       tuple(PAR_TP_RUNS))
         del params
     torch.cuda.empty_cache()
     return res
@@ -5831,22 +5820,22 @@ def _par_flash_times(name, q, k, v, causal, window=-1):
     from aule_tpu_torch.ops.reference import build_mask
     from aule_tpu_torch.utils import profiling
 
-    b, hq, sq, _ = q.shape
+    b, hq, sq, d = q.shape
     sk, g = k.shape[2], hq // k.shape[1]
     kw = dict(causal=causal, window_size=window, return_lse=True)
     o, lse = _twice(name, lambda: flash_attention_fwd(q, k, v, **kw))
     po, plse = flash_attention_fwd_plain(q, k, v, **kw)
-    err = hold(f"{name} B{b} Hq{hq}/Hkv{k.shape[1]} Sq{sq} Sk{sk} "
+    err = hold(f"{name} B{b} Hq{hq}/Hkv{k.shape[1]} Sq{sq} Sk{sk} D{d} "
                f"{'causal' if causal else 'non-causal'}"
                f"{f' window {window}' if window > 0 else ''}", o, po, lse,
                plse, ROW_TOL[q.dtype])
     del o, lse, po, plse
     kx, vx = (x.repeat_interleave(g, dim=1) for x in (k, v))
     if window > 0:
-        flops = profiling.window_attention_flops(b, hq, sq, 128, window)
+        flops = profiling.window_attention_flops(b, hq, sq, d, window)
         mask = dict(attn_mask=build_mask(sq, sk, True, window, device=DEV))
     else:
-        flops = profiling.attention_flops(b, hq, sq, sk, 128, causal)
+        flops = profiling.attention_flops(b, hq, sq, sk, d, causal)
         mask = dict(is_causal=causal)
     nbytes = 2 * (2 * q.numel() + k.numel() + v.numel()) + 4 * b * hq * sq
     bound, by = profiling.bound_ms(nbytes, flops)
@@ -6178,11 +6167,6 @@ def check_parallel() -> dict:
     log(f"parallel world 1 (nccl): collectives' unstaged branch on a "
         f"one-rank group {worlds['world1'][0]['nccl_transport']}: each "
         f"handed back its input")
-    w1 = worlds["world1"][0]["p3"]
-    if not w1["launches"].get("paged_prefill"):
-        raise AssertionError("world 1's engine run launched no prefill")
-    check_plain_forward(params, cfg, prompts[:2], w1["outputs"],
-                        "(TP p3, world 1 over NCCL)")
     del params
     torch.cuda.empty_cache()
     lap("tp")
@@ -6192,6 +6176,851 @@ def check_parallel() -> dict:
     log(f"parallel: seconds by part {res['seconds']}")
     return res
 
+
+
+# ---------------------------------------------------------------------------
+# The parallel layer's model level (check_parallel_model): dp x tp Llama
+# training with SGD and ZeRO-1 AdamW, the pipeline-parallel train step, the
+# expert-parallel MoE forward and GPT-2 tensor-parallel serving, in gloo
+# worlds of 4 and 2 processes on this one card (collectives staged through
+# host memory: no multi-GPU figure).
+
+PM_SEED = SEED + 22             # the model-level kernel checks' generator
+# Llama-3-8B width at 2 layers.  A (data 2, model 2) rank holds ~2 GB of
+# bf16 shards (the replicated 1 GB embedding, half the 1 GB head, half of
+# the layers' 0.9 GB), as much in gradients, ~2 GB of f32 logits and, in
+# the ZeRO-1 step, ~6 GB of f32 gradient sums and moment blocks: ~16 GB a
+# rank, and the one-rank reference step ~27 GB beside the world's state;
+# four ranks and a reference fit in the card's 80 GB.
+PM_LAYERS = 2
+PM_S = 512                      # train sequences: B x (PM_S + 1) tokens
+PM_DP_TP = (2, 2)               # the dp x tp mesh: (data, model)
+PM_DATA0 = (0, 1)               # its data-0 ranks, one a model shard
+PM_PIPE_BATCH, PM_MICRO = 4, 4  # the pipeline: B4 in 4 microbatches
+PM_ADAMW = dict(lr=1e-3, weight_decay=0.01)  # the ZeRO-1 step
+PM_EP_BATCH, PM_EP_S = 2, 256   # the expert-parallel forward: B2 x 256
+PM_EP_FULL = 4.0                # capacity factor E / k: nothing drops
+PM_EP_TIGHT = 1.0               # a capacity factor that drops pairs
+PM_GPT2_PROMPTS = [129, 300, 511, 700]
+PM_GPT2_NEW = 32
+PM_GPT2_KW = dict(GPT2_ENGINE_KW, num_pages=256)
+# GPT-2 small's tensor-parallel runs: key -> (label, engine options)
+PM_GPT2_RUNS = {
+    "g1": ("bf16 whole-prompt", {}),
+    "g2": ("bf16 chunk 256", dict(prefill_chunk=GPT2_CHUNK)),
+    "g3": ("int8 chunk 256", dict(quantized=True, prefill_chunk=GPT2_CHUNK)),
+}
+PM_NOTE = ("gloo through host memory, every rank on this one card: no "
+           "multi-GPU figure")
+
+
+def _pm_llama_cfg():
+    from aule_tpu_torch.models import llama
+
+    return llama.LlamaConfig(**dict(dataclasses.asdict(
+        llama.LlamaConfig.llama3_8b()), n_layers=PM_LAYERS))
+
+
+def _pm_moe_cfg():
+    from aule_tpu_torch.models import moe
+
+    return moe.MoEConfig(**dict(dataclasses.asdict(
+        moe.MoEConfig.mixtral_8x7b()), n_layers=1))
+
+
+def _pm_init(family, cfg):
+    """The full params of `cfg` from a generator seeded with SEED on the
+    card: every rank and every reference build the same weights."""
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(SEED)
+    return family.init_params(cfg, gen, device=DEV)
+
+
+def _pm_tokens(vocab, batch, n, seed):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.integers(0, vocab, size=(batch, n))).to(DEV)
+
+
+class _GradStash:
+    """Copies of each tensor's gradient as backward accumulates it (a hook
+    that runs before a step's own hooks and updates)."""
+
+    def __init__(self, tensors):
+        for t in tensors:
+            t.requires_grad_(True)
+        self.grads = [None] * len(tensors)
+        self.hooks = [t.register_post_accumulate_grad_hook(
+            lambda t, i=i: self._keep(i, t)) for i, t in enumerate(tensors)]
+
+    def _keep(self, i, t):
+        g = t.grad.detach().clone()
+        self.grads[i] = g if self.grads[i] is None else self.grads[i] + g
+
+    def take(self):
+        for h in self.hooks:
+            h.remove()
+        return self.grads
+
+
+def _pm_run(fn, rank, profile=True):
+    """fn() once with every launch count set to 0 just before and read just
+    after: its wall seconds, the collectives' calls, bytes and host
+    seconds, and (`profile`) on rank 0 the card's busy time under
+    torch.profiler (the step's device time)."""
+    from aule_tpu_torch.parallel import collectives
+    from aule_tpu_torch.utils import profiling
+
+    counters = _par_counters()
+    torch.cuda.synchronize()
+    for c in counters.values():
+        c.launches = 0
+    collectives.reset_stats()
+    box = []
+    t0 = time.perf_counter()
+    profile = profile and rank == 0
+    if profile:
+        bd = profiling.device_breakdown(lambda: box.append(fn()), CATEGORIES)
+    else:
+        box.append(fn())
+    torch.cuda.synchronize()
+    row = dict(wall_s=time.perf_counter() - t0,
+               launches={k: c.launches for k, c in counters.items()
+                         if c.launches},
+               collective_s=collectives.STATS["seconds"],
+               collective_calls=collectives.STATS["calls"],
+               collective_mb=collectives.STATS["bytes"] / 1e6)
+    if profile:
+        row.update(device_ms=bd["busy_ms"], profiled_wall_ms=bd["wall_ms"],
+                   kernels=bd["kernels"])
+    return box[0], row
+
+
+def _rel(got, want) -> float:
+    w = want.detach().float()
+    return float((got.detach().float() - w).norm()
+                 / w.norm().clamp_min(1e-30))
+
+
+def _pm_hold(label, pairs) -> float:
+    """Each (name, got, want) pair within GRAD_TOL relative Frobenius error
+    and finite; returns the largest error."""
+    worst, where = 0.0, ""
+    for name, got, want in pairs:
+        rel = _rel(got, want)
+        if not (rel <= GRAD_TOL and bool(torch.isfinite(got).all())):
+            raise AssertionError(f"{label}: {name} relative error {rel:.3e} "
+                                 f"(<= {GRAD_TOL}) or not finite")
+        if rel >= worst:
+            worst, where = rel, name
+    log(f"{label}: {len(pairs)} tensors, largest relative Frobenius error "
+        f"{worst:.3e} ({where}) <= {GRAD_TOL} ok")
+    return worst
+
+
+def _pm_turns(fn, ranks=None):
+    """fn() on each of `ranks` (every rank for None) in turn while the
+    others wait (a reference step needs the card's memory that the world's
+    state leaves); {} on the other ranks."""
+    import torch.distributed as dist
+
+    torch.cuda.empty_cache()
+    out = {}
+    for r in range(dist.get_world_size()) if ranks is None else ranks:
+        dist.barrier()
+        if r == dist.get_rank():
+            out = fn()
+            torch.cuda.empty_cache()
+    dist.barrier()
+    return out
+
+
+def _pm_replay(label, new, old, replays) -> int:
+    """Each leaf after a step (`new`: a shard, or a ZeRO-1 block of one)
+    against `replays`, the same update replayed from this rank's own
+    gradient or moments on the pre-step leaf `old`: equal bit for bit, and
+    the replay changes at least one value of every leaf, so the pre-step
+    leaf fails the check (a skipped update, or one written to another
+    block, cannot pass).  The update's inputs are held to one rank's step
+    by the gradient or moment checks.  Returns the fewest values changed
+    in a leaf."""
+    fewest = None
+    for i, (n, o, r) in enumerate(zip(new, old, replays)):
+        if not torch.equal(n, r):
+            raise AssertionError(
+                f"{label}: leaf {i} {tuple(n.shape)} differs from its "
+                f"update replayed from this rank's own state")
+        changed = int((r != o).sum())
+        if changed == 0:
+            raise AssertionError(
+                f"{label}: the update leaves leaf {i} {tuple(n.shape)} "
+                f"unchanged, so the check cannot see it")
+        fewest = changed if fewest is None else min(fewest, changed)
+    log(f"{label}: {len(old)} leaves equal their update replayed from this "
+        f"rank's state, bit for bit; every leaf moved (at least {fewest} "
+        f"values)")
+    return fewest
+
+
+def _pm_sgd_replays(old, grads):
+    """SGD's update of each pre-step leaf by the gradient the step applied
+    (llama._sgd_step: one add_ in f32, rounded once)."""
+    return (o.clone().add_(g, alpha=-TRAIN_LR) for o, g in zip(old, grads))
+
+
+def _pm_adamw_replays(old, mu, nu):
+    """The first AdamW step (count 1, no master copy) of each pre-step
+    block from its moments, in optimizer.py's order of operations."""
+    c = [np.float32(1.0) - np.float32(b) ** np.float32(1)
+         for b in (0.9, 0.999)]  # make_adamw_train_step's b1, b2
+    for o, m, v in zip(old, mu, nu):
+        c1, c2 = torch.tensor(c, dtype=torch.float32, device=m.device)
+        u = (m / c1).div_((v / c2).sqrt_().add_(1e-8))
+        base = o.to(torch.float32)
+        u.add_(base * PM_ADAMW["weight_decay"])
+        u.mul_(PM_ADAMW["lr"])
+        yield (base - u).to(o.dtype)
+
+
+def _pm_train(res, rank):
+    """dp x tp on a (data 2, model 2) mesh at Llama-3-8B width, 2 layers,
+    B2 x 513 tokens (one sequence a data rank): one SGD step
+    (llama.train_step(mesh=)), then one ZeRO-1 AdamW step
+    (make_adamw_train_step(llama, cfg, mesh)) from the same weights.
+
+    Every rank holds each leaf after the step to the update replayed from
+    its own state (`_pm_replay`: its summed gradient for SGD; for ZeRO-1,
+    its block from its moment blocks, whose second moment must be the
+    first-step square of its first).  Ranks in turn hold the step's inputs
+    to the same step on one rank of the card within GRAD_TOL: the loss,
+    each gradient (SGD, on the data-0 ranks: the data-1 ranks' gradients
+    and shards must equal theirs bit for bit, their sums compared by the
+    parent) or each rank's first-moment block ((1 - b1) times the
+    gradient, ZeRO-1, on every rank), and each updated shard whole."""
+    from aule_tpu_torch.models import llama
+    from aule_tpu_torch.parallel import mesh as pmesh
+    from aule_tpu_torch.parallel import optimizer
+    from aule_tpu_torch.utils.tree import tree_flatten
+
+    cfg = _pm_llama_cfg()
+    mesh = pmesh.make_mesh(PM_DP_TP, ("data", "model"), "cuda")
+    tokens = _pm_tokens(cfg.vocab_size, PM_DP_TP[0], PM_S + 1, SEED + 3)
+    specs = llama.param_specs(cfg)
+
+    def shards():
+        return llama.shard_params(_pm_init(llama, cfg), cfg, mesh)
+
+    params = shards()
+    spec_list = optimizer._spec_list(specs, params)
+    leaves = tree_flatten(params)
+    stash = _GradStash(leaves)
+    (_, loss), row = _pm_run(lambda: llama.train_step(
+        params, tokens, cfg, TRAIN_LR, mesh=mesh), rank)
+    grads = stash.take()
+    row.update(loss=float(loss), peak_gib=torch.cuda.max_memory_allocated()
+               / 2 ** 30)
+    old = tree_flatten(shards())
+    row["fewest_moved"] = _pm_replay(
+        f"model dp x tp SGD rank {rank} updated shards", leaves, old,
+        _pm_sgd_replays(old, grads))
+    del old
+    torch.cuda.empty_cache()
+
+    def sgd_reference():
+        full = _pm_init(llama, cfg)
+        ref_stash = _GradStash(tree_flatten(full))
+        _, ref_loss = llama.train_step(full, tokens, cfg, TRAIN_LR)
+        ref = ref_stash.take()
+        names = [f"leaf {i} {tuple(t.shape)}" for i, t in enumerate(leaves)]
+        label = f"model dp x tp SGD rank {rank}"
+        out = dict(
+            ref_loss=float(ref_loss),
+            grad_err=_pm_hold(label + " gradients", [
+                (n, g, pmesh.shard(r, mesh, s)) for n, g, r, s in zip(
+                    names, grads, ref, spec_list)]),
+            param_err=_pm_hold(label + " updated shards, whole", [
+                (n, p, pmesh.shard(r, mesh, s)) for n, p, r, s in zip(
+                    names, leaves, tree_flatten(full), spec_list)]))
+        del full, ref
+        return out
+
+    row.update(_pm_turns(sgd_reference, PM_DATA0))
+    row["checksum"] = [float(t.float().sum()) for t in leaves + grads]
+    res["sgd"] = row
+    del params, leaves, grads, stash
+    torch.cuda.empty_cache()
+
+    params = shards()
+    opt = optimizer.adamw_init(params, specs, mesh)
+    step = optimizer.make_adamw_train_step(llama, cfg, mesh, **PM_ADAMW)
+    (_, opt, loss), row = _pm_run(lambda: step(params, opt, tokens), rank)
+    mu, nu = tree_flatten(opt.mu), tree_flatten(opt.nu)
+    z = optimizer._spec_list(optimizer.zero1_specs(specs, params, mesh),
+                             params)
+    row.update(loss=float(loss), peak_gib=torch.cuda.max_memory_allocated()
+               / 2 ** 30,
+               moments_gib=2 * sum(t.numel() * 4 for t in mu) / 2 ** 30,
+               moments_sharded=sum("data" in s for s in z))
+    if not row["moments_sharded"]:
+        raise AssertionError("ZeRO-1: no moment holds a data block")
+    leaves = tree_flatten(params)
+    dims = [optimizer._data_dim(s, "data") for s in z]
+
+    def block(t, d):
+        return optimizer._block(t, d, mesh, "data")
+
+    label = f"model ZeRO-1 AdamW rank {rank}"
+    row["second_moment_err"] = max(_rel(v, m * m * np.float32(0.1))
+                                   for m, v in zip(mu, nu))
+    if row["second_moment_err"] > 1e-5:  # (1 - b2) / (1 - b1)^2 = 0.1
+        raise AssertionError(f"{label}: a second moment is not the first "
+                             f"step's square of its first")
+    old = [block(t, d) for t, d in zip(tree_flatten(shards()), dims)]
+    row["fewest_moved"] = _pm_replay(
+        label + " updated blocks", [block(t, d) for t, d in zip(leaves, dims)],
+        old, _pm_adamw_replays(old, mu, nu))
+    del opt, nu, old
+    torch.cuda.empty_cache()
+
+    def zero1_reference():
+        full = _pm_init(llama, cfg)
+        ref_opt = optimizer.adamw_init(full)
+        ref_step = optimizer.make_adamw_train_step(llama, cfg, **PM_ADAMW)
+        _, ref_opt, ref_loss = ref_step(full, ref_opt, tokens)
+        names = [f"leaf {i} {tuple(t.shape)}" for i, t in enumerate(leaves)]
+        out = dict(
+            ref_loss=float(ref_loss),
+            moment_err=_pm_hold(label + " first moments (its blocks)", [
+                (n, m, pmesh.shard(r, mesh, s)) for n, m, r, s in zip(
+                    names, mu, tree_flatten(ref_opt.mu), z)]),
+            param_err=_pm_hold(label + " updated shards, whole", [
+                (n, p, pmesh.shard(r, mesh, s)) for n, p, r, s in zip(
+                    names, leaves, tree_flatten(full), spec_list)]))
+        del full, ref_opt
+        return out
+
+    row.update(_pm_turns(zero1_reference))
+    row["checksum"] = [float(t.float().sum()) for t in leaves]
+    res["zero1"] = row
+    del params, leaves, mu
+    torch.cuda.empty_cache()
+
+
+def _pm_loss_check(what, row):
+    if abs(row["loss"] - row["ref_loss"]) > GRAD_TOL * abs(row["ref_loss"]):
+        raise AssertionError(f"{what}: loss {row['loss']} against one rank's "
+                             f"{row['ref_loss']}")
+
+
+def _pm_ep(res, rank):
+    """The expert-parallel forward at Mixtral-8x7B width (8 experts, top 2,
+    ffn 14,336), 1 layer, B2 x 256, 2 experts a rank on an (expert 4)
+    mesh: at capacity factor E / k (nothing drops) and at PM_EP_TIGHT
+    (pairs drop).  Rank 0 holds the first to the dense mixture and the
+    second to the capacity mixture on one device (every expert local,
+    moe.make_expert_parallel_mlp(None, ...)): every logit row within
+    ROW_TOL."""
+    from aule_tpu_torch.models import moe
+    from aule_tpu_torch.parallel import mesh as pmesh
+
+    cfg = _pm_moe_cfg()
+    mesh = pmesh.make_mesh((4,), ("expert",), "cuda")
+    tokens = _pm_tokens(cfg.vocab_size, PM_EP_BATCH, PM_EP_S, SEED + 4)
+    params = moe.shard_params(_pm_init(moe, cfg), cfg, mesh,
+                              model_axis=None, expert_axis="expert")
+    torch.cuda.empty_cache()
+    outs, rows = {}, {}
+    with torch.no_grad():
+        for key, cf in (("full", PM_EP_FULL), ("tight", PM_EP_TIGHT)):
+            fn = moe.make_expert_parallel_forward(mesh, cfg,
+                                                  capacity_factor=cf)
+            outs[key], rows[key] = _pm_run(lambda: fn(params, tokens), rank)
+    row = rows["full"]
+    row.update(tight=rows["tight"],
+               peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+               checksum=[float(o.sum()) for o in outs.values()])
+    del params
+    torch.cuda.empty_cache()
+
+    def reference():
+        full = _pm_init(moe, cfg)
+        with torch.no_grad():
+            dense = moe.forward(full, tokens, cfg)
+            one = moe.forward(full, tokens, cfg,
+                              moe_mlp=moe.make_expert_parallel_mlp(
+                                  None, cfg, capacity_factor=PM_EP_TIGHT))
+        out = dict(
+            err=hold("model EP forward (no drops) vs the dense mixture",
+                     outs["full"], dense, None, None, ROW_TOL[torch.bfloat16]),
+            err_tight=hold(f"model EP forward (capacity {PM_EP_TIGHT}) vs "
+                           f"the capacity mixture on one device",
+                           outs["tight"], one, None, None,
+                           ROW_TOL[torch.bfloat16]),
+            drop_effect=_err(one, dense))
+        if out["drop_effect"] == 0.0:
+            raise AssertionError("EP at the tight capacity dropped nothing")
+        log(f"model EP: the tight capacity's drops move the logits by up to "
+            f"{out['drop_effect']:.3e} from the dense mixture")
+        del full
+        return out
+
+    row.update(_pm_turns(reference, (0,)))
+    res["ep"] = row
+
+
+def _pm_pipeline(res, rank):
+    """GPipe on a (pipe 2) mesh at Llama-3-8B width, 2 layers (one a
+    stage), B4 x 513 tokens in 4 microbatches: the pipelined forward's
+    logits (no grad), then one pipelined SGD step.  Held, on each rank in
+    turn, to the unpipelined forward and step on one rank: every logit row
+    within ROW_TOL (rank 0), and the loss, the stage's gradients and its
+    updated shards within GRAD_TOL; each rank's updated shards equal the
+    update replayed from its gradients (`_pm_replay`)."""
+    from aule_tpu_torch.models import llama
+    from aule_tpu_torch.parallel import mesh as pmesh
+    from aule_tpu_torch.parallel import pipeline
+    from aule_tpu_torch.utils.tree import tree_flatten
+
+    cfg = _pm_llama_cfg()
+    mesh = pmesh.make_mesh((2,), ("pipe",), "cuda")
+    tokens = _pm_tokens(cfg.vocab_size, PM_PIPE_BATCH, PM_S + 1, SEED + 5)
+    params = pipeline.shard_params(pipeline.stack_layer_params(
+        _pm_init(llama, cfg)), mesh)
+    torch.cuda.empty_cache()
+    fwd = pipeline.make_pipeline_forward(mesh, cfg, microbatches=PM_MICRO)
+    with torch.no_grad():
+        logits, frow = _pm_run(lambda: fwd(params, tokens[:, :-1]), rank)
+    step = pipeline.make_pipeline_train_step(
+        mesh, cfg, microbatches=PM_MICRO, lr=TRAIN_LR)
+    leaves = tree_flatten(params)
+    stash = _GradStash(leaves)
+    (_, loss), row = _pm_run(lambda: step(params, tokens), rank)
+    grads = stash.take()
+    row.update(loss=float(loss), forward=frow,
+               bubble=(2 - 1) / (PM_MICRO + 2 - 1),  # (P-1)/(M+P-1)
+               peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+               checksum=float(logits.sum()))
+    old = tree_flatten(pipeline.shard_params(pipeline.stack_layer_params(
+        _pm_init(llama, cfg)), mesh))
+    row["fewest_moved"] = _pm_replay(
+        f"model pipeline rank {rank} updated shards", leaves, old,
+        _pm_sgd_replays(old, grads))
+    del old
+    stage = pmesh.axis_index(mesh, "pipe")
+    per = cfg.n_layers // 2
+
+    def reference():
+        full = _pm_init(llama, cfg)
+        out = {}
+        if rank == 0:
+            with torch.no_grad():
+                want = llama.forward(full, tokens[:, :-1], cfg)
+            out["logit_err"] = hold(
+                "model pipeline forward vs the unpipelined forward", logits,
+                want, None, None, ROW_TOL[torch.bfloat16])
+            del want
+        ref_stash = _GradStash(list(llama._tensors(full)))
+        _, ref_loss = llama.train_step(full, tokens, cfg, TRAIN_LR)
+        ref = dict(zip([id(t) for t in llama._tensors(full)],
+                       ref_stash.take()))
+        # the stage's view of the full params: its layers, stacked
+        mine = pipeline.stack_layer_params(dict(
+            full, layers=full["layers"][stage * per:(stage + 1) * per]))
+        ref_g = pipeline.stack_layer_params({
+            k: (ref[id(v)] if k != "layers" else
+                [{n: ref[id(t)] for n, t in layer.items()}
+                 for layer in full["layers"][stage * per:(stage + 1) * per]])
+            for k, v in full.items()})
+        names = [f"leaf {i} {tuple(t.shape)}" for i, t in enumerate(leaves)]
+        label = f"model pipeline rank {rank}"
+        out.update(
+            ref_loss=float(ref_loss),
+            grad_err=_pm_hold(label + " gradients", list(zip(
+                names, grads, tree_flatten(ref_g)))),
+            param_err=_pm_hold(label + " updated shards, whole", list(zip(
+                names, leaves, tree_flatten(mine)))))
+        del full, ref, mine, ref_g
+        return out
+
+    row.update(_pm_turns(reference))
+    res["pipeline"] = row
+    del params, leaves, grads, logits
+    torch.cuda.empty_cache()
+
+
+def _pm_gpt2_params():
+    from aule_tpu_torch.models import gpt2
+
+    cfg = gpt2.GPT2Config(dtype=torch.bfloat16)
+    return cfg, _pm_init(gpt2, cfg)
+
+
+def _pm_gpt2_prompts(vocab):
+    rng = np.random.default_rng(SEED + 6)
+    return [rng.integers(0, vocab, size=n).astype(np.int32)
+            for n in PM_GPT2_PROMPTS]
+
+
+def _pm_gpt2(res, rank):
+    """GPT-2 small (12 heads, D64, bf16 random weights) served
+    tensor-parallel on a (1, 2) mesh, 6 heads a rank, in each run of
+    PM_GPT2_RUNS: every rank drives the same loop; rank 0 keeps the
+    tokens, which the parent holds to the plain forward or replay."""
+    from aule_tpu_torch.models import gpt2
+    from aule_tpu_torch.parallel import mesh as pmesh
+    from aule_tpu_torch.serving.engine import ServingEngine
+
+    cfg, params = _pm_gpt2_params()
+    mesh = pmesh.make_mesh((1, 2), ("data", "model"), "cuda")
+    prompts = _pm_gpt2_prompts(cfg.vocab_size)
+    for key, (_, kw) in PM_GPT2_RUNS.items():
+        eng = ServingEngine(params, cfg, model=gpt2, mesh=mesh, device=DEV,
+                            **PM_GPT2_KW, **kw)
+        for p in prompts:
+            eng.submit(p, PM_GPT2_NEW)
+        # one step (admission, prefill and a first decode dispatch), one
+        # decode dispatch profiled on rank 0, then the rest; the counts
+        # and collectives of all three
+        done, row = _pm_run(lambda: _pm_serve(eng, rank), rank,
+                            profile=False)
+        row.update(done.pop())
+        st = eng.stats()
+        row.update(decode_tok_s=(st["tokens_generated"] - len(prompts))
+                   / max(st["decode_seconds"], 1e-9),
+                   outputs=[list(r.output) for r in done])
+        res[key] = row
+        del eng
+        torch.cuda.empty_cache()
+
+
+def _pm_serve(eng, rank):
+    """An engine's run with its second step (a decode dispatch) under
+    torch.profiler on rank 0: (finished requests + [the dispatch's device
+    busy ms and kernels])."""
+    from aule_tpu_torch.utils import profiling
+
+    eng.step()
+    if rank == 0:
+        bd = profiling.device_breakdown(eng.step, CATEGORIES)
+        prof = dict(device_ms=bd["busy_ms"], profiled_wall_ms=bd["wall_ms"],
+                    kernels=bd["kernels"])
+    else:
+        eng.step()
+        prof = {}
+    return eng.run() + [prof]
+
+
+def pm_rank(job):
+    """One rank of a model-level world on the card (run by
+    utils/testing.run_world): the world of 4 runs the dp x tp steps and
+    the expert-parallel forward, the world of 2 the pipeline and GPT-2
+    tensor-parallel serving.  Returns {configuration: row}."""
+    import torch.distributed as dist
+
+    from aule_tpu_torch.ops import _build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.set_device(0)  # every rank on the one card
+    _build.library()  # built by the parent's build phase
+    rank = dist.get_rank()
+    res = {"seconds": {}}
+    parts = ((("train", _pm_train), ("ep", _pm_ep)) if job == "world4"
+             else (("pipeline", _pm_pipeline), ("gpt2", _pm_gpt2)))
+    for name, fn in parts:
+        t0 = time.perf_counter()
+        fn(res, rank)
+        res["seconds"][name] = round(time.perf_counter() - t0, 1)
+    res["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    torch.cuda.empty_cache()
+    return res
+
+
+def _pm_bwd_times(gen, name, heads, s):
+    """delta, dQ and dK/dV at a train step's shard (B1, `heads` (Hq, Hkv),
+    S tokens, D128 bf16 causal, no lse cotangent): each held to its plain
+    version (delta within DELTA_TOL, rows within ROW_TOL of at least
+    BWD_FLOOR of the largest |value|, as check_flash_bwd) and timed beside
+    its bound, its plain version and the backward of SDPA (delta:
+    torch.linalg.vecdot)."""
+    from aule_tpu_torch.ops import flash_vjp as fv
+    from aule_tpu_torch.utils import profiling
+
+    q, k, v, o, lse, do, _ = _bwd_inputs(gen, (1, *heads), s, s, True, -1,
+                                         torch.bfloat16, False)
+    worst = {}
+    di = _twice(f"{name} delta", lambda: (fv.attention_delta(o, do),))[0]
+    hold_delta(f"{name} bwd delta", di, o, do, None, worst)
+    pd = fv.attention_delta_plain(o, do)
+    dq = fv.flash_bwd_dq(q, k, v, do, lse, di, causal=True, o=o)
+    tol = ROW_TOL[torch.bfloat16]
+    worst["dq"] = hold(f"{name} bwd dq", dq, fv.flash_bwd_dq_plain(
+        q, k, v, do, lse, pd, causal=True), None, None, tol, floor=BWD_FLOOR)
+    dk, dv = fv.flash_bwd_dkv(q, k, v, do, lse, di, causal=True)
+    pdk, pdv = fv.flash_bwd_dkv_plain(q, k, v, do, lse, pd, causal=True)
+    worst["dkv"] = tuple(max(a, b) for a, b in zip(
+        hold(f"{name} bwd dk", dk, pdk, None, None, tol, floor=BWD_FLOOR),
+        hold(f"{name} bwd dv", dv, pdv, None, None, tol, floor=BWD_FLOOR)))
+    del dq, dk, dv, pdk, pdv
+    g = heads[0] // heads[1]
+    fwd_flops = profiling.attention_flops(1, heads[0], s, s, 128, True)
+    qx = q.detach().requires_grad_(True)
+    kx = k.repeat_interleave(g, dim=1).requires_grad_(True)
+    vx = v.repeat_interleave(g, dim=1).requires_grad_(True)
+    ref = SDPA(qx, kx, vx, is_causal=True)
+    sdpa_bwd = lambda: torch.autograd.grad(ref, (qx, kx, vx), do,
+                                           retain_graph=True)
+    lib = (profiling.cuda_time_ms(sdpa_bwd, iters=10)[0], device_ms(sdpa_bwd))
+    qkvdo = 2 * (2 * q.numel() + k.numel() + v.numel())
+    stats = 4 * lse.numel()
+    out = {}
+    for part, fn, plain, flops, nbytes in (
+            ("delta", lambda: fv.attention_delta(o, do),
+             lambda: fv.attention_delta_plain(o, do), 2 * o.numel(),
+             2 * (o.numel() + do.numel()) + stats),
+            ("dq", lambda: fv.flash_bwd_dq(q, k, v, do, lse, di, causal=True,
+                                           o=o),
+             lambda: fv.flash_bwd_dq_plain(q, k, v, do, lse, di,
+                                           causal=True),
+             profiling.attention_bwd_flops(fwd_flops, 3),
+             qkvdo + 2 * q.numel() + 2 * stats),
+            ("dkv", lambda: fv.flash_bwd_dkv(q, k, v, do, lse, di,
+                                             causal=True),
+             lambda: fv.flash_bwd_dkv_plain(q, k, v, do, lse, di,
+                                            causal=True),
+             profiling.attention_bwd_flops(fwd_flops, 4),
+             qkvdo + 2 * (k.numel() + v.numel()) + 2 * stats)):
+        t = _mode_time(
+            f"{name} bwd {part} B1 Hq{heads[0]}/Hkv{heads[1]} S{s} D128 "
+            f"bf16 causal", fn, plain,
+            _vecdot_times(o, do) if part == "delta" else lib,
+            f"flash_bwd_{part}", nbytes, flops,
+            profiling.H100_F32_FLOPS if part == "delta"
+            else profiling.H100_BF16_FLOPS)
+        err = worst[part]
+        out[part] = dict(t, err=tuple(err) + (0.0,) * (3 - len(err)))
+    del ref, qx, kx, vx
+    return out
+
+
+def _pm_gpt2_kernels(gen, t):
+    """GPT-2 small's kernels at a tp 2 rank's 6 heads (D64, group 1): the
+    paged decode at B4 over the engine's contexts (bf16 and int8 dot
+    pools) and the prefill of a 256-token chunk at q_offset 256 over 512
+    (bf16 and int8 pools), each twice with the same bits, held to its plain
+    version and timed (GPT-2 phase's _decode_mode_times and _mode_time)."""
+    from aule_tpu_torch.ops.paged_fused import (dequantize_pool,
+                                                from_fused_layout,
+                                                paged_attention_fused,
+                                                paged_attention_fused_plain)
+    from aule_tpu_torch.ops.paged_prefill import (
+        paged_attention_prefill, paged_attention_prefill_plain)
+    from aule_tpu_torch.utils import profiling
+
+    heads = (6, 6, 64)
+    lens = [n + PM_GPT2_NEW for n in PM_GPT2_PROMPTS]
+    max_pages = PM_GPT2_KW["max_pages_per_seq"]
+    for name, mode in (("paged_decode_gpt2_tp2", TC_DECODE_MODES[0]),
+                       ("paged_decode_int8_gpt2_tp2", TC_DECODE_MODES[2])):
+        _, dt, qdt, dot, sdt = mode
+        pool, bt = _generic_pool(gen, lens, max_pages, 16, 6, 64, dt, True)
+        pl, sc = _gen_quantized(pool, qdt, sdt)
+        q = _randn((len(lens), 6, 64), gen, dt)
+        ln = torch.tensor(lens, dtype=torch.int32, device=DEV)
+        kw = dict(kv_scales=sc, int8_matmul=dot, return_lse=True)
+        o, lse = _twice(name, lambda: paged_attention_fused(q, pl, bt, ln,
+                                                            **kw))
+        po, plse = paged_attention_fused_plain(q, pl, bt, ln, **kw)
+        err = hold(f"{name} B4 Hq6/Hkv6 D64 ctx {lens}", o, po, lse, plse,
+                   _tol(dt, qdt is not None))
+        res = {"time": {}}
+        _decode_mode_times(gen, res, "", mode, lens, heads, max_pages, False)
+        t[name] = dict(res["time"][f"decode {mode[0]}"], err=err)
+        del pool, pl, sc, o, lse, po, plse
+    hist, chunk = 256, GPT2_CHUNK
+    for name, qdt in (("paged_prefill_gpt2_tp2", None),
+                      ("paged_prefill_int8_gpt2_tp2", torch.int8)):
+        pool, bt = _generic_pool(gen, [hist + chunk], max_pages, 16, 6, 64,
+                                 torch.bfloat16, False)
+        pl, sc = _gen_quantized(pool, qdt)
+        q = _randn((1, 6, chunk, 64), gen, torch.bfloat16)
+        ln = torch.tensor([hist + chunk], dtype=torch.int32, device=DEV)
+        qoff = torch.tensor([hist], dtype=torch.int32, device=DEV)
+        kw = dict(q_offsets=qoff, kv_scales=sc)
+        o, lse = _twice(name, lambda: paged_attention_prefill(
+            q, pl, bt, ln, return_lse=True, **kw))
+        po, plse = paged_attention_prefill_plain(q, pl, bt, ln,
+                                                 return_lse=True, **kw)
+        err = hold(f"{name} chunk {chunk} at {hist} Hq6/Hkv6 D64", o, po,
+                   lse, plse, _tol(torch.bfloat16))
+        kh, vh = (from_fused_layout(pl[1:], 64) if qdt is None
+                  else dequantize_pool(pl[1:], sc[1:], 64))
+        kd, vd = (x.reshape(1, 6, -1, 64)[:, :, :hist + chunk]
+                  .to(torch.bfloat16) for x in (kh, vh))
+        mask = (torch.arange(hist + chunk, device=DEV)[None, :]
+                <= hist + torch.arange(chunk, device=DEV)[:, None])
+        nbytes = 2 * q.numel() * 2 + profiling.paged_kv_bytes(
+            hist + chunk, 6, 64, 2 if qdt is None else 1,
+            0 if qdt is None else 2) + max_pages * 4 + 3 * 4
+        t[name] = dict(_mode_time(
+            f"{name} time chunk {chunk} at {hist} Hq6/Hkv6 D64 page16",
+            lambda: paged_attention_prefill(q, pl, bt, ln, **kw),
+            lambda: paged_attention_prefill_plain(q, pl, bt, ln, **kw),
+            lambda: SDPA(q, kd, vd, attn_mask=mask), "paged_prefill_kernel",
+            nbytes, profiling.paged_prefill_flops([hist], [chunk], 6, 64),
+            profiling.H100_BF16_FLOPS), err=err)
+        del pool, pl, sc, kd, vd, kh, vh, o, lse, po, plse
+
+
+def _pm_kernel_checks(res):
+    """Each kernel at the shard shapes the model-level configurations give
+    it, in this process: held to its plain version and timed beside its
+    bound and one PyTorch call."""
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(PM_SEED)
+
+    def qkv(b, hq, hkv, s, d=128):
+        return (_randn((b, hq, s, d), gen), _randn((b, hkv, s, d), gen),
+                _randn((b, hkv, s, d), gen))
+
+    t = {}
+    hq, hkv = PAR_HEADS
+    t["flash_fwd_dp_tp_shard"] = _par_flash_times(
+        "dp x tp shard", *qkv(1, hq // 2, hkv // 2, PM_S), True)
+    t["flash_fwd_pipeline_stage"] = _par_flash_times(
+        "pipeline microbatch", *qkv(1, hq, hkv, PM_S), True)
+    t["flash_fwd_ep"] = _par_flash_times(
+        "expert-parallel forward", *qkv(PM_EP_BATCH, hq, hkv, PM_EP_S), True)
+    t["flash_fwd_gpt2_tp2"] = _par_flash_times(
+        "GPT-2 tp 2 whole prompt", *qkv(1, 6, 6, max(PM_GPT2_PROMPTS), 64),
+        True)
+    for key, heads in (("dp_tp_shard", (hq // 2, hkv // 2)),
+                       ("pipeline_stage", (hq, hkv))):
+        for part, row in _pm_bwd_times(gen, f"model {key}", heads,
+                                       PM_S).items():
+            t[f"flash_bwd_{part}_{key}"] = row
+    _pm_gpt2_kernels(gen, t)
+    res["kernels"] = t
+
+
+def _pm_log(label, row, profiled="the step"):
+    dev = (f", device busy {row['device_ms']:.1f} ms on rank 0 for "
+           f"{profiled} (torch.profiler, {row['kernels']} kernels)"
+           if "device_ms" in row else "")
+    log(f"model {label}: wall {row['wall_s']:.3f} s{dev}; collectives "
+        f"{row['collective_s']:.3f} s in {row['collective_calls']} calls, "
+        f"{row['collective_mb']:.1f} MB sent ({PM_NOTE}); launches "
+        f"{row['launches']}")
+
+
+def check_parallel_model() -> dict:
+    """The model-level phase: the kernels at their shard shapes
+    (_pm_kernel_checks), then a gloo world of 4 (dp x tp SGD and ZeRO-1
+    AdamW, the expert-parallel forward) and one of 2 (the pipeline step,
+    GPT-2 tensor-parallel serving) sharing this one card (collectives
+    staged through host memory: no multi-GPU figure), then GPT-2's
+    tensor-parallel tokens held to the teacher-forced plain forward (bf16)
+    or plain-attention replay (int8), beside the tp 1 engine's."""
+    from aule_tpu_torch.models import gpt2
+    from aule_tpu_torch.serving.engine import ServingEngine
+    from aule_tpu_torch.utils.testing import run_world
+
+    log(card_line())
+    res = {"seconds": {}}
+    clock = [time.perf_counter()]
+
+    def lap(part):
+        now = time.perf_counter()
+        res["seconds"][part] = round(now - clock[0], 1)
+        clock[0] = now
+
+    _pm_kernel_checks(res)
+    lap("kernels")
+    torch.cuda.empty_cache()
+    worlds = {}
+    for job, world in (("world4", 4), ("world2", 2)):
+        worlds[job] = run_world(pm_rank, world, job, backend="gloo",
+                                threads=0)
+        lap(job)
+        log(f"model {job}: seconds by part on rank 0 "
+            f"{worlds[job][0]['seconds']}; peak allocated GiB by rank "
+            f"{[round(r['peak_gib'], 2) for r in worlds[job]]}")
+    w4, w2 = worlds["world4"], worlds["world2"]
+    for key, rows in (("sgd", w4), ("zero1", w4), ("ep", w4),
+                      ("pipeline", w2)):
+        _pm_log(key, rows[0][key])
+        log(f"model {key}: peak allocated GiB by rank "
+            f"{[round(r[key]['peak_gib'], 2) for r in rows]}")
+    for key in ("sgd", "zero1"):
+        z = [r[key]["checksum"] for r in w4]
+        # ranks (0, 1) and (2, 3) hold the same model shard on data 0, 1
+        if z[0] != z[2] or z[1] != z[3]:
+            raise AssertionError(f"{key}: the data ranks' shards differ")
+        _pm_loss_check(key, w4[0][key])
+    _pm_loss_check("pipeline", w2[0]["pipeline"])
+    if len({tuple(r["ep"]["checksum"]) for r in w4}) != 1:
+        raise AssertionError("EP: the expert ranks' outputs differ")
+    if len({r["pipeline"]["checksum"] for r in w2}) != 1:
+        raise AssertionError("pipeline: the stages' logits differ")
+    sgd, zero1, pipe = (w4[0]["sgd"], w4[0]["zero1"], w2[0]["pipeline"])
+    log(f"model losses (rank 0 / one rank): dp x tp SGD {sgd['loss']:.6f} / "
+        f"{sgd['ref_loss']:.6f}; ZeRO-1 {zero1['loss']:.6f} / "
+        f"{zero1['ref_loss']:.6f}; pipeline {pipe['loss']:.6f} / "
+        f"{pipe['ref_loss']:.6f} (bubble {pipe['bubble']:.3f}); ZeRO-1 "
+        f"moments {zero1['moments_gib']:.2f} GiB a rank, "
+        f"{zero1['moments_sharded']} leaves cut over data")
+    cfg, params = _pm_gpt2_params()
+    prompts = _pm_gpt2_prompts(cfg.vocab_size)
+    res["gpt2"] = {}
+    for key, (label, kw) in PM_GPT2_RUNS.items():
+        row = w2[0][key]
+        eng = ServingEngine(params, cfg, model=gpt2, device=DEV,
+                            **PM_GPT2_KW, **kw)
+        for p in prompts:
+            eng.submit(p, PM_GPT2_NEW)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        one = [list(r.output) for r in eng.run()]
+        wall1 = time.perf_counter() - t0
+        st = eng.stats()
+        tok1 = (st["tokens_generated"] - len(prompts)) / st["decode_seconds"]
+        del eng
+        got = row["outputs"]
+        what = f"(GPT-2 TP {key}) {label}"
+        if kw.get("quantized"):
+            check_replay(params, cfg, prompts, got, what, torch.int8,
+                         kw["prefill_chunk"], model=gpt2,
+                         engine_kw=PM_GPT2_KW, new_tokens=PM_GPT2_NEW)
+        else:
+            check_plain_forward(params, cfg, prompts, got, what, model=gpt2)
+        match = _prefix_match(got, one)[0]
+        _pm_log(f"GPT-2 TP {key}", row, "one 8-step decode dispatch")
+        log(f"model {what}: tp 2 decode {row['decode_tok_s']:.1f} tok/s "
+            f"({PM_NOTE}), wall {row['wall_s']:.2f} s; tp 1 decode "
+            f"{tok1:.1f} tok/s, wall {wall1:.2f} s; greedy-prefix match "
+            f"with tp 1 {match:.4f}")
+        res["gpt2"][key] = dict(
+            tp_decode_tok_s=row["decode_tok_s"], tp1_decode_tok_s=tok1,
+            tp_wall_s=row["wall_s"], tp1_wall_s=wall1, prefix_match_tp1=match,
+            collective_s=row["collective_s"],
+            launches=_par_sum(r[key]["launches"] for r in w2),
+            device_ms=row.get("device_ms"))
+    del params
+    torch.cuda.empty_cache()
+    lap("gpt2 checks")
+    res["launches"] = {key: _par_sum(r[key]["launches"] for r in rows)
+                       for key, rows in (("sgd", w4), ("zero1", w4),
+                                         ("ep", w4), ("pipeline", w2))}
+    res["launches"]["ep_tight"] = _par_sum(r["ep"]["tight"]["launches"]
+                                           for r in w4)
+    res["launches"]["pipeline_forward"] = _par_sum(
+        r["pipeline"]["forward"]["launches"] for r in w2)
+    res["rows"] = {key: {k: v for k, v in rows[0][key].items()
+                         if k not in ("checksum", "outputs")}
+                   for key, rows in (("sgd", w4), ("zero1", w4), ("ep", w4),
+                                     ("pipeline", w2))}
+    res["peak_gib"] = {job: [r["peak_gib"] for r in rows]
+                       for job, rows in worlds.items()}
+    log(f"model: seconds by part {res['seconds']}")
+    return res
 
 
 def _phase_process(flag: str, what: str) -> dict:
@@ -6253,10 +7082,16 @@ def phase_parallel() -> dict:
     return _phase_process("--parallel", "parallel")
 
 
+def phase_parallel_model() -> dict:
+    """check_parallel_model in a process of its own (`chip_smoke.py
+    --parallel-model`), which starts the worlds' processes."""
+    return _phase_process("--parallel-model", "parallel model-level")
+
+
 def child_main(check) -> None:
     """`chip_smoke.py --public`, `--gpt2`, `--llama32`, `--mistral`,
-    `--moe`, `--adamw`, `--spec` or `--parallel`: that phase alone, its
-    result as one JSON line last."""
+    `--moe`, `--adamw`, `--spec`, `--parallel` or `--parallel-model`: that
+    phase alone, its result as one JSON line last."""
     if not torch.cuda.is_available():
         log("device: torch.cuda.is_available() is False")
         sys.exit(2)
@@ -6882,6 +7717,95 @@ def parallel_entries(entries, par) -> None:
                               phase="parallel", **extra))
 
 
+def parallel_model_entries(entries, pm) -> None:
+    """The model-level phase's kernel modes at their shard shapes, each
+    with its launches summed over the ranks of the configurations that
+    give it that shape, its errors against its plain version and its
+    times."""
+    n = pm["launches"]
+    g = pm["gpt2"]
+
+    def got(counter, *cases):
+        return sum(n[c].get(counter, 0) for c in cases)
+
+    def gpt2_got(counter, *runs):
+        return sum(g[r]["launches"].get(counter, 0) for r in runs)
+
+    bwd_row = {"delta": "aule_tpu/ops/flash_vjp.py:746 (delta, an XLA "
+                        "fusion in JAX: no Pallas kernel)",
+               "dq": "aule_tpu/ops/flash_vjp.py:127 (_dq_kernel)",
+               "dkv": "aule_tpu/ops/flash_vjp.py:271 (_dkv_kernel)"}
+    lib = {"delta": "torch.linalg.vecdot(o, do)",
+           "dq": "the backward of SDPA, dq, dk and dv together",
+           "dkv": "the backward of SDPA, dq, dk and dv together"}
+    mono = PAR_FWD_ROW + "; aule_tpu/ops/flash.py:638 (_mono_kernel)"
+    rows = [
+        ("flash_fwd_dp_tp_shard", PAR_FWD_SRC, mono,
+         got("flash_fwd", "sgd", "zero1"),
+         f"B1 Hq16/Hkv4 S{PM_S} D128 bf16 causal: a (data 2, model 2) "
+         f"rank's sequence and heads at Llama-3-8B width, in the SGD and "
+         f"ZeRO-1 steps (library: SDPA)"),
+        ("flash_fwd_pipeline_stage", PAR_FWD_SRC, mono,
+         got("flash_fwd", "pipeline", "pipeline_forward"),
+         f"B1 Hq32/Hkv8 S{PM_S} D128 bf16 causal: a pipeline microbatch "
+         f"(pipe 2, 4 microbatches; the forward and the train step; "
+         f"library: SDPA)"),
+        ("flash_fwd_ep", PAR_FWD_SRC, mono, got("flash_fwd", "ep", "ep_tight"),
+         f"B{PM_EP_BATCH} Hq32/Hkv8 S{PM_EP_S} D128 bf16 causal: the "
+         f"expert-parallel forward's replicated attention (Mixtral-8x7B "
+         f"width; library: SDPA)"),
+        ("flash_fwd_gpt2_tp2", PAR_FWD_SRC,
+         PAR_FWD_ROW + " at D64 (d_scale tiles, l.931)",
+         gpt2_got("flash_fwd", "g1"),
+         f"B1 Hq6/Hkv6 S{max(PM_GPT2_PROMPTS)} D64 bf16 causal: a tp 2 "
+         f"rank's heads of GPT-2 small's whole-prompt prefill (timed at "
+         f"the longest prompt; library: SDPA)"),
+    ]
+    for key, heads, cases in (
+            ("dp_tp_shard", "Hq16/Hkv4", ("sgd", "zero1")),
+            ("pipeline_stage", "Hq32/Hkv8", ("pipeline",))):
+        for part in ("delta", "dq", "dkv"):
+            rows.append((
+                f"flash_bwd_{part}_{key}", "aule_tpu_torch/csrc/flash_bwd.cu",
+                bwd_row[part], got(f"flash_bwd_{part}", *cases),
+                f"B1 {heads} S{PM_S} D128 bf16 causal, no lse cotangent: "
+                f"the {' and '.join(cases)} step's backward (library: "
+                f"{lib[part]})"))
+    rows += [
+        ("paged_decode_gpt2_tp2", "aule_tpu_torch/csrc/paged_decode.cu",
+         "aule_tpu/ops/paged_fused.py:213 (_fused_decode_kernel)",
+         gpt2_got("paged_decode", "g1", "g2"),
+         "B4 Hq6/Hkv6 D64 page16 bf16 pool: a tp 2 rank's heads of GPT-2 "
+         "small (runs g1, g2; library: SDPA on the gathered K/V)"),
+        ("paged_decode_int8_gpt2_tp2", "aule_tpu_torch/csrc/paged_decode.cu",
+         "aule_tpu/ops/paged_fused.py:213 (_fused_decode_kernel) int8 mode",
+         gpt2_got("paged_decode", "g3"),
+         "as paged_decode_gpt2_tp2, int8 pool with bf16 scales, int8 "
+         "dot products (run g3; library: SDPA on the dequantized K/V)"),
+        ("paged_prefill_gpt2_tp2", "aule_tpu_torch/csrc/paged_prefill.cu",
+         "aule_tpu/ops/paged_fused.py:770 (_fused_prefill_kernel)",
+         gpt2_got("paged_prefill", "g2"),
+         f"B1 Hq6/Hkv6 D64 page16, chunk {GPT2_CHUNK} at q_offset 256, "
+         f"bf16 pool: a tp 2 rank's heads of GPT-2 small (run g2; "
+         f"library: SDPA with a positional mask)"),
+        ("paged_prefill_int8_gpt2_tp2", "aule_tpu_torch/csrc/paged_prefill.cu",
+         "aule_tpu/ops/paged_fused.py:770 (_fused_prefill_kernel) int8 "
+         "mode", gpt2_got("paged_prefill", "g3"),
+         "as paged_prefill_gpt2_tp2, int8 pool (run g3)"),
+    ]
+    t = pm["kernels"]
+    for name, src, row, launches, shape in rows:
+        if launches == 0:
+            raise AssertionError(f"{name} was not launched in the model-level "
+                                 f"phase")
+        tm = t[name]
+        err = tuple(tm["err"]) + (0.0,) * (3 - len(tm["err"]))
+        extra = {k: tm[k] for k in ("device_ms", "library_device_ms")
+                 if k in tm}
+        entries.append(_entry(name, src, row, launches, err, tm, shape,
+                              phase="parallel model", **extra))
+
+
 def main() -> None:
     from aule_tpu_torch.ops.flash import SHORT_SQ
 
@@ -6925,6 +7849,7 @@ def main() -> None:
     spec = timed("spec", phase_spec)
     torch.cuda.empty_cache()  # the worlds' processes share the card
     par = timed("parallel", phase_parallel)
+    pm = timed("parallel model", phase_parallel_model)
     runs, params, cfg = timed("engine", phase_engine)
     edges = timed("edges", phase_edges, params, cfg)
     timed("breakdown", phase_breakdown, params, cfg)
@@ -7238,6 +8163,7 @@ def main() -> None:
     add_edge_launches(entries, edges)
     spec_entries(entries, spec)
     parallel_entries(entries, par)
+    parallel_model_entries(entries, pm)
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
@@ -7261,5 +8187,7 @@ if __name__ == "__main__":
         child_main(check_spec)
     elif sys.argv[1:] == ["--parallel"]:
         child_main(check_parallel)
+    elif sys.argv[1:] == ["--parallel-model"]:
+        child_main(check_parallel_model)
     else:
         main()

@@ -8,6 +8,8 @@ in the fused layout with whole-prompt or chunked prefill, and in the split
 layout with whole-prompt prefill.
 """
 
+import types
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -208,11 +210,13 @@ def test_oversized_request_rejected(params):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(mesh=object(), model=tgpt2), dict(model=jllama),
-    dict(mesh=object(), model=tmoe, ngram_spec=2)])
+    dict(model=types.SimpleNamespace(__name__="a module of no family")),
+    dict(model=jllama),
+    dict(model=jllama, ngram_spec=2)])
 def test_unported_engine_options_raise(params, kw):
-    """A JAX module as the family, and a mesh over the families whose
-    meshes are not ported (tests/test_torch_tp.py serves Llama's)."""
+    """A model that is not a family of the port (a JAX module, or another
+    module) raises, with or without an option; every family's mesh is
+    served (tests/test_torch_tp_engine.py, test_torch_gpt2_tp.py)."""
     _, tp = params
     with pytest.raises(NotImplementedError):
         ServingEngine(tp, TCFG, device="cpu", **dict(KW, **kw))

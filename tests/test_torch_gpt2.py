@@ -146,8 +146,8 @@ def test_engine_token_identical_to_jax(params, qname, chunk):
 def test_engine_refusals(params):
     """max_seq_len past the learned-position table raises ValueError (as
     JAX's engine), so does the split layout (no decode over split pools);
-    a model module of another package and mesh= on the model raise
-    NotImplementedError."""
+    a model module of another package and LoRA adapters with mesh= on the
+    model raise NotImplementedError (mesh= alone: tests/test_torch_gpt2_tp.py)."""
     _, tp = params
     kw = dict(KW, max_pages_per_seq=32)
     with pytest.raises(ValueError, match="n_ctx"):
@@ -159,8 +159,9 @@ def test_engine_refusals(params):
     with pytest.raises(NotImplementedError):
         ServingEngine(tp, TCFG, model=jgpt2, device="cpu", **KW)
     tokens = torch.zeros((1, 4), dtype=torch.long)
-    with pytest.raises(NotImplementedError):
-        tgpt2.forward(tp, tokens, TCFG, mesh=object())
+    with pytest.raises(NotImplementedError, match="LoRA"):
+        tgpt2.forward(tp, tokens, TCFG, mesh=object(), lora={"layers": []},
+                      lora_idx=torch.zeros((1,), dtype=torch.long))
     # the default family is still Llama
     lp = tllama.init_params(tllama.LlamaConfig.tiny(), torch.Generator(),
                             device="cpu")

@@ -212,14 +212,17 @@ def test_unported_forms_raise(params):
         ServingEngine(tp, TCFG, device="cpu", model=tmoe,
                       **dict(KW, layout="split"))
     tokens = torch.from_numpy(_tokens(1, 5)).long()
-    with pytest.raises(NotImplementedError, match="parallel-layer"):
-        tmoe.forward(tp, tokens, TCFG, mesh=object())
-    with pytest.raises(NotImplementedError, match="parallel-layer"):
+    # LoRA adapters under a mesh (mesh= alone: tests/test_torch_moe_ep.py
+    # and test_torch_gpt2_tp.py)
+    lora = dict(lora={"layers": []}, lora_idx=torch.zeros((1,),
+                                                          dtype=torch.long))
+    with pytest.raises(NotImplementedError, match="LoRA"):
+        tmoe.forward(tp, tokens, TCFG, mesh=object(), **lora)
+    with pytest.raises(NotImplementedError, match="LoRA"):
         tmoe.decode_step_fused(tp, None, None, None, None, None, TCFG, None,
-                               None, mesh=object())
+                               None, mesh=object(), **lora)
     with pytest.raises(NotImplementedError):
-        ServingEngine(tp, TCFG, device="cpu", model=tmoe,
-                      **dict(KW, mesh=object()))
+        ServingEngine(tp, TCFG, device="cpu", model=jmoe, **KW)
 
 
 @pytest.mark.parametrize("fn", ["forward", "prefill_step_fused"])

@@ -230,8 +230,10 @@ def test_master_weights_beat_bf16_updates():
 
 
 def test_mesh_arguments_raise():
+    """The ZeRO-1 layout takes a mesh and the param specs together (its
+    steps: tests/test_torch_zero1.py)."""
     tp = _port(_jax_params())
-    with pytest.raises(NotImplementedError, match="parallel-layer"):
+    with pytest.raises(ValueError, match="both"):
         toptim.adamw_init(tp, mesh=object())
-    with pytest.raises(NotImplementedError, match="parallel-layer"):
-        toptim.make_adamw_train_step(tllama, TCFG, object())
+    with pytest.raises(ValueError, match="both"):
+        toptim.adamw_init(tp, param_specs=tllama.param_specs(TCFG))

@@ -415,10 +415,10 @@ def test_spec_validation_errors(weights):
         ServingEngine(tp, TCFG, device="cpu", draft_params=td,
                       draft_cfg=TDRAFT, draft_model=jllama, spec_tokens=2,
                       **kw)
-    # a mesh shards Llama drafts only (tests/test_torch_tp.py serves one)
-    with pytest.raises(NotImplementedError, match="parallel-layer"):
+    # a draft of a family outside the port raises under a mesh too
+    with pytest.raises(NotImplementedError, match="draft_model"):
         ServingEngine(tp, TCFG, device="cpu", draft_params=td,
-                      draft_cfg=TDRAFT, draft_model=tgpt2, spec_tokens=2,
+                      draft_cfg=TDRAFT, draft_model=jllama, spec_tokens=2,
                       mesh=object(), **kw)
 
 

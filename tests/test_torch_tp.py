@@ -30,7 +30,8 @@ from aule_tpu_torch.models import llama as tllama
 from aule_tpu_torch.models.llama import _to_torch
 from aule_tpu_torch.serving.engine import ServingEngine
 from aule_tpu_torch.utils.testing import (assert_close, cap_cpu_threads,
-                                          run_world, tp_cases)
+                                          run_world, single_rank_world,
+                                          tp_cases)
 
 cap_cpu_threads()
 
@@ -317,16 +318,31 @@ def test_tp_forward_grads(worlds, jparams):
 
 
 def test_tp_refusals(jparams):
-    """What the port's TP engine refuses before it touches the mesh, and
-    a mesh the mesh checks refuse, in one process."""
+    """What the port's TP engine refuses, in one process (a world of one
+    rank, a (1, 1) mesh): multi-LoRA with a mesh, as JAX's, in every
+    family; a model step with LoRA adapters under a mesh; a draft family
+    outside the port (the GPT-2 and MoE meshes are served:
+    tests/test_torch_gpt2_tp.py)."""
     from aule_tpu_torch.models import gpt2, moe
+    from aule_tpu_torch.parallel.mesh import make_mesh
 
     tp = _tparams(jparams)
-    for fam in (gpt2, moe):
-        with pytest.raises(NotImplementedError, match="parallel-layer"):
-            ServingEngine(tp, TCFG, device="cpu", model=fam, mesh=object(),
-                          **KW)
-    with pytest.raises(NotImplementedError, match="parallel-layer"):
+    families = [(tllama, TCFG, tp)] + [
+        (fam, cfg, fam.init_params(cfg, torch.Generator(), device="cpu"))
+        for fam, cfg in ((gpt2, gpt2.GPT2Config.tiny()),
+                         (moe, moe.MoEConfig.tiny()))]
+    with single_rank_world():
+        mesh = make_mesh((1, 1), NAMES, "cpu")
+        for fam, cfg, params in families:
+            with pytest.raises(ValueError, match="multi-LoRA"):
+                ServingEngine(params, cfg, device="cpu", model=fam,
+                              mesh=mesh, lora_params={"a": {"layers": []}},
+                              **KW)
+        with pytest.raises(NotImplementedError, match="LoRA"):
+            tllama.forward(tp, torch.zeros((1, 4), dtype=torch.long), TCFG,
+                           mesh=mesh, lora={"layers": []},
+                           lora_idx=torch.zeros((1,), dtype=torch.long))
+    with pytest.raises(NotImplementedError, match="draft_model"):
         ServingEngine(tp, TCFG, device="cpu", mesh=object(),
-                      draft_params=tp, draft_cfg=TCFG, draft_model=gpt2,
+                      draft_params=tp, draft_cfg=TCFG, draft_model=jllama,
                       spec_tokens=2, **KW)
