@@ -9,8 +9,9 @@ reference's own: `install_sdpa_patch` replaces torch's function with
 `dot_product_attention`, which routes [B, H, S, D] calls through
 `aule_tpu_torch.flash_attention` and hands everything else (`attn_mask`,
 `dropout_p > 0`, other ranks or types, a V head dim of its own, and on
-the cuda backend a head dim its kernels do not take) to the saved
-original.  HF models go through transformers' attention-interface
+the cuda backend a head dim above 256) to the saved original; on the
+cuda backend every head dim up to 256 reaches the kernels, as the JAX
+package's patch sends every 4-D call to its own.  HF models go through transformers' attention-interface
 registry (`patch_model`), natively in torch: the JAX package's dlpack
 bridge (patching.py:143-175) has no counterpart.
 """
@@ -44,12 +45,13 @@ _TYPES = (torch.float32, torch.bfloat16, torch.float16)
 
 def _off_kernels(query, backend) -> bool:
     """Whether the backend `backend` selects is cuda and its kernels do not
-    take query's head dim (they take 64, 128 and 256 in every type of
-    _TYPES), so the call belongs to torch's own function."""
+    take query's head dim (they take every D up to 256 in every type of
+    _TYPES, padding it to 64, 128 or 256: ops/flash.py
+    `kernel_head_dim`), so the call belongs to torch's own function."""
     from ..backends import select_backend
-    from ..ops.flash import GENERIC_HEAD_DIMS
+    from ..ops.flash import TENSOR_CORE_HEAD_DIMS
 
-    return (query.shape[-1] not in GENERIC_HEAD_DIMS
+    return (query.shape[-1] > TENSOR_CORE_HEAD_DIMS[-1]
             and select_backend(backend) == "cuda")
 
 
@@ -70,7 +72,7 @@ def dot_product_attention(query, key, value, attn_mask=None, dropout_p=0.0,
         or query.dim() != 4 or key.dim() != 4 or value.shape != key.shape
         or query.shape[-1] != key.shape[-1]
         or not (query.dtype == key.dtype == value.dtype)
-        or query.dtype not in _TYPES or query.shape[-1] % 2
+        or query.dtype not in _TYPES
         or (key.shape[1] != query.shape[1]
             and not (enable_gqa and query.shape[1] % key.shape[1] == 0))
         or _off_kernels(query, _patch_backend))
@@ -118,8 +120,8 @@ def _hf_attention(module, query, key, value, attention_mask, dropout=0.0,
                   scaling=None, is_causal=None, head_mask=None, **kwargs):
     """transformers AttentionInterface entry: query/key/value [B, H, S, D]
     in, (out [B, S, H, D], None) back.  Additive masks, dropout, head
-    masks, softcaps and, on the cuda backend, head dims its kernels do not
-    take go to transformers' sdpa path (the reference's fallback).
+    masks, softcaps and, on the cuda backend, head dims above 256 go to
+    transformers' sdpa path (the reference's fallback).
     Autograd flows through the port's flash attention, so training calls
     stay on it.  A one-token decode step pads K/V to a
     128-token bucket and passes the true length as a device `kv_len`

@@ -5,7 +5,8 @@ loaded with ctypes (no PyTorch headers, so a build takes seconds, not
 minutes).  Each source compiles to an object in its own nvcc process, all
 started together, then one link makes the library.  The library lands in
 `build/aule_tpu_torch/` at the repository root (listed in .gitignore),
-named by a hash of the sources and flags, and is built at first use.
+named by a hash of the sources and flags, and is built at first use
+(unless AULE_TPU_TORCH_NO_BUILD is set: then a missing library raises).
 
 Every C entry point returns `cudaGetLastError()` after its launch;
 `check` raises when that is not 0.  Nothing here runs at import time.
@@ -141,6 +142,10 @@ def build() -> Path:
     so = library_path()
     if so.exists():
         return so
+    if os.environ.get("AULE_TPU_TORCH_NO_BUILD"):
+        # a pool's worker loads the library its parent built
+        raise RuntimeError(f"no kernel library at {so}, and "
+                           f"AULE_TPU_TORCH_NO_BUILD forbids building one")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     cus, _ = _sources()

@@ -30,7 +30,15 @@ the call at another length).  It follows its tensors:
         products summed in f32: within 1e-5 of an f32 reference, as the
         TPU kernel's f32 branch keeps f32 on the matrix unit at
         Precision.HIGHEST);
-    other head dims raise.
+      - any other head dim up to 256 runs at the kernel width above it
+        (`kernel_head_dim`: 64, 128 or 256), its q, k and v zero-padded
+        and the output sliced back (`flash_attention_fwd_padded`; the TPU
+        kernels take the full D in their blocks, JAX's paged pools pad it
+        with jnp.pad): a zero lane adds nothing to a score or to an output
+        lane that is kept, so the LSE is the unpadded one.  With RoPE each
+        half of q and k is padded on its own and the tables take cos 1,
+        sin 0 on the added columns, so the half-split rotation pairs the
+        same lanes.  Head dims above 256 raise.
 `flash_attention_rope` is the forward-only fused-RoPE entry, and
 `flash_attention_cuda` the differentiable one (RoPE outside the op, as
 JAX's `flash_attention_pallas`).  Training goes through `ops/flash_vjp.py`,
@@ -44,6 +52,7 @@ import math
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from . import _build, decode_split
 from .reference import _expand_kv, attention_reference
@@ -216,6 +225,80 @@ def check_kernel_type(q, generic: bool) -> None:
                          f"D={d}); f32 runs on flash_f32.cu")
 
 
+def kernel_head_dim(d: int) -> int:
+    """The head dim the kernels run a head dim d at: the least of 64, 128
+    and 256 that holds it.  Raises above 256."""
+    for width in TENSOR_CORE_HEAD_DIMS:
+        if d <= width:
+            return width
+    raise ValueError(f"the CUDA attention kernels take head dims up to "
+                     f"{TENSOR_CORE_HEAD_DIMS[-1]} (got D={d})")
+
+
+def pads_head(q: torch.Tensor) -> bool:
+    """Whether the wrappers pad q's head dim to `kernel_head_dim`: on the
+    card, at a head dim other than 64, 128 and 256 (the plain versions take
+    every D on the CPU).  One rule for every attention wrapper."""
+    return (q.device.type != "cpu"
+            and q.shape[-1] not in TENSOR_CORE_HEAD_DIMS)
+
+
+def pad_head(x: torch.Tensor, width: int, halves: bool = False):
+    """x [..., D] zero-padded to [..., width]: at the end, or with `halves`
+    (RoPE's half-split rotation pairs lane i with lane i + D/2) each half
+    to width/2, [x1 | 0 | x2 | 0]."""
+    d = x.shape[-1]
+    if d == width:
+        return x
+    if not halves:
+        return F.pad(x, (0, width - d))
+    h, extra = d // 2, (width - d) // 2
+    return torch.cat([F.pad(x[..., :h], (0, extra)),
+                      F.pad(x[..., h:], (0, extra))], dim=-1)
+
+
+def pad_rope_tables(rope_cos, rope_sin, width: int):
+    """[L, D/2] tables widened to [L, width/2] f32: the added columns are
+    cos 1, sin 0, the identity on the zero lanes of `pad_head(halves=True)`."""
+    extra = width // 2 - rope_cos.shape[-1]
+    return (F.pad(rope_cos.float(), (0, extra), value=1.0),
+            F.pad(rope_sin.float(), (0, extra)))
+
+
+def unpad_head(res, d: int, with_lse: bool):
+    """A padded call's (out, lse) or out with out sliced back to its first
+    d lanes (the LSE as it is)."""
+    if with_lse:
+        out, lse = res
+        return out[..., :d].contiguous(), lse
+    return res[..., :d].contiguous()
+
+
+def flash_attention_fwd_padded(q, k, v, *, scale=None, rope_cos=None,
+                               rope_sin=None, return_lse: bool = True, **kw):
+    """`flash_attention_fwd` at the kernel width above q's head dim
+    (`kernel_head_dim`): q, k and v zero-padded (with RoPE q and k by
+    halves and the tables widened, `pad_rope_tables`), the scale 1/sqrt(D)
+    of the true D, the output sliced back to D.  The CUDA route of every
+    head dim other than 64, 128 and 256 (`pads_head`)."""
+    d = q.shape[-1]
+    width = kernel_head_dim(d)
+    rope = rope_cos is not None
+    if rope and d % 2:
+        raise ValueError(f"RoPE's half-split rotation takes an even head "
+                         f"dim (got D={d})")
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    if rope:
+        _check_rope(q, rope_cos, rope_sin)
+        rope_cos, rope_sin = pad_rope_tables(rope_cos, rope_sin, width)
+    q, k = (pad_head(x, width, rope) for x in (q, k))
+    res = flash_attention_fwd(q, k, pad_head(v, width), scale=scale,
+                              rope_cos=rope_cos, rope_sin=rope_sin,
+                              return_lse=return_lse, **kw)
+    return unpad_head(res, d, return_lse)
+
+
 def flash_attention_fwd(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -238,6 +321,8 @@ def flash_attention_fwd(
     kw = dict(causal=causal, scale=scale, window_size=window,
               rope_cos=rope_cos, rope_sin=rope_sin, return_lse=return_lse,
               kv_len=kv_len)
+    if pads_head(q):
+        return flash_attention_fwd_padded(q, k, v, **kw)
     if q.device.type == "cpu":
         return flash_attention_fwd_plain(q, k, v, **kw)
     return forward_kernel(q)(q, k, v, **kw)

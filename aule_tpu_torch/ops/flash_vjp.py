@@ -25,9 +25,13 @@ halves of the head dim); `flash_attention_bwd` picks by q's type
 (`ops.flash.uses_generic`), the delta with the other two.
 
 RoPE composes outside the op through `ops.rope.apply_rope`, whose
-autograd gives its exact gradient.  With grad off (no input that requires
-grad, or under `torch.no_grad()`), `flash_attention_vjp` launches the
-forward without the LSE write, as JAX's primal `_flash_core` does.
+autograd gives its exact gradient.  On the card a head dim other than 64,
+128 and 256 (up to 256) is zero-padded to `ops.flash.kernel_head_dim`
+outside the autograd Function and the output sliced back, so autograd
+slices dQ, dK and dV back to D (`flash_attention_bwd` pads and slices the
+same way).  With grad off (no input that requires grad, or under
+`torch.no_grad()`), `flash_attention_vjp` launches the forward without
+the LSE write, as JAX's primal `_flash_core` does.
 """
 
 from __future__ import annotations
@@ -39,7 +43,8 @@ import torch
 from . import _build
 from .flash import (TENSOR_CORE_HEAD_DIMS, _check_shapes, _scale_window,
                     check_kernel_type, flash_attention_fwd,
-                    flash_attention_fwd_plain, uses_generic)
+                    flash_attention_fwd_plain, kernel_head_dim, pad_head,
+                    pads_head, unpad_head, uses_generic)
 from .reference import _expand_kv, build_mask
 from .rope import apply_rope
 
@@ -350,6 +355,14 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal=False, scale=None,
     and for f32 flash_generic.cu's delta with flash_f32_bwd.cu's dQ and
     dK/dV (for CPU tensors `flash_attention_bwd_plain`)."""
     kw = dict(causal=causal, scale=scale, window=window)
+    if pads_head(q):  # zero lanes: zero gradients there
+        d = q.shape[-1]
+        width = kernel_head_dim(d)
+        kw["scale"], _ = _scale_window(q, scale, window)
+        grads = flash_attention_bwd(
+            *(pad_head(x, width) for x in (q, k, v, o)), lse,
+            pad_head(do, width), dlse=dlse, **kw)
+        return tuple(g[..., :d].contiguous() for g in grads)
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, o, lse, do, dlse=dlse, **kw)
     do = do.contiguous()  # arrives transposed from the heads merge
@@ -395,19 +408,30 @@ class _FlashAttention(torch.autograd.Function):
 
 def _flash(q, k, v, causal, scale, window_size, plain, with_lse,
            rope_cos=None, rope_sin=None):
+    """The differentiable call.  Where `pads_head` says so (on CUDA at a
+    head dim other than 64, 128 and 256) q, k and v are zero-padded to the
+    kernel width outside the Function and the output sliced back."""
     if rope_cos is not None:  # rotation outside the op: exact gradients
         q = apply_rope(q, rope_cos, rope_sin)
         k = apply_rope(k, rope_cos, rope_sin)
     _check_shapes(q, k, v)
     scale, window = _scale_window(q, scale, window_size)
+    d = q.shape[-1]
+    pad = pads_head(q)
+    if pad:
+        width = kernel_head_dim(d)
+        q, k, v = (pad_head(x, width) for x in (q, k, v))
     if not (torch.is_grad_enabled()
             and (q.requires_grad or k.requires_grad or v.requires_grad)):
         fwd = flash_attention_fwd_plain if plain else flash_attention_fwd
-        return fwd(q, k, v, causal=bool(causal), scale=scale,
-                   window_size=window, return_lse=with_lse)
-    out, lse = _FlashAttention.apply(q, k, v, bool(causal), scale, window,
-                                     plain)
-    return (out, lse) if with_lse else out
+        res = fwd(q, k, v, causal=bool(causal), scale=scale,
+                  window_size=window, return_lse=with_lse)
+    else:
+        res = _FlashAttention.apply(q, k, v, bool(causal), scale, window,
+                                    plain)
+        if not with_lse:
+            res = res[0]
+    return unpad_head(res, d, with_lse) if pad else res
 
 
 def flash_attention_lse(q, k, v, causal: bool = False,

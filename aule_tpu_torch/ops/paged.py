@@ -19,8 +19,11 @@ pool that aule_tpu built feeds the port unchanged:
     that replaces the TPU kernel `_paged_decode_kernel` (see the source
     notes): csrc/paged_decode.cu's `SplitPools` instantiation for bf16 /
     f16 at D = 64, 128 or 256, csrc/paged_generic.cu's decode (its
-    `SplitLayout`) for f32 at those head dims, or raise for what neither
-    takes.  Quantized pools are read in place,
+    `SplitLayout`) for f32 at those head dims.  Any other D up to 256
+    runs at the kernel width above it with q and both pools zero-padded on
+    every call (`pad_split_pools`: a copy of the pools per call, as JAX's
+    route pads them, paged.py:366-374); larger D raise.  Quantized pools
+    are read in place,
     their f32 scales folded into the scores and p: the JAX package's TPU
     route converts them to the fused layout on every call
     (paged.py:317-337), a copy of the whole pool per layer per step that
@@ -35,6 +38,7 @@ from typing import Optional
 import torch
 
 from . import _build, decode_split
+from .flash import kernel_head_dim, pad_head, pads_head, unpad_head
 from .paged_fused import check_kernel_inputs
 from .paged_generic import SPLIT, paged_generic_decode
 from .quant import QUANT_DTYPES, dequantize_kv, quantize_kv
@@ -197,6 +201,14 @@ def check_pools(q, k_pages, v_pages, k_scales, v_scales):
                              f"{tuple(s.shape)}")
 
 
+def pad_split_pools(k_pages, v_pages, width: int):
+    """Split pools [Hkv, P, page, D] zero-padded to `width` lanes: new
+    tensors (a copy of both pools), the per-call cost of a head dim the
+    kernels do not take in the split layout.  Zero codes dequantize to
+    zero, so quantized pools keep their scales."""
+    return pad_head(k_pages, width), pad_head(v_pages, width)
+
+
 def paged_attention(
     q: torch.Tensor,              # [B, Hq, D]
     k_pages: torch.Tensor,        # [Hkv, P, page, D]
@@ -227,6 +239,17 @@ def paged_attention(
     window = int(window_size) if window_size and window_size > 0 else -1
     if k_scales is None:
         q = q.to(k_pages.dtype)  # as JAX: q joins the pool dtype
+    if pads_head(q):
+        # q and both pools zero-padded to the kernel width above D on every
+        # call, as JAX's route pads them (paged.py:366-374): a copy of the
+        # pools per call (`pad_split_pools`), the output sliced back
+        width = kernel_head_dim(d)
+        kp, vp = pad_split_pools(k_pages, v_pages, width)
+        res = paged_attention(pad_head(q, width), kp, vp, block_tables,
+                              context_lens, k_scales=k_scales,
+                              v_scales=v_scales, scale=scale,
+                              window_size=window, return_lse=return_lse)
+        return unpad_head(res, d, return_lse)
     if q.device.type == "cpu":
         return paged_attention_plain(
             q, k_pages, v_pages, block_tables, context_lens,

@@ -39,6 +39,7 @@ import torch.nn.functional as F
 from ..config import DEFAULT_MASK_VALUE, int8_exact
 from . import _build, decode_split
 from .decode_split import DECODE_SPAN
+from .flash import kernel_head_dim, pad_head, pads_head, unpad_head
 from .paged_generic import FUSED, paged_generic_decode, uses_generic_kernels
 from .quant import QUANT_DTYPES, dequantize_kv, quantize_kv
 from .reference import (_expand_kv, _gather_pages,
@@ -414,6 +415,15 @@ def paged_attention_fused(
     window = int(window_size) if window_size and window_size > 0 else -1
     if int8_matmul is None:
         int8_matmul = not int8_exact()
+    if pads_head(q):
+        # the kernels at the width above d, reading that many lanes of the
+        # pool's rows (zeros past d: the appends pad them)
+        res = paged_attention_fused(
+            pad_head(q, kernel_head_dim(d)), kv_pages, block_tables,
+            context_lens, kv_scales=kv_scales, scale=scale,
+            window_size=window, int8_matmul=int8_matmul,
+            return_lse=return_lse)
+        return unpad_head(res, d, return_lse)
     int8_dot = (kv_scales is not None and kv_pages.dtype == torch.int8
                 and bool(int8_matmul))
     if kv_scales is None:

@@ -19,7 +19,9 @@ at D = 64, 128 or 256 csrc/paged_prefill.cu's (a warp-specialised wgmma
 kernel whose producer warps gather the pages and convert int8 / e4m3
 tiles; templated on the head dim, a D = 64 q reads the D live lanes of the
 pool's 128-lane rows), for f32 at D 64 / 128 / 256 csrc/paged_prefill_f32.cu's
-3xTF32 prefill (ops/paged_generic.py), or raise for what neither takes.  The
+3xTF32 prefill (ops/paged_generic.py).  Any other head dim up to 256 runs
+as the decode's does (ops/paged_fused.py): q padded to the kernel width
+above it, the output sliced back.  The
 JAX function's TPU tiling arguments (`block_q`, `pages_per_compute_block`)
 have no counterpart: the kernel picks its tiles in the source.
 """
@@ -32,6 +34,7 @@ from typing import Optional
 import torch
 
 from . import _build
+from .flash import kernel_head_dim, pad_head, pads_head, unpad_head
 from .paged_fused import (check_kernel_inputs, check_pool, dequantize_pool,
                           from_fused_layout)
 from .paged_generic import paged_prefill_f32, prefill_uses_generic
@@ -87,6 +90,14 @@ def paged_attention_prefill(
         q_offsets = context_lens - s_new
     if kv_scales is None:
         q = q.to(kv_pages.dtype)
+    if pads_head(q):
+        # as the decode: the kernel width above D, the output sliced back
+        res = paged_attention_prefill(
+            pad_head(q, kernel_head_dim(d_true)), kv_pages, block_tables,
+            context_lens, q_offsets=q_offsets, kv_scales=kv_scales,
+            scale=scale, causal=causal, window_size=window,
+            return_lse=return_lse)
+        return unpad_head(res, d_true, return_lse)
     if q.device.type == "cpu":
         return paged_attention_prefill_plain(
             q, kv_pages, block_tables, context_lens, q_offsets=q_offsets,

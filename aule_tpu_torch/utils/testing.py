@@ -59,8 +59,9 @@ def assert_close(actual, expected, rtol: float, atol: float, label: str = ""):
 
 
 def _rank_main(rank: int, world_size: int, init_file: str, backend: str,
-               threads: int, blob: bytes, queue) -> None:
-    """One rank of `run_world`: join the process group, run the
+               threads: int, blob: bytes, queue, address=None) -> None:
+    """One rank of `run_world`: join the process group (through
+    serving.multihost.distributed_init when `address` is given), run the
     function, send back (rank, ok, pickled result or traceback)."""
     import pickle
     import traceback
@@ -73,9 +74,15 @@ def _rank_main(rank: int, world_size: int, init_file: str, backend: str,
     os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
     try:
         fn, args = pickle.loads(blob)
-        dist.init_process_group(
-            backend, store=dist.FileStore(init_file, world_size), rank=rank,
-            world_size=world_size)
+        if address is not None:
+            from ..serving.multihost import distributed_init
+
+            distributed_init(address, world_size, rank,
+                             device="cpu" if backend == "gloo" else "cuda")
+        else:
+            dist.init_process_group(
+                backend, store=dist.FileStore(init_file, world_size),
+                rank=rank, world_size=world_size)
         try:
             out = fn(*args)
         finally:
@@ -90,7 +97,7 @@ WORLD_TIMEOUT = 600.0  # seconds a world may run before run_world stops it
 
 
 def run_world(fn, world_size: int, *args, backend: str = "gloo",
-              threads: int = 1) -> list:
+              threads: int = 1, address=None) -> list:
     """Run `fn(*args)` in a world of `world_size` new processes (one rank
     each, the process group initialised through a FileStore in a
     temporary directory, so worlds started at once never share an address)
@@ -104,7 +111,9 @@ def run_world(fn, world_size: int, *args, backend: str = "gloo",
     `fn` is pickled by its import path: it lives in an importable module
     of the port, so a child imports neither JAX nor a test file.  Tensors
     cross by value.  Each rank runs `threads` intra-op threads (0: torch's
-    default).  A rank that raises, or a world still running after
+    default).  With `address` ("host:port") the ranks join through
+    serving.multihost.distributed_init, rank 0 serving the TCP store
+    there.  A rank that raises, or a world still running after
     WORLD_TIMEOUT seconds, stops every rank and raises RuntimeError with
     the rank's traceback."""
     import pickle
@@ -123,7 +132,7 @@ def run_world(fn, world_size: int, *args, backend: str = "gloo",
         procs = [ctx.Process(
             target=_rank_main,
             args=(r, world_size, os.path.join(tmp, "store"), backend, threads,
-                  blob, q), daemon=True) for r in range(world_size)]
+                  blob, q, address), daemon=True) for r in range(world_size)]
         for p in procs:
             p.start()
         try:

@@ -188,15 +188,34 @@ Phases, each printing a line of its own:
      draft sharded too), its tokens held to the teacher-forced plain
      forward or plain-attention replay and logged beside the tp 1 engine's
      tokens and tok/s on the same weights;
-  7. engine: a full-width, full-depth Llama-3-8B (random bf16 weights from
-     a seeded generator on the card) serves the same 12 greedy requests
+  6h. head dims, in a process of its own (`--head-dims`): every attention
+     wrapper at a head dim the kernels pad to the width above it (64, 128
+     or 256): torch's SDPA through the patch at SD 1.5's D40 (B2 H8 S4096)
+     and D160 (S256) and Phi-2's D80 (B1 Hq32 S2048 causal), the D80
+     backward, RoPE with kv_len and f32 at D80, the fused decode at D80
+     over bf16 / int8 / e4m3 pools and the split decode (its per-call pool
+     copy timed apart), a D80 prefill chunk; each launch counted, held to
+     its plain version at the true D and timed beside SDPA there, with
+     its bound at the true D and the padded products' wasted share;
+  6i. frontends, in a process of its own (`--frontends`): Llama-3-8B at
+     full width on 4 layers behind ServingHTTPServer: (f1) 4 blocking
+     requests token-exact against the same engine's direct runs, (f2) 8
+     concurrent NDJSON streams held to a direct batch by the spec phase's
+     near-tie rule, /health showing them batched, (f3) a /v1/cancel and a
+     client disconnect with every page back; (f4) an EngineReplicaPool of
+     1 and 2 replicas; (f5) MultiProcessServingPool of 2 workers on the
+     card over mp and tcp (the tiny Llama in f32 at D32, padded to 64),
+     each request equal to the parent's engine from the same seed;
+  7. engine: a full-width Llama-3-8B on ENGINE_LAYERS = 16 of its 32
+     layers (cut for the time limit; random bf16 weights from a seeded
+     generator on the card) serves the same 12 greedy requests
      eight times through `ServingEngine`: over fused pools, bf16 with
      whole-prompt prefill, (a) bf16 with prefill_chunk=512, (b) int8 with
      prefill_chunk=512, (c) fp8 with whole-prompt prefill, (d) fp8 with
      prefill_chunk=512; over split pools (layout="split", whole-prompt
      prefill), (e) bf16, (f) int8 and (g) fp8.  Each run checks its launch
      counts against its dispatches (the split runs launch the split decode
-     32 times a step and the fused decode never) and that every page comes
+     once a layer a step and the fused decode never) and that every page comes
      back.  The bf16 runs hold every token against a teacher-forced plain
      forward; (b)-(d), (f) and (g) against a teacher-forced replay of the
      same steps with the plain attention versions;
@@ -215,7 +234,7 @@ Phases, each printing a line of its own:
   8. breakdown: one prefill step and one 8-step decode dispatch of the
      engine under torch.profiler (device busy share, kernel time by
      category) for bf16, int8 chunked, fp8 chunked and int8 split pools;
-  9. train: the same full-width, full-depth Llama-3-8B weights, made to
+  9. train: the same full-width Llama-3-8B weights (16 layers), made to
      require grad: first every parameter's gradient of loss_fn through the
      kernels against the plain attention path's on the weights cut to 2
      layers (GRAD_TOL), then 3 SGD `train_step`s on one batch of B1 x 2049
@@ -236,9 +255,9 @@ Phases, each printing a line of its own:
   11. last line: {"ok": true, "device": {...}}, printed only when every
      phase passed.  Any failure raises and the exit code is non-zero.
 
-About 13-14 minutes on an H100 80GB HBM3 at 700 W, the build included
-(801.2 s with the parallel phase's 73.5; `seconds by phase` in the
-log).
+About 15-16 minutes on an H100 80GB HBM3 at 700 W, the build included
+(946.3 s with the head-dim phase's 31.9 and the front ends' 50.5;
+`seconds by phase` in the log).
 """
 
 from __future__ import annotations
@@ -1529,6 +1548,10 @@ def check_groups(gen, decode_worst, prefill_worst, split_worst):
 PROMPT_LENS = [7, 64, 129, 300, 511, 700, 1000, 1024, 1500, 2048, 3000,
                4000]
 NEW_TOKENS = 24
+# the engine phase's depth (and so the edges', the breakdown's and the
+# train steps'): 16 of Llama-3-8B's 32 layers since the front-end and
+# head-dim phases joined the script (full depth before)
+ENGINE_LAYERS = 16
 
 
 ENGINE_KW = dict(max_batch=8, page_size=16, num_pages=2100,
@@ -2131,14 +2154,15 @@ def check_replay(params, cfg, prompts, outputs, label, quant_dtype, chunk,
 
 
 def phase_engine():
-    """Eight engine runs of the 12 prompts on a full-width, full-depth
-    Llama-3-8B: over fused pools bf16 whole-prompt, (a) bf16 chunked, (b)
+    """Eight engine runs of the 12 prompts on a full-width Llama-3-8B on
+    ENGINE_LAYERS of its 32 layers: over fused pools bf16 whole-prompt, (a) bf16 chunked, (b)
     int8 chunked, (c) fp8 whole-prompt, (d) fp8 chunked; over split pools
     (layout="split", whole-prompt prefill) (e) bf16, (f) int8 and (g)
     fp8."""
     from aule_tpu_torch.models import llama
 
-    cfg = llama.LlamaConfig.llama3_8b()
+    cfg = dataclasses.replace(llama.LlamaConfig.llama3_8b(),
+                              n_layers=ENGINE_LAYERS)
     t0 = time.perf_counter()
     gen = torch.Generator(device=DEV)
     gen.manual_seed(SEED)
@@ -2561,7 +2585,7 @@ def check_grads(params, cfg, tokens, model=None, label="train") -> None:
 
 
 def phase_train(params, cfg) -> dict:
-    """Three SGD steps of the full-width, full-depth model on one batch of
+    """Three SGD steps of the engine phase's model on one batch of
     B1 x (TRAIN_S + 1) tokens (after the 2-layer gradient check): step 1
     warms up and checks every gradient finite, step 2 is timed with CUDA
     events, step 3 runs under torch.profiler; every step launches the
@@ -7023,6 +7047,865 @@ def check_parallel_model() -> dict:
     return res
 
 
+# ---- head dims other than 64 / 128 / 256 (`--head-dims`): every attention
+# wrapper pads such a D to the kernel width above it (ops/flash.py
+# `kernel_head_dim`) and slices the output back
+
+HD_SEED = SEED + 23   # a generator of its own
+PHI2 = (1, 32, 32)    # Phi-2's attention: 32 heads of D80, no GQA
+SD15 = (2, 8, 8)      # SD 1.5's attention: 8 heads of D40 / D80 / D160
+HD_S = 2048
+HD_CTX = 4096         # the decode's context at B8
+HD_HIST, HD_CHUNK = 3488, 512
+HD_KV_LEN = 3000      # of a BUCKET-key bucket
+HD_PAGED = ("paged_decode", "paged_decode_split", "paged_prefill",
+            "paged_generic_decode", "paged_prefill_f32")
+
+
+class _HdCounted(_Counted):
+    """_Counted over the public phase's counters and the paged wrappers'."""
+
+    def __enter__(self):
+        engine = _launch_counters()
+        self.counters = dict(_public_counters(),
+                             **{n: engine[n] for n in HD_PAGED})
+        for fn in self.counters.values():
+            fn.launches = 0
+        return self
+
+
+def _hd_time(res, name, label, call, plain, library, key, nbytes, flops,
+             rate, d):
+    """A padded mode's times (`_mode_time`: the kernel's device time with
+    its own kernels, `key`; the plain version and the library call at the
+    true D), its bound at the true D, the device time of every kernel of
+    the padded call (zero-padding copies, the kernel, the slice) and the
+    share of the padded products' work that the zero lanes waste."""
+    from aule_tpu_torch.ops.flash import kernel_head_dim
+
+    width = kernel_head_dim(d)
+    t = _mode_time(label, call, plain, library, key, nbytes, flops, rate)
+    whole = device_ms(call)
+    t.update(device_us=None if t["device_ms"] is None
+             else t["device_ms"] * 1e3,
+             library_us=None if t["library_device_ms"] is None
+             else t["library_device_ms"] * 1e3,
+             padded_call_device_ms=whole, head_dim=d, kernel_head_dim=width,
+             wasted_share=1.0 - d / width)
+    log(f"{label}: every kernel of the padded call {_ms(whole)}; the "
+        f"kernel runs at D{width}, {1.0 - d / width:.3f} of its products' "
+        f"work on zero lanes; bound at D{d}")
+    res["time"][name] = t
+
+
+def _hd_patch_forward(gen, res, name, shape, s, d, causal):
+    """torch's scaled_dot_product_attention through the port's patch at a
+    head dim the kernels pad: one TMA forward launch a call at the kernel
+    width, held to the plain forward at D and timed beside torch's own
+    SDPA at D."""
+    import aule_tpu_torch as T
+    from aule_tpu_torch.ops import flash as tf
+    from aule_tpu_torch.utils import profiling
+
+    b, hq, hkv = shape
+    dt = torch.bfloat16
+    q = _randn((b, hq, s, d), gen, dt)
+    k, v = (_randn((b, hkv, s, d), gen, dt) for _ in range(2))
+    label = (f"head dims {name}: SDPA patch B{b} Hq{hq}/Hkv{hkv} S{s} D{d} "
+             f"bf16{' causal' if causal else ''}")
+    T.install()
+    try:
+        if T.select_backend() != "cuda":
+            raise AssertionError(f"{label}: the patch's backend is "
+                                 f"{T.select_backend()}, not cuda")
+        call = lambda: F.scaled_dot_product_attention(q, k, v,
+                                                      is_causal=causal)
+        with _HdCounted() as c:
+            (o,) = _twice(label, lambda: (call(),))
+        _expect(label, c.launches, {"flash_fwd": 2})
+        res["launches"][name] = c.launches["flash_fwd"]
+        plain = lambda: tf.flash_attention_fwd_plain(
+            q, k, v, causal=causal, return_lse=False)
+        res["err"][name] = hold(label, o, plain(), None, None, ROW_TOL[dt])
+        _hd_time(res, name, label, call, plain,
+                 lambda: SDPA(q, k, v, is_causal=causal), "flash_fwd_kernel",
+                 2 * (2 * q.numel() + k.numel() + v.numel()),
+                 profiling.attention_flops(b, hq, s, s, d, causal),
+                 _rate(dt), d)
+    finally:
+        T.uninstall()
+
+
+def _hd_backward(gen, res):
+    """flash_attention forward and backward through autograd at Phi-2's
+    shape (D80 padded to 128 outside the autograd Function): the delta,
+    dQ and dK/dV kernels once a backward, the gradients held to the plain
+    path's (GRAD_TOL) and flash_attention_bwd's padded route row by row to
+    its plain version on the same residuals; the backward timed beside
+    SDPA's at D80."""
+    import aule_tpu_torch as T
+    from aule_tpu_torch.ops import flash_vjp as fv
+    from aule_tpu_torch.utils import profiling
+
+    name, d, dt, s = "flash_bwd_d80", 80, torch.bfloat16, HD_S
+    b, hq, hkv = PHI2
+    q, do = (_randn((b, hq, s, d), gen, dt) for _ in range(2))
+    k, v = (_randn((b, hkv, s, d), gen, dt) for _ in range(2))
+    label = f"head dims {name}: B{b} Hq{hq}/Hkv{hkv} S{s} D{d} bf16 causal"
+
+    def graph(fn):
+        xs = [x.detach().requires_grad_(True) for x in (q, k, v)]
+        return xs, fn(*xs)
+
+    def fwd_bwd(fn):
+        xs, out = graph(fn)
+        return [out.detach(), *torch.autograd.grad(out, xs, do)]
+
+    ours = lambda *x: T.flash_attention(*x, causal=True)
+    plain = lambda *x: fv.flash_attention_vjp_plain(*x, True)
+    with _HdCounted() as c:
+        got = _twice(label + " fwd+bwd", lambda: fwd_bwd(ours))
+    _expect(label + " fwd+bwd", c.launches,
+            {n: 2 for n in ("flash_fwd", "flash_bwd_delta", "flash_bwd_dq",
+                            "flash_bwd_dkv")})
+    res["launches"][name] = {n: c.launches[n] for n in (
+        "flash_bwd_delta", "flash_bwd_dq", "flash_bwd_dkv")}
+    want = fwd_bwd(plain)
+    _frob(label, got[1:], want[1:])
+    # the padded backward row by row against its plain version on the
+    # same residuals (the kernels' o and lse at D80)
+    o, lse = fv.flash_attention_fwd(q, k, v, causal=True)
+    grads = fv.flash_attention_bwd(q, k, v, o, lse, do, causal=True)
+    pgrads = fv.flash_attention_bwd_plain(q, k, v, o, lse, do, causal=True)
+    errs = [hold(f"{label} d{n} (flash_attention_bwd, padded)", g, w, None,
+                 None, ROW_TOL[dt], floor=BWD_FLOOR)
+            for n, g, w in zip("qkv", grads, pgrads)]
+    res["err"][name] = tuple(max(e) for e in zip(*errs))
+    xs, out = graph(ours)
+    pxs, pout = graph(plain)
+    ref_xs, ref = graph(lambda *x: SDPA(*x, is_causal=True))
+    fwd_flops = profiling.attention_flops(b, hq, s, s, d, True)
+    _hd_time(res, name, label + " backward",
+             lambda: torch.autograd.grad(out, xs, do, retain_graph=True),
+             lambda: torch.autograd.grad(pout, pxs, do, retain_graph=True),
+             lambda: torch.autograd.grad(ref, ref_xs, do, retain_graph=True),
+             ("flash_bwd_delta_kernel", "flash_bwd_dq_kernel",
+              "flash_bwd_dkv_kernel"),
+             2 * (2 * q.numel() + 2 * k.numel() + 2 * v.numel()
+                  + 2 * q.numel()) + 4 * b * hq * s,
+             profiling.attention_bwd_flops(fwd_flops, 5), _rate(dt), d)
+
+
+def _hd_rope_kv_len(gen, res):
+    """RoPE fused in the forward with a device-side kv_len at D80: q and k
+    padded by halves, the tables widened (cos 1, sin 0), so the pre-pass
+    and the TMA kernel's EXT instantiation rotate at D128 unchanged."""
+    import aule_tpu_torch as T
+    from aule_tpu_torch.ops import flash as tf
+
+    name, d, dt, sq, n = ("flash_fwd_rope_kv_len_d80", 80, torch.bfloat16,
+                          512, HD_KV_LEN)
+    b, hq, hkv = PHI2
+    q = _randn((b, hq, sq, d), gen, dt)
+    kp, vp = (_randn((b, hkv, BUCKET, d), gen, dt) for _ in range(2))
+    cos, sin = T.precompute_rope_frequencies(BUCKET, d, LLAMA_ROPE_BASE,
+                                             device="cuda")
+    kvl = torch.full((1,), n, dtype=torch.int32, device="cuda")
+    label = (f"head dims {name}: Sq{sq} over kv_len {n} of {BUCKET} keys "
+             f"B{b} Hq{hq}/Hkv{hkv} D{d} bf16, RoPE")
+    call = lambda: tf.flash_attention_fwd(q, kp, vp, rope_cos=cos,
+                                          rope_sin=sin, kv_len=kvl)
+    with _HdCounted() as c:
+        o, lse = _twice(label, call)
+    _expect(label, c.launches, {"flash_fwd": 2, "rope_prepass": 2})
+    res["launches"][name] = {"flash_fwd": 2, "rope_prepass": 2}
+    plain = lambda: tf.flash_attention_fwd_plain(
+        q, kp, vp, rope_cos=cos, rope_sin=sin, kv_len=n)
+    po, plse = plain()
+    res["err"][name] = hold(label, o, po, lse, plse, ROW_TOL[dt])
+    qr, kr = (T.apply_rope(x, cos, sin) for x in (q, kp))
+    mask = (torch.arange(BUCKET, device="cuda") < n)[None, None, None]
+    _hd_time(res, name, label, call, plain,
+             lambda: SDPA(qr, kr, vp, attn_mask=mask),
+             ("rope_prepass_kernel", "flash_fwd_kernel"),
+             2 * (2 * q.numel() + 2 * b * hkv * n * d) + 4 * (
+                 b * hq * sq + BUCKET * d),
+             4.0 * b * hq * sq * n * d, _rate(dt), d)
+
+
+def _hd_f32(gen, res):
+    """The f32 forward at D80 (csrc/flash_f32.cu at D128, 3xTF32): rows
+    within ROW_TOL[f32] = 1e-5 of the plain version's."""
+    from aule_tpu_torch.ops import flash as tf
+    from aule_tpu_torch.utils import profiling
+
+    name, d, dt, s = "flash_f32_fwd_d80", 80, torch.float32, HD_S
+    b, hq, hkv = PHI2
+    q = _randn((b, hq, s, d), gen, dt)
+    k, v = (_randn((b, hkv, s, d), gen, dt) for _ in range(2))
+    label = f"head dims {name}: B{b} Hq{hq}/Hkv{hkv} S{s} D{d} f32 causal"
+    call = lambda: tf.flash_attention_fwd(q, k, v, causal=True)
+    with _HdCounted() as c:
+        o, lse = _twice(label, call)
+    _expect(label, c.launches, {"flash_f32_fwd": 2})
+    res["launches"][name] = 2
+    plain = lambda: tf.flash_attention_fwd_plain(q, k, v, causal=True)
+    po, plse = plain()
+    res["err"][name] = hold(label, o, po, lse, plse, ROW_TOL[dt])
+    _hd_time(res, name, label, call, plain,
+             lambda: SDPA(q, k, v, is_causal=True), "flash_f32_fwd_kernel",
+             4 * (2 * q.numel() + k.numel() + v.numel()) + 4 * b * hq * s,
+             profiling.attention_flops(b, hq, s, s, d, True), _fwd_rate(dt),
+             d)
+
+
+def _hd_pool(gen, lens, d, hkv):
+    """A bf16 fused pool (128 lanes) of pages in order holding lens[b]
+    tokens of D `d` (the lanes past d zero, as the appends write them),
+    page 0 scratch garbage; tables and lengths on the card."""
+    from aule_tpu_torch.ops.paged_fused import fused_pool_shape
+
+    used = [-(-n // 16) for n in lens]
+    pool = _randn(fused_pool_shape(1 + sum(used), hkv, 16, d), gen)
+    pool[..., d:] = 0
+    pool[0] = 1e4
+    bt = np.full((len(lens), max(used)), -1, np.int32)
+    at = 1
+    for b, n in enumerate(used):
+        bt[b, :n] = np.arange(at, at + n)
+        at += n
+    return pool, torch.from_numpy(bt).cuda(), torch.tensor(
+        lens, dtype=torch.int32, device="cuda")
+
+
+def _hd_dense(kh, vh, batch, ctx, d):
+    """Head-major pages in order -> dense [B, H, ctx, d] bf16 K and V."""
+    return tuple(x[..., :d].reshape(x.shape[0], batch, ctx, d).transpose(
+        0, 1).to(torch.bfloat16).contiguous() for x in (kh, vh))
+
+
+def _hd_decode(gen, res):
+    """The fused decode at D80 (its q padded to the pool's 128 lanes) over
+    bf16, int8 (dot products) and e4m3 pools, and the split decode over
+    [Hkv, P, page, 80] pools, padded with q on every call: B8 ctx4096
+    Hq32/Hkv32 (Phi-2's heads), timed beside SDPA at D80; the split
+    layout's per-call pool copy timed on its own."""
+    from aule_tpu_torch.ops import paged as tp
+    from aule_tpu_torch.ops import paged_fused as tpf
+    from aule_tpu_torch.utils import profiling
+
+    d, batch, ctx = 80, 8, HD_CTX
+    _, hq, hkv = PHI2
+    pool, bt, ln = _hd_pool(gen, [ctx] * batch, d, hkv)
+    q = _randn((batch, hq, d), gen)
+    tokens = batch * ctx
+    flops = 4.0 * batch * hq * ctx * d
+    small = 2 * 2 * q.numel() + bt.numel() * 4 + 4 * batch
+    lib_q = q[:, :, None].contiguous()
+    for name, qdt in (("paged_decode_d80", None),
+                      ("paged_decode_int8_d80", torch.int8),
+                      ("paged_decode_fp8_d80", torch.float8_e4m3fn)):
+        label = (f"head dims {name}: fused pool B{batch} ctx{ctx} "
+                 f"Hq{hq}/Hkv{hkv} D{d} "
+                 f"{'bf16' if qdt is None else str(qdt)[6:]}")
+        if qdt is None:
+            pl, sc = pool, None
+            kh, vh = (pool[1:, i].transpose(0, 1) for i in (0, 1))
+            kv = profiling.paged_kv_bytes(tokens, hkv, d, 2)
+        else:
+            pl, sc = quantize_pool(pool, qdt)
+            kh, vh = tpf.dequantize_pool(pl[1:], sc[1:])
+            kv = profiling.paged_kv_bytes(tokens, hkv, d, 1, scale_bytes=2)
+        call = lambda: tpf.paged_attention_fused(q, pl, bt, ln, kv_scales=sc,
+                                                 return_lse=True)
+        with _HdCounted() as c:
+            o, lse = _twice(label, call)
+        _expect(label, c.launches, {"paged_decode": 2})
+        res["launches"][name] = 2
+        plain = lambda: tpf.paged_attention_fused_plain(
+            q, pl, bt, ln, kv_scales=sc, return_lse=True)
+        po, plse = plain()
+        res["err"][name] = hold(label, o, po, lse, plse,
+                                _tol(torch.bfloat16, qdt == torch.int8))
+        kx, vx = _hd_dense(kh, vh, batch, ctx, d)
+        _hd_time(res, name, label, call, plain, lambda: SDPA(lib_q, kx, vx),
+                 "paged_decode_kernel", kv + small, flops,
+                 profiling.H100_BF16_FLOPS, d)
+        del kx, vx, kh, vh
+    name = "paged_decode_split_d80"
+    kp, vp = (pool[:, i].transpose(0, 1)[..., :d].contiguous()
+              for i in (0, 1))
+    label = (f"head dims {name}: split pools [Hkv, P, page, {d}] "
+             f"B{batch} ctx{ctx} Hq{hq}/Hkv{hkv} bf16")
+    call = lambda: tp.paged_attention(q, kp, vp, bt, ln, return_lse=True)
+    with _HdCounted() as c:
+        o, lse = _twice(label, call)
+    _expect(label, c.launches, {"paged_decode_split": 2})
+    res["launches"][name] = 2
+    plain = lambda: tp.paged_attention_plain(q, kp, vp, bt, ln,
+                                             return_lse=True)
+    po, plse = plain()
+    res["err"][name] = hold(label, o, po, lse, plse, ROW_TOL[torch.bfloat16])
+    kx, vx = _hd_dense(kp[:, 1:], vp[:, 1:], batch, ctx, d)
+    _hd_time(res, name, label, call, plain, lambda: SDPA(lib_q, kx, vx),
+             "splitpools", profiling.paged_kv_bytes(tokens, hkv, d, 2)
+             + small, flops, profiling.H100_BF16_FLOPS, d)
+    copy = lambda: tp.pad_split_pools(kp, vp, 128)
+    pool_bytes = 2 * kp.numel() * 2
+    copy_ms = profiling.cuda_time_ms(copy, iters=20)[0]
+    copy_dev = device_ms(copy)
+    copy_bound = profiling.bound_ms(pool_bytes * (1 + 128 / d), 0)[0]
+    res["time"][name].update(pool_copy_ms=copy_ms,
+                             pool_copy_device_ms=copy_dev,
+                             pool_copy_bound_ms=copy_bound,
+                             pool_copy_mb=pool_bytes * 128 / d / 1e6)
+    log(f"{label}: its per-call pool copy (both pools padded to 128 lanes, "
+        f"{pool_bytes * 128 / d / 1e6:.1f} MB written) device "
+        f"{_ms(copy_dev)} (events {copy_ms:.4f} ms), bound "
+        f"{copy_bound:.4f} ms")
+
+
+def _hd_prefill(gen, res):
+    """The chunked prefill at D80: a 512-token chunk at q_offset 3488 over
+    4000 cached tokens, bf16 pool, Hq32/Hkv32, timed beside SDPA with a
+    positional mask at D80."""
+    from aule_tpu_torch.ops import paged_prefill as tpp
+    from aule_tpu_torch.utils import profiling
+
+    name, d = "paged_prefill_d80", 80
+    _, hq, hkv = PHI2
+    total = HD_HIST + HD_CHUNK
+    pool, bt, ln = _hd_pool(gen, [total], d, hkv)
+    q = _randn((1, hq, HD_CHUNK, d), gen)
+    qoff = torch.tensor([HD_HIST], dtype=torch.int32, device="cuda")
+    label = (f"head dims {name}: chunk {HD_CHUNK} at q_offset {HD_HIST} over "
+             f"{total}, Hq{hq}/Hkv{hkv} D{d} bf16 pool")
+    call = lambda: tpp.paged_attention_prefill(q, pool, bt, ln,
+                                               q_offsets=qoff,
+                                               return_lse=True)
+    with _HdCounted() as c:
+        o, lse = _twice(label, call)
+    _expect(label, c.launches, {"paged_prefill": 2})
+    res["launches"][name] = 2
+    plain = lambda: tpp.paged_attention_prefill_plain(
+        q, pool, bt, ln, q_offsets=qoff, return_lse=True)
+    po, plse = plain()
+    res["err"][name] = hold(label, o, po, lse, plse, ROW_TOL[torch.bfloat16])
+    kh, vh = (pool[1:, i].transpose(0, 1) for i in (0, 1))
+    npages = -(-total // 16)
+    kx, vx = (x[:, :, :total] for x in _hd_dense(kh, vh, 1, npages * 16, d))
+    rows = torch.arange(HD_HIST, total, device="cuda")[:, None]
+    mask = torch.arange(total, device="cuda")[None] <= rows
+    _hd_time(res, name, label, call, plain,
+             lambda: SDPA(q, kx, vx, attn_mask=mask), "paged_prefill_kernel",
+             profiling.paged_kv_bytes(total, hkv, d, 2) + 2 * 2 * q.numel()
+             + bt.numel() * 4,
+             profiling.paged_prefill_flops([HD_HIST], [HD_CHUNK], hq, d),
+             profiling.H100_BF16_FLOPS, d)
+
+
+def check_head_dims() -> dict:
+    """Every attention wrapper at head dims the kernels pad: the SDPA patch
+    at SD 1.5's D40 (B2 H8 S4096) and D160 (S256) and Phi-2's D80 (B1 Hq32
+    S2048 causal); flash forward and backward at D80; RoPE with kv_len at
+    D80; f32 at D80; the fused decode at D80 over bf16, int8 and e4m3
+    pools and the split decode (its pool copy timed apart); a D80 prefill
+    chunk.  Each call twice with the same bits, its launches counted,
+    held to its plain version at the true D and timed beside SDPA at the
+    true D."""
+    res = {"launches": {}, "err": {}, "time": {}}
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(HD_SEED)
+    _hd_patch_forward(gen, res, "flash_fwd_d80", PHI2, HD_S, 80, True)
+    _hd_patch_forward(gen, res, "flash_fwd_d40", SD15, 4096, 40, False)
+    _hd_patch_forward(gen, res, "flash_fwd_d160", SD15, 256, 160, False)
+    _hd_backward(gen, res)
+    _hd_rope_kv_len(gen, res)
+    _hd_f32(gen, res)
+    torch.cuda.empty_cache()
+    _hd_decode(gen, res)
+    torch.cuda.empty_cache()
+    _hd_prefill(gen, res)
+    return res
+
+
+# (entry, source, TPU kernel, shape) of the padded modes, in
+# check_head_dims' order
+HD_FWD_ROW = "aule_tpu/ops/flash.py:92 (_fwd_kernel; its blocks take the full D)"
+HD_ENTRIES = [
+    ("flash_fwd_d80", "aule_tpu_torch/csrc/flash_fwd.cu",
+     HD_FWD_ROW + "; aule_tpu/ops/flash.py:638 (_mono_kernel)",
+     f"B1 Hq32/Hkv32 S{HD_S} D80 bf16 causal (Phi-2's attention) through "
+     f"the SDPA patch, padded to D128 (library: torch's SDPA at D80)"),
+    ("flash_fwd_d40", "aule_tpu_torch/csrc/flash_fwd.cu", HD_FWD_ROW,
+     "B2 Hq8/Hkv8 S4096 D40 bf16 (SD 1.5's) through the SDPA patch, padded "
+     "to D64 (library: torch's SDPA at D40)"),
+    ("flash_fwd_d160", "aule_tpu_torch/csrc/flash_fwd.cu", HD_FWD_ROW,
+     "B2 Hq8/Hkv8 S256 D160 bf16 (SD 1.5's) through the SDPA patch, padded "
+     "to D256 (library: torch's SDPA at D160)"),
+    ("flash_bwd_d80", "aule_tpu_torch/csrc/flash_bwd.cu",
+     "aule_tpu/ops/flash_vjp.py:127 (_dq_kernel); aule_tpu/ops/flash_vjp.py"
+     ":271 (_dkv_kernel); delta (flash_vjp.py:746, an XLA fusion in JAX)",
+     f"B1 Hq32/Hkv32 S{HD_S} D80 bf16 causal backward (delta, dQ, dK/dV at "
+     f"D128, the padding outside the autograd Function; library: SDPA's "
+     f"backward at D80)"),
+    ("flash_fwd_rope_kv_len_d80", "aule_tpu_torch/csrc/flash_fwd.cu",
+     HD_FWD_ROW + ", use_rope l.227-246 and dynamic_kv_len l.108, 121, 136",
+     f"B1 Hq32/Hkv32 Sq512 over kv_len {HD_KV_LEN} of {BUCKET} keys, D80 "
+     f"bf16, RoPE (q and k padded by halves, the tables widened; the "
+     f"pre-pass rope_prepass.cu counted in launches_by_kernel; library: "
+     f"SDPA on the rotated q, k with a key mask)"),
+    ("flash_f32_fwd_d80", "aule_tpu_torch/csrc/flash_f32.cu",
+     HD_FWD_ROW + ", its f32 branch at Precision.HIGHEST, l.147-152",
+     f"B1 Hq32/Hkv32 S{HD_S} D80 f32 causal, padded to D128 (library: "
+     f"SDPA f32)"),
+    ("paged_decode_d80", "aule_tpu_torch/csrc/paged_decode.cu",
+     "aule_tpu/ops/paged_fused.py:213 (_fused_decode_kernel; JAX pads q "
+     "to the pool's lanes)",
+     f"B8 ctx{HD_CTX} Hq32/Hkv32 D80 in a 128-lane bf16 pool (library: "
+     f"SDPA on the gathered K/V at D80)"),
+    ("paged_decode_int8_d80", "aule_tpu_torch/csrc/paged_decode.cu",
+     "aule_tpu/ops/paged_fused.py:213 (_fused_decode_kernel) int8 mode",
+     f"as paged_decode_d80, int8 pool with bf16 scales, int8 dot products "
+     f"(library: SDPA on the dequantized K/V)"),
+    ("paged_decode_fp8_d80", "aule_tpu_torch/csrc/paged_decode.cu",
+     "aule_tpu/ops/paged_fused.py:213 (_fused_decode_kernel) fp8 mode",
+     "as paged_decode_d80, e4m3 pool with bf16 scales"),
+    ("paged_decode_split_d80", "aule_tpu_torch/csrc/paged_decode.cu",
+     "aule_tpu/ops/paged.py:45 (_paged_decode_kernel; JAX pads the pools "
+     "on each call, paged.py:366-374)",
+     f"B8 ctx{HD_CTX} Hq32/Hkv32 split bf16 pools [Hkv, P, page, 80] "
+     f"padded with q to 128 lanes on every call (the copy's own time under "
+     f"pool_copy_*; library: SDPA on the K/V at D80)"),
+    ("paged_prefill_d80", "aule_tpu_torch/csrc/paged_prefill.cu",
+     "aule_tpu/ops/paged_fused.py:770 (_fused_prefill_kernel)",
+     f"B1 Hq32/Hkv32 D80, chunk {HD_CHUNK} at q_offset {HD_HIST} over "
+     f"{HD_HIST + HD_CHUNK} in a 128-lane bf16 pool (library: SDPA with a "
+     f"positional mask at D80)"),
+]
+
+
+def head_dim_entries(entries, hd) -> None:
+    """The head-dim phase's padded modes as entries: launches on its
+    counted calls, errors against the plain version at the true D, device
+    µs, the bound at the true D, the share of the padded products wasted
+    on zero lanes, the library µs."""
+    for name, src, row, shape in HD_ENTRIES:
+        n = hd["launches"][name]
+        by_kernel = n if isinstance(n, dict) else None
+        launches = sum(n.values()) if by_kernel else n
+        if launches == 0:
+            raise AssertionError(f"{name} was not launched in the head-dim "
+                                 f"phase")
+        t = hd["time"][name]
+        err = tuple(hd["err"][name]) + (0.0,) * (3 - len(hd["err"][name]))
+        extra = {k: t[k] for k in (
+            "device_ms", "device_us", "library_device_ms", "library_us",
+            "padded_call_device_ms", "head_dim", "kernel_head_dim",
+            "wasted_share", "pool_copy_ms", "pool_copy_device_ms",
+            "pool_copy_bound_ms", "pool_copy_mb") if k in t}
+        if by_kernel:
+            extra["launches_by_kernel"] = by_kernel
+        entries.append(_entry(name, src, row, launches, err, t, shape,
+                              phase="head dims", **extra))
+
+
+# ---- the serving front ends (`--frontends`): the HTTP server, the replica
+# pools and the process pools over the port's engine on the card
+
+FE_SEED = SEED + 24   # the prompts' generator
+FE_LAYERS = 4         # Llama-3-8B at full width, 4 of its 32 layers
+FE_NEW = 32
+FE_BLOCKING = (7, 300, 1000, 2000)
+FE_STREAMS = (7, 64, 129, 300, 511, 700, 1000, 2000)
+FE_CANCEL_NEW = 256   # the cancelled streams' max_tokens
+FE_REPS = 3           # (f1)'s runs of each prompt, direct and over HTTP
+# the JAX worker's engine (tests/test_multihost.py) on the tiny Llama
+FE_TINY_KW = dict(max_batch=2, page_size=16, num_pages=64,
+                  max_pages_per_seq=8, max_seq_len=256)
+FE_TINY_PROMPTS = (5, 9, 7, 12)
+FE_TINY_NEW = 4
+FE_COUNTED = ("flash_fwd", "flash_fwd_short", "paged_decode")
+
+
+def _fe_post(port, path, obj, timeout=300):
+    import urllib.request
+
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}{path}", data=json.dumps(obj).encode(),
+        headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=timeout) as resp:
+        return json.loads(resp.read())
+
+
+def _fe_health(port):
+    import urllib.request
+
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}/health",
+                                timeout=60) as resp:
+        return json.loads(resp.read())
+
+
+def _fe_open_stream(port, prompt, n):
+    """A streaming completion request: (connection, response)."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+    conn.request("POST", "/v1/completions",
+                 json.dumps({"prompt": [int(t) for t in prompt],
+                             "max_tokens": n, "stream": True}),
+                 {"Content-Type": "application/json"})
+    return conn, conn.getresponse()
+
+
+def _fe_read_stream(resp, t0):
+    """(token lines' tokens, the request id, the done line, seconds to the
+    first token) of a streamed response read to its end."""
+    toks, rid, first = [], None, None
+    for raw in resp:
+        if not raw.strip():
+            continue
+        line = json.loads(raw)
+        if "token" in line:
+            if first is None:
+                first = time.perf_counter() - t0
+            rid = line["id"]
+            toks.append(line["token"])
+        else:
+            resp.read()  # the chunked body's end
+            return toks, rid, line, first
+    raise AssertionError("a stream ended without its done line")
+
+
+def _fe_agree(params, cfg, prompts, got, want, what):
+    """The spec phase's rule: each pair compared up to its first parting
+    (`_prefix_match`), a parting credited when both tokens sit within
+    NEAR_TIE of the plain forward's max (`_divergence_gaps`); the raw and
+    the credited agreement logged, the credited one must be 1.0."""
+    match, same, total, first = _prefix_match(got, want)
+    gaps = _divergence_gaps(params, cfg, prompts, got, want, first)
+    decisive = sum(max(gp) > NEAR_TIE for gp in gaps)
+    credited = (same + len(gaps) - decisive) / max(total, 1)
+    log(f"frontends {what}: raw agreement {match:.4f} ({same} of {total} "
+        f"compared tokens, {len(gaps)} partings, gaps "
+        f"{[tuple(round(x, 4) for x in gp) for gp in gaps]}); near-tie-"
+        f"credited {credited:.4f}")
+    if credited != 1.0:
+        raise AssertionError(f"frontends {what}: {decisive} partings not at "
+                             f"a near-tie")
+    return {"raw": match, "credited": credited, "partings": len(gaps)}
+
+
+def _fe_http(params, cfg, res):
+    """(f1)-(f3) on one engine behind ServingHTTPServer."""
+    import threading
+
+    from aule_tpu_torch.serving import ServingHTTPServer
+    from aule_tpu_torch.serving.engine import ServingEngine
+
+    rng = np.random.default_rng(FE_SEED)
+    blocking = [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32)
+                for n in FE_BLOCKING]
+    streams = [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32)
+               for n in FE_STREAMS]
+    eng = ServingEngine(params, cfg, device=DEV, **ENGINE_KW)
+    free0 = eng.allocator.num_free
+    eng.submit(blocking[0], 2)  # warm-up: first-use set-up off the clock
+    eng.run()
+    direct, direct_s = [], []
+    for p in blocking:  # FE_REPS runs each: the median's seconds
+        times, outs = [], []
+        for _ in range(FE_REPS):
+            t0 = time.perf_counter()
+            eng.submit(p, FE_NEW)
+            outs.append(list(eng.run()[0].output))
+            times.append(time.perf_counter() - t0)
+        if any(o != outs[0] for o in outs):
+            raise AssertionError("frontends (f1): two direct runs of one "
+                                 "prompt differ")
+        direct.append(outs[0])
+        direct_s.append(float(np.median(times)))
+    for p in streams:
+        eng.submit(p, FE_NEW)
+    t0 = time.perf_counter()
+    batch = [list(r.output) for r in eng.run()]
+    batch_s = time.perf_counter() - t0
+    retired = {}
+    retire = eng._retire
+
+    def spy(slot):  # each request's output as the engine retires it
+        r = eng.slots[slot]
+        retired[r.req_id] = (list(r.output), r.cancelled)
+        return retire(slot)
+
+    eng._retire = spy
+    with ServingHTTPServer(eng) as srv:
+        port = srv.port
+        http_s = []
+        for i, p in enumerate(blocking):
+            times = []
+            for _ in range(FE_REPS):
+                t0 = time.perf_counter()
+                out = _fe_post(port, "/v1/completions",
+                               {"prompt": p.tolist(), "max_tokens": FE_NEW})
+                times.append(time.perf_counter() - t0)
+                if out["tokens"] != direct[i] or out["cancelled"]:
+                    raise AssertionError(f"frontends (f1): the HTTP tokens "
+                                         f"of prompt {len(p)} differ from "
+                                         f"the engine's direct run")
+            http_s.append(float(np.median(times)))
+        over = [1e3 * (h - d) for h, d in zip(http_s, direct_s)]
+        tok = FE_NEW * len(blocking)
+        res["f1"] = dict(prompt_lens=list(FE_BLOCKING), direct_s=direct_s,
+                         http_s=http_s, http_overhead_ms=over,
+                         direct_tok_s=tok / sum(direct_s),
+                         http_tok_s=tok / sum(http_s))
+        log(f"frontends (f1): {len(blocking)} blocking requests of "
+            f"{list(FE_BLOCKING)} prompt tokens, {FE_NEW} new each, "
+            f"{FE_REPS} times each, equal token for token to the engine's "
+            f"direct runs; medians: direct "
+            f"{[round(x * 1e3, 1) for x in direct_s]} ms, HTTP "
+            f"{[round(x * 1e3, 1) for x in http_s]} ms, overhead a request "
+            f"{[round(x, 2) for x in over]} ms; {tok / sum(http_s):.1f} tok/s "
+            f"through HTTP against {tok / sum(direct_s):.1f} direct")
+
+        got, running = [None] * len(streams), []
+        stop = threading.Event()
+
+        def stream(i):
+            t0 = time.perf_counter()
+            conn, resp = _fe_open_stream(port, streams[i], FE_NEW)
+            got[i] = _fe_read_stream(resp, t0) + (time.perf_counter() - t0,)
+            conn.close()
+
+        def poll():
+            while not stop.is_set():
+                running.append(_fe_health(port)["running"])
+                time.sleep(0.02)
+
+        poller = threading.Thread(target=poll)
+        poller.start()
+        threads = [threading.Thread(target=stream, args=(i,))
+                   for i in range(len(streams))]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        wall = time.perf_counter() - t0
+        stop.set()
+        poller.join(timeout=30)
+        if any(g is None for g in got):
+            raise AssertionError("frontends (f2): a stream did not finish")
+        for i, (toks, rid, done, first, _) in enumerate(got):
+            if (not done.get("done") or done.get("cancelled")
+                    or done["id"] != rid or len(toks) != FE_NEW
+                    or retired.get(rid) != (toks, False)):
+                raise AssertionError(f"frontends (f2): stream {i} gave "
+                                     f"{len(toks)} tokens, done line {done}, "
+                                     f"the engine's request "
+                                     f"{retired.get(rid)}")
+        health = _fe_health(port)
+        if max(running) < 2:
+            raise AssertionError(f"frontends (f2): /health never showed two "
+                                 f"running requests ({sorted(set(running))})")
+        ttft = [g[3] for g in got]
+        agree = _fe_agree(params, cfg, streams, [g[0] for g in got], batch,
+                          "(f2) streams against the direct batch")
+        res["f2"] = dict(prompt_lens=list(FE_STREAMS), wall_s=wall,
+                         tok_s=FE_NEW * len(streams) / wall,
+                         direct_batch_s=batch_s,
+                         direct_batch_tok_s=FE_NEW * len(streams) / batch_s,
+                         first_token_s=ttft, max_running=max(running),
+                         agreement=agree)
+        log(f"frontends (f2): {len(streams)} concurrent streams, each's "
+            f"tokens its engine request's, up to {max(running)} running at "
+            f"once (/health); {FE_NEW * len(streams) / wall:.1f} tok/s in "
+            f"{wall:.2f} s against the direct batch's "
+            f"{FE_NEW * len(streams) / batch_s:.1f} tok/s; time to the first "
+            f"streamed token {min(ttft):.3f}-{max(ttft):.3f} s (median "
+            f"{sorted(ttft)[len(ttft) // 2]:.3f}); /health after: "
+            f"{health['tokens_generated']} tokens, {health['decode_steps']} "
+            f"decode steps")
+
+        # (f3) one /v1/cancel mid-stream, one client disconnect
+        t0 = time.perf_counter()
+        conn, resp = _fe_open_stream(port, streams[3], FE_CANCEL_NEW)
+        first = json.loads(resp.readline())
+        ok = _fe_post(port, "/v1/cancel", {"id": first["id"]})
+        toks, _, done, _ = _fe_read_stream(resp, t0)
+        conn.close()
+        if not (ok["cancelled"] and done["cancelled"]
+                and len(toks) + 1 < FE_CANCEL_NEW):
+            raise AssertionError(f"frontends (f3): /v1/cancel gave {ok}, the "
+                                 f"stream {len(toks) + 1} tokens and {done}")
+        conn, resp = _fe_open_stream(port, streams[4], FE_CANCEL_NEW)
+        gone = json.loads(resp.readline())["id"]
+        conn.close()
+        deadline = time.time() + 60
+        while time.time() < deadline:
+            h = _fe_health(port)
+            if h["running"] == 0 and h["waiting"] == 0:
+                break
+            time.sleep(0.05)
+        else:
+            raise AssertionError("frontends (f3): the disconnected stream "
+                                 "still runs after 60 s")
+    eng._retire = retire
+    lost = retired.get(gone)
+    free = eng.allocator.num_free
+    if free != free0 or lost is None or not lost[1] \
+            or len(lost[0]) >= FE_CANCEL_NEW:
+        raise AssertionError(f"frontends (f3): {free} of {free0} pages free, "
+                             f"the disconnected request {lost}")
+    res["f3"] = dict(cancel_tokens=len(toks) + 1,
+                     disconnect_tokens=len(lost[0]), free_pages=free)
+    log(f"frontends (f3): /v1/cancel stopped its stream after "
+        f"{len(toks) + 1} of {FE_CANCEL_NEW} tokens, a client disconnect "
+        f"after {len(lost[0])}; every page back ({free} of {free0} free)")
+    return eng, streams
+
+
+def _fe_pool(params, cfg, eng, prompts, res):
+    """(f4) an EngineReplicaPool of 1 and of 2 replicas on the card; the 2
+    replicas' tokens held to the solo runs by `_fe_agree`."""
+    from aule_tpu_torch.serving import EngineReplicaPool
+    from aule_tpu_torch.serving.engine import ServingEngine
+
+    solo = []
+    for p in prompts:
+        eng.submit(p, FE_NEW)
+        solo.append(list(eng.run()[0].output))
+    rows = {}
+    second = ServingEngine(params, cfg, device=DEV, **ENGINE_KW)
+    for n, engines in ((1, [eng]), (2, [eng, second])):
+        pool = EngineReplicaPool(engines)
+        for p in prompts:
+            pool.submit(p, FE_NEW)
+        out = [list(r.output) for r in pool.run()]
+        rows[n] = dict(tok_s=pool.stats.tokens_per_s,
+                       wall_s=pool.stats.wall_s, outputs=out)
+    agree = _fe_agree(params, cfg, prompts, rows[2]["outputs"], solo,
+                      "(f4) 2 replicas against the solo runs")
+    raw1 = _prefix_match(rows[1]["outputs"], solo)[0]
+    res["f4"] = dict(tok_s_1=rows[1]["tok_s"], tok_s_2=rows[2]["tok_s"],
+                     wall_s_1=rows[1]["wall_s"], wall_s_2=rows[2]["wall_s"],
+                     agreement_2=agree, raw_agreement_1=raw1)
+    log(f"frontends (f4): EngineReplicaPool of {len(prompts)} requests, "
+        f"{FE_NEW} new each: 1 replica {rows[1]['tok_s']:.1f} tok/s, 2 "
+        f"replicas {rows[2]['tok_s']:.1f} tok/s; the replicas time-share "
+        f"one card, so this measures the pool's scheduler, not scaling "
+        f"(1 replica's raw agreement with the solo runs {raw1:.4f})")
+    del second
+    torch.cuda.empty_cache()
+
+
+def _fe_process_pools(res):
+    """(f5) MultiProcessServingPool of 2 spawned workers on the card over
+    multiprocessing queues and over TCP, the JAX worker's tiny Llama from
+    model_seed 0: each request's tokens equal the parent's engine built
+    from the same seed on the card.  The workers load this checkout's
+    kernel library (AULE_TPU_TORCH_NO_BUILD: a worker that finds none
+    fails, it builds no copy)."""
+    from aule_tpu_torch.models import llama
+    from aule_tpu_torch.serving import MultiProcessServingPool
+    from aule_tpu_torch.serving.engine import ServingEngine
+
+    cfg = llama.LlamaConfig.tiny()
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(0)
+    eng = ServingEngine(llama.init_params(cfg, gen, device=DEV), cfg,
+                        device=DEV, **FE_TINY_KW)
+    rng = np.random.default_rng(FE_SEED + 1)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32)
+               for n in FE_TINY_PROMPTS]
+    counters = _launch_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    want = []
+    for p in prompts:
+        eng.submit(p, FE_TINY_NEW)
+        want.append(list(eng.run()[0].output))
+    tiny = {n: fn.launches for n, fn in counters.items() if fn.launches}
+    if not (tiny.get("flash_fwd_f32") and tiny.get("paged_generic_decode")):
+        raise AssertionError(f"frontends (f5): the parent's tiny engine "
+                             f"(f32, D{cfg.head_dim}) launched {tiny}")
+    log(f"frontends (f5): the parent's engine, tiny Llama f32 D"
+        f"{cfg.head_dim} (padded to the kernels' 64): launches {tiny}")
+    res["f5"] = {"parent_launches": tiny}
+    for transport in ("mp", "tcp"):
+        t0 = time.perf_counter()
+        pool = MultiProcessServingPool(
+            2, dict(FE_TINY_KW, device=DEV), model_seed=0,
+            transport=transport, warm={"lens": [5], "new_tokens": 2},
+            worker_env={"AULE_TPU_TORCH_NO_BUILD": "1"})
+        try:
+            start = time.perf_counter() - t0
+            t1 = time.perf_counter()
+            gids = [pool.submit(p, FE_TINY_NEW) for p in prompts]
+            got = pool.collect(timeout_s=300)
+            serve = time.perf_counter() - t1
+        finally:
+            pool.shutdown()
+        bad = [i for i, g in enumerate(gids) if got[g][1] != want[i]]
+        if bad:
+            raise AssertionError(f"frontends (f5) {transport}: requests {bad} "
+                                 f"differ from the parent's engine")
+        workers = sorted({got[g][0] for g in gids})
+        res["f5"][transport] = dict(
+            worker_start_s={int(k): v for k, v in pool.ready_s.items()},
+            pool_start_s=start, serve_s=serve, workers_used=workers)
+        log(f"frontends (f5) {transport}: 2 workers on the card, start-up "
+            f"{ {k: round(v, 2) for k, v in sorted(pool.ready_s.items())} } s "
+            f"(spawn, CUDA, the library loaded, warm); {len(prompts)} "
+            f"requests in {serve:.2f} s on workers {workers}, each equal to "
+            f"the parent's engine")
+
+
+def check_frontends() -> dict:
+    """The serving front ends on the card: (f1) blocking HTTP requests
+    token-exact against the same engine's direct runs, (f2) concurrent
+    NDJSON streams against a direct batch, (f3) /v1/cancel and a client
+    disconnect with every page back, (f4) the in-process replica pool,
+    (f5) the process pools over mp and TCP.  Llama-3-8B at full width on
+    FE_LAYERS layers, bf16, fused pools; the launch counts set to 0 before
+    (f1)-(f4) and read after."""
+    from aule_tpu_torch.models import llama
+
+    t_start = time.perf_counter()
+    cfg = dataclasses.replace(llama.LlamaConfig.llama3_8b(),
+                              n_layers=FE_LAYERS)
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(SEED)
+    params = llama.init_params(cfg, gen, device=DEV)
+    res = {}
+    counters = _launch_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    eng, streams = _fe_http(params, cfg, res)
+    _fe_pool(params, cfg, eng, streams, res)
+    res["launches"] = {n: counters[n].launches for n in FE_COUNTED}
+    log(f"frontends: launches of (f1)-(f4) {res['launches']}")
+    for n, count in res["launches"].items():
+        if count == 0:
+            raise AssertionError(f"frontends: {n} was not launched")
+    del eng, params
+    torch.cuda.empty_cache()
+    _fe_process_pools(res)
+    res["seconds"] = time.perf_counter() - t_start
+    log(f"frontends: {res['seconds']:.1f} s")
+    return res
+
+
+def add_frontend_launches(entries, fe) -> None:
+    """Add the front ends' launches ((f1)-(f4)) to the entries of the
+    kernel modes they launch."""
+    by_name = {e["name"]: e for e in entries}
+    for name in FE_COUNTED:
+        by_name[name]["launches"] += fe["launches"][name]
+        by_name[name]["launches_frontends"] = fe["launches"][name]
+
+
 def _phase_process(flag: str, what: str) -> dict:
     """A phase in a process of its own (`chip_smoke.py <flag>`): its
     profiled timings meet a fresh torch.profiler, which loses kernels
@@ -7088,10 +7971,23 @@ def phase_parallel_model() -> dict:
     return _phase_process("--parallel-model", "parallel model-level")
 
 
+def phase_head_dims() -> dict:
+    """check_head_dims in a process of its own (`chip_smoke.py
+    --head-dims`)."""
+    return _phase_process("--head-dims", "head-dim")
+
+
+def phase_frontends() -> dict:
+    """check_frontends in a process of its own (`chip_smoke.py
+    --frontends`), which spawns the process pools' workers."""
+    return _phase_process("--frontends", "serving front-end")
+
+
 def child_main(check) -> None:
     """`chip_smoke.py --public`, `--gpt2`, `--llama32`, `--mistral`,
-    `--moe`, `--adamw`, `--spec`, `--parallel` or `--parallel-model`: that
-    phase alone, its result as one JSON line last."""
+    `--moe`, `--adamw`, `--spec`, `--parallel`, `--parallel-model`,
+    `--head-dims` or `--frontends`: that phase alone, its result as one
+    JSON line last."""
     if not torch.cuda.is_available():
         log("device: torch.cuda.is_available() is False")
         sys.exit(2)
@@ -7850,6 +8746,8 @@ def main() -> None:
     torch.cuda.empty_cache()  # the worlds' processes share the card
     par = timed("parallel", phase_parallel)
     pm = timed("parallel model", phase_parallel_model)
+    hd = timed("head dims", phase_head_dims)
+    fe = timed("frontends", phase_frontends)
     runs, params, cfg = timed("engine", phase_engine)
     edges = timed("edges", phase_edges, params, cfg)
     timed("breakdown", phase_breakdown, params, cfg)
@@ -8164,6 +9062,8 @@ def main() -> None:
     spec_entries(entries, spec)
     parallel_entries(entries, par)
     parallel_model_entries(entries, pm)
+    head_dim_entries(entries, hd)
+    add_frontend_launches(entries, fe)
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
@@ -8189,5 +9089,9 @@ if __name__ == "__main__":
         child_main(check_parallel)
     elif sys.argv[1:] == ["--parallel-model"]:
         child_main(check_parallel_model)
+    elif sys.argv[1:] == ["--head-dims"]:
+        child_main(check_head_dims)
+    elif sys.argv[1:] == ["--frontends"]:
+        child_main(check_frontends)
     else:
         main()

@@ -55,11 +55,11 @@ def test_patched_sdpa_gqa_and_scale(clean_patch):
     assert_close(got, want.numpy(), 0, 2e-5, "gqa")
 
 
-@pytest.mark.parametrize("arg", ["attn_mask", "dropout", "rank3", "d96"])
+@pytest.mark.parametrize("arg", ["attn_mask", "dropout", "rank3", "d320"])
 def test_patched_sdpa_falls_back_to_the_original(clean_patch, monkeypatch,
                                                  arg):
     aule_tpu_torch.install()
-    q, k, v = _qkv(1, 2, 16, 96 if arg == "d96" else 32, seed=3)
+    q, k, v = _qkv(1, 2, 16, 320 if arg == "d320" else 32, seed=3)
     calls = []
 
     def spy(*a, **kw):
@@ -80,7 +80,7 @@ def test_patched_sdpa_falls_back_to_the_original(clean_patch, monkeypatch,
     elif arg == "rank3":
         got = F.scaled_dot_product_attention(q[0], k[0], v[0])
         want = ORIGINAL_SDPA(q[0], k[0], v[0])
-    else:  # a head dim the cuda kernels do not take, on the cuda backend
+    else:  # a head dim above the cuda kernels' 256, on the cuda backend
         monkeypatch.setattr(backends, "select_backend", lambda b=None: "cuda")
         got = F.scaled_dot_product_attention(q, k, v, is_causal=True)
         want = ORIGINAL_SDPA(q, k, v, is_causal=True)
@@ -172,11 +172,12 @@ def test_patch_model_routes_hf_gpt2(clean_patch):
 def test_patch_model_hands_hf_head_dim_off_the_kernels_to_sdpa(
         clean_patch, monkeypatch):
     """On the cuda backend an HF layer whose head dim the kernels do not
-    take (96) goes to transformers' sdpa path, and its logits stay those
-    of the unpatched model."""
+    take (320: above 256; every smaller D is padded to a kernel width)
+    goes to transformers' sdpa path, and its logits stay those of the
+    unpatched model."""
     transformers = pytest.importorskip("transformers")
     cfg = transformers.GPT2Config(vocab_size=128, n_positions=32,
-                                  n_embd=192, n_layer=1, n_head=2)
+                                  n_embd=640, n_layer=1, n_head=2)
     torch.manual_seed(2)
     model = transformers.GPT2LMHeadModel(cfg).eval()
     ids = torch.arange(16).reshape(1, 16) % 128

@@ -51,7 +51,9 @@ ENTRY_MODULES = (
     "aule_tpu_torch.models.moe", "aule_tpu_torch.models.convert",
     "aule_tpu_torch.parallel", "aule_tpu_torch.parallel.optimizer",
     "aule_tpu_torch.utils.checkpoint", "aule_tpu_torch.utils.tree",
-    "aule_tpu_torch.serving.native")
+    "aule_tpu_torch.serving.native", "aule_tpu_torch.serving.http_api",
+    "aule_tpu_torch.serving.transport", "aule_tpu_torch.serving.multihost",
+    "aule_tpu_torch.serving.worker")
 LEFT_OUT = FORBIDDEN + ("transformers", "ml_dtypes")
 
 
@@ -99,3 +101,40 @@ def test_default_device_entry_points_raise_without_cuda():
         moe.init_params(moe.MoEConfig.tiny(), torch.Generator())
     with pytest.raises(RuntimeError):
         moe.load_jax_params({})
+
+
+def _worker_probe(results):
+    """In a spawned process: serve one request through the pool's worker
+    loop on the CPU, then report its tokens and every module of JAX or of
+    the JAX package that the process holds."""
+    import queue
+
+    from aule_tpu_torch.serving.worker import worker_main
+
+    req_q, res_q = queue.Queue(), queue.Queue()
+    req_q.put((0, [1, 2, 3, 4, 5], 3, None, {}))
+    req_q.put(None)
+    worker_main(0, 0, dict(device="cpu", max_batch=1, page_size=16,
+                           num_pages=8, max_pages_per_seq=2,
+                           max_seq_len=32), req_q, res_q,
+                worker_env={"OMP_NUM_THREADS": "1"})
+    results.put((res_q.get_nowait(), sorted(
+        m for m in sys.modules if m.split(".")[0] in FORBIDDEN)))
+
+
+def test_spawned_worker_holds_no_jax():
+    """A serving worker, started as MultiProcessServingPool starts it (the
+    spawn context), serves its request with neither JAX nor the JAX
+    package in its sys.modules."""
+    import multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    proc = ctx.Process(target=_worker_probe, args=(results,))
+    proc.start()
+    try:
+        msg, modules = results.get(timeout=120)
+    finally:
+        proc.join(timeout=30)
+    assert msg[:2] == (0, 0) and len(msg[2]) == 3
+    assert modules == []
