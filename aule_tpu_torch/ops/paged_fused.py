@@ -25,7 +25,9 @@ allowed).
     raise for what neither takes.  A D = 64 q meets pools padded to 128
     lanes; the kernels read the first D lanes of each row and the softmax
     scale is 1 / sqrt(D) of the true D.
-  * The chunked-prefill kernel over this pool is ops/paged_prefill.py.
+  * The chunked-prefill kernel over this pool is ops/paged_prefill.py;
+    `paged_attention_prefill` resolves here too, at the JAX package's
+    import path (loaded on first use: paged_prefill imports this module).
 """
 
 from __future__ import annotations
@@ -481,3 +483,10 @@ def paged_attention_fused(
 
 # kernel launches since the last reset (the CPU route does not count)
 paged_attention_fused.launches = 0
+
+
+def __getattr__(name):
+    if name == "paged_attention_prefill":
+        from .paged_prefill import paged_attention_prefill
+        return paged_attention_prefill
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -10,10 +10,12 @@ are identical to the JAX package's: per-token amax, `scale = amax / qmax`
 flushed to +-0 (the JAX package's fix c4c0db8, kept so that a pool either
 package wrote decodes the same in both).
 
-The JAX package's `e4m3_expand*` integer decoders are a workaround for a
-TPU without fp8 hardware.  The port decodes with the card's own
-conversion (csrc/) and, in plain PyTorch, with `.float()` on the
-float8_e4m3fn tensor; both are exact for every code a pool can hold.
+The JAX package's `e4m3_expand*` integer decoders (quant.py:94-190) are a
+workaround for a TPU without fp8 hardware.  They are here too, as plain
+integer and bit operations on int8 tensors with the JAX package's results
+bit for bit, for callers of that API; the port's kernels decode with the
+card's own conversion (csrc/) and its plain versions with `.float()` on
+the float8_e4m3fn tensor, both exact for every code a pool can hold.
 """
 
 from __future__ import annotations
@@ -67,3 +69,57 @@ def _flush_e4m3_subnormals(payload: torch.Tensor) -> torch.Tensor:
 def dequantize_kv(payload: torch.Tensor, scale: torch.Tensor,
                   dtype=torch.float32) -> torch.Tensor:
     return (payload.float() * scale[..., None].float()).to(dtype)
+
+
+def e4m3_expand(x_i8: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
+    """float8_e4m3fn payloads viewed as int8, decoded with integer ops:
+    for normals the f32 bits are ((x & 0x7f) << 20) + (120 << 23) (the
+    exponent and mantissa moved into place and the bias changed from 7
+    to 127); subnormals (exponent field 0) are m * 2^-9; the sign bit
+    negates.  The NaN codes 0x7f / 0xff decode to +-480 (a pool never
+    holds them)."""
+    xi = x_i8.to(torch.int32)
+    em = xi & 0x7F
+    mag = ((em << 20) + (120 << 23)).view(torch.float32)
+    sub = (em & 0x7).to(torch.float32) * (2.0 ** -9)
+    mag = torch.where(em < 8, sub, mag)
+    return torch.where(xi < 0, -mag, mag).to(dtype)
+
+
+# e4m3_expand_scaled* return value * 2^-E4M3_EXPAND_SHIFT; a caller folds
+# 2^+shift into its scale factors
+E4M3_EXPAND_SHIFT = 40
+
+
+def e4m3_expand_scaled(x_i8: torch.Tensor, dtype=torch.float32
+                       ) -> torch.Tensor:
+    """value * 2^-40 without selects: the sign bit at bit 31 and the
+    exponent and mantissa at bit 20 read as 2^(e-127) (1 + m/8) for
+    normals, and one multiply by 2^80 makes that value * 2^-40 exactly.
+    The subnormal codes land on f32 subnormals before the multiply: exact
+    under IEEE arithmetic (this CPU, the card), flushed to +-0 where
+    subnormals are (the TPU's vector unit); `quantize_kv` never writes
+    them."""
+    xi = x_i8.to(torch.int32)
+    sign = torch.where(xi < 0, torch.tensor(-2 ** 31, dtype=torch.int32,
+                                            device=xi.device),
+                       torch.zeros((), dtype=torch.int32, device=xi.device))
+    bits = sign | ((xi & 0x7F) << 20)
+    return (bits.view(torch.float32)
+            * (2.0 ** (120 - E4M3_EXPAND_SHIFT))).to(dtype)
+
+
+def e4m3_expand_scaled_bf16(x_i8: torch.Tensor) -> torch.Tensor:
+    """value * 2^-40 as bfloat16 by moving the bits: e4m3 embeds exactly
+    in bf16, so bits (s << 15) | (em << 4) read as value * 2^-120 for
+    normals and one bf16 multiply by 2^80 rescales them without rounding.
+    Zero codes give +-0; subnormal codes bf16 subnormals (exact under IEEE
+    arithmetic, as e4m3_expand_scaled); the NaN codes a finite 480 *
+    2^-40."""
+    xi = x_i8.to(torch.int32)
+    bits = torch.where(xi < 0, 0x8000, 0) | ((xi & 0x7F) << 4)
+    # bits < 2^16: their low 16 as int16 (two's complement) are the bf16
+    bits16 = (bits - ((bits >> 15) << 16)).to(torch.int16)
+    return bits16.view(torch.bfloat16) * torch.tensor(
+        2.0 ** (120 - E4M3_EXPAND_SHIFT), dtype=torch.bfloat16,
+        device=xi.device)

@@ -24,6 +24,10 @@ import torch
 from ..config import DEFAULT_MASK_VALUE
 from .rope import apply_rope
 
+# the JAX oracle's masked score (reference.py:29): half f32's min, so that
+# a fully masked row's shift stays finite
+NEG_INF = float(np.finfo(np.float32).min) * 0.5
+
 
 def build_mask(seq_q: int, seq_k: int, causal: bool = False,
                window_size: int = -1, device=None,

@@ -125,7 +125,8 @@ from ..parallel.collectives import broadcast
 from ..parallel.mesh import axis_size
 from ..utils.checkpoint import load_pytree, save_pytree
 from . import sampling
-from .kv_cache import make_allocator
+from .kv_cache import (PagePoolExhausted, PagedKVCache,  # noqa: F401
+                       make_allocator)
 
 logger = logging.getLogger("aule_tpu_torch")
 

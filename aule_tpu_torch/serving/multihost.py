@@ -30,18 +30,27 @@ from .engine import Request, ServingEngine
 
 
 def distributed_init(coordinator_address: str, num_processes: int,
-                     process_id: int, device="cuda") -> None:
+                     process_id: int, device="cuda",
+                     backend: Optional[str] = None) -> None:
     """Join a torch.distributed world of `num_processes` processes as rank
     `process_id`, rendezvousing at `coordinator_address` ("host:port", the
     TCP store of rank 0): the counterpart of JAX's jax.distributed
     wrapper.  The backend is NCCL on the card (the default) and gloo with
-    device="cpu"; afterwards a parallel/mesh.py mesh can span the
-    processes."""
+    device="cpu"; backend="gloo" on the card is for ranks that share a
+    card, which NCCL refuses (gloo stages their CUDA tensors through host
+    memory, parallel/collectives.py).  Afterwards a parallel/mesh.py mesh
+    can span the processes."""
     import torch.distributed as dist
 
     from ..config import resolve_device
 
-    backend = "nccl" if resolve_device(device).type == "cuda" else "gloo"
+    on_card = resolve_device(device).type == "cuda"
+    if backend is None:
+        backend = "nccl" if on_card else "gloo"
+    if backend not in ("nccl", "gloo") or (backend == "nccl"
+                                           and not on_card):
+        raise ValueError(f"backend {backend!r} on {device}: NCCL or gloo on "
+                         f"the card, gloo on the CPU")
     dist.init_process_group(backend,
                             init_method=f"tcp://{coordinator_address}",
                             world_size=num_processes, rank=process_id)

@@ -3,19 +3,26 @@ aule_tpu/utils/profiling.py).
 
 Kernel times come from CUDA events around each launch after a warm-up:
 the median of the timed repeats with its spread (min, max).  FLOPs follow
-the JAX package's convention, 4*B*H*Sq*Sk*D, halved for causal, and 2.5x
-that for the backward (bench.py:136); a paged prefill chunk or a window
+the JAX package's convention, 4*B*H*Sq*Sk*D, halved for causal, scaled to
+a window's share of the keys, and 2.5x that for the backward
+(`attention_flops`, bench.py:136); a paged prefill chunk or a window
 counts the keys its rows see; a train step adds 6*N*tokens.  Bounds
 use the published peaks of one NVIDIA H100 SXM at its full 700 W power
-limit (NVIDIA's data sheet, dense rates).  There is no CPU fallback: a
-measurement without a card raises.
+limit (NVIDIA's data sheet, dense rates).  The JAX package's API is here
+too: `DEVICE_PEAKS` / `device_peaks` (keyed by a substring of
+`torch.cuda.get_device_name()`), `roofline_fraction`,
+`decode_speed_of_light_toks`, `benchmark` (launch overhead cancelled as
+JAX's is: (t(iters) - t(1)) / (iters - 1)) and `trace` (a Chrome trace
+from torch.profiler).  There is no CPU fallback: a measurement without a
+card raises.
 """
 
 from __future__ import annotations
 
+import contextlib
 import statistics
 import time
-from typing import Callable, Dict, Sequence, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -26,12 +33,62 @@ H100_TF32_FLOPS = 495e12     # dense tensor-core TF32, FLOP/s
 H100_3XTF32_FLOPS = H100_TF32_FLOPS / 3
 H100_HBM_BYTES = 3.35e12     # HBM3 bytes/s
 
+# (bf16 tensor-core TFLOP/s, HBM TB/s) per card, keyed by a lower-case
+# substring of torch.cuda.get_device_name(); "default" for any other card
+DEVICE_PEAKS = {
+    "h100": (H100_BF16_FLOPS / 1e12, H100_HBM_BYTES / 1e12),
+    "default": (H100_BF16_FLOPS / 1e12, H100_HBM_BYTES / 1e12),
+}
+
+
+def device_peaks(device_kind: Optional[str] = None) -> Tuple[float, float]:
+    """(bf16 TFLOP/s, HBM TB/s) of `device_kind`, a card's name; with none
+    given, card 0's (which needs a card)."""
+    if device_kind is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("device_peaks() reads the card's name: no "
+                               "CUDA device (pass device_kind=)")
+        device_kind = torch.cuda.get_device_name(0)
+    dk = device_kind.lower()
+    for key, peaks in DEVICE_PEAKS.items():
+        if key != "default" and key in dk:
+            return peaks
+    return DEVICE_PEAKS["default"]
+
 
 def attention_flops(batch: int, heads: int, seq_q: int, seq_k: int,
-                    head_dim: int, causal: bool = False) -> float:
-    """4*B*H*Sq*Sk*D, halved for causal."""
+                    head_dim: int, causal: bool = False, window: int = -1,
+                    backward: bool = False) -> float:
+    """4*B*H*Sq*Sk*D, halved for causal; with a window W the share of the
+    keys it sees, min(1, (W+1)/Sk) causal or min(1, (2W+1)/Sk) not; the
+    backward 2.5x (the JAX package's convention, profiling.py:40-54)."""
     flops = 4.0 * batch * heads * seq_q * seq_k * head_dim
-    return flops * 0.5 if causal else flops
+    if window > 0 and seq_k > 0:
+        flops *= min(1.0, (window + 1) / seq_k if causal
+                     else (2 * window + 1) / seq_k)
+    elif causal:
+        flops *= 0.5
+    if backward:
+        flops *= 2.5
+    return flops
+
+
+def roofline_fraction(achieved_tflops: float,
+                      device_kind: Optional[str] = None) -> float:
+    """The share of the card's bf16 peak that `achieved_tflops` is."""
+    peak, _ = device_peaks(device_kind)
+    return achieved_tflops / peak
+
+
+def decode_speed_of_light_toks(batch: int, heads_kv: int, ctx: int,
+                               head_dim: int, bytes_per_elt: float,
+                               device_kind: Optional[str] = None) -> float:
+    """Decode's upper bound in tokens/s when HBM bound: the bandwidth over
+    the K and V bytes a step reads, B * ctx * Hkv * D * bytes * 2, times
+    the B tokens a step makes."""
+    _, bw_tbs = device_peaks(device_kind)
+    kv_bytes = batch * ctx * heads_kv * head_dim * bytes_per_elt * 2
+    return batch * (bw_tbs * 1e12) / kv_bytes
 
 
 def attention_bwd_flops(fwd_flops: float, products: int = 5) -> float:
@@ -161,3 +218,52 @@ def device_breakdown(fn: Callable[[], object],
     return {"wall_ms": wall_ms, "busy_ms": busy_us / 1e3,
             "kernels": len(spans), "by_category_ms": by_cat,
             "kernels_by_category": n_cat, "top": top}
+
+
+def benchmark(fn, *args, warmup: int = 3, iters: int = 20, reps: int = 3,
+              return_spread: bool = False):
+    """Seconds per call of `fn(*args)` on the card: the median over `reps`
+    of (t(iters) - t(1)) / (iters - 1), each t the CUDA-event time of that
+    many calls back to back on the current stream, so a launch's fixed
+    cost cancels as in the JAX package's benchmark (profiling.py:74-121).
+    `warmup` calls run first.  With return_spread, (median, (min, max))."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("benchmark measures on a CUDA device")
+    if iters < 2:
+        raise ValueError("benchmark needs iters >= 2")
+    for _ in range(max(warmup, 1)):
+        fn(*args)
+    torch.cuda.synchronize()
+
+    def run(n: int) -> float:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(n):
+            fn(*args)
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / 1e3
+
+    results = sorted((run(iters) - run(1)) / (iters - 1)
+                     for _ in range(reps))
+    med = results[len(results) // 2]
+    if return_spread:
+        return med, (results[0], results[-1])
+    return med
+
+
+@contextlib.contextmanager
+def trace(path: str):
+    """torch.profiler over the block (CPU and CUDA activity); on exit the
+    Chrome trace is written to `path` (open it in Perfetto or
+    chrome://tracing)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("trace records a CUDA device's timeline")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        yield prof
+        torch.cuda.synchronize()
+    prof.export_chrome_trace(path)

@@ -1,5 +1,6 @@
-"""Test helpers: tolerance comparison (counterpart of
-aule_tpu/utils/testing.py::assert_close) for torch tensors and arrays, the
+"""Test helpers (counterpart of aule_tpu/utils/testing.py): seeded inputs
+(`random_qkv`, `DEFAULT_SEED`), the per-dtype tolerances, the max / mean
+absolute differences and `assert_close` for torch tensors and arrays, the
 intra-op thread cap, and torch.distributed worlds on one host:
 `run_world` runs a function in N rank processes (gloo on the CPU, or gloo
 / NCCL on the card) and `single_rank_world` makes this process a world of
@@ -14,11 +15,24 @@ from __future__ import annotations
 
 import contextlib
 import os
+from typing import Tuple
 
 import numpy as np
 import torch
 
 from .tree import tree_flatten, tree_map
+
+DEFAULT_SEED = 42
+
+# per-dtype (rtol, atol) against the float64 NumPy oracle (the JAX
+# package's ladder: f32 ~1e-4, bf16 ~2e-2, quantized KV per BASELINE.json)
+TOLERANCES = {
+    "float32": (1e-4, 1e-4),
+    "bfloat16": (2e-2, 2e-2),
+    "float16": (1e-2, 1e-3),
+    "int8kv": (5e-3, 5e-3),
+    "fp8kv": (5e-2, 5e-2),
+}
 
 
 def cap_cpu_threads() -> int:
@@ -38,6 +52,35 @@ def _np64(x) -> np.ndarray:
     if isinstance(x, torch.Tensor):
         return x.detach().to("cpu", torch.float64).numpy()
     return np.asarray(x, dtype=np.float64)
+
+
+def random_qkv(batch: int, heads_q: int, seq_q: int, head_dim: int,
+               heads_kv: int | None = None, seq_k: int | None = None,
+               dtype=np.float32, seed: int = DEFAULT_SEED,
+               scale: float = 1.0) -> Tuple[np.ndarray, np.ndarray,
+                                            np.ndarray]:
+    """Seeded q [B, Hq, Sq, D], k and v [B, Hkv, Sk, D] as numpy arrays,
+    the JAX package's draws bit for bit (one default_rng(seed), q then k
+    then v, scaled, then cast to `dtype`)."""
+    heads_kv = heads_kv or heads_q
+    seq_k = seq_k or seq_q
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((batch, heads_q, seq_q, head_dim)) * scale
+    k = rng.standard_normal((batch, heads_kv, seq_k, head_dim)) * scale
+    v = rng.standard_normal((batch, heads_kv, seq_k, head_dim)) * scale
+    return q.astype(dtype), k.astype(dtype), v.astype(dtype)
+
+
+def max_abs_diff(a, b) -> float:
+    """max |a - b| in f64 (0 for empty inputs); tensors or array-likes."""
+    d = np.abs(_np64(a) - _np64(b))
+    return float(d.max()) if d.size else 0.0
+
+
+def mean_abs_diff(a, b) -> float:
+    """mean |a - b| in f64 (0 for empty inputs); tensors or array-likes."""
+    d = np.abs(_np64(a) - _np64(b))
+    return float(d.mean()) if d.size else 0.0
 
 
 def assert_close(actual, expected, rtol: float, atol: float, label: str = ""):
@@ -113,7 +156,8 @@ def run_world(fn, world_size: int, *args, backend: str = "gloo",
     cross by value.  Each rank runs `threads` intra-op threads (0: torch's
     default).  With `address` ("host:port") the ranks join through
     serving.multihost.distributed_init, rank 0 serving the TCP store
-    there.  A rank that raises, or a world still running after
+    there.  A rank that raises, a rank that dies before it reports (its
+    exit code, within about a second), or a world still running after
     WORLD_TIMEOUT seconds, stops every rank and raises RuntimeError with
     the rank's traceback."""
     import pickle
@@ -138,13 +182,24 @@ def run_world(fn, world_size: int, *args, backend: str = "gloo",
         try:
             deadline = time.monotonic() + WORLD_TIMEOUT
             for _ in range(world_size):
-                left = deadline - time.monotonic()
-                try:
-                    rank, ok, payload = q.get(timeout=max(left, 0.1))
-                except queue_mod.Empty:
-                    raise RuntimeError(
-                        f"world of {world_size} ranks still running after "
-                        f"{WORLD_TIMEOUT} s") from None
+                while True:
+                    left = deadline - time.monotonic()
+                    try:
+                        rank, ok, payload = q.get(
+                            timeout=max(min(left, 1.0), 0.1))
+                        break
+                    except queue_mod.Empty:
+                        # a rank that died before it could report
+                        dead = {r: p.exitcode for r, p in enumerate(procs)
+                                if p.exitcode not in (None, 0)}
+                        if dead and q.empty():
+                            raise RuntimeError(
+                                f"ranks died (rank: exit code): {dead}"
+                            ) from None
+                        if left <= 0:
+                            raise RuntimeError(
+                                f"world of {world_size} ranks still running "
+                                f"after {WORLD_TIMEOUT} s") from None
                 if not ok:
                     raise RuntimeError(f"rank {rank} failed:\n{payload}")
                 results[rank] = pickle.loads(payload)

@@ -143,7 +143,8 @@ Phases, each printing a line of its own:
      draft's catch-up prefill at D64 group 4, over bf16, int8 and e4m3
      pools; the draft's decode at D64 group 4, B8 ctx4096; the draft's
      whole-prompt flash forward at D64 group 4.  Then Llama-3-8B at full
-     width and depth serves the 12 prompts, 48 new tokens each, over
+     width on ENGINE_LAYERS = 16 of its 32 layers (full depth until the
+     scripts phase joined) serves the 12 prompts, 32 new tokens each, over
      ENGINE_KW with 1,024 pages (SPEC_KW): (s0) plain bf16 chunk 512;
      (s1) self-draft K=4, 4 requests sampled at temperature 0.8 / top-p
      0.9, saved after its first round and resumed by a fresh engine with
@@ -206,6 +207,18 @@ Phases, each printing a line of its own:
      1 and 2 replicas; (f5) MultiProcessServingPool of 2 workers on the
      card over mp and tcp (the tiny Llama in f32 at D32, padded to 64),
      each request equal to the parent's engine from the same seed;
+  6j. scripts, in a process of its own (`--scripts`): the port's entry
+     points and scripts as a user calls them: (x1) entry.entry()'s forward
+     (the JAX entry's 512-wide Llama, bf16 D64) held to the plain forward;
+     (x2) examples/serve_demo (int8 pools, chunk 16, the prefix cache, a
+     sampled request, then speculation with the tiny draft; f32 at D32,
+     padded to 64) held to a teacher-forced plain forward and a plain
+     engine; (x3) examples/train_demo in a gloo world of 8 ranks on the
+     card (ZeRO-1 AdamW, bf16) with its checkpoint round trip; (x4)
+     scripts/scaling_report at 1 and 2 replicas; (x5)
+     entry.dryrun_multichip(4, backend="gloo"); (x6)
+     entry.dryrun_multihost(2, backend="gloo"); (x7)
+     utils/profiling.benchmark against cuda_time_ms and trace();
   7. engine: a full-width Llama-3-8B on ENGINE_LAYERS = 16 of its 32
      layers (cut for the time limit; random bf16 weights from a seeded
      generator on the card) serves the same 12 greedy requests
@@ -251,13 +264,13 @@ Phases, each printing a line of its own:
      runs added to the modes they launch; the spec phase's verify, draft
      prefill, draft decode and D64 flash modes; the parallel phase's
      shard shapes, launches summed over the ranks of the runs that give
-     them those shapes);
+     them those shapes; the scripts phase's in-process runs, (x1), (x2)
+     and (x4), added to the modes they launch);
   11. last line: {"ok": true, "device": {...}}, printed only when every
      phase passed.  Any failure raises and the exit code is non-zero.
 
 About 15-16 minutes on an H100 80GB HBM3 at 700 W, the build included
-(946.3 s with the head-dim phase's 31.9 and the front ends' 50.5;
-`seconds by phase` in the log).
+(`seconds by phase` in the log; PERF.md keeps the runs' figures).
 """
 
 from __future__ import annotations
@@ -1550,7 +1563,8 @@ PROMPT_LENS = [7, 64, 129, 300, 511, 700, 1000, 1024, 1500, 2048, 3000,
 NEW_TOKENS = 24
 # the engine phase's depth (and so the edges', the breakdown's and the
 # train steps'): 16 of Llama-3-8B's 32 layers since the front-end and
-# head-dim phases joined the script (full depth before)
+# head-dim phases joined the script (full depth before); the spec phase's
+# since the scripts phase joined
 ENGINE_LAYERS = 16
 
 
@@ -5330,8 +5344,8 @@ def _spec_gpt2_f32(res, held) -> None:
 
 def check_spec() -> dict:
     """The spec phase: the kernels at speculation's shapes
-    (_spec_kernel_checks), then a full-width, full-depth Llama-3-8B
-    (random bf16 weights from SEED) serving the 12 prompts of PROMPT_LENS,
+    (_spec_kernel_checks), then a full-width Llama-3-8B on ENGINE_LAYERS
+    of its 32 layers (random bf16 weights from SEED) serving the 12 prompts of PROMPT_LENS,
     SPEC_NEW_TOKENS each: (s0) plain bf16 chunk 512, the yardstick; (s1)
     self-draft K=4 bf16 chunk 512, 4 requests sampled at SPEC_TEMP with
     top-p 0.9, saved after its first round and resumed by a fresh engine;
@@ -5359,7 +5373,9 @@ def check_spec() -> dict:
 
     _spec_kernel_checks(res)
     lap("kernels")
-    cfg = llama.LlamaConfig.llama3_8b()
+    # ENGINE_LAYERS of its 32 layers at full width: cut for the time limit
+    cfg = dataclasses.replace(llama.LlamaConfig.llama3_8b(),
+                              n_layers=ENGINE_LAYERS)
     gen = torch.Generator(device=DEV)
     gen.manual_seed(SEED)
     params = llama.init_params(cfg, gen, device=DEV)
@@ -7906,6 +7922,302 @@ def add_frontend_launches(entries, fe) -> None:
         by_name[name]["launches_frontends"] = fe["launches"][name]
 
 
+# ---- the port's entry points and scripts (`--scripts`): entry(), the
+# serve and train demos, the scaling report, the multi-chip and multi-host
+# dry runs and the profiling helpers, each called as a user calls it
+
+SC_SEED = SEED + 25   # (x7)'s inputs
+SC_BENCH_TOL = 0.10   # profiling.benchmark against cuda_time_ms's median
+# the kernel modes the in-process scripts launch: (entry, [(run, counter)])
+SCRIPTS_LAUNCHES = [
+    ("flash_fwd_d64", [("x1", "flash_fwd"), ("x4", "flash_fwd")]),
+    ("paged_decode_d64", [("x4", "paged_decode")]),
+    ("paged_generic_decode_int8", [("x2 int8", "paged_generic_decode")]),
+    ("paged_prefill_f32_int8", [("x2 int8", "paged_prefill_f32")]),
+    ("paged_generic_decode_f32", [("x2 spec", "paged_generic_decode")]),
+    ("paged_prefill_f32", [("x2 spec", "paged_prefill_f32")]),
+    ("flash_f32_fwd_gpt2_f32", [("x2 spec", "flash_fwd_f32")]),
+]
+
+
+def _sc_counts(counters, before=None) -> dict:
+    """The launches since `before` (a snapshot) or since the counts were
+    set to 0, the kernels that launched."""
+    before = before or {}
+    out = {n: c.launches - before.get(n, 0) for n, c in counters.items()}
+    return {n: k for n, k in out.items() if k}
+
+
+def _sc_zero(counters) -> None:
+    for c in counters.values():
+        c.launches = 0
+
+
+def _sc_entry(res, counters):
+    """(x1) entry() on the card: the JAX entry's Llama-style model (dim 512,
+    4 layers, 8 / 2 heads, D64) in bf16 on tokens [2, 512], one flash
+    launch a layer; each position's argmax held to the plain forward's
+    logits by the engine phase's judge (its argmax or within NEAR_TIE)."""
+    from aule_tpu_torch import entry
+    from aule_tpu_torch.models import llama
+    from aule_tpu_torch.ops.flash_vjp import flash_attention_vjp_plain
+
+    fn, (params, tokens) = entry.entry()
+    cfg = fn.cfg
+    _sc_zero(counters)
+    t0 = time.perf_counter()
+    logits = fn(params, tokens)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _sc_counts(counters)
+    if launches != {"flash_fwd": cfg.n_layers}:
+        raise AssertionError(f"scripts (x1): entry()'s forward launched "
+                             f"{launches}, not flash_fwd once a layer")
+    with torch.no_grad():
+        ref = llama.forward(params, tokens, cfg,
+                            attention=flash_attention_vjp_plain)
+    agree = _Agreement("scripts (x1) entry()")
+    for b in range(tokens.shape[0]):
+        agree.add(ref[b], logits[b].argmax(dim=-1), f"sequence {b}")
+    agree.report("the plain forward (each position's argmax)")
+    err = float((logits - ref).abs().max())
+    res["x1"] = dict(launches=launches, shape=list(logits.shape),
+                     exact=agree.exact, near_ties=agree.ties,
+                     max_gap=agree.gap, max_abs_err=err, wall_s=wall)
+    log(f"scripts (x1): entry() {str(cfg.dtype)[6:]} D{cfg.head_dim} group "
+        f"{cfg.n_heads // cfg.n_kv_heads} logits {list(logits.shape)} in "
+        f"{wall * 1e3:.1f} ms (the first call), launches {launches}, max "
+        f"|logit - plain| {err:.4f}")
+
+
+def _sc_serve(res, counters):
+    """(x2) examples/serve_demo.main() on the card, each engine's run
+    counted apart (the int8 engine with chunked prefill and the prefix
+    cache; the speculative engine, f32 pools): the greedy request held to a
+    teacher-forced plain forward, the speculative request equal to a plain
+    engine's greedy tokens (and held the same way), the sampled request in
+    the vocabulary with finite log-probabilities, prefix-cache hits."""
+    from aule_tpu_torch.examples import serve_demo
+    from aule_tpu_torch.models import llama
+    from aule_tpu_torch.serving.engine import ServingEngine
+
+    cfg = llama.LlamaConfig.tiny()
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(0)
+    params = llama.init_params(cfg, gen, device=DEV)
+    runs = {}
+    real = serve_demo.ServingEngine
+
+    class Counted(real):
+        def run(self, *args, **kw):
+            before = {n: c.launches for n, c in counters.items()}
+            out = super().run(*args, **kw)
+            runs["x2 spec" if self.spec_tokens else "x2 int8"] = \
+                _sc_counts(counters, before)
+            return out
+
+    serve_demo.ServingEngine = Counted
+    t0 = time.perf_counter()
+    try:
+        out = serve_demo.main(params=params)
+    finally:
+        serve_demo.ServingEngine = real
+    wall = time.perf_counter() - t0
+    a, b = out["prompts"]
+    greedy, sampled = out["requests"]
+    spec = out["spec_requests"][0].output
+    check_plain_forward(params, cfg, [a], [greedy.output],
+                        "scripts (x2) int8 chunk 16")
+    eng = ServingEngine(params, cfg, device=DEV, **serve_demo.ENGINE_KW)
+    eng.submit(a, max_new_tokens=len(spec))
+    plain = eng.run()[0].output
+    if spec != plain:
+        raise AssertionError(f"scripts (x2): the speculative tokens {spec} "
+                             f"are not the plain engine's {plain}")
+    check_plain_forward(params, cfg, [a], [plain], "scripts (x2) speculative")
+    with torch.no_grad():
+        seq = np.concatenate([b, np.asarray(sampled.output[:-1], np.int32)])
+        lp = torch.log_softmax(llama.forward(
+            params, torch.from_numpy(seq.astype(np.int64))[None].to(DEV),
+            cfg)[0, len(b) - 1:], dim=-1)
+        picked = lp.gather(1, torch.tensor(sampled.output, device=DEV)[:, None])
+    if not (bool(torch.isfinite(picked).all())
+            and all(0 <= t < cfg.vocab_size for t in sampled.output)):
+        raise AssertionError(f"scripts (x2): sampled tokens "
+                             f"{sampled.output} outside the model's support")
+    hits = out["prefix_cache_hit_tokens"]
+    if hits <= 0:
+        raise AssertionError("scripts (x2): no prefix-cache hit")
+    if out["streamed"] != {greedy.req_id: greedy.output,
+                           sampled.req_id: sampled.output}:
+        raise AssertionError("scripts (x2): streamed tokens differ")
+    res["x2"] = dict(greedy=greedy.output, sampled=sampled.output,
+                     spec=spec, prefix_cache_hit_tokens=hits,
+                     spec_accepted=out["spec_accepted"],
+                     spec_drafted=out["spec_drafted"], wall_s=wall)
+    res["launches"].update(runs)
+    log(f"scripts (x2): serve_demo in {wall:.2f} s: greedy {greedy.output}, "
+        f"T=1.2 {sampled.output}, prefix-cache hits {hits} tokens, "
+        f"speculative {spec} (= the plain engine's), accepted "
+        f"{out['spec_accepted']} / {out['spec_drafted']}; tiny Llama f32 "
+        f"D{cfg.head_dim} (padded to the kernels' 64); launches {runs}")
+
+
+def _sc_train(res, counters):
+    """(x3) examples/train_demo.main() in a gloo world of 8 ranks on the
+    one card ((data 4, model 2), ZeRO-1 AdamW on the bf16 tiny Llama):
+    the losses finite and falling, the step resumed from the checkpoint
+    equal, bit for bit on every rank, to a seventh step without it."""
+    from aule_tpu_torch.examples import train_demo
+
+    t0 = time.perf_counter()
+    out = train_demo.main()
+    wall = time.perf_counter() - t0
+    losses = out["losses"]
+    if not (all(math.isfinite(x) for x in losses)
+            and losses[-1] < losses[0]):
+        raise AssertionError(f"scripts (x3): losses {losses}")
+    if not out["resumed_equal"] or out["resumed_loss"] != \
+            out["seventh_loss"]:
+        raise AssertionError(f"scripts (x3): the resumed step differs from "
+                             f"the seventh: {out}")
+    res["x3"] = dict(losses=losses, resumed_loss=out["resumed_loss"],
+                     wall_s=wall)
+    log(f"scripts (x3): train_demo, 8 gloo ranks on the card, in "
+        f"{wall:.2f} s: losses {[round(x, 4) for x in losses]}, resumed "
+        f"step {out['resumed_loss']:.4f} equal to the seventh on every "
+        f"rank")
+
+
+def _sc_scaling(res, counters):
+    """(x4) scripts/scaling_report at 1 and 2 in-process replicas on the
+    card (the 512-wide Llama in bf16, 4 layers, 8 requests of 32 new
+    tokens): its lines carry the card's name and power limit; every
+    request's tokens held to a teacher-forced plain forward."""
+    from aule_tpu_torch.models import llama
+    from aule_tpu_torch.scripts import scaling_report
+
+    _sc_zero(counters)
+    t0 = time.perf_counter()
+    out = scaling_report.main(["--replicas", "1", "2"])
+    wall = time.perf_counter() - t0
+    res["launches"]["x4"] = _sc_counts(counters)
+    cfg = scaling_report.report_cfg(4, torch.device(DEV))
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(0)
+    params = llama.init_params(cfg, gen, device=DEV)
+    prompts = scaling_report.report_prompts(8)
+    for n in (1, 2):
+        check_plain_forward(params, cfg, prompts, out[n]["outputs"],
+                            f"scripts (x4) {n} replicas")
+    res["x4"] = {n: {k: v for k, v in out[n].items() if k != "outputs"}
+                 for n in (1, 2)}
+    res["x4"]["wall_s"] = wall
+    log(f"scripts (x4): scaling_report in {wall:.2f} s, launches "
+        f"{res['launches']['x4']}")
+
+
+def _sc_dryruns(res, counters):
+    """(x5) entry.dryrun_multichip(4, backend="gloo"): gloo worlds of 4
+    and 2 ranks sharing the card; every check meets its threshold (the
+    function asserts them).  (x6) entry.dryrun_multihost(2,
+    backend="gloo"): 4 worker processes on the card, 2 hosts of 2."""
+    from aule_tpu_torch import entry
+
+    t0 = time.perf_counter()
+    out = entry.dryrun_multichip(4, backend="gloo")
+    res["x5"] = dict(out, wall_s=time.perf_counter() - t0)
+    log(f"scripts (x5): dryrun_multichip(4, gloo) in "
+        f"{res['x5']['wall_s']:.2f} s")
+    t0 = time.perf_counter()
+    losses = entry.dryrun_multihost(2, backend="gloo")
+    if len(losses) != 4 or len(set(losses)) != 1:
+        raise AssertionError(f"scripts (x6): worker losses {losses}")
+    res["x6"] = dict(losses=losses, wall_s=time.perf_counter() - t0)
+    log(f"scripts (x6): dryrun_multihost(2, gloo) in "
+        f"{res['x6']['wall_s']:.2f} s")
+
+
+def _sc_profiling(res, counters):
+    """(x7) utils/profiling.benchmark on the Llama-3-8B layer's flash
+    forward (B1 Hq32/Hkv8 S2048 D128 bf16 causal) within SC_BENCH_TOL of
+    cuda_time_ms's median; trace() writes a Chrome trace that names the
+    kernel."""
+    import tempfile
+
+    from aule_tpu_torch.ops.flash import flash_fwd_tma
+    from aule_tpu_torch.utils import profiling
+
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(SC_SEED)
+    q = _randn((1, 32, 2048, 128), gen)
+    k, v = _randn((1, 8, 2048, 128), gen), _randn((1, 8, 2048, 128), gen)
+
+    def call(q, k, v):
+        return flash_fwd_tma(q, k, v, causal=True)
+
+    sec, (lo, hi) = profiling.benchmark(call, q, k, v, return_spread=True)
+    med, mn, mx = profiling.cuda_time_ms(lambda: call(q, k, v))
+    ratio = sec * 1e3 / med
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        with profiling.trace(path):
+            call(q, k, v)
+        with open(path) as f:
+            text = f.read()
+    named = "flash_fwd_kernel" in text
+    res["x7"] = dict(benchmark_ms=sec * 1e3, benchmark_spread_ms=[
+        lo * 1e3, hi * 1e3], cuda_time_ms=med, cuda_time_spread_ms=[mn, mx],
+        ratio=ratio, trace_bytes=len(text), trace_names_kernel=named)
+    log(f"scripts (x7): profiling.benchmark {sec * 1e3 * 1e3:.1f} us "
+        f"(spread {lo * 1e6:.1f}-{hi * 1e6:.1f}) against cuda_time_ms "
+        f"{med * 1e3:.1f} us ({mn * 1e3:.1f}-{mx * 1e3:.1f}): ratio "
+        f"{ratio:.3f}; trace {len(text)} bytes, names flash_fwd_kernel: "
+        f"{named}; {card_line()}")
+    if abs(ratio - 1.0) > SC_BENCH_TOL:
+        raise AssertionError(f"scripts (x7): benchmark {ratio:.3f}x "
+                             f"cuda_time_ms's median")
+    if not named:
+        raise AssertionError("scripts (x7): the trace names no "
+                             "flash_fwd_kernel")
+
+
+def check_scripts() -> dict:
+    """The port's entry points and scripts on the card, (x1)-(x7), each
+    through the call a user makes (the launch counts set to 0 before each
+    in-process script and read after; the worlds' and the workers' ranks
+    run in processes of their own, checked by their results)."""
+    t_start = time.perf_counter()
+    log(card_line())
+    counters = _launch_counters()
+    res = {"launches": {}, "seconds": {}}
+    for part, fn in (("x1", _sc_entry), ("x2", _sc_serve), ("x3", _sc_train),
+                     ("x4", _sc_scaling), ("x5-x6", _sc_dryruns),
+                     ("x7", _sc_profiling)):
+        t0 = time.perf_counter()
+        fn(res, counters)
+        res["seconds"][part] = round(time.perf_counter() - t0, 1)
+    res["launches"]["x1"] = res["x1"]["launches"]
+    for entry, parts in SCRIPTS_LAUNCHES:
+        for run, counter in parts:
+            if not res["launches"].get(run, {}).get(counter):
+                raise AssertionError(f"scripts: {counter} was not launched "
+                                     f"in {run} ({entry})")
+    res["seconds"]["total"] = round(time.perf_counter() - t_start, 1)
+    log(f"scripts: launches {res['launches']}; seconds {res['seconds']}")
+    return res
+
+
+def add_script_launches(entries, sc) -> None:
+    """Add the in-process scripts' launches ((x1), (x2), (x4)) to the
+    entries of the kernel modes they launch."""
+    by_name = {e["name"]: e for e in entries}
+    for name, parts in SCRIPTS_LAUNCHES:
+        got = {run: sc["launches"][run][counter] for run, counter in parts}
+        by_name[name]["launches"] += sum(got.values())
+        by_name[name]["launches_scripts"] = got
+
+
 def _phase_process(flag: str, what: str) -> dict:
     """A phase in a process of its own (`chip_smoke.py <flag>`): its
     profiled timings meet a fresh torch.profiler, which loses kernels
@@ -7983,11 +8295,17 @@ def phase_frontends() -> dict:
     return _phase_process("--frontends", "serving front-end")
 
 
+def phase_scripts() -> dict:
+    """check_scripts in a process of its own (`chip_smoke.py --scripts`),
+    which starts the demos' and dry runs' worlds and workers."""
+    return _phase_process("--scripts", "scripts")
+
+
 def child_main(check) -> None:
     """`chip_smoke.py --public`, `--gpt2`, `--llama32`, `--mistral`,
     `--moe`, `--adamw`, `--spec`, `--parallel`, `--parallel-model`,
-    `--head-dims` or `--frontends`: that phase alone, its result as one
-    JSON line last."""
+    `--head-dims`, `--frontends` or `--scripts`: that phase alone, its
+    result as one JSON line last."""
     if not torch.cuda.is_available():
         log("device: torch.cuda.is_available() is False")
         sys.exit(2)
@@ -8748,6 +9066,7 @@ def main() -> None:
     pm = timed("parallel model", phase_parallel_model)
     hd = timed("head dims", phase_head_dims)
     fe = timed("frontends", phase_frontends)
+    sc = timed("scripts", phase_scripts)
     runs, params, cfg = timed("engine", phase_engine)
     edges = timed("edges", phase_edges, params, cfg)
     timed("breakdown", phase_breakdown, params, cfg)
@@ -9064,6 +9383,7 @@ def main() -> None:
     parallel_model_entries(entries, pm)
     head_dim_entries(entries, hd)
     add_frontend_launches(entries, fe)
+    add_script_launches(entries, sc)
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
@@ -9093,5 +9413,7 @@ if __name__ == "__main__":
         child_main(check_head_dims)
     elif sys.argv[1:] == ["--frontends"]:
         child_main(check_frontends)
+    elif sys.argv[1:] == ["--scripts"]:
+        child_main(check_scripts)
     else:
         main()

@@ -53,7 +53,11 @@ ENTRY_MODULES = (
     "aule_tpu_torch.utils.checkpoint", "aule_tpu_torch.utils.tree",
     "aule_tpu_torch.serving.native", "aule_tpu_torch.serving.http_api",
     "aule_tpu_torch.serving.transport", "aule_tpu_torch.serving.multihost",
-    "aule_tpu_torch.serving.worker")
+    "aule_tpu_torch.serving.worker", "aule_tpu_torch.entry",
+    "aule_tpu_torch.examples.serve_demo",
+    "aule_tpu_torch.examples.train_demo",
+    "aule_tpu_torch.scripts.scaling_report",
+    "aule_tpu_torch.scripts.multihost_worker")
 LEFT_OUT = FORBIDDEN + ("transformers", "ml_dtypes")
 
 
@@ -70,7 +74,11 @@ def test_engine_import_leaves_jax_out():
 @pytest.mark.parametrize("module", ["models/moe.py", "models/convert.py",
                                     "parallel/optimizer.py",
                                     "parallel/__init__.py",
-                                    "utils/checkpoint.py", "utils/tree.py"])
+                                    "utils/checkpoint.py", "utils/tree.py",
+                                    "entry.py", "examples/serve_demo.py",
+                                    "examples/train_demo.py",
+                                    "scripts/scaling_report.py",
+                                    "scripts/multihost_worker.py"])
 def test_new_modules_import_no_optional_packages(module):
     """Not even inside a function: these modules never import
     transformers or ml_dtypes."""
@@ -138,3 +146,20 @@ def test_spawned_worker_holds_no_jax():
         proc.join(timeout=30)
     assert msg[:2] == (0, 0) and len(msg[2]) == 3
     assert modules == []
+
+
+@pytest.mark.parametrize("module", [
+    "aule_tpu_torch.entry", "aule_tpu_torch.examples.serve_demo",
+    "aule_tpu_torch.examples.train_demo",
+    "aule_tpu_torch.scripts.scaling_report"])
+def test_scripts_refuse_the_cpu_unless_asked(module):
+    """`python -m` of each entry point or script runs on the card by
+    default: without one it exits with an error naming device='cpu', and
+    prints nothing on its standard output."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    out = subprocess.run([sys.executable, "-m", module], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0
+    assert "device='cpu'" in out.stderr
+    assert out.stdout == ""

@@ -95,3 +95,71 @@ def test_dequantize_matches(name):
 def test_bad_dtype_raises():
     with pytest.raises(ValueError):
         tq.quantize_kv(torch.zeros(2, 8), torch.float16)
+
+
+# ---- the integer e4m3 decoders (aule_tpu/ops/quant.py:94-190) -------------
+
+CODES = np.arange(256, dtype=np.uint8)
+EM = CODES & 0x7F
+SUBNORMAL = (EM >= 1) & (EM <= 7)   # never in a pool (quantize_kv flushes)
+NAN_CODE = EM == 0x7F               # never in a pool (clipped to +-448)
+E4M3_EXPANDERS = {
+    "e4m3_expand": lambda m, x: m.e4m3_expand(x),
+    "e4m3_expand_f16": lambda m, x: m.e4m3_expand(
+        x, jnp.float16 if m is jq else torch.float16),
+    "e4m3_expand_bf16": lambda m, x: m.e4m3_expand(
+        x, jnp.bfloat16 if m is jq else torch.bfloat16),
+    "e4m3_expand_scaled": lambda m, x: m.e4m3_expand_scaled(x),
+    "e4m3_expand_scaled_bf16": lambda m, x: m.e4m3_expand_scaled_bf16(x),
+}
+
+
+def _bits(x):
+    a = x.numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+    if a.dtype == np.float32:
+        return a.view(np.uint32)
+    return a.view(np.uint16)
+
+
+def _decoded(name):
+    xi = jnp.asarray(CODES.view(np.int8))
+    want = E4M3_EXPANDERS[name](jq, xi)
+    got = E4M3_EXPANDERS[name](tq, torch.from_numpy(CODES.view(np.int8)
+                                                    .copy()))
+    if isinstance(want, jnp.ndarray) and want.dtype == jnp.bfloat16:
+        want = np.asarray(want).view(np.uint16)
+        return got.view(torch.int16).numpy().view(np.uint16), want
+    return _bits(got), _bits(want)
+
+
+@pytest.mark.parametrize("name", sorted(E4M3_EXPANDERS))
+def test_e4m3_expanders_bit_for_bit(name):
+    """Every code a pool can hold (+-0 and the normals) and the NaN codes
+    decode to JAX's bits; so do the subnormal codes, except where XLA on
+    this CPU flushed the subnormal intermediate of the scaled decoders to
+    0 (tests/test_quant.py's contract: exact or flushed), where the port
+    gives the IEEE value, e4m3_expand's * 2^-40."""
+    got, want = _decoded(name)
+    assert np.array_equal(got[~SUBNORMAL], want[~SUBNORMAL])
+    magnitude = 0x7FFF if want.dtype == np.uint16 else 0x7FFFFFFF
+    flushed = SUBNORMAL & ((want & magnitude) == 0)
+    assert np.array_equal(got[SUBNORMAL & ~flushed],
+                          want[SUBNORMAL & ~flushed])
+    if flushed.any():
+        exact = tq.e4m3_expand(torch.from_numpy(CODES.view(np.int8).copy())
+                               ).numpy() * np.float32(2.0 ** -40)
+        got_f = (torch.from_numpy(got.view(np.int16)).view(torch.bfloat16)
+                 .float().numpy() if got.dtype == np.uint16
+                 else got.view(np.float32))
+        assert np.array_equal(got_f[flushed], exact[flushed])
+    assert tq.E4M3_EXPAND_SHIFT == jq.E4M3_EXPAND_SHIFT
+
+
+def test_e4m3_expand_equals_the_cast():
+    """e4m3_expand is the float8_e4m3fn cast on every non-NaN code, signed
+    zeros included (the contract of tests/test_quant.py:86-100)."""
+    t = torch.from_numpy(CODES.view(np.int8).copy())
+    got = tq.e4m3_expand(t).numpy()
+    want = t.view(torch.float8_e4m3fn).float().numpy()
+    ok = ~NAN_CODE
+    assert np.array_equal(got[ok].view(np.uint32), want[ok].view(np.uint32))
